@@ -1,0 +1,25 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
+
+The JAX package ``paddle_tpu`` stays the reference; this package is its
+counterpart for an NVIDIA Hopper card (H100, ``sm_90a``), ported slice
+by slice. Each module mirrors the path of the ``paddle_tpu`` module it
+ports and names that file in its docstring. Nothing here imports ``jax``
+or ``paddle_tpu``.
+
+Slice 1 (this tree): GPT continuous-batching serving on a paged KV cache
+whose int8/fp8 at-rest codec runs on two hand-written CUDA kernels
+(``csrc/codec.cu``):
+
+  framework/   device resolution (cuda by default), serving flags,
+               per-request random streams
+  models/      GPTConfig/presets, numpy-seeded GPTForCausalLM parameters,
+               weight conversion from the JAX model's numpy arrays
+  distributed/ plain torch versions of the blockwise codec math
+  ops/         the codec wrappers (kernel on CUDA, plain on CPU) and the
+               nvcc/ctypes build
+  serving/     decode model, KV block pool, sampler, queue, engine
+  observability/ the counters, gauges and histograms serving uses
+
+Entry points run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; a CUDA request without a card raises.
+"""

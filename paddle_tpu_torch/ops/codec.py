@@ -1,0 +1,157 @@
+"""Blockwise codec wrappers (reference: ``paddle_tpu/ops/pallas/codec.py``
+``block_encode``/``block_decode``).
+
+Dispatch is by where the tensor lies, and nothing else:
+
+  CPU tensor  -> the plain PyTorch version (``distributed/grad_comm.py``);
+  CUDA tensor -> the hand-written kernel (``csrc/codec.cu``), or raise.
+
+There is no fallback from the kernel to the plain version. Each wrapper
+counts its kernel launches in a plain integer attribute
+(``block_encode.launches``, ``block_decode.launches``), incremented only
+where the kernel is launched, so a run can show its path went through
+the kernel. The wrappers check device, dtype, shape, alignment and
+contiguity, allocate outputs with ``torch.empty`` and never synchronize;
+the kernel runs on PyTorch's current stream.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ..distributed import grad_comm as _plain
+from ..framework.device import require_sm90
+from ._build import load_library
+
+__all__ = ["block_encode", "block_decode", "launch_counts",
+           "reset_launch_counts", "KERNEL_SOURCE"]
+
+KERNEL_SOURCE = "paddle_tpu_torch/csrc/codec.cu"
+_CODEC_ID = {"int8_block": 0, "fp8_block": 1}
+_WIRE_ID = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(device_index: int) -> ctypes.CDLL:
+    require_sm90(torch.device("cuda", device_index))
+    lib = load_library("codec")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.codec_encode.argtypes = [p, p, p, i64, i64, ctypes.c_int, p]
+    lib.codec_encode.restype = ctypes.c_int
+    lib.codec_decode.argtypes = [p, p, p, i64, i64, i64, ctypes.c_int,
+                                 ctypes.c_float, p]
+    lib.codec_decode.restype = ctypes.c_int
+    return lib
+
+
+def _check_operand(name: str, t: torch.Tensor, device: torch.device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned for the kernel's "
+                         f"vector loads")
+
+
+def _check_block_size(block_size: int):
+    if block_size % 4:
+        raise ValueError(f"the CUDA codec needs block_size % 4 == 0, got "
+                         f"{block_size}")
+
+
+def block_encode(flat: torch.Tensor, scales: torch.Tensor, block_size: int,
+                 codec: str) -> torch.Tensor:
+    """Quantize ``flat`` blockwise with ``scales`` -> wire dtype
+    [n_blocks, block_size] (int8 or float8_e4m3fn)."""
+    if codec not in _CODEC_ID:
+        raise ValueError(f"codec must be one of {tuple(_CODEC_ID)}, "
+                         f"got {codec!r}")
+    if flat.device.type == "cpu":
+        return _plain.block_encode(flat, scales, block_size, codec)
+    if flat.device.type != "cuda":
+        raise ValueError(f"unsupported device {flat.device}")
+    if flat.dtype != torch.float32 or scales.dtype != torch.float32:
+        raise TypeError("block_encode wants fp32 input and fp32 scales")
+    _check_block_size(block_size)
+    flat = flat.reshape(-1)
+    nb = _plain.n_scale_blocks(flat.numel(), block_size)
+    if scales.shape != (nb,):
+        raise ValueError(f"scales shape {tuple(scales.shape)}, expected "
+                         f"({nb},)")
+    if flat.numel() != nb * block_size:  # ragged tail: zero-pad the layout
+        flat = F.pad(flat, (0, nb * block_size - flat.numel()))
+    dev = flat.device
+    _check_operand("flat", flat, dev)
+    _check_operand("scales", scales, dev)
+    out = torch.empty((nb, block_size), dtype=_plain.WIRE_DTYPE[codec],
+                      device=dev)
+    if not nb:
+        return out
+    lib = _lib(dev.index)
+    with torch.cuda.device(dev):
+        rc = lib.codec_encode(flat.data_ptr(), scales.data_ptr(),
+                              out.data_ptr(), nb, block_size,
+                              _CODEC_ID[codec],
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"codec_encode launch failed: CUDA error {rc}")
+    block_encode.launches += 1
+    return out
+
+
+def block_decode(q: torch.Tensor, scales: torch.Tensor, world: int,
+                 numel: int) -> torch.Tensor:
+    """Dequantize a [n_blocks, bs] wire payload -> fp32 [numel] (the
+    first ``numel`` values of ``q * scale / world``)."""
+    if q.device.type == "cpu":
+        return _plain.block_decode(q, scales, world, numel)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _WIRE_ID:
+        raise TypeError(f"block_decode wants an int8 or float8_e4m3fn "
+                        f"payload, got {q.dtype}")
+    if scales.dtype != torch.float32:
+        raise TypeError("block_decode wants fp32 scales")
+    if q.dim() != 2:
+        raise ValueError(f"payload must be [n_blocks, bs], got "
+                         f"{tuple(q.shape)}")
+    nb, bs = q.shape
+    _check_block_size(bs)
+    if scales.shape != (nb,):
+        raise ValueError(f"scales shape {tuple(scales.shape)}, expected "
+                         f"({nb},)")
+    if not 0 <= numel <= nb * bs:
+        raise ValueError(f"numel {numel} outside [0, {nb * bs}]")
+    dev = q.device
+    _check_operand("q", q, dev)
+    _check_operand("scales", scales, dev)
+    out = torch.empty((numel,), dtype=torch.float32, device=dev)
+    if not numel:
+        return out
+    lib = _lib(dev.index)
+    with torch.cuda.device(dev):
+        rc = lib.codec_decode(q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                              nb, bs, numel, _WIRE_ID[q.dtype], float(world),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"codec_decode launch failed: CUDA error {rc}")
+    block_decode.launches += 1
+    return out
+
+
+block_encode.launches = 0
+block_decode.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"codec_encode": block_encode.launches,
+            "codec_decode": block_decode.launches}
+
+
+def reset_launch_counts() -> None:
+    block_encode.launches = 0
+    block_decode.launches = 0

@@ -1,0 +1,165 @@
+"""The port's CUDA path held against its own plain PyTorch path.
+
+The test here needs the card (``requires_cuda``) and skips, with its
+reason, where ``torch.cuda.is_available()`` is False. The module imports
+neither JAX nor ``paddle_tpu``, so it runs on the GPU machine, which has
+no JAX; the repository's ``tests/conftest.py`` imports JAX, so run it
+there with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
+
+Tolerances: codec payloads and decoded values bit-identical; pool bytes
+identical; greedy engine tokens identical to the CPU engine's, with every
+step's top-2 logit gap asserted above 1e-3 (card and CPU fp32 logits
+differ by ~1e-5 at this size).
+
+The file collects one test that runs every case (``tests/torch_checks.py``
+says why).
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.distributed import grad_comm as plain
+from paddle_tpu_torch.models import GPTForCausalLM, gpt_presets
+from paddle_tpu_torch.observability.metrics import get_registry
+from paddle_tpu_torch.ops import codec
+from paddle_tpu_torch.serving import (BatchSampler, GPTDecodeModel,
+                                      KVBlockPool, RequestQueue,
+                                      ServeRequest, ServingEngine)
+from torch_checks import run_checks
+
+torch.set_num_threads(2)
+
+CODECS = ("int8_block", "fp8_block")
+CASES = [(5000, 1024), (777, 128), (2 * 256 + 3, 256), (18432 * 3, 1024)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the codec kernels run only on "
+                    "the card (no interpret mode)")
+    return torch.device("cuda", 0)
+
+
+def _x(n, bs, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n).astype(np.float32) * 4
+    x[:bs] = 0.0                               # all-zero block
+    x[bs:bs + 8] = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -127.0]
+    return torch.from_numpy(x)
+
+
+def check_kernels_match_plain_bit_for_bit(dev, codec_name, n, bs, world):
+    x = _x(n, bs, seed=n + bs)
+    s = plain.block_scales(plain.block_absmax(x, bs), codec_name)
+    q_ref = plain.block_encode(x, s, bs, codec_name)
+    d_ref = plain.block_decode(q_ref, s, world, n)
+    before = codec.launch_counts()
+    q = codec.block_encode(x.to(dev), s.to(dev), bs, codec_name)
+    d = codec.block_decode(q, s.to(dev), world, n)
+    torch.cuda.synchronize()
+    assert q.dtype == q_ref.dtype and q.shape == q_ref.shape
+    assert torch.equal(q.cpu().view(torch.uint8), q_ref.view(torch.uint8))
+    assert torch.equal(d.cpu(), d_ref)
+    # the plain version on the card agrees too
+    assert torch.equal(plain.block_decode(q, s.to(dev), world, n).cpu(),
+                       d_ref)
+    after = codec.launch_counts()
+    assert after == {"codec_encode": before["codec_encode"] + 1,
+                     "codec_decode": before["codec_decode"] + 1}
+
+
+def check_wrappers_raise_on_what_the_kernel_does_not_take(dev):
+    x = torch.randn(4097, device=dev)
+    s = torch.ones(4, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        codec.block_encode(x[1:], s, 1024, "int8_block")
+    with pytest.raises(ValueError, match="block_size"):
+        codec.block_encode(x[:4094], torch.ones(2, device=dev), 2047,
+                           "int8_block")
+    with pytest.raises(TypeError):
+        codec.block_encode(x[:4096].double(), s, 1024, "int8_block")
+    with pytest.raises(TypeError):
+        codec.block_decode(torch.zeros(4, 1024, device=dev), s, 1, 4096)
+    with pytest.raises(ValueError, match="numel"):
+        codec.block_decode(torch.zeros(4, 1024, dtype=torch.int8,
+                                       device=dev), s, 1, 5000)
+
+
+def check_pool_on_card_matches_pool_on_cpu(dev, codec_name):
+    ept = 256
+    rs = np.random.RandomState(3)
+    pools = [KVBlockPool(16, 4, ept, codec=codec_name, quant_block=128,
+                         device=d) for d in ("cpu", dev)]
+    tables = [[p.alloc_table(12), p.alloc_table(6)] for p in pools]
+    for which, n in ((0, 3), (1, 2), (0, 5), (1, 4), (0, 4)):
+        kv = rs.randn(n, ept).astype(np.float32)
+        outs = [p.append(t[which], kv) for p, t in zip(pools, tables)]
+        assert torch.equal(outs[0], outs[1].cpu())
+    assert torch.equal(pools[0]._payload.view(torch.uint8),
+                       pools[1]._payload.cpu().view(torch.uint8))
+    assert torch.equal(pools[0]._scales, pools[1]._scales.cpu())
+    for i in (0, 1):
+        assert torch.equal(pools[0].gather(tables[0][i]),
+                           pools[1].gather(tables[1][i]).cpu())
+
+
+class _GapSampler(BatchSampler):
+    min_gap = float("inf")
+
+    def sample(self, logits, params, identities, positions):
+        top2 = logits.topk(2, dim=-1).values
+        self.min_gap = min(self.min_gap,
+                           float((top2[:, 0] - top2[:, 1]).min()))
+        return super().sample(logits, params, identities, positions)
+
+
+def _serve(device, prompts):
+    dm = GPTDecodeModel(GPTForCausalLM(gpt_presets("gpt-test"), seed=0,
+                                       device=device))
+    pool = KVBlockPool(64, 8, dm.elems_per_token, codec="int8_block",
+                       device=device)
+    q = RequestQueue()
+    gaps = _GapSampler()
+    eng = ServingEngine(dm, pool, q, max_batch=4, sampler=gaps)
+    reqs = [ServeRequest(prompt_ids=p, max_new_tokens=16) for p in prompts]
+    for r in reqs:
+        q.submit(r)
+    while eng.step():
+        pass
+    assert all(r.outcome == "completed" for r in reqs)
+    assert pool.blocks_in_use == 0
+    return [r.generated for r in reqs], gaps.min_gap, pool
+
+
+def check_engine_on_card_token_identical_to_cpu(dev):
+    rs = np.random.RandomState(0)
+    shared = rs.randint(0, 256, 20)
+    prompts = [np.concatenate([shared, rs.randint(0, 256, 3)]),
+               rs.randint(0, 256, 11),
+               np.concatenate([shared, rs.randint(0, 256, 9)]),
+               shared.copy(), rs.randint(0, 256, 29)]
+    steps = get_registry().get("serve_decode_step_ms")
+    before, steps_before = codec.launch_counts(), steps.get()["count"]
+    card, gap, pool = _serve(dev, prompts)
+    after = codec.launch_counts()
+    decode_steps = steps.get()["count"] - steps_before
+    cpu, cpu_gap, _ = _serve("cpu", prompts)
+    assert min(gap, cpu_gap) > 1e-3
+    assert card == cpu
+    assert pool.cached_blocks > 0
+    # one append per prompt, then one batched append per decode step;
+    # each reads back once, and each prefix-cache admission gathers once
+    encodes = after["codec_encode"] - before["codec_encode"]
+    assert encodes == len(prompts) + decode_steps
+    assert after["codec_decode"] - before["codec_decode"] > encodes
+
+
+@pytest.mark.requires_cuda
+def test_cuda_path_matches_plain(dev):
+    run_checks(
+        [(check_kernels_match_plain_bit_for_bit, (dev, c, n, bs, w))
+         for c in CODECS for n, bs in CASES for w in (1, 3)]
+        + [(check_wrappers_raise_on_what_the_kernel_does_not_take, (dev,))]
+        + [(check_pool_on_card_matches_pool_on_cpu, (dev, c)) for c in CODECS]
+        + [(check_engine_on_card_token_identical_to_cpu, (dev,))])
