@@ -33,6 +33,43 @@ when every phase passed):
               top-2 gap exceeds 1e-3.
   5. profile  torch.profiler over 8 decode-only steps at batch 8: device
               busy/idle share and device time by kernel.
+  6. train-kernels
+              the flash attention kernels (flash_fwd, flash_dq, flash_dkv)
+              against their plain versions on the card at the train
+              step's shape (b8 n12 s1024 d64, causal), a tail shape
+              (s = 1000, not a multiple of the 64-row tile) and d = 128,
+              causal and full: out and lse within 2e-5 max abs, dq/dk/dv
+              within 1e-4 of the larger of 1 and the largest gradient
+              (inputs are unit-scale randn); fused_update against its
+              plain version bit for bit for sgd/momentum/adam/adamw,
+              weight decay on and off, a ragged n, and on each of the
+              train step's AdamW buckets; median ms over 30 launches (L2
+              flushed) for kernel, plain version and the one-call
+              yardsticks (scaled_dot_product_attention forward and its
+              autograd backward; torch._fused_adamw_ over the same
+              buckets), and the bound. The criteria are
+              tests/torch_checks.py's, shared with tests/test_torch_cuda.py;
+  7. train    TrainStep on GPT-125M (full width and depth, random weights
+              from seed 0), batch 8 x 1024 tokens fp32, AdamW lr 1e-4
+              wd 0.01, one seeded batch: 2 warm-up steps, then 5 timed
+              steps with launch counts reset just before and read just
+              after (12 per step for each flash kernel, one per bucket
+              per step for fused_update); every loss finite, the last
+              below the first;
+  8. train-profile
+              torch.profiler over one train step: device busy/idle share,
+              device time by kernel, each new kernel's share of the step;
+  9. train-parity
+              one TrainStep on the card and one on the CPU from the same
+              weights and batch, GPT-125M width with 2 layers, b2 s128:
+              loss within 1e-5 relative; every gradient within 1e-4 of its
+              tensor's largest; on every element whose gradient is 100
+              eps or more and 10 times the tensor's largest card-vs-CPU
+              gradient difference or more, the card's step equals the
+              CPU's within 1e-2 lr and is at least 0.9 lr (Adam's first step moves a
+              weight by about lr whatever its gradient's size, so steps
+              from noise-level gradients are set by the noise and are
+              reported, not held).
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -40,7 +77,9 @@ last line. Exits non-zero without output when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -55,6 +94,10 @@ FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
 EPT = 12 * 2 * 768          # GPT-125M KV elements per token
 QB = 1024                   # KV quant block
 MAIN_SHAPE = "decode_step_8"  # the shape behind most serve-phase launches
+SOURCES = ("codec", "flash_attention", "fused_update")
+TRAIN_B, TRAIN_S = 8, 1024          # the train phase's batch
+FLASH_MAIN = (8, 12, 1024, 64)      # [b, n, s, d] of every train launch
+LR, WD = 1e-4, 0.01
 
 
 def log(*a):
@@ -107,9 +150,13 @@ def phase_device():
     from paddle_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    path = _build.compile_source("codec")
-    _build.load_library("codec")
-    log(f"built {os.path.relpath(path)} in {time.perf_counter() - t0:.2f} s")
+    # one nvcc per source, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+        paths = list(ex.map(_build.compile_source, SOURCES))
+    for name in SOURCES:
+        _build.load_library(name)
+    log(f"built {', '.join(os.path.relpath(p) for p in paths)} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 def serve_shapes(reqs) -> dict:
@@ -384,7 +431,297 @@ def phase_profile(dm, seed: int, steps: int = 8):
         pass
 
 
-def kernels_line(rows, counts):
+# ------------------------------------------------------------ training
+def flash_work(shape, causal: bool, kernel: str):
+    """(bytes, fp32 operations) one flash kernel needs for ``shape``:
+    each input read once, each output written once; 2d operations per
+    visible (query, key) pair and product (causal: s(s+1)/2 pairs)."""
+    b, n, s, d = shape
+    pairs = b * n * (s * (s + 1) // 2 if causal else s * s)
+    mat, row = 4 * b * n * s * d, 4 * b * n * s
+    if kernel == "flash_fwd":     # q, k, v -> out, lse; QK^T and PV
+        return 4 * mat + row, 2 * 2 * d * pairs
+    if kernel == "flash_dq":      # q, k, v, dO, lse, delta -> dq
+        return 5 * mat + 2 * row, 3 * 2 * d * pairs
+    return 6 * mat + 2 * row, 4 * 2 * d * pairs   # ... -> dk, dv
+
+
+def work_bound(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _flash_case(dev, gen, shape, causal, timed: bool, flush):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+    from torch_checks import flash_vs_plain
+
+    q, k, v, do = (torch.randn(*shape, device=dev, generator=gen)
+                   for _ in range(4))
+    errs, lse, delta = flash_vs_plain(q, k, v, do, causal)
+    kernel_err = {"flash_fwd": max(errs["out"][0], errs["lse"][0]),
+                  "flash_dq": errs["dq"][0],
+                  "flash_dkv": max(errs["dk"][0], errs["dv"][0])}
+    rows = {}
+    if timed:
+        # one-call yardsticks, timed here and used nowhere in the port
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        ref = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+        lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), flush)
+        lib_bwd = median_ms(lambda: torch.autograd.grad(
+            ref, (qr, kr, vr), do, retain_graph=True), flush)
+        calls = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+                          lambda: fa.flash_fwd_plain(q, k, v, causal),
+                          lib_fwd),
+            "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
+                         lambda: fa.flash_dq_plain(q, k, v, do, lse, delta,
+                                                   causal), lib_bwd),
+            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                               causal),
+                          lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
+                                                     causal), lib_bwd)}
+        for name, (kern, plain, lib) in calls.items():
+            bound_ms, bound_by = work_bound(*flash_work(shape, causal, name))
+            rows[name] = {"shape": f"{list(shape)} "
+                                   f"{'causal' if causal else 'full'}",
+                          "max_abs_err": kernel_err[name],
+                          "ms": median_ms(kern, flush),
+                          "plain_ms": median_ms(plain, flush),
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": lib}
+    log(f"flash {list(shape)} causal={causal}: max abs diff "
+        + ", ".join(f"{n} {e:.2e} (limit {lim:.2e})"
+                    for n, (e, lim) in errs.items())
+        + "".join(f" | {n} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                  f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                  f"{r['bound_by']})" for n, r in rows.items()))
+    return rows
+
+
+def _fused_case(gen, kind, wd, n):
+    from torch_checks import FUSED_HYPER, fused_inputs, fused_vs_plain
+
+    p, g, slots, lr = fused_inputs(kind, n, gen, LR)
+    return fused_vs_plain(p, g, slots, lr, kind=kind,
+                          hyper=FUSED_HYPER[kind], wd=wd)
+
+
+def _fused_timing(dev, gen, buckets, flush):
+    """One train step's fused updates (every bucket of the GPT-125M plan,
+    AdamW at its fourth step, weights, gradients and moments at the
+    scales of the train phase): each bucket's kernel held bit for bit
+    against its plain version on the same inputs, then the kernel, the
+    plain version and torch._fused_adamw_ over the same buckets timed,
+    and the bound for the whole set."""
+    from torch_checks import FUSED_HYPER, fused_vs_plain
+
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    hyper = FUSED_HYPER["adamw"]
+    sizes = [b.size for b in buckets]
+    ps = [torch.randn(n, device=dev, generator=gen) * 0.02 for n in sizes]
+    gs = [torch.randn(n, device=dev, generator=gen) * 1e-3 for n in sizes]
+    m1 = [torch.randn(n, device=dev, generator=gen) * 1e-4 for n in sizes]
+    m2 = [torch.randn(n, device=dev, generator=gen) ** 2 * 1e-6
+          for n in sizes]
+    scal = {"beta1_pow": torch.full((), 0.9 ** 3, device=dev),
+            "beta2_pow": torch.full((), 0.999 ** 3, device=dev)}
+    lr = torch.full((), LR, device=dev)
+    err = max(fused_vs_plain(p, g, {"moment1": a, "moment2": b, **scal}, lr,
+                             kind="adamw", hyper=hyper, wd=WD)
+              for p, g, a, b in zip(ps, gs, m1, m2))
+    log(f"fused_update: bit-identical to plain on each of the {len(sizes)} "
+        f"AdamW buckets of the train step ({min(sizes)}..{max(sizes)} "
+        f"elements)")
+
+    def kernel():
+        for p, g, a, b in zip(ps, gs, m1, m2):
+            fu.fused_update_flat(p, g, {"moment1": a, "moment2": b, **scal},
+                                 lr, kind="adamw", hyper=hyper, wd=WD)
+
+    def plain():
+        for p, g, a, b in zip(ps, gs, m1, m2):
+            fu.reference_update_flat(p, g, {"moment1": a, "moment2": b,
+                                            **scal},
+                                     lr, kind="adamw", hyper=hyper, wd=WD)
+
+    steps = [torch.full((), 4.0, device=dev) for _ in sizes]
+
+    def library():
+        torch._fused_adamw_(ps, gs, m1, m2, [], steps, lr=LR, beta1=0.9,
+                            beta2=0.999, weight_decay=WD, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    n = sum(sizes)
+    # read p, g, m1, m2; write p, m1, m2 (fp32); ~20 operations each
+    bound_ms, bound_by = work_bound(7 * 4 * n, 20 * n)
+    return {"shape": f"{len(sizes)} buckets, {n} elements (one step)",
+            "max_abs_err": err,
+            "ms": median_ms(kernel, flush), "plain_ms": median_ms(plain, flush),
+            "library_ms": median_ms(library, flush), "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "largest_bucket": max(sizes), "smallest_bucket": min(sizes)}
+
+
+def phase_train_kernels(dev, gen, buckets):
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rows = _flash_case(dev, gen, FLASH_MAIN, True, True, flush)
+    for shape, causal in (((2, 12, 1000, 64), True), ((2, 12, 1000, 64), False),
+                          ((2, 8, 1024, 128), True), ((2, 8, 1024, 128), False),
+                          ((8, 12, 1024, 64), False)):
+        _flash_case(dev, gen, shape, causal, False, flush)
+    for kind in ("sgd", "momentum", "adam", "adamw"):
+        for wd in (0.0, WD):
+            _fused_case(gen, kind, wd, 1_000_003)
+    log("fused_update: bit-identical to plain for sgd/momentum/adam/adamw, "
+        "wd 0 and 0.01, n = 1,000,003")
+    fused = _fused_timing(dev, gen, buckets, flush)
+    rows["fused_update"] = fused
+    log(f"fused_update, one step's {fused['shape']}: {fused['ms']:.4f} ms "
+        f"(plain {fused['plain_ms']:.4f}, torch._fused_adamw_ "
+        f"{fused['library_ms']:.4f}, bound {fused['bound_ms']:.4f} "
+        f"{fused['bound_by']})")
+    del flush
+    return rows
+
+
+def _train_setup(cfg, device, b, s, seed):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM, GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForCausalLM(cfg, seed=0, device=device)
+    opt = AdamW(learning_rate=LR, weight_decay=WD,
+                parameters=model.parameters())
+    step = TrainStep(model, GPTPretrainingCriterion(), opt)
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg.vocab_size, (b, s))
+    labels = rs.randint(0, cfg.vocab_size, (b, s))
+    return model, step, ids, labels
+
+
+def train_launch_counts() -> dict:
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    return {**fa.launch_counts(), **fu.launch_counts()}
+
+
+def reset_train_launch_counts() -> None:
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    fa.reset_launch_counts()
+    fu.reset_launch_counts()
+
+
+def phase_train(cfg, dev, seed, warmup=2, steps=5, b=TRAIN_B, s=TRAIN_S):
+    _, step, ids, labels = _train_setup(cfg, dev, b, s, seed)
+    n_params = sum(b.size for b in step.buckets)
+    log(f"train: {n_params} parameters in {len(step.buckets)} buckets, "
+        f"{cfg.num_layers} layers, batch {b} x {s}, AdamW lr {LR} wd {WD}")
+    losses = []
+    for _ in range(warmup):
+        losses.append(float(step(inputs=(ids,), labels=(labels,))))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launch_counts()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(inputs=(ids,), labels=(labels,))
+        losses.append(float(loss))        # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = train_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = b * s
+    summary = {"losses": losses, "step_ms": step_ms,
+               "step_ms_median": statistics.median(step_ms),
+               "tokens_per_s": tokens / (statistics.median(step_ms) / 1e3),
+               "peak_memory_gib": peak, "buckets": len(step.buckets),
+               "launches": counts}
+    log("train " + json.dumps(summary))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    want = {"flash_fwd": cfg.num_layers * steps,
+            "flash_dq": cfg.num_layers * steps,
+            "flash_dkv": cfg.num_layers * steps,
+            "fused_update": len(step.buckets) * steps}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    return counts, step, ids, labels
+
+
+def _one_step(cfg, device, b, s, seed):
+    """One TrainStep from the seeded weights: the loss and, per
+    parameter, (before, after, gradient) on the CPU."""
+    model, step, ids, labels = _train_setup(cfg, device, b, s, seed)
+    before = {n: p.detach().cpu().clone()
+              for n, p in model.named_parameters()}
+    loss = float(step(inputs=(ids,), labels=(labels,)))
+    return loss, {n: (before[n], p.detach().cpu(), p.grad.cpu())
+                  for n, p in model.named_parameters()}
+
+
+def phase_train_parity(cfg, dev, seed):
+    """One step on the card and one on the CPU, same weights and batch:
+    the loss, the gradients and the step itself compared (see
+    ``tests/torch_checks.py`` ``adam_step_parity``)."""
+    import dataclasses
+
+    from torch_checks import adam_step_parity
+
+    small = dataclasses.replace(cfg, num_layers=2)
+    card_loss, card = _one_step(small, dev, 2, 128, seed + 2)
+    cpu_loss, cpu = _one_step(small, "cpu", 2, 128, seed + 2)
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    log(f"train card vs CPU (gpt-125m width, 2 layers, b2 s128): loss "
+        f"{card_loss:.7f} vs {cpu_loss:.7f} (rel {rel:.2e})")
+    if not rel <= 1e-5:
+        raise AssertionError("card and CPU losses differ beyond 1e-5")
+    r = adam_step_parity(card, cpu, LR)
+    log(f"train card vs CPU after one AdamW step: gradients within "
+        f"{r['grad_rtol']:.2e} of each tensor's largest (limit 1e-4); on "
+        f"the {100 * r['clear_share']:.1f}% of elements whose gradient is "
+        f"clear of the noise, steps within {r['clear_step_diff_lr']:.2e} "
+        f"lr (limit 1e-2) and every one >= 0.9 lr; over all elements "
+        f"max |param diff| {r['param_max_abs_diff']:.3e}")
+
+
+def phase_train_profile(step, ids, labels):
+    from torch.profiler import ProfilerActivity, profile
+
+    step(inputs=(ids,), labels=(labels,))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(inputs=(ids,), labels=(labels,))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"train profile: one step, wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy, "
+        f"{100 * (1 - busy_us / wall_us):.1f}% idle), "
+        f"{sum(e.count for e in kernels)} kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{100 * e.self_device_time_total / busy_us:5.1f}% "
+            f"{e.count:5d}x  {e.key[:90]}")
+    for name in ("fwd_kernel", "dq_kernel", "dkv_kernel", "update_kernel"):
+        t = sum(e.self_device_time_total for e in kernels if name in e.key)
+        log(f"  share of the step's device time, {name}: "
+            f"{100 * t / busy_us:.1f}% ({t / 1e3:.3f} ms)")
+
+
+def kernels_line(rows, counts, train_rows, train_counts):
     """One entry per kernel at the shape behind most of its serve-phase
     launches (the int8 decode-step append, 8 x EPT); ``at_shapes`` holds
     the other int8 shapes the serve phase launches it at."""
@@ -407,6 +744,25 @@ def kernels_line(rows, counts):
             replaces=f"paddle_tpu/ops/pallas/codec.py:{line}",
             launches=counts[name], **numbers(int8.pop(MAIN_SHAPE), p),
             at_shapes=[numbers(r, p) for r in int8.values()]))
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    for name, source, replaces in (
+            ("flash_fwd", fa.KERNEL_SOURCE,
+             "paddle_tpu/ops/flash_attention.py:118"),
+            ("flash_dq", fa.KERNEL_SOURCE,
+             "paddle_tpu/ops/flash_attention.py:213"),
+            ("flash_dkv", fa.KERNEL_SOURCE,
+             "paddle_tpu/ops/flash_attention.py:251"),
+            ("fused_update", fu.KERNEL_SOURCE,
+             "paddle_tpu/ops/pallas/fused_update.py:122")):
+        r = train_rows[name]
+        out.append(dict(name=name, route="cuda", source=source,
+                        replaces=replaces, launches=train_counts[name],
+                        shape=r["shape"], max_abs_err=r["max_abs_err"],
+                        ms=r["ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=r["library_ms"]))
     return {"kernels": out}
 
 
@@ -418,7 +774,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    sys.path.insert(0, os.path.join(root, "tests"))   # torch_checks
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_presets
     from paddle_tpu_torch.serving import GPTDecodeModel
 
@@ -440,9 +798,26 @@ def main(argv=None) -> int:
     counts = phase_serve(cuda_dm, args.seed)
     phase_parity(cuda_dm, GPTDecodeModel(cpu_model))
     phase_profile(cuda_dm, args.seed)
+    del cuda_dm, cuda_model, cpu_model
+    torch.cuda.empty_cache()
+
+    from paddle_tpu_torch.distributed.grad_comm import build_buckets
+    from paddle_tpu_torch.models.convert import expected_shapes
+
+    plan = build_buckets([torch.empty(shape, device="meta")
+                          for shape in expected_shapes(cfg).values()])
+    train_rows = phase_train_kernels(dev, gen, plan)
+    train_counts, step, ids, labels = phase_train(cfg, dev, args.seed)
+    if [b.size for b in step.buckets] != [b.size for b in plan]:
+        raise AssertionError("the train step's bucket plan is not the "
+                             "timed one")
+    phase_train_profile(step, ids, labels)
+    del step
+    torch.cuda.empty_cache()
+    phase_train_parity(cfg, dev, args.seed)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernels_line(rows, counts)))
+    print(json.dumps(kernels_line(rows, counts, train_rows, train_counts)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,19 +6,27 @@ by slice. Each module mirrors the path of the ``paddle_tpu`` module it
 ports and names that file in its docstring. Nothing here imports ``jax``
 or ``paddle_tpu``.
 
-Slice 1 (this tree): GPT continuous-batching serving on a paged KV cache
-whose int8/fp8 at-rest codec runs on two hand-written CUDA kernels
-(``csrc/codec.cu``):
+Slice 1: GPT continuous-batching serving on a paged KV cache whose
+int8/fp8 at-rest codec runs on two hand-written CUDA kernels
+(``csrc/codec.cu``). Slice 2: the GPT training step, with flash
+attention forward/backward on three CUDA kernels
+(``csrc/flash_attention.cu``) and the optimizer update on a fourth
+(``csrc/fused_update.cu``):
 
   framework/   device resolution (cuda by default), serving flags,
                per-request random streams
-  models/      GPTConfig/presets, numpy-seeded GPTForCausalLM parameters,
-               weight conversion from the JAX model's numpy arrays
-  distributed/ plain torch versions of the blockwise codec math
-  ops/         the codec wrappers (kernel on CUDA, plain on CPU) and the
+  models/      GPTConfig/presets, numpy-seeded GPTForCausalLM parameters
+               and training forward, GPTPretrainingCriterion, weight
+               conversion from the JAX model's numpy arrays
+  distributed/ plain torch versions of the blockwise codec math, the
+               gradient bucket plan
+  ops/         kernel wrappers (kernel on CUDA, plain on CPU) for the
+               codec, flash attention and the fused update, and the
                nvcc/ctypes build
+  optimizer/   SGD, Momentum, Adam, AdamW and the fused flat updater
+  jit/         TrainStep
   serving/     decode model, KV block pool, sampler, queue, engine
-  observability/ the counters, gauges and histograms serving uses
+  observability/ counters, gauges and histograms
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; a CUDA request without a card raises.

@@ -1,6 +1,7 @@
-"""Blockwise codec math in plain PyTorch (reference:
-``paddle_tpu/distributed/grad_comm.py`` ``_QMAX``, ``_as_blocks``,
-``block_absmax``, ``block_scales``, ``block_encode``, ``block_decode``).
+"""Blockwise codec math in plain PyTorch and the gradient bucket plan
+(reference: ``paddle_tpu/distributed/grad_comm.py`` ``_QMAX``,
+``_as_blocks``, ``block_absmax``, ``block_scales``, ``block_encode``,
+``block_decode``, ``GradBucket``, ``build_buckets``).
 
 One fp32 abs-max scale per ``block_size`` elements; ``int8_block``
 rounds half-to-even and clips to +-127, ``fp8_block`` casts to
@@ -19,12 +20,15 @@ which rounds to 448, so the cast never sees an out-of-range value
 """
 from __future__ import annotations
 
+import math
+from typing import List, Optional, Sequence
+
 import torch
 import torch.nn.functional as F
 
 __all__ = ["BLOCK_CODECS", "QMAX", "WIRE_DTYPE", "n_scale_blocks",
            "as_blocks", "block_absmax", "block_scales", "block_encode",
-           "block_decode"]
+           "block_decode", "GradBucket", "build_buckets"]
 
 BLOCK_CODECS = ("int8_block", "fp8_block")
 # largest representable magnitude of the wire format
@@ -80,3 +84,72 @@ def block_decode(q: torch.Tensor, scales: torch.Tensor, world: int,
     over ``world`` replicas (1 for the KV cache)."""
     vals = q.to(torch.float32) * scales[:, None]
     return _div(vals.reshape(-1)[:numel], world)
+
+
+# ------------------------------------------------------------------ buckets
+# (reference: ``GradBucket``, ``build_buckets`` and ``_MB``)
+_MB = 1024 * 1024
+
+
+class GradBucket:
+    """One dtype-homogeneous flat bucket: which parameters it holds, in
+    order, and where each starts."""
+
+    __slots__ = ("index", "dtype", "param_indices", "shapes", "numels",
+                 "offsets", "size")
+
+    def __init__(self, index: int, dtype: torch.dtype):
+        self.index = index
+        self.dtype = dtype
+        self.param_indices: List[int] = []   # positions in the param list
+        self.shapes: List[tuple] = []
+        self.numels: List[int] = []
+        self.offsets: List[int] = []         # start offset of each param
+        self.size = 0                        # total elements in the bucket
+
+    def add(self, param_index: int, shape: Sequence[int]):
+        n = math.prod(shape)
+        self.param_indices.append(param_index)
+        self.shapes.append(tuple(shape))
+        self.numels.append(n)
+        self.offsets.append(self.size)
+        self.size += n
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.dtype.itemsize
+
+    def __repr__(self):
+        return (f"GradBucket(#{self.index}, dtype={self.dtype}, "
+                f"params={len(self.param_indices)}, numel={self.size})")
+
+
+def build_buckets(params, comm_buffer_size: float = 25,
+                  last_comm_buffer_size: float = 1,
+                  dtypes: Optional[Sequence] = None) -> List[GradBucket]:
+    """Assign parameters to dtype-homogeneous flat buckets, walking them in
+    reverse order (the order backward produces gradients). The first
+    bucket's cap is ``last_comm_buffer_size`` MB, every later bucket's
+    ``comm_buffer_size`` MB; a parameter larger than the cap gets a bucket
+    of its own."""
+    params = list(params)
+    if dtypes is None:
+        dtypes = [p.dtype for p in params]
+    buckets: List[GradBucket] = []
+    open_by_dtype = {}
+    for pi in reversed(range(len(params))):
+        dt = dtypes[pi]
+        shape = tuple(params[pi].shape)
+        numel = math.prod(shape)
+        b = open_by_dtype.get(dt)
+        if b is not None:
+            cap_mb = (last_comm_buffer_size if b.index == 0
+                      else comm_buffer_size)
+            if b.size > 0 and (b.size + numel) * dt.itemsize > cap_mb * _MB:
+                b = None
+        if b is None:
+            b = GradBucket(len(buckets), dt)
+            buckets.append(b)
+            open_by_dtype[dt] = b
+        b.add(pi, shape)
+    return buckets

@@ -1,8 +1,9 @@
-"""GPT parameters for the port (reference: ``paddle_tpu/models``)."""
+"""GPT model for the port (reference: ``paddle_tpu/models``)."""
 from .convert import state_dict_from_numpy
 from .gpt import (BLOCK_PARAMS, GPTConfig, GPTDecoderLayer, GPTEmbeddings,
-                  GPTForCausalLM, GPTModel, gpt_presets)
+                  GPTForCausalLM, GPTModel, GPTPretrainingCriterion,
+                  gpt_presets)
 
 __all__ = ["BLOCK_PARAMS", "GPTConfig", "GPTDecoderLayer", "GPTEmbeddings",
-           "GPTForCausalLM", "GPTModel", "gpt_presets",
-           "state_dict_from_numpy"]
+           "GPTForCausalLM", "GPTModel", "GPTPretrainingCriterion",
+           "gpt_presets", "state_dict_from_numpy"]

@@ -1,16 +1,28 @@
-"""GPT configuration and parameters (reference: ``paddle_tpu/models/gpt.py``
-``GPTConfig``, ``gpt_presets``, ``_block_shapes``, ``_block_init`` and the
-``__init__`` of ``GPTEmbeddings``/``GPTDecoderLayer``/``GPTModel``/
-``GPTForCausalLM``).
+"""GPT configuration, parameters and training forward (reference:
+``paddle_tpu/models/gpt.py`` ``GPTConfig``, ``gpt_presets``,
+``_block_shapes``, ``_block_init``, ``_attention_val``, ``_block_apply``,
+``GPTEmbeddings``/``GPTDecoderLayer``/``GPTModel``/``GPTForCausalLM``
+and ``GPTPretrainingCriterion``).
 
 Parameters are drawn from ``np.random.RandomState(seed)`` in the
 reference's order and with its standard deviations, so
 ``GPTForCausalLM(cfg, seed=s)`` equals the JAX model of the same seed,
 converted, bit for bit. The parameter names are the reference's
-(``gpt.embeddings.word_embeddings``, ``gpt.decoder.<i>.qkv_w``, ...).
+(``gpt.embeddings.word_embeddings``, ``gpt.decoder.<i>.qkv_w``, ...), and
+all of them are trainable.
 
-The training ``forward`` is not part of this slice: serving reads the
-parameters through ``serving.model.GPTDecodeModel``.
+The forward is the reference's loop mode: embeddings, the blocks
+(fp32 LayerNorm, packed qkv projection, causal attention, output
+projection, tanh-gelu MLP, two residuals), the final LayerNorm and
+logits tied to the word embedding. Attention is the flash kernel
+(``ops/flash_attention.py``) with ``use_flash_attention`` (the default)
+and the reference's einsum/softmax path without it. Serving reads the
+same parameters through ``serving.model.GPTDecodeModel``.
+
+Not in this slice (each raises ``NotImplementedError``, see ROADMAP
+Queue A "training options" and "parallelism"): dropout > 0 in training,
+``recompute``, ``mode="scan"`` and the pipeline, ring and Ulysses
+attention, ``fused_loss_chunk``.
 
 Numerics: fp32 throughout, and TF32 is switched off for matmuls and
 cuDNN so a float32 product on the card is a float32 product.
@@ -23,15 +35,18 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..framework.device import resolve_device
+from ..ops.flash_attention import flash_attention_val
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["GPTConfig", "gpt_presets", "GPTEmbeddings", "GPTDecoderLayer",
-           "GPTModel", "GPTForCausalLM", "BLOCK_PARAMS"]
+           "GPTModel", "GPTForCausalLM", "GPTPretrainingCriterion",
+           "BLOCK_PARAMS"]
 
 BLOCK_PARAMS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b",
                 "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
@@ -45,8 +60,16 @@ class GPTConfig:
     num_heads: int = 12
     ffn_hidden_size: Optional[int] = None  # default 4*hidden
     max_position_embeddings: int = 1024
+    dropout: float = 0.0
+    attn_dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
+    mode: str = "loop"
+    recompute: bool = False
+    use_ring_attention: bool = False
+    use_ulysses_attention: bool = False
+    use_flash_attention: bool = True
+    fused_loss_chunk: int = 0
 
     @property
     def ffn(self) -> int:
@@ -104,8 +127,50 @@ def _block_init(name: str, shape, cfg: GPTConfig,
 
 
 def _param(arr: np.ndarray, device: torch.device) -> nn.Parameter:
-    return nn.Parameter(torch.from_numpy(arr).to(device),
-                        requires_grad=False)
+    return nn.Parameter(torch.from_numpy(arr).to(device))
+
+
+_OPTIONS = "ROADMAP Queue A, 'training options'"
+_PARALLEL = "ROADMAP Queue A, 'parallelism'"
+
+
+def _check_trainable(cfg: GPTConfig, training: bool) -> None:
+    """Raise on the configurations this slice's forward does not run."""
+    if cfg.mode != "loop":
+        raise NotImplementedError(f"GPT mode={cfg.mode!r} (scan/pipeline) is "
+                                  f"not ported yet ({_PARALLEL})")
+    if cfg.use_ring_attention or cfg.use_ulysses_attention:
+        raise NotImplementedError(f"ring/Ulysses attention is not ported "
+                                  f"yet ({_PARALLEL})")
+    if cfg.recompute:
+        raise NotImplementedError(f"recompute is not ported yet "
+                                  f"({_OPTIONS})")
+    if training and (cfg.dropout > 0 or cfg.attn_dropout > 0):
+        raise NotImplementedError(f"dropout > 0 in training is not ported "
+                                  f"yet ({_OPTIONS})")
+
+
+def layer_norm(x, w, b, eps: float):
+    """fp32 LayerNorm with the reference's expression order."""
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    return (x - mu) * torch.rsqrt(var + eps) * w + b
+
+
+def attention(q, k, v, cfg: GPTConfig):
+    """Causal attention on ``[b, s, n, d]`` (reference ``_attention_val``):
+    the flash kernel, or with ``use_flash_attention=False`` the einsum /
+    softmax path with ``finfo.min`` on masked logits."""
+    if cfg.use_flash_attention:
+        return flash_attention_val(q, k, v, causal=True)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    ql, kl = logits.shape[-2], logits.shape[-1]
+    causal = torch.ones(ql, kl, dtype=torch.bool,
+                        device=q.device).tril(kl - ql)
+    logits = logits.masked_fill(~causal, torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 class GPTEmbeddings(nn.Module):
@@ -122,6 +187,13 @@ class GPTEmbeddings(nn.Module):
             (rs.randn(cfg.max_position_embeddings, cfg.hidden_size) * std
              ).astype("float32"), device)
 
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            pos = self.position_embeddings[:input_ids.shape[-1]]
+        else:
+            pos = self.position_embeddings[position_ids]
+        return self.word_embeddings[input_ids] + pos
+
 
 class GPTDecoderLayer(nn.Module):
     """One block's individually named parameters (``BLOCK_PARAMS``)."""
@@ -129,9 +201,24 @@ class GPTDecoderLayer(nn.Module):
     def __init__(self, cfg: GPTConfig, rs: np.random.RandomState,
                  device: torch.device):
         super().__init__()
+        self.cfg = cfg
         for name, shape in block_shapes(cfg).items():
             setattr(self, name, _param(_block_init(name, shape, cfg, rs),
                                        device))
+
+    def forward(self, x):
+        """One block (reference ``_block_apply``) on ``[b, s, h]``."""
+        cfg = self.cfg
+        b, s, h = x.shape
+        eps = cfg.layer_norm_epsilon
+        hn = layer_norm(x, self.ln1_w, self.ln1_b, eps)
+        qkv = hn @ self.qkv_w.reshape(h, 3 * h) + self.qkv_b.reshape(3 * h)
+        q, k, v = qkv.reshape(b, s, 3, cfg.num_heads, cfg.head_dim).unbind(2)
+        attn = attention(q, k, v, cfg).reshape(b, s, h)
+        x = x + (attn @ self.out_w + self.out_b)
+        hn = layer_norm(x, self.ln2_w, self.ln2_b, eps)
+        z = F.gelu(hn @ self.fc1_w + self.fc1_b, approximate="tanh")
+        return x + (z @ self.fc2_w + self.fc2_b)
 
 
 class GPTModel(nn.Module):
@@ -147,7 +234,15 @@ class GPTModel(nn.Module):
              for _ in range(config.num_layers)])
         self.final_norm = nn.LayerNorm(
             config.hidden_size, eps=config.layer_norm_epsilon, device=device)
-        self.final_norm.requires_grad_(False)
+
+    def forward(self, input_ids, position_ids=None):
+        """Hidden states [b, s, h] after the final LayerNorm."""
+        _check_trainable(self.config, self.training)
+        x = self.embeddings(input_ids, position_ids)
+        for blk in self.decoder:
+            x = blk(x)
+        fn = self.final_norm
+        return layer_norm(x, fn.weight, fn.bias, self.config.layer_norm_epsilon)
 
 
 class GPTForCausalLM(nn.Module):
@@ -159,3 +254,28 @@ class GPTForCausalLM(nn.Module):
         self.device = resolve_device(device)
         self.config = config
         self.gpt = GPTModel(config, seed, self.device)
+
+    def forward(self, input_ids, position_ids=None, labels=None):
+        """Logits [b, s, vocab], tied to the word embedding. ``labels`` is
+        accepted as in the reference, which reads it only for the fused
+        chunked loss."""
+        if labels is not None and self.config.fused_loss_chunk > 0:
+            raise NotImplementedError(f"fused_loss_chunk is not ported yet "
+                                      f"({_OPTIONS})")
+        x = self.gpt(input_ids, position_ids)
+        return x @ self.gpt.embeddings.word_embeddings.T
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Mean LM loss in fp32: logsumexp minus the picked logit, averaged
+    over the positions (or over ``loss_mask``'s weight, at least 1)."""
+
+    def forward(self, prediction_scores, masked_lm_labels, loss_mask=None):
+        lg = prediction_scores.to(torch.float32)
+        lse = torch.logsumexp(lg, dim=-1)
+        picked = lg.gather(-1, masked_lm_labels.long()[..., None])[..., 0]
+        nll = lse - picked
+        if loss_mask is not None:
+            m = loss_mask.to(torch.float32)
+            return (nll * m).sum() / m.sum().clamp_min(1.0)
+        return nll.mean()

@@ -1,0 +1,284 @@
+"""Flash attention forward and backward (reference:
+``paddle_tpu/ops/flash_attention.py`` ``_fwd``/``_fwd_kernel``,
+``_bwd``/``_dq_kernel``/``_dkv_kernel``, the ``_flash_bnsd`` custom VJP,
+``flash_attention_val`` and ``flash_attention_supported``).
+
+Three kernels over a ``[b, n, s, d]`` layout, each with its plain
+PyTorch version beside it:
+
+  flash_fwd  q, k, v          -> out [b,n,s,d], lse [b,n,s,1] fp32
+  flash_dq   q, k, v, dO, lse, delta -> dq
+  flash_dkv  q, k, v, dO, lse, delta -> dk, dv
+
+Dispatch is by where the tensors lie, and nothing else: a CPU tensor
+takes the plain version, a CUDA tensor the hand-written kernel
+(``csrc/flash_attention.cu``) or an error. There is no fallback from the
+kernel to the plain version. Each wrapper counts its kernel launches in
+``<wrapper>.launches`` (``launch_counts()``), incremented only where the
+kernel is launched.
+
+Numerics are the reference's: ``q`` pre-scaled by ``1/sqrt(d)``, masked
+scores set to ``NEG_INF = -1e30``, ``l`` clamped at ``1e-30``, ``dq``
+scaled at the end while ``dk`` carries the scale through the pre-scaled
+``q``, and ``delta = rowsum(dO * O)`` computed outside the kernels. The
+plain versions compute whole ``[s, s]`` score matrices; the kernels
+stream 64-row tiles with an online softmax, so the two agree to fp32
+rounding, not bit for bit.
+
+The kernels take fp32, any ``s >= 1`` and ``d <= 128`` with
+``d % 16 == 0`` (every GPT preset: 16, 64, 96, 128); anything else on
+the card raises. The reference's block sizes have no counterpart: the
+CUDA tiles are fixed and the tail tile is masked.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Tuple
+
+import torch
+
+from ..framework.device import require_sm90
+from ._build import load_library
+
+__all__ = ["NEG_INF", "KERNEL_SOURCE", "flash_fwd", "flash_dq", "flash_dkv",
+           "flash_fwd_plain", "flash_dq_plain", "flash_dkv_plain",
+           "flash_bwd_plain", "flash_attention_val",
+           "flash_attention_supported", "kernel_supported", "launch_counts",
+           "reset_launch_counts"]
+
+KERNEL_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+NEG_INF = -1e30
+_MAX_D = 128
+
+
+# ------------------------------------------------------------ plain versions
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Masked ``(q * scale) . k^T`` [b, n, s, s] in fp32 (reference:
+    ``_fwd_kernel`` :134-141 and ``_causal_mask``)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = (q.float() * scale) @ k.float().transpose(-1, -2)
+    if causal:
+        n = q.shape[-2]
+        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
+def flash_fwd_plain(q, k, v, causal: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``flash_fwd``: (out [b,n,s,d], lse [b,n,s,1])."""
+    s = _scores(q, k, causal)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = (p @ v.float()) / l
+    return out.to(q.dtype), m + torch.log(l)
+
+
+def flash_dq_plain(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
+    """Plain version of ``flash_dq`` (reference ``_dq_kernel``)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal) - lse)
+    ds = p * (do.float() @ v.float().transpose(-1, -2) - delta)
+    return ((ds @ k.float()) * scale).to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, do, lse, delta, causal: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``flash_dkv`` (reference ``_dkv_kernel``)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal) - lse)
+    dv = p.transpose(-1, -2) @ do.float()
+    ds = p * (do.float() @ v.float().transpose(-1, -2) - delta)
+    dk = ds.transpose(-1, -2) @ (q.float() * scale)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool):
+    """(dq, dk, dv) from the plain versions of both backward kernels."""
+    return (flash_dq_plain(q, k, v, do, lse, delta, causal),
+            *flash_dkv_plain(q, k, v, do, lse, delta, causal))
+
+
+# ------------------------------------------------------------------ kernels
+@functools.lru_cache(maxsize=None)
+def _lib(device_index: int) -> ctypes.CDLL:
+    require_sm90(torch.device("cuda", device_index))
+    lib = load_library("flash_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+    lib.flash_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.flash_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, p]
+    for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def kernel_supported(shape) -> bool:
+    """True if the CUDA kernels take a ``[b, n, s, d]`` shape."""
+    if len(shape) != 4:
+        return False
+    b, n, s, d = (int(x) for x in shape)
+    return b >= 1 and n >= 1 and s >= 1 and 16 <= d <= _MAX_D and d % 16 == 0
+
+
+def _check(names, tensors, shape):
+    """Device, dtype, shape and layout the kernels take; returns the
+    device. Raises on anything else."""
+    dev = tensors[0].device
+    if not kernel_supported(shape):
+        raise ValueError(f"flash attention kernels take [b, n, s, d] with "
+                         f"s >= 1 and d <= {_MAX_D}, d % 16 == 0; got "
+                         f"{tuple(shape)}")
+    for name, t in zip(names, tensors):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"flash attention kernels take float32, {name} "
+                            f"is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return dev
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _dispatch(t: torch.Tensor) -> bool:
+    """True for the kernel (CUDA tensor), False for the plain version."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def flash_fwd(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention forward on ``[b, n, s, d]`` -> (out, lse [b,n,s,1])."""
+    if not _dispatch(q):
+        return flash_fwd_plain(q, k, v, causal)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v shapes differ: {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    dev = _check(("q", "k", "v"), (q, k, v), q.shape)
+    b, n, s, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, n, s, 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib(dev.index).flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b * n, s, d, int(bool(causal)),
+            1.0 / math.sqrt(d), _stream(dev))
+    if rc:
+        raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc}")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def _bwd_operands(q, k, v, do, lse, delta):
+    if any(t.shape != q.shape for t in (k, v, do)):
+        raise ValueError("q, k, v, dO shapes differ")
+    rows = (*q.shape[:3], 1)
+    if lse.shape != rows or delta.shape != rows:
+        raise ValueError(f"lse and delta must be {rows}, got "
+                         f"{tuple(lse.shape)}, {tuple(delta.shape)}")
+    return _check(("q", "k", "v", "dO", "lse", "delta"),
+                  (q, k, v, do, lse, delta), q.shape)
+
+
+def flash_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
+    """dQ of attention on ``[b, n, s, d]`` from lse and delta."""
+    if not _dispatch(q):
+        return flash_dq_plain(q, k, v, do, lse, delta, causal)
+    dev = _bwd_operands(q, k, v, do, lse, delta)
+    b, n, s, d = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        rc = _lib(dev.index).flash_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * n, s, d,
+            int(bool(causal)), 1.0 / math.sqrt(d), _stream(dev))
+    if rc:
+        raise RuntimeError(f"flash_dq launch failed: CUDA error {rc}")
+    flash_dq.launches += 1
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, causal: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) of attention on ``[b, n, s, d]`` from lse and delta."""
+    if not _dispatch(q):
+        return flash_dkv_plain(q, k, v, do, lse, delta, causal)
+    dev = _bwd_operands(q, k, v, do, lse, delta)
+    b, n, s, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(dev):
+        rc = _lib(dev.index).flash_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * n, s, d, int(bool(causal)), 1.0 / math.sqrt(d),
+            _stream(dev))
+    if rc:
+        raise RuntimeError(f"flash_dkv launch failed: CUDA error {rc}")
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_fwd.launches = 0
+flash_dq.launches = 0
+flash_dkv.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"flash_fwd": flash_fwd.launches, "flash_dq": flash_dq.launches,
+            "flash_dkv": flash_dkv.launches}
+
+
+def reset_launch_counts() -> None:
+    flash_fwd.launches = 0
+    flash_dq.launches = 0
+    flash_dkv.launches = 0
+
+
+# -------------------------------------------------------------- autograd
+class _FlashBNSD(torch.autograd.Function):
+    """The reference's ``_flash_bnsd`` custom VJP on ``[b, n, s, d]``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        dq = flash_dq(q, k, v, do, lse, delta, ctx.causal)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_supported(q_shape) -> bool:
+    """True if ``flash_attention_val`` takes this ``[b, s, n, d]`` shape on
+    the card (the CPU's plain version takes any 4-D shape)."""
+    if len(q_shape) != 4:
+        return False
+    b, s, n, d = q_shape
+    return kernel_supported((b, n, s, d))
+
+
+def flash_attention_val(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Flash attention on ``[b, s, n, d]`` tensors -> ``[b, s, n, d]``,
+    differentiable through the flash backward."""
+    if q.dim() != 4:
+        raise ValueError(f"flash attention takes [b, s, n, d], got "
+                         f"{tuple(q.shape)}")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    return _FlashBNSD.apply(qt, kt, vt, bool(causal)).transpose(1, 2)

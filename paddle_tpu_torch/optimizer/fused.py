@@ -1,0 +1,174 @@
+"""Fused flat-buffer optimizer updates over buckets (reference:
+``paddle_tpu/optimizer/fused.py`` ``FusedFlatUpdater``: ``__init__``,
+``_uniform_hypers``, ``_bucket_fn``, ``step``).
+
+    fused = FusedFlatUpdater(optimizer, model.parameters())
+    fused.zero_grad()
+    loss.backward()
+    fused.step()            # one fused_update kernel per bucket
+
+The update rules are elementwise, so one kernel over a bucket's flat
+buffer equals the per-parameter updates. Where the reference
+concatenates each bucket's parameters and gradients every step and
+scatters the new values back, the port lays them out flat once: at
+construction each multi-parameter bucket gets one flat parameter buffer
+and one flat gradient buffer, and every parameter's ``.data`` becomes a
+view of the first. ``zero_grad()`` zeroes the gradient buffers and
+points every ``.grad`` at its view, so ``backward()`` accumulates into
+them in place; ``step()`` then updates the flat buffers in place with
+no copy. A ``.grad`` that is not its view at step time (``backward()``
+without ``zero_grad()`` first) is gathered with one ``torch.cat``.
+
+Slots are flat per bucket (moments laid out like the bucket); the
+scalar slots (beta powers) are one 0-dim tensor per bucket, exact
+because every parameter starts from the same value and steps with the
+same betas.
+
+``step_sharded`` (ZeRO) and the dequantizing update come with the
+gradient-wire slice (ROADMAP Queue A).
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from ..distributed.grad_comm import build_buckets
+from ..observability.metrics import get_registry as _get_registry
+from ..ops.fused_update import FUSED_RULES, bucket_update_fn
+from .optimizer import lr_mult
+
+__all__ = ["FusedFlatUpdater", "FUSABLE_OPTIMIZERS"]
+
+# the rules with a fused kernel in the port
+FUSABLE_OPTIMIZERS = tuple(FUSED_RULES)
+
+_m_fused = _get_registry().counter(
+    "fused_bucket_updates_total",
+    help="optimizer updates applied as one fused kernel per bucket")
+
+
+class FusedFlatUpdater:
+    """Apply ``optimizer``'s update rule per flat bucket."""
+
+    def __init__(self, optimizer, params, buckets=None):
+        kind = type(optimizer).__name__
+        if kind not in FUSABLE_OPTIMIZERS:
+            raise ValueError(f"{kind} has no fused flat update in the port; "
+                             f"fusable: {FUSABLE_OPTIMIZERS}")
+        self.optimizer = optimizer
+        self.params = [p for p in params if p.requires_grad]
+        self.buckets = (build_buckets(self.params) if buckets is None
+                        else list(buckets))
+        self._hypers = {b.index: self._uniform_hypers(b)
+                        for b in self.buckets}
+        self._fns = {b.index: bucket_update_fn(optimizer,
+                                               *self._hypers[b.index])
+                     for b in self.buckets}
+        self._slots: Dict[int, dict] = {}
+        self._flat_p: Dict[int, torch.Tensor] = {}
+        self._flat_g: Dict[int, torch.Tensor] = {}
+        self._lr = None                      # (value, device tensor)
+        with torch.no_grad():
+            for b in self.buckets:
+                self._lay_out(b)
+
+    # ------------------------------------------------------------ plumbing
+    def _uniform_hypers(self, bucket) -> tuple:
+        """(lr_mult, wd) of the bucket — uniform across its parameters
+        (the kernel applies one scalar pair)."""
+        lms, wds = set(), set()
+        for pi in bucket.param_indices:
+            p = self.params[pi]
+            lms.add(lr_mult(p))
+            wds.add(float(self.optimizer._param_wd(p)))
+        if len(lms) > 1 or len(wds) > 1:
+            raise ValueError(
+                f"bucket {bucket.index} mixes per-param hyperparameters "
+                f"(lr_mult {sorted(lms)}, weight_decay {sorted(wds)}); "
+                f"group the parameters by (lr_mult, wd) before bucketing "
+                f"(TrainStep does)")
+        return lms.pop(), wds.pop()
+
+    def _views(self, bucket, flat):
+        return [flat[off:off + n].view(shape) for off, n, shape in
+                zip(bucket.offsets, bucket.numels, bucket.shapes)]
+
+    def _lay_out(self, bucket):
+        """Flat parameter and gradient buffers for the bucket; parameters
+        become views of the first. A one-parameter bucket is its own
+        flat buffer."""
+        ps = [self.params[pi] for pi in bucket.param_indices]
+        dev = ps[0].device
+        if len(ps) == 1 and ps[0].is_contiguous():
+            flat = ps[0].data.view(-1)
+        else:
+            flat = torch.empty(bucket.size, dtype=bucket.dtype, device=dev)
+            for p, view in zip(ps, self._views(bucket, flat)):
+                view.copy_(p.data)
+                p.data = view
+        self._flat_p[bucket.index] = flat
+        self._flat_g[bucket.index] = torch.zeros(bucket.size,
+                                                 dtype=bucket.dtype,
+                                                 device=dev)
+
+    def _init_flat_slots(self, bucket) -> dict:
+        proto = self.optimizer._init_slots(
+            torch.zeros(1, dtype=bucket.dtype,
+                        device=self._flat_p[bucket.index].device))
+        return {k: (v if v.dim() == 0 else
+                    v.new_zeros(bucket.size)) for k, v in proto.items()}
+
+    def _flat_grads(self, bucket) -> torch.Tensor:
+        """The bucket's gradient as one flat tensor: the gradient buffer
+        when every ``.grad`` is its view, else a concatenation."""
+        flat = self._flat_g[bucket.index]
+        views = self._views(bucket, flat)
+        grads = [self.params[pi].grad for pi in bucket.param_indices]
+        if any(g is None for g in grads):
+            raise RuntimeError(f"bucket {bucket.index}: a parameter has no "
+                               f"gradient")
+        if all(g.data_ptr() == v.data_ptr() and g.shape == v.shape
+               for g, v in zip(grads, views)):
+            return flat
+        return torch.cat([g.reshape(-1) for g in grads]).to(bucket.dtype)
+
+    def flat_grads(self) -> List[torch.Tensor]:
+        """Every bucket's flat gradient, in bucket order."""
+        return [self._flat_grads(b) for b in self.buckets]
+
+    def _lr_tensor(self, device) -> torch.Tensor:
+        lr = self.optimizer.get_lr()
+        if self._lr is None or self._lr[0] != lr:
+            self._lr = (lr, self.optimizer._lr_tensor(device))
+        return self._lr[1]
+
+    # ---------------------------------------------------------------- step
+    @torch.no_grad()
+    def zero_grad(self):
+        """Zero the gradient buffers and point every ``.grad`` at its view,
+        so the next ``backward()`` accumulates into the buffers."""
+        for b in self.buckets:
+            flat = self._flat_g[b.index]
+            flat.zero_()
+            for pi, view in zip(b.param_indices, self._views(b, flat)):
+                self.params[pi].grad = view
+
+    @torch.no_grad()
+    def step(self):
+        """One fused update per bucket, in place."""
+        for b in self.buckets:
+            flat_p = self._flat_p[b.index]
+            slots = self._slots.get(b.index)
+            if slots is None:
+                slots = self._init_flat_slots(b)
+            _, new_s = self._fns[b.index](flat_p, self._flat_grads(b),
+                                          slots, self._lr_tensor(
+                                              flat_p.device))
+            self._slots[b.index] = new_s
+            _m_fused.inc()
+        self.optimizer._accumulated_steps += 1
+
+    def __repr__(self):
+        return (f"FusedFlatUpdater({type(self.optimizer).__name__}, "
+                f"buckets={len(self.buckets)})")

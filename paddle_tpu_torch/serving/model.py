@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.device import to_device
-from ..models.gpt import BLOCK_PARAMS, GPTForCausalLM
+from ..models.gpt import BLOCK_PARAMS, GPTForCausalLM, layer_norm
 
 __all__ = ["GPTDecodeModel", "bucket_pow2"]
 
@@ -88,9 +88,7 @@ class GPTDecodeModel:
         return to_device(x, self.device, dtype)
 
     def _ln(self, v, w, b):
-        mu = v.mean(-1, keepdim=True)
-        var = v.var(-1, keepdim=True, unbiased=False)
-        return (v - mu) * torch.rsqrt(var + self._eps) * w + b
+        return layer_norm(v, w, b, self._eps)
 
     def _qkv(self, x, l: int):
         """LayerNorm + packed projection -> q, k, v [..., heads, hd]."""

@@ -9,7 +9,17 @@ there with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 Tolerances: codec payloads and decoded values bit-identical; pool bytes
 identical; greedy engine tokens identical to the CPU engine's, with every
 step's top-2 logit gap asserted above 1e-3 (card and CPU fp32 logits
-differ by ~1e-5 at this size).
+differ by ~1e-5 at this size). Flash kernels and ``fused_update``
+against their plain versions on the card by ``tests/torch_checks.py``'s
+criteria, which ``chip_smoke.py`` shares: out and lse within 2e-5 max
+abs, dq/dk/dv within 1e-4 of the larger of 1 and the largest gradient
+magnitude (the forward's online softmax rounds differently from the
+plain [s, s] softmax, and the inputs are unit-scale); the update
+bit-identical. One gpt-test ``TrainStep`` on the card against one on
+the CPU: loss within 1e-5 relative, then ``adam_step_parity`` (gradients
+within 1e-4 of each tensor's largest; the step on every element whose
+gradient is clear of the card-vs-CPU gradient noise within 1e-2 lr of
+the CPU's and at least 0.9 lr).
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -19,13 +29,19 @@ import pytest
 import torch
 
 from paddle_tpu_torch.distributed import grad_comm as plain
-from paddle_tpu_torch.models import GPTForCausalLM, gpt_presets
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
+                                     gpt_presets)
 from paddle_tpu_torch.observability.metrics import get_registry
 from paddle_tpu_torch.ops import codec
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_update as fu
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (BatchSampler, GPTDecodeModel,
                                       KVBlockPool, RequestQueue,
                                       ServeRequest, ServingEngine)
-from torch_checks import run_checks
+from torch_checks import (FUSED_HYPER, adam_step_parity, flash_vs_plain,
+                          fused_inputs, fused_vs_plain, run_checks)
 
 torch.set_num_threads(2)
 
@@ -155,6 +171,78 @@ def check_engine_on_card_token_identical_to_cpu(dev):
     assert after["codec_decode"] - before["codec_decode"] > encodes
 
 
+def check_flash_kernels_match_plain(dev, s, d, causal):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(s * d + causal)
+    q, k, v, do = (torch.randn(2, 3, s, d, device=dev, generator=gen)
+                   for _ in range(4))
+    before = fa.launch_counts()
+    flash_vs_plain(q, k, v, do, causal)
+    assert fa.launch_counts() == {n: c + 1 for n, c in before.items()}
+
+
+def check_fused_update_bit_identical(dev, kind, wd, n):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    p, g, slots, lr = fused_inputs(kind, n, gen, 1e-3)
+    before = fu.fused_update.launches
+    assert fused_vs_plain(p, g, slots, lr, kind=kind,
+                          hyper=FUSED_HYPER[kind], wd=wd) == 0.0
+    assert fu.fused_update.launches == before + 1
+
+
+def _train_one_step(device):
+    cfg = gpt_presets("gpt-test")
+    m = GPTForCausalLM(cfg, seed=0, device=device)
+    o = AdamW(learning_rate=1e-3, weight_decay=0.01,
+              parameters=m.parameters())
+    step = TrainStep(m, GPTPretrainingCriterion(), o)
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 256, (2, 37))
+    labels = rs.randint(0, 256, (2, 37))
+    before = {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+    loss = float(step(inputs=(ids,), labels=(labels,)))
+    return loss, {n: (before[n], p.detach().cpu(), p.grad.cpu())
+                  for n, p in m.named_parameters()}
+
+
+def check_train_step_on_card_matches_cpu(dev):
+    before = {**fa.launch_counts(), **fu.launch_counts()}
+    card_loss, card = _train_one_step(dev)
+    after = {**fa.launch_counts(), **fu.launch_counts()}
+    cpu_loss, cpu = _train_one_step("cpu")
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    adam_step_parity(card, cpu, 1e-3)
+    # 2 layers: 2 launches of each flash kernel; gpt-test is one bucket
+    assert {k: after[k] - before[k] for k in after} == {
+        "flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2, "fused_update": 1}
+
+
+def check_new_wrappers_raise(dev):
+    q = torch.randn(1, 2, 8, 16, device=dev)
+    for bad in (torch.randn(1, 2, 8, 8, device=dev),
+                torch.randn(1, 2, 8, 144, device=dev)):
+        with pytest.raises(ValueError, match="d % 16"):
+            fa.flash_fwd(bad, bad, bad, True)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.double(), q.double(), q.double(), True)
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_fwd(q, q.cpu(), q, True)
+    lse = torch.zeros(1, 2, 8, 1, device=dev)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_dq(q, q, q, q, lse[..., :4, :], lse, True)
+    p = torch.zeros(64, device=dev)
+    svec = torch.ones(1, device=dev)
+    with pytest.raises(TypeError):
+        fu.fused_update(p.double(), p.double(), [], svec, kind="sgd",
+                        hyper={})
+    with pytest.raises(ValueError, match="aligned"):
+        fu.fused_update(p[1:], p[1:], [], svec, kind="sgd", hyper={})
+    with pytest.raises(ValueError, match="svec"):
+        fu.fused_update(p, p, [p.clone(), p.clone()], svec, kind="adam",
+                        hyper={"beta1": 0.9, "beta2": 0.999, "eps": 1e-8})
+
+
 @pytest.mark.requires_cuda
 def test_cuda_path_matches_plain(dev):
     run_checks(
@@ -162,4 +250,13 @@ def test_cuda_path_matches_plain(dev):
          for c in CODECS for n, bs in CASES for w in (1, 3)]
         + [(check_wrappers_raise_on_what_the_kernel_does_not_take, (dev,))]
         + [(check_pool_on_card_matches_pool_on_cpu, (dev, c)) for c in CODECS]
-        + [(check_engine_on_card_token_identical_to_cpu, (dev,))])
+        + [(check_engine_on_card_token_identical_to_cpu, (dev,))]
+        + [(check_flash_kernels_match_plain, (dev, s, d, c))
+           for s, d in ((1, 16), (37, 16), (64, 64), (130, 64), (100, 128),
+                        (256, 128), (77, 96))
+           for c in (True, False)]
+        + [(check_fused_update_bit_identical, (dev, k, wd, n))
+           for k in ("sgd", "momentum", "adam", "adamw")
+           for wd in (0.0, 0.01) for n in (1, 4097, 100003)]
+        + [(check_train_step_on_card_matches_cpu, (dev,)),
+           (check_new_wrappers_raise, (dev,))])
