@@ -70,6 +70,37 @@ when every phase passed):
               weight by about lr whatever its gradient's size, so steps
               from noise-level gradients are set by the noise and are
               reported, not held).
+ 10. infer    BertForPretraining at bert-base (full width and depth,
+              random weights from seed 0), convert_to_int8, then eval
+              forwards at batch 16 x 512 under torch.inference_mode: 2
+              warm-up and 5 timed, launch counts (total and by shape)
+              reset just before the conversion and again just before the
+              timed forwards: one quantize_int8 per Linear at its weight
+              shape; one quant_matmul per Linear per forward, at the same
+              (k, n) and m = 16 x 512 or 16; 12 flash_fwd per forward; no
+              Linear left, every weight int8; logits finite and of the
+              reference's shapes; forward ms, samples/s, peak memory,
+              weight bytes at rest before and after; then torch.profiler
+              over one forward: device busy share and device time by
+              kernel;
+ 11. int8-kernels
+              at every shape phase 10 counted: quantize_int8 against its
+              plain version on the card, nearest and stochastic, bit for
+              bit (and a ragged [1000, 37]); quant_matmul against its
+              plain version, every element within 2 k 2^-24 (|x| @ |q|) s
+              (and a ragged (1000, 100, 37)); flash_fwd in full
+              (non-causal) mode at b16 n12 s512 d64 against plain (out and
+              lse within 2e-5); median ms over 30 launches (L2 flushed)
+              for kernel, plain version, bound and a one-call yardstick:
+              torch.matmul on the dequantized fp32 weight (TF32 off) for
+              quant_matmul, torch.quantize_per_channel given the scales
+              (no amax pass) for quantize_int8, SDPA for flash_fwd;
+ 12. infer-parity
+              bert-base width with 2 layers on the card and on the CPU
+              from the same seed, converted, b2 s128: int8 payloads and
+              scales identical; MLM and NSP logits within 1e-4 max abs;
+              int8 against fp32 logits on the card within 0.05 mean
+              relative error (the reference's int8 criterion).
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -85,6 +116,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -94,10 +126,15 @@ FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
 EPT = 12 * 2 * 768          # GPT-125M KV elements per token
 QB = 1024                   # KV quant block
 MAIN_SHAPE = "decode_step_8"  # the shape behind most serve-phase launches
-SOURCES = ("codec", "flash_attention", "fused_update")
+SOURCES = ("codec", "flash_attention", "fused_update", "quant_matmul")
 TRAIN_B, TRAIN_S = 8, 1024          # the train phase's batch
 FLASH_MAIN = (8, 12, 1024, 64)      # [b, n, s, d] of every train launch
 LR, WD = 1e-4, 0.01
+INFER_B, INFER_S = 16, 512          # the infer phase's batch (bench.py)
+FLASH_BERT = (16, 12, 512, 64)      # [b, n, s, d] of every infer launch
+RAGGED_QUANT = (1000, 37)
+RAGGED_QMM = (1000, 100, 37)
+INFER_TOL = 1e-4                    # card vs CPU logits, max abs
 
 
 def log(*a):
@@ -721,10 +758,318 @@ def phase_train_profile(step, ids, labels):
             f"{100 * t / busy_us:.1f}% ({t / 1e3:.3f} ms)")
 
 
-def kernels_line(rows, counts, train_rows, train_counts):
-    """One entry per kernel at the shape behind most of its serve-phase
-    launches (the int8 decode-step append, 8 x EPT); ``at_shapes`` holds
-    the other int8 shapes the serve phase launches it at."""
+# ------------------------------------------------------------ inference
+def _quant_module():
+    # ``paddle_tpu_torch.ops`` exports the function ``quant_matmul`` under
+    # the module's name
+    import importlib
+
+    return importlib.import_module("paddle_tpu_torch.ops.quant_matmul")
+
+
+def _quant_case(dev, gen, shape, launches, flush):
+    from torch_checks import quantize_vs_plain
+
+    qm = _quant_module()
+    k, n = shape
+    w = torch.randn(k, n, device=dev, generator=gen) * 0.02
+    w[:, n // 2] = 0.0                                 # scale floor
+    err = max(quantize_vs_plain(w, st, seed)
+              for st, seed in ((False, 0), (True, 0), (True, 12345)))
+    q, sc = qm.quantize_int8(w)
+    zp = torch.zeros(n, dtype=torch.long, device=dev)
+    lib = torch.quantize_per_channel(w, sc[0], zp, 1, torch.qint8)
+    differ = int((lib.int_repr() != q).sum())
+    # read w once, write q and the scales; abs, max, divide, round, clamp
+    bound_ms, bound_by = work_bound(5 * k * n + 4 * n, 6 * k * n)
+    r = {"shape": f"[{k}, {n}]", "launches_at_shape": launches,
+         "max_abs_err": err,
+         "ms": median_ms(lambda: qm.quantize_int8(w), flush),
+         "plain_ms": median_ms(lambda: qm.quantize_int8_plain(w), flush),
+         "library_ms": median_ms(lambda: torch.quantize_per_channel(
+             w, sc[0], zp, 1, torch.qint8), flush),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"quantize_int8 [{k}, {n}] ({launches} at conversion): "
+        f"bit-identical to plain, nearest and stochastic | {r['ms']:.4f} ms "
+        f"(plain {r['plain_ms']:.4f}, quantize_per_channel without the amax "
+        f"pass {r['library_ms']:.4f} with {differ} of {k * n} values "
+        f"differing, bound {bound_ms:.4f} {bound_by})")
+    return r
+
+
+def _qmm_case(dev, gen, mkn, launches, flush):
+    from torch_checks import qmm_vs_plain
+
+    qm = _quant_module()
+    m, k, n = mkn
+    x = torch.randn(m, k, device=dev, generator=gen)
+    q, sc = qm.quantize_int8(torch.randn(k, n, device=dev, generator=gen)
+                             * 0.02)
+    err, ratio = qmm_vs_plain(x, q, sc)
+    w = q.float() * sc                      # the fp32 weight it replaces
+    # read x, q and the scales once, write the output; 2 m n k + m n
+    bound_ms, bound_by = work_bound(4 * m * k + k * n + 4 * n + 4 * m * n,
+                                    2 * m * n * k + m * n)
+    r = {"shape": f"({m}, {k}, {n})", "launches_at_shape": launches,
+         "max_abs_err": err, "err_over_limit": ratio,
+         "ms": median_ms(lambda: qm.quant_matmul(x, q, sc), flush),
+         "plain_ms": median_ms(lambda: qm.quant_matmul_plain(x, q, sc),
+                               flush),
+         "library_ms": median_ms(lambda: torch.matmul(x, w), flush),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"quant_matmul {r['shape']} ({launches} in the timed forwards): "
+        f"max abs diff "
+        f"{err:.3e}, at most {ratio:.3f} of the limit | {r['ms']:.4f} ms "
+        f"({2 * m * n * k / r['ms'] / 1e9:.2f} TFLOP/s; plain "
+        f"{r['plain_ms']:.4f}, fp32 torch.matmul {r['library_ms']:.4f}, "
+        f"bound {bound_ms:.4f} {bound_by})")
+    return r
+
+
+def phase_infer_kernels(dev, gen, shapes):
+    """Each int8 kernel at every shape that phase 10 counted (``shapes``,
+    most launched first) and at a ragged one."""
+    import torch.nn.functional as F
+    from torch_checks import flash_fwd_vs_plain
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    quant = [*shapes["quantize_int8"].most_common(), (RAGGED_QUANT, 0)]
+    qmm = [*shapes["quant_matmul"].most_common(), (RAGGED_QMM, 0)]
+    rows = {"quantize_int8": [_quant_case(dev, gen, shape, n, flush)
+                              for shape, n in quant],
+            "quant_matmul": [_qmm_case(dev, gen, mkn, n, flush)
+                             for mkn, n in qmm]}
+    q, k, v = (torch.randn(*FLASH_BERT, device=dev, generator=gen)
+               for _ in range(3))
+    errs, _, _ = flash_fwd_vs_plain(q, k, v, False)
+    bound_ms, bound_by = work_bound(*flash_work(FLASH_BERT, False,
+                                                "flash_fwd"))
+    r = {"shape": f"{list(FLASH_BERT)} full",
+         "max_abs_err": max(e for e, _ in errs.values()),
+         "ms": median_ms(lambda: fa.flash_fwd(q, k, v, False), flush),
+         "plain_ms": median_ms(lambda: fa.flash_fwd_plain(q, k, v, False),
+                               flush),
+         "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+             q, k, v), flush),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    rows["flash_fwd"] = r
+    log(f"flash_fwd {r['shape']}: max abs diff "
+        + ", ".join(f"{n} {e:.2e} (limit {lim:.2e})"
+                    for n, (e, lim) in errs.items())
+        + f" | {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA "
+          f"{r['library_ms']:.4f}, bound {bound_ms:.4f} {bound_by})")
+    del flush
+    return rows
+
+
+def _at_rest_bytes(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (*model.parameters(), *model.buffers()))
+
+
+def infer_launch_counts() -> dict:
+    """Launches since the last reset: totals, and the int8 kernels' by
+    shape (``"shapes"``)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    qm = _quant_module()
+    return {**qm.launch_counts(), "flash_fwd": fa.launch_counts()["flash_fwd"],
+            "shapes": qm.shape_counts()}
+
+
+def reset_infer_launch_counts() -> None:
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    _quant_module().reset_launch_counts()
+    fa.reset_launch_counts()
+
+
+def _converted(model) -> None:
+    """No Linear left; every Int8Linear holds an int8 weight."""
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.quantization import Int8Linear
+
+    mods = list(model.modules())
+    if any(isinstance(m, Linear) for m in mods):
+        raise AssertionError("a Linear with an fp32 weight is left")
+    if any(m.qweight.dtype != torch.int8 for m in mods
+           if isinstance(m, Int8Linear)):
+        raise AssertionError("an Int8Linear holds a non-int8 weight")
+
+
+def _bert_batch(cfg, b, s, seed):
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg.vocab_size, (b, s))
+    types = np.repeat((np.arange(s)[None] >= s // 2).astype(np.int64), b, 0)
+    return ids, types
+
+
+def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
+                cfg=None):
+    from paddle_tpu_torch.models import BertForPretraining, bert_presets
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.quantization import convert_to_int8
+
+    cfg = cfg or bert_presets("bert-base")
+    t0 = time.perf_counter()
+    model = BertForPretraining(cfg, seed=0, device=dev).eval()
+    build_s = time.perf_counter() - t0
+    before = _at_rest_bytes(model)
+    linears = [m for m in model.modules() if isinstance(m, Linear)]
+    linear_bytes = sum(_at_rest_bytes(m) for m in linears)
+    weights = Counter(tuple(m.weight.shape) for m in linears)
+    torch.cuda.synchronize()
+    reset_infer_launch_counts()
+    t0 = time.perf_counter()
+    convert_to_int8(model)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    conversion = infer_launch_counts()
+    _converted(model)
+    after = _at_rest_bytes(model)
+    torch.cuda.empty_cache()
+    if conversion["shapes"]["quantize_int8"] != weights:
+        raise AssertionError(f"conversion launched {conversion} for Linear "
+                             f"weights {dict(weights)}")
+    ids, types = _bert_batch(cfg, b, s, seed)
+    ids = torch.as_tensor(ids, device=dev)
+    types = torch.as_tensor(types, device=dev)
+    with torch.inference_mode():
+        for _ in range(warmup):
+            model(ids, types)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_infer_launch_counts()
+        fwd_ms = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            logits, nsp = model(ids, types)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = infer_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(fwd_ms)
+    per_forward = Counter()            # (k, n) -> launches per forward
+    for (m, k, n), c in counts["shapes"]["quant_matmul"].items():
+        per_forward[(k, n)] += c / iters
+        if m not in (b * s, b):
+            per_forward["m not b * s or b"] += c
+    summary = {"build_s": build_s, "convert_s": convert_s,
+               "forward_ms": fwd_ms, "forward_ms_median": med,
+               "samples_per_s": b / (med / 1e3),
+               "tokens_per_s": b * s / (med / 1e3),
+               "peak_memory_gib": peak, "weight_bytes_fp32": before,
+               "weight_bytes_int8": after,
+               "linear_weight_bytes_fp32": linear_bytes,
+               "conversion_launches": _named(conversion),
+               "launches": _named(counts)}
+    log("infer " + json.dumps(summary))
+    if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
+            tuple(nsp.shape) != (b, 2):
+        raise AssertionError(f"logits {tuple(logits.shape)}, nsp "
+                             f"{tuple(nsp.shape)}")
+    if not (torch.isfinite(logits).all() and torch.isfinite(nsp).all()):
+        raise AssertionError("non-finite logits")
+    want = {"quantize_int8": 0, "quant_matmul": len(linears) * iters,
+            "flash_fwd": cfg.num_layers * iters}
+    got = {k: counts[k] for k in want}
+    if got != want or per_forward != weights:
+        raise AssertionError(f"launch counts {got}, expected {want}; per "
+                             f"forward by weight {dict(per_forward)}, "
+                             f"expected {dict(weights)}")
+    del logits, nsp
+    return conversion, counts, model, (ids, types)
+
+
+def _named(counts) -> dict:
+    """Launch counts with the by-shape keys as strings, for JSON."""
+    return {**counts, "shapes": {name: {str(k): n for k, n in c.items()}
+                                 for name, c in counts["shapes"].items()}}
+
+
+def phase_infer_profile(model, batch):
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model(*batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(*batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    log(f"infer profile: one forward, wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy, "
+        f"{100 * (1 - busy_us / wall_us):.1f}% idle), "
+        f"{sum(e.count for e in kernels)} kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{100 * e.self_device_time_total / busy_us:5.1f}% "
+            f"{e.count:5d}x  {e.key[:90]}")
+    for name in ("qmm_kernel", "fwd_kernel"):
+        t = sum(e.self_device_time_total for e in kernels if name in e.key)
+        log(f"  share of the forward's device time, {name}: "
+            f"{100 * t / busy_us:.1f}% ({t / 1e3:.3f} ms)")
+
+
+def _parity_run(cfg, device, ids, types):
+    from paddle_tpu_torch.models import BertForPretraining
+    from paddle_tpu_torch.quantization import Int8Linear, convert_to_int8
+
+    model = BertForPretraining(cfg, seed=0, device=device).eval()
+    with torch.inference_mode():
+        fp32 = model(ids, types)[0].cpu()
+        convert_to_int8(model)
+        logits, nsp = (t.cpu() for t in model(ids, types))
+    payloads = {n: (m.qweight.cpu(), m.scales.cpu())
+                for n, m in model.named_modules() if isinstance(m, Int8Linear)}
+    return fp32, logits, nsp, payloads
+
+
+def phase_infer_parity(dev, seed):
+    import dataclasses
+
+    from paddle_tpu_torch.models import bert_presets
+
+    cfg = dataclasses.replace(bert_presets("bert-base"), num_layers=2)
+    ids, types = _bert_batch(cfg, 2, 128, seed + 3)
+    card_fp32, card, card_nsp, card_q = _parity_run(cfg, dev, ids, types)
+    _, cpu, cpu_nsp, cpu_q = _parity_run(cfg, "cpu", ids, types)
+    if list(card_q) != list(cpu_q) or len(cpu_q) != 15:
+        raise AssertionError("card and CPU converted other layers")
+    differ = [n for n, (q, s) in cpu_q.items()
+              if not (torch.equal(card_q[n][0], q)
+                      and torch.equal(card_q[n][1], s))]
+    err = float((card - cpu).abs().max())
+    nsp_err = float((card_nsp - cpu_nsp).abs().max())
+    rel = float((card - card_fp32).abs().mean() / card_fp32.abs().mean())
+    log(f"infer card vs CPU (bert-base width, 2 layers, b2 s128): int8 "
+        f"payloads of {len(cpu_q)} layers identical: {not differ}; max "
+        f"|logit diff| MLM {err:.3e} NSP {nsp_err:.3e} (limit {INFER_TOL}, "
+        f"largest |logit| {float(cpu.abs().max()):.3f}); int8 vs fp32 on "
+        f"the card {rel:.4f} mean relative error (limit 0.05)")
+    if differ:
+        raise AssertionError(f"int8 payloads differ: {differ}")
+    if not (err <= INFER_TOL and nsp_err <= INFER_TOL):
+        raise AssertionError("card and CPU logits differ beyond 1e-4")
+    if not rel < 0.05:
+        raise AssertionError(f"int8 logits {rel:.4f} from fp32")
+
+
+def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
+                 conversion, infer_counts):
+    """One entry per kernel at the shape behind most of its launches on
+    its path: the codecs at the int8 decode-step append (8 x EPT), the
+    flash kernels and fused_update at the train step, quantize_int8 and
+    quant_matmul at their most launched shape in the infer phase
+    (``launches_at_shape``, counted there); ``at_shapes`` holds the other
+    shapes (flash_fwd's BERT-base shape with its infer-phase launches)."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -759,11 +1104,27 @@ def kernels_line(rows, counts, train_rows, train_counts):
         r = train_rows[name]
         out.append(dict(name=name, route="cuda", source=source,
                         replaces=replaces, launches=train_counts[name],
-                        shape=r["shape"], max_abs_err=r["max_abs_err"],
-                        ms=r["ms"], plain_ms=r["plain_ms"],
-                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                        library_ms=r["library_ms"]))
+                        **_numbers(r)))
+    bert = dict(_numbers(infer_rows["flash_fwd"]),
+                launches=infer_counts["flash_fwd"])
+    next(e for e in out if e["name"] == "flash_fwd")["at_shapes"] = [bert]
+    qm = _quant_module()
+    for name, launches, line in (
+            ("quantize_int8", conversion["quantize_int8"], 63),
+            ("quant_matmul", infer_counts["quant_matmul"], 110)):
+        main, *rest = infer_rows[name]
+        out.append(dict(name=name, route="cuda", source=qm.KERNEL_SOURCE,
+                        replaces=f"paddle_tpu/ops/quant_matmul.py:{line}",
+                        launches=launches, **_numbers(main),
+                        at_shapes=[_numbers(r) for r in rest]))
     return {"kernels": out}
+
+
+def _numbers(r) -> dict:
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "launches_at_shape",
+            "err_over_limit")
+    return {k: r[k] for k in keys if k in r}
 
 
 def main(argv=None) -> int:
@@ -815,9 +1176,20 @@ def main(argv=None) -> int:
     del step
     torch.cuda.empty_cache()
     phase_train_parity(cfg, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    conversion, infer_counts, bert, batch = phase_infer(dev, args.seed)
+    phase_infer_profile(bert, batch)
+    del bert, batch
+    torch.cuda.empty_cache()
+    infer_rows = phase_infer_kernels(dev, gen, {
+        "quantize_int8": conversion["shapes"]["quantize_int8"],
+        "quant_matmul": infer_counts["shapes"]["quant_matmul"]})
+    phase_infer_parity(dev, args.seed)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernels_line(rows, counts, train_rows, train_counts)))
+    print(json.dumps(kernels_line(rows, counts, train_rows, train_counts,
+                                  infer_rows, conversion, infer_counts)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

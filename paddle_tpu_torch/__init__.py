@@ -11,18 +11,25 @@ int8/fp8 at-rest codec runs on two hand-written CUDA kernels
 (``csrc/codec.cu``). Slice 2: the GPT training step, with flash
 attention forward/backward on three CUDA kernels
 (``csrc/flash_attention.cu``) and the optimizer update on a fourth
-(``csrc/fused_update.cu``):
+(``csrc/fused_update.cu``). Slice 3: int8 weight-only BERT inference,
+with weight quantization and the quantized matmul on two CUDA kernels
+(``csrc/quant_matmul.cu``) and attention on the flash forward kernel:
 
   framework/   device resolution (cuda by default), serving flags,
                per-request random streams
   models/      GPTConfig/presets, numpy-seeded GPTForCausalLM parameters
-               and training forward, GPTPretrainingCriterion, weight
-               conversion from the JAX model's numpy arrays
+               and training forward, GPTPretrainingCriterion;
+               BertConfig/presets and BertForPretraining (inference);
+               weight conversion from the JAX models' numpy arrays
+  nn/          Linear ([in, out] weights), Embedding, Dropout, LayerNorm,
+               the transformer encoder; linear, gelu, layer_norm and
+               scaled dot-product attention functionals
+  quantization/ Int8Linear and convert_to_int8
   distributed/ plain torch versions of the blockwise codec math, the
                gradient bucket plan
   ops/         kernel wrappers (kernel on CUDA, plain on CPU) for the
-               codec, flash attention and the fused update, and the
-               nvcc/ctypes build
+               codec, flash attention, the fused update and the int8
+               quantize/quantized matmul, and the nvcc/ctypes build
   optimizer/   SGD, Momentum, Adam, AdamW and the fused flat updater
   jit/         TrainStep
   serving/     decode model, KV block pool, sampler, queue, engine
@@ -31,3 +38,6 @@ attention forward/backward on three CUDA kernels
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; a CUDA request without a card raises.
 """
+from . import nn, quantization
+
+__all__ = ["nn", "quantization"]

@@ -1,9 +1,16 @@
-"""GPT model for the port (reference: ``paddle_tpu/models``)."""
-from .convert import state_dict_from_numpy
+"""GPT and BERT models for the port (reference: ``paddle_tpu/models``)."""
+from .bert import (BertConfig, BertEmbeddings, BertForPretraining,
+                   BertModel, BertPooler, BertPretrainingCriterion,
+                   bert_presets)
+from .convert import bert_state_dict_from_numpy, state_dict_from_numpy
 from .gpt import (BLOCK_PARAMS, GPTConfig, GPTDecoderLayer, GPTEmbeddings,
                   GPTForCausalLM, GPTModel, GPTPretrainingCriterion,
                   gpt_presets)
 
-__all__ = ["BLOCK_PARAMS", "GPTConfig", "GPTDecoderLayer", "GPTEmbeddings",
-           "GPTForCausalLM", "GPTModel", "GPTPretrainingCriterion",
-           "gpt_presets", "state_dict_from_numpy"]
+__all__ = ["BLOCK_PARAMS", "BertConfig", "BertEmbeddings",
+           "BertForPretraining", "BertModel", "BertPooler",
+           "BertPretrainingCriterion", "GPTConfig", "GPTDecoderLayer",
+           "GPTEmbeddings", "GPTForCausalLM", "GPTModel",
+           "GPTPretrainingCriterion", "bert_presets",
+           "bert_state_dict_from_numpy", "gpt_presets",
+           "state_dict_from_numpy"]

@@ -1,21 +1,27 @@
-"""Weights carried across from the JAX model (no reference file: new).
+"""Weights carried across from the JAX models (no reference file: new).
 
-The caller extracts the JAX ``GPTForCausalLM``'s named parameters as
-numpy arrays (``{name: np.asarray(p._value)}``); this module turns them
-into the port's ``state_dict``. The names are the same on both sides,
-so the mapping checks names and shapes and copies the bytes unchanged.
-The port itself never sees JAX.
+The caller extracts the JAX model's named parameters as numpy arrays
+(``{name: np.asarray(p._value)}``); this module turns them into the
+port's ``state_dict``, for ``GPTForCausalLM`` (``state_dict_from_numpy``)
+and ``BertForPretraining`` (``bert_state_dict_from_numpy``). The names
+are the same on both sides, so the mapping checks names, shapes and
+dtype and copies the bytes unchanged; BERT's expected names and shapes
+are read off the port's own model (``bert_layout``). The port itself
+never sees JAX.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..nn import Linear
+from .bert import BertConfig, BertForPretraining
 from .gpt import GPTConfig, block_shapes
 
-__all__ = ["expected_shapes", "state_dict_from_numpy"]
+__all__ = ["expected_shapes", "state_dict_from_numpy", "bert_layout",
+           "bert_state_dict_from_numpy"]
 
 
 def expected_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
@@ -34,11 +40,8 @@ def expected_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
     return out
 
 
-def state_dict_from_numpy(params: Dict[str, np.ndarray],
-                          cfg: GPTConfig) -> Dict[str, torch.Tensor]:
-    """JAX named parameters (numpy) -> the port's ``state_dict`` (CPU
-    fp32 tensors; ``load_state_dict`` moves them to the model's device)."""
-    want = expected_shapes(cfg)
+def _copy_checked(params: Dict[str, np.ndarray],
+                  want: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
     missing = sorted(set(want) - set(params))
     extra = sorted(set(params) - set(want))
     if missing or extra:
@@ -52,4 +55,43 @@ def state_dict_from_numpy(params: Dict[str, np.ndarray],
         if arr.dtype != np.float32:
             raise TypeError(f"{name}: dtype {arr.dtype}, expected float32")
         out[name] = torch.from_numpy(np.array(arr, copy=True))
+    return out
+
+
+def state_dict_from_numpy(params: Dict[str, np.ndarray],
+                          cfg: GPTConfig) -> Dict[str, torch.Tensor]:
+    """JAX named parameters (numpy) -> the port's ``state_dict`` (CPU
+    fp32 tensors; ``load_state_dict`` moves them to the model's device)."""
+    return _copy_checked(params, expected_shapes(cfg))
+
+
+def bert_layout(cfg: BertConfig):
+    """``BertForPretraining``'s parameter name -> shape, in its own order
+    (``Linear`` weights ``[in, out]``), and the module names of its
+    ``Linear`` layers, read off a model built on the CPU."""
+    model = BertForPretraining(cfg, device="cpu")
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    linears = {n for n, m in model.named_modules() if isinstance(m, Linear)}
+    return shapes, linears
+
+
+def bert_state_dict_from_numpy(params: Dict[str, np.ndarray],
+                               cfg: BertConfig,
+                               names: Optional[Dict[str, str]] = None
+                               ) -> Dict[str, object]:
+    """JAX ``BertForPretraining`` named parameters (numpy) -> the port's
+    ``state_dict``. ``names`` optionally maps parameter names to the
+    reference's ``Parameter.name`` (``{n: p.name for n, p in
+    named_parameters()}``); each ``Linear`` then takes its weight's name
+    (``<linear>._extra_state``), so ``stable_seed`` gives the port the
+    reference's stochastic-rounding seed. Without ``names`` each
+    ``Linear`` keeps its own."""
+    shapes, linears = bert_layout(cfg)
+    out = {}
+    for key, t in _copy_checked(params, shapes).items():
+        out[key] = t
+        lin = key[:-len(".bias")]
+        if key.endswith(".bias") and lin in linears:   # state_dict order
+            name = None if names is None else names[lin + ".weight"]
+            out[lin + "._extra_state"] = {"weight_name": name}
     return out

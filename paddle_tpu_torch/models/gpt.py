@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..framework.device import resolve_device
+from ..nn.functional import layer_norm
 from ..ops.flash_attention import flash_attention_val
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -150,13 +151,6 @@ def _check_trainable(cfg: GPTConfig, training: bool) -> None:
                                   f"yet ({_OPTIONS})")
 
 
-def layer_norm(x, w, b, eps: float):
-    """fp32 LayerNorm with the reference's expression order."""
-    mu = x.mean(-1, keepdim=True)
-    var = x.var(-1, keepdim=True, unbiased=False)
-    return (x - mu) * torch.rsqrt(var + eps) * w + b
-
-
 def attention(q, k, v, cfg: GPTConfig):
     """Causal attention on ``[b, s, n, d]`` (reference ``_attention_val``):
     the flash kernel, or with ``use_flash_attention=False`` the einsum /
@@ -211,12 +205,12 @@ class GPTDecoderLayer(nn.Module):
         cfg = self.cfg
         b, s, h = x.shape
         eps = cfg.layer_norm_epsilon
-        hn = layer_norm(x, self.ln1_w, self.ln1_b, eps)
+        hn = layer_norm(x, h, self.ln1_w, self.ln1_b, eps)
         qkv = hn @ self.qkv_w.reshape(h, 3 * h) + self.qkv_b.reshape(3 * h)
         q, k, v = qkv.reshape(b, s, 3, cfg.num_heads, cfg.head_dim).unbind(2)
         attn = attention(q, k, v, cfg).reshape(b, s, h)
         x = x + (attn @ self.out_w + self.out_b)
-        hn = layer_norm(x, self.ln2_w, self.ln2_b, eps)
+        hn = layer_norm(x, h, self.ln2_w, self.ln2_b, eps)
         z = F.gelu(hn @ self.fc1_w + self.fc1_b, approximate="tanh")
         return x + (z @ self.fc2_w + self.fc2_b)
 
@@ -242,7 +236,8 @@ class GPTModel(nn.Module):
         for blk in self.decoder:
             x = blk(x)
         fn = self.final_norm
-        return layer_norm(x, fn.weight, fn.bias, self.config.layer_norm_epsilon)
+        return layer_norm(x, x.shape[-1], fn.weight, fn.bias,
+                          self.config.layer_norm_epsilon)
 
 
 class GPTForCausalLM(nn.Module):

@@ -1,0 +1,233 @@
+"""Int8 weight-only quantization and quantized matmul (reference:
+``paddle_tpu/ops/quant_matmul.py`` ``quantize_int8``/``_quantize_kernel``,
+``_hash_uniform``, ``stable_seed`` and ``quant_matmul``/``_qmm_kernel``).
+
+Two kernels, each with its plain PyTorch version beside it:
+
+  quantize_int8(w, stochastic, seed) -> (q int8 [k, n], scales fp32 [1, n])
+  quant_matmul(x, qw, scales)        -> x @ (qw * scales), fp32 accumulator
+
+Dispatch is by where the tensors lie, and nothing else: a CPU tensor takes
+the plain version, a CUDA tensor the hand-written kernel
+(``csrc/quant_matmul.cu``) or an error. There is no fallback from the
+kernel to the plain version. Each wrapper counts its kernel launches in
+``<wrapper>.launches`` (``launch_counts()``) and, by shape, in
+``<wrapper>.shapes`` (``shape_counts()``: ``(k, n)`` for
+``quantize_int8``, ``(m, k, n)`` for ``quant_matmul``), incremented only
+where the kernel is launched.
+
+Numerics of ``quantize_int8`` are the reference's as XLA compiles it on
+the CPU: ``scale = max(amax * float32(1/127), 1e-12)`` (the constant
+division becomes a multiply by the reciprocal), ``q = rint(w / scale)``
+with a true division by the scale tensor, half to even. The stochastic
+noise is the reference's uint32 murmur3-finalizer hash of (flat index,
+seed), done here in int64 and masked to 32 bits after every multiply.
+So the int8 payloads and the scales are bit-identical to the reference's,
+on the CPU and on the card.
+
+``quant_matmul`` accumulates ``x @ qw`` in fp32 and scales each column
+at the end, as ``_qmm_kernel`` does. The reference sends shapes its tiles
+do not divide to a plain ``x @ (qw * scales)``, which scales first; the
+two agree to fp32 rounding. The CUDA kernel takes any ``m, n, k >= 1``
+with fixed 64 x 64 x 32 tiles: ``block_m``, ``block_n`` and ``block_k``
+stand in the reference's signature and raise when given (the reference's
+tile choice and autotune cache, ``ops/pallas/autotune.py``, are ROADMAP
+Queue A, "the rest": kernel tuner).
+On the card both kernels take fp32 input and give fp32 output.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import zlib
+from typing import Tuple
+
+import torch
+
+from ..framework.device import require_sm90
+from ._build import load_library
+
+__all__ = ["KERNEL_SOURCE", "quantize_int8", "quantize_int8_plain",
+           "quant_matmul", "quant_matmul_plain", "hash_uniform",
+           "stable_seed", "launch_counts", "shape_counts",
+           "reset_launch_counts"]
+
+KERNEL_SOURCE = "paddle_tpu_torch/csrc/quant_matmul.cu"
+_U32 = 0xFFFFFFFF
+
+
+def stable_seed(name: str, base: int = 0) -> int:
+    """Process-stable seed for a named weight: crc32, not the salted
+    builtin ``hash``, so every process derives the same stochastic
+    rounding bits for the same parameter name."""
+    return (int(base) + zlib.crc32(name.encode("utf-8"))) & 0x7FFF_FFFF
+
+
+# ------------------------------------------------------------ plain versions
+def hash_uniform(shape, seed: int, device=None) -> torch.Tensor:
+    """fp32 uniforms in [0, 1) from the reference's ``_hash_uniform``: a
+    murmur3 finalizer over (flat index, seed) in uint32 arithmetic, here
+    in int64 with the low 32 bits kept after every multiply (they survive
+    int64 wraparound)."""
+    r, c = shape
+    rows = torch.arange(r, dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(c, dtype=torch.int64, device=device)[None, :]
+    h = (rows * c + cols) & _U32
+    h = ((h * 2654435761) & _U32) ^ (int(seed) & _U32)
+    h = h ^ (h >> 16)
+    h = (h * 0x85EB_CA6B) & _U32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2_AE35) & _U32
+    h = h ^ (h >> 16)
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def quantize_int8_plain(w: torch.Tensor, stochastic: bool = False,
+                        seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``quantize_int8``."""
+    w = w.to(torch.float32)
+    f32 = dict(dtype=torch.float32, device=w.device)
+    amax = w.abs().amax(0, keepdim=True)
+    scale = torch.maximum(amax * torch.tensor(1.0 / 127.0, **f32),
+                          torch.tensor(1e-12, **f32))
+    scaled = w / scale
+    if stochastic:
+        u = hash_uniform(w.shape, int(seed) & 0x7FFF_FFFF, w.device)
+        v = torch.floor(scaled + u)
+    else:
+        v = torch.round(scaled)
+    return v.clamp(-127, 127).to(torch.int8), scale
+
+
+def quant_matmul_plain(x: torch.Tensor, qw: torch.Tensor,
+                       scales: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """Plain version of ``quant_matmul``: accumulate, then scale."""
+    out = (x.to(torch.float32) @ qw.to(torch.float32)) * scales.reshape(1, -1)
+    return out.to(out_dtype or x.dtype)
+
+
+# ------------------------------------------------------------------ kernels
+@functools.lru_cache(maxsize=None)
+def _lib(device_index: int) -> ctypes.CDLL:
+    require_sm90(torch.device("cuda", device_index))
+    lib = load_library("quant_matmul")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.quantize_int8.argtypes = [p, p, p, i, i, i, ctypes.c_uint, p]
+    lib.quant_matmul.argtypes = [p, p, p, p, i, i, i, p]
+    lib.quantize_int8.restype = ctypes.c_int
+    lib.quant_matmul.restype = ctypes.c_int
+    return lib
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """True for the kernel (CUDA tensor), False for the plain version."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
+def _operand(name: str, t: torch.Tensor, dev, dtype) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"the kernel takes {dtype} {name}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def quantize_int8(w: torch.Tensor, stochastic: bool = False, seed: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[k, n] float weights -> ([k, n] int8, [1, n] fp32 scales), per
+    output column. Deterministic: the same (w, stochastic, seed) gives the
+    same bits on the CPU, on the card and in the reference."""
+    if w.dim() != 2:
+        raise ValueError(f"quantize_int8 takes [k, n], got {tuple(w.shape)}")
+    if not _on_card(w):
+        return quantize_int8_plain(w, stochastic, seed)
+    dev = w.device
+    _operand("w", w, dev, torch.float32)
+    k, n = w.shape
+    q = torch.empty((k, n), dtype=torch.int8, device=dev)
+    scales = torch.empty((1, n), dtype=torch.float32, device=dev)
+    if not q.numel():
+        raise ValueError(f"quantize_int8 needs k, n >= 1, got {(k, n)}")
+    with torch.cuda.device(dev):
+        rc = _lib(dev.index).quantize_int8(
+            w.data_ptr(), q.data_ptr(), scales.data_ptr(), k, n,
+            int(bool(stochastic)), int(seed) & 0x7FFF_FFFF, _stream(dev))
+    if rc:
+        raise RuntimeError(f"quantize_int8 launch failed: CUDA error {rc}")
+    quantize_int8.launches += 1
+    quantize_int8.shapes[(k, n)] += 1
+    return q, scales
+
+
+def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
+                 block_m=None, block_n=None, block_k=None,
+                 out_dtype=None) -> torch.Tensor:
+    """``x [m, k] @ (qw [k, n] int8 * scales [1, n])`` -> ``[m, n]`` in
+    ``out_dtype`` (default ``x.dtype``). The tiles are fixed: a block
+    argument raises."""
+    if (block_m, block_n, block_k) != (None, None, None):
+        raise ValueError("quant_matmul's tiles are fixed (64 x 64 x 32); "
+                         "block_m/block_n/block_k are not ported (ROADMAP "
+                         "Queue A, 'the rest': kernel tuner)")
+    if x.dim() != 2 or qw.dim() != 2 or x.shape[1] != qw.shape[0]:
+        raise ValueError(f"quant_matmul takes x [m, k] and qw [k, n], got "
+                         f"{tuple(x.shape)} and {tuple(qw.shape)}")
+    if scales.numel() != qw.shape[1]:
+        raise ValueError(f"scales has {scales.numel()} values for "
+                         f"{qw.shape[1]} columns")
+    if not _on_card(x):
+        return quant_matmul_plain(x, qw, scales, out_dtype)
+    dev = x.device
+    _operand("x", x, dev, torch.float32)
+    _operand("qw", qw, dev, torch.int8)
+    _operand("scales", scales, dev, torch.float32)
+    if out_dtype not in (None, torch.float32):
+        raise TypeError(f"the kernel writes float32, not {out_dtype}")
+    if qw.data_ptr() % 4:
+        raise ValueError("qw must be 4-byte aligned for the kernel's char4 "
+                         "loads")
+    (m, k), n = x.shape, qw.shape[1]
+    if not (m and n and k):
+        raise ValueError(f"quant_matmul needs m, n, k >= 1, got {(m, n, k)}")
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib(dev.index).quant_matmul(
+            x.data_ptr(), qw.data_ptr(), scales.data_ptr(), out.data_ptr(),
+            m, n, k, _stream(dev))
+    if rc:
+        raise RuntimeError(f"quant_matmul launch failed: CUDA error {rc}")
+    quant_matmul.launches += 1
+    quant_matmul.shapes[(m, k, n)] += 1
+    return out
+
+
+_WRAPPERS = {"quantize_int8": quantize_int8, "quant_matmul": quant_matmul}
+
+
+def launch_counts() -> dict:
+    return {name: f.launches for name, f in _WRAPPERS.items()}
+
+
+def shape_counts() -> dict:
+    """Launches by shape since the last reset, per wrapper."""
+    return {name: collections.Counter(f.shapes)
+            for name, f in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for f in _WRAPPERS.values():
+        f.launches = 0
+        f.shapes = collections.Counter()
+
+
+reset_launch_counts()

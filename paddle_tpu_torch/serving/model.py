@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.device import to_device
-from ..models.gpt import BLOCK_PARAMS, GPTForCausalLM, layer_norm
+from ..models.gpt import BLOCK_PARAMS, GPTForCausalLM
+from ..nn.functional import layer_norm
 
 __all__ = ["GPTDecodeModel", "bucket_pow2"]
 
@@ -88,7 +89,7 @@ class GPTDecodeModel:
         return to_device(x, self.device, dtype)
 
     def _ln(self, v, w, b):
-        return layer_norm(v, w, b, self._eps)
+        return layer_norm(v, v.shape[-1], w, b, self._eps)
 
     def _qkv(self, x, l: int):
         """LayerNorm + packed projection -> q, k, v [..., heads, hd]."""

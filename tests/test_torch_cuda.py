@@ -19,31 +19,44 @@ bit-identical. One gpt-test ``TrainStep`` on the card against one on
 the CPU: loss within 1e-5 relative, then ``adam_step_parity`` (gradients
 within 1e-4 of each tensor's largest; the step on every element whose
 gradient is clear of the card-vs-CPU gradient noise within 1e-2 lr of
-the CPU's and at least 0.9 lr).
+the CPU's and at least 0.9 lr). ``quantize_int8`` bit-identical to its
+plain version, nearest and stochastic; ``quant_matmul`` within
+``2 k 2^-24 (|x| @ |q|) s`` of its plain version elementwise (two fp32
+dot products of length k summed in different orders). A converted
+bert-test on the card against the same on the CPU: int8 payloads
+identical, logits within 1e-4 (card and CPU differ by ~1e-6 at this
+size), and the launches of one conversion and one forward counted.
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.distributed import grad_comm as plain
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
+from paddle_tpu_torch.models import (BertForPretraining, GPTForCausalLM,
+                                     GPTPretrainingCriterion, bert_presets,
                                      gpt_presets)
 from paddle_tpu_torch.observability.metrics import get_registry
 from paddle_tpu_torch.ops import codec
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_update as fu
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.quantization import Int8Linear, convert_to_int8
 from paddle_tpu_torch.serving import (BatchSampler, GPTDecodeModel,
                                       KVBlockPool, RequestQueue,
                                       ServeRequest, ServingEngine)
 from torch_checks import (FUSED_HYPER, adam_step_parity, flash_vs_plain,
-                          fused_inputs, fused_vs_plain, run_checks)
+                          fused_inputs, fused_vs_plain, qmm_vs_plain,
+                          quantize_vs_plain, run_checks)
 
 torch.set_num_threads(2)
+
+qm = importlib.import_module("paddle_tpu_torch.ops.quant_matmul")
 
 CODECS = ("int8_block", "fp8_block")
 CASES = [(5000, 1024), (777, 128), (2 * 256 + 3, 256), (18432 * 3, 1024)]
@@ -243,6 +256,90 @@ def check_new_wrappers_raise(dev):
                         hyper={"beta1": 0.9, "beta2": 0.999, "eps": 1e-8})
 
 
+def check_quantize_kernel_bit_identical(dev, shape, stochastic, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(sum(shape) + seed)
+    w = torch.randn(*shape, device=dev, generator=gen) * 0.05
+    if shape[1] > 3:
+        w[:, 3] = 0.0                          # scale floor 1e-12, q = 0
+    if shape[0] >= 9 and shape[1] >= 2:
+        # amax 127 gives scale 1.0: w / scale lands half-way between
+        # integers, where rint rounds to even
+        w[:9, 1] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5,
+                                 126.5, -126.5])
+        w[9:, 1] = 0.0
+    before = qm.quantize_int8.launches
+    assert quantize_vs_plain(w, stochastic, seed) == 0.0
+    assert qm.quantize_int8.launches == before + 1
+
+
+def check_quant_matmul_within_bound(dev, m, k, n):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * k + n)
+    x = torch.randn(m, k, device=dev, generator=gen)
+    q, s = qm.quantize_int8_plain(torch.randn(k, n, device=dev,
+                                              generator=gen))
+    before = qm.quant_matmul.launches
+    qmm_vs_plain(x, q, s)
+    assert qm.quant_matmul.launches == before + 1
+
+
+def check_quant_wrappers_raise(dev):
+    x = torch.randn(8, 16, device=dev)
+    q = torch.zeros(16, 12, dtype=torch.int8, device=dev)
+    s = torch.ones(1, 12, device=dev)
+    with pytest.raises(TypeError):
+        qm.quantize_int8(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quantize_int8(x.t())
+    with pytest.raises(TypeError):
+        qm.quant_matmul(x.double(), q, s)
+    with pytest.raises(TypeError):
+        qm.quant_matmul(x, q.float(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quant_matmul(x.t().contiguous().t(), q, s)
+    with pytest.raises(ValueError, match="aligned"):
+        buf = torch.zeros(16 * 12 + 1, dtype=torch.int8, device=dev)
+        qm.quant_matmul(x, buf[1:].view(16, 12), s)
+    with pytest.raises(ValueError, match="is on"):
+        qm.quant_matmul(x, q.cpu(), s)
+    with pytest.raises(TypeError):
+        qm.quant_matmul(x, q, s, out_dtype=torch.bfloat16)
+
+
+def _bert(device):
+    return BertForPretraining(bert_presets("bert-test"), seed=0,
+                              device=device).eval()
+
+
+def check_bert_int8_on_card_matches_cpu(dev):
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 256, (2, 32))
+    card, cpu = _bert(dev), _bert("cpu")
+    before = {**qm.launch_counts(), **fa.launch_counts()}
+    convert_to_int8(card)
+    mid = qm.launch_counts()
+    with torch.inference_mode():
+        logits, nsp = card(ids)
+    torch.cuda.synchronize()
+    after = {**qm.launch_counts(), **fa.launch_counts()}
+    convert_to_int8(cpu)
+    with torch.inference_mode():
+        want, want_nsp = cpu(ids)
+    # 2 layers: 6 Linear each, then pooler, transform and nsp
+    assert mid["quantize_int8"] - before["quantize_int8"] == 15
+    assert {k: after[k] - mid.get(k, before[k]) for k in
+            ("quant_matmul", "flash_fwd")} == {"quant_matmul": 15,
+                                               "flash_fwd": 2}
+    cards = dict(card.named_modules())
+    for name, mod in cpu.named_modules():
+        if isinstance(mod, Int8Linear):
+            assert torch.equal(cards[name].qweight.cpu(), mod.qweight), name
+            assert torch.equal(cards[name].scales.cpu(), mod.scales), name
+    assert float((logits.cpu() - want).abs().max()) <= 1e-4
+    assert float((nsp.cpu() - want_nsp).abs().max()) <= 1e-4
+
+
 @pytest.mark.requires_cuda
 def test_cuda_path_matches_plain(dev):
     run_checks(
@@ -259,4 +356,12 @@ def test_cuda_path_matches_plain(dev):
            for k in ("sgd", "momentum", "adam", "adamw")
            for wd in (0.0, 0.01) for n in (1, 4097, 100003)]
         + [(check_train_step_on_card_matches_cpu, (dev,)),
-           (check_new_wrappers_raise, (dev,))])
+           (check_new_wrappers_raise, (dev,))]
+        + [(check_quantize_kernel_bit_identical, (dev, shape, st, seed))
+           for shape in ((1, 1), (768, 2), (100, 37), (64, 128), (3072, 768))
+           for st, seed in ((False, 0), (True, 0), (True, 2 ** 31 - 1))]
+        + [(check_quant_matmul_within_bound, (dev, m, k, n))
+           for m, k, n in ((1, 1, 1), (16, 768, 2), (10, 48, 24),
+                           (257, 300, 130), (512, 768, 768), (64, 3072, 64))]
+        + [(check_quant_wrappers_raise, (dev,)),
+           (check_bert_int8_on_card_matches_cpu, (dev,))])

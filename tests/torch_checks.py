@@ -20,12 +20,23 @@ the two hold the kernels to one set of criteria:
   magnitude (unit-scale inputs; a gradient that is zero in exact
   arithmetic, as dq at s = 1, is rounding noise on both sides);
 - ``fused_update``: bit-identical parameters and slots;
-- one Adam(W) training step on two devices: :func:`adam_step_parity`.
+- one Adam(W) training step on two devices: :func:`adam_step_parity`;
+- ``quantize_int8``: int8 payload and scales bit-identical, nearest and
+  stochastic;
+- ``quant_matmul``: every element within the forward-error bound of two
+  fp32 dot products of length k, ``2 k 2^-24 (|x| @ |q| s)`` (each side
+  sums k products in its own order; the bound is computed in float64).
 """
+import importlib
+
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_update as fu
+
+# ``paddle_tpu_torch.ops`` exports the function ``quant_matmul`` under the
+# module's name, as the reference's ``ops`` does
+qm = importlib.import_module("paddle_tpu_torch.ops.quant_matmul")
 
 FLASH_TOL = {"out": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
 FUSED_HYPER = {"sgd": {}, "momentum": {"momentum": 0.9, "nesterov": True},
@@ -52,28 +63,85 @@ def _max_abs(a, b) -> float:
     return float((a - b).abs().max())
 
 
+def _over_limit(what: str, errs) -> None:
+    over = [f"{n} {e:.3e} > {lim:.3e}" for n, (e, lim) in errs.items()
+            if not e <= lim]
+    if over:
+        raise AssertionError(f"{what}: max abs diff " + ", ".join(over))
+
+
+def flash_fwd_vs_plain(q, k, v, causal: bool):
+    """``flash_fwd`` against its plain version. Returns ``(errs, out,
+    lse)``: ``errs`` maps out and lse to (max abs diff, limit); raises
+    when one is over its limit."""
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, causal)
+    errs = {"out": (_max_abs(out, p_out), FLASH_TOL["out"]),
+            "lse": (_max_abs(lse, p_lse), FLASH_TOL["lse"])}
+    _over_limit(f"flash_fwd {list(q.shape)} causal={causal}", errs)
+    return errs, out, lse
+
+
 def flash_vs_plain(q, k, v, do, causal: bool):
     """The three flash kernels and their plain versions on the same
     inputs. Returns ``(errs, lse, delta)``: ``errs`` maps out, lse, dq, dk
     and dv to (max abs diff, limit); raises when one is over its limit."""
-    out, lse = fa.flash_fwd(q, k, v, causal)
-    p_out, p_lse = fa.flash_fwd_plain(q, k, v, causal)
+    errs, out, lse = flash_fwd_vs_plain(q, k, v, causal)
     delta = (do * out).sum(-1, keepdim=True)
     dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
     p_dq, p_dk, p_dv = fa.flash_bwd_plain(q, k, v, do, lse, delta, causal)
-    errs = {}
-    for name, a, b in (("out", out, p_out), ("lse", lse, p_lse),
-                       ("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
-        scale = 1.0 if name in ("out", "lse") else max(float(b.abs().max()),
-                                                       1.0)
+    for name, a, b in (("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        scale = max(float(b.abs().max()), 1.0)
         errs[name] = (_max_abs(a, b), FLASH_TOL[name] * scale)
-    over = [f"{n} {e:.3e} > {lim:.3e}" for n, (e, lim) in errs.items()
-            if not e <= lim]
-    if over:
-        raise AssertionError(f"flash {list(q.shape)} causal={causal}: max "
-                             f"abs diff " + ", ".join(over))
+    _over_limit(f"flash {list(q.shape)} causal={causal}", errs)
     return errs, lse, delta
+
+
+def quantize_vs_plain(w, stochastic: bool, seed: int) -> float:
+    """``quantize_int8`` against its plain version on the same weights.
+    Returns the max abs difference of the payloads (0.0); raises unless
+    payload and scales are bit-identical."""
+    q, s = qm.quantize_int8(w, stochastic, seed)
+    pq, ps = qm.quantize_int8_plain(w, stochastic, seed)
+    if q.dtype != torch.int8 or s.shape != (1, w.shape[1]):
+        raise AssertionError(f"quantize_int8 gave {q.dtype} {tuple(s.shape)}")
+    err = float((q.int() - pq.int()).abs().max())
+    if not (torch.equal(q, pq)
+            and torch.equal(s.view(torch.int32), ps.view(torch.int32))):
+        raise AssertionError(
+            f"quantize_int8 {list(w.shape)} stochastic={stochastic} "
+            f"seed={seed}: {int((q != pq).sum())} payload values and "
+            f"{int((s != ps).sum())} scales differ from plain")
+    return err
+
+
+def qmm_limit(x, qw, scales) -> torch.Tensor:
+    """Elementwise limit for ``quant_matmul`` against its plain version:
+    ``2 k 2^-24 (|x| @ |q|) s``, in float64."""
+    k = x.shape[1]
+    mag = (x.double().abs() @ qw.double().abs()) * scales.double().abs()
+    return 2.0 * k * 2.0 ** -24 * mag.reshape(x.shape[0], -1)
+
+
+def qmm_vs_plain(x, qw, scales):
+    """``quant_matmul`` against its plain version on the same operands.
+    Returns ``(max abs diff, largest diff / limit)``; raises when an
+    element is over its limit."""
+    out = qm.quant_matmul(x, qw, scales)
+    ref = qm.quant_matmul_plain(x, qw, scales)
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"quant_matmul gave {tuple(out.shape)} "
+                             f"{out.dtype}, plain {tuple(ref.shape)}")
+    diff = (out.double() - ref.double()).abs()
+    limit = qmm_limit(x, qw, scales)
+    ratio = float((diff / limit.clamp_min(1e-300)).max())
+    if not bool((diff <= limit).all()):
+        raise AssertionError(
+            f"quant_matmul {list(x.shape)} @ {list(qw.shape)}: "
+            f"{int((diff > limit).sum())} elements over 2 k 2^-24 "
+            f"(|x| @ |q|) s (max diff / limit {ratio:.3f})")
+    return float(diff.max()), ratio
 
 
 def fused_inputs(kind, n, gen, lr):
