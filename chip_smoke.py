@@ -101,6 +101,38 @@ when every phase passed):
               scales identical; MLM and NSP logits within 1e-4 max abs;
               int8 against fp32 logits on the card within 0.05 mean
               relative error (the reference's int8 criterion).
+ 13. dp-kernels
+              at every bucket of the GPT-125M plan, int8_block and
+              fp8_block: two ranks' gradients encoded to their carriers
+              by codec_encode, bit for bit against the plain encode
+              (tests/torch_checks.py encoded_inputs), and their sum fed
+              to fused_dequant_update, bit for bit against its plain
+              version (dequant_vs_plain), with and without a residual,
+              AdamW; SGD and Momentum at a ragged size; codec_encode's
+              carrier timed at each bucket size; one step's 18 buckets
+              of fused_dequant_update timed (kernel, plain version, the
+              decode followed by torch._fused_adamw_) against the bound;
+ 14. dp-train TrainStep(grad_comm=GradCommConfig("int8_block")) on
+              GPT-125M (full width and depth, seed 0, fp32, AdamW as in
+              phase 7) on two ranks that share the card, started by the
+              port's spawn and init_parallel_env (gloo: the all-reduces
+              are staged through host memory), 4 x 1024 tokens a rank
+              (the global batch is phase 7's 8 x 1024): 2 warm-up steps,
+              5 timed steps with launch counts reset just before and read
+              just after in each rank (a step: 18 fused_dequant_update,
+              18 codec_encode, no fused_update, no codec_decode, 12 of
+              each flash kernel; codec_encode's launches by bucket
+              shape), then 2 steps with each all-reduce timed alone
+              between two waits for the card; every loss finite, falling and equal across the
+              ranks; the ranks' parameters identical at the end;
+ 15. dp-parity
+              the same at GPT-125M width with 2 layers, global batch
+              4 x 128, two steps, world 2 on the card against world 2 on
+              the CPU: losses within 1e-4 relative; the parameters by
+              tests/torch_checks.py dp_step_parity (local gradients within
+              1e-4 of each tensor's largest; at most 1% of the elements
+              decoding to another gradient; Adam's step where the decoded
+              gradients agree, by adam_step_parity).
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -167,6 +199,8 @@ def bound(n: int, nb: int, direction: str):
     written once, against the operations at the fp32 peak."""
     if direction == "encode":   # read x fp32 + scales, write 1-byte q
         nbytes, ops = 4 * n + 4 * nb + n, 4 * n   # div, round, 2 clamps
+    elif direction == "carrier":  # the same, writing the 4-byte carrier
+        nbytes, ops = 4 * n + 4 * nb + 4 * n, 4 * n
     else:                       # read 1-byte q + scales, write fp32
         nbytes, ops = n + 4 * nb + 4 * n, 2 * n   # mul, div
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -1062,14 +1096,413 @@ def phase_infer_parity(dev, seed):
         raise AssertionError(f"int8 logits {rel:.4f} from fp32")
 
 
+# ---------------------------------------------------- data parallel
+DP_B, DP_S = 4, 1024                # per rank: global 8 x 1024 at world 2
+DP_WORLD = 2
+DP_RANK_TIMEOUT = 480               # seconds for a spawned phase's ranks
+DP_BLOCK = 1024                     # GradCommConfig's default block_size
+
+
+def _dequant_case(gen, q, scales, kind, n, residual: bool):
+    from torch_checks import FUSED_HYPER, dequant_vs_plain, fused_inputs
+
+    p, _, slots, lr = fused_inputs(kind, n, gen, LR)
+    res = (torch.randn(n, device=gen.device, generator=gen) * 1e-5
+           if residual else None)
+    return dequant_vs_plain(p, q, scales, slots, lr, world=DP_WORLD,
+                            block_size=DP_BLOCK, kind=kind,
+                            hyper=FUSED_HYPER[kind], wd=WD, residual=res)
+
+
+def _carrier_rows(dev, gen, sizes, flush):
+    """codec_encode's carrier form (the gradient wire's encode) timed at
+    each bucket size of the plan, int8_block: kernel, plain version and
+    the one-call yardstick, torch.quantize_per_channel (the same int8
+    values, written one byte wide)."""
+    from paddle_tpu_torch.distributed import grad_comm as plain
+    from paddle_tpu_torch.ops import codec
+
+    rows = {}
+    for n in sorted(set(sizes)):
+        nb = -(-n // DP_BLOCK)
+        x = torch.randn(n, device=dev, generator=gen) * 1e-3
+        s = plain.block_scales(plain.block_absmax(x, DP_BLOCK), "int8_block")
+        xb = plain.as_blocks(x, DP_BLOCK)
+        zp = torch.zeros(nb, dtype=torch.long, device=dev)
+        bound_ms, bound_by = bound(nb * DP_BLOCK, nb, "carrier")
+        rows[nb] = {
+            "shape": f"{nb}x{DP_BLOCK} int8_block carrier (bucket {n})",
+            "ms": median_ms(lambda: codec.block_encode(
+                x, s, DP_BLOCK, "int8_block", carrier=True), flush),
+            "plain_ms": median_ms(lambda: plain.block_encode(
+                x, s, DP_BLOCK, "int8_block", carrier=True), flush),
+            "library_ms": median_ms(lambda: torch.quantize_per_channel(
+                xb, s, zp, 0, torch.qint8), flush),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        r = rows[nb]
+        log(f"codec_encode carrier {r['shape']}: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, quantize_per_channel "
+            f"{r['library_ms']:.4f}, bound {bound_ms:.4f} {bound_by})")
+    return rows
+
+
+def phase_dp_kernels(dev, gen, buckets):
+    """The gradient wire's kernels at every bucket of the GPT-125M plan,
+    int8_block and fp8_block: each of two ranks' gradients encoded to
+    its carrier by codec_encode, bit for bit against the plain encode;
+    their sum fed to fused_dequant_update, bit for bit against its plain
+    version (AdamW, with and without a residual; SGD and Momentum at a
+    ragged size). Then codec_encode's carrier timed at each bucket size,
+    and one step's 18 fused_dequant_update launches timed: kernel, plain
+    version, and the nearest PyTorch composition (the decode, then
+    torch._fused_adamw_). Returns (the dequant row, the carrier rows by
+    block count, each with its largest encode error)."""
+    from torch_checks import FUSED_HYPER, dequant_inputs, encoded_inputs
+
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    sizes = [b.size for b in buckets]
+    err, enc_err = 0.0, {}
+    for codec in ("int8_block", "fp8_block"):
+        for n in sizes:
+            q, scales, e = encoded_inputs(codec, n, DP_BLOCK, DP_WORLD, gen)
+            nb = -(-n // DP_BLOCK)
+            if codec == "int8_block":
+                enc_err[nb] = max(enc_err.get(nb, 0.0), e)
+            for residual in (False, True):
+                err = max(err, _dequant_case(gen, q, scales, "adamw", n,
+                                             residual))
+            del q, scales
+    for kind in ("sgd", "momentum"):
+        q, scales, _ = encoded_inputs("int8_block", 1_000_003, DP_BLOCK,
+                                      DP_WORLD, gen)
+        err = max(err, _dequant_case(gen, q, scales, kind, 1_000_003, True))
+    log(f"codec_encode carriers and fused_dequant_update: bit-identical to "
+        f"plain on each of the {len(sizes)} AdamW buckets "
+        f"({min(sizes)}..{max(sizes)} elements), int8_block and fp8_block, "
+        f"two ranks' kernel-encoded carriers summed, residual off and on; "
+        f"sgd and momentum at n = 1,000,003")
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    carrier = _carrier_rows(dev, gen, sizes, flush)
+    for nb, r in carrier.items():
+        r["max_abs_err"] = enc_err[nb]
+    hyper = FUSED_HYPER["adamw"]
+    ps = [torch.randn(n, device=dev, generator=gen) * 0.02 for n in sizes]
+    m1 = [torch.randn(n, device=dev, generator=gen) * 1e-4 for n in sizes]
+    m2 = [torch.randn(n, device=dev, generator=gen) ** 2 * 1e-6
+          for n in sizes]
+    pay = [dequant_inputs("int8_block", n, DP_BLOCK, DP_WORLD, gen)
+           for n in sizes]
+    scal = {"beta1_pow": torch.full((), 0.9 ** 3, device=dev),
+            "beta2_pow": torch.full((), 0.999 ** 3, device=dev)}
+    lr = torch.full((), LR, device=dev)
+    world = torch.full((), float(DP_WORLD), device=dev)
+
+    def kernel():
+        for p, a, b, (q, sc) in zip(ps, m1, m2, pay):
+            fu.fused_dequant_update_flat(
+                p, q, sc, DP_WORLD, {"moment1": a, "moment2": b, **scal}, lr,
+                kind="adamw", hyper=hyper, block_size=DP_BLOCK, wd=WD)
+
+    def plain():
+        for p, a, b, (q, sc) in zip(ps, m1, m2, pay):
+            fu.reference_dequant_update_flat(
+                p, q, sc, DP_WORLD, {"moment1": a, "moment2": b, **scal}, lr,
+                kind="adamw", hyper=hyper, block_size=DP_BLOCK, wd=WD)
+
+    steps = [torch.full((), 4.0, device=dev) for _ in sizes]
+
+    def library():
+        gs = [((q.float() * sc[:, None]).reshape(-1)[:p.numel()] / world)
+              for p, (q, sc) in zip(ps, pay)]
+        torch._fused_adamw_(ps, gs, m1, m2, [], steps, lr=LR, beta1=0.9,
+                            beta2=0.999, weight_decay=WD, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    n = sum(sizes)
+    nb = sum(-(-s // DP_BLOCK) for s in sizes)
+    # read q (int32), p, m1, m2 and the scales; write p, m1, m2; ~22
+    # operations an element (the decode's multiply and divide included)
+    bound_ms, bound_by = work_bound(7 * 4 * n + 4 * nb, 22 * n)
+    row = {"shape": f"{len(sizes)} buckets, {n} elements (one step)",
+           "max_abs_err": err, "ms": median_ms(kernel, flush),
+           "plain_ms": median_ms(plain, flush),
+           "library_ms": median_ms(library, flush), "bound_ms": bound_ms,
+           "bound_by": bound_by, "largest_bucket": max(sizes),
+           "smallest_bucket": min(sizes)}
+    log(f"fused_dequant_update, one step's {row['shape']}: {row['ms']:.4f} "
+        f"ms (plain {row['plain_ms']:.4f}, decode + torch._fused_adamw_ "
+        f"{row['library_ms']:.4f}, bound {bound_ms:.4f} {bound_by})")
+    return row, carrier
+
+
+def dp_launch_counts() -> dict:
+    from paddle_tpu_torch.ops import codec
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    return {**train_launch_counts(), **codec.launch_counts(),
+            "fused_dequant_update": fu.fused_dequant_update.launches}
+
+
+def reset_dp_launch_counts() -> None:
+    from paddle_tpu_torch.ops import codec
+
+    reset_train_launch_counts()
+    codec.reset_launch_counts()
+
+
+def _param_checksum(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_setup(device, seed, b, s, layers=None, threads=None):
+    """One rank: the process group, GPT-125M (``layers`` cut) from seed 0
+    on ``device``, AdamW, TrainStep on the int8_block wire, and the
+    global batch of ``b`` rows a rank from ``seed``."""
+    import dataclasses
+
+    from paddle_tpu_torch.distributed import (GradCommConfig, get_rank,
+                                              init_parallel_env)
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion,
+                                         gpt_presets)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    if threads:
+        torch.set_num_threads(threads)
+    env = init_parallel_env()
+    cfg = gpt_presets("gpt-125m")
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = GPTForCausalLM(cfg, seed=0, device=device)
+    opt = AdamW(learning_rate=LR, weight_decay=WD,
+                parameters=model.parameters())
+    step = TrainStep(model, GPTPretrainingCriterion(), opt,
+                     grad_comm=GradCommConfig("int8_block"))
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg.vocab_size, (b * env.world_size, s))
+    labels = rs.randint(0, cfg.vocab_size, (b * env.world_size, s))
+    return env, get_rank(), cfg, model, step, ids, labels
+
+
+def dp_train_rank(seed, warmup, steps, wire_steps, b, s, device="cuda",
+                  layers=None):
+    """One rank of the "dp train" phase (run by ``spawn``)."""
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.ops import codec
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    env, rank, cfg, model, step, ids, labels = _dp_setup(device, seed, b, s,
+                                                         layers)
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    losses = [float(step(inputs=(ids,), labels=(labels,)))
+              for _ in range(warmup)]
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_dp_launch_counts()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(inputs=(ids,), labels=(labels,))))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dp_launch_counts()
+    sizes = dict(fu.fused_dequant_update.sizes)
+    encode_shapes = dict(codec.block_encode.shapes)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    # the wire alone: every all-reduce (the step and the communicator
+    # call it through the module) timed between two waits for the card
+    wire = {"calls": 0, "seconds": 0.0}
+    all_reduce = coll.all_reduce
+
+    def timed_all_reduce(tensor, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = all_reduce(tensor, *args, **kwargs)
+        sync()
+        wire["calls"] += 1
+        wire["seconds"] += time.perf_counter() - t0
+        return out
+
+    coll.all_reduce = timed_all_reduce
+    try:
+        for _ in range(wire_steps):
+            losses.append(float(step(inputs=(ids,), labels=(labels,))))
+    finally:
+        coll.all_reduce = all_reduce
+    return {"rank": rank, "backend": env.backend, "losses": losses,
+            "step_ms": step_ms, "counts": counts, "dequant_sizes": sizes,
+            "encode_shapes": encode_shapes,
+            "peak_memory_gib": peak, "comm_stats": step.comm_stats,
+            "allreduce_ms_per_step": wire["seconds"] * 1e3 / wire_steps,
+            "allreduces_per_step": wire["calls"] / wire_steps,
+            "buckets": [b.size for b in step.buckets],
+            "checksum": _param_checksum(model)}
+
+
+def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
+                   s=DP_S, device="cuda", layers=None):
+    """GPT-125M data parallel on the int8_block wire: two ranks on the
+    one card (gloo, host-staged), each on its half of the global batch."""
+    from paddle_tpu_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(dp_train_rank,
+                  args=(seed, warmup, steps, wire_steps, b, s, device,
+                        layers),
+                  nprocs=DP_WORLD, timeout=DP_RANK_TIMEOUT)
+    r0 = ranks[0]
+    nb = len(r0["buckets"])
+    med = statistics.median(r0["step_ms"])
+    summary = {
+        "backend": r0["backend"], "world": DP_WORLD,
+        "batch_per_rank": [b, s], "buckets": nb,
+        "losses": r0["losses"],
+        "step_ms": [r["step_ms"] for r in ranks], "step_ms_median": med,
+        "global_tokens_per_s": DP_WORLD * b * s / (med / 1e3),
+        "allreduce_ms_per_step": [r["allreduce_ms_per_step"]
+                                  for r in ranks],
+        "allreduces_per_step": r0["allreduces_per_step"],
+        "comm_stats": r0["comm_stats"],
+        "peak_memory_gib": [r["peak_memory_gib"] for r in ranks],
+        "launches_per_rank": [r["counts"] for r in ranks],
+        "checksums": [r["checksum"][:16] for r in ranks],
+        "seconds": time.perf_counter() - t0}
+    log("dp train " + json.dumps(summary))
+    losses = r0["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite dp training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"dp training loss did not fall: {losses}")
+    if any(r["losses"] != losses for r in ranks):
+        raise AssertionError("the ranks report different losses")
+    if len({r["checksum"] for r in ranks}) != 1:
+        raise AssertionError("the ranks' parameters differ after the last "
+                             "step")
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError(f"backend {[r['backend'] for r in ranks]}, "
+                             f"expected gloo (one card, two ranks)")
+    n_layers = layers or cfg.num_layers
+    want = {"flash_fwd": n_layers * steps, "flash_dq": n_layers * steps,
+            "flash_dkv": n_layers * steps,
+            "fused_update": 0, "codec_encode": nb * steps,
+            "codec_decode": 0, "fused_dequant_update": nb * steps}
+    want_shapes = Counter()
+    for n in r0["buckets"]:
+        key = (-(-n // DP_BLOCK), DP_BLOCK, "int8_block", True)
+        want_shapes[key] += steps
+    for r in ranks:
+        if r["counts"] != want:
+            raise AssertionError(f"rank {r['rank']} launch counts "
+                                 f"{r['counts']}, expected {want}")
+        if r["encode_shapes"] != want_shapes:
+            raise AssertionError(f"rank {r['rank']} codec_encode launches "
+                                 f"by shape {r['encode_shapes']}, expected "
+                                 f"{dict(want_shapes)}")
+    if r0["allreduces_per_step"] != 2 * nb + 1:
+        raise AssertionError(f"{r0['allreduces_per_step']} all-reduces a "
+                             f"step, expected {2 * nb + 1}")
+    return r0
+
+
+def dp_parity_rank(seed, b, s, layers, device):
+    """One rank of the "dp parity" phase: two steps; rank 0 returns, per
+    parameter, both steps' changes, its step-1 local gradient and the
+    gradient each step decoded (the bucket reduced again from the same
+    local gradient and residual, which gives the same payload)."""
+    env, rank, cfg, model, step, ids, labels = _dp_setup(
+        device, seed, b, s, layers, threads=4 if device == "cpu" else None)
+    comm = step.grad_comm_communicator
+    names = [n for n, _ in model.named_parameters()]
+    params = step.updater.params
+    out = {n: {} for n in names}
+    losses = []
+    before = [p.detach().clone() for p in params]
+    for k in (1, 2):
+        residuals = dict(comm._residuals)
+        losses.append(float(step(inputs=(ids,), labels=(labels,))))
+        flats = step.updater.flat_grads()
+        with torch.no_grad():
+            for bk in step.buckets:
+                dec, *_ = comm.reduce_bucket(bk, flats[bk.index],
+                                             env.world_size,
+                                             residual=residuals.get(
+                                                 bk.index))
+                for pi, off, n in zip(bk.param_indices, bk.offsets,
+                                      bk.numels):
+                    # copies: on the CPU .cpu() would keep a view of a
+                    # buffer that the next step overwrites
+                    out[names[pi]][f"dec{k}"] = dec[off:off + n].cpu() \
+                        .clone()
+                    if k == 1:
+                        out[names[pi]]["local"] = \
+                            flats[bk.index][off:off + n].cpu().clone()
+        for i, p in enumerate(params):
+            out[names[i]][f"d{k}"] = (p.detach() - before[i]).reshape(-1) \
+                .cpu()
+            before[i] = p.detach().clone()
+    result = {"losses": losses, "checksum": _param_checksum(model),
+              "backend": env.backend}
+    if rank == 0:
+        result["params"] = out
+    return result
+
+
+def phase_dp_parity(seed, layers=2, b=2, s=128):
+    """World 2 on the card against world 2 on the CPU, GPT-125M width
+    with ``layers`` layers, global batch 2b x s, two int8_block steps:
+    losses within 1e-4 relative, parameters by ``dp_step_parity``."""
+    from torch_checks import dp_step_parity
+
+    from paddle_tpu_torch.distributed import spawn
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ranks = spawn(dp_parity_rank, args=(seed + 3, b, s, layers, device),
+                      nprocs=DP_WORLD, timeout=DP_RANK_TIMEOUT)
+        if ranks[0]["checksum"] != ranks[1]["checksum"]:
+            raise AssertionError(f"{device}: the ranks' parameters differ")
+        runs[device] = ranks[0]
+    card, cpu = runs["cuda"], runs["cpu"]
+    rel = [abs(a - c) / abs(c) for a, c in zip(card["losses"],
+                                                cpu["losses"])]
+    log(f"dp card vs CPU (gpt-125m width, {layers} layers, world 2, "
+        f"global b{DP_WORLD * b} s{s}): losses {card['losses']} vs "
+        f"{cpu['losses']} (rel {max(rel):.2e})")
+    if not max(rel) <= 1e-4:
+        raise AssertionError("card and CPU dp losses differ beyond 1e-4")
+    r = dp_step_parity(card["params"], cpu["params"], LR)
+    log(f"dp card vs CPU after two AdamW steps: local gradients within "
+        f"{r['local_grad_rtol']:.2e} of each tensor's largest (limit 1e-4); "
+        f"{100 * r['flip_share']:.4f}% of elements decode to another "
+        f"gradient (limit 1%); where they agree, step 1 within "
+        f"{r['step1']['clear_step_diff_lr']:.2e} lr on the "
+        f"{100 * r['step1']['clear_share']:.1f}% clear of the noise, each "
+        f">= 0.9 lr; step 2 within {r['step2_diff_lr']:.2e} lr (limit "
+        f"1e-2); every step 1 within {r['step1_max_diff_lr']:.3f} lr")
+    return r
+
+
 def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
-                 conversion, infer_counts):
+                 conversion, infer_counts, dp_row, carrier_rows, dp_rank):
     """One entry per kernel at the shape behind most of its launches on
-    its path: the codecs at the int8 decode-step append (8 x EPT), the
-    flash kernels and fused_update at the train step, quantize_int8 and
-    quant_matmul at their most launched shape in the infer phase
-    (``launches_at_shape``, counted there); ``at_shapes`` holds the other
-    shapes (flash_fwd's BERT-base shape with its infer-phase launches)."""
+    its path: the codecs at the int8 decode-step append (8 x EPT, with
+    the serve phase's launches), the flash kernels and fused_update at
+    the train step, quantize_int8 and quant_matmul at their most launched
+    shape in the infer phase (``launches_at_shape``, counted there),
+    fused_dequant_update at one step's buckets of the dp train phase (its
+    launches those of rank 0 there, with the most launched bucket size);
+    ``at_shapes`` holds the other shapes: the codecs' other serve shapes,
+    codec_encode's gradient-wire carrier at each bucket shape (with rank
+    0's launches there in the dp train phase as ``launches_at_shape``),
+    flash_fwd's BERT-base shape with its infer-phase launches."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -1089,6 +1522,11 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
             replaces=f"paddle_tpu/ops/pallas/codec.py:{line}",
             launches=counts[name], **numbers(int8.pop(MAIN_SHAPE), p),
             at_shapes=[numbers(r, p) for r in int8.values()]))
+    enc = dp_rank["encode_shapes"]
+    out[0]["at_shapes"] += [
+        dict(_numbers(r), launches_at_shape=enc.get(
+            (nb, DP_BLOCK, "int8_block", True), 0))
+        for nb, r in carrier_rows.items()]
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_update as fu
 
@@ -1117,6 +1555,14 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                         replaces=f"paddle_tpu/ops/quant_matmul.py:{line}",
                         launches=launches, **_numbers(main),
                         at_shapes=[_numbers(r) for r in rest]))
+    sizes = dp_rank["dequant_sizes"]
+    top = max(sizes, key=lambda n: (sizes[n], n))
+    out.append(dict(name="fused_dequant_update", route="cuda",
+                    source=fu.KERNEL_SOURCE,
+                    replaces="paddle_tpu/ops/pallas/fused_update.py:134",
+                    launches=dp_rank["counts"]["fused_dequant_update"],
+                    **_numbers(dp_row), most_launched_bucket=top,
+                    launches_at_bucket=sizes[top]))
     return {"kernels": out}
 
 
@@ -1186,10 +1632,20 @@ def main(argv=None) -> int:
         "quantize_int8": conversion["shapes"]["quantize_int8"],
         "quant_matmul": infer_counts["shapes"]["quant_matmul"]})
     phase_infer_parity(dev, args.seed)
+    torch.cuda.empty_cache()
+
+    dp_row, carrier_rows = phase_dp_kernels(dev, gen, plan)
+    torch.cuda.empty_cache()
+    dp_rank = phase_dp_train(cfg, args.seed)
+    if dp_rank["buckets"] != [b.size for b in plan]:
+        raise AssertionError("the dp train step's bucket plan is not the "
+                             "timed one")
+    phase_dp_parity(args.seed)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(rows, counts, train_rows, train_counts,
-                                  infer_rows, conversion, infer_counts)))
+                                  infer_rows, conversion, infer_counts,
+                                  dp_row, carrier_rows, dp_rank)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,7 +13,11 @@ attention forward/backward on three CUDA kernels
 (``csrc/flash_attention.cu``) and the optimizer update on a fourth
 (``csrc/fused_update.cu``). Slice 3: int8 weight-only BERT inference,
 with weight quantization and the quantized matmul on two CUDA kernels
-(``csrc/quant_matmul.cu``) and attention on the flash forward kernel:
+(``csrc/quant_matmul.cu``) and attention on the flash forward kernel.
+Slice 4: data-parallel training on the quantized gradient wire, one
+process per rank over ``torch.distributed``, each bucket's summed
+payload decoded inside the optimizer update by a CUDA kernel
+(``csrc/fused_update.cu`` ``fused_dequant_update``):
 
   framework/   device resolution (cuda by default), serving flags,
                per-request random streams
@@ -25,13 +29,14 @@ with weight quantization and the quantized matmul on two CUDA kernels
                the transformer encoder; linear, gelu, layer_norm and
                scaled dot-product attention functionals
   quantization/ Int8Linear and convert_to_int8
-  distributed/ plain torch versions of the blockwise codec math, the
-               gradient bucket plan
+  distributed/ the process group (env, spawn), collectives, the wire
+               codecs and bucket plan, GradCommunicator, DataParallel
   ops/         kernel wrappers (kernel on CUDA, plain on CPU) for the
-               codec, flash attention, the fused update and the int8
-               quantize/quantized matmul, and the nvcc/ctypes build
+               codec, flash attention, the fused update (plain and
+               dequantizing) and the int8 quantize/quantized matmul,
+               and the nvcc/ctypes build
   optimizer/   SGD, Momentum, Adam, AdamW and the fused flat updater
-  jit/         TrainStep
+  jit/         TrainStep (data parallel with grad_comm)
   serving/     decode model, KV block pool, sampler, queue, engine
   observability/ counters, gauges and histograms
 

@@ -1,12 +1,15 @@
-// Fused optimizer update over a flat parameter bucket, for Hopper (sm_90a).
+// Fused optimizer updates over a flat parameter bucket, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel of paddle_tpu/ops/pallas/fused_update.py:
-//   fused_update <- _plain_kernel (fused_update.py:122, launched by
-//                   fused_update_flat :223)
-// Plain PyTorch version and wrapper: paddle_tpu_torch/ops/fused_update.py
-// (reference_update_flat, fused_update).
+// Replaces the TPU kernels of paddle_tpu/ops/pallas/fused_update.py:
+//   fused_update         <- _plain_kernel (fused_update.py:122, launched by
+//                           fused_update_flat :223)
+//   fused_dequant_update <- _dequant_kernel (fused_update.py:134, launched
+//                           by fused_dequant_update_flat :283)
+// Plain PyTorch versions and wrappers: paddle_tpu_torch/ops/fused_update.py
+// (reference_update_flat / fused_update, reference_dequant_update_flat /
+// fused_dequant_update).
 //
-// What it computes: one SGD / Momentum / Adam / AdamW step over n fp32
+// What they compute: one SGD / Momentum / Adam / AdamW step over n fp32
 // elements, in place: p (and the slots) are read, updated and written
 // back. The arithmetic is _update_math (fused_update.py:92-119) op for
 // op, each op rounded once: __fmul_rn / __fadd_rn / __fsub_rn /
@@ -18,19 +21,34 @@
 // arrive as fp32 values the host rounded from Python floats, as PyTorch
 // rounds a Python scalar operand.
 //
-// What bounds it: device-memory bytes. AdamW reads p, g, m1, m2 and
-// writes p, m1, m2: 28 bytes per element for ~20 operations. All of
-// GPT-125M (124.5 M parameters) moves 3.49 GB per step, 1.04 ms at
-// 3.35 TB/s.
+// fused_dequant_update takes, instead of the gradient, the gradient wire's
+// payload summed over `world` ranks: int8 values in an int32 carrier or
+// fp8 values in an fp32 carrier, with one fp32 scale per block_size
+// elements, and an optional fp32 residual. Each element's gradient is
+// block_decode's chain, q * scale[i / block_size] (__fmul_rn), then
+// / world (__fdiv_rn, a true division: the plain version divides by a
+// device tensor), then + residual; the update follows in registers. The
+// decoded gradient never reaches device memory.
+//
+// What bounds them: device-memory bytes. AdamW reads p, g (or the 4-byte
+// carrier), m1, m2 and writes p, m1, m2: 28 bytes per element for ~20
+// operations (32 with a residual, plus the scale vector). All of GPT-125M
+// (124.5 M parameters) moves 3.49 GB per step, 1.04 ms at 3.35 TB/s; the
+// int32 carrier is as wide as the fp32 gradient, so the two kernels share
+// the bound.
 //
 // Design: one thread per 4 consecutive elements, each array read and
-// written as one 16-byte vector per thread (the wrapper checks 16-byte
+// written as one 16-byte vector per thread (the wrappers check 16-byte
 // alignment); the ragged tail (n % 4) is a scalar loop in the last
 // thread. Nothing is staged in shared memory: each element is touched
-// once.
+// once. The dequantizing kernel reads one scale for the thread's 4
+// elements when they share a block, else one per element, so every
+// block_size is taken.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -117,6 +135,97 @@ update_kernel(float* __restrict__ p, const float* __restrict__ g,
   }
 }
 
+template <typename Q>
+__device__ __forceinline__ float carrier_value(Q q) {
+  return static_cast<float>(q);   // exact: |q| <= 127 * world, or fp8
+}
+
+// the decoded, averaged gradient of one element (block_decode's chain)
+template <typename Q>
+__device__ __forceinline__ float dequant_one(Q q, float scale, float world,
+                                             const float* res, int64_t j) {
+  float g = __fdiv_rn(__fmul_rn(carrier_value(q), scale), world);
+  if (res != nullptr) g = __fadd_rn(g, res[j]);
+  return g;
+}
+
+template <typename Q> struct Vec4;
+template <> struct Vec4<int32_t> { using type = int4; };
+template <> struct Vec4<float> { using type = float4; };
+
+template <int KIND, typename Q>
+__global__ void __launch_bounds__(kThreads)
+dequant_update_kernel(float* __restrict__ p, const Q* __restrict__ q,
+                      const float* __restrict__ scales,
+                      const float* __restrict__ res, float* __restrict__ s0,
+                      float* __restrict__ s1, const float* __restrict__ svec,
+                      int64_t n, int64_t bs, float world, Hyper h) {
+  constexpr bool kSlot0 = KIND != kSgd;
+  constexpr bool kSlot1 = KIND == kAdam || KIND == kAdamW;
+  const int64_t i =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  const float lr = svec[0];
+  const float c1 = kSlot1 ? svec[1] : 1.0f;
+  const float c2 = kSlot1 ? svec[2] : 1.0f;
+  if (i + 4 <= n) {
+    const int64_t blk = i / bs;
+    float sc[4];
+    if ((i + 3) / bs == blk) {
+      sc[0] = sc[1] = sc[2] = sc[3] = __ldg(scales + blk);
+    } else {
+      for (int k = 0; k < 4; ++k) sc[k] = __ldg(scales + (i + k) / bs);
+    }
+    const typename Vec4<Q>::type qv =
+        *reinterpret_cast<const typename Vec4<Q>::type*>(q + i);
+    float4 pv = *reinterpret_cast<const float4*>(p + i);
+    float4 a = kSlot0 ? *reinterpret_cast<const float4*>(s0 + i)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 b = kSlot1 ? *reinterpret_cast<const float4*>(s1 + i)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    update_one<KIND>(pv.x, dequant_one(qv.x, sc[0], world, res, i), a.x, b.x,
+                     h, lr, c1, c2);
+    update_one<KIND>(pv.y, dequant_one(qv.y, sc[1], world, res, i + 1), a.y,
+                     b.y, h, lr, c1, c2);
+    update_one<KIND>(pv.z, dequant_one(qv.z, sc[2], world, res, i + 2), a.z,
+                     b.z, h, lr, c1, c2);
+    update_one<KIND>(pv.w, dequant_one(qv.w, sc[3], world, res, i + 3), a.w,
+                     b.w, h, lr, c1, c2);
+    *reinterpret_cast<float4*>(p + i) = pv;
+    if (kSlot0) *reinterpret_cast<float4*>(s0 + i) = a;
+    if (kSlot1) *reinterpret_cast<float4*>(s1 + i) = b;
+  } else {
+    for (int64_t j = i; j < n; ++j) {
+      float a = kSlot0 ? s0[j] : 0.f, b = kSlot1 ? s1[j] : 0.f;
+      float pj = p[j];
+      update_one<KIND>(pj, dequant_one(q[j], __ldg(scales + j / bs), world,
+                                       res, j),
+                       a, b, h, lr, c1, c2);
+      p[j] = pj;
+      if (kSlot0) s0[j] = a;
+      if (kSlot1) s1[j] = b;
+    }
+  }
+}
+
+// Calls launch(std::integral_constant<int, KIND>{}) for the rule `kind`
+// and returns the launch's error code.
+template <typename F>
+int with_kind(int kind, F&& launch) {
+  switch (kind) {
+    case kSgd: launch(std::integral_constant<int, kSgd>{}); break;
+    case kMomentum: launch(std::integral_constant<int, kMomentum>{}); break;
+    case kAdam: launch(std::integral_constant<int, kAdam>{}); break;
+    case kAdamW: launch(std::integral_constant<int, kAdamW>{}); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline unsigned int grid_for(int64_t n) {
+  return static_cast<unsigned int>(((n + 3) / 4 + kThreads - 1) / kThreads);
+}
+
 }  // namespace
 
 // p, g, s0, s1: fp32 [n] (s0: velocity or moment1, s1: moment2; unused
@@ -130,31 +239,45 @@ extern "C" int fused_update(void* p, const void* g, void* s0, void* s1,
   if (n <= 0) return static_cast<int>(cudaSuccess);
   const Hyper h{wd, wd != 0.0f, h0, h1, om0, om1, eps, nesterov};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned int grid =
-      static_cast<unsigned int>(((n + 3) / 4 + kThreads - 1) / kThreads);
+  return with_kind(kind, [&](auto k) {
+    update_kernel<decltype(k)::value><<<grid_for(n), kThreads, 0, st>>>(
+        static_cast<float*>(p), static_cast<const float*>(g),
+        static_cast<float*>(s0), static_cast<float*>(s1),
+        static_cast<const float*>(svec), n, h);
+  });
+}
+
+// As fused_update, with the gradient decoded from the summed wire payload:
+// q: [>= n] int32 (q_is_float 0) or fp32 (q_is_float 1) carrier; scales:
+// fp32 [ceil(n / bs)], element i's scale at i / bs; residual: fp32 [n] or
+// null; world: the ranks the payload was summed over. Returns a
+// cudaError_t code.
+extern "C" int fused_dequant_update(void* p, const void* q, int q_is_float,
+                                    const void* scales, const void* residual,
+                                    void* s0, void* s1, const void* svec,
+                                    int64_t n, int64_t bs, float world,
+                                    int kind, float wd, float h0, float h1,
+                                    float om0, float om1, float eps,
+                                    int nesterov, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (bs <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Hyper h{wd, wd != 0.0f, h0, h1, om0, om1, eps, nesterov};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* pp = static_cast<float*>(p);
-  auto* gp = static_cast<const float*>(g);
+  auto* sp = static_cast<const float*>(scales);
+  auto* rp = static_cast<const float*>(residual);
   auto* ap = static_cast<float*>(s0);
   auto* bp = static_cast<float*>(s1);
   auto* sv = static_cast<const float*>(svec);
-  switch (kind) {
-    case kSgd:
-      update_kernel<kSgd><<<grid, kThreads, 0, st>>>(pp, gp, ap, bp, sv, n, h);
-      break;
-    case kMomentum:
-      update_kernel<kMomentum><<<grid, kThreads, 0, st>>>(pp, gp, ap, bp, sv,
-                                                         n, h);
-      break;
-    case kAdam:
-      update_kernel<kAdam><<<grid, kThreads, 0, st>>>(pp, gp, ap, bp, sv, n,
-                                                     h);
-      break;
-    case kAdamW:
-      update_kernel<kAdamW><<<grid, kThreads, 0, st>>>(pp, gp, ap, bp, sv, n,
-                                                      h);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return with_kind(kind, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    if (q_is_float)
+      dequant_update_kernel<K, float><<<grid_for(n), kThreads, 0, st>>>(
+          pp, static_cast<const float*>(q), sp, rp, ap, bp, sv, n, bs, world,
+          h);
+    else
+      dequant_update_kernel<K, int32_t><<<grid_for(n), kThreads, 0, st>>>(
+          pp, static_cast<const int32_t*>(q), sp, rp, ap, bp, sv, n, bs,
+          world, h);
+  });
 }

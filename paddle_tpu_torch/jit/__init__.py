@@ -1,6 +1,7 @@
 """The training step (reference: ``paddle_tpu/jit/__init__.py``
 ``TrainStep``: the ``accum == 1`` and micro-batch branches of
-``pure_step``).
+``pure_step``, and the data-parallel gradient wire ``grad_comm``: lines
+368-400, 430-510, 598-828 and 975-1050).
 
     step = TrainStep(model, loss_fn, optimizer)
     loss = step(inputs=(ids,), labels=(labels,))   # params updated in place
@@ -24,8 +25,32 @@ many micro-batches, sums their gradients in order and divides by the
 count, and returns the mean of the micro-batch losses, as the
 reference's scan does.
 
-Not in this slice (``NotImplementedError``): ``batch_spec``, ``grad_fn``
-and ``grad_comm`` (ROADMAP Queue A, "gradient wire" and "parallelism").
+``grad_comm`` (a ``GradCommConfig`` or a codec name) makes the step data
+parallel over the ranks of ``torch.distributed`` (``distributed.spawn``
+and ``init_parallel_env`` start them; each holds a full replica). Where
+the reference runs ``shard_map`` over the mesh's data axis, the port
+runs one process per rank:
+
+- rank ``r`` of ``W`` runs forward and backward on rows
+  ``[r*B/W, (r+1)*B/W)`` of the global batch ``B``;
+- the loss and floating buffers are AVG-reduced;
+- each bucket of the communicator's plan is reduced. With a blockwise
+  codec and uniform per-bucket ``(lr_mult, wd)`` (the fused path) the
+  summed payload goes straight into ``FusedFlatUpdater.step_dequant``:
+  one ``fused_dequant_update`` kernel per bucket decodes and updates,
+  and the decoded gradient never reaches memory. Otherwise
+  ``reduce_bucket`` writes the averaged gradients into ``.grad`` and the
+  update is ``step()``;
+- the error-feedback residuals are per rank, carried in
+  ``grad_comm_communicator._residuals``. Every rank applies the same
+  update to the same summed payload, so the replicas stay identical.
+
+With one rank the knob is inert: the step is the plain one, and
+``comm_stats`` stays None. ``grad_comm`` needs ``grad_accum_steps == 1``,
+as in the reference.
+
+Not in this slice (``NotImplementedError``): ``batch_spec`` and
+``grad_fn`` (ROADMAP Queue A 5, "parallelism").
 """
 from __future__ import annotations
 
@@ -34,7 +59,12 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..distributed.grad_comm import GradBucket, build_buckets
+from ..distributed import collective as _coll
+from ..distributed.collective import ReduceOp
+from ..distributed.env import get_rank, get_world_size, is_initialized
+from ..distributed.grad_comm import (BLOCK_CODECS, GradBucket,
+                                     GradCommConfig, GradCommunicator,
+                                     build_buckets)
 from ..framework.device import to_device
 from ..optimizer.fused import FusedFlatUpdater
 from ..optimizer.optimizer import lr_mult
@@ -42,13 +72,17 @@ from ..optimizer.optimizer import lr_mult
 __all__ = ["TrainStep", "uniform_buckets"]
 
 
+def _hypers(p, optimizer) -> Tuple[float, float]:
+    """The parameter's (lr_mult, weight decay)."""
+    return lr_mult(p), float(optimizer._param_wd(p))
+
+
 def uniform_buckets(params, optimizer) -> List[GradBucket]:
     """The reference's bucket plan per (lr_mult, wd) group of ``params``,
     indices into ``params``, numbered in order."""
     groups: Dict[Tuple[float, float], List[int]] = {}
     for i, p in enumerate(params):
-        key = (lr_mult(p), float(optimizer._param_wd(p)))
-        groups.setdefault(key, []).append(i)
+        groups.setdefault(_hypers(p, optimizer), []).append(i)
     out: List[GradBucket] = []
     for idx in groups.values():
         for b in build_buckets([params[i] for i in idx]):
@@ -56,6 +90,12 @@ def uniform_buckets(params, optimizer) -> List[GradBucket]:
             b.param_indices = [idx[j] for j in b.param_indices]
             out.append(b)
     return out
+
+
+def _uniform(bucket, params, optimizer) -> bool:
+    """True when the bucket's parameters share one (lr_mult, wd)."""
+    return len({_hypers(params[pi], optimizer)
+                for pi in bucket.param_indices}) == 1
 
 
 def _as_tuple(x) -> tuple:
@@ -67,14 +107,11 @@ class TrainStep:
 
     def __init__(self, model, loss_fn, optimizer, grad_accum_steps=1,
                  batch_spec=None, grad_fn=None, grad_comm=None):
-        for name, val, item in (
-                ("batch_spec", batch_spec, "parallelism"),
-                ("grad_fn", grad_fn, "parallelism"),
-                ("grad_comm", grad_comm, "gradient wire")):
+        for name, val in (("batch_spec", batch_spec), ("grad_fn", grad_fn)):
             if val is not None:
                 raise NotImplementedError(
                     f"TrainStep({name}=...) is not ported yet (ROADMAP "
-                    f"Queue A, '{item}')")
+                    f"Queue A 5, 'parallelism')")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -83,14 +120,51 @@ class TrainStep:
             raise ValueError(f"grad_accum_steps must be >= 1, got "
                              f"{grad_accum_steps}")
         params = [p for p in model.parameters() if p.requires_grad]
-        self.updater = FusedFlatUpdater(
-            optimizer, params, buckets=uniform_buckets(params, optimizer))
+        self._gc_comm = None
+        self.comm_stats = None
+        buckets = uniform_buckets(params, optimizer)
+        self._gc_fused = False
+        if grad_comm is not None:
+            if isinstance(grad_comm, str):
+                grad_comm = GradCommConfig(codec=grad_comm)
+            elif not isinstance(grad_comm, GradCommConfig):
+                raise TypeError(f"grad_comm must be a GradCommConfig or a "
+                                f"codec name, got {type(grad_comm).__name__}")
+            if self.grad_accum > 1:
+                raise ValueError(
+                    "TrainStep(grad_comm=...) expresses the gradient "
+                    "all-reduce explicitly in-trace; it supports the "
+                    "plain fused step (grad_accum_steps == 1) or an "
+                    "external grad_fn that marks handles_grad_comm (the "
+                    "1F1B pipeline engine) — not this combination")
+            self._gc_comm = GradCommunicator(grad_comm)
+            plan = self._gc_comm.buckets_for(params)
+            if all(_uniform(b, params, optimizer) for b in plan):
+                # the updater's flat buffers follow the wire's buckets, so
+                # a bucket's summed payload lines up with its parameters
+                buckets = plan
+                self._gc_fused = grad_comm.codec in BLOCK_CODECS
+        self.updater = FusedFlatUpdater(optimizer, params, buckets=buckets)
         self.device = params[0].device
         self._accum_div = None
 
     @property
     def buckets(self) -> List[GradBucket]:
         return self.updater.buckets
+
+    @property
+    def grad_comm_communicator(self):
+        """The ``GradCommunicator`` carrying this step's error-feedback
+        residuals (None without ``grad_comm``); its ``state_dict()`` /
+        ``load_state_dict()`` are the resume surface."""
+        return self._gc_comm
+
+    def _gc_world(self) -> int:
+        """Ranks the gradient is averaged over: the process group's size
+        with ``grad_comm``, else 1 (the knob is inert)."""
+        if self._gc_comm is None or not is_initialized():
+            return 1
+        return get_world_size()
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -109,6 +183,9 @@ class TrainStep:
         labels = tuple(self._tensor(x) for x in _as_tuple(labels))
         self.model.train()
         self.updater.zero_grad()
+        world = self._gc_world()
+        if world > 1:
+            return self._dp_step(inputs, labels, world)
         accum = self.grad_accum
         if accum == 1:
             loss = self._loss(inputs, labels)
@@ -138,4 +215,42 @@ class TrainStep:
                     g.div_(self._accum_div)
             loss = torch.stack(losses).mean()
         self.updater.step()
+        return loss
+
+    # ------------------------------------------------ data parallel step
+    def _dp_step(self, inputs, labels, world: int) -> torch.Tensor:
+        """One data-parallel step on this rank's shard of the batch."""
+        rank = get_rank()
+
+        def shard(x):
+            if x.dim() == 0:
+                return x
+            if x.shape[0] % world:
+                raise ValueError(f"batch {x.shape[0]} does not split over "
+                                 f"{world} ranks")
+            return x.chunk(world)[rank]
+
+        loss = self._loss(tuple(shard(x) for x in inputs),
+                          tuple(shard(x) for x in labels))
+        loss.backward()
+        comm = self._gc_comm
+        with torch.no_grad():
+            loss = loss.detach().clone()
+            # the shard's mean loss -> the global mean (equal shards)
+            _coll.all_reduce(loss, op=ReduceOp.AVG, group=comm.group)
+            for buf in self.model.buffers():
+                if buf.is_floating_point():
+                    _coll.all_reduce(buf, op=ReduceOp.AVG, group=comm.group)
+        # on the fused path the communicator's plan is the updater's, so
+        # the updater's flat gradient buffers are the buckets
+        payloads = comm.sync(
+            self.updater.params, world, path="traced",
+            flats=self.updater.flat_grads() if self._gc_fused else None,
+            payload_only=self._gc_fused)
+        if self._gc_fused:
+            self.updater.step_dequant(payloads, world,
+                                      comm.config.block_size)
+        else:
+            self.updater.step()
+        self.comm_stats = dict(comm.stats)
         return loss

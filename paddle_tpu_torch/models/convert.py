@@ -8,6 +8,12 @@ are the same on both sides, so the mapping checks names, shapes and
 dtype and copies the bytes unchanged; BERT's expected names and shapes
 are read off the port's own model (``bert_layout``). The port itself
 never sees JAX.
+
+The gradient wire's resume state carries across too
+(``grad_comm_state_for_rank``, ``grad_comm_state_to_reference``): the
+reference's ``TrainStep(grad_comm=...)`` keeps every rank's
+error-feedback residual in one ``(world, bucket_size)`` array per bucket,
+row ``r`` being rank ``r``'s; each rank of the port holds its own row.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from .bert import BertConfig, BertForPretraining
 from .gpt import GPTConfig, block_shapes
 
 __all__ = ["expected_shapes", "state_dict_from_numpy", "bert_layout",
-           "bert_state_dict_from_numpy"]
+           "bert_state_dict_from_numpy", "grad_comm_state_for_rank",
+           "grad_comm_state_to_reference"]
 
 
 def expected_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
@@ -94,4 +101,36 @@ def bert_state_dict_from_numpy(params: Dict[str, np.ndarray],
         if key.endswith(".bias") and lin in linears:   # state_dict order
             name = None if names is None else names[lin + ".weight"]
             out[lin + "._extra_state"] = {"weight_name": name}
+    return out
+
+
+def grad_comm_state_for_rank(state: dict, rank: int, world: int) -> dict:
+    """The reference train step's communicator ``state_dict()`` (numpy
+    residuals stacked ``(world, bucket_size)``) -> rank ``rank``'s
+    ``GradCommunicator.state_dict()`` in the port (its own row)."""
+    out = dict(state)
+    out["residuals"] = {
+        int(i): np.array(np.asarray(r, np.float32).reshape(world, -1)[rank])
+        for i, r in (state.get("residuals") or {}).items()}
+    return out
+
+
+def grad_comm_state_to_reference(states) -> dict:
+    """Every rank's ``GradCommunicator.state_dict()`` (rank order) -> the
+    reference train step's communicator state: residuals stacked
+    ``(world, bucket_size)``. The ranks must agree on everything else."""
+    states = list(states)
+    first = states[0]
+    for r, st in enumerate(states[1:], 1):
+        for k in ("codec", "error_feedback", "block_size", "bucket_key"):
+            if st.get(k) != first.get(k):
+                raise ValueError(f"rank {r} has {k} {st.get(k)!r}, rank 0 "
+                                 f"{first.get(k)!r}")
+        if set(st["residuals"]) != set(first["residuals"]):
+            raise ValueError(f"rank {r} holds residuals of other buckets")
+    out = dict(first)
+    out["residuals"] = {
+        i: np.stack([np.asarray(st["residuals"][i], np.float32)
+                     for st in states])
+        for i in first["residuals"]}
     return out

@@ -1,10 +1,11 @@
 """Counters, gauges and histograms (reference subset of
 ``paddle_tpu/observability/metrics.py``).
 
-Only what the port's serving engine and queue and its fused optimizer
-update (``fused_bucket_updates_total``) use: labelled families, cumulative
-bucket histograms with Prometheus-style quantile estimates, a JSON-safe
-snapshot and a reset. Exemplars, text exposition and JSONL export stay
+Only what the port's serving engine and queue, its fused optimizer
+update (``fused_bucket_updates_total``) and its gradient wire
+(``collectives_total``, the four ``grad_comm_*`` families) use:
+labelled families, cumulative bucket histograms with Prometheus-style
+quantile estimates, a JSON-safe snapshot and a reset. Exemplars, text exposition and JSONL export stay
 in the reference until a later slice needs them. Pure stdlib.
 """
 from __future__ import annotations

@@ -10,12 +10,14 @@ There is no fallback from the kernel to the plain version. Each wrapper
 counts its kernel launches in a plain integer attribute
 (``block_encode.launches``, ``block_decode.launches``), incremented only
 where the kernel is launched, so a run can show its path went through
-the kernel. The wrappers check device, dtype, shape, alignment and
-contiguity, allocate outputs with ``torch.empty`` and never synchronize;
-the kernel runs on PyTorch's current stream.
+the kernel; ``block_encode.shapes`` counts its launches by ``(n_blocks,
+block_size, codec, carrier)``. The wrappers check device, dtype, shape,
+alignment and contiguity, allocate outputs with ``torch.empty`` and
+never synchronize; the kernel runs on PyTorch's current stream.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -31,7 +33,10 @@ __all__ = ["block_encode", "block_decode", "launch_counts",
 
 KERNEL_SOURCE = "paddle_tpu_torch/csrc/codec.cu"
 _CODEC_ID = {"int8_block": 0, "fp8_block": 1}
-_WIRE_ID = {torch.int8: 0, torch.float8_e4m3fn: 1}
+# payload types codec_decode reads: the 1-byte wire dtypes and the
+# gradient wire's carriers (summed over ranks)
+_WIRE_ID = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.int32: 2,
+            torch.float32: 3}
 
 
 @functools.lru_cache(maxsize=None)
@@ -39,7 +44,8 @@ def _lib(device_index: int) -> ctypes.CDLL:
     require_sm90(torch.device("cuda", device_index))
     lib = load_library("codec")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.codec_encode.argtypes = [p, p, p, i64, i64, ctypes.c_int, p]
+    lib.codec_encode.argtypes = [p, p, p, i64, i64, ctypes.c_int,
+                                 ctypes.c_int, p]
     lib.codec_encode.restype = ctypes.c_int
     lib.codec_decode.argtypes = [p, p, p, i64, i64, i64, ctypes.c_int,
                                  ctypes.c_float, p]
@@ -64,14 +70,16 @@ def _check_block_size(block_size: int):
 
 
 def block_encode(flat: torch.Tensor, scales: torch.Tensor, block_size: int,
-                 codec: str) -> torch.Tensor:
-    """Quantize ``flat`` blockwise with ``scales`` -> wire dtype
-    [n_blocks, block_size] (int8 or float8_e4m3fn)."""
+                 codec: str, carrier: bool = False) -> torch.Tensor:
+    """Quantize ``flat`` blockwise with ``scales`` -> [n_blocks,
+    block_size] in the wire dtype (int8 or float8_e4m3fn) or, with
+    ``carrier=True``, in the gradient wire's carrier (int32 or fp32)."""
     if codec not in _CODEC_ID:
         raise ValueError(f"codec must be one of {tuple(_CODEC_ID)}, "
                          f"got {codec!r}")
     if flat.device.type == "cpu":
-        return _plain.block_encode(flat, scales, block_size, codec)
+        return _plain.block_encode(flat, scales, block_size, codec,
+                                   carrier=carrier)
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
     if flat.dtype != torch.float32 or scales.dtype != torch.float32:
@@ -87,33 +95,36 @@ def block_encode(flat: torch.Tensor, scales: torch.Tensor, block_size: int,
     dev = flat.device
     _check_operand("flat", flat, dev)
     _check_operand("scales", scales, dev)
-    out = torch.empty((nb, block_size), dtype=_plain.WIRE_DTYPE[codec],
-                      device=dev)
+    out_dtype = (_plain.CARRIER_DTYPE[codec] if carrier
+                 else _plain.WIRE_DTYPE[codec])
+    out = torch.empty((nb, block_size), dtype=out_dtype, device=dev)
     if not nb:
         return out
     lib = _lib(dev.index)
     with torch.cuda.device(dev):
         rc = lib.codec_encode(flat.data_ptr(), scales.data_ptr(),
                               out.data_ptr(), nb, block_size,
-                              _CODEC_ID[codec],
+                              _CODEC_ID[codec], int(bool(carrier)),
                               torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"codec_encode launch failed: CUDA error {rc}")
     block_encode.launches += 1
+    block_encode.shapes[(nb, block_size, codec, bool(carrier))] += 1
     return out
 
 
 def block_decode(q: torch.Tensor, scales: torch.Tensor, world: int,
                  numel: int) -> torch.Tensor:
-    """Dequantize a [n_blocks, bs] wire payload -> fp32 [numel] (the
-    first ``numel`` values of ``q * scale / world``)."""
+    """Dequantize a [n_blocks, bs] payload -> fp32 [numel] (the first
+    ``numel`` values of ``q * scale / world``). ``q`` is the wire dtype or
+    a carrier."""
     if q.device.type == "cpu":
         return _plain.block_decode(q, scales, world, numel)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _WIRE_ID:
         raise TypeError(f"block_decode wants an int8 or float8_e4m3fn "
-                        f"payload, got {q.dtype}")
+                        f"payload or an int32/fp32 carrier, got {q.dtype}")
     if scales.dtype != torch.float32:
         raise TypeError("block_decode wants fp32 scales")
     if q.dim() != 2:
@@ -144,6 +155,7 @@ def block_decode(q: torch.Tensor, scales: torch.Tensor, world: int,
 
 
 block_encode.launches = 0
+block_encode.shapes = collections.Counter()
 block_decode.launches = 0
 
 
@@ -154,4 +166,5 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     block_encode.launches = 0
+    block_encode.shapes.clear()
     block_decode.launches = 0

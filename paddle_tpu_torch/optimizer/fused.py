@@ -1,11 +1,17 @@
 """Fused flat-buffer optimizer updates over buckets (reference:
 ``paddle_tpu/optimizer/fused.py`` ``FusedFlatUpdater``: ``__init__``,
-``_uniform_hypers``, ``_bucket_fn``, ``step``).
+``_uniform_hypers``, ``_bucket_fn``, ``step``; the dequantizing update of
+``paddle_tpu/jit/__init__.py`` ``_gc_fused_update``).
 
     fused = FusedFlatUpdater(optimizer, model.parameters())
     fused.zero_grad()
     loss.backward()
     fused.step()            # one fused_update kernel per bucket
+
+    # data parallel on the quantized gradient wire: the buckets' summed
+    # payloads (GradCommunicator.reduce_bucket_payload) go in instead of
+    # the gradients, one fused_dequant_update kernel per bucket
+    fused.step_dequant(payloads, world, block_size)
 
 The update rules are elementwise, so one kernel over a bucket's flat
 buffer equals the per-parameter updates. Where the reference
@@ -24,8 +30,8 @@ scalar slots (beta powers) are one 0-dim tensor per bucket, exact
 because every parameter starts from the same value and steps with the
 same betas.
 
-``step_sharded`` (ZeRO) and the dequantizing update come with the
-gradient-wire slice (ROADMAP Queue A).
+``step_sharded`` (ZeRO) is not ported yet (ROADMAP Queue A 2, the ZeRO
+remainder).
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ import torch
 
 from ..distributed.grad_comm import build_buckets
 from ..observability.metrics import get_registry as _get_registry
-from ..ops.fused_update import FUSED_RULES, bucket_update_fn
+from ..ops.fused_update import (FUSED_RULES, bucket_update_fn,
+                                fused_dequant_update_flat, rule_spec)
 from .optimizer import lr_mult
 
 __all__ = ["FusedFlatUpdater", "FUSABLE_OPTIMIZERS"]
@@ -166,6 +173,30 @@ class FusedFlatUpdater:
                                           slots, self._lr_tensor(
                                               flat_p.device))
             self._slots[b.index] = new_s
+            _m_fused.inc()
+        self.optimizer._accumulated_steps += 1
+
+    @torch.no_grad()
+    def step_dequant(self, payloads, world: int, block_size: int):
+        """One fused dequantize-and-update per bucket, in place:
+        ``payloads[i]`` is bucket ``i``'s ``(q_sum, scales)``, the
+        blockwise payload summed over ``world`` ranks (int32 or fp32
+        carrier) and its per-block scales. The gradient buffers are not
+        read: the kernel decodes ``q_sum * scale / world`` itself."""
+        if len(payloads) != len(self.buckets):
+            raise ValueError(f"{len(payloads)} payloads for "
+                             f"{len(self.buckets)} buckets")
+        kind, hyper = rule_spec(self.optimizer)
+        for b, (q_sum, scales) in zip(self.buckets, payloads):
+            flat_p = self._flat_p[b.index]
+            slots = self._slots.get(b.index)
+            if slots is None:
+                slots = self._init_flat_slots(b)
+            lm, wd = self._hypers[b.index]
+            _, self._slots[b.index] = fused_dequant_update_flat(
+                flat_p, q_sum, scales, world, slots,
+                self._lr_tensor(flat_p.device), kind=kind, hyper=hyper,
+                block_size=block_size, bucket_dtype=b.dtype, lm=lm, wd=wd)
             _m_fused.inc()
         self.optimizer._accumulated_steps += 1
 

@@ -26,6 +26,12 @@ dot products of length k summed in different orders). A converted
 bert-test on the card against the same on the CPU: int8 payloads
 identical, logits within 1e-4 (card and CPU differ by ~1e-6 at this
 size), and the launches of one conversion and one forward counted.
+The gradient wire: the codec kernels' int32/fp32 carriers (encode, and
+the decode of two ranks' summed carriers) bit-identical to the plain
+versions; ``fused_dequant_update`` bit-identical to its plain version
+(``tests/torch_checks.py`` ``dequant_vs_plain``) for both carriers, the
+four rules, with and without a residual, at ragged sizes and blocks,
+each launch counted in total and by bucket size.
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -50,9 +56,10 @@ from paddle_tpu_torch.quantization import Int8Linear, convert_to_int8
 from paddle_tpu_torch.serving import (BatchSampler, GPTDecodeModel,
                                       KVBlockPool, RequestQueue,
                                       ServeRequest, ServingEngine)
-from torch_checks import (FUSED_HYPER, adam_step_parity, flash_vs_plain,
-                          fused_inputs, fused_vs_plain, qmm_vs_plain,
-                          quantize_vs_plain, run_checks)
+from torch_checks import (FUSED_HYPER, adam_step_parity, dequant_inputs,
+                          dequant_vs_plain, flash_vs_plain, fused_inputs,
+                          fused_vs_plain, qmm_vs_plain, quantize_vs_plain,
+                          run_checks)
 
 torch.set_num_threads(2)
 
@@ -108,11 +115,74 @@ def check_wrappers_raise_on_what_the_kernel_does_not_take(dev):
                            "int8_block")
     with pytest.raises(TypeError):
         codec.block_encode(x[:4096].double(), s, 1024, "int8_block")
-    with pytest.raises(TypeError):
-        codec.block_decode(torch.zeros(4, 1024, device=dev), s, 1, 4096)
+    with pytest.raises(TypeError):   # fp32 and int32 are the carriers
+        codec.block_decode(torch.zeros(4, 1024, dtype=torch.float64,
+                                       device=dev), s, 1, 4096)
     with pytest.raises(ValueError, match="numel"):
         codec.block_decode(torch.zeros(4, 1024, dtype=torch.int8,
                                        device=dev), s, 1, 5000)
+
+
+def check_carrier_kernels_match_plain(dev, codec_name, n, bs):
+    """The gradient wire's forms: the carrier written by the encode
+    kernel, and two ranks' carriers summed, decoded by the kernel at
+    world 2 and 3: bit-identical to the plain versions."""
+    x, y = _x(n, bs, seed=n), _x(n, bs, seed=n + 1) * 0.5
+    s = plain.block_scales(plain.block_absmax(x, bs)
+                           + plain.block_absmax(y, bs), codec_name)
+    qx = plain.block_encode(x, s, bs, codec_name, carrier=True)
+    qy = plain.block_encode(y, s, bs, codec_name, carrier=True)
+    before = codec.launch_counts()
+    kx = codec.block_encode(x.to(dev), s.to(dev), bs, codec_name,
+                            carrier=True)
+    ky = codec.block_encode(y.to(dev), s.to(dev), bs, codec_name,
+                            carrier=True)
+    assert kx.dtype == qx.dtype and torch.equal(kx.cpu(), qx)
+    assert torch.equal(ky.cpu(), qy)
+    for world in (2, 3):
+        d = codec.block_decode(kx + ky, s.to(dev), world, n)
+        assert torch.equal(d.cpu(), plain.block_decode(qx + qy, s, world, n))
+    assert codec.launch_counts() == {
+        "codec_encode": before["codec_encode"] + 2,
+        "codec_decode": before["codec_decode"] + 2}
+
+
+def check_dequant_update_bit_identical(dev, codec_name, kind, n, bs,
+                                       residual):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + bs)
+    p, _, slots, lr = fused_inputs(kind, n, gen, 1e-3)
+    q, scales = dequant_inputs(codec_name, n, bs, 2, gen)
+    res = torch.randn(n, device=dev, generator=gen) * 1e-5 if residual \
+        else None
+    before = fu.dequant_launch_counts()
+    assert dequant_vs_plain(p, q, scales, slots, lr, world=2, block_size=bs,
+                            kind=kind, hyper=FUSED_HYPER[kind], wd=0.01,
+                            residual=res) == 0.0
+    after = fu.dequant_launch_counts()
+    assert after["fused_dequant_update"] == \
+        before["fused_dequant_update"] + 1
+    assert after["sizes"][n] == before["sizes"].get(n, 0) + 1
+
+
+def check_dequant_wrapper_raises(dev):
+    p = torch.zeros(64, device=dev)
+    svec = torch.ones(1, device=dev)
+    q = torch.zeros(64, dtype=torch.int32, device=dev)
+    s = torch.ones(1, device=dev)
+    kw = dict(world=2, block_size=64, kind="sgd", hyper={})
+    with pytest.raises(TypeError, match="carrier"):
+        fu.fused_dequant_update(p, q.to(torch.int8), s, [], svec, **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        fu.fused_dequant_update(p[1:], q[1:], s, [], svec, **kw)
+    with pytest.raises(ValueError, match="flat"):
+        fu.fused_dequant_update(p, q[:32], s, [], svec, **kw)
+    with pytest.raises(ValueError, match="is on"):
+        fu.fused_dequant_update(p, q.cpu(), s, [], svec, **kw)
+    with pytest.raises(ValueError, match="svec"):
+        fu.fused_dequant_update(p, q, s, [p.clone(), p.clone()], svec,
+                                world=2, block_size=64, kind="adam",
+                                hyper=FUSED_HYPER["adam"])
 
 
 def check_pool_on_card_matches_pool_on_cpu(dev, codec_name):
@@ -364,4 +434,11 @@ def test_cuda_path_matches_plain(dev):
            for m, k, n in ((1, 1, 1), (16, 768, 2), (10, 48, 24),
                            (257, 300, 130), (512, 768, 768), (64, 3072, 64))]
         + [(check_quant_wrappers_raise, (dev,)),
-           (check_bert_int8_on_card_matches_cpu, (dev,))])
+           (check_bert_int8_on_card_matches_cpu, (dev,))]
+        + [(check_carrier_kernels_match_plain, (dev, c, n, bs))
+           for c in CODECS for n, bs in CASES]
+        + [(check_dequant_update_bit_identical, (dev, c, k, n, bs, r))
+           for c in CODECS for k in ("sgd", "momentum", "adam", "adamw")
+           for n, bs in ((5000, 1024), (4999, 96), (100003, 1024))
+           for r in (False, True)]
+        + [(check_dequant_wrapper_raises, (dev,))])

@@ -23,7 +23,8 @@ JAX reference on the CPU, at ``gpt-test`` size (2 layers, hidden 64,
   accumulated step and 8.5e-6 after three plain steps.
 - The port's training forward equals its own serving ``forced_logits``
   (1e-5) and its einsum attention path (``use_flash_attention=False``).
-- The options this slice leaves out raise ``NotImplementedError``.
+- The options this slice leaves out raise ``NotImplementedError``
+  (``grad_comm``, ported since, takes only a config or a codec name).
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -198,9 +199,13 @@ def check_left_out_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
     o = AdamW(parameters=tm.parameters())
-    for kw in ("batch_spec", "grad_fn", "grad_comm"):
+    for kw in ("batch_spec", "grad_fn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrainStep(tm, GPTPretrainingCriterion(), o, **{kw: object()})
+    # grad_comm is ported (tests/test_torch_dp_train.py); it takes a
+    # GradCommConfig or a codec name
+    with pytest.raises(TypeError, match="GradCommConfig"):
+        TrainStep(tm, GPTPretrainingCriterion(), o, grad_comm=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AdamW(parameters=tm.parameters(), grad_clip=object())
 

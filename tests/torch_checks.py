@@ -20,6 +20,10 @@ the two hold the kernels to one set of criteria:
   magnitude (unit-scale inputs; a gradient that is zero in exact
   arithmetic, as dq at s = 1, is rounding noise on both sides);
 - ``fused_update``: bit-identical parameters and slots;
+- ``fused_dequant_update``: bit-identical parameters and slots
+  (:func:`dequant_vs_plain`), fed by a payload whose carriers the
+  ``codec_encode`` kernel wrote bit-identical to the plain encode's
+  (:func:`encoded_inputs`);
 - one Adam(W) training step on two devices: :func:`adam_step_parity`;
 - ``quantize_int8``: int8 payload and scales bit-identical, nearest and
   stochastic;
@@ -181,6 +185,87 @@ def fused_vs_plain(p, g, slots, lr, *, kind, hyper, wd) -> float:
     return err
 
 
+def _wire_grads(codec, n, block_size, world, gen, grad_scale):
+    """``world`` ranks' seeded gradients on ``gen``'s device and the
+    shared scales of their summed per-block abs-max."""
+    from paddle_tpu_torch.distributed import grad_comm as gc
+
+    gs = [torch.randn(n, device=gen.device, generator=gen) * grad_scale
+          for _ in range(world)]
+    scales = gc.block_scales(sum(gc.block_absmax(g, block_size) for g in gs),
+                             codec)
+    return gs, scales
+
+
+def dequant_inputs(codec, n, block_size, world, gen, *, grad_scale=1e-3):
+    """A seeded summed gradient-wire payload on ``gen``'s device:
+    ``world`` ranks' gradients (randn * ``grad_scale``) encoded with the
+    shared scales of their summed per-block abs-max, the carriers summed.
+    Returns ``(q_sum [nb, block_size], scales [nb])``."""
+    from paddle_tpu_torch.distributed import grad_comm as gc
+
+    gs, scales = _wire_grads(codec, n, block_size, world, gen, grad_scale)
+    q = sum(gc.block_encode(g, scales, block_size, codec, carrier=True)
+            for g in gs)
+    return q, scales
+
+
+def encoded_inputs(codec, n, block_size, world, gen, *, grad_scale=1e-3):
+    """:func:`dequant_inputs` with every rank's carrier written by the
+    ``codec_encode`` kernel (``ops/codec.py`` ``block_encode(...,
+    carrier=True)``), as the gradient wire writes it, each held bit for
+    bit against the plain encode of the same gradient. Returns ``(q_sum,
+    scales, max abs difference)``; raises unless every carrier is
+    bit-identical."""
+    from paddle_tpu_torch.distributed import grad_comm as gc
+    from paddle_tpu_torch.ops import codec as ops_codec
+
+    gs, scales = _wire_grads(codec, n, block_size, world, gen, grad_scale)
+    q, err = 0, 0.0
+    for g in gs:
+        k = ops_codec.block_encode(g, scales, block_size, codec, carrier=True)
+        ref = gc.block_encode(g, scales, block_size, codec, carrier=True)
+        if k.dtype != ref.dtype or k.shape != ref.shape:
+            raise AssertionError(
+                f"codec_encode {codec} carrier: {k.dtype} {tuple(k.shape)}, "
+                f"plain {ref.dtype} {tuple(ref.shape)}")
+        err = max(err, _max_abs(k.float(), ref.float()))
+        differ = int((k.view(torch.int32) != ref.view(torch.int32)).sum())
+        if differ:
+            raise AssertionError(
+                f"codec_encode {codec} carrier n={n} block={block_size}: "
+                f"{differ} values differ from plain (max abs diff "
+                f"{err:.3e})")
+        q = q + k
+    return q, scales, err
+
+
+def dequant_vs_plain(p, q, scales, slots, lr, *, world, block_size, kind,
+                     hyper, wd, residual=None) -> float:
+    """``fused_dequant_update_flat`` on copies of ``p`` and ``slots``
+    against ``reference_dequant_update_flat`` on the originals. Returns
+    the max abs difference over the parameters and every slot; raises
+    unless they are bit-identical."""
+    kw = dict(kind=kind, hyper=hyper, block_size=block_size, wd=wd,
+              residual=residual)
+    ref_p, ref_s = fu.reference_dequant_update_flat(p, q, scales, world,
+                                                    slots, lr, **kw)
+    kp = p.clone()
+    _, ks = fu.fused_dequant_update_flat(
+        kp, q, scales, world, {k: v.clone() for k, v in slots.items()}, lr,
+        **kw)
+    pairs = [("p", kp, ref_p)] + [(k, ks[k], v) for k, v in ref_s.items()]
+    err = max(_max_abs(a, b) for _, a, b in pairs)
+    differ = [n for n, a, b in pairs
+              if not torch.equal(a.view(torch.int32), b.view(torch.int32))]
+    if differ:
+        raise AssertionError(
+            f"fused_dequant_update {kind} {q.dtype} n={p.numel()} "
+            f"block={block_size} residual={residual is not None}: {differ} "
+            f"differ from plain (max abs diff {err:.3e})")
+    return err
+
+
 def adam_step_parity(card, cpu, lr, grad_rtol=1e-4, update_rtol=1e-2,
                      eps=1e-8):
     """Hold one Adam(W) first step on the card against one on the CPU.
@@ -240,3 +325,88 @@ def adam_step_parity(card, cpu, lr, grad_rtol=1e-4, update_rtol=1e-2,
         raise AssertionError("Adam step, card vs CPU: " + "; ".join(bad))
     return {"grad_rtol": worst_g, "clear_step_diff_lr": worst_u,
             "clear_share": clear_n / total, "param_max_abs_diff": worst_p}
+
+
+def dp_step_parity(card, cpu, lr, grad_rtol=1e-4, flip_share=1e-2,
+                   dec_rtol=1e-4, update_rtol=1e-2, eps=1e-8):
+    """Hold two data-parallel AdamW steps on the quantized gradient wire
+    on the card against the same on the CPU (world 2 each).
+
+    ``card`` and ``cpu`` map each parameter's name to a dict of CPU
+    tensors: ``d1``, ``d2`` (the parameter's change in steps 1 and 2),
+    ``local`` (this rank's gradient in step 1) and ``dec1``, ``dec2``
+    (the averaged gradient each step's update decoded from the summed
+    payload). The scales are the summed abs-max of the local gradients,
+    which differ by ulps between the devices, so every decoded value
+    carries that noise (~1e-6 relative); and a local gradient at fp32
+    noise level from a rounding edge of the quantizer lands one step
+    apart in the payload, which moves its decoded value by at least
+    1/254 of itself, and Adam turns that into a different step. Two
+    decoded values *agree* when they are within ``dec_rtol`` of each
+    other. Hence:
+
+    - every local gradient within ``grad_rtol`` of its tensor's largest
+      (the forward and backward agree);
+    - at most ``flip_share`` of the elements decode apart in either
+      step (measured and reported);
+    - step 1 on the elements whose decoded gradients agree:
+      :func:`adam_step_parity` with the decoded gradient (every clear
+      element moved by the CPU's step within ``update_rtol`` lr and by at
+      least 0.9 lr);
+    - step 2 on the elements whose decoded gradients agree in both steps:
+      within ``update_rtol`` lr;
+    - every element's step 1 within 2.1 lr of the CPU's (two Adam first
+      steps of at most lr each, plus weight decay).
+
+    Returns the worst local-gradient ratio, the flip share, the step-1
+    numbers of :func:`adam_step_parity` and the worst step-2 difference
+    over ``lr``."""
+    bad = []
+    worst_g, flips1, flips, total, worst_2, worst_any = 0.0, 0, 0, 0, 0.0, 0.0
+    sub_card, sub_cpu = {}, {}
+    for name, b in cpu.items():
+        c = card[name]
+        gmax = float(b["local"].abs().max())
+        gerr = _max_abs(c["local"], b["local"])
+        if gmax:
+            worst_g = max(worst_g, gerr / gmax)
+            if gerr > grad_rtol * gmax:
+                bad.append(f"{name}: local gradients differ by "
+                           f"{gerr / gmax:.3e} of the largest")
+        same1 = ((c["dec1"] - b["dec1"]).abs()
+                 <= dec_rtol * b["dec1"].abs())
+        same2 = same1 & ((c["dec2"] - b["dec2"]).abs()
+                         <= dec_rtol * b["dec2"].abs())
+        flips1 += int((~same1).sum())
+        flips += int((~same2).sum())
+        total += same2.numel()
+        worst_any = max(worst_any, _max_abs(c["d1"], b["d1"]) / lr)
+        if bool(same1.any()):
+            z = torch.zeros(int(same1.sum()))
+            sub_card[name] = (z, c["d1"][same1], c["dec1"][same1])
+            sub_cpu[name] = (z, b["d1"][same1], b["dec1"][same1])
+        if bool(same2.any()):
+            worst_2 = max(worst_2,
+                          _max_abs(c["d2"][same2], b["d2"][same2]) / lr)
+    share = flips / total
+    if share > flip_share:
+        bad.append(f"{share:.3e} of the elements decode apart in step 1 "
+                   f"or 2 ({flips1 / total:.3e} in step 1; limit "
+                   f"{flip_share})")
+    if worst_2 > update_rtol:
+        bad.append(f"step 2 differs by {worst_2:.3e} lr where both steps' "
+                   f"gradients agree")
+    if worst_any > 2.1:
+        bad.append(f"a step 1 differs by {worst_any:.3e} lr")
+    try:
+        step1 = adam_step_parity(sub_card, sub_cpu, lr, grad_rtol,
+                                 update_rtol, eps)
+    except AssertionError as e:
+        bad.append(str(e))
+        step1 = None
+    if bad:
+        raise AssertionError("data-parallel steps, card vs CPU: "
+                             + "; ".join(bad))
+    return {"local_grad_rtol": worst_g, "flip_share": share,
+            "step1": step1, "step2_diff_lr": worst_2,
+            "step1_max_diff_lr": worst_any}

@@ -1,0 +1,163 @@
+"""Rank workers for the port's data-parallel tests on the CPU
+(``tests/test_torch_grad_comm.py``, ``tests/test_torch_dp_train.py``).
+
+``paddle_tpu_torch.distributed.spawn`` starts each rank in a fresh
+process that imports the worker's module, so the workers live here, in a
+module that imports neither JAX nor ``paddle_tpu``. Each worker joins
+the process group (gloo, two threads per rank), runs every case of its
+test file on this rank and returns plain numpy results; the test holds
+them against the reference, which runs in the test's own process.
+"""
+import numpy as np
+import torch
+
+from paddle_tpu_torch.distributed import (DataParallel, GradCommConfig,
+                                          GradCommunicator, get_rank,
+                                          init_parallel_env)
+from paddle_tpu_torch.distributed import grad_comm as tgc
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
+                                     gpt_presets, state_dict_from_numpy)
+from paddle_tpu_torch.models.convert import grad_comm_state_for_rank
+from paddle_tpu_torch.nn import Linear
+from paddle_tpu_torch.optimizer import AdamW
+
+
+def _np(t):
+    return t.detach().cpu().numpy().copy()
+
+
+def _join():
+    torch.set_num_threads(2)
+    env = init_parallel_env()
+    assert env.backend == "gloo", env.backend
+    return get_rank()
+
+
+# ------------------------------------------------------------ communicator
+def communicator_cases(g, res, n, bs, ref_state):
+    """``reduce_bucket`` for every codec and ``reduce_bucket_payload`` for
+    the blockwise ones on this rank's row of ``g`` (residual: its row of
+    ``res`` for the error-feedback codecs), then ``ref_state`` carried
+    into a communicator and read back."""
+    rank = _join()
+    flat = torch.from_numpy(g[rank])
+    residual = torch.from_numpy(res[rank])
+    out = {}
+    for codec in tgc.CODECS:
+        comm = GradCommunicator(GradCommConfig(codec, block_size=bs))
+        b = tgc.GradBucket(0, torch.float32)
+        b.add(0, (n,))
+        r = residual if codec in tgc.EF_CODECS else None
+        reduced, nr, wire, ncoll = comm.reduce_bucket(b, flat, 2,
+                                                      residual=r)
+        case = {"reduced": _np(reduced), "wire": wire, "ncoll": ncoll,
+                "residual": None if nr is None else _np(nr)}
+        if codec in tgc.BLOCK_CODECS:
+            q, sc, nr2, wire2, ncoll2 = comm.reduce_bucket_payload(
+                b, flat, 2, residual=r)
+            case.update(q_sum=_np(q), scales=_np(sc), wire2=wire2,
+                        ncoll2=ncoll2, residual2=_np(nr2))
+        out[codec] = case
+    comm = GradCommunicator(GradCommConfig("int8_block", block_size=bs))
+    comm.load_state_dict(grad_comm_state_for_rank(ref_state, rank, 2))
+    out["state"] = comm.state_dict()
+    return out
+
+
+# ------------------------------------------------------------------ models
+def mlp(weights):
+    """The reference's ``_mlp`` (Linear 8->16, Tanh, Linear 16->1) on the
+    reference's weights, in parameter order."""
+    net = torch.nn.Sequential(Linear(8, 16, device="cpu"), torch.nn.Tanh(),
+                              Linear(16, 1, device="cpu"))
+    with torch.no_grad():
+        for p, w in zip(net.parameters(), weights):
+            p.copy_(torch.from_numpy(np.array(w)))
+    return net
+
+
+def gpt_test(params):
+    cfg = gpt_presets("gpt-test")
+    m = GPTForCausalLM(cfg, seed=0, device="cpu")
+    m.load_state_dict(state_dict_from_numpy(params, cfg))
+    return m
+
+
+def _mse(out, y):
+    return torch.nn.functional.mse_loss(out, y)
+
+
+def _param_slots(updater):
+    """Each parameter's slots, cut out of its bucket's flat slots (the
+    scalar slots shared bucket-wide), in parameter order."""
+    out = [{} for _ in updater.params]
+    for b in updater.buckets:
+        for pi, off, n, shape in zip(b.param_indices, b.offsets, b.numels,
+                                     b.shapes):
+            out[pi] = {k: _np(v if v.dim() == 0 else
+                              v[off:off + n].view(shape))
+                       for k, v in updater._slots[b.index].items()}
+    return out
+
+
+def _train(model, loss_fn, lr, gc, inputs, labels, steps):
+    opt = AdamW(learning_rate=lr, weight_decay=0.01,
+                parameters=model.parameters())
+    step = TrainStep(model, loss_fn, opt, grad_comm=gc)
+    losses = [float(step(inputs=inputs, labels=labels))
+              for _ in range(steps)]
+    return {"losses": losses,
+            "params": [_np(p) for p in model.parameters()],
+            "slots": _param_slots(step.updater),
+            "comm_stats": step.comm_stats,
+            "fused": step._gc_fused,
+            "residuals": {i: _np(r) for i, r in
+                          step.grad_comm_communicator._residuals.items()}}
+
+
+def dp_train_cases(mlp_w, X, Y, gpt_params, ids, labels):
+    """Every world-2 run of ``test_torch_dp_train.py`` on this rank."""
+    _join()
+    out = {}
+    mlp_gc = GradCommConfig("int8_block", comm_buffer_size=0.0002,
+                            last_comm_buffer_size=0.0001, block_size=128)
+    out["mlp_int8"] = _train(mlp(mlp_w), _mse, 1e-2, mlp_gc, (X,), (Y,), 4)
+    fp32 = GradCommConfig("fp32", comm_buffer_size=0.0002,
+                          last_comm_buffer_size=0.0001)
+    out["mlp_fp32"] = _train(mlp(mlp_w), _mse, 1e-2, fp32, (X,), (Y,), 4)
+    out["gpt_int8"] = _train(gpt_test(gpt_params), GPTPretrainingCriterion(),
+                             1e-3, GradCommConfig("int8_block"), (ids,),
+                             (labels,), 2)
+    out["dp"] = data_parallel_grads(mlp_w, X, Y)
+    return out
+
+
+def data_parallel_grads(mlp_w, X, Y):
+    """``DataParallel.apply_collective_grads`` on the MLP over two
+    backward passes (the second carries the first's error-feedback
+    residual) with the int8_block wire, and once with the default fp32
+    wire: this rank's local gradients and the reduced ones."""
+    rank = get_rank()
+    xs = torch.from_numpy(X).chunk(2)[rank]
+    ys = torch.from_numpy(Y).chunk(2)[rank]
+    out = {}
+    for name, gc, rounds in (
+            ("int8_block", GradCommConfig("int8_block",
+                                          comm_buffer_size=0.0002,
+                                          last_comm_buffer_size=0.0001,
+                                          block_size=128), 2),
+            ("fp32", None, 1)):
+        model = DataParallel(mlp(mlp_w), grad_comm=gc)
+        local, reduced = [], []
+        for k in range(rounds):
+            for p in model.parameters():
+                p.grad = None
+            loss = model.scale_loss(_mse(model(xs * (1 + k)), ys))
+            loss.backward()
+            local.append([_np(p.grad) for p in model.parameters()])
+            model.apply_collective_grads()
+            reduced.append([_np(p.grad) for p in model.parameters()])
+        out[name] = {"local": local, "reduced": reduced,
+                     "stats": dict(model.grad_communicator.stats)}
+    return out
