@@ -47,8 +47,14 @@ when every phase passed):
               flushed) for kernel, plain version and the one-call
               yardsticks (scaled_dot_product_attention forward and its
               autograd backward; torch._fused_adamw_ over the same
-              buckets), and the bound. The criteria are
+              buckets), and the bound: for flash_fwd, which runs in
+              3xTF32 on the tensor cores, 3 TF32 passes at 495 TFLOP/s
+              with the fp32 SIMT bound beside it. The criteria are
               tests/torch_checks.py's, shared with tests/test_torch_cuda.py;
+              the card's clocks (nvidia-smi clocks.sm, clocks.max.sm,
+              power.draw, temperature.gpu) are sampled before and after,
+              as in phases 11 and 13, and every timed row's ratio to its
+              yardstick is printed;
   7. train    TrainStep on GPT-125M (full width and depth, random weights
               from seed 0), batch 8 x 1024 tokens fp32, AdamW lr 1e-4
               wd 0.01, one seeded batch: 2 warm-up steps, then 5 timed
@@ -95,6 +101,9 @@ when every phase passed):
               torch.matmul on the dequantized fp32 weight (TF32 off) for
               quant_matmul, torch.quantize_per_channel given the scales
               (no amax pass) for quantize_int8, SDPA for flash_fwd;
+              quant_matmul's bound at its 2 split-TF32 passes on the
+              tensor cores, flash_fwd's at 3, each with the fp32 SIMT
+              bound beside it; clocks before and after, ratios;
  12. infer-parity
               bert-base width with 2 layers on the card and on the CPU
               from the same seed, converted, b2 s128: int8 payloads and
@@ -112,6 +121,7 @@ when every phase passed):
               carrier timed at each bucket size; one step's 18 buckets
               of fused_dequant_update timed (kernel, plain version, the
               decode followed by torch._fused_adamw_) against the bound;
+              clocks before and after, ratios;
  14. dp-train TrainStep(grad_comm=GradCommConfig("int8_block")) on
               GPT-125M (full width and depth, seed 0, fp32, AdamW as in
               phase 7) on two ranks that share the card, started by the
@@ -155,6 +165,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM, TF32 on the tensor cores (dense)
+CLOCK_QUERY = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 EPT = 12 * 2 * 768          # GPT-125M KV elements per token
 QB = 1024                   # KV quant block
 MAIN_SHAPE = "decode_step_8"  # the shape behind most serve-phase launches
@@ -206,6 +218,41 @@ def bound(n: int, nb: int, direction: str):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def clocks(tag: str) -> str:
+    """The card's SM clock, its maximum, power draw and temperature now
+    (nvidia-smi), logged under ``tag``."""
+    smi = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={CLOCK_QUERY}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    line = smi.stdout.strip()
+    log(f"clocks {tag} ({CLOCK_QUERY}): {line}")
+    return line
+
+
+def _timed(rows):
+    """(label, kernel ms, yardstick ms) of every row, codec rows by
+    direction, that has both times."""
+    for key, r in rows.items():
+        for p in ("", "enc_", "dec_"):
+            ms, lib = r.get(f"{p}ms"), r.get(f"{p}library_ms")
+            if ms is not None and lib:
+                yield f"{p}{key} {r['shape']}", ms, lib
+
+
+def log_ratios(phase: str, rows) -> None:
+    """Each timed row's kernel time over its one-call yardstick's, both
+    from this call."""
+    for label, ms, lib in _timed(rows):
+        log(f"ratio {phase}: {label}: {ms:.4f} / {lib:.4f} ms = "
+            f"{ms / lib:.3f}x the yardstick")
+
+
+def stamp(rows, before: str, after: str) -> None:
+    """Add the clock samples taken around a phase to each of its rows."""
+    for r in rows:
+        r["clocks"] = {"before": before, "after": after}
 
 
 # ------------------------------------------------------------------ phases
@@ -517,10 +564,29 @@ def flash_work(shape, causal: bool, kernel: str):
     return 6 * mat + 2 * row, 4 * 2 * d * pairs   # ... -> dk, dv
 
 
-def work_bound(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def work_bound(nbytes: float, ops: float, tf32_passes: int = 0):
+    """Least time (ms) for the bytes at 3.35 TB/s and the operations at
+    the fp32 SIMT peak, or, with ``tf32_passes``, that many TF32 passes
+    over them at the tensor cores' peak (split-TF32 kernels)."""
+    rate = TF32_OPS_PER_S if tf32_passes else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops * max(tf32_passes, 1) / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def both_bounds(nbytes: float, ops: float, tf32_passes: int) -> dict:
+    """The bound at the arithmetic a tensor-core kernel uses and, beside
+    it, the fp32 SIMT bound of the same work."""
+    b, by = work_bound(nbytes, ops, tf32_passes)
+    simt, simt_by = work_bound(nbytes, ops)
+    return {"bound_ms": b, "bound_by": by, "bound_simt_ms": simt,
+            "bound_simt_by": simt_by}
+
+
+# split-TF32 passes of the tensor-core kernels (csrc/quant_matmul.cu,
+# csrc/flash_attention.cu flash_fwd); the others run on the SIMT cores
+TF32_PASSES = {"flash_fwd": 3, "quant_matmul": 2}
 
 
 def _flash_case(dev, gen, shape, causal, timed: bool, flush):
@@ -555,20 +621,21 @@ def _flash_case(dev, gen, shape, causal, timed: bool, flush):
                           lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
                                                      causal), lib_bwd)}
         for name, (kern, plain, lib) in calls.items():
-            bound_ms, bound_by = work_bound(*flash_work(shape, causal, name))
             rows[name] = {"shape": f"{list(shape)} "
                                    f"{'causal' if causal else 'full'}",
                           "max_abs_err": kernel_err[name],
                           "ms": median_ms(kern, flush),
                           "plain_ms": median_ms(plain, flush),
-                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          **both_bounds(*flash_work(shape, causal, name),
+                                        TF32_PASSES.get(name, 0)),
                           "library_ms": lib}
     log(f"flash {list(shape)} causal={causal}: max abs diff "
         + ", ".join(f"{n} {e:.2e} (limit {lim:.2e})"
                     for n, (e, lim) in errs.items())
         + "".join(f" | {n} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
                   f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-                  f"{r['bound_by']})" for n, r in rows.items()))
+                  f"{r['bound_by']}, fp32 SIMT bound {r['bound_simt_ms']:.4f})"
+                  for n, r in rows.items()))
     return rows
 
 
@@ -832,7 +899,9 @@ def _quant_case(dev, gen, shape, launches, flush):
 
 
 def _qmm_case(dev, gen, mkn, launches, flush):
-    from torch_checks import qmm_vs_plain
+    from torch_checks import (QMM_SPLIT_CEILING, QMM_SPLIT_MIN_K, qmm_limit,
+                              qmm_vs_plain)
+    from paddle_tpu_torch.ops.tf32 import tf32_rna
 
     qm = _quant_module()
     m, k, n = mkn
@@ -840,23 +909,34 @@ def _qmm_case(dev, gen, mkn, launches, flush):
     q, sc = qm.quantize_int8(torch.randn(k, n, device=dev, generator=gen)
                              * 0.02)
     err, ratio = qmm_vs_plain(x, q, sc)
+    control = ""
+    if k >= QMM_SPLIT_MIN_K:    # what the ceiling tells the split from
+        ref = qm.quant_matmul_plain(x, q, sc).double()
+        one = ((tf32_rna(x) @ q.float()) * sc).double()
+        over = (one - ref).abs() / qmm_limit(x, q, sc)
+        control = (f" (ceiling {QMM_SPLIT_CEILING}; 1xTF32 x reads "
+                   f"{float(over.max()):.4f})")
+        del ref, one, over
     w = q.float() * sc                      # the fp32 weight it replaces
-    # read x, q and the scales once, write the output; 2 m n k + m n
-    bound_ms, bound_by = work_bound(4 * m * k + k * n + 4 * n + 4 * m * n,
-                                    2 * m * n * k + m * n)
+    # read x, q and the scales once, write the output; 2 m n k
+    bounds = both_bounds(4 * m * k + k * n + 4 * n + 4 * m * n,
+                         2 * m * n * k, TF32_PASSES["quant_matmul"])
     r = {"shape": f"({m}, {k}, {n})", "launches_at_shape": launches,
          "max_abs_err": err, "err_over_limit": ratio,
          "ms": median_ms(lambda: qm.quant_matmul(x, q, sc), flush),
          "plain_ms": median_ms(lambda: qm.quant_matmul_plain(x, q, sc),
                                flush),
          "library_ms": median_ms(lambda: torch.matmul(x, w), flush),
-         "bound_ms": bound_ms, "bound_by": bound_by}
+         **bounds}
     log(f"quant_matmul {r['shape']} ({launches} in the timed forwards): "
         f"max abs diff "
-        f"{err:.3e}, at most {ratio:.3f} of the limit | {r['ms']:.4f} ms "
-        f"({2 * m * n * k / r['ms'] / 1e9:.2f} TFLOP/s; plain "
-        f"{r['plain_ms']:.4f}, fp32 torch.matmul {r['library_ms']:.4f}, "
-        f"bound {bound_ms:.4f} {bound_by})")
+        f"{err:.3e}, at most {ratio:.4f} of the limit{control} | "
+        f"{r['ms']:.4f} ms "
+        f"({2 * m * n * k / r['ms'] / 1e9:.2f} fp32-equivalent TFLOP/s; "
+        f"plain {r['plain_ms']:.4f}, fp32 torch.matmul "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+        f"{r['bound_by']} at 2 TF32 passes, fp32 SIMT bound "
+        f"{r['bound_simt_ms']:.4f} {r['bound_simt_by']})")
     return r
 
 
@@ -878,8 +958,6 @@ def phase_infer_kernels(dev, gen, shapes):
     q, k, v = (torch.randn(*FLASH_BERT, device=dev, generator=gen)
                for _ in range(3))
     errs, _, _ = flash_fwd_vs_plain(q, k, v, False)
-    bound_ms, bound_by = work_bound(*flash_work(FLASH_BERT, False,
-                                                "flash_fwd"))
     r = {"shape": f"{list(FLASH_BERT)} full",
          "max_abs_err": max(e for e, _ in errs.values()),
          "ms": median_ms(lambda: fa.flash_fwd(q, k, v, False), flush),
@@ -887,13 +965,16 @@ def phase_infer_kernels(dev, gen, shapes):
                                flush),
          "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
              q, k, v), flush),
-         "bound_ms": bound_ms, "bound_by": bound_by}
+         **both_bounds(*flash_work(FLASH_BERT, False, "flash_fwd"),
+                       TF32_PASSES["flash_fwd"])}
     rows["flash_fwd"] = r
     log(f"flash_fwd {r['shape']}: max abs diff "
         + ", ".join(f"{n} {e:.2e} (limit {lim:.2e})"
                     for n, (e, lim) in errs.items())
         + f" | {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA "
-          f"{r['library_ms']:.4f}, bound {bound_ms:.4f} {bound_by})")
+          f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+          f"{r['bound_by']} at 3 TF32 passes, fp32 SIMT bound "
+          f"{r['bound_simt_ms']:.4f})")
     del flush
     return rows
 
@@ -1569,7 +1650,7 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
 def _numbers(r) -> dict:
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "launches_at_shape",
-            "err_over_limit")
+            "err_over_limit", "clocks")
     return {k: r[k] for k in keys if k in r}
 
 
@@ -1595,6 +1676,7 @@ def main(argv=None) -> int:
     cfg = gpt_presets("gpt-125m")
     rows = phase_kernels(dev, gen, {
         **serve_shapes(_traffic(args.seed, cfg.vocab_size)), **CAP_SHAPES})
+    log_ratios("kernels", {f"{c} {sh}": r for (c, sh), r in rows.items()})
 
     t0 = time.perf_counter()
     cpu_model = GPTForCausalLM(cfg, seed=0, device="cpu")
@@ -1613,7 +1695,10 @@ def main(argv=None) -> int:
 
     plan = build_buckets([torch.empty(shape, device="meta")
                           for shape in expected_shapes(cfg).values()])
+    before = clocks("before train-kernels")
     train_rows = phase_train_kernels(dev, gen, plan)
+    stamp(train_rows.values(), before, clocks("after train-kernels"))
+    log_ratios("train-kernels", train_rows)
     train_counts, step, ids, labels = phase_train(cfg, dev, args.seed)
     if [b.size for b in step.buckets] != [b.size for b in plan]:
         raise AssertionError("the train step's bucket plan is not the "
@@ -1628,13 +1713,24 @@ def main(argv=None) -> int:
     phase_infer_profile(bert, batch)
     del bert, batch
     torch.cuda.empty_cache()
+    before = clocks("before int8-kernels")
     infer_rows = phase_infer_kernels(dev, gen, {
         "quantize_int8": conversion["shapes"]["quantize_int8"],
         "quant_matmul": infer_counts["shapes"]["quant_matmul"]})
+    timed = {**{f"{name} {i}": r for name in ("quantize_int8", "quant_matmul")
+                for i, r in enumerate(infer_rows[name])},
+             "flash_fwd": infer_rows["flash_fwd"]}
+    stamp(timed.values(), before, clocks("after int8-kernels"))
+    log_ratios("int8-kernels", timed)
     phase_infer_parity(dev, args.seed)
     torch.cuda.empty_cache()
 
+    before = clocks("before dp-kernels")
     dp_row, carrier_rows = phase_dp_kernels(dev, gen, plan)
+    timed = {"fused_dequant_update": dp_row,
+             **{f"carrier {nb}": r for nb, r in carrier_rows.items()}}
+    stamp(timed.values(), before, clocks("after dp-kernels"))
+    log_ratios("dp-kernels", timed)
     torch.cuda.empty_cache()
     dp_rank = phase_dp_train(cfg, args.seed)
     if dp_rank["buckets"] != [b.size for b in plan]:

@@ -21,21 +21,39 @@
 // What bounds them: operations. At the training slice's shape (b8 n12 s1024
 // d64, causal) the forward does 2 causal products (12.9 GFLOP), dq 3
 // (19.3 GFLOP) and dkv 4 (25.8 GFLOP) against ~25-50 MB of inputs and
-// outputs each: 0.19 / 0.29 / 0.38 ms at the H100's 67 TFLOP/s fp32 SIMT
-// peak, far above their 0.01-0.02 ms byte bounds.
+// outputs each. flash_fwd runs both products in 3xTF32 on the tensor cores
+// (3 x 12.9 GFLOP at 495 TFLOP/s: 0.078 ms); dq and dkv run fp32 FMAs on
+// the SIMT cores (0.29 / 0.38 ms at 67 TFLOP/s). All are far above their
+// 0.01-0.02 ms byte bounds.
 //
-// Design (simple and right first; wgmma, TMA and tensor cores are later
-// work): one block of 256 threads per (batch*head, 64-row tile). The
+// flash_fwd design: one block of 4 warps per (batch*head, 64 query rows);
+// each warp owns 16 query rows, so a row's max and sum stay inside the
+// warp (two shuffles across the 4 lanes of a quad). Both products run on
+// mma.sync m16n8k8 tf32 with fp32 accumulators in registers, each fp32
+// operand split as big + small (cvt.rna; see split_tf32) and multiplied as
+// small.big + big.small + big.big, the arithmetic of the fp32 SDPA
+// yardstick (CUTLASS's fast-fp32 mode). The scaled Q tile is split once
+// per block: into registers at d <= 64, into shared memory above (where
+// registers would spill). K and V tiles of 64 keys are double-buffered in
+// shared memory by cp.async, so the next tile's load overlaps this tile's
+// products; they are split as their fragments are read. P goes to the
+// second product through registers: mma slot t of a key chunk c reads key
+// 8c + 2t and slot t + 4 key 8c + 2t + 1, which puts the score
+// accumulator's (c0, c1, c2, c3) exactly where the next product's A
+// fragment (a0, a2, a1, a3) wants them. Row pitches of d + 8 floats (K, Q)
+// and d + 4 (V) make the fragment loads free of bank conflicts.
+//
+// dq, dkv design (simple and right first; tensor cores are later work):
+// one block of 256 threads per (batch*head, 64-row tile). The
 // block's own tile and the streamed tiles live in shared memory with a
 // row pitch of d + 1 floats, so both row-wise and column-wise reads are
 // free of bank conflicts. The 256 threads form a 16 x 16 grid: thread
 // (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx + 16*j, keeps its
-// scores and output accumulators in registers and does fp32 FMAs on the
-// SIMT cores. Row reductions (max, sum) go across the 16 lanes of a
-// half-warp with shuffles. The sequential grid axis of the TPU kernels
-// becomes a loop inside the block: the forward and dq loop over key tiles
-// for a fixed query tile, dkv loops over query tiles for a fixed key
-// tile, so every output element has one owner and no atomics are needed.
+// accumulators in registers and does fp32 FMAs on the SIMT cores. The
+// sequential grid axis of the TPU kernels becomes a loop inside the
+// block: the forward and dq loop over key tiles for a fixed query tile,
+// dkv loops over query tiles for a fixed key tile, so every output element
+// has one owner and no atomics are needed.
 // Any s >= 1 works: rows past the end are zero-filled on load, masked in
 // the scores and never stored. d is a template parameter, 16..128 in
 // steps of 16.
@@ -43,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -75,131 +95,233 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-// Reductions over the 16 lanes that share a row (lanes 0-15 or 16-31).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// d += a * b in 3xTF32: small.big + big.small + big.big.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ab,
+                                           const uint32_t* as, uint32_t bb0,
+                                           uint32_t bb1, uint32_t bs0,
+                                           uint32_t bs1) {
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
 }
 
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// Sums and maxima over the 4 lanes of a quad (one mma row's owners).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // ---------------------------------------------------------------- forward
+constexpr int kFwdThreads = 128;   // 4 warps x 16 query rows
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct FwdTiles {
+  static constexpr int PK = D + 8;            // K and Q row pitch (floats)
+  static constexpr int PV = D + 4;            // V row pitch
+  static constexpr bool QREG = D <= 64;       // split Q kept in registers
+  static constexpr int kStage = kTile * (PK + PV);
+  static constexpr int kQ = QREG ? 0 : 2 * kTile * PK;   // Q big, small
+  static constexpr size_t bytes = sizeof(float) * (2 * kStage + kQ);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ out,
            float* __restrict__ lse, int s, int causal, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int C = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [kTile][LD], pre-scaled
-  float* Ks = Qs + kTile * LD;      // [kTile][LD]
-  float* Vs = Ks + kTile * LD;      // [kTile][LD]
-  float* Ps = Vs + kTile * LD;      // [kTile][kPitchP]
+  using T = FwdTiles<D>;
+  constexpr int PK = T::PK, PV = T::PV, C = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qb = smem + 2 * T::kStage;           // !QREG: split Q, big
+  float* Qs = Qb + kTile * PK;                //        and small
 
   // heaviest causal tiles (the last query rows) first
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const size_t base = static_cast<size_t>(blockIdx.y) * s * D;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<D>(Qs, q + base, q0, s, scale);
-
-  float m[kRows], l[kRows], acc[kRows][C];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
-  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g;               // tile rows r0 and r0 + 8
 
   const int n_kt = (s + kTile - 1) / kTile;
   const int kt_end = causal ? min(n_kt, q0 / kTile + 1) : n_kt;
-  for (int kt = 0; kt < kt_end; ++kt) {
+
+  auto load_kv = [&](int kt) {
+    float* Ks = smem + (kt & 1) * T::kStage;
+    float* Vs = Ks + kTile * PK;
     const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(Ks, k + base, k0, s, 1.0f);
-    load_tile<D>(Vs, v + base, k0, s, 1.0f);
-    __syncthreads();
-
-    float sc[kRows][4];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[4];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(ty * kRows + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+    for (int e = threadIdx.x; e < kTile * D / 4; e += kFwdThreads) {
+      const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+      const bool ok = k0 + r < s;
+      const size_t off = ok ? base + static_cast<size_t>(k0 + r) * D + c : 0;
+      cp_async16(Ks + r * PK + c, k + off, ok);
+      cp_async16(Vs + r * PV + c, v + off, ok);
     }
+  };
+  load_kv(0);
+  cp_async_commit();
 
+  // Q fragments, pre-scaled and split once: slot t of d-chunk c is
+  // column 8c + 2t, slot t + 4 column 8c + 2t + 1.
+  uint32_t qb[T::QREG ? C : 1][4], qs[T::QREG ? C : 1][4];
+  if constexpr (T::QREG) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + ty * kRows + i;
-      float mx = kNegInf;
+    for (int c = 0; c < C; ++c)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < s && (!causal || col <= row);
-        sc[i][j] = ok ? sc[i][j] : kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + r0 + 8 * h;
+        float2 x = make_float2(0.0f, 0.0f);
+        if (row < s)
+          x = *reinterpret_cast<const float2*>(
+              q + base + static_cast<size_t>(row) * D + 8 * c + 2 * t);
+        split_tf32(__fmul_rn(x.x, scale), qb[c][h], qs[c][h]);
+        split_tf32(__fmul_rn(x.y, scale), qb[c][2 + h], qs[c][2 + h]);
       }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] = expf(sc[i][j] - m_new);
-        rs += sc[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[(ty * kRows + i) * kPitchP + tx + 16 * j] = sc[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(ty * kRows + i) * kPitchP + kk];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float vv = Vs[kk * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
+  } else {
+    for (int e = threadIdx.x; e < kTile * D / 2; e += kFwdThreads) {
+      const int r = e / (D / 2), c = (e % (D / 2)) * 2;
+      float2 x = make_float2(0.0f, 0.0f);
+      if (q0 + r < s)
+        x = *reinterpret_cast<const float2*>(
+            q + base + static_cast<size_t>(q0 + r) * D + c);
+      uint32_t b0, s0, b1, s1;
+      split_tf32(__fmul_rn(x.x, scale), b0, s0);
+      split_tf32(__fmul_rn(x.y, scale), b1, s1);
+      *reinterpret_cast<float2*>(Qb + r * PK + c) =
+          make_float2(__uint_as_float(b0), __uint_as_float(b1));
+      *reinterpret_cast<float2*>(Qs + r * PK + c) =
+          make_float2(__uint_as_float(s0), __uint_as_float(s1));
     }
   }
 
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float acc[C][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty * kRows + i;
+  for (int j = 0; j < C; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (kt + 1 < kt_end) load_kv(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // tile kt (and the split Q) visible to every warp
+    const float* Ks = smem + (kt & 1) * T::kStage;
+    const float* Vs = Ks + kTile * PK;
+    const int k0 = kt * kTile;
+
+    // scores: 16 rows x 64 keys a warp; n-tile j is keys 8j .. 8j + 7
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      uint32_t ab[4], as[4];
+      if constexpr (T::QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ab[i] = qb[c][i];
+          as[i] = qs[c][i];
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = (r0 + 8 * h) * PK + 8 * c + 2 * t;
+          const float2 xb = *reinterpret_cast<const float2*>(Qb + o);
+          const float2 xs = *reinterpret_cast<const float2*>(Qs + o);
+          ab[h] = __float_as_uint(xb.x);
+          ab[2 + h] = __float_as_uint(xb.y);
+          as[h] = __float_as_uint(xs.x);
+          as[2 + h] = __float_as_uint(xs.y);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 kv = *reinterpret_cast<const float2*>(
+            Ks + (8 * j + g) * PK + 8 * c + 2 * t);
+        uint32_t kb0, ks0, kb1, ks1;
+        split_tf32(kv.x, kb0, ks0);
+        split_tf32(kv.y, kb1, ks1);
+        mma_3xtf32(sc[j], ab, as, kb0, kb1, ks0, ks1);
+      }
+    }
+
+    // mask, then the online softmax of rows r0 (h = 0) and r0 + 8 (h = 1)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + r0 + 8 * h;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * j + 2 * t + e;
+          const bool ok = col < s && (!causal || col <= row);
+          float& x = sc[j][2 * h + e];
+          x = ok ? x : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m[h], quad_max(mx));
+      const float alpha = expf(m[h] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[j][2 * h + e];
+          x = expf(x - m_new);
+          rs += x;
+        }
+      l[h] = l[h] * alpha + quad_sum(rs);
+      m[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        acc[j][2 * h] *= alpha;
+        acc[j][2 * h + 1] *= alpha;
+      }
+    }
+
+    // acc += P V; key chunk c: slot t is key 8c + 2t, slot t + 4 key
+    // 8c + 2t + 1, so the score fragment is P's A fragment as it stands
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      uint32_t pb[4], ps[4];
+      split_tf32(sc[c][0], pb[0], ps[0]);   // row g,     key 8c + 2t
+      split_tf32(sc[c][2], pb[1], ps[1]);   // row g + 8, key 8c + 2t
+      split_tf32(sc[c][1], pb[2], ps[2]);   // row g,     key 8c + 2t + 1
+      split_tf32(sc[c][3], pb[3], ps[3]);   // row g + 8, key 8c + 2t + 1
+      const float* v0 = Vs + (8 * c + 2 * t) * PV + g;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        uint32_t vb0, vs0, vb1, vs1;
+        split_tf32(v0[8 * j], vb0, vs0);
+        split_tf32(v0[PV + 8 * j], vb1, vs1);
+        mma_3xtf32(acc[j], pb, ps, vb0, vb1, vs0, vs1);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
     if (row >= s) continue;
-    const float li = fmaxf(l[i], 1e-30f);
-    float* o = out + base + static_cast<size_t>(row) * D;
+    const float li = fmaxf(l[h], 1e-30f);
+    float* o = out + base + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < C; ++c) o[tx + 16 * c] = __fdiv_rn(acc[i][c], li);
-    if (tx == 0)
-      lse[static_cast<size_t>(blockIdx.y) * s + row] = m[i] + logf(li);
+    for (int j = 0; j < C; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) =
+          make_float2(__fdiv_rn(acc[j][2 * h], li),
+                      __fdiv_rn(acc[j][2 * h + 1], li));
+    if (t == 0)
+      lse[static_cast<size_t>(blockIdx.y) * s + row] = m[h] + logf(li);
   }
 }
 
@@ -434,10 +556,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Shared-memory bytes of each kernel at head dim d.
-inline size_t fwd_smem(int d) {
-  return sizeof(float) * (3 * kTile * (d + 1) + kTile * kPitchP);
-}
+// Shared-memory bytes of the backward kernels at head dim d.
 inline size_t dq_smem(int d) {
   return sizeof(float) * (4 * kTile * (d + 1) + kTile * kPitchP + 2 * kTile);
 }
@@ -447,14 +566,14 @@ inline size_t dkv_smem(int d) {
 }
 
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, int bh, int s, cudaStream_t st,
-           Args... args) {
+int launch(Kernel kernel, size_t smem, int threads, int bh, int s,
+           cudaStream_t st, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s + kTile - 1) / kTile, bh);
-  kernel<<<grid, kThreads, smem, st>>>(args...);
+  kernel<<<grid, threads, smem, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -481,8 +600,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   auto* op = static_cast<float*>(out);
   auto* lp = static_cast<float*>(lse);
 #define PTT_CALL(DD)                                                       \
-  return launch(fwd_kernel<DD>, fwd_smem(DD), bh, s, st, qp, kp, vp, op,   \
-                lp, s, causal, scale)
+  return launch(fwd_kernel<DD>, FwdTiles<DD>::bytes, kFwdThreads, bh, s,   \
+                st, qp, kp, vp, op, lp, s, causal, scale)
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
 }
@@ -502,8 +621,8 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
   auto* dp = static_cast<const float*>(delta);
   auto* dqp = static_cast<float*>(dq);
 #define PTT_CALL(DD)                                                       \
-  return launch(dq_kernel<DD>, dq_smem(DD), bh, s, st, qp, kp, vp, dop,    \
-                lp, dp, dqp, s, causal, scale)
+  return launch(dq_kernel<DD>, dq_smem(DD), kThreads, bh, s, st, qp, kp, \
+                vp, dop, lp, dp, dqp, s, causal, scale)
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
 }
@@ -524,8 +643,8 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
   auto* dkp = static_cast<float*>(dk);
   auto* dvp = static_cast<float*>(dv);
 #define PTT_CALL(DD)                                                       \
-  return launch(dkv_kernel<DD>, dkv_smem(DD), bh, s, st, qp, kp, vp, dop,  \
-                lp, dp, dkp, dvp, s, causal, scale)
+  return launch(dkv_kernel<DD>, dkv_smem(DD), kThreads, bh, s, st, qp,    \
+                kp, vp, dop, lp, dp, dkp, dvp, s, causal, scale)
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
 }

@@ -28,28 +28,52 @@
 // quant_matmul: x fp32 [m, k] @ (q int8 [k, n] * scales [n]) -> fp32 [m, n].
 //   fp32 accumulator over k, multiplied by the column's scale once at the
 //   end, as _qmm_kernel does (and as the plain version does).
-//   Bound: fp32 operations outside the tensor cores (2 m n k; 0.144 ms for
-//   (8192, 768, 768) at 67 TFLOP/s). Design: a tiled SIMT GEMM. A 256-thread
-//   block owns a 64 x 64 output tile; each thread owns a 4 x 4 micro-tile
-//   strided by 16 rows and 16 columns, so its shared-memory reads are
-//   broadcasts (x) or 16 consecutive words (w) and its stores coalesce.
-//   Per k-step of 32, the x tile is stored transposed in shared memory with
-//   a pitch of 65 floats (conflict-free transposing stores), and the int8 w
-//   tile is loaded as char4 (one byte when n % 4 != 0) and converted to fp32
-//   in shared memory. Any m, n, k >= 1: rows, columns and k past the end are
-//   zero-filled and never stored. No tensor cores, no double buffering.
+//   Arithmetic: split TF32 on the tensor cores (mma.sync m16n8k8 tf32, fp32
+//   accumulators in registers). Every int8 value is exact in TF32, so only
+//   x is split: x_big = tf32_rna(x), x_small = tf32_rna(x - x_big)
+//   (cvt.rna rounds; leaving the low 13 bits for the tensor core to
+//   truncate would lose ~2^-10 a split), and two products x_small q +
+//   x_big q give x q to ~2^-22 |x| |q| a term, against the check's
+//   2 k 2^-24 (|x| @ |q|) s (tests/torch_checks.py qmm_limit).
+//   Why mma.sync and not wgmma: wgmma's tf32 form takes both shared-memory
+//   operands K-major only, and q is stored [k, n] (N-major for B), so it
+//   would need a transposing int8 -> tf32 pass through shared memory ahead
+//   of every product, plus descriptor swizzles; mma.sync takes fragments
+//   from registers, where the int8 bytes are widened as they are read.
+//   Bound: at m = 8192 operations (2 passes of 2 m n k at 495 TFLOP/s
+//   TF32: 0.039 ms at (8192, 768, 768)); at m <= 64 bytes (the int8
+//   weight: 0.59 MB at (16, 768, 768), 0.18 us at 3.35 TB/s).
+//   Design: a 256-thread block (8 warps as 2 x 4) owns a (32 MT) x 128
+//   output tile, MT = 4 (m > 64), 2 (m > 32) or 1; a warp owns MT 16-row
+//   tiles x 32 columns. k-steps of 32 flow through a 3-stage ring in
+//   shared memory filled by cp.async (16-byte copies, zero-filled past the
+//   ragged edge; 4-byte copies for x when k % 4 != 0, plain byte loads for
+//   q when n % 16 != 0), so two k-steps are in flight while one is
+//   multiplied. q travels as int8 (a quarter of the bytes of the fp32
+//   weight) and is widened in registers. Inside a k-step, mma slot t of
+//   k-chunk s reads k = 8 s + 2 t and slot t + 4 reads k = 8 s + 2 t + 1,
+//   and a warp's column slot (tile j, lane group g) is column 4 g + j:
+//   one 8-byte load gives a thread both halves of its x fragment, one
+//   4-byte load its four tiles' q bytes, and its outputs are 8 adjacent
+//   columns. Row pitches of 40 floats and 144 bytes make these loads free
+//   of bank conflicts. When the (m, n) tiles would leave SMs idle (m <= 64
+//   in BERT: the pooler and the NSP head), k is split over up to 16 slices
+//   whose fp32 partial sums go to a workspace and are added in slice order
+//   by a second kernel, which also applies the scales: deterministic, no
+//   atomics. Any m, n, k >= 1: rows, columns and k past the end are
+//   zero-filled and never stored.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int kQCols = 32;   // columns per quantize block (a warp's width)
 constexpr int kQRows = 8;    // row groups per quantize block
-
-constexpr int kBM = 64, kBN = 64, kBK = 32;   // matmul tiles
-constexpr int kThreads = 256;                 // 16 x 16, 4 x 4 per thread
-constexpr int kXPitch = kBM + 1;
 
 __device__ __forceinline__ float hash_uniform(uint32_t idx, uint32_t seed) {
   uint32_t h = (idx * 2654435761u) ^ seed;
@@ -99,79 +123,251 @@ quantize_kernel(const float* __restrict__ w, int8_t* __restrict__ q,
   }
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
-           const float* __restrict__ scales, float* __restrict__ out, int m,
-           int n, int k) {
-  __shared__ float xs[kBK][kXPitch];               // x tile, transposed
-  __shared__ __align__(16) float ws[kBK][kBN];     // dequantized w tile
+constexpr int kBN = 128, kBK = 32;   // matmul tile columns, k-step
+constexpr int kStages = 3;            // cp.async ring depth
+constexpr int kThreads = 256;         // 8 warps: 2 (rows) x 4 (columns)
+constexpr int kXPitch = kBK + 8;      // floats per x row in shared memory
+constexpr int kQPitch = kBN + 16;     // bytes per q row in shared memory
+constexpr int kMaxSplits = 16;
+constexpr int kSMs = 132;
+
+template <int MT>
+__host__ __device__ constexpr int stage_bytes() {
+  return 32 * MT * kXPitch * 4 + kBK * kQPitch;
+}
+
+__device__ __forceinline__ uint32_t int8_as_tf32(uint32_t word, int byte) {
+  const int v = static_cast<int8_t>((word >> (8 * byte)) & 0xFFu);
+  return __float_as_uint(static_cast<float>(v));   // exact
+}
+
+// x rows [row0, row0 + 32 MT) and q columns [col0, col0 + 128) of the
+// k-step at kt0, into ring stage `st`. k-steps never straddle `kend`
+// except at k itself, so a 4-float chunk of x (k % 4 == 0) and a 16-byte
+// chunk of q (n % 16 == 0) are wholly inside or wholly outside.
+template <int MT, bool XV, bool QV>
+__device__ __forceinline__ void qmm_load(
+    unsigned char* smem, int st, const float* __restrict__ x,
+    const int8_t* __restrict__ qw, int m, int n, int k, int kend, int row0,
+    int col0, int kt0) {
+  constexpr int BM = 32 * MT;
+  float* xs = reinterpret_cast<float*>(smem + st * stage_bytes<MT>());
+  int8_t* qs = reinterpret_cast<int8_t*>(smem + st * stage_bytes<MT>() +
+                                         BM * kXPitch * 4);
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  float acc[4][4] = {};
-
-  for (int k0 = 0; k0 < k; k0 += kBK) {
+  if (XV) {
 #pragma unroll
-    for (int i = 0; i < kBM * kBK / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int r = idx / kBK, kc = idx % kBK;
-      const int gr = row0 + r, gk = k0 + kc;
-      xs[kc][r] = (gr < m && gk < k) ? x[static_cast<size_t>(gr) * k + gk]
-                                     : 0.0f;
+    for (int i = 0; i < BM * (kBK / 4) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e >> 3, c = (e & 7) * 4;
+      const int gr = row0 + r, gk = kt0 + c;
+      const bool ok = gr < m && gk < kend;
+      cp_async16(xs + r * kXPitch + c,
+                 ok ? x + static_cast<size_t>(gr) * k + gk : x, ok);
     }
-    if (VEC) {
+  } else {
 #pragma unroll
-      for (int i = 0; i < kBK * kBN / 4 / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int r = idx / (kBN / 4), c = (idx % (kBN / 4)) * 4;
-        const int gk = k0 + r, gc = col0 + c;
-        float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (gk < k && gc < n) {   // n % 4 == 0: all four columns or none
-          const char4 b = *reinterpret_cast<const char4*>(
-              qw + static_cast<size_t>(gk) * n + gc);
-          f = make_float4(b.x, b.y, b.z, b.w);
+    for (int i = 0; i < BM * kBK / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e >> 5, c = e & 31;
+      const int gr = row0 + r, gk = kt0 + c;
+      const bool ok = gr < m && gk < kend;
+      cp_async4(xs + r * kXPitch + c,
+                ok ? x + static_cast<size_t>(gr) * k + gk : x, ok);
+    }
+  }
+  if (QV) {
+    const int r = tid >> 3, c = (tid & 7) * 16;
+    const int gk = kt0 + r, gc = col0 + c;
+    const bool ok = gk < kend && gc < n;
+    cp_async16(qs + r * kQPitch + c,
+               ok ? qw + static_cast<size_t>(gk) * n + gc : qw, ok);
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < kBK * kBN / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e >> 7, c = e & 127;
+      const int gk = kt0 + r, gc = col0 + c;
+      qs[r * kQPitch + c] =
+          (gk < kend && gc < n) ? qw[static_cast<size_t>(gk) * n + gc] : 0;
+    }
+  }
+}
+
+// Grid (n tiles, m tiles, k slices). One slice: out = acc * scales; more:
+// ws[slice] = acc, reduced by qmm_reduce.
+template <int MT, bool XV, bool QV>
+__global__ void __launch_bounds__(kThreads, 2)
+qmm_kernel(const float* __restrict__ x, const int8_t* __restrict__ qw,
+           const float* __restrict__ scales, float* __restrict__ out,
+           float* __restrict__ ws, int m, int n, int k, int kchunk) {
+  constexpr int BM = 32 * MT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * kBN;
+  const int kbeg = blockIdx.z * kchunk;
+  const int kend = min(k, kbeg + kchunk);
+  const int nkt = (kend - kbeg + kBK - 1) / kBK;
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nkt)
+      qmm_load<MT, XV, QV>(smem, s, x, qw, m, n, k, kend, row0, col0,
+                           kbeg + s * kBK);
+    cp_async_commit();
+  }
+
+  for (int it = 0; it < nkt; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage `it` landed; stage it - 1 is free again
+    const int nx = it + kStages - 1;
+    if (nx < nkt)
+      qmm_load<MT, XV, QV>(smem, nx % kStages, x, qw, m, n, k, kend, row0,
+                           col0, kbeg + nx * kBK);
+    cp_async_commit();
+
+    const int st = it % kStages;
+    const float* xs = reinterpret_cast<const float*>(
+                          smem + st * stage_bytes<MT>()) +
+                      (wm * MT * 16 + g) * kXPitch + 2 * t;
+    const unsigned char* qs = smem + st * stage_bytes<MT>() +
+                              BM * kXPitch * 4 + 2 * t * kQPitch +
+                              wn * 32 + 4 * g;
+#pragma unroll
+    for (int s = 0; s < kBK / 8; ++s) {
+      const uint32_t w0 =
+          *reinterpret_cast<const uint32_t*>(qs + 8 * s * kQPitch);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(
+          qs + (8 * s + 1) * kQPitch);
+      uint32_t b0[4], b1[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b0[j] = int8_as_tf32(w0, j);
+        b1[j] = int8_as_tf32(w1, j);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float2 lo = *reinterpret_cast<const float2*>(
+            xs + i * 16 * kXPitch + 8 * s);
+        const float2 hi = *reinterpret_cast<const float2*>(
+            xs + (i * 16 + 8) * kXPitch + 8 * s);
+        uint32_t big[4], small[4];
+        split_tf32(lo.x, big[0], small[0]);   // row g,     slot t
+        split_tf32(hi.x, big[1], small[1]);   // row g + 8, slot t
+        split_tf32(lo.y, big[2], small[2]);   // row g,     slot t + 4
+        split_tf32(hi.y, big[3], small[3]);   // row g + 8, slot t + 4
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_tf32(acc[i][j], small, b0[j], b1[j]);
+          mma_tf32(acc[i][j], big, b0[j], b1[j]);
         }
-        *reinterpret_cast<float4*>(&ws[r][c]) = f;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kBK * kBN / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int r = idx / kBN, c = idx % kBN;
-        const int gk = k0 + r, gc = col0 + c;
-        ws[r][c] = (gk < k && gc < n)
-                       ? static_cast<float>(qw[static_cast<size_t>(gk) * n + gc])
-                       : 0.0f;
       }
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
+  const bool whole = gridDim.z == 1;
+  float* dst = whole ? out : ws + static_cast<size_t>(blockIdx.z) * m * n;
+  const int col = col0 + wn * 32 + 8 * t;   // this thread's 8 columns
+  float sc[8];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = col0 + tx + 16 * j;
-    if (c >= n) continue;
-    const float s = scales[c];
+  for (int o = 0; o < 8; ++o)
+    sc[o] = (whole && col + o < n) ? scales[col + o] : 1.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty + 16 * i;
-      if (r < m) out[static_cast<size_t>(r) * n + c] = __fmul_rn(acc[i][j], s);
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wm * MT * 16 + i * 16 + g + 8 * h;
+      if (row >= m) continue;
+      float v[8];
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const float a = acc[i][o & 3][(o >> 2) + 2 * h];
+        v[o] = whole ? __fmul_rn(a, sc[o]) : a;
+      }
+      float* p = dst + static_cast<size_t>(row) * n + col;
+      if ((n & 3) == 0 && col + 8 <= n) {
+        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(p + 4) =
+            make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int o = 0; o < 8; ++o)
+          if (col + o < n) p[o] = v[o];
+      }
     }
+}
+
+// out = (sum of the slices' partial sums, in slice order) * scales.
+__global__ void qmm_reduce(const float* __restrict__ ws,
+                           const float* __restrict__ scales,
+                           float* __restrict__ out, int m, int n,
+                           int splits) {
+  const size_t total = static_cast<size_t>(m) * n;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float s = ws[i];
+    for (int z = 1; z < splits; ++z) s = __fadd_rn(s, ws[z * total + i]);
+    out[i] = __fmul_rn(s, scales[i % n]);
   }
+}
+
+inline int qmm_mt(int m) { return m > 64 ? 4 : (m > 32 ? 2 : 1); }
+
+// k slices for (m, n, k): enough blocks for every SM twice over when the
+// (m, n) tiles alone leave SMs idle, at most kMaxSplits, whole k-steps each.
+inline int qmm_splits(int m, int n, int k, int* kchunk) {
+  const int tiles = ((n + kBN - 1) / kBN) * ((m + 32 * qmm_mt(m) - 1) /
+                                             (32 * qmm_mt(m)));
+  const int ksteps = (k + kBK - 1) / kBK;
+  int want = tiles >= kSMs ? 1 : (2 * kSMs + tiles - 1) / tiles;
+  want = std::max(1, std::min(want, std::min(ksteps, kMaxSplits)));
+  const int per = (ksteps + want - 1) / want;
+  *kchunk = per * kBK;
+  return (ksteps + per - 1) / per;
+}
+
+template <int MT, bool XV, bool QV>
+int qmm_launch(const float* x, const int8_t* qw, const float* sc, float* out,
+               float* ws, int m, int n, int k, cudaStream_t st) {
+  int kchunk = 0;
+  const int splits = qmm_splits(m, n, k, &kchunk);
+  if (splits > 1 && ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = qmm_kernel<MT, XV, QV>;
+  const int smem = kStages * stage_bytes<MT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kBN - 1) / kBN, (m + 32 * MT - 1) / (32 * MT), splits);
+  kernel<<<grid, kThreads, smem, st>>>(x, qw, sc, out, ws, m, n, k, kchunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t total = static_cast<size_t>(m) * n;
+  const int blocks = static_cast<int>(
+      std::min<size_t>((total + 255) / 256, static_cast<size_t>(4 * kSMs)));
+  qmm_reduce<<<blocks, 256, 0, st>>>(ws, sc, out, m, n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MT>
+int qmm_dispatch(bool xv, bool qv, const float* x, const int8_t* qw,
+                 const float* sc, float* out, float* ws, int m, int n, int k,
+                 cudaStream_t st) {
+  if (xv && qv) return qmm_launch<MT, true, true>(x, qw, sc, out, ws, m, n, k, st);
+  if (xv) return qmm_launch<MT, true, false>(x, qw, sc, out, ws, m, n, k, st);
+  if (qv) return qmm_launch<MT, false, true>(x, qw, sc, out, ws, m, n, k, st);
+  return qmm_launch<MT, false, false>(x, qw, sc, out, ws, m, n, k, st);
 }
 
 }  // namespace
@@ -195,21 +391,34 @@ extern "C" int quantize_int8(const void* w, void* q, void* scales, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: fp32 [m, k]; qw: int8 [k, n] (4-byte aligned); scales: fp32 [n];
-// out: fp32 [m, n]; all contiguous. Returns a cudaError_t code.
+// Number of k slices quant_matmul splits (m, n, k) into; the caller
+// passes a workspace of splits * m * n floats when it is more than 1.
+extern "C" int quant_matmul_splits(int m, int n, int k) {
+  if (m <= 0 || n <= 0 || k <= 0) return 0;
+  int kchunk = 0;
+  return qmm_splits(m, n, k, &kchunk);
+}
+
+// x: fp32 [m, k]; qw: int8 [k, n]; scales: fp32 [n]; out: fp32 [m, n]; all
+// contiguous, 4-byte aligned; ws: fp32 [splits, m, n] or null when
+// quant_matmul_splits is 1. Returns a cudaError_t code.
 extern "C" int quant_matmul(const void* x, const void* qw, const void* scales,
-                            void* out, int m, int n, int k, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || (m + kBM - 1) / kBM > 65535)
+                            void* out, void* ws, int m, int n, int k,
+                            void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 ||
+      (m + 32 * qmm_mt(m) - 1) / (32 * qmm_mt(m)) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   auto* xp = static_cast<const float*>(x);
   auto* qp = static_cast<const int8_t*>(qw);
   auto* sp = static_cast<const float*>(scales);
   auto* op = static_cast<float*>(out);
-  if (n % 4 == 0)
-    qmm_kernel<true><<<grid, kThreads, 0, st>>>(xp, qp, sp, op, m, n, k);
-  else
-    qmm_kernel<false><<<grid, kThreads, 0, st>>>(xp, qp, sp, op, m, n, k);
-  return static_cast<int>(cudaGetLastError());
+  auto* wp = static_cast<float*>(ws);
+  const bool xv = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool qv = n % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
+  switch (qmm_mt(m)) {
+    case 4: return qmm_dispatch<4>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
+    case 2: return qmm_dispatch<2>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
+    default: return qmm_dispatch<1>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
+  }
 }

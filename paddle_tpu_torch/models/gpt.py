@@ -67,10 +67,34 @@ class GPTConfig:
     initializer_range: float = 0.02
     mode: str = "loop"
     recompute: bool = False
+    # per-layer activation policy ("none" | "remat" | "offload"); None
+    # defers to ``recompute``
+    recompute_policy: Optional[tuple] = None
+    sequence_parallel: bool = False
     use_ring_attention: bool = False
     use_ulysses_attention: bool = False
     use_flash_attention: bool = True
+    pp_microbatches: int = 0  # pipeline micro-batches (0 = pipe degree)
     fused_loss_chunk: int = 0
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.use_ring_attention and self.use_ulysses_attention:
+            raise ValueError(
+                "use_ring_attention and use_ulysses_attention are mutually "
+                "exclusive sequence-parallel schemes: pick one")
+        if self.recompute_policy is not None:
+            pol = tuple(self.recompute_policy)
+            bad = [p for p in pol if p not in ("none", "remat", "offload")]
+            if bad:
+                raise ValueError(
+                    f"recompute_policy entries must be one of "
+                    f"none/remat/offload, got {bad}")
+            if self.num_layers % max(1, len(pol)):
+                raise ValueError(
+                    f"recompute_policy length {len(pol)} does not tile "
+                    f"num_layers={self.num_layers}")
+            self.recompute_policy = pol
 
     @property
     def ffn(self) -> int:
@@ -133,6 +157,21 @@ def _param(arr: np.ndarray, device: torch.device) -> nn.Parameter:
 
 _OPTIONS = "ROADMAP Queue A, 'training options'"
 _PARALLEL = "ROADMAP Queue A, 'parallelism'"
+_BF16 = "ROADMAP Queue A, 'bf16 training'"
+
+
+def _check_supported(cfg: GPTConfig) -> None:
+    """Raise on the reference fields whose other values the port does not
+    run; checked when the model is built."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"GPT dtype={cfg.dtype!r} is not ported "
+                                  f"yet ({_BF16})")
+    if cfg.recompute_policy is not None:
+        raise NotImplementedError(f"recompute_policy is not ported yet "
+                                  f"({_OPTIONS})")
+    if cfg.sequence_parallel or cfg.pp_microbatches:
+        raise NotImplementedError(f"sequence_parallel and pp_microbatches "
+                                  f"are not ported yet ({_PARALLEL})")
 
 
 def _check_trainable(cfg: GPTConfig, training: bool) -> None:
@@ -220,6 +259,7 @@ class GPTModel(nn.Module):
 
     def __init__(self, config: GPTConfig, seed: int, device: torch.device):
         super().__init__()
+        _check_supported(config)
         self.config = config
         rs = np.random.RandomState(seed)
         self.embeddings = GPTEmbeddings(config, rs, device)

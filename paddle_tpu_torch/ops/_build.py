@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (no reference file: new).
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` into its own shared
-library with a plain C interface and loaded with ``ctypes``. Nothing
+library with a plain C interface and loaded with ``ctypes``; sources may
+include the shared ``csrc/*.cuh`` headers. Nothing
 includes PyTorch's headers, so a build takes seconds, not minutes.
 
 Libraries go to ``build/paddle_tpu_torch/`` at the repository root,
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (keyed by source and flags)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where ``csrc/<name>.cu`` builds to (keyed by the source, the shared
+    ``csrc/*.cuh`` headers and the flags)."""
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"{name}_{key[:16]}.so"
 

@@ -23,11 +23,15 @@ scaled at the end while ``dk`` carries the scale through the pre-scaled
 ``q``, and ``delta = rowsum(dO * O)`` computed outside the kernels. The
 plain versions compute whole ``[s, s]`` score matrices; the kernels
 stream 64-row tiles with an online softmax, so the two agree to fp32
-rounding, not bit for bit.
+rounding, not bit for bit. ``flash_fwd`` runs both products on the
+tensor cores in 3xTF32 (each fp32 operand split into two TF32 parts,
+three products); ``flash_fwd_split_tf32`` is the plain model of that
+operand rounding. ``flash_dq`` and ``flash_dkv`` run fp32 FMAs.
 
 The kernels take fp32, any ``s >= 1`` and ``d <= 128`` with
-``d % 16 == 0`` (every GPT preset: 16, 64, 96, 128); anything else on
-the card raises. The reference's block sizes have no counterpart: the
+``d % 16 == 0`` (every GPT preset: 16, 64, 96, 128), and ``flash_fwd``
+16-byte aligned q, k and v (as ``torch.empty`` gives them); anything else
+on the card raises. The reference's block sizes have no counterpart: the
 CUDA tiles are fixed and the tail tile is masked.
 """
 from __future__ import annotations
@@ -41,9 +45,11 @@ import torch
 
 from ..framework.device import require_sm90
 from ._build import load_library
+from .tf32 import split_tf32
 
 __all__ = ["NEG_INF", "KERNEL_SOURCE", "flash_fwd", "flash_dq", "flash_dkv",
-           "flash_fwd_plain", "flash_dq_plain", "flash_dkv_plain",
+           "flash_fwd_plain", "flash_fwd_split_tf32", "flash_dq_plain",
+           "flash_dkv_plain",
            "flash_bwd_plain", "flash_attention_val",
            "flash_attention_supported", "kernel_supported", "launch_counts",
            "reset_launch_counts"]
@@ -74,6 +80,33 @@ def flash_fwd_plain(q, k, v, causal: bool
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     out = (p @ v.float()) / l
+    return out.to(q.dtype), m + torch.log(l)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` from split operands: small.big + big.small + big.big."""
+    ab, as_ = split_tf32(a)
+    bb, bs = split_tf32(b)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def flash_fwd_split_tf32(q, k, v, causal: bool
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_fwd_plain`` with both products in 3xTF32, as the kernel
+    computes them: the scaled q, k, the unnormalised p and v each split
+    into two TF32 parts. It models the operands' rounding, not the tensor
+    cores' order of accumulation, and takes the softmax over whole rows
+    where the kernel rescales tile by tile."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _mm_3xtf32(q.float() * scale, k.float().transpose(-1, -2))
+    if causal:
+        n = q.shape[-2]
+        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = _mm_3xtf32(p, v.float()) / l
     return out.to(q.dtype), m + torch.log(l)
 
 
@@ -164,6 +197,8 @@ def flash_fwd(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"q, k, v shapes differ: {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     dev = _check(("q", "k", "v"), (q, k, v), q.shape)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_fwd takes 16-byte aligned q, k and v")
     b, n, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, n, s, 1), dtype=torch.float32, device=dev)

@@ -28,11 +28,17 @@ on the CPU and on the card.
 ``quant_matmul`` accumulates ``x @ qw`` in fp32 and scales each column
 at the end, as ``_qmm_kernel`` does. The reference sends shapes its tiles
 do not divide to a plain ``x @ (qw * scales)``, which scales first; the
-two agree to fp32 rounding. The CUDA kernel takes any ``m, n, k >= 1``
-with fixed 64 x 64 x 32 tiles: ``block_m``, ``block_n`` and ``block_k``
-stand in the reference's signature and raise when given (the reference's
-tile choice and autotune cache, ``ops/pallas/autotune.py``, are ROADMAP
-Queue A, "the rest": kernel tuner).
+two agree to fp32 rounding. The CUDA kernel runs on the tensor cores in
+split TF32 (``x = x_big + x_small``, both TF32; int8 is exact in TF32, so
+two products ``x_big @ q + x_small @ q``), within the fp32 bound that
+``tests/torch_checks.py`` ``qmm_limit`` holds it to;
+``quant_matmul_split_tf32`` is the plain model of that arithmetic. The
+kernel takes any ``m, n, k >= 1`` with fixed 128 x 128 x 32 tiles (32 or
+64 rows at m <= 64, where k is split over slices added in a fixed order):
+``block_m``, ``block_n`` and ``block_k`` stand in the reference's
+signature and raise when given (the reference's tile choice and autotune
+cache, ``ops/pallas/autotune.py``, are ROADMAP Queue A, "the rest":
+kernel tuner).
 On the card both kernels take fp32 input and give fp32 output.
 """
 from __future__ import annotations
@@ -47,9 +53,11 @@ import torch
 
 from ..framework.device import require_sm90
 from ._build import load_library
+from .tf32 import split_tf32
 
 __all__ = ["KERNEL_SOURCE", "quantize_int8", "quantize_int8_plain",
-           "quant_matmul", "quant_matmul_plain", "hash_uniform",
+           "quant_matmul", "quant_matmul_plain", "quant_matmul_split_tf32",
+           "hash_uniform",
            "stable_seed", "launch_counts", "shape_counts",
            "reset_launch_counts"]
 
@@ -107,6 +115,17 @@ def quant_matmul_plain(x: torch.Tensor, qw: torch.Tensor,
     return out.to(out_dtype or x.dtype)
 
 
+def quant_matmul_split_tf32(x: torch.Tensor, qw: torch.Tensor,
+                            scales: torch.Tensor) -> torch.Tensor:
+    """The kernel's operand rounding in plain PyTorch: ``x`` split into
+    two TF32 parts, each multiplied by the exact int8 weight in fp32,
+    summed, then scaled. It models the operands, not the tensor cores'
+    order of accumulation."""
+    big, small = split_tf32(x)
+    q = qw.to(torch.float32)
+    return ((small @ q) + (big @ q)) * scales.reshape(1, -1).float()
+
+
 # ------------------------------------------------------------------ kernels
 @functools.lru_cache(maxsize=None)
 def _lib(device_index: int) -> ctypes.CDLL:
@@ -114,9 +133,10 @@ def _lib(device_index: int) -> ctypes.CDLL:
     lib = load_library("quant_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.quantize_int8.argtypes = [p, p, p, i, i, i, ctypes.c_uint, p]
-    lib.quant_matmul.argtypes = [p, p, p, p, i, i, i, p]
-    lib.quantize_int8.restype = ctypes.c_int
-    lib.quant_matmul.restype = ctypes.c_int
+    lib.quant_matmul.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.quant_matmul_splits.argtypes = [i, i, i]
+    for fn in (lib.quantize_int8, lib.quant_matmul, lib.quant_matmul_splits):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -176,7 +196,8 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
     ``out_dtype`` (default ``x.dtype``). The tiles are fixed: a block
     argument raises."""
     if (block_m, block_n, block_k) != (None, None, None):
-        raise ValueError("quant_matmul's tiles are fixed (64 x 64 x 32); "
+        raise ValueError("quant_matmul's tiles are fixed (128 x 128 x 32; "
+                         "32 or 64 rows at m <= 64); "
                          "block_m/block_n/block_k are not ported (ROADMAP "
                          "Queue A, 'the rest': kernel tuner)")
     if x.dim() != 2 or qw.dim() != 2 or x.shape[1] != qw.shape[0]:
@@ -194,16 +215,20 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
     if out_dtype not in (None, torch.float32):
         raise TypeError(f"the kernel writes float32, not {out_dtype}")
     if qw.data_ptr() % 4:
-        raise ValueError("qw must be 4-byte aligned for the kernel's char4 "
-                         "loads")
+        raise ValueError("qw must be 4-byte aligned")
     (m, k), n = x.shape, qw.shape[1]
     if not (m and n and k):
         raise ValueError(f"quant_matmul needs m, n, k >= 1, got {(m, n, k)}")
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    lib = _lib(dev.index)
+    splits = lib.quant_matmul_splits(m, n, k)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+          if splits > 1 else None)
     with torch.cuda.device(dev):
-        rc = _lib(dev.index).quant_matmul(
+        rc = lib.quant_matmul(
             x.data_ptr(), qw.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            m, n, k, _stream(dev))
+            ws.data_ptr() if ws is not None else None, m, n, k,
+            _stream(dev))
     if rc:
         raise RuntimeError(f"quant_matmul launch failed: CUDA error {rc}")
     quant_matmul.launches += 1

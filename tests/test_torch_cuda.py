@@ -22,7 +22,9 @@ gradient is clear of the card-vs-CPU gradient noise within 1e-2 lr of
 the CPU's and at least 0.9 lr). ``quantize_int8`` bit-identical to its
 plain version, nearest and stochastic; ``quant_matmul`` within
 ``2 k 2^-24 (|x| @ |q|) s`` of its plain version elementwise (two fp32
-dot products of length k summed in different orders). A converted
+dot products of length k summed in different orders), at every row-tile
+size of the kernel, ragged n and k, the BERT-base shapes, and two
+launches of a shape whose k is split over slices giving identical bits. A converted
 bert-test on the card against the same on the CPU: int8 payloads
 identical, logits within 1e-4 (card and CPU differ by ~1e-6 at this
 size), and the launches of one conversion and one forward counted.
@@ -354,6 +356,18 @@ def check_quant_matmul_within_bound(dev, m, k, n):
     assert qm.quant_matmul.launches == before + 1
 
 
+def check_quant_matmul_deterministic(dev, m, k, n):
+    """Shapes whose k is split over slices add the slices in a fixed
+    order: two launches give the same bits."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m + k + n)
+    x = torch.randn(m, k, device=dev, generator=gen)
+    q, s = qm.quantize_int8(torch.randn(k, n, device=dev, generator=gen)
+                            * 0.02)
+    a, b = qm.quant_matmul(x, q, s), qm.quant_matmul(x, q, s)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def check_quant_wrappers_raise(dev):
     x = torch.randn(8, 16, device=dev)
     q = torch.zeros(16, 12, dtype=torch.int8, device=dev)
@@ -420,7 +434,9 @@ def test_cuda_path_matches_plain(dev):
         + [(check_engine_on_card_token_identical_to_cpu, (dev,))]
         + [(check_flash_kernels_match_plain, (dev, s, d, c))
            for s, d in ((1, 16), (37, 16), (64, 64), (130, 64), (100, 128),
-                        (256, 128), (77, 96))
+                        (256, 128), (77, 96),
+                        *((s, d) for s in (1, 63, 1000)
+                          for d in (16, 64, 128)))
            for c in (True, False)]
         + [(check_fused_update_bit_identical, (dev, k, wd, n))
            for k in ("sgd", "momentum", "adam", "adamw")
@@ -432,7 +448,17 @@ def test_cuda_path_matches_plain(dev):
            for st, seed in ((False, 0), (True, 0), (True, 2 ** 31 - 1))]
         + [(check_quant_matmul_within_bound, (dev, m, k, n))
            for m, k, n in ((1, 1, 1), (16, 768, 2), (10, 48, 24),
-                           (257, 300, 130), (512, 768, 768), (64, 3072, 64))]
+                           (257, 300, 130), (512, 768, 768), (64, 3072, 64),
+                           # every row tile: m <= 32, <= 64, > 64
+                           (1, 768, 768), (16, 768, 768), (64, 768, 768),
+                           (65, 768, 768),
+                           (100, 64, 30),     # n % 4 != 0
+                           (100, 37, 64),     # k % 4 != 0
+                           (100, 100, 64),    # k not a multiple of 32
+                           (8192, 768, 768), (8192, 768, 3072),
+                           (8192, 3072, 768))]
+        + [(check_quant_matmul_deterministic, (dev, m, k, n))
+           for m, k, n in ((16, 768, 768), (16, 768, 2), (1000, 37, 100))]
         + [(check_quant_wrappers_raise, (dev,)),
            (check_bert_int8_on_card_matches_cpu, (dev,))]
         + [(check_carrier_kernels_match_plain, (dev, c, n, bs))

@@ -3,6 +3,12 @@ reference, on the CPU, at ``gpt-test`` size (2 layers, hidden 64).
 
 - Weights: the port's numpy-seeded ``GPTForCausalLM(cfg, seed=s)``
   equals ``convert(JAX GPTForCausalLM(cfg, seed=s))`` bit for bit.
+- Config: the port's ``GPTConfig`` has every field of the reference's,
+  in order, with equal defaults; the fields whose other values the port
+  does not run (``dtype``, ``recompute_policy``, ``sequence_parallel``,
+  ``pp_microbatches``) build a config, and building a model from it
+  raises ``NotImplementedError`` naming its ROADMAP Queue A item, as
+  ``bench.py``'s own ``gpt_presets("gpt-125m", dtype="bfloat16")`` does.
 - Decode model: prefill/decode/extend/forced_logits logits and the KV
   payload match the JAX ``GPTDecodeModel`` on the same weights, and the
   port's ``forced_logits`` match the JAX training forward. Tolerance:
@@ -12,15 +18,18 @@ reference, on the CPU, at ``gpt-test`` size (2 layers, hidden 64).
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu.models import GPTConfig as JaxGPTConfig
 from paddle_tpu.models import GPTForCausalLM as JaxGPT
 from paddle_tpu.models import gpt_presets as jax_presets
 from paddle_tpu.serving import GPTDecodeModel as JaxDecodeModel
 from paddle_tpu.serving import bucket_pow2 as jax_bucket
-from paddle_tpu_torch.models import (GPTForCausalLM, gpt_presets,
+from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, gpt_presets,
                                      state_dict_from_numpy)
 from paddle_tpu_torch.serving import GPTDecodeModel, bucket_pow2
 from torch_checks import run_checks
@@ -75,6 +84,22 @@ def check_presets_match_reference():
                   "max_position_embeddings", "layer_norm_epsilon",
                   "initializer_range", "ffn", "head_dim"):
             assert getattr(a, f) == getattr(b, f), (name, f)
+
+
+def check_config_fields_match_reference():
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(GPTConfig) == fields(JaxGPTConfig)
+
+
+def check_unported_field_builds_config_and_model_raises(over, item):
+    cfg = gpt_presets("gpt-125m" if "dtype" in over else "gpt-test", **over)
+    ref = jax_presets("gpt-125m" if "dtype" in over else "gpt-test", **over)
+    for name, value in over.items():
+        assert getattr(cfg, name) == getattr(ref, name), name
+    with pytest.raises(NotImplementedError, match=item):
+        GPTForCausalLM(cfg, device="cpu")
 
 
 def check_bucket_pow2_matches_reference():
@@ -168,6 +193,14 @@ def test_gpt_port_matches_reference(fresh_mesh):
               (check_port_init_equals_converted_jax_init, (7,)),
               (check_convert_rejects_wrong_names_and_shapes, ()),
               (check_presets_match_reference, ()),
+              (check_config_fields_match_reference, ()),
+              *((check_unported_field_builds_config_and_model_raises,
+                 (over, item)) for over, item in (
+                  ({"dtype": "bfloat16"}, "bf16 training"),
+                  ({"recompute_policy": ("remat", "none")},
+                   "training options"),
+                  ({"sequence_parallel": True}, "parallelism"),
+                  ({"pp_microbatches": 2}, "parallelism"))),
               (check_bucket_pow2_matches_reference, ()),
               (check_prefill_logits_and_kv_match_jax, (jdm, tdm)),
               (check_forced_logits_match_jax_decode_model_and_forward,

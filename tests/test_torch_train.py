@@ -13,7 +13,14 @@ JAX reference on the CPU, at ``gpt-test`` size (2 layers, hidden 64,
 - Training: 3 ``TrainStep`` steps (AdamW lr 1e-3, wd 0.01) against the
   JAX ``TrainStep`` from the same weights and batch, and 2 steps with
   ``grad_accum_steps=2``. Loss at every step within 1e-5 relative,
-  parameters within 2e-5 max abs after the last step. Why not 1e-5:
+  parameters within 2e-5 max abs after the last step. The first plain
+  step is also held by ``tests/torch_checks.py`` ``adam_step_parity``
+  at its defaults (each side's parameters before and after the step, and
+  its gradients of the step's loss from a second model on the same
+  weights): every gradient within 1e-4 of its tensor's largest, and
+  every element whose gradient is clear of the gradient noise moved by
+  the reference's step within 1e-2 lr and by at least 0.9 lr. Why the
+  flat parameter tolerance is not 1e-5:
   Adam's first steps move a weight by lr * g / (|g| + 1e-8), about lr
   whatever the gradient's size, so a weight whose gradient is at fp32
   noise level moves by an amount set by that noise. Measured: a
@@ -44,7 +51,7 @@ from paddle_tpu_torch.models import (GPTForCausalLM, GPTPretrainingCriterion,
                                      gpt_presets, state_dict_from_numpy)
 from paddle_tpu_torch.optimizer import SGD, AdamW
 from paddle_tpu_torch.serving import GPTDecodeModel
-from torch_checks import run_checks
+from torch_checks import adam_step_parity, run_checks
 
 torch.set_num_threads(2)
 
@@ -116,9 +123,30 @@ def check_gradients_match_jax():
         _close(g, tgrads[name].grad, f"grad {name}")
 
 
+def _grads(ids, labels):
+    """Each side's gradients of the loss on (ids, labels), from a fresh
+    pair of models on the weights ``_models()`` gives."""
+    jm, tm = _models()
+    JaxCriterion()(jm(paddle.to_tensor(ids)),
+                   paddle.to_tensor(labels)).backward()
+    GPTPretrainingCriterion()(tm(torch.from_numpy(ids)),
+                              torch.from_numpy(labels)).backward()
+    return ({n: torch.from_numpy(np.array(p.grad._value))
+             for n, p in jm.named_parameters()},
+            {n: p.grad.detach().clone() for n, p in tm.named_parameters()})
+
+
+def _jax_state(jm):
+    return {n: torch.from_numpy(v.copy()) for n, v in _jax_params(jm).items()}
+
+
 def _train_both(steps, accum):
     jm, tm = _models()
     ids, labels = _batch(2, b=4 if accum > 1 else 2)
+    if accum == 1:
+        jgrad, tgrad = _grads(ids, labels)
+        jbefore = _jax_state(jm)
+        tbefore = {n: p.detach().clone() for n, p in tm.named_parameters()}
     jo = jopt.AdamW(learning_rate=1e-3, weight_decay=0.01,
                     parameters=jm.parameters())
     jcrit = JaxCriterion()
@@ -133,6 +161,13 @@ def _train_both(steps, accum):
                    labels=(paddle.to_tensor(labels),))
         tl = tstep(inputs=(ids,), labels=(labels,))
         _rel(float(jl), tl, f"loss at step {i}")
+        if i == 0 and accum == 1:
+            jafter = _jax_state(jm)
+            adam_step_parity(
+                {n: (tbefore[n], p.detach().clone(), tgrad[n])
+                 for n, p in tm.named_parameters()},
+                {n: (jbefore[n], jafter[n], jgrad[n]) for n in jbefore},
+                lr=1e-3)
     tparams = dict(tm.named_parameters())
     for name, p in jm.named_parameters():
         _close(np.asarray(p._value), tparams[name], f"param {name}",

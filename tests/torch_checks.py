@@ -29,7 +29,12 @@ the two hold the kernels to one set of criteria:
   stochastic;
 - ``quant_matmul``: every element within the forward-error bound of two
   fp32 dot products of length k, ``2 k 2^-24 (|x| @ |q| s)`` (each side
-  sums k products in its own order; the bound is computed in float64).
+  sums k products in its own order; the bound is computed in float64);
+  and, at k >= 768, where that bound is loose enough for a product of
+  plain (1x) TF32 ``x`` to pass it, the largest diff / limit at most
+  ``QMM_SPLIT_CEILING``, which the split-TF32 product stays under and a
+  product of plain (1x) TF32 ``x`` does not (``tests/test_torch_split_tf32.py``
+  shows both).
 """
 import importlib
 
@@ -43,6 +48,9 @@ from paddle_tpu_torch.ops import fused_update as fu
 qm = importlib.import_module("paddle_tpu_torch.ops.quant_matmul")
 
 FLASH_TOL = {"out": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
+# largest diff / limit ``quant_matmul`` may read at k >= QMM_SPLIT_MIN_K
+QMM_SPLIT_CEILING = 0.04
+QMM_SPLIT_MIN_K = 768
 FUSED_HYPER = {"sgd": {}, "momentum": {"momentum": 0.9, "nesterov": True},
                "adam": {"beta1": 0.9, "beta2": 0.999, "eps": 1e-8},
                "adamw": {"beta1": 0.9, "beta2": 0.999, "eps": 1e-8}}
@@ -131,7 +139,9 @@ def qmm_limit(x, qw, scales) -> torch.Tensor:
 def qmm_vs_plain(x, qw, scales):
     """``quant_matmul`` against its plain version on the same operands.
     Returns ``(max abs diff, largest diff / limit)``; raises when an
-    element is over its limit."""
+    element is over its limit, or when at k >= ``QMM_SPLIT_MIN_K`` the
+    ratio is over ``QMM_SPLIT_CEILING`` (a product less precise than the
+    split)."""
     out = qm.quant_matmul(x, qw, scales)
     ref = qm.quant_matmul_plain(x, qw, scales)
     if out.shape != ref.shape or out.dtype != ref.dtype:
@@ -145,6 +155,11 @@ def qmm_vs_plain(x, qw, scales):
             f"quant_matmul {list(x.shape)} @ {list(qw.shape)}: "
             f"{int((diff > limit).sum())} elements over 2 k 2^-24 "
             f"(|x| @ |q|) s (max diff / limit {ratio:.3f})")
+    if x.shape[1] >= QMM_SPLIT_MIN_K and ratio > QMM_SPLIT_CEILING:
+        raise AssertionError(
+            f"quant_matmul {list(x.shape)} @ {list(qw.shape)}: max diff / "
+            f"limit {ratio:.4f} over the split-TF32 ceiling "
+            f"{QMM_SPLIT_CEILING}")
     return float(diff.max()), ratio
 
 
