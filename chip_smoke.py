@@ -45,11 +45,13 @@ when every phase passed):
               weight decay on and off, a ragged n, and on each of the
               train step's AdamW buckets; median ms over 30 launches (L2
               flushed) for kernel, plain version and the one-call
-              yardsticks (scaled_dot_product_attention forward and its
-              autograd backward; torch._fused_adamw_ over the same
-              buckets), and the bound: for flash_fwd, which runs in
-              3xTF32 on the tensor cores, 3 TF32 passes at 495 TFLOP/s
-              with the fp32 SIMT bound beside it. The criteria are
+              yardsticks (scaled_dot_product_attention forward; its
+              autograd backward, which computes dq, dk and dv at once,
+              against the sum of flash_dq and flash_dkv;
+              torch._fused_adamw_ over the same buckets), and the bound:
+              for the flash kernels, which run in 3xTF32 on the tensor
+              cores, 3 TF32 passes at 495 TFLOP/s with the fp32 SIMT
+              bound beside it in the log. The criteria are
               tests/torch_checks.py's, shared with tests/test_torch_cuda.py;
               the card's clocks (nvidia-smi clocks.sm, clocks.max.sm,
               power.draw, temperature.gpu) are sampled before and after,
@@ -585,8 +587,10 @@ def both_bounds(nbytes: float, ops: float, tf32_passes: int) -> dict:
 
 
 # split-TF32 passes of the tensor-core kernels (csrc/quant_matmul.cu,
-# csrc/flash_attention.cu flash_fwd); the others run on the SIMT cores
-TF32_PASSES = {"flash_fwd": 3, "quant_matmul": 2}
+# csrc/flash_attention.cu); the others run on the SIMT cores
+TF32_PASSES = {"flash_fwd": 3, "flash_dq": 3, "flash_dkv": 3,
+               "quant_matmul": 2}
+PAIR = "flash_dq + flash_dkv"   # the backward pair, against SDPA's backward
 
 
 def _flash_case(dev, gen, shape, causal, timed: bool, flush):
@@ -602,7 +606,10 @@ def _flash_case(dev, gen, shape, causal, timed: bool, flush):
                   "flash_dkv": max(errs["dk"][0], errs["dv"][0])}
     rows = {}
     if timed:
-        # one-call yardsticks, timed here and used nowhere in the port
+        # one-call yardsticks, timed here and used nowhere in the port:
+        # SDPA's forward for flash_fwd; its backward computes dq, dk and
+        # dv in one call, so it is the yardstick of the pair, not of
+        # either kernel alone
         qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
         ref = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
         lib_fwd = median_ms(lambda: F.scaled_dot_product_attention(
@@ -615,27 +622,31 @@ def _flash_case(dev, gen, shape, causal, timed: bool, flush):
                           lib_fwd),
             "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
                          lambda: fa.flash_dq_plain(q, k, v, do, lse, delta,
-                                                   causal), lib_bwd),
+                                                   causal), None),
             "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta,
                                                causal),
                           lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
-                                                     causal), lib_bwd)}
+                                                     causal), None)}
+        label = f"{list(shape)} {'causal' if causal else 'full'}"
         for name, (kern, plain, lib) in calls.items():
-            rows[name] = {"shape": f"{list(shape)} "
-                                   f"{'causal' if causal else 'full'}",
-                          "max_abs_err": kernel_err[name],
+            rows[name] = {"shape": label, "max_abs_err": kernel_err[name],
                           "ms": median_ms(kern, flush),
                           "plain_ms": median_ms(plain, flush),
                           **both_bounds(*flash_work(shape, causal, name),
-                                        TF32_PASSES.get(name, 0)),
+                                        TF32_PASSES[name]),
                           "library_ms": lib}
+        rows[PAIR] = {"shape": label, "ms": rows["flash_dq"]["ms"]
+                      + rows["flash_dkv"]["ms"], "library_ms": lib_bwd}
     log(f"flash {list(shape)} causal={causal}: max abs diff "
         + ", ".join(f"{n} {e:.2e} (limit {lim:.2e})"
                     for n, (e, lim) in errs.items())
         + "".join(f" | {n} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-                  f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-                  f"{r['bound_by']}, fp32 SIMT bound {r['bound_simt_ms']:.4f})"
-                  for n, r in rows.items()))
+                  f"bound {r['bound_ms']:.4f} {r['bound_by']} at "
+                  f"{TF32_PASSES[n]} TF32 passes, fp32 SIMT bound "
+                  f"{r['bound_simt_ms']:.4f})"
+                  for n, r in rows.items() if n != PAIR)
+        + "".join(f" | {n} {r['ms']:.4f} ms, library {r['library_ms']:.4f}"
+                  for n, r in rows.items() if r.get("library_ms")))
     return rows
 
 
@@ -1583,7 +1594,10 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     ``at_shapes`` holds the other shapes: the codecs' other serve shapes,
     codec_encode's gradient-wire carrier at each bucket shape (with rank
     0's launches there in the dp train phase as ``launches_at_shape``),
-    flash_fwd's BERT-base shape with its infer-phase launches."""
+    flash_fwd's BERT-base shape with its infer-phase launches. SDPA's
+    backward computes dq, dk and dv in one call: it stands as
+    ``library_ms`` of flash_dkv beside ``pair_ms``, the two backward
+    kernels' times summed, and flash_dq has none of its own."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -1627,6 +1641,9 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     bert = dict(_numbers(infer_rows["flash_fwd"]),
                 launches=infer_counts["flash_fwd"])
     next(e for e in out if e["name"] == "flash_fwd")["at_shapes"] = [bert]
+    pair = train_rows[PAIR]
+    next(e for e in out if e["name"] == "flash_dkv").update(
+        pair_ms=pair["ms"], library_ms=pair["library_ms"])
     qm = _quant_module()
     for name, launches, line in (
             ("quantize_int8", conversion["quantize_int8"], 63),

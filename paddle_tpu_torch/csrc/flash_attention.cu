@@ -21,79 +21,93 @@
 // What bounds them: operations. At the training slice's shape (b8 n12 s1024
 // d64, causal) the forward does 2 causal products (12.9 GFLOP), dq 3
 // (19.3 GFLOP) and dkv 4 (25.8 GFLOP) against ~25-50 MB of inputs and
-// outputs each. flash_fwd runs both products in 3xTF32 on the tensor cores
-// (3 x 12.9 GFLOP at 495 TFLOP/s: 0.078 ms); dq and dkv run fp32 FMAs on
-// the SIMT cores (0.29 / 0.38 ms at 67 TFLOP/s). All are far above their
-// 0.01-0.02 ms byte bounds.
-//
-// flash_fwd design: one block of 4 warps per (batch*head, 64 query rows);
-// each warp owns 16 query rows, so a row's max and sum stay inside the
-// warp (two shuffles across the 4 lanes of a quad). Both products run on
+// outputs each. All three run every product on the tensor cores in 3xTF32:
 // mma.sync m16n8k8 tf32 with fp32 accumulators in registers, each fp32
-// operand split as big + small (cvt.rna; see split_tf32) and multiplied as
-// small.big + big.small + big.big, the arithmetic of the fp32 SDPA
-// yardstick (CUTLASS's fast-fp32 mode). The scaled Q tile is split once
-// per block: into registers at d <= 64, into shared memory above (where
-// registers would spill). K and V tiles of 64 keys are double-buffered in
-// shared memory by cp.async, so the next tile's load overlaps this tile's
-// products; they are split as their fragments are read. P goes to the
-// second product through registers: mma slot t of a key chunk c reads key
-// 8c + 2t and slot t + 4 key 8c + 2t + 1, which puts the score
-// accumulator's (c0, c1, c2, c3) exactly where the next product's A
-// fragment (a0, a2, a1, a3) wants them. Row pitches of d + 8 floats (K, Q)
-// and d + 4 (V) make the fragment loads free of bank conflicts.
+// operand split as big + small and multiplied as small.big + big.small +
+// big.big, the arithmetic of the fp32 SDPA yardstick (CUTLASS's fast-fp32
+// mode). The forward splits with cvt.rna (split_tf32); dq and dkv, which
+// the splits bound, with split_tf32_trunc (big rounded to nearest, small
+// truncated; two integer operations where cvt.rna is a slow conversion:
+// the pair ran 1.6x faster on an H100, PERF.md). One TF32 pass drops the
+// small parts and misses the backward's tolerance
+// (tests/test_torch_split_tf32.py). Bounds at 3
+// passes and 495 TFLOP/s: 0.078 (forward), 0.117 (dq) and 0.156 ms (dkv),
+// far above their 0.01-0.02 ms byte bounds.
 //
-// dq, dkv design (simple and right first; tensor cores are later work):
-// one block of 256 threads per (batch*head, 64-row tile). The
-// block's own tile and the streamed tiles live in shared memory with a
-// row pitch of d + 1 floats, so both row-wise and column-wise reads are
-// free of bank conflicts. The 256 threads form a 16 x 16 grid: thread
-// (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx + 16*j, keeps its
-// accumulators in registers and does fp32 FMAs on the SIMT cores. The
-// sequential grid axis of the TPU kernels becomes a loop inside the
-// block: the forward and dq loop over key tiles for a fixed query tile,
-// dkv loops over query tiles for a fixed key tile, so every output element
-// has one owner and no atomics are needed.
-// Any s >= 1 works: rows past the end are zero-filled on load, masked in
-// the scores and never stored. d is a template parameter, 16..128 in
-// steps of 16.
+// Common design: one block of 4 warps per (batch*head, 64-row tile); each
+// warp owns 16 rows of the block's tile, and every output element has one
+// owner, so there are no atomics and a launch repeats its bits. The
+// sequential grid axis of the TPU kernels becomes a loop inside the block:
+// the forward and dq stream 64-key tiles past a fixed query tile, dkv
+// streams 64-query tiles past a fixed key tile. Streamed tiles are
+// double-buffered in shared memory by cp.async, so the next tile's load
+// overlaps this tile's products, and are split as their fragments are
+// read. Any s >= 1 works: rows past the end are zero-filled on load,
+// masked in the scores and never stored. d is a template parameter,
+// 16..128 in steps of 16.
+//
+// Causal work per block grows with its tile (1 to s / 64 streamed tiles).
+// dq and dkv take the grid as (batch*head, tile), so blocks are handed out
+// heaviest tile first across all heads and the light ones fill the tail;
+// and only the diagonal and the tail tile compute masks, the others take
+// an unmasked copy of the softmax step: its integer compares competed with
+// the splits for the integer pipe. Both cut the causal pair by 1.35x on an
+// H100 (PERF.md); the forward keeps the grid (tile, batch*head).
+//
+// A score's accumulator becomes the next product's A operand in
+// registers, never through shared memory. A C fragment holds (row g,
+// columns 2t and 2t + 1) and (row g + 8, the same columns); an A fragment
+// wants (row g, slot t), (g + 8, t), (g, t + 4), (g + 8, t + 4). Letting
+// slot t of chunk c stand for the score's column 8c + 2t and slot t + 4
+// for 8c + 2t + 1 puts (c0, c1, c2, c3) where (a0, a2, a1, a3) are read.
+//
+// flash_fwd: row max and sum stay inside the warp (two shuffles across the
+// 4 lanes of a quad). The scaled Q tile is split once per block: into
+// registers at d <= 64, into shared memory above (where registers would
+// spill). Row pitches of d + 8 floats (K, Q) and d + 4 (V) make its
+// fragment loads free of bank conflicts: K is read row-wise (8 bytes a
+// lane, a row per g), V column-wise (a row per t, a column per g).
+//
+// flash_dq: per key tile, S = Qs.K^T and dP = dO.V^T (16 query rows x 64
+// keys a warp), p = exp(S - lse) and dS = p (dP - delta) in registers,
+// each row's lse and delta held by the quad that owns the row, then
+// dQ += dS.K. flash_dkv computes the transposed scores directly,
+// S^T = K.Qs^T and dP^T = V.dO^T (16 keys x 64 queries a warp; lse and
+// delta per column, from the streamed tile's rows in shared memory), then
+// dV += P^T.dO and dK += dS^T.Qs, so every product has the forward's
+// shape. Each streamed tile is read in both patterns: row-wise as the B
+// operand of a score product and column-wise as the B operand of the
+// product after it (K in dq; Q and dO in dkv). No single pitch is free of
+// conflicts for both under the forward's slot order, so the streamed rows
+// are permuted inside each group of 8: column n of a score n-tile j stands
+// for row 8j + kslot(n), kslot(n) = n ^ ((n >> 2) & 1), i.e. rows 0 1 2 3
+// 5 4 7 6. Then at pitch d + 8 (8 or 24 mod 32 banks for every d here) a
+// row-wise read puts the 4 rows of each half-warp on 4 disjoint 8-bank
+// windows, and a column-wise read puts slots t = 0..3 on rows
+// {0, 2, 5, 7} or {1, 3, 4, 6}, 8 banks apart: both conflict-free. The
+// streamed Q in dkv is scaled in shared memory by the thread that copied
+// it, after its cp.async lands. The block's own rows (Q and dO in dq, K
+// and V in dkv) are loaded once into shared memory at the same pitch and
+// split as their fragments are read: held in registers at d = 64 they
+// spilled (255 registers), and ran slower.
+// Shared memory at d = 64: dq 110,592 bytes (two stages of K and V, and
+// the own rows), dkv 111,616 (two stages of Q, dO, lse and delta, and the
+// own rows): two blocks an SM, as dkv's ~210 registers allow. At d = 128:
+// 208,896 and 209,920, one block.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int kTile = 64;        // rows per tile, queries and keys alike
-constexpr int kThreads = 256;    // 16 x 16 thread grid
-constexpr int kRows = 4;         // rows per thread (kTile / 16)
-constexpr int kPitchP = kTile + 1;
+constexpr int kThreads = 128;    // 4 warps x 16 rows of the block's tile
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF (:31)
-
-// Copy rows [row0, row0 + kTile) of a [s, D] matrix into shared memory at
-// pitch D + 1, multiplied by `mul`, zero past row s.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int s, float mul) {
-  constexpr int LD = D + 1;
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int row = row0 + r;
-    dst[r * LD + c] =
-        row < s ? __fmul_rn(src[static_cast<size_t>(row) * D + c], mul)
-                : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int row0, int s) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const int row = row0 + r;
-    dst[r] = row < s ? src[row] : 0.0f;
-  }
-}
 
 // d += a * b in 3xTF32: small.big + big.small + big.big.
 __device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ab,
@@ -117,8 +131,6 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ---------------------------------------------------------------- forward
-constexpr int kFwdThreads = 128;   // 4 warps x 16 query rows
-
 template <int D>
 struct FwdTiles {
   static constexpr int PK = D + 8;            // K and Q row pitch (floats)
@@ -130,7 +142,7 @@ struct FwdTiles {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(kThreads)
 fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ out,
            float* __restrict__ lse, int s, int causal, float scale) {
@@ -154,7 +166,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* Ks = smem + (kt & 1) * T::kStage;
     float* Vs = Ks + kTile * PK;
     const int k0 = kt * kTile;
-    for (int e = threadIdx.x; e < kTile * D / 4; e += kFwdThreads) {
+    for (int e = threadIdx.x; e < kTile * D / 4; e += kThreads) {
       const int r = e / (D / 4), c = (e % (D / 4)) * 4;
       const bool ok = k0 + r < s;
       const size_t off = ok ? base + static_cast<size_t>(k0 + r) * D + c : 0;
@@ -182,7 +194,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         split_tf32(__fmul_rn(x.y, scale), qb[c][2 + h], qs[c][2 + h]);
       }
   } else {
-    for (int e = threadIdx.x; e < kTile * D / 2; e += kFwdThreads) {
+    for (int e = threadIdx.x; e < kTile * D / 2; e += kThreads) {
       const int r = e / (D / 2), c = (e % (D / 2)) * 2;
       float2 x = make_float2(0.0f, 0.0f);
       if (q0 + r < s)
@@ -325,6 +337,104 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// --------------------------------------------------------------- backward
+// Streamed-row slot permutation of the score products: column n of
+// n-tile j stands for row 8j + kslot(n) of the streamed tile (keys in dq,
+// queries in dkv), and slot t / t + 4 of the next product's chunk c for
+// row 8c + kslot(2t) / 8c + kslot(2t + 1).
+__device__ __forceinline__ int kslot(int n) { return n ^ ((n >> 2) & 1); }
+
+template <int D>
+struct BwdTiles {
+  static constexpr int P = D + 8;                 // row pitch of every tile
+  static constexpr int kOwn = 2 * kTile * P;      // own rows: Q, dO / K, V
+  static constexpr int kDqStage = 2 * kTile * P;  // streamed K, V
+  static constexpr int kDkvStage = 2 * kTile * P + 2 * kTile;  // Q, dO,
+                                                               // lse, delta
+  static constexpr size_t dq_bytes = sizeof(float) * (2 * kDqStage + kOwn);
+  static constexpr size_t dkv_bytes =
+      sizeof(float) * (2 * kDkvStage + kOwn);
+};
+
+// cp.async rows [row0, row0 + kTile) of a [s, D] matrix into shared
+// memory at pitch P, zeros past s.
+template <int D, int P>
+__device__ __forceinline__ void stream_rows(float* dst, const float* src,
+                                            int row0, int s) {
+  for (int e = threadIdx.x; e < kTile * D / 4; e += kThreads) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+    const bool ok = row0 + r < s;
+    cp_async16(dst + r * P + c,
+               src + (ok ? static_cast<size_t>(row0 + r) * D + c : 0), ok);
+  }
+}
+
+// The same rows, times `mul`, by plain loads (a block's own tile).
+template <int D, int P>
+__device__ __forceinline__ void own_rows(float* dst, const float* src,
+                                         int row0, int s, float mul) {
+  for (int e = threadIdx.x; e < kTile * D / 4; e += kThreads) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row0 + r < s)
+      x = *reinterpret_cast<const float4*>(
+          src + static_cast<size_t>(row0 + r) * D + c);
+    x.x = __fmul_rn(x.x, mul);
+    x.y = __fmul_rn(x.y, mul);
+    x.z = __fmul_rn(x.z, mul);
+    x.w = __fmul_rn(x.w, mul);
+    *reinterpret_cast<float4*>(dst + r * P + c) = x;
+  }
+}
+
+// Split A fragment of d-chunk c of a warp's own rows r and r + 8, from
+// a tile in shared memory at pitch P.
+template <int P>
+__device__ __forceinline__ void own_a(uint32_t* ab, uint32_t* as,
+                                      const float* tile, int c, int r,
+                                      int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float2 v = *reinterpret_cast<const float2*>(
+        tile + (r + 8 * h) * P + 8 * c + 2 * t);
+    split_tf32_trunc(v.x, ab[h], as[h]);
+    split_tf32_trunc(v.y, ab[2 + h], as[2 + h]);
+  }
+}
+
+// d += A (own rows x d-chunk) . B, B's column g being row `row` of a
+// streamed tile at d-chunk c (8 bytes a lane: the row-wise read).
+__device__ __forceinline__ void mma_rowwise(float* d, const uint32_t* ab,
+                                            const uint32_t* as,
+                                            const float* row) {
+  const float2 x = *reinterpret_cast<const float2*>(row);
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32_trunc(x.x, bb0, bs0);
+  split_tf32_trunc(x.y, bb1, bs1);
+  mma_3xtf32(d, ab, as, bb0, bb1, bs0, bs1);
+}
+
+// A fragment of streamed-row chunk c from a score accumulator, split:
+// the slot permutation makes (c0, c2, c1, c3) the A slots (0, 1, 2, 3).
+__device__ __forceinline__ void score_a(uint32_t* ab, uint32_t* as,
+                                        const float* x) {
+  split_tf32_trunc(x[0], ab[0], as[0]);
+  split_tf32_trunc(x[2], ab[1], as[1]);
+  split_tf32_trunc(x[1], ab[2], as[2]);
+  split_tf32_trunc(x[3], ab[3], as[3]);
+}
+
+// d += A . B with B = rows `lo` and `hi` (slots t, t + 4) of a streamed
+// tile at column g + 8j (the column-wise read).
+__device__ __forceinline__ void mma_colwise(float* d, const uint32_t* ab,
+                                            const uint32_t* as, float lo,
+                                            float hi) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32_trunc(lo, bb0, bs0);
+  split_tf32_trunc(hi, bb1, bs1);
+  mma_3xtf32(d, ab, as, bb0, bb1, bs0, bs1);
+}
+
 // --------------------------------------------------------------------- dq
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -332,104 +442,126 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           float* __restrict__ dq, int s, int causal, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int C = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // [kTile][LD], pre-scaled
-  float* Os = Qs + kTile * LD;       // dO [kTile][LD]
-  float* Ks = Os + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Ps = Vs + kTile * LD;       // ds [kTile][kPitchP]
-  float* Ls = Ps + kTile * kPitchP;  // lse [kTile]
-  float* Ds = Ls + kTile;            // delta [kTile]
+  using T = BwdTiles<D>;
+  constexpr int P = T::P, C = D / 8, kStage = T::kDqStage;
+  extern __shared__ __align__(16) float smem[];
+  float* Qo = smem + 2 * kStage;              // own rows: scaled Q
+  float* Oo = Qo + kTile * P;                 //           and dO
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.y) * s * D;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * s;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<D>(Qs, q + base, q0, s, scale);
-  load_tile<D>(Os, dout + base, q0, s, 1.0f);
-  load_rows(Ls, lse + rbase, q0, s);
-  load_rows(Ds, delta + rbase, q0, s);
-
-  float acc[kRows][C];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
+  // grid (batch*head, tile): every head's heaviest causal tile (the last
+  // query rows) is handed out before any head's next one
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const size_t base = static_cast<size_t>(blockIdx.x) * s * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.x) * s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g;               // tile rows r0 and r0 + 8
+  const int hg = kslot(g), lo = kslot(2 * t), hi = lo ^ 1;
 
   const int n_kt = (s + kTile - 1) / kTile;
   const int kt_end = causal ? min(n_kt, q0 / kTile + 1) : n_kt;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<D>(Ks, k + base, k0, s, 1.0f);
-    load_tile<D>(Vs, v + base, k0, s, 1.0f);
-    __syncthreads();
 
-    float sc[kRows][4], dp[kRows][4];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], ov[kRows], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        qv[i] = Qs[(ty * kRows + i) * LD + d];
-        ov[i] = Os[(ty * kRows + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * LD + d];
-        vv[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
+  auto load_kv = [&](int kt) {
+    float* Ks = smem + (kt & 1) * kStage;
+    stream_rows<D, P>(Ks, k + base, kt * kTile, s);
+    stream_rows<D, P>(Ks + kTile * P, v + base, kt * kTile, s);
+  };
+  load_kv(0);
+  cp_async_commit();
 
+  own_rows<D, P>(Qo, q + base, q0, s, scale);
+  own_rows<D, P>(Oo, dout + base, q0, s, 1.0f);
+  float lr[2], dr[2];   // lse and delta of rows r0 and r0 + 8
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty * kRows + i;
-      const int row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < s && (!causal || col <= row);
-        const float p = ok ? expf(sc[i][j] - Ls[r]) : 0.0f;
-        Ps[r * kPitchP + tx + 16 * j] = p * (dp[i][j] - Ds[r]);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) dsv[i] = Ps[(ty * kRows + i) * kPitchP + kk];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float kv = Ks[kk * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
-      }
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
+    lr[h] = row < s ? lse[rbase + row] : 0.0f;
+    dr[h] = row < s ? delta[rbase + row] : 0.0f;
   }
 
+  float acc[C][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + ty * kRows + i;
+  for (int j = 0; j < C; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (kt + 1 < kt_end) load_kv(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // tile kt (and the own rows) visible to every warp
+    const float* Ks = smem + (kt & 1) * kStage;
+    const float* Vs = Ks + kTile * P;
+    const int k0 = kt * kTile;
+
+    // S = Qs K^T and dP = dO V^T: 16 rows x 64 keys a warp
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      uint32_t qb[4], qs[4], ob[4], os[4];
+      own_a<P>(qb, qs, Qo, c, r0, t);
+      own_a<P>(ob, os, Oo, c, r0, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int o = (8 * j + hg) * P + 8 * c + 2 * t;
+        mma_rowwise(sc[j], qb, qs, Ks + o);
+        mma_rowwise(dp[j], ob, os, Vs + o);
+      }
+    }
+
+    // p = exp(s - lse), ds = p (dp - delta); masked p = 0, where only the
+    // diagonal tile and the tail tile have masked pairs
+    auto p_ds = [&](auto masked) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + r0 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float p = expf(sc[j][2 * h + e] - lr[h]);
+            if constexpr (decltype(masked)::value) {
+              const int col = k0 + 8 * j + (e ? hi : lo);
+              p = col < s && (!causal || col <= row) ? p : 0.0f;
+            }
+            sc[j][2 * h + e] = p * (dp[j][2 * h + e] - dr[h]);
+          }
+      }
+    };
+    if (k0 + kTile > s || (causal && k0 == q0))
+      p_ds(std::true_type());
+    else
+      p_ds(std::false_type());
+
+    // dQ += dS K over the tile's 8 key chunks
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      uint32_t ab[4], as[4];
+      score_a(ab, as, sc[c]);
+      const float* kl = Ks + (8 * c + lo) * P + g;
+      const float* kh = Ks + (8 * c + hi) * P + g;
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        mma_colwise(acc[j], ab, as, kl[8 * j], kh[8 * j]);
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + 8 * h;
     if (row >= s) continue;
-    float* o = dq + base + static_cast<size_t>(row) * D;
+    float* o = dq + base + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < C; ++c) o[tx + 16 * c] = __fmul_rn(acc[i][c], scale);
+    for (int j = 0; j < C; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) =
+          make_float2(__fmul_rn(acc[j][2 * h], scale),
+                      __fmul_rn(acc[j][2 * h + 1], scale));
   }
 }
 
@@ -441,141 +573,167 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ lse, const float* __restrict__ delta,
            float* __restrict__ dk, float* __restrict__ dv, int s,
            int causal, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int C = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;                  // this block's keys [kTile][LD]
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;       // streamed queries, pre-scaled
-  float* Os = Qs + kTile * LD;       // streamed dO
-  float* Ps = Os + kTile * LD;       // p^T [key][query]
-  float* Ss = Ps + kTile * kPitchP;  // ds^T [key][query]
-  float* Ls = Ss + kTile * kPitchP;
-  float* Ds = Ls + kTile;
+  using T = BwdTiles<D>;
+  constexpr int P = T::P, C = D / 8, kStage = T::kDkvStage;
+  static_assert(kThreads == 2 * kTile, "one thread per lse/delta entry");
+  extern __shared__ __align__(16) float smem[];
+  float* Ko = smem + 2 * kStage;              // own rows: K
+  float* Vo = Ko + kTile * P;                 //           and V
 
-  const int k0 = blockIdx.x * kTile;  // heaviest causal tiles come first
-  const size_t base = static_cast<size_t>(blockIdx.y) * s * D;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * s;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<D>(Ks, k + base, k0, s, 1.0f);
-  load_tile<D>(Vs, v + base, k0, s, 1.0f);
-
-  float dk_acc[kRows][C], dv_acc[kRows][C];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
+  // grid (batch*head, tile), heaviest causal tiles (the first keys) first
+  const int k0 = blockIdx.y * kTile;
+  const size_t base = static_cast<size_t>(blockIdx.x) * s * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.x) * s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g;               // tile keys r0 and r0 + 8
+  const int hg = kslot(g), lo = kslot(2 * t), hi = lo ^ 1;
 
   const int n_qt = (s + kTile - 1) / kTile;
-  const int qt_begin = causal ? k0 / kTile : 0;
-  for (int qt = qt_begin; qt < n_qt; ++qt) {
+  const int qt_begin = causal ? blockIdx.y : 0;
+
+  // stage: Q [kTile][P], dO [kTile][P], lse [kTile], delta [kTile]
+  auto load_q = [&](int qt) {
+    float* Qs = smem + (qt & 1) * kStage;
     const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<D>(Qs, q + base, q0, s, scale);
-    load_tile<D>(Os, dout + base, q0, s, 1.0f);
-    load_rows(Ls, lse + rbase, q0, s);
-    load_rows(Ds, delta + rbase, q0, s);
-    __syncthreads();
-
-    float st[kRows][4], dpt[kRows][4];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[kRows], vv[kRows], qv[4], ov[4];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        kv[i] = Ks[(ty * kRows + i) * LD + d];
-        vv[i] = Vs[(ty * kRows + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * LD + d];
-        ov[j] = Os[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-          dpt[i][j] = fmaf(vv[i], ov[j], dpt[i][j]);
-        }
+    stream_rows<D, P>(Qs, q + base, q0, s);
+    stream_rows<D, P>(Qs + kTile * P, dout + base, q0, s);
+    const int i = threadIdx.x % kTile;
+    const bool ok = q0 + i < s;
+    cp_async4(Qs + 2 * kTile * P + threadIdx.x,
+              (threadIdx.x < kTile ? lse : delta) + (ok ? rbase + q0 + i : 0),
+              ok);
+  };
+  // the copy of tile qt this thread made, times the scale (q pre-scaled)
+  auto scale_q = [&](int qt) {
+    float* Qs = smem + (qt & 1) * kStage;
+    for (int e = threadIdx.x; e < kTile * D / 4; e += kThreads) {
+      float4* x = reinterpret_cast<float4*>(Qs + (e / (D / 4)) * P +
+                                            (e % (D / 4)) * 4);
+      float4 y = *x;
+      y.x = __fmul_rn(y.x, scale);
+      y.y = __fmul_rn(y.y, scale);
+      y.z = __fmul_rn(y.z, scale);
+      y.w = __fmul_rn(y.w, scale);
+      *x = y;
     }
+  };
+  load_q(qt_begin);
+  cp_async_commit();
 
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty * kRows + i;
-      const int key = k0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int row = q0 + c;
-        const bool ok = row < s && key < s && (!causal || key <= row);
-        const float p = ok ? expf(st[i][j] - Ls[c]) : 0.0f;
-        Ps[r * kPitchP + c] = p;
-        Ss[r * kPitchP + c] = p * (dpt[i][j] - Ds[c]);
-      }
-    }
-    __syncthreads();
+  own_rows<D, P>(Ko, k + base, k0, s, 1.0f);
+  own_rows<D, P>(Vo, v + base, k0, s, 1.0f);
 
-#pragma unroll 4
-    for (int qq = 0; qq < kTile; ++qq) {
-      float pv[kRows], sv[kRows];
+  float dka[C][4], dva[C][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        pv[i] = Ps[(ty * kRows + i) * kPitchP + qq];
-        sv[i] = Ss[(ty * kRows + i) * kPitchP + qq];
-      }
+  for (int j = 0; j < C; ++j)
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float ov = Os[qq * LD + tx + 16 * c];
-        const float qv = Qs[qq * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          dv_acc[i][c] = fmaf(pv[i], ov, dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(sv[i], qv, dk_acc[i][c]);
-        }
-      }
-    }
-  }
+    for (int i = 0; i < 4; ++i) dka[j][i] = dva[j][i] = 0.0f;
 
+  for (int qt = qt_begin; qt < n_qt; ++qt) {
+    if (qt + 1 < n_qt) load_q(qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    scale_q(qt);
+    __syncthreads();   // tile qt (and the own rows) visible to every warp
+    const float* Qs = smem + (qt & 1) * kStage;
+    const float* Os = Qs + kTile * P;
+    const float* Ls = Os + kTile * P;
+    const float* Ds = Ls + kTile;
+    const int q0 = qt * kTile;
+
+    // S^T = K Qs^T and dP^T = V dO^T: 16 keys x 64 queries a warp
+    float st[8][4], dpt[8][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int key = k0 + ty * kRows + i;
-    if (key >= s) continue;
-    float* ok_ = dk + base + static_cast<size_t>(key) * D;
-    float* ov_ = dv + base + static_cast<size_t>(key) * D;
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      ok_[tx + 16 * c] = dk_acc[i][c];
-      ov_[tx + 16 * c] = dv_acc[i][c];
+      uint32_t kb[4], ks[4], vb[4], vs[4];
+      own_a<P>(kb, ks, Ko, c, r0, t);
+      own_a<P>(vb, vs, Vo, c, r0, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int o = (8 * j + hg) * P + 8 * c + 2 * t;
+        mma_rowwise(st[j], kb, ks, Qs + o);
+        mma_rowwise(dpt[j], vb, vs, Os + o);
+      }
+    }
+
+    // p^T = exp(s^T - lse[query]), ds^T = p^T (dp^T - delta[query]);
+    // masked as in dq
+    auto p_ds = [&](auto masked) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = k0 + r0 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + (e ? hi : lo);
+            float p = expf(st[j][2 * h + e] - Ls[col]);
+            if constexpr (decltype(masked)::value) {
+              const int row = q0 + col;
+              p = row < s && key < s && (!causal || key <= row) ? p : 0.0f;
+            }
+            dpt[j][2 * h + e] = p * (dpt[j][2 * h + e] - Ds[col]);
+            st[j][2 * h + e] = p;
+          }
+      }
+    };
+    if (q0 + kTile > s || k0 + kTile > s || (causal && q0 == k0))
+      p_ds(std::true_type());
+    else
+      p_ds(std::false_type());
+
+    // dV += P^T dO and dK += dS^T Qs over the tile's 8 query chunks
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      uint32_t pb[4], ps[4], db[4], ds[4];
+      score_a(pb, ps, st[c]);
+      score_a(db, ds, dpt[c]);
+      const float* ol = Os + (8 * c + lo) * P + g;
+      const float* oh = Os + (8 * c + hi) * P + g;
+      const float* ql = Qs + (8 * c + lo) * P + g;
+      const float* qh = Qs + (8 * c + hi) * P + g;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        mma_colwise(dva[j], pb, ps, ol[8 * j], oh[8 * j]);
+        mma_colwise(dka[j], db, ds, ql[8 * j], qh[8 * j]);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + r0 + 8 * h;
+    if (key >= s) continue;
+    const size_t o = base + static_cast<size_t>(key) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      *reinterpret_cast<float2*>(dk + o + 8 * j) =
+          make_float2(dka[j][2 * h], dka[j][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv + o + 8 * j) =
+          make_float2(dva[j][2 * h], dva[j][2 * h + 1]);
     }
   }
-}
-
-// Shared-memory bytes of the backward kernels at head dim d.
-inline size_t dq_smem(int d) {
-  return sizeof(float) * (4 * kTile * (d + 1) + kTile * kPitchP + 2 * kTile);
-}
-inline size_t dkv_smem(int d) {
-  return sizeof(float) *
-         (4 * kTile * (d + 1) + 2 * kTile * kPitchP + 2 * kTile);
 }
 
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, int threads, int bh, int s,
-           cudaStream_t st, Args... args) {
+int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t st,
+           Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + kTile - 1) / kTile, bh);
-  kernel<<<grid, threads, smem, st>>>(args...);
+  kernel<<<grid, kThreads, smem, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
+
+int n_tiles(int s) { return (s + kTile - 1) / kTile; }
 
 }  // namespace
 
@@ -600,7 +758,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   auto* op = static_cast<float*>(out);
   auto* lp = static_cast<float*>(lse);
 #define PTT_CALL(DD)                                                       \
-  return launch(fwd_kernel<DD>, FwdTiles<DD>::bytes, kFwdThreads, bh, s,   \
+  return launch(fwd_kernel<DD>, FwdTiles<DD>::bytes, dim3(n_tiles(s), bh), \
                 st, qp, kp, vp, op, lp, s, causal, scale)
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
@@ -621,8 +779,8 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
   auto* dp = static_cast<const float*>(delta);
   auto* dqp = static_cast<float*>(dq);
 #define PTT_CALL(DD)                                                       \
-  return launch(dq_kernel<DD>, dq_smem(DD), kThreads, bh, s, st, qp, kp, \
-                vp, dop, lp, dp, dqp, s, causal, scale)
+  return launch(dq_kernel<DD>, BwdTiles<DD>::dq_bytes, dim3(bh, n_tiles(s)), \
+                st, qp, kp, vp, dop, lp, dp, dqp, s, causal, scale)
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
 }
@@ -643,8 +801,9 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
   auto* dkp = static_cast<float*>(dk);
   auto* dvp = static_cast<float*>(dv);
 #define PTT_CALL(DD)                                                       \
-  return launch(dkv_kernel<DD>, dkv_smem(DD), kThreads, bh, s, st, qp,    \
-                kp, vp, dop, lp, dp, dkp, dvp, s, causal, scale)
+  return launch(dkv_kernel<DD>, BwdTiles<DD>::dkv_bytes,                   \
+                dim3(bh, n_tiles(s)), st, qp, kp, vp, dop, lp, dp, dkp, dvp, \
+                s, causal, scale)
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
 }

@@ -1,6 +1,6 @@
 // Tensor-core building blocks shared by the split-TF32 kernels
 // (quant_matmul.cu, flash_attention.cu): cp.async copies into shared
-// memory, the TF32 split of an fp32 value, and mma.sync m16n8k8 in TF32.
+// memory, the TF32 splits of an fp32 value, and mma.sync m16n8k8 in TF32.
 //
 // mma.sync.m16n8k8 tf32 fragments (lane = 4 g + t, g = lane / 4):
 //   A 16 x 8: a0 (row g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
@@ -47,6 +47,21 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big,
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(v));
   const float rest = __fsub_rn(v, __uint_as_float(big));
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
+
+// The same split in fewer operations, for kernels bound by it (the flash
+// backward): the tensor cores read a TF32 operand's top 19 bits and
+// drop the low 13 (CUTLASS's round_half_ulp_truncate relies on this), so
+// big is v's bits plus half a TF32 ulp (rounded to nearest, ties away,
+// once the low bits are dropped) and small is v - big, truncated by the
+// tensor cores. Two integer operations and one fp32 subtraction, where
+// cvt.rna is a slow conversion and an exact integer rounding of both
+// parts saturates the integer pipe. A NaN survives in small (big may read
+// as 0); an infinity makes small NaN, as cvt.rna does.
+__device__ __forceinline__ void split_tf32_trunc(float v, uint32_t& big,
+                                                 uint32_t& small) {
+  big = __float_as_uint(v) + 0x1000u;
+  small = __float_as_uint(__fsub_rn(v, __uint_as_float(big & 0xFFFFE000u)));
 }
 
 // d += a (16 x 8, row) * b (8 x 8, col), TF32 in, fp32 accumulators.

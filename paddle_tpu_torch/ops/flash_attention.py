@@ -23,15 +23,15 @@ scaled at the end while ``dk`` carries the scale through the pre-scaled
 ``q``, and ``delta = rowsum(dO * O)`` computed outside the kernels. The
 plain versions compute whole ``[s, s]`` score matrices; the kernels
 stream 64-row tiles with an online softmax, so the two agree to fp32
-rounding, not bit for bit. ``flash_fwd`` runs both products on the
+rounding, not bit for bit. All three kernels run every product on the
 tensor cores in 3xTF32 (each fp32 operand split into two TF32 parts,
-three products); ``flash_fwd_split_tf32`` is the plain model of that
-operand rounding. ``flash_dq`` and ``flash_dkv`` run fp32 FMAs.
+three products); ``flash_fwd_split_tf32`` and ``flash_bwd_split_tf32``
+are the plain models of that operand rounding, for the tests.
 
 The kernels take fp32, any ``s >= 1`` and ``d <= 128`` with
-``d % 16 == 0`` (every GPT preset: 16, 64, 96, 128), and ``flash_fwd``
-16-byte aligned q, k and v (as ``torch.empty`` gives them); anything else
-on the card raises. The reference's block sizes have no counterpart: the
+``d % 16 == 0`` (every GPT preset: 16, 64, 96, 128), and 16-byte aligned
+q, k, v and dO (as ``torch.empty`` gives them); anything else on the
+card raises. The reference's block sizes have no counterpart: the
 CUDA tiles are fixed and the tail tile is masked.
 """
 from __future__ import annotations
@@ -45,14 +45,13 @@ import torch
 
 from ..framework.device import require_sm90
 from ._build import load_library
-from .tf32 import split_tf32
+from .tf32 import split_tf32, split_tf32_trunc, tf32_rna
 
 __all__ = ["NEG_INF", "KERNEL_SOURCE", "flash_fwd", "flash_dq", "flash_dkv",
            "flash_fwd_plain", "flash_fwd_split_tf32", "flash_dq_plain",
-           "flash_dkv_plain",
-           "flash_bwd_plain", "flash_attention_val",
-           "flash_attention_supported", "kernel_supported", "launch_counts",
-           "reset_launch_counts"]
+           "flash_dkv_plain", "flash_bwd_plain", "flash_bwd_split_tf32",
+           "flash_attention_val", "flash_attention_supported",
+           "kernel_supported", "launch_counts", "reset_launch_counts"]
 
 KERNEL_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 NEG_INF = -1e30
@@ -60,16 +59,21 @@ _MAX_D = 128
 
 
 # ------------------------------------------------------------ plain versions
+def _masked(s: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scores with the causal upper triangle set to ``NEG_INF`` (reference
+    ``_causal_mask``)."""
+    if causal:
+        n = s.shape[-1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    return s
+
+
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
     """Masked ``(q * scale) . k^T`` [b, n, s, s] in fp32 (reference:
     ``_fwd_kernel`` :134-141 and ``_causal_mask``)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = (q.float() * scale) @ k.float().transpose(-1, -2)
-    if causal:
-        n = q.shape[-2]
-        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
-    return s
+    return _masked((q.float() * scale) @ k.float().transpose(-1, -2), causal)
 
 
 def flash_fwd_plain(q, k, v, causal: bool
@@ -83,11 +87,17 @@ def flash_fwd_plain(q, k, v, causal: bool
     return out.to(q.dtype), m + torch.log(l)
 
 
-def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor,
+               split=split_tf32) -> torch.Tensor:
     """``a @ b`` from split operands: small.big + big.small + big.big."""
-    ab, as_ = split_tf32(a)
-    bb, bs = split_tf32(b)
+    ab, as_ = split(a)
+    bb, bs = split(b)
     return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def _mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` from operands rounded to TF32, one product."""
+    return tf32_rna(a) @ tf32_rna(b)
 
 
 def flash_fwd_split_tf32(q, k, v, causal: bool
@@ -98,11 +108,8 @@ def flash_fwd_split_tf32(q, k, v, causal: bool
     cores' order of accumulation, and takes the softmax over whole rows
     where the kernel rescales tile by tile."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = _mm_3xtf32(q.float() * scale, k.float().transpose(-1, -2))
-    if causal:
-        n = q.shape[-2]
-        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
+    s = _masked(_mm_3xtf32(q.float() * scale, k.float().transpose(-1, -2)),
+                causal)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
@@ -133,6 +140,30 @@ def flash_bwd_plain(q, k, v, do, lse, delta, causal: bool):
     """(dq, dk, dv) from the plain versions of both backward kernels."""
     return (flash_dq_plain(q, k, v, do, lse, delta, causal),
             *flash_dkv_plain(q, k, v, do, lse, delta, causal))
+
+
+def flash_bwd_split_tf32(q, k, v, do, lse, delta, causal: bool,
+                         passes: int = 3):
+    """(dq, dk, dv) of ``flash_bwd_plain`` with every product in 3xTF32,
+    as ``flash_dq`` and ``flash_dkv`` compute them: the scaled q, k, dO,
+    v, p and ds each split into two TF32 parts by ``split_tf32_trunc``
+    (dkv's transposed scores hold the same split products). Like
+    ``flash_fwd_split_tf32`` it models the operands' rounding, not the
+    tensor cores' order of accumulation. ``passes=1`` rounds each operand
+    to TF32 and multiplies once: a kernel that drops the small parts, for
+    the tests' control."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes is 3 (the kernels) or 1, got {passes}")
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    mm = (functools.partial(_mm_3xtf32, split=split_tf32_trunc)
+          if passes == 3 else _mm_1xtf32)
+    qs, kf, vf, dof = q.float() * scale, k.float(), v.float(), do.float()
+    p = torch.exp(_masked(mm(qs, kf.transpose(-1, -2)), causal) - lse)
+    ds = p * (mm(dof, vf.transpose(-1, -2)) - delta)
+    dq = mm(ds, kf) * scale
+    dk = mm(ds.transpose(-1, -2), qs)
+    dv = mm(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ------------------------------------------------------------------ kernels
@@ -220,8 +251,12 @@ def _bwd_operands(q, k, v, do, lse, delta):
     if lse.shape != rows or delta.shape != rows:
         raise ValueError(f"lse and delta must be {rows}, got "
                          f"{tuple(lse.shape)}, {tuple(delta.shape)}")
-    return _check(("q", "k", "v", "dO", "lse", "delta"),
-                  (q, k, v, do, lse, delta), q.shape)
+    dev = _check(("q", "k", "v", "dO", "lse", "delta"),
+                 (q, k, v, do, lse, delta), q.shape)
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash_dq and flash_dkv take 16-byte aligned q, k, "
+                         "v and dO")
+    return dev
 
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:

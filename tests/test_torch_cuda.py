@@ -14,7 +14,8 @@ against their plain versions on the card by ``tests/torch_checks.py``'s
 criteria, which ``chip_smoke.py`` shares: out and lse within 2e-5 max
 abs, dq/dk/dv within 1e-4 of the larger of 1 and the largest gradient
 magnitude (the forward's online softmax rounds differently from the
-plain [s, s] softmax, and the inputs are unit-scale); the update
+plain [s, s] softmax, and the inputs are unit-scale); the backward
+kernels' two launches on the same inputs bit-identical; the update
 bit-identical. One gpt-test ``TrainStep`` on the card against one on
 the CPU: loss within 1e-5 relative, then ``adam_step_parity`` (gradients
 within 1e-4 of each tensor's largest; the step on every element whose
@@ -266,6 +267,23 @@ def check_flash_kernels_match_plain(dev, s, d, causal):
     assert fa.launch_counts() == {n: c + 1 for n, c in before.items()}
 
 
+def check_flash_backward_deterministic(dev, s, d, causal):
+    """Every dq, dk and dv element has one owner (no atomics): two
+    launches on the same inputs give the same bits."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(s + d + causal)
+    q, k, v, do = (torch.randn(2, 3, s, d, device=dev, generator=gen)
+                   for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    delta = (do * out).sum(-1, keepdim=True)
+    first = (fa.flash_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_dkv(q, k, v, do, lse, delta, causal))
+    second = (fa.flash_dq(q, k, v, do, lse, delta, causal),
+              *fa.flash_dkv(q, k, v, do, lse, delta, causal))
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
 def check_fused_update_bit_identical(dev, kind, wd, n):
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)
@@ -316,6 +334,12 @@ def check_new_wrappers_raise(dev):
     lse = torch.zeros(1, 2, 8, 1, device=dev)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_dq(q, q, q, q, lse[..., :4, :], lse, True)
+    buf = torch.randn(q.numel() + 1, device=dev)
+    odd = buf[1:].view(q.shape)                  # 4 bytes past 16
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_dq(q, q, q, odd, lse, lse, True)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_dkv(q, q, q, odd, lse, lse, True)
     p = torch.zeros(64, device=dev)
     svec = torch.ones(1, device=dev)
     with pytest.raises(TypeError):
@@ -438,6 +462,8 @@ def test_cuda_path_matches_plain(dev):
                         *((s, d) for s in (1, 63, 1000)
                           for d in (16, 64, 128)))
            for c in (True, False)]
+        + [(check_flash_backward_deterministic, (dev, s, d, c))
+           for s, d in ((1000, 64), (1024, 128)) for c in (True, False)]
         + [(check_fused_update_bit_identical, (dev, k, wd, n))
            for k in ("sgd", "momentum", "adam", "adamw")
            for wd in (0.0, 0.01) for n in (1, 4097, 100003)]

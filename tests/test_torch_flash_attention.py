@@ -4,9 +4,11 @@ CPU, where the port takes its plain versions and the reference runs its
 Pallas kernels in interpret mode.
 
 - ``flash_fwd`` (out, lse) against the reference's ``_fwd``, and
-  ``flash_dq``/``flash_dkv`` against ``_bwd``, on ``[b, n, s, d]`` inputs
-  made with numpy: causal and full, s in {16, 48}, d in {8, 16}, the
-  reference with uneven blocks (block_q, block_k) = (8, 16) and (16, 8).
+  ``flash_dq``/``flash_dkv`` and ``flash_bwd_split_tf32`` (the plain
+  model of the CUDA backward's 3xTF32 operand rounding) against
+  ``_bwd``, on ``[b, n, s, d]`` inputs made with numpy: causal and full,
+  s in {16, 48}, d in {8, 16}, the reference with uneven blocks
+  (block_q, block_k) = (8, 16) and (16, 8).
 - ``flash_attention_val`` on ``[b, s, n, d]`` (autograd through the
   flash backward) against ``jax.vjp`` of the reference's
   ``flash_attention_val``: output and the three input gradients.
@@ -62,6 +64,10 @@ def check_kernels_match_reference_pallas(s, d, causal, bq, bk):
     tdk, tdv = tfa.flash_dkv(tq, tk, tv, tdo, tl, delta, causal)
     _close(jdk, tdk, "dk")
     _close(jdv, tdv, "dv")
+    # the model of the CUDA backward's 3xTF32 operand rounding
+    split = tfa.flash_bwd_split_tf32(tq, tk, tv, tdo, tl, delta, causal)
+    for name, jg, tg in zip(("dq", "dk", "dv"), (jdq, jdk, jdv), split):
+        _close(jg, tg, f"{name} (3xTF32 model)")
 
 
 def check_autograd_matches_reference_vjp(s, d, causal):

@@ -1,14 +1,17 @@
 """CPU rehearsal of the split-TF32 arithmetic of the tensor-core kernels
 (``paddle_tpu_torch/csrc/quant_matmul.cu`` ``quant_matmul`` and
-``csrc/flash_attention.cu`` ``flash_fwd``), against the criteria the card
+``csrc/flash_attention.cu`` ``flash_fwd``, ``flash_dq`` and
+``flash_dkv``), against the criteria the card
 holds them to (``tests/torch_checks.py``: ``qmm_limit`` and
 ``FLASH_TOL``), which stay as they are.
 
 ``paddle_tpu_torch/ops/tf32.py`` models the kernels' operand rounding in
 plain PyTorch: TF32 round-to-nearest (ties away from zero, as
 ``cvt.rna.tf32.f32``) on the fp32 bits, and the split ``x = big +
-small`` with both parts TF32. ``quant_matmul_split_tf32`` and
-``flash_fwd_split_tf32`` compute with split operands:
+small`` with both parts TF32 (within 2^-22 of x; the flash backward's
+``split_tf32_trunc`` truncates small, within 2^-21). ``quant_matmul_split_tf32``,
+``flash_fwd_split_tf32`` and ``flash_bwd_split_tf32`` compute with split
+operands:
 
 - ``quant_matmul`` at k = 768 and 3072 (the BERT-base weight depths) and
   256 rows (the bound depends on k, not m), x unit randn and the weight
@@ -20,7 +23,14 @@ small`` with both parts TF32. ``quant_matmul_split_tf32`` and
   to, tells the split from a kernel that skips ``x_small``. The file
   prints both ratios (``pytest -s``);
 - ``flash_fwd`` at s 512 and 1024, d 64, causal and full: out and lse
-  within ``FLASH_TOL`` of ``flash_fwd_plain``.
+  within ``FLASH_TOL`` of ``flash_fwd_plain``;
+- ``flash_dq``/``flash_dkv`` at the same shapes: dq, dk and dv of
+  ``flash_bwd_split_tf32`` within ``FLASH_TOL`` (times the larger of 1
+  and the gradient's largest magnitude, as ``flash_vs_plain`` holds the
+  card) of ``flash_bwd_plain``, and a control, the same backward with
+  every operand rounded once to TF32 (``passes=1``, a kernel that drops
+  the small parts), over that limit for each gradient: the unchanged
+  tolerance already refuses one pass. The file prints both readings.
 
 The emulation models the operands' rounding, not the tensor cores' order
 of accumulation nor the kernel's tile-by-tile softmax: those only the
@@ -34,7 +44,8 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
-from paddle_tpu_torch.ops.tf32 import split_tf32, tf32_rna
+from paddle_tpu_torch.ops.tf32 import (split_tf32, split_tf32_trunc,
+                                       tf32_rna)
 from torch_checks import (FLASH_TOL, QMM_SPLIT_CEILING, qmm_limit,
                           run_checks)
 
@@ -70,12 +81,14 @@ def check_tf32_rounding():
 def check_split_is_tf32_and_close(seed):
     x = torch.from_numpy(np.random.RandomState(seed).randn(100_000)
                          .astype(np.float32) * 10.0 ** (seed - 2))
-    big, small = split_tf32(x)
-    for part in (big, small):
-        assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0
-    rel = ((x.double() - big.double() - small.double()).abs()
-           / x.double().abs())
-    assert float(rel.max()) <= 2.0 ** -22, float(rel.max())
+    for split, bound in ((split_tf32, 2.0 ** -22),
+                         (split_tf32_trunc, 2.0 ** -21)):
+        big, small = split(x)
+        for part in (big, small):
+            assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+        rel = ((x.double() - big.double() - small.double()).abs()
+               / x.double().abs())
+        assert float(rel.max()) <= bound, (split.__name__, float(rel.max()))
 
 
 def _qmm_operands(m, k, n, seed):
@@ -112,10 +125,36 @@ def check_flash_3xtf32_within_tol(s, causal):
         assert err <= FLASH_TOL[name], f"{name} s={s} causal={causal}: {err}"
 
 
+def check_flash_bwd_3xtf32_within_tol(s, causal):
+    rs = np.random.RandomState(s + causal)
+    q, k, v, do = (torch.from_numpy(rs.randn(1, 2, s, 64).astype(np.float32))
+                   for _ in range(4))
+    out, lse = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (do * out).sum(-1, keepdim=True)
+    plain = fa.flash_bwd_plain(q, k, v, do, lse, delta, causal)
+    reads = {}
+    for passes in (3, 1):
+        got = fa.flash_bwd_split_tf32(q, k, v, do, lse, delta, causal,
+                                      passes=passes)
+        reads[passes] = {
+            name: float((a - b).abs().max())
+            / (FLASH_TOL[name] * max(float(b.abs().max()), 1.0))
+            for name, a, b in zip(("dq", "dk", "dv"), got, plain)}
+    print(f"flash backward s={s} causal={causal}: max diff / FLASH_TOL "
+          f"limit, 3xTF32 " + ", ".join(f"{n} {r:.4f}"
+                                        for n, r in reads[3].items())
+          + "; 1xTF32 control " + ", ".join(f"{n} {r:.2f}"
+                                            for n, r in reads[1].items()))
+    assert max(reads[3].values()) <= 1.0, reads[3]
+    assert min(reads[1].values()) > 1.0, reads[1]
+
+
 def test_split_tf32_rehearsal():
     run_checks([(check_tf32_rounding, ())]
                + [(check_split_is_tf32_and_close, (seed,))
                   for seed in (0, 2, 4)]
                + [(check_qmm_split_within_limit, (k,)) for k in (768, 3072)]
                + [(check_flash_3xtf32_within_tol, (s, c))
+                  for s in (512, 1024) for c in (True, False)]
+               + [(check_flash_bwd_3xtf32_within_tol, (s, c))
                   for s in (512, 1024) for c in (True, False)])
