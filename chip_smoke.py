@@ -43,12 +43,20 @@ when every phase passed):
               (inputs are unit-scale randn); fused_update against its
               plain version bit for bit for sgd/momentum/adam/adamw,
               weight decay on and off, a ragged n, and on each of the
-              train step's AdamW buckets; median ms over 30 launches (L2
-              flushed) for kernel, plain version and the one-call
-              yardsticks (scaled_dot_product_attention forward; its
-              autograd backward, which computes dq, dk and dv at once,
-              against the sum of flash_dq and flash_dkv;
-              torch._fused_adamw_ over the same buckets), and the bound:
+              train step's AdamW buckets; fused_update_buckets over all
+              18 buckets at once, three steps, parameters, moments and
+              stepped beta powers bit for bit against its plain walk;
+              median ms over 30 launches (L2 flushed) for kernel, plain
+              version and the one-call yardsticks
+              (scaled_dot_product_attention forward; its autograd
+              backward, which computes dq, dk and dv at once, against
+              the sum of flash_dq and flash_dkv; torch._fused_adamw_
+              over the same buckets); the step's update timed three
+              ways in one call: as FusedFlatUpdater.step() calls it
+              (table, scalar prep and launch), the kernel alone, and
+              torch._fused_adamw_, each also from an idle card (events
+              with nothing queued ahead, so the host's enqueue shows);
+              and the bound:
               for the flash kernels, which run in 3xTF32 on the tensor
               cores, 3 TF32 passes at 495 TFLOP/s with the fp32 SIMT
               bound beside it in the log. The criteria are
@@ -61,12 +69,13 @@ when every phase passed):
               from seed 0), batch 8 x 1024 tokens fp32, AdamW lr 1e-4
               wd 0.01, one seeded batch: 2 warm-up steps, then 5 timed
               steps with launch counts reset just before and read just
-              after (12 per step for each flash kernel, one per bucket
-              per step for fused_update); every loss finite, the last
-              below the first;
+              after (12 per step for each flash kernel, one
+              fused_update launch per step for all 18 buckets); every
+              loss finite, the last below the first;
   8. train-profile
               torch.profiler over one train step: device busy/idle share,
-              device time by kernel, each new kernel's share of the step;
+              kernels per step, device time by kernel, each new kernel's
+              share of the step;
   9. train-parity
               one TrainStep on the card and one on the CPU from the same
               weights and batch, GPT-125M width with 2 layers, b2 s128:
@@ -105,7 +114,9 @@ when every phase passed):
               (no amax pass) for quantize_int8, SDPA for flash_fwd;
               quant_matmul's bound at its 2 split-TF32 passes on the
               tensor cores, flash_fwd's at 3, each with the fp32 SIMT
-              bound beside it; clocks before and after, ratios;
+              bound beside it; a conversion's quantize_int8 time, the
+              sum over its shapes of launches x ms; clocks before and
+              after, ratios;
  12. infer-parity
               bert-base width with 2 layers on the card and on the CPU
               from the same seed, converted, b2 s128: int8 payloads and
@@ -206,6 +217,26 @@ def median_ms(fn, flush: torch.Tensor, runs: int = 30) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def span_ms(fn, flush: torch.Tensor, runs: int = 30) -> float:
+    """Time of ``fn`` from an idle card (median of ``runs``): L2 flushed,
+    synchronised, then events around ``fn`` with nothing queued ahead, so
+    a host enqueue slower than the card shows."""
+    for _ in range(3):
+        fn()
+    out = []
+    for _ in range(runs):
+        flush.zero_()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
 
 
 def bound(n: int, nb: int, direction: str):
@@ -658,44 +689,85 @@ def _fused_case(gen, kind, wd, n):
                           hyper=FUSED_HYPER[kind], wd=wd)
 
 
+def bucket_updater(sizes, gen):
+    """A FusedFlatUpdater over one parameter a bucket of ``sizes`` (AdamW,
+    lr and wd of the train phase) on ``gen``'s device, its gradients in
+    place, stepped once, then moments set to the train phase's scales:
+    weights 0.02, gradients 1e-3, moment1 1e-4, moment2 1e-6 (squared
+    randn)."""
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.distributed import grad_comm
+
+    dev = gen.device
+    params = [torch.nn.Parameter(torch.randn(n, device=dev, generator=gen)
+                                 * 0.02) for n in sizes]
+    buckets = []
+    for i, n in enumerate(sizes):
+        b = grad_comm.GradBucket(i, torch.float32)
+        b.add(i, (n,))
+        buckets.append(b)
+    opt = optim.AdamW(learning_rate=LR, weight_decay=WD, parameters=params)
+    upd = optim.FusedFlatUpdater(opt, params, buckets=buckets)
+    upd.zero_grad()
+    for p in params:
+        p.grad.copy_(torch.randn(p.shape, device=dev, generator=gen) * 1e-3)
+    upd.step()
+    for b in buckets:
+        s = upd._slots[b.index]
+        s["moment1"].copy_(torch.randn(b.size, device=dev, generator=gen)
+                           * 1e-4)
+        s["moment2"].copy_(torch.randn(b.size, device=dev, generator=gen)
+                           ** 2 * 1e-6)
+    return upd
+
+
 def _fused_timing(dev, gen, buckets, flush):
     """One train step's fused updates (every bucket of the GPT-125M plan,
-    AdamW at its fourth step, weights, gradients and moments at the
-    scales of the train phase): each bucket's kernel held bit for bit
-    against its plain version on the same inputs, then the kernel, the
-    plain version and torch._fused_adamw_ over the same buckets timed,
-    and the bound for the whole set."""
-    from torch_checks import FUSED_HYPER, fused_vs_plain
+    AdamW, weights, gradients and moments at the scales of the train
+    phase): each bucket's single-bucket kernel and the one launch over
+    all of them held bit for bit against their plain versions (the
+    latter three steps, stepped beta powers included); then, in one
+    call, the update as FusedFlatUpdater.step() calls it, the kernel
+    alone, the plain walk and torch._fused_adamw_ over the same buckets
+    timed, and the bound for the whole set."""
+    from torch_checks import FUSED_HYPER, buckets_vs_plain, fused_vs_plain
 
     from paddle_tpu_torch.ops import fused_update as fu
 
     hyper = FUSED_HYPER["adamw"]
     sizes = [b.size for b in buckets]
-    ps = [torch.randn(n, device=dev, generator=gen) * 0.02 for n in sizes]
-    gs = [torch.randn(n, device=dev, generator=gen) * 1e-3 for n in sizes]
-    m1 = [torch.randn(n, device=dev, generator=gen) * 1e-4 for n in sizes]
-    m2 = [torch.randn(n, device=dev, generator=gen) ** 2 * 1e-6
-          for n in sizes]
+    upd = bucket_updater(sizes, gen)
+    ps = [upd._flat_p[i] for i in range(len(sizes))]
+    gs = [upd._flat_g[i] for i in range(len(sizes))]
+    m1 = [upd._slots[i]["moment1"] for i in range(len(sizes))]
+    m2 = [upd._slots[i]["moment2"] for i in range(len(sizes))]
     scal = {"beta1_pow": torch.full((), 0.9 ** 3, device=dev),
             "beta2_pow": torch.full((), 0.999 ** 3, device=dev)}
     lr = torch.full((), LR, device=dev)
     err = max(fused_vs_plain(p, g, {"moment1": a, "moment2": b, **scal}, lr,
                              kind="adamw", hyper=hyper, wd=WD)
               for p, g, a, b in zip(ps, gs, m1, m2))
+    entries = [(p.clone(), g.clone(), [a.clone(), b.clone()], WD, 1.0)
+               for p, g, a, b in zip(ps, gs, m1, m2)]
+    launches = buckets_vs_plain("adamw", hyper, entries, lr, steps=3,
+                                gen=gen)
+    del entries
+    if launches != 3:
+        raise AssertionError(f"fused_update_buckets: {launches} launches "
+                             f"for 3 steps of {len(sizes)} buckets")
     log(f"fused_update: bit-identical to plain on each of the {len(sizes)} "
         f"AdamW buckets of the train step ({min(sizes)}..{max(sizes)} "
-        f"elements)")
+        f"elements); fused_update_buckets over all {len(sizes)} at once "
+        f"bit-identical to its plain walk over 3 steps, beta powers "
+        f"included, in {launches} launches")
+    table = upd._table
 
-    def kernel():
-        for p, g, a, b in zip(ps, gs, m1, m2):
-            fu.fused_update_flat(p, g, {"moment1": a, "moment2": b, **scal},
-                                 lr, kind="adamw", hyper=hyper, wd=WD)
+    def kernel():   # the same powers each time: the updater's state holds
+        fu.fused_update_buckets(table, lr)
+        table.parity = 1 - table.parity
 
     def plain():
-        for p, g, a, b in zip(ps, gs, m1, m2):
-            fu.reference_update_flat(p, g, {"moment1": a, "moment2": b,
-                                            **scal},
-                                     lr, kind="adamw", hyper=hyper, wd=WD)
+        fu.buckets_plain(table, lr)
 
     steps = [torch.full((), 4.0, device=dev) for _ in sizes]
 
@@ -707,12 +779,17 @@ def _fused_timing(dev, gen, buckets, flush):
     n = sum(sizes)
     # read p, g, m1, m2; write p, m1, m2 (fp32); ~20 operations each
     bound_ms, bound_by = work_bound(7 * 4 * n, 20 * n)
-    return {"shape": f"{len(sizes)} buckets, {n} elements (one step)",
-            "max_abs_err": err,
-            "ms": median_ms(kernel, flush), "plain_ms": median_ms(plain, flush),
-            "library_ms": median_ms(library, flush), "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "largest_bucket": max(sizes), "smallest_bucket": min(sizes)}
+    row = {"shape": f"{len(sizes)} buckets, {n} elements (one step)",
+           "max_abs_err": err, "step_ms": median_ms(upd.step, flush),
+           "ms": median_ms(kernel, flush),
+           "library_ms": median_ms(library, flush),
+           "step_span_ms": span_ms(upd.step, flush),
+           "span_ms": span_ms(kernel, flush),
+           "library_span_ms": span_ms(library, flush),
+           "plain_ms": median_ms(plain, flush), "bound_ms": bound_ms,
+           "bound_by": bound_by, "largest_bucket": max(sizes),
+           "smallest_bucket": min(sizes)}
+    return row
 
 
 def phase_train_kernels(dev, gen, buckets):
@@ -729,10 +806,14 @@ def phase_train_kernels(dev, gen, buckets):
         "wd 0 and 0.01, n = 1,000,003")
     fused = _fused_timing(dev, gen, buckets, flush)
     rows["fused_update"] = fused
-    log(f"fused_update, one step's {fused['shape']}: {fused['ms']:.4f} ms "
-        f"(plain {fused['plain_ms']:.4f}, torch._fused_adamw_ "
-        f"{fused['library_ms']:.4f}, bound {fused['bound_ms']:.4f} "
-        f"{fused['bound_by']})")
+    log(f"fused_update, one step's {fused['shape']}, one launch, device "
+        f"time (from an idle card): as FusedFlatUpdater.step() calls it "
+        f"{fused['step_ms']:.4f} ms ({fused['step_span_ms']:.4f}), the "
+        f"kernel alone {fused['ms']:.4f} ({fused['span_ms']:.4f}), "
+        f"torch._fused_adamw_ {fused['library_ms']:.4f} "
+        f"({fused['library_span_ms']:.4f}); plain {fused['plain_ms']:.4f}; "
+        f"bound {fused['bound_ms']:.4f} {fused['bound_by']}, the kernel at "
+        f"{100 * fused['bound_ms'] / fused['ms']:.1f}% of it")
     del flush
     return rows
 
@@ -800,7 +881,7 @@ def phase_train(cfg, dev, seed, warmup=2, steps=5, b=TRAIN_B, s=TRAIN_S):
     want = {"flash_fwd": cfg.num_layers * steps,
             "flash_dq": cfg.num_layers * steps,
             "flash_dkv": cfg.num_layers * steps,
-            "fused_update": len(step.buckets) * steps}
+            "fused_update": steps}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     return counts, step, ids, labels
@@ -859,7 +940,7 @@ def phase_train_profile(step, ids, labels):
     log(f"train profile: one step, wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy, "
         f"{100 * (1 - busy_us / wall_us):.1f}% idle), "
-        f"{sum(e.count for e in kernels)} kernels")
+        f"{sum(e.count for e in kernels)} kernels per step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / busy_us:5.1f}% "
@@ -966,6 +1047,13 @@ def phase_infer_kernels(dev, gen, shapes):
                               for shape, n in quant],
             "quant_matmul": [_qmm_case(dev, gen, mkn, n, flush)
                              for mkn, n in qmm]}
+    conv = [r for r in rows["quantize_int8"] if r["launches_at_shape"]]
+    log(f"quantize_int8, one conversion: "
+        f"{sum(r['launches_at_shape'] * r['ms'] for r in conv):.4f} ms over "
+        f"{sum(r['launches_at_shape'] for r in conv)} launches ("
+        + ", ".join(f"{r['launches_at_shape']} x {r['ms']:.4f} at "
+                    f"{r['shape']}" for r in conv)
+        + f"), bound {sum(r['launches_at_shape'] * r['bound_ms'] for r in conv):.4f} ms")
     q, k, v = (torch.randn(*FLASH_BERT, device=dev, generator=gen)
                for _ in range(3))
     errs, _, _ = flash_fwd_vs_plain(q, k, v, False)
@@ -1667,7 +1755,7 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
 def _numbers(r) -> dict:
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "launches_at_shape",
-            "err_over_limit", "clocks")
+            "err_over_limit", "step_ms", "step_span_ms", "clocks")
     return {k: r[k] for k in keys if k in r}
 
 

@@ -1,25 +1,33 @@
-// Fused optimizer updates over a flat parameter bucket, for Hopper (sm_90a).
+// Fused optimizer updates over flat parameter buckets, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/fused_update.py:
-//   fused_update         <- _plain_kernel (fused_update.py:122, launched by
-//                           fused_update_flat :223)
+//   fused_update_buckets <- _plain_kernel (fused_update.py:122, launched by
+//                           fused_update_flat :223, once per bucket by
+//                           paddle_tpu/optimizer/fused.py:189-214)
 //   fused_dequant_update <- _dequant_kernel (fused_update.py:134, launched
 //                           by fused_dequant_update_flat :283)
 // Plain PyTorch versions and wrappers: paddle_tpu_torch/ops/fused_update.py
-// (reference_update_flat / fused_update, reference_dequant_update_flat /
+// (buckets_plain / fused_update_buckets, reference_dequant_update_flat /
 // fused_dequant_update).
 //
-// What they compute: one SGD / Momentum / Adam / AdamW step over n fp32
+// What they compute: one SGD / Momentum / Adam / AdamW step over fp32
 // elements, in place: p (and the slots) are read, updated and written
 // back. The arithmetic is _update_math (fused_update.py:92-119) op for
 // op, each op rounded once: __fmul_rn / __fadd_rn / __fsub_rn /
 // __fdiv_rn / __fsqrt_rn keep nvcc from contracting a*b+c into an FMA,
 // so the result is bit-identical to the plain PyTorch version, whose
-// kernels round every op. The scalars lr*lr_mult, 1-beta1^t and
-// 1-beta2^t (svec, _scalar_prep :181-191) are read from device memory,
-// so the host never waits for the card between steps. Hyperparameters
-// arrive as fp32 values the host rounded from Python floats, as PyTorch
-// rounds a Python scalar operand.
+// kernels round every op. Hyperparameters arrive as fp32 values the host
+// rounded from Python floats, as PyTorch rounds a Python scalar operand.
+//
+// fused_update_buckets runs one step of an updater over all of its
+// buckets in one launch. It walks a table in device memory, one Bucket
+// per flat bucket (pointers, size, wd, lr_mult, beta powers in and out),
+// built once by the caller and rebuilt only when a pointer changes. The
+// scalar prep of _scalar_prep (:181-191) runs here too, per bucket, with
+// PyTorch's fp32 ops: lr * lr_mult, beta_pow * beta, 1 - beta_pow * beta.
+// Thread b of the launch writes bucket b's stepped powers to pow_out,
+// which no thread of the launch reads (the caller alternates two
+// buffers), so no thread can read a power another has already stepped.
 //
 // fused_dequant_update takes, instead of the gradient, the gradient wire's
 // payload summed over `world` ranks: int8 values in an int32 carrier or
@@ -28,22 +36,24 @@
 // block_decode's chain, q * scale[i / block_size] (__fmul_rn), then
 // / world (__fdiv_rn, a true division: the plain version divides by a
 // device tensor), then + residual; the update follows in registers. The
-// decoded gradient never reaches device memory.
+// decoded gradient never reaches device memory. It runs once per bucket.
 //
 // What bounds them: device-memory bytes. AdamW reads p, g (or the 4-byte
 // carrier), m1, m2 and writes p, m1, m2: 28 bytes per element for ~20
 // operations (32 with a residual, plus the scale vector). All of GPT-125M
 // (124.5 M parameters) moves 3.49 GB per step, 1.04 ms at 3.35 TB/s; the
 // int32 carrier is as wide as the fp32 gradient, so the two kernels share
-// the bound.
+// the bound (times on the card: PERF.md).
 //
 // Design: one thread per 4 consecutive elements, each array read and
 // written as one 16-byte vector per thread (the wrappers check 16-byte
-// alignment); the ragged tail (n % 4) is a scalar loop in the last
-// thread. Nothing is staged in shared memory: each element is touched
-// once. The dequantizing kernel reads one scale for the thread's 4
-// elements when they share a block, else one per element, so every
-// block_size is taken.
+// alignment); a bucket's ragged tail (n % 4) is a scalar loop in its last
+// thread. The update kernel's grid covers the chunks of every bucket, one
+// after the other; a thread finds its chunk's bucket by a binary search
+// over the table's first chunks. Nothing is staged in shared memory: each
+// element is touched once. The dequantizing kernel reads one scale for
+// the thread's 4 elements when they share a block, else one per element,
+// so every block_size is taken.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,19 +106,56 @@ __device__ __forceinline__ void update_one(float& p, float g, float& s0,
   }
 }
 
+// One bucket of a fused_update_buckets launch. ops/fused_update.py
+// (BucketTable) packs the same 72-byte layout as nine 8-byte words.
+struct Bucket {
+  float* p;
+  const float* g;
+  float* s0;              // velocity or moment1 (null for sgd)
+  float* s1;              // moment2 (null unless adam / adamw)
+  const float* pow_in;    // adam: [beta1^t, beta2^t]
+  float* pow_out;         // adam: [beta1^(t+1), beta2^(t+1)], written
+  int64_t n;
+  int64_t start;          // the bucket's first chunk in the launch
+  float wd;
+  float lm;               // lr_mult
+};
+static_assert(sizeof(Bucket) == 72, "BucketTable packs 9 words a bucket");
+
+// One thread per 4-element chunk c of the launch's `total`, in bucket
+// order; thread b < nb also steps bucket b's beta powers (adam).
 template <int KIND>
 __global__ void __launch_bounds__(kThreads)
-update_kernel(float* __restrict__ p, const float* __restrict__ g,
-              float* __restrict__ s0, float* __restrict__ s1,
-              const float* __restrict__ svec, int64_t n, Hyper h) {
+update_kernel(const Bucket* __restrict__ table, int nb, int64_t total,
+              const float* __restrict__ lr_dev, Hyper h) {
   constexpr bool kSlot0 = KIND != kSgd;
   constexpr bool kSlot1 = KIND == kAdam || KIND == kAdamW;
-  const int64_t i =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (i >= n) return;
-  const float lr = svec[0];
-  const float c1 = kSlot1 ? svec[1] : 1.0f;
-  const float c2 = kSlot1 ? svec[2] : 1.0f;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (kSlot1 && c < nb) {
+    const Bucket& e = table[c];
+    e.pow_out[0] = __fmul_rn(e.pow_in[0], h.h0);
+    e.pow_out[1] = __fmul_rn(e.pow_in[1], h.h1);
+  }
+  if (c >= total) return;
+  int lo = 0, hi = nb - 1;          // the last bucket starting at or before c
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (table[mid].start <= c) lo = mid; else hi = mid - 1;
+  }
+  const Bucket& e = table[lo];
+  const int64_t n = e.n, i = (c - e.start) * 4;
+  float* __restrict__ p = e.p;
+  const float* __restrict__ g = e.g;
+  float* __restrict__ s0 = e.s0;
+  float* __restrict__ s1 = e.s1;
+  h.wd = e.wd;
+  h.has_wd = e.wd != 0.0f;
+  const float lr = __fmul_rn(*lr_dev, e.lm);     // _scalar_prep's fp32 ops
+  const float c1 =
+      kSlot1 ? __fsub_rn(1.0f, __fmul_rn(e.pow_in[0], h.h0)) : 1.0f;
+  const float c2 =
+      kSlot1 ? __fsub_rn(1.0f, __fmul_rn(e.pow_in[1], h.h1)) : 1.0f;
   if (i + 4 <= n) {
     float4 pv = *reinterpret_cast<const float4*>(p + i);
     const float4 gv = *reinterpret_cast<const float4*>(g + i);
@@ -228,30 +275,42 @@ inline unsigned int grid_for(int64_t n) {
 
 }  // namespace
 
-// p, g, s0, s1: fp32 [n] (s0: velocity or moment1, s1: moment2; unused
-// slots may be null); svec: fp32 [1] (sgd, momentum) or [3] (adam, adamw)
-// on the device. kind: 0 sgd, 1 momentum, 2 adam, 3 adamw. Updates p and
-// the slots in place. Returns a cudaError_t code.
-extern "C" int fused_update(void* p, const void* g, void* s0, void* s1,
-                            const void* svec, int64_t n, int kind, float wd,
-                            float h0, float h1, float om0, float om1,
-                            float eps, int nesterov, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  const Hyper h{wd, wd != 0.0f, h0, h1, om0, om1, eps, nesterov};
+// One update of every bucket in `table` (device memory, nb Bucket
+// entries whose chunks start at 0 and run back to back, total_chunks in
+// all), in place. lr: fp32 [1] on the device, the step's learning rate.
+// kind: 0 sgd, 1 momentum, 2 adam, 3 adamw; h0, h1: (mu, -) or (beta1,
+// beta2); om0, om1: 1 - h0, 1 - h1 rounded on the host. Adam's stepped
+// powers go to each bucket's pow_out. Returns a cudaError_t code.
+extern "C" int fused_update_buckets(const void* table, int nb,
+                                    int64_t total_chunks, const void* lr,
+                                    int kind, float h0, float h1, float om0,
+                                    float om1, float eps, int nesterov,
+                                    void* stream) {
+  if (nb <= 0) return static_cast<int>(cudaSuccess);
+  if (table == nullptr || lr == nullptr || total_chunks < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Hyper h{0.0f, 0, h0, h1, om0, om1, eps, nesterov};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // a thread per chunk, and at least one per bucket for its powers
+  const int64_t threads = total_chunks > nb ? total_chunks : nb;
+  const auto grid =
+      static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
   return with_kind(kind, [&](auto k) {
-    update_kernel<decltype(k)::value><<<grid_for(n), kThreads, 0, st>>>(
-        static_cast<float*>(p), static_cast<const float*>(g),
-        static_cast<float*>(s0), static_cast<float*>(s1),
-        static_cast<const float*>(svec), n, h);
+    update_kernel<decltype(k)::value><<<grid, kThreads, 0, st>>>(
+        static_cast<const Bucket*>(table), nb, total_chunks,
+        static_cast<const float*>(lr), h);
   });
 }
 
-// As fused_update, with the gradient decoded from the summed wire payload:
-// q: [>= n] int32 (q_is_float 0) or fp32 (q_is_float 1) carrier; scales:
-// fp32 [ceil(n / bs)], element i's scale at i / bs; residual: fp32 [n] or
-// null; world: the ranks the payload was summed over. Returns a
-// cudaError_t code.
+// One bucket's update (fused_update_buckets' math, its scalars prepared
+// by the caller) with the gradient decoded from the summed wire payload:
+// p, s0, s1 fp32 [n] (unused slots may be null); svec: fp32 [1] (sgd,
+// momentum) or [3] (adam, adamw) on the device, [lr * lr_mult,
+// 1 - beta1^t, 1 - beta2^t]; wd, h0, h1, om0, om1, eps, nesterov as in
+// fused_update_buckets; q: [>= n] int32 (q_is_float 0) or fp32
+// (q_is_float 1) carrier; scales: fp32 [ceil(n / bs)], element i's scale
+// at i / bs; residual: fp32 [n] or null; world: the ranks the payload was
+// summed over. Returns a cudaError_t code.
 extern "C" int fused_dequant_update(void* p, const void* q, int q_is_float,
                                     const void* scales, const void* residual,
                                     void* s0, void* s1, const void* svec,

@@ -19,11 +19,27 @@
 //   to even as jnp.round does. The result is bit-identical to the plain
 //   version and to the reference.
 //   Bound: device-memory bytes (read w once, write q and scales: 5 bytes per
-//   element; 11.8 MB at [3072, 768], 3.5 us at 3.35 TB/s). Design: one block
-//   of 32 adjacent columns x 8 row groups, so each warp reads 128 contiguous
-//   bytes of a row; the 8 partial maxima meet in shared memory, and the same
-//   block then writes q for its columns (the second read of w mostly hits
-//   L2). Simple, not fast: only n / 32 blocks run.
+//   element; 11.8 MB at [3072, 768], 3.5 us at 3.35 TB/s). Design: the k
+//   reduction is split over a thread-block cluster. A block owns a tile of
+//   32 adjacent columns and a slab of ceil(k / 8) rows; the 8 blocks of a
+//   column tile form one cluster along k (cudaLaunchKernelEx), so n = 768
+//   runs 24 x 8 = 192 blocks on the 132 SMs. Each block reads its slab
+//   once, 8 threads a row with 16-byte loads (a warp reads four 128-byte
+//   rows), kQBatch rows a thread in flight, keeps it in shared memory
+//   and reduces its column maxima (warp shuffles, then the 8 warps through
+//   shared memory). The blocks of the cluster read each other's 32 partial
+//   maxima through distributed shared memory (map_shared_rank) after a
+//   cluster barrier; each block then quantizes its own slab out of shared
+//   memory and stores the int8 values as packed 4-byte words, and cluster
+//   rank 0 writes the scales. A second cluster barrier, arrived at once
+//   the peers' maxima are read and waited on at exit, keeps every block's
+//   maxima alive until its peers have read them. So w is read from device
+//   memory once. When a slab does not fit the shared-memory budget
+//   (k > 8 * kQMaxSlabRows) the block reads its slab again to quantize it,
+//   mostly from L2. n % 4 != 0 or an unaligned w falls back to element
+//   loads and byte stores. What bounds it at BERT-base's shapes is
+//   latency, not bytes: the two dependent passes and the barriers between
+//   them take ~9 us even at [768, 2] (PERF.md).
 //
 // quant_matmul: x fp32 [m, k] @ (q int8 [k, n] * scales [n]) -> fp32 [m, n].
 //   fp32 accumulator over k, multiplied by the column's scale once at the
@@ -63,6 +79,7 @@
 //   atomics. Any m, n, k >= 1: rows, columns and k past the end are
 //   zero-filled and never stored.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,8 +89,17 @@
 
 namespace {
 
-constexpr int kQCols = 32;   // columns per quantize block (a warp's width)
-constexpr int kQRows = 8;    // row groups per quantize block
+namespace cg = cooperative_groups;
+
+constexpr int kQCols = 32;           // columns per quantize block
+constexpr int kQVecs = kQCols / 4;     // threads a row, 4 columns each
+constexpr int kQThreads = 256;
+constexpr int kQRowStep = kQThreads / kQVecs;   // rows a pass
+static_assert(kQCols % 4 == 0 && 32 % kQVecs == 0, "whole rows a warp");
+// rows a thread loads before it uses any (loads in flight a thread)
+constexpr int kQBatch = 4;
+constexpr int kQCluster = 8;    // blocks along k per column tile (portable)
+constexpr int kQMaxSlabRows = 768;   // 96 KB of shared memory a block
 
 __device__ __forceinline__ float hash_uniform(uint32_t idx, uint32_t seed) {
   uint32_t h = (idx * 2654435761u) ^ seed;
@@ -85,42 +111,170 @@ __device__ __forceinline__ float hash_uniform(uint32_t idx, uint32_t seed) {
   return __uint2float_rn(h >> 8) * (1.0f / 16777216.0f);   // exact
 }
 
+// w[r, c .. c + 3], zero past column n
+__device__ __forceinline__ float4 quant_load(const float* __restrict__ w,
+                                             int r, int c, int n, bool vec) {
+  const float* row = w + static_cast<size_t>(r) * n;
+  if (vec && c + 4 <= n) return *reinterpret_cast<const float4*>(row + c);
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = c + i < n ? row[c + i] : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
 template <bool STOCHASTIC>
-__global__ void __launch_bounds__(kQCols * kQRows)
+__device__ __forceinline__ uint32_t quant_one(float w, float scale, int r,
+                                              int c, int n, uint32_t seed) {
+  const float x = __fdiv_rn(w, scale);
+  float v;
+  if (STOCHASTIC) {
+    const uint32_t flat = static_cast<uint32_t>(r) *
+                          static_cast<uint32_t>(n) +
+                          static_cast<uint32_t>(c);
+    v = floorf(__fadd_rn(x, hash_uniform(flat, seed)));
+  } else {
+    v = rintf(x);
+  }
+  return static_cast<uint8_t>(
+      static_cast<int8_t>(fminf(fmaxf(v, -127.0f), 127.0f)));
+}
+
+// Grid (column tiles, kQCluster), clusters of (1, kQCluster): block rank
+// r of a tile owns rows [r * slab, (r + 1) * slab). STAGED: the slab is
+// kept in dynamic shared memory (slab * kQCols floats) between the two
+// passes; otherwise the second pass reads w again.
+template <bool STOCHASTIC, bool STAGED>
+__global__ void __launch_bounds__(kQThreads)
 quantize_kernel(const float* __restrict__ w, int8_t* __restrict__ q,
-                float* __restrict__ scales, int k, int n, uint32_t seed) {
-  __shared__ float part[kQRows][kQCols];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = blockIdx.x * kQCols + tx;
-  float amax = 0.0f;
-  if (col < n)
-    for (int r = ty; r < k; r += kQRows)
-      amax = fmaxf(amax, fabsf(w[static_cast<size_t>(r) * n + col]));
-  part[ty][tx] = amax;
-  __syncthreads();
-  if (ty == 0) {
-    for (int i = 1; i < kQRows; ++i) amax = fmaxf(amax, part[i][tx]);
-    const float scale = fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-12f);
-    part[0][tx] = scale;
-    if (col < n) scales[col] = scale;
-  }
-  __syncthreads();
-  if (col >= n) return;
-  const float scale = part[0][tx];
-  for (int r = ty; r < k; r += kQRows) {
-    const size_t i = static_cast<size_t>(r) * n + col;
-    const float x = __fdiv_rn(w[i], scale);
-    float v;
-    if (STOCHASTIC) {
-      const uint32_t flat = static_cast<uint32_t>(r) *
-                            static_cast<uint32_t>(n) +
-                            static_cast<uint32_t>(col);
-      v = floorf(__fadd_rn(x, hash_uniform(flat, seed)));
-    } else {
-      v = rintf(x);
+                float* __restrict__ scales, int k, int n, int slab,
+                uint32_t seed, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float warp_max[kQThreads / 32][kQCols];
+  __shared__ float part_max[kQCols];      // read by the cluster's peers
+  __shared__ float col_scale[kQCols];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, c4 = tid % kQVecs, rg = tid / kQVecs;
+  const int col = blockIdx.x * kQCols + 4 * c4;
+  const int r0 = rank * slab, r1 = min(k, r0 + slab);
+  float4* tile = reinterpret_cast<float4*>(smem);   // [slab][kQVecs]
+  float m0 = 0.0f, m1 = 0.0f, m2 = 0.0f, m3 = 0.0f;
+  for (int rb = r0 + rg; rb < r1; rb += kQBatch * kQRowStep) {
+    float4 v[kQBatch];
+#pragma unroll
+    for (int j = 0; j < kQBatch; ++j) {
+      const int r = rb + j * kQRowStep;
+      v[j] = r < r1 ? quant_load(w, r, col, n, vec)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-    q[i] = static_cast<int8_t>(fminf(fmaxf(v, -127.0f), 127.0f));
+#pragma unroll
+    for (int j = 0; j < kQBatch; ++j) {
+      const int r = rb + j * kQRowStep;
+      if (STAGED && r < r1) tile[(r - r0) * kQVecs + c4] = v[j];
+      m0 = fmaxf(m0, fabsf(v[j].x));
+      m1 = fmaxf(m1, fabsf(v[j].y));
+      m2 = fmaxf(m2, fabsf(v[j].z));
+      m3 = fmaxf(m3, fabsf(v[j].w));
+    }
   }
+  // lanes kQVecs apart hold the same columns (max is exact in any order)
+#pragma unroll
+  for (int off = kQVecs; off < 32; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xFFFFFFFFu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xFFFFFFFFu, m1, off));
+    m2 = fmaxf(m2, __shfl_xor_sync(0xFFFFFFFFu, m2, off));
+    m3 = fmaxf(m3, __shfl_xor_sync(0xFFFFFFFFu, m3, off));
+  }
+  const int lane = tid & 31, warp = tid >> 5;
+  if (lane < kQVecs) {
+    warp_max[warp][4 * lane] = m0;
+    warp_max[warp][4 * lane + 1] = m1;
+    warp_max[warp][4 * lane + 2] = m2;
+    warp_max[warp][4 * lane + 3] = m3;
+  }
+  __syncthreads();
+  if (tid < kQCols) {
+    float m = warp_max[0][tid];
+#pragma unroll
+    for (int i = 1; i < kQThreads / 32; ++i) m = fmaxf(m, warp_max[i][tid]);
+    part_max[tid] = m;
+  }
+  cluster.sync();                        // every block's part_max is ready
+  if (tid < kQCols) {
+    float amax = 0.0f;
+#pragma unroll
+    for (int b = 0; b < kQCluster; ++b)
+      amax = fmaxf(amax, cluster.map_shared_rank(part_max, b)[tid]);
+    const float scale = fmaxf(__fmul_rn(amax, 1.0f / 127.0f), 1e-12f);
+    col_scale[tid] = scale;
+    const int c = blockIdx.x * kQCols + tid;
+    if (rank == 0 && c < n) scales[c] = scale;
+  }
+  // done with the peers' part_max: say so now, wait for them at the end
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  __syncthreads();
+  const float s0 = col_scale[4 * c4], s1 = col_scale[4 * c4 + 1];
+  const float s2 = col_scale[4 * c4 + 2], s3 = col_scale[4 * c4 + 3];
+  if (col < n) {
+    for (int rb = r0 + rg; rb < r1; rb += kQBatch * kQRowStep) {
+      float4 v[kQBatch];
+#pragma unroll
+      for (int j = 0; j < kQBatch; ++j) {
+        const int r = rb + j * kQRowStep;
+        if (r < r1)
+          v[j] = STAGED ? tile[(r - r0) * kQVecs + c4]
+                        : quant_load(w, r, col, n, vec);
+      }
+#pragma unroll
+      for (int j = 0; j < kQBatch; ++j) {
+        const int r = rb + j * kQRowStep;
+        if (r >= r1) break;
+        const uint32_t word =
+            quant_one<STOCHASTIC>(v[j].x, s0, r, col, n, seed) |
+            quant_one<STOCHASTIC>(v[j].y, s1, r, col + 1, n, seed) << 8 |
+            quant_one<STOCHASTIC>(v[j].z, s2, r, col + 2, n, seed) << 16 |
+            quant_one<STOCHASTIC>(v[j].w, s3, r, col + 3, n, seed) << 24;
+        int8_t* out = q + static_cast<size_t>(r) * n + col;
+        if (vec && col + 4 <= n) {
+          *reinterpret_cast<uint32_t*>(out) = word;
+        } else {
+          for (int i = 0; i < 4 && col + i < n; ++i)
+            out[i] = static_cast<int8_t>((word >> (8 * i)) & 0xFFu);
+        }
+      }
+    }
+  }
+  // no block leaves while a peer may still read its part_max
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <bool STOCHASTIC, bool STAGED>
+cudaError_t quantize_launch(const float* w, int8_t* q, float* scales, int k,
+                            int n, int slab, uint32_t seed, int vec,
+                            cudaStream_t st) {
+  auto kernel = quantize_kernel<STOCHASTIC, STAGED>;
+  const size_t smem =
+      STAGED ? static_cast<size_t>(slab) * kQCols * sizeof(float) : 0;
+  if (STAGED) {   // the slab plus the static arrays may pass 48 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kQMaxSlabRows * kQCols * sizeof(float)));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + kQCols - 1) / kQCols, kQCluster, 1);
+  cfg.blockDim = dim3(kQThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = kQCluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, w, q, scales, k, n, slab, seed,
+                            vec);
 }
 
 constexpr int kBN = 128, kBK = 32;   // matmul tile columns, k-step
@@ -380,15 +534,24 @@ extern "C" int quantize_int8(const void* w, void* q, void* scales, int k,
                              void* stream) {
   if (k <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kQCols - 1) / kQCols), block(kQCols, kQRows);
   auto* wp = static_cast<const float*>(w);
   auto* qp = static_cast<int8_t*>(q);
   auto* sp = static_cast<float*>(scales);
-  if (stochastic)
-    quantize_kernel<true><<<grid, block, 0, st>>>(wp, qp, sp, k, n, seed);
+  const int slab = (k + kQCluster - 1) / kQCluster;
+  const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  cudaError_t err;
+  if (slab <= kQMaxSlabRows)
+    err = stochastic
+              ? quantize_launch<true, true>(wp, qp, sp, k, n, slab, seed, vec, st)
+              : quantize_launch<false, true>(wp, qp, sp, k, n, slab, seed, vec, st);
   else
-    quantize_kernel<false><<<grid, block, 0, st>>>(wp, qp, sp, k, n, seed);
-  return static_cast<int>(cudaGetLastError());
+    err = stochastic
+              ? quantize_launch<true, false>(wp, qp, sp, k, n, slab, seed, vec, st)
+              : quantize_launch<false, false>(wp, qp, sp, k, n, slab, seed, vec, st);
+  // a refused launch also sets the last error: take it, so the next
+  // launch does not report it
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // Number of k slices quant_matmul splits (m, n, k) into; the caller

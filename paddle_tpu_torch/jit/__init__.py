@@ -10,9 +10,9 @@
 One call runs the forward and the loss, autograd's backward, and the
 optimizer update. The reference compiles all of it into one XLA program
 with a per-parameter update; the port runs eagerly and sends the update
-through the fused kernel, one launch per flat bucket
-(``optimizer.FusedFlatUpdater``), so a step issues a few dozen update
-launches instead of ~12 per parameter. The parameters are grouped by
+through the fused kernel, one launch per step over every flat bucket
+(``optimizer.FusedFlatUpdater``), instead of ~12 launches per
+parameter. The parameters are grouped by
 (lr_mult, weight decay) before bucketing, so every bucket is uniform and
 per-parameter hyperparameters work as in the reference; with one group
 the bucket plan is the reference's. The result equals the reference's

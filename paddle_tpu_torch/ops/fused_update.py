@@ -1,16 +1,19 @@
 """Fused optimizer update over a flat bucket (reference:
 ``paddle_tpu/ops/pallas/fused_update.py`` ``FUSED_RULES``, ``rule_spec``,
 ``_update_math``, ``_scalar_prep``, ``fused_update_flat``,
-``fused_dequant_update_flat`` (lines 134-154, 239-300),
-``reference_update_flat`` and ``bucket_update_fn``).
+``fused_dequant_update_flat`` (lines 134-154, 239-300) and
+``reference_update_flat``).
 
-``fused_update`` is the kernel wrapper (``csrc/fused_update.cu``): SGD,
-Momentum, Adam or AdamW over one flat fp32 bucket, **in place** on the
-parameters and moment slots (the reference is functional; the port
-updates in place so a step allocates nothing). Dispatch is by where the
-tensors lie: a CPU tensor takes the plain version (``_update_math`` in
+``fused_update_buckets`` is the kernel wrapper the optimizer runs
+(``csrc/fused_update.cu``): SGD, Momentum, Adam or AdamW over every flat
+fp32 bucket of a :class:`BucketTable`, in one launch, **in place** on
+the parameters and moment slots (the reference is functional and makes
+one call per bucket; the port updates in place so a step allocates
+nothing). ``fused_update_flat``, the reference's one-bucket signature,
+runs it on a table of one. Dispatch is by where the tensors lie: a CPU
+tensor takes the plain version (``buckets_plain``, ``_update_math`` in
 PyTorch, results copied back), a CUDA tensor the kernel or an error.
-``fused_update.launches`` counts kernel launches.
+``fused_update_buckets.launches`` counts the kernel's launches.
 
 The plain version repeats the reference's op order exactly and divides
 only by tensors: on the card PyTorch turns a division by a Python scalar
@@ -20,17 +23,22 @@ card kernel and plain version agree bit for bit. Across frameworks XLA
 may contract ``a*b+c`` on the CPU, so the port agrees with a compiled
 JAX update to a few ulp (the reference's own contract).
 
-Scalars stay on the device: ``scalar_prep`` builds ``svec`` =
-``[lr*lm, 1-beta1^t, 1-beta2^t]`` with tensor ops and the kernel reads
-it through a pointer, so a step never waits for the card.
+Scalars stay on the device. ``fused_update_buckets`` computes each
+bucket's ``lr*lm``, ``beta_pow*beta`` and ``1 - beta_pow*beta`` in the
+kernel with ``scalar_prep``'s fp32 ops, from the device ``lr`` and the
+table's beta powers, and writes the stepped powers to a second buffer
+(the table alternates two, so no thread reads a power another thread
+has stepped). A step never waits for the card.
 
 ``fused_dequant_update`` is the second kernel wrapper: the same update
 fed by the gradient wire's summed payload (``grad_comm``
 ``reduce_bucket_payload``: an int32 or fp32 carrier and one fp32 scale
 per ``block_size`` elements), decoded inside the kernel as
 ``q * scale / world (+ residual)``, so the decoded gradient never
-reaches device memory. Its plain version, ``reference_dequant_update_flat``,
-follows the reference's ``_dequant_kernel`` op for op. Unlike the
+reaches device memory. It runs once per bucket, its scalars from
+``scalar_prep`` (``svec`` = ``[lr*lm, 1-beta1^t, 1-beta2^t]``, tensor
+ops on the device) read through a pointer. Its plain version,
+``reference_dequant_update_flat``, follows the reference's ``_dequant_kernel`` op for op. Unlike the
 reference, the port does not fold the bucket into 128-lane rows: the
 kernel reads ``scale[i // block_size]`` itself, so every ``block_size``
 runs it (the reference falls back to a decode and the plain update when
@@ -42,18 +50,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from collections import Counter
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..framework.device import require_sm90
-from ..framework.numeric import div_rn, n_scale_blocks
+from ..framework.numeric import div_rn, n_scale_blocks, sqrt_rn
 from ._build import load_library
 
 __all__ = ["FUSED_RULES", "KERNEL_SOURCE", "rule_spec", "slot_names",
-           "scalar_prep", "update_math", "fused_update", "fused_update_flat",
-           "reference_update_flat", "bucket_update_fn", "launch_counts",
+           "scalar_prep", "update_math", "fused_update_flat",
+           "BucketTable", "fused_update_buckets", "buckets_plain",
+           "reference_update_flat", "launch_counts",
            "reset_launch_counts", "dequant_grad",
            "reference_dequant_update_flat", "fused_dequant_update",
            "fused_dequant_update_flat", "dequant_launch_counts"]
@@ -110,7 +120,7 @@ def update_math(p, g, slot_vals, svec, *, kind, hyper, wd):
     m2 = beta2 * slot_vals[1] + (1 - beta2) * g * g
     mhat = m1 / svec[1]
     vhat = m2 / svec[2]
-    new_p = p - svec[0] * mhat / (torch.sqrt(vhat) + eps)
+    new_p = p - svec[0] * mhat / (sqrt_rn(vhat) + eps)
     if wd and kind == "adamw":
         new_p = new_p - svec[0] * wd * p
     return new_p, [m1, m2]
@@ -150,9 +160,9 @@ def _lib(device_index: int) -> ctypes.CDLL:
     require_sm90(torch.device("cuda", device_index))
     lib = load_library("fused_update")
     p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
-    lib.fused_update.argtypes = [p, p, p, p, p, ctypes.c_int64, i, f, f, f,
-                                 f, f, f, i, p]
-    lib.fused_update.restype = ctypes.c_int
+    lib.fused_update_buckets.argtypes = [p, i, ctypes.c_int64, p, i, f, f, f,
+                                         f, f, i, p]
+    lib.fused_update_buckets.restype = ctypes.c_int
     lib.fused_dequant_update.argtypes = [p, p, i, p, p, p, p, p,
                                          ctypes.c_int64, ctypes.c_int64, f,
                                          i, f, f, f, f, f, f, i, p]
@@ -160,7 +170,7 @@ def _lib(device_index: int) -> ctypes.CDLL:
     return lib
 
 
-def _check_flat(name, t, n, dev, fp32=True):
+def _check_flat(name, t, n, dev, fp32=True, aligned=True):
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
     if fp32 and t.dtype != torch.float32:
@@ -168,7 +178,7 @@ def _check_flat(name, t, n, dev, fp32=True):
     if t.dim() != 1 or t.numel() != n:
         raise ValueError(f"{name} must be a flat [{n}] tensor, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
+    if not t.is_contiguous() or (aligned and t.data_ptr() % 16):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned "
                          f"for the kernel's vector loads")
 
@@ -201,82 +211,179 @@ def _slot_ptrs(slot_list):
     return [s.data_ptr() for s in slot_list] + [None] * (2 - len(slot_list))
 
 
-def fused_update(flat_p, flat_g, slot_list, svec, *, kind: str, hyper: dict,
-                 wd: float = 0.0) -> None:
-    """One update of ``kind`` over a flat bucket, in place on ``flat_p``
-    and the slot tensors (``slot_names(kind)`` order); ``svec`` from
-    ``scalar_prep``."""
-    _check_rule(kind, slot_list)
-    if flat_p.device.type == "cpu":
-        new_p, new_slots = update_math(
-            flat_p.to(torch.float32), flat_g.to(torch.float32),
-            list(slot_list), svec, kind=kind, hyper=hyper, wd=wd)
-        flat_p.copy_(new_p)
-        for s, v in zip(slot_list, new_slots):
-            s.copy_(v)
-        return
-    if flat_p.device.type != "cuda":
-        raise ValueError(f"unsupported device {flat_p.device}")
-    dev, n = flat_p.device, flat_p.numel()
-    for name, t in (("p", flat_p), ("g", flat_g),
-                    *zip(slot_names(kind), slot_list)):
-        _check_flat(name, t, n, dev)
-    _check_svec(kind, svec, dev)
-    if not n:
-        return
-    ptrs = _slot_ptrs(slot_list)
-    with torch.cuda.device(dev):
-        rc = _lib(dev.index).fused_update(
-            flat_p.data_ptr(), flat_g.data_ptr(), ptrs[0], ptrs[1],
-            svec.data_ptr(), n, _KIND_ID[kind], *_hyper_args(kind, hyper, wd),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        raise RuntimeError(f"fused_update launch failed: CUDA error {rc}")
-    fused_update.launches += 1
+# ------------------------------------------------------ multi-bucket table
+# 8-byte words a bucket in the kernel's table (csrc/fused_update.cu
+# Bucket): p, g, s0, s1, pow_in, pow_out, n, first chunk, (wd, lm) as two
+# fp32 bit patterns
+TABLE_WORDS = 9
 
 
-fused_update.launches = 0
+def _f32_pair(a: float, b: float) -> int:
+    """Two Python floats rounded to fp32, packed little-endian into one
+    int64 word (the table's ``wd``, ``lm``)."""
+    return struct.unpack("<q", struct.pack("<ff", a, b))[0]
+
+
+class BucketTable:
+    """What ``fused_update_buckets`` walks: one entry per flat bucket
+    ``(p, g, slot tensors in slot_names(kind) order, wd, lm)``, the rule
+    ``kind`` and ``hyper`` shared by all of them, and for Adam(W) the
+    buckets' beta powers in two ``[B, 2]`` fp32 buffers used in turn: a
+    launch reads ``pows[parity]`` and writes ``pows[1 - parity]``.
+
+    ``words`` is the kernel's table, ``[2, B, TABLE_WORDS]`` int64 (one
+    row per parity: its pow_in and pow_out pointers swap), packed once
+    here; on the card it is copied to device memory once, through pinned
+    memory, without a wait. ``key`` holds every data pointer: a caller
+    whose tensors moved builds a new table."""
+
+    def __init__(self, kind: str, hyper: dict,
+                 entries: Sequence[Tuple[torch.Tensor, torch.Tensor,
+                                         Sequence[torch.Tensor], float,
+                                         float]]):
+        if kind not in _KIND_ID:
+            raise ValueError(f"kind must be one of {tuple(_KIND_ID)}, got "
+                             f"{kind!r}")
+        if not entries:
+            raise ValueError("a bucket table needs at least one bucket")
+        self.kind, self.hyper = kind, dict(hyper)
+        self.device = entries[0][0].device
+        on_card = self.device.type == "cuda"
+        if not on_card and self.device.type != "cpu":
+            raise ValueError(f"unsupported device {self.device}")
+        self.entries = []
+        for b, (p, g, arrs, wd, lm) in enumerate(entries):
+            _check_rule(kind, arrs)
+            n = p.numel()
+            for name, t in (("p", p), ("g", g),
+                            *zip(slot_names(kind), arrs)):
+                _check_flat(f"bucket {b} {name}", t, n, self.device,
+                            aligned=on_card)
+            self.entries.append((p, g, list(arrs), float(wd), float(lm)))
+        chunks = [(e[0].numel() + 3) // 4 for e in self.entries]
+        self.starts = [sum(chunks[:b]) for b in range(len(chunks))]
+        self.total_chunks = sum(chunks)
+        self.adam = kind in ("adam", "adamw")
+        self.pows = (torch.ones((2, len(self.entries), 2),
+                                dtype=torch.float32, device=self.device)
+                     if self.adam else None)
+        self._pow_views = ([[(self.pows[q, b, 0], self.pows[q, b, 1])
+                             for b in range(len(self.entries))]
+                            for q in (0, 1)] if self.adam else None)
+        self.parity = 0
+        self.words = torch.stack([self._pack(q) for q in (0, 1)])
+        self.device_words = (
+            self.words.pin_memory().to(self.device, non_blocking=True)
+            if on_card else self.words)
+        self.key = self.pointers(self.entries)
+
+    @staticmethod
+    def pointers(entries) -> tuple:
+        """Every data pointer of ``entries``, the table's identity."""
+        return tuple((p.data_ptr(), g.data_ptr(),
+                      *(s.data_ptr() for s in arrs))
+                     for p, g, arrs, *_ in entries)
+
+    def _pack(self, parity: int) -> torch.Tensor:
+        rows = []
+        for b, (p, g, arrs, wd, lm) in enumerate(self.entries):
+            slots = [s.data_ptr() for s in arrs] + [0] * (2 - len(arrs))
+            pin = pout = 0
+            if self.adam:
+                pin = self.pows[parity, b].data_ptr()
+                pout = self.pows[1 - parity, b].data_ptr()
+            rows.append([p.data_ptr(), g.data_ptr(), *slots, pin, pout,
+                         p.numel(), self.starts[b], _f32_pair(wd, lm)])
+        return torch.tensor(rows, dtype=torch.int64)
+
+    def powers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Each bucket's ``(beta1_pow, beta2_pow)``: 0-dim views of the
+        buffer the next launch reads (Adam(W) only)."""
+        return self._pow_views[self.parity]
+
+    def load_powers(self, powers) -> None:
+        """Set the powers the next launch reads from ``powers``, one
+        ``(beta1_pow, beta2_pow)`` pair of 0-dim tensors a bucket (a
+        device copy, no wait)."""
+        src = torch.stack([torch.stack([a, b]) for a, b in powers])
+        self.pows[self.parity].copy_(src.to(torch.float32))
+
+
+def buckets_plain(table: BucketTable, lr) -> None:
+    """Plain version of ``fused_update_buckets``: the table walked bucket
+    by bucket through ``reference_update_flat`` (``scalar_prep``, then
+    ``update_math``), results copied back in place; Adam's stepped powers
+    into the buffer the launch would write."""
+    names = slot_names(table.kind)
+    for b, (p, g, arrs, wd, lm) in enumerate(table.entries):
+        slots = dict(zip(names, arrs))
+        if table.adam:
+            slots["beta1_pow"], slots["beta2_pow"] = table.powers()[b]
+        new_p, new_s = reference_update_flat(p, g, slots, lr,
+                                             kind=table.kind,
+                                             hyper=table.hyper, lm=lm, wd=wd)
+        p.copy_(new_p)
+        for nm, s in zip(names, arrs):
+            s.copy_(new_s[nm])
+        if table.adam:
+            table.pows[1 - table.parity, b, 0] = new_s["beta1_pow"]
+            table.pows[1 - table.parity, b, 1] = new_s["beta2_pow"]
+    table.parity = 1 - table.parity
 
 
 def launch_counts() -> dict:
-    return {"fused_update": fused_update.launches}
+    return {"fused_update": fused_update_buckets.launches}
 
 
 def reset_launch_counts() -> None:
-    fused_update.launches = 0
+    fused_update_buckets.launches = 0
     fused_dequant_update.launches = 0
     fused_dequant_update.sizes.clear()
 
 
+def fused_update_buckets(table: BucketTable, lr) -> None:
+    """One update of ``table.kind`` over every bucket of ``table``, in
+    place, then the table's parity flips (``table.powers()`` are then the
+    stepped powers). ``lr``: 0-dim fp32 tensor on the table's device.
+    One kernel launch on the card, the plain walk on the CPU."""
+    if table.device.type == "cpu":
+        buckets_plain(table, lr)
+        return
+    dev = table.device
+    if lr.device != dev or lr.dtype != torch.float32 or lr.numel() != 1:
+        raise ValueError(f"lr must be a float32 scalar on {dev}")
+    with torch.cuda.device(dev):
+        rc = _lib(dev.index).fused_update_buckets(
+            table.device_words[table.parity].data_ptr(), len(table.entries),
+            table.total_chunks, lr.data_ptr(), _KIND_ID[table.kind],
+            *_hyper_args(table.kind, table.hyper, 0.0)[1:],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"fused_update_buckets launch failed: CUDA "
+                           f"error {rc}")
+    table.parity = 1 - table.parity
+    fused_update_buckets.launches += 1
+
+
+fused_update_buckets.launches = 0
+
+
 def fused_update_flat(flat_p, flat_g, slots: Dict, lr, *, kind: str,
                       hyper: dict, lm: float = 1.0, wd: float = 0.0):
-    """One fused update over a flat bucket: ``scalar_prep`` then
-    ``fused_update``. Updates ``flat_p`` and the moment slots in place and
-    returns ``(flat_p, new_slots)`` (moment slots the same tensors, beta
-    powers stepped)."""
-    svec, scalar_slots = scalar_prep(kind, hyper, slots, lr, lm)
+    """One fused update over a flat bucket (the reference's signature):
+    ``fused_update_buckets`` on a table of one. Updates ``flat_p`` and the
+    moment slots in place and returns ``(flat_p, new_slots)`` (moment
+    slots the same tensors, beta powers stepped)."""
     arrs = [slots[nm] for nm in slot_names(kind)]
-    fused_update(flat_p, flat_g.to(flat_p.dtype), arrs, svec, kind=kind,
-                 hyper=hyper, wd=wd)
+    table = BucketTable(kind, hyper,
+                        [(flat_p, flat_g.to(flat_p.dtype), arrs, wd, lm)])
+    if table.adam:
+        table.load_powers([(slots["beta1_pow"], slots["beta2_pow"])])
+    fused_update_buckets(table, lr)
     new_slots = dict(zip(slot_names(kind), arrs))
-    new_slots.update(scalar_slots)
+    if table.adam:
+        new_slots["beta1_pow"], new_slots["beta2_pow"] = table.powers()[0]
     return flat_p, new_slots
-
-
-def bucket_update_fn(optimizer, lm: float, wd: float):
-    """``f(flat_p, flat_g, slots, lr) -> (flat_p, new_slots)`` running
-    ``optimizer``'s rule through ``fused_update_flat``, or None when the
-    rule has no fused form."""
-    spec = rule_spec(optimizer)
-    if spec is None:
-        return None
-    kind, hyper = spec
-
-    def f(flat_p, flat_g, slots, lr):
-        return fused_update_flat(flat_p, flat_g, slots, lr, kind=kind,
-                                 hyper=hyper, lm=lm, wd=wd)
-
-    return f
 
 
 # ------------------------------------------------- dequantizing update

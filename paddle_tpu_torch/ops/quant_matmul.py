@@ -40,6 +40,9 @@ signature and raise when given (the reference's tile choice and autotune
 cache, ``ops/pallas/autotune.py``, are ROADMAP Queue A, "the rest":
 kernel tuner).
 On the card both kernels take fp32 input and give fp32 output.
+``quantize_int8`` launches as thread-block clusters (8 blocks along k per
+32-column tile, their column maxima exchanged through distributed shared
+memory), so w is read from device memory once.
 """
 from __future__ import annotations
 

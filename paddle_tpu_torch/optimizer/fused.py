@@ -6,7 +6,7 @@
     fused = FusedFlatUpdater(optimizer, model.parameters())
     fused.zero_grad()
     loss.backward()
-    fused.step()            # one fused_update kernel per bucket
+    fused.step()            # one fused_update_buckets kernel, all buckets
 
     # data parallel on the quantized gradient wire: the buckets' summed
     # payloads (GradCommunicator.reduce_bucket_payload) go in instead of
@@ -14,7 +14,11 @@
     fused.step_dequant(payloads, world, block_size)
 
 The update rules are elementwise, so one kernel over a bucket's flat
-buffer equals the per-parameter updates. Where the reference
+buffer equals the per-parameter updates. The reference runs one kernel
+per bucket; the port runs one launch a step over a table of all the
+buckets (``ops/fused_update.py`` ``BucketTable``), built at the first
+step and rebuilt only when a pointer in it changes, which is the
+``torch.cat`` fallback below. Where the reference
 concatenates each bucket's parameters and gradients every step and
 scatters the new values back, the port lays them out flat once: at
 construction each multi-parameter bucket gets one flat parameter buffer
@@ -28,7 +32,10 @@ without ``zero_grad()`` first) is gathered with one ``torch.cat``.
 Slots are flat per bucket (moments laid out like the bucket); the
 scalar slots (beta powers) are one 0-dim tensor per bucket, exact
 because every parameter starts from the same value and steps with the
-same betas.
+same betas. After ``step()`` they are views into the table's power
+buffers, which the kernel steps on the card; the buffers alternate, so
+a view is valid until the step after next (``_slots`` always holds the
+current ones).
 
 ``step_sharded`` (ZeRO) is not ported yet (ROADMAP Queue A 2, the ZeRO
 remainder).
@@ -41,8 +48,9 @@ import torch
 
 from ..distributed.grad_comm import build_buckets
 from ..observability.metrics import get_registry as _get_registry
-from ..ops.fused_update import (FUSED_RULES, bucket_update_fn,
-                                fused_dequant_update_flat, rule_spec)
+from ..ops.fused_update import (FUSED_RULES, BucketTable,
+                                fused_dequant_update_flat,
+                                fused_update_buckets, rule_spec, slot_names)
 from .optimizer import lr_mult
 
 __all__ = ["FusedFlatUpdater", "FUSABLE_OPTIMIZERS"]
@@ -69,12 +77,12 @@ class FusedFlatUpdater:
                         else list(buckets))
         self._hypers = {b.index: self._uniform_hypers(b)
                         for b in self.buckets}
-        self._fns = {b.index: bucket_update_fn(optimizer,
-                                               *self._hypers[b.index])
-                     for b in self.buckets}
+        self._rule = rule_spec(optimizer)    # (kind, hyper)
         self._slots: Dict[int, dict] = {}
         self._flat_p: Dict[int, torch.Tensor] = {}
         self._flat_g: Dict[int, torch.Tensor] = {}
+        self._grad_views: Dict[int, List[torch.Tensor]] = {}
+        self._table = None                   # BucketTable of the last step
         self._lr = None                      # (value, device tensor)
         with torch.no_grad():
             for b in self.buckets:
@@ -118,6 +126,8 @@ class FusedFlatUpdater:
         self._flat_g[bucket.index] = torch.zeros(bucket.size,
                                                  dtype=bucket.dtype,
                                                  device=dev)
+        self._grad_views[bucket.index] = self._views(
+            bucket, self._flat_g[bucket.index])
 
     def _init_flat_slots(self, bucket) -> dict:
         proto = self.optimizer._init_slots(
@@ -130,12 +140,13 @@ class FusedFlatUpdater:
         """The bucket's gradient as one flat tensor: the gradient buffer
         when every ``.grad`` is its view, else a concatenation."""
         flat = self._flat_g[bucket.index]
-        views = self._views(bucket, flat)
+        views = self._grad_views[bucket.index]
         grads = [self.params[pi].grad for pi in bucket.param_indices]
         if any(g is None for g in grads):
             raise RuntimeError(f"bucket {bucket.index}: a parameter has no "
                                f"gradient")
-        if all(g.data_ptr() == v.data_ptr() and g.shape == v.shape
+        if all(g is v or (g.data_ptr() == v.data_ptr()
+                          and g.shape == v.shape)
                for g, v in zip(grads, views)):
             return flat
         return torch.cat([g.reshape(-1) for g in grads]).to(bucket.dtype)
@@ -156,24 +167,50 @@ class FusedFlatUpdater:
         """Zero the gradient buffers and point every ``.grad`` at its view,
         so the next ``backward()`` accumulates into the buffers."""
         for b in self.buckets:
-            flat = self._flat_g[b.index]
-            flat.zero_()
-            for pi, view in zip(b.param_indices, self._views(b, flat)):
+            self._flat_g[b.index].zero_()
+            for pi, view in zip(b.param_indices, self._grad_views[b.index]):
                 self.params[pi].grad = view
+
+    def _bucket_table(self, grads) -> BucketTable:
+        """The table of this step's tensors: the last step's when no
+        pointer moved, else a new one. The powers the launch reads are
+        loaded from the slots when the slots do not hold the table's own
+        views (a new table, the first step, or a ``step_dequant`` in
+        between)."""
+        kind, hyper = self._rule
+        names = slot_names(kind)
+        entries = [(self._flat_p[b.index], g,
+                    [self._slots[b.index][nm] for nm in names],
+                    self._hypers[b.index][1], self._hypers[b.index][0])
+                   for b, g in zip(self.buckets, grads)]
+        table = self._table
+        if table is None or table.key != BucketTable.pointers(entries):
+            table = self._table = BucketTable(kind, hyper, entries)
+        if table.adam:
+            slots = [self._slots[b.index] for b in self.buckets]
+            if any(s["beta1_pow"] is not a or s["beta2_pow"] is not c
+                   for s, (a, c) in zip(slots, table.powers())):
+                table.load_powers([(s["beta1_pow"], s["beta2_pow"])
+                                   for s in slots])
+        return table
 
     @torch.no_grad()
     def step(self):
-        """One fused update per bucket, in place."""
+        """One fused update of every bucket, in place: one
+        ``fused_update_buckets`` launch on the card."""
+        if not self.buckets:
+            self.optimizer._accumulated_steps += 1
+            return
+        grads = [self._flat_grads(b) for b in self.buckets]
         for b in self.buckets:
-            flat_p = self._flat_p[b.index]
-            slots = self._slots.get(b.index)
-            if slots is None:
-                slots = self._init_flat_slots(b)
-            _, new_s = self._fns[b.index](flat_p, self._flat_grads(b),
-                                          slots, self._lr_tensor(
-                                              flat_p.device))
-            self._slots[b.index] = new_s
-            _m_fused.inc()
+            if b.index not in self._slots:
+                self._slots[b.index] = self._init_flat_slots(b)
+        table = self._bucket_table(grads)
+        fused_update_buckets(table, self._lr_tensor(table.device))
+        if table.adam:
+            for b, (b1p, b2p) in zip(self.buckets, table.powers()):
+                self._slots[b.index].update(beta1_pow=b1p, beta2_pow=b2p)
+        _m_fused.inc(len(self.buckets))
         self.optimizer._accumulated_steps += 1
 
     @torch.no_grad()

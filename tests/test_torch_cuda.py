@@ -16,9 +16,15 @@ abs, dq/dk/dv within 1e-4 of the larger of 1 and the largest gradient
 magnitude (the forward's online softmax rounds differently from the
 plain [s, s] softmax, and the inputs are unit-scale); the backward
 kernels' two launches on the same inputs bit-identical; the update
-bit-identical. One gpt-test ``TrainStep`` on the card against one on
-the CPU: loss within 1e-5 relative, then ``adam_step_parity`` (gradients
-within 1e-4 of each tensor's largest; the step on every element whose
+bit-identical; ``fused_update_buckets`` over the 18 GPT-125M bucket
+sizes and over ragged ones (n % 4 != 0, n = 1, mixed weight decay and
+lr_mult), every rule, three steps, parameters, slots and stepped beta
+powers bit-identical to its plain walk, one launch a step; the
+updater's table kept while its pointers stay and rebuilt after the
+``torch.cat`` gradient fallback. One gpt-test ``TrainStep`` on the card
+against one on the CPU: loss within 1e-5 relative, then
+``adam_step_parity`` (gradients within 1e-4 of each tensor's largest;
+the step on every element whose
 gradient is clear of the card-vs-CPU gradient noise within 1e-2 lr of
 the CPU's and at least 0.9 lr). ``quantize_int8`` bit-identical to its
 plain version, nearest and stochastic; ``quant_matmul`` within
@@ -46,23 +52,25 @@ import pytest
 import torch
 
 from paddle_tpu_torch.distributed import grad_comm as plain
+from paddle_tpu_torch.distributed.grad_comm import build_buckets
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (BertForPretraining, GPTForCausalLM,
                                      GPTPretrainingCriterion, bert_presets,
                                      gpt_presets)
+from paddle_tpu_torch.models.convert import expected_shapes
 from paddle_tpu_torch.observability.metrics import get_registry
 from paddle_tpu_torch.ops import codec
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_update as fu
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import AdamW, FusedFlatUpdater
 from paddle_tpu_torch.quantization import Int8Linear, convert_to_int8
 from paddle_tpu_torch.serving import (BatchSampler, GPTDecodeModel,
                                       KVBlockPool, RequestQueue,
                                       ServeRequest, ServingEngine)
-from torch_checks import (FUSED_HYPER, adam_step_parity, dequant_inputs,
-                          dequant_vs_plain, flash_vs_plain, fused_inputs,
-                          fused_vs_plain, qmm_vs_plain, quantize_vs_plain,
-                          run_checks)
+from torch_checks import (FUSED_HYPER, adam_step_parity, bucket_entries,
+                          buckets_vs_plain, dequant_inputs, dequant_vs_plain,
+                          flash_vs_plain, fused_inputs, fused_vs_plain,
+                          qmm_vs_plain, quantize_vs_plain, run_checks)
 
 torch.set_num_threads(2)
 
@@ -288,10 +296,83 @@ def check_fused_update_bit_identical(dev, kind, wd, n):
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)
     p, g, slots, lr = fused_inputs(kind, n, gen, 1e-3)
-    before = fu.fused_update.launches
+    before = fu.fused_update_buckets.launches
     assert fused_vs_plain(p, g, slots, lr, kind=kind,
                           hyper=FUSED_HYPER[kind], wd=wd) == 0.0
-    assert fu.fused_update.launches == before + 1
+    assert fu.fused_update_buckets.launches == before + 1
+
+
+def _gpt125m_bucket_sizes():
+    shapes = expected_shapes(gpt_presets("gpt-125m")).values()
+    return [b.size for b in build_buckets(
+        [torch.empty(sh, device="meta") for sh in shapes])]
+
+
+def check_buckets_bit_identical(dev, kind, sizes, wds, lms):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(len(sizes) + len(wds))
+    entries = bucket_entries(kind, sizes, gen, wds, lms)
+    lr = torch.full((), 1e-3, device=dev)
+    # one launch a step, whatever the number of buckets
+    assert buckets_vs_plain(kind, FUSED_HYPER[kind], entries, lr, steps=3,
+                            gen=gen) == 3
+
+
+def check_updater_table_rebuilt_after_cat_fallback(dev):
+    shapes = [(40, 30), (30,), (7, 5, 3), (200, 8), (3,)]
+    rs = np.random.RandomState(4)
+    vals = [torch.from_numpy(rs.randn(*sh).astype(np.float32))
+            for sh in shapes]
+    grads = [[torch.from_numpy(rs.randn(*sh).astype(np.float32)).to(dev)
+              for sh in shapes] for _ in range(3)]
+    ps = [torch.nn.Parameter(v.to(dev)) for v in vals]
+    o = AdamW(learning_rate=1e-2, weight_decay=0.01, parameters=ps)
+    u = FusedFlatUpdater(o, ps, buckets=build_buckets(ps, 0.004, 0.002))
+    assert len(u.buckets) >= 3
+    refs = [torch.nn.Parameter(v.to(dev)) for v in vals]
+    ro = AdamW(learning_rate=1e-2, weight_decay=0.01, parameters=refs)
+    tables = []
+    for step in range(3):
+        if step < 2:        # backward into the flat gradient buffers
+            u.zero_grad()
+            for p, g in zip(ps, grads[step]):
+                p.grad.copy_(g)
+        else:               # gradients the updater does not own: torch.cat
+            for p, g in zip(ps, grads[step]):
+                p.grad = g.clone()
+        before = fu.fused_update_buckets.launches
+        u.step()
+        assert fu.fused_update_buckets.launches == before + 1
+        tables.append(u._table)
+        for r, g in zip(refs, grads[step]):
+            r.grad = g.clone()
+        ro.step()                        # per parameter, plain PyTorch
+    assert tables[1] is tables[0] and tables[2] is not tables[1]
+    for p, r in zip(ps, refs):
+        assert torch.equal(p.detach().view(torch.int32),
+                           r.detach().view(torch.int32))
+    for b in u.buckets:
+        pi = b.param_indices[0]
+        for nm in ("beta1_pow", "beta2_pow"):
+            assert torch.equal(u._slots[b.index][nm],
+                               ro._slots[id(refs[pi])][nm]), nm
+
+
+def check_bucket_wrappers_raise(dev):
+    p = torch.zeros(64, device=dev)
+    hyper = FUSED_HYPER["adam"]
+    with pytest.raises(TypeError):
+        fu.BucketTable("sgd", {}, [(p.double(), p.double(), [], 0.0, 1.0)])
+    with pytest.raises(ValueError, match="aligned"):
+        fu.BucketTable("sgd", {}, [(p[1:], p[1:], [], 0.0, 1.0)])
+    with pytest.raises(ValueError, match="is on"):
+        fu.BucketTable("sgd", {}, [(p, p.cpu(), [], 0.0, 1.0)])
+    with pytest.raises(ValueError, match="slots"):
+        fu.BucketTable("adam", hyper, [(p, p, [p.clone()], 0.0, 1.0)])
+    table = fu.BucketTable("adam", hyper,
+                           [(p, p.clone(), [p.clone(), p.clone()], 0.0, 1.0)])
+    with pytest.raises(ValueError, match="lr"):
+        fu.fused_update_buckets(table, torch.ones(()))
 
 
 def _train_one_step(device):
@@ -341,15 +422,15 @@ def check_new_wrappers_raise(dev):
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_dkv(q, q, q, odd, lse, lse, True)
     p = torch.zeros(64, device=dev)
-    svec = torch.ones(1, device=dev)
+    lr = torch.ones((), device=dev)
     with pytest.raises(TypeError):
-        fu.fused_update(p.double(), p.double(), [], svec, kind="sgd",
-                        hyper={})
+        fu.fused_update_flat(p.double(), p.double(), {}, lr, kind="sgd",
+                             hyper={})
     with pytest.raises(ValueError, match="aligned"):
-        fu.fused_update(p[1:], p[1:], [], svec, kind="sgd", hyper={})
-    with pytest.raises(ValueError, match="svec"):
-        fu.fused_update(p, p, [p.clone(), p.clone()], svec, kind="adam",
-                        hyper={"beta1": 0.9, "beta2": 0.999, "eps": 1e-8})
+        fu.fused_update_flat(p[1:], p[1:], {}, lr, kind="sgd", hyper={})
+    with pytest.raises(ValueError, match="lr"):
+        fu.fused_update_flat(p, p.clone(), {}, lr.cpu(), kind="sgd",
+                             hyper={})
 
 
 def check_quantize_kernel_bit_identical(dev, shape, stochastic, seed):
@@ -469,8 +550,18 @@ def test_cuda_path_matches_plain(dev):
            for wd in (0.0, 0.01) for n in (1, 4097, 100003)]
         + [(check_train_step_on_card_matches_cpu, (dev,)),
            (check_new_wrappers_raise, (dev,))]
+        + [(check_buckets_bit_identical, (dev, k, sizes, wds, lms))
+           for k in ("sgd", "momentum", "adam", "adamw")
+           for sizes, wds, lms in (
+               (_gpt125m_bucket_sizes(), (0.0,), (1.0,)),
+               (_gpt125m_bucket_sizes(), (0.01,), (1.0,)),
+               ((1, 4097, 100003, 5, 64, 3), (0.01, 0.0), (1.0, 0.5)))]
+        + [(check_updater_table_rebuilt_after_cat_fallback, (dev,)),
+           (check_bucket_wrappers_raise, (dev,))]
         + [(check_quantize_kernel_bit_identical, (dev, shape, st, seed))
-           for shape in ((1, 1), (768, 2), (100, 37), (64, 128), (3072, 768))
+           for shape in ((1, 1), (7, 2), (768, 2), (100, 37), (1000, 37),
+                         (64, 128), (769, 770), (768, 768), (3072, 768),
+                         (768, 3072), (6152, 64))
            for st, seed in ((False, 0), (True, 0), (True, 2 ** 31 - 1))]
         + [(check_quant_matmul_within_bound, (dev, m, k, n))
            for m, k, n in ((1, 1, 1), (16, 768, 2), (10, 48, 24),

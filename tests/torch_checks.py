@@ -20,6 +20,9 @@ the two hold the kernels to one set of criteria:
   magnitude (unit-scale inputs; a gradient that is zero in exact
   arithmetic, as dq at s = 1, is rounding noise on both sides);
 - ``fused_update``: bit-identical parameters and slots;
+- ``fused_update_buckets``: bit-identical parameters, slots and stepped
+  beta powers over consecutive steps, against its plain walk of the same
+  kind of table (:func:`buckets_vs_plain`);
 - ``fused_dequant_update``: bit-identical parameters and slots
   (:func:`dequant_vs_plain`), fed by a payload whose carriers the
   ``codec_encode`` kernel wrote bit-identical to the plain encode's
@@ -425,3 +428,66 @@ def dp_step_parity(card, cpu, lr, grad_rtol=1e-4, flip_share=1e-2,
     return {"local_grad_rtol": worst_g, "flip_share": share,
             "step1": step1, "step2_diff_lr": worst_2,
             "step1_max_diff_lr": worst_any}
+
+
+def bucket_entries(kind, sizes, gen, wds=(0.0,), lms=(1.0,)):
+    """Seeded ``(p, g, slot tensors, wd, lm)`` a bucket of ``sizes`` on
+    ``gen``'s device (unit-scale weights and gradients, moments of
+    1e-2), bucket ``i`` taking ``wds[i % len(wds)]`` and
+    ``lms[i % len(lms)]``."""
+    dev = gen.device
+    out = []
+    for i, n in enumerate(sizes):
+        p = torch.randn(n, device=dev, generator=gen)
+        g = torch.randn(n, device=dev, generator=gen)
+        arrs = [torch.randn(n, device=dev, generator=gen).abs() * 1e-2
+                for _ in fu.slot_names(kind)]
+        out.append((p, g, arrs, wds[i % len(wds)], lms[i % len(lms)]))
+    return out
+
+
+def buckets_vs_plain(kind, hyper, entries, lr, *, steps=3, gen=None):
+    """``fused_update_buckets`` on one table against ``buckets_plain`` on
+    a table of clones, ``steps`` consecutive steps from the beta powers of
+    step 3, each step with fresh gradients (from ``gen``) on both. Returns
+    the launches the kernel side counted; raises unless parameters, slots
+    and stepped powers are bit-identical after every step."""
+    clones = [(p.clone(), g.clone(), [s.clone() for s in arrs], wd, lm)
+              for p, g, arrs, wd, lm in entries]
+    ktab = fu.BucketTable(kind, hyper, entries)
+    ptab = fu.BucketTable(kind, hyper, clones)
+    if ktab.adam:
+        start = [(torch.tensor(0.9 ** 3), torch.tensor(0.999 ** 3))] * len(
+            entries)
+        ktab.load_powers([(a.to(lr.device), b.to(lr.device))
+                          for a, b in start])
+        ptab.load_powers([(a.to(lr.device), b.to(lr.device))
+                          for a, b in start])
+    launches = 0
+    for step in range(steps):
+        if step and gen is not None:
+            for (_, g, *_), (_, gc, *_) in zip(entries, clones):
+                g.copy_(torch.randn(g.shape, device=g.device, generator=gen))
+                gc.copy_(g)
+        before = fu.fused_update_buckets.launches
+        fu.fused_update_buckets(ktab, lr)
+        launches += fu.fused_update_buckets.launches - before
+        fu.buckets_plain(ptab, lr)
+        pairs = []
+        for b, (ke, pe) in enumerate(zip(entries, clones)):
+            pairs.append((f"bucket {b} p", ke[0], pe[0]))
+            pairs += [(f"bucket {b} {nm}", a, c) for nm, a, c in
+                      zip(fu.slot_names(kind), ke[2], pe[2])]
+        if ktab.adam:
+            pairs += [(f"bucket {b} beta{j + 1}_pow", a, c)
+                      for b, (kp, pp) in enumerate(zip(ktab.powers(),
+                                                       ptab.powers()))
+                      for j, (a, c) in enumerate(zip(kp, pp))]
+        differ = [n for n, a, c in pairs
+                  if not torch.equal(a.view(torch.int32),
+                                     c.view(torch.int32))]
+        if differ:
+            raise AssertionError(
+                f"fused_update_buckets {kind} step {step + 1}: {differ[:6]} "
+                f"differ from plain ({len(differ)} of {len(pairs)})")
+    return launches
