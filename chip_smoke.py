@@ -19,7 +19,12 @@ when every phase passed):
               flushed before each) for the kernel, the plain version and,
               for int8, the one-call yardsticks torch.quantize_per_channel
               and torch.mul; the bound from bytes and operations at
-              3.35 TB/s / 67 TFLOP/s fp32;
+              3.35 TB/s / 67 TFLOP/s fp32; the launch floor, a
+              one-element torch.add timed the same way, beside each row;
+              and for each codec a ragged input (RAGGED_CODEC elements,
+              n % 1024 != 0 and n % 4 != 0) read where it lies, starting
+              4 bytes off the 16-byte grid: payload and decode
+              bit-identical to plain, both timed beside their bounds;
   3. serve    GPT-125M (full width and depth, random weights from seed 0)
               behind ServingEngine(max_batch=8) on an int8_block paged KV
               pool of 512 x 16-token blocks: 16 requests, prompts 32..512
@@ -131,8 +136,10 @@ when every phase passed):
               to fused_dequant_update, bit for bit against its plain
               version (dequant_vs_plain), with and without a residual,
               AdamW; SGD and Momentum at a ragged size; codec_encode's
-              carrier timed at each bucket size; one step's 18 buckets
-              of fused_dequant_update timed (kernel, plain version, the
+              carrier timed at each bucket size as the wrapper takes it
+              (a ragged bucket read in place, its bound the bucket read
+              once and the padded carrier written once); one step's 18
+              buckets of fused_dequant_update timed (kernel, plain version, the
               decode followed by torch._fused_adamw_) against the bound;
               clocks before and after, ratios;
  14. dp-train TrainStep(grad_comm=GradCommConfig("int8_block")) on
@@ -189,6 +196,7 @@ FLASH_MAIN = (8, 12, 1024, 64)      # [b, n, s, d] of every train launch
 LR, WD = 1e-4, 0.01
 INFER_B, INFER_S = 16, 512          # the infer phase's batch (bench.py)
 FLASH_BERT = (16, 12, 512, 64)      # [b, n, s, d] of every infer launch
+RAGGED_CODEC = 4 * EPT + 1001      # n % 1024 != 0 and n % 4 != 0
 RAGGED_QUANT = (1000, 37)
 RAGGED_QMM = (1000, 100, 37)
 INFER_TOL = 1e-4                    # card vs CPU logits, max abs
@@ -239,13 +247,16 @@ def span_ms(fn, flush: torch.Tensor, runs: int = 30) -> float:
     return statistics.median(out)
 
 
-def bound(n: int, nb: int, direction: str):
+def bound(n: int, nb: int, direction: str, padded: int | None = None):
     """Least time (ms) for n elements: each input read once, each output
-    written once, against the operations at the fp32 peak."""
+    written once, against the operations at the fp32 peak. An encode
+    writes ``padded`` elements (default n): a ragged input's last block
+    in full."""
+    out = n if padded is None else padded
     if direction == "encode":   # read x fp32 + scales, write 1-byte q
-        nbytes, ops = 4 * n + 4 * nb + n, 4 * n   # div, round, 2 clamps
+        nbytes, ops = 4 * n + 4 * nb + out, 4 * out  # div, round, 2 clamps
     elif direction == "carrier":  # the same, writing the 4-byte carrier
-        nbytes, ops = 4 * n + 4 * nb + 4 * n, 4 * n
+        nbytes, ops = 4 * n + 4 * nb + 4 * out, 4 * out
     else:                       # read 1-byte q + scales, write fp32
         nbytes, ops = n + 4 * nb + 4 * n, 2 * n   # mul, div
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -335,6 +346,9 @@ def phase_kernels(dev, gen, shapes):
     from paddle_tpu_torch.ops import codec
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    one = torch.ones(1, device=dev)
+    # the launch floor: a one-element kernel timed the same way
+    floor = median_ms(lambda: torch.add(one, one), flush)
     rows = {}
     for codec_name in ("int8_block", "fp8_block"):
         for shape, (tokens, on_path) in shapes.items():
@@ -387,6 +401,7 @@ def phase_kernels(dev, gen, shapes):
                        f"kernel's), torch.mul {r['dec_library_ms']:.4f} ms")
             r["enc_bound_ms"], r["enc_bound_by"] = bound(n, nb, "encode")
             r["dec_bound_ms"], r["dec_bound_by"] = bound(n, nb, "decode")
+            r["launch_floor_ms"] = floor
             rows[(codec_name, shape)] = r
             path = "+".join(on_path) or "none in this traffic"
             log(f"{codec_name:10s} {shape:17s} [path: {path}] "
@@ -394,9 +409,41 @@ def phase_kernels(dev, gen, shapes):
                 f"{r['enc_plain_ms']:.4f}, bound {r['enc_bound_ms']:.4f} "
                 f"{r['enc_bound_by']}) | decode {r['dec_ms']:.4f} ms (plain "
                 f"{r['dec_plain_ms']:.4f}, bound {r['dec_bound_ms']:.4f} "
-                f"{r['dec_bound_by']}){lib} | bit-identical")
+                f"{r['dec_bound_by']}){lib} | launch floor {floor:.4f} ms "
+                f"| bit-identical")
+        _ragged_codec_case(dev, gen, codec_name, flush)
     del flush
     return rows
+
+
+def _ragged_codec_case(dev, gen, codec_name, flush):
+    """Both kernels on a ragged input read where it lies: n = RAGGED_CODEC
+    (n % 1024 != 0, n % 4 != 0), starting one element into a larger
+    buffer (off the 16-byte grid). The payload bit for bit the plain
+    encode's (which zero-pads), the decode the plain decode's over numel;
+    timed beside the bound, logged only (no path launches it)."""
+    from paddle_tpu_torch.distributed import grad_comm as plain
+    from paddle_tpu_torch.ops import codec
+
+    n = RAGGED_CODEC
+    nb = -(-n // QB)
+    x = (torch.randn(n + 1, device=dev, generator=gen) * 3.0)[1:]
+    s = plain.block_scales(plain.block_absmax(x, QB), codec_name)
+    q = codec.block_encode(x, s, QB, codec_name)
+    d = codec.block_decode(q, s, 1, n)
+    q_plain = plain.block_encode(x, s, QB, codec_name)
+    if not torch.equal(q.view(torch.uint8), q_plain.view(torch.uint8)):
+        raise AssertionError(f"codec_encode {codec_name} ragged n={n}, "
+                             f"unaligned start: payload differs from plain")
+    if not torch.equal(d, plain.block_decode(q_plain, s, 1, n)):
+        raise AssertionError(f"codec_decode {codec_name} ragged n={n}: "
+                             f"differs from plain")
+    enc = median_ms(lambda: codec.block_encode(x, s, QB, codec_name), flush)
+    dec = median_ms(lambda: codec.block_decode(q, s, 1, n), flush)
+    log(f"{codec_name:10s} ragged n={n} ({nb} blocks, start 4 bytes off "
+        f"the 16-byte grid): encode {enc:.4f} ms (bound "
+        f"{bound(n, nb, 'encode', nb * QB)[0]:.4f}) | decode {dec:.4f} ms "
+        f"(bound {bound(n, nb, 'decode')[0]:.4f}) | bit-identical")
 
 
 def _traffic(seed: int, vocab: int):
@@ -1309,7 +1356,7 @@ def _carrier_rows(dev, gen, sizes, flush):
         s = plain.block_scales(plain.block_absmax(x, DP_BLOCK), "int8_block")
         xb = plain.as_blocks(x, DP_BLOCK)
         zp = torch.zeros(nb, dtype=torch.long, device=dev)
-        bound_ms, bound_by = bound(nb * DP_BLOCK, nb, "carrier")
+        bound_ms, bound_by = bound(n, nb, "carrier", nb * DP_BLOCK)
         rows[nb] = {
             "shape": f"{nb}x{DP_BLOCK} int8_block carrier (bucket {n})",
             "ms": median_ms(lambda: codec.block_encode(
@@ -1693,7 +1740,8 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                 "ms": r[f"{p}_ms"], "plain_ms": r[f"{p}_plain_ms"],
                 "bound_ms": r[f"{p}_bound_ms"],
                 "bound_by": r[f"{p}_bound_by"],
-                "library_ms": r[f"{p}_library_ms"]}
+                "library_ms": r[f"{p}_library_ms"],
+                "launch_floor_ms": r["launch_floor_ms"]}
 
     out = []
     for name, p, line in (("codec_encode", "enc", 93),

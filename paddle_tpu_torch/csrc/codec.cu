@@ -12,51 +12,124 @@
 //           no --use_fast_math), then
 //           int8_block: rintf (half-to-even), clamp to [-127, 127], int8;
 //           fp8_block:  float8_e4m3fn, round-to-nearest-even, saturating.
+//           x holds n <= nb * bs elements; the rest of the last row
+//           encodes as x = 0, the bits the plain version's zero padding
+//           gives (0 for int8 and int32, 0x00 for fp8, +0.0 for fp32).
 //           The output is the wire dtype the KV pool stores (1 byte),
 //           or the gradient wire's carrier, which the sum over ranks
 //           neither wraps nor rounds: int8 values as int32, fp8 values
 //           as fp32 (grad_comm.py block_encode(carrier=True)).
 //   decode: out[i] = (float(q[i]) * s[row]) / world for i < numel, fp32,
-//           from the 1-byte wire dtype or from a (summed) carrier.
+//           from the 1-byte wire dtype or from a (summed) carrier;
+//           when world is a power of two the divide is a multiply by
+//           its exact inverse (the same correctly rounded result).
 // Bits equal the plain versions' (and the JAX reference's): the same
 // correctly rounded divide, multiply and conversions.
 //
-// What bounds them: device-memory bytes. Each element is read once and
-// written once with a handful of operations, far below the H100's
-// ~20 fp32 operations per byte of HBM bandwidth. Bounds at the serving
-// slice's GPT-125M shapes (ept = 12 layers * 2 * 768 = 18,432 elements
-// per token, 1024-element scale blocks, 3.35 TB/s):
-//   encode, 512-token prompt: read 37.7 MB fp32, write 9.4 MB int8 ~ 14 us
-//   decode, 1024-token context: read 18.9 MB, write 75.5 MB         ~ 28 us
-//   one decode step, batch 8: ~0.7 MB — launch-bound, not byte-bound.
+// What bounds them: device-memory bytes, and at the serving decode step
+// the fixed cost of a launch. Each element is read once and written once
+// with a handful of operations, far below the H100's ~20 fp32 operations
+// per byte of HBM bandwidth. At GPT-125M's shapes (ept = 12 layers * 2 *
+// 768 = 18,432 elements per token, 1024-element blocks, 3.35 TB/s):
+//   encode, 1024 tokens: read 75.5 MB fp32, write 18.9 MB int8   ~ 28 us
+//   decode, 1024 tokens: read 18.9 MB, write 75.5 MB             ~ 28 us
+//   a gradient bucket of 4615 blocks, int32 carrier: 37.8 MB     ~ 11 us
+//   one decode step, batch 8: ~0.7 MB, 0.2 us of bytes against a launch
+//   of several us; no design of the kernel moves that.
 //
-// Design: one thread per 4 consecutive elements, so each thread issues one
-// 16-byte fp32 load or store and one 4-byte payload access; neighbouring
-// threads touch neighbouring addresses. bs % 4 == 0 (checked by the
-// wrapper), so the 4 elements share a row and the scale is loaded once per
-// thread (16 bytes too for a 4-byte carrier). The ragged tail (numel % 4
-// on decode) is masked with a scalar loop. Simple and right first; speed
-// is later work.
+// Design, for the bytes (variants timed by tools/torch_codec_ab.py):
+//  - The input is read where it lies. The kernel reads x only below n
+//    and encodes zeros above it, so a ragged bucket (n % bs != 0) needs
+//    no zero-padded copy: a copy is one more read and write of the
+//    bucket and an allocation, as long as the encode itself.
+//  - The grid maps onto rows: blockIdx.y and threadIdx.y pick the row,
+//    blockIdx.x and threadIdx.x the thread's place in it, so a thread
+//    reads its row's scale once and divides no index.
+//  - A thread keeps kQuads = 2 quads (4 consecutive elements each) in
+//    flight, both loads issued before the first is used. The quads are
+//    interleaved across the warp (lane l takes 4 l + 128 k), so every
+//    warp access is one contiguous run: 512 bytes of fp32 or int32,
+//    128 bytes of 1-byte payload. 1 quad was faster at the decode step
+//    and slower on the largest buckets, 4 quads slower at every serving
+//    shape; 16 consecutive elements a thread (one 16-byte payload
+//    access) half-filled the 32-byte sectors of every 4-byte access and
+//    ran the fp32 decode and the carrier encode at half speed.
+//  - The decode divides by world with a multiply when world is a power
+//    of two (the serving read-back's world = 1 and a 2-rank wire), by
+//    the exact inverse: the same bits, none of the divide's per-element
+//    cost, which bound the decode.
+//  - Inputs are read once, so they are loaded streaming (__ldcs): 3-5%
+//    faster on the serving encodes than plain or read-only loads, 2%
+//    slower on the largest gradient bucket.
+//  - Only a quad that reaches past the end (the last row's tail) is
+//    read or written element by element; every other quad is one
+//    access.
+//  - The vector accesses need 16-byte aligned pointers (every caller of
+//    the port: the buffers are their own allocations). Any other start
+//    takes the element-by-element path everywhere: right, and slower.
 
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kQuads = 2;       // 4-element quads a thread keeps in flight
+constexpr int kQuadStride = 32 * 4;           // elements between them
+constexpr int kWarpSpan = kQuads * kQuadStride;   // elements a warp takes
 constexpr int kInt8 = 0;
 constexpr int kFp8 = 1;
 
-// the 4-element vector of each element type, for 4- and 16-byte accesses
-template <typename T> struct Vec4;
-template <> struct Vec4<uint8_t> { using type = uchar4; };
-template <> struct Vec4<int32_t> { using type = int4; };
-template <> struct Vec4<float> { using type = float4; };
+// four elements of each type, moved in one access
+template <typename T> struct Quad;
+template <> struct Quad<uint8_t> { using type = uchar4; };
+template <> struct Quad<int32_t> { using type = int4; };
+template <> struct Quad<float> { using type = float4; };
 
+// p[0..3] in one streaming access when VEC and all four lie below the
+// end (`left` elements remain from p on), else element by element, the
+// ones at or past the end reading as 0
+template <typename T, bool VEC>
+__device__ __forceinline__ typename Quad<T>::type load_quad(const T* p,
+                                                            int64_t left) {
+  using Q = typename Quad<T>::type;
+  if (VEC && left >= 4) return __ldcs(reinterpret_cast<const Q*>(p));
+  Q r;
+  r.x = left > 0 ? p[0] : T(0);
+  r.y = left > 1 ? p[1] : T(0);
+  r.z = left > 2 ? p[2] : T(0);
+  r.w = left > 3 ? p[3] : T(0);
+  return r;
+}
+
+// p[0..3] = v, in one access when VEC and all four lie below the end,
+// else only the elements below it
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_quad(T* p,
+                                           const typename Quad<T>::type& v,
+                                           int64_t left) {
+  using Q = typename Quad<T>::type;
+  if (VEC && left >= 4) {
+    *reinterpret_cast<Q*>(p) = v;
+    return;
+  }
+  if (left > 0) p[0] = v.x;
+  if (left > 1) p[1] = v.y;
+  if (left > 2) p[2] = v.z;
+  if (left > 3) p[3] = v.w;
+}
+
+// A zero input skips the divide: 0 / s is the signed zero x itself for
+// s > 0 (infinite s included). Zeros are common (a ragged block's tail,
+// the embedding gradient's untouched rows), and an all-zero block, whose
+// scale is the 1e-12 floor, made the decode-step encode 0.5 us slower
+// through the divide (tools/torch_codec_ab.py).
 template <int CODEC>
 __device__ __forceinline__ uint8_t encode_one(float x, float s) {
-  const float q = __fdiv_rn(x, s);
+  const float q = x == 0.0f && s > 0.0f ? x : __fdiv_rn(x, s);
   if (CODEC == kInt8) {
     const float r = fminf(fmaxf(rintf(q), -127.0f), 127.0f);
     return static_cast<uint8_t>(static_cast<int8_t>(r));
@@ -88,105 +161,200 @@ __device__ __forceinline__ OutT to_out(uint8_t b) {
   }
 }
 
-template <int CODEC, typename InT>
-__device__ __forceinline__ float decode_one(InT v, float s, float world) {
+// (x * s) / world. With POW2 (world a power of two, 1 included) w is
+// 1 / world, exact, and the divide is a multiply by it: both round the
+// same real number, so the bits are the divide's. Otherwise w is world.
+template <int CODEC, typename InT, bool POW2>
+__device__ __forceinline__ float decode_one(InT v, float s, float w) {
   float x;
   if constexpr (sizeof(InT) == 1) {
     x = wire_value<CODEC>(v);
   } else {
     x = static_cast<float>(v);   // the carrier's exact value
   }
-  return __fdiv_rn(__fmul_rn(x, s), world);
+  const float y = __fmul_rn(x, s);
+  return POW2 ? __fmul_rn(y, w) : __fdiv_rn(y, w);
 }
 
 template <int CODEC, typename OutT>
-__global__ void encode_kernel(const float* __restrict__ x,
-                              const float* __restrict__ scales,
-                              OutT* __restrict__ out, int64_t n,
-                              int64_t bs) {
-  const int64_t i =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (i >= n) return;
-  const float s = __ldg(scales + i / bs);
-  if (i + 4 <= n) {
-    const float4 v = *reinterpret_cast<const float4*>(x + i);
-    typename Vec4<OutT>::type o;
-    o.x = to_out<CODEC, OutT>(encode_one<CODEC>(v.x, s));
-    o.y = to_out<CODEC, OutT>(encode_one<CODEC>(v.y, s));
-    o.z = to_out<CODEC, OutT>(encode_one<CODEC>(v.z, s));
-    o.w = to_out<CODEC, OutT>(encode_one<CODEC>(v.w, s));
-    *reinterpret_cast<typename Vec4<OutT>::type*>(out + i) = o;
-  } else {
-    for (int64_t j = i; j < n; ++j)
-      out[j] = to_out<CODEC, OutT>(encode_one<CODEC>(x[j], s));
+__device__ __forceinline__ typename Quad<OutT>::type encode_quad(float4 v,
+                                                                 float s) {
+  typename Quad<OutT>::type o;
+  o.x = to_out<CODEC, OutT>(encode_one<CODEC>(v.x, s));
+  o.y = to_out<CODEC, OutT>(encode_one<CODEC>(v.y, s));
+  o.z = to_out<CODEC, OutT>(encode_one<CODEC>(v.z, s));
+  o.w = to_out<CODEC, OutT>(encode_one<CODEC>(v.w, s));
+  return o;
+}
+
+template <int CODEC, typename InT, bool POW2>
+__device__ __forceinline__ float4 decode_quad(
+    const typename Quad<InT>::type& v, float s, float w) {
+  return make_float4(decode_one<CODEC, InT, POW2>(v.x, s, w),
+                     decode_one<CODEC, InT, POW2>(v.y, s, w),
+                     decode_one<CODEC, InT, POW2>(v.z, s, w),
+                     decode_one<CODEC, InT, POW2>(v.w, s, w));
+}
+
+// The thread's first quad: its offset in a row (blockIdx.x, threadIdx.x;
+// a warp takes kWarpSpan elements, lane l the quads at 4 l + k
+// kQuadStride), and its first row (blockIdx.y, threadIdx.y), striding by
+// the grid's rows when nb outgrows gridDim.y.
+__device__ __forceinline__ int64_t quad_offset() {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  return (t / 32) * kWarpSpan + (t % 32) * 4;
+}
+__device__ __forceinline__ int64_t first_row() {
+  return static_cast<int64_t>(blockIdx.y) * blockDim.y + threadIdx.y;
+}
+__device__ __forceinline__ int64_t row_stride() {
+  return static_cast<int64_t>(gridDim.y) * blockDim.y;
+}
+
+template <int CODEC, typename OutT, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    encode_kernel(const float* __restrict__ x,
+                  const float* __restrict__ scales, OutT* __restrict__ out,
+                  int64_t n, int64_t nb, int64_t bs) {
+  const int64_t e = quad_offset();
+  if (e >= bs) return;
+  for (int64_t row = first_row(); row < nb; row += row_stride()) {
+    const float s = __ldg(scales + row);
+    const int64_t i = row * bs + e;
+    float4 v[kQuads];
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k) {   // every load in flight first
+      const int64_t at = i + k * kQuadStride;
+      if (e + k * kQuadStride < bs)
+        v[k] = load_quad<float, VEC>(x + at, n - at);
+    }
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k) {   // past n: encode(0), as padded
+      const int64_t at = i + k * kQuadStride;
+      if (e + k * kQuadStride < bs)
+        store_quad<OutT, VEC>(out + at, encode_quad<CODEC, OutT>(v[k], s),
+                              4);
+    }
   }
 }
 
-template <int CODEC, typename InT>
-__global__ void decode_kernel(const InT* __restrict__ q,
-                              const float* __restrict__ scales,
-                              float* __restrict__ out, int64_t numel,
-                              int64_t bs, float world) {
-  const int64_t i =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (i >= numel) return;
-  const float s = __ldg(scales + i / bs);
-  if (i + 4 <= numel) {
-    const typename Vec4<InT>::type v =
-        *reinterpret_cast<const typename Vec4<InT>::type*>(q + i);
-    float4 o;
-    o.x = decode_one<CODEC, InT>(v.x, s, world);
-    o.y = decode_one<CODEC, InT>(v.y, s, world);
-    o.z = decode_one<CODEC, InT>(v.z, s, world);
-    o.w = decode_one<CODEC, InT>(v.w, s, world);
-    *reinterpret_cast<float4*>(out + i) = o;
-  } else {
-    for (int64_t j = i; j < numel; ++j)
-      out[j] = decode_one<CODEC, InT>(q[j], s, world);
+template <int CODEC, typename InT, bool VEC, bool POW2>
+__global__ void __launch_bounds__(kThreads)
+    decode_kernel(const InT* __restrict__ q,
+                  const float* __restrict__ scales, float* __restrict__ out,
+                  int64_t numel, int64_t nb, int64_t bs, float w) {
+  const int64_t e = quad_offset();
+  if (e >= bs) return;
+  for (int64_t row = first_row(); row < nb; row += row_stride()) {
+    const int64_t i = row * bs + e;
+    if (i >= numel) return;   // rows only grow
+    const float s = __ldg(scales + row);
+    typename Quad<InT>::type v[kQuads];
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k) {
+      const int64_t at = i + k * kQuadStride;
+      if (e + k * kQuadStride < bs)
+        v[k] = load_quad<InT, VEC>(q + at, numel - at);
+    }
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k) {
+      const int64_t at = i + k * kQuadStride;
+      if (e + k * kQuadStride < bs)
+        store_quad<float, VEC>(out + at,
+                               decode_quad<CODEC, InT, POW2>(v[k], s, w),
+                               numel - at);
+    }
   }
 }
 
-inline unsigned int grid_for(int64_t n) {
-  const int64_t quads = (n + 3) / 4;
-  return static_cast<unsigned int>((quads + kThreads - 1) / kThreads);
+// threadIdx.x over a row's warps (kWarpSpan elements each, up to
+// kThreads threads), threadIdx.y over the rows a block takes; the grid's
+// rows capped at the hardware's 65535 (the kernels stride past it).
+struct Launch {
+  dim3 grid, block;
+};
+
+inline Launch launch_for(int64_t nb, int64_t bs) {
+  const int64_t per_row = (bs + kWarpSpan - 1) / kWarpSpan * 32;
+  const int64_t bx = per_row < kThreads ? per_row : kThreads;
+  const int64_t by = kThreads / bx;
+  const int64_t gy = (nb + by - 1) / by;
+  return {dim3(static_cast<unsigned>((per_row + bx - 1) / bx),
+               static_cast<unsigned>(gy < 65535 ? gy : 65535)),
+          dim3(static_cast<unsigned>(bx), static_cast<unsigned>(by))};
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <int CODEC, typename OutT>
 void launch_encode(const void* x, const void* scales, void* out, int64_t n,
-                   int64_t bs, cudaStream_t st) {
-  encode_kernel<CODEC, OutT><<<grid_for(n), kThreads, 0, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(scales),
-      static_cast<OutT*>(out), n, bs);
+                   int64_t nb, int64_t bs, cudaStream_t st) {
+  const Launch l = launch_for(nb, bs);
+  const auto* xp = static_cast<const float*>(x);
+  const auto* sp = static_cast<const float*>(scales);
+  auto* op = static_cast<OutT*>(out);
+  if (aligned16(x) && aligned16(out))
+    encode_kernel<CODEC, OutT, true><<<l.grid, l.block, 0, st>>>(
+        xp, sp, op, n, nb, bs);
+  else
+    encode_kernel<CODEC, OutT, false><<<l.grid, l.block, 0, st>>>(
+        xp, sp, op, n, nb, bs);
+}
+
+template <int CODEC, typename InT, bool VEC>
+void launch_decode(const Launch& l, const void* q, const void* scales,
+                   void* out, int64_t numel, int64_t nb, int64_t bs,
+                   float world, cudaStream_t st) {
+  const auto* qp = static_cast<const InT*>(q);
+  const auto* sp = static_cast<const float*>(scales);
+  auto* op = static_cast<float*>(out);
+  int e;
+  if (std::frexp(world, &e) == 0.5f)   // world = 2^(e - 1)
+    decode_kernel<CODEC, InT, VEC, true><<<l.grid, l.block, 0, st>>>(
+        qp, sp, op, numel, nb, bs, std::ldexp(1.0f, 1 - e));
+  else
+    decode_kernel<CODEC, InT, VEC, false><<<l.grid, l.block, 0, st>>>(
+        qp, sp, op, numel, nb, bs, world);
 }
 
 template <int CODEC, typename InT>
 void launch_decode(const void* q, const void* scales, void* out,
-                   int64_t numel, int64_t bs, float world, cudaStream_t st) {
-  decode_kernel<CODEC, InT><<<grid_for(numel), kThreads, 0, st>>>(
-      static_cast<const InT*>(q), static_cast<const float*>(scales),
-      static_cast<float*>(out), numel, bs, world);
+                   int64_t numel, int64_t nb, int64_t bs, float world,
+                   cudaStream_t st) {
+  const Launch l = launch_for(nb, bs);
+  if (aligned16(q) && aligned16(out))
+    launch_decode<CODEC, InT, true>(l, q, scales, out, numel, nb, bs, world,
+                                    st);
+  else
+    launch_decode<CODEC, InT, false>(l, q, scales, out, numel, nb, bs,
+                                     world, st);
 }
 
 }  // namespace
 
-// x: fp32 [nb * bs]; scales: fp32 [nb]; out: [nb * bs] of the 1-byte wire
+// x: fp32 [n], n <= nb * bs, read in place (any 4-byte aligned start);
+// bs % 4 == 0; scales: fp32 [nb]; out: [nb * bs] of the 1-byte wire
 // dtype (carrier 0) or of the carrier (carrier 1: int32 for int8_block,
-// fp32 for fp8_block). codec: 0 = int8_block, 1 = fp8_block. Returns
-// cudaGetLastError().
+// fp32 for fp8_block), the elements from n on encoding x = 0. codec: 0 =
+// int8_block, 1 = fp8_block. Returns cudaGetLastError().
 extern "C" int codec_encode(const void* x, const void* scales, void* out,
-                            int64_t nb, int64_t bs, int codec, int carrier,
-                            void* stream) {
-  const int64_t n = nb * bs;
-  if (n == 0) return static_cast<int>(cudaSuccess);
+                            int64_t n, int64_t nb, int64_t bs, int codec,
+                            int carrier, void* stream) {
+  if (nb == 0) return static_cast<int>(cudaSuccess);
+  if (bs <= 0 || bs % 4 || n > nb * bs)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (codec == kInt8 && !carrier) {
-    launch_encode<kInt8, uint8_t>(x, scales, out, n, bs, st);
+    launch_encode<kInt8, uint8_t>(x, scales, out, n, nb, bs, st);
   } else if (codec == kInt8) {
-    launch_encode<kInt8, int32_t>(x, scales, out, n, bs, st);
+    launch_encode<kInt8, int32_t>(x, scales, out, n, nb, bs, st);
   } else if (codec == kFp8 && !carrier) {
-    launch_encode<kFp8, uint8_t>(x, scales, out, n, bs, st);
+    launch_encode<kFp8, uint8_t>(x, scales, out, n, nb, bs, st);
   } else if (codec == kFp8) {
-    launch_encode<kFp8, float>(x, scales, out, n, bs, st);
+    launch_encode<kFp8, float>(x, scales, out, n, nb, bs, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -195,25 +363,26 @@ extern "C" int codec_encode(const void* x, const void* scales, void* out,
 
 // q: [nb * bs] of the payload type `wire`: 0 int8, 1 fp8 e4m3 (1 byte
 // each), 2 int32 carrier, 3 fp32 carrier; scales: fp32 [nb]; out: fp32
-// [numel], numel <= nb * bs. Returns cudaGetLastError().
+// [numel], numel <= nb * bs; bs % 4 == 0. Returns cudaGetLastError().
 extern "C" int codec_decode(const void* q, const void* scales, void* out,
                             int64_t nb, int64_t bs, int64_t numel, int wire,
                             float world, void* stream) {
   if (numel == 0) return static_cast<int>(cudaSuccess);
-  if (numel > nb * bs) return static_cast<int>(cudaErrorInvalidValue);
+  if (bs <= 0 || bs % 4 || numel > nb * bs)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (wire) {
     case 0:
-      launch_decode<kInt8, uint8_t>(q, scales, out, numel, bs, world, st);
+      launch_decode<kInt8, uint8_t>(q, scales, out, numel, nb, bs, world, st);
       break;
     case 1:
-      launch_decode<kFp8, uint8_t>(q, scales, out, numel, bs, world, st);
+      launch_decode<kFp8, uint8_t>(q, scales, out, numel, nb, bs, world, st);
       break;
     case 2:
-      launch_decode<kInt8, int32_t>(q, scales, out, numel, bs, world, st);
+      launch_decode<kInt8, int32_t>(q, scales, out, numel, nb, bs, world, st);
       break;
     case 3:
-      launch_decode<kFp8, float>(q, scales, out, numel, bs, world, st);
+      launch_decode<kFp8, float>(q, scales, out, numel, nb, bs, world, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

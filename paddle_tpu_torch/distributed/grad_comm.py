@@ -188,8 +188,15 @@ def as_blocks(flat: torch.Tensor, block_size: int) -> torch.Tensor:
 
 
 def block_absmax(flat: torch.Tensor, block_size: int) -> torch.Tensor:
-    """Per-block abs-max (fp32 vector of n_blocks entries)."""
-    return as_blocks(flat, block_size).abs().amax(dim=1)
+    """Per-block abs-max (fp32 vector of n_blocks entries). A ragged tail
+    is reduced on its own, with no padded copy of the buffer: |x| >= 0,
+    so its max equals the zero-padded block's, bit for bit."""
+    flat = flat.reshape(-1).to(torch.float32)
+    whole = flat.numel() // block_size * block_size
+    absmax = flat[:whole].view(-1, block_size).abs().amax(dim=1)
+    if whole == flat.numel():
+        return absmax
+    return torch.cat([absmax, flat[whole:].abs().amax().reshape(1)])
 
 
 def block_scales(absmax: torch.Tensor, codec: str) -> torch.Tensor:

@@ -11,9 +11,11 @@ counts its kernel launches in a plain integer attribute
 (``block_encode.launches``, ``block_decode.launches``), incremented only
 where the kernel is launched, so a run can show its path went through
 the kernel; ``block_encode.shapes`` counts its launches by ``(n_blocks,
-block_size, codec, carrier)``. The wrappers check device, dtype, shape,
-alignment and contiguity, allocate outputs with ``torch.empty`` and
-never synchronize; the kernel runs on PyTorch's current stream.
+block_size, codec, carrier)``. The wrappers check device, dtype, shape
+and contiguity, allocate outputs with ``torch.empty`` and never
+synchronize; the kernel runs on PyTorch's current stream. The encode
+reads a ragged input (``numel`` not a multiple of the block) in place:
+no padded copy is made.
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from ..distributed import grad_comm as _plain
 from ..framework.device import require_sm90
@@ -44,7 +45,7 @@ def _lib(device_index: int) -> ctypes.CDLL:
     require_sm90(torch.device("cuda", device_index))
     lib = load_library("codec")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.codec_encode.argtypes = [p, p, p, i64, i64, ctypes.c_int,
+    lib.codec_encode.argtypes = [p, p, p, i64, i64, i64, ctypes.c_int,
                                  ctypes.c_int, p]
     lib.codec_encode.restype = ctypes.c_int
     lib.codec_decode.argtypes = [p, p, p, i64, i64, i64, ctypes.c_int,
@@ -58,9 +59,6 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device):
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned for the kernel's "
-                         f"vector loads")
 
 
 def _check_block_size(block_size: int):
@@ -90,8 +88,6 @@ def block_encode(flat: torch.Tensor, scales: torch.Tensor, block_size: int,
     if scales.shape != (nb,):
         raise ValueError(f"scales shape {tuple(scales.shape)}, expected "
                          f"({nb},)")
-    if flat.numel() != nb * block_size:  # ragged tail: zero-pad the layout
-        flat = F.pad(flat, (0, nb * block_size - flat.numel()))
     dev = flat.device
     _check_operand("flat", flat, dev)
     _check_operand("scales", scales, dev)
@@ -103,7 +99,7 @@ def block_encode(flat: torch.Tensor, scales: torch.Tensor, block_size: int,
     lib = _lib(dev.index)
     with torch.cuda.device(dev):
         rc = lib.codec_encode(flat.data_ptr(), scales.data_ptr(),
-                              out.data_ptr(), nb, block_size,
+                              out.data_ptr(), flat.numel(), nb, block_size,
                               _CODEC_ID[codec], int(bool(carrier)),
                               torch.cuda.current_stream(dev).cuda_stream)
     if rc:

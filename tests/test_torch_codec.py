@@ -109,6 +109,20 @@ def check_decode_matches_jnp_pair_and_pallas_kernel(codec, n, bs, world):
         assert np.allclose(t_d.numpy(), np.asarray(kern), rtol=2e-7, atol=0)
 
 
+def check_block_absmax_ragged_matches_reference(n, bs):
+    """The port's abs-max takes a ragged tail on its own (no padded copy):
+    bit for bit the reference's, which pads with zeros. The tail planted
+    with negatives and -0.0."""
+    x = np.random.RandomState(n).randn(n).astype(np.float32)
+    tail = n % bs
+    x[n - tail:] = -np.abs(x[n - tail:])
+    x[-1] = -0.0
+    t = tgc.block_absmax(torch.from_numpy(x), bs)
+    j = np.asarray(jgc.block_absmax(jnp.asarray(x), bs))
+    assert t.dtype == torch.float32 and tuple(t.shape) == j.shape
+    assert np.array_equal(t.numpy().view(np.uint32), j.view(np.uint32))
+
+
 def check_int8_clips_at_127_with_shared_scales():
     """Scales smaller than the local abs-max: the clip must hold."""
     bs = 128
@@ -167,6 +181,10 @@ def test_codec_port_matches_reference():
          for c in CODECS for n, bs in CASES]
         + [(check_decode_matches_jnp_pair_and_pallas_kernel, (c, n, bs, w))
            for c in CODECS for n, bs in CASES for w in (1, 2, 3)]
+        + [(check_block_absmax_ragged_matches_reference, (n, bs))
+           for n, bs in ((1, 1024), (3, 1024), (1023, 1024), (1025, 1024),
+                         (4099, 1024), (100_003, 1024), (777, 128),
+                         (1_000_003, 1024))]
         + [(check_int8_clips_at_127_with_shared_scales, ()),
            (check_zero_block_scale_floor, ()),
            (check_wrapper_rejects_unknown_codec, ()),

@@ -35,6 +35,10 @@ launches of a shape whose k is split over slices giving identical bits. A conver
 bert-test on the card against the same on the CPU: int8 payloads
 identical, logits within 1e-4 (card and CPU differ by ~1e-6 at this
 size), and the launches of one conversion and one forward counted.
+Ragged inputs (n % bs != 0, n % 4 != 0) are encoded where they lie, at
+starts on and off the 16-byte grid, with ``F.pad`` made to raise during
+the card's calls: payload, carrier, abs-max and decode bit-identical to
+the plain versions, one launch a call.
 The gradient wire: the codec kernels' int32/fp32 carriers (encode, and
 the decode of two ranks' summed carriers) bit-identical to the plain
 versions; ``fused_dequant_update`` bit-identical to its plain version
@@ -119,8 +123,6 @@ def check_kernels_match_plain_bit_for_bit(dev, codec_name, n, bs, world):
 def check_wrappers_raise_on_what_the_kernel_does_not_take(dev):
     x = torch.randn(4097, device=dev)
     s = torch.ones(4, device=dev)
-    with pytest.raises(ValueError, match="aligned"):
-        codec.block_encode(x[1:], s, 1024, "int8_block")
     with pytest.raises(ValueError, match="block_size"):
         codec.block_encode(x[:4094], torch.ones(2, device=dev), 2047,
                            "int8_block")
@@ -132,6 +134,51 @@ def check_wrappers_raise_on_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="numel"):
         codec.block_decode(torch.zeros(4, 1024, dtype=torch.int8,
                                        device=dev), s, 1, 5000)
+
+
+def _no_pad(*args, **kwargs):
+    raise AssertionError("F.pad called: the CUDA path copies no padded "
+                         "buffer")
+
+
+def check_ragged_read_in_place(dev, codec_name, carrier, n, bs, offset):
+    """A ragged input (n % bs != 0) read where it lies: ``offset``
+    elements into a larger buffer (a start off the 16-byte grid when
+    offset % 4 != 0). The payload or carrier is bit for bit the plain
+    encode's (the plain version zero-pads), the card's abs-max the CPU's,
+    the decode the plain decode's over numel, also from a payload that
+    starts one element off the 16-byte grid; F.pad raises during the
+    card's calls, and each call launches once."""
+    rs = np.random.RandomState(n + offset)
+    base = torch.from_numpy(rs.randn(n + offset).astype(np.float32) * 4)
+    base[offset:offset + bs] = 0.0           # an all-zero block, if whole
+    x, xd = base[offset:], base.to(dev)[offset:]
+    s = plain.block_scales(plain.block_absmax(x, bs), codec_name)
+    world = 2 if carrier else 1
+    q_ref = plain.block_encode(x, s, bs, codec_name, carrier=carrier)
+    d_ref = plain.block_decode(q_ref, s, world, n)
+    buf = torch.zeros(q_ref.numel() + 1, dtype=q_ref.dtype, device=dev)
+    pad, torch.nn.functional.pad = torch.nn.functional.pad, _no_pad
+    try:
+        before = codec.launch_counts()
+        absmax = plain.block_absmax(xd, bs)
+        q = codec.block_encode(xd, s.to(dev), bs, codec_name,
+                               carrier=carrier)
+        d = codec.block_decode(q, s.to(dev), world, n)
+        buf[1:] = q.reshape(-1)
+        d_off = codec.block_decode(buf[1:].view(q.shape), s.to(dev), world,
+                                   n)
+        torch.cuda.synchronize()
+    finally:
+        torch.nn.functional.pad = pad
+    assert codec.launch_counts() == {
+        "codec_encode": before["codec_encode"] + 1,
+        "codec_decode": before["codec_decode"] + 2}
+    assert torch.equal(absmax.cpu(), plain.block_absmax(x, bs))
+    assert q.dtype == q_ref.dtype and q.shape == q_ref.shape
+    bits = torch.int32 if carrier else torch.uint8
+    assert torch.equal(q.cpu().view(bits), q_ref.view(bits))
+    assert torch.equal(d.cpu(), d_ref) and torch.equal(d_off.cpu(), d_ref)
 
 
 def check_carrier_kernels_match_plain(dev, codec_name, n, bs):
@@ -534,6 +581,15 @@ def test_cuda_path_matches_plain(dev):
     run_checks(
         [(check_kernels_match_plain_bit_for_bit, (dev, c, n, bs, w))
          for c in CODECS for n, bs in CASES for w in (1, 3)]
+        + [(check_ragged_read_in_place, (dev, c, carrier, n, bs, off))
+           for c in CODECS for carrier in (False, True)
+           for n, bs, off in ((1_000_003, 1024, 0), (1_000_003, 1024, 1),
+                              (4_725_505, 1024, 3), (5001, 1024, 2),
+                              (777, 128, 0), (5, 1024, 1), (1, 1024, 0),
+                              # bs not a multiple of the quad stride
+                              (1001, 100, 0),
+                              # more rows than one grid pass covers
+                              (2_400_003, 4, 0), (9_600_013, 16, 0))]
         + [(check_wrappers_raise_on_what_the_kernel_does_not_take, (dev,))]
         + [(check_pool_on_card_matches_pool_on_cpu, (dev, c)) for c in CODECS]
         + [(check_engine_on_card_token_identical_to_cpu, (dev,))]
