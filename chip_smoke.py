@@ -80,7 +80,8 @@ when every phase passed):
   8. train-profile
               torch.profiler over one train step: device busy/idle share,
               kernels per step, device time by kernel, each new kernel's
-              share of the step;
+              share of the step, and the time by kind (cuBLAS GEMMs in
+              TF32 and the others, the port's kernels, the rest);
   9. train-parity
               one TrainStep on the card and one on the CPU from the same
               weights and batch, GPT-125M width with 2 layers, b2 s128:
@@ -164,6 +165,45 @@ when every phase passed):
               decoding to another gradient; Adam's step where the decoded
               gradients agree, by adam_step_parity).
 
+ 16. train-kernels bf16
+              the bf16 forms of the flash kernels (flash_fwd_bf16,
+              flash_dq_bf16, flash_dkv_bf16) against their plain
+              versions on bf16 inputs at the bf16 train step's shape (b8
+              n12 s1024 d64, causal) and at the tail, d = 128 and full
+              shapes of phase 6: every element of out, dq, dk and dv
+              within 2e-2 of its plain value's magnitude plus 1.6e-2 of
+              the RMS of its row plus 1e-5, lse within 1e-4
+              (tests/torch_checks.py flash_bf16_limit; each row's
+              err_over_limit is the largest diff / limit); fused_update_buckets
+              over every bucket of the bf16 plan (bf16 parameters and
+              gradients, fp32 moments, the fp32 final-norm bucket in the
+              same table) bit for bit against its plain walk over steps
+              4-6 from non-zero moments; timed as in phase 6 against
+              their bounds (bf16 tensor cores at 989 TFLOP/s; the update
+              22 bytes a bf16 element) and yardsticks (bf16
+              scaled_dot_product_attention forward, its backward against
+              the pair; torch._fused_adamw_ with bf16 moments, its
+              nearest form), in the same call as phase 6's fp32 rows;
+              clocks before and after, ratios;
+ 17. train bf16
+              phase 7 at bench.py's own configuration (measure_gpt,
+              bench.py:155-224): GPT-125M with dtype="bfloat16", seed 0,
+              batch 8 x 1024, AdamW lr 1e-4 wd 0.01: 2 warm-up and 5
+              timed steps, launch counts (12 a step of each bf16 flash
+              kernel, none of the fp32 ones, one fused_update a step for
+              every bucket of both dtypes), losses finite and falling,
+              peak memory; then the phase 8 profile of one step and the
+              LM head's fp32 GEMMs (forward and both backward products)
+              timed in TF32, as the step runs them, and in full fp32;
+ 18. train-parity bf16
+              phase 9 for the bf16 model (GPT-125M width, 2 layers, b2
+              s128): loss within 1e-4 relative (tests/torch_checks.py
+              BF16_LOSS_RTOL), then
+              tests/torch_checks.py bf16_step_parity (gradients within
+              2e-2 of each tensor's largest; every clear element of a
+              bf16 weight within one bf16 ulp of the CPU's after the
+              step, of the fp32 final norm within 1e-2 lr).
+
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
 """
@@ -186,6 +226,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM, fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12     # H100 SXM, TF32 on the tensor cores (dense)
+BF16_OPS_PER_S = 989e12     # H100 SXM, bf16 on the tensor cores (dense)
 CLOCK_QUERY = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 EPT = 12 * 2 * 768          # GPT-125M KV elements per token
 QB = 1024                   # KV quant block
@@ -193,6 +234,11 @@ MAIN_SHAPE = "decode_step_8"  # the shape behind most serve-phase launches
 SOURCES = ("codec", "flash_attention", "fused_update", "quant_matmul")
 TRAIN_B, TRAIN_S = 8, 1024          # the train phase's batch
 FLASH_MAIN = (8, 12, 1024, 64)      # [b, n, s, d] of every train launch
+# the other flash shapes held against plain: a tail (s = 1000, not a
+# multiple of the 64-row tile), d = 128, and full (non-causal) attention
+FLASH_CHECKS = (((2, 12, 1000, 64), True), ((2, 12, 1000, 64), False),
+                ((2, 8, 1024, 128), True), ((2, 8, 1024, 128), False),
+                ((8, 12, 1024, 64), False))
 LR, WD = 1e-4, 0.01
 INFER_B, INFER_S = 16, 512          # the infer phase's batch (bench.py)
 FLASH_BERT = (16, 12, 512, 64)      # [b, n, s, d] of every infer launch
@@ -630,13 +676,14 @@ def phase_profile(dm, seed: int, steps: int = 8):
 
 
 # ------------------------------------------------------------ training
-def flash_work(shape, causal: bool, kernel: str):
-    """(bytes, fp32 operations) one flash kernel needs for ``shape``:
-    each input read once, each output written once; 2d operations per
-    visible (query, key) pair and product (causal: s(s+1)/2 pairs)."""
+def flash_work(shape, causal: bool, kernel: str, itemsize: int = 4):
+    """(bytes, operations) one flash kernel needs for ``shape`` with
+    ``itemsize``-byte q, k, v, dO and outputs (lse and delta fp32): each
+    input read once, each output written once; 2d operations per visible
+    (query, key) pair and product (causal: s(s+1)/2 pairs)."""
     b, n, s, d = shape
     pairs = b * n * (s * (s + 1) // 2 if causal else s * s)
-    mat, row = 4 * b * n * s * d, 4 * b * n * s
+    mat, row = itemsize * b * n * s * d, 4 * b * n * s
     if kernel == "flash_fwd":     # q, k, v -> out, lse; QK^T and PV
         return 4 * mat + row, 2 * 2 * d * pairs
     if kernel == "flash_dq":      # q, k, v, dO, lse, delta -> dq
@@ -644,11 +691,14 @@ def flash_work(shape, causal: bool, kernel: str):
     return 6 * mat + 2 * row, 4 * 2 * d * pairs   # ... -> dk, dv
 
 
-def work_bound(nbytes: float, ops: float, tf32_passes: int = 0):
+def work_bound(nbytes: float, ops: float, tf32_passes: int = 0,
+               bf16: bool = False):
     """Least time (ms) for the bytes at 3.35 TB/s and the operations at
     the fp32 SIMT peak, or, with ``tf32_passes``, that many TF32 passes
-    over them at the tensor cores' peak (split-TF32 kernels)."""
-    rate = TF32_OPS_PER_S if tf32_passes else FP32_OPS_PER_S
+    over them at the tensor cores' peak (split-TF32 kernels), or with
+    ``bf16`` at the bf16 tensor cores' peak."""
+    rate = (BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S if tf32_passes
+            else FP32_OPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops * max(tf32_passes, 1) / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -671,17 +721,26 @@ TF32_PASSES = {"flash_fwd": 3, "flash_dq": 3, "flash_dkv": 3,
 PAIR = "flash_dq + flash_dkv"   # the backward pair, against SDPA's backward
 
 
-def _flash_case(dev, gen, shape, causal, timed: bool, flush):
+def _flash_case(dev, gen, shape, causal, timed: bool, flush,
+                dtype=torch.float32):
+    """The three flash kernels on ``dtype`` inputs of ``shape`` against
+    their plain versions (``torch_checks.flash_vs_plain``) and, when
+    ``timed``, each timed beside its plain version, its bound and the
+    one-call yardstick in the same dtype."""
     from paddle_tpu_torch.ops import flash_attention as fa
     import torch.nn.functional as F
     from torch_checks import flash_vs_plain
 
-    q, k, v, do = (torch.randn(*shape, device=dev, generator=gen)
+    q, k, v, do = (torch.randn(*shape, device=dev, generator=gen).to(dtype)
                    for _ in range(4))
     errs, lse, delta = flash_vs_plain(q, k, v, do, causal)
-    kernel_err = {"flash_fwd": max(errs["out"][0], errs["lse"][0]),
-                  "flash_dq": errs["dq"][0],
-                  "flash_dkv": max(errs["dk"][0], errs["dv"][0])}
+    outputs = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
+               "flash_dkv": ("dk", "dv")}
+    kernel_err = {n: max(errs[o][0] for o in outs)
+                  for n, outs in outputs.items()}
+    kernel_ratio = {n: max(errs[o][1] for o in outs)
+                    for n, outs in outputs.items()}
+    bf16 = dtype == torch.bfloat16
     rows = {}
     if timed:
         # one-call yardsticks, timed here and used nowhere in the port:
@@ -705,23 +764,33 @@ def _flash_case(dev, gen, shape, causal, timed: bool, flush):
                                                causal),
                           lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
                                                      causal), None)}
-        label = f"{list(shape)} {'causal' if causal else 'full'}"
+        label = (f"{list(shape)} {'causal' if causal else 'full'}"
+                 + (" bf16" if bf16 else ""))
         for name, (kern, plain, lib) in calls.items():
+            work = flash_work(shape, causal, name, q.element_size())
+            bounds = (dict(zip(("bound_ms", "bound_by"),
+                               work_bound(*work, bf16=True)))
+                      if bf16 else both_bounds(*work, TF32_PASSES[name]))
             rows[name] = {"shape": label, "max_abs_err": kernel_err[name],
+                          "err_over_limit": kernel_ratio[name],
                           "ms": median_ms(kern, flush),
                           "plain_ms": median_ms(plain, flush),
-                          **both_bounds(*flash_work(shape, causal, name),
-                                        TF32_PASSES[name]),
-                          "library_ms": lib}
+                          **bounds, "library_ms": lib}
         rows[PAIR] = {"shape": label, "ms": rows["flash_dq"]["ms"]
                       + rows["flash_dkv"]["ms"], "library_ms": lib_bwd}
-    log(f"flash {list(shape)} causal={causal}: max abs diff "
-        + ", ".join(f"{n} {e:.2e} (limit {lim:.2e})"
-                    for n, (e, lim) in errs.items())
+
+    def at(name, r):
+        if bf16:
+            return "bf16 tensor cores"
+        return (f"{TF32_PASSES[name]} TF32 passes, fp32 SIMT bound "
+                f"{r['bound_simt_ms']:.4f}")
+
+    log(f"flash {list(shape)} {dtype} causal={causal}: max abs diff "
+        + ", ".join(f"{n} {e:.2e} ({r:.3f} of its limit)"
+                    for n, (e, r) in errs.items())
         + "".join(f" | {n} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
                   f"bound {r['bound_ms']:.4f} {r['bound_by']} at "
-                  f"{TF32_PASSES[n]} TF32 passes, fp32 SIMT bound "
-                  f"{r['bound_simt_ms']:.4f})"
+                  f"{at(n, r)})"
                   for n, r in rows.items() if n != PAIR)
         + "".join(f" | {n} {r['ms']:.4f} ms, library {r['library_ms']:.4f}"
                   for n, r in rows.items() if r.get("library_ms")))
@@ -736,21 +805,23 @@ def _fused_case(gen, kind, wd, n):
                           hyper=FUSED_HYPER[kind], wd=wd)
 
 
-def bucket_updater(sizes, gen):
-    """A FusedFlatUpdater over one parameter a bucket of ``sizes`` (AdamW,
-    lr and wd of the train phase) on ``gen``'s device, its gradients in
-    place, stepped once, then moments set to the train phase's scales:
-    weights 0.02, gradients 1e-3, moment1 1e-4, moment2 1e-6 (squared
-    randn)."""
+def bucket_updater(sizes, gen, dtypes=None):
+    """A FusedFlatUpdater over one parameter a bucket of ``sizes`` (in
+    ``dtypes``, fp32 by default; AdamW, lr and wd of the train phase) on
+    ``gen``'s device, its gradients in place, stepped once, then moments
+    set to the train phase's scales: weights 0.02, gradients 1e-3,
+    moment1 1e-4, moment2 1e-6 (squared randn)."""
     from paddle_tpu_torch import optimizer as optim
     from paddle_tpu_torch.distributed import grad_comm
 
     dev = gen.device
-    params = [torch.nn.Parameter(torch.randn(n, device=dev, generator=gen)
-                                 * 0.02) for n in sizes]
+    dtypes = dtypes or [torch.float32] * len(sizes)
+    params = [torch.nn.Parameter(
+        (torch.randn(n, device=dev, generator=gen) * 0.02).to(dt))
+        for n, dt in zip(sizes, dtypes)]
     buckets = []
-    for i, n in enumerate(sizes):
-        b = grad_comm.GradBucket(i, torch.float32)
+    for i, (n, dt) in enumerate(zip(sizes, dtypes)):
+        b = grad_comm.GradBucket(i, dt)
         b.add(i, (n,))
         buckets.append(b)
     opt = optim.AdamW(learning_rate=LR, weight_decay=WD, parameters=params)
@@ -776,14 +847,19 @@ def _fused_timing(dev, gen, buckets, flush):
     latter three steps, stepped beta powers included); then, in one
     call, the update as FusedFlatUpdater.step() calls it, the kernel
     alone, the plain walk and torch._fused_adamw_ over the same buckets
-    timed, and the bound for the whole set."""
+    timed, and the bound for the whole set. Each bucket takes its plan's
+    dtype (fp32, or bf16 parameters and gradients with fp32 moments);
+    torch._fused_adamw_ keeps the moments in the parameters' dtype, so
+    its bf16 buckets run with bf16 copies of the moments (its nearest
+    form), one call a dtype."""
     from torch_checks import FUSED_HYPER, buckets_vs_plain, fused_vs_plain
 
     from paddle_tpu_torch.ops import fused_update as fu
 
     hyper = FUSED_HYPER["adamw"]
     sizes = [b.size for b in buckets]
-    upd = bucket_updater(sizes, gen)
+    dtypes = [b.dtype for b in buckets]
+    upd = bucket_updater(sizes, gen, dtypes)
     ps = [upd._flat_p[i] for i in range(len(sizes))]
     gs = [upd._flat_g[i] for i in range(len(sizes))]
     m1 = [upd._slots[i]["moment1"] for i in range(len(sizes))]
@@ -816,17 +892,31 @@ def _fused_timing(dev, gen, buckets, flush):
     def plain():
         fu.buckets_plain(table, lr)
 
-    steps = [torch.full((), 4.0, device=dev) for _ in sizes]
+    groups = {}     # dtype -> the library's (params, grads, m1, m2, steps)
+    for p, g, a, b in zip(ps, gs, m1, m2):
+        grp = groups.setdefault(p.dtype, ([], [], [], [], []))
+        for lst, t in zip(grp, (p, g, a.to(p.dtype), b.to(p.dtype),
+                                torch.full((), 4.0, device=dev))):
+            lst.append(t)
 
     def library():
-        torch._fused_adamw_(ps, gs, m1, m2, [], steps, lr=LR, beta1=0.9,
-                            beta2=0.999, weight_decay=WD, eps=1e-8,
-                            amsgrad=False, maximize=False)
+        for grp in groups.values():
+            torch._fused_adamw_(*grp[:4], [], grp[4], lr=LR, beta1=0.9,
+                                beta2=0.999, weight_decay=WD, eps=1e-8,
+                                amsgrad=False, maximize=False)
 
     n = sum(sizes)
-    # read p, g, m1, m2; write p, m1, m2 (fp32); ~20 operations each
-    bound_ms, bound_by = work_bound(7 * 4 * n, 20 * n)
-    row = {"shape": f"{len(sizes)} buckets, {n} elements (one step)",
+    # read p, g, m1, m2; write p, m1, m2 (the moments fp32); ~20
+    # operations an element
+    nbytes = sum(nb * (3 * torch.empty((), dtype=dt).element_size() + 16)
+                 for nb, dt in zip(sizes, dtypes))
+    bound_ms, bound_by = work_bound(nbytes, 20 * n)
+    kinds = sorted({str(dt).split(".")[-1] for dt in dtypes})
+    row = {"shape": f"{len(sizes)} buckets, {n} elements (one step, "
+                    f"{'/'.join(kinds)})",
+           "library_form": ", ".join(
+               f"{len(g[0])} {str(dt).split('.')[-1]} buckets, moments "
+               f"{str(dt).split('.')[-1]}" for dt, g in groups.items()),
            "max_abs_err": err, "step_ms": median_ms(upd.step, flush),
            "ms": median_ms(kernel, flush),
            "library_ms": median_ms(library, flush),
@@ -842,9 +932,7 @@ def _fused_timing(dev, gen, buckets, flush):
 def phase_train_kernels(dev, gen, buckets):
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     rows = _flash_case(dev, gen, FLASH_MAIN, True, True, flush)
-    for shape, causal in (((2, 12, 1000, 64), True), ((2, 12, 1000, 64), False),
-                          ((2, 8, 1024, 128), True), ((2, 8, 1024, 128), False),
-                          ((8, 12, 1024, 64), False)):
+    for shape, causal in FLASH_CHECKS:
         _flash_case(dev, gen, shape, causal, False, flush)
     for kind in ("sgd", "momentum", "adam", "adamw"):
         for wd in (0.0, WD):
@@ -863,6 +951,42 @@ def phase_train_kernels(dev, gen, buckets):
         f"{100 * fused['bound_ms'] / fused['ms']:.1f}% of it")
     del flush
     return rows
+
+
+def phase_train_kernels_bf16(dev, gen, buckets):
+    """Phase 16: the bf16 forms of the train step's kernels, checked and
+    timed as phase 6 times the fp32 ones (``buckets``: the bf16 plan)."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    bf16 = torch.bfloat16
+    rows = _flash_case(dev, gen, FLASH_MAIN, True, True, flush, bf16)
+    for shape, causal in FLASH_CHECKS:
+        _flash_case(dev, gen, shape, causal, False, flush, bf16)
+    fused = _fused_timing(dev, gen, buckets, flush)
+    rows["fused_update"] = fused
+    log(f"fused_update bf16 plan, one step's {fused['shape']}, one launch, "
+        f"device time (from an idle card): as FusedFlatUpdater.step() calls "
+        f"it {fused['step_ms']:.4f} ms ({fused['step_span_ms']:.4f}), the "
+        f"kernel alone {fused['ms']:.4f} ({fused['span_ms']:.4f}), "
+        f"torch._fused_adamw_ ({fused['library_form']}) "
+        f"{fused['library_ms']:.4f} ({fused['library_span_ms']:.4f}); plain "
+        f"{fused['plain_ms']:.4f}; bound {fused['bound_ms']:.4f} "
+        f"{fused['bound_by']}, the kernel at "
+        f"{100 * fused['bound_ms'] / fused['ms']:.1f}% of it")
+    del flush
+    return rows
+
+
+def bucket_plan(cfg):
+    """The bucket plan of ``cfg``'s parameters in their dtypes (for bf16:
+    bf16 blocks and tables, the fp32 final norm), from their shapes."""
+    from paddle_tpu_torch.distributed.grad_comm import build_buckets
+    from paddle_tpu_torch.models.convert import (expected_dtypes,
+                                                 expected_shapes)
+
+    dtypes = expected_dtypes(cfg)
+    return build_buckets([torch.empty(shape, device="meta",
+                                      dtype=dtypes[name])
+                          for name, shape in expected_shapes(cfg).items()])
 
 
 def _train_setup(cfg, device, b, s, seed):
@@ -899,7 +1023,8 @@ def phase_train(cfg, dev, seed, warmup=2, steps=5, b=TRAIN_B, s=TRAIN_S):
     _, step, ids, labels = _train_setup(cfg, dev, b, s, seed)
     n_params = sum(b.size for b in step.buckets)
     log(f"train: {n_params} parameters in {len(step.buckets)} buckets, "
-        f"{cfg.num_layers} layers, batch {b} x {s}, AdamW lr {LR} wd {WD}")
+        f"{cfg.num_layers} layers, {cfg.dtype}, batch {b} x {s}, AdamW lr "
+        f"{LR} wd {WD}")
     losses = []
     for _ in range(warmup):
         losses.append(float(step(inputs=(ids,), labels=(labels,))))
@@ -920,15 +1045,16 @@ def phase_train(cfg, dev, seed, warmup=2, steps=5, b=TRAIN_B, s=TRAIN_S):
                "tokens_per_s": tokens / (statistics.median(step_ms) / 1e3),
                "peak_memory_gib": peak, "buckets": len(step.buckets),
                "launches": counts}
-    log("train " + json.dumps(summary))
+    log(f"train {cfg.dtype} " + json.dumps(summary))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
-    want = {"flash_fwd": cfg.num_layers * steps,
-            "flash_dq": cfg.num_layers * steps,
-            "flash_dkv": cfg.num_layers * steps,
-            "fused_update": steps}
+    ran = "_bf16" if cfg.dtype == "bfloat16" else ""
+    want = {name + sfx: cfg.num_layers * steps * (sfx == ran)
+            for sfx in ("", "_bf16")
+            for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    want["fused_update"] = steps
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     return counts, step, ids, labels
@@ -948,19 +1074,33 @@ def _one_step(cfg, device, b, s, seed):
 def phase_train_parity(cfg, dev, seed):
     """One step on the card and one on the CPU, same weights and batch:
     the loss, the gradients and the step itself compared (see
-    ``tests/torch_checks.py`` ``adam_step_parity``)."""
+    ``tests/torch_checks.py`` ``adam_step_parity``; a bf16 ``cfg``,
+    ``bf16_step_parity``)."""
     import dataclasses
 
-    from torch_checks import adam_step_parity
+    from torch_checks import (BF16_LOSS_RTOL, adam_step_parity,
+                              bf16_step_parity)
 
     small = dataclasses.replace(cfg, num_layers=2)
     card_loss, card = _one_step(small, dev, 2, 128, seed + 2)
     cpu_loss, cpu = _one_step(small, "cpu", 2, 128, seed + 2)
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    log(f"train card vs CPU (gpt-125m width, 2 layers, b2 s128): loss "
-        f"{card_loss:.7f} vs {cpu_loss:.7f} (rel {rel:.2e})")
-    if not rel <= 1e-5:
-        raise AssertionError("card and CPU losses differ beyond 1e-5")
+    tol = BF16_LOSS_RTOL if cfg.dtype == "bfloat16" else 1e-5
+    log(f"train {cfg.dtype} card vs CPU (gpt-125m width, 2 layers, b2 "
+        f"s128): loss {card_loss:.7f} vs {cpu_loss:.7f} (rel {rel:.2e}, "
+        f"limit {tol:.0e})")
+    if not rel <= tol:
+        raise AssertionError(f"card and CPU losses differ beyond {tol:.0e}")
+    if cfg.dtype == "bfloat16":
+        r = bf16_step_parity(card, cpu, LR)
+        log(f"train bf16 card vs CPU after one AdamW step: gradients "
+            f"within {r['grad_rtol']:.2e} of each tensor's largest (limit "
+            f"2e-2); on the {100 * r['clear_share']:.1f}% of elements whose "
+            f"gradient is clear of the noise, every bf16 weight within one "
+            f"bf16 ulp of the CPU's, the fp32 ones within 1e-2 lr; "
+            f"{100 * r['differ_share']:.3f}% of all elements differ, max "
+            f"|param diff| {r['param_max_abs_diff']:.3e}")
+        return
     r = adam_step_parity(card, cpu, LR)
     log(f"train card vs CPU after one AdamW step: gradients within "
         f"{r['grad_rtol']:.2e} of each tensor's largest (limit 1e-4); on "
@@ -970,7 +1110,9 @@ def phase_train_parity(cfg, dev, seed):
         f"max |param diff| {r['param_max_abs_diff']:.3e}")
 
 
-def phase_train_profile(step, ids, labels):
+def phase_train_profile(step, ids, labels,
+                        names=("fwd_kernel", "dq_kernel", "dkv_kernel",
+                               "update_kernel")):
     from torch.profiler import ProfilerActivity, profile
 
     step(inputs=(ids,), labels=(labels,))
@@ -992,10 +1134,67 @@ def phase_train_profile(step, ids, labels):
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / busy_us:5.1f}% "
             f"{e.count:5d}x  {e.key[:90]}")
-    for name in ("fwd_kernel", "dq_kernel", "dkv_kernel", "update_kernel"):
+    for name in names:
         t = sum(e.self_device_time_total for e in kernels if name in e.key)
         log(f"  share of the step's device time, {name}: "
             f"{100 * t / busy_us:.1f}% ({t / 1e3:.3f} ms)")
+    # by kind: cuBLAS's GEMMs (TF32 ones apart), the port's kernels, the
+    # rest (PyTorch's elementwise, reduction and copy kernels)
+    kinds = {"GEMMs, TF32": 0.0, "GEMMs, other": 0.0, "port kernels": 0.0,
+             "the rest": 0.0}
+    gemm_words = ("gemm", "nvjet", "gemv", "splitkreduce")
+    for e in kernels:
+        key = e.key.lower()
+        if any(n in e.key for n in names):
+            kind = "port kernels"
+        elif any(w in key for w in gemm_words):
+            kind = "GEMMs, TF32" if "tf32" in key else "GEMMs, other"
+        else:
+            kind = "the rest"
+        kinds[kind] += e.self_device_time_total
+    log("  by kind: " + ", ".join(f"{k} {t / 1e3:.3f} ms "
+                                  f"({100 * t / busy_us:.1f}%)"
+                                  for k, t in kinds.items()))
+
+
+def lm_head_gemms(dev, gen, cfg, tokens=TRAIN_B * TRAIN_S):
+    """The bf16 step's LM head in fp32 (``models/gpt.py``: the fp32
+    final-norm output times the bf16 table promoted to fp32): its forward
+    GEMM and both backward GEMMs, timed in TF32, as the step runs them,
+    and in full fp32 (median of 10, L2 flushed), beside their bounds at
+    495 TFLOP/s TF32 and 67 TFLOP/s fp32."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    h = torch.randn(tokens, cfg.hidden_size, device=dev, generator=gen)
+    w = torch.randn(cfg.vocab_size, cfg.hidden_size, device=dev,
+                    generator=gen).to(torch.bfloat16)
+    dlogits = torch.randn(tokens, cfg.vocab_size, device=dev, generator=gen)
+
+    def gemms():
+        w32 = w.float()
+        h @ w32.T
+        dlogits @ w32
+        dlogits.T @ h
+
+    mm = torch.backends.cuda.matmul
+    saved = mm.allow_tf32
+    out = {}
+    try:
+        for name, tf32 in (("tf32_ms", True), ("fp32_ms", False)):
+            mm.allow_tf32 = tf32
+            out[name] = median_ms(gemms, flush, runs=10)
+    finally:
+        mm.allow_tf32 = saved
+    ops = 3 * 2 * tokens * cfg.hidden_size * cfg.vocab_size
+    out["tf32_bound_ms"] = ops / TF32_OPS_PER_S * 1e3
+    out["fp32_bound_ms"] = ops / FP32_OPS_PER_S * 1e3
+    log(f"LM head fp32 GEMMs of a bf16 step ([{tokens}, {cfg.hidden_size}] "
+        f"x [{cfg.hidden_size}, {cfg.vocab_size}], forward and both "
+        f"backward products, {ops / 1e12:.2f} TFLOP): TF32 (as the step "
+        f"runs them) {out['tf32_ms']:.3f} ms (bound "
+        f"{out['tf32_bound_ms']:.3f}), full fp32 {out['fp32_ms']:.3f} ms "
+        f"(bound {out['fp32_bound_ms']:.3f})")
+    del flush, dlogits
+    return out
 
 
 # ------------------------------------------------------------ inference
@@ -1115,8 +1314,8 @@ def phase_infer_kernels(dev, gen, shapes):
                        TF32_PASSES["flash_fwd"])}
     rows["flash_fwd"] = r
     log(f"flash_fwd {r['shape']}: max abs diff "
-        + ", ".join(f"{n} {e:.2e} (limit {lim:.2e})"
-                    for n, (e, lim) in errs.items())
+        + ", ".join(f"{n} {e:.2e} ({r:.3f} of its limit)"
+                    for n, (e, r) in errs.items())
         + f" | {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA "
           f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
           f"{r['bound_by']} at 3 TF32 passes, fp32 SIMT bound "
@@ -1618,7 +1817,8 @@ def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
                              f"expected gloo (one card, two ranks)")
     n_layers = layers or cfg.num_layers
     want = {"flash_fwd": n_layers * steps, "flash_dq": n_layers * steps,
-            "flash_dkv": n_layers * steps,
+            "flash_dkv": n_layers * steps, "flash_fwd_bf16": 0,
+            "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
             "fused_update": 0, "codec_encode": nb * steps,
             "codec_decode": 0, "fused_dequant_update": nb * steps}
     want_shapes = Counter()
@@ -1718,7 +1918,8 @@ def phase_dp_parity(seed, layers=2, b=2, s=128):
 
 
 def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
-                 conversion, infer_counts, dp_row, carrier_rows, dp_rank):
+                 conversion, infer_counts, dp_row, carrier_rows, dp_rank,
+                 bf16_rows, bf16_counts):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -1732,7 +1933,10 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     flash_fwd's BERT-base shape with its infer-phase launches. SDPA's
     backward computes dq, dk and dv in one call: it stands as
     ``library_ms`` of flash_dkv beside ``pair_ms``, the two backward
-    kernels' times summed, and flash_dq has none of its own."""
+    kernels' times summed, and flash_dq has none of its own. The bf16
+    forms are entries of their own (``flash_fwd_bf16`` etc. at the bf16
+    train step, ``fused_update_bf16``: the same kernel over the bf16
+    plan), their launches those of the bf16 train phase."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -1780,6 +1984,21 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     pair = train_rows[PAIR]
     next(e for e in out if e["name"] == "flash_dkv").update(
         pair_ms=pair["ms"], library_ms=pair["library_ms"])
+    for name, replaces in (
+            ("flash_fwd", "paddle_tpu/ops/flash_attention.py:118"),
+            ("flash_dq", "paddle_tpu/ops/flash_attention.py:213"),
+            ("flash_dkv", "paddle_tpu/ops/flash_attention.py:251"),
+            ("fused_update", "paddle_tpu/ops/pallas/fused_update.py:122")):
+        update = name == "fused_update"
+        out.append(dict(name=name + "_bf16", route="cuda",
+                        source=(fu if update else fa).KERNEL_SOURCE,
+                        replaces=replaces,
+                        launches=bf16_counts[name if update
+                                             else name + "_bf16"],
+                        **_numbers(bf16_rows[name])))
+    pair = bf16_rows[PAIR]
+    next(e for e in out if e["name"] == "flash_dkv_bf16").update(
+        pair_ms=pair["ms"], library_ms=pair["library_ms"])
     qm = _quant_module()
     for name, launches, line in (
             ("quantize_int8", conversion["quantize_int8"], 63),
@@ -1802,7 +2021,7 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
 
 def _numbers(r) -> dict:
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "launches_at_shape",
+            "bound_by", "library_ms", "library_form", "launches_at_shape",
             "err_over_limit", "step_ms", "step_span_ms", "clocks")
     return {k: r[k] for k in keys if k in r}
 
@@ -1843,11 +2062,7 @@ def main(argv=None) -> int:
     del cuda_dm, cuda_model, cpu_model
     torch.cuda.empty_cache()
 
-    from paddle_tpu_torch.distributed.grad_comm import build_buckets
-    from paddle_tpu_torch.models.convert import expected_shapes
-
-    plan = build_buckets([torch.empty(shape, device="meta")
-                          for shape in expected_shapes(cfg).values()])
+    plan = bucket_plan(cfg)
     before = clocks("before train-kernels")
     train_rows = phase_train_kernels(dev, gen, plan)
     stamp(train_rows.values(), before, clocks("after train-kernels"))
@@ -1890,11 +2105,35 @@ def main(argv=None) -> int:
         raise AssertionError("the dp train step's bucket plan is not the "
                              "timed one")
     phase_dp_parity(args.seed)
+    torch.cuda.empty_cache()
+
+    # bench.py's own training configuration (measure_gpt, bench.py:166)
+    cfg16 = gpt_presets("gpt-125m", max_position_embeddings=1024,
+                        dtype="bfloat16")
+    plan16 = bucket_plan(cfg16)
+    before = clocks("before train-kernels bf16")
+    bf16_rows = phase_train_kernels_bf16(dev, gen, plan16)
+    stamp(bf16_rows.values(), before, clocks("after train-kernels bf16"))
+    log_ratios("train-kernels bf16", bf16_rows)
+    bf16_counts, step, ids, labels = phase_train(cfg16, dev, args.seed)
+    if [(b.size, b.dtype) for b in step.buckets] != [(b.size, b.dtype)
+                                                    for b in plan16]:
+        raise AssertionError("the bf16 train step's bucket plan is not the "
+                             "timed one")
+    phase_train_profile(step, ids, labels,
+                        names=("fwd_bf16_kernel", "dq_bf16_kernel",
+                               "dkv_bf16_kernel", "update_kernel"))
+    del step
+    torch.cuda.empty_cache()
+    lm_head_gemms(dev, gen, cfg16)
+    torch.cuda.empty_cache()
+    phase_train_parity(cfg16, dev, args.seed)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(rows, counts, train_rows, train_counts,
                                   infer_rows, conversion, infer_counts,
-                                  dp_row, carrier_rows, dp_rank)))
+                                  dp_row, carrier_rows, dp_rank, bf16_rows,
+                                  bf16_counts)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -94,7 +94,40 @@
 // the own rows), dkv 111,616 (two stages of Q, dO, lse and delta, and the
 // own rows): two blocks an SM, as dkv's ~210 registers allow. At d = 128:
 // 208,896 and 209,920, one block.
+//
+// bf16 forms (flash_fwd_bf16, flash_dq_bf16, flash_dkv_bf16; separate
+// kernels, not a branch in the fp32 ones): bf16 q, k, v, dO, out, dq,
+// dk, dv; lse and delta fp32, as the reference's kernels load bf16,
+// compute in fp32 and store the output dtype. Every product is
+// mma.sync m16n8k16 bf16 with fp32 accumulators. Q.K^T and dO.V^T (and
+// dkv's K.Q^T, V.dO^T) multiply two bf16 operands, exact, in one pass.
+// P.V, dS.K, P^T.dO and dS^T.Q have an fp32 operand (p or ds), rounded to
+// bf16 to nearest even for one pass: on unit-scale inputs at s = 1024
+// d = 64 a CPU model of that rounding keeps every output element at
+// under half of its limit against the fp32 plain versions (2e-2 of its
+// magnitude plus 1.6e-2 of its row's RMS; a hi + lo split in two passes
+// under 0.3 of it; tests/test_torch_bf16_train.py). The scale
+// 1/sqrt(d) multiplies the fp32 scores (q is not pre-scaled: q * scale
+// is exact in bf16 only when d is a power of 4), and dq and dk are
+// scaled once at the end. Bounds at b8 n12 s1024 d64 causal, 989 TFLOP/s
+// bf16 dense: 0.013 ms forward, 0.020 dq, 0.026 dkv of operations
+// against ~0.015 / 0.019 / 0.023 ms of bytes (PERF.md).
+//
+// The tile walk is the fp32 kernels': 4 warps x 16 own rows, 64-row
+// streamed tiles double-buffered by cp.async, grid (batch*head, tile)
+// heaviest tile first, masks only on the diagonal and tail tiles, and a
+// score's accumulator becomes the next product's A operand in registers
+// (the m16n8k16 A fragment of key chunk c is the C fragments of key
+// tiles 2c and 2c + 1, packed in pairs). Tiles are bf16 in shared memory
+// at a row pitch of d + 8 elements (16 bytes over a multiple of 16, so
+// the 8 rows one ldmatrix phase reads fall on 8 distinct 16-byte bank
+// groups for every d here) and every fragment is read with ldmatrix:
+// plain for a tile whose rows are the product's n (K in Q.K^T) or the
+// own rows (A), .trans for a tile whose rows are its k (V in P.V, K in
+// dS.K, dO and Q in dkv). The own rows stay in shared memory and are
+// read per product, which keeps d = 128 out of spills.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -722,6 +755,521 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------ bf16 forms
+using bf16 = __nv_bfloat16;
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulators.
+// Fragments (lane = 4 g + t): a0 (row g, k 2t..2t+1), a1 (g + 8, 2t..),
+// a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); b0 (k 2t..2t+1, col g), b1
+// (k 2t + 8.., col g); c0, c1 (row g, cols 2t, 2t + 1), c2, c3 (g + 8).
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lanes 8i .. 8i + 7 give
+// the row addresses of matrix i, and r[i] gets (row g, cols 2t, 2t + 1)
+// of it, or with .trans (rows 2t, 2t + 1, col g).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// A fragment of rows [r0, r0 + 16) x columns [16c, 16c + 16) of a tile at
+// pitch P.
+template <int P>
+__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* tile, int r0,
+                                       int c, int lane) {
+  const int i = lane >> 3, r = lane & 7;
+  ldsm_x4(a, tile + (r0 + (i & 1) * 8 + r) * P + 16 * c + (i >> 1) * 8);
+}
+
+// B fragments of A.T^T: the tile's rows are n, its columns k. b[0], b[1]
+// for n-tile j (rows 8j ..), b[2], b[3] for n-tile j + 1, k-chunk c.
+template <int P>
+__device__ __forceinline__ void frag_bt(uint32_t* b, const bf16* tile, int j,
+                                        int c, int lane) {
+  const int i = lane >> 3, r = lane & 7;
+  ldsm_x4(b, tile + (8 * j + (i >> 1) * 8 + r) * P + 16 * c + (i & 1) * 8);
+}
+
+// B fragments of A.T: the tile's rows are k, its columns n. b[0], b[1]
+// for n-tile j (columns 8j ..), b[2], b[3] for n-tile j + 1, k-chunk c
+// (rows 16c ..).
+template <int P>
+__device__ __forceinline__ void frag_b(uint32_t* b, const bf16* tile, int c,
+                                       int j, int lane) {
+  const int i = lane >> 3, r = lane & 7;
+  ldsm_x4_trans(b,
+                tile + (16 * c + (i & 1) * 8 + r) * P + 8 * j + (i >> 1) * 8);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x low
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A fragment of key (or query) chunk c from the score accumulators of
+// n-tiles 2c (x0) and 2c + 1 (x1), rounded to bf16.
+__device__ __forceinline__ void score_frag(uint32_t* a, const float* x0,
+                                           const float* x1) {
+  a[0] = pack_bf16(x0[0], x0[1]);
+  a[1] = pack_bf16(x0[2], x0[3]);
+  a[2] = pack_bf16(x1[0], x1[1]);
+  a[3] = pack_bf16(x1[2], x1[3]);
+}
+
+template <int D>
+struct Bf16Tiles {
+  static constexpr int P = D + 8;               // row pitch (elements)
+  static constexpr int kRows = kTile * P;       // one tile
+  // forward: two stages of K, V and the own Q; dq: the same and dO
+  static constexpr size_t fwd_bytes = sizeof(bf16) * 5 * kRows;
+  static constexpr size_t dq_bytes = sizeof(bf16) * 6 * kRows;
+  static constexpr size_t dkv_stage =            // Q, dO; lse, delta
+      sizeof(bf16) * 2 * kRows + sizeof(float) * 2 * kTile;
+  static constexpr size_t dkv_bytes = 2 * dkv_stage + sizeof(bf16) * 2 * kRows;
+};
+
+// cp.async rows [row0, row0 + kTile) of a bf16 [s, D] matrix into shared
+// memory at pitch P, zeros past s (16 bytes = 8 elements a copy).
+template <int D, int P>
+__device__ __forceinline__ void stream_rows_bf16(bf16* dst, const bf16* src,
+                                                 int row0, int s) {
+  constexpr int G = D / 8;
+  for (int e = threadIdx.x; e < kTile * G; e += kThreads) {
+    const int r = e / G, c = (e % G) * 8;
+    const bool ok = row0 + r < s;
+    cp_async16(dst + r * P + c,
+               src + (ok ? static_cast<size_t>(row0 + r) * D + c : 0), ok);
+  }
+}
+
+// Store rows r0 + g and r0 + g + 8 (h = 0, 1) of a warp's fp32
+// accumulators, times `mul`, as bf16 (pairs of columns 8j + 2t).
+template <int D>
+__device__ __forceinline__ void store_rows_bf16(bf16* dst, float (*acc)[4],
+                                                int row, int h, int t,
+                                                float mul) {
+  bf16* o = dst + static_cast<size_t>(row) * D + 2 * t;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
+        acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out,
+                float* __restrict__ lse, int s, int causal, float scale) {
+  using T = Bf16Tiles<D>;
+  constexpr int P = T::P, KC = D / 16, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Qo = smem + 4 * T::kRows;             // after two stages of K, V
+
+  // grid (batch*head, tile), heaviest causal tiles (the last rows) first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const size_t base = static_cast<size_t>(blockIdx.x) * s * D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;                   // the warp's own rows
+
+  const int n_kt = (s + kTile - 1) / kTile;
+  const int kt_end = causal ? min(n_kt, q0 / kTile + 1) : n_kt;
+
+  auto load_kv = [&](int kt) {
+    bf16* Ks = smem + (kt & 1) * 2 * T::kRows;
+    stream_rows_bf16<D, P>(Ks, k + base, kt * kTile, s);
+    stream_rows_bf16<D, P>(Ks + T::kRows, v + base, kt * kTile, s);
+  };
+  stream_rows_bf16<D, P>(Qo, q + base, q0, s);
+  load_kv(0);
+  cp_async_commit();
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (kt + 1 < kt_end) load_kv(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // tile kt (and Q) visible to every warp
+    const bf16* Ks = smem + (kt & 1) * 2 * T::kRows;
+    const bf16* Vs = Ks + T::kRows;
+    const int k0 = kt * kTile;
+
+    // S = Q K^T: 16 rows x 64 keys a warp; n-tile j is keys 8j .. 8j + 7
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t a[4];
+      frag_a<P>(a, Qo, r0, c, lane);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t b[4];
+        frag_bt<P>(b, Ks, j, c, lane);
+        mma_bf16(sc[j], a, b[0], b[1]);
+        mma_bf16(sc[j + 1], a, b[2], b[3]);
+      }
+    }
+
+    // scale, mask (diagonal and tail tiles), online softmax of rows
+    // r0 + g (h = 0) and r0 + g + 8 (h = 1)
+    const bool masked = k0 + kTile > s || (causal && k0 == q0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + r0 + g + 8 * h;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[j][2 * h + e];
+          x *= scale;
+          if (masked) {
+            const int col = k0 + 8 * j + 2 * t + e;
+            x = col < s && (!causal || col <= row) ? x : kNegInf;
+          }
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m[h], quad_max(mx));
+      const float alpha = expf(m[h] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[j][2 * h + e];
+          x = expf(x - m_new);
+          rs += x;
+        }
+      l[h] = l[h] * alpha + quad_sum(rs);
+      m[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        acc[j][2 * h] *= alpha;
+        acc[j][2 * h + 1] *= alpha;
+      }
+    }
+
+    // acc += P V over the tile's 4 key chunks of 16
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t a[4];
+      score_frag(a, sc[2 * c], sc[2 * c + 1]);
+#pragma unroll
+      for (int j = 0; j < DT; j += 2) {
+        uint32_t b[4];
+        frag_b<P>(b, Vs, c, j, lane);
+        mma_bf16(acc[j], a, b[0], b[1]);
+        mma_bf16(acc[j + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + g + 8 * h;
+    if (row >= s) continue;
+    const float li = fmaxf(l[h], 1e-30f);
+    store_rows_bf16<D>(out + base, acc, row, h, t, 1.0f / li);
+    if (t == 0)
+      lse[static_cast<size_t>(blockIdx.x) * s + row] = m[h] + logf(li);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dq, int s, int causal, float scale) {
+  using T = Bf16Tiles<D>;
+  constexpr int P = T::P, KC = D / 16, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Qo = smem + 4 * T::kRows;             // own rows: Q
+  bf16* Oo = Qo + T::kRows;                   //           and dO
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
+  const size_t base = static_cast<size_t>(blockIdx.x) * s * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.x) * s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;
+
+  const int n_kt = (s + kTile - 1) / kTile;
+  const int kt_end = causal ? min(n_kt, q0 / kTile + 1) : n_kt;
+
+  auto load_kv = [&](int kt) {
+    bf16* Ks = smem + (kt & 1) * 2 * T::kRows;
+    stream_rows_bf16<D, P>(Ks, k + base, kt * kTile, s);
+    stream_rows_bf16<D, P>(Ks + T::kRows, v + base, kt * kTile, s);
+  };
+  stream_rows_bf16<D, P>(Qo, q + base, q0, s);
+  stream_rows_bf16<D, P>(Oo, dout + base, q0, s);
+  load_kv(0);
+  cp_async_commit();
+  float lr[2], dr[2];   // lse and delta of rows r0 + g and r0 + g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + g + 8 * h;
+    lr[h] = row < s ? lse[rbase + row] : 0.0f;
+    dr[h] = row < s ? delta[rbase + row] : 0.0f;
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    if (kt + 1 < kt_end) load_kv(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Ks = smem + (kt & 1) * 2 * T::kRows;
+    const bf16* Vs = Ks + T::kRows;
+    const int k0 = kt * kTile;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t aq[4], ao[4];
+      frag_a<P>(aq, Qo, r0, c, lane);
+      frag_a<P>(ao, Oo, r0, c, lane);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t bk[4], bv[4];
+        frag_bt<P>(bk, Ks, j, c, lane);
+        frag_bt<P>(bv, Vs, j, c, lane);
+        mma_bf16(sc[j], aq, bk[0], bk[1]);
+        mma_bf16(sc[j + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[j], ao, bv[0], bv[1]);
+        mma_bf16(dp[j + 1], ao, bv[2], bv[3]);
+      }
+    }
+
+    // p = exp(s * scale - lse), ds = p (dp - delta); masked p = 0
+    auto p_ds = [&](auto masked) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + r0 + g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float p = expf(sc[j][2 * h + e] * scale - lr[h]);
+            if constexpr (decltype(masked)::value) {
+              const int col = k0 + 8 * j + 2 * t + e;
+              p = col < s && (!causal || col <= row) ? p : 0.0f;
+            }
+            sc[j][2 * h + e] = p * (dp[j][2 * h + e] - dr[h]);
+          }
+      }
+    };
+    if (k0 + kTile > s || (causal && k0 == q0))
+      p_ds(std::true_type());
+    else
+      p_ds(std::false_type());
+
+    // dQ += dS K over the tile's 4 key chunks
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t a[4];
+      score_frag(a, sc[2 * c], sc[2 * c + 1]);
+#pragma unroll
+      for (int j = 0; j < DT; j += 2) {
+        uint32_t b[4];
+        frag_b<P>(b, Ks, c, j, lane);
+        mma_bf16(acc[j], a, b[0], b[1]);
+        mma_bf16(acc[j + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + g + 8 * h;
+    if (row < s) store_rows_bf16<D>(dq + base, acc, row, h, t, scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, int s, int causal, float scale) {
+  using T = Bf16Tiles<D>;
+  constexpr int P = T::P, KC = D / 16, DT = D / 8;
+  static_assert(kThreads == 2 * kTile, "one thread per lse/delta entry");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ko = reinterpret_cast<bf16*>(smem_raw + 2 * T::dkv_stage);
+  bf16* Vo = Ko + T::kRows;                   // own rows: K and V
+
+  // grid (batch*head, tile), heaviest causal tiles (the first keys) first
+  const int k0 = blockIdx.y * kTile;
+  const size_t base = static_cast<size_t>(blockIdx.x) * s * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.x) * s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16;                   // the warp's own keys
+
+  const int n_qt = (s + kTile - 1) / kTile;
+  const int qt_begin = causal ? blockIdx.y : 0;
+
+  // stage: Q [kTile][P], dO [kTile][P] (bf16), lse [kTile], delta [kTile]
+  auto stage = [&](int qt) {
+    return reinterpret_cast<bf16*>(smem_raw + (qt & 1) * T::dkv_stage);
+  };
+  auto load_q = [&](int qt) {
+    bf16* Qs = stage(qt);
+    const int q0 = qt * kTile;
+    stream_rows_bf16<D, P>(Qs, q + base, q0, s);
+    stream_rows_bf16<D, P>(Qs + T::kRows, dout + base, q0, s);
+    float* Ls = reinterpret_cast<float*>(Qs + 2 * T::kRows);
+    const int i = threadIdx.x % kTile;
+    const bool ok = q0 + i < s;
+    cp_async4(Ls + threadIdx.x,
+              (threadIdx.x < kTile ? lse : delta) + (ok ? rbase + q0 + i : 0),
+              ok);
+  };
+  stream_rows_bf16<D, P>(Ko, k + base, k0, s);
+  stream_rows_bf16<D, P>(Vo, v + base, k0, s);
+  load_q(qt_begin);
+  cp_async_commit();
+
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[j][i] = dva[j][i] = 0.0f;
+
+  for (int qt = qt_begin; qt < n_qt; ++qt) {
+    if (qt + 1 < n_qt) load_q(qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qs = stage(qt);
+    const bf16* Os = Qs + T::kRows;
+    const float* Ls = reinterpret_cast<const float*>(Qs + 2 * T::kRows);
+    const float* Ds = Ls + kTile;
+    const int q0 = qt * kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries a warp
+    float st[8][4], dpt[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      uint32_t ak[4], av[4];
+      frag_a<P>(ak, Ko, r0, c, lane);
+      frag_a<P>(av, Vo, r0, c, lane);
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        uint32_t bq[4], bo[4];
+        frag_bt<P>(bq, Qs, j, c, lane);
+        frag_bt<P>(bo, Os, j, c, lane);
+        mma_bf16(st[j], ak, bq[0], bq[1]);
+        mma_bf16(st[j + 1], ak, bq[2], bq[3]);
+        mma_bf16(dpt[j], av, bo[0], bo[1]);
+        mma_bf16(dpt[j + 1], av, bo[2], bo[3]);
+      }
+    }
+
+    // p^T = exp(s^T * scale - lse[query]), ds^T = p^T (dp^T - delta)
+    auto p_ds = [&](auto masked) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = k0 + r0 + g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + 2 * t + e;
+            float p = expf(st[j][2 * h + e] * scale - Ls[col]);
+            if constexpr (decltype(masked)::value) {
+              const int row = q0 + col;
+              p = row < s && key < s && (!causal || key <= row) ? p : 0.0f;
+            }
+            dpt[j][2 * h + e] = p * (dpt[j][2 * h + e] - Ds[col]);
+            st[j][2 * h + e] = p;
+          }
+      }
+    };
+    if (q0 + kTile > s || k0 + kTile > s || (causal && q0 == k0))
+      p_ds(std::true_type());
+    else
+      p_ds(std::false_type());
+
+    // dV += P^T dO and dK += dS^T Q over the tile's 4 query chunks
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t ap[4], ad[4];
+      score_frag(ap, st[2 * c], st[2 * c + 1]);
+      score_frag(ad, dpt[2 * c], dpt[2 * c + 1]);
+#pragma unroll
+      for (int j = 0; j < DT; j += 2) {
+        uint32_t bo[4], bq[4];
+        frag_b<P>(bo, Os, c, j, lane);
+        frag_b<P>(bq, Qs, c, j, lane);
+        mma_bf16(dva[j], ap, bo[0], bo[1]);
+        mma_bf16(dva[j + 1], ap, bo[2], bo[3]);
+        mma_bf16(dka[j], ad, bq[0], bq[1]);
+        mma_bf16(dka[j + 1], ad, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + r0 + g + 8 * h;
+    if (key >= s) continue;
+    store_rows_bf16<D>(dk + base, dka, key, h, t, scale);
+    store_rows_bf16<D>(dv + base, dva, key, h, t, 1.0f);
+  }
+}
+
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t st,
            Args... args) {
@@ -804,6 +1352,70 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
   return launch(dkv_kernel<DD>, BwdTiles<DD>::dkv_bytes,                   \
                 dim3(bh, n_tiles(s)), st, qp, kp, vp, dop, lp, dp, dkp, dvp, \
                 s, causal, scale)
+  PTT_FLASH_DISPATCH(d, PTT_CALL)
+#undef PTT_CALL
+}
+
+// The bf16 forms: q, k, v, out (dout, dq, dk, dv): bf16 [bh, s, d]
+// contiguous, 16-byte aligned; lse, delta: fp32 [bh, s].
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
+                              void* out, void* lse, int bh, int s, int d,
+                              int causal, float scale, void* stream) {
+  if (bh <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* qp = static_cast<const bf16*>(q);
+  auto* kp = static_cast<const bf16*>(k);
+  auto* vp = static_cast<const bf16*>(v);
+  auto* op = static_cast<bf16*>(out);
+  auto* lp = static_cast<float*>(lse);
+#define PTT_CALL(DD)                                                       \
+  return launch(fwd_bf16_kernel<DD>, Bf16Tiles<DD>::fwd_bytes,             \
+                dim3(bh, n_tiles(s)), st, qp, kp, vp, op, lp, s, causal,   \
+                scale)
+  PTT_FLASH_DISPATCH(d, PTT_CALL)
+#undef PTT_CALL
+}
+
+extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dq, int bh, int s,
+                             int d, int causal, float scale, void* stream) {
+  if (bh <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* qp = static_cast<const bf16*>(q);
+  auto* kp = static_cast<const bf16*>(k);
+  auto* vp = static_cast<const bf16*>(v);
+  auto* dop = static_cast<const bf16*>(dout);
+  auto* lp = static_cast<const float*>(lse);
+  auto* dp = static_cast<const float*>(delta);
+  auto* dqp = static_cast<bf16*>(dq);
+#define PTT_CALL(DD)                                                       \
+  return launch(dq_bf16_kernel<DD>, Bf16Tiles<DD>::dq_bytes,               \
+                dim3(bh, n_tiles(s)), st, qp, kp, vp, dop, lp, dp, dqp, s, \
+                causal, scale)
+  PTT_FLASH_DISPATCH(d, PTT_CALL)
+#undef PTT_CALL
+}
+
+extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dk, void* dv, int bh,
+                              int s, int d, int causal, float scale,
+                              void* stream) {
+  if (bh <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* qp = static_cast<const bf16*>(q);
+  auto* kp = static_cast<const bf16*>(k);
+  auto* vp = static_cast<const bf16*>(v);
+  auto* dop = static_cast<const bf16*>(dout);
+  auto* lp = static_cast<const float*>(lse);
+  auto* dp = static_cast<const float*>(delta);
+  auto* dkp = static_cast<bf16*>(dk);
+  auto* dvp = static_cast<bf16*>(dv);
+#define PTT_CALL(DD)                                                       \
+  return launch(dkv_bf16_kernel<DD>, Bf16Tiles<DD>::dkv_bytes,             \
+                dim3(bh, n_tiles(s)), st, qp, kp, vp, dop, lp, dp, dkp,    \
+                dvp, s, causal, scale)
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
 }

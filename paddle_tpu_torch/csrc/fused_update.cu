@@ -19,6 +19,17 @@
 // kernels round every op. Hyperparameters arrive as fp32 values the host
 // rounded from Python floats, as PyTorch rounds a Python scalar operand.
 //
+// A bucket of fused_update_buckets is fp32 or bf16: bf16 parameters and
+// gradients with fp32 moments follow the reference's cast chain
+// (fused_update.py:12-28, optimizer/fused.py _bucket_fn): the gradient
+// cast to the parameters' dtype (a no-op here: the bucket holds one) and
+// lifted to fp32, the parameter lifted to fp32, the same fp32 ops, and
+// the new parameter rounded to bf16 to nearest even
+// (__float2bfloat16_rn, as PyTorch's .to(bfloat16)); the moments stay
+// fp32. So the bf16 update is bit-identical to its plain version too.
+// Buckets of both dtypes ride in one launch: the table's dtype word
+// picks the thread's chunk width.
+//
 // fused_update_buckets runs one step of an updater over all of its
 // buckets in one launch. It walks a table in device memory, one Bucket
 // per flat bucket (pointers, size, wd, lr_mult, beta powers in and out),
@@ -43,18 +54,23 @@
 // operations (32 with a residual, plus the scale vector). All of GPT-125M
 // (124.5 M parameters) moves 3.49 GB per step, 1.04 ms at 3.35 TB/s; the
 // int32 carrier is as wide as the fp32 gradient, so the two kernels share
-// the bound (times on the card: PERF.md).
+// the bound. A bf16 bucket moves 22 bytes an element (p 2 + 2, g 2,
+// moments 8 + 8): GPT-125M in bf16, 2.74 GB, 0.82 ms (times on the card:
+// PERF.md).
 //
-// Design: one thread per 4 consecutive elements, each array read and
-// written as one 16-byte vector per thread (the wrappers check 16-byte
-// alignment); a bucket's ragged tail (n % 4) is a scalar loop in its last
-// thread. The update kernel's grid covers the chunks of every bucket, one
-// after the other; a thread finds its chunk's bucket by a binary search
-// over the table's first chunks. Nothing is staged in shared memory: each
-// element is touched once. The dequantizing kernel reads one scale for
-// the thread's 4 elements when they share a block, else one per element,
-// so every block_size is taken.
+// Design: one thread per chunk of consecutive elements, 4 in an fp32
+// bucket and 8 in a bf16 one, so the parameters and the gradient are one
+// 16-byte vector a thread either way (the moments two in a bf16 bucket);
+// the wrappers check 16-byte alignment. A bucket's ragged tail (n % 4 or
+// n % 8) is a scalar loop in its last thread. The update kernel's grid
+// covers the chunks of every bucket, one after the other; a thread finds
+// its chunk's bucket by a binary search over the table's first chunks.
+// Nothing is staged in shared memory: each element is touched once. The
+// dequantizing kernel reads one scale for the thread's 4 elements when
+// they share a block, else one per element, so every block_size is
+// taken.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -107,10 +123,10 @@ __device__ __forceinline__ void update_one(float& p, float g, float& s0,
 }
 
 // One bucket of a fused_update_buckets launch. ops/fused_update.py
-// (BucketTable) packs the same 72-byte layout as nine 8-byte words.
+// (BucketTable) packs the same 80-byte layout as ten 8-byte words.
 struct Bucket {
-  float* p;
-  const float* g;
+  void* p;                // fp32 or bf16 (dtype)
+  const void* g;          // the parameters' dtype
   float* s0;              // velocity or moment1 (null for sgd)
   float* s1;              // moment2 (null unless adam / adamw)
   const float* pow_in;    // adam: [beta1^t, beta2^t]
@@ -119,11 +135,86 @@ struct Bucket {
   int64_t start;          // the bucket's first chunk in the launch
   float wd;
   float lm;               // lr_mult
+  int64_t dtype;          // 0: fp32 p and g, 4 elements a chunk; 1: bf16, 8
 };
-static_assert(sizeof(Bucket) == 72, "BucketTable packs 9 words a bucket");
+static_assert(sizeof(Bucket) == 80, "BucketTable packs 10 words a bucket");
 
-// One thread per 4-element chunk c of the launch's `total`, in bucket
-// order; thread b < nb also steps bucket b's beta powers (adam).
+// The parameters' and gradients' element type of a bucket: fp32 as it
+// is, bf16 lifted to fp32 and rounded back to nearest even.
+template <typename P> struct Elem;
+template <> struct Elem<float> {
+  static constexpr int kChunk = 4;
+  __device__ static float load(float x) { return x; }
+  __device__ static float store(float x) { return x; }
+};
+template <> struct Elem<__nv_bfloat16> {
+  static constexpr int kChunk = 8;
+  __device__ static float load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  __device__ static __nv_bfloat16 store(float x) {
+    return __float2bfloat16_rn(x);
+  }
+};
+
+// Update elements [i, i + kChunk) of bucket e (or its tail up to n): p
+// and g as one 16-byte vector, each moment as kChunk / 4 float4s.
+template <int KIND, typename P>
+__device__ __forceinline__ void update_chunk(const Bucket& e, int64_t i,
+                                             const Hyper& h, float lr,
+                                             float c1, float c2) {
+  constexpr bool kSlot0 = KIND != kSgd;
+  constexpr bool kSlot1 = KIND == kAdam || KIND == kAdamW;
+  constexpr int C = Elem<P>::kChunk;
+  P* __restrict__ p = static_cast<P*>(e.p);
+  const P* __restrict__ g = static_cast<const P*>(e.g);
+  float* __restrict__ s0 = e.s0;
+  float* __restrict__ s1 = e.s1;
+  if (i + C <= e.n) {
+    uint4 pv = *reinterpret_cast<const uint4*>(p + i);
+    const uint4 gv = *reinterpret_cast<const uint4*>(g + i);
+    P* px = reinterpret_cast<P*>(&pv);
+    const P* gx = reinterpret_cast<const P*>(&gv);
+    float a[C], b[C];
+#pragma unroll
+    for (int q = 0; q < C; q += 4) {
+      const float4 va = kSlot0 ? *reinterpret_cast<const float4*>(s0 + i + q)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 vb = kSlot1 ? *reinterpret_cast<const float4*>(s1 + i + q)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      a[q] = va.x; a[q + 1] = va.y; a[q + 2] = va.z; a[q + 3] = va.w;
+      b[q] = vb.x; b[q + 1] = vb.y; b[q + 2] = vb.z; b[q + 3] = vb.w;
+    }
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      float pj = Elem<P>::load(px[q]);
+      update_one<KIND>(pj, Elem<P>::load(gx[q]), a[q], b[q], h, lr, c1, c2);
+      px[q] = Elem<P>::store(pj);
+    }
+    *reinterpret_cast<uint4*>(p + i) = pv;
+#pragma unroll
+    for (int q = 0; q < C; q += 4) {
+      if (kSlot0)
+        *reinterpret_cast<float4*>(s0 + i + q) =
+            make_float4(a[q], a[q + 1], a[q + 2], a[q + 3]);
+      if (kSlot1)
+        *reinterpret_cast<float4*>(s1 + i + q) =
+            make_float4(b[q], b[q + 1], b[q + 2], b[q + 3]);
+    }
+  } else {
+    for (int64_t j = i; j < e.n; ++j) {
+      float a = kSlot0 ? s0[j] : 0.f, b = kSlot1 ? s1[j] : 0.f;
+      float pj = Elem<P>::load(p[j]);
+      update_one<KIND>(pj, Elem<P>::load(g[j]), a, b, h, lr, c1, c2);
+      p[j] = Elem<P>::store(pj);
+      if (kSlot0) s0[j] = a;
+      if (kSlot1) s1[j] = b;
+    }
+  }
+}
+
+// One thread per chunk c of the launch's `total`, in bucket order;
+// thread b < nb also steps bucket b's beta powers (adam).
 template <int KIND>
 __global__ void __launch_bounds__(kThreads)
 update_kernel(const Bucket* __restrict__ table, int nb, int64_t total,
@@ -144,11 +235,6 @@ update_kernel(const Bucket* __restrict__ table, int nb, int64_t total,
     if (table[mid].start <= c) lo = mid; else hi = mid - 1;
   }
   const Bucket& e = table[lo];
-  const int64_t n = e.n, i = (c - e.start) * 4;
-  float* __restrict__ p = e.p;
-  const float* __restrict__ g = e.g;
-  float* __restrict__ s0 = e.s0;
-  float* __restrict__ s1 = e.s1;
   h.wd = e.wd;
   h.has_wd = e.wd != 0.0f;
   const float lr = __fmul_rn(*lr_dev, e.lm);     // _scalar_prep's fp32 ops
@@ -156,30 +242,10 @@ update_kernel(const Bucket* __restrict__ table, int nb, int64_t total,
       kSlot1 ? __fsub_rn(1.0f, __fmul_rn(e.pow_in[0], h.h0)) : 1.0f;
   const float c2 =
       kSlot1 ? __fsub_rn(1.0f, __fmul_rn(e.pow_in[1], h.h1)) : 1.0f;
-  if (i + 4 <= n) {
-    float4 pv = *reinterpret_cast<const float4*>(p + i);
-    const float4 gv = *reinterpret_cast<const float4*>(g + i);
-    float4 a = kSlot0 ? *reinterpret_cast<const float4*>(s0 + i)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 b = kSlot1 ? *reinterpret_cast<const float4*>(s1 + i)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    update_one<KIND>(pv.x, gv.x, a.x, b.x, h, lr, c1, c2);
-    update_one<KIND>(pv.y, gv.y, a.y, b.y, h, lr, c1, c2);
-    update_one<KIND>(pv.z, gv.z, a.z, b.z, h, lr, c1, c2);
-    update_one<KIND>(pv.w, gv.w, a.w, b.w, h, lr, c1, c2);
-    *reinterpret_cast<float4*>(p + i) = pv;
-    if (kSlot0) *reinterpret_cast<float4*>(s0 + i) = a;
-    if (kSlot1) *reinterpret_cast<float4*>(s1 + i) = b;
-  } else {
-    for (int64_t j = i; j < n; ++j) {
-      float a = kSlot0 ? s0[j] : 0.f, b = kSlot1 ? s1[j] : 0.f;
-      float pj = p[j];
-      update_one<KIND>(pj, g[j], a, b, h, lr, c1, c2);
-      p[j] = pj;
-      if (kSlot0) s0[j] = a;
-      if (kSlot1) s1[j] = b;
-    }
-  }
+  if (e.dtype)
+    update_chunk<KIND, __nv_bfloat16>(e, (c - e.start) * 8, h, lr, c1, c2);
+  else
+    update_chunk<KIND, float>(e, (c - e.start) * 4, h, lr, c1, c2);
 }
 
 template <typename Q>
@@ -276,8 +342,9 @@ inline unsigned int grid_for(int64_t n) {
 }  // namespace
 
 // One update of every bucket in `table` (device memory, nb Bucket
-// entries whose chunks start at 0 and run back to back, total_chunks in
-// all), in place. lr: fp32 [1] on the device, the step's learning rate.
+// entries whose chunks, 4 elements in an fp32 bucket and 8 in a bf16
+// one, start at 0 and run back to back, total_chunks in all), in place.
+// lr: fp32 [1] on the device, the step's learning rate.
 // kind: 0 sgd, 1 momentum, 2 adam, 3 adamw; h0, h1: (mu, -) or (beta1,
 // beta2); om0, om1: 1 - h0, 1 - h1 rounded on the host. Adam's stepped
 // powers go to each bucket's pow_out. Returns a cudaError_t code.

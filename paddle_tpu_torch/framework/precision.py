@@ -1,0 +1,58 @@
+"""GEMM precision on the card, per model dtype (no reference file: new;
+XLA takes a precision per op where cuBLAS reads process-wide flags).
+
+``matmul_precision(dtype)`` sets PyTorch's cuBLAS and cuDNN flags for a
+model of ``dtype`` and restores the caller's on exit; it works as a
+``with`` block or as a decorator. The models enter it themselves, in the
+forward and (``models/gpt.py`` ``gemm``) in the backward, so what a
+caller set process-wide does not change their numerics:
+
+- "float32": TF32 off for matmuls, so an fp32 product on the card is
+  an fp32 product, as the reference computes it;
+- "bfloat16": TF32 on for fp32 matmuls (the bf16 GPT's one fp32 GEMM,
+  the LM head; ``models/gpt.py`` says why).
+
+Both turn cuDNN's TF32 off, and cuBLAS's reduced-precision reduction
+for bf16 GEMMs (on by PyTorch's default): XLA sums bf16 products in
+fp32, split-K partial sums included.
+
+The flags are read on the host when a GEMM is launched; they do nothing
+on the CPU.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+__all__ = ["matmul_precision"]
+
+# dtype -> torch.backends.cuda.matmul.allow_tf32
+_TF32 = {"float32": False, "bfloat16": True}
+
+
+class matmul_precision(contextlib.ContextDecorator):
+    """The card's GEMM settings for a model of ``dtype`` (module
+    docstring) inside the ``with`` block or the decorated call."""
+
+    def __init__(self, dtype: str):
+        if dtype not in _TF32:
+            raise ValueError(f"no GEMM settings for dtype={dtype!r}")
+        self.dtype = dtype
+        self._saved = []
+
+    def __enter__(self):
+        mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+        self._saved.append((mm.allow_tf32,
+                            mm.allow_bf16_reduced_precision_reduction,
+                            dnn.allow_tf32))
+        mm.allow_tf32 = _TF32[self.dtype]
+        mm.allow_bf16_reduced_precision_reduction = False
+        dnn.allow_tf32 = False
+        return self
+
+    def __exit__(self, *exc):
+        mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+        (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+         dnn.allow_tf32) = self._saved.pop()
+        return False

@@ -23,7 +23,12 @@ updater's flat gradient buffers.
 ``grad_accum_steps > 1`` splits the leading batch dimension into that
 many micro-batches, sums their gradients in order and divides by the
 count, and returns the mean of the micro-batch losses, as the
-reference's scan does.
+reference's scan does. The sum is fp32 whatever the parameters' dtype
+(the reference's ``result_type(param, float32)``): an fp32 bucket sums
+in place in its gradient buffer; a bf16 bucket's micro-batch gradients
+are added into an fp32 sum, which is divided and only then written back
+to the bf16 buffer, rounded to nearest even, the reference's
+``g.astype(param dtype)`` before the update's fp32 math.
 
 ``grad_comm`` (a ``GradCommConfig`` or a codec name) makes the step data
 parallel over the ranks of ``torch.distributed`` (``distributed.spawn``
@@ -130,6 +135,11 @@ class TrainStep:
             elif not isinstance(grad_comm, GradCommConfig):
                 raise TypeError(f"grad_comm must be a GradCommConfig or a "
                                 f"codec name, got {type(grad_comm).__name__}")
+            if any(p.dtype != torch.float32 for p in params):
+                raise NotImplementedError(
+                    "TrainStep(grad_comm=...) over non-float32 parameters "
+                    "is not ported yet (ROADMAP Queue A, 'bf16 on the "
+                    "gradient wire')")
             if self.grad_accum > 1:
                 raise ValueError(
                     "TrainStep(grad_comm=...) expresses the gradient "
@@ -186,36 +196,56 @@ class TrainStep:
         world = self._gc_world()
         if world > 1:
             return self._dp_step(inputs, labels, world)
-        accum = self.grad_accum
-        if accum == 1:
+        if self.grad_accum == 1:
             loss = self._loss(inputs, labels)
             loss.backward()
             loss = loss.detach()
         else:
-            def micro(x, i):
-                if x.dim() == 0:
-                    return x
-                if x.shape[0] % accum:
-                    raise ValueError(f"batch {x.shape[0]} does not split "
-                                     f"into {accum} micro-batches")
-                return x.chunk(accum)[i]
-
-            losses = []
-            for i in range(accum):
-                li = self._loss(tuple(micro(x, i) for x in inputs),
-                                tuple(micro(x, i) for x in labels))
-                li.backward()
-                losses.append(li.detach())
-            if self._accum_div is None:
-                self._accum_div = torch.full((), float(accum),
-                                             dtype=torch.float32,
-                                             device=self.device)
-            with torch.no_grad():
-                for g in self.updater.flat_grads():
-                    g.div_(self._accum_div)
-            loss = torch.stack(losses).mean()
+            loss = self._accumulate(inputs, labels)
         self.updater.step()
         return loss
+
+    def _accumulate(self, inputs, labels) -> torch.Tensor:
+        """Forward and backward over the micro-batches; leaves the mean
+        gradient in the updater's buffers (fp32 sums, see the module
+        docstring) and returns the mean loss."""
+        accum = self.grad_accum
+
+        def micro(x, i):
+            if x.dim() == 0:
+                return x
+            if x.shape[0] % accum:
+                raise ValueError(f"batch {x.shape[0]} does not split "
+                                 f"into {accum} micro-batches")
+            return x.chunk(accum)[i]
+
+        losses = []
+        sums = [None] * len(self.buckets)   # fp32 sums of bf16 buckets
+        for i in range(accum):
+            li = self._loss(tuple(micro(x, i) for x in inputs),
+                            tuple(micro(x, i) for x in labels))
+            li.backward()
+            losses.append(li.detach())
+            with torch.no_grad():
+                for j, g in enumerate(self.updater.flat_grads()):
+                    if g.dtype == torch.float32:
+                        continue
+                    if sums[j] is None:
+                        sums[j] = g.to(torch.float32)
+                    else:
+                        sums[j].add_(g)
+                    g.zero_()
+        if self._accum_div is None:
+            self._accum_div = torch.full((), float(accum),
+                                         dtype=torch.float32,
+                                         device=self.device)
+        with torch.no_grad():
+            for g, total in zip(self.updater.flat_grads(), sums):
+                if total is None:
+                    g.div_(self._accum_div)
+                else:
+                    g.copy_(total.div_(self._accum_div))
+        return torch.stack(losses).mean()
 
     # ------------------------------------------------ data parallel step
     def _dp_step(self, inputs, labels, world: int) -> torch.Tensor:

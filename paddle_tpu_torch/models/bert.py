@@ -22,7 +22,9 @@ Not in this slice (each raises ``NotImplementedError``, ROADMAP Queue A
 ``fused_loss_chunk > 0``, ``BertPretrainingCriterion``, dropout > 0 in
 training, and the tensor-parallel ``dist_spec`` marks.
 
-Numerics: fp32, TF32 off for matmuls and cuDNN.
+Numerics: fp32, TF32 off for matmuls and cuDNN, entered by each
+forward (``framework.precision.matmul_precision``), whatever the caller
+set process-wide.
 """
 from __future__ import annotations
 
@@ -34,14 +36,12 @@ import torch
 from torch import nn
 
 from ..framework.device import resolve_device, to_device
+from ..framework.precision import matmul_precision
 from ..nn import functional as F
 from ..nn.functional.common import TRAINING_ITEM
 from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import TransformerEncoder, TransformerEncoderLayer
-
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["BertConfig", "bert_presets", "BertEmbeddings", "BertPooler",
            "BertModel", "BertForPretraining", "BertPretrainingCriterion"]
@@ -155,6 +155,7 @@ class BertModel(nn.Module):
             return x
         return to_device(x, self.device, torch.long)
 
+    @matmul_precision("float32")
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None):
         if attention_mask is not None and not isinstance(attention_mask,
@@ -186,11 +187,17 @@ class BertForPretraining(nn.Module):
                                         device=self.device)
         self.nsp = Linear(h, 2, device=self.device, rs=rs)
 
+    @matmul_precision("float32")
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None, masked_lm_labels=None):
         """(MLM logits [b, s, vocab], NSP logits [b, 2])."""
         if masked_lm_labels is not None:
             raise _not_ported("the MLM loss (masked_lm_labels)")
+        dt = self.bert.embeddings.word_embeddings.weight.dtype
+        if dt != torch.float32:
+            raise NotImplementedError(
+                f"BERT in {dt} is not ported yet (ROADMAP Queue A, "
+                f"'bf16 BERT'); the port runs BERT in float32")
         seq, pooled = self.bert(input_ids, token_type_ids, position_ids,
                                 attention_mask)
         x = self.transform_norm(F.gelu(self.transform(seq)))

@@ -9,6 +9,13 @@ dtype and copies the bytes unchanged; BERT's expected names and shapes
 are read off the port's own model (``bert_layout``). The port itself
 never sees JAX.
 
+A bf16 GPT's parameters arrive as ``ml_dtypes`` bfloat16 arrays (what
+``np.asarray`` makes of a JAX bf16 array). They are recognised by
+``dtype.name == "bfloat16"``, without importing ``ml_dtypes``, and their
+bits cross through an ``int16`` view: no rounding. fp32 arrays (the
+final LayerNorm of a bf16 model, every parameter of an fp32 one) stay
+fp32. Each array must have its parameter's dtype (``expected_dtypes``).
+
 The gradient wire's resume state carries across too
 (``grad_comm_state_for_rank``, ``grad_comm_state_to_reference``): the
 reference's ``TrainStep(grad_comm=...)`` keeps every rank's
@@ -24,9 +31,10 @@ import torch
 
 from ..nn import Linear
 from .bert import BertConfig, BertForPretraining
-from .gpt import GPTConfig, block_shapes
+from .gpt import PORTED_DTYPES, GPTConfig, block_shapes
 
-__all__ = ["expected_shapes", "state_dict_from_numpy", "bert_layout",
+__all__ = ["expected_shapes", "expected_dtypes", "state_dict_from_numpy",
+           "bert_layout",
            "bert_state_dict_from_numpy", "grad_comm_state_for_rank",
            "grad_comm_state_to_reference"]
 
@@ -47,8 +55,21 @@ def expected_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
     return out
 
 
-def _copy_checked(params: Dict[str, np.ndarray],
-                  want: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+def expected_dtypes(cfg: GPTConfig) -> Dict[str, torch.dtype]:
+    """Parameter name -> dtype: ``cfg.dtype``'s for the blocks and
+    tables, fp32 for the final LayerNorm (a generic layer, as in the
+    reference)."""
+    dt = PORTED_DTYPES[cfg.dtype]
+    return {name: torch.float32 if name.startswith("gpt.final_norm")
+            else dt for name in expected_shapes(cfg)}
+
+
+def _copy_checked(params: Dict[str, np.ndarray], want: Dict[str, tuple],
+                  dtypes: Optional[Dict[str, torch.dtype]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Check names, shapes and dtypes (``dtypes``, fp32 by default) and
+    copy each array into a CPU tensor, bits kept; a bfloat16 array
+    crosses through an ``int16`` view."""
     missing = sorted(set(want) - set(params))
     extra = sorted(set(params) - set(want))
     if missing or extra:
@@ -59,17 +80,21 @@ def _copy_checked(params: Dict[str, np.ndarray],
         arr = np.asarray(params[name])
         if tuple(arr.shape) != shape:
             raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
-        if arr.dtype != np.float32:
-            raise TypeError(f"{name}: dtype {arr.dtype}, expected float32")
-        out[name] = torch.from_numpy(np.array(arr, copy=True))
+        dt = torch.float32 if dtypes is None else dtypes[name]
+        if arr.dtype.name != str(dt).split(".")[-1]:
+            raise TypeError(f"{name}: dtype {arr.dtype}, expected {dt}")
+        copy = np.array(arr, copy=True)
+        out[name] = (torch.from_numpy(copy.view(np.int16)).view(dt)
+                     if dt == torch.bfloat16 else torch.from_numpy(copy))
     return out
 
 
 def state_dict_from_numpy(params: Dict[str, np.ndarray],
                           cfg: GPTConfig) -> Dict[str, torch.Tensor]:
     """JAX named parameters (numpy) -> the port's ``state_dict`` (CPU
-    fp32 tensors; ``load_state_dict`` moves them to the model's device)."""
-    return _copy_checked(params, expected_shapes(cfg))
+    tensors of the arrays' dtypes, fp32 or bf16; ``load_state_dict``
+    moves them to the model's device)."""
+    return _copy_checked(params, expected_shapes(cfg), expected_dtypes(cfg))
 
 
 def bert_layout(cfg: BertConfig):

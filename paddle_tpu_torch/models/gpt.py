@@ -22,10 +22,34 @@ same parameters through ``serving.model.GPTDecodeModel``.
 Not in this slice (each raises ``NotImplementedError``, see ROADMAP
 Queue A "training options" and "parallelism"): dropout > 0 in training,
 ``recompute``, ``mode="scan"`` and the pipeline, ring and Ulysses
-attention, ``fused_loss_chunk``.
+attention, ``fused_loss_chunk``; a ``dtype`` other than "float32" and
+"bfloat16".
 
-Numerics: fp32 throughout, and TF32 is switched off for matmuls and
-cuDNN so a float32 product on the card is a float32 product.
+Numerics, per ``dtype`` (``framework.precision.matmul_precision``).
+``GPTForCausalLM.forward`` enters the settings for the forward, and its
+logits carry an identity node (``_BackwardPrecision``) that enters them
+for the backward pass that starts there, restored when that pass ends.
+So the numerics are the same whoever runs the backward (``TrainStep`` or
+a bare ``loss.backward()``) and whatever the caller set process-wide:
+
+- "float32": fp32 throughout; TF32 off, so a float32 product on the
+  card is a float32 product.
+- "bfloat16", as the reference stores and computes it: the block
+  parameters and both embedding tables in bf16 (rounded to nearest even
+  from the fp32 draws), the final LayerNorm in fp32 (a generic layer).
+  A block's LayerNorm takes its affine in fp32 and rounds once
+  (``block_layer_norm``, the reference's ``_block_apply`` ``ln``); the
+  final norm rounds before its fp32 affine and so returns fp32, and the
+  LM head multiplies that by the bf16 table promoted to fp32, as jnp
+  promotes ``h @ wv.T``: an fp32 GEMM, fp32 logits. Two precision
+  choices: (1) the LM head's fp32 GEMM runs in TF32 on the card. The
+  reference's chip ran it at XLA's default precision, which on a TPU is
+  one bf16 pass; TF32 keeps more operand bits than that, and full fp32
+  would put ~1.9 TFLOP a step (GPT-125M, 8 x 1024 tokens, forward and
+  backward) on the SIMT cores. (2) cuBLAS's reduced-precision reduction
+  for bf16 GEMMs (``allow_bf16_reduced_precision_reduction``, on by
+  default) is off: XLA sums bf16 products in fp32, split-K partial sums
+  included.
 """
 from __future__ import annotations
 
@@ -39,15 +63,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..framework.device import resolve_device
+from ..framework.precision import matmul_precision
 from ..nn.functional import layer_norm
 from ..ops.flash_attention import flash_attention_val
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-
 __all__ = ["GPTConfig", "gpt_presets", "GPTEmbeddings", "GPTDecoderLayer",
            "GPTModel", "GPTForCausalLM", "GPTPretrainingCriterion",
-           "BLOCK_PARAMS"]
+           "BLOCK_PARAMS", "PORTED_DTYPES"]
 
 BLOCK_PARAMS = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "out_w", "out_b",
                 "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
@@ -151,21 +173,48 @@ def _block_init(name: str, shape, cfg: GPTConfig,
     return (rs.randn(*shape) * std).astype("float32")
 
 
-def _param(arr: np.ndarray, device: torch.device) -> nn.Parameter:
-    return nn.Parameter(torch.from_numpy(arr).to(device))
+# GPTConfig.dtype -> the parameters' torch dtype
+PORTED_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _param(arr: np.ndarray, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> nn.Parameter:
+    """A parameter from fp32 draws, rounded to ``dtype`` (to nearest even,
+    as the reference's ``Tensor(fp32, dtype=dt)``)."""
+    return nn.Parameter(torch.from_numpy(arr).to(device=device, dtype=dtype))
 
 
 _OPTIONS = "ROADMAP Queue A, 'training options'"
 _PARALLEL = "ROADMAP Queue A, 'parallelism'"
-_BF16 = "ROADMAP Queue A, 'bf16 training'"
+_DTYPES = "ROADMAP Queue A, 'other dtypes'"
+
+
+class _BackwardPrecision(torch.autograd.Function):
+    """Identity on the logits. Its backward, the first node of a backward
+    pass from them, enters ``matmul_precision(dtype)`` for every GEMM of
+    that pass, and queues the restore of the caller's settings for the
+    pass's end (the engine's final callback, as DDP queues its own)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        settings = matmul_precision(ctx.dtype)
+        settings.__enter__()
+        torch.autograd.Variable._execution_engine.queue_callback(
+            lambda: settings.__exit__(None, None, None))
+        return dy, None
 
 
 def _check_supported(cfg: GPTConfig) -> None:
     """Raise on the reference fields whose other values the port does not
     run; checked when the model is built."""
-    if cfg.dtype != "float32":
+    if cfg.dtype not in PORTED_DTYPES:
         raise NotImplementedError(f"GPT dtype={cfg.dtype!r} is not ported "
-                                  f"yet ({_BF16})")
+                                  f"yet ({_DTYPES})")
     if cfg.recompute_policy is not None:
         raise NotImplementedError(f"recompute_policy is not ported yet "
                                   f"({_OPTIONS})")
@@ -213,12 +262,13 @@ class GPTEmbeddings(nn.Module):
                  device: torch.device):
         super().__init__()
         std = cfg.initializer_range
+        dt = PORTED_DTYPES[cfg.dtype]
         self.word_embeddings = _param(
             (rs.randn(cfg.vocab_size, cfg.hidden_size) * std
-             ).astype("float32"), device)
+             ).astype("float32"), device, dt)
         self.position_embeddings = _param(
             (rs.randn(cfg.max_position_embeddings, cfg.hidden_size) * std
-             ).astype("float32"), device)
+             ).astype("float32"), device, dt)
 
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
@@ -228,6 +278,18 @@ class GPTEmbeddings(nn.Module):
         return self.word_embeddings[input_ids] + pos
 
 
+def block_layer_norm(x, w, b, eps: float) -> torch.Tensor:
+    """A block's LayerNorm over the last axis (reference ``_block_apply``
+    ``ln``): statistics and affine in fp32, one rounding to ``x.dtype``.
+    The generic ``layer_norm`` rounds before its affine; in fp32 the two
+    are the same ops."""
+    v = x.to(torch.float32)
+    mean = v.mean(-1, keepdim=True)
+    var = v.var(-1, keepdim=True, unbiased=False)
+    out = (v - mean) * torch.rsqrt(var + eps)
+    return (out * w + b).to(x.dtype)
+
+
 class GPTDecoderLayer(nn.Module):
     """One block's individually named parameters (``BLOCK_PARAMS``)."""
 
@@ -235,21 +297,22 @@ class GPTDecoderLayer(nn.Module):
                  device: torch.device):
         super().__init__()
         self.cfg = cfg
+        dt = PORTED_DTYPES[cfg.dtype]
         for name, shape in block_shapes(cfg).items():
             setattr(self, name, _param(_block_init(name, shape, cfg, rs),
-                                       device))
+                                       device, dt))
 
     def forward(self, x):
         """One block (reference ``_block_apply``) on ``[b, s, h]``."""
         cfg = self.cfg
         b, s, h = x.shape
         eps = cfg.layer_norm_epsilon
-        hn = layer_norm(x, h, self.ln1_w, self.ln1_b, eps)
+        hn = block_layer_norm(x, self.ln1_w, self.ln1_b, eps)
         qkv = hn @ self.qkv_w.reshape(h, 3 * h) + self.qkv_b.reshape(3 * h)
         q, k, v = qkv.reshape(b, s, 3, cfg.num_heads, cfg.head_dim).unbind(2)
         attn = attention(q, k, v, cfg).reshape(b, s, h)
         x = x + (attn @ self.out_w + self.out_b)
-        hn = layer_norm(x, h, self.ln2_w, self.ln2_b, eps)
+        hn = block_layer_norm(x, self.ln2_w, self.ln2_b, eps)
         z = F.gelu(hn @ self.fc1_w + self.fc1_b, approximate="tanh")
         return x + (z @ self.fc2_w + self.fc2_b)
 
@@ -297,8 +360,17 @@ class GPTForCausalLM(nn.Module):
         if labels is not None and self.config.fused_loss_chunk > 0:
             raise NotImplementedError(f"fused_loss_chunk is not ported yet "
                                       f"({_OPTIONS})")
-        x = self.gpt(input_ids, position_ids)
-        return x @ self.gpt.embeddings.word_embeddings.T
+        with matmul_precision(self.config.dtype):
+            x = self.gpt(input_ids, position_ids)
+            # jnp's promotion of ``h @ wv.T``: fp32 final-norm output times
+            # the bf16 table is an fp32 GEMM; the gradient reaches the
+            # table through the cast
+            w = self.gpt.embeddings.word_embeddings
+            dt = torch.promote_types(x.dtype, w.dtype)
+            logits = x.to(dt) @ w.to(dt).T
+        if not logits.requires_grad:
+            return logits
+        return _BackwardPrecision.apply(logits, self.config.dtype)
 
 
 class GPTPretrainingCriterion(nn.Module):

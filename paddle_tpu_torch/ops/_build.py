@@ -21,7 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "library_path", "load_library"]
+__all__ = ["NVCC_FLAGS", "build_dir", "compile_file", "library_path",
+           "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -54,20 +55,26 @@ def library_path(name: str) -> Path:
     return build_dir() / f"{name}_{key[:16]}.so"
 
 
+def compile_file(src: Path, out: Path) -> Path:
+    """Compile the source ``src`` into the library ``out``; ``src`` may
+    include the ``csrc/*.cuh`` headers wherever it lies."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src.name} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
 def compile_source(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists."""
     out = library_path(name)
     if out.exists():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return compile_file(CSRC / f"{name}.cu", out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,9 +13,11 @@ PyTorch version beside it:
 Dispatch is by where the tensors lie, and nothing else: a CPU tensor
 takes the plain version, a CUDA tensor the hand-written kernel
 (``csrc/flash_attention.cu``) or an error. There is no fallback from the
-kernel to the plain version. Each wrapper counts its kernel launches in
-``<wrapper>.launches`` (``launch_counts()``), incremented only where the
-kernel is launched.
+kernel to the plain version. On the card the dtype picks the kernel:
+fp32 or bf16 (``<name>_bf16`` in the source), each its own entry point.
+Each wrapper counts its kernel launches in ``<wrapper>.launches`` (fp32)
+and ``<wrapper>.launches_bf16`` (``launch_counts()``), incremented only
+where the kernel is launched.
 
 Numerics are the reference's: ``q`` pre-scaled by ``1/sqrt(d)``, masked
 scores set to ``NEG_INF = -1e30``, ``l`` clamped at ``1e-30``, ``dq``
@@ -23,16 +25,24 @@ scaled at the end while ``dk`` carries the scale through the pre-scaled
 ``q``, and ``delta = rowsum(dO * O)`` computed outside the kernels. The
 plain versions compute whole ``[s, s]`` score matrices; the kernels
 stream 64-row tiles with an online softmax, so the two agree to fp32
-rounding, not bit for bit. All three kernels run every product on the
-tensor cores in 3xTF32 (each fp32 operand split into two TF32 parts,
+rounding, not bit for bit. All three fp32 kernels run every product on
+the tensor cores in 3xTF32 (each fp32 operand split into two TF32 parts,
 three products); ``flash_fwd_split_tf32`` and ``flash_bwd_split_tf32``
 are the plain models of that operand rounding, for the tests.
 
-The kernels take fp32, any ``s >= 1`` and ``d <= 128`` with
-``d % 16 == 0`` (every GPT preset: 16, 64, 96, 128), and 16-byte aligned
-q, k, v and dO (as ``torch.empty`` gives them); anything else on the
-card raises. The reference's block sizes have no counterpart: the
-CUDA tiles are fixed and the tail tile is masked.
+bf16 inputs (the reference's kernels take the parameters' dtype) give
+bf16 ``out``, ``dq``, ``dk`` and ``dv``, fp32 ``lse`` and ``delta``; the
+plain versions compute in fp32 and cast the outputs, the reference's
+order, and the bf16 kernels multiply on bf16 tensor cores with fp32
+accumulators, rounding ``p`` and ``ds`` to bf16 where they are an
+operand (the source says why that holds the tolerance).
+
+The kernels take fp32 or bf16 (q, k, v and dO of one dtype), any
+``s >= 1`` and ``d <= 128`` with ``d % 16 == 0`` (every GPT preset: 16,
+64, 96, 128), and 16-byte aligned q, k, v and dO (as ``torch.empty``
+gives them); anything else on the card raises. The reference's block
+sizes have no counterpart: the CUDA tiles are fixed and the tail tile
+is masked.
 """
 from __future__ import annotations
 
@@ -172,12 +182,20 @@ def _lib(device_index: int) -> ctypes.CDLL:
     require_sm90(torch.device("cuda", device_index))
     lib = load_library("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
-    lib.flash_dq.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]
-    lib.flash_dkv.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, p]
-    for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
-        fn.restype = ctypes.c_int
+    for sfx in ("", "_bf16"):
+        getattr(lib, "flash_fwd" + sfx).argtypes = [p, p, p, p, p, i, i, i,
+                                                    i, f, p]
+        getattr(lib, "flash_dq" + sfx).argtypes = [p, p, p, p, p, p, p, i, i,
+                                                   i, i, f, p]
+        getattr(lib, "flash_dkv" + sfx).argtypes = [p, p, p, p, p, p, p, p,
+                                                    i, i, i, i, f, p]
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            getattr(lib, name + sfx).restype = ctypes.c_int
     return lib
+
+
+# kernel input dtype -> the C entry points' suffix
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 def kernel_supported(shape) -> bool:
@@ -188,20 +206,25 @@ def kernel_supported(shape) -> bool:
     return b >= 1 and n >= 1 and s >= 1 and 16 <= d <= _MAX_D and d % 16 == 0
 
 
-def _check(names, tensors, shape):
+def _check(names, tensors, shape, n_fp32=0):
     """Device, dtype, shape and layout the kernels take; returns the
-    device. Raises on anything else."""
-    dev = tensors[0].device
+    device. The last ``n_fp32`` tensors (lse, delta) are fp32, the others
+    share one of the kernels' dtypes. Raises on anything else."""
+    dev, dt = tensors[0].device, tensors[0].dtype
     if not kernel_supported(shape):
         raise ValueError(f"flash attention kernels take [b, n, s, d] with "
                          f"s >= 1 and d <= {_MAX_D}, d % 16 == 0; got "
                          f"{tuple(shape)}")
-    for name, t in zip(names, tensors):
+    if dt not in _SUFFIX:
+        raise TypeError(f"flash attention kernels take float32 or "
+                        f"bfloat16, {names[0]} is {dt}")
+    for i, (name, t) in enumerate(zip(names, tensors)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash attention kernels take float32, {name} "
-                            f"is {t.dtype}")
+        want = torch.float32 if i >= len(names) - n_fp32 else dt
+        if t.dtype != want:
+            raise TypeError(f"flash attention kernels take {name} in "
+                            f"{want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return dev
@@ -233,14 +256,15 @@ def flash_fwd(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     b, n, s, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, n, s, 1), dtype=torch.float32, device=dev)
+    sfx = _SUFFIX[q.dtype]
     with torch.cuda.device(dev):
-        rc = _lib(dev.index).flash_fwd(
+        rc = getattr(_lib(dev.index), "flash_fwd" + sfx)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b * n, s, d, int(bool(causal)),
             1.0 / math.sqrt(d), _stream(dev))
     if rc:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc}")
-    flash_fwd.launches += 1
+        raise RuntimeError(f"flash_fwd{sfx} launch failed: CUDA error {rc}")
+    _count(flash_fwd, sfx)
     return out, lse
 
 
@@ -252,7 +276,7 @@ def _bwd_operands(q, k, v, do, lse, delta):
         raise ValueError(f"lse and delta must be {rows}, got "
                          f"{tuple(lse.shape)}, {tuple(delta.shape)}")
     dev = _check(("q", "k", "v", "dO", "lse", "delta"),
-                 (q, k, v, do, lse, delta), q.shape)
+                 (q, k, v, do, lse, delta), q.shape, n_fp32=2)
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_dq and flash_dkv take 16-byte aligned q, k, "
                          "v and dO")
@@ -266,14 +290,15 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
     dev = _bwd_operands(q, k, v, do, lse, delta)
     b, n, s, d = q.shape
     dq = torch.empty_like(q)
+    sfx = _SUFFIX[q.dtype]
     with torch.cuda.device(dev):
-        rc = _lib(dev.index).flash_dq(
+        rc = getattr(_lib(dev.index), "flash_dq" + sfx)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * n, s, d,
             int(bool(causal)), 1.0 / math.sqrt(d), _stream(dev))
     if rc:
-        raise RuntimeError(f"flash_dq launch failed: CUDA error {rc}")
-    flash_dq.launches += 1
+        raise RuntimeError(f"flash_dq{sfx} launch failed: CUDA error {rc}")
+    _count(flash_dq, sfx)
     return dq
 
 
@@ -286,32 +311,41 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool
     b, n, s, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    sfx = _SUFFIX[q.dtype]
     with torch.cuda.device(dev):
-        rc = _lib(dev.index).flash_dkv(
+        rc = getattr(_lib(dev.index), "flash_dkv" + sfx)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b * n, s, d, int(bool(causal)), 1.0 / math.sqrt(d),
             _stream(dev))
     if rc:
-        raise RuntimeError(f"flash_dkv launch failed: CUDA error {rc}")
-    flash_dkv.launches += 1
+        raise RuntimeError(f"flash_dkv{sfx} launch failed: CUDA error {rc}")
+    _count(flash_dkv, sfx)
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_dq.launches = 0
-flash_dkv.launches = 0
+_WRAPPERS = (flash_fwd, flash_dq, flash_dkv)
+
+
+def _count(wrapper, sfx: str) -> None:
+    name = "launches" + sfx
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def launch_counts() -> dict:
-    return {"flash_fwd": flash_fwd.launches, "flash_dq": flash_dq.launches,
-            "flash_dkv": flash_dkv.launches}
+    """Kernel launches since the last reset: ``flash_fwd`` etc. for the
+    fp32 kernels, ``flash_fwd_bf16`` etc. for the bf16 ones."""
+    return {w.__name__ + sfx: getattr(w, "launches" + sfx)
+            for sfx in _SUFFIX.values() for w in _WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    flash_fwd.launches = 0
-    flash_dq.launches = 0
-    flash_dkv.launches = 0
+    for w in _WRAPPERS:
+        for sfx in _SUFFIX.values():
+            setattr(w, "launches" + sfx, 0)
+
+
+reset_launch_counts()
 
 
 # -------------------------------------------------------------- autograd

@@ -6,13 +6,14 @@
 
 ``fused_update_buckets`` is the kernel wrapper the optimizer runs
 (``csrc/fused_update.cu``): SGD, Momentum, Adam or AdamW over every flat
-fp32 bucket of a :class:`BucketTable`, in one launch, **in place** on
-the parameters and moment slots (the reference is functional and makes
-one call per bucket; the port updates in place so a step allocates
-nothing). ``fused_update_flat``, the reference's one-bucket signature,
-runs it on a table of one. Dispatch is by where the tensors lie: a CPU
-tensor takes the plain version (``buckets_plain``, ``_update_math`` in
-PyTorch, results copied back), a CUDA tensor the kernel or an error.
+bucket of a :class:`BucketTable`, fp32 and bf16 buckets alike, in one
+launch, **in place** on the parameters and moment slots (the reference
+is functional and makes one call per bucket; the port updates in place
+so a step allocates nothing). ``fused_update_flat``, the reference's
+one-bucket signature, runs it on a table of one. Dispatch is by where
+the tensors lie: a CPU tensor takes the plain version
+(``buckets_plain``, ``_update_math`` in PyTorch, results copied back),
+a CUDA tensor the kernel or an error.
 ``fused_update_buckets.launches`` counts the kernel's launches.
 
 The plain version repeats the reference's op order exactly and divides
@@ -22,6 +23,14 @@ kernel rounds every op as PyTorch does (no FMA contraction), so on the
 card kernel and plain version agree bit for bit. Across frameworks XLA
 may contract ``a*b+c`` on the CPU, so the port agrees with a compiled
 JAX update to a few ulp (the reference's own contract).
+
+A bf16 bucket (bf16 parameters and gradients, fp32 moments) follows the
+reference's cast chain (``paddle_tpu/ops/pallas/fused_update.py:12-28``,
+``optimizer/fused.py`` ``_bucket_fn``): the gradient is cast to the
+parameters' dtype and lifted to fp32, the parameter lifted to fp32, the
+rule runs in fp32, and the new parameter is rounded to bf16 to nearest
+even. ``reference_update_flat`` is that chain for any dtype, and the
+kernel equals it bit for bit.
 
 Scalars stay on the device. ``fused_update_buckets`` computes each
 bucket's ``lr*lm``, ``beta_pow*beta`` and ``1 - beta_pow*beta`` in the
@@ -42,8 +51,8 @@ ops on the device) read through a pointer. Its plain version,
 reference, the port does not fold the bucket into 128-lane rows: the
 kernel reads ``scale[i // block_size]`` itself, so every ``block_size``
 runs it (the reference falls back to a decode and the plain update when
-``block_size % 128``). Launches are counted in total
-(``fused_dequant_update.launches``) and by bucket size
+``block_size % 128``). It takes fp32 buckets only. Launches are counted
+in total (``fused_dequant_update.launches``) and by bucket size
 (``fused_dequant_update.sizes``).
 """
 from __future__ import annotations
@@ -170,11 +179,12 @@ def _lib(device_index: int) -> ctypes.CDLL:
     return lib
 
 
-def _check_flat(name, t, n, dev, fp32=True, aligned=True):
+def _check_flat(name, t, n, dev, dtypes=(torch.float32,), aligned=True):
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if fp32 and t.dtype != torch.float32:
-        raise TypeError(f"fused_update takes float32, {name} is {t.dtype}")
+    if dtypes is not None and t.dtype not in dtypes:
+        raise TypeError(f"fused_update takes {name} in "
+                        f"{', '.join(map(str, dtypes))}, got {t.dtype}")
     if t.dim() != 1 or t.numel() != n:
         raise ValueError(f"{name} must be a flat [{n}] tensor, got "
                          f"{tuple(t.shape)}")
@@ -214,8 +224,11 @@ def _slot_ptrs(slot_list):
 # ------------------------------------------------------ multi-bucket table
 # 8-byte words a bucket in the kernel's table (csrc/fused_update.cu
 # Bucket): p, g, s0, s1, pow_in, pow_out, n, first chunk, (wd, lm) as two
-# fp32 bit patterns
-TABLE_WORDS = 9
+# fp32 bit patterns, the parameters' dtype
+TABLE_WORDS = 10
+# a bucket's parameter dtype -> (the table's dtype word, elements a
+# chunk: one 16-byte vector of parameters a thread)
+BUCKET_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}
 
 
 def _f32_pair(a: float, b: float) -> int:
@@ -226,10 +239,12 @@ def _f32_pair(a: float, b: float) -> int:
 
 class BucketTable:
     """What ``fused_update_buckets`` walks: one entry per flat bucket
-    ``(p, g, slot tensors in slot_names(kind) order, wd, lm)``, the rule
-    ``kind`` and ``hyper`` shared by all of them, and for Adam(W) the
-    buckets' beta powers in two ``[B, 2]`` fp32 buffers used in turn: a
-    launch reads ``pows[parity]`` and writes ``pows[1 - parity]``.
+    ``(p, g, slot tensors in slot_names(kind) order, wd, lm)``, ``p`` and
+    ``g`` fp32 or bf16 (of one dtype a bucket; buckets may differ), the
+    slots fp32, the rule ``kind`` and ``hyper`` shared by all of them,
+    and for Adam(W) the buckets' beta powers in two ``[B, 2]`` fp32
+    buffers used in turn: a launch reads ``pows[parity]`` and writes
+    ``pows[1 - parity]``.
 
     ``words`` is the kernel's table, ``[2, B, TABLE_WORDS]`` int64 (one
     row per parity: its pow_in and pow_out pointers swap), packed once
@@ -255,12 +270,16 @@ class BucketTable:
         for b, (p, g, arrs, wd, lm) in enumerate(entries):
             _check_rule(kind, arrs)
             n = p.numel()
-            for name, t in (("p", p), ("g", g),
-                            *zip(slot_names(kind), arrs)):
+            _check_flat(f"bucket {b} p", p, n, self.device,
+                        tuple(BUCKET_DTYPES), aligned=on_card)
+            _check_flat(f"bucket {b} g", g, n, self.device, (p.dtype,),
+                        aligned=on_card)
+            for name, t in zip(slot_names(kind), arrs):
                 _check_flat(f"bucket {b} {name}", t, n, self.device,
                             aligned=on_card)
             self.entries.append((p, g, list(arrs), float(wd), float(lm)))
-        chunks = [(e[0].numel() + 3) // 4 for e in self.entries]
+        chunks = [-(-e[0].numel() // BUCKET_DTYPES[e[0].dtype][1])
+                  for e in self.entries]
         self.starts = [sum(chunks[:b]) for b in range(len(chunks))]
         self.total_chunks = sum(chunks)
         self.adam = kind in ("adam", "adamw")
@@ -293,7 +312,8 @@ class BucketTable:
                 pin = self.pows[parity, b].data_ptr()
                 pout = self.pows[1 - parity, b].data_ptr()
             rows.append([p.data_ptr(), g.data_ptr(), *slots, pin, pout,
-                         p.numel(), self.starts[b], _f32_pair(wd, lm)])
+                         p.numel(), self.starts[b], _f32_pair(wd, lm),
+                         BUCKET_DTYPES[p.dtype][0]])
         return torch.tensor(rows, dtype=torch.int64)
 
     def powers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -454,7 +474,7 @@ def fused_dequant_update(flat_p, q, scales, slot_list, svec, *, world: int,
         raise TypeError(f"fused_dequant_update takes an int32 or fp32 "
                         f"carrier, q is {q.dtype}")
     q = q.reshape(-1)
-    _check_flat("q", q, nb * block_size, dev, fp32=False)
+    _check_flat("q", q, nb * block_size, dev, dtypes=None)
     if scales.dtype != torch.float32:
         raise TypeError(f"scales must be float32, got {scales.dtype}")
     _check_flat("scales", scales.reshape(-1), nb, dev)
@@ -494,12 +514,14 @@ def fused_dequant_update_flat(flat_p, q, scales, world: int, slots: Dict, lr,
     """Fused ``block_decode`` + update over a flat bucket (the reference's
     signature): ``scalar_prep`` then ``fused_dequant_update``. Updates
     ``flat_p`` and the moment slots in place and returns ``(flat_p,
-    new_slots)``. ``bucket_dtype`` must be the parameters' dtype (fp32;
-    the bf16 cast chain comes with ROADMAP Queue A 3)."""
-    if bucket_dtype is not None and bucket_dtype != flat_p.dtype:
+    new_slots)``. The bucket must be fp32 (``bucket_dtype`` None or the
+    parameters' dtype)."""
+    if flat_p.dtype != torch.float32 or (bucket_dtype is not None
+                                         and bucket_dtype != flat_p.dtype):
         raise NotImplementedError(
-            f"bucket dtype {bucket_dtype} over {flat_p.dtype} parameters is "
-            f"not ported yet (ROADMAP Queue A 3, bf16 training)")
+            f"a {bucket_dtype or flat_p.dtype} bucket over {flat_p.dtype} "
+            f"parameters on the gradient wire is not ported yet (ROADMAP "
+            f"Queue A, 'bf16 on the gradient wire')")
     svec, scalar_slots = scalar_prep(kind, hyper, slots, lr, lm)
     arrs = [slots[nm] for nm in slot_names(kind)]
     fused_dequant_update(flat_p, q, scales, arrs, svec, world=world,

@@ -15,7 +15,9 @@ The block parameters are stacked ``[L, ...]`` on the model's device once;
 a Python loop over layers takes the place of the reference's
 ``lax.scan``. The block math is the reference's: fp32 LayerNorm,
 tanh-approximate gelu, plain matmul/softmax attention with the same
-masking (``finfo.min`` on masked logits). Batch and context are rounded
+masking (``finfo.min`` on masked logits); fp32 products with TF32 off,
+entered by each step (``framework.precision.matmul_precision``),
+whatever the caller set process-wide. Batch and context are rounded
 up to the reference's power-of-two buckets, so padded shapes match.
 
 A token's KV payload is laid out ``[L, 2 (k|v), heads, head_dim]``
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..framework.device import to_device
+from ..framework.precision import matmul_precision
 from ..models.gpt import BLOCK_PARAMS, GPTForCausalLM
 from ..nn.functional import layer_norm
 
@@ -55,6 +58,11 @@ class GPTDecodeModel:
 
     def __init__(self, model: GPTForCausalLM):
         cfg = model.config
+        if cfg.dtype != "float32":
+            raise NotImplementedError(
+                f"serving a GPT of dtype={cfg.dtype!r} is not ported yet "
+                f"(ROADMAP Queue A, 'bf16 serving'); the decode model "
+                f"serves float32 weights")
         self.config = cfg
         self.device = model.device
         self.n_layers = cfg.num_layers
@@ -138,6 +146,7 @@ class GPTDecodeModel:
         return x, kv
 
     @torch.no_grad()
+    @matmul_precision("float32")
     def prefill(self, prompts: Sequence) -> Tuple[torch.Tensor,
                                                    List[torch.Tensor]]:
         """Batch-prefill prompts (padded to shape buckets). Returns
@@ -163,12 +172,14 @@ class GPTDecodeModel:
         return last, [kv[i, :lengths[i]] for i in range(n_seq)]
 
     @torch.no_grad()
+    @matmul_precision("float32")
     def forced_logits(self, ids) -> torch.Tensor:
         """Full-sequence logits [b, s, V] (parity tests / scoring)."""
         x, _ = self._prefill_core(self._t(ids, torch.long))
         return self._logits(x)
 
     @torch.no_grad()
+    @matmul_precision("float32")
     def decode(self, ids, pos, past, past_len
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One decode step for a (bucketed) batch. ``past`` is [b, S, ept]
@@ -201,6 +212,7 @@ class GPTDecodeModel:
         return self._logits(x), kv
 
     @torch.no_grad()
+    @matmul_precision("float32")
     def extend(self, ids, pos, past, past_len, tail_len
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Multi-token step for a (bucketed) batch: ``ids``/``pos`` are

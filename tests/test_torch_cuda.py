@@ -21,12 +21,22 @@ sizes and over ragged ones (n % 4 != 0, n = 1, mixed weight decay and
 lr_mult), every rule, three steps, parameters, slots and stepped beta
 powers bit-identical to its plain walk, one launch a step; the
 updater's table kept while its pointers stay and rebuilt after the
-``torch.cat`` gradient fallback. One gpt-test ``TrainStep`` on the card
+``torch.cat`` gradient fallback. The bf16 forms: the flash kernels on
+bf16 inputs element by element within ``flash_bf16_limit`` (2e-2 of the
+plain value's magnitude plus 1.6e-2 of its row's RMS plus 1e-5; lse
+1e-4), their backward deterministic, each launch counted under its
+dtype; the same check fails the kernels built with a fault planted (one
+16-wide chunk skipped in each kernel's second product) on every output
+and on every long row of out and dq; ``fused_update_buckets`` over bf16 buckets
+(bf16 parameters and gradients, fp32 moments) and fp32 ones in one
+table, bit-identical to its plain walk. One gpt-test ``TrainStep`` on the card
 against one on the CPU: loss within 1e-5 relative, then
 ``adam_step_parity`` (gradients within 1e-4 of each tensor's largest;
 the step on every element whose
 gradient is clear of the card-vs-CPU gradient noise within 1e-2 lr of
-the CPU's and at least 0.9 lr). ``quantize_int8`` bit-identical to its
+the CPU's and at least 0.9 lr); the same in bf16: loss within ``BF16_LOSS_RTOL`` (1e-4)
+relative, then ``bf16_step_parity``, and the step through the planted
+flash fault over that loss limit (the control). ``quantize_int8`` bit-identical to its
 plain version, nearest and stochastic; ``quant_matmul`` within
 ``2 k 2^-24 (|x| @ |q|) s`` of its plain version elementwise (two fp32
 dot products of length k summed in different orders), at every row-tile
@@ -49,7 +59,10 @@ each launch counted in total and by bucket size.
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
 """
+import contextlib
+import functools
 import importlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -61,7 +74,7 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (BertForPretraining, GPTForCausalLM,
                                      GPTPretrainingCriterion, bert_presets,
                                      gpt_presets)
-from paddle_tpu_torch.models.convert import expected_shapes
+from paddle_tpu_torch.models.convert import expected_dtypes, expected_shapes
 from paddle_tpu_torch.observability.metrics import get_registry
 from paddle_tpu_torch.ops import codec
 from paddle_tpu_torch.ops import flash_attention as fa
@@ -71,10 +84,12 @@ from paddle_tpu_torch.quantization import Int8Linear, convert_to_int8
 from paddle_tpu_torch.serving import (BatchSampler, GPTDecodeModel,
                                       KVBlockPool, RequestQueue,
                                       ServeRequest, ServingEngine)
-from torch_checks import (FUSED_HYPER, adam_step_parity, bucket_entries,
-                          buckets_vs_plain, dequant_inputs, dequant_vs_plain,
-                          flash_vs_plain, fused_inputs, fused_vs_plain,
-                          qmm_vs_plain, quantize_vs_plain, run_checks)
+from torch_checks import (BF16_LOSS_RTOL, FUSED_HYPER, adam_step_parity,
+                          bf16_step_parity, bucket_entries, buckets_vs_plain,
+                          dequant_inputs, dequant_vs_plain, flash_bf16_limit,
+                          flash_err, flash_vs_plain, fused_inputs,
+                          fused_vs_plain, qmm_vs_plain, quantize_vs_plain,
+                          run_checks, same_bits)
 
 torch.set_num_threads(2)
 
@@ -312,31 +327,117 @@ def check_engine_on_card_token_identical_to_cpu(dev):
     assert after["codec_decode"] - before["codec_decode"] > encodes
 
 
-def check_flash_kernels_match_plain(dev, s, d, causal):
+def check_flash_kernels_match_plain(dev, s, d, causal, dtype=torch.float32):
     gen = torch.Generator(device=dev)
     gen.manual_seed(s * d + causal)
     q, k, v, do = (torch.randn(2, 3, s, d, device=dev, generator=gen)
-                   for _ in range(4))
+                   .to(dtype) for _ in range(4))
     before = fa.launch_counts()
     flash_vs_plain(q, k, v, do, causal)
-    assert fa.launch_counts() == {n: c + 1 for n, c in before.items()}
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    ran = {n + sfx for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    assert fa.launch_counts() == {n: c + (n in ran)
+                                  for n, c in before.items()}
 
 
-def check_flash_backward_deterministic(dev, s, d, causal):
+# A planted fault in the bf16 flash kernels: each skips the first 16-wide
+# chunk of its first streamed tile in its second products (keys 0-15 of
+# P.V and dS.K, queries 0-15 of P^T.dO and dS^T.Q), which moves a long
+# causal row of out or dq by a few 1e-3.
+_BF16_SECTION = "// ------------------------------------------------------------ bf16 forms"
+_FLASH_FAULTS = (
+    ("// acc += P V over the tile's 4 key chunks of 16\n#pragma unroll\n"
+     "    for (int c = 0; c < 4; ++c) {", "kt == 0"),
+    ("// dQ += dS K over the tile's 4 key chunks\n#pragma unroll\n"
+     "    for (int c = 0; c < 4; ++c) {", "kt == 0"),
+    ("over the tile's 4 query chunks\n#pragma unroll\n"
+     "    for (int c = 0; c < 4; ++c) {", "qt == 0"))
+
+
+@functools.lru_cache(maxsize=None)
+def _faulty_flash_library():
+    """The flash library built from ``csrc/flash_attention.cu`` with the
+    fault above planted in its bf16 kernels (a copy under the build
+    directory; the source stays as it is)."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    head, sep, bf16 = src.partition(_BF16_SECTION)
+    assert sep, "no bf16 section in flash_attention.cu"
+    for loop, first in _FLASH_FAULTS:
+        assert bf16.count(loop) == 1, loop
+        bf16 = bf16.replace(loop, loop.replace("c = 0", f"c = ({first})"))
+    mutant = _build.build_dir() / "fault" / "flash_attention_fault.cu"
+    mutant.parent.mkdir(parents=True, exist_ok=True)
+    mutant.write_text(head + sep + bf16)
+    return ctypes.CDLL(str(_build.compile_file(
+        mutant, mutant.with_suffix(".so"))))
+
+
+@contextlib.contextmanager
+def _planted_fault():
+    """The flash wrappers launch the faulty library's kernels inside."""
+    faulty = _faulty_flash_library()
+    fa._lib.cache_clear()
+    try:
+        with mock.patch.object(fa, "load_library", lambda name: faulty):
+            yield
+    finally:
+        fa._lib.cache_clear()
+
+
+def check_bf16_flash_check_sees_a_planted_fault(dev, causal):
+    """``flash_vs_plain`` passes the bf16 kernels and fails the same
+    kernels with a fault planted (``_FLASH_FAULTS``), at b1 n4 s1024 d64;
+    each faulty kernel, on the sound run's lse and delta, is over the
+    limit on every output, and out and dq on every long row (queries 512
+    and on). Prints both readings (largest diff / limit)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1024 + causal)
+    q, k, v, do = (torch.randn(1, 4, 1024, 64, device=dev, generator=gen)
+                   .bfloat16() for _ in range(4))
+    sound, lse, delta = flash_vs_plain(q, k, v, do, causal)
+    plain = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_plain(
+        q, k, v, do, lse, delta, causal)),
+        out=fa.flash_fwd_plain(q, k, v, causal)[0])
+    with _planted_fault():
+        with pytest.raises(AssertionError):
+            flash_vs_plain(q, k, v, do, causal)
+        got = dict(zip(("dk", "dv"), fa.flash_dkv(q, k, v, do, lse, delta,
+                                                  causal)),
+                   out=fa.flash_fwd(q, k, v, causal)[0],
+                   dq=fa.flash_dq(q, k, v, do, lse, delta, causal))
+    fault = {n: flash_err(n, torch.bfloat16, got[n], plain[n])
+             for n in plain}
+    assert all(r > 1.0 for _, r in fault.values()), fault
+    for name in ("out", "dq"):
+        flagged = ((got[name].float() - plain[name].float()).abs()
+                   > flash_bf16_limit(plain[name])).any(-1)[..., 512:]
+        assert bool(flagged.all()), (name, float(flagged.float().mean()))
+    print(f"bf16 flash causal={causal}, largest diff / limit: sound "
+          + ", ".join(f"{n} {r:.3f}" for n, (_, r) in sound.items())
+          + "; planted fault "
+          + ", ".join(f"{n} {r:.1f}" for n, (_, r) in fault.items()))
+
+
+def check_flash_backward_deterministic(dev, s, d, causal,
+                                       dtype=torch.float32):
     """Every dq, dk and dv element has one owner (no atomics): two
     launches on the same inputs give the same bits."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(s + d + causal)
     q, k, v, do = (torch.randn(2, 3, s, d, device=dev, generator=gen)
-                   for _ in range(4))
+                   .to(dtype) for _ in range(4))
     out, lse = fa.flash_fwd(q, k, v, causal)
-    delta = (do * out).sum(-1, keepdim=True)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
     first = (fa.flash_dq(q, k, v, do, lse, delta, causal),
              *fa.flash_dkv(q, k, v, do, lse, delta, causal))
     second = (fa.flash_dq(q, k, v, do, lse, delta, causal),
               *fa.flash_dkv(q, k, v, do, lse, delta, causal))
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+        assert same_bits(a, b), name
 
 
 def check_fused_update_bit_identical(dev, kind, wd, n):
@@ -355,10 +456,11 @@ def _gpt125m_bucket_sizes():
         [torch.empty(sh, device="meta") for sh in shapes])]
 
 
-def check_buckets_bit_identical(dev, kind, sizes, wds, lms):
+def check_buckets_bit_identical(dev, kind, sizes, wds, lms,
+                                dtypes=(torch.float32,)):
     gen = torch.Generator(device=dev)
     gen.manual_seed(len(sizes) + len(wds))
-    entries = bucket_entries(kind, sizes, gen, wds, lms)
+    entries = bucket_entries(kind, sizes, gen, wds, lms, dtypes)
     lr = torch.full((), 1e-3, device=dev)
     # one launch a step, whatever the number of buckets
     assert buckets_vs_plain(kind, FUSED_HYPER[kind], entries, lr, steps=3,
@@ -410,6 +512,12 @@ def check_bucket_wrappers_raise(dev):
     hyper = FUSED_HYPER["adam"]
     with pytest.raises(TypeError):
         fu.BucketTable("sgd", {}, [(p.double(), p.double(), [], 0.0, 1.0)])
+    with pytest.raises(TypeError, match="g in torch.bfloat16"):
+        fu.BucketTable("sgd", {}, [(p.bfloat16(), p, [], 0.0, 1.0)])
+    with pytest.raises(TypeError, match="moment1 in torch.float32"):
+        fu.BucketTable("adam", hyper, [(p.bfloat16(), p.bfloat16(),
+                                        [p.bfloat16(), p.clone()], 0.0,
+                                        1.0)])
     with pytest.raises(ValueError, match="aligned"):
         fu.BucketTable("sgd", {}, [(p[1:], p[1:], [], 0.0, 1.0)])
     with pytest.raises(ValueError, match="is on"):
@@ -422,8 +530,16 @@ def check_bucket_wrappers_raise(dev):
         fu.fused_update_buckets(table, torch.ones(()))
 
 
-def _train_one_step(device):
-    cfg = gpt_presets("gpt-test")
+def _gpt125m_bf16_plan():
+    cfg = gpt_presets("gpt-125m", dtype="bfloat16")
+    dtypes = expected_dtypes(cfg)
+    plan = build_buckets([torch.empty(sh, device="meta", dtype=dtypes[n])
+                          for n, sh in expected_shapes(cfg).items()])
+    return [b.size for b in plan], [b.dtype for b in plan]
+
+
+def _train_one_step(device, dtype="float32"):
+    cfg = gpt_presets("gpt-test", dtype=dtype)
     m = GPTForCausalLM(cfg, seed=0, device=device)
     o = AdamW(learning_rate=1e-3, weight_decay=0.01,
               parameters=m.parameters())
@@ -446,7 +562,30 @@ def check_train_step_on_card_matches_cpu(dev):
     adam_step_parity(card, cpu, 1e-3)
     # 2 layers: 2 launches of each flash kernel; gpt-test is one bucket
     assert {k: after[k] - before[k] for k in after} == {
-        "flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2, "fused_update": 1}
+        "flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2, "flash_fwd_bf16": 0,
+        "flash_dq_bf16": 0, "flash_dkv_bf16": 0, "fused_update": 1}
+
+
+def check_bf16_train_step_on_card_matches_cpu(dev):
+    before = {**fa.launch_counts(), **fu.launch_counts()}
+    card_loss, card = _train_one_step(dev, "bfloat16")
+    after = {**fa.launch_counts(), **fu.launch_counts()}
+    cpu_loss, cpu = _train_one_step("cpu", "bfloat16")
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    assert rel <= BF16_LOSS_RTOL, rel
+    r = bf16_step_parity(card, cpu, 1e-3)
+    # the control: the same step through the planted flash fault
+    with _planted_fault():
+        fault_loss, _ = _train_one_step(dev, "bfloat16")
+    fault_rel = abs(fault_loss - cpu_loss) / abs(cpu_loss)
+    print(f"bf16 train step, card vs CPU: loss {rel:.3e} relative (limit "
+          f"{BF16_LOSS_RTOL:.0e}; planted flash fault {fault_rel:.3e}), "
+          f"gradients within {r['grad_rtol']:.3e} of each tensor's largest")
+    assert fault_rel > BF16_LOSS_RTOL, fault_rel
+    # the bf16 kernels only; one launch for the fp32 and bf16 buckets
+    assert {k: after[k] - before[k] for k in after} == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_bf16": 2,
+        "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "fused_update": 1}
 
 
 def check_new_wrappers_raise(dev):
@@ -457,6 +596,12 @@ def check_new_wrappers_raise(dev):
             fa.flash_fwd(bad, bad, bad, True)
     with pytest.raises(TypeError):
         fa.flash_fwd(q.double(), q.double(), q.double(), True)
+    qb = q.bfloat16()
+    with pytest.raises(TypeError, match="k in torch.bfloat16"):
+        fa.flash_fwd(qb, q, qb, True)
+    _, lse = fa.flash_fwd(qb, qb, qb, True)
+    with pytest.raises(TypeError, match="lse in torch.float32"):
+        fa.flash_dq(qb, qb, qb, qb, lse.bfloat16(), lse, True)
     with pytest.raises(ValueError, match="is on"):
         fa.flash_fwd(q, q.cpu(), q, True)
     lse = torch.zeros(1, 2, 8, 1, device=dev)
@@ -599,12 +744,21 @@ def test_cuda_path_matches_plain(dev):
                         *((s, d) for s in (1, 63, 1000)
                           for d in (16, 64, 128)))
            for c in (True, False)]
-        + [(check_flash_backward_deterministic, (dev, s, d, c))
-           for s, d in ((1000, 64), (1024, 128)) for c in (True, False)]
+        + [(check_flash_kernels_match_plain, (dev, s, d, c, torch.bfloat16))
+           for s, d in ((1, 16), (37, 16), (64, 64), (130, 64), (77, 96),
+                        *((s, d) for s in (1, 63, 1000, 1024)
+                          for d in (16, 64, 128)))
+           for c in (True, False)]
+        + [(check_bf16_flash_check_sees_a_planted_fault, (dev, c))
+           for c in (True, False)]
+        + [(check_flash_backward_deterministic, (dev, s, d, c, dt))
+           for s, d in ((1000, 64), (1024, 128)) for c in (True, False)
+           for dt in (torch.float32, torch.bfloat16)]
         + [(check_fused_update_bit_identical, (dev, k, wd, n))
            for k in ("sgd", "momentum", "adam", "adamw")
            for wd in (0.0, 0.01) for n in (1, 4097, 100003)]
         + [(check_train_step_on_card_matches_cpu, (dev,)),
+           (check_bf16_train_step_on_card_matches_cpu, (dev,)),
            (check_new_wrappers_raise, (dev,))]
         + [(check_buckets_bit_identical, (dev, k, sizes, wds, lms))
            for k in ("sgd", "momentum", "adam", "adamw")
@@ -612,6 +766,14 @@ def test_cuda_path_matches_plain(dev):
                (_gpt125m_bucket_sizes(), (0.0,), (1.0,)),
                (_gpt125m_bucket_sizes(), (0.01,), (1.0,)),
                ((1, 4097, 100003, 5, 64, 3), (0.01, 0.0), (1.0, 0.5)))]
+        + [(check_buckets_bit_identical, (dev, k, sizes, wds, lms, dts))
+           for k in ("sgd", "momentum", "adam", "adamw")
+           for sizes, wds, lms, dts in (
+               (_gpt125m_bf16_plan()[0], (0.01,), (1.0,),
+                _gpt125m_bf16_plan()[1]),
+               ((1, 4097, 100003, 5, 64, 3, 9, 17), (0.01, 0.0),
+                (1.0, 0.5), (torch.bfloat16, torch.float32,
+                             torch.bfloat16)))]
         + [(check_updater_table_rebuilt_after_cat_fallback, (dev,)),
            (check_bucket_wrappers_raise, (dev,))]
         + [(check_quantize_kernel_bit_identical, (dev, shape, st, seed))

@@ -193,7 +193,8 @@ def check_wrapper_checks():
     with pytest.raises(ValueError, match="kind"):
         tfu.fused_dequant_update_flat(p, q, scales, 2, {}, torch.tensor(1.0),
                                       kind="lamb", hyper={}, block_size=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 3"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, 'bf16 on the gradient wire'"):
         tfu.fused_dequant_update_flat(p, q, scales, 2, {}, torch.tensor(1.0),
                                       kind="sgd", hyper={}, block_size=4,
                                       bucket_dtype=torch.bfloat16)

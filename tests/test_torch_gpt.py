@@ -5,10 +5,12 @@ reference, on the CPU, at ``gpt-test`` size (2 layers, hidden 64).
   equals ``convert(JAX GPTForCausalLM(cfg, seed=s))`` bit for bit.
 - Config: the port's ``GPTConfig`` has every field of the reference's,
   in order, with equal defaults; the fields whose other values the port
-  does not run (``dtype``, ``recompute_policy``, ``sequence_parallel``,
+  does not run (``dtype`` other than float32 and bfloat16, e.g.
+  ``"float16"``, ``recompute_policy``, ``sequence_parallel``,
   ``pp_microbatches``) build a config, and building a model from it
-  raises ``NotImplementedError`` naming its ROADMAP Queue A item, as
-  ``bench.py``'s own ``gpt_presets("gpt-125m", dtype="bfloat16")`` does.
+  raises ``NotImplementedError`` naming its ROADMAP Queue A item.
+  ``bench.py``'s own ``gpt_presets("gpt-125m", dtype="bfloat16")`` is
+  ported (``tests/test_torch_bf16_train.py``).
 - Decode model: prefill/decode/extend/forced_logits logits and the KV
   payload match the JAX ``GPTDecodeModel`` on the same weights, and the
   port's ``forced_logits`` match the JAX training forward. Tolerance:
@@ -196,7 +198,7 @@ def test_gpt_port_matches_reference(fresh_mesh):
               (check_config_fields_match_reference, ()),
               *((check_unported_field_builds_config_and_model_raises,
                  (over, item)) for over, item in (
-                  ({"dtype": "bfloat16"}, "bf16 training"),
+                  ({"dtype": "float16"}, "other dtypes"),
                   ({"recompute_policy": ("remat", "none")},
                    "training options"),
                   ({"sequence_parallel": True}, "parallelism"),

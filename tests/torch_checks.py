@@ -18,8 +18,22 @@ the two hold the kernels to one set of criteria:
 - flash attention: out and lse within 2e-5 max abs; dq, dk and dv each
   within 1e-4 of the larger of 1 and the plain gradient's largest
   magnitude (unit-scale inputs; a gradient that is zero in exact
-  arithmetic, as dq at s = 1, is rounding noise on both sides);
-- ``fused_update``: bit-identical parameters and slots;
+  arithmetic, as dq at s = 1, is rounding noise on both sides). The bf16
+  kernels, element by element (:func:`flash_bf16_limit`): out, dq, dk
+  and dv within ``2e-2 |plain| + 1.6e-2 rms(plain's row) + 1e-5``, the
+  reference's own bf16 rtol (``tests/test_pallas_kernels.py:333-350``)
+  plus four bf16 ulps (2^-8 each) of the row's RMS, over the last axis
+  (a query row of out and dq, a key row of dk and dv), and a floor for
+  a row that is zero in exact arithmetic (dq's first causal row). The
+  kernels round p and ds to bf16 for their second products; a CPU model
+  of that rounding (``tests/test_torch_bf16_train.py``) needs at most
+  6.7e-3 of the row's RMS beside the rtol at s = 1024, d = 64, and the
+  same model with one 16-key chunk dropped from a product, a fault that
+  moves a long causal row by a few 1e-3, needs more than 1.6e-2 in
+  over 90% of the long rows. lse within 1e-4 max abs (bf16 operands
+  multiply exactly, so the scores are fp32 sums as in the fp32 kernel);
+- ``fused_update``: bit-identical parameters and slots, fp32 or bf16
+  parameters (:func:`same_bits`);
 - ``fused_update_buckets``: bit-identical parameters, slots and stepped
   beta powers over consecutive steps, against its plain walk of the same
   kind of table (:func:`buckets_vs_plain`);
@@ -27,7 +41,8 @@ the two hold the kernels to one set of criteria:
   (:func:`dequant_vs_plain`), fed by a payload whose carriers the
   ``codec_encode`` kernel wrote bit-identical to the plain encode's
   (:func:`encoded_inputs`);
-- one Adam(W) training step on two devices: :func:`adam_step_parity`;
+- one Adam(W) training step on two devices: :func:`adam_step_parity`,
+  and for a bf16 model :func:`bf16_step_parity`;
 - ``quantize_int8``: int8 payload and scales bit-identical, nearest and
   stochastic;
 - ``quant_matmul``: every element within the forward-error bound of two
@@ -51,6 +66,16 @@ from paddle_tpu_torch.ops import fused_update as fu
 qm = importlib.import_module("paddle_tpu_torch.ops.quant_matmul")
 
 FLASH_TOL = {"out": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
+# the bf16 flash outputs, element by element (:func:`flash_bf16_limit`)
+FLASH_BF16_RTOL = 2e-2     # of the plain element's magnitude
+FLASH_BF16_ROW = 1.6e-2    # of the RMS of the plain element's row
+FLASH_BF16_FLOOR = 1e-5    # absolute, for unit-scale inputs
+FLASH_BF16_LSE = 1e-4      # max abs
+# a bf16 GPT step's loss, card against CPU, relative: read 2.46e-5 at
+# GPT-125M width, 2 layers, b2 s128 (``chip_smoke.py`` phase 18) and
+# 2.4e-6 at gpt-test, b2 s37, where the kernels with a planted fault
+# (``tests/test_torch_cuda.py``) read 1.3e-3
+BF16_LOSS_RTOL = 1e-4
 # largest diff / limit ``quant_matmul`` may read at k >= QMM_SPLIT_MIN_K
 QMM_SPLIT_CEILING = 0.04
 QMM_SPLIT_MIN_K = 768
@@ -75,41 +100,82 @@ def run_checks(checks):
 
 
 def _max_abs(a, b) -> float:
-    return float((a - b).abs().max())
+    return float((a.float() - b.float()).abs().max())
+
+
+def same_bits(a, b) -> bool:
+    """True if the two tensors hold the same bits (fp32 or bf16)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]),
+                                              b.view(ints[b.dtype]))
 
 
 def _over_limit(what: str, errs) -> None:
-    over = [f"{n} {e:.3e} > {lim:.3e}" for n, (e, lim) in errs.items()
-            if not e <= lim]
+    over = [f"{n} {e:.3e} ({r:.3f} of its limit)"
+            for n, (e, r) in errs.items() if not r <= 1.0]
     if over:
         raise AssertionError(f"{what}: max abs diff " + ", ".join(over))
 
 
+def flash_bf16_limit(plain: torch.Tensor) -> torch.Tensor:
+    """The limit of each element of a bf16 flash output against its
+    plain version ``plain``: ``FLASH_BF16_RTOL |plain| + FLASH_BF16_ROW
+    rms(row) + FLASH_BF16_FLOOR``, the RMS over the last axis (see the
+    module docstring)."""
+    b = plain.float()
+    rms = b.pow(2).mean(-1, keepdim=True).sqrt()
+    return (FLASH_BF16_RTOL * b.abs() + FLASH_BF16_ROW * rms
+            + FLASH_BF16_FLOOR)
+
+
+def flash_err(name, dtype, got, plain):
+    """``(max abs diff, largest diff / limit)`` of one flash output
+    against its plain version; ``dtype`` is the inputs' (the module
+    docstring gives the limits)."""
+    diff = (got.float() - plain.float()).abs()
+    err = float(diff.max())
+    if dtype == torch.bfloat16:
+        if name == "lse":
+            return err, err / FLASH_BF16_LSE
+        return err, float((diff / flash_bf16_limit(plain)).max())
+    tol = FLASH_TOL[name]
+    lim = tol if name in ("out", "lse") else tol * max(
+        float(plain.abs().max()), 1.0)
+    return err, err / lim
+
+
 def flash_fwd_vs_plain(q, k, v, causal: bool):
-    """``flash_fwd`` against its plain version. Returns ``(errs, out,
-    lse)``: ``errs`` maps out and lse to (max abs diff, limit); raises
-    when one is over its limit."""
+    """``flash_fwd`` against its plain version (fp32 or bf16 inputs).
+    Returns ``(errs, out, lse)``: ``errs`` maps out and lse to (max abs
+    diff, largest diff / limit); raises when one is over its limit."""
     out, lse = fa.flash_fwd(q, k, v, causal)
     p_out, p_lse = fa.flash_fwd_plain(q, k, v, causal)
-    errs = {"out": (_max_abs(out, p_out), FLASH_TOL["out"]),
-            "lse": (_max_abs(lse, p_lse), FLASH_TOL["lse"])}
-    _over_limit(f"flash_fwd {list(q.shape)} causal={causal}", errs)
+    if out.dtype != q.dtype or lse.dtype != torch.float32:
+        raise AssertionError(f"flash_fwd gave {out.dtype} out, "
+                             f"{lse.dtype} lse for {q.dtype} inputs")
+    errs = {"out": flash_err("out", q.dtype, out, p_out),
+            "lse": flash_err("lse", q.dtype, lse, p_lse)}
+    _over_limit(f"flash_fwd {list(q.shape)} {q.dtype} causal={causal}",
+                errs)
     return errs, out, lse
 
 
 def flash_vs_plain(q, k, v, do, causal: bool):
     """The three flash kernels and their plain versions on the same
-    inputs. Returns ``(errs, lse, delta)``: ``errs`` maps out, lse, dq, dk
-    and dv to (max abs diff, limit); raises when one is over its limit."""
+    inputs (fp32 or bf16). Returns ``(errs, lse, delta)``: ``errs`` maps
+    out, lse, dq, dk and dv to (max abs diff, largest diff / limit);
+    raises when one is over its limit."""
     errs, out, lse = flash_fwd_vs_plain(q, k, v, causal)
-    delta = (do * out).sum(-1, keepdim=True)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
     dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
     p_dq, p_dk, p_dv = fa.flash_bwd_plain(q, k, v, do, lse, delta, causal)
     for name, a, b in (("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
-        scale = max(float(b.abs().max()), 1.0)
-        errs[name] = (_max_abs(a, b), FLASH_TOL[name] * scale)
-    _over_limit(f"flash {list(q.shape)} causal={causal}", errs)
+        if a.dtype != q.dtype:
+            raise AssertionError(f"flash {name} is {a.dtype} for {q.dtype} "
+                                 f"inputs")
+        errs[name] = flash_err(name, q.dtype, a, b)
+    _over_limit(f"flash {list(q.shape)} {q.dtype} causal={causal}", errs)
     return errs, lse, delta
 
 
@@ -194,8 +260,7 @@ def fused_vs_plain(p, g, slots, lr, *, kind, hyper, wd) -> float:
                                  lr, kind=kind, hyper=hyper, wd=wd)
     pairs = [("p", kp, ref_p)] + [(k, ks[k], v) for k, v in ref_s.items()]
     err = max(_max_abs(a, b) for _, a, b in pairs)
-    differ = [n for n, a, b in pairs
-              if not torch.equal(a.view(torch.int32), b.view(torch.int32))]
+    differ = [n for n, a, b in pairs if not same_bits(a, b)]
     if differ:
         raise AssertionError(f"fused_update {kind} wd={wd} n={p.numel()}: "
                              f"{differ} differ from plain (max abs diff "
@@ -274,8 +339,7 @@ def dequant_vs_plain(p, q, scales, slots, lr, *, world, block_size, kind,
         **kw)
     pairs = [("p", kp, ref_p)] + [(k, ks[k], v) for k, v in ref_s.items()]
     err = max(_max_abs(a, b) for _, a, b in pairs)
-    differ = [n for n, a, b in pairs
-              if not torch.equal(a.view(torch.int32), b.view(torch.int32))]
+    differ = [n for n, a, b in pairs if not same_bits(a, b)]
     if differ:
         raise AssertionError(
             f"fused_dequant_update {kind} {q.dtype} n={p.numel()} "
@@ -343,6 +407,85 @@ def adam_step_parity(card, cpu, lr, grad_rtol=1e-4, update_rtol=1e-2,
         raise AssertionError("Adam step, card vs CPU: " + "; ".join(bad))
     return {"grad_rtol": worst_g, "clear_step_diff_lr": worst_u,
             "clear_share": clear_n / total, "param_max_abs_diff": worst_p}
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each element of ``x`` (as fp32): ``2^(e - 8)`` for
+    ``|x| = m 2^e``, ``m`` in [0.5, 1); the least subnormal at 0."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       e - 8).clamp_min(2.0 ** -133)
+
+
+def bf16_step_parity(card, cpu, lr, grad_rtol=2e-2, update_rtol=1e-2,
+                     eps=1e-8):
+    """Hold one Adam(W) first step of a bf16 model on the card against one
+    on the CPU; ``card`` and ``cpu`` as for :func:`adam_step_parity`.
+
+    The two devices round bf16 products in other places (the card's
+    flash kernels round p and ds to bf16, its GEMMs sum on the tensor
+    cores), so the gradients agree to bf16 precision, not fp32's:
+
+    - every gradient within ``grad_rtol`` (the reference's bf16
+      tolerance) of its tensor's largest one;
+    - on every *clear* element (as in :func:`adam_step_parity`: ``|g| >=
+      100 eps`` and at least 10 times the tensor's largest card-vs-CPU
+      gradient difference, so both devices step it by about ``lr`` the
+      same way) a bf16 parameter lands within one bf16 ulp of the CPU's
+      (the two fp32 updates are ~equal, so they round to the same or to
+      neighbouring bf16 values), and an fp32 one (the final norm) within
+      ``update_rtol * lr`` of it;
+    - a tensor the CPU changed is changed on the card too (a bucket the
+      card skipped would be caught; a bf16 weight whose step is under
+      half its ulp rounds back and stays, on both devices).
+
+    Returns the worst gradient ratio, the share of clear elements, the
+    share of all elements whose bf16 result differs, and the largest
+    difference over all elements."""
+    worst_g, worst_p, clear_n, differ, total = 0.0, 0.0, 0, 0, 0
+    bad = []
+    for name, (b0, b1, bg) in cpu.items():
+        c0, c1, cg = card[name]
+        if not same_bits(c0, b0):
+            bad.append(f"{name}: the devices started from other weights")
+        gmax = float(bg.float().abs().max())
+        gerr = _max_abs(cg, bg)
+        total += bg.numel()
+        worst_p = max(worst_p, _max_abs(c1, b1))
+        differ += int((c1.float() != b1.float()).sum())
+        if gmax == 0.0:
+            if gerr:
+                bad.append(f"{name}: gradient {gerr:.3e} on the card, 0 on "
+                           f"the CPU")
+            continue
+        worst_g = max(worst_g, gerr / gmax)
+        if gerr > grad_rtol * gmax:
+            bad.append(f"{name}: gradients differ by {gerr / gmax:.3e} of "
+                       f"the largest")
+        if not same_bits(b1, b0) and same_bits(c1, c0):
+            bad.append(f"{name}: the CPU's step moved it, the card's did "
+                       f"not")
+        clear = (bg.float().abs() >= 100 * eps) & (bg.float().abs()
+                                                   >= 10 * gerr)
+        clear_n += int(clear.sum())
+        if not bool(clear.any()):
+            continue
+        a_card, a_cpu = c1.float()[clear], b1.float()[clear]
+        if b1.dtype == torch.bfloat16:
+            lim = bf16_ulp(torch.maximum(a_card.abs(), a_cpu.abs()))
+            over = int(((a_card - a_cpu).abs() > lim).sum())
+            if over:
+                bad.append(f"{name}: {over} clear elements more than one "
+                           f"bf16 ulp from the CPU's")
+        else:
+            derr = _max_abs(a_card, a_cpu) / lr
+            if derr > update_rtol:
+                bad.append(f"{name}: steps differ by {derr:.3e} lr")
+    if bad:
+        raise AssertionError("bf16 Adam step, card vs CPU: "
+                             + "; ".join(bad))
+    return {"grad_rtol": worst_g, "clear_share": clear_n / total,
+            "differ_share": differ / total, "param_max_abs_diff": worst_p}
 
 
 def dp_step_parity(card, cpu, lr, grad_rtol=1e-4, flip_share=1e-2,
@@ -430,16 +573,19 @@ def dp_step_parity(card, cpu, lr, grad_rtol=1e-4, flip_share=1e-2,
             "step1_max_diff_lr": worst_any}
 
 
-def bucket_entries(kind, sizes, gen, wds=(0.0,), lms=(1.0,)):
+def bucket_entries(kind, sizes, gen, wds=(0.0,), lms=(1.0,),
+                   dtypes=(torch.float32,)):
     """Seeded ``(p, g, slot tensors, wd, lm)`` a bucket of ``sizes`` on
     ``gen``'s device (unit-scale weights and gradients, moments of
-    1e-2), bucket ``i`` taking ``wds[i % len(wds)]`` and
-    ``lms[i % len(lms)]``."""
+    1e-2), bucket ``i`` taking ``wds[i % len(wds)]``,
+    ``lms[i % len(lms)]`` and parameters and gradients in
+    ``dtypes[i % len(dtypes)]`` (the moments fp32)."""
     dev = gen.device
     out = []
     for i, n in enumerate(sizes):
-        p = torch.randn(n, device=dev, generator=gen)
-        g = torch.randn(n, device=dev, generator=gen)
+        dt = dtypes[i % len(dtypes)]
+        p = torch.randn(n, device=dev, generator=gen).to(dt)
+        g = torch.randn(n, device=dev, generator=gen).to(dt)
         arrs = [torch.randn(n, device=dev, generator=gen).abs() * 1e-2
                 for _ in fu.slot_names(kind)]
         out.append((p, g, arrs, wds[i % len(wds)], lms[i % len(lms)]))
@@ -483,9 +629,7 @@ def buckets_vs_plain(kind, hyper, entries, lr, *, steps=3, gen=None):
                       for b, (kp, pp) in enumerate(zip(ktab.powers(),
                                                        ptab.powers()))
                       for j, (a, c) in enumerate(zip(kp, pp))]
-        differ = [n for n, a, c in pairs
-                  if not torch.equal(a.view(torch.int32),
-                                     c.view(torch.int32))]
+        differ = [n for n, a, c in pairs if not same_bits(a, c)]
         if differ:
             raise AssertionError(
                 f"fused_update_buckets {kind} step {step + 1}: {differ[:6]} "
