@@ -98,10 +98,10 @@
 // bf16 forms (flash_fwd_bf16, flash_dq_bf16, flash_dkv_bf16; separate
 // kernels, not a branch in the fp32 ones): bf16 q, k, v, dO, out, dq,
 // dk, dv; lse and delta fp32, as the reference's kernels load bf16,
-// compute in fp32 and store the output dtype. Every product is
-// mma.sync m16n8k16 bf16 with fp32 accumulators. Q.K^T and dO.V^T (and
-// dkv's K.Q^T, V.dO^T) multiply two bf16 operands, exact, in one pass.
-// P.V, dS.K, P^T.dO and dS^T.Q have an fp32 operand (p or ds), rounded to
+// compute in fp32 and store the output dtype. Every product is bf16 on
+// the tensor cores with fp32 accumulators. Q.K^T and dO.V^T (and dkv's
+// K.Q^T, V.dO^T) multiply two bf16 operands, exact, in one pass. P.V,
+// dS.K, P^T.dO and dS^T.Q have an fp32 operand (p or ds), rounded to
 // bf16 to nearest even for one pass: on unit-scale inputs at s = 1024
 // d = 64 a CPU model of that rounding keeps every output element at
 // under half of its limit against the fp32 plain versions (2e-2 of its
@@ -111,21 +111,69 @@
 // is exact in bf16 only when d is a power of 4), and dq and dk are
 // scaled once at the end. Bounds at b8 n12 s1024 d64 causal, 989 TFLOP/s
 // bf16 dense: 0.013 ms forward, 0.020 dq, 0.026 dkv of operations
-// against ~0.015 / 0.019 / 0.023 ms of bytes (PERF.md).
+// against 0.0151 / 0.019 / 0.023 ms of bytes (PERF.md).
 //
-// The tile walk is the fp32 kernels': 4 warps x 16 own rows, 64-row
-// streamed tiles double-buffered by cp.async, grid (batch*head, tile)
-// heaviest tile first, masks only on the diagonal and tail tiles, and a
-// score's accumulator becomes the next product's A operand in registers
-// (the m16n8k16 A fragment of key chunk c is the C fragments of key
-// tiles 2c and 2c + 1, packed in pairs). Tiles are bf16 in shared memory
-// at a row pitch of d + 8 elements (16 bytes over a multiple of 16, so
-// the 8 rows one ldmatrix phase reads fall on 8 distinct 16-byte bank
-// groups for every d here) and every fragment is read with ldmatrix:
-// plain for a tile whose rows are the product's n (K in Q.K^T) or the
-// own rows (A), .trans for a tile whose rows are its k (V in P.V, K in
-// dS.K, dO and Q in dkv). The own rows stay in shared memory and are
-// read per product, which keeps d = 128 out of spills.
+// flash_dq_bf16 keeps the fp32 kernels' tile walk on mma.sync m16n8k16:
+// 4 warps x 16 own rows, 64-row streamed tiles double-buffered by
+// cp.async, grid (batch*head, tile) heaviest tile first, masks only on
+// the diagonal and tail tiles, a score's accumulator the next product's
+// A operand in registers (the m16n8k16 A fragment of key chunk c is the
+// C fragments of key tiles 2c and 2c + 1, packed in pairs), tiles bf16
+// in shared memory at a row pitch of d + 8 elements read by ldmatrix
+// (.trans for a tile whose rows are the product's k: K in dS.K).
+//
+// flash_fwd_bf16 (replaces _fwd_kernel, flash_attention.py:118) and
+// flash_dkv_bf16 (_dkv_kernel, :251) are Hopper's own design
+// (hopper.cuh): TMA, mbarriers and wgmma. What bounds them at the
+// training shape: the forward 0.0151 ms of bytes (q, k, v in, out and
+// lse out) against 0.0130 ms of operations, dkv 0.0261 ms of operations
+// against 0.0228 of bytes; the mma.sync kernels before them ran 5.8x
+// and 5.3x those bounds. Design, both:
+// - warp roles: one producer warp, whose one thread issues every TMA
+//   load, keeps a ring of stages in flight; consumer warpgroups of 128
+//   threads run wgmma m64n64k16 (dkv's score products at d > 64:
+//   m64n32k16) on what has landed. No thread spends registers or
+//   instructions on addresses, and no ldmatrix re-reads a tile: wgmma
+//   reads the swizzled tiles from shared memory through descriptors.
+// - tiles: 64 x 64 bf16 boxes (128-byte rows, 128-byte swizzle), two
+//   side by side at d > 64. Rows past s and columns past d (d of 16,
+//   32, 48; 80, 96, 112 in the second box) arrive from TMA as zeros, so
+//   there are no masked copies; the padded columns multiply zeros.
+// - the score accumulator becomes the second product's A operand in
+//   registers (wgmma's RS form), rounded to bf16; V, dO and Q are that
+//   product's B operand as they lie, MN-major (the descriptor's
+//   transpose bit), with no transposed copy.
+// - the forward's pipeline (FlashAttention-3's overlap inside a
+//   warpgroup): wgmma is asynchronous, so a warpgroup issues tile j's
+//   scores, then tile j - 1's P.V, and computes tile j's softmax while
+//   P.V runs; a stage is released when its P.V is done. At d = 64 a
+//   64 x 64 tile's 4096 exponentials take the special-function unit
+//   about as long as its two products take the tensor cores. The
+//   forward is bound by latency, not by either unit: it gains with the
+//   warpgroups resident an SM and the stages in flight (below).
+// - 2^x on the special-function unit (ex2.approx.ftz) of the scores
+//   times scale * log2(e), lse returned in the natural log; grid
+//   (batch*head, tile), heaviest causal tile first; masks only on the
+//   diagonal and tail tiles.
+// - every output element has one owner (a consumer thread of one
+//   block), no atomics: a launch repeats its bits.
+// Forward: a block holds kFwdWarpgroups x 64 query rows, loaded once;
+// K and V stream through kFwdStages stages of 64 keys; a warpgroup
+// skips (but releases) a tile wholly above its own diagonal. The online
+// softmax keeps each lane's share of the row sum, the quad's four added
+// at the end. dkv: a block holds kDkvWarpgroups x 64 keys of K and V;
+// Q and dO (TMA) and their lse and delta rows (cp.async by the producer
+// warp's lanes, landing on the stage's barrier: a 1-D tensor map of the
+// [bh * s] vector is refused without strides, and a one-row 2-D fp32
+// map encodes but its load stops the kernel with an illegal
+// instruction, H100, CUDA 12.8) stream through kDkvStages stages of BQ
+// queries: 64 at d <= 64; 32 at d > 64, where dK and dV take 64
+// registers each and a 64-query S^T and dP^T 32 each, too many for a
+// thread's 255 beside the rest (a 32-query tile keeps S^T and dP^T at
+// 16).
+// -Xptxas -v (sm_90a, CUDA 12.8; tools/torch_flash_ab.py prints it):
+// forward 122-128 registers a thread at d <= 64, 164-180 above; dkv
+// 167-168 at d <= 64 (two blocks an SM), 201-203 above; no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,6 +182,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -161,6 +210,14 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+// (a softmax term under 2^-126 of its row's largest adds nothing).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------- forward
@@ -824,7 +881,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // A fragment of key (or query) chunk c from the score accumulators of
-// n-tiles 2c (x0) and 2c + 1 (x1), rounded to bf16.
+// n-tiles 2c (x0) and 2c + 1 (x1), rounded to bf16 (mma.sync's C
+// fragments, or the 8-register chunk 8c of a wgmma accumulator).
 __device__ __forceinline__ void score_frag(uint32_t* a, const float* x0,
                                            const float* x1) {
   a[0] = pack_bf16(x0[0], x0[1]);
@@ -837,12 +895,8 @@ template <int D>
 struct Bf16Tiles {
   static constexpr int P = D + 8;               // row pitch (elements)
   static constexpr int kRows = kTile * P;       // one tile
-  // forward: two stages of K, V and the own Q; dq: the same and dO
-  static constexpr size_t fwd_bytes = sizeof(bf16) * 5 * kRows;
+  // dq: two stages of K and V, the own Q and dO
   static constexpr size_t dq_bytes = sizeof(bf16) * 6 * kRows;
-  static constexpr size_t dkv_stage =            // Q, dO; lse, delta
-      sizeof(bf16) * 2 * kRows + sizeof(float) * 2 * kTile;
-  static constexpr size_t dkv_bytes = 2 * dkv_stage + sizeof(bf16) * 2 * kRows;
 };
 
 // cp.async rows [row0, row0 + kTile) of a bf16 [s, D] matrix into shared
@@ -870,138 +924,6 @@ __device__ __forceinline__ void store_rows_bf16(bf16* dst, float (*acc)[4],
   for (int j = 0; j < D / 8; ++j)
     *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
         acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out,
-                float* __restrict__ lse, int s, int causal, float scale) {
-  using T = Bf16Tiles<D>;
-  constexpr int P = T::P, KC = D / 16, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Qo = smem + 4 * T::kRows;             // after two stages of K, V
-
-  // grid (batch*head, tile), heaviest causal tiles (the last rows) first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.x) * s * D;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;                   // the warp's own rows
-
-  const int n_kt = (s + kTile - 1) / kTile;
-  const int kt_end = causal ? min(n_kt, q0 / kTile + 1) : n_kt;
-
-  auto load_kv = [&](int kt) {
-    bf16* Ks = smem + (kt & 1) * 2 * T::kRows;
-    stream_rows_bf16<D, P>(Ks, k + base, kt * kTile, s);
-    stream_rows_bf16<D, P>(Ks + T::kRows, v + base, kt * kTile, s);
-  };
-  stream_rows_bf16<D, P>(Qo, q + base, q0, s);
-  load_kv(0);
-  cp_async_commit();
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
-
-  for (int kt = 0; kt < kt_end; ++kt) {
-    if (kt + 1 < kt_end) load_kv(kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();   // tile kt (and Q) visible to every warp
-    const bf16* Ks = smem + (kt & 1) * 2 * T::kRows;
-    const bf16* Vs = Ks + T::kRows;
-    const int k0 = kt * kTile;
-
-    // S = Q K^T: 16 rows x 64 keys a warp; n-tile j is keys 8j .. 8j + 7
-    float sc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[j][i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      uint32_t a[4];
-      frag_a<P>(a, Qo, r0, c, lane);
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t b[4];
-        frag_bt<P>(b, Ks, j, c, lane);
-        mma_bf16(sc[j], a, b[0], b[1]);
-        mma_bf16(sc[j + 1], a, b[2], b[3]);
-      }
-    }
-
-    // scale, mask (diagonal and tail tiles), online softmax of rows
-    // r0 + g (h = 0) and r0 + g + 8 (h = 1)
-    const bool masked = k0 + kTile > s || (causal && k0 == q0);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = q0 + r0 + g + 8 * h;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = sc[j][2 * h + e];
-          x *= scale;
-          if (masked) {
-            const int col = k0 + 8 * j + 2 * t + e;
-            x = col < s && (!causal || col <= row) ? x : kNegInf;
-          }
-          mx = fmaxf(mx, x);
-        }
-      const float m_new = fmaxf(m[h], quad_max(mx));
-      const float alpha = expf(m[h] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = sc[j][2 * h + e];
-          x = expf(x - m_new);
-          rs += x;
-        }
-      l[h] = l[h] * alpha + quad_sum(rs);
-      m[h] = m_new;
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        acc[j][2 * h] *= alpha;
-        acc[j][2 * h + 1] *= alpha;
-      }
-    }
-
-    // acc += P V over the tile's 4 key chunks of 16
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint32_t a[4];
-      score_frag(a, sc[2 * c], sc[2 * c + 1]);
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t b[4];
-        frag_b<P>(b, Vs, c, j, lane);
-        mma_bf16(acc[j], a, b[0], b[1]);
-        mma_bf16(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();   // every warp is done with this buffer
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    if (row >= s) continue;
-    const float li = fmaxf(l[h], 1e-30f);
-    store_rows_bf16<D>(out + base, acc, row, h, t, 1.0f / li);
-    if (t == 0)
-      lse[static_cast<size_t>(blockIdx.x) * s + row] = m[h] + logf(li);
-  }
 }
 
 template <int D>
@@ -1129,156 +1051,514 @@ dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dk,
-                bf16* __restrict__ dv, int s, int causal, float scale) {
-  using T = Bf16Tiles<D>;
-  constexpr int P = T::P, KC = D / 16, DT = D / 8;
-  static_assert(kThreads == 2 * kTile, "one thread per lse/delta entry");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ko = reinterpret_cast<bf16*>(smem_raw + 2 * T::dkv_stage);
-  bf16* Vo = Ko + T::kRows;                   // own rows: K and V
+// ------------------------------------- bf16 forward and dkv: wgmma + TMA
+// Warp roles, stages and blocks an SM, as tools/torch_flash_ab.py timed
+// them side by side at b8 n12 s1024 d64 causal (H100 80GB HBM3, 700 W;
+// PERF.md): the forward with one consumer warpgroup a block, three
+// blocks an SM (ptxas held to 136 registers) and four stages 0.0516 ms,
+// level with bf16 SDPA's forward; three stages 0.0528, two 0.0613; two
+// blocks an SM 0.0732; two warpgroups a block (one block an SM) 0.0805.
+// With two stages the pipeline below lost to none (0.081 against 0.069
+// ms): a stage is released a tile later, so the next load waited. dkv
+// with one warpgroup, two blocks an SM and three stages 0.0858; two
+// stages 0.0922, four 0.0911, two warpgroups 0.0949; dkv's pipeline
+// held 224 registers (one block an SM) and ran 0.130-0.137, so dkv
+// waits for each tile's score products.
+constexpr int kFwdWarpgroups = 1;  // consumer warpgroups, 64 query rows each
+constexpr int kFwdStages = 4;      // K/V stages in the forward's ring
+constexpr int kFwdMinBlocks = 3;   // blocks an SM asked of ptxas at d <= 64
+constexpr int kDkvWarpgroups = 1;  // consumer warpgroups, 64 keys each
+constexpr int kDkvStages = 3;      // Q/dO/lse/delta stages in dkv's ring
+constexpr float kLog2e = 1.4426950408889634f;
 
-  // grid (batch*head, tile), heaviest causal tiles (the first keys) first
-  const int k0 = blockIdx.y * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.x) * s * D;
-  const size_t rbase = static_cast<size_t>(blockIdx.x) * s;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;                   // the warp's own keys
-
-  const int n_qt = (s + kTile - 1) / kTile;
-  const int qt_begin = causal ? blockIdx.y : 0;
-
-  // stage: Q [kTile][P], dO [kTile][P] (bf16), lse [kTile], delta [kTile]
-  auto stage = [&](int qt) {
-    return reinterpret_cast<bf16*>(smem_raw + (qt & 1) * T::dkv_stage);
-  };
-  auto load_q = [&](int qt) {
-    bf16* Qs = stage(qt);
-    const int q0 = qt * kTile;
-    stream_rows_bf16<D, P>(Qs, q + base, q0, s);
-    stream_rows_bf16<D, P>(Qs + T::kRows, dout + base, q0, s);
-    float* Ls = reinterpret_cast<float*>(Qs + 2 * T::kRows);
-    const int i = threadIdx.x % kTile;
-    const bool ok = q0 + i < s;
-    cp_async4(Ls + threadIdx.x,
-              (threadIdx.x < kTile ? lse : delta) + (ok ? rbase + q0 + i : 0),
-              ok);
-  };
-  stream_rows_bf16<D, P>(Ko, k + base, k0, s);
-  stream_rows_bf16<D, P>(Vo, v + base, k0, s);
-  load_q(qt_begin);
-  cp_async_commit();
-
-  float dka[DT][4], dva[DT][4];
+// Store rows r and r + 8 (h = 0, 1) of a warp's wgmma accumulators over
+// `NB` 64-column boxes, times `mul`, as bf16: the columns below D.
+template <int D, int NB>
+__device__ __forceinline__ void store_boxes(bf16* dst,
+                                            const float (&acc)[NB][32],
+                                            int row, int h, int t,
+                                            float mul) {
+  bf16* o = dst + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dka[j][i] = dva[j][i] = 0.0f;
-
-  for (int qt = qt_begin; qt < n_qt; ++qt) {
-    if (qt + 1 < n_qt) load_q(qt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Qs = stage(qt);
-    const bf16* Os = Qs + T::kRows;
-    const float* Ls = reinterpret_cast<const float*>(Qs + 2 * T::kRows);
-    const float* Ds = Ls + kTile;
-    const int q0 = qt * kTile;
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 queries a warp
-    float st[8][4], dpt[8][4];
+  for (int b = 0; b < NB; ++b)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      uint32_t ak[4], av[4];
-      frag_a<P>(ak, Ko, r0, c, lane);
-      frag_a<P>(av, Vo, r0, c, lane);
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t bq[4], bo[4];
-        frag_bt<P>(bq, Qs, j, c, lane);
-        frag_bt<P>(bo, Os, j, c, lane);
-        mma_bf16(st[j], ak, bq[0], bq[1]);
-        mma_bf16(st[j + 1], ak, bq[2], bq[3]);
-        mma_bf16(dpt[j], av, bo[0], bo[1]);
-        mma_bf16(dpt[j + 1], av, bo[2], bo[3]);
+      if (64 * b + 8 * j < D)
+        *reinterpret_cast<__nv_bfloat162*>(o + 64 * b + 8 * j) =
+            __floats2bfloat162_rn(acc[b][4 * j + 2 * h] * mul,
+                                  acc[b][4 * j + 2 * h + 1] * mul);
+}
+
+template <int D, int WG, int ST>
+struct FwdHopper {
+  static constexpr int NB = (D + 63) / 64;            // 64-column boxes
+  static constexpr int kQ = WG * NB * hopper::kBoxBytes;
+  static constexpr int kStage = 2 * NB * hopper::kBoxBytes;   // K, V
+  static constexpr int kThreads = 128 * WG + 32;
+  static constexpr int kMinBlocks = NB == 1 ? kFwdMinBlocks : 1;
+  static constexpr size_t bytes =
+      hopper::kSwizzleAlign + kQ + ST * kStage + 8 * (1 + 2 * ST);
+};
+
+template <int D, int WG, int ST>
+__global__ void __launch_bounds__(FwdHopper<D, WG, ST>::kThreads,
+                                  FwdHopper<D, WG, ST>::kMinBlocks)
+fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                bf16* __restrict__ out, float* __restrict__ lse, int s,
+                int causal, float scale) {
+  using namespace hopper;
+  using T = FwdHopper<D, WG, ST>;
+  constexpr int NB = T::NB, KS = D / 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align_swizzle(smem_raw);   // [WG][NB] boxes of Q
+  unsigned char* KV = Qs + T::kQ;                // [ST] stages: K, V boxes
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(KV + ST * T::kStage);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
+
+  // grid (batch*head, tile), heaviest causal tiles (the last rows) first
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64 * WG;
+  const int n_kt = (s + 63) / 64;
+  const int kt_end =
+      causal ? min(n_kt, (min(q0 + 64 * WG, s) - 1) / 64 + 1) : n_kt;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128 * WG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == WG) {   // the producer warp: one thread issues every load
+    if (threadIdx.x == 128 * WG) {
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      const int live = min(WG, (s - q0 + 63) / 64);  // warpgroups with rows
+      mbar_expect_tx(q_full, live * NB * kBoxBytes);
+      for (int w = 0; w < live; ++w)
+        for (int b = 0; b < NB; ++b)
+          tma_load_3d(Qs + (w * NB + b) * kBoxBytes, &tq, 64 * b,
+                      q0 + 64 * w, bh, q_full);
+      for (int kt = 0; kt < kt_end; ++kt) {
+        const int st = kt % ST, use = kt / ST;
+        if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+        unsigned char* Ks = KV + st * T::kStage;
+        mbar_expect_tx(&full[st], T::kStage);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(Ks + b * kBoxBytes, &tk, 64 * b, 64 * kt, bh,
+                      &full[st]);
+          tma_load_3d(Ks + (NB + b) * kBoxBytes, &tv, 64 * b, 64 * kt, bh,
+                      &full[st]);
+        }
       }
     }
+    return;
+  }
 
-    // p^T = exp(s^T * scale - lse[query]), ds^T = p^T (dp^T - delta)
-    auto p_ds = [&](auto masked) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int key = k0 + r0 + g + 8 * h;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * j + 2 * t + e;
-            float p = expf(st[j][2 * h + e] * scale - Ls[col]);
-            if constexpr (decltype(masked)::value) {
-              const int row = q0 + col;
-              p = row < s && key < s && (!causal || key <= row) ? p : 0.0f;
-            }
-            dpt[j][2 * h + e] = p * (dpt[j][2 * h + e] - Ds[col]);
-            st[j][2 * h + e] = p;
-          }
-      }
-    };
-    if (q0 + kTile > s || k0 + kTile > s || (causal && q0 == k0))
-      p_ds(std::true_type());
-    else
-      p_ds(std::false_type());
+  // a consumer warpgroup: rows qw .. qw + 63; warp w rows r0 and r0 + 8
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw = q0 + 64 * wg;
+  const int r0 = qw + 16 * warp + g;
+  const int kt_mine =
+      qw >= s ? 0 : causal ? min(kt_end, qw / 64 + 1) : kt_end;
+  const float sl2 = scale * kLog2e;   // raw scores to base-2 exponents
 
-    // dV += P^T dO and dK += dS^T Q over the tile's 4 query chunks
+  float o[NB][32];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[b][i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, alpha[2];
+  float sc[32];          // the scores, then p, of the newest tile
+  uint32_t pa[4][4];     // p of the tile whose P.V is next, bf16
+  const uint32_t qa = smem_u32(Qs + wg * NB * kBoxBytes);
+  auto stage = [&](int kt) { return smem_u32(KV + (kt % ST) * T::kStage); };
+
+  // S = Q K^T of tile kt: 64 rows x 64 keys, Q and K K-major in shared
+  // memory; issued, not waited for
+  auto scores = [&](int kt) {
+    const uint32_t ka = stage(kt);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const uint32_t off = (k / 4) * kBoxBytes + (k % 4) * 32;
+      wgmma_ss_n64(sc, desc_sw128(qa + off), desc_sw128(ka + off), k > 0);
+    }
+    wgmma_commit();
+  };
+  // P.V of tile kt; issued
+  auto pv = [&](int kt) {
+    const uint32_t va = stage(kt) + NB * kBoxBytes;
+    wgmma_fence();
+    // O += P V, P from registers, V MN-major: the tile's 4 key chunks
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      uint32_t ap[4], ad[4];
-      score_frag(ap, st[2 * c], st[2 * c + 1]);
-      score_frag(ad, dpt[2 * c], dpt[2 * c + 1]);
 #pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t bo[4], bq[4];
-        frag_b<P>(bo, Os, c, j, lane);
-        frag_b<P>(bq, Qs, c, j, lane);
-        mma_bf16(dva[j], ap, bo[0], bo[1]);
-        mma_bf16(dva[j + 1], ap, bo[2], bo[3]);
-        mma_bf16(dka[j], ad, bq[0], bq[1]);
-        mma_bf16(dka[j + 1], ad, bq[2], bq[3]);
-      }
+      for (int b = 0; b < NB; ++b)
+        wgmma_rs_n64_mn(o[b], pa[c],
+                        desc_sw128(va + b * kBoxBytes + c * 2048));
     }
-    __syncthreads();
+    wgmma_commit();
+  };
+  // mask (diagonal and tail tiles), then the online softmax in base 2
+  // of rows r0 (h = 0) and r0 + 8 (h = 1) over sc: m, l and alpha; l is
+  // this lane's share of the row sum, the quad's four added at the end.
+  // O is rescaled by alpha later, once no product writes it.
+  auto softmax = [&](int kt, auto masked) {
+    const int k0 = 64 * kt;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      float mx = m[h];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * h + e];
+          if constexpr (decltype(masked)::value) {
+            const int col = k0 + 8 * j + 2 * t + e;
+            x = col < s && (!causal || col <= row) ? x : kNegInf;
+          }
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = quad_max(mx);
+      const float base = m_new * sl2;
+      alpha[h] = exp2_ftz(fmaf(m[h], sl2, -base));
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * h + e];
+          x = exp2_ftz(fmaf(x, sl2, -base));
+          rs += x;
+        }
+      l[h] = l[h] * alpha[h] + rs;
+      m[h] = m_new;
+    }
+  };
+  auto softmax_of = [&](int kt) {
+    if (64 * kt + 64 > s || (causal && 64 * kt == qw))
+      softmax(kt, std::true_type());
+    else
+      softmax(kt, std::false_type());
+  };
+  auto rescale_and_pack = [&]() {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          o[b][4 * j + 2 * h] *= alpha[h];
+          o[b][4 * j + 2 * h + 1] *= alpha[h];
+        }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) score_frag(pa[c], sc + 8 * c, sc + 8 * c + 4);
+  };
+  auto drain = [&]() {   // every product of this warpgroup done
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(o[b]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) fence_regs(pa[c]);
+  };
+  auto full_wait = [&](int kt) { mbar_wait(&full[kt % ST], (kt / ST) & 1); };
+
+  // The pipeline (one warpgroup): tile kt's scores are issued before
+  // tile kt - 1's P.V, so the softmax of kt runs while P.V of kt - 1 is
+  // on the tensor cores; a stage is released once its P.V is done.
+  // Tiles kt_mine .. kt_end - 1 lie wholly above this warpgroup's
+  // diagonal: released unread.
+  mbar_wait(q_full, 0);
+  if (kt_mine > 0) {
+    full_wait(0);
+    scores(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_of(0);
+    rescale_and_pack();
+    for (int kt = 1; kt < kt_mine; ++kt) {
+      full_wait(kt);
+      scores(kt);
+      pv(kt - 1);
+      wgmma_wait<1>();   // the scores of kt; P.V of kt - 1 may run on
+      fence_regs(sc);
+      softmax_of(kt);
+      drain();
+      mbar_arrive(&empty[(kt - 1) % ST]);
+      rescale_and_pack();
+    }
+    pv(kt_mine - 1);
+    drain();
+    mbar_arrive(&empty[(kt_mine - 1) % ST]);
   }
-  cp_async_wait<0>();
+  for (int kt = kt_mine; kt < kt_end; ++kt) {
+    full_wait(kt);
+    mbar_arrive(&empty[kt % ST]);
+  }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int key = k0 + r0 + g + 8 * h;
+    const int row = r0 + 8 * h;
+    const float li = fmaxf(quad_sum(l[h]), 1e-30f);
+    if (row >= s) continue;
+    store_boxes<D, NB>(out + static_cast<size_t>(bh) * s * D, o, row, h, t,
+                       1.0f / li);
+    if (t == 0)
+      lse[static_cast<size_t>(bh) * s + row] = m[h] * scale + logf(li);
+  }
+}
+
+template <int D, int WG, int ST>
+struct DkvHopper {
+  static constexpr int NB = (D + 63) / 64;            // 64-column boxes
+  // streamed queries a stage: at d > 64 the four accumulators of a
+  // 64 x 64 tile (dK and dV 64 registers each, S^T and dP^T 32) leave
+  // too few of a thread's 255 registers; 32 queries halve S^T and dP^T
+  static constexpr int BQ = NB == 1 ? 64 : 32;
+  static constexpr int kQBox = BQ * 128;               // a box of BQ rows
+  static constexpr int kOwn = WG * 2 * NB * hopper::kBoxBytes;   // K, V
+  static constexpr int kStage = 2 * NB * kQBox;        // Q, dO
+  static constexpr int kRows = 2 * BQ * 4;             // lse, delta
+  static constexpr int kThreads = 128 * WG + 32;
+  static constexpr size_t bytes = hopper::kSwizzleAlign + kOwn +
+                                  ST * (kStage + kRows) + 8 * (1 + 2 * ST);
+};
+
+// One k-step of d = A.B (+ d), N = 64 or 32 (the accumulator's size)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (N == 64)
+    hopper::wgmma_ss_n64(d, a, b, accumulate);
+  else
+    hopper::wgmma_ss_n32(d, a, b, accumulate);
+}
+
+template <int D, int WG, int ST>
+__global__ void __launch_bounds__(DkvHopper<D, WG, ST>::kThreads)
+dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, int s, int causal, float scale) {
+  using namespace hopper;
+  using T = DkvHopper<D, WG, ST>;
+  constexpr int NB = T::NB, BQ = T::BQ, KS = D / 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Own = align_swizzle(smem_raw);  // [WG][K, V][NB] boxes
+  unsigned char* QO = Own + T::kOwn;             // [ST] stages: Q, dO
+  float* Rows = reinterpret_cast<float*>(QO + ST * T::kStage);  // lse, delta
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(Rows + ST * 2 * BQ);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + ST;
+
+  // grid (batch*head, tile), heaviest causal tiles (the first keys) first
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * 64 * WG;
+  const int n_qt = (s + BQ - 1) / BQ;
+  const int qt_begin = causal ? k0 / BQ : 0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1 + 32);   // the TMA thread, the lanes' cp.async
+      mbar_init(&empty[i], 128 * WG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == WG) {   // the producer warp
+    const int lane = threadIdx.x & 31;
+    const size_t rbase = static_cast<size_t>(bh) * s;
+    if (lane == 0) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tdo);
+      const int live = min(WG, (s - k0 + 63) / 64);  // warpgroups with keys
+      mbar_expect_tx(own_full, live * 2 * NB * kBoxBytes);
+      for (int w = 0; w < live; ++w)
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(Own + (2 * w * NB + b) * kBoxBytes, &tk, 64 * b,
+                      k0 + 64 * w, bh, own_full);
+          tma_load_3d(Own + ((2 * w + 1) * NB + b) * kBoxBytes, &tv, 64 * b,
+                      k0 + 64 * w, bh, own_full);
+        }
+    }
+    for (int qt = qt_begin, i = 0; qt < n_qt; ++qt, ++i) {
+      const int st = i % ST, use = i / ST;
+      if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+      const int q0 = qt * BQ;
+      if (lane == 0) {   // one thread: the Q and dO boxes by TMA
+        unsigned char* Qs = QO + st * T::kStage;
+        mbar_expect_tx(&full[st], T::kStage);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(Qs + b * T::kQBox, &tq, 64 * b, q0, bh, &full[st]);
+          tma_load_3d(Qs + (NB + b) * T::kQBox, &tdo, 64 * b, q0, bh,
+                      &full[st]);
+        }
+      }
+      // the warp: the tile's lse and delta rows by cp.async, zeros past
+      // s, each lane's copies landing on the same barrier
+      float* R = Rows + st * 2 * BQ;
+      for (int e = lane; e < 2 * BQ; e += 32) {
+        const int r = e % BQ;
+        const bool ok = q0 + r < s;
+        cp_async4(R + e, (e < BQ ? lse : delta) + (ok ? rbase + q0 + r : 0),
+                  ok);
+      }
+      mbar_arrive_cp_async(&full[st]);
+    }
+    return;
+  }
+
+  // a consumer warpgroup: keys kw .. kw + 63; warp w keys key0, key0 + 8
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw = k0 + 64 * wg;
+  const int key0 = kw + 16 * warp + g;
+  const float sl2 = scale * kLog2e;   // raw scores to base-2 exponents
+
+  float dka[NB][32], dva[NB][32];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[b][i] = dva[b][i] = 0.0f;
+  const uint32_t ka = smem_u32(Own + 2 * wg * NB * kBoxBytes);
+  const uint32_t va = ka + NB * kBoxBytes;
+  mbar_wait(own_full, 0);
+
+  for (int qt = qt_begin, i = 0; qt < n_qt; ++qt, ++i) {
+    const int st = i % ST;
+    mbar_wait(&full[st], (i / ST) & 1);
+    const int q0 = qt * BQ;
+    // else every query of the tile is before every key of this warpgroup
+    if (kw < s && (!causal || q0 + BQ > kw)) {
+      const uint32_t qa = smem_u32(QO + st * T::kStage);
+      const uint32_t oa = qa + NB * T::kQBox;
+      const float* Ls = Rows + st * 2 * BQ;
+      const float* Ds = Ls + BQ;
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x BQ queries, all four
+      // operands K-major in shared memory
+      float sT[BQ / 2], dpT[BQ / 2];
+#pragma unroll
+      for (int x = 0; x < BQ / 2; ++x) sT[x] = dpT[x] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        const uint32_t oa_k = (k / 4) * kBoxBytes + (k % 4) * 32;
+        const uint32_t ob_k = (k / 4) * T::kQBox + (k % 4) * 32;
+        wgmma_ss<BQ>(sT, desc_sw128(ka + oa_k), desc_sw128(qa + ob_k), k > 0);
+        wgmma_ss<BQ>(dpT, desc_sw128(va + oa_k), desc_sw128(oa + ob_k), k > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sT);
+      fence_regs(dpT);
+
+      // p^T = 2^(s^T * scale * log2(e) - lse[query] * log2(e)),
+      // ds^T = p^T (dp^T - delta[query]); masked p = 0, where only the
+      // diagonal tile and the tail tiles have masked pairs
+      auto p_ds = [&](auto masked) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int key = key0 + 8 * h;
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * j + 2 * t + e;
+              const int x = 4 * j + 2 * h + e;
+              float p = exp2_ftz(fmaf(sT[x], sl2, -Ls[col] * kLog2e));
+              if constexpr (decltype(masked)::value) {
+                const int row = q0 + col;
+                p = row < s && key < s && (!causal || key <= row) ? p : 0.0f;
+              }
+              dpT[x] = p * (dpT[x] - Ds[col]);
+              sT[x] = p;
+            }
+        }
+      };
+      if (q0 + BQ > s || kw + 64 > s || (causal && q0 < kw + 63))
+        p_ds(std::true_type());
+      else
+        p_ds(std::false_type());
+
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int c = 0; c < BQ / 16; ++c) {
+        score_frag(pa[c], sT + 8 * c, sT + 8 * c + 4);
+        score_frag(da[c], dpT + 8 * c, dpT + 8 * c + 4);
+      }
+      wgmma_fence();
+      // dV += P^T dO and dK += dS^T Q, dO and Q MN-major: the tile's
+      // query chunks of 16
+#pragma unroll
+      for (int c = 0; c < BQ / 16; ++c) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          wgmma_rs_n64_mn(dva[b], pa[c],
+                          desc_sw128(oa + b * T::kQBox + c * 2048));
+          wgmma_rs_n64_mn(dka[b], da[c],
+                          desc_sw128(qa + b * T::kQBox + c * 2048));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        fence_regs(dka[b]);
+        fence_regs(dva[b]);
+      }
+#pragma unroll
+      for (int c = 0; c < BQ / 16; ++c) {
+        fence_regs(pa[c]);
+        fence_regs(da[c]);
+      }
+    }
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
     if (key >= s) continue;
-    store_rows_bf16<D>(dk + base, dka, key, h, t, scale);
-    store_rows_bf16<D>(dv + base, dva, key, h, t, 1.0f);
+    store_boxes<D, NB>(dk + static_cast<size_t>(bh) * s * D, dka, key, h, t,
+                       scale);
+    store_boxes<D, NB>(dv + static_cast<size_t>(bh) * s * D, dva, key, h, t,
+                       1.0f);
   }
 }
 
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t st,
-           Args... args) {
+int launch_threads(Kernel kernel, size_t smem, dim3 grid, int threads,
+                   cudaStream_t st, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, st>>>(args...);
+  kernel<<<grid, threads, smem, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The mma.sync kernels: kThreads a block.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t st,
+           Args... args) {
+  return launch_threads(kernel, smem, grid, kThreads, st, args...);
 }
 
 int n_tiles(int s) { return (s + kTile - 1) / kTile; }
@@ -1363,15 +1643,22 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               int causal, float scale, void* stream) {
   if (bh <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* qp = static_cast<const bf16*>(q);
-  auto* kp = static_cast<const bf16*>(k);
-  auto* vp = static_cast<const bf16*>(v);
+  CUtensorMap tq, tk, tv;   // encoded per launch: the pointers move
+  if (!hopper::encode_rows_bf16(&tq, q, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows_bf16(&tk, k, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows_bf16(&tv, v, bh, s, d, hopper::kBox))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto* op = static_cast<bf16*>(out);
   auto* lp = static_cast<float*>(lse);
+  constexpr int rows = 64 * kFwdWarpgroups;   // query rows a block
 #define PTT_CALL(DD)                                                       \
-  return launch(fwd_bf16_kernel<DD>, Bf16Tiles<DD>::fwd_bytes,             \
-                dim3(bh, n_tiles(s)), st, qp, kp, vp, op, lp, s, causal,   \
-                scale)
+  {                                                                        \
+    using T = FwdHopper<DD, kFwdWarpgroups, kFwdStages>;                   \
+    return launch_threads(fwd_bf16_kernel<DD, kFwdWarpgroups, kFwdStages>, \
+                          T::bytes, dim3(bh, (s + rows - 1) / rows),       \
+                          T::kThreads, st, tq, tk, tv, op, lp, s, causal,  \
+                          scale);                                          \
+  }
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
 }
@@ -1404,18 +1691,28 @@ extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
                               void* stream) {
   if (bh <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* qp = static_cast<const bf16*>(q);
-  auto* kp = static_cast<const bf16*>(k);
-  auto* vp = static_cast<const bf16*>(v);
-  auto* dop = static_cast<const bf16*>(dout);
+  // the streamed Q and dO boxes are the kernel's BQ rows (DkvHopper)
+  const int bq = d > 64 ? 32 : 64;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hopper::encode_rows_bf16(&tq, q, bh, s, d, bq) ||
+      !hopper::encode_rows_bf16(&tk, k, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows_bf16(&tv, v, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows_bf16(&tdo, dout, bh, s, d, bq))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto* lp = static_cast<const float*>(lse);
   auto* dp = static_cast<const float*>(delta);
   auto* dkp = static_cast<bf16*>(dk);
   auto* dvp = static_cast<bf16*>(dv);
+  constexpr int keys = 64 * kDkvWarpgroups;   // keys a block
 #define PTT_CALL(DD)                                                       \
-  return launch(dkv_bf16_kernel<DD>, Bf16Tiles<DD>::dkv_bytes,             \
-                dim3(bh, n_tiles(s)), st, qp, kp, vp, dop, lp, dp, dkp,    \
-                dvp, s, causal, scale)
+  {                                                                        \
+    using T = DkvHopper<DD, kDkvWarpgroups, kDkvStages>;                   \
+    static_assert(T::BQ == (DD > 64 ? 32 : 64), "bq above");               \
+    return launch_threads(dkv_bf16_kernel<DD, kDkvWarpgroups, kDkvStages>, \
+                          T::bytes, dim3(bh, (s + keys - 1) / keys),       \
+                          T::kThreads, st, tq, tk, tv, tdo, lp, dp, dkp,   \
+                          dvp, s, causal, scale);                          \
+  }
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
 }

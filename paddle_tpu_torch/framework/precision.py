@@ -3,9 +3,12 @@ XLA takes a precision per op where cuBLAS reads process-wide flags).
 
 ``matmul_precision(dtype)`` sets PyTorch's cuBLAS and cuDNN flags for a
 model of ``dtype`` and restores the caller's on exit; it works as a
-``with`` block or as a decorator. The models enter it themselves, in the
-forward and (``models/gpt.py`` ``gemm``) in the backward, so what a
-caller set process-wide does not change their numerics:
+``with`` block or as a decorator. The models enter it themselves, so
+what a caller set process-wide does not change their numerics: each
+forward inside a ``with`` block, and the GPT backward through one
+identity node on the logits (``models/gpt.py`` ``_BackwardPrecision``),
+which enters the settings as the backward pass starts and restores the
+caller's when the pass ends, successful or raising (``_RestoreAtEnd``):
 
 - "float32": TF32 off for matmuls, so an fp32 product on the card is
   an fp32 product, as the reference computes it;

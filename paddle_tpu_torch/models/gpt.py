@@ -189,11 +189,30 @@ _PARALLEL = "ROADMAP Queue A, 'parallelism'"
 _DTYPES = "ROADMAP Queue A, 'other dtypes'"
 
 
+class _RestoreAtEnd:
+    """Leaves an entered ``matmul_precision`` once. The engine calls it
+    at the end of a backward pass that succeeds (a final callback, as DDP
+    queues its own). When a node raises, the engine runs no final
+    callback, but it frees the pass's queued callbacks with the pass, and
+    that frees this object: ``__del__`` leaves the settings then, before
+    ``backward()`` hands the error to its caller."""
+
+    def __init__(self, settings: matmul_precision):
+        self._settings = settings
+
+    def __call__(self):
+        settings, self._settings = self._settings, None
+        if settings is not None:
+            settings.__exit__(None, None, None)
+
+    __del__ = __call__
+
+
 class _BackwardPrecision(torch.autograd.Function):
     """Identity on the logits. Its backward, the first node of a backward
     pass from them, enters ``matmul_precision(dtype)`` for every GEMM of
-    that pass, and queues the restore of the caller's settings for the
-    pass's end (the engine's final callback, as DDP queues its own)."""
+    that pass and hands the restore of the caller's settings to the
+    pass's end (``_RestoreAtEnd``), whether the pass succeeds or raises."""
 
     @staticmethod
     def forward(ctx, x, dtype):
@@ -205,7 +224,7 @@ class _BackwardPrecision(torch.autograd.Function):
         settings = matmul_precision(ctx.dtype)
         settings.__enter__()
         torch.autograd.Variable._execution_engine.queue_callback(
-            lambda: settings.__exit__(None, None, None))
+            _RestoreAtEnd(settings))
         return dy, None
 
 

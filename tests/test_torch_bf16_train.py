@@ -19,8 +19,10 @@ than the reference's own bf16 flash tolerance, 2e-2,
   (2e-2 of its magnitude plus 1.6e-2 of its row's RMS plus 1e-5; the
   largest diff / limit measured 0.176, max abs 9.8e-4, one bf16 ulp).
 - The bf16 kernels' rounding, modelled on the CPU (b1 n2 s1024 d64,
-  causal and full): p and ds rounded to bf16 before their second
-  products (one pass, what the kernels do) within ``flash_bf16_limit``
+  causal and full): p as each kernel computes it (the forward and dkv
+  ``exp2`` of the raw scores times ``scale * log2(e)``, dq ``exp``), p
+  and ds rounded to bf16 before their second products (one pass, what
+  the kernels do) within ``flash_bf16_limit``
   of the plain versions (largest diff / limit measured 0.392-0.487; a
   hi + lo split in two passes 0.206-0.283); the same model with keys
   0-15 left out of P.V and dS.K and queries 0-15 out of P^T.dO and
@@ -71,7 +73,10 @@ than the reference's own bf16 flash tolerance, 2e-2,
   ``loss.backward()``, bf16 and fp32, runs at its dtype's settings
   (``framework/precision.py``) while the caller has set the opposite
   process-wide, and the caller's flags are back afterwards; the fp32
-  serving steps and BERT forward run with TF32 off the same way.
+  serving steps and BERT forward run with TF32 off the same way. A bf16
+  backward that raises (a hook on the word-embedding gradient, after
+  the logits' node entered bf16's settings) leaves the caller's flags
+  as they were, from a bare ``loss.backward()`` and from ``TrainStep``.
 - What stays out raises ``NotImplementedError`` naming its ROADMAP
   item: float16, bf16 serving, bf16 BERT, bf16 on the gradient wire.
 
@@ -118,6 +123,7 @@ BLOCK_TOL = 1e-2
 LOGIT_TOL = 1e-2
 LOSS_RTOL = 3e-4
 LR = 1e-3
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 
 
 def _bits(t: torch.Tensor) -> np.ndarray:
@@ -213,10 +219,14 @@ def _rounding_model(q, k, v, do, causal, passes=1, drop=None):
     (``csrc/flash_attention.cu`` ``*_bf16``): bf16 products summed in
     fp32, and the fp32 p and ds rounded to bf16 before their second
     product (``passes=1``), or split into a bf16 high and low part
-    (``passes=2``). Whole-row softmax: the kernels' tile order is not
-    modelled. ``drop`` leaves a slice of keys out of P.V and dS.K and the
-    same slice of queries out of P^T.dO and dS^T.Q: a kernel that skips a
-    16-wide chunk of a tile."""
+    (``passes=2``). p as each kernel computes it: the forward and dkv
+    take ``exp2`` of the raw scores times ``scale * log2(e)`` in fp32
+    (the forward less its row maximum so scaled, dkv less ``lse *
+    log2(e)``), dq ``exp`` of the scaled scores less lse. Whole-row
+    softmax: the kernels' tile order is not modelled. ``drop`` leaves a
+    slice of keys out of P.V and dS.K and the same slice of queries out
+    of P^T.dO and dS^T.Q: a kernel that skips a 16-wide chunk of a
+    tile."""
     def rnd(x):
         return x.bfloat16().float()
 
@@ -225,13 +235,15 @@ def _rounding_model(q, k, v, do, causal, passes=1, drop=None):
 
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     scale = 1.0 / math.sqrt(q.shape[-1])
+    sl2 = torch.tensor(scale, dtype=torch.float32) * LOG2E
     out, lse = tfa.flash_fwd_plain(q, k, v, causal)
     delta = (dof * out.float()).sum(-1, keepdim=True)
-    sc = tfa._masked((qf @ kf.transpose(-1, -2)) * scale, causal)
-    e = torch.exp(sc - sc.amax(-1, keepdim=True))
-    p = torch.exp(sc - lse)
-    ds = p * (dof @ vf.transpose(-1, -2) - delta)
-    pk, dsk, pq, dsq = e.clone(), ds.clone(), p.clone(), ds.clone()
+    raw = tfa._masked(qf @ kf.transpose(-1, -2), causal)
+    e = torch.exp2(raw * sl2 - raw.amax(-1, keepdim=True) * sl2)
+    p = torch.exp(raw * scale - lse)
+    p2 = torch.exp2(raw * sl2 - lse * LOG2E)
+    dp = dof @ vf.transpose(-1, -2) - delta
+    pk, dsk, pq, dsq = e.clone(), p * dp, p2.clone(), p2 * dp
     if drop is not None:
         pk[..., drop] = dsk[..., drop] = 0.0
         pq[..., drop, :] = dsq[..., drop, :] = 0.0
@@ -573,6 +585,45 @@ def _gemm_settings_case(dtype):
     assert len(inside) == 2 and set(inside) == {fp32_off}, inside
 
 
+class _PlantedError(RuntimeError):
+    pass
+
+
+def check_gemm_settings_restored_after_a_failed_backward():
+    """A bf16 backward that raises leaves the caller's three GEMM flags as
+    it found them, from a bare ``loss.backward()`` and from ``TrainStep``:
+    the caller sets the opposite of bf16's settings, and a hook on the
+    word-embedding gradient, a node that runs after the logits' identity
+    node has entered bf16's, raises."""
+    saved = _flags()
+    caller = (False, True, True)    # bf16's: (True, False, False)
+    try:
+        cfg = gpt_presets("gpt-test", **BF16)
+        model = GPTForCausalLM(cfg, seed=0, device="cpu")
+        seen = []
+
+        def fail(grad):
+            seen.append(_flags())
+            raise _PlantedError("planted")
+
+        model.gpt.embeddings.word_embeddings.register_hook(fail)
+        ids, labels = _batch(5)
+        step = TrainStep(model, GPTPretrainingCriterion(),
+                         AdamW(parameters=model.parameters()))
+        _set_flags(caller)
+        loss = GPTPretrainingCriterion()(model(torch.from_numpy(ids)),
+                                         torch.from_numpy(labels))
+        with pytest.raises(_PlantedError):
+            loss.backward()
+        assert _flags() == caller, _flags()
+        with pytest.raises(_PlantedError):
+            step(inputs=(ids,), labels=(labels,))
+        assert _flags() == caller, _flags()
+        assert seen == [(True, False, False)] * 2, seen
+    finally:
+        _set_flags(saved)
+
+
 def check_unported_paths_raise():
     """What stays out of this slice raises, naming its ROADMAP item: a
     dtype other than fp32 and bf16, bf16 serving, bf16 BERT, and bf16
@@ -620,5 +671,6 @@ def test_bf16_train_port_matches_reference(fresh_mesh):
         (check_accumulation_is_fp32, ()),
         (check_gemm_settings_are_the_models, ("bfloat16",)),
         (check_gemm_settings_are_the_models, ("float32",)),
+        (check_gemm_settings_restored_after_a_failed_backward, ()),
         (check_unported_paths_raise, ()),
     ])

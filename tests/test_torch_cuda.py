@@ -36,7 +36,8 @@ the step on every element whose
 gradient is clear of the card-vs-CPU gradient noise within 1e-2 lr of
 the CPU's and at least 0.9 lr); the same in bf16: loss within ``BF16_LOSS_RTOL`` (1e-4)
 relative, then ``bf16_step_parity``, and the step through the planted
-flash fault over that loss limit (the control). ``quantize_int8`` bit-identical to its
+flash fault over that loss limit (the control); a bf16 backward that
+raises leaves the caller's GEMM flags as they were. ``quantize_int8`` bit-identical to its
 plain version, nearest and stochastic; ``quant_matmul`` within
 ``2 k 2^-24 (|x| @ |q|) s`` of its plain version elementwise (two fp32
 dot products of length k summed in different orders), at every row-tile
@@ -343,15 +344,16 @@ def check_flash_kernels_match_plain(dev, s, d, causal, dtype=torch.float32):
 # A planted fault in the bf16 flash kernels: each skips the first 16-wide
 # chunk of its first streamed tile in its second products (keys 0-15 of
 # P.V and dS.K, queries 0-15 of P^T.dO and dS^T.Q), which moves a long
-# causal row of out or dq by a few 1e-3.
+# causal row of out or dq by a few 1e-3. The forward and dkv issue those
+# products as wgmma on 16-key (16-query) chunks, dq as mma.sync.
 _BF16_SECTION = "// ------------------------------------------------------------ bf16 forms"
 _FLASH_FAULTS = (
-    ("// acc += P V over the tile's 4 key chunks of 16\n#pragma unroll\n"
-     "    for (int c = 0; c < 4; ++c) {", "kt == 0"),
+    ("// O += P V, P from registers, V MN-major: the tile's 4 key chunks\n"
+     "#pragma unroll\n    for (int c = 0; c < 4; ++c) {", "kt == 0"),
     ("// dQ += dS K over the tile's 4 key chunks\n#pragma unroll\n"
      "    for (int c = 0; c < 4; ++c) {", "kt == 0"),
-    ("over the tile's 4 query chunks\n#pragma unroll\n"
-     "    for (int c = 0; c < 4; ++c) {", "qt == 0"))
+    ("// query chunks of 16\n#pragma unroll\n"
+     "      for (int c = 0; c < BQ / 16; ++c) {", "qt == 0"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -588,6 +590,45 @@ def check_bf16_train_step_on_card_matches_cpu(dev):
         "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "fused_update": 1}
 
 
+class _PlantedError(RuntimeError):
+    pass
+
+
+def check_bf16_failed_backward_restores_flags(dev):
+    """A bf16 GPT backward on the card that raises (a hook on the
+    word-embedding gradient, a node after the logits' node entered bf16's
+    GEMM settings) leaves the caller's three flags as they were, on each
+    of 20 runs: the engine frees the failed pass, on its device thread or
+    the caller's, before ``backward()`` raises."""
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+
+    def flags():
+        return (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+                dnn.allow_tf32)
+
+    def fail(grad):
+        raise _PlantedError("planted")
+
+    saved = flags()
+    caller = (False, True, True)    # bf16's: (True, False, False)
+    model = GPTForCausalLM(gpt_presets("gpt-test", dtype="bfloat16"),
+                           seed=0, device=dev)
+    model.gpt.embeddings.word_embeddings.register_hook(fail)
+    ids = torch.randint(0, 256, (2, 32), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+    try:
+        (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+         dnn.allow_tf32) = caller
+        for _ in range(20):
+            loss = GPTPretrainingCriterion()(model(ids), ids)
+            with pytest.raises(_PlantedError):
+                loss.backward()
+            assert flags() == caller, flags()
+    finally:
+        (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+         dnn.allow_tf32) = saved
+
+
 def check_new_wrappers_raise(dev):
     q = torch.randn(1, 2, 8, 16, device=dev)
     for bad in (torch.randn(1, 2, 8, 8, device=dev),
@@ -746,6 +787,9 @@ def test_cuda_path_matches_plain(dev):
            for c in (True, False)]
         + [(check_flash_kernels_match_plain, (dev, s, d, c, torch.bfloat16))
            for s, d in ((1, 16), (37, 16), (64, 64), (130, 64), (77, 96),
+                        # TMA boxes of 64 columns: part of the first (d =
+                        # 48) or the second (d = 112) past the end
+                        (100, 48), (77, 112), (1000, 112),
                         *((s, d) for s in (1, 63, 1000, 1024)
                           for d in (16, 64, 128)))
            for c in (True, False)]
@@ -759,6 +803,7 @@ def test_cuda_path_matches_plain(dev):
            for wd in (0.0, 0.01) for n in (1, 4097, 100003)]
         + [(check_train_step_on_card_matches_cpu, (dev,)),
            (check_bf16_train_step_on_card_matches_cpu, (dev,)),
+           (check_bf16_failed_backward_restores_flags, (dev,)),
            (check_new_wrappers_raise, (dev,))]
         + [(check_buckets_bit_identical, (dev, k, sizes, wds, lms))
            for k in ("sgd", "momentum", "adam", "adamw")
