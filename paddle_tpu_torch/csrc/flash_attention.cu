@@ -113,22 +113,15 @@
 // bf16 dense: 0.013 ms forward, 0.020 dq, 0.026 dkv of operations
 // against 0.0151 / 0.019 / 0.023 ms of bytes (PERF.md).
 //
-// flash_dq_bf16 keeps the fp32 kernels' tile walk on mma.sync m16n8k16:
-// 4 warps x 16 own rows, 64-row streamed tiles double-buffered by
-// cp.async, grid (batch*head, tile) heaviest tile first, masks only on
-// the diagonal and tail tiles, a score's accumulator the next product's
-// A operand in registers (the m16n8k16 A fragment of key chunk c is the
-// C fragments of key tiles 2c and 2c + 1, packed in pairs), tiles bf16
-// in shared memory at a row pitch of d + 8 elements read by ldmatrix
-// (.trans for a tile whose rows are the product's k: K in dS.K).
-//
-// flash_fwd_bf16 (replaces _fwd_kernel, flash_attention.py:118) and
-// flash_dkv_bf16 (_dkv_kernel, :251) are Hopper's own design
+// The three bf16 kernels, flash_fwd_bf16 (replaces _fwd_kernel,
+// flash_attention.py:118), flash_dq_bf16 (_dq_kernel, :213) and
+// flash_dkv_bf16 (_dkv_kernel, :251), are Hopper's own design
 // (hopper.cuh): TMA, mbarriers and wgmma. What bounds them at the
 // training shape: the forward 0.0151 ms of bytes (q, k, v in, out and
-// lse out) against 0.0130 ms of operations, dkv 0.0261 ms of operations
-// against 0.0228 of bytes; the mma.sync kernels before them ran 5.8x
-// and 5.3x those bounds. Design, both:
+// lse out) against 0.0130 ms of operations, dq 0.0196 ms of operations
+// against 0.0190 of bytes, dkv 0.0261 ms of operations against 0.0228 of
+// bytes; the mma.sync kernels before them ran 5.3-5.8x those bounds.
+// Design, all three:
 // - warp roles: one producer warp, whose one thread issues every TMA
 //   load, keeps a ring of stages in flight; consumer warpgroups of 128
 //   threads run wgmma m64n64k16 (dkv's score products at d > 64:
@@ -140,9 +133,11 @@
 //   32, 48; 80, 96, 112 in the second box) arrive from TMA as zeros, so
 //   there are no masked copies; the padded columns multiply zeros.
 // - the score accumulator becomes the second product's A operand in
-//   registers (wgmma's RS form), rounded to bf16; V, dO and Q are that
-//   product's B operand as they lie, MN-major (the descriptor's
-//   transpose bit), with no transposed copy.
+//   registers (wgmma's RS form), rounded to bf16; V, K, dO and Q are
+//   that product's B operand as they lie, MN-major (the descriptor's
+//   transpose bit), with no transposed copy. dq reads each K box twice
+//   in place, K-major as the B of S = Q K^T and MN-major as the B of
+//   dQ += dS K, as dkv reads its Q box.
 // - the forward's pipeline (FlashAttention-3's overlap inside a
 //   warpgroup): wgmma is asynchronous, so a warpgroup issues tile j's
 //   scores, then tile j - 1's P.V, and computes tile j's softmax while
@@ -152,28 +147,34 @@
 //   forward is bound by latency, not by either unit: it gains with the
 //   warpgroups resident an SM and the stages in flight (below).
 // - 2^x on the special-function unit (ex2.approx.ftz) of the scores
-//   times scale * log2(e), lse returned in the natural log; grid
-//   (batch*head, tile), heaviest causal tile first; masks only on the
-//   diagonal and tail tiles.
+//   times scale * log2(e), less lse * log2(e) in the backward, lse
+//   returned in the natural log; grid (batch*head, tile), heaviest
+//   causal tile first; masks only on the diagonal and tail tiles.
 // - every output element has one owner (a consumer thread of one
 //   block), no atomics: a launch repeats its bits.
 // Forward: a block holds kFwdWarpgroups x 64 query rows, loaded once;
 // K and V stream through kFwdStages stages of 64 keys; a warpgroup
 // skips (but releases) a tile wholly above its own diagonal. The online
 // softmax keeps each lane's share of the row sum, the quad's four added
-// at the end. dkv: a block holds kDkvWarpgroups x 64 keys of K and V;
-// Q and dO (TMA) and their lse and delta rows (cp.async by the producer
-// warp's lanes, landing on the stage's barrier: a 1-D tensor map of the
-// [bh * s] vector is refused without strides, and a one-row 2-D fp32
-// map encodes but its load stops the kernel with an illegal
-// instruction, H100, CUDA 12.8) stream through kDkvStages stages of BQ
-// queries: 64 at d <= 64; 32 at d > 64, where dK and dV take 64
-// registers each and a 64-query S^T and dP^T 32 each, too many for a
-// thread's 255 beside the rest (a 32-query tile keeps S^T and dP^T at
-// 16).
+// at the end. dq: the forward's shape with dkv's second score product
+// and no online softmax: a block holds 64 query rows of Q and dO, loaded
+// once, and each consumer thread its two rows' lse and delta in
+// registers; K and V stream through kDqStages stages of 64 keys, up to
+// the diagonal tile; per tile S = Q K^T and dP = dO V^T, then p and dS
+// in registers, then dQ += dS K. dkv: a block holds kDkvWarpgroups x
+// 64 keys of K and V; Q and dO (TMA) and their lse and delta rows
+// (cp.async by the producer warp's lanes, landing on the stage's
+// barrier: a 1-D tensor map of the [bh * s] vector is refused without
+// strides, and a one-row 2-D fp32 map encodes but its load stops the
+// kernel with an illegal instruction, H100, CUDA 12.8) stream through
+// kDkvStages stages of BQ queries: 64 at d <= 64; 32 at d > 64, where
+// dK and dV take 64 registers each and a 64-query S^T and dP^T 32 each,
+// too many for a thread's 255 beside the rest (a 32-query tile keeps
+// S^T and dP^T at 16).
 // -Xptxas -v (sm_90a, CUDA 12.8; tools/torch_flash_ab.py prints it):
 // forward 122-128 registers a thread at d <= 64, 164-180 above; dkv
-// 167-168 at d <= 64 (two blocks an SM), 201-203 above; no spills.
+// 167-168 at d <= 64 (two blocks an SM), 201-203 above; dq 128 at
+// d <= 64 (three blocks an SM), 158-160 above; no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -815,74 +816,14 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ------------------------------------------------------------ bf16 forms
 using bf16 = __nv_bfloat16;
 
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulators.
-// Fragments (lane = 4 g + t): a0 (row g, k 2t..2t+1), a1 (g + 8, 2t..),
-// a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); b0 (k 2t..2t+1, col g), b1
-// (k 2t + 8.., col g); c0, c1 (row g, cols 2t, 2t + 1), c2, c3 (g + 8).
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lanes 8i .. 8i + 7 give
-// the row addresses of matrix i, and r[i] gets (row g, cols 2t, 2t + 1)
-// of it, or with .trans (rows 2t, 2t + 1, col g).
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// A fragment of rows [r0, r0 + 16) x columns [16c, 16c + 16) of a tile at
-// pitch P.
-template <int P>
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* tile, int r0,
-                                       int c, int lane) {
-  const int i = lane >> 3, r = lane & 7;
-  ldsm_x4(a, tile + (r0 + (i & 1) * 8 + r) * P + 16 * c + (i >> 1) * 8);
-}
-
-// B fragments of A.T^T: the tile's rows are n, its columns k. b[0], b[1]
-// for n-tile j (rows 8j ..), b[2], b[3] for n-tile j + 1, k-chunk c.
-template <int P>
-__device__ __forceinline__ void frag_bt(uint32_t* b, const bf16* tile, int j,
-                                        int c, int lane) {
-  const int i = lane >> 3, r = lane & 7;
-  ldsm_x4(b, tile + (8 * j + (i >> 1) * 8 + r) * P + 16 * c + (i & 1) * 8);
-}
-
-// B fragments of A.T: the tile's rows are k, its columns n. b[0], b[1]
-// for n-tile j (columns 8j ..), b[2], b[3] for n-tile j + 1, k-chunk c
-// (rows 16c ..).
-template <int P>
-__device__ __forceinline__ void frag_b(uint32_t* b, const bf16* tile, int c,
-                                       int j, int lane) {
-  const int i = lane >> 3, r = lane & 7;
-  ldsm_x4_trans(b,
-                tile + (16 * c + (i & 1) * 8 + r) * P + 8 * j + (i >> 1) * 8);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x low
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// A fragment of key (or query) chunk c from the score accumulators of
-// n-tiles 2c (x0) and 2c + 1 (x1), rounded to bf16 (mma.sync's C
-// fragments, or the 8-register chunk 8c of a wgmma accumulator).
+// The A fragment of key (or query) chunk c from the 8-register chunk 8c
+// of a wgmma score accumulator (x0 = its n-tile 2c, x1 = 2c + 1),
+// rounded to bf16.
 __device__ __forceinline__ void score_frag(uint32_t* a, const float* x0,
                                            const float* x1) {
   a[0] = pack_bf16(x0[0], x0[1]);
@@ -891,167 +832,7 @@ __device__ __forceinline__ void score_frag(uint32_t* a, const float* x0,
   a[3] = pack_bf16(x1[2], x1[3]);
 }
 
-template <int D>
-struct Bf16Tiles {
-  static constexpr int P = D + 8;               // row pitch (elements)
-  static constexpr int kRows = kTile * P;       // one tile
-  // dq: two stages of K and V, the own Q and dO
-  static constexpr size_t dq_bytes = sizeof(bf16) * 6 * kRows;
-};
-
-// cp.async rows [row0, row0 + kTile) of a bf16 [s, D] matrix into shared
-// memory at pitch P, zeros past s (16 bytes = 8 elements a copy).
-template <int D, int P>
-__device__ __forceinline__ void stream_rows_bf16(bf16* dst, const bf16* src,
-                                                 int row0, int s) {
-  constexpr int G = D / 8;
-  for (int e = threadIdx.x; e < kTile * G; e += kThreads) {
-    const int r = e / G, c = (e % G) * 8;
-    const bool ok = row0 + r < s;
-    cp_async16(dst + r * P + c,
-               src + (ok ? static_cast<size_t>(row0 + r) * D + c : 0), ok);
-  }
-}
-
-// Store rows r0 + g and r0 + g + 8 (h = 0, 1) of a warp's fp32
-// accumulators, times `mul`, as bf16 (pairs of columns 8j + 2t).
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(bf16* dst, float (*acc)[4],
-                                                int row, int h, int t,
-                                                float mul) {
-  bf16* o = dst + static_cast<size_t>(row) * D + 2 * t;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
-        acc[j][2 * h] * mul, acc[j][2 * h + 1] * mul);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dq, int s, int causal, float scale) {
-  using T = Bf16Tiles<D>;
-  constexpr int P = T::P, KC = D / 16, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Qo = smem + 4 * T::kRows;             // own rows: Q
-  bf16* Oo = Qo + T::kRows;                   //           and dO
-
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const size_t base = static_cast<size_t>(blockIdx.x) * s * D;
-  const size_t rbase = static_cast<size_t>(blockIdx.x) * s;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16;
-
-  const int n_kt = (s + kTile - 1) / kTile;
-  const int kt_end = causal ? min(n_kt, q0 / kTile + 1) : n_kt;
-
-  auto load_kv = [&](int kt) {
-    bf16* Ks = smem + (kt & 1) * 2 * T::kRows;
-    stream_rows_bf16<D, P>(Ks, k + base, kt * kTile, s);
-    stream_rows_bf16<D, P>(Ks + T::kRows, v + base, kt * kTile, s);
-  };
-  stream_rows_bf16<D, P>(Qo, q + base, q0, s);
-  stream_rows_bf16<D, P>(Oo, dout + base, q0, s);
-  load_kv(0);
-  cp_async_commit();
-  float lr[2], dr[2];   // lse and delta of rows r0 + g and r0 + g + 8
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    lr[h] = row < s ? lse[rbase + row] : 0.0f;
-    dr[h] = row < s ? delta[rbase + row] : 0.0f;
-  }
-
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
-
-  for (int kt = 0; kt < kt_end; ++kt) {
-    if (kt + 1 < kt_end) load_kv(kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Ks = smem + (kt & 1) * 2 * T::kRows;
-    const bf16* Vs = Ks + T::kRows;
-    const int k0 = kt * kTile;
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys a warp
-    float sc[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[j][i] = dp[j][i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      uint32_t aq[4], ao[4];
-      frag_a<P>(aq, Qo, r0, c, lane);
-      frag_a<P>(ao, Oo, r0, c, lane);
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        uint32_t bk[4], bv[4];
-        frag_bt<P>(bk, Ks, j, c, lane);
-        frag_bt<P>(bv, Vs, j, c, lane);
-        mma_bf16(sc[j], aq, bk[0], bk[1]);
-        mma_bf16(sc[j + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[j], ao, bv[0], bv[1]);
-        mma_bf16(dp[j + 1], ao, bv[2], bv[3]);
-      }
-    }
-
-    // p = exp(s * scale - lse), ds = p (dp - delta); masked p = 0
-    auto p_ds = [&](auto masked) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = q0 + r0 + g + 8 * h;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float p = expf(sc[j][2 * h + e] * scale - lr[h]);
-            if constexpr (decltype(masked)::value) {
-              const int col = k0 + 8 * j + 2 * t + e;
-              p = col < s && (!causal || col <= row) ? p : 0.0f;
-            }
-            sc[j][2 * h + e] = p * (dp[j][2 * h + e] - dr[h]);
-          }
-      }
-    };
-    if (k0 + kTile > s || (causal && k0 == q0))
-      p_ds(std::true_type());
-    else
-      p_ds(std::false_type());
-
-    // dQ += dS K over the tile's 4 key chunks
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint32_t a[4];
-      score_frag(a, sc[2 * c], sc[2 * c + 1]);
-#pragma unroll
-      for (int j = 0; j < DT; j += 2) {
-        uint32_t b[4];
-        frag_b<P>(b, Ks, c, j, lane);
-        mma_bf16(acc[j], a, b[0], b[1]);
-        mma_bf16(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + g + 8 * h;
-    if (row < s) store_rows_bf16<D>(dq + base, acc, row, h, t, scale);
-  }
-}
-
-// ------------------------------------- bf16 forward and dkv: wgmma + TMA
+// ------------------------------------------- bf16 kernels: wgmma + TMA
 // Warp roles, stages and blocks an SM, as tools/torch_flash_ab.py timed
 // them side by side at b8 n12 s1024 d64 causal (H100 80GB HBM3, 700 W;
 // PERF.md): the forward with one consumer warpgroup a block, three
@@ -1063,12 +844,22 @@ dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // with one warpgroup, two blocks an SM and three stages 0.0858; two
 // stages 0.0922, four 0.0911, two warpgroups 0.0949; dkv's pipeline
 // held 224 registers (one block an SM) and ran 0.130-0.137, so dkv
-// waits for each tile's score products.
+// waits for each tile's score products. dq with one warpgroup and three
+// stages 0.0560-0.0568 ms; two stages 0.0580, four 0.0640 (two blocks
+// an SM by shared memory). ptxas gives dq 128 registers at d = 64
+// whether asked for one, two or three blocks an SM (three fit); two ran
+// 0.0560 against three's 0.0568. Issuing dP as a second group, so p is
+// computed while it runs, took dq from 0.0592 to 0.0565. dq's pipeline
+// (the next tile's scores issued before this tile's dQ product) held
+// 142 registers and ran level at two blocks an SM (0.0654 against
+// 0.0658), and spilled at three (0.0892): it was dropped.
 constexpr int kFwdWarpgroups = 1;  // consumer warpgroups, 64 query rows each
 constexpr int kFwdStages = 4;      // K/V stages in the forward's ring
 constexpr int kFwdMinBlocks = 3;   // blocks an SM asked of ptxas at d <= 64
 constexpr int kDkvWarpgroups = 1;  // consumer warpgroups, 64 keys each
 constexpr int kDkvStages = 3;      // Q/dO/lse/delta stages in dkv's ring
+constexpr int kDqStages = 3;       // K/V stages in dq's ring
+constexpr int kDqMinBlocks = 2;    // blocks an SM asked of ptxas at d <= 64
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Store rows r and r + 8 (h = 0, 1) of a warp's wgmma accumulators over
@@ -1543,6 +1334,203 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+template <int D, int ST>
+struct DqHopper {
+  static constexpr int NB = (D + 63) / 64;                    // 64-column boxes
+  static constexpr int kOwn = 2 * NB * hopper::kBoxBytes;     // Q, dO
+  static constexpr int kStage = 2 * NB * hopper::kBoxBytes;   // K, V
+  static constexpr int kThreads = 128 + 32;
+  static constexpr int kMinBlocks = NB == 1 ? kDqMinBlocks : 1;
+  static constexpr size_t bytes =
+      hopper::kSwizzleAlign + kOwn + ST * kStage + 8 * (1 + 2 * ST);
+};
+
+template <int D, int ST>
+__global__ void __launch_bounds__(DqHopper<D, ST>::kThreads,
+                                  DqHopper<D, ST>::kMinBlocks)
+dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dq, int s, int causal, float scale) {
+  using namespace hopper;
+  using T = DqHopper<D, ST>;
+  constexpr int NB = T::NB, KS = D / 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Own = align_swizzle(smem_raw);  // [Q, dO][NB] boxes
+  unsigned char* KV = Own + T::kOwn;             // [ST] stages: K, V boxes
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(KV + ST * T::kStage);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + ST;
+
+  // grid (batch*head, tile), heaviest causal tiles (the last rows) first;
+  // causal blocks stop at their diagonal tile
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int kt_end = causal ? q0 / 64 + 1 : (s + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {   // the producer warp: one thread issues every load
+    if (threadIdx.x == 128) {
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      mbar_expect_tx(own_full, T::kOwn);
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(Own + b * kBoxBytes, &tq, 64 * b, q0, bh, own_full);
+        tma_load_3d(Own + (NB + b) * kBoxBytes, &tdo, 64 * b, q0, bh,
+                    own_full);
+      }
+      for (int kt = 0; kt < kt_end; ++kt) {
+        const int st = kt % ST, use = kt / ST;
+        if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+        unsigned char* Ks = KV + st * T::kStage;
+        mbar_expect_tx(&full[st], T::kStage);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(Ks + b * kBoxBytes, &tk, 64 * b, 64 * kt, bh,
+                      &full[st]);
+          tma_load_3d(Ks + (NB + b) * kBoxBytes, &tv, 64 * b, 64 * kt, bh,
+                      &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: warp w rows r0 and r0 + 8, each row's lse
+  // and delta in the registers of the quad that owns it
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 16 * warp + g;
+  const float sl2 = scale * kLog2e;   // raw scores to base-2 exponents
+  float ll[2], dr[2];                 // lse * log2(e) and delta
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    const size_t i = static_cast<size_t>(bh) * s + row;
+    ll[h] = row < s ? lse[i] * kLog2e : 0.0f;
+    dr[h] = row < s ? delta[i] : 0.0f;
+  }
+
+  float acc[NB][32];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = 0.0f;
+  float sc[32], dp[32];   // S, then p, then dS; dP
+  uint32_t da[4][4];      // dS, bf16: the A operand of dQ += dS K
+  const uint32_t qa = smem_u32(Own);
+  const uint32_t oa = qa + NB * kBoxBytes;
+  auto stage = [&](int kt) { return smem_u32(KV + (kt % ST) * T::kStage); };
+
+  // S = Q K^T, then dP = dO V^T, of tile kt: 64 rows x 64 keys, all four
+  // operands K-major in shared memory; issued as two groups, so p is
+  // computed while dP runs
+  auto scores = [&](int kt) {
+    const uint32_t ka = stage(kt);
+    const uint32_t va = ka + NB * kBoxBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const uint32_t off = (k / 4) * kBoxBytes + (k % 4) * 32;
+      wgmma_ss_n64(sc, desc_sw128(qa + off), desc_sw128(ka + off), k > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const uint32_t off = (k / 4) * kBoxBytes + (k % 4) * 32;
+      wgmma_ss_n64(dp, desc_sw128(oa + off), desc_sw128(va + off), k > 0);
+    }
+    wgmma_commit();
+  };
+  // p = 2^(s * scale * log2(e) - lse * log2(e)) in place of S; masked
+  // p = 0 (keys past s and, causal, after the row), where only the
+  // diagonal and the tail tiles have masked pairs
+  auto p_exp = [&](int kt, auto masked) {
+    const int k0 = 64 * kt;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * h + e];
+          const float p = exp2_ftz(fmaf(x, sl2, -ll[h]));
+          if constexpr (decltype(masked)::value) {
+            const int col = k0 + 8 * j + 2 * t + e;
+            x = col < s && (!causal || col <= row) ? p : 0.0f;
+          } else {
+            x = p;
+          }
+        }
+    }
+  };
+  // ds = p (dp - delta), rounded to bf16 into the A fragments of the
+  // tile's 4 key chunks
+  auto ds_pack = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * j + 2 * h + e;
+          sc[x] *= dp[x] - dr[h];
+        }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) score_frag(da[c], sc + 8 * c, sc + 8 * c + 4);
+  };
+
+  mbar_wait(own_full, 0);
+  for (int kt = 0; kt < kt_end; ++kt) {
+    mbar_wait(&full[kt % ST], (kt / ST) & 1);
+    scores(kt);
+    wgmma_wait<1>();   // S; dP may run on
+    fence_regs(sc);
+    if (64 * kt + 64 > s || (causal && 64 * kt == q0))
+      p_exp(kt, std::true_type());
+    else
+      p_exp(kt, std::false_type());
+    wgmma_wait<0>();
+    fence_regs(dp);
+    ds_pack();
+    wgmma_fence();
+    // dQ += dS K, dS from registers, K MN-major: the tile's 4 key chunks
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        wgmma_rs_n64_mn(acc[b], da[c],
+                        desc_sw128(stage(kt) + b * kBoxBytes + c * 2048));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) fence_regs(da[c]);
+    mbar_arrive(&empty[kt % ST]);   // the stage's last reader is done
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row < s)
+      store_boxes<D, NB>(dq + static_cast<size_t>(bh) * s * D, acc, row, h, t,
+                         scale);
+  }
+}
+
 template <typename Kernel, typename... Args>
 int launch_threads(Kernel kernel, size_t smem, dim3 grid, int threads,
                    cudaStream_t st, Args... args) {
@@ -1669,17 +1657,22 @@ extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
                              int d, int causal, float scale, void* stream) {
   if (bh <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* qp = static_cast<const bf16*>(q);
-  auto* kp = static_cast<const bf16*>(k);
-  auto* vp = static_cast<const bf16*>(v);
-  auto* dop = static_cast<const bf16*>(dout);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hopper::encode_rows_bf16(&tq, q, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows_bf16(&tk, k, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows_bf16(&tv, v, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows_bf16(&tdo, dout, bh, s, d, hopper::kBox))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto* lp = static_cast<const float*>(lse);
   auto* dp = static_cast<const float*>(delta);
   auto* dqp = static_cast<bf16*>(dq);
 #define PTT_CALL(DD)                                                       \
-  return launch(dq_bf16_kernel<DD>, Bf16Tiles<DD>::dq_bytes,               \
-                dim3(bh, n_tiles(s)), st, qp, kp, vp, dop, lp, dp, dqp, s, \
-                causal, scale)
+  {                                                                        \
+    using T = DqHopper<DD, kDqStages>;                                     \
+    return launch_threads(dq_bf16_kernel<DD, kDqStages>, T::bytes,         \
+                          dim3(bh, n_tiles(s)), T::kThreads, st, tq, tk,   \
+                          tv, tdo, lp, dp, dqp, s, causal, scale);         \
+  }
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
 }

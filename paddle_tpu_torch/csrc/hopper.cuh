@@ -11,11 +11,11 @@
 //   K-major operand (the tile's rows are M or N, its columns K: Q and K
 //     in Q.K^T): stride between 8-row groups (SBO) 1024 bytes; the k-th
 //     16-column step starts 32 k bytes into the box.
-//   MN-major operand (rows are K, columns N: V in P.V, dO and Q as the
-//     B of P^T.dO and dS^T.Q), the instruction's transpose bit set:
-//     SBO 1024 bytes between 8-row groups of K; the k-th 16-row step
-//     starts 2048 k bytes into the box; one box is N = 64 (LBO, the
-//     stride to the next 64 columns, is then not read).
+//   MN-major operand (rows are K, columns N: V in P.V, K in dS.K, dO
+//     and Q as the B of P^T.dO and dS^T.Q), the instruction's transpose
+//     bit set: SBO 1024 bytes between 8-row groups of K; the k-th
+//     16-row step starts 2048 k bytes into the box; one box is N = 64
+//     (LBO, the stride to the next 64 columns, is then not read).
 //
 // The ring. A stage's "full" barrier counts one arrival (the producer's
 // arrive.expect_tx) plus the bytes its TMA loads bring, and one arrival

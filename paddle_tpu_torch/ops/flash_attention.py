@@ -35,9 +35,9 @@ bf16 ``out``, ``dq``, ``dk`` and ``dv``, fp32 ``lse`` and ``delta``; the
 plain versions compute in fp32 and cast the outputs, the reference's
 order, and the bf16 kernels multiply on bf16 tensor cores with fp32
 accumulators, rounding ``p`` and ``ds`` to bf16 where they are an
-operand (the source says why that holds the tolerance). The bf16
-forward and dkv kernels load their tiles by TMA and multiply on
-``wgmma`` (``csrc/hopper.cuh``); the wrappers are the same for all.
+operand (the source says why that holds the tolerance). The three bf16
+kernels load their tiles by TMA and multiply on ``wgmma``
+(``csrc/hopper.cuh``); the wrappers are the same for all.
 
 The kernels take fp32 or bf16 (q, k, v and dO of one dtype), any
 ``s >= 1`` and ``d <= 128`` with ``d % 16 == 0`` (every GPT preset: 16,

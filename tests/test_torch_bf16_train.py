@@ -19,9 +19,8 @@ than the reference's own bf16 flash tolerance, 2e-2,
   (2e-2 of its magnitude plus 1.6e-2 of its row's RMS plus 1e-5; the
   largest diff / limit measured 0.176, max abs 9.8e-4, one bf16 ulp).
 - The bf16 kernels' rounding, modelled on the CPU (b1 n2 s1024 d64,
-  causal and full): p as each kernel computes it (the forward and dkv
-  ``exp2`` of the raw scores times ``scale * log2(e)``, dq ``exp``), p
-  and ds rounded to bf16 before their second products (one pass, what
+  causal and full): p as the kernels compute it (``exp2`` of the raw
+  scores times ``scale * log2(e)``), p and ds rounded to bf16 before their second products (one pass, what
   the kernels do) within ``flash_bf16_limit``
   of the plain versions (largest diff / limit measured 0.392-0.487; a
   hi + lo split in two passes 0.206-0.283); the same model with keys
@@ -108,11 +107,13 @@ from paddle_tpu_torch.models import (BLOCK_PARAMS, BertForPretraining,
                                      bert_presets, gpt_presets,
                                      state_dict_from_numpy)
 from paddle_tpu_torch.models import gpt as tgpt
+from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import fused_update as tfu
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import GPTDecodeModel
-from torch_checks import (FUSED_HYPER, flash_bf16_limit, flash_err,
+from torch_checks import (FLASH_BF16_SECTION, FLASH_FAULTS, FUSED_HYPER,
+                          flash_bf16_limit, flash_err, plant_flash_fault,
                           run_checks)
 
 torch.set_num_threads(2)
@@ -219,10 +220,9 @@ def _rounding_model(q, k, v, do, causal, passes=1, drop=None):
     (``csrc/flash_attention.cu`` ``*_bf16``): bf16 products summed in
     fp32, and the fp32 p and ds rounded to bf16 before their second
     product (``passes=1``), or split into a bf16 high and low part
-    (``passes=2``). p as each kernel computes it: the forward and dkv
-    take ``exp2`` of the raw scores times ``scale * log2(e)`` in fp32
-    (the forward less its row maximum so scaled, dkv less ``lse *
-    log2(e)``), dq ``exp`` of the scaled scores less lse. Whole-row
+    (``passes=2``). p as each kernel computes it: ``exp2`` of the raw
+    scores times ``scale * log2(e)`` in fp32, the forward less its row
+    maximum so scaled, dq and dkv less ``lse * log2(e)``. Whole-row
     softmax: the kernels' tile order is not modelled. ``drop`` leaves a
     slice of keys out of P.V and dS.K and the same slice of queries out
     of P^T.dO and dS^T.Q: a kernel that skips a 16-wide chunk of a
@@ -240,10 +240,9 @@ def _rounding_model(q, k, v, do, causal, passes=1, drop=None):
     delta = (dof * out.float()).sum(-1, keepdim=True)
     raw = tfa._masked(qf @ kf.transpose(-1, -2), causal)
     e = torch.exp2(raw * sl2 - raw.amax(-1, keepdim=True) * sl2)
-    p = torch.exp(raw * scale - lse)
-    p2 = torch.exp2(raw * sl2 - lse * LOG2E)
+    p = torch.exp2(raw * sl2 - lse * LOG2E)
     dp = dof @ vf.transpose(-1, -2) - delta
-    pk, dsk, pq, dsq = e.clone(), p * dp, p2.clone(), p2 * dp
+    pk, dsk, pq, dsq = e.clone(), p * dp, p.clone(), p * dp
     if drop is not None:
         pk[..., drop] = dsk[..., drop] = 0.0
         pq[..., drop, :] = dsq[..., drop, :] = 0.0
@@ -278,6 +277,27 @@ def check_flash_rounding_model_within_limit(causal):
         if name in ("out", "dq"):
             share = float(flagged[..., 512:].float().mean())
             assert share >= 0.9, f"fault flagged on {share:.3f} of {name}"
+
+
+def check_planted_flash_fault_armed():
+    """The fault ``tests/test_torch_cuda.py`` plants in the bf16 flash
+    kernels on the card (``torch_checks.FLASH_FAULTS``) is armed in the
+    source as it stands: each anchor occurs exactly once in the bf16
+    section of ``csrc/flash_attention.cu``, one in each of the three
+    bf16 kernels, and planting changes those lines and no other."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    head, _, bf16 = src.partition(FLASH_BF16_SECTION)
+    kernels = []
+    for loop, _ in FLASH_FAULTS:
+        assert bf16.count(loop) == 1, loop
+        before = bf16[:bf16.index(loop)]
+        kernels.append(before[:before.rindex("_bf16_kernel(")]
+                       .split()[-1])
+    assert sorted(kernels) == ["dkv", "dq", "fwd"], kernels
+    mutant = plant_flash_fault(src)
+    changed = [a for a, b in zip(src.splitlines(), mutant.splitlines())
+               if a != b]
+    assert mutant.startswith(head) and len(changed) == len(FLASH_FAULTS)
 
 
 # ------------------------------------------------------------- fused update
@@ -660,6 +680,7 @@ def test_bf16_train_port_matches_reference(fresh_mesh):
         (check_flash_plain_matches_jax, (False,)),
         (check_flash_rounding_model_within_limit, (True,)),
         (check_flash_rounding_model_within_limit, (False,)),
+        (check_planted_flash_fault_armed, ()),
         *((check_fused_update_matches_reference, (kind, wd, zero))
           for kind in ("sgd", "momentum", "adam", "adamw")
           for wd in (0.0, 0.01) for zero in (True, False)),

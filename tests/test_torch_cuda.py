@@ -89,8 +89,8 @@ from torch_checks import (BF16_LOSS_RTOL, FUSED_HYPER, adam_step_parity,
                           bf16_step_parity, bucket_entries, buckets_vs_plain,
                           dequant_inputs, dequant_vs_plain, flash_bf16_limit,
                           flash_err, flash_vs_plain, fused_inputs,
-                          fused_vs_plain, qmm_vs_plain, quantize_vs_plain,
-                          run_checks, same_bits)
+                          fused_vs_plain, plant_flash_fault, qmm_vs_plain,
+                          quantize_vs_plain, run_checks, same_bits)
 
 torch.set_num_threads(2)
 
@@ -341,39 +341,19 @@ def check_flash_kernels_match_plain(dev, s, d, causal, dtype=torch.float32):
                                   for n, c in before.items()}
 
 
-# A planted fault in the bf16 flash kernels: each skips the first 16-wide
-# chunk of its first streamed tile in its second products (keys 0-15 of
-# P.V and dS.K, queries 0-15 of P^T.dO and dS^T.Q), which moves a long
-# causal row of out or dq by a few 1e-3. The forward and dkv issue those
-# products as wgmma on 16-key (16-query) chunks, dq as mma.sync.
-_BF16_SECTION = "// ------------------------------------------------------------ bf16 forms"
-_FLASH_FAULTS = (
-    ("// O += P V, P from registers, V MN-major: the tile's 4 key chunks\n"
-     "#pragma unroll\n    for (int c = 0; c < 4; ++c) {", "kt == 0"),
-    ("// dQ += dS K over the tile's 4 key chunks\n#pragma unroll\n"
-     "    for (int c = 0; c < 4; ++c) {", "kt == 0"),
-    ("// query chunks of 16\n#pragma unroll\n"
-     "      for (int c = 0; c < BQ / 16; ++c) {", "qt == 0"))
-
-
 @functools.lru_cache(maxsize=None)
 def _faulty_flash_library():
-    """The flash library built from ``csrc/flash_attention.cu`` with the
-    fault above planted in its bf16 kernels (a copy under the build
-    directory; the source stays as it is)."""
+    """The flash library built from ``csrc/flash_attention.cu`` with
+    ``torch_checks.FLASH_FAULTS`` planted in its bf16 kernels (a copy
+    under the build directory; the source stays as it is)."""
     import ctypes
 
     from paddle_tpu_torch.ops import _build
 
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    head, sep, bf16 = src.partition(_BF16_SECTION)
-    assert sep, "no bf16 section in flash_attention.cu"
-    for loop, first in _FLASH_FAULTS:
-        assert bf16.count(loop) == 1, loop
-        bf16 = bf16.replace(loop, loop.replace("c = 0", f"c = ({first})"))
     mutant = _build.build_dir() / "fault" / "flash_attention_fault.cu"
     mutant.parent.mkdir(parents=True, exist_ok=True)
-    mutant.write_text(head + sep + bf16)
+    mutant.write_text(plant_flash_fault(src))
     return ctypes.CDLL(str(_build.compile_file(
         mutant, mutant.with_suffix(".so"))))
 
@@ -392,10 +372,10 @@ def _planted_fault():
 
 def check_bf16_flash_check_sees_a_planted_fault(dev, causal):
     """``flash_vs_plain`` passes the bf16 kernels and fails the same
-    kernels with a fault planted (``_FLASH_FAULTS``), at b1 n4 s1024 d64;
-    each faulty kernel, on the sound run's lse and delta, is over the
-    limit on every output, and out and dq on every long row (queries 512
-    and on). Prints both readings (largest diff / limit)."""
+    kernels with a fault planted (``torch_checks.FLASH_FAULTS``), at b1
+    n4 s1024 d64; each faulty kernel, on the sound run's lse and delta,
+    is over the limit on every output, and out and dq on every long row
+    (queries 512 and on). Prints both readings (largest diff / limit)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1024 + causal)
     q, k, v, do = (torch.randn(1, 4, 1024, 64, device=dev, generator=gen)
@@ -789,7 +769,8 @@ def test_cuda_path_matches_plain(dev):
            for s, d in ((1, 16), (37, 16), (64, 64), (130, 64), (77, 96),
                         # TMA boxes of 64 columns: part of the first (d =
                         # 48) or the second (d = 112) past the end
-                        (100, 48), (77, 112), (1000, 112),
+                        (100, 48), (50, 32), (77, 112), (1000, 112),
+                        (200, 80),
                         *((s, d) for s in (1, 63, 1000, 1024)
                           for d in (16, 64, 128)))
            for c in (True, False)]

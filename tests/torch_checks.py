@@ -144,6 +144,40 @@ def flash_err(name, dtype, got, plain):
     return err, err / lim
 
 
+# A planted fault in the bf16 flash kernels (the control of the bf16
+# limit on the card): each kernel skips the first 16-wide chunk of its
+# first streamed tile in its second products (keys 0-15 of P.V and dS.K,
+# queries 0-15 of P^T.dO and dS^T.Q), which moves a long causal row of
+# out or dq by a few 1e-3. All three issue those products as wgmma on
+# 16-key (16-query) chunks; each anchor is the head of one such chunk
+# loop, and the fault starts it at 1 on the first tile.
+FLASH_BF16_SECTION = ("// ---------------------------------------------"
+                      "--------------- bf16 forms")
+FLASH_FAULTS = (
+    ("// O += P V, P from registers, V MN-major: the tile's 4 key chunks\n"
+     "#pragma unroll\n    for (int c = 0; c < 4; ++c) {", "kt == 0"),
+    ("// dQ += dS K, dS from registers, K MN-major: the tile's 4 key "
+     "chunks\n#pragma unroll\n    for (int c = 0; c < 4; ++c) {", "kt == 0"),
+    ("// query chunks of 16\n#pragma unroll\n"
+     "      for (int c = 0; c < BQ / 16; ++c) {", "qt == 0"))
+
+
+def plant_flash_fault(src: str) -> str:
+    """``csrc/flash_attention.cu``'s text ``src`` with the fault above
+    planted in its bf16 kernels; raises unless every anchor occurs
+    exactly once in the bf16 section (so the fault cannot be disarmed
+    by an edit that moves or copies a loop)."""
+    head, sep, bf16 = src.partition(FLASH_BF16_SECTION)
+    if not sep:
+        raise AssertionError("no bf16 section in flash_attention.cu")
+    for loop, first in FLASH_FAULTS:
+        if bf16.count(loop) != 1:
+            raise AssertionError(f"{bf16.count(loop)} copies of the fault "
+                                 f"anchor {loop!r} in the bf16 section")
+        bf16 = bf16.replace(loop, loop.replace("c = 0", f"c = ({first})"))
+    return head + sep + bf16
+
+
 def flash_fwd_vs_plain(q, k, v, causal: bool):
     """``flash_fwd`` against its plain version (fp32 or bf16 inputs).
     Returns ``(errs, out, lse)``: ``errs`` maps out and lse to (max abs

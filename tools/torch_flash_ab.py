@@ -4,11 +4,12 @@ flash_attention.cu) side by side on one card, at the shapes the port's
 paths launch.
 
     python3 tools/torch_flash_ab.py [--parent PATH] [--variant NAME=PATH]
-                                    [--out FILE]
+                                    [--only NAME,...] [--out FILE]
 
-Builds, with ``ops/_build.py``'s nvcc flags, into build/flash_ab/:
-  new       csrc/flash_attention.cu as it stands (ptxas registers and
-            spills of its bf16 kernels printed);
+Builds, with ``ops/_build.py``'s nvcc flags, into build/flash_ab/ (all
+of these, or ``--only`` the named ones; ptxas registers and spills
+printed for the bf16 kernels each variant changes):
+  new       csrc/flash_attention.cu as it stands;
   fwd_wg2   the same with two consumer warpgroups (128 query rows) a
             forward block (kFwdWarpgroups), no blocks-an-SM request;
   fwd_st2, fwd_st3
@@ -21,6 +22,11 @@ Builds, with ``ops/_build.py``'s nvcc flags, into build/flash_ab/:
   dkv_st2, dkv_st4
             two or four Q/dO stages in dkv's ring, not three
             (kDkvStages);
+  dq_st2, dq_st4
+            two or four K/V stages in dq's ring, not three (kDqStages);
+  dq_mb1, dq_mb3
+            ptxas asked for one or three dq blocks an SM at d <= 64, not
+            two (kDqMinBlocks);
   parent    ``--parent``: an earlier flash_attention.cu with this one's
             C interface (write it first: ``git show <commit>:paddle_tpu_torch/
             csrc/flash_attention.cu > build/parent_flash.cu``);
@@ -72,7 +78,11 @@ PATCHES = {"new": (),
            "fwd_mb2": (("kFwdMinBlocks = 3;", "kFwdMinBlocks = 2;"),),
            "dkv_wg2": (("kDkvWarpgroups = 1;", "kDkvWarpgroups = 2;"),),
            "dkv_st2": (("kDkvStages = 3;", "kDkvStages = 2;"),),
-           "dkv_st4": (("kDkvStages = 3;", "kDkvStages = 4;"),)}
+           "dkv_st4": (("kDkvStages = 3;", "kDkvStages = 4;"),),
+           "dq_st2": (("kDqStages = 3;", "kDqStages = 2;"),),
+           "dq_st4": (("kDqStages = 3;", "kDqStages = 4;"),),
+           "dq_mb1": (("kDqMinBlocks = 2;", "kDqMinBlocks = 1;"),),
+           "dq_mb3": (("kDqMinBlocks = 2;", "kDqMinBlocks = 3;"),)}
 
 
 def build(name: str, src: str) -> ctypes.CDLL:
@@ -85,21 +95,27 @@ def build(name: str, src: str) -> ctypes.CDLL:
                            str(cu)], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-4000:]}")
-    if name == "new":   # registers and spills of each bf16 kernel
-        entry = ""
-        for line in proc.stderr.splitlines():
-            if "Compiling entry" in line:
-                entry = line
-            if "bf16" in entry and ("Used" in line or "spill" in line):
-                print(entry.split("'")[1] if "'" in entry else entry,
-                      line.strip(), flush=True)
+    # registers and spills of the bf16 kernels the variant changes (all
+    # of them for new, parent and --variant sources)
+    kern = name.split("_")[0] + "_bf16"
+    if kern not in ("fwd_bf16", "dkv_bf16", "dq_bf16"):
+        kern = "bf16"
+    entry = ""
+    for line in proc.stderr.splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        if kern in entry and ("Used" in line or "spill" in line):
+            print(name, entry.split("'")[1] if "'" in entry else entry,
+                  line.strip(), flush=True)
     return ctypes.CDLL(str(so))
 
 
-def variants(parent: str | None, others) -> dict:
+def variants(parent: str | None, others, only=None) -> dict:
     src = (_build.CSRC / "flash_attention.cu").read_text()
     srcs = {}
     for name, patches in PATCHES.items():
+        if only and name not in only:
+            continue
         text = src
         for old, new in patches:
             if old not in text:
@@ -147,16 +163,21 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", help="an earlier flash_attention.cu")
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=PATH", help="another flash_attention.cu")
+    ap.add_argument("--only", help="comma-separated variants of the "
+                    "list above to build (default: all)")
     ap.add_argument("--out", help="write the JSON summary here, not to "
                     "the standard output")
     args = ap.parse_args(argv)
+    only = set(args.only.split(",")) if args.only else None
+    if only and only - set(PATCHES):
+        ap.error(f"unknown variants {sorted(only - set(PATCHES))}")
     if not torch.cuda.is_available():
         print("torch_flash_ab: no CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    libs = variants(args.parent, args.variant)
+    libs = variants(args.parent, args.variant, only)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
