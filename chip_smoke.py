@@ -134,15 +134,29 @@ when every phase passed):
               fp8_block: two ranks' gradients encoded to their carriers
               by codec_encode, bit for bit against the plain encode
               (tests/torch_checks.py encoded_inputs), and their sum fed
-              to fused_dequant_update, bit for bit against its plain
-              version (dequant_vs_plain), with and without a residual,
-              AdamW; SGD and Momentum at a ragged size; codec_encode's
-              carrier timed at each bucket size as the wrapper takes it
-              (a ragged bucket read in place, its bound the bucket read
-              once and the padded carrier written once); one step's 18
-              buckets of fused_dequant_update timed (kernel, plain version, the
-              decode followed by torch._fused_adamw_) against the bound;
-              clocks before and after, ratios;
+              to fused_dequant_update_flat (a table of one), bit for bit
+              against its plain version (dequant_vs_plain), with and
+              without a residual, AdamW; SGD and Momentum at a ragged
+              size; all 18 buckets in one fused_dequant_update_buckets
+              launch a step, bit for bit against the plain walk over two
+              steps from non-zero moments, residual off and on;
+              codec_encode's carrier timed at each bucket size as the
+              wrapper takes it (a ragged bucket read in place, its bound
+              the bucket read once and the padded carrier written once);
+              the one launch over the 18 buckets timed (as step_dequant
+              calls it, the kernel alone, the plain walk, the decode
+              followed by torch._fused_adamw_) against the bound, the
+              table built once. The same at the bf16 plan of phase 17
+              (9 bf16 buckets and the fp32 final norm): codec_encode
+              from each bucket's dtype, bf16 read in place, and
+              codec_decode to it, both codecs, bit for bit at every
+              bucket, each timed at each bucket size against its bound
+              and yardstick (torch.quantize_per_channel on the bucket
+              lifted to fp32, which takes no bf16; torch.mul into bf16);
+              the plan's one dequant launch bit for bit and timed (the
+              yardstick's moments bf16). Clocks before and after,
+              ratios. (tools/torch_dequant_ab.py times an earlier
+              per-bucket kernel's 18-launch loop beside the one launch.)
  14. dp-train TrainStep(grad_comm=GradCommConfig("int8_block")) on
               GPT-125M (full width and depth, seed 0, fp32, AdamW as in
               phase 7) on two ranks that share the card, started by the
@@ -150,12 +164,15 @@ when every phase passed):
               are staged through host memory), 4 x 1024 tokens a rank
               (the global batch is phase 7's 8 x 1024): 2 warm-up steps,
               5 timed steps with launch counts reset just before and read
-              just after in each rank (a step: 18 fused_dequant_update,
-              18 codec_encode, no fused_update, no codec_decode, 12 of
-              each flash kernel; codec_encode's launches by bucket
-              shape), then 2 steps with each all-reduce timed alone
-              between two waits for the card; every loss finite, falling and equal across the
-              ranks; the ranks' parameters identical at the end;
+              just after in each rank (a step: one
+              fused_dequant_update_buckets launch for the 18 buckets, 18
+              codec_encode, no fused_update, no codec_decode, 12 of each
+              flash kernel; codec_encode's launches by bucket shape; the
+              first step's counts apart; the update table built once),
+              then 2 steps with each all-reduce timed alone between two
+              waits for the card; every loss finite, falling and equal
+              across the ranks; the ranks' parameters identical at the
+              end; the wire bytes the plan's;
  15. dp-parity
               the same at GPT-125M width with 2 layers, global batch
               4 x 128, two steps, world 2 on the card against world 2 on
@@ -203,6 +220,33 @@ when every phase passed):
               2e-2 of each tensor's largest; every clear element of a
               bf16 weight within one bf16 ulp of the CPU's after the
               step, of the fp32 final norm within 1e-2 lr).
+ 19. dp-train bf16
+              phase 14 at phase 17's configuration (bench.py's): 2 ranks
+              of 4 x 1024 sharing the card, 2 warm-up and DP16_STEPS
+              timed steps, then 2 steps with each all-reduce timed
+              alone: launch counts a step (one
+              fused_dequant_update_buckets over the 10 buckets, 10
+              codec_encode, from fp32 once the residuals exist, no
+              codec_decode, no fused_update, 12 of each bf16 flash
+              kernel, no fp32 one), the first step's apart (9 encodes
+              from bf16), the table built once, losses finite, falling
+              and equal, parameters identical (sha256), step ms, global
+              tokens/s, all-reduce ms, the plan's wire bytes
+              (124,962,152), peak memory; then DataParallel on a fresh
+              replica, 2 rounds on both ranks (bf16 buckets encoded from
+              bf16 in the first round, every bucket decoded to its
+              dtype by codec_decode, the port's eager AdamW): launch
+              counts, losses finite, replicas identical;
+ 20. dp-parity bf16
+              the bf16 model at GPT-125M width with 2 layers, world 2,
+              global batch 4 x 128, two steps; on the card each step
+              replayed on the CPU from the card's own local gradients,
+              parameters, moments, beta powers and residuals, through the
+              plain versions over the same gloo group: parameters,
+              moments, powers, residuals, payloads, scales and (each
+              bucket reduced again on the card) the bf16 decode bit for
+              bit on both ranks; then the same two steps on the CPU end
+              to end, losses within 1e-4 relative (BF16_LOSS_RTOL).
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -1527,6 +1571,7 @@ DP_B, DP_S = 4, 1024                # per rank: global 8 x 1024 at world 2
 DP_WORLD = 2
 DP_RANK_TIMEOUT = 480               # seconds for a spawned phase's ranks
 DP_BLOCK = 1024                     # GradCommConfig's default block_size
+DP16_STEPS = 5                      # timed steps of the dp-train bf16 phase
 
 
 def _dequant_case(gen, q, scales, kind, n, residual: bool):
@@ -1572,20 +1617,140 @@ def _carrier_rows(dev, gen, sizes, flush):
     return rows
 
 
+def _dequant_table_check(gen, buckets, residual: bool) -> int:
+    """One step's ``fused_dequant_update_buckets`` over every bucket of a
+    plan (AdamW, its dtypes), each bucket's payload two ranks' gradients
+    in the bucket's dtype encoded by codec_encode and summed, two steps
+    from non-zero moments, with or without a residual: bit for bit
+    against the plain walk. Returns the launches (one a step)."""
+    from torch_checks import FUSED_HYPER, buckets_vs_plain, encoded_inputs
+
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    dev = gen.device
+    entries = []
+    for b in buckets:
+        n = b.size
+        q, scales, _ = encoded_inputs("int8_block", n, DP_BLOCK, DP_WORLD,
+                                      gen, dtype=b.dtype)
+        res = (torch.randn(n, device=dev, generator=gen) * 1e-5
+               if residual else None)
+        p = (torch.randn(n, device=dev, generator=gen) * 0.02).to(b.dtype)
+        m1 = torch.randn(n, device=dev, generator=gen) * 1e-4
+        m2 = torch.randn(n, device=dev, generator=gen) ** 2 * 1e-6
+        entries.append((p, fu.WirePayload(q, scales, res, b.dtype),
+                        [m1, m2], WD, 1.0))
+    lr = torch.full((), LR, device=dev)
+    launches = buckets_vs_plain("adamw", FUSED_HYPER["adamw"], entries, lr,
+                                steps=2, world=DP_WORLD,
+                                block_size=DP_BLOCK)
+    if launches != 2:
+        raise AssertionError(f"fused_dequant_update_buckets: {launches} "
+                             f"launches for 2 steps of {len(buckets)} "
+                             f"buckets")
+    return launches
+
+
+def _dequant_table_row(dev, gen, buckets, flush):
+    """One step's dequantizing update over every bucket of a plan, timed:
+    as FusedFlatUpdater.step_dequant calls it (table lookup and launch),
+    the kernel alone (one fused_dequant_update_buckets launch), the plain
+    walk, and the nearest PyTorch composition (each bucket decoded by
+    torch.mul into its dtype and divided by the world, then
+    torch._fused_adamw_ per dtype, the moments in the parameters' dtype
+    as it keeps them); the bound from bytes (q 4, p read and written, the
+    moments read and written: 24 bytes a bf16 element, 28 an fp32 one,
+    and the scales) and ~22 operations an element."""
+    from torch_checks import dequant_inputs
+
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    sizes = [b.size for b in buckets]
+    dtypes = [b.dtype for b in buckets]
+    upd = bucket_updater(sizes, gen, dtypes)
+    pay = [dequant_inputs("int8_block", n, DP_BLOCK, DP_WORLD, gen,
+                          dtype=dt) for n, dt in zip(sizes, dtypes)]
+    lr = torch.full((), LR, device=dev)
+    upd.step_dequant(pay, DP_WORLD, DP_BLOCK)
+    table = upd._dequant_table
+    builds = upd.table_builds
+
+    def step():
+        upd.step_dequant(pay, DP_WORLD, DP_BLOCK)
+
+    def kernel():   # the same powers each time: the updater's state holds
+        fu.fused_dequant_update_buckets(table, lr, DP_WORLD)
+        table.parity = 1 - table.parity
+
+    def plain():
+        fu.buckets_plain(table, lr, DP_WORLD)
+
+    ps = [upd._flat_p[i] for i in range(len(sizes))]
+    groups = {}     # dtype -> (params, moments1, moments2, steps, payloads)
+    for i, (p, (q, sc)) in enumerate(zip(ps, pay)):
+        s = upd._slots[i]
+        grp = groups.setdefault(p.dtype, ([], [], [], [], []))
+        for lst, t in zip(grp, (p, s["moment1"].to(p.dtype),
+                                s["moment2"].to(p.dtype),
+                                torch.full((), 4.0, device=dev), (q, sc))):
+            lst.append(t)
+    world = torch.full((), float(DP_WORLD), device=dev)
+
+    def library():
+        for dt, (p_, a_, b_, st_, pq) in groups.items():
+            gs = [torch.mul(q, sc[:, None], out=torch.empty(
+                q.shape, dtype=dt, device=dev)).view(-1)[:p.numel()]
+                .div_(world) for p, (q, sc) in zip(p_, pq)]
+            torch._fused_adamw_(p_, gs, a_, b_, [], st_, lr=LR, beta1=0.9,
+                                beta2=0.999, weight_decay=WD, eps=1e-8,
+                                amsgrad=False, maximize=False)
+
+    n = sum(sizes)
+    nb = sum(-(-k // DP_BLOCK) for k in sizes)
+    nbytes = sum(k * (4 + 2 * torch.empty((), dtype=dt).element_size() + 16)
+                 for k, dt in zip(sizes, dtypes)) + 4 * nb
+    bound_ms, bound_by = work_bound(nbytes, 22 * n)
+    kinds = sorted({str(dt).split(".")[-1] for dt in dtypes})
+    row = {"shape": f"{len(sizes)} buckets, {n} elements (one step, "
+                    f"{'/'.join(kinds)})",
+           "library_form": "decode by torch.mul, then torch._fused_adamw_ "
+                           "per dtype, moments in the parameters' dtype",
+           "step_ms": median_ms(step, flush), "ms": median_ms(kernel, flush),
+           "plain_ms": median_ms(plain, flush),
+           "library_ms": median_ms(library, flush),
+           "step_span_ms": span_ms(step, flush),
+           "span_ms": span_ms(kernel, flush),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "largest_bucket": max(sizes), "smallest_bucket": min(sizes)}
+    if upd.table_builds != builds:
+        raise AssertionError(f"step_dequant rebuilt its table "
+                             f"{upd.table_builds - builds} times on the "
+                             f"same payload buffers")
+    log(f"fused_dequant_update_buckets, one step's {row['shape']}, one "
+        f"launch, device time (from an idle card): as step_dequant calls "
+        f"it {row['step_ms']:.4f} ms ({row['step_span_ms']:.4f}), the "
+        f"kernel alone {row['ms']:.4f} ({row['span_ms']:.4f}); plain "
+        f"{row['plain_ms']:.4f}; {row['library_form']} "
+        f"{row['library_ms']:.4f}; bound {bound_ms:.4f} {bound_by}, the "
+        f"kernel at {100 * bound_ms / row['ms']:.1f}% of it; the table "
+        f"built once")
+    return row
+
+
 def phase_dp_kernels(dev, gen, buckets):
     """The gradient wire's kernels at every bucket of the GPT-125M plan,
     int8_block and fp8_block: each of two ranks' gradients encoded to
     its carrier by codec_encode, bit for bit against the plain encode;
-    their sum fed to fused_dequant_update, bit for bit against its plain
-    version (AdamW, with and without a residual; SGD and Momentum at a
-    ragged size). Then codec_encode's carrier timed at each bucket size,
-    and one step's 18 fused_dequant_update launches timed: kernel, plain
-    version, and the nearest PyTorch composition (the decode, then
-    torch._fused_adamw_). Returns (the dequant row, the carrier rows by
-    block count, each with its largest encode error)."""
-    from torch_checks import FUSED_HYPER, dequant_inputs, encoded_inputs
-
-    from paddle_tpu_torch.ops import fused_update as fu
+    their sum fed to fused_dequant_update_flat (a table of one), bit for
+    bit against its plain version (AdamW, with and without a residual;
+    SGD and Momentum at a ragged size); one step's 18 buckets in one
+    fused_dequant_update_buckets launch, bit for bit against the plain
+    walk over two steps, residual off and on. Then codec_encode's
+    carrier timed at each bucket size, and the one launch over the 18
+    buckets timed (``_dequant_table_row``). Returns (the dequant row,
+    the carrier rows by block count, each with its largest encode
+    error)."""
+    from torch_checks import encoded_inputs
 
     sizes = [b.size for b in buckets]
     err, enc_err = 0.0, {}
@@ -1603,71 +1768,124 @@ def phase_dp_kernels(dev, gen, buckets):
         q, scales, _ = encoded_inputs("int8_block", 1_000_003, DP_BLOCK,
                                       DP_WORLD, gen)
         err = max(err, _dequant_case(gen, q, scales, kind, 1_000_003, True))
+    for residual in (False, True):
+        _dequant_table_check(gen, buckets, residual)
     log(f"codec_encode carriers and fused_dequant_update: bit-identical to "
         f"plain on each of the {len(sizes)} AdamW buckets "
         f"({min(sizes)}..{max(sizes)} elements), int8_block and fp8_block, "
         f"two ranks' kernel-encoded carriers summed, residual off and on; "
-        f"sgd and momentum at n = 1,000,003")
+        f"sgd and momentum at n = 1,000,003; all {len(sizes)} buckets in "
+        f"one fused_dequant_update_buckets launch a step, bit-identical to "
+        f"the plain walk over 2 steps, residual off and on")
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     carrier = _carrier_rows(dev, gen, sizes, flush)
     for nb, r in carrier.items():
         r["max_abs_err"] = enc_err[nb]
-    hyper = FUSED_HYPER["adamw"]
-    ps = [torch.randn(n, device=dev, generator=gen) * 0.02 for n in sizes]
-    m1 = [torch.randn(n, device=dev, generator=gen) * 1e-4 for n in sizes]
-    m2 = [torch.randn(n, device=dev, generator=gen) ** 2 * 1e-6
-          for n in sizes]
-    pay = [dequant_inputs("int8_block", n, DP_BLOCK, DP_WORLD, gen)
-           for n in sizes]
-    scal = {"beta1_pow": torch.full((), 0.9 ** 3, device=dev),
-            "beta2_pow": torch.full((), 0.999 ** 3, device=dev)}
-    lr = torch.full((), LR, device=dev)
-    world = torch.full((), float(DP_WORLD), device=dev)
-
-    def kernel():
-        for p, a, b, (q, sc) in zip(ps, m1, m2, pay):
-            fu.fused_dequant_update_flat(
-                p, q, sc, DP_WORLD, {"moment1": a, "moment2": b, **scal}, lr,
-                kind="adamw", hyper=hyper, block_size=DP_BLOCK, wd=WD)
-
-    def plain():
-        for p, a, b, (q, sc) in zip(ps, m1, m2, pay):
-            fu.reference_dequant_update_flat(
-                p, q, sc, DP_WORLD, {"moment1": a, "moment2": b, **scal}, lr,
-                kind="adamw", hyper=hyper, block_size=DP_BLOCK, wd=WD)
-
-    steps = [torch.full((), 4.0, device=dev) for _ in sizes]
-
-    def library():
-        gs = [((q.float() * sc[:, None]).reshape(-1)[:p.numel()] / world)
-              for p, (q, sc) in zip(ps, pay)]
-        torch._fused_adamw_(ps, gs, m1, m2, [], steps, lr=LR, beta1=0.9,
-                            beta2=0.999, weight_decay=WD, eps=1e-8,
-                            amsgrad=False, maximize=False)
-
-    n = sum(sizes)
-    nb = sum(-(-s // DP_BLOCK) for s in sizes)
-    # read q (int32), p, m1, m2 and the scales; write p, m1, m2; ~22
-    # operations an element (the decode's multiply and divide included)
-    bound_ms, bound_by = work_bound(7 * 4 * n + 4 * nb, 22 * n)
-    row = {"shape": f"{len(sizes)} buckets, {n} elements (one step)",
-           "max_abs_err": err, "ms": median_ms(kernel, flush),
-           "plain_ms": median_ms(plain, flush),
-           "library_ms": median_ms(library, flush), "bound_ms": bound_ms,
-           "bound_by": bound_by, "largest_bucket": max(sizes),
-           "smallest_bucket": min(sizes)}
-    log(f"fused_dequant_update, one step's {row['shape']}: {row['ms']:.4f} "
-        f"ms (plain {row['plain_ms']:.4f}, decode + torch._fused_adamw_ "
-        f"{row['library_ms']:.4f}, bound {bound_ms:.4f} {bound_by})")
+    row = _dequant_table_row(dev, gen, buckets, flush)
+    row["max_abs_err"] = err
     return row, carrier
 
 
+def phase_dp_kernels_bf16(dev, gen, buckets):
+    """Phase 13's bf16 forms at every bucket of the bf16 plan (9 bf16
+    buckets and the fp32 final norm): two ranks' gradients encoded from
+    their own dtype by codec_encode, int8_block and fp8_block, bit for
+    bit against the plain encode; their summed carriers decoded to the
+    bucket's dtype by codec_decode, bit for bit; the plan's one
+    fused_dequant_update_buckets launch, bit for bit against the plain
+    walk over two steps, residual off and on. Timed: at each bucket the
+    carrier encode (against torch.quantize_per_channel on the bucket
+    lifted to fp32, which takes no bf16) and the decode (against
+    torch.mul into the bucket's dtype); the table as phase 13 times it.
+    Returns (encode rows, decode rows, the table row), the rows by block
+    count."""
+    from torch_checks import encoded_inputs, same_bits
+
+    from paddle_tpu_torch.distributed import grad_comm as plain
+    from paddle_tpu_torch.ops import codec
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    enc_rows, dec_rows = {}, {}
+    for b in buckets:
+        n, dt = b.size, b.dtype
+        nb = -(-n // DP_BLOCK)
+        isz = torch.empty((), dtype=dt).element_size()
+        for codec_name in ("int8_block", "fp8_block"):
+            q, scales, e = encoded_inputs(codec_name, n, DP_BLOCK, DP_WORLD,
+                                          gen, dtype=dt)
+            d = codec.block_decode(q, scales, DP_WORLD, n, dtype=dt)
+            d_plain = plain.block_decode(q, scales, DP_WORLD, n, dtype=dt)
+            if d.dtype != dt or not same_bits(d, d_plain):
+                raise AssertionError(f"codec_decode {codec_name} to {dt} "
+                                     f"at {n}: differs from plain")
+            if codec_name != "int8_block" or nb in enc_rows:
+                continue
+            x = (torch.randn(n, device=dev, generator=gen) * 1e-3).to(dt)
+            s = plain.block_scales(plain.block_absmax(x, DP_BLOCK),
+                                   codec_name)
+            xb = plain.as_blocks(x, DP_BLOCK)        # fp32, for the library
+            zp = torch.zeros(nb, dtype=torch.long, device=dev)
+            enc_bound = work_bound(isz * n + 4 * nb + 4 * nb * DP_BLOCK,
+                                   4 * nb * DP_BLOCK)
+            dec_bound = work_bound(4 * n + 4 * nb + isz * n, 2 * n)
+            out = torch.empty(q.shape, dtype=dt, device=dev)
+            shape = f"{nb}x{DP_BLOCK} int8_block carrier ({dt}, bucket {n})"
+            enc_rows[nb] = {
+                "shape": shape, "max_abs_err": e,
+                "ms": median_ms(lambda: codec.block_encode(
+                    x, s, DP_BLOCK, codec_name, carrier=True), flush),
+                "plain_ms": median_ms(lambda: plain.block_encode(
+                    x, s, DP_BLOCK, codec_name, carrier=True), flush),
+                "library_ms": median_ms(lambda: torch.quantize_per_channel(
+                    xb, s, zp, 0, torch.qint8), flush),
+                "library_form": "torch.quantize_per_channel on the bucket "
+                                "lifted to fp32 (it takes no bf16)",
+                "bound_ms": enc_bound[0], "bound_by": enc_bound[1]}
+            dec_rows[nb] = {
+                "shape": shape, "max_abs_err": float(
+                    (d.float() - d_plain.float()).abs().max()),
+                "ms": median_ms(lambda: codec.block_decode(
+                    q, scales, DP_WORLD, n, dtype=dt), flush),
+                "plain_ms": median_ms(lambda: plain.block_decode(
+                    q, scales, DP_WORLD, n, dtype=dt), flush),
+                "library_ms": median_ms(lambda: torch.mul(
+                    q, scales[:, None], out=out), flush),
+                "library_form": f"torch.mul of the carrier by the scales "
+                                f"into {dt} (no divide by the world)",
+                "bound_ms": dec_bound[0], "bound_by": dec_bound[1]}
+            er, dr = enc_rows[nb], dec_rows[nb]
+            log(f"bf16 plan bucket {n} ({dt}): codec_encode carrier "
+                f"{er['ms']:.4f} ms (plain {er['plain_ms']:.4f}, "
+                f"quantize_per_channel on fp32 {er['library_ms']:.4f}, "
+                f"bound {er['bound_ms']:.4f} {er['bound_by']}) | "
+                f"codec_decode to {dt} {dr['ms']:.4f} ms (plain "
+                f"{dr['plain_ms']:.4f}, torch.mul {dr['library_ms']:.4f}, "
+                f"bound {dr['bound_ms']:.4f} {dr['bound_by']})")
+            del x, xb, out
+        del q, scales, d, d_plain
+    for residual in (False, True):
+        _dequant_table_check(gen, buckets, residual)
+    log(f"bf16 plan: codec_encode from each bucket's dtype and codec_decode "
+        f"to it bit-identical to plain at all {len(buckets)} buckets, "
+        f"int8_block and fp8_block; fused_dequant_update_buckets over the "
+        f"plan in one launch a step, bit-identical to the plain walk over "
+        f"2 steps, residual off and on")
+    row = _dequant_table_row(dev, gen, buckets, flush)
+    del flush
+    return enc_rows, dec_rows, row
+
+
 def dp_launch_counts() -> dict:
+    """The train phase's counts, the codecs' (the bf16 forms apart: a
+    launch from or to bf16 counts under ``codec_encode`` and again under
+    ``codec_encode_bf16``) and the dequantizing update's."""
     from paddle_tpu_torch.ops import codec
     from paddle_tpu_torch.ops import fused_update as fu
 
     return {**train_launch_counts(), **codec.launch_counts(),
-            "fused_dequant_update": fu.fused_dequant_update.launches}
+            "codec_encode_bf16": codec.block_encode.dtypes[torch.bfloat16],
+            "codec_decode_bf16": codec.block_decode.dtypes[torch.bfloat16],
+            "fused_dequant_update": fu.fused_dequant_update_buckets.launches}
 
 
 def reset_dp_launch_counts() -> None:
@@ -1682,12 +1900,13 @@ def _param_checksum(model) -> str:
 
     h = hashlib.sha256()
     for p in model.parameters():
-        h.update(p.detach().cpu().numpy().tobytes())
+        h.update(p.detach().cpu().view(-1).view(torch.uint8).numpy()
+                 .tobytes())
     return h.hexdigest()
 
 
-def _dp_setup(device, seed, b, s, layers=None, threads=None):
-    """One rank: the process group, GPT-125M (``layers`` cut) from seed 0
+def _dp_setup(cfg, device, seed, b, s, layers=None, threads=None):
+    """One rank: the process group, ``cfg`` (``layers`` cut) from seed 0
     on ``device``, AdamW, TrainStep on the int8_block wire, and the
     global batch of ``b`` rows a rank from ``seed``."""
     import dataclasses
@@ -1696,14 +1915,12 @@ def _dp_setup(device, seed, b, s, layers=None, threads=None):
                                               init_parallel_env)
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (GPTForCausalLM,
-                                         GPTPretrainingCriterion,
-                                         gpt_presets)
+                                         GPTPretrainingCriterion)
     from paddle_tpu_torch.optimizer import AdamW
 
     if threads:
         torch.set_num_threads(threads)
     env = init_parallel_env()
-    cfg = gpt_presets("gpt-125m")
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     model = GPTForCausalLM(cfg, seed=0, device=device)
@@ -1717,19 +1934,55 @@ def _dp_setup(device, seed, b, s, layers=None, threads=None):
     return env, get_rank(), cfg, model, step, ids, labels
 
 
-def dp_train_rank(seed, warmup, steps, wire_steps, b, s, device="cuda",
-                  layers=None):
-    """One rank of the "dp train" phase (run by ``spawn``)."""
+def _data_parallel_rounds(cfg, device, ids, labels, rank, b, rounds):
+    """``DataParallel(grad_comm="int8_block")`` on a fresh replica of
+    ``cfg``: ``rounds`` forward and backward passes on this rank's rows,
+    ``apply_collective_grads`` (a bf16 model's buckets encoded from bf16,
+    then from the fp32 sum with the residual, and decoded to bf16) and
+    the port's eager AdamW; launch counts reset just before and read just
+    after. Returns the losses, the counts and the parameters' sha256."""
+    from paddle_tpu_torch.distributed import DataParallel
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForCausalLM(cfg, seed=0, device=device)
+    dp = DataParallel(model, grad_comm="int8_block")
+    opt = AdamW(learning_rate=LR, weight_decay=WD,
+                parameters=model.parameters())
+    crit = GPTPretrainingCriterion()
+    x = torch.as_tensor(ids[rank * b:(rank + 1) * b], device=device)
+    y = torch.as_tensor(labels[rank * b:(rank + 1) * b], device=device)
+    reset_dp_launch_counts()
+    losses = []
+    for _ in range(rounds):
+        opt.clear_grad()
+        loss = dp.scale_loss(crit(dp(x), y))
+        loss.backward()
+        dp.apply_collective_grads()
+        opt.step()
+        losses.append(float(loss))
+    return {"losses": losses, "counts": dp_launch_counts(),
+            "checksum": _param_checksum(model)}
+
+
+def dp_train_rank(cfg, seed, warmup, steps, wire_steps, b, s, device="cuda",
+                  layers=None, dp_rounds=0):
+    """One rank of a "dp train" phase (run by ``spawn``); with
+    ``dp_rounds``, ``_data_parallel_rounds`` after it."""
     from paddle_tpu_torch.distributed import collective as coll
     from paddle_tpu_torch.ops import codec
     from paddle_tpu_torch.ops import fused_update as fu
 
-    env, rank, cfg, model, step, ids, labels = _dp_setup(device, seed, b, s,
-                                                         layers)
+    env, rank, cfg, model, step, ids, labels = _dp_setup(cfg, device, seed,
+                                                         b, s, layers)
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    losses = [float(step(inputs=(ids,), labels=(labels,)))
-              for _ in range(warmup)]
+    reset_dp_launch_counts()
+    losses = [float(step(inputs=(ids,), labels=(labels,)))]
+    first = dp_launch_counts()       # the step with no residual yet
+    losses += [float(step(inputs=(ids,), labels=(labels,)))
+               for _ in range(warmup - 1)]
     sync()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -1740,7 +1993,7 @@ def dp_train_rank(seed, warmup, steps, wire_steps, b, s, device="cuda",
         losses.append(float(step(inputs=(ids,), labels=(labels,))))
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = dp_launch_counts()
-    sizes = dict(fu.fused_dequant_update.sizes)
+    sizes = dict(fu.fused_dequant_update_buckets.sizes)
     encode_shapes = dict(codec.block_encode.shapes)
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
     # the wire alone: every all-reduce (the step and the communicator
@@ -1763,32 +2016,42 @@ def dp_train_rank(seed, warmup, steps, wire_steps, b, s, device="cuda",
             losses.append(float(step(inputs=(ids,), labels=(labels,))))
     finally:
         coll.all_reduce = all_reduce
-    return {"rank": rank, "backend": env.backend, "losses": losses,
-            "step_ms": step_ms, "counts": counts, "dequant_sizes": sizes,
-            "encode_shapes": encode_shapes,
-            "peak_memory_gib": peak, "comm_stats": step.comm_stats,
-            "allreduce_ms_per_step": wire["seconds"] * 1e3 / wire_steps,
-            "allreduces_per_step": wire["calls"] / wire_steps,
-            "buckets": [b.size for b in step.buckets],
-            "checksum": _param_checksum(model)}
+    out = {"rank": rank, "backend": env.backend, "losses": losses,
+           "step_ms": step_ms, "counts": counts, "first_step_counts": first,
+           "dequant_sizes": sizes, "encode_shapes": encode_shapes,
+           "peak_memory_gib": peak, "comm_stats": step.comm_stats,
+           "allreduce_ms_per_step": wire["seconds"] * 1e3 / wire_steps,
+           "allreduces_per_step": wire["calls"] / wire_steps,
+           "buckets": [b.size for b in step.buckets],
+           "bucket_dtypes": [str(b.dtype) for b in step.buckets],
+           "table_builds": step.updater.table_builds,
+           "checksum": _param_checksum(model)}
+    if dp_rounds:
+        del step, model
+        out["data_parallel"] = _data_parallel_rounds(cfg, device, ids, labels,
+                                                     rank, b, dp_rounds)
+    return out
 
 
 def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
-                   s=DP_S, device="cuda", layers=None):
-    """GPT-125M data parallel on the int8_block wire: two ranks on the
-    one card (gloo, host-staged), each on its half of the global batch."""
+                   s=DP_S, device="cuda", layers=None, dp_rounds=0):
+    """GPT-125M (``cfg``: fp32, or bf16 at bench.py's configuration) data
+    parallel on the int8_block wire: two ranks on the one card (gloo,
+    host-staged), each on its half of the global batch; with
+    ``dp_rounds``, DataParallel after it (``_data_parallel_rounds``)."""
     from paddle_tpu_torch.distributed import spawn
 
     t0 = time.perf_counter()
     ranks = spawn(dp_train_rank,
-                  args=(seed, warmup, steps, wire_steps, b, s, device,
-                        layers),
+                  args=(cfg, seed, warmup, steps, wire_steps, b, s, device,
+                        layers, dp_rounds),
                   nprocs=DP_WORLD, timeout=DP_RANK_TIMEOUT)
     r0 = ranks[0]
     nb = len(r0["buckets"])
     med = statistics.median(r0["step_ms"])
+    wire_bytes = sum(n + 4 * -(-n // DP_BLOCK) for n in r0["buckets"])
     summary = {
-        "backend": r0["backend"], "world": DP_WORLD,
+        "dtype": cfg.dtype, "backend": r0["backend"], "world": DP_WORLD,
         "batch_per_rank": [b, s], "buckets": nb,
         "losses": r0["losses"],
         "step_ms": [r["step_ms"] for r in ranks], "step_ms_median": med,
@@ -1799,9 +2062,15 @@ def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
         "comm_stats": r0["comm_stats"],
         "peak_memory_gib": [r["peak_memory_gib"] for r in ranks],
         "launches_per_rank": [r["counts"] for r in ranks],
+        "first_step_launches": r0["first_step_counts"],
+        "table_builds": [r["table_builds"] for r in ranks],
         "checksums": [r["checksum"][:16] for r in ranks],
         "seconds": time.perf_counter() - t0}
-    log("dp train " + json.dumps(summary))
+    if dp_rounds:
+        summary["data_parallel"] = [
+            {**r["data_parallel"], "checksum":
+             r["data_parallel"]["checksum"][:16]} for r in ranks]
+    log(f"dp train {cfg.dtype} " + json.dumps(summary))
     losses = r0["losses"]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite dp training loss: {losses}")
@@ -1815,12 +2084,21 @@ def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
     if any(r["backend"] != "gloo" for r in ranks):
         raise AssertionError(f"backend {[r['backend'] for r in ranks]}, "
                              f"expected gloo (one card, two ranks)")
+    if r0["comm_stats"]["comm_bytes"] != wire_bytes:
+        raise AssertionError(f"{r0['comm_stats']['comm_bytes']} wire bytes "
+                             f"a step, the plan gives {wire_bytes}")
     n_layers = layers or cfg.num_layers
-    want = {"flash_fwd": n_layers * steps, "flash_dq": n_layers * steps,
-            "flash_dkv": n_layers * steps, "flash_fwd_bf16": 0,
-            "flash_dq_bf16": 0, "flash_dkv_bf16": 0,
-            "fused_update": 0, "codec_encode": nb * steps,
-            "codec_decode": 0, "fused_dequant_update": nb * steps}
+    ran = "_bf16" if cfg.dtype == "bfloat16" else ""
+    want = {name + sfx: n_layers * steps * (sfx == ran)
+            for sfx in ("", "_bf16")
+            for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    want.update(fused_update=0, codec_encode=nb * steps,
+                codec_encode_bf16=0, codec_decode=0, codec_decode_bf16=0,
+                fused_dequant_update=steps)
+    # the first step has no residual: each bf16 bucket encoded from bf16
+    n_bf16 = r0["bucket_dtypes"].count("torch.bfloat16")
+    want_first = {**{k: v // steps for k, v in want.items()},
+                  "codec_encode_bf16": n_bf16}
     want_shapes = Counter()
     for n in r0["buckets"]:
         key = (-(-n // DP_BLOCK), DP_BLOCK, "int8_block", True)
@@ -1829,14 +2107,45 @@ def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
         if r["counts"] != want:
             raise AssertionError(f"rank {r['rank']} launch counts "
                                  f"{r['counts']}, expected {want}")
+        if r["first_step_counts"] != want_first:
+            raise AssertionError(f"rank {r['rank']} first-step launch "
+                                 f"counts {r['first_step_counts']}, "
+                                 f"expected {want_first}")
         if r["encode_shapes"] != want_shapes:
             raise AssertionError(f"rank {r['rank']} codec_encode launches "
                                  f"by shape {r['encode_shapes']}, expected "
                                  f"{dict(want_shapes)}")
+        if r["table_builds"] != 1:
+            raise AssertionError(f"rank {r['rank']}: the update table was "
+                                 f"built {r['table_builds']} times")
     if r0["allreduces_per_step"] != 2 * nb + 1:
         raise AssertionError(f"{r0['allreduces_per_step']} all-reduces a "
                              f"step, expected {2 * nb + 1}")
+    if dp_rounds:
+        _check_data_parallel([r["data_parallel"] for r in ranks], nb, n_bf16,
+                             n_layers, dp_rounds, ran)
     return r0
+
+
+def _check_data_parallel(runs, nb, n_bf16, n_layers, rounds, ran):
+    """DataParallel's rounds on both ranks: losses finite, the replicas
+    identical, every bucket encoded once a round (the bf16 ones from bf16
+    in the first round) and decoded once a round to its dtype."""
+    if not all(math.isfinite(x) for r in runs for x in r["losses"]):
+        raise AssertionError(f"non-finite DataParallel loss: "
+                             f"{[r['losses'] for r in runs]}")
+    if len({r["checksum"] for r in runs}) != 1:
+        raise AssertionError("the DataParallel replicas differ")
+    want = {name + sfx: n_layers * rounds * (sfx == ran)
+            for sfx in ("", "_bf16")
+            for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    want.update(fused_update=0, codec_encode=nb * rounds,
+                codec_encode_bf16=n_bf16, codec_decode=nb * rounds,
+                codec_decode_bf16=n_bf16 * rounds, fused_dequant_update=0)
+    for rank, r in enumerate(runs):
+        if r["counts"] != want:
+            raise AssertionError(f"rank {rank} DataParallel launch counts "
+                                 f"{r['counts']}, expected {want}")
 
 
 def dp_parity_rank(seed, b, s, layers, device):
@@ -1844,8 +2153,11 @@ def dp_parity_rank(seed, b, s, layers, device):
     parameter, both steps' changes, its step-1 local gradient and the
     gradient each step decoded (the bucket reduced again from the same
     local gradient and residual, which gives the same payload)."""
+    from paddle_tpu_torch.models import gpt_presets
+
     env, rank, cfg, model, step, ids, labels = _dp_setup(
-        device, seed, b, s, layers, threads=4 if device == "cpu" else None)
+        gpt_presets("gpt-125m"), device, seed, b, s, layers,
+        threads=4 if device == "cpu" else None)
     comm = step.grad_comm_communicator
     names = [n for n, _ in model.named_parameters()]
     params = step.updater.params
@@ -1917,9 +2229,158 @@ def phase_dp_parity(seed, layers=2, b=2, s=128):
     return r
 
 
+def _dp_state(step) -> dict:
+    """What one data-parallel step starts from: CPU copies of the
+    updater's flat parameters and slots (the slots a first step starts
+    from when there are none yet) and of the communicator's residuals,
+    and the residual tensors themselves."""
+    upd, comm = step.updater, step.grad_comm_communicator
+    slots = [upd._slots.get(b.index) or upd._init_flat_slots(b)
+             for b in upd.buckets]
+    return {"p": [upd._flat_p[b.index].detach().cpu().clone()
+                  for b in upd.buckets],
+            "slots": [{k: v.detach().cpu().clone() for k, v in sl.items()}
+                      for sl in slots],
+            "res": {i: r.cpu().clone() for i, r in comm._residuals.items()},
+            "res_card": dict(comm._residuals)}
+
+
+def _dp_replay(step, before, world) -> dict:
+    """The step just taken, again on the CPU through the plain versions,
+    from ``before`` (``_dp_state``) and this rank's local gradients (still
+    in the updater's buffers): each bucket encoded, its scales and payload
+    summed over the same gloo group, the dequantizing update walked;
+    then each bucket reduced again on the card and decoded to its dtype
+    by codec_decode, against the plain decode of the CPU's payload.
+    Returns the elements that differ, by what."""
+    from paddle_tpu_torch.distributed import GradCommunicator
+    from paddle_tpu_torch.distributed import grad_comm as plain
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    upd, comm = step.updater, step.grad_comm_communicator
+    kind, hyper = upd._rule
+    bs = comm.config.block_size
+    cpu_comm = GradCommunicator(comm.config, group=comm.group)
+    entries, payloads = [], []
+    with torch.no_grad():
+        for b in upd.buckets:
+            local = upd._flat_g[b.index].detach().cpu().clone()
+            q, scales, new_res, *_ = cpu_comm.reduce_bucket_payload(
+                b, local, world, residual=before["res"].get(b.index))
+            cpu_comm._residuals[b.index] = new_res
+            payloads.append((q.clone(), scales.clone()))
+            sl = before["slots"][b.index]
+            lm, wd = upd._hypers[b.index]
+            entries.append((before["p"][b.index].clone(),
+                            fu.WirePayload(q, scales, None, b.dtype),
+                            [sl["moment1"].clone(), sl["moment2"].clone()],
+                            wd, lm))
+        table = fu.BucketTable(kind, hyper, entries, block_size=bs)
+        table.load_powers([(sl["beta1_pow"], sl["beta2_pow"])
+                           for sl in before["slots"]])
+        fu.fused_dequant_update_buckets(
+            table, upd.optimizer._lr_tensor(torch.device("cpu")), world)
+    differ = Counter()
+
+    def held(what, card, cpu):
+        card = card.detach().cpu()
+        if card.dtype != cpu.dtype or card.shape != cpu.shape:
+            differ[what] += cpu.numel()
+        else:
+            differ[what] += int((card.reshape(-1).view(torch.uint8)
+                                 != cpu.reshape(-1).view(torch.uint8))
+                                .sum())
+
+    for b, (p, _, (m1, m2), *_), (b1, b2) in zip(upd.buckets, table.entries,
+                                                 table.powers()):
+        sl = upd._slots[b.index]
+        held("params", upd._flat_p[b.index], p)
+        held("moment1", sl["moment1"], m1)
+        held("moment2", sl["moment2"], m2)
+        held("beta_pows", torch.stack([sl["beta1_pow"], sl["beta2_pow"]]),
+             torch.stack([b1, b2]))
+        held("residuals", comm._residuals[b.index],
+             cpu_comm._residuals[b.index])
+    with torch.no_grad():     # the decode, on the card's re-reduction
+        for b, (q, scales) in zip(upd.buckets, payloads):
+            dec, *_ = comm.reduce_bucket(
+                b, upd._flat_g[b.index], world,
+                residual=before["res_card"].get(b.index))
+            qc, sc = comm._wire[b.index]
+            held("payload", qc, q)
+            held("scales", sc, scales)
+            held("decoded", dec, plain.block_decode(q, scales, world, b.size,
+                                                    dtype=b.dtype))
+    return dict(differ)
+
+
+def dp_parity_bf16_rank(cfg, seed, b, s, layers, device):
+    """One rank of the "dp parity bf16" phase: two int8_block steps of the
+    bf16 model (``cfg`` cut to ``layers``); on the card each step is
+    replayed on the CPU by ``_dp_replay``."""
+    # 4 threads a rank: the card's ranks replay on the CPU too
+    env, rank, cfg, model, step, ids, labels = _dp_setup(
+        cfg, device, seed, b, s, layers, threads=4)
+    on_card = torch.device(device).type == "cuda"
+    losses, replays = [], []
+    for _ in range(2):
+        before = _dp_state(step) if on_card else None
+        losses.append(float(step(inputs=(ids,), labels=(labels,))))
+        if on_card:
+            replays.append(_dp_replay(step, before, env.world_size))
+    return {"losses": losses, "checksum": _param_checksum(model),
+            "backend": env.backend, "replays": replays,
+            "elements": sum(bk.size for bk in step.buckets)}
+
+
+def phase_dp_parity_bf16(cfg, seed, layers=2, b=2, s=128):
+    """The bf16 model (``cfg``) at ``layers`` layers, world 2, global
+    batch 2b x s, two int8_block steps: on the card each step replayed on
+    the CPU from the card's own local gradients and state, parameters,
+    moments, beta powers, residuals, payloads, scales and the bf16 decode
+    bit for bit (the wire, apart from the model's numerics); then the
+    same two steps on the CPU end to end, losses within BF16_LOSS_RTOL of
+    the card's."""
+    from torch_checks import BF16_LOSS_RTOL
+
+    from paddle_tpu_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        ranks = spawn(dp_parity_bf16_rank,
+                      args=(cfg, seed + 5, b, s, layers, device),
+                      nprocs=DP_WORLD, timeout=DP_RANK_TIMEOUT)
+        if ranks[0]["checksum"] != ranks[1]["checksum"]:
+            raise AssertionError(f"{device}: the ranks' parameters differ")
+        runs[device] = ranks
+    card, cpu = runs["cuda"][0], runs["cpu"][0]
+    bad = [(r, k, d) for r, rank in enumerate(runs["cuda"])
+           for k, rep in enumerate(rank["replays"]) for d in rep.items()
+           if d[1]]
+    log(f"dp bf16 wire, card vs its CPU replay ({cfg.dtype}, {layers} "
+        f"layers, world 2, global b{DP_WORLD * b} s{s}, "
+        f"{card['elements']} elements): "
+        + ("parameters, moments, beta powers, residuals, payloads, scales "
+           "and the bf16 decode bit-identical on both ranks in both steps"
+           if not bad else f"differ: {bad}"))
+    if bad:
+        raise AssertionError(f"the card's dp step differs from its CPU "
+                             f"replay: {bad}")
+    rel = [abs(a - c) / abs(c) for a, c in zip(card["losses"],
+                                                cpu["losses"])]
+    log(f"dp bf16 card vs CPU end to end: losses {card['losses']} vs "
+        f"{cpu['losses']} (rel {max(rel):.2e}, limit {BF16_LOSS_RTOL}); "
+        f"the phase {time.perf_counter() - t0:.1f} s")
+    if not max(rel) <= BF16_LOSS_RTOL:
+        raise AssertionError("card and CPU bf16 dp losses differ beyond "
+                             f"{BF16_LOSS_RTOL}")
+    return {"loss_rel": max(rel), "elements": card["elements"]}
+
+
 def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
-                 bf16_rows, bf16_counts):
+                 bf16_rows, bf16_counts, dp16):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -1936,7 +2397,14 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     kernels' times summed, and flash_dq has none of its own. The bf16
     forms are entries of their own (``flash_fwd_bf16`` etc. at the bf16
     train step, ``fused_update_bf16``: the same kernel over the bf16
-    plan), their launches those of the bf16 train phase."""
+    plan), their launches those of the bf16 train phase. So are the
+    gradient wire's bf16 forms (``dp16``: phase 13's bf16 rows and rank 0
+    of the dp-train bf16 phase): ``codec_encode_bf16`` at the largest
+    bf16 bucket (the others in ``at_shapes``), its launches those of the
+    TrainStep's first step, the one that encodes from bf16, and of the
+    DataParallel rounds; ``codec_decode_bf16`` likewise, its launches the
+    DataParallel rounds'; ``fused_dequant_update_bf16``, the one launch
+    over the bf16 plan, its launches the timed steps'."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -2008,14 +2476,28 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                         replaces=f"paddle_tpu/ops/quant_matmul.py:{line}",
                         launches=launches, **_numbers(main),
                         at_shapes=[_numbers(r) for r in rest]))
-    sizes = dp_rank["dequant_sizes"]
-    top = max(sizes, key=lambda n: (sizes[n], n))
-    out.append(dict(name="fused_dequant_update", route="cuda",
-                    source=fu.KERNEL_SOURCE,
-                    replaces="paddle_tpu/ops/pallas/fused_update.py:134",
-                    launches=dp_rank["counts"]["fused_dequant_update"],
-                    **_numbers(dp_row), most_launched_bucket=top,
-                    launches_at_bucket=sizes[top]))
+    for name, row, rank in (("fused_dequant_update", dp_row, dp_rank),
+                            ("fused_dequant_update_bf16", dp16["table"],
+                             dp16["rank"])):
+        out.append(dict(name=name, route="cuda", source=fu.KERNEL_SOURCE,
+                        replaces="paddle_tpu/ops/pallas/fused_update.py:134",
+                        launches=rank["counts"]["fused_dequant_update"],
+                        buckets_a_launch=len(rank["buckets"]),
+                        **_numbers(row)))
+    r16 = dp16["rank"]
+    dp_counts = r16["data_parallel"]["counts"]
+    for name, rows, launches, line in (
+            ("codec_encode_bf16", dp16["encode"],
+             r16["first_step_counts"]["codec_encode_bf16"]
+             + dp_counts["codec_encode_bf16"], 93),
+            ("codec_decode_bf16", dp16["decode"],
+             dp_counts["codec_decode_bf16"], 138)):
+        bf = {nb: r for nb, r in rows.items() if "bfloat16" in r["shape"]}
+        main = max(bf)
+        out.append(dict(name=name, route="cuda", source=KERNEL_SOURCE,
+                        replaces=f"paddle_tpu/ops/pallas/codec.py:{line}",
+                        launches=launches, **_numbers(bf.pop(main)),
+                        at_shapes=[_numbers(r) for r in bf.values()]))
     return {"kernels": out}
 
 
@@ -2093,10 +2575,21 @@ def main(argv=None) -> int:
     phase_infer_parity(dev, args.seed)
     torch.cuda.empty_cache()
 
+    # bench.py's own training configuration (measure_gpt, bench.py:166)
+    cfg16 = gpt_presets("gpt-125m", max_position_embeddings=1024,
+                        dtype="bfloat16")
+    plan16 = bucket_plan(cfg16)
     before = clocks("before dp-kernels")
     dp_row, carrier_rows = phase_dp_kernels(dev, gen, plan)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    enc16, dec16, table16 = phase_dp_kernels_bf16(dev, gen, plan16)
+    log(f"dp-kernels, the bf16 plan: {time.perf_counter() - t0:.1f} s")
     timed = {"fused_dequant_update": dp_row,
-             **{f"carrier {nb}": r for nb, r in carrier_rows.items()}}
+             "fused_dequant_update bf16 plan": table16,
+             **{f"carrier {nb}": r for nb, r in carrier_rows.items()},
+             **{f"carrier from bf16 plan {nb}": r for nb, r in enc16.items()},
+             **{f"decode to bf16 plan {nb}": r for nb, r in dec16.items()}}
     stamp(timed.values(), before, clocks("after dp-kernels"))
     log_ratios("dp-kernels", timed)
     torch.cuda.empty_cache()
@@ -2107,10 +2600,6 @@ def main(argv=None) -> int:
     phase_dp_parity(args.seed)
     torch.cuda.empty_cache()
 
-    # bench.py's own training configuration (measure_gpt, bench.py:166)
-    cfg16 = gpt_presets("gpt-125m", max_position_embeddings=1024,
-                        dtype="bfloat16")
-    plan16 = bucket_plan(cfg16)
     before = clocks("before train-kernels bf16")
     bf16_rows = phase_train_kernels_bf16(dev, gen, plan16)
     stamp(bf16_rows.values(), before, clocks("after train-kernels bf16"))
@@ -2128,12 +2617,25 @@ def main(argv=None) -> int:
     lm_head_gemms(dev, gen, cfg16)
     torch.cuda.empty_cache()
     phase_train_parity(cfg16, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    dp16_rank = phase_dp_train(cfg16, args.seed, steps=DP16_STEPS,
+                               dp_rounds=2)
+    if [(n, dt) for n, dt in zip(dp16_rank["buckets"],
+                                 dp16_rank["bucket_dtypes"])] != \
+            [(b.size, str(b.dtype)) for b in plan16]:
+        raise AssertionError("the bf16 dp train step's bucket plan is not "
+                             "the timed one")
+    torch.cuda.empty_cache()
+    phase_dp_parity_bf16(cfg16, args.seed)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    dp16 = {"encode": enc16, "decode": dec16, "table": table16,
+            "rank": dp16_rank}
     print(json.dumps(kernels_line(rows, counts, train_rows, train_counts,
                                   infer_rows, conversion, infer_counts,
                                   dp_row, carrier_rows, dp_rank, bf16_rows,
-                                  bf16_counts)))
+                                  bf16_counts, dp16)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

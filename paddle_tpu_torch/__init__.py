@@ -17,7 +17,9 @@ with weight quantization and the quantized matmul on two CUDA kernels
 Slice 4: data-parallel training on the quantized gradient wire, one
 process per rank over ``torch.distributed``, each bucket's summed
 payload decoded inside the optimizer update by a CUDA kernel
-(``csrc/fused_update.cu`` ``fused_dequant_update``):
+(``csrc/fused_update.cu``, one launch a step over every bucket). Later
+slices: bf16 GPT training on bf16 forms of the flash and update kernels,
+and bf16 buckets on the gradient wire (the codecs read and write bf16):
 
   framework/   device resolution (cuda by default), serving flags,
                per-request random streams

@@ -8,7 +8,9 @@
 //
 // What they compute, over a row-major [nb, bs] layout with one fp32 scale
 // per row (block):
-//   encode: q = x / s[row] with an IEEE divide (__fdiv_rn; the build uses
+//   encode: x fp32 or bf16, lifted to fp32 (exact; the reference's
+//           _as_blocks makes the same fp32 values), then
+//           q = x / s[row] with an IEEE divide (__fdiv_rn; the build uses
 //           no --use_fast_math), then
 //           int8_block: rintf (half-to-even), clamp to [-127, 127], int8;
 //           fp8_block:  float8_e4m3fn, round-to-nearest-even, saturating.
@@ -19,10 +21,13 @@
 //           or the gradient wire's carrier, which the sum over ranks
 //           neither wraps nor rounds: int8 values as int32, fp8 values
 //           as fp32 (grad_comm.py block_encode(carrier=True)).
-//   decode: out[i] = (float(q[i]) * s[row]) / world for i < numel, fp32,
-//           from the 1-byte wire dtype or from a (summed) carrier;
-//           when world is a power of two the divide is a multiply by
-//           its exact inverse (the same correctly rounded result).
+//   decode: out[i] = (float(q[i]) * s[row]) / world for i < numel, from
+//           the 1-byte wire dtype or from a (summed) carrier, stored
+//           fp32 or rounded once to bf16 (__float2bfloat16_rn, nearest
+//           even, as the reference's .astype(bfloat16) and PyTorch's
+//           .to(bfloat16) round); when world is a power of two the
+//           divide is a multiply by its exact inverse (the same
+//           correctly rounded result).
 // Bits equal the plain versions' (and the JAX reference's): the same
 // correctly rounded divide, multiply and conversions.
 //
@@ -34,6 +39,8 @@
 //   encode, 1024 tokens: read 75.5 MB fp32, write 18.9 MB int8   ~ 28 us
 //   decode, 1024 tokens: read 18.9 MB, write 75.5 MB             ~ 28 us
 //   a gradient bucket of 4615 blocks, int32 carrier: 37.8 MB     ~ 11 us
+//   a bf16 bucket reads 2 bytes an element instead of 4 (6 bytes an
+//   element with the int32 carrier), and a decode to bf16 writes 2
 //   one decode step, batch 8: ~0.7 MB, 0.2 us of bytes against a launch
 //   of several us; no design of the kernel moves that.
 //
@@ -64,15 +71,23 @@
 //  - Only a quad that reaches past the end (the last row's tail) is
 //    read or written element by element; every other quad is one
 //    access.
-//  - The vector accesses need 16-byte aligned pointers (every caller of
-//    the port: the buffers are their own allocations). Any other start
-//    takes the element-by-element path everywhere: right, and slower.
+//  - A bf16 quad is one 8-byte access, lifted to fp32 by a shift of its
+//    bits (exact); a bf16 output quad is one 8-byte store. So the bf16
+//    forms keep the fp32 forms' layout, rows and interleaved quads, and
+//    move fewer bytes.
+//  - The vector accesses need pointers aligned to a quad's bytes (16 for
+//    fp32 and int32, 8 for bf16, 16 for the 1-byte wire as the caller
+//    allocates it; every caller of the port: the buffers are their own
+//    allocations). Any other start takes the element-by-element path
+//    everywhere: right, and slower.
 
+#include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 namespace {
 
@@ -82,6 +97,8 @@ constexpr int kQuadStride = 32 * 4;           // elements between them
 constexpr int kWarpSpan = kQuads * kQuadStride;   // elements a warp takes
 constexpr int kInt8 = 0;
 constexpr int kFp8 = 1;
+constexpr int kF32 = 0;   // element types of the encode's input and the
+constexpr int kBf16 = 1;  // decode's output
 
 // four elements of each type, moved in one access
 template <typename T> struct Quad;
@@ -103,6 +120,39 @@ __device__ __forceinline__ typename Quad<T>::type load_quad(const T* p,
   r.z = left > 2 ? p[2] : T(0);
   r.w = left > 3 ? p[3] : T(0);
   return r;
+}
+
+// bf16 bits in the low or high half of a 32-bit word, as fp32 (exact)
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// x rounded to bf16, nearest even, as its 16 bits
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// p[0..3] lifted to fp32: fp32 as load_quad reads it; bf16 in one 8-byte
+// streaming access when VEC and all four lie below the end, else element
+// by element, the ones at or past the end reading as 0
+template <typename InT, bool VEC>
+__device__ __forceinline__ float4 load_in(const InT* p, int64_t left) {
+  if constexpr (std::is_same_v<InT, float>) {
+    return load_quad<float, VEC>(p, left);
+  } else {
+    if (VEC && left >= 4) {
+      const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
+      return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
+                         bf16_hi(u.y));
+    }
+    return make_float4(left > 0 ? __bfloat162float(p[0]) : 0.0f,
+                       left > 1 ? __bfloat162float(p[1]) : 0.0f,
+                       left > 2 ? __bfloat162float(p[2]) : 0.0f,
+                       left > 3 ? __bfloat162float(p[3]) : 0.0f);
+  }
 }
 
 // p[0..3] = v, in one access when VEC and all four lie below the end,
@@ -176,6 +226,28 @@ __device__ __forceinline__ float decode_one(InT v, float s, float w) {
   return POW2 ? __fmul_rn(y, w) : __fdiv_rn(y, w);
 }
 
+// decoded values stored: fp32 as store_quad writes them; bf16 each
+// rounded to nearest even, in one 8-byte access when VEC and all four
+// lie below the end, else only the elements below it
+template <typename OutT, bool VEC>
+__device__ __forceinline__ void store_out(OutT* p, const float4& v,
+                                          int64_t left) {
+  if constexpr (std::is_same_v<OutT, float>) {
+    store_quad<float, VEC>(p, v, left);
+  } else {
+    const uint32_t b0 = bf16_bits(v.x), b1 = bf16_bits(v.y),
+                   b2 = bf16_bits(v.z), b3 = bf16_bits(v.w);
+    if (VEC && left >= 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(b0 | b1 << 16, b2 | b3 << 16);
+      return;
+    }
+    if (left > 0) p[0] = __ushort_as_bfloat16(b0);
+    if (left > 1) p[1] = __ushort_as_bfloat16(b1);
+    if (left > 2) p[2] = __ushort_as_bfloat16(b2);
+    if (left > 3) p[3] = __ushort_as_bfloat16(b3);
+  }
+}
+
 template <int CODEC, typename OutT>
 __device__ __forceinline__ typename Quad<OutT>::type encode_quad(float4 v,
                                                                  float s) {
@@ -212,9 +284,9 @@ __device__ __forceinline__ int64_t row_stride() {
   return static_cast<int64_t>(gridDim.y) * blockDim.y;
 }
 
-template <int CODEC, typename OutT, bool VEC>
+template <int CODEC, typename InT, typename OutT, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-    encode_kernel(const float* __restrict__ x,
+    encode_kernel(const InT* __restrict__ x,
                   const float* __restrict__ scales, OutT* __restrict__ out,
                   int64_t n, int64_t nb, int64_t bs) {
   const int64_t e = quad_offset();
@@ -227,7 +299,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < kQuads; ++k) {   // every load in flight first
       const int64_t at = i + k * kQuadStride;
       if (e + k * kQuadStride < bs)
-        v[k] = load_quad<float, VEC>(x + at, n - at);
+        v[k] = load_in<InT, VEC>(x + at, n - at);
     }
 #pragma unroll
     for (int k = 0; k < kQuads; ++k) {   // past n: encode(0), as padded
@@ -239,10 +311,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int CODEC, typename InT, bool VEC, bool POW2>
+template <int CODEC, typename InT, typename OutT, bool VEC, bool POW2>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const InT* __restrict__ q,
-                  const float* __restrict__ scales, float* __restrict__ out,
+                  const float* __restrict__ scales, OutT* __restrict__ out,
                   int64_t numel, int64_t nb, int64_t bs, float w) {
   const int64_t e = quad_offset();
   if (e >= bs) return;
@@ -261,9 +333,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < kQuads; ++k) {
       const int64_t at = i + k * kQuadStride;
       if (e + k * kQuadStride < bs)
-        store_quad<float, VEC>(out + at,
-                               decode_quad<CODEC, InT, POW2>(v[k], s, w),
-                               numel - at);
+        store_out<OutT, VEC>(out + at,
+                             decode_quad<CODEC, InT, POW2>(v[k], s, w),
+                             numel - at);
     }
   }
 }
@@ -289,72 +361,103 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <int CODEC, typename OutT>
+// a quad of T starts on its own size: 16 bytes for fp32 and int32, 8 for
+// bf16 (the 1-byte wire is held to 16 as well)
+template <typename T>
+inline bool quad_aligned(const void* p) {
+  return sizeof(T) == 2 ? reinterpret_cast<uintptr_t>(p) % 8 == 0
+                        : aligned16(p);
+}
+
+template <int CODEC, typename InT, typename OutT>
 void launch_encode(const void* x, const void* scales, void* out, int64_t n,
                    int64_t nb, int64_t bs, cudaStream_t st) {
   const Launch l = launch_for(nb, bs);
-  const auto* xp = static_cast<const float*>(x);
+  const auto* xp = static_cast<const InT*>(x);
   const auto* sp = static_cast<const float*>(scales);
   auto* op = static_cast<OutT*>(out);
-  if (aligned16(x) && aligned16(out))
-    encode_kernel<CODEC, OutT, true><<<l.grid, l.block, 0, st>>>(
+  if (quad_aligned<InT>(x) && aligned16(out))
+    encode_kernel<CODEC, InT, OutT, true><<<l.grid, l.block, 0, st>>>(
         xp, sp, op, n, nb, bs);
   else
-    encode_kernel<CODEC, OutT, false><<<l.grid, l.block, 0, st>>>(
+    encode_kernel<CODEC, InT, OutT, false><<<l.grid, l.block, 0, st>>>(
         xp, sp, op, n, nb, bs);
 }
 
-template <int CODEC, typename InT, bool VEC>
+template <int CODEC, typename OutT>
+void launch_encode(const void* x, const void* scales, void* out, int64_t n,
+                   int64_t nb, int64_t bs, int in_type, cudaStream_t st) {
+  if (in_type == kBf16)
+    launch_encode<CODEC, __nv_bfloat16, OutT>(x, scales, out, n, nb, bs, st);
+  else
+    launch_encode<CODEC, float, OutT>(x, scales, out, n, nb, bs, st);
+}
+
+template <int CODEC, typename InT, typename OutT, bool VEC>
 void launch_decode(const Launch& l, const void* q, const void* scales,
                    void* out, int64_t numel, int64_t nb, int64_t bs,
                    float world, cudaStream_t st) {
   const auto* qp = static_cast<const InT*>(q);
   const auto* sp = static_cast<const float*>(scales);
-  auto* op = static_cast<float*>(out);
+  auto* op = static_cast<OutT*>(out);
   int e;
   if (std::frexp(world, &e) == 0.5f)   // world = 2^(e - 1)
-    decode_kernel<CODEC, InT, VEC, true><<<l.grid, l.block, 0, st>>>(
+    decode_kernel<CODEC, InT, OutT, VEC, true><<<l.grid, l.block, 0, st>>>(
         qp, sp, op, numel, nb, bs, std::ldexp(1.0f, 1 - e));
   else
-    decode_kernel<CODEC, InT, VEC, false><<<l.grid, l.block, 0, st>>>(
+    decode_kernel<CODEC, InT, OutT, VEC, false><<<l.grid, l.block, 0, st>>>(
         qp, sp, op, numel, nb, bs, world);
+}
+
+template <int CODEC, typename InT, typename OutT>
+void launch_decode(const void* q, const void* scales, void* out,
+                   int64_t numel, int64_t nb, int64_t bs, float world,
+                   cudaStream_t st) {
+  const Launch l = launch_for(nb, bs);
+  if (aligned16(q) && quad_aligned<OutT>(out))
+    launch_decode<CODEC, InT, OutT, true>(l, q, scales, out, numel, nb, bs,
+                                          world, st);
+  else
+    launch_decode<CODEC, InT, OutT, false>(l, q, scales, out, numel, nb, bs,
+                                           world, st);
 }
 
 template <int CODEC, typename InT>
 void launch_decode(const void* q, const void* scales, void* out,
                    int64_t numel, int64_t nb, int64_t bs, float world,
-                   cudaStream_t st) {
-  const Launch l = launch_for(nb, bs);
-  if (aligned16(q) && aligned16(out))
-    launch_decode<CODEC, InT, true>(l, q, scales, out, numel, nb, bs, world,
-                                    st);
+                   int out_type, cudaStream_t st) {
+  if (out_type == kBf16)
+    launch_decode<CODEC, InT, __nv_bfloat16>(q, scales, out, numel, nb, bs,
+                                             world, st);
   else
-    launch_decode<CODEC, InT, false>(l, q, scales, out, numel, nb, bs,
-                                     world, st);
+    launch_decode<CODEC, InT, float>(q, scales, out, numel, nb, bs, world,
+                                     st);
 }
 
 }  // namespace
 
-// x: fp32 [n], n <= nb * bs, read in place (any 4-byte aligned start);
-// bs % 4 == 0; scales: fp32 [nb]; out: [nb * bs] of the 1-byte wire
-// dtype (carrier 0) or of the carrier (carrier 1: int32 for int8_block,
-// fp32 for fp8_block), the elements from n on encoding x = 0. codec: 0 =
-// int8_block, 1 = fp8_block. Returns cudaGetLastError().
+// x: [n] of in_type (0 fp32, 1 bf16), n <= nb * bs, read in place (any
+// start aligned to its element); bs % 4 == 0; scales: fp32 [nb]; out:
+// [nb * bs] of the 1-byte wire dtype (carrier 0) or of the carrier
+// (carrier 1: int32 for int8_block, fp32 for fp8_block), the elements
+// from n on encoding x = 0. codec: 0 = int8_block, 1 = fp8_block.
+// Returns cudaGetLastError().
 extern "C" int codec_encode(const void* x, const void* scales, void* out,
                             int64_t n, int64_t nb, int64_t bs, int codec,
-                            int carrier, void* stream) {
+                            int carrier, int in_type, void* stream) {
   if (nb == 0) return static_cast<int>(cudaSuccess);
-  if (bs <= 0 || bs % 4 || n > nb * bs)
+  if (bs <= 0 || bs % 4 || n > nb * bs || (in_type != kF32 &&
+                                           in_type != kBf16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (codec == kInt8 && !carrier) {
-    launch_encode<kInt8, uint8_t>(x, scales, out, n, nb, bs, st);
+    launch_encode<kInt8, uint8_t>(x, scales, out, n, nb, bs, in_type, st);
   } else if (codec == kInt8) {
-    launch_encode<kInt8, int32_t>(x, scales, out, n, nb, bs, st);
+    launch_encode<kInt8, int32_t>(x, scales, out, n, nb, bs, in_type, st);
   } else if (codec == kFp8 && !carrier) {
-    launch_encode<kFp8, uint8_t>(x, scales, out, n, nb, bs, st);
+    launch_encode<kFp8, uint8_t>(x, scales, out, n, nb, bs, in_type, st);
   } else if (codec == kFp8) {
-    launch_encode<kFp8, float>(x, scales, out, n, nb, bs, st);
+    launch_encode<kFp8, float>(x, scales, out, n, nb, bs, in_type, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -362,27 +465,33 @@ extern "C" int codec_encode(const void* x, const void* scales, void* out,
 }
 
 // q: [nb * bs] of the payload type `wire`: 0 int8, 1 fp8 e4m3 (1 byte
-// each), 2 int32 carrier, 3 fp32 carrier; scales: fp32 [nb]; out: fp32
-// [numel], numel <= nb * bs; bs % 4 == 0. Returns cudaGetLastError().
+// each), 2 int32 carrier, 3 fp32 carrier; scales: fp32 [nb]; out:
+// [numel] of out_type (0 fp32, 1 bf16), numel <= nb * bs; bs % 4 == 0.
+// Returns cudaGetLastError().
 extern "C" int codec_decode(const void* q, const void* scales, void* out,
                             int64_t nb, int64_t bs, int64_t numel, int wire,
-                            float world, void* stream) {
+                            float world, int out_type, void* stream) {
   if (numel == 0) return static_cast<int>(cudaSuccess);
-  if (bs <= 0 || bs % 4 || numel > nb * bs)
+  if (bs <= 0 || bs % 4 || numel > nb * bs || (out_type != kF32 &&
+                                               out_type != kBf16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (wire) {
     case 0:
-      launch_decode<kInt8, uint8_t>(q, scales, out, numel, nb, bs, world, st);
+      launch_decode<kInt8, uint8_t>(q, scales, out, numel, nb, bs, world,
+                                    out_type, st);
       break;
     case 1:
-      launch_decode<kFp8, uint8_t>(q, scales, out, numel, nb, bs, world, st);
+      launch_decode<kFp8, uint8_t>(q, scales, out, numel, nb, bs, world,
+                                   out_type, st);
       break;
     case 2:
-      launch_decode<kInt8, int32_t>(q, scales, out, numel, nb, bs, world, st);
+      launch_decode<kInt8, int32_t>(q, scales, out, numel, nb, bs, world,
+                                    out_type, st);
       break;
     case 3:
-      launch_decode<kFp8, float>(q, scales, out, numel, nb, bs, world, st);
+      launch_decode<kFp8, float>(q, scales, out, numel, nb, bs, world,
+                                 out_type, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -4,11 +4,14 @@
 //   fused_update_buckets <- _plain_kernel (fused_update.py:122, launched by
 //                           fused_update_flat :223, once per bucket by
 //                           paddle_tpu/optimizer/fused.py:189-214)
-//   fused_dequant_update <- _dequant_kernel (fused_update.py:134, launched
-//                           by fused_dequant_update_flat :283)
+//   fused_dequant_update_buckets
+//                        <- _dequant_kernel (fused_update.py:134, launched
+//                           by fused_dequant_update_flat :283, once per
+//                           bucket by paddle_tpu/jit/__init__.py:763-800)
 // Plain PyTorch versions and wrappers: paddle_tpu_torch/ops/fused_update.py
-// (buckets_plain / fused_update_buckets, reference_dequant_update_flat /
-// fused_dequant_update).
+// (buckets_plain / fused_update_buckets, fused_dequant_update_buckets;
+// reference_dequant_update_flat is the plain dequantizing update of one
+// bucket).
 //
 // What they compute: one SGD / Momentum / Adam / AdamW step over fp32
 // elements, in place: p (and the slots) are read, updated and written
@@ -40,14 +43,20 @@
 // which no thread of the launch reads (the caller alternates two
 // buffers), so no thread can read a power another has already stepped.
 //
-// fused_dequant_update takes, instead of the gradient, the gradient wire's
-// payload summed over `world` ranks: int8 values in an int32 carrier or
-// fp8 values in an fp32 carrier, with one fp32 scale per block_size
-// elements, and an optional fp32 residual. Each element's gradient is
-// block_decode's chain, q * scale[i / block_size] (__fmul_rn), then
-// / world (__fdiv_rn, a true division: the plain version divides by a
-// device tensor), then + residual; the update follows in registers. The
-// decoded gradient never reaches device memory. It runs once per bucket.
+// fused_dequant_update_buckets walks the same table, each bucket carrying,
+// instead of the gradient, the gradient wire's payload summed over
+// `world` ranks: int8 values in an int32 carrier or fp8 values in an
+// fp32 carrier (one carrier type a launch), with one fp32 scale per
+// block_size elements, and an optional fp32 residual. Each element's
+// gradient is block_decode's chain, q * scale[i / block_size]
+// (__fmul_rn), then / world (__fdiv_rn, a true division: the plain
+// version divides by a device tensor), then + residual, then the
+// reference's cast chain (_dequant_kernel, fused_update.py:148): rounded
+// to the bucket's dtype, then to the parameters' dtype, and lifted to
+// fp32, which for a bucket of bf16 parameters, or a bf16 bucket over
+// fp32 ones, is one __float2bfloat16_rn and back; the update follows in
+// registers. The decoded gradient never reaches device memory. It runs
+// once a step over every bucket, fp32 and bf16 alike.
 //
 // What bounds them: device-memory bytes. AdamW reads p, g (or the 4-byte
 // carrier), m1, m2 and writes p, m1, m2: 28 bytes per element for ~20
@@ -55,20 +64,22 @@
 // (124.5 M parameters) moves 3.49 GB per step, 1.04 ms at 3.35 TB/s; the
 // int32 carrier is as wide as the fp32 gradient, so the two kernels share
 // the bound. A bf16 bucket moves 22 bytes an element (p 2 + 2, g 2,
-// moments 8 + 8): GPT-125M in bf16, 2.74 GB, 0.82 ms (times on the card:
-// PERF.md).
+// moments 8 + 8): GPT-125M in bf16, 2.74 GB, 0.82 ms; from the carrier
+// 24 bytes (q 4), 2.99 GB, 0.89 ms (times on the card: PERF.md).
 //
 // Design: one thread per chunk of consecutive elements, 4 in an fp32
 // bucket and 8 in a bf16 one, so the parameters and the gradient are one
 // 16-byte vector a thread either way (the moments two in a bf16 bucket);
 // the wrappers check 16-byte alignment. A bucket's ragged tail (n % 4 or
-// n % 8) is a scalar loop in its last thread. The update kernel's grid
-// covers the chunks of every bucket, one after the other; a thread finds
-// its chunk's bucket by a binary search over the table's first chunks.
+// n % 8) is a scalar loop in its last thread. A launch's grid covers the
+// chunks of every bucket, one after the other; a thread finds its
+// chunk's bucket by a binary search over the table's first chunks.
 // Nothing is staged in shared memory: each element is touched once. The
-// dequantizing kernel reads one scale for the thread's 4 elements when
-// they share a block, else one per element, so every block_size is
-// taken.
+// two kernels share the walk and the update; they differ only in where a
+// chunk's gradient comes from (PlainGrad, DequantGrad). The dequantizing
+// one reads the chunk's carrier as one or two 16-byte vectors and one
+// scale for the chunk when its elements share a block, else one per
+// element, so every block_size is taken.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,11 +133,11 @@ __device__ __forceinline__ void update_one(float& p, float g, float& s0,
   }
 }
 
-// One bucket of a fused_update_buckets launch. ops/fused_update.py
-// (BucketTable) packs the same 80-byte layout as ten 8-byte words.
+// One bucket of a launch. ops/fused_update.py (BucketTable) packs the
+// same 112-byte layout as fourteen 8-byte words.
 struct Bucket {
   void* p;                // fp32 or bf16 (dtype)
-  const void* g;          // the parameters' dtype
+  const void* g;          // the parameters' dtype (null in a dequant table)
   float* s0;              // velocity or moment1 (null for sgd)
   float* s1;              // moment2 (null unless adam / adamw)
   const float* pow_in;    // adam: [beta1^t, beta2^t]
@@ -135,9 +146,15 @@ struct Bucket {
   int64_t start;          // the bucket's first chunk in the launch
   float wd;
   float lm;               // lr_mult
-  int64_t dtype;          // 0: fp32 p and g, 4 elements a chunk; 1: bf16, 8
+  int64_t dtype;          // 0: fp32 p and g, 4 elements a chunk; 1: bf16,
+                          // 8; 2: fp32 p whose dequantized gradient is
+                          // rounded to bf16 (a bf16 bucket), 4
+  const void* q;          // dequant: the summed carrier, [>= n]
+  const float* scales;    // dequant: fp32 [ceil(n / bs)]
+  const float* res;       // dequant: fp32 residual [n], or null
+  int64_t bs;             // dequant: elements a scale
 };
-static_assert(sizeof(Bucket) == 80, "BucketTable packs 10 words a bucket");
+static_assert(sizeof(Bucket) == 112, "BucketTable packs 14 words a bucket");
 
 // The parameters' and gradients' element type of a bucket: fp32 as it
 // is, bf16 lifted to fp32 and rounded back to nearest even.
@@ -157,24 +174,98 @@ template <> struct Elem<__nv_bfloat16> {
   }
 };
 
-// Update elements [i, i + kChunk) of bucket e (or its tail up to n): p
-// and g as one 16-byte vector, each moment as kChunk / 4 float4s.
-template <int KIND, typename P>
+// The gradient of a plain update: g in the parameters' dtype, lifted to
+// fp32 (the cast to the parameters' dtype is a no-op: the bucket holds
+// it), a chunk as one 16-byte vector.
+struct PlainGrad {
+  template <typename P, int C>
+  __device__ __forceinline__ void chunk(const Bucket& e, int64_t i,
+                                        float (&g)[C]) const {
+    const uint4 gv =
+        *reinterpret_cast<const uint4*>(static_cast<const P*>(e.g) + i);
+    const P* gx = reinterpret_cast<const P*>(&gv);
+#pragma unroll
+    for (int k = 0; k < C; ++k) g[k] = Elem<P>::load(gx[k]);
+  }
+  template <typename P>
+  __device__ __forceinline__ float one(const Bucket& e, int64_t j) const {
+    return Elem<P>::load(static_cast<const P*>(e.g)[j]);
+  }
+};
+
+template <typename Q> struct Vec4;
+template <> struct Vec4<int32_t> { using type = int4; };
+template <> struct Vec4<float> { using type = float4; };
+
+// The gradient of a dequantizing update, decoded from the summed carrier
+// Q (int32 or fp32): block_decode's chain, then the cast chain.
+template <typename Q>
+struct DequantGrad {
+  float world;
+
+  // (q * scale) / world (+ residual), rounded to bf16 and back where the
+  // bucket or the parameters are bf16
+  __device__ __forceinline__ float decode(const Bucket& e, Q q, float s,
+                                          float r) const {
+    float g = __fdiv_rn(__fmul_rn(static_cast<float>(q), s), world);
+    if (e.res != nullptr) g = __fadd_rn(g, r);
+    return e.dtype ? __bfloat162float(__float2bfloat16_rn(g)) : g;
+  }
+
+  template <typename P, int C>
+  __device__ __forceinline__ void chunk(const Bucket& e, int64_t i,
+                                        float (&g)[C]) const {
+    using V = typename Vec4<Q>::type;
+    const Q* __restrict__ q = static_cast<const Q*>(e.q) + i;
+    Q qv[C];
+    float r[C];
+#pragma unroll
+    for (int k = 0; k < C; k += 4) {
+      const V v = *reinterpret_cast<const V*>(q + k);
+      qv[k] = v.x; qv[k + 1] = v.y; qv[k + 2] = v.z; qv[k + 3] = v.w;
+      const float4 rv = e.res != nullptr
+                            ? *reinterpret_cast<const float4*>(e.res + i + k)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      r[k] = rv.x; r[k + 1] = rv.y; r[k + 2] = rv.z; r[k + 3] = rv.w;
+    }
+    const int64_t blk = i / e.bs;
+    if ((i + C - 1) / e.bs == blk) {   // one block: one scale
+      const float s = __ldg(e.scales + blk);
+#pragma unroll
+      for (int k = 0; k < C; ++k) g[k] = decode(e, qv[k], s, r[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < C; ++k)
+        g[k] = decode(e, qv[k], __ldg(e.scales + (i + k) / e.bs), r[k]);
+    }
+  }
+  template <typename P>
+  __device__ __forceinline__ float one(const Bucket& e, int64_t j) const {
+    return decode(e, static_cast<const Q*>(e.q)[j],
+                  __ldg(e.scales + j / e.bs),
+                  e.res != nullptr ? e.res[j] : 0.0f);
+  }
+};
+
+// Update elements [i, i + kChunk) of bucket e (or its tail up to n), the
+// gradient from `grad`: p as one 16-byte vector, each moment as
+// kChunk / 4 float4s.
+template <int KIND, typename P, class Grad>
 __device__ __forceinline__ void update_chunk(const Bucket& e, int64_t i,
                                              const Hyper& h, float lr,
-                                             float c1, float c2) {
+                                             float c1, float c2,
+                                             const Grad& grad) {
   constexpr bool kSlot0 = KIND != kSgd;
   constexpr bool kSlot1 = KIND == kAdam || KIND == kAdamW;
   constexpr int C = Elem<P>::kChunk;
   P* __restrict__ p = static_cast<P*>(e.p);
-  const P* __restrict__ g = static_cast<const P*>(e.g);
   float* __restrict__ s0 = e.s0;
   float* __restrict__ s1 = e.s1;
   if (i + C <= e.n) {
     uint4 pv = *reinterpret_cast<const uint4*>(p + i);
-    const uint4 gv = *reinterpret_cast<const uint4*>(g + i);
+    float gx[C];
+    grad.template chunk<P, C>(e, i, gx);
     P* px = reinterpret_cast<P*>(&pv);
-    const P* gx = reinterpret_cast<const P*>(&gv);
     float a[C], b[C];
 #pragma unroll
     for (int q = 0; q < C; q += 4) {
@@ -188,7 +279,7 @@ __device__ __forceinline__ void update_chunk(const Bucket& e, int64_t i,
 #pragma unroll
     for (int q = 0; q < C; ++q) {
       float pj = Elem<P>::load(px[q]);
-      update_one<KIND>(pj, Elem<P>::load(gx[q]), a[q], b[q], h, lr, c1, c2);
+      update_one<KIND>(pj, gx[q], a[q], b[q], h, lr, c1, c2);
       px[q] = Elem<P>::store(pj);
     }
     *reinterpret_cast<uint4*>(p + i) = pv;
@@ -205,7 +296,7 @@ __device__ __forceinline__ void update_chunk(const Bucket& e, int64_t i,
     for (int64_t j = i; j < e.n; ++j) {
       float a = kSlot0 ? s0[j] : 0.f, b = kSlot1 ? s1[j] : 0.f;
       float pj = Elem<P>::load(p[j]);
-      update_one<KIND>(pj, Elem<P>::load(g[j]), a, b, h, lr, c1, c2);
+      update_one<KIND>(pj, grad.template one<P>(e, j), a, b, h, lr, c1, c2);
       p[j] = Elem<P>::store(pj);
       if (kSlot0) s0[j] = a;
       if (kSlot1) s1[j] = b;
@@ -215,11 +306,11 @@ __device__ __forceinline__ void update_chunk(const Bucket& e, int64_t i,
 
 // One thread per chunk c of the launch's `total`, in bucket order;
 // thread b < nb also steps bucket b's beta powers (adam).
-template <int KIND>
-__global__ void __launch_bounds__(kThreads)
-update_kernel(const Bucket* __restrict__ table, int nb, int64_t total,
-              const float* __restrict__ lr_dev, Hyper h) {
-  constexpr bool kSlot0 = KIND != kSgd;
+template <int KIND, class Grad>
+__device__ __forceinline__ void walk_table(const Bucket* __restrict__ table,
+                                           int nb, int64_t total,
+                                           const float* __restrict__ lr_dev,
+                                           Hyper h, const Grad& grad) {
   constexpr bool kSlot1 = KIND == kAdam || KIND == kAdamW;
   const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -242,83 +333,26 @@ update_kernel(const Bucket* __restrict__ table, int nb, int64_t total,
       kSlot1 ? __fsub_rn(1.0f, __fmul_rn(e.pow_in[0], h.h0)) : 1.0f;
   const float c2 =
       kSlot1 ? __fsub_rn(1.0f, __fmul_rn(e.pow_in[1], h.h1)) : 1.0f;
-  if (e.dtype)
-    update_chunk<KIND, __nv_bfloat16>(e, (c - e.start) * 8, h, lr, c1, c2);
+  if (e.dtype == 1)
+    update_chunk<KIND, __nv_bfloat16>(e, (c - e.start) * 8, h, lr, c1, c2,
+                                      grad);
   else
-    update_chunk<KIND, float>(e, (c - e.start) * 4, h, lr, c1, c2);
+    update_chunk<KIND, float>(e, (c - e.start) * 4, h, lr, c1, c2, grad);
 }
 
-template <typename Q>
-__device__ __forceinline__ float carrier_value(Q q) {
-  return static_cast<float>(q);   // exact: |q| <= 127 * world, or fp8
+template <int KIND>
+__global__ void __launch_bounds__(kThreads)
+update_kernel(const Bucket* __restrict__ table, int nb, int64_t total,
+              const float* __restrict__ lr_dev, Hyper h) {
+  walk_table<KIND>(table, nb, total, lr_dev, h, PlainGrad{});
 }
 
-// the decoded, averaged gradient of one element (block_decode's chain)
-template <typename Q>
-__device__ __forceinline__ float dequant_one(Q q, float scale, float world,
-                                             const float* res, int64_t j) {
-  float g = __fdiv_rn(__fmul_rn(carrier_value(q), scale), world);
-  if (res != nullptr) g = __fadd_rn(g, res[j]);
-  return g;
-}
-
-template <typename Q> struct Vec4;
-template <> struct Vec4<int32_t> { using type = int4; };
-template <> struct Vec4<float> { using type = float4; };
-
+// the carrier's value is exact in fp32: |q| <= 127 * world, or fp8 sums
 template <int KIND, typename Q>
 __global__ void __launch_bounds__(kThreads)
-dequant_update_kernel(float* __restrict__ p, const Q* __restrict__ q,
-                      const float* __restrict__ scales,
-                      const float* __restrict__ res, float* __restrict__ s0,
-                      float* __restrict__ s1, const float* __restrict__ svec,
-                      int64_t n, int64_t bs, float world, Hyper h) {
-  constexpr bool kSlot0 = KIND != kSgd;
-  constexpr bool kSlot1 = KIND == kAdam || KIND == kAdamW;
-  const int64_t i =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (i >= n) return;
-  const float lr = svec[0];
-  const float c1 = kSlot1 ? svec[1] : 1.0f;
-  const float c2 = kSlot1 ? svec[2] : 1.0f;
-  if (i + 4 <= n) {
-    const int64_t blk = i / bs;
-    float sc[4];
-    if ((i + 3) / bs == blk) {
-      sc[0] = sc[1] = sc[2] = sc[3] = __ldg(scales + blk);
-    } else {
-      for (int k = 0; k < 4; ++k) sc[k] = __ldg(scales + (i + k) / bs);
-    }
-    const typename Vec4<Q>::type qv =
-        *reinterpret_cast<const typename Vec4<Q>::type*>(q + i);
-    float4 pv = *reinterpret_cast<const float4*>(p + i);
-    float4 a = kSlot0 ? *reinterpret_cast<const float4*>(s0 + i)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 b = kSlot1 ? *reinterpret_cast<const float4*>(s1 + i)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    update_one<KIND>(pv.x, dequant_one(qv.x, sc[0], world, res, i), a.x, b.x,
-                     h, lr, c1, c2);
-    update_one<KIND>(pv.y, dequant_one(qv.y, sc[1], world, res, i + 1), a.y,
-                     b.y, h, lr, c1, c2);
-    update_one<KIND>(pv.z, dequant_one(qv.z, sc[2], world, res, i + 2), a.z,
-                     b.z, h, lr, c1, c2);
-    update_one<KIND>(pv.w, dequant_one(qv.w, sc[3], world, res, i + 3), a.w,
-                     b.w, h, lr, c1, c2);
-    *reinterpret_cast<float4*>(p + i) = pv;
-    if (kSlot0) *reinterpret_cast<float4*>(s0 + i) = a;
-    if (kSlot1) *reinterpret_cast<float4*>(s1 + i) = b;
-  } else {
-    for (int64_t j = i; j < n; ++j) {
-      float a = kSlot0 ? s0[j] : 0.f, b = kSlot1 ? s1[j] : 0.f;
-      float pj = p[j];
-      update_one<KIND>(pj, dequant_one(q[j], __ldg(scales + j / bs), world,
-                                       res, j),
-                       a, b, h, lr, c1, c2);
-      p[j] = pj;
-      if (kSlot0) s0[j] = a;
-      if (kSlot1) s1[j] = b;
-    }
-  }
+dequant_kernel(const Bucket* __restrict__ table, int nb, int64_t total,
+               const float* __restrict__ lr_dev, float world, Hyper h) {
+  walk_table<KIND>(table, nb, total, lr_dev, h, DequantGrad<Q>{world});
 }
 
 // Calls launch(std::integral_constant<int, KIND>{}) for the rule `kind`
@@ -335,8 +369,10 @@ int with_kind(int kind, F&& launch) {
   return static_cast<int>(cudaGetLastError());
 }
 
-inline unsigned int grid_for(int64_t n) {
-  return static_cast<unsigned int>(((n + 3) / 4 + kThreads - 1) / kThreads);
+// a thread per chunk, and at least one per bucket for its powers
+inline unsigned int grid_for(int nb, int64_t total_chunks) {
+  const int64_t threads = total_chunks > nb ? total_chunks : nb;
+  return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -358,52 +394,38 @@ extern "C" int fused_update_buckets(const void* table, int nb,
     return static_cast<int>(cudaErrorInvalidValue);
   const Hyper h{0.0f, 0, h0, h1, om0, om1, eps, nesterov};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // a thread per chunk, and at least one per bucket for its powers
-  const int64_t threads = total_chunks > nb ? total_chunks : nb;
-  const auto grid =
-      static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
   return with_kind(kind, [&](auto k) {
-    update_kernel<decltype(k)::value><<<grid, kThreads, 0, st>>>(
-        static_cast<const Bucket*>(table), nb, total_chunks,
-        static_cast<const float*>(lr), h);
+    update_kernel<decltype(k)::value>
+        <<<grid_for(nb, total_chunks), kThreads, 0, st>>>(
+            static_cast<const Bucket*>(table), nb, total_chunks,
+            static_cast<const float*>(lr), h);
   });
 }
 
-// One bucket's update (fused_update_buckets' math, its scalars prepared
-// by the caller) with the gradient decoded from the summed wire payload:
-// p, s0, s1 fp32 [n] (unused slots may be null); svec: fp32 [1] (sgd,
-// momentum) or [3] (adam, adamw) on the device, [lr * lr_mult,
-// 1 - beta1^t, 1 - beta2^t]; wd, h0, h1, om0, om1, eps, nesterov as in
-// fused_update_buckets; q: [>= n] int32 (q_is_float 0) or fp32
-// (q_is_float 1) carrier; scales: fp32 [ceil(n / bs)], element i's scale
-// at i / bs; residual: fp32 [n] or null; world: the ranks the payload was
-// summed over. Returns a cudaError_t code.
-extern "C" int fused_dequant_update(void* p, const void* q, int q_is_float,
-                                    const void* scales, const void* residual,
-                                    void* s0, void* s1, const void* svec,
-                                    int64_t n, int64_t bs, float world,
-                                    int kind, float wd, float h0, float h1,
-                                    float om0, float om1, float eps,
-                                    int nesterov, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (bs <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Hyper h{wd, wd != 0.0f, h0, h1, om0, om1, eps, nesterov};
+// fused_update_buckets with every bucket's gradient decoded from its
+// summed wire payload (the table's q, scales, res, bs; g unused): q is
+// an int32 (q_is_float 0) or fp32 (q_is_float 1) carrier in every
+// bucket; world: the ranks the payloads were summed over; the rest as in
+// fused_update_buckets. Returns a cudaError_t code.
+extern "C" int fused_dequant_update_buckets(
+    const void* table, int nb, int64_t total_chunks, const void* lr,
+    int q_is_float, float world, int kind, float h0, float h1, float om0,
+    float om1, float eps, int nesterov, void* stream) {
+  if (nb <= 0) return static_cast<int>(cudaSuccess);
+  if (table == nullptr || lr == nullptr || total_chunks < 0 || world <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Hyper h{0.0f, 0, h0, h1, om0, om1, eps, nesterov};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* pp = static_cast<float*>(p);
-  auto* sp = static_cast<const float*>(scales);
-  auto* rp = static_cast<const float*>(residual);
-  auto* ap = static_cast<float*>(s0);
-  auto* bp = static_cast<float*>(s1);
-  auto* sv = static_cast<const float*>(svec);
+  const auto* t = static_cast<const Bucket*>(table);
+  const auto* l = static_cast<const float*>(lr);
+  const unsigned int grid = grid_for(nb, total_chunks);
   return with_kind(kind, [&](auto k) {
     constexpr int K = decltype(k)::value;
     if (q_is_float)
-      dequant_update_kernel<K, float><<<grid_for(n), kThreads, 0, st>>>(
-          pp, static_cast<const float*>(q), sp, rp, ap, bp, sv, n, bs, world,
-          h);
+      dequant_kernel<K, float><<<grid, kThreads, 0, st>>>(t, nb, total_chunks,
+                                                          l, world, h);
     else
-      dequant_update_kernel<K, int32_t><<<grid_for(n), kThreads, 0, st>>>(
-          pp, static_cast<const int32_t*>(q), sp, rp, ap, bp, sv, n, bs,
-          world, h);
+      dequant_kernel<K, int32_t><<<grid, kThreads, 0, st>>>(
+          t, nb, total_chunks, l, world, h);
   });
 }

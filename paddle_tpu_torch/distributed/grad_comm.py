@@ -27,7 +27,16 @@ codec wrappers, so on the card they run the CUDA kernels. The
 error-feedback residual (what quantization dropped locally) is per rank
 and carried across calls in ``_residuals``. ``reduce_bucket_payload``
 stops at the summed payload, which the fused dequantize-and-update
-kernel (``ops/fused_update.py``) consumes without decoding it to memory.
+kernel (``ops/fused_update.py``) consumes without decoding it to memory;
+the payload and its scales live in buffers the communicator keeps per
+bucket (``_wire``), so a consumer's pointers hold from step to step.
+
+bf16 buckets ride the blockwise codecs as the reference's do: a bf16
+flat is encoded where it lies (the kernel lifts it to fp32, exactly, as
+the reference's ``_as_blocks`` does), unless error feedback adds the
+fp32 residual first, which makes the sum fp32; the residual is fp32;
+the decode rounds the fp32 ``q * scale / world`` once to the bucket's
+dtype.
 
 fp8 range: ``scales = absmax / 448`` keeps ``|x / s| <= 448 * (1 + ulp)``,
 which rounds to 448, so the cast never sees an out-of-range value
@@ -190,13 +199,16 @@ def as_blocks(flat: torch.Tensor, block_size: int) -> torch.Tensor:
 def block_absmax(flat: torch.Tensor, block_size: int) -> torch.Tensor:
     """Per-block abs-max (fp32 vector of n_blocks entries). A ragged tail
     is reduced on its own, with no padded copy of the buffer: |x| >= 0,
-    so its max equals the zero-padded block's, bit for bit."""
-    flat = flat.reshape(-1).to(torch.float32)
+    so its max equals the zero-padded block's, bit for bit. A bf16 (or
+    fp32) buffer is reduced in its own dtype and the maxima lifted: a
+    max is exact in any dtype, so the bits are those of the reference's
+    fp32 reduction, without an fp32 copy of the buffer."""
+    flat = flat.reshape(-1)
     whole = flat.numel() // block_size * block_size
     absmax = flat[:whole].view(-1, block_size).abs().amax(dim=1)
-    if whole == flat.numel():
-        return absmax
-    return torch.cat([absmax, flat[whole:].abs().amax().reshape(1)])
+    if whole != flat.numel():
+        absmax = torch.cat([absmax, flat[whole:].abs().amax().reshape(1)])
+    return absmax.to(torch.float32)
 
 
 def block_scales(absmax: torch.Tensor, codec: str) -> torch.Tensor:
@@ -205,24 +217,31 @@ def block_scales(absmax: torch.Tensor, codec: str) -> torch.Tensor:
 
 
 def block_encode(flat: torch.Tensor, scales: torch.Tensor, block_size: int,
-                 codec: str, carrier: bool = False) -> torch.Tensor:
+                 codec: str, carrier: bool = False,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Blockwise quantize with ``scales`` -> [n_blocks, bs] in the wire
     dtype, or with ``carrier=True`` in the summable carrier (int32 for
-    int8_block, fp32 for fp8_block)."""
+    int8_block, fp32 for fp8_block); ``flat`` is lifted to fp32 first
+    (exact from bf16). With ``out``, the same bits are copied into it and
+    it is returned."""
     q = as_blocks(flat, block_size) / scales[:, None]
     if codec == "int8_block":
         q = torch.round(q).clamp_(-127, 127).to(torch.int8)
     else:
         q = q.to(torch.float8_e4m3fn)
-    return q.to(CARRIER_DTYPE[codec]) if carrier else q
+    q = q.to(CARRIER_DTYPE[codec]) if carrier else q
+    return q if out is None else out.copy_(q)
 
 
 def block_decode(q: torch.Tensor, scales: torch.Tensor, world: int,
-                 numel: int) -> torch.Tensor:
-    """Dequantize a [n_blocks, bs] payload (wire dtype or carrier) to fp32
-    [numel], averaged over ``world`` replicas (1 for the KV cache)."""
+                 numel: int, dtype: torch.dtype = torch.float32
+                 ) -> torch.Tensor:
+    """Dequantize a [n_blocks, bs] payload (wire dtype or carrier) to
+    [numel], averaged over ``world`` replicas (1 for the KV cache), in
+    fp32 and then rounded once to ``dtype`` (the reference's
+    ``.astype(dtype)``)."""
     vals = q.to(torch.float32) * scales[:, None]
-    return div_rn(vals.reshape(-1)[:numel], world)
+    return div_rn(vals.reshape(-1)[:numel], world).to(dtype)
 
 
 def block_residual(flat: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
@@ -340,6 +359,10 @@ class GradCommunicator:
         self._buckets: Optional[List[GradBucket]] = None
         self._bucket_key = None
         self._residuals = {}          # bucket index -> fp32 flat residual
+        # bucket index -> (carrier [nb, bs], scales [nb]) the blockwise
+        # encode writes and the all-reduce sums in place, kept across
+        # steps so a consumer's pointers hold
+        self._wire = {}
         self.stats = {"codec": self.config.codec, "path": "eager",
                       "n_params": 0, "n_buckets": 0, "collectives": 0,
                       "comm_bytes": 0}
@@ -358,6 +381,7 @@ class GradCommunicator:
             # key and survive the first build; a new assignment drops them
             if key != self._bucket_key:
                 self._residuals.clear()
+            self._wire.clear()
             self._bucket_key = key
         return self._buckets
 
@@ -482,10 +506,19 @@ class GradCommunicator:
                       else self.config.comm_buffer_size)
             _m_fill.observe(b.nbytes / (cap_mb * _MB))
 
-    def _shared_block_scales(self, flat, codec: str, bs: int):
-        absmax = block_absmax(flat, bs)
-        _coll.all_reduce(absmax, op=ReduceOp.SUM, group=self.group)
-        return block_scales(absmax, codec)
+    def _wire_buffers(self, bucket: GradBucket, device):
+        """The bucket's carrier and scale buffers on ``device``, made at
+        its first reduction and reused while the plan holds."""
+        codec, bs = self.config.codec, self.config.block_size
+        nb = n_scale_blocks(bucket.size, bs)
+        bufs = self._wire.get(bucket.index)
+        if bufs is None or bufs[0].shape != (nb, bs) \
+                or bufs[0].device != torch.device(device):
+            bufs = self._wire[bucket.index] = (
+                torch.empty((nb, bs), dtype=CARRIER_DTYPE[codec],
+                            device=device),
+                torch.empty((nb,), dtype=torch.float32, device=device))
+        return bufs
 
     def reduce_bucket_payload(self, bucket: GradBucket, flat, world: int,
                               residual=None):
@@ -493,7 +526,12 @@ class GradCommunicator:
         ``(q_sum, scales, new_residual, wire_bytes, collectives)`` with
         ``q_sum`` the [n_blocks, block_size] carrier summed over ranks.
         The encode half is ``reduce_bucket``'s blockwise branch; the
-        decode moves into the fused update kernel."""
+        decode moves into the fused update kernel. ``flat`` is fp32 or
+        bf16; with error feedback and a residual the sum is fp32, as in
+        the reference, else a bf16 bucket is encoded from bf16 where it
+        lies. ``q_sum`` and ``scales`` are the communicator's buffers of
+        the bucket: the same tensors every step, overwritten by the
+        next reduction of the bucket."""
         codec = self.config.codec
         if codec not in BLOCK_CODECS:
             raise ValueError(
@@ -504,8 +542,11 @@ class GradCommunicator:
         if ef and residual is not None:
             flat = flat.to(torch.float32) + residual
         enc, _dec = _block_kernel_ops()
-        scales = self._shared_block_scales(flat, codec, bs)
-        q = enc(flat, scales, bs, codec, carrier=True)
+        q, scales = self._wire_buffers(bucket, flat.device)
+        absmax = block_absmax(flat, bs)
+        _coll.all_reduce(absmax, op=ReduceOp.SUM, group=self.group)
+        scales.copy_(block_scales(absmax, codec))
+        enc(flat, scales, bs, codec, carrier=True, out=q)
         new_res = block_residual(flat, q, scales, bucket.size) if ef \
             else None
         _coll.all_reduce(q, op=ReduceOp.SUM, group=self.group)
@@ -543,7 +584,7 @@ class GradCommunicator:
                 self.reduce_bucket_payload(bucket, flat, world,
                                            residual=residual if ef else None)
             _enc, dec = _block_kernel_ops()
-            reduced = dec(q, scales, world, bucket.size).to(bucket.dtype)
+            reduced = dec(q, scales, world, bucket.size, dtype=bucket.dtype)
         elif codec == "bf16" and bucket.dtype.itemsize > 2:
             wire = encode_bf16(flat)
             _coll.all_reduce(wire, op=ReduceOp.AVG, group=self.group)

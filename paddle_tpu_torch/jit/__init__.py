@@ -42,10 +42,14 @@ runs one process per rank:
 - each bucket of the communicator's plan is reduced. With a blockwise
   codec and uniform per-bucket ``(lr_mult, wd)`` (the fused path) the
   summed payload goes straight into ``FusedFlatUpdater.step_dequant``:
-  one ``fused_dequant_update`` kernel per bucket decodes and updates,
-  and the decoded gradient never reaches memory. Otherwise
+  one ``fused_dequant_update_buckets`` kernel a step decodes and updates
+  every bucket, and the decoded gradient never reaches memory. Otherwise
   ``reduce_bucket`` writes the averaged gradients into ``.grad`` and the
-  update is ``step()``;
+  update is ``step()``. A bf16 model's buckets (bf16 blocks and tables,
+  the fp32 final norm) take the same path: a bf16 bucket is encoded from
+  bf16 where it lies (from fp32 when an error-feedback residual is added
+  first, as in the reference), and its decoded gradient is rounded to
+  bf16 before the update, the reference's cast chain;
 - the error-feedback residuals are per rank, carried in
   ``grad_comm_communicator._residuals``. Every rank applies the same
   update to the same summed payload, so the replicas stay identical.
@@ -135,11 +139,6 @@ class TrainStep:
             elif not isinstance(grad_comm, GradCommConfig):
                 raise TypeError(f"grad_comm must be a GradCommConfig or a "
                                 f"codec name, got {type(grad_comm).__name__}")
-            if any(p.dtype != torch.float32 for p in params):
-                raise NotImplementedError(
-                    "TrainStep(grad_comm=...) over non-float32 parameters "
-                    "is not ported yet (ROADMAP Queue A, 'bf16 on the "
-                    "gradient wire')")
             if self.grad_accum > 1:
                 raise ValueError(
                     "TrainStep(grad_comm=...) expresses the gradient "

@@ -39,21 +39,26 @@ table's beta powers, and writes the stepped powers to a second buffer
 (the table alternates two, so no thread reads a power another thread
 has stepped). A step never waits for the card.
 
-``fused_dequant_update`` is the second kernel wrapper: the same update
-fed by the gradient wire's summed payload (``grad_comm``
-``reduce_bucket_payload``: an int32 or fp32 carrier and one fp32 scale
-per ``block_size`` elements), decoded inside the kernel as
-``q * scale / world (+ residual)``, so the decoded gradient never
-reaches device memory. It runs once per bucket, its scalars from
-``scalar_prep`` (``svec`` = ``[lr*lm, 1-beta1^t, 1-beta2^t]``, tensor
-ops on the device) read through a pointer. Its plain version,
-``reference_dequant_update_flat``, follows the reference's ``_dequant_kernel`` op for op. Unlike the
-reference, the port does not fold the bucket into 128-lane rows: the
-kernel reads ``scale[i // block_size]`` itself, so every ``block_size``
-runs it (the reference falls back to a decode and the plain update when
-``block_size % 128``). It takes fp32 buckets only. Launches are counted
-in total (``fused_dequant_update.launches``) and by bucket size
-(``fused_dequant_update.sizes``).
+``fused_dequant_update_buckets`` is the second kernel wrapper: the same
+update over a table whose entries carry, in place of the gradient, the
+gradient wire's summed payload (a :class:`WirePayload`: ``grad_comm``
+``reduce_bucket_payload``'s int32 or fp32 carrier and one fp32 scale per
+``block_size`` elements, and an optional residual), decoded inside the
+kernel as ``q * scale / world (+ residual)`` and then put through the
+reference's cast chain (rounded to the bucket's dtype, then to the
+parameters', and lifted to fp32), so the decoded gradient never reaches
+device memory. It runs once a step over every bucket, fp32 and bf16
+alike, with the scalar prep on the card as in ``fused_update_buckets``.
+Its plain version, ``reference_dequant_update_flat`` bucket by bucket,
+follows the reference's ``_dequant_kernel`` op for op;
+``fused_dequant_update_flat`` (the reference's one-bucket signature) is
+the launch on a table of one. Unlike the reference, the port does not
+fold the bucket into 128-lane rows: the kernel reads
+``scale[i // block_size]`` itself, so every ``block_size`` runs it (the
+reference falls back to a decode and the plain update when
+``block_size % 128``). Launches are counted in total
+(``fused_dequant_update_buckets.launches``) and the buckets they
+updated by size and dtype (``fused_dequant_update_buckets.sizes``).
 """
 from __future__ import annotations
 
@@ -61,7 +66,7 @@ import ctypes
 import functools
 import struct
 from collections import Counter
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -73,8 +78,8 @@ __all__ = ["FUSED_RULES", "KERNEL_SOURCE", "rule_spec", "slot_names",
            "scalar_prep", "update_math", "fused_update_flat",
            "BucketTable", "fused_update_buckets", "buckets_plain",
            "reference_update_flat", "launch_counts",
-           "reset_launch_counts", "dequant_grad",
-           "reference_dequant_update_flat", "fused_dequant_update",
+           "reset_launch_counts", "dequant_grad", "WirePayload",
+           "reference_dequant_update_flat", "fused_dequant_update_buckets",
            "fused_dequant_update_flat", "dequant_launch_counts"]
 
 KERNEL_SOURCE = "paddle_tpu_torch/csrc/fused_update.cu"
@@ -172,10 +177,9 @@ def _lib(device_index: int) -> ctypes.CDLL:
     lib.fused_update_buckets.argtypes = [p, i, ctypes.c_int64, p, i, f, f, f,
                                          f, f, i, p]
     lib.fused_update_buckets.restype = ctypes.c_int
-    lib.fused_dequant_update.argtypes = [p, p, i, p, p, p, p, p,
-                                         ctypes.c_int64, ctypes.c_int64, f,
-                                         i, f, f, f, f, f, f, i, p]
-    lib.fused_dequant_update.restype = ctypes.c_int
+    lib.fused_dequant_update_buckets.argtypes = [p, i, ctypes.c_int64, p, i,
+                                                 f, i, f, f, f, f, f, i, p]
+    lib.fused_dequant_update_buckets.restype = ctypes.c_int
     return lib
 
 
@@ -201,34 +205,49 @@ def _check_rule(kind, slot_list):
         raise ValueError(f"{kind} takes slots {slot_names(kind)}")
 
 
-def _check_svec(kind, svec, dev):
-    want = 3 if kind in ("adam", "adamw") else 1
-    if svec.device != dev or svec.dtype != torch.float32 \
-            or svec.shape != (want,):
-        raise ValueError(f"svec must be float32 [{want}] on {dev}")
-
-
-def _hyper_args(kind, hyper, wd):
-    """The kernels' scalar arguments after ``svec``'s pointer: wd, h0,
-    h1, 1 - h0, 1 - h1, eps, nesterov (fp32 rounded on the host)."""
+def _hyper_args(hyper):
+    """The kernels' rule arguments: h0, h1, 1 - h0, 1 - h1, eps,
+    nesterov (fp32 rounded on the host)."""
     h0 = hyper.get("momentum", hyper.get("beta1", 0.0))
     h1 = hyper.get("beta2", 0.0)
-    return (float(wd), h0, h1, 1 - h0, 1 - h1, hyper.get("eps", 0.0),
+    return (h0, h1, 1 - h0, 1 - h1, hyper.get("eps", 0.0),
             int(bool(hyper.get("nesterov", False))))
-
-
-def _slot_ptrs(slot_list):
-    return [s.data_ptr() for s in slot_list] + [None] * (2 - len(slot_list))
 
 
 # ------------------------------------------------------ multi-bucket table
 # 8-byte words a bucket in the kernel's table (csrc/fused_update.cu
 # Bucket): p, g, s0, s1, pow_in, pow_out, n, first chunk, (wd, lm) as two
-# fp32 bit patterns, the parameters' dtype
-TABLE_WORDS = 10
+# fp32 bit patterns, the dtype word; then the dequantizing update's q,
+# scales, residual and block size (0 in a plain table)
+TABLE_WORDS = 14
 # a bucket's parameter dtype -> (the table's dtype word, elements a
 # chunk: one 16-byte vector of parameters a thread)
 BUCKET_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}
+# the dtype word of fp32 parameters whose dequantized gradient is rounded
+# to bf16 first (a bf16 bucket over fp32 parameters)
+_BF16_GRAD_F32_P = 2
+CARRIERS = (torch.int32, torch.float32)
+
+
+class WirePayload(NamedTuple):
+    """What a dequantizing table entry carries in place of its gradient:
+    the bucket's gradient-wire payload summed over the ranks, ``q`` (an
+    int32 or fp32 carrier, ``[n_blocks, block_size]`` or flat), its fp32
+    ``scales`` (one a block), an optional fp32 ``residual`` added to the
+    decoded gradient, and the bucket's ``dtype``, to which the decoded
+    gradient is rounded before the parameters' dtype (None: the
+    parameters')."""
+    q: torch.Tensor
+    scales: torch.Tensor
+    residual: Optional[torch.Tensor] = None
+    dtype: Optional[torch.dtype] = None
+
+
+def _grad_pointers(g) -> tuple:
+    if isinstance(g, WirePayload):
+        return (g.q.data_ptr(), g.scales.data_ptr(),
+                0 if g.residual is None else g.residual.data_ptr())
+    return (g.data_ptr(),)
 
 
 def _f32_pair(a: float, b: float) -> int:
@@ -246,16 +265,18 @@ class BucketTable:
     buffers used in turn: a launch reads ``pows[parity]`` and writes
     ``pows[1 - parity]``.
 
+    With ``block_size``, the table is what ``fused_dequant_update_buckets``
+    walks: every entry's ``g`` is a :class:`WirePayload` (one carrier
+    dtype in all of them), decoded with ``block_size`` elements a scale.
+
     ``words`` is the kernel's table, ``[2, B, TABLE_WORDS]`` int64 (one
     row per parity: its pow_in and pow_out pointers swap), packed once
     here; on the card it is copied to device memory once, through pinned
     memory, without a wait. ``key`` holds every data pointer: a caller
     whose tensors moved builds a new table."""
 
-    def __init__(self, kind: str, hyper: dict,
-                 entries: Sequence[Tuple[torch.Tensor, torch.Tensor,
-                                         Sequence[torch.Tensor], float,
-                                         float]]):
+    def __init__(self, kind: str, hyper: dict, entries: Sequence[tuple],
+                 block_size: Optional[int] = None):
         if kind not in _KIND_ID:
             raise ValueError(f"kind must be one of {tuple(_KIND_ID)}, got "
                              f"{kind!r}")
@@ -266,18 +287,32 @@ class BucketTable:
         on_card = self.device.type == "cuda"
         if not on_card and self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
+        self.block_size = block_size
+        self.dequant = block_size is not None
+        if self.dequant and int(block_size) <= 0:
+            raise ValueError(f"block_size must be positive, got "
+                             f"{block_size}")
         self.entries = []
         for b, (p, g, arrs, wd, lm) in enumerate(entries):
             _check_rule(kind, arrs)
             n = p.numel()
             _check_flat(f"bucket {b} p", p, n, self.device,
                         tuple(BUCKET_DTYPES), aligned=on_card)
-            _check_flat(f"bucket {b} g", g, n, self.device, (p.dtype,),
-                        aligned=on_card)
+            if self.dequant:
+                g = self._check_payload(b, g, n, on_card)
+            else:
+                _check_flat(f"bucket {b} g", g, n, self.device, (p.dtype,),
+                            aligned=on_card)
             for name, t in zip(slot_names(kind), arrs):
                 _check_flat(f"bucket {b} {name}", t, n, self.device,
                             aligned=on_card)
             self.entries.append((p, g, list(arrs), float(wd), float(lm)))
+        if self.dequant:
+            carriers = {e[1].q.dtype for e in self.entries}
+            if len(carriers) > 1:
+                raise TypeError(f"one carrier dtype a launch, got "
+                                f"{sorted(map(str, carriers))}")
+            self.carrier = carriers.pop()
         chunks = [-(-e[0].numel() // BUCKET_DTYPES[e[0].dtype][1])
                   for e in self.entries]
         self.starts = [sum(chunks[:b]) for b in range(len(chunks))]
@@ -296,12 +331,41 @@ class BucketTable:
             if on_card else self.words)
         self.key = self.pointers(self.entries)
 
+    def _check_payload(self, b, g, n, on_card) -> WirePayload:
+        """A dequantizing entry's payload, checked, its carrier flat."""
+        if not isinstance(g, WirePayload):
+            raise TypeError(f"bucket {b}: a dequantizing table takes a "
+                            f"WirePayload, got {type(g).__name__}")
+        if g.q.dtype not in CARRIERS:
+            raise TypeError(f"bucket {b}: the carrier must be int32 or "
+                            f"fp32, q is {g.q.dtype}")
+        if g.dtype not in (None, *BUCKET_DTYPES):
+            raise TypeError(f"bucket {b}: a bucket dtype of fp32 or bf16, "
+                            f"got {g.dtype}")
+        nb = n_scale_blocks(n, self.block_size)
+        q = g.q.reshape(-1)
+        _check_flat(f"bucket {b} q", q, nb * self.block_size, self.device,
+                    CARRIERS, aligned=on_card)
+        _check_flat(f"bucket {b} scales", g.scales.reshape(-1), nb,
+                    self.device, aligned=False)
+        if g.residual is not None:
+            _check_flat(f"bucket {b} residual", g.residual, n, self.device,
+                        aligned=on_card)
+        return g._replace(q=q, scales=g.scales.reshape(-1))
+
     @staticmethod
     def pointers(entries) -> tuple:
         """Every data pointer of ``entries``, the table's identity."""
-        return tuple((p.data_ptr(), g.data_ptr(),
+        return tuple((p.data_ptr(), *_grad_pointers(g),
                       *(s.data_ptr() for s in arrs))
                      for p, g, arrs, *_ in entries)
+
+    def _dtype_word(self, p, g) -> int:
+        word = BUCKET_DTYPES[p.dtype][0]
+        if self.dequant and p.dtype == torch.float32 \
+                and g.dtype == torch.bfloat16:
+            return _BF16_GRAD_F32_P
+        return word
 
     def _pack(self, parity: int) -> torch.Tensor:
         rows = []
@@ -311,9 +375,11 @@ class BucketTable:
             if self.adam:
                 pin = self.pows[parity, b].data_ptr()
                 pout = self.pows[1 - parity, b].data_ptr()
-            rows.append([p.data_ptr(), g.data_ptr(), *slots, pin, pout,
-                         p.numel(), self.starts[b], _f32_pair(wd, lm),
-                         BUCKET_DTYPES[p.dtype][0]])
+            wire = ([*_grad_pointers(g), int(self.block_size)]
+                    if self.dequant else [0, 0, 0, 0])
+            rows.append([p.data_ptr(), 0 if self.dequant else g.data_ptr(),
+                         *slots, pin, pout, p.numel(), self.starts[b],
+                         _f32_pair(wd, lm), self._dtype_word(p, g), *wire])
         return torch.tensor(rows, dtype=torch.int64)
 
     def powers(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -329,9 +395,12 @@ class BucketTable:
         self.pows[self.parity].copy_(src.to(torch.float32))
 
 
-def buckets_plain(table: BucketTable, lr) -> None:
-    """Plain version of ``fused_update_buckets``: the table walked bucket
-    by bucket through ``reference_update_flat`` (``scalar_prep``, then
+def buckets_plain(table: BucketTable, lr, world: Optional[int] = None
+                  ) -> None:
+    """Plain version of ``fused_update_buckets`` (and, for a dequantizing
+    table, of ``fused_dequant_update_buckets`` at ``world``): the table
+    walked bucket by bucket through ``reference_update_flat`` or
+    ``reference_dequant_update_flat`` (``scalar_prep``, then
     ``update_math``), results copied back in place; Adam's stepped powers
     into the buffer the launch would write."""
     names = slot_names(table.kind)
@@ -339,9 +408,16 @@ def buckets_plain(table: BucketTable, lr) -> None:
         slots = dict(zip(names, arrs))
         if table.adam:
             slots["beta1_pow"], slots["beta2_pow"] = table.powers()[b]
-        new_p, new_s = reference_update_flat(p, g, slots, lr,
-                                             kind=table.kind,
-                                             hyper=table.hyper, lm=lm, wd=wd)
+        if table.dequant:
+            new_p, new_s = reference_dequant_update_flat(
+                p, g.q, g.scales, world, slots, lr, kind=table.kind,
+                hyper=table.hyper, block_size=table.block_size,
+                bucket_dtype=g.dtype, lm=lm, wd=wd, residual=g.residual)
+        else:
+            new_p, new_s = reference_update_flat(p, g, slots, lr,
+                                                 kind=table.kind,
+                                                 hyper=table.hyper, lm=lm,
+                                                 wd=wd)
         p.copy_(new_p)
         for nm, s in zip(names, arrs):
             s.copy_(new_s[nm])
@@ -357,8 +433,13 @@ def launch_counts() -> dict:
 
 def reset_launch_counts() -> None:
     fused_update_buckets.launches = 0
-    fused_dequant_update.launches = 0
-    fused_dequant_update.sizes.clear()
+    fused_dequant_update_buckets.launches = 0
+    fused_dequant_update_buckets.sizes.clear()
+
+
+def _check_lr(lr, dev):
+    if lr.device != dev or lr.dtype != torch.float32 or lr.numel() != 1:
+        raise ValueError(f"lr must be a float32 scalar on {dev}")
 
 
 def fused_update_buckets(table: BucketTable, lr) -> None:
@@ -366,17 +447,18 @@ def fused_update_buckets(table: BucketTable, lr) -> None:
     place, then the table's parity flips (``table.powers()`` are then the
     stepped powers). ``lr``: 0-dim fp32 tensor on the table's device.
     One kernel launch on the card, the plain walk on the CPU."""
+    if table.dequant:
+        raise ValueError("a dequantizing table: fused_dequant_update_buckets")
     if table.device.type == "cpu":
         buckets_plain(table, lr)
         return
     dev = table.device
-    if lr.device != dev or lr.dtype != torch.float32 or lr.numel() != 1:
-        raise ValueError(f"lr must be a float32 scalar on {dev}")
+    _check_lr(lr, dev)
     with torch.cuda.device(dev):
         rc = _lib(dev.index).fused_update_buckets(
             table.device_words[table.parity].data_ptr(), len(table.entries),
             table.total_chunks, lr.data_ptr(), _KIND_ID[table.kind],
-            *_hyper_args(table.kind, table.hyper, 0.0)[1:],
+            *_hyper_args(table.hyper),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"fused_update_buckets launch failed: CUDA "
@@ -386,6 +468,42 @@ def fused_update_buckets(table: BucketTable, lr) -> None:
 
 
 fused_update_buckets.launches = 0
+
+
+def fused_dequant_update_buckets(table: BucketTable, lr, world: int) -> None:
+    """``fused_update_buckets`` for a dequantizing table (built with
+    ``block_size``): every bucket's gradient decoded from its summed
+    payload, ``q * scale / world (+ residual)``, and put through the cast
+    chain, then the update, in place; the parity flips. One kernel launch
+    on the card, the plain walk on the CPU."""
+    if not table.dequant:
+        raise ValueError("a plain table: fused_update_buckets")
+    if world <= 0:
+        raise ValueError(f"world must be positive, got {world}")
+    if table.device.type == "cpu":
+        buckets_plain(table, lr, world)
+        return
+    dev = table.device
+    _check_lr(lr, dev)
+    with torch.cuda.device(dev):
+        rc = _lib(dev.index).fused_dequant_update_buckets(
+            table.device_words[table.parity].data_ptr(), len(table.entries),
+            table.total_chunks, lr.data_ptr(),
+            int(table.carrier == torch.float32), float(world),
+            _KIND_ID[table.kind], *_hyper_args(table.hyper),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"fused_dequant_update_buckets launch failed: "
+                           f"CUDA error {rc}")
+    table.parity = 1 - table.parity
+    fused_dequant_update_buckets.launches += 1
+    for p, *_ in table.entries:
+        fused_dequant_update_buckets.sizes[
+            (p.numel(), str(p.dtype).replace("torch.", ""))] += 1
+
+
+fused_dequant_update_buckets.launches = 0
+fused_dequant_update_buckets.sizes = Counter()
 
 
 def fused_update_flat(flat_p, flat_g, slots: Dict, lr, *, kind: str,
@@ -426,9 +544,9 @@ def dequant_grad(q, scales, world, block_size, n, residual=None,
 def reference_dequant_update_flat(flat_p, q, scales, world, slots, lr, *,
                                   kind, hyper, block_size, bucket_dtype=None,
                                   lm=1.0, wd=0.0, residual=None):
-    """The plain composition ``fused_dequant_update`` replaces
-    (functional): ``dequant_grad`` then ``update_math``. Returns
-    ``(new_p, new_slots)``."""
+    """The plain composition ``fused_dequant_update_buckets`` replaces,
+    one bucket (functional): ``dequant_grad`` then ``update_math``.
+    Returns ``(new_p, new_slots)``."""
     n = flat_p.numel()
     g = dequant_grad(q, scales, world, block_size, n, residual, bucket_dtype,
                      flat_p.dtype)
@@ -441,70 +559,11 @@ def reference_dequant_update_flat(flat_p, q, scales, world, slots, lr, *,
     return new_p.to(flat_p.dtype), out
 
 
-def fused_dequant_update(flat_p, q, scales, slot_list, svec, *, world: int,
-                         block_size: int, kind: str, hyper: dict,
-                         wd: float = 0.0, residual=None) -> None:
-    """One update of ``kind`` over a flat bucket from the summed payload
-    ``q`` (int32 or fp32 carrier, ``ceil(n / block_size) * block_size``
-    elements) and its fp32 ``scales``, in place on ``flat_p`` and the slot
-    tensors; ``svec`` from ``scalar_prep``."""
-    _check_rule(kind, slot_list)
-    n = flat_p.numel()
-    if flat_p.device.type == "cpu":
-        g = dequant_grad(q, scales, world, block_size, n, residual,
-                         param_dtype=flat_p.dtype)
-        new_p, new_slots = update_math(
-            flat_p.to(torch.float32), g, list(slot_list), svec, kind=kind,
-            hyper=hyper, wd=wd)
-        flat_p.copy_(new_p)
-        for s, v in zip(slot_list, new_slots):
-            s.copy_(v)
-        return
-    if flat_p.device.type != "cuda":
-        raise ValueError(f"unsupported device {flat_p.device}")
-    dev = flat_p.device
-    if block_size <= 0:
-        raise ValueError(f"block_size must be positive, got {block_size}")
-    nb = n_scale_blocks(n, block_size)
-    for name, t in (("p", flat_p), *zip(slot_names(kind), slot_list)):
-        _check_flat(name, t, n, dev)
-    if residual is not None:
-        _check_flat("residual", residual, n, dev)
-    if q.dtype not in (torch.int32, torch.float32):
-        raise TypeError(f"fused_dequant_update takes an int32 or fp32 "
-                        f"carrier, q is {q.dtype}")
-    q = q.reshape(-1)
-    _check_flat("q", q, nb * block_size, dev, dtypes=None)
-    if scales.dtype != torch.float32:
-        raise TypeError(f"scales must be float32, got {scales.dtype}")
-    _check_flat("scales", scales.reshape(-1), nb, dev)
-    _check_svec(kind, svec, dev)
-    if not n:
-        return
-    ptrs = _slot_ptrs(slot_list)
-    with torch.cuda.device(dev):
-        rc = _lib(dev.index).fused_dequant_update(
-            flat_p.data_ptr(), q.data_ptr(), int(q.dtype == torch.float32),
-            scales.data_ptr(),
-            None if residual is None else residual.data_ptr(),
-            ptrs[0], ptrs[1], svec.data_ptr(), n, int(block_size),
-            float(world), _KIND_ID[kind], *_hyper_args(kind, hyper, wd),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        raise RuntimeError(f"fused_dequant_update launch failed: CUDA "
-                           f"error {rc}")
-    fused_dequant_update.launches += 1
-    fused_dequant_update.sizes[n] += 1
-
-
-fused_dequant_update.launches = 0
-fused_dequant_update.sizes = Counter()
-
-
 def dequant_launch_counts() -> dict:
-    """Launches of ``fused_dequant_update``: total and by bucket size."""
-    return {"fused_dequant_update": fused_dequant_update.launches,
-            "sizes": dict(fused_dequant_update.sizes)}
+    """Launches of ``fused_dequant_update_buckets``, and the bucket
+    updates they made by ``(size, dtype)``."""
+    return {"fused_dequant_update": fused_dequant_update_buckets.launches,
+            "sizes": dict(fused_dequant_update_buckets.sizes)}
 
 
 def fused_dequant_update_flat(flat_p, q, scales, world: int, slots: Dict, lr,
@@ -512,21 +571,20 @@ def fused_dequant_update_flat(flat_p, q, scales, world: int, slots: Dict, lr,
                               bucket_dtype=None, lm: float = 1.0,
                               wd: float = 0.0, residual=None):
     """Fused ``block_decode`` + update over a flat bucket (the reference's
-    signature): ``scalar_prep`` then ``fused_dequant_update``. Updates
-    ``flat_p`` and the moment slots in place and returns ``(flat_p,
-    new_slots)``. The bucket must be fp32 (``bucket_dtype`` None or the
-    parameters' dtype)."""
-    if flat_p.dtype != torch.float32 or (bucket_dtype is not None
-                                         and bucket_dtype != flat_p.dtype):
-        raise NotImplementedError(
-            f"a {bucket_dtype or flat_p.dtype} bucket over {flat_p.dtype} "
-            f"parameters on the gradient wire is not ported yet (ROADMAP "
-            f"Queue A, 'bf16 on the gradient wire')")
-    svec, scalar_slots = scalar_prep(kind, hyper, slots, lr, lm)
+    signature): ``fused_dequant_update_buckets`` on a table of one.
+    ``flat_p`` is fp32 or bf16 and ``bucket_dtype`` (None: the
+    parameters') fp32 or bf16. Updates ``flat_p`` and the moment slots
+    in place and returns ``(flat_p, new_slots)`` (moment slots the same
+    tensors, beta powers stepped)."""
     arrs = [slots[nm] for nm in slot_names(kind)]
-    fused_dequant_update(flat_p, q, scales, arrs, svec, world=world,
-                         block_size=block_size, kind=kind, hyper=hyper,
-                         wd=wd, residual=residual)
+    table = BucketTable(kind, hyper,
+                        [(flat_p, WirePayload(q, scales, residual,
+                                              bucket_dtype), arrs, wd, lm)],
+                        block_size=block_size)
+    if table.adam:
+        table.load_powers([(slots["beta1_pow"], slots["beta2_pow"])])
+    fused_dequant_update_buckets(table, lr, world)
     new_slots = dict(zip(slot_names(kind), arrs))
-    new_slots.update(scalar_slots)
+    if table.adam:
+        new_slots["beta1_pow"], new_slots["beta2_pow"] = table.powers()[0]
     return flat_p, new_slots

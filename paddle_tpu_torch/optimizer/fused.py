@@ -10,7 +10,7 @@
 
     # data parallel on the quantized gradient wire: the buckets' summed
     # payloads (GradCommunicator.reduce_bucket_payload) go in instead of
-    # the gradients, one fused_dequant_update kernel per bucket
+    # the gradients, one fused_dequant_update_buckets kernel for all
     fused.step_dequant(payloads, world, block_size)
 
 The update rules are elementwise, so one kernel over a bucket's flat
@@ -18,7 +18,10 @@ buffer equals the per-parameter updates. The reference runs one kernel
 per bucket; the port runs one launch a step over a table of all the
 buckets (``ops/fused_update.py`` ``BucketTable``), built at the first
 step and rebuilt only when a pointer in it changes, which is the
-``torch.cat`` fallback below. Where the reference
+``torch.cat`` fallback below. ``step_dequant`` keeps a table of its own,
+whose entries carry the payloads; the communicator writes them into the
+same buffers every step, so that table too is built once.
+``table_builds`` counts the tables built. Where the reference
 concatenates each bucket's parameters and gradients every step and
 scatters the new values back, the port lays them out flat once: at
 construction each multi-parameter bucket gets one flat parameter buffer
@@ -48,8 +51,8 @@ import torch
 
 from ..distributed.grad_comm import build_buckets
 from ..observability.metrics import get_registry as _get_registry
-from ..ops.fused_update import (FUSED_RULES, BucketTable,
-                                fused_dequant_update_flat,
+from ..ops.fused_update import (FUSED_RULES, BucketTable, WirePayload,
+                                fused_dequant_update_buckets,
                                 fused_update_buckets, rule_spec, slot_names)
 from .optimizer import lr_mult
 
@@ -83,6 +86,8 @@ class FusedFlatUpdater:
         self._flat_g: Dict[int, torch.Tensor] = {}
         self._grad_views: Dict[int, List[torch.Tensor]] = {}
         self._table = None                   # BucketTable of the last step
+        self._dequant_table = None           # ... of the last step_dequant
+        self.table_builds = 0
         self._lr = None                      # (value, device tensor)
         with torch.no_grad():
             for b in self.buckets:
@@ -171,21 +176,29 @@ class FusedFlatUpdater:
             for pi, view in zip(b.param_indices, self._grad_views[b.index]):
                 self.params[pi].grad = view
 
-    def _bucket_table(self, grads) -> BucketTable:
-        """The table of this step's tensors: the last step's when no
-        pointer moved, else a new one. The powers the launch reads are
-        loaded from the slots when the slots do not hold the table's own
-        views (a new table, the first step, or a ``step_dequant`` in
-        between)."""
+    def _bucket_table(self, attr: str, grads, block_size=None
+                      ) -> BucketTable:
+        """The table of this step's tensors (``grads``: each bucket's
+        gradient, or its ``WirePayload`` with ``block_size``), kept in
+        ``attr``: the last one when no pointer moved, else a new one. The
+        powers the launch reads are loaded from the slots when the slots
+        do not hold the table's own views (a new table, the first step,
+        or a step of the other form in between)."""
         kind, hyper = self._rule
         names = slot_names(kind)
+        for b in self.buckets:
+            if b.index not in self._slots:
+                self._slots[b.index] = self._init_flat_slots(b)
         entries = [(self._flat_p[b.index], g,
                     [self._slots[b.index][nm] for nm in names],
                     self._hypers[b.index][1], self._hypers[b.index][0])
                    for b, g in zip(self.buckets, grads)]
-        table = self._table
-        if table is None or table.key != BucketTable.pointers(entries):
-            table = self._table = BucketTable(kind, hyper, entries)
+        table = getattr(self, attr)
+        if table is None or table.block_size != block_size \
+                or table.key != BucketTable.pointers(entries):
+            table = BucketTable(kind, hyper, entries, block_size=block_size)
+            setattr(self, attr, table)
+            self.table_builds += 1
         if table.adam:
             slots = [self._slots[b.index] for b in self.buckets]
             if any(s["beta1_pow"] is not a or s["beta2_pow"] is not c
@@ -202,11 +215,11 @@ class FusedFlatUpdater:
             self.optimizer._accumulated_steps += 1
             return
         grads = [self._flat_grads(b) for b in self.buckets]
-        for b in self.buckets:
-            if b.index not in self._slots:
-                self._slots[b.index] = self._init_flat_slots(b)
-        table = self._bucket_table(grads)
+        table = self._bucket_table("_table", grads)
         fused_update_buckets(table, self._lr_tensor(table.device))
+        self._stepped(table)
+
+    def _stepped(self, table):
         if table.adam:
             for b, (b1p, b2p) in zip(self.buckets, table.powers()):
                 self._slots[b.index].update(beta1_pow=b1p, beta2_pow=b2p)
@@ -215,27 +228,25 @@ class FusedFlatUpdater:
 
     @torch.no_grad()
     def step_dequant(self, payloads, world: int, block_size: int):
-        """One fused dequantize-and-update per bucket, in place:
+        """One fused dequantize-and-update of every bucket, in place: one
+        ``fused_dequant_update_buckets`` launch on the card.
         ``payloads[i]`` is bucket ``i``'s ``(q_sum, scales)``, the
         blockwise payload summed over ``world`` ranks (int32 or fp32
         carrier) and its per-block scales. The gradient buffers are not
-        read: the kernel decodes ``q_sum * scale / world`` itself."""
+        read: the kernel decodes ``q_sum * scale / world`` itself and
+        rounds it to the bucket's dtype."""
         if len(payloads) != len(self.buckets):
             raise ValueError(f"{len(payloads)} payloads for "
                              f"{len(self.buckets)} buckets")
-        kind, hyper = rule_spec(self.optimizer)
-        for b, (q_sum, scales) in zip(self.buckets, payloads):
-            flat_p = self._flat_p[b.index]
-            slots = self._slots.get(b.index)
-            if slots is None:
-                slots = self._init_flat_slots(b)
-            lm, wd = self._hypers[b.index]
-            _, self._slots[b.index] = fused_dequant_update_flat(
-                flat_p, q_sum, scales, world, slots,
-                self._lr_tensor(flat_p.device), kind=kind, hyper=hyper,
-                block_size=block_size, bucket_dtype=b.dtype, lm=lm, wd=wd)
-            _m_fused.inc()
-        self.optimizer._accumulated_steps += 1
+        if not self.buckets:
+            self.optimizer._accumulated_steps += 1
+            return
+        wire = [WirePayload(q_sum, scales, None, b.dtype)
+                for b, (q_sum, scales) in zip(self.buckets, payloads)]
+        table = self._bucket_table("_dequant_table", wire, block_size)
+        fused_dequant_update_buckets(table, self._lr_tensor(table.device),
+                                     world)
+        self._stepped(table)
 
     def __repr__(self):
         return (f"FusedFlatUpdater({type(self.optimizer).__name__}, "

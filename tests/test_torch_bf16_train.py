@@ -646,26 +646,15 @@ def check_gemm_settings_restored_after_a_failed_backward():
 
 def check_unported_paths_raise():
     """What stays out of this slice raises, naming its ROADMAP item: a
-    dtype other than fp32 and bf16, bf16 serving, bf16 BERT, and bf16
-    buckets on the gradient wire (``TrainStep(grad_comm=)`` and
-    ``fused_dequant_update_flat``)."""
+    dtype other than fp32 and bf16, bf16 serving and bf16 BERT. (bf16
+    buckets on the gradient wire are ported: tests/test_torch_bf16_dp.py
+    holds them against the reference.)"""
     with pytest.raises(NotImplementedError, match="other dtypes"):
         GPTForCausalLM(gpt_presets("gpt-test", dtype="float16"),
                        device="cpu")
     _, tm = _models()
     with pytest.raises(NotImplementedError, match="bf16 serving"):
         GPTDecodeModel(tm)
-    with pytest.raises(NotImplementedError, match="bf16 on the gradient"):
-        TrainStep(tm, GPTPretrainingCriterion(),
-                  AdamW(parameters=tm.parameters()), grad_comm="int8_block")
-    p = torch.zeros(2048, dtype=torch.bfloat16)
-    slots = {"moment1": torch.zeros(2048), "moment2": torch.zeros(2048),
-             "beta1_pow": torch.ones(()), "beta2_pow": torch.ones(())}
-    with pytest.raises(NotImplementedError, match="bf16 on the gradient"):
-        tfu.fused_dequant_update_flat(
-            p, torch.zeros(2048, dtype=torch.int32), torch.ones(2), 1,
-            slots, torch.tensor(LR), kind="adamw",
-            hyper=FUSED_HYPER["adamw"], block_size=1024)
     bert = BertForPretraining(bert_presets("bert-test"), device="cpu")
     bert.to(torch.bfloat16)
     with pytest.raises(NotImplementedError, match="bf16 BERT"):

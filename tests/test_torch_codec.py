@@ -6,7 +6,9 @@ The same numpy inputs go through
   - the reference's jnp pair (``paddle_tpu.distributed.grad_comm``) and its
     Pallas kernels in interpret mode (``paddle_tpu.ops.pallas.codec``).
 Tolerance: none. Payload bits (int8 and float8_e4m3fn) and decoded fp32
-values are compared for exact equality.
+values are compared for exact equality. The bf16 forms: a bf16 flat's
+abs-max, payload (wire dtype and carrier, ``out=`` too) and residual,
+and a decode to bf16 at world 2 and 3, bit for bit the reference's.
 
 The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
 (``requires_cuda``, no JAX import) and ``chip_smoke.py`` hold them
@@ -109,6 +111,62 @@ def check_decode_matches_jnp_pair_and_pallas_kernel(codec, n, bs, world):
         assert np.allclose(t_d.numpy(), np.asarray(kern), rtol=2e-7, atol=0)
 
 
+def _bf16_input(n, bs, codec, seed):
+    """``_inputs`` rounded to bf16: the torch tensor and the same values
+    as a JAX bf16 array."""
+    t = torch.from_numpy(_inputs(n, bs, codec, seed)).to(torch.bfloat16)
+    return t, jnp.asarray(t.to(torch.float32).numpy()).astype(jnp.bfloat16)
+
+
+def check_bf16_encode_matches_reference(codec, n, bs, carrier):
+    """A bf16 flat, encoded where it lies: abs-max, scales, the payload
+    (wire dtype or carrier) and the error-feedback residual bit for bit
+    the reference's, which lifts the bucket to fp32 first."""
+    t_x, j_x = _bf16_input(n, bs, codec, seed=5 * n + bs)
+    t_am, j_am = tgc.block_absmax(t_x, bs), jgc.block_absmax(j_x, bs)
+    assert t_am.dtype == torch.float32
+    assert np.array_equal(t_am.numpy().view(np.uint32),
+                          np.asarray(j_am).view(np.uint32))
+    t_s = tgc.block_scales(t_am, codec)
+    j_s = jgc.block_scales(j_am, codec)
+    assert np.array_equal(t_s.numpy(), np.asarray(j_s))
+    t_q = tcodec.block_encode(t_x, t_s, bs, codec, carrier=carrier)
+    ref = jgc.block_encode(j_x, j_s, bs, codec)          # the carrier
+    if carrier:
+        assert t_q.dtype == tgc.CARRIER_DTYPE[codec]
+        assert np.array_equal(t_q.numpy(), np.asarray(ref))
+    else:
+        assert np.array_equal(_bytes_torch(t_q), _bytes_jax(ref, codec))
+    out = torch.empty_like(t_q)
+    assert tcodec.block_encode(t_x, t_s, bs, codec, carrier=carrier,
+                               out=out) is out
+    assert torch.equal(out.view(torch.uint8), t_q.view(torch.uint8))
+    t_r = tgc.block_residual(t_x, t_q, t_s, n)
+    j_r = jgc.block_residual(j_x, ref, j_s, n)
+    assert t_r.dtype == torch.float32
+    assert np.array_equal(t_r.numpy().view(np.uint32),
+                          np.asarray(j_r).view(np.uint32))
+
+
+def check_bf16_decode_matches_reference(codec, n, bs, world):
+    """Two ranks' summed carriers decoded to bf16 (rounded once, from the
+    fp32 ``q * scale / world``): bit for bit the reference's
+    ``block_decode(..., jnp.bfloat16, numel)``."""
+    x = _inputs(n, bs, codec, seed=7 * n + bs)
+    y = _inputs(n, bs, codec, seed=7 * n + bs + 1) * np.float32(0.25)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    t_s = tgc.block_scales(tgc.block_absmax(tx, bs)
+                           + tgc.block_absmax(ty, bs), codec)
+    q = (tgc.block_encode(tx, t_s, bs, codec, carrier=True)
+         + tgc.block_encode(ty, t_s, bs, codec, carrier=True))
+    t_d = tcodec.block_decode(q, t_s, world, n, dtype=torch.bfloat16)
+    ref = jgc.block_decode(jnp.asarray(q.numpy()), jnp.asarray(t_s.numpy()),
+                           world, jnp.bfloat16, n)
+    assert t_d.dtype == torch.bfloat16 and t_d.shape == (n,)
+    assert np.array_equal(t_d.view(torch.int16).numpy(),
+                          np.asarray(ref).view(np.int16))
+
+
 def check_block_absmax_ragged_matches_reference(n, bs):
     """The port's abs-max takes a ragged tail on its own (no padded copy):
     bit for bit the reference's, which pads with zeros. The tail planted
@@ -181,6 +239,12 @@ def test_codec_port_matches_reference():
          for c in CODECS for n, bs in CASES]
         + [(check_decode_matches_jnp_pair_and_pallas_kernel, (c, n, bs, w))
            for c in CODECS for n, bs in CASES for w in (1, 2, 3)]
+        + [(check_bf16_encode_matches_reference, (c, n, bs, carrier))
+           for c in CODECS for n, bs in ((5000, 1024), (777, 128))
+           for carrier in (False, True)]
+        + [(check_bf16_decode_matches_reference, (c, n, bs, w))
+           for c in CODECS for n, bs in ((5000, 1024), (777, 128))
+           for w in (2, 3)]
         + [(check_block_absmax_ragged_matches_reference, (n, bs))
            for n, bs in ((1, 1024), (3, 1024), (1023, 1024), (1025, 1024),
                          (4099, 1024), (100_003, 1024), (777, 128),

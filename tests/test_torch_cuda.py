@@ -52,10 +52,18 @@ the card's calls: payload, carrier, abs-max and decode bit-identical to
 the plain versions, one launch a call.
 The gradient wire: the codec kernels' int32/fp32 carriers (encode, and
 the decode of two ranks' summed carriers) bit-identical to the plain
-versions; ``fused_dequant_update`` bit-identical to its plain version
-(``tests/torch_checks.py`` ``dequant_vs_plain``) for both carriers, the
-four rules, with and without a residual, at ragged sizes and blocks,
-each launch counted in total and by bucket size.
+versions; their bf16 forms (a bf16 input read in place, ragged and off
+the 8-byte grid, to the wire dtype and the carrier; two ranks' summed
+carriers decoded to bf16 at world 2 and 3) bit-identical to the plain
+versions, each launch counted under its dtype;
+``fused_dequant_update_buckets`` bit-identical to its plain walk on a
+table of one (``tests/torch_checks.py`` ``dequant_vs_plain``, fp32 and
+bf16 parameters) for both carriers, the four rules, with and without a
+residual, at ragged sizes and blocks, each launch counted in total and
+its buckets by size and dtype, and over mixed bf16 and fp32 tables
+(a bf16 bucket over fp32 parameters among them), three steps, one
+launch a step (``buckets_vs_plain``); ``step_dequant`` keeps one table
+while the payload buffers stay.
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -222,11 +230,12 @@ def check_carrier_kernels_match_plain(dev, codec_name, n, bs):
 
 
 def check_dequant_update_bit_identical(dev, codec_name, kind, n, bs,
-                                       residual):
+                                       residual, dtype=torch.float32):
     gen = torch.Generator(device=dev)
     gen.manual_seed(n + bs)
     p, _, slots, lr = fused_inputs(kind, n, gen, 1e-3)
-    q, scales = dequant_inputs(codec_name, n, bs, 2, gen)
+    p = p.to(dtype)
+    q, scales = dequant_inputs(codec_name, n, bs, 2, gen, dtype=dtype)
     res = torch.randn(n, device=dev, generator=gen) * 1e-5 if residual \
         else None
     before = fu.dequant_launch_counts()
@@ -236,27 +245,152 @@ def check_dequant_update_bit_identical(dev, codec_name, kind, n, bs,
     after = fu.dequant_launch_counts()
     assert after["fused_dequant_update"] == \
         before["fused_dequant_update"] + 1
-    assert after["sizes"][n] == before["sizes"].get(n, 0) + 1
+    key = (n, str(dtype).split(".")[-1])
+    assert after["sizes"][key] == before["sizes"].get(key, 0) + 1
+
+
+def check_dequant_buckets_bit_identical(dev, codec_name, kind, sizes,
+                                        dtypes, bs, residual):
+    """One fused_dequant_update_buckets launch a step over a mixed table,
+    three steps on the same payloads, bit for bit against the plain walk.
+    ``dtypes`` pairs (parameters, bucket): a bf16 bucket over fp32
+    parameters rounds its gradient to bf16 too."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(len(sizes) + bs)
+    entries = []
+    for i, n in enumerate(sizes):
+        p_dt, b_dt = dtypes[i % len(dtypes)]
+        q, scales = dequant_inputs(codec_name, n, bs, 2, gen, dtype=b_dt)
+        res = (torch.randn(n, device=dev, generator=gen) * 1e-5
+               if residual else None)
+        p = torch.randn(n, device=dev, generator=gen).to(p_dt)
+        arrs = [torch.randn(n, device=dev, generator=gen).abs() * 1e-2
+                for _ in fu.slot_names(kind)]
+        entries.append((p, fu.WirePayload(q, scales, res, b_dt), arrs,
+                        (0.01, 0.0)[i % 2], (1.0, 0.5)[i % 2]))
+    lr = torch.full((), 1e-3, device=dev)
+    assert buckets_vs_plain(kind, FUSED_HYPER[kind], entries, lr, steps=3,
+                            world=2, block_size=bs) == 3
+
+
+def check_step_dequant_keeps_its_table(dev):
+    """``step_dequant`` on payloads in the same buffers each step (as the
+    communicator keeps them): one table, one launch a step, and the same
+    parameters and slots as an updater on the CPU (the plain walk) fed
+    the same payloads."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    vals = [(torch.randn(n, device=dev, generator=gen) * 0.02).to(dt)
+            for n, dt in ((4097, torch.bfloat16), (100, torch.float32),
+                          (3000, torch.bfloat16))]
+
+    def updater(device):
+        ps = [torch.nn.Parameter(v.to(device)) for v in vals]
+        return FusedFlatUpdater(AdamW(learning_rate=1e-3, weight_decay=0.01,
+                                      parameters=ps), ps)
+
+    u, cpu = updater(dev), updater("cpu")
+    pay = [dequant_inputs("int8_block", b.size, 1024, 2, gen, dtype=b.dtype)
+           for b in u.buckets]
+    for _ in range(3):
+        before = fu.fused_dequant_update_buckets.launches
+        u.step_dequant(pay, 2, 1024)
+        assert fu.fused_dequant_update_buckets.launches == before + 1
+        cpu.step_dequant([(q.cpu(), sc.cpu()) for q, sc in pay], 2, 1024)
+        for q, _ in pay:              # the next step's payload, in place
+            q.copy_(q.flip(0))
+    assert u.table_builds == 1
+    for b in u.buckets:
+        assert same_bits(u._flat_p[b.index].cpu(), cpu._flat_p[b.index])
+        for k, v in u._slots[b.index].items():
+            assert same_bits(v.cpu(), cpu._slots[b.index][k]), k
 
 
 def check_dequant_wrapper_raises(dev):
     p = torch.zeros(64, device=dev)
-    svec = torch.ones(1, device=dev)
     q = torch.zeros(64, dtype=torch.int32, device=dev)
     s = torch.ones(1, device=dev)
-    kw = dict(world=2, block_size=64, kind="sgd", hyper={})
+
+    def table(p, q, s=s, kind="sgd", arrs=(), res=None, dtype=None):
+        return fu.BucketTable(kind, FUSED_HYPER[kind],
+                              [(p, fu.WirePayload(q, s, res, dtype),
+                                list(arrs), 0.0, 1.0)], block_size=64)
+
     with pytest.raises(TypeError, match="carrier"):
-        fu.fused_dequant_update(p, q.to(torch.int8), s, [], svec, **kw)
+        table(p, q.to(torch.int8))
     with pytest.raises(ValueError, match="aligned"):
-        fu.fused_dequant_update(p[1:], q[1:], s, [], svec, **kw)
+        table(p[1:], q)
     with pytest.raises(ValueError, match="flat"):
-        fu.fused_dequant_update(p, q[:32], s, [], svec, **kw)
+        table(p, q[:32])
     with pytest.raises(ValueError, match="is on"):
-        fu.fused_dequant_update(p, q.cpu(), s, [], svec, **kw)
-    with pytest.raises(ValueError, match="svec"):
-        fu.fused_dequant_update(p, q, s, [p.clone(), p.clone()], svec,
-                                world=2, block_size=64, kind="adam",
-                                hyper=FUSED_HYPER["adam"])
+        table(p, q.cpu())
+    with pytest.raises(TypeError, match="bucket dtype"):
+        table(p, q, dtype=torch.float16)
+    with pytest.raises(ValueError, match="residual.*aligned"):
+        table(p[:63], q, res=torch.zeros(64, device=dev)[1:])
+    with pytest.raises(TypeError, match="one carrier dtype"):
+        fu.BucketTable("sgd", {}, [
+            (p, fu.WirePayload(q, s), [], 0.0, 1.0),
+            (p.clone(), fu.WirePayload(q.float(), s), [], 0.0, 1.0)],
+            block_size=64)
+    with pytest.raises(TypeError, match="WirePayload"):
+        fu.BucketTable("sgd", {}, [(p, p.clone(), [], 0.0, 1.0)],
+                       block_size=64)
+    lr = torch.ones((), device=dev)
+    with pytest.raises(ValueError, match="fused_dequant_update_buckets"):
+        fu.fused_update_buckets(table(p, q), lr)
+    with pytest.raises(ValueError, match="world"):
+        fu.fused_dequant_update_buckets(table(p, q), lr, 0)
+
+
+def check_bf16_codec_kernels_match_plain(dev, codec_name, n, bs, offset):
+    """A bf16 input read in place, ``offset`` elements into a larger
+    buffer (off the 8-byte grid when offset % 4 != 0): the wire payload
+    and the carrier bit for bit the plain encode's (which lifts to fp32
+    and zero-pads); two ranks' summed carriers decoded to bf16 at world 2
+    and 3, also into an output off the grid, bit for bit the plain
+    decode's; each launch counted under its dtype."""
+    rs = np.random.RandomState(n + offset)
+    base = torch.from_numpy(rs.randn(n + offset).astype(np.float32) * 4)
+    base = base.to(torch.bfloat16)
+    x, xd = base[offset:], base.to(dev)[offset:]
+    y = (x.float() * 0.5).to(torch.bfloat16)
+    s = plain.block_scales(plain.block_absmax(x, bs)
+                           + plain.block_absmax(y, bs), codec_name)
+    before = codec.launch_counts()
+    enc_b = codec.block_encode.dtypes[torch.bfloat16]
+    dec_b = codec.block_decode.dtypes[torch.bfloat16]
+    sd = s.to(dev)
+    for carrier in (False, True):
+        q = codec.block_encode(xd, sd, bs, codec_name, carrier=carrier)
+        q_ref = plain.block_encode(x, s, bs, codec_name, carrier=carrier)
+        bits = torch.int32 if carrier else torch.uint8
+        assert q.dtype == q_ref.dtype and q.shape == q_ref.shape
+        assert torch.equal(q.cpu().view(bits), q_ref.view(bits))
+    qy = codec.block_encode(y.to(dev), sd, bs, codec_name, carrier=True)
+    total = q + qy
+    total_ref = q_ref + plain.block_encode(y, s, bs, codec_name,
+                                           carrier=True)
+    assert torch.equal(total.cpu().view(torch.int32),
+                       total_ref.view(torch.int32))
+    for world in (2, 3):
+        d = codec.block_decode(total, sd, world, n, dtype=torch.bfloat16)
+        d_ref = plain.block_decode(total_ref, s, world, n,
+                                   dtype=torch.bfloat16)
+        assert d.dtype == torch.bfloat16 and d.shape == (n,)
+        assert torch.equal(d.cpu().view(torch.int16),
+                           d_ref.view(torch.int16))
+    out = torch.empty(n + 1, dtype=torch.bfloat16, device=dev)
+    out[1:] = codec.block_decode(total, sd, 2, n, dtype=torch.bfloat16)
+    assert torch.equal(out[1:].cpu().view(torch.int16),
+                       plain.block_decode(total_ref, s, 2, n,
+                                          dtype=torch.bfloat16)
+                       .view(torch.int16))
+    assert codec.launch_counts() == {
+        "codec_encode": before["codec_encode"] + 3,
+        "codec_decode": before["codec_decode"] + 3}
+    assert codec.block_encode.dtypes[torch.bfloat16] == enc_b + 3
+    assert codec.block_decode.dtypes[torch.bfloat16] == dec_b + 3
 
 
 def check_pool_on_card_matches_pool_on_cpu(dev, codec_name):
@@ -828,4 +962,26 @@ def test_cuda_path_matches_plain(dev):
            for c in CODECS for k in ("sgd", "momentum", "adam", "adamw")
            for n, bs in ((5000, 1024), (4999, 96), (100003, 1024))
            for r in (False, True)]
-        + [(check_dequant_wrapper_raises, (dev,))])
+        + [(check_dequant_update_bit_identical,
+            (dev, c, k, n, bs, r, torch.bfloat16))
+           for c in CODECS for k in ("sgd", "momentum", "adamw")
+           for n, bs in ((4999, 96), (100003, 1024)) for r in (False, True)]
+        + [(check_dequant_buckets_bit_identical,
+            (dev, c, k, sizes, dts, bs, r))
+           for c in CODECS for k in ("sgd", "momentum", "adam", "adamw")
+           for sizes, dts, bs in (
+               (_gpt125m_bf16_plan()[0],
+                list(zip(_gpt125m_bf16_plan()[1],
+                         _gpt125m_bf16_plan()[1])), 1024),
+               ((1, 4097, 100003, 5, 64, 3, 9, 17),
+                ((torch.bfloat16, torch.bfloat16),
+                 (torch.float32, torch.float32),
+                 (torch.float32, torch.bfloat16)), 96))
+           for r in (False, True)]
+        + [(check_bf16_codec_kernels_match_plain, (dev, c, n, bs, off))
+           for c in CODECS
+           for n, bs, off in ((5000, 1024, 0), (1_000_003, 1024, 1),
+                              (4_725_505, 1024, 3), (777, 128, 2),
+                              (1, 1024, 0), (1001, 100, 0))]
+        + [(check_step_dequant_keeps_its_table, (dev,)),
+           (check_dequant_wrapper_raises, (dev,))])

@@ -27,6 +27,15 @@ Tolerances:
   one parameter of 5000 in the Adam case at block 1024 differs from the
   port's by one ulp while the moments agree bit for bit (measured).
 
+bf16 buckets (bf16 parameters, fp32 moments; ``int8_block`` and
+``fp8_block`` x SGD, Momentum, AdamW x residual off / on, n = 4999):
+the port's ``fused_dequant_update_flat`` with ``bucket_dtype`` bf16
+against the reference's (Pallas interpret) and against the reference's
+jnp decode, + residual, the bf16 cast and ``reference_update_flat`` run
+op by op (``jax.disable_jit``): parameters bit for bit against both (the
+bf16 rounding takes up XLA's FMA contraction), moments bit for bit op
+by op and within 8 ulp of the Pallas kernel's, beta powers exact.
+
 One more case pins how the port's decode relates to the reference
 kernel's at world 3: compiled, the reference's ``vals / world`` is a
 multiply by ``float32(1/3)``; the port divides correctly rounded (as the
@@ -36,6 +45,7 @@ update returns ``-g`` exactly, which exposes the kernel's gradient.
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,17 +197,75 @@ def check_world_3_true_division_vs_reciprocal(codec):
     assert np.allclose(exact, recip, rtol=2 ** -23, atol=0)
 
 
+def _bf16_np(t):
+    """A bf16 tensor's values as fp32 numpy (exact)."""
+    return t.to(torch.float32).numpy()
+
+
+def check_bf16_bucket_matches_reference(codec, kind, residual):
+    """A bf16 bucket (bf16 parameters, fp32 moments) at a ragged size, the
+    same summed payload, parameters and moments through the port's
+    ``fused_dequant_update_flat`` (its plain walk on the CPU), the
+    reference's ``fused_dequant_update_flat`` with ``bucket_dtype``
+    bfloat16 (Pallas interpret) and the reference's jnp decode (+
+    residual), the bf16 cast and ``reference_update_flat`` op by op:
+    parameters, moments and powers bit for bit, except the fp32 moments
+    against the compiled Pallas kernel, within 8 ulp of the array's
+    largest (XLA contracts FMAs, as in the fp32 cases above)."""
+    n, bs = 4999, 1024
+    seed = 300 + 7 * KINDS.index(kind) + (100 if residual else 0)
+    hyper = FUSED_HYPER[kind]
+    q, scales = _payload(codec, n, bs, 2, seed)
+    p32, slots = _state(kind, n, seed + 1)
+    p = torch.from_numpy(p32).to(torch.bfloat16)
+    res = (np.random.RandomState(seed + 2).randn(n) * 1e-3).astype(
+        np.float32) if residual else None
+    t_res = None if res is None else torch.from_numpy(res)
+    tp = p.clone()
+    _, ts = tfu.fused_dequant_update_flat(
+        tp, q, scales, 2, {k: torch.tensor(v) for k, v in slots.items()},
+        torch.tensor(LR), kind=kind, hyper=hyper, block_size=bs,
+        bucket_dtype=torch.bfloat16, wd=WD, residual=t_res)
+    jp = jnp.asarray(_bf16_np(p)).astype(jnp.bfloat16)
+    jq, js = jnp.asarray(q.numpy()), jnp.asarray(scales.numpy())
+    jslots = {k: jnp.asarray(v) for k, v in slots.items()}
+    jr = None if res is None else jnp.asarray(res)
+    kp, ks = jfu.fused_dequant_update_flat(
+        jp, jq, js, 2, dict(jslots), jnp.asarray(LR), kind=kind,
+        hyper=hyper, block_size=bs, bucket_dtype=jnp.bfloat16, wd=WD,
+        residual=jr)
+    with jax.disable_jit():
+        g = jgc.block_decode(jq, js, 2, jnp.float32, n)
+        if jr is not None:
+            g = g + jr
+        ep, es = jfu.reference_update_flat(
+            jp, g.astype(jnp.bfloat16), dict(jslots), jnp.asarray(LR),
+            kind=kind, hyper=hyper, wd=WD)
+    assert tp.dtype == torch.bfloat16
+    what = f"{codec} {kind} residual={residual}"
+    for ref, rp, rs in (("Pallas", kp, ks), ("op by op", ep, es)):
+        assert rp.dtype == jnp.bfloat16, (ref, rp.dtype)
+        _bits_equal(_bf16_np(tp), np.asarray(rp.astype(jnp.float32)),
+                    f"{what} p vs {ref}")
+        assert set(ts) == set(rs)
+        for k in ts:
+            if ref == "op by op" or ts[k].dim() == 0:
+                _bits_equal(ts[k].numpy(), np.asarray(rs[k]),
+                            f"{what} {k} vs {ref}")
+            else:   # the fp32 moments: XLA's FMA contraction
+                _normwise(ts[k].numpy(), rs[k], f"{what} {k} vs {ref}")
+
+
 def check_wrapper_checks():
     p = torch.zeros(8)
     q, scales = _payload("int8_block", 8, 4, 2, 0)
     with pytest.raises(ValueError, match="kind"):
         tfu.fused_dequant_update_flat(p, q, scales, 2, {}, torch.tensor(1.0),
                                       kind="lamb", hyper={}, block_size=4)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, 'bf16 on the gradient wire'"):
+    with pytest.raises(TypeError, match="bucket dtype"):
         tfu.fused_dequant_update_flat(p, q, scales, 2, {}, torch.tensor(1.0),
                                       kind="sgd", hyper={}, block_size=4,
-                                      bucket_dtype=torch.bfloat16)
+                                      bucket_dtype=torch.float16)
     before = tfu.dequant_launch_counts()
     tfu.fused_dequant_update_flat(p, q, scales, 2, {}, torch.tensor(1.0),
                                   kind="sgd", hyper={}, block_size=4)
@@ -211,4 +279,7 @@ def test_dequant_update_matches_reference(fresh_mesh):
          for k in KINDS for bs in (1024, 96) for n in (5000, 4999)]
         + [(check_world_3_true_division_vs_reciprocal, (c,))
            for c in ("int8_block", "fp8_block")]
+        + [(check_bf16_bucket_matches_reference, (c, k, r))
+           for c in ("int8_block", "fp8_block")
+           for k in ("sgd", "momentum", "adamw") for r in (False, True)]
         + [(check_wrapper_checks, ())])

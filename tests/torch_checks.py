@@ -37,10 +37,12 @@ the two hold the kernels to one set of criteria:
 - ``fused_update_buckets``: bit-identical parameters, slots and stepped
   beta powers over consecutive steps, against its plain walk of the same
   kind of table (:func:`buckets_vs_plain`);
-- ``fused_dequant_update``: bit-identical parameters and slots
-  (:func:`dequant_vs_plain`), fed by a payload whose carriers the
-  ``codec_encode`` kernel wrote bit-identical to the plain encode's
-  (:func:`encoded_inputs`);
+- ``fused_dequant_update_buckets``: bit-identical parameters and slots
+  on a table of one (:func:`dequant_vs_plain`) and over a table of many
+  buckets, fp32 and bf16 together, over consecutive steps
+  (:func:`buckets_vs_plain` with ``block_size``), fed by payloads whose
+  carriers the ``codec_encode`` kernel wrote bit-identical to the plain
+  encode's (:func:`encoded_inputs`, from fp32 or bf16 gradients);
 - one Adam(W) training step on two devices: :func:`adam_step_parity`,
   and for a bf16 model :func:`bf16_step_parity`;
 - ``quantize_int8``: int8 payload and scales bit-identical, nearest and
@@ -302,42 +304,48 @@ def fused_vs_plain(p, g, slots, lr, *, kind, hyper, wd) -> float:
     return err
 
 
-def _wire_grads(codec, n, block_size, world, gen, grad_scale):
-    """``world`` ranks' seeded gradients on ``gen``'s device and the
-    shared scales of their summed per-block abs-max."""
+def _wire_grads(codec, n, block_size, world, gen, grad_scale,
+                dtype=torch.float32):
+    """``world`` ranks' seeded gradients (in ``dtype``) on ``gen``'s
+    device and the shared scales of their summed per-block abs-max."""
     from paddle_tpu_torch.distributed import grad_comm as gc
 
-    gs = [torch.randn(n, device=gen.device, generator=gen) * grad_scale
-          for _ in range(world)]
+    gs = [(torch.randn(n, device=gen.device, generator=gen)
+           * grad_scale).to(dtype) for _ in range(world)]
     scales = gc.block_scales(sum(gc.block_absmax(g, block_size) for g in gs),
                              codec)
     return gs, scales
 
 
-def dequant_inputs(codec, n, block_size, world, gen, *, grad_scale=1e-3):
+def dequant_inputs(codec, n, block_size, world, gen, *, grad_scale=1e-3,
+                   dtype=torch.float32):
     """A seeded summed gradient-wire payload on ``gen``'s device:
-    ``world`` ranks' gradients (randn * ``grad_scale``) encoded with the
-    shared scales of their summed per-block abs-max, the carriers summed.
-    Returns ``(q_sum [nb, block_size], scales [nb])``."""
+    ``world`` ranks' gradients (randn * ``grad_scale``, in ``dtype``)
+    encoded with the shared scales of their summed per-block abs-max, the
+    carriers summed. Returns ``(q_sum [nb, block_size], scales [nb])``."""
     from paddle_tpu_torch.distributed import grad_comm as gc
 
-    gs, scales = _wire_grads(codec, n, block_size, world, gen, grad_scale)
+    gs, scales = _wire_grads(codec, n, block_size, world, gen, grad_scale,
+                             dtype)
     q = sum(gc.block_encode(g, scales, block_size, codec, carrier=True)
             for g in gs)
     return q, scales
 
 
-def encoded_inputs(codec, n, block_size, world, gen, *, grad_scale=1e-3):
+def encoded_inputs(codec, n, block_size, world, gen, *, grad_scale=1e-3,
+                   dtype=torch.float32):
     """:func:`dequant_inputs` with every rank's carrier written by the
     ``codec_encode`` kernel (``ops/codec.py`` ``block_encode(...,
-    carrier=True)``), as the gradient wire writes it, each held bit for
-    bit against the plain encode of the same gradient. Returns ``(q_sum,
+    carrier=True)``) from gradients in ``dtype`` (fp32, or bf16 read in
+    place), as the gradient wire writes it, each held bit for bit
+    against the plain encode of the same gradient. Returns ``(q_sum,
     scales, max abs difference)``; raises unless every carrier is
     bit-identical."""
     from paddle_tpu_torch.distributed import grad_comm as gc
     from paddle_tpu_torch.ops import codec as ops_codec
 
-    gs, scales = _wire_grads(codec, n, block_size, world, gen, grad_scale)
+    gs, scales = _wire_grads(codec, n, block_size, world, gen, grad_scale,
+                             dtype)
     q, err = 0, 0.0
     for g in gs:
         k = ops_codec.block_encode(g, scales, block_size, codec, carrier=True)
@@ -350,7 +358,8 @@ def encoded_inputs(codec, n, block_size, world, gen, *, grad_scale=1e-3):
         differ = int((k.view(torch.int32) != ref.view(torch.int32)).sum())
         if differ:
             raise AssertionError(
-                f"codec_encode {codec} carrier n={n} block={block_size}: "
+                f"codec_encode {codec} carrier {dtype} n={n} "
+                f"block={block_size}: "
                 f"{differ} values differ from plain (max abs diff "
                 f"{err:.3e})")
         q = q + k
@@ -358,13 +367,13 @@ def encoded_inputs(codec, n, block_size, world, gen, *, grad_scale=1e-3):
 
 
 def dequant_vs_plain(p, q, scales, slots, lr, *, world, block_size, kind,
-                     hyper, wd, residual=None) -> float:
+                     hyper, wd, residual=None, bucket_dtype=None) -> float:
     """``fused_dequant_update_flat`` on copies of ``p`` and ``slots``
     against ``reference_dequant_update_flat`` on the originals. Returns
     the max abs difference over the parameters and every slot; raises
     unless they are bit-identical."""
     kw = dict(kind=kind, hyper=hyper, block_size=block_size, wd=wd,
-              residual=residual)
+              residual=residual, bucket_dtype=bucket_dtype)
     ref_p, ref_s = fu.reference_dequant_update_flat(p, q, scales, world,
                                                     slots, lr, **kw)
     kp = p.clone()
@@ -626,16 +635,25 @@ def bucket_entries(kind, sizes, gen, wds=(0.0,), lms=(1.0,),
     return out
 
 
-def buckets_vs_plain(kind, hyper, entries, lr, *, steps=3, gen=None):
+def buckets_vs_plain(kind, hyper, entries, lr, *, steps=3, gen=None,
+                     world=None, block_size=None):
     """``fused_update_buckets`` on one table against ``buckets_plain`` on
     a table of clones, ``steps`` consecutive steps from the beta powers of
-    step 3, each step with fresh gradients (from ``gen``) on both. Returns
-    the launches the kernel side counted; raises unless parameters, slots
-    and stepped powers are bit-identical after every step."""
-    clones = [(p.clone(), g.clone(), [s.clone() for s in arrs], wd, lm)
+    step 3, each step with fresh gradients (from ``gen``) on both. With
+    ``block_size`` the entries carry ``WirePayload``s (shared by both
+    tables, read only) and the kernel is ``fused_dequant_update_buckets``
+    at ``world``, every step on the same payloads. Returns the launches
+    the kernel side counted; raises unless parameters, slots and stepped
+    powers are bit-identical after every step."""
+    dequant = block_size is not None
+    clones = [(p.clone(), g if dequant else g.clone(),
+               [s.clone() for s in arrs], wd, lm)
               for p, g, arrs, wd, lm in entries]
-    ktab = fu.BucketTable(kind, hyper, entries)
-    ptab = fu.BucketTable(kind, hyper, clones)
+    ktab = fu.BucketTable(kind, hyper, entries, block_size=block_size)
+    ptab = fu.BucketTable(kind, hyper, clones, block_size=block_size)
+    run = (fu.fused_dequant_update_buckets if dequant
+           else fu.fused_update_buckets)
+    args = (world,) if dequant else ()
     if ktab.adam:
         start = [(torch.tensor(0.9 ** 3), torch.tensor(0.999 ** 3))] * len(
             entries)
@@ -645,14 +663,14 @@ def buckets_vs_plain(kind, hyper, entries, lr, *, steps=3, gen=None):
                           for a, b in start])
     launches = 0
     for step in range(steps):
-        if step and gen is not None:
+        if step and gen is not None and not dequant:
             for (_, g, *_), (_, gc, *_) in zip(entries, clones):
                 g.copy_(torch.randn(g.shape, device=g.device, generator=gen))
                 gc.copy_(g)
-        before = fu.fused_update_buckets.launches
-        fu.fused_update_buckets(ktab, lr)
-        launches += fu.fused_update_buckets.launches - before
-        fu.buckets_plain(ptab, lr)
+        before = run.launches
+        run(ktab, lr, *args)
+        launches += run.launches - before
+        fu.buckets_plain(ptab, lr, *args)
         pairs = []
         for b, (ke, pe) in enumerate(zip(entries, clones)):
             pairs.append((f"bucket {b} p", ke[0], pe[0]))
@@ -666,6 +684,6 @@ def buckets_vs_plain(kind, hyper, entries, lr, *, steps=3, gen=None):
         differ = [n for n, a, c in pairs if not same_bits(a, c)]
         if differ:
             raise AssertionError(
-                f"fused_update_buckets {kind} step {step + 1}: {differ[:6]} "
+                f"{run.__name__} {kind} step {step + 1}: {differ[:6]} "
                 f"differ from plain ({len(differ)} of {len(pairs)})")
     return launches

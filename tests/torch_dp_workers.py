@@ -1,5 +1,6 @@
 """Rank workers for the port's data-parallel tests on the CPU
-(``tests/test_torch_grad_comm.py``, ``tests/test_torch_dp_train.py``).
+(``tests/test_torch_grad_comm.py``, ``tests/test_torch_dp_train.py``,
+``tests/test_torch_bf16_dp.py``).
 
 ``paddle_tpu_torch.distributed.spawn`` starts each rank in a fresh
 process that imports the worker's module, so the workers live here, in a
@@ -24,7 +25,12 @@ from paddle_tpu_torch.optimizer import AdamW
 
 
 def _np(t):
-    return t.detach().cpu().numpy().copy()
+    """A tensor as numpy, a bf16 one as its fp32 values (exact: numpy has
+    no bf16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy().copy()
 
 
 def _join():
@@ -84,6 +90,18 @@ def gpt_test(params):
     return m
 
 
+def gpt_test_bf16(bits):
+    """``gpt-test`` in bf16 on the reference's weights, given as their
+    bits (int16 for a bf16 array, fp32 values for the final norm): the
+    workers import no bf16 numpy type."""
+    m = GPTForCausalLM(gpt_presets("gpt-test", dtype="bfloat16"), seed=0,
+                       device="cpu")
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            p.copy_(torch.from_numpy(bits[name].copy()).view(p.dtype))
+    return m
+
+
 def _mse(out, y):
     return torch.nn.functional.mse_loss(out, y)
 
@@ -107,13 +125,21 @@ def _train(model, loss_fn, lr, gc, inputs, labels, steps):
     step = TrainStep(model, loss_fn, opt, grad_comm=gc)
     losses = [float(step(inputs=inputs, labels=labels))
               for _ in range(steps)]
+    comm = step.grad_comm_communicator
+    again = GradCommunicator(comm.config)       # the resume surface
+    again.load_state_dict(comm.state_dict())
     return {"losses": losses,
+            "state_round_trip": set(again._residuals) == set(
+                comm._residuals) and all(
+                torch.equal(again._residuals[i], r.cpu())
+                for i, r in comm._residuals.items()),
             "params": [_np(p) for p in model.parameters()],
+            "dtypes": [str(p.dtype) for p in model.parameters()],
             "slots": _param_slots(step.updater),
             "comm_stats": step.comm_stats,
             "fused": step._gc_fused,
-            "residuals": {i: _np(r) for i, r in
-                          step.grad_comm_communicator._residuals.items()}}
+            "table_builds": step.updater.table_builds,
+            "residuals": {i: _np(r) for i, r in comm._residuals.items()}}
 
 
 def dp_train_cases(mlp_w, X, Y, gpt_params, ids, labels):
@@ -129,35 +155,50 @@ def dp_train_cases(mlp_w, X, Y, gpt_params, ids, labels):
     out["gpt_int8"] = _train(gpt_test(gpt_params), GPTPretrainingCriterion(),
                              1e-3, GradCommConfig("int8_block"), (ids,),
                              (labels,), 2)
-    out["dp"] = data_parallel_grads(mlp_w, X, Y)
+    out["dp"] = {"int8_block": data_parallel_grads(mlp_w, X, Y, MLP_BLOCK, 2),
+                 "fp32": data_parallel_grads(mlp_w, X, Y, None, 1)}
     return out
 
 
-def data_parallel_grads(mlp_w, X, Y):
-    """``DataParallel.apply_collective_grads`` on the MLP over two
-    backward passes (the second carries the first's error-feedback
-    residual) with the int8_block wire, and once with the default fp32
-    wire: this rank's local gradients and the reduced ones."""
+MLP_BLOCK = GradCommConfig("int8_block", comm_buffer_size=0.0002,
+                           last_comm_buffer_size=0.0001, block_size=128)
+
+
+def data_parallel_grads(mlp_w, X, Y, gc, rounds, dtype=torch.float32):
+    """``DataParallel.apply_collective_grads`` on the MLP (in ``dtype``)
+    with the wire ``gc`` (None: the default fp32 wire) over ``rounds``
+    backward passes (each after the first carries the last one's
+    error-feedback residual): this rank's local gradients and the
+    reduced ones, and the communicator's stats."""
     rank = get_rank()
-    xs = torch.from_numpy(X).chunk(2)[rank]
-    ys = torch.from_numpy(Y).chunk(2)[rank]
+    xs = torch.from_numpy(X).chunk(2)[rank].to(dtype)
+    ys = torch.from_numpy(Y).chunk(2)[rank].to(dtype)
+    model = DataParallel(mlp(mlp_w).to(dtype), grad_comm=gc)
+    local, reduced = [], []
+    for k in range(rounds):
+        for p in model.parameters():
+            p.grad = None
+        loss = model.scale_loss(_mse(model(xs * (1 + k)), ys))
+        loss.backward()
+        local.append([_np(p.grad) for p in model.parameters()])
+        model.apply_collective_grads()
+        reduced.append([_np(p.grad) for p in model.parameters()])
+    return {"local": local, "reduced": reduced,
+            "dtypes": [str(p.grad.dtype) for p in model.parameters()],
+            "stats": dict(model.grad_communicator.stats)}
+
+
+def bf16_dp_cases(gpt_bits, ids, labels, mlp_w, X, Y):
+    """Every world-2 run of ``test_torch_bf16_dp.py`` on this rank: bf16
+    ``gpt-test`` on the int8_block wire for two steps, with error
+    feedback and without, and ``DataParallel`` on the MLP in bf16."""
+    _join()
     out = {}
-    for name, gc, rounds in (
-            ("int8_block", GradCommConfig("int8_block",
-                                          comm_buffer_size=0.0002,
-                                          last_comm_buffer_size=0.0001,
-                                          block_size=128), 2),
-            ("fp32", None, 1)):
-        model = DataParallel(mlp(mlp_w), grad_comm=gc)
-        local, reduced = [], []
-        for k in range(rounds):
-            for p in model.parameters():
-                p.grad = None
-            loss = model.scale_loss(_mse(model(xs * (1 + k)), ys))
-            loss.backward()
-            local.append([_np(p.grad) for p in model.parameters()])
-            model.apply_collective_grads()
-            reduced.append([_np(p.grad) for p in model.parameters()])
-        out[name] = {"local": local, "reduced": reduced,
-                     "stats": dict(model.grad_communicator.stats)}
+    for name, ef in (("ef", True), ("no_ef", False)):
+        out[name] = _train(gpt_test_bf16(gpt_bits),
+                           GPTPretrainingCriterion(), 1e-3,
+                           GradCommConfig("int8_block", error_feedback=ef),
+                           (ids,), (labels,), 2)
+    out["dp"] = data_parallel_grads(mlp_w, X, Y, MLP_BLOCK, 2,
+                                    torch.bfloat16)
     return out

@@ -17,9 +17,10 @@ Builds, with ``ops/_build.py``'s nvcc flags, into build/codec_ab/:
   q1, q4  the same with 1 or 4 quads in flight a thread (kQuads);
   parent  ``--parent``: an earlier codec.cu whose codec_encode takes no
           element count (it is given a zero-padded copy of a ragged
-          input, made inside the timed call, as its wrapper made it);
+          input, made inside the timed call, as its wrapper made it) and
+          whose kernels take no element type (fp32 only);
   NAME    ``--variant NAME=PATH``: another codec.cu with this one's C
-          interface;
+          interface (fp32 in and out here);
   copy    not a codec: a device-to-device copy (torch copy_) moving
           the row's bytes (half read, half written), the memory
           system's practical rate for that many bytes.
@@ -90,9 +91,11 @@ def build(name: str, src: str) -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.codec_encode.argtypes = ([p, p, p, i64, i64, i32, i32, p]
                                  if name == "parent" else
-                                 [p, p, p, i64, i64, i64, i32, i32, p])
-    lib.codec_decode.argtypes = [p, p, p, i64, i64, i64, i32,
-                                 ctypes.c_float, p]
+                                 [p, p, p, i64, i64, i64, i32, i32, i32, p])
+    lib.codec_decode.argtypes = ([p, p, p, i64, i64, i64, i32,
+                                  ctypes.c_float, p] if name == "parent" else
+                                 [p, p, p, i64, i64, i64, i32,
+                                  ctypes.c_float, i32, p])
     return lib
 
 
@@ -129,7 +132,7 @@ def encoder(name, lib, x, s, carrier):
                                   nb, BS, 0, int(carrier), stream)
         else:
             rc = lib.codec_encode(x.data_ptr(), s.data_ptr(), out.data_ptr(),
-                                  n, nb, BS, 0, int(carrier), stream)
+                                  n, nb, BS, 0, int(carrier), 0, stream)
         if rc:
             raise RuntimeError(f"{name} codec_encode: CUDA error {rc}")
         return out
@@ -141,8 +144,9 @@ def decoder(name, lib, q, s, n):
 
     def run():
         out = torch.empty(n, dtype=torch.float32, device=q.device)
+        args = () if name == "parent" else (0,)   # fp32 out
         rc = lib.codec_decode(q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                              s.numel(), BS, n, 0, 1.0, stream)
+                              s.numel(), BS, n, 0, 1.0, *args, stream)
         if rc:
             raise RuntimeError(f"{name} codec_decode: CUDA error {rc}")
         return out
