@@ -247,6 +247,47 @@ when every phase passed):
               bucket reduced again on the card) the bf16 decode bit for
               bit on both ranks; then the same two steps on the CPU end
               to end, losses within 1e-4 relative (BF16_LOSS_RTOL).
+ 21. fused-ce kernels
+              the fused loss's chunk kernels (ce_chunk_fwd, ce_chunk_bwd)
+              against their plain versions at the fused step's two chunk
+              shapes ([8192, 8192] and the ragged last [8192, 1152] of
+              GPT-125M's 50,304 columns at chunk 8192), with and without
+              a bias, with ignored rows and labels in a chunk's first and
+              last column (tests/torch_checks.py ce_fwd_vs_plain,
+              ce_bwd_vs_plain: the running max and the picked logit
+              bit-identical, the running sum within 1e-5 relative, each
+              dlogit within 1e-6 of its magnitude); each timed beside its
+              plain version, its byte bound and a one-call yardstick
+              (torch.logsumexp over the chunk, torch.softmax); clocks
+              before and after, ratios;
+ 22. train bf16, fused_loss_chunk=8192
+              phase 17 in bench.py's BENCH_FUSED_CE form (the model's own
+              chunked loss, TrainStep(model, lambda loss: loss, opt),
+              inputs=(ids, None, labels)): launch counts (7 of each chunk
+              kernel a step, 12 of each bf16 flash kernel, one
+              fused_update), step ms, tokens/s and peak memory beside
+              phase 17's of this call, the first loss within
+              BF16_LOSS_RTOL of phase 17's (same weights and batch); the
+              phase 8 profile, then "the rest" of the step split by
+              PyTorch op and input shape (record_shapes; phase 17's too);
+              then phase 18's card-vs-CPU step at 2 layers;
+ 23. train bf16, recompute
+              phase 17 with bench.py's BENCH_GPT_REMAT=1 (recompute):
+              flash_fwd_bf16 24 launches a step (the backward recomputes
+              each block), step ms and peak memory beside phase 17's; one
+              step's gradients bit-identical to the same step without
+              recompute (2 layers, b8 s1024); the phase 8 profile;
+ 24. train bf16, schedule + clip
+              phase 17's configuration with LinearWarmup(
+              CosineAnnealingDecay) from lr 0 and ClipGradByGlobalNorm(1.0),
+              5 steps: the lr each update launch read equals the
+              schedule's, the step at lr 0 leaves every weight as it was
+              and every later one moves each bucket, the clipped global
+              norm at most 1, step ms beside phase 17's, the phase 8
+              profile of a step; then two steps
+              card against CPU at 2 layers, b2 s128: each loss within
+              BF16_LOSS_RTOL, the lr-0 step still on both, the second
+              within bf16_step_parity.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -275,7 +316,8 @@ CLOCK_QUERY = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 EPT = 12 * 2 * 768          # GPT-125M KV elements per token
 QB = 1024                   # KV quant block
 MAIN_SHAPE = "decode_step_8"  # the shape behind most serve-phase launches
-SOURCES = ("codec", "flash_attention", "fused_update", "quant_matmul")
+SOURCES = ("codec", "flash_attention", "fused_update", "quant_matmul",
+           "fused_ce")
 TRAIN_B, TRAIN_S = 8, 1024          # the train phase's batch
 FLASH_MAIN = (8, 12, 1024, 64)      # [b, n, s, d] of every train launch
 # the other flash shapes held against plain: a tail (s = 1000, not a
@@ -290,6 +332,8 @@ RAGGED_CODEC = 4 * EPT + 1001      # n % 1024 != 0 and n % 4 != 0
 RAGGED_QUANT = (1000, 37)
 RAGGED_QMM = (1000, 100, 37)
 INFER_TOL = 1e-4                    # card vs CPU logits, max abs
+BF16_KERNELS = ("fwd_bf16_kernel", "dq_bf16_kernel", "dkv_bf16_kernel",
+                "update_kernel")
 
 
 def log(*a):
@@ -1033,52 +1077,86 @@ def bucket_plan(cfg):
                           for name, shape in expected_shapes(cfg).items()])
 
 
-def _train_setup(cfg, device, b, s, seed):
+def _train_setup(cfg, device, b, s, seed, lr=LR, grad_clip=None):
+    """GPT from seed 0, AdamW and the TrainStep of ``bench.py``'s
+    ``measure_gpt`` for ``cfg`` (the criterion, or with
+    ``fused_loss_chunk`` the model's own loss), and a batch from
+    ``RandomState(seed)``."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import GPTForCausalLM, GPTPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
 
     model = GPTForCausalLM(cfg, seed=0, device=device)
-    opt = AdamW(learning_rate=LR, weight_decay=WD,
-                parameters=model.parameters())
-    step = TrainStep(model, GPTPretrainingCriterion(), opt)
+    opt = AdamW(learning_rate=lr, weight_decay=WD,
+                parameters=model.parameters(), grad_clip=grad_clip)
+    loss_fn = ((lambda loss: loss) if cfg.fused_loss_chunk > 0
+               else GPTPretrainingCriterion())
+    step = TrainStep(model, loss_fn, opt)
     rs = np.random.RandomState(seed)
     ids = rs.randint(0, cfg.vocab_size, (b, s))
     labels = rs.randint(0, cfg.vocab_size, (b, s))
     return model, step, ids, labels
 
 
+def bench_step(step, cfg, ids, labels):
+    """One step as ``bench.py``'s ``one_step`` calls it: the fused loss
+    takes the labels as the model's third input (``bench.py:192-196``)."""
+    if cfg.fused_loss_chunk > 0:
+        return step(inputs=(ids, None, labels), labels=())
+    return step(inputs=(ids,), labels=(labels,))
+
+
+def _variant(cfg) -> str:
+    """The training options of ``cfg`` that phase 17 leaves off."""
+    return "".join((f", fused_loss_chunk={cfg.fused_loss_chunk}"
+                    if cfg.fused_loss_chunk else "",
+                    ", recompute" if cfg.recompute else ""))
+
+
+def loss_chunks(cfg) -> int:
+    """Chunks of the fused loss a step (0 without it)."""
+    c = cfg.fused_loss_chunk
+    return -(-cfg.vocab_size // c) if c > 0 else 0
+
+
 def train_launch_counts() -> dict:
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fce
     from paddle_tpu_torch.ops import fused_update as fu
 
-    return {**fa.launch_counts(), **fu.launch_counts()}
+    return {**fa.launch_counts(), **fu.launch_counts(),
+            **fce.launch_counts()}
 
 
 def reset_train_launch_counts() -> None:
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fce
     from paddle_tpu_torch.ops import fused_update as fu
 
     fa.reset_launch_counts()
     fu.reset_launch_counts()
+    fce.reset_launch_counts()
 
 
 def phase_train(cfg, dev, seed, warmup=2, steps=5, b=TRAIN_B, s=TRAIN_S):
+    """``bench.py``'s training step for ``cfg``: ``warmup`` then ``steps``
+    timed steps, launch counts reset just before them and read just
+    after. Returns the counts, the step, the batch and the summary."""
     _, step, ids, labels = _train_setup(cfg, dev, b, s, seed)
     n_params = sum(b.size for b in step.buckets)
     log(f"train: {n_params} parameters in {len(step.buckets)} buckets, "
-        f"{cfg.num_layers} layers, {cfg.dtype}, batch {b} x {s}, AdamW lr "
-        f"{LR} wd {WD}")
+        f"{cfg.num_layers} layers, {cfg.dtype}{_variant(cfg)}, batch {b} x "
+        f"{s}, AdamW lr {LR} wd {WD}")
     losses = []
     for _ in range(warmup):
-        losses.append(float(step(inputs=(ids,), labels=(labels,))))
+        losses.append(float(bench_step(step, cfg, ids, labels)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_train_launch_counts()
     step_ms = []
     for _ in range(steps):
         t0 = time.perf_counter()
-        loss = step(inputs=(ids,), labels=(labels,))
+        loss = bench_step(step, cfg, ids, labels)
         losses.append(float(loss))        # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = train_launch_counts()
@@ -1089,7 +1167,7 @@ def phase_train(cfg, dev, seed, warmup=2, steps=5, b=TRAIN_B, s=TRAIN_S):
                "tokens_per_s": tokens / (statistics.median(step_ms) / 1e3),
                "peak_memory_gib": peak, "buckets": len(step.buckets),
                "launches": counts}
-    log(f"train {cfg.dtype} " + json.dumps(summary))
+    log(f"train {cfg.dtype}{_variant(cfg)} " + json.dumps(summary))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -1098,10 +1176,13 @@ def phase_train(cfg, dev, seed, warmup=2, steps=5, b=TRAIN_B, s=TRAIN_S):
     want = {name + sfx: cfg.num_layers * steps * (sfx == ran)
             for sfx in ("", "_bf16")
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    if cfg.recompute:      # the backward runs each block's forward again
+        want["flash_fwd" + ran] *= 2
     want["fused_update"] = steps
+    want["ce_chunk_fwd"] = want["ce_chunk_bwd"] = loss_chunks(cfg) * steps
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    return counts, step, ids, labels
+    return counts, step, ids, labels, summary
 
 
 def _one_step(cfg, device, b, s, seed):
@@ -1110,7 +1191,7 @@ def _one_step(cfg, device, b, s, seed):
     model, step, ids, labels = _train_setup(cfg, device, b, s, seed)
     before = {n: p.detach().cpu().clone()
               for n, p in model.named_parameters()}
-    loss = float(step(inputs=(ids,), labels=(labels,)))
+    loss = float(bench_step(step, cfg, ids, labels))
     return loss, {n: (before[n], p.detach().cpu(), p.grad.cpu())
                   for n, p in model.named_parameters()}
 
@@ -1130,9 +1211,9 @@ def phase_train_parity(cfg, dev, seed):
     cpu_loss, cpu = _one_step(small, "cpu", 2, 128, seed + 2)
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     tol = BF16_LOSS_RTOL if cfg.dtype == "bfloat16" else 1e-5
-    log(f"train {cfg.dtype} card vs CPU (gpt-125m width, 2 layers, b2 "
-        f"s128): loss {card_loss:.7f} vs {cpu_loss:.7f} (rel {rel:.2e}, "
-        f"limit {tol:.0e})")
+    log(f"train {cfg.dtype}{_variant(cfg)} card vs CPU (gpt-125m width, 2 "
+        f"layers, b2 s128): loss {card_loss:.7f} vs {cpu_loss:.7f} (rel "
+        f"{rel:.2e}, limit {tol:.0e})")
     if not rel <= tol:
         raise AssertionError(f"card and CPU losses differ beyond {tol:.0e}")
     if cfg.dtype == "bfloat16":
@@ -1154,24 +1235,41 @@ def phase_train_parity(cfg, dev, seed):
         f"max |param diff| {r['param_max_abs_diff']:.3e}")
 
 
+# PyTorch ops whose kernels are cuBLAS GEMMs (the profile's "GEMMs")
+GEMM_OPS = ("aten::mm", "aten::addmm", "aten::addmm_", "aten::bmm",
+            "aten::baddbmm", "aten::matmul", "aten::linear",
+            "aten::_scaled_mm")
+
+
 def phase_train_profile(step, ids, labels,
                         names=("fwd_kernel", "dq_kernel", "dkv_kernel",
-                               "update_kernel")):
+                               "update_kernel"), cfg=None, top=10):
+    """torch.profiler over one step (``bench_step`` for ``cfg``): busy
+    and idle share, kernels, device time by kernel and by kind; then a
+    second profiled step with ``record_shapes`` (kept apart: recording
+    shapes slows the host) splits "the rest" by PyTorch op and input
+    shape, its ``top`` largest entries logged."""
     from torch.profiler import ProfilerActivity, profile
 
-    step(inputs=(ids,), labels=(labels,))
+    def one():
+        if cfg is None:
+            return step(inputs=(ids,), labels=(labels,))
+        return bench_step(step, cfg, ids, labels)
+
+    one()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(inputs=(ids,), labels=(labels,))
+        one()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"train profile: one step, wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy, "
+    tag = _variant(cfg) if cfg is not None else ""
+    log(f"train profile{tag}: one step, wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy, "
         f"{100 * (1 - busy_us / wall_us):.1f}% idle), "
         f"{sum(e.count for e in kernels)} kernels per step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
@@ -1199,6 +1297,22 @@ def phase_train_profile(step, ids, labels,
     log("  by kind: " + ", ".join(f"{k} {t / 1e3:.3f} ms "
                                   f"({100 * t / busy_us:.1f}%)"
                                   for k, t in kinds.items()))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        one()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages(group_by_input_shape=True)
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::") and e.key not in GEMM_OPS
+           and e.self_device_time_total > 0]
+    rest = sum(e.self_device_time_total for e in ops)
+    log(f"  the rest by PyTorch op and input shape{tag} (the device time "
+        f"of the kernels each op launched itself; {rest / 1e3:.3f} ms in "
+        f"{len(ops)} entries), the {top} largest:")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
+            f"{e.key} {str(e.input_shapes)[:110]}")
+    return kinds
 
 
 def lm_head_gemms(dev, gen, cfg, tokens=TRAIN_B * TRAIN_S):
@@ -1239,6 +1353,249 @@ def lm_head_gemms(dev, gen, cfg, tokens=TRAIN_B * TRAIN_S):
         f"(bound {out['fp32_bound_ms']:.3f})")
     del flush, dlogits
     return out
+
+
+# ------------------------------------------------- training options
+CE_CHUNK = 8192                     # bench.py's BENCH_FUSED_CE chunk
+SCHED_WARMUP, SCHED_T_MAX = 2, 100  # phase 24's LinearWarmup, cosine
+
+
+def ce_chunk_shapes(cfg, chunk=CE_CHUNK):
+    """(start, columns) of the fused loss's chunks at ``chunk``: the full
+    ones, then the ragged last (GPT-125M: 6 of 8192 and one of 1152)."""
+    v = cfg.vocab_size
+    return [(st, min(chunk, v - st)) for st in range(0, v, chunk)]
+
+
+def phase_fused_ce_kernels(dev, gen, cfg, tokens=TRAIN_B * TRAIN_S):
+    """Phase 21: ``ce_chunk_fwd`` and ``ce_chunk_bwd`` against their plain
+    versions (``tests/torch_checks.py`` ``ce_fwd_vs_plain``,
+    ``ce_bwd_vs_plain``) at each chunk shape of the fused step (no bias,
+    as GPT's tied head; and with a bias and 100 ignored rows), then each
+    timed at both shapes beside its plain version, its byte bound and a
+    one-call yardstick (``torch.logsumexp`` over the chunk for the
+    forward, which neither merges nor picks; ``torch.softmax`` for the
+    backward)."""
+    from torch_checks import ce_bwd_vs_plain, ce_fwd_vs_plain, ce_inputs
+
+    from paddle_tpu_torch.ops import fused_ce as fce
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    v = cfg.vocab_size
+    shapes = {c: st for st, c in ce_chunk_shapes(cfg)}   # one start a width
+    rows = {}
+    for c, start in shapes.items():
+        logit, bias, labels, state, lse, g = ce_inputs(
+            tokens, c, start, v, gen, dev, bias=True, ignored=100)
+        checks = {"fwd bias": ce_fwd_vs_plain(logit, bias, labels, start, v,
+                                              state),
+                  "bwd bias": ce_bwd_vs_plain(logit, bias, lse, labels, g,
+                                              start)}
+        g[:100] = torch.rand(100, device=dev, generator=gen) / tokens
+        fwd = ce_fwd_vs_plain(logit, None, labels, start, v, state)
+        bwd = ce_bwd_vs_plain(logit, None, lse, labels, g, start)
+        m, s_, picked = (t.clone() for t in state)
+        work = logit.clone()
+        n = tokens * c
+        # forward: read the chunk once (and the rows' state and labels);
+        # backward: read and write it once; ~4 fp32 operations an element
+        # (max, subtract, exp, add; subtract, exp, subtract, multiply)
+        row_bytes = 4 * tokens * 7
+        fb, fby = work_bound(4 * n + row_bytes, 4 * n)
+        bb, bby = work_bound(8 * n + 4 * tokens * 3, 4 * n)
+        label = f"[{tokens}, {c}] fp32 (chunk at {start})"
+        rows[("ce_chunk_fwd", c)] = {
+            "shape": label, "max_abs_err": max(fwd["m"], fwd["s"],
+                                               fwd["picked"]),
+            "s_rel": fwd["s_rel"],
+            "ms": median_ms(lambda: fce.ce_chunk_fwd(
+                logit, None, labels, start, v, m, s_, picked), flush),
+            "plain_ms": median_ms(lambda: fce.ce_chunk_fwd_plain(
+                logit, None, labels, start, m, s_, picked), flush),
+            "bound_ms": fb, "bound_by": fby,
+            "library_ms": median_ms(lambda: torch.logsumexp(logit, -1),
+                                    flush),
+            "library_form": "torch.logsumexp(chunk, -1)"}
+        rows[("ce_chunk_bwd", c)] = {
+            "shape": label, "max_abs_err": bwd["dlogit"],
+            "err_over_limit": bwd["over_limit"],
+            "ms": median_ms(lambda: fce.ce_chunk_bwd(
+                work, None, lse, labels, g, start), flush),
+            "plain_ms": median_ms(lambda: fce.ce_chunk_bwd_plain(
+                work, None, lse, labels, g, start), flush),
+            "bound_ms": bb, "bound_by": bby,
+            "library_ms": median_ms(lambda: torch.softmax(logit, -1),
+                                    flush),
+            "library_form": "torch.softmax(chunk, -1)"}
+        log(f"fused-ce kernels {label}: against plain, forward {fwd} "
+            f"(with bias and 100 ignored rows {checks['fwd bias']}), "
+            f"backward {bwd} ({checks['bwd bias']})")
+        for name in ("ce_chunk_fwd", "ce_chunk_bwd"):
+            r = rows[(name, c)]
+            log(f"  {name} {label}: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of "
+                f"it), {r['library_form']} {r['library_ms']:.4f}")
+        del logit, work
+    per_step = {name: sum(rows[(name, c)]["ms"] for _, c in
+                          ce_chunk_shapes(cfg))
+                for name in ("ce_chunk_fwd", "ce_chunk_bwd")}
+    log(f"fused-ce kernels, one step's {len(ce_chunk_shapes(cfg))} chunks: "
+        + ", ".join(f"{k} {t:.4f} ms" for k, t in per_step.items()))
+    del flush
+    return rows
+
+
+def _grads_of_one_step(cfg, dev, b, s, seed):
+    """The gradients of one TrainStep from the seeded weights."""
+    model, step, ids, labels = _train_setup(cfg, dev, b, s, seed)
+    bench_step(step, cfg, ids, labels)
+    return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def phase_recompute_bits(cfg, dev, seed, b=TRAIN_B, s=TRAIN_S):
+    """Phase 23's check: one step's gradients with ``recompute`` on the
+    card bit-identical to the same step without it (GPT-125M width, 2
+    layers, bench's batch)."""
+    import dataclasses
+
+    small = dataclasses.replace(cfg, num_layers=2, recompute=False)
+    plain = _grads_of_one_step(small, dev, b, s, seed)
+    remat = _grads_of_one_step(dataclasses.replace(small, recompute=True),
+                               dev, b, s, seed)
+    differ = [n for n, g in plain.items() if not torch.equal(g, remat[n])]
+    log(f"train {cfg.dtype} recompute, 2 layers, b{b} s{s}: gradients of "
+        f"{len(plain) - len(differ)} of {len(plain)} parameters "
+        f"bit-identical to the step without recompute")
+    if differ:
+        raise AssertionError(f"recompute changed the gradients of {differ}")
+
+
+def _schedule():
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    return LinearWarmup(CosineAnnealingDecay(LR, T_max=SCHED_T_MAX),
+                        SCHED_WARMUP, 0.0, LR)
+
+
+def _scheduled_setup(cfg, device, b, s, seed):
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    sched = _schedule()
+    model, step, ids, labels = _train_setup(
+        cfg, device, b, s, seed, lr=sched,
+        grad_clip=ClipGradByGlobalNorm(1.0))
+    return sched, model, step, ids, labels
+
+
+def phase_train_schedule_clip(cfg, dev, seed, steps=5, b=TRAIN_B,
+                              s=TRAIN_S):
+    """Phase 24: ``cfg`` with ``LinearWarmup(CosineAnnealingDecay)`` from
+    lr 0 and ``ClipGradByGlobalNorm(1.0)``, ``steps`` steps: the lr each
+    launch read is the schedule's (fp32) and the step at lr 0 leaves
+    every weight as it was while every later one moves them; the
+    clipped gradients' global norm; step ms (the steps after the first),
+    peak memory, launch counts."""
+    sched, _, step, ids, labels = _scheduled_setup(cfg, dev, b, s, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launch_counts()
+    out = {"losses": [], "step_ms": [], "lr": [], "lr_read": [],
+           "clipped_norm": [], "moved": []}
+    for _ in range(steps):
+        before = [p.clone() for p in step.updater._flat_p.values()]
+        t0 = time.perf_counter()
+        loss = float(bench_step(step, cfg, ids, labels))
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(loss)
+        out["lr"].append(float(torch.tensor(sched(), dtype=torch.float32)))
+        out["lr_read"].append(float(step.updater._lr[2]))
+        out["clipped_norm"].append(float(torch.sqrt(sum(
+            g.float().square().sum() for g in step.updater.flat_grads()))))
+        out["moved"].append(sum(not torch.equal(a, p) for a, p in zip(
+            before, step.updater._flat_p.values())))
+        del before
+        sched.step()
+    counts = train_launch_counts()
+    out.update(step_ms_median=statistics.median(out["step_ms"][1:]),
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               buckets=len(step.buckets), launches=counts)
+    log(f"train {cfg.dtype}{_variant(cfg)}, schedule + clip "
+        + json.dumps(out))
+    if out["lr_read"] != out["lr"]:
+        raise AssertionError(f"the update read lr {out['lr_read']}, the "
+                             f"schedule gave {out['lr']}")
+    want_moved = [0 if lr == 0.0 else len(step.buckets) for lr in out["lr"]]
+    if out["moved"] != want_moved or out["lr"][0] != 0.0:
+        raise AssertionError(f"buckets moved {out['moved']} at lr "
+                             f"{out['lr']}, expected {want_moved}")
+    # at most 1, but for the scale's rounding to bf16 (2^-9 relative)
+    if not all(n <= 1.0 + 2.0 ** -8 for n in out["clipped_norm"]):
+        raise AssertionError(f"clipped global norms {out['clipped_norm']}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"non-finite loss: {out['losses']}")
+    want = {k: 0 for k in counts}
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        want[name + "_bf16"] = cfg.num_layers * steps
+    want["fused_update"] = steps
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    phase_train_profile(step, ids, labels, names=BF16_KERNELS, cfg=cfg,
+                        top=5)
+    return out
+
+
+def _scheduled_two_steps(cfg, device, b, s, seed):
+    """Two scheduled, clipped steps from the seeded weights: per step the
+    loss, the lr and, per parameter, (before, after, gradient) on the
+    CPU."""
+    sched, model, step, ids, labels = _scheduled_setup(cfg, device, b, s,
+                                                       seed)
+    out = []
+    for _ in range(2):
+        before = {n: p.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
+        loss = float(bench_step(step, cfg, ids, labels))
+        # copies: on the CPU .cpu() is the live parameter and gradient
+        out.append((loss, sched(), {n: (before[n], p.detach().cpu().clone(),
+                                        p.grad.cpu().clone())
+                                    for n, p in model.named_parameters()}))
+        sched.step()
+    return out
+
+
+def phase_schedule_clip_parity(cfg, dev, seed):
+    """Phase 24's parity: two scheduled, clipped steps on the card and on
+    the CPU (GPT-125M width, 2 layers, b2 s128): each loss within
+    ``BF16_LOSS_RTOL``; the first step, at lr 0, leaves every weight as
+    it was on both; the second, from the same weights and (as the batch
+    and weights are the same) the same gradients, within
+    ``bf16_step_parity`` at its lr."""
+    import dataclasses
+
+    from torch_checks import BF16_LOSS_RTOL, bf16_step_parity, same_bits
+
+    small = dataclasses.replace(cfg, num_layers=2)
+    card = _scheduled_two_steps(small, dev, 2, 128, seed + 2)
+    cpu = _scheduled_two_steps(small, "cpu", 2, 128, seed + 2)
+    for i, ((cl, lr, cs), (pl, _, ps)) in enumerate(zip(card, cpu)):
+        rel = abs(cl - pl) / abs(pl)
+        log(f"train {cfg.dtype} schedule + clip card vs CPU, step {i} (lr "
+            f"{lr:.3e}): loss {cl:.7f} vs {pl:.7f} (rel {rel:.2e}, limit "
+            f"{BF16_LOSS_RTOL:.0e})")
+        if not rel <= BF16_LOSS_RTOL:
+            raise AssertionError("card and CPU losses differ")
+        if lr == 0.0:
+            still = all(same_bits(b0, b1) for side in (cs, ps)
+                        for b0, b1, _ in side.values())
+            if not still:
+                raise AssertionError("a weight moved at lr 0")
+            continue
+        r = bf16_step_parity(cs, ps, lr)
+        log(f"  bf16_step_parity: gradients within {r['grad_rtol']:.2e} of "
+            f"each tensor's largest, {100 * r['clear_share']:.1f}% clear, "
+            f"{100 * r['differ_share']:.3f}% of elements differ")
 
 
 # ------------------------------------------------------------ inference
@@ -2094,7 +2451,7 @@ def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
     want.update(fused_update=0, codec_encode=nb * steps,
                 codec_encode_bf16=0, codec_decode=0, codec_decode_bf16=0,
-                fused_dequant_update=steps)
+                fused_dequant_update=steps, ce_chunk_fwd=0, ce_chunk_bwd=0)
     # the first step has no residual: each bf16 bucket encoded from bf16
     n_bf16 = r0["bucket_dtypes"].count("torch.bfloat16")
     want_first = {**{k: v // steps for k, v in want.items()},
@@ -2141,7 +2498,8 @@ def _check_data_parallel(runs, nb, n_bf16, n_layers, rounds, ran):
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
     want.update(fused_update=0, codec_encode=nb * rounds,
                 codec_encode_bf16=n_bf16, codec_decode=nb * rounds,
-                codec_decode_bf16=n_bf16 * rounds, fused_dequant_update=0)
+                codec_decode_bf16=n_bf16 * rounds, fused_dequant_update=0,
+                ce_chunk_fwd=0, ce_chunk_bwd=0)
     for rank, r in enumerate(runs):
         if r["counts"] != want:
             raise AssertionError(f"rank {rank} DataParallel launch counts "
@@ -2380,7 +2738,7 @@ def phase_dp_parity_bf16(cfg, seed, layers=2, b=2, s=128):
 
 def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
-                 bf16_rows, bf16_counts, dp16):
+                 bf16_rows, bf16_counts, dp16, ce_rows, ce_counts):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -2404,7 +2762,11 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     TrainStep's first step, the one that encodes from bf16, and of the
     DataParallel rounds; ``codec_decode_bf16`` likewise, its launches the
     DataParallel rounds'; ``fused_dequant_update_bf16``, the one launch
-    over the bf16 plan, its launches the timed steps'."""
+    over the bf16 plan, its launches the timed steps'. The fused loss's
+    chunk kernels, beyond the TPU set (they replace jnp stages, not a
+    Pallas kernel): ``ce_chunk_fwd`` and ``ce_chunk_bwd`` at the full
+    chunk (phase 21), the ragged last chunk in ``at_shapes``, their
+    launches those of phase 22's timed steps."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -2498,6 +2860,16 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                         replaces=f"paddle_tpu/ops/pallas/codec.py:{line}",
                         launches=launches, **_numbers(bf.pop(main)),
                         at_shapes=[_numbers(r) for r in bf.values()]))
+    from paddle_tpu_torch.ops import fused_ce as fce
+
+    for name, line in (("ce_chunk_fwd", 231), ("ce_chunk_bwd", 266)):
+        widths = sorted((c for n, c in ce_rows if n == name), reverse=True)
+        out.append(dict(
+            name=name, route="cuda", source=fce.KERNEL_SOURCE,
+            replaces=f"paddle_tpu/incubate/nn/functional.py:{line}",
+            beyond_tpu_set=True, launches=ce_counts[name],
+            **_numbers(ce_rows[(name, widths[0])]),
+            at_shapes=[_numbers(ce_rows[(name, c)]) for c in widths[1:]]))
     return {"kernels": out}
 
 
@@ -2549,7 +2921,7 @@ def main(argv=None) -> int:
     train_rows = phase_train_kernels(dev, gen, plan)
     stamp(train_rows.values(), before, clocks("after train-kernels"))
     log_ratios("train-kernels", train_rows)
-    train_counts, step, ids, labels = phase_train(cfg, dev, args.seed)
+    train_counts, step, ids, labels, _ = phase_train(cfg, dev, args.seed)
     if [b.size for b in step.buckets] != [b.size for b in plan]:
         raise AssertionError("the train step's bucket plan is not the "
                              "timed one")
@@ -2604,14 +2976,13 @@ def main(argv=None) -> int:
     bf16_rows = phase_train_kernels_bf16(dev, gen, plan16)
     stamp(bf16_rows.values(), before, clocks("after train-kernels bf16"))
     log_ratios("train-kernels bf16", bf16_rows)
-    bf16_counts, step, ids, labels = phase_train(cfg16, dev, args.seed)
+    bf16_counts, step, ids, labels, train16 = phase_train(cfg16, dev,
+                                                          args.seed)
     if [(b.size, b.dtype) for b in step.buckets] != [(b.size, b.dtype)
                                                     for b in plan16]:
         raise AssertionError("the bf16 train step's bucket plan is not the "
                              "timed one")
-    phase_train_profile(step, ids, labels,
-                        names=("fwd_bf16_kernel", "dq_bf16_kernel",
-                               "dkv_bf16_kernel", "update_kernel"))
+    phase_train_profile(step, ids, labels, names=BF16_KERNELS, cfg=cfg16)
     del step
     torch.cuda.empty_cache()
     lm_head_gemms(dev, gen, cfg16)
@@ -2628,6 +2999,68 @@ def main(argv=None) -> int:
                              "the timed one")
     torch.cuda.empty_cache()
     phase_dp_parity_bf16(cfg16, args.seed)
+    torch.cuda.empty_cache()
+
+    # bench.py's training options (measure_gpt: BENCH_FUSED_CE, and
+    # BENCH_GPT_REMAT), then a schedule and a clip, each beside phase 17
+    import dataclasses
+
+    from torch_checks import BF16_LOSS_RTOL
+
+    before = clocks("before fused-ce kernels")
+    ce_rows = phase_fused_ce_kernels(dev, gen, cfg16)
+    stamp(ce_rows.values(), before, clocks("after fused-ce kernels"))
+    log_ratios("fused-ce kernels", {f"{n} {c}": r
+                                    for (n, c), r in ce_rows.items()})
+    torch.cuda.empty_cache()
+    cfg_ce = dataclasses.replace(cfg16, fused_loss_chunk=CE_CHUNK)
+    ce_counts, step, ids, labels, train_ce = phase_train(cfg_ce, dev,
+                                                         args.seed)
+    first = abs(train_ce["losses"][0] - train16["losses"][0]) / abs(
+        train16["losses"][0])
+    log(f"train bf16, fused_loss_chunk={CE_CHUNK} against phase 17 in this "
+        f"call: step {train_ce['step_ms_median']:.2f} ms against "
+        f"{train16['step_ms_median']:.2f}, "
+        f"{train_ce['tokens_per_s']:.0f} tokens/s against "
+        f"{train16['tokens_per_s']:.0f}, peak "
+        f"{train_ce['peak_memory_gib']:.2f} GiB against "
+        f"{train16['peak_memory_gib']:.2f}; first loss "
+        f"{train_ce['losses'][0]:.7f} against {train16['losses'][0]:.7f} "
+        f"(rel {first:.2e}, limit {BF16_LOSS_RTOL:.0e})")
+    if not first <= BF16_LOSS_RTOL:
+        raise AssertionError("the fused step's first loss is not phase "
+                             "17's")
+    phase_train_profile(step, ids, labels,
+                        names=BF16_KERNELS + ("ce_fwd_kernel",
+                                              "ce_bwd_kernel"),
+                        cfg=cfg_ce)
+    del step
+    torch.cuda.empty_cache()
+    phase_train_parity(cfg_ce, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    cfg_remat = dataclasses.replace(cfg16, recompute=True)
+    _, step, ids, labels, train_remat = phase_train(cfg_remat, dev,
+                                                    args.seed)
+    phase_train_profile(step, ids, labels, names=BF16_KERNELS,
+                        cfg=cfg_remat, top=5)
+    del step
+    log(f"train bf16, recompute against phase 17 in this call: step "
+        f"{train_remat['step_ms_median']:.2f} ms against "
+        f"{train16['step_ms_median']:.2f}, peak "
+        f"{train_remat['peak_memory_gib']:.2f} GiB against "
+        f"{train16['peak_memory_gib']:.2f}")
+    torch.cuda.empty_cache()
+    phase_recompute_bits(cfg16, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    sched = phase_train_schedule_clip(cfg16, dev, args.seed)
+    log(f"train bf16, schedule + clip against phase 17 in this call: step "
+        f"{sched['step_ms_median']:.2f} ms against "
+        f"{train16['step_ms_median']:.2f}, peak "
+        f"{sched['peak_memory_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    phase_schedule_clip_parity(cfg16, dev, args.seed)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
@@ -2635,7 +3068,7 @@ def main(argv=None) -> int:
     print(json.dumps(kernels_line(rows, counts, train_rows, train_counts,
                                   infer_rows, conversion, infer_counts,
                                   dp_row, carrier_rows, dp_rank, bf16_rows,
-                                  bf16_counts, dp16)))
+                                  bf16_counts, dp16, ce_rows, ce_counts)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,7 +19,10 @@ process per rank over ``torch.distributed``, each bucket's summed
 payload decoded inside the optimizer update by a CUDA kernel
 (``csrc/fused_update.cu``, one launch a step over every bucket). Later
 slices: bf16 GPT training on bf16 forms of the flash and update kernels,
-and bf16 buckets on the gradient wire (the codecs read and write bf16):
+bf16 buckets on the gradient wire (the codecs read and write bf16), and
+the training options of ``bench.py``: the chunked linear +
+cross-entropy loss on two CUDA chunk kernels (``csrc/fused_ce.cu``),
+recompute, learning-rate schedulers and gradient clips:
 
   framework/   device resolution (cuda by default), serving flags,
                per-request random streams
@@ -29,15 +32,17 @@ and bf16 buckets on the gradient wire (the codecs read and write bf16):
                weight conversion from the JAX models' numpy arrays
   nn/          Linear ([in, out] weights), Embedding, Dropout, LayerNorm,
                the transformer encoder; linear, gelu, layer_norm and
-               scaled dot-product attention functionals
+               scaled dot-product attention functionals; ClipGradBy*
+  incubate/    fused_linear_cross_entropy (the chunked LM head + loss)
   quantization/ Int8Linear and convert_to_int8
   distributed/ the process group (env, spawn), collectives, the wire
                codecs and bucket plan, GradCommunicator, DataParallel
   ops/         kernel wrappers (kernel on CUDA, plain on CPU) for the
                codec, flash attention, the fused update (plain and
-               dequantizing) and the int8 quantize/quantized matmul,
-               and the nvcc/ctypes build
-  optimizer/   SGD, Momentum, Adam, AdamW and the fused flat updater
+               dequantizing), the int8 quantize/quantized matmul and the
+               fused loss's chunk epilogues, and the nvcc/ctypes build
+  optimizer/   SGD, Momentum, Adam, AdamW, the learning-rate schedulers
+               (lr) and the fused flat updater
   jit/         TrainStep (data parallel with grad_comm)
   serving/     decode model, KV block pool, sampler, queue, engine
   observability/ counters, gauges and histograms

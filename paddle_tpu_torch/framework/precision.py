@@ -5,10 +5,12 @@ XLA takes a precision per op where cuBLAS reads process-wide flags).
 model of ``dtype`` and restores the caller's on exit; it works as a
 ``with`` block or as a decorator. The models enter it themselves, so
 what a caller set process-wide does not change their numerics: each
-forward inside a ``with`` block, and the GPT backward through one
-identity node on the logits (``models/gpt.py`` ``_BackwardPrecision``),
-which enters the settings as the backward pass starts and restores the
-caller's when the pass ends, successful or raising (``_RestoreAtEnd``):
+forward inside a ``with`` block, and the GPT backward through the first
+node of its pass (the identity node on the logits, ``models/gpt.py``
+``_BackwardPrecision``, or the fused loss's own node,
+``incubate/nn/functional.py``), which calls ``enter_for_backward``: the
+settings are entered as the backward pass starts and the caller's
+restored when the pass ends, successful or raising (``RestoreAtEnd``):
 
 - "float32": TF32 off for matmuls, so an fp32 product on the card is
   an fp32 product, as the reference computes it;
@@ -28,7 +30,7 @@ import contextlib
 
 import torch
 
-__all__ = ["matmul_precision"]
+__all__ = ["matmul_precision", "RestoreAtEnd", "enter_for_backward"]
 
 # dtype -> torch.backends.cuda.matmul.allow_tf32
 _TF32 = {"float32": False, "bfloat16": True}
@@ -59,3 +61,32 @@ class matmul_precision(contextlib.ContextDecorator):
         (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
          dnn.allow_tf32) = self._saved.pop()
         return False
+
+
+class RestoreAtEnd:
+    """Leaves an entered ``matmul_precision`` once. The engine calls it
+    at the end of a backward pass that succeeds (a final callback, as DDP
+    queues its own). When a node raises, the engine runs no final
+    callback, but it frees the pass's queued callbacks with the pass, and
+    that frees this object: ``__del__`` leaves the settings then, before
+    ``backward()`` hands the error to its caller."""
+
+    def __init__(self, settings: matmul_precision):
+        self._settings = settings
+
+    def __call__(self):
+        settings, self._settings = self._settings, None
+        if settings is not None:
+            settings.__exit__(None, None, None)
+
+    __del__ = __call__
+
+
+def enter_for_backward(dtype: str) -> None:
+    """From inside a backward node: enter ``matmul_precision(dtype)`` for
+    the rest of the running backward pass and leave it when the pass
+    ends (``RestoreAtEnd``), whether it succeeds or raises."""
+    settings = matmul_precision(dtype)
+    settings.__enter__()
+    torch.autograd.Variable._execution_engine.queue_callback(
+        RestoreAtEnd(settings))

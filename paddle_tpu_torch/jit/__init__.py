@@ -1,7 +1,9 @@
 """The training step (reference: ``paddle_tpu/jit/__init__.py``
 ``TrainStep``: the ``accum == 1`` and micro-batch branches of
-``pure_step``, and the data-parallel gradient wire ``grad_comm``: lines
-368-400, 430-510, 598-828 and 975-1050).
+``pure_step``, the data-parallel gradient wire ``grad_comm``, the
+optimizer's ``grad_clip`` (``_apply_clip``) and its learning rate read
+at every call: lines 368-400, 430-510, 598-828, 896-898, 975-1050 and
+1083-1100).
 
     step = TrainStep(model, loss_fn, optimizer)
     loss = step(inputs=(ids,), labels=(labels,))   # params updated in place
@@ -58,6 +60,23 @@ With one rank the knob is inert: the step is the plain one, and
 ``comm_stats`` stays None. ``grad_comm`` needs ``grad_accum_steps == 1``,
 as in the reference.
 
+The optimizer's ``grad_clip`` (``nn/clip.py``) clips the step's mean
+gradient before the update, on every path: the flat gradient buckets of
+a plain step; the fp32 micro-batch means of an accumulated step, before
+a bf16 bucket's mean is rounded to bf16 (the reference clips its fp32
+sums, then casts); the decoded gradients of a data-parallel step, whose
+fused dequantizing update is then off (as in the reference: the clip
+needs the decoded gradient), so the step decodes, clips and runs
+``step()``. "By norm" clips each parameter's segment of its bucket. The
+global norm sums the buckets' fp32 sums of squares, where the reference
+sums the parameters' in its own order: the norm differs by fp32
+rounding, not more. The learning rate is the optimizer's ``get_lr()``
+at each call (a float or an ``LRScheduler``, which the caller steps).
+
+``inputs`` and ``labels`` may hold ``None`` (``bench.py``'s fused-loss
+step passes ``inputs=(ids, None, labels)``); it reaches the model as
+``None``.
+
 Not in this slice (``NotImplementedError``): ``batch_spec`` and
 ``grad_fn`` (ROADMAP Queue A 5, "parallelism").
 """
@@ -75,6 +94,7 @@ from ..distributed.grad_comm import (BLOCK_CODECS, GradBucket,
                                      GradCommConfig, GradCommunicator,
                                      build_buckets)
 from ..framework.device import to_device
+from ..nn.clip import clip_grads
 from ..optimizer.fused import FusedFlatUpdater
 from ..optimizer.optimizer import lr_mult
 
@@ -150,10 +170,14 @@ class TrainStep:
             plan = self._gc_comm.buckets_for(params)
             if all(_uniform(b, params, optimizer) for b in plan):
                 # the updater's flat buffers follow the wire's buckets, so
-                # a bucket's summed payload lines up with its parameters
+                # a bucket's summed payload lines up with its parameters;
+                # a clip needs the decoded gradients, so it turns the
+                # fused dequantizing update off
                 buckets = plan
-                self._gc_fused = grad_comm.codec in BLOCK_CODECS
-        self.updater = FusedFlatUpdater(optimizer, params, buckets=buckets)
+                self._gc_fused = (grad_comm.codec in BLOCK_CODECS
+                                  and optimizer._clip_cfg() is None)
+        self.updater = FusedFlatUpdater(optimizer, params, buckets=buckets,
+                                        caller_clips=True)
         self.device = params[0].device
         self._accum_div = None
 
@@ -175,7 +199,9 @@ class TrainStep:
             return 1
         return get_world_size()
 
-    def _tensor(self, x) -> torch.Tensor:
+    def _tensor(self, x):
+        if x is None:
+            return None
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
         arr = np.asarray(x)
@@ -199,10 +225,19 @@ class TrainStep:
             loss = self._loss(inputs, labels)
             loss.backward()
             loss = loss.detach()
+            self._clip(self.updater.flat_grads())
         else:
             loss = self._accumulate(inputs, labels)
         self.updater.step()
         return loss
+
+    def _clip(self, flats) -> None:
+        """Clip the buckets' flat gradients ``flats`` (or fp32 tensors laid
+        out as them) in place by the optimizer's ``grad_clip``."""
+        cfg = self.optimizer._clip_cfg()
+        if cfg is not None:
+            clip_grads(flats, cfg, groups=[list(zip(b.offsets, b.numels))
+                                           for b in self.buckets])
 
     def _accumulate(self, inputs, labels) -> torch.Tensor:
         """Forward and backward over the micro-batches; leaves the mean
@@ -211,7 +246,7 @@ class TrainStep:
         accum = self.grad_accum
 
         def micro(x, i):
-            if x.dim() == 0:
+            if x is None or x.dim() == 0:
                 return x
             if x.shape[0] % accum:
                 raise ValueError(f"batch {x.shape[0]} does not split "
@@ -239,11 +274,14 @@ class TrainStep:
                                          dtype=torch.float32,
                                          device=self.device)
         with torch.no_grad():
-            for g, total in zip(self.updater.flat_grads(), sums):
-                if total is None:
-                    g.div_(self._accum_div)
-                else:
-                    g.copy_(total.div_(self._accum_div))
+            flats = self.updater.flat_grads()
+            means = [g.div_(self._accum_div) if total is None
+                     else total.div_(self._accum_div)
+                     for g, total in zip(flats, sums)]
+            self._clip(means)
+            for g, total in zip(flats, sums):
+                if total is not None:
+                    g.copy_(total)
         return torch.stack(losses).mean()
 
     # ------------------------------------------------ data parallel step
@@ -252,7 +290,7 @@ class TrainStep:
         rank = get_rank()
 
         def shard(x):
-            if x.dim() == 0:
+            if x is None or x.dim() == 0:
                 return x
             if x.shape[0] % world:
                 raise ValueError(f"batch {x.shape[0]} does not split over "
@@ -280,6 +318,7 @@ class TrainStep:
             self.updater.step_dequant(payloads, world,
                                       comm.config.block_size)
         else:
+            self._clip(self.updater.flat_grads())
             self.updater.step()
         self.comm_stats = dict(comm.stats)
         return loss

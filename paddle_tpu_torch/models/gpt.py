@@ -19,11 +19,18 @@ logits tied to the word embedding. Attention is the flash kernel
 and the reference's einsum/softmax path without it. Serving reads the
 same parameters through ``serving.model.GPTDecodeModel``.
 
+``fused_loss_chunk > 0`` with ``labels`` returns the mean loss of the
+chunked LM head instead of the logits
+(``incubate.nn.functional.fused_linear_cross_entropy`` on the tied
+table): the ``[b*s, V]`` logits never exist whole. ``recompute`` runs
+each block under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``): its activations are recomputed in the backward,
+at the forward's GEMM settings, so the gradients are the same bits.
+
 Not in this slice (each raises ``NotImplementedError``, see ROADMAP
 Queue A "training options" and "parallelism"): dropout > 0 in training,
-``recompute``, ``mode="scan"`` and the pipeline, ring and Ulysses
-attention, ``fused_loss_chunk``; a ``dtype`` other than "float32" and
-"bfloat16".
+``recompute_policy``, ``mode="scan"`` and the pipeline, ring and Ulysses
+attention; a ``dtype`` other than "float32" and "bfloat16".
 
 Numerics, per ``dtype`` (``framework.precision.matmul_precision``).
 ``GPTForCausalLM.forward`` enters the settings for the forward, and its
@@ -61,9 +68,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..framework.device import resolve_device
-from ..framework.precision import matmul_precision
+from ..framework.precision import enter_for_backward, matmul_precision
+from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..nn.functional import layer_norm
 from ..ops.flash_attention import flash_attention_val
 
@@ -189,30 +198,11 @@ _PARALLEL = "ROADMAP Queue A, 'parallelism'"
 _DTYPES = "ROADMAP Queue A, 'other dtypes'"
 
 
-class _RestoreAtEnd:
-    """Leaves an entered ``matmul_precision`` once. The engine calls it
-    at the end of a backward pass that succeeds (a final callback, as DDP
-    queues its own). When a node raises, the engine runs no final
-    callback, but it frees the pass's queued callbacks with the pass, and
-    that frees this object: ``__del__`` leaves the settings then, before
-    ``backward()`` hands the error to its caller."""
-
-    def __init__(self, settings: matmul_precision):
-        self._settings = settings
-
-    def __call__(self):
-        settings, self._settings = self._settings, None
-        if settings is not None:
-            settings.__exit__(None, None, None)
-
-    __del__ = __call__
-
-
 class _BackwardPrecision(torch.autograd.Function):
     """Identity on the logits. Its backward, the first node of a backward
     pass from them, enters ``matmul_precision(dtype)`` for every GEMM of
     that pass and hands the restore of the caller's settings to the
-    pass's end (``_RestoreAtEnd``), whether the pass succeeds or raises."""
+    pass's end (``RestoreAtEnd``), whether the pass succeeds or raises."""
 
     @staticmethod
     def forward(ctx, x, dtype):
@@ -221,10 +211,7 @@ class _BackwardPrecision(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        settings = matmul_precision(ctx.dtype)
-        settings.__enter__()
-        torch.autograd.Variable._execution_engine.queue_callback(
-            _RestoreAtEnd(settings))
+        enter_for_backward(ctx.dtype)
         return dy, None
 
 
@@ -250,9 +237,6 @@ def _check_trainable(cfg: GPTConfig, training: bool) -> None:
     if cfg.use_ring_attention or cfg.use_ulysses_attention:
         raise NotImplementedError(f"ring/Ulysses attention is not ported "
                                   f"yet ({_PARALLEL})")
-    if cfg.recompute:
-        raise NotImplementedError(f"recompute is not ported yet "
-                                  f"({_OPTIONS})")
     if training and (cfg.dropout > 0 or cfg.attn_dropout > 0):
         raise NotImplementedError(f"dropout > 0 in training is not ported "
                                   f"yet ({_OPTIONS})")
@@ -322,7 +306,19 @@ class GPTDecoderLayer(nn.Module):
                                        device, dt))
 
     def forward(self, x):
-        """One block (reference ``_block_apply``) on ``[b, s, h]``."""
+        """One block (reference ``_block_apply``) on ``[b, s, h]``; with
+        ``recompute`` its activations are recomputed in the backward."""
+        if self.cfg.recompute and torch.is_grad_enabled():
+            return checkpoint(self._recomputable, x, use_reentrant=False)
+        return self._block(x)
+
+    def _recomputable(self, x):
+        """The block at its dtype's GEMM settings, which the recompute
+        inside the backward pass would otherwise take from that pass."""
+        with matmul_precision(self.cfg.dtype):
+            return self._block(x)
+
+    def _block(self, x):
         cfg = self.cfg
         b, s, h = x.shape
         eps = cfg.layer_norm_epsilon
@@ -373,23 +369,29 @@ class GPTForCausalLM(nn.Module):
         self.gpt = GPTModel(config, seed, self.device)
 
     def forward(self, input_ids, position_ids=None, labels=None):
-        """Logits [b, s, vocab], tied to the word embedding. ``labels`` is
-        accepted as in the reference, which reads it only for the fused
-        chunked loss."""
-        if labels is not None and self.config.fused_loss_chunk > 0:
-            raise NotImplementedError(f"fused_loss_chunk is not ported yet "
-                                      f"({_OPTIONS})")
-        with matmul_precision(self.config.dtype):
+        """Logits [b, s, vocab], tied to the word embedding; with
+        ``labels`` and ``fused_loss_chunk > 0``, the mean loss of the
+        chunked LM head instead (``labels`` is read only then, as in the
+        reference)."""
+        cfg = self.config
+        with matmul_precision(cfg.dtype):
             x = self.gpt(input_ids, position_ids)
+        w = self.gpt.embeddings.word_embeddings
+        if labels is not None and cfg.fused_loss_chunk > 0:
+            # the function's own node enters the GEMM settings for the
+            # backward (no logits node here)
+            return fused_linear_cross_entropy(
+                x.reshape(-1, cfg.hidden_size), w, labels.reshape(-1),
+                vocab_chunk=cfg.fused_loss_chunk, transposed_weight=True)
+        with matmul_precision(cfg.dtype):
             # jnp's promotion of ``h @ wv.T``: fp32 final-norm output times
             # the bf16 table is an fp32 GEMM; the gradient reaches the
             # table through the cast
-            w = self.gpt.embeddings.word_embeddings
             dt = torch.promote_types(x.dtype, w.dtype)
             logits = x.to(dt) @ w.to(dt).T
         if not logits.requires_grad:
             return logits
-        return _BackwardPrecision.apply(logits, self.config.dtype)
+        return _BackwardPrecision.apply(logits, cfg.dtype)
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -1,10 +1,12 @@
 """Neural-network layers and functionals of the port (reference:
-``paddle_tpu/nn``): what BERT inference needs."""
+``paddle_tpu/nn``): what BERT inference needs, and the gradient clips."""
 from . import functional
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layer import (Dropout, Embedding, LayerNorm, Linear,
                     MultiHeadAttention, TransformerEncoder,
                     TransformerEncoderLayer)
 
-__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear",
+__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "Dropout", "Embedding", "LayerNorm", "Linear",
            "MultiHeadAttention", "TransformerEncoder",
            "TransformerEncoderLayer", "functional"]

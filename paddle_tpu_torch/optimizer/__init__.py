@@ -1,5 +1,6 @@
 """Optimizers (reference: ``paddle_tpu/optimizer/__init__.py`` ``SGD``,
-``Momentum``, ``Adam``, ``AdamW``).
+``Momentum``, ``Adam``, ``AdamW``; ``lr``, the learning-rate
+schedulers).
 
 The four rules that have a fused kernel (``ops/fused_update.py``
 ``FUSED_RULES``). The per-parameter ``_update`` runs the same arithmetic
@@ -15,11 +16,12 @@ from __future__ import annotations
 import torch
 
 from ..ops.fused_update import rule_spec, scalar_prep, slot_names, update_math
+from . import lr
 from .fused import FusedFlatUpdater
 from .optimizer import Optimizer
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW",
-           "FusedFlatUpdater"]
+           "FusedFlatUpdater", "lr"]
 
 
 class _FusedRule(Optimizer):

@@ -40,6 +40,16 @@ buffers, which the kernel steps on the card; the buffers alternate, so
 a view is valid until the step after next (``_slots`` always holds the
 current ones).
 
+The learning rate is read from the optimizer at every step
+(``get_lr()``, a float or an ``LRScheduler``'s current value) and goes
+to the launch as a 0-dim fp32 tensor on the card, kept while the value
+stays and made anew when it moves; it is not part of the table, so a
+schedule never rebuilds one.
+
+As in the reference, an optimizer with a ``grad_clip`` is refused: the
+fused update does not clip. ``TrainStep`` clips the flat gradients
+itself before it calls ``step()`` and says so (``caller_clips=True``).
+
 ``step_sharded`` (ZeRO) is not ported yet (ROADMAP Queue A 2, the ZeRO
 remainder).
 """
@@ -69,11 +79,16 @@ _m_fused = _get_registry().counter(
 class FusedFlatUpdater:
     """Apply ``optimizer``'s update rule per flat bucket."""
 
-    def __init__(self, optimizer, params, buckets=None):
+    def __init__(self, optimizer, params, buckets=None, *,
+                 caller_clips=False):
         kind = type(optimizer).__name__
         if kind not in FUSABLE_OPTIMIZERS:
             raise ValueError(f"{kind} has no fused flat update in the port; "
                              f"fusable: {FUSABLE_OPTIMIZERS}")
+        if optimizer._grad_clip is not None and not caller_clips:
+            raise ValueError(
+                "fused flat updates do not implement grad_clip; clip the "
+                "gradients before sync or use the per-param step()")
         self.optimizer = optimizer
         self.params = [p for p in params if p.requires_grad]
         self.buckets = (build_buckets(self.params) if buckets is None
@@ -88,7 +103,7 @@ class FusedFlatUpdater:
         self._table = None                   # BucketTable of the last step
         self._dequant_table = None           # ... of the last step_dequant
         self.table_builds = 0
-        self._lr = None                      # (value, device tensor)
+        self._lr = None                      # (value, device, tensor)
         with torch.no_grad():
             for b in self.buckets:
                 self._lay_out(b)
@@ -161,10 +176,14 @@ class FusedFlatUpdater:
         return [self._flat_grads(b) for b in self.buckets]
 
     def _lr_tensor(self, device) -> torch.Tensor:
+        """This step's learning rate on ``device``: the kept tensor while
+        the optimizer's value and the device are the same, else a new
+        one (a tensor is never written after it is made, so a launch
+        still queued reads the rate of its own step)."""
         lr = self.optimizer.get_lr()
-        if self._lr is None or self._lr[0] != lr:
-            self._lr = (lr, self.optimizer._lr_tensor(device))
-        return self._lr[1]
+        if self._lr is None or self._lr[:2] != (lr, device):
+            self._lr = (lr, device, self.optimizer._lr_tensor(device))
+        return self._lr[2]
 
     # ---------------------------------------------------------------- step
     @torch.no_grad()

@@ -1,6 +1,8 @@
 """Optimizer base (reference: ``paddle_tpu/optimizer/optimizer.py``
-``Optimizer``: ``get_lr``, ``set_lr``, ``_init_slots``, ``_wd_coeff``,
-``_param_wd``, the per-parameter ``step`` and ``clear_grad``).
+``Optimizer``: ``get_lr``, ``set_lr``, ``set_lr_scheduler``,
+``_init_slots``, ``_wd_coeff``, ``_param_wd``, ``_clip_cfg``, the
+per-parameter ``step`` with ``_build_step_fn``'s clip, and
+``clear_grad``).
 
 Each optimizer defines a per-parameter update rule ``_update(p, g,
 slots, lr, lr_mult, wd) -> (new_p, new_slots)`` in plain PyTorch with the
@@ -13,8 +15,12 @@ reference: ``p.optimize_attr = {"learning_rate": mult}`` scales the
 learning rate, ``p.regularizer`` (anything with ``_coeff``) overrides
 the weight decay.
 
-Not in this slice (each raises ``NotImplementedError``): learning-rate
-schedulers and ``grad_clip`` (ROADMAP Queue A, "training options").
+``learning_rate`` is a float or an ``LRScheduler`` (``optimizer/lr.py``),
+read by ``get_lr()`` at every update. ``grad_clip`` is one of
+``nn.ClipGradByGlobalNorm``, ``ClipGradByNorm`` or ``ClipGradByValue``:
+``step()`` clips the gradients, cast to their parameters' dtypes, before
+the update (``nn/clip.py`` ``clip_grads``), as the reference's compiled
+step does; ``TrainStep`` clips its flat gradient buckets the same way.
 """
 from __future__ import annotations
 
@@ -22,9 +28,10 @@ from typing import Dict, List
 
 import torch
 
-__all__ = ["Optimizer", "lr_mult"]
+from ..nn.clip import clip_grads
+from .lr import LRScheduler
 
-_LATER = "ROADMAP Queue A, 'training options'"
+__all__ = ["Optimizer", "lr_mult"]
 
 
 def lr_mult(p) -> float:
@@ -38,25 +45,43 @@ class Optimizer:
         if parameters is None:
             raise ValueError("parameters is required (pass "
                              "model.parameters())")
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                f"learning-rate schedulers are not ported yet ({_LATER}); "
-                f"pass a float")
-        if grad_clip is not None:
-            raise NotImplementedError(
-                f"grad_clip is not ported yet ({_LATER})")
         self._parameter_list: List[torch.Tensor] = list(parameters)
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = learning_rate
+        self._grad_clip = grad_clip
         self._weight_decay = weight_decay
         self._slots: Dict[int, Dict[str, torch.Tensor]] = {}
         self._accumulated_steps = 0
 
     # ------------------------------------------------------------- lr
     def get_lr(self) -> float:
-        return self._learning_rate
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
+        return float(self._learning_rate)
 
     def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when learning_rate is a "
+                               "scheduler")
         self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
+
+    def _clip_cfg(self):
+        """``grad_clip`` as ``(kind, value)``: ("global_norm", c),
+        ("norm", c), ("value", (min, max)); None without a clip (or with
+        a class the reference does not know, which it ignores too)."""
+        gc = self._grad_clip
+        if gc is None:
+            return None
+        cls = type(gc).__name__
+        if cls == "ClipGradByGlobalNorm":
+            return ("global_norm", gc.clip_norm)
+        if cls == "ClipGradByNorm":
+            return ("norm", gc.clip_norm)
+        if cls == "ClipGradByValue":
+            return ("value", (gc.min, gc.max))
+        return None
 
     # ------------------------------------------------------ update rule
     def _init_slots(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -95,15 +120,22 @@ class Optimizer:
                   if p.grad is not None and p.requires_grad]
         if not params:
             return
+        grads = [p.grad.to(p.dtype) for p in params]
+        clip = self._clip_cfg()
+        if clip is not None:
+            # clip copies, never the caller's .grad
+            grads = [g.clone() if g is p.grad else g
+                     for g, p in zip(grads, params)]
+            clip_grads(grads, clip)
         lrs = {}
-        for p in params:
+        for p, g in zip(params, grads):
             lr = lrs.get(p.device)
             if lr is None:
                 lr = lrs[p.device] = self._lr_tensor(p.device)
             slots = self._slots.get(id(p))
             if slots is None:
                 slots = self._init_slots(p)
-            new_p, new_s = self._update(p, p.grad.to(p.dtype), slots, lr,
+            new_p, new_s = self._update(p, g, slots, lr,
                                         lr_mult(p), self._param_wd(p))
             p.copy_(new_p)
             self._slots[id(p)] = new_s

@@ -64,6 +64,20 @@ its buckets by size and dtype, and over mixed bf16 and fp32 tables
 (a bf16 bucket over fp32 parameters among them), three steps, one
 launch a step (``buckets_vs_plain``); ``step_dequant`` keeps one table
 while the payload buffers stay.
+The fused loss: ``ce_chunk_fwd`` and ``ce_chunk_bwd`` against their
+plain versions by ``tests/torch_checks.py``'s criteria (the running max
+and the picked logit bit-identical, the running sum within 1e-5
+relative; each dlogit element within 1e-6 of its magnitude, and of
+``|g|`` at the label's column; rows with ``g = 0`` exactly 0) at the
+bench step's two chunk shapes ([8192, 8192], [8192, 1152]) with and
+without bias, with ignored rows and a label in the chunk's last column,
+and at shapes off the vector path or over one segment; their wrappers'
+refusals; ``fused_linear_cross_entropy`` on the card against the CPU
+(loss 1e-5 relative, gradients 1e-5 of their largest); one bf16
+gpt-test step in ``bench.py``'s fused form with ``recompute`` against
+the CPU's (``BF16_LOSS_RTOL``, ``bf16_step_parity``), its launches
+counted, its gradients bit-identical to the same step without
+recompute.
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -86,7 +100,9 @@ from paddle_tpu_torch.models import (BertForPretraining, GPTForCausalLM,
 from paddle_tpu_torch.models.convert import expected_dtypes, expected_shapes
 from paddle_tpu_torch.observability.metrics import get_registry
 from paddle_tpu_torch.ops import codec
+from paddle_tpu_torch.incubate.nn.functional import fused_linear_cross_entropy
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_ce as fce
 from paddle_tpu_torch.ops import fused_update as fu
 from paddle_tpu_torch.optimizer import AdamW, FusedFlatUpdater
 from paddle_tpu_torch.quantization import Int8Linear, convert_to_int8
@@ -95,6 +111,7 @@ from paddle_tpu_torch.serving import (BatchSampler, GPTDecodeModel,
                                       ServeRequest, ServingEngine)
 from torch_checks import (BF16_LOSS_RTOL, FUSED_HYPER, adam_step_parity,
                           bf16_step_parity, bucket_entries, buckets_vs_plain,
+                          ce_bwd_vs_plain, ce_fwd_vs_plain, ce_inputs,
                           dequant_inputs, dequant_vs_plain, flash_bf16_limit,
                           flash_err, flash_vs_plain, fused_inputs,
                           fused_vs_plain, plant_flash_fault, qmm_vs_plain,
@@ -876,6 +893,109 @@ def check_bert_int8_on_card_matches_cpu(dev):
     assert float((nsp.cpu() - want_nsp).abs().max()) <= 1e-4
 
 
+def check_fused_ce_kernels_match_plain(dev, n, c, start, vocab, bias,
+                                       ignored):
+    gen = torch.Generator(device=dev).manual_seed(c + start)
+    logit, b, labels, state, lse, g = ce_inputs(n, c, start, vocab, gen, dev,
+                                                bias, ignored)
+    before = dict(fce.launch_counts())
+    ce_fwd_vs_plain(logit, b, labels, start, vocab, state)
+    ce_bwd_vs_plain(logit, b, lse, labels, g, start)
+    assert {k: v - before[k] for k, v in fce.launch_counts().items()} == {
+        "ce_chunk_fwd": 1, "ce_chunk_bwd": 1}
+
+
+def check_fused_ce_wrappers_raise(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logit, b, labels, (m, s, p), lse, g = ce_inputs(8, 64, 0, 64, gen, dev)
+    with pytest.raises(TypeError):
+        fce.ce_chunk_fwd(logit.bfloat16(), b, labels, 0, 64, m, s, p)
+    with pytest.raises(TypeError):
+        fce.ce_chunk_fwd(logit, b, labels.long(), 0, 64, m, s, p)
+    with pytest.raises(ValueError, match="contiguous"):
+        fce.ce_chunk_bwd(logit.t().contiguous().t(), b, lse, labels, g, 0)
+    with pytest.raises(ValueError, match="is on"):
+        fce.ce_chunk_bwd(logit, b, lse.cpu(), labels, g, 0)
+    with pytest.raises(ValueError, match="vocabulary"):
+        fce.ce_chunk_fwd(logit, b, labels, 10, 64, m, s, p)
+    with pytest.raises(ValueError, match="shape"):
+        fce.ce_chunk_fwd(logit, b[:10], labels, 0, 64, m, s, p)
+
+
+def _fused_loss(device, transposed, chunk):
+    rs = np.random.RandomState(1)
+    n, h, v = 300, 64, 1000
+    x = torch.from_numpy(rs.randn(n, h).astype(np.float32)).to(device)
+    w = torch.from_numpy((rs.randn(*((v, h) if transposed else (h, v)))
+                          * 0.2).astype(np.float32)).to(device)
+    b = torch.from_numpy((rs.randn(v) * 0.2).astype(np.float32)).to(device)
+    lbl = rs.randint(0, v, (n,))
+    lbl[:9], lbl[9] = -100, v - 1
+    x.requires_grad_()
+    w.requires_grad_()
+    b.requires_grad_()
+    loss = fused_linear_cross_entropy(x, w, torch.from_numpy(lbl).to(device),
+                                      bias=b, vocab_chunk=chunk,
+                                      transposed_weight=transposed)
+    loss.backward()
+    return [t.detach().cpu() for t in (loss, x.grad, w.grad, b.grad)]
+
+
+def check_fused_loss_on_card_matches_cpu(dev, transposed):
+    """``fused_linear_cross_entropy`` (chunk 256 of V 1000: a ragged last
+    chunk of 232) on the card against the CPU: the fp32 GEMMs with TF32
+    off on both, so the loss within 1e-5 relative and every gradient
+    within 1e-5 of its tensor's largest; 4 launches of each kernel."""
+    before = dict(fce.launch_counts())
+    card = _fused_loss(dev, transposed, 256)
+    assert {k: v - before[k] for k, v in fce.launch_counts().items()} == {
+        "ce_chunk_fwd": 4, "ce_chunk_bwd": 4}
+    cpu = _fused_loss("cpu", transposed, 256)
+    assert abs(float(card[0] - cpu[0])) <= 1e-5 * abs(float(cpu[0]))
+    for name, a, c in zip(("dx", "dW", "db"), card[1:], cpu[1:]):
+        err = float((a - c).abs().max())
+        assert err <= 1e-5 * float(c.abs().max()), (name, err)
+
+
+def _options_step(device, **over):
+    cfg = gpt_presets("gpt-test", dtype="bfloat16", **over)
+    m = GPTForCausalLM(cfg, seed=0, device=device)
+    o = AdamW(learning_rate=1e-3, weight_decay=0.01,
+              parameters=m.parameters())
+    step = TrainStep(m, lambda loss: loss, o)
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 256, (2, 37))
+    labels = rs.randint(0, 256, (2, 37))
+    before = {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+    loss = float(step(inputs=(ids, None, labels), labels=()))
+    return loss, {n: (before[n], p.detach().cpu(), p.grad.cpu())
+                  for n, p in m.named_parameters()}
+
+
+def check_fused_recompute_step_on_card_matches_cpu(dev):
+    """One bf16 gpt-test step in ``bench.py``'s fused form with
+    ``recompute`` (chunk 64 of V 256) on the card against the CPU: the
+    loss within ``BF16_LOSS_RTOL``, then ``bf16_step_parity``; 4 launches
+    of each loss kernel, the flash forward twice a layer; the card's
+    gradients with recompute bit-identical to its own without."""
+    counts = {**fa.launch_counts(), **fu.launch_counts(),
+              **fce.launch_counts()}
+    card_loss, card = _options_step(dev, fused_loss_chunk=64, recompute=True)
+    after = {**fa.launch_counts(), **fu.launch_counts(),
+             **fce.launch_counts()}
+    assert {k: after[k] - counts[k] for k in after} == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_bf16": 4,
+        "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "fused_update": 1,
+        "ce_chunk_fwd": 4, "ce_chunk_bwd": 4}
+    cpu_loss, cpu = _options_step("cpu", fused_loss_chunk=64, recompute=True)
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    assert rel <= BF16_LOSS_RTOL, rel
+    bf16_step_parity(card, cpu, 1e-3)
+    _, plain = _options_step(dev, fused_loss_chunk=64)
+    for n, (_, _, g) in card.items():
+        assert torch.equal(g, plain[n][2]), f"{n}: recompute changed bits"
+
+
 @pytest.mark.requires_cuda
 def test_cuda_path_matches_plain(dev):
     run_checks(
@@ -984,4 +1104,19 @@ def test_cuda_path_matches_plain(dev):
                               (4_725_505, 1024, 3), (777, 128, 2),
                               (1, 1024, 0), (1001, 100, 0))]
         + [(check_step_dequant_keeps_its_table, (dev,)),
-           (check_dequant_wrapper_raises, (dev,))])
+           (check_dequant_wrapper_raises, (dev,))]
+        + [(check_fused_ce_kernels_match_plain, (dev, n, c, st, v, b, ig))
+           for n, c, st, v, b, ig in (
+               # the bench step's chunks: 6 of 8192, the last of 1152
+               (8192, 8192, 0, 50304, True, 0),
+               (8192, 8192, 40960, 50304, False, 100),
+               (8192, 1152, 49152, 50304, True, 100),
+               (8192, 1152, 49152, 50304, False, 0),
+               # C % 4 != 0 (element-wise accesses), C over one segment
+               (100, 1001, 3, 1004, True, 5),
+               (64, 20000, 0, 20000, False, 3),
+               (1, 1, 0, 1, True, 0))]
+        + [(check_fused_ce_wrappers_raise, (dev,)),
+           (check_fused_loss_on_card_matches_cpu, (dev, True)),
+           (check_fused_loss_on_card_matches_cpu, (dev, False)),
+           (check_fused_recompute_step_on_card_matches_cpu, (dev,))])

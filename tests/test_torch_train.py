@@ -30,8 +30,10 @@ JAX reference on the CPU, at ``gpt-test`` size (2 layers, hidden 64,
   accumulated step and 8.5e-6 after three plain steps.
 - The port's training forward equals its own serving ``forced_logits``
   (1e-5) and its einsum attention path (``use_flash_attention=False``).
-- The options this slice leaves out raise ``NotImplementedError``
-  (``grad_comm``, ported since, takes only a config or a codec name).
+- The options still left out raise ``NotImplementedError`` naming their
+  ROADMAP item (``grad_comm``, ported since, takes only a config or a
+  codec name; ``recompute``, ``fused_loss_chunk`` and ``grad_clip``,
+  ported since, are held in ``tests/test_torch_train_options.py``).
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -221,18 +223,20 @@ def check_training_forward_matches_serving_and_einsum_path():
 
 
 def check_left_out_options_raise():
-    ids, labels = _batch()
-    for over in ({"dropout": 0.1}, {"attn_dropout": 0.1},
-                 {"recompute": True}, {"mode": "scan"},
+    ids, _ = _batch()
+    for over in ({"dropout": 0.1}, {"attn_dropout": 0.1}, {"mode": "scan"},
                  {"use_ring_attention": True},
                  {"use_ulysses_attention": True}):
         tm = GPTForCausalLM(gpt_presets("gpt-test", **over), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm(torch.from_numpy(ids))
-    tm = GPTForCausalLM(gpt_presets("gpt-test", fused_loss_chunk=64),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+    with pytest.raises(NotImplementedError, match="training options"):
+        GPTForCausalLM(gpt_presets("gpt-test",
+                                   recompute_policy=("remat", "none")),
+                       device="cpu")
+    # recompute, fused_loss_chunk and grad_clip are ported
+    # (tests/test_torch_train_options.py)
+    tm = GPTForCausalLM(gpt_presets("gpt-test"), device="cpu")
     o = AdamW(parameters=tm.parameters())
     for kw in ("batch_spec", "grad_fn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -241,8 +245,6 @@ def check_left_out_options_raise():
     # GradCommConfig or a codec name
     with pytest.raises(TypeError, match="GradCommConfig"):
         TrainStep(tm, GPTPretrainingCriterion(), o, grad_comm=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AdamW(parameters=tm.parameters(), grad_clip=object())
 
 
 def test_train_port_matches_reference(fresh_mesh):

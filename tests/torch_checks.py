@@ -45,6 +45,15 @@ the two hold the kernels to one set of criteria:
   encode's (:func:`encoded_inputs`, from fp32 or bf16 gradients);
 - one Adam(W) training step on two devices: :func:`adam_step_parity`,
   and for a bf16 model :func:`bf16_step_parity`;
+- ``ce_chunk_fwd`` (:func:`ce_fwd_vs_plain`): the running max and the
+  picked logit bit-identical (a max and an fp32 add are exact the same
+  way), the running sum within ``CE_SUM_RTOL`` relative (a sum of C
+  exponentials in another order, each within 2 ulp: measured ~1e-7);
+  ``ce_chunk_bwd`` (:func:`ce_bwd_vs_plain`): every element within
+  ``CE_RTOL (|plain| + |g| onehot)`` (one exp of 2 ulp against the CPU's
+  0.5-1 ulp, a subtraction and a multiply: a few ulp of the result, and
+  at the label's column of ``|g|``, as ``exp - 1`` rounds to 1's ulp),
+  rows with ``g = 0`` exactly 0;
 - ``quantize_int8``: int8 payload and scales bit-identical, nearest and
   stochastic;
 - ``quant_matmul``: every element within the forward-error bound of two
@@ -61,6 +70,7 @@ import importlib
 import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_ce as fce
 from paddle_tpu_torch.ops import fused_update as fu
 
 # ``paddle_tpu_torch.ops`` exports the function ``quant_matmul`` under the
@@ -78,6 +88,9 @@ FLASH_BF16_LSE = 1e-4      # max abs
 # 2.4e-6 at gpt-test, b2 s37, where the kernels with a planted fault
 # (``tests/test_torch_cuda.py``) read 1.3e-3
 BF16_LOSS_RTOL = 1e-4
+# the chunk epilogues of the fused loss against their plain versions
+CE_SUM_RTOL = 1e-5
+CE_RTOL = 1e-6
 # largest diff / limit ``quant_matmul`` may read at k >= QMM_SPLIT_MIN_K
 QMM_SPLIT_CEILING = 0.04
 QMM_SPLIT_MIN_K = 768
@@ -213,6 +226,75 @@ def flash_vs_plain(q, k, v, do, causal: bool):
         errs[name] = flash_err(name, q.dtype, a, b)
     _over_limit(f"flash {list(q.shape)} {q.dtype} causal={causal}", errs)
     return errs, lse, delta
+
+
+def ce_inputs(n, c, start, vocab, gen, device, bias=True, ignored=0):
+    """One chunk of the fused loss: fp32 logits [n, c] at GPT's scale, the
+    chunk's bias (or None), int32 labels over the vocabulary (the first
+    in the chunk's last column, the second in its first), a running
+    state (m, s, picked) as an earlier chunk leaves it, the rows' lse
+    and upstream gradient g, 0 on the first ``ignored`` rows (the
+    positions the mask drops)."""
+    def randn(*shape):
+        return torch.randn(*shape, device=device, generator=gen)
+
+    logit = randn(n, c) * 3
+    b = randn(c) * 0.3 if bias else None
+    labels = torch.randint(0, vocab, (n,), device=device, generator=gen,
+                           dtype=torch.int32)
+    labels[:2] = torch.tensor([start + c - 1, start])[:n]
+    m = randn(n) * 3 + 6
+    s = torch.rand(n, device=device, generator=gen) * 100 + 1
+    picked = randn(n)
+    lse = (logit if b is None else logit + b).logsumexp(-1) + randn(n).abs()
+    g = torch.rand(n, device=device, generator=gen) / n
+    g[:ignored] = 0.0
+    return logit, b, labels, (m, s, picked), lse, g
+
+
+def ce_fwd_vs_plain(logit, bias, labels, start, vocab, state) -> dict:
+    """``ce_chunk_fwd`` against its plain version from the same running
+    ``state`` (m, s, picked; left unchanged). Returns the max abs
+    differences and the sum's largest relative one; raises when the max
+    or the picked logit differs or the sum is over ``CE_SUM_RTOL``."""
+    got = [t.clone() for t in state]
+    want = [t.clone() for t in state]
+    fce.ce_chunk_fwd(logit, bias, labels, start, vocab, *got)
+    fce.ce_chunk_fwd_plain(logit, bias, labels, start, *want)
+    out = {"m": _max_abs(got[0], want[0]), "s": _max_abs(got[1], want[1]),
+           "picked": _max_abs(got[2], want[2]),
+           "s_rel": float(((got[1] - want[1]).abs() / want[1]).max())}
+    shape = list(logit.shape)
+    if not (same_bits(got[0], want[0]) and same_bits(got[2], want[2])):
+        raise AssertionError(f"ce_chunk_fwd {shape}: max or picked logit "
+                             f"differs from plain: {out}")
+    if not out["s_rel"] <= CE_SUM_RTOL:
+        raise AssertionError(f"ce_chunk_fwd {shape}: running sum "
+                             f"{out['s_rel']:.3e} relative from plain")
+    return out
+
+
+def ce_bwd_vs_plain(logit, bias, lse, labels, g, start) -> dict:
+    """``ce_chunk_bwd`` against its plain version on copies of ``logit``.
+    Returns the max abs difference and the largest diff / limit; raises
+    when an element is over ``CE_RTOL (|plain| + |g| onehot)`` or a row
+    with ``g = 0`` is not 0."""
+    got, want = logit.clone(), logit.clone()
+    fce.ce_chunk_bwd(got, bias, lse, labels, g, start)
+    fce.ce_chunk_bwd_plain(want, bias, lse, labels, g, start)
+    col = torch.arange(logit.shape[1], device=logit.device) + start
+    hot = (labels.long()[:, None] == col[None, :]).float()
+    lim = CE_RTOL * (want.abs() + g.abs()[:, None] * hot) + 1e-38
+    diff = (got - want).abs()
+    out = {"dlogit": float(diff.max()), "over_limit": float((diff / lim)
+                                                           .max())}
+    shape = list(logit.shape)
+    if not out["over_limit"] <= 1.0:
+        raise AssertionError(f"ce_chunk_bwd {shape}: {out}")
+    if bool(got[g == 0].any()):
+        raise AssertionError(f"ce_chunk_bwd {shape}: a row with g = 0 is "
+                             f"not 0")
+    return out
 
 
 def quantize_vs_plain(w, stochastic: bool, seed: int) -> float:

@@ -1,6 +1,6 @@
 """Rank workers for the port's data-parallel tests on the CPU
 (``tests/test_torch_grad_comm.py``, ``tests/test_torch_dp_train.py``,
-``tests/test_torch_bf16_dp.py``).
+``tests/test_torch_bf16_dp.py``, ``tests/test_torch_train_options.py``).
 
 ``paddle_tpu_torch.distributed.spawn`` starts each rank in a fresh
 process that imports the worker's module, so the workers live here, in a
@@ -202,3 +202,22 @@ def bf16_dp_cases(gpt_bits, ids, labels, mlp_w, X, Y):
     out["dp"] = data_parallel_grads(mlp_w, X, Y, MLP_BLOCK, 2,
                                     torch.bfloat16)
     return out
+
+
+def clip_dp_case(gpt_params, ids, labels):
+    """The world-2 run of ``test_torch_train_options.py`` on this rank:
+    fp32 ``gpt-test`` on the int8_block wire with a global-norm clip,
+    two SGD steps (the clip turns the fused dequantizing update off)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import SGD
+
+    _join()
+    model = gpt_test(gpt_params)
+    opt = SGD(learning_rate=0.1, parameters=model.parameters(),
+              grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, GPTPretrainingCriterion(), opt,
+                     grad_comm="int8_block")
+    losses = [float(step(inputs=(ids,), labels=(labels,)))
+              for _ in range(2)]
+    return {"losses": losses, "fused": step._gc_fused,
+            "params": [_np(p) for p in model.parameters()]}
