@@ -288,6 +288,50 @@ when every phase passed):
               card against CPU at 2 layers, b2 s128: each loss within
               BF16_LOSS_RTOL, the lr-0 step still on both, the second
               within bf16_step_parity.
+ 25. bert train O2
+              bench.py's bert mode (measure_bert, bench.py:701-765,
+              BASELINE.md config 3): BERT-base (full width and depth,
+              random weights from seed 0), batch 16 x 512 from
+              RandomState(seed) with 15% of the positions masked,
+              AdamW(1e-4), TrainStep(model, MLM loss + NSP
+              cross-entropy) under auto_cast(level="O2",
+              dtype="bfloat16") with inputs (ids, None, None, None,
+              mlm), 3 warm-up and 10 timed steps; once unfused and once
+              with fused_loss_chunk=8192 (BENCH_FUSED_CE): step ms,
+              samples/s, peak memory, losses finite and falling, launch
+              counts a step (flash_fwd_bf16, flash_dq_bf16 and
+              flash_dkv_bf16 12 each in full mode, one fused_update over
+              the 18 fp32 buckets, 4 of each chunk kernel in the fused
+              form: 30,522 = 3 x 8192 + 5946), the phase 8 profile of
+              each form with the rest by op and shape; then the path's
+              kernels at its shapes: the bf16 flash trio at [16, 12,
+              512, 64] full (phase 16's criteria, timed beside bf16
+              SDPA), the update over BERT's plan bit for bit and timed,
+              the chunk kernels at 8192 and 5946 columns (phase 21's);
+ 26. bert train-parity O2
+              one O2 step at BERT-base width with 2 layers, b2 s128, on
+              the card and on the CPU, the CPU through the flash route's
+              plain versions (flash_route: the card's attention is the
+              flash kernels, fp32 softmax inside): loss within
+              BF16_LOSS_RTOL (not widened), its fp32 terms logged; then
+              bf16_step_parity (the query and key projections'
+              gradients within QK_GRAD_RTOL, the key biases' gradient,
+              zero in exact arithmetic, held under 1e-2 of its key
+              weight's);
+ 27. infer O2
+              phase 10 under auto_cast(level="O2"), in the same call:
+              int8 BERT-base at 16 x 512, 2 + 5 forwards, launches by
+              kernel and shape (per forward 29 quant_matmul_bf16, where
+              the reference's int8 layers get bf16 x, and 46 fp32
+              quant_matmul, where a layer_norm feeds them; 12
+              flash_fwd_bf16), MLM logits bf16 and NSP logits fp32,
+              forward ms beside phase 10's, the profile; then
+              quant_matmul_bf16 at each shape it launched (and a ragged
+              one) against its plain version (tests/torch_checks.py
+              qmm_bf16_vs_plain: 2 k 2^-24 (|x| @ |q|) s plus one bf16
+              ulp), timed beside bf16 torch.matmul on the dequantized
+              bf16 weight, bounds from bytes at 3.35 TB/s and operations
+              at 989 TFLOP/s bf16.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -334,6 +378,7 @@ RAGGED_QMM = (1000, 100, 37)
 INFER_TOL = 1e-4                    # card vs CPU logits, max abs
 BF16_KERNELS = ("fwd_bf16_kernel", "dq_bf16_kernel", "dkv_bf16_kernel",
                 "update_kernel")
+CE_KERNELS = ("ce_fwd_kernel", "ce_bwd_kernel")
 
 
 def log(*a):
@@ -1110,7 +1155,8 @@ def _variant(cfg) -> str:
     """The training options of ``cfg`` that phase 17 leaves off."""
     return "".join((f", fused_loss_chunk={cfg.fused_loss_chunk}"
                     if cfg.fused_loss_chunk else "",
-                    ", recompute" if cfg.recompute else ""))
+                    ", recompute" if getattr(cfg, "recompute", False)
+                    else ""))
 
 
 def loss_chunks(cfg) -> int:
@@ -1241,20 +1287,14 @@ GEMM_OPS = ("aten::mm", "aten::addmm", "aten::addmm_", "aten::bmm",
             "aten::_scaled_mm")
 
 
-def phase_train_profile(step, ids, labels,
-                        names=("fwd_kernel", "dq_kernel", "dkv_kernel",
-                               "update_kernel"), cfg=None, top=10):
-    """torch.profiler over one step (``bench_step`` for ``cfg``): busy
-    and idle share, kernels, device time by kernel and by kind; then a
-    second profiled step with ``record_shapes`` (kept apart: recording
-    shapes slows the host) splits "the rest" by PyTorch op and input
-    shape, its ``top`` largest entries logged."""
+def phase_train_profile(one, names=("fwd_kernel", "dq_kernel", "dkv_kernel",
+                                   "update_kernel"), tag="", top=10):
+    """torch.profiler over one step (the call ``one()``): busy and idle
+    share, kernels, device time by kernel and by kind; then a second
+    profiled step with ``record_shapes`` (kept apart: recording shapes
+    slows the host) splits "the rest" by PyTorch op and input shape, its
+    ``top`` largest entries logged."""
     from torch.profiler import ProfilerActivity, profile
-
-    def one():
-        if cfg is None:
-            return step(inputs=(ids,), labels=(labels,))
-        return bench_step(step, cfg, ids, labels)
 
     one()
     torch.cuda.synchronize()
@@ -1267,7 +1307,6 @@ def phase_train_profile(step, ids, labels,
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    tag = _variant(cfg) if cfg is not None else ""
     log(f"train profile{tag}: one step, wall {wall_us / 1e3:.3f} ms, device "
         f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy, "
         f"{100 * (1 - busy_us / wall_us):.1f}% idle), "
@@ -1541,8 +1580,8 @@ def phase_train_schedule_clip(cfg, dev, seed, steps=5, b=TRAIN_B,
     want["fused_update"] = steps
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    phase_train_profile(step, ids, labels, names=BF16_KERNELS, cfg=cfg,
-                        top=5)
+    phase_train_profile(lambda: bench_step(step, cfg, ids, labels),
+                        names=BF16_KERNELS, tag=_variant(cfg), top=5)
     return out
 
 
@@ -1596,6 +1635,203 @@ def phase_schedule_clip_parity(cfg, dev, seed):
         log(f"  bf16_step_parity: gradients within {r['grad_rtol']:.2e} of "
             f"each tensor's largest, {100 * r['clear_share']:.1f}% clear, "
             f"{100 * r['differ_share']:.3f}% of elements differ")
+
+
+# ------------------------------------------------ BERT under amp
+BERT_B, BERT_S = 16, 512            # measure_bert's batch on the accelerator
+BERT_LR = 1e-4
+BERT_WARMUP, BERT_STEPS = 3, 10     # measure_bert's warm-up and timed steps
+# the query and key projections' gradients, card vs CPU, of each tensor's
+# largest (phase 26): read 2.9e-2 at BERT-base width, 2 layers, b2 s128,
+# on an NVIDIA H100 80GB HBM3 at 700 W
+QK_GRAD_RTOL = 5e-2
+
+
+def _bert_train_setup(cfg, device, b, s, seed, terms=None):
+    """``bench.py``'s ``measure_bert`` (``bench.py:701-765``) for ``cfg``:
+    BertForPretraining from seed 0, AdamW(1e-4), TrainStep with the MLM
+    loss plus the NSP cross-entropy (the reference's op "add"), and a
+    batch from ``RandomState(seed)``: ids, 15% of the positions masked
+    (the MLM labels, -1 elsewhere), NSP labels; on ``device``. With a
+    list ``terms``, each step's loss terms (MLM, NSP) are appended."""
+    from paddle_tpu_torch import tensor as T
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import BertForPretraining
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def loss_fn(mlm_loss, nsp_logits, nsp_lbl):
+        nsp = F.cross_entropy(nsp_logits, nsp_lbl)
+        if terms is not None:
+            terms.append((mlm_loss.detach(), nsp.detach()))
+        return T.add(mlm_loss, nsp)
+
+    model = BertForPretraining(cfg, seed=0, device=device)
+    step = TrainStep(model, loss_fn,
+                     AdamW(learning_rate=BERT_LR,
+                           parameters=model.parameters()))
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg.vocab_size, (b, s))
+    mlm = np.where(rs.rand(b, s) < 0.15, ids, -1)
+    nsp = rs.randint(0, 2, (b,))
+    batch = tuple(torch.as_tensor(a, dtype=torch.long, device=device)
+                  for a in (ids, mlm, nsp))
+    return model, step, batch
+
+
+def bert_step(step, batch):
+    """One step as ``measure_bert``'s ``one_step`` calls it: under
+    ``auto_cast(level="O2", dtype="bfloat16")``, inputs ``(ids, None,
+    None, None, mlm)``, labels ``(nsp,)``."""
+    from paddle_tpu_torch.amp import auto_cast
+
+    ids, mlm, nsp = batch
+    with auto_cast(level="O2", dtype="bfloat16"):
+        return step(inputs=(ids, None, None, None, mlm), labels=(nsp,))
+
+
+def phase_bert_train(cfg, dev, seed, warmup=BERT_WARMUP, steps=BERT_STEPS,
+                     b=BERT_B, s=BERT_S):
+    """Phase 25: ``measure_bert``'s step for ``cfg``: ``warmup`` then
+    ``steps`` timed steps, launch counts reset just before them and read
+    just after (each bf16 flash kernel once a layer, one fused update,
+    the chunk kernels once a chunk with ``fused_loss_chunk``). Returns
+    the counts, the step, the batch and the summary."""
+    _, step, batch = _bert_train_setup(cfg, dev, b, s, seed)
+    tag = _variant(cfg)
+    log(f"bert train: {sum(bk.size for bk in step.buckets)} parameters in "
+        f"{len(step.buckets)} buckets, {cfg.num_layers} layers, O2 "
+        f"bfloat16{tag}, batch {b} x {s}, AdamW lr {BERT_LR}")
+    losses = [float(bert_step(step, batch)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launch_counts()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(bert_step(step, batch)))   # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = train_launch_counts()
+    med = statistics.median(step_ms)
+    summary = {"losses": losses, "step_ms": step_ms, "step_ms_median": med,
+               "samples_per_s": b / (med / 1e3),
+               "tokens_per_s": b * s / (med / 1e3),
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "buckets": len(step.buckets), "launches": counts}
+    log(f"bert train O2{tag} " + json.dumps(summary))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite BERT loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"BERT loss did not fall: {losses}")
+    want = {k: 0 for k in counts}
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        want[name + "_bf16"] = cfg.num_layers * steps
+    want["fused_update"] = steps
+    want["ce_chunk_fwd"] = want["ce_chunk_bwd"] = loss_chunks(cfg) * steps
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    return counts, step, batch, summary
+
+
+def phase_bert_train_kernels(dev, gen, buckets, cfg_ce):
+    """Phase 25's kernels at its shapes: the bf16 flash trio in full mode
+    at [16, 12, 512, 64], checked and timed as phase 16 times them; the
+    fused update over BERT's fp32 plan (``buckets``), as phase 6's; the
+    chunk kernels at BERT's chunk widths (8192 and the ragged 5946 of
+    30,522 at chunk 8192), as phase 21's."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rows = _flash_case(dev, gen, FLASH_BERT, False, True, flush,
+                       torch.bfloat16)
+    fused = _fused_timing(dev, gen, buckets, flush)
+    rows["fused_update"] = fused
+    log(f"fused_update, BERT-base's {fused['shape']}, one launch: as "
+        f"FusedFlatUpdater.step() calls it {fused['step_ms']:.4f} ms, the "
+        f"kernel alone {fused['ms']:.4f}, torch._fused_adamw_ "
+        f"{fused['library_ms']:.4f}; plain {fused['plain_ms']:.4f}; bound "
+        f"{fused['bound_ms']:.4f} {fused['bound_by']}, the kernel at "
+        f"{100 * fused['bound_ms'] / fused['ms']:.1f}% of it")
+    del flush
+    ce = phase_fused_ce_kernels(dev, gen, cfg_ce, tokens=BERT_B * BERT_S)
+    return rows, ce
+
+
+def phase_bert_train_parity(dev, seed, b=2, s=128):
+    """Phase 26: one O2 step on the card and one on the CPU at BERT-base
+    width with 2 layers, b2 s128, from the same weights and batch. The
+    CPU side takes the flash route's plain versions (``flash_route``:
+    the card's attention is the flash kernels, fp32 softmax inside; the
+    CPU's default, the reference's plain route, runs its softmax in
+    bf16 under O2). The loss (bf16 under O2: the final "add" casts)
+    within ``BF16_LOSS_RTOL``, its fp32 terms logged; then
+    ``bf16_step_parity``: the query and key projections, whose gradient
+    comes only through dS (which the bf16 kernels round before dQ = dS K
+    and dK = dS^T Q, and which at initialisation, near-uniform scores, is
+    a small difference of larger terms), with gradients within
+    ``QK_GRAD_RTOL`` of each tensor's largest, every other parameter at
+    its default 2e-2; the key biases apart, their gradient zero in exact
+    arithmetic (softmax is invariant to adding one value to a row of
+    scores, and ``q . b_k`` is one value a row): on both devices it is
+    rounding noise, held below 1e-2 of the gradient of its layer's key
+    weight."""
+    import dataclasses
+
+    from torch_checks import BF16_LOSS_RTOL, bf16_step_parity
+
+    from paddle_tpu_torch.models import bert_presets
+    from paddle_tpu_torch.nn.functional import flash_route
+
+    cfg = dataclasses.replace(bert_presets("bert-base"), num_layers=2)
+
+    def one(device):
+        terms = []
+        model, step, batch = _bert_train_setup(cfg, device, b, s, seed + 4,
+                                               terms)
+        before = {n: p.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
+        with flash_route(device == "cpu"):
+            loss = float(bert_step(step, batch))
+        return loss, [float(t) for t in terms[0]], {
+            n: (before[n], p.detach().cpu().clone(), p.grad.cpu().clone())
+            for n, p in model.named_parameters()}
+
+    card_loss, card_terms, card = one(dev)
+    cpu_loss, cpu_terms, cpu = one("cpu")
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    log(f"bert train O2 card vs CPU (bert-base width, 2 layers, b{b} "
+        f"s{s}): loss {card_loss:.7f} vs {cpu_loss:.7f} (rel {rel:.2e}, "
+        f"limit {BF16_LOSS_RTOL:.0e}); fp32 terms MLM "
+        f"{card_terms[0]:.7f} vs {cpu_terms[0]:.7f}, NSP "
+        f"{card_terms[1]:.7f} vs {cpu_terms[1]:.7f}")
+    if not rel <= BF16_LOSS_RTOL:
+        raise AssertionError("card and CPU BERT losses differ beyond "
+                             f"{BF16_LOSS_RTOL:.0e}")
+    keys = [n for n in cpu if n.endswith("k_proj.bias")]
+    noise = {}
+    for n in keys:
+        w = n[:-len("bias")] + "weight"
+        for side, d in (("card", card), ("cpu", cpu)):
+            noise[f"{n} {side}"] = float(d[n][2].abs().max()
+                                         / d[w][2].abs().max())
+    qk = [n for n in cpu if n not in keys
+          and (".q_proj." in n or ".k_proj." in n)]
+    rest = [n for n in cpu if n not in keys and n not in qk]
+    r = bf16_step_parity({n: card[n] for n in rest},
+                         {n: cpu[n] for n in rest}, BERT_LR)
+    r_qk = bf16_step_parity({n: card[n] for n in qk},
+                            {n: cpu[n] for n in qk}, BERT_LR,
+                            grad_rtol=QK_GRAD_RTOL)
+    log(f"bert train O2 card vs CPU after one AdamW step: gradients within "
+        f"{r['grad_rtol']:.2e} of each tensor's largest (limit 2e-2), the "
+        f"query and key projections' within {r_qk['grad_rtol']:.2e} (limit "
+        f"{QK_GRAD_RTOL:.0e}); on the "
+        f"{100 * r['clear_share']:.1f}% and {100 * r_qk['clear_share']:.1f}% "
+        f"of elements whose gradient is clear of the noise, every step "
+        f"within 1e-2 lr of the CPU's; max |param diff| "
+        f"{max(r['param_max_abs_diff'], r_qk['param_max_abs_diff']):.3e}; "
+        f"key-bias gradient over its key weight's: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in noise.items()))
+    if not all(v < 1e-2 for v in noise.values()):
+        raise AssertionError(f"key-bias gradients above the noise: {noise}")
 
 
 # ------------------------------------------------------------ inference
@@ -1725,6 +1961,57 @@ def phase_infer_kernels(dev, gen, shapes):
     return rows
 
 
+def _qmm_bf16_case(dev, gen, mkn, launches, flush):
+    """``quant_matmul`` on bf16 ``x`` (the ``quant_matmul_bf16`` kernel)
+    at ``mkn`` against its plain version, timed beside it, its bound
+    (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16) and a like
+    yardstick: ``torch.matmul`` on the bf16 ``x`` and the weight
+    dequantized to bf16, at the port's GEMM settings (no reduced-precision
+    reduction)."""
+    from torch_checks import qmm_bf16_vs_plain
+
+    from paddle_tpu_torch.framework.precision import matmul_precision
+
+    qm = _quant_module()
+    m, k, n = mkn
+    x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+    q, sc = qm.quantize_int8(torch.randn(k, n, device=dev, generator=gen)
+                             * 0.02)
+    err, ratio = qmm_bf16_vs_plain(x, q, sc)
+    w = (q.float() * sc).to(torch.bfloat16)
+    # read x (bf16), q and the scales once, write the bf16 output; 2 m n k
+    bound_ms, bound_by = work_bound(2 * m * k + k * n + 4 * n + 2 * m * n,
+                                    2 * m * n * k, bf16=True)
+    with matmul_precision("float32"):
+        library_ms = median_ms(lambda: torch.matmul(x, w), flush)
+    r = {"shape": f"({m}, {k}, {n}) bf16", "launches_at_shape": launches,
+         "max_abs_err": err, "err_over_limit": ratio,
+         "ms": median_ms(lambda: qm.quant_matmul(x, q, sc), flush),
+         "plain_ms": median_ms(lambda: qm.quant_matmul_plain(x, q, sc),
+                               flush),
+         "library_ms": library_ms, "library_form":
+         "torch.matmul(x bf16, dequantized weight bf16)",
+         "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"quant_matmul_bf16 {r['shape']} ({launches} in the timed "
+        f"forwards): max abs diff {err:.3e}, at most {ratio:.4f} of the "
+        f"limit | {r['ms']:.4f} ms ({2 * m * n * k / r['ms'] / 1e9:.2f} "
+        f"TFLOP/s; plain {r['plain_ms']:.4f}, bf16 torch.matmul "
+        f"{library_ms:.4f}, bound {bound_ms:.4f} {bound_by}, the kernel at "
+        f"{100 * bound_ms / r['ms']:.1f}% of it)")
+    return r
+
+
+def phase_infer_kernels_bf16(dev, gen, shapes):
+    """Phase 27's kernel rows: ``quant_matmul_bf16`` at every shape the
+    O2 forward launched it at (``shapes``, most launched first) and at a
+    ragged one (k % 8 != 0: x loaded element by element)."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rows = [_qmm_bf16_case(dev, gen, mkn, n, flush)
+            for mkn, n in [*shapes.most_common(), (RAGGED_QMM, 0)]]
+    del flush
+    return rows
+
+
 def _at_rest_bytes(model) -> int:
     return sum(t.numel() * t.element_size()
                for t in (*model.parameters(), *model.buffers()))
@@ -1736,7 +2023,9 @@ def infer_launch_counts() -> dict:
     from paddle_tpu_torch.ops import flash_attention as fa
 
     qm = _quant_module()
-    return {**qm.launch_counts(), "flash_fwd": fa.launch_counts()["flash_fwd"],
+    flash = fa.launch_counts()
+    return {**qm.launch_counts(), "flash_fwd": flash["flash_fwd"],
+            "flash_fwd_bf16": flash["flash_fwd_bf16"],
             "shapes": qm.shape_counts()}
 
 
@@ -1767,8 +2056,21 @@ def _bert_batch(cfg, b, s, seed):
     return ids, types
 
 
+def amp_int8_split(num_layers: int):
+    """(bf16, fp32) ``quant_matmul`` launches of one int8 BERT forward
+    under O2, as the reference gives them: bf16 ``x`` for the first
+    layer's q/k/v (fed by the embeddings' dropout, a cast point), every
+    out_proj and linear2 (fed by a reshape or gelu, cast points), the
+    pooler and the NSP head; fp32 for the layers fed by a ``layer_norm``
+    (the later q/k/v, every linear1, the transform)."""
+    return 2 * num_layers + 5, 4 * num_layers - 2
+
+
 def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
-                cfg=None):
+                cfg=None, level=None):
+    """Phase 10 (``level`` None) and phase 27 (``level="O2"``: the
+    forwards under ``auto_cast(level="O2")``)."""
+    from paddle_tpu_torch.amp import auto_cast
     from paddle_tpu_torch.models import BertForPretraining, bert_presets
     from paddle_tpu_torch.nn import Linear
     from paddle_tpu_torch.quantization import convert_to_int8
@@ -1797,7 +2099,8 @@ def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
     ids, types = _bert_batch(cfg, b, s, seed)
     ids = torch.as_tensor(ids, device=dev)
     types = torch.as_tensor(types, device=dev)
-    with torch.inference_mode():
+    with torch.inference_mode(), auto_cast(enable=level is not None,
+                                           level=level or "O1"):
         for _ in range(warmup):
             model(ids, types)
         torch.cuda.synchronize()
@@ -1813,7 +2116,8 @@ def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = statistics.median(fwd_ms)
     per_forward = Counter()            # (k, n) -> launches per forward
-    for (m, k, n), c in counts["shapes"]["quant_matmul"].items():
+    for (m, k, n), c in (counts["shapes"]["quant_matmul"]
+                         + counts["shapes"]["quant_matmul_bf16"]).items():
         per_forward[(k, n)] += c / iters
         if m not in (b * s, b):
             per_forward["m not b * s or b"] += c
@@ -1826,22 +2130,34 @@ def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
                "linear_weight_bytes_fp32": linear_bytes,
                "conversion_launches": _named(conversion),
                "launches": _named(counts)}
-    log("infer " + json.dumps(summary))
+    tag = f" {level}" if level else ""
+    log(f"infer{tag} " + json.dumps(summary))
+    # under O2 the MLM logits are bf16 ("mlm_logits" casts) and the NSP
+    # head's fp32 (the int8 layer adds its fp32 bias by promotion)
+    want_dt = torch.bfloat16 if level == "O2" else torch.float32
     if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
-            tuple(nsp.shape) != (b, 2):
-        raise AssertionError(f"logits {tuple(logits.shape)}, nsp "
-                             f"{tuple(nsp.shape)}")
+            tuple(nsp.shape) != (b, 2) or logits.dtype != want_dt or \
+            nsp.dtype != torch.float32:
+        raise AssertionError(f"logits {tuple(logits.shape)} {logits.dtype}, "
+                             f"nsp {tuple(nsp.shape)} {nsp.dtype}")
     if not (torch.isfinite(logits).all() and torch.isfinite(nsp).all()):
         raise AssertionError("non-finite logits")
-    want = {"quantize_int8": 0, "quant_matmul": len(linears) * iters,
-            "flash_fwd": cfg.num_layers * iters}
+    if level == "O2":
+        n16, n32 = amp_int8_split(cfg.num_layers)
+        want = {"quantize_int8": 0, "quant_matmul": n32 * iters,
+                "quant_matmul_bf16": n16 * iters, "flash_fwd": 0,
+                "flash_fwd_bf16": cfg.num_layers * iters}
+    else:
+        want = {"quantize_int8": 0, "quant_matmul": len(linears) * iters,
+                "quant_matmul_bf16": 0, "flash_fwd": cfg.num_layers * iters,
+                "flash_fwd_bf16": 0}
     got = {k: counts[k] for k in want}
     if got != want or per_forward != weights:
         raise AssertionError(f"launch counts {got}, expected {want}; per "
                              f"forward by weight {dict(per_forward)}, "
                              f"expected {dict(weights)}")
     del logits, nsp
-    return conversion, counts, model, (ids, types)
+    return conversion, counts, model, (ids, types), summary
 
 
 def _named(counts) -> dict:
@@ -1850,10 +2166,13 @@ def _named(counts) -> dict:
                                  for name, c in counts["shapes"].items()}}
 
 
-def phase_infer_profile(model, batch):
+def phase_infer_profile(model, batch, level=None):
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    from paddle_tpu_torch.amp import auto_cast
+
+    with torch.inference_mode(), auto_cast(enable=level is not None,
+                                           level=level or "O1"):
         model(*batch)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1865,7 +2184,8 @@ def phase_infer_profile(model, batch):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    log(f"infer profile: one forward, wall {wall_us / 1e3:.3f} ms, device "
+    tag = f" {level}" if level else ""
+    log(f"infer profile{tag}: one forward, wall {wall_us / 1e3:.3f} ms, device "
         f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy, "
         f"{100 * (1 - busy_us / wall_us):.1f}% idle), "
         f"{sum(e.count for e in kernels)} kernels")
@@ -1873,7 +2193,8 @@ def phase_infer_profile(model, batch):
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / busy_us:5.1f}% "
             f"{e.count:5d}x  {e.key[:90]}")
-    for name in ("qmm_kernel", "fwd_kernel"):
+    for name in ("qmm_kernel", "qmm_bf16_kernel", "fwd_kernel",
+                 "fwd_bf16_kernel"):
         t = sum(e.self_device_time_total for e in kernels if name in e.key)
         log(f"  share of the forward's device time, {name}: "
             f"{100 * t / busy_us:.1f}% ({t / 1e3:.3f} ms)")
@@ -2738,7 +3059,7 @@ def phase_dp_parity_bf16(cfg, seed, layers=2, b=2, s=128):
 
 def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
-                 bf16_rows, bf16_counts, dp16, ce_rows, ce_counts):
+                 bf16_rows, bf16_counts, dp16, ce_rows, ce_counts, bert_run):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -2766,7 +3087,14 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     chunk kernels, beyond the TPU set (they replace jnp stages, not a
     Pallas kernel): ``ce_chunk_fwd`` and ``ce_chunk_bwd`` at the full
     chunk (phase 21), the ragged last chunk in ``at_shapes``, their
-    launches those of phase 22's timed steps."""
+    launches those of phase 22's timed steps. BERT's shapes (``bert_run``,
+    phases 25 and 27) are ``at_shapes`` of the kernels they share, with
+    phase 25's launches (unfused, or fused for the chunk kernels): the
+    bf16 flash trio in full mode at [16, 12, 512, 64], ``fused_update``
+    over BERT-base's fp32 plan, the chunk kernels at 8192 and 5946
+    columns; ``quant_matmul_bf16``, the bf16 form of ``_qmm_kernel``, is
+    an entry of its own at the O2 int8 forward's most launched shape,
+    its launches phase 27's timed forwards'."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -2870,7 +3198,93 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
             beyond_tpu_set=True, launches=ce_counts[name],
             **_numbers(ce_rows[(name, widths[0])]),
             at_shapes=[_numbers(ce_rows[(name, c)]) for c in widths[1:]]))
+    by_name = {e["name"]: e for e in out}
+    run = bert_run
+    counts25, counts_ce = run["counts"], run["counts_ce"]
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        by_name[name + "_bf16"].setdefault("at_shapes", []).append(dict(
+            _numbers(run["rows"][name]),
+            launches_at_shape=counts25[name + "_bf16"]))
+    by_name["fused_update"].setdefault("at_shapes", []).append(dict(
+        _numbers(run["rows"]["fused_update"]),
+        launches_at_shape=counts25["fused_update"]))
+    steps = counts25["fused_update"]
+    for (name, c), r in run["ce_rows"].items():
+        chunks = sum(1 for _, w in ce_chunk_shapes(run["cfg_ce"]) if w == c)
+        by_name[name]["at_shapes"].append(dict(
+            _numbers(r), launches_at_shape=chunks * steps))
+    if counts_ce["ce_chunk_fwd"] != loss_chunks(run["cfg_ce"]) * steps:
+        raise AssertionError("the fused BERT step's chunk launches are not "
+                             "the timed steps'")
+    main, *rest = run["qmm_rows"]
+    out.append(dict(name="quant_matmul_bf16", route="cuda",
+                    source=qm.KERNEL_SOURCE,
+                    replaces="paddle_tpu/ops/quant_matmul.py:110",
+                    launches=run["infer_counts"]["quant_matmul_bf16"],
+                    **_numbers(main), at_shapes=[_numbers(r) for r in rest]))
     return {"kernels": out}
+
+
+def phase_bert(dev, gen, seed, infer32):
+    """Phases 25-27, ``bench.py``'s bert mode (``measure_bert``) and int8
+    BERT under O2; ``infer32`` is phase 10's summary, for the int8
+    forward's time beside it. Returns what the kernels line reads."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import bert_presets
+
+    cfg = bert_presets("bert-base")
+    cfg_ce = dataclasses.replace(cfg, fused_loss_chunk=CE_CHUNK)
+    counts, step, batch, unfused = phase_bert_train(cfg, dev, seed)
+    plan = step.buckets
+    phase_train_profile(lambda: bert_step(step, batch), names=BF16_KERNELS,
+                        tag=" bert O2")
+    del step, batch
+    torch.cuda.empty_cache()
+    counts_ce, step, batch, fused = phase_bert_train(cfg_ce, dev, seed)
+    log(f"bert train O2, fused_loss_chunk={CE_CHUNK} against unfused in "
+        f"this call: step {fused['step_ms_median']:.2f} ms against "
+        f"{unfused['step_ms_median']:.2f}, {fused['samples_per_s']:.1f} "
+        f"samples/s against {unfused['samples_per_s']:.1f}, peak "
+        f"{fused['peak_memory_gib']:.2f} GiB against "
+        f"{unfused['peak_memory_gib']:.2f}; first loss "
+        f"{fused['losses'][0]:.7f} against {unfused['losses'][0]:.7f}")
+    phase_train_profile(lambda: bert_step(step, batch),
+                        names=BF16_KERNELS + CE_KERNELS,
+                        tag=" bert O2" + _variant(cfg_ce))
+    del step, batch
+    torch.cuda.empty_cache()
+    before = clocks("before bert train-kernels")
+    rows, ce_rows = phase_bert_train_kernels(dev, gen, plan, cfg_ce)
+    stamp([*rows.values(), *ce_rows.values()], before,
+          clocks("after bert train-kernels"))
+    log_ratios("bert train-kernels", {**rows, **{f"{n} {c}": r for (n, c), r
+                                                 in ce_rows.items()}})
+    torch.cuda.empty_cache()
+    phase_bert_train_parity(dev, seed)
+    torch.cuda.empty_cache()
+
+    _, infer_counts, model, batch, infer16 = phase_infer(dev, seed,
+                                                         level="O2")
+    phase_infer_profile(model, batch, level="O2")
+    del model, batch
+    torch.cuda.empty_cache()
+    log(f"infer O2 against phase 10 (fp32 activations) in this call: "
+        f"forward {infer16['forward_ms_median']:.2f} ms against "
+        f"{infer32['forward_ms_median']:.2f}, "
+        f"{infer16['samples_per_s']:.1f} samples/s against "
+        f"{infer32['samples_per_s']:.1f}, peak "
+        f"{infer16['peak_memory_gib']:.2f} GiB against "
+        f"{infer32['peak_memory_gib']:.2f}")
+    before = clocks("before int8-kernels bf16")
+    qmm_rows = phase_infer_kernels_bf16(
+        dev, gen, infer_counts["shapes"]["quant_matmul_bf16"])
+    stamp(qmm_rows, before, clocks("after int8-kernels bf16"))
+    log_ratios("int8-kernels bf16", {str(i): r
+                                     for i, r in enumerate(qmm_rows)})
+    return {"counts": counts, "counts_ce": counts_ce, "rows": rows,
+            "ce_rows": ce_rows, "cfg_ce": cfg_ce, "qmm_rows": qmm_rows,
+            "infer_counts": infer_counts}
 
 
 def _numbers(r) -> dict:
@@ -2925,13 +3339,14 @@ def main(argv=None) -> int:
     if [b.size for b in step.buckets] != [b.size for b in plan]:
         raise AssertionError("the train step's bucket plan is not the "
                              "timed one")
-    phase_train_profile(step, ids, labels)
+    phase_train_profile(lambda: bench_step(step, cfg, ids, labels))
     del step
     torch.cuda.empty_cache()
     phase_train_parity(cfg, dev, args.seed)
     torch.cuda.empty_cache()
 
-    conversion, infer_counts, bert, batch = phase_infer(dev, args.seed)
+    conversion, infer_counts, bert, batch, infer32 = phase_infer(dev,
+                                                                 args.seed)
     phase_infer_profile(bert, batch)
     del bert, batch
     torch.cuda.empty_cache()
@@ -2982,7 +3397,8 @@ def main(argv=None) -> int:
                                                     for b in plan16]:
         raise AssertionError("the bf16 train step's bucket plan is not the "
                              "timed one")
-    phase_train_profile(step, ids, labels, names=BF16_KERNELS, cfg=cfg16)
+    phase_train_profile(lambda: bench_step(step, cfg16, ids, labels),
+                        names=BF16_KERNELS)
     del step
     torch.cuda.empty_cache()
     lm_head_gemms(dev, gen, cfg16)
@@ -3030,10 +3446,9 @@ def main(argv=None) -> int:
     if not first <= BF16_LOSS_RTOL:
         raise AssertionError("the fused step's first loss is not phase "
                              "17's")
-    phase_train_profile(step, ids, labels,
-                        names=BF16_KERNELS + ("ce_fwd_kernel",
-                                              "ce_bwd_kernel"),
-                        cfg=cfg_ce)
+    phase_train_profile(lambda: bench_step(step, cfg_ce, ids, labels),
+                        names=BF16_KERNELS + CE_KERNELS,
+                        tag=_variant(cfg_ce))
     del step
     torch.cuda.empty_cache()
     phase_train_parity(cfg_ce, dev, args.seed)
@@ -3042,8 +3457,8 @@ def main(argv=None) -> int:
     cfg_remat = dataclasses.replace(cfg16, recompute=True)
     _, step, ids, labels, train_remat = phase_train(cfg_remat, dev,
                                                     args.seed)
-    phase_train_profile(step, ids, labels, names=BF16_KERNELS,
-                        cfg=cfg_remat, top=5)
+    phase_train_profile(lambda: bench_step(step, cfg_remat, ids, labels),
+                        names=BF16_KERNELS, tag=_variant(cfg_remat), top=5)
     del step
     log(f"train bf16, recompute against phase 17 in this call: step "
         f"{train_remat['step_ms_median']:.2f} ms against "
@@ -3061,6 +3476,9 @@ def main(argv=None) -> int:
         f"{sched['peak_memory_gib']:.2f} GiB")
     torch.cuda.empty_cache()
     phase_schedule_clip_parity(cfg16, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    bert = phase_bert(dev, gen, args.seed, infer32)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
@@ -3068,7 +3486,8 @@ def main(argv=None) -> int:
     print(json.dumps(kernels_line(rows, counts, train_rows, train_counts,
                                   infer_rows, conversion, infer_counts,
                                   dp_row, carrier_rows, dp_rank, bf16_rows,
-                                  bf16_counts, dp16, ce_rows, ce_counts)))
+                                  bf16_counts, dp16, ce_rows, ce_counts,
+                                  bert)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,17 +22,26 @@ slices: bf16 GPT training on bf16 forms of the flash and update kernels,
 bf16 buckets on the gradient wire (the codecs read and write bf16), and
 the training options of ``bench.py``: the chunked linear +
 cross-entropy loss on two CUDA chunk kernels (``csrc/fused_ce.cu``),
-recompute, learning-rate schedulers and gradient clips:
+recompute, learning-rate schedulers and gradient clips; then
+``bench.py``'s BERT pretraining under ``amp`` (the reference's cast
+points), and int8 BERT on bf16 activations through the bf16 form of the
+quantized matmul (``csrc/quant_matmul.cu``):
 
-  framework/   device resolution (cuda by default), serving flags,
-               per-request random streams
+  amp/         auto_cast (the reference's O1/O2 lists and cast rules),
+               the cast points' amp_cast_inputs, decorate, GradScaler
+  tensor/      the tensor ops the reference dispatches as ops (add,
+               reshape, clone, getitem, where, ...), each a cast point
+  framework/   device resolution (cuda by default), flags, GEMM
+               precision, per-request random streams
   models/      GPTConfig/presets, numpy-seeded GPTForCausalLM parameters
                and training forward, GPTPretrainingCriterion;
-               BertConfig/presets and BertForPretraining (inference);
+               BertConfig/presets, BertForPretraining (the MLM loss,
+               fused or not) and BertPretrainingCriterion;
                weight conversion from the JAX models' numpy arrays
   nn/          Linear ([in, out] weights), Embedding, Dropout, LayerNorm,
-               the transformer encoder; linear, gelu, layer_norm and
-               scaled dot-product attention functionals; ClipGradBy*
+               the transformer encoder; linear, embedding, dropout,
+               gelu, tanh, layer_norm, cross_entropy and scaled
+               dot-product attention functionals; ClipGradBy*
   incubate/    fused_linear_cross_entropy (the chunked LM head + loss)
   quantization/ Int8Linear and convert_to_int8
   distributed/ the process group (env, spawn), collectives, the wire

@@ -4,9 +4,12 @@
 //   quantize_int8 <- _quantize_kernel (quant_matmul.py:63, launched by
 //                    quantize_int8 :84)
 //   quant_matmul  <- _qmm_kernel (quant_matmul.py:110, launched by
-//                    quant_matmul :173)
+//                    quant_matmul :173), fp32 activations
+//   quant_matmul_bf16 <- the same kernel on bf16 activations (amp's bf16
+//                    x, the output in x's dtype, :117-124)
 // Plain PyTorch versions and wrappers: paddle_tpu_torch/ops/quant_matmul.py
-// (quantize_int8_plain, quant_matmul_plain; quantize_int8, quant_matmul).
+// (quantize_int8_plain, quant_matmul_plain; quantize_int8, quant_matmul,
+// which takes both forms by x's dtype).
 //
 // quantize_int8: w fp32 [k, n] -> q int8 [k, n], scales fp32 [n].
 //   Per column: amax = max |w| over k, scale = max(amax * (1/127), 1e-12),
@@ -78,8 +81,36 @@
 //   by a second kernel, which also applies the scales: deterministic, no
 //   atomics. Any m, n, k >= 1: rows, columns and k past the end are
 //   zero-filled and never stored.
+//
+// quant_matmul_bf16: x bf16 [m, k] @ (q int8 [k, n] * scales [n]) -> bf16.
+//   fp32 accumulator over k, times the column's fp32 scale at the end,
+//   rounded to bf16 once, as _qmm_kernel computes it for a bf16 x
+//   (x.astype(f32) @ q.astype(f32), acc * s, astype(bf16)).
+//   Arithmetic: mma.sync m16n8k16 bf16 with fp32 accumulators. Every int8
+//   value is exact in bf16 (8 significant bits), and the tensor cores
+//   form each bf16 x bf16 product exactly, so the sums are the
+//   reference's products added in fp32 in another order: the fp32 limit
+//   of quant_matmul (2 k 2^-24 (|x| @ |q|) s) holds before the store.
+//   int8 -> bf16 in registers: a byte b is v = int8(b), and
+//   float(2^23 + (b ^ 0x80)) - (2^23 + 128) = v exactly (one byte
+//   permute and one subtraction), then two such floats are packed to
+//   bf16x2 (exact). Bound: as quant_matmul's, in bf16 operations (2 m n k
+//   at the H100 SXM data sheet's 989 TFLOP/s: 0.0098 ms at (8192, 768,
+//   768)) or, at m <= 64, the int8 weight's bytes. Design: quant_matmul's tiles, ring and k
+//   slices, on bf16 x: a (32 MT) x 128 tile, 3 stages of k-steps of 32
+//   (two k16 products), x rows pitched 96 bytes so a warp's 8-byte
+//   fragment loads are free of bank conflicts. In a k16 product, mma
+//   k-slots (2t, 2t + 1) stand for k = 4t, 4t + 1 and slots
+//   (2t + 8, 2t + 9) for 4t + 2, 4t + 3: one 8-byte load gives a thread
+//   both halves of its x fragment for a row, four 4-byte loads of q
+//   rows 4t .. 4t + 3 its four column tiles' B fragments (q's 144-byte
+//   pitch leaves them 2-way bank-conflicted: simple first). Column slots
+//   as in quant_matmul: a thread's outputs are 8 adjacent columns, one
+//   16-byte store of bf16. Any m, n, k >= 1; k % 8 != 0 or an unaligned
+//   x is loaded element by element.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -524,6 +555,257 @@ int qmm_dispatch(bool xv, bool qv, const float* x, const int8_t* qw,
   return qmm_launch<MT, false, false>(x, qw, sc, out, ws, m, n, k, st);
 }
 
+// ------------------------------------------------------- bf16 activations
+constexpr int kXPitchH = 48;          // bf16 per x row in shared memory
+
+template <int MT>
+__host__ __device__ constexpr int stage_bytes_h() {
+  return 32 * MT * kXPitchH * 2 + kBK * kQPitch;
+}
+
+// Bytes j of the int8 word w as float (exact, see the header).
+__device__ __forceinline__ float int8_byte_as_float(uint32_t flipped,
+                                                    int j) {
+  const uint32_t bits = __byte_perm(flipped, 0x4B000000u, 0x7440u | j);
+  return __fsub_rn(__uint_as_float(bits), 8388736.0f);
+}
+
+// bf16x2 of two exact small integers (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int MT, bool XV, bool QV>
+__device__ __forceinline__ void qmm_h_load(
+    unsigned char* smem, int st, const __nv_bfloat16* __restrict__ x,
+    const int8_t* __restrict__ qw, int m, int n, int k, int kend, int row0,
+    int col0, int kt0) {
+  constexpr int BM = 32 * MT;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
+      smem + st * stage_bytes_h<MT>());
+  int8_t* qs = reinterpret_cast<int8_t*>(smem + st * stage_bytes_h<MT>() +
+                                         BM * kXPitchH * 2);
+  const int tid = threadIdx.x;
+  if (XV) {   // 16-byte chunks: 4 a row of 32 bf16
+    for (int e = tid; e < BM * (kBK / 8); e += kThreads) {
+      const int r = e >> 2, c = (e & 3) * 8;
+      const int gr = row0 + r, gk = kt0 + c;
+      const bool ok = gr < m && gk < kend;
+      cp_async16(xs + r * kXPitchH + c,
+                 ok ? x + static_cast<size_t>(gr) * k + gk : x, ok);
+    }
+  } else {
+    for (int e = tid; e < BM * kBK; e += kThreads) {
+      const int r = e >> 5, c = e & 31;
+      const int gr = row0 + r, gk = kt0 + c;
+      xs[r * kXPitchH + c] = (gr < m && gk < kend)
+                                 ? x[static_cast<size_t>(gr) * k + gk]
+                                 : __float2bfloat16(0.0f);
+    }
+  }
+  if (QV) {
+    const int r = tid >> 3, c = (tid & 7) * 16;
+    const int gk = kt0 + r, gc = col0 + c;
+    const bool ok = gk < kend && gc < n;
+    cp_async16(qs + r * kQPitch + c,
+               ok ? qw + static_cast<size_t>(gk) * n + gc : qw, ok);
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < kBK * kBN / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e >> 7, c = e & 127;
+      const int gk = kt0 + r, gc = col0 + c;
+      qs[r * kQPitch + c] =
+          (gk < kend && gc < n) ? qw[static_cast<size_t>(gk) * n + gc] : 0;
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Grid (n tiles, m tiles, k slices). One slice: out = bf16(acc * scales);
+// more: ws[slice] = acc, reduced by qmm_reduce_h.
+template <int MT, bool XV, bool QV>
+__global__ void __launch_bounds__(kThreads, 2)
+qmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                const int8_t* __restrict__ qw,
+                const float* __restrict__ scales,
+                __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
+                int m, int n, int k, int kchunk) {
+  constexpr int BM = 32 * MT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * kBN;
+  const int kbeg = blockIdx.z * kchunk;
+  const int kend = min(k, kbeg + kchunk);
+  const int nkt = (kend - kbeg + kBK - 1) / kBK;
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nkt)
+      qmm_h_load<MT, XV, QV>(smem, s, x, qw, m, n, k, kend, row0, col0,
+                             kbeg + s * kBK);
+    cp_async_commit();
+  }
+
+  for (int it = 0; it < nkt; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage `it` landed; stage it - 1 is free again
+    const int nx = it + kStages - 1;
+    if (nx < nkt)
+      qmm_h_load<MT, XV, QV>(smem, nx % kStages, x, qw, m, n, k, kend, row0,
+                             col0, kbeg + nx * kBK);
+    cp_async_commit();
+
+    const int st = it % kStages;
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(
+                                  smem + st * stage_bytes_h<MT>()) +
+                              (wm * MT * 16 + g) * kXPitchH + 4 * t;
+    const unsigned char* qs = smem + st * stage_bytes_h<MT>() +
+                              BM * kXPitchH * 2 + 4 * t * kQPitch +
+                              wn * 32 + 4 * g;
+#pragma unroll
+    for (int s = 0; s < kBK / 16; ++s) {
+      uint32_t w[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)   // q rows 16 s + 4 t + r, flipped
+        w[r] = *reinterpret_cast<const uint32_t*>(
+                   qs + (16 * s + r) * kQPitch) ^ 0x80808080u;
+      uint32_t b0[4], b1[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b0[j] = pack_bf16x2(int8_byte_as_float(w[0], j),
+                            int8_byte_as_float(w[1], j));
+        b1[j] = pack_bf16x2(int8_byte_as_float(w[2], j),
+                            int8_byte_as_float(w[3], j));
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const uint2 lo = *reinterpret_cast<const uint2*>(
+            xs + i * 16 * kXPitchH + 16 * s);
+        const uint2 hi = *reinterpret_cast<const uint2*>(
+            xs + (i * 16 + 8) * kXPitchH + 16 * s);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16(acc[i][j], lo.x, hi.x, lo.y, hi.y, b0[j], b1[j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const bool whole = gridDim.z == 1;
+  const int col = col0 + wn * 32 + 8 * t;   // this thread's 8 columns
+  float sc[8];
+#pragma unroll
+  for (int o = 0; o < 8; ++o)
+    sc[o] = (whole && col + o < n) ? scales[col + o] : 1.0f;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + wm * MT * 16 + i * 16 + g + 8 * h;
+      if (row >= m) continue;
+      float v[8];
+#pragma unroll
+      for (int o = 0; o < 8; ++o) v[o] = acc[i][o & 3][(o >> 2) + 2 * h];
+      if (!whole) {
+        float* p = ws + static_cast<size_t>(blockIdx.z) * m * n +
+                   static_cast<size_t>(row) * n + col;
+        if ((n & 3) == 0 && col + 8 <= n) {
+          *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(p + 4) =
+              make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+#pragma unroll
+          for (int o = 0; o < 8; ++o)
+            if (col + o < n) p[o] = v[o];
+        }
+        continue;
+      }
+      __nv_bfloat16* p = out + static_cast<size_t>(row) * n + col;
+      if ((n & 7) == 0 && col + 8 <= n) {
+        uint4 packed;
+        packed.x = pack_bf16x2(__fmul_rn(v[0], sc[0]), __fmul_rn(v[1], sc[1]));
+        packed.y = pack_bf16x2(__fmul_rn(v[2], sc[2]), __fmul_rn(v[3], sc[3]));
+        packed.z = pack_bf16x2(__fmul_rn(v[4], sc[4]), __fmul_rn(v[5], sc[5]));
+        packed.w = pack_bf16x2(__fmul_rn(v[6], sc[6]), __fmul_rn(v[7], sc[7]));
+        *reinterpret_cast<uint4*>(p) = packed;
+      } else {
+#pragma unroll
+        for (int o = 0; o < 8; ++o)
+          if (col + o < n) p[o] = __float2bfloat16_rn(__fmul_rn(v[o], sc[o]));
+      }
+    }
+}
+
+// out = bf16((sum of the slices' partial sums, in slice order) * scales).
+__global__ void qmm_reduce_h(const float* __restrict__ ws,
+                             const float* __restrict__ scales,
+                             __nv_bfloat16* __restrict__ out, int m, int n,
+                             int splits) {
+  const size_t total = static_cast<size_t>(m) * n;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float s = ws[i];
+    for (int z = 1; z < splits; ++z) s = __fadd_rn(s, ws[z * total + i]);
+    out[i] = __float2bfloat16_rn(__fmul_rn(s, scales[i % n]));
+  }
+}
+
+template <int MT, bool XV, bool QV>
+int qmm_h_launch(const __nv_bfloat16* x, const int8_t* qw, const float* sc,
+                 __nv_bfloat16* out, float* ws, int m, int n, int k,
+                 cudaStream_t st) {
+  int kchunk = 0;
+  const int splits = qmm_splits(m, n, k, &kchunk);
+  if (splits > 1 && ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = qmm_bf16_kernel<MT, XV, QV>;
+  const int smem = kStages * stage_bytes_h<MT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kBN - 1) / kBN, (m + 32 * MT - 1) / (32 * MT), splits);
+  kernel<<<grid, kThreads, smem, st>>>(x, qw, sc, out, ws, m, n, k, kchunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t total = static_cast<size_t>(m) * n;
+  const int blocks = static_cast<int>(
+      std::min<size_t>((total + 255) / 256, static_cast<size_t>(4 * kSMs)));
+  qmm_reduce_h<<<blocks, 256, 0, st>>>(ws, sc, out, m, n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MT>
+int qmm_h_dispatch(bool xv, bool qv, const __nv_bfloat16* x,
+                   const int8_t* qw, const float* sc, __nv_bfloat16* out,
+                   float* ws, int m, int n, int k, cudaStream_t st) {
+  if (xv && qv)
+    return qmm_h_launch<MT, true, true>(x, qw, sc, out, ws, m, n, k, st);
+  if (xv) return qmm_h_launch<MT, true, false>(x, qw, sc, out, ws, m, n, k, st);
+  if (qv) return qmm_h_launch<MT, false, true>(x, qw, sc, out, ws, m, n, k, st);
+  return qmm_h_launch<MT, false, false>(x, qw, sc, out, ws, m, n, k, st);
+}
+
 }  // namespace
 
 // w: fp32 [k, n] contiguous; q: int8 [k, n]; scales: fp32 [n].
@@ -583,5 +865,29 @@ extern "C" int quant_matmul(const void* x, const void* qw, const void* scales,
     case 4: return qmm_dispatch<4>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
     case 2: return qmm_dispatch<2>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
     default: return qmm_dispatch<1>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
+  }
+}
+
+// x: bf16 [m, k]; qw: int8 [k, n]; scales: fp32 [n]; out: bf16 [m, n]; all
+// contiguous, x and out 2-byte aligned, qw 4-byte aligned; ws as for
+// quant_matmul (the same k slices). Returns a cudaError_t code.
+extern "C" int quant_matmul_bf16(const void* x, const void* qw,
+                                 const void* scales, void* out, void* ws,
+                                 int m, int n, int k, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 ||
+      (m + 32 * qmm_mt(m) - 1) / (32 * qmm_mt(m)) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* qp = static_cast<const int8_t*>(qw);
+  auto* sp = static_cast<const float*>(scales);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* wp = static_cast<float*>(ws);
+  const bool xv = k % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool qv = n % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
+  switch (qmm_mt(m)) {
+    case 4: return qmm_h_dispatch<4>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
+    case 2: return qmm_h_dispatch<2>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
+    default: return qmm_h_dispatch<1>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
   }
 }

@@ -1,7 +1,7 @@
-"""Serving flags (reference: ``paddle_tpu/framework/flags.py``).
+"""Flags (reference: ``paddle_tpu/framework/flags.py``).
 
-Only the serving flags the port's slice reads, with the reference's
-defaults. An environment variable of the same name overrides a default
+Only the flags the port reads (serving, and the loss scaler's floor),
+with the reference's defaults. An environment variable of the same name overrides a default
 when this module is first imported, as in the reference.
 """
 from __future__ import annotations
@@ -22,6 +22,8 @@ _FLAGS: Dict[str, Any] = {
     "FLAGS_serving_kv_codec": "fp32",
     # prefill only the prompt tail not already held by shared KV blocks
     "FLAGS_serving_prefix_cache": True,
+    # GradScaler never shrinks the loss scale below this
+    "FLAGS_min_loss_scaling": 1.0,
 }
 
 
@@ -30,6 +32,8 @@ def _parse(cur, v: str):
         return v.lower() in ("1", "true", "yes")
     if isinstance(cur, int):
         return int(v)
+    if isinstance(cur, float):
+        return float(v)
     return v
 
 

@@ -5,12 +5,16 @@ XLA takes a precision per op where cuBLAS reads process-wide flags).
 model of ``dtype`` and restores the caller's on exit; it works as a
 ``with`` block or as a decorator. The models enter it themselves, so
 what a caller set process-wide does not change their numerics: each
-forward inside a ``with`` block, and the GPT backward through the first
-node of its pass (the identity node on the logits, ``models/gpt.py``
-``_BackwardPrecision``, or the fused loss's own node,
-``incubate/nn/functional.py``), which calls ``enter_for_backward``: the
-settings are entered as the backward pass starts and the caller's
-restored when the pass ends, successful or raising (``RestoreAtEnd``):
+forward inside a ``with`` block, and the backward through the first
+node of its pass, which calls ``enter_for_backward``: the identity node
+that ``backward_precision`` puts on a model's outputs (GPT's logits;
+BERT's MLM loss or logits with its NSP logits), or the fused loss's own
+node (``incubate/nn/functional.py``). The settings are entered as the
+backward pass starts and the caller's restored when the pass ends,
+successful or raising (``RestoreAtEnd``); a node that enters settings
+again later in the same pass (BERT's fused loss under the model's node)
+changes them for the rest of the pass, and the first entry's restore
+undoes both:
 
 - "float32": TF32 off for matmuls, so an fp32 product on the card is
   an fp32 product, as the reference computes it;
@@ -19,7 +23,11 @@ restored when the pass ends, successful or raising (``RestoreAtEnd``):
 
 Both turn cuDNN's TF32 off, and cuBLAS's reduced-precision reduction
 for bf16 GEMMs (on by PyTorch's default): XLA sums bf16 products in
-fp32, split-K partial sums included.
+fp32, split-K partial sums included. Under ``amp`` a model keeps the
+settings of its parameters' dtype: BERT's fp32 masters enter "float32",
+which runs the bf16 GEMMs that amp's casts make without the reduced-
+precision reduction and the fp32 ones it leaves (O1's MLM loss) in full
+fp32, as the reference computes each.
 
 The flags are read on the host when a GEMM is launched; they do nothing
 on the CPU.
@@ -30,7 +38,8 @@ import contextlib
 
 import torch
 
-__all__ = ["matmul_precision", "RestoreAtEnd", "enter_for_backward"]
+__all__ = ["matmul_precision", "RestoreAtEnd", "enter_for_backward",
+           "backward_precision"]
 
 # dtype -> torch.backends.cuda.matmul.allow_tf32
 _TF32 = {"float32": False, "bfloat16": True}
@@ -63,21 +72,33 @@ class matmul_precision(contextlib.ContextDecorator):
         return False
 
 
+# settings entered by ``enter_for_backward`` and not yet left, in order
+_entered = []
+
+
 class RestoreAtEnd:
-    """Leaves an entered ``matmul_precision`` once. The engine calls it
-    at the end of a backward pass that succeeds (a final callback, as DDP
-    queues its own). When a node raises, the engine runs no final
-    callback, but it frees the pass's queued callbacks with the pass, and
-    that frees this object: ``__del__`` leaves the settings then, before
-    ``backward()`` hands the error to its caller."""
+    """Leaves an entered ``matmul_precision`` once, with every setting
+    entered for backward after it (newest first). The engine calls it at
+    the end of a backward pass that succeeds (a final callback, as DDP
+    queues its own; callbacks run in the order they were queued, so the
+    pass's first entry leaves them all and the later ones find theirs
+    gone). When a node raises, the engine runs no final callback, but it
+    frees the pass's queued callbacks with the pass, and that frees this
+    object: ``__del__`` leaves the settings then, before ``backward()``
+    hands the error to its caller."""
 
     def __init__(self, settings: matmul_precision):
         self._settings = settings
 
     def __call__(self):
         settings, self._settings = self._settings, None
-        if settings is not None:
-            settings.__exit__(None, None, None)
+        if settings is None or not any(s is settings for s in _entered):
+            return
+        while _entered:
+            done = _entered.pop()
+            done.__exit__(None, None, None)
+            if done is settings:
+                break
 
     __del__ = __call__
 
@@ -88,5 +109,30 @@ def enter_for_backward(dtype: str) -> None:
     ends (``RestoreAtEnd``), whether it succeeds or raises."""
     settings = matmul_precision(dtype)
     settings.__enter__()
+    _entered.append(settings)
     torch.autograd.Variable._execution_engine.queue_callback(
         RestoreAtEnd(settings))
+
+
+class _EnterForBackward(torch.autograd.Function):
+    """Identity on its tensors; its backward enters the settings."""
+
+    @staticmethod
+    def forward(ctx, dtype, *xs):
+        ctx.dtype = dtype
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        enter_for_backward(ctx.dtype)
+        return (None, *dys)
+
+
+def backward_precision(dtype: str, *xs):
+    """``xs`` behind one identity node whose backward, the first node of
+    a backward pass from them, enters ``matmul_precision(dtype)`` for the
+    GEMMs of that pass (``enter_for_backward``). Returns the tensor, or
+    the tuple for several; without a gradient, ``xs`` as they are."""
+    if any(x.requires_grad for x in xs):
+        xs = _EnterForBackward.apply(dtype, *xs)
+    return xs[0] if len(xs) == 1 else tuple(xs)

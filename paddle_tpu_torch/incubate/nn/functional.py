@@ -27,10 +27,13 @@ for the backward, by this function's node, the first of its backward
 pass, through ``enter_for_backward``: the rest of the pass (the GPT
 blocks' GEMMs) runs at those settings, and the caller's are back when
 the pass ends, as the logits' identity node does for the unfused loss
-(``models/gpt.py`` ``_BackwardPrecision``). ``dx`` is returned in
+(``framework/precision.py`` ``backward_precision``). ``dx`` is returned in
 ``x``'s dtype, ``dW`` in the weight's (a bf16 table's gradient rounded
 once from fp32, before it meets any other gradient of the table) and
 ``db`` in the bias's, as the reference casts them.
+
+The function is a cast point of ``amp`` under the reference's op name,
+"fused_linear_cross_entropy" (x, weight, bias and labels).
 
 The reference's other fused functionals (``fused_multi_head_attention``,
 ``fused_feedforward``, ``fused_linear``, ``fused_linear_activation``)
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import cast
 from ...framework.precision import enter_for_backward, matmul_precision
 from ...ops.fused_ce import ce_chunk_bwd, ce_chunk_fwd
 
@@ -149,6 +153,9 @@ def fused_linear_cross_entropy(x, weight, labels, bias=None,
     if reduction not in _REDUCTIONS:
         raise ValueError(f"reduction must be 'mean', 'sum' or 'none', got "
                          f"{reduction!r}")
+    x, weight, *rest = cast("fused_linear_cross_entropy", x, weight,
+                            *(() if bias is None else (bias,)), labels)
+    bias, labels = (None, rest[0]) if bias is None else rest
     v = int(weight.shape[0 if transposed_weight else -1])
     chunk = min(int(vocab_chunk), v)
     if chunk < 1:

@@ -74,8 +74,16 @@ rounding, not more. The learning rate is the optimizer's ``get_lr()``
 at each call (a float or an ``LRScheduler``, which the caller steps).
 
 ``inputs`` and ``labels`` may hold ``None`` (``bench.py``'s fused-loss
-step passes ``inputs=(ids, None, labels)``); it reaches the model as
-``None``.
+step passes ``inputs=(ids, None, labels)``, its bert step ``inputs=(ids,
+None, None, None, mlm)``); it reaches the model as ``None``.
+
+Called inside ``amp.auto_cast``, the step runs the forward and the loss
+under the caller's policy (the cast points of ``paddle_tpu_torch/amp``,
+as the reference's trace casts them). The parameters stay what they
+are, fp32 masters for ``bench.py``'s bert step: every cast is a
+``Tensor.to``, so their gradients come back in fp32 and the update is
+the fp32 one-launch kernel over the usual bucket plan. The returned loss
+is fp32 (under O2 the reference's final "add" makes it a bf16 value).
 
 Not in this slice (``NotImplementedError``): ``batch_spec`` and
 ``grad_fn`` (ROADMAP Queue A 5, "parallelism").

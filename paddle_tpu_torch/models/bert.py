@@ -1,30 +1,51 @@
-"""BERT for inference (reference: ``paddle_tpu/models/bert.py``
-``BertConfig``, ``bert_presets``, ``BertEmbeddings``, ``BertPooler``,
-``BertModel`` and ``BertForPretraining``).
+"""BERT (reference: ``paddle_tpu/models/bert.py`` ``BertConfig``,
+``bert_presets``, ``BertEmbeddings``, ``BertPooler``, ``BertModel``,
+``BertForPretraining`` and ``BertPretrainingCriterion``).
 
 The same modules and parameter names as the reference: embeddings (word,
 position, token type, LayerNorm with ``layer_norm_eps``), a post-norm
 ``TransformerEncoder`` with exact-erf GELU, the tanh pooler over the
 first token, and the pretraining heads: ``transform`` + GELU +
-``transform_norm``, MLM logits tied to the word embedding
+``transform_norm``, the MLM head tied to the word embedding
 (``h @ W_emb.T + mlm_bias``, a plain ``torch.matmul``, as the reference
 computes it outside any kernel) and the NSP ``Linear``. Unmasked
-attention on the card runs the flash kernel; ``convert_to_int8`` turns
+attention on the card runs the flash kernels; ``convert_to_int8`` turns
 the model's 6 L + 3 ``Linear`` layers into int8 ones.
+
+Training, as the reference's (``:175-256``): with ``masked_lm_labels``
+the forward returns ``(mlm_loss, nsp_logits)``. Every negative label
+marks an unmasked position (mapped to -1). The MLM loss is the op
+"mlm_loss": logits ``h @ W_emb.T + b`` in the dtype amp gives its
+inputs, then an fp32 logsumexp minus the picked logit, averaged over
+the masked positions (at least 1); or with ``fused_loss_chunk > 0``
+``incubate/nn/functional.py`` ``fused_linear_cross_entropy`` over the
+tied table (``bias=mlm_bias``, ``ignore_index=-1``,
+``transposed_weight=True``), the logits never whole. Without labels the
+MLM logits are the op "mlm_logits". ``BertPretrainingCriterion`` is the
+reference's MLM + NSP loss, with optional ``masked_lm_weights``.
+
+Mixed precision is the reference's ``paddle.amp``
+(``paddle_tpu_torch/amp``): every op on the path is a cast point under
+the reference's op name (the functionals, the tensor ops of
+``paddle_tpu_torch/tensor`` and the three loss ops here), so under
+``auto_cast`` O1 or O2 the model casts where the reference casts, and
+``decorate(level="O2")`` models run with bf16 parameters.
+``BertConfig`` has no dtype, as in the reference.
 
 Parameters are drawn from ``np.random.RandomState(seed)``; ``mlm_bias``
 starts at zero. The draws are not the reference's (which seeds from
 Paddle's generator): weights are carried across with
 ``models/convert.py`` ``bert_state_dict_from_numpy``.
 
-Not in this slice (each raises ``NotImplementedError``, ROADMAP Queue A
-"BERT training"): ``masked_lm_labels`` (the MLM loss),
-``fused_loss_chunk > 0``, ``BertPretrainingCriterion``, dropout > 0 in
-training, and the tensor-parallel ``dist_spec`` marks.
+Not ported (each raises ``NotImplementedError``, ROADMAP Queue A "BERT
+training"): dropout > 0 in training, and the tensor-parallel
+``dist_spec`` marks.
 
-Numerics: fp32, TF32 off for matmuls and cuDNN, entered by each
-forward (``framework.precision.matmul_precision``), whatever the caller
-set process-wide.
+Numerics: the GEMM settings of fp32 parameters
+(``framework.precision``: TF32 off, bf16 GEMMs without the reduced-
+precision reduction), entered by each forward and, through one identity
+node on the outputs (``backward_precision``), by the backward pass that
+starts from them, whatever the caller set process-wide.
 """
 from __future__ import annotations
 
@@ -35,8 +56,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tensor as T
+from ..amp import cast
 from ..framework.device import resolve_device, to_device
-from ..framework.precision import matmul_precision
+from ..framework.precision import backward_precision, matmul_precision
+from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..nn import functional as F
 from ..nn.functional.common import TRAINING_ITEM
 from ..nn.layer.common import Dropout, Embedding, Linear
@@ -107,13 +131,13 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[1],
-                                        device=input_ids.device)[None]
+            position_ids = T.unsqueeze(torch.arange(
+                input_ids.shape[1], device=input_ids.device), 0)
         if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(position_ids)
-             + self.token_type_embeddings(token_type_ids))
+            token_type_ids = T.zeros_like(input_ids)
+        x = T.add(T.add(self.word_embeddings(input_ids),
+                        self.position_embeddings(position_ids)),
+                  self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(x))
 
 
@@ -125,7 +149,7 @@ class BertPooler(nn.Module):
                             rs=rs)
 
     def forward(self, hidden):
-        return torch.tanh(self.dense(hidden[:, 0]))
+        return F.tanh(self.dense(T.getitem(hidden, (slice(None), 0))))
 
 
 class BertModel(nn.Module):
@@ -168,13 +192,29 @@ class BertModel(nn.Module):
         return seq, self.pooler(seq)
 
 
+def _mlm_loss(h, w, b, labels):
+    """The reference's op "mlm_loss": the mean over labels >= 0 of
+    ``logsumexp - picked`` of ``h @ w.T + b``, in fp32 from logits in
+    the inputs' dtype."""
+    h, w, b, labels = cast("mlm_loss", h, w, b, labels)
+    lg = (torch.matmul(h, w.T) + b).to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = lg.gather(-1, labels.clamp_min(0)[:, None])[:, 0]
+    mask = (labels >= 0).to(torch.float32)
+    return ((lse - picked) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _mlm_logits(x, w, b):
+    """The reference's op "mlm_logits": ``x @ w.T + b``."""
+    x, w, b = cast("mlm_logits", x, w, b)
+    return torch.matmul(x, w.T) + b
+
+
 class BertForPretraining(nn.Module):
     """MLM head (transform + tied decoder) and NSP head."""
 
     def __init__(self, config: BertConfig, seed: int = 0, device="cuda"):
         super().__init__()
-        if config.fused_loss_chunk > 0:
-            raise _not_ported("fused_loss_chunk (the chunked MLM loss)")
         self.device = resolve_device(device)
         self.config = config
         rs = np.random.RandomState(seed)
@@ -190,24 +230,57 @@ class BertForPretraining(nn.Module):
     @matmul_precision("float32")
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
                 attention_mask=None, masked_lm_labels=None):
-        """(MLM logits [b, s, vocab], NSP logits [b, 2])."""
-        if masked_lm_labels is not None:
-            raise _not_ported("the MLM loss (masked_lm_labels)")
-        dt = self.bert.embeddings.word_embeddings.weight.dtype
-        if dt != torch.float32:
-            raise NotImplementedError(
-                f"BERT in {dt} is not ported yet (ROADMAP Queue A, "
-                f"'bf16 BERT'); the port runs BERT in float32")
+        """(MLM logits [b, s, vocab], NSP logits [b, 2]), or with
+        ``masked_lm_labels`` (MLM loss, NSP logits)."""
         seq, pooled = self.bert(input_ids, token_type_ids, position_ids,
                                 attention_mask)
         x = self.transform_norm(F.gelu(self.transform(seq)))
         w = self.bert.embeddings.word_embeddings.weight
-        return torch.matmul(x, w.T) + self.mlm_bias, self.nsp(pooled)
+        if masked_lm_labels is None:
+            out = _mlm_logits(x, w, self.mlm_bias)
+        else:
+            lbl = T.reshape(self.bert._ids(masked_lm_labels), (-1,))
+            lbl = T.where(T.less_than(lbl, 0), -1, lbl)
+            h = T.reshape(x, (-1, self.config.hidden_size))
+            if self.config.fused_loss_chunk > 0:
+                out = fused_linear_cross_entropy(
+                    h, w, lbl, bias=self.mlm_bias,
+                    vocab_chunk=self.config.fused_loss_chunk,
+                    ignore_index=-1, transposed_weight=True)
+            else:
+                out = _mlm_loss(h, w, self.mlm_bias, lbl)
+        return backward_precision("float32", out, self.nsp(pooled))
 
 
 class BertPretrainingCriterion(nn.Module):
-    """The reference's MLM + NSP loss: training, not ported yet."""
+    """The reference's MLM + NSP loss, the op "bert_pretraining_loss":
+    the mean of ``logsumexp - picked`` over positions labelled >= 0
+    (weighted by ``masked_lm_weights`` when given; the weights' sum, at
+    least 1, divides), plus the mean NSP cross-entropy, in fp32."""
 
-    def __init__(self):
-        super().__init__()
-        raise _not_ported("BertPretrainingCriterion")
+    def forward(self, prediction_scores, nsp_scores, masked_lm_labels,
+                next_sentence_labels, masked_lm_weights=None):
+        dev = prediction_scores.device
+
+        def on(x, dtype):
+            if isinstance(x, torch.Tensor) and x.device == dev:
+                return x
+            return to_device(x if isinstance(x, torch.Tensor)
+                             else np.asarray(x), dev, dtype)
+
+        args = [prediction_scores, nsp_scores,
+                on(masked_lm_labels, torch.long),
+                on(next_sentence_labels, torch.long)]
+        if masked_lm_weights is not None:
+            args.append(on(masked_lm_weights, torch.float32))
+        lg, nsp, lbl, nsl, *w = cast("bert_pretraining_loss", *args)
+        lg = lg.to(torch.float32)
+        lse = torch.logsumexp(lg, dim=-1)
+        picked = lg.gather(-1, lbl.clamp_min(0)[..., None])[..., 0]
+        mask = (lbl >= 0).to(torch.float32)
+        if w:
+            mask = mask * w[0].to(torch.float32)
+        mlm = ((lse - picked) * mask).sum() / mask.sum().clamp_min(1.0)
+        ns = nsp.to(torch.float32)
+        ns_pick = ns.gather(-1, nsl.reshape(-1, 1))[..., 0]
+        return mlm + (torch.logsumexp(ns, dim=-1) - ns_pick).mean()

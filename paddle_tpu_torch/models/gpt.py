@@ -34,8 +34,8 @@ attention; a ``dtype`` other than "float32" and "bfloat16".
 
 Numerics, per ``dtype`` (``framework.precision.matmul_precision``).
 ``GPTForCausalLM.forward`` enters the settings for the forward, and its
-logits carry an identity node (``_BackwardPrecision``) that enters them
-for the backward pass that starts there, restored when that pass ends.
+logits carry an identity node (``framework.precision.backward_precision``)
+that enters them for the backward pass that starts there, restored when that pass ends.
 So the numerics are the same whoever runs the backward (``TrainStep`` or
 a bare ``loss.backward()``) and whatever the caller set process-wide:
 
@@ -71,7 +71,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..framework.device import resolve_device
-from ..framework.precision import enter_for_backward, matmul_precision
+from ..framework.precision import backward_precision, matmul_precision
 from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..nn.functional import layer_norm
 from ..ops.flash_attention import flash_attention_val
@@ -196,23 +196,6 @@ def _param(arr: np.ndarray, device: torch.device,
 _OPTIONS = "ROADMAP Queue A, 'training options'"
 _PARALLEL = "ROADMAP Queue A, 'parallelism'"
 _DTYPES = "ROADMAP Queue A, 'other dtypes'"
-
-
-class _BackwardPrecision(torch.autograd.Function):
-    """Identity on the logits. Its backward, the first node of a backward
-    pass from them, enters ``matmul_precision(dtype)`` for every GEMM of
-    that pass and hands the restore of the caller's settings to the
-    pass's end (``RestoreAtEnd``), whether the pass succeeds or raises."""
-
-    @staticmethod
-    def forward(ctx, x, dtype):
-        ctx.dtype = dtype
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, dy):
-        enter_for_backward(ctx.dtype)
-        return dy, None
 
 
 def _check_supported(cfg: GPTConfig) -> None:
@@ -389,9 +372,7 @@ class GPTForCausalLM(nn.Module):
             # table through the cast
             dt = torch.promote_types(x.dtype, w.dtype)
             logits = x.to(dt) @ w.to(dt).T
-        if not logits.requires_grad:
-            return logits
-        return _BackwardPrecision.apply(logits, cfg.dtype)
+        return backward_precision(cfg.dtype, logits)
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -1,5 +1,5 @@
 """Neural-network layers and functionals of the port (reference:
-``paddle_tpu/nn``): what BERT inference needs, and the gradient clips."""
+``paddle_tpu/nn``): what BERT needs, and the gradient clips."""
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layer import (Dropout, Embedding, LayerNorm, Linear,

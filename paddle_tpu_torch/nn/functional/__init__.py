@@ -1,8 +1,10 @@
 """Functionals of the port (reference: ``paddle_tpu/nn/functional``)."""
-from .activation import gelu, relu
-from .attention import scaled_dot_product_attention
-from .common import dropout, linear
+from .activation import gelu, relu, tanh
+from .attention import flash_route, scaled_dot_product_attention
+from .common import dropout, embedding, linear
+from .loss import cross_entropy
 from .norm import layer_norm
 
-__all__ = ["dropout", "gelu", "layer_norm", "linear", "relu",
-           "scaled_dot_product_attention"]
+__all__ = ["cross_entropy", "dropout", "embedding", "flash_route", "gelu",
+           "layer_norm", "linear", "relu", "scaled_dot_product_attention",
+           "tanh"]

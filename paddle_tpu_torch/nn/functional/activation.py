@@ -1,18 +1,28 @@
 """Activations (reference: ``paddle_tpu/nn/functional/activation.py``
-``gelu``, ``relu``)."""
+``gelu``, ``relu``, ``tanh``), each a cast point of ``amp`` under its op
+name."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gelu", "relu"]
+from ...amp import cast
+
+__all__ = ["gelu", "relu", "tanh"]
 
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     """GELU, exact (erf) unless ``approximate`` (tanh), as
     ``jax.nn.gelu(approximate=...)``."""
+    (x,) = cast("gelu", x)
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
+    (x,) = cast("relu", x)
     return torch.relu(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    (x,) = cast("tanh", x)
+    return torch.tanh(x)

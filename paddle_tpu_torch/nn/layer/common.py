@@ -96,7 +96,7 @@ class Embedding(nn.Module):
                              resolve_device(device))
 
     def forward(self, x):
-        return self.weight[x]
+        return F.embedding(x, self.weight)
 
     def extra_repr(self) -> str:
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"

@@ -7,7 +7,9 @@ Same constructor and forward contracts, on ``[batch, seq, embed_dim]``
 with attention over ``[batch, seq, heads, head_dim]`` through
 ``functional.scaled_dot_product_attention`` (the flash kernel on the card
 when unmasked). A bool mask becomes the reference's additive mask
-``x * 1e4 - 1e4``. Each encoder layer's ``norm1``/``norm2`` use
+``x * 1e4 - 1e4``. The head reshapes and the residual adds are the
+reference's ops "reshape" and "add" (``paddle_tpu_torch/tensor``), cast
+points of ``amp``. Each encoder layer's ``norm1``/``norm2`` use
 LayerNorm's default epsilon 1e-5, whatever the model's own epsilon, as in
 the reference (``transformer.py:136-137``).
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import tensor as T
 from .. import functional as F
 from ..functional.common import OPTIONS_ITEM
 from .common import Dropout, Linear
@@ -79,8 +82,8 @@ class MultiHeadAttention(nn.Module):
                                **kw)
 
     def _heads(self, x):
-        return x.reshape(x.shape[0], x.shape[1], self.num_heads,
-                         self.head_dim)
+        return T.reshape(x, (x.shape[0], x.shape[1], self.num_heads,
+                             self.head_dim))
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -94,8 +97,8 @@ class MultiHeadAttention(nn.Module):
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                              dropout_p=self.dropout,
                                              training=self.training)
-        return self.out_proj(out.reshape(out.shape[0], out.shape[1],
-                                         self.embed_dim))
+        return self.out_proj(T.reshape(out, (out.shape[0], out.shape[1],
+                                             self.embed_dim)))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -140,15 +143,15 @@ class TransformerEncoderLayer(nn.Module):
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
-        src = residual + self.dropout1(self.self_attn(src, src, src,
-                                                      src_mask))
+        src = T.add(residual, self.dropout1(self.self_attn(src, src, src,
+                                                           src_mask)))
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
         if self.normalize_before:
             src = self.norm2(src)
         src = self.linear2(self.dropout(self.activation(self.linear1(src))))
-        src = residual + self.dropout2(src)
+        src = T.add(residual, self.dropout2(src))
         if not self.normalize_before:
             src = self.norm2(src)
         return src

@@ -219,7 +219,8 @@ def _check(names, tensors, shape, n_fp32=0):
                          f"{tuple(shape)}")
     if dt not in _SUFFIX:
         raise TypeError(f"flash attention kernels take float32 or "
-                        f"bfloat16, {names[0]} is {dt}")
+                        f"bfloat16, {names[0]} is {dt} (other dtypes are not "
+                        f"ported yet: ROADMAP Queue A, 'other dtypes')")
     for i, (name, t) in enumerate(zip(names, tensors)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")

@@ -2,10 +2,12 @@
 ``paddle_tpu/ops/quant_matmul.py`` ``quantize_int8``/``_quantize_kernel``,
 ``_hash_uniform``, ``stable_seed`` and ``quant_matmul``/``_qmm_kernel``).
 
-Two kernels, each with its plain PyTorch version beside it:
+Two kernels (the second in two forms), each with its plain PyTorch
+version beside it:
 
   quantize_int8(w, stochastic, seed) -> (q int8 [k, n], scales fp32 [1, n])
-  quant_matmul(x, qw, scales)        -> x @ (qw * scales), fp32 accumulator
+  quant_matmul(x, qw, scales)        -> x @ (qw * scales), fp32 accumulator,
+                                        in x's dtype: fp32 or bf16
 
 Dispatch is by where the tensors lie, and nothing else: a CPU tensor takes
 the plain version, a CUDA tensor the hand-written kernel
@@ -14,7 +16,9 @@ kernel to the plain version. Each wrapper counts its kernel launches in
 ``<wrapper>.launches`` (``launch_counts()``) and, by shape, in
 ``<wrapper>.shapes`` (``shape_counts()``: ``(k, n)`` for
 ``quantize_int8``, ``(m, k, n)`` for ``quant_matmul``), incremented only
-where the kernel is launched.
+where the kernel is launched; the bf16 form of ``quant_matmul`` in
+``quant_matmul.launches_bf16`` and ``.shapes_bf16`` (the key
+``quant_matmul_bf16`` in both tables).
 
 Numerics of ``quantize_int8`` are the reference's as XLA compiles it on
 the CPU: ``scale = max(amax * float32(1/127), 1e-12)`` (the constant
@@ -39,7 +43,12 @@ kernel takes any ``m, n, k >= 1`` with fixed 128 x 128 x 32 tiles (32 or
 signature and raise when given (the reference's tile choice and autotune
 cache, ``ops/pallas/autotune.py``, are ROADMAP Queue A, "the rest":
 kernel tuner).
-On the card both kernels take fp32 input and give fp32 output.
+On the card ``quantize_int8`` takes fp32 weights; ``quant_matmul`` takes
+fp32 ``x`` (the split-TF32 kernel, fp32 out) or bf16 ``x`` (amp's, the
+``quant_matmul_bf16`` kernel: bf16 tensor cores, which hold int8 exactly
+and form every product exactly, fp32 accumulation, the scaled sum
+rounded to bf16 once), and refuses any other dtype or an ``out_dtype``
+other than ``x``'s; nothing is upcast to reach the fp32 kernel.
 ``quantize_int8`` launches as thread-block clusters (8 blocks along k per
 32-column tile, their column maxima exchanged through distributed shared
 memory), so w is read from device memory once.
@@ -66,6 +75,9 @@ __all__ = ["KERNEL_SOURCE", "quantize_int8", "quantize_int8_plain",
 
 KERNEL_SOURCE = "paddle_tpu_torch/csrc/quant_matmul.cu"
 _U32 = 0xFFFFFFFF
+# x's dtype -> the C entry point's suffix
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+_DTYPES = "ROADMAP Queue A, 'other dtypes'"
 
 
 def stable_seed(name: str, base: int = 0) -> int:
@@ -137,8 +149,10 @@ def _lib(device_index: int) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.quantize_int8.argtypes = [p, p, p, i, i, i, ctypes.c_uint, p]
     lib.quant_matmul.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.quant_matmul_bf16.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.quant_matmul_splits.argtypes = [i, i, i]
-    for fn in (lib.quantize_int8, lib.quant_matmul, lib.quant_matmul_splits):
+    for fn in (lib.quantize_int8, lib.quant_matmul, lib.quant_matmul_bf16,
+               lib.quant_matmul_splits):
         fn.restype = ctypes.c_int
     return lib
 
@@ -212,50 +226,62 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
     if not _on_card(x):
         return quant_matmul_plain(x, qw, scales, out_dtype)
     dev = x.device
-    _operand("x", x, dev, torch.float32)
+    sfx = _SUFFIX.get(x.dtype)
+    if sfx is None:
+        raise TypeError(f"the quant_matmul kernels take float32 or bfloat16 "
+                        f"x, got {x.dtype} (other dtypes are not ported yet: "
+                        f"{_DTYPES})")
+    _operand("x", x, dev, x.dtype)
     _operand("qw", qw, dev, torch.int8)
     _operand("scales", scales, dev, torch.float32)
-    if out_dtype not in (None, torch.float32):
-        raise TypeError(f"the kernel writes float32, not {out_dtype}")
+    if out_dtype not in (None, x.dtype):
+        raise TypeError(f"the kernel writes x's dtype {x.dtype}, not "
+                        f"{out_dtype}")
     if qw.data_ptr() % 4:
         raise ValueError("qw must be 4-byte aligned")
     (m, k), n = x.shape, qw.shape[1]
     if not (m and n and k):
         raise ValueError(f"quant_matmul needs m, n, k >= 1, got {(m, n, k)}")
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n), dtype=x.dtype, device=dev)
     lib = _lib(dev.index)
     splits = lib.quant_matmul_splits(m, n, k)
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
           if splits > 1 else None)
     with torch.cuda.device(dev):
-        rc = lib.quant_matmul(
+        rc = getattr(lib, "quant_matmul" + sfx)(
             x.data_ptr(), qw.data_ptr(), scales.data_ptr(), out.data_ptr(),
             ws.data_ptr() if ws is not None else None, m, n, k,
             _stream(dev))
     if rc:
-        raise RuntimeError(f"quant_matmul launch failed: CUDA error {rc}")
-    quant_matmul.launches += 1
-    quant_matmul.shapes[(m, k, n)] += 1
+        raise RuntimeError(f"quant_matmul{sfx} launch failed: CUDA error "
+                           f"{rc}")
+    setattr(quant_matmul, "launches" + sfx,
+            getattr(quant_matmul, "launches" + sfx) + 1)
+    getattr(quant_matmul, "shapes" + sfx)[(m, k, n)] += 1
     return out
 
 
-_WRAPPERS = {"quantize_int8": quantize_int8, "quant_matmul": quant_matmul}
+# name in the count tables -> (wrapper, suffix of its counters)
+_COUNTERS = {"quantize_int8": (quantize_int8, ""),
+             "quant_matmul": (quant_matmul, ""),
+             "quant_matmul_bf16": (quant_matmul, "_bf16")}
 
 
 def launch_counts() -> dict:
-    return {name: f.launches for name, f in _WRAPPERS.items()}
+    return {name: getattr(f, "launches" + sfx)
+            for name, (f, sfx) in _COUNTERS.items()}
 
 
 def shape_counts() -> dict:
-    """Launches by shape since the last reset, per wrapper."""
-    return {name: collections.Counter(f.shapes)
-            for name, f in _WRAPPERS.items()}
+    """Launches by shape since the last reset, per kernel."""
+    return {name: collections.Counter(getattr(f, "shapes" + sfx))
+            for name, (f, sfx) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for f in _WRAPPERS.values():
-        f.launches = 0
-        f.shapes = collections.Counter()
+    for f, sfx in _COUNTERS.values():
+        setattr(f, "launches" + sfx, 0)
+        setattr(f, "shapes" + sfx, collections.Counter())
 
 
 reset_launch_counts()

@@ -9,6 +9,14 @@ reference name (``stable_seed``), and every later call multiplies through
 ``quant_matmul``. On the card those are the hand-written kernels of
 ``csrc/quant_matmul.cu``.
 
+Under ``amp`` the layer is no cast point, as in the reference (its
+forward dispatches no op): ``x`` arrives in whatever dtype the op before
+it gave (at ``bert-test`` under O2, 9 of the 15 layers get bf16 and the 6
+fed by a ``layer_norm`` fp32), the product comes out in ``x``'s dtype
+(``quant_matmul``'s bf16 form for bf16 ``x``), and the fp32 bias is
+added by plain promotion, so the layer returns fp32 either way
+(``paddle_tpu/quantization/__init__.py:136-149``).
+
 Not ported yet (ROADMAP Queue A, "QAT/PTQ"): ``fake_quant_dequant``,
 ``FakeQuantAbsMax``, ``QuantedLinear``/``QuantedConv2D``,
 ``ImperativeQuantAware``, ``PostTrainingQuantization`` and

@@ -16,8 +16,10 @@ hidden 64, vocab 256), on weights carried from the reference with
   value, ``relu`` and ``normalize_before`` (pre- and post-norm), within
   1e-4 of the reference's on carried weights, with a bool padding mask.
 - The weight mapping rejects wrong names, shapes and dtypes; the
-  training-only paths and the ``nn`` options not ported yet raise
-  ``NotImplementedError`` naming their ROADMAP item; the port's presets
+  training paths not ported yet (tensor-parallel marks, dropout > 0 in
+  training) and the ``nn`` options not ported yet raise
+  ``NotImplementedError`` naming their ROADMAP item, and the ported ones
+  (the MLM loss, fused or not, ``BertPretrainingCriterion``) run; the port's presets
   equal the reference's; importing the port's BERT and quantization
   loads neither ``jax`` nor ``paddle_tpu``.
 
@@ -155,16 +157,22 @@ def check_weight_mapping_rejects_bad_input():
 
 
 def check_training_paths_raise():
+    """What BERT training still leaves out raises, naming "BERT
+    training": the tensor-parallel marks, dropout > 0 in training (at
+    inference it is the identity), the encoder's cache. The MLM loss,
+    the fused loss and ``BertPretrainingCriterion``, ported since, run
+    (``tests/test_torch_bert_train.py`` holds them against the
+    reference)."""
     cfg = bert_presets("bert-test")
     tm = BertForPretraining(cfg, device="cpu")
     ids = np.zeros((1, 4), np.int64)
-    with pytest.raises(NotImplementedError, match="BERT training"):
-        tm(ids, masked_lm_labels=ids)
-    with pytest.raises(NotImplementedError, match="BERT training"):
-        BertForPretraining(bert_presets("bert-test", fused_loss_chunk=64),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="BERT training"):
-        BertPretrainingCriterion()
+    loss, nsp = tm(ids, masked_lm_labels=ids)
+    assert loss.dim() == 0 and bool(torch.isfinite(loss))
+    fused = BertForPretraining(bert_presets("bert-test", fused_loss_chunk=64),
+                               device="cpu")
+    assert bool(torch.isfinite(fused(ids, masked_lm_labels=ids)[0]))
+    assert bool(torch.isfinite(BertPretrainingCriterion()(
+        tm(ids)[0], nsp, ids, np.zeros(1, np.int64))))
     with pytest.raises(NotImplementedError, match="BERT training"):
         tm.bert.mark_tensor_parallel()
     drop = BertForPretraining(bert_presets("bert-test", dropout=0.1),

@@ -77,7 +77,7 @@ than the reference's own bf16 flash tolerance, 2e-2,
   the logits' node entered bf16's settings) leaves the caller's flags
   as they were, from a bare ``loss.backward()`` and from ``TrainStep``.
 - What stays out raises ``NotImplementedError`` naming its ROADMAP
-  item: float16, bf16 serving, bf16 BERT, bf16 on the gradient wire.
+  item: float16, bf16 serving (bf16 BERT, ported since, runs).
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -646,9 +646,11 @@ def check_gemm_settings_restored_after_a_failed_backward():
 
 def check_unported_paths_raise():
     """What stays out of this slice raises, naming its ROADMAP item: a
-    dtype other than fp32 and bf16, bf16 serving and bf16 BERT. (bf16
-    buckets on the gradient wire are ported: tests/test_torch_bf16_dp.py
-    holds them against the reference.)"""
+    dtype other than fp32 and bf16, and bf16 serving. (bf16 buckets on
+    the gradient wire are ported: tests/test_torch_bf16_dp.py holds them
+    against the reference; so is bf16 BERT, a model with bf16 parameters
+    running: tests/test_torch_bert_train.py holds it, decorated and
+    under amp, against the reference.)"""
     with pytest.raises(NotImplementedError, match="other dtypes"):
         GPTForCausalLM(gpt_presets("gpt-test", dtype="float16"),
                        device="cpu")
@@ -657,8 +659,8 @@ def check_unported_paths_raise():
         GPTDecodeModel(tm)
     bert = BertForPretraining(bert_presets("bert-test"), device="cpu")
     bert.to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16 BERT"):
-        bert(torch.zeros(1, 8, dtype=torch.int64))
+    logits, _ = bert(torch.zeros(1, 8, dtype=torch.int64))
+    assert logits.dtype == torch.bfloat16
 
 
 def test_bf16_train_port_matches_reference(fresh_mesh):

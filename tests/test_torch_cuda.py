@@ -78,6 +78,19 @@ gpt-test step in ``bench.py``'s fused form with ``recompute`` against
 the CPU's (``BF16_LOSS_RTOL``, ``bf16_step_parity``), its launches
 counted, its gradients bit-identical to the same step without
 recompute.
+BERT under amp: ``quant_matmul`` on bf16 ``x`` (the
+``quant_matmul_bf16`` kernel) within ``qmm_bf16_limit`` (the fp32 limit
+above plus one bf16 ulp of the plain element) at every row-tile size,
+ragged n and k and BERT-base's shapes, each launch counted under the
+bf16 form; the same check fails the kernel built with a fault planted
+(16 of the k products dropped, ``-s`` prints both readings); fp16
+refused by the flash kernels and ``quant_matmul``, naming "other
+dtypes"; an int8 bert-test forward under O2 (9 bf16 and 6 fp32
+launches, as the reference's, its logits within 1e-2 mean relative
+error of the CPU's on the flash route); one bert-test O2 step on the
+card against the CPU's (flash route): loss within ``BF16_LOSS_RTOL``,
+``bf16_step_parity`` (the query and key projections at 5e-2, the key
+biases left out), the bf16 flash trio in full mode once a layer.
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -114,7 +127,8 @@ from torch_checks import (BF16_LOSS_RTOL, FUSED_HYPER, adam_step_parity,
                           ce_bwd_vs_plain, ce_fwd_vs_plain, ce_inputs,
                           dequant_inputs, dequant_vs_plain, flash_bf16_limit,
                           flash_err, flash_vs_plain, fused_inputs,
-                          fused_vs_plain, plant_flash_fault, qmm_vs_plain,
+                          fused_vs_plain, plant_flash_fault, plant_qmm_fault,
+                          qmm_bf16_limit, qmm_bf16_vs_plain, qmm_vs_plain,
                           quantize_vs_plain, run_checks, same_bits)
 
 torch.set_num_threads(2)
@@ -768,6 +782,8 @@ def check_new_wrappers_raise(dev):
             fa.flash_fwd(bad, bad, bad, True)
     with pytest.raises(TypeError):
         fa.flash_fwd(q.double(), q.double(), q.double(), True)
+    with pytest.raises(TypeError, match="other dtypes"):
+        fa.flash_fwd(q.half(), q.half(), q.half(), False)
     qb = q.bfloat16()
     with pytest.raises(TypeError, match="k in torch.bfloat16"):
         fa.flash_fwd(qb, q, qb, True)
@@ -858,6 +874,160 @@ def check_quant_wrappers_raise(dev):
         qm.quant_matmul(x, q.cpu(), s)
     with pytest.raises(TypeError):
         qm.quant_matmul(x, q, s, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="other dtypes"):
+        qm.quant_matmul(x.half(), q, s)
+    with pytest.raises(TypeError):
+        qm.quant_matmul(x.bfloat16(), q, s, out_dtype=torch.float32)
+
+
+def check_quant_matmul_bf16_within_bound(dev, m, k, n):
+    """The bf16 form: bf16 out within ``qmm_bf16_limit`` of its plain
+    version, one launch counted under the bf16 form and its shape."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * k + n + 1)
+    x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+    q, s = qm.quantize_int8_plain(torch.randn(k, n, device=dev,
+                                              generator=gen))
+    before, shapes = qm.launch_counts(), qm.shape_counts()
+    qmm_bf16_vs_plain(x, q, s)
+    after = qm.launch_counts()
+    assert {k_: after[k_] - before[k_] for k_ in after} == {
+        "quantize_int8": 0, "quant_matmul": 0, "quant_matmul_bf16": 1}
+    assert (qm.shape_counts()["quant_matmul_bf16"][(m, k, n)]
+            == shapes["quant_matmul_bf16"][(m, k, n)] + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _faulty_qmm_library():
+    """The quant_matmul library built with ``torch_checks.QMM_BF16_FAULT``
+    planted in its bf16 kernel (a copy under the build directory)."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "quant_matmul.cu").read_text()
+    mutant = _build.build_dir() / "fault" / "quant_matmul_fault.cu"
+    mutant.parent.mkdir(parents=True, exist_ok=True)
+    mutant.write_text(plant_qmm_fault(src))
+    return ctypes.CDLL(str(_build.compile_file(
+        mutant, mutant.with_suffix(".so"))))
+
+
+def check_qmm_bf16_check_sees_a_planted_fault(dev, m, k, n):
+    """``qmm_bf16_vs_plain`` passes the bf16 kernel and fails the same
+    kernel with 16 of the k products dropped (``plant_qmm_fault``), at a
+    shape of phase 27 and at one whose k is split over slices. Prints
+    both readings (largest diff / limit)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m + k + n)
+    x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+    q, s = qm.quantize_int8(torch.randn(k, n, device=dev, generator=gen)
+                            * 0.02)
+    _, sound = qmm_bf16_vs_plain(x, q, s)
+    faulty = _faulty_qmm_library()
+    qm._lib.cache_clear()
+    try:
+        with mock.patch.object(qm, "load_library", lambda name: faulty):
+            with pytest.raises(AssertionError):
+                qmm_bf16_vs_plain(x, q, s)
+            bad = qm.quant_matmul(x, q, s)
+    finally:
+        qm._lib.cache_clear()
+    ref = qm.quant_matmul_plain(x, q, s)
+    fault = float(((bad.double() - ref.double()).abs()
+                   / qmm_bf16_limit(x, q, s, ref)).max())
+    print(f"quant_matmul_bf16 ({m}, {k}, {n}), largest diff / limit: sound "
+          f"{sound:.3f}; planted fault {fault:.1f}")
+    assert fault > 1.0
+
+
+def _bert_amp_step(device, seed=0):
+    """One bert-test step of ``measure_bert``'s form under O2 (b2 s64):
+    the loss and, per parameter, (before, after, gradient) on the CPU;
+    the CPU takes the flash route's plain versions, as the card runs
+    the flash kernels."""
+    from paddle_tpu_torch import tensor as T
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.nn import functional as F
+
+    cfg = bert_presets("bert-test")
+    m = BertForPretraining(cfg, seed=seed, device=device)
+    step = TrainStep(m, lambda a, n, lbl: T.add(a, F.cross_entropy(n, lbl)),
+                     AdamW(learning_rate=1e-3, parameters=m.parameters()))
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg.vocab_size, (2, 64))
+    mlm = np.where(rs.rand(2, 64) < 0.15, ids, -1)
+    nsp = rs.randint(0, 2, (2,))
+    before = {n: p.detach().cpu().clone() for n, p in m.named_parameters()}
+    with auto_cast(level="O2"), F.flash_route(device == "cpu"):
+        loss = float(step(inputs=(ids, None, None, None, mlm),
+                          labels=(nsp,)))
+    return loss, {n: (before[n], p.detach().cpu(), p.grad.cpu())
+                  for n, p in m.named_parameters()}
+
+
+def check_bert_amp_step_on_card_matches_cpu(dev):
+    """BERT training under O2 on the card against the CPU: the loss
+    within ``BF16_LOSS_RTOL``, ``bf16_step_parity`` (the query and key
+    projections, whose gradient comes only through the kernels' bf16
+    dS, within 5e-2 of each tensor's largest, as ``chip_smoke.py`` phase
+    26 holds them; the key biases left out: their gradient is zero in
+    exact arithmetic, rounding noise on both devices), the bf16 flash
+    kernels in full mode once a layer each and one update launch."""
+    before = {**fa.launch_counts(), **fu.launch_counts()}
+    card_loss, card = _bert_amp_step(dev)
+    after = {**fa.launch_counts(), **fu.launch_counts()}
+    cpu_loss, cpu = _bert_amp_step("cpu")
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    assert rel <= BF16_LOSS_RTOL, (card_loss, cpu_loss)
+    qk = [n for n in cpu if ".q_proj." in n or ".k_proj.weight" in n]
+    rest = [n for n in cpu if n not in qk and not n.endswith("k_proj.bias")]
+    r = bf16_step_parity({n: card[n] for n in rest},
+                         {n: cpu[n] for n in rest}, 1e-3)
+    r_qk = bf16_step_parity({n: card[n] for n in qk},
+                            {n: cpu[n] for n in qk}, 1e-3, grad_rtol=5e-2)
+    print(f"bert O2 train step, card vs CPU: loss {rel:.3e} relative, "
+          f"gradients within {r['grad_rtol']:.3e} of each tensor's largest, "
+          f"the query and key projections' {r_qk['grad_rtol']:.3e}")
+    assert {k: after[k] - before[k] for k in after} == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_bf16": 2,
+        "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "fused_update": 1}
+
+
+def check_bert_int8_amp_on_card(dev):
+    """An int8 bert-test forward under O2 on the card: 9 launches of the
+    bf16 form and 6 of the fp32 one (the reference's pattern), 2 of
+    ``flash_fwd_bf16``; MLM logits bf16 within 1e-2 mean relative error
+    of the CPU's (flash route), NSP logits fp32; ``auto_cast`` in
+    float16 reaches a kernel that refuses it, naming "other dtypes"."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.nn.functional import flash_route
+
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, 256, (2, 32))
+    card, cpu = _bert(dev), _bert("cpu")
+    convert_to_int8(card)
+    convert_to_int8(cpu)
+    before = {**qm.launch_counts(), **fa.launch_counts()}
+    with torch.inference_mode(), auto_cast(level="O2"):
+        logits, nsp = card(ids)
+        torch.cuda.synchronize()
+        after = {**qm.launch_counts(), **fa.launch_counts()}
+        with flash_route():
+            want, want_nsp = cpu(ids)
+        with auto_cast(level="O2", dtype="float16"), \
+                pytest.raises(TypeError, match="other dtypes"):
+            card(ids)
+    assert {k: after[k] - before[k] for k in
+            ("quant_matmul", "quant_matmul_bf16", "flash_fwd",
+             "flash_fwd_bf16")} == {"quant_matmul": 6,
+                                    "quant_matmul_bf16": 9, "flash_fwd": 0,
+                                    "flash_fwd_bf16": 2}
+    assert logits.dtype == torch.bfloat16 and nsp.dtype == torch.float32
+    rel = float((logits.cpu().float() - want.float()).abs().mean()
+                / want.float().abs().mean())
+    assert rel <= 1e-2, rel
+    assert float((nsp.cpu() - want_nsp).abs().max()) <= 5e-2
 
 
 def _bert(device):
@@ -1074,8 +1244,20 @@ def test_cuda_path_matches_plain(dev):
                            (8192, 3072, 768))]
         + [(check_quant_matmul_deterministic, (dev, m, k, n))
            for m, k, n in ((16, 768, 768), (16, 768, 2), (1000, 37, 100))]
+        + [(check_quant_matmul_bf16_within_bound, (dev, m, k, n))
+           for m, k, n in ((1, 1, 1), (16, 768, 2), (10, 48, 24),
+                           (257, 300, 130), (1, 768, 768), (16, 768, 768),
+                           (64, 768, 768), (65, 768, 768),
+                           (100, 64, 30),     # n % 8 != 0
+                           (100, 37, 64),     # k % 8 != 0
+                           (100, 100, 64),    # k not a multiple of 32
+                           (8192, 768, 768), (8192, 3072, 768))]
+        + [(check_qmm_bf16_check_sees_a_planted_fault, (dev, m, k, n))
+           for m, k, n in ((8192, 768, 768), (16, 768, 768))]
         + [(check_quant_wrappers_raise, (dev,)),
-           (check_bert_int8_on_card_matches_cpu, (dev,))]
+           (check_bert_int8_on_card_matches_cpu, (dev,)),
+           (check_bert_int8_amp_on_card, (dev,)),
+           (check_bert_amp_step_on_card_matches_cpu, (dev,))]
         + [(check_carrier_kernels_match_plain, (dev, c, n, bs))
            for c in CODECS for n, bs in CASES]
         + [(check_dequant_update_bit_identical, (dev, c, k, n, bs, r))

@@ -56,6 +56,11 @@ the two hold the kernels to one set of criteria:
   rows with ``g = 0`` exactly 0;
 - ``quantize_int8``: int8 payload and scales bit-identical, nearest and
   stochastic;
+- ``quant_matmul`` on bf16 ``x`` (:func:`qmm_bf16_vs_plain`): every
+  element within the fp32 bound below plus one bf16 ulp of the plain
+  element (both round an fp32 sum to bf16 once); a fault planted in the
+  kernel (:func:`plant_qmm_fault`, 16 of the k products dropped) is
+  over it;
 - ``quant_matmul``: every element within the forward-error bound of two
   fp32 dot products of length k, ``2 k 2^-24 (|x| @ |q| s)`` (each side
   sums k products in its own order; the bound is computed in float64);
@@ -321,6 +326,56 @@ def qmm_limit(x, qw, scales) -> torch.Tensor:
     k = x.shape[1]
     mag = (x.double().abs() @ qw.double().abs()) * scales.double().abs()
     return 2.0 * k * 2.0 ** -24 * mag.reshape(x.shape[0], -1)
+
+
+# the bf16 section of ``csrc/quant_matmul.cu`` and the fault that
+# :func:`plant_qmm_fault` plants there: the first k-step skips its first
+# k16 product (16 of the k terms of every output, in every k slice)
+QMM_BF16_SECTION = "// ------------------------------------------------------- bf16 activations"
+QMM_BF16_FAULT = ("for (int s = 0; s < kBK / 16; ++s) {", "it == 0")
+
+
+def plant_qmm_fault(src: str) -> str:
+    """``csrc/quant_matmul.cu``'s text ``src`` with ``QMM_BF16_FAULT``
+    planted in its bf16 kernel; raises unless the anchor occurs exactly
+    once in the bf16 section."""
+    head, sep, bf16 = src.partition(QMM_BF16_SECTION)
+    loop, first = QMM_BF16_FAULT
+    if not sep or bf16.count(loop) != 1:
+        raise AssertionError(f"{bf16.count(loop)} copies of the fault anchor "
+                             f"{loop!r} in quant_matmul.cu's bf16 section")
+    return head + sep + bf16.replace(loop, loop.replace("s = 0",
+                                                        f"s = ({first})"))
+
+
+def qmm_bf16_limit(x, qw, scales, plain) -> torch.Tensor:
+    """Elementwise limit for ``quant_matmul`` on bf16 ``x`` against its
+    plain version ``plain`` (bf16): the fp32 accumulation limit
+    :func:`qmm_limit` plus one bf16 ulp of the plain element (two fp32
+    values that close may round to neighbouring bf16 values), in
+    float64."""
+    return qmm_limit(x, qw, scales) + bf16_ulp(plain).double()
+
+
+def qmm_bf16_vs_plain(x, qw, scales):
+    """``quant_matmul`` on bf16 ``x`` (the ``quant_matmul_bf16`` kernel)
+    against its plain version on the same operands. Returns ``(max abs
+    diff, largest diff / limit)``; raises when the output is not bf16 or
+    an element is over :func:`qmm_bf16_limit`."""
+    out = qm.quant_matmul(x, qw, scales)
+    ref = qm.quant_matmul_plain(x, qw, scales)
+    if out.dtype != torch.bfloat16 or out.shape != ref.shape:
+        raise AssertionError(f"quant_matmul on bf16 x gave "
+                             f"{tuple(out.shape)} {out.dtype}")
+    diff = (out.double() - ref.double()).abs()
+    limit = qmm_bf16_limit(x, qw, scales, ref)
+    ratio = float((diff / limit).max())
+    if not bool((diff <= limit).all()):
+        raise AssertionError(
+            f"quant_matmul bf16 {list(x.shape)} @ {list(qw.shape)}: "
+            f"{int((diff > limit).sum())} elements over 2 k 2^-24 "
+            f"(|x| @ |q|) s + one bf16 ulp (max diff / limit {ratio:.3f})")
+    return float(diff.max()), ratio
 
 
 def qmm_vs_plain(x, qw, scales):
