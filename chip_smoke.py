@@ -258,8 +258,8 @@ when every phase passed):
               bit-identical, the running sum within 1e-5 relative, each
               dlogit within 1e-6 of its magnitude); each timed beside its
               plain version, its byte bound and a one-call yardstick
-              (torch.logsumexp over the chunk, torch.softmax); clocks
-              before and after, ratios;
+              (torch.logsumexp over the chunk, torch.softmax), the
+              backward with a bias too; clocks before and after, ratios;
  22. train bf16, fused_loss_chunk=8192
               phase 17 in bench.py's BENCH_FUSED_CE form (the model's own
               chunked loss, TrainStep(model, lambda loss: loss, opt),
@@ -331,7 +331,16 @@ when every phase passed):
               qmm_bf16_vs_plain: 2 k 2^-24 (|x| @ |q|) s plus one bf16
               ulp), timed beside bf16 torch.matmul on the dequantized
               bf16 weight, bounds from bytes at 3.35 TB/s and operations
-              at 989 TFLOP/s bf16.
+              at 989 TFLOP/s bf16; its launches by route (27 a forward
+              on the wgmma route at m = 16 x 512, 2 on mma.sync at m =
+              16: the pooler and the NSP head).
+ 28. gpt O2 parity
+              one TrainStep of the fp32 GPT at GPT-125M width with 2
+              layers, b2 s128, under auto_cast(level="O2") on the card
+              and on the CPU from the same weights and batch: the
+              card's launches (each bf16 flash kernel once a layer, no
+              fp32 one, one fused_update), the loss within
+              BF16_LOSS_RTOL, the gradients' difference logged.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -1231,13 +1240,17 @@ def phase_train(cfg, dev, seed, warmup=2, steps=5, b=TRAIN_B, s=TRAIN_S):
     return counts, step, ids, labels, summary
 
 
-def _one_step(cfg, device, b, s, seed):
-    """One TrainStep from the seeded weights: the loss and, per
-    parameter, (before, after, gradient) on the CPU."""
+def _one_step(cfg, device, b, s, seed, level=None):
+    """One TrainStep from the seeded weights (under ``auto_cast`` at
+    ``level``, when given): the loss and, per parameter, (before, after,
+    gradient) on the CPU."""
+    from paddle_tpu_torch.amp import auto_cast
+
     model, step, ids, labels = _train_setup(cfg, device, b, s, seed)
     before = {n: p.detach().cpu().clone()
               for n, p in model.named_parameters()}
-    loss = float(bench_step(step, cfg, ids, labels))
+    with auto_cast(enable=level is not None, level=level or "O1"):
+        loss = float(bench_step(step, cfg, ids, labels))
     return loss, {n: (before[n], p.detach().cpu(), p.grad.cpu())
                   for n, p in model.named_parameters()}
 
@@ -1279,6 +1292,40 @@ def phase_train_parity(cfg, dev, seed):
         f"clear of the noise, steps within {r['clear_step_diff_lr']:.2e} "
         f"lr (limit 1e-2) and every one >= 0.9 lr; over all elements "
         f"max |param diff| {r['param_max_abs_diff']:.3e}")
+
+
+def phase_gpt_o2_parity(dev, seed, b=2, s=128):
+    """Phase 28: one TrainStep of the fp32 GPT (GPT-125M width, 2 layers)
+    under ``auto_cast(level="O2")`` on the card and on the CPU, same
+    weights and batch: the card's launches (each bf16 flash kernel once a
+    layer, no fp32 one, one fused_update), the loss within
+    ``BF16_LOSS_RTOL``, the gradients' largest difference logged."""
+    from torch_checks import BF16_LOSS_RTOL
+
+    from paddle_tpu_torch.models import gpt_presets
+
+    cfg = gpt_presets("gpt-125m", num_layers=2)
+    reset_train_launch_counts()
+    card_loss, card = _one_step(cfg, dev, b, s, seed + 2, level="O2")
+    counts = train_launch_counts()
+    cpu_loss, cpu = _one_step(cfg, "cpu", b, s, seed + 2, level="O2")
+    want = {name + sfx: cfg.num_layers * (sfx == "_bf16")
+            for sfx in ("", "_bf16")
+            for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    want.update(fused_update=1, ce_chunk_fwd=0, ce_chunk_bwd=0)
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad = max(float((card[n][2] - cpu[n][2]).abs().max())
+               / max(float(cpu[n][2].abs().max()), 1e-30) for n in cpu)
+    log(f"gpt O2 card vs CPU (gpt-125m width, fp32 parameters, 2 layers, "
+        f"b{b} s{s}): loss {card_loss:.7f} vs {cpu_loss:.7f} (rel "
+        f"{rel:.2e}, limit {BF16_LOSS_RTOL:.0e}); gradients within "
+        f"{grad:.2e} of each tensor's largest; card launches {counts}")
+    if counts != want:
+        raise AssertionError(f"gpt O2 launch counts {counts}, expected "
+                             f"{want}")
+    if not rel <= BF16_LOSS_RTOL:
+        raise AssertionError(f"gpt O2: card and CPU losses differ beyond "
+                             f"{BF16_LOSS_RTOL:.0e}")
 
 
 # PyTorch ops whose kernels are cuBLAS GEMMs (the profile's "GEMMs")
@@ -1460,6 +1507,8 @@ def phase_fused_ce_kernels(dev, gen, cfg, tokens=TRAIN_B * TRAIN_S):
             "err_over_limit": bwd["over_limit"],
             "ms": median_ms(lambda: fce.ce_chunk_bwd(
                 work, None, lse, labels, g, start), flush),
+            "bias_ms": median_ms(lambda: fce.ce_chunk_bwd(
+                work, bias, lse, labels, g, start), flush),
             "plain_ms": median_ms(lambda: fce.ce_chunk_bwd_plain(
                 work, None, lse, labels, g, start), flush),
             "bound_ms": bb, "bound_by": bby,
@@ -1471,7 +1520,9 @@ def phase_fused_ce_kernels(dev, gen, cfg, tokens=TRAIN_B * TRAIN_S):
             f"backward {bwd} ({checks['bwd bias']})")
         for name in ("ce_chunk_fwd", "ce_chunk_bwd"):
             r = rows[(name, c)]
-            log(f"  {name} {label}: {r['ms']:.4f} ms, plain "
+            biased = (f", with the bias {r['bias_ms']:.4f} ms"
+                      if "bias_ms" in r else "")
+            log(f"  {name} {label}: {r['ms']:.4f} ms{biased}, plain "
                 f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
                 f"{r['bound_by']} ({100 * r['bound_ms'] / r['ms']:.1f}% of "
                 f"it), {r['library_form']} {r['library_ms']:.4f}")
@@ -2026,7 +2077,7 @@ def infer_launch_counts() -> dict:
     flash = fa.launch_counts()
     return {**qm.launch_counts(), "flash_fwd": flash["flash_fwd"],
             "flash_fwd_bf16": flash["flash_fwd_bf16"],
-            "shapes": qm.shape_counts()}
+            "shapes": qm.shape_counts(), "routes": qm.route_counts()}
 
 
 def reset_infer_launch_counts() -> None:
@@ -2151,11 +2202,19 @@ def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
         want = {"quantize_int8": 0, "quant_matmul": len(linears) * iters,
                 "quant_matmul_bf16": 0, "flash_fwd": cfg.num_layers * iters,
                 "flash_fwd_bf16": 0}
+    # the bf16 form's routes: wgmma at m = b * s, mma.sync for the pooler
+    # and the NSP head at m = b
+    want_routes = (Counter({"wgmma": (n16 - 2) * iters,
+                            "mma_sync": 2 * iters}) if level == "O2"
+                   else Counter())
     got = {k: counts[k] for k in want}
-    if got != want or per_forward != weights:
+    if got != want or per_forward != weights or \
+            counts["routes"] != want_routes:
         raise AssertionError(f"launch counts {got}, expected {want}; per "
                              f"forward by weight {dict(per_forward)}, "
-                             f"expected {dict(weights)}")
+                             f"expected {dict(weights)}; routes "
+                             f"{dict(counts['routes'])}, expected "
+                             f"{dict(want_routes)}")
     del logits, nsp
     return conversion, counts, model, (ids, types), summary
 
@@ -2193,8 +2252,8 @@ def phase_infer_profile(model, batch, level=None):
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / busy_us:5.1f}% "
             f"{e.count:5d}x  {e.key[:90]}")
-    for name in ("qmm_kernel", "qmm_bf16_kernel", "fwd_kernel",
-                 "fwd_bf16_kernel"):
+    for name in ("qmm_kernel", "qmm_wgmma_kernel", "qmm_bf16_kernel",
+                 "fwd_kernel", "fwd_bf16_kernel"):
         t = sum(e.self_device_time_total for e in kernels if name in e.key)
         log(f"  share of the forward's device time, {name}: "
             f"{100 * t / busy_us:.1f}% ({t / 1e3:.3f} ms)")
@@ -3288,7 +3347,7 @@ def phase_bert(dev, gen, seed, infer32):
 
 
 def _numbers(r) -> dict:
-    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+    keys = ("shape", "max_abs_err", "ms", "bias_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_form", "launches_at_shape",
             "err_over_limit", "step_ms", "step_span_ms", "clocks")
     return {k: r[k] for k in keys if k in r}
@@ -3479,6 +3538,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     bert = phase_bert(dev, gen, args.seed, infer32)
+    torch.cuda.empty_cache()
+    phase_gpt_o2_parity(dev, args.seed)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,

@@ -49,11 +49,21 @@
 //    in segments merged online the same way (the bench's chunk is one
 //    segment).
 //  - The label's logit is one extra 4-byte read by one thread.
-//  - Backward: one block a row, a grid-stride loop over the row's quads:
-//    one streaming read and one store of each quad.
-//  - The vector accesses need C % 4 == 0 and a 16-byte aligned logit
-//    (torch.empty gives that); otherwise every quad is read and written
-//    element by element: right, and slower.
+//  - The forward's vector accesses need C % 4 == 0 and a 16-byte aligned
+//    logit (torch.empty gives that); otherwise every quad is read element
+//    by element: right, and slower (65% of its bound at BERT's last
+//    chunk of 5946 columns, PERF.md).
+//  - Backward: one block a row, each row on its own alignment: the body
+//    in aligned quads (one streaming read and one streaming store each,
+//    two quads in flight a thread), then a scalar head of up to 3
+//    columns to the row's first 16-byte boundary and a scalar tail of up
+//    to 3, taken by the last threads (the fewest quads), after the body
+//    so that their dependent round trips do not delay a warp's quads.
+//    So a chunk whose width is not a multiple of 4 (BERT's 5946 of
+//    30,522 at chunk 8192: every odd row starts 8 bytes off the grid)
+//    takes the 16-byte path for all but 6 columns a row. The bias ([C], the same
+//    for every row) is read element by element at whatever alignment it
+//    has against the body: 23.8 KB at 5946 columns, from L1 and L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -169,7 +179,19 @@ __global__ void __launch_bounds__(KQ >= 8 ? 256 : 512)
   }
 }
 
-template <bool VEC>
+// x of one column j (+ bias), then its dlogit, in place: the ops of the
+// header's backward, the same for every access path
+__device__ __forceinline__ float bwd_one(float x, const float* bias,
+                                         int64_t j, int64_t hot, float l,
+                                         float gr) {
+  if (bias != nullptr) x += __ldg(bias + j);
+  return (expf(x - l) - (j == hot ? 1.0f : 0.0f)) * gr;
+}
+
+// One block a row, the row taken on its own alignment: an aligned float4
+// body (streaming loads and stores, two quads in flight a thread), then
+// a scalar head up to the row's first 16-byte boundary and a scalar tail,
+// taken by the block's last threads, which have the fewest quads.
 __global__ void __launch_bounds__(kBwdThreads)
     ce_bwd_kernel(float* __restrict__ logit, const float* __restrict__ bias,
                   const float* __restrict__ lse,
@@ -179,22 +201,31 @@ __global__ void __launch_bounds__(kBwdThreads)
   float* row = logit + r * c;
   const float l = lse[r], gr = g[r];
   const int64_t hot = static_cast<int64_t>(labels[r]) - start;
-  for (int64_t j0 = 4 * int64_t(threadIdx.x); j0 < c;
-       j0 += 4 * int64_t(blockDim.x)) {
-    float4 v = load_cols<VEC>(row, bias, j0, c);
-    v.x = (expf(v.x - l) - (j0 == hot ? 1.0f : 0.0f)) * gr;
-    v.y = (expf(v.y - l) - (j0 + 1 == hot ? 1.0f : 0.0f)) * gr;
-    v.z = (expf(v.z - l) - (j0 + 2 == hot ? 1.0f : 0.0f)) * gr;
-    v.w = (expf(v.w - l) - (j0 + 3 == hot ? 1.0f : 0.0f)) * gr;
-    if (VEC && j0 + 4 <= c) {
-      __stcs(reinterpret_cast<float4*>(row + j0), v);
-    } else {
-      if (j0 < c) row[j0] = v.x;
-      if (j0 + 1 < c) row[j0 + 1] = v.y;
-      if (j0 + 2 < c) row[j0 + 2] = v.z;
-      if (j0 + 3 < c) row[j0 + 3] = v.w;
-    }
+  const int64_t lead =
+      ((16 - reinterpret_cast<uintptr_t>(row) % 16) % 16) / 4;
+  const int64_t head = lead < c ? lead : c;
+  const int64_t quads = (c - head) / 4;
+  float4* body = reinterpret_cast<float4*>(row + head);
+  auto quad = [&](float4 v, int64_t i) {
+    const int64_t j0 = head + 4 * i;
+    v.x = bwd_one(v.x, bias, j0, hot, l, gr);
+    v.y = bwd_one(v.y, bias, j0 + 1, hot, l, gr);
+    v.z = bwd_one(v.z, bias, j0 + 2, hot, l, gr);
+    v.w = bwd_one(v.w, bias, j0 + 3, hot, l, gr);
+    __stcs(body + i, v);
+  };
+  int64_t i = threadIdx.x;
+  for (; i + blockDim.x < quads; i += 2 * blockDim.x) {
+    const float4 v0 = __ldcs(body + i), v1 = __ldcs(body + i + blockDim.x);
+    quad(v0, i);
+    quad(v1, i + blockDim.x);
   }
+  if (i < quads) quad(__ldcs(body + i), i);
+  const int64_t j = blockDim.x - 1 - threadIdx.x;   // 0 for the last
+  const int64_t tail = head + 4 * quads;
+  if (j < head) row[j] = bwd_one(row[j], bias, j, hot, l, gr);
+  if (tail + j < c)
+    row[tail + j] = bwd_one(row[tail + j], bias, tail + j, hot, l, gr);
 }
 
 bool vec_ok(const void* p, int64_t c) {
@@ -260,10 +291,6 @@ extern "C" int ce_chunk_bwd(void* logit, const void* bias, const void* lse,
   const auto* l = static_cast<const float*>(lse);
   const auto* lb = static_cast<const int32_t*>(labels);
   const auto* gg = static_cast<const float*>(g);
-  if (vec_ok(logit, c))
-    ce_bwd_kernel<true><<<n, kBwdThreads, 0, st>>>(x, b, l, lb, gg, c, start);
-  else
-    ce_bwd_kernel<false><<<n, kBwdThreads, 0, st>>>(x, b, l, lb, gg, c,
-                                                    start);
+  ce_bwd_kernel<<<n, kBwdThreads, 0, st>>>(x, b, l, lb, gg, c, start);
   return static_cast<int>(cudaGetLastError());
 }

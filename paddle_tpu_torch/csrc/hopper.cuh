@@ -24,6 +24,13 @@
 // 0, 1, ...) waits for phase u % 2 of "full"; the producer's refill u
 // waits for phase (u - 1) % 2 of "empty".
 //
+// The int8 tile format (quant_matmul.cu's q). A TMA box is 64 rows of 64
+// bytes, 4 KB, 64-byte swizzled (CU_TENSOR_MAP_SWIZZLE_64B): the 16-byte
+// chunk c of row r lies at chunk c ^ ((r >> 1) % 4), so the 8 rows an
+// ldmatrix reads at one logical chunk fall in 8 distinct bank groups.
+// Its box starts at a 1024-byte aligned address (the swizzle reads the
+// address bits).
+//
 // wgmma fragments (warp w of the warpgroup, lane = 4 g + t):
 //   accumulator m64nN fp32: d[4j + 2h + e] = (row 16w + g + 8h,
 //     column 8j + 2t + e);
@@ -90,6 +97,24 @@ inline bool encode_rows_bf16(CUtensorMap* map, const void* base, int n,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map over a contiguous int8 [rows, cols] matrix whose box is 64 rows
+// by 64 columns, 64-byte swizzled (the int8 tile format above). cols % 16
+// == 0 (the row pitch TMA takes). False if the encode is refused.
+inline bool encode_rows_int8(CUtensorMap* map, const void* base, int rows,
+                             int cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {64, 64};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -161,6 +186,30 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Box at (column c0, row c1) of a 2-D map into dst.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit elements, transposed: lanes 8 i .. 8 i + 7
+// give the row addresses of matrix i, and lane 4 g + t receives in r[i]
+// its elements (row 2 t, column g) in the low half and (row 2 t + 1,
+// column g) in the high half.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // One arrival on `bar` once every cp.async this thread issued before it
@@ -260,6 +309,57 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
       "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
       "}\n"
       : PTT_OUT16(d, 0), PTT_OUT16(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128) += A.B, A 64 x 16 from registers, B 16 x 128 K-major in
+// shared memory (128 rows of k; no transpose): d0 holds columns 0-63 of
+// the accumulator, d1 columns 64-127 (each in the layout of an N = 64
+// accumulator).
+__device__ __forceinline__ void wgmma_rs_n128_k(float (&d0)[32],
+                                                float (&d1)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : PTT_OUT16(d0, 0), PTT_OUT16(d0, 16), PTT_OUT16(d1, 0),
+        PTT_OUT16(d1, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The same with N = 192: d0, d1, d2 hold columns 0-63, 64-127, 128-191.
+__device__ __forceinline__ void wgmma_rs_n192_k(float (&d0)[32],
+                                                float (&d1)[32],
+                                                float (&d2)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n"
+      "}\n"
+      : PTT_OUT16(d0, 0), PTT_OUT16(d0, 16), PTT_OUT16(d1, 0),
+        PTT_OUT16(d1, 16), PTT_OUT16(d2, 0), PTT_OUT16(d2, 16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

@@ -86,28 +86,64 @@
 //   fp32 accumulator over k, times the column's fp32 scale at the end,
 //   rounded to bf16 once, as _qmm_kernel computes it for a bf16 x
 //   (x.astype(f32) @ q.astype(f32), acc * s, astype(bf16)).
-//   Arithmetic: mma.sync m16n8k16 bf16 with fp32 accumulators. Every int8
-//   value is exact in bf16 (8 significant bits), and the tensor cores
-//   form each bf16 x bf16 product exactly, so the sums are the
+//   Arithmetic: bf16 tensor-core products with fp32 accumulators. Every
+//   int8 value is exact in bf16 (8 significant bits), and the tensor
+//   cores form each bf16 x bf16 product exactly, so the sums are the
 //   reference's products added in fp32 in another order: the fp32 limit
 //   of quant_matmul (2 k 2^-24 (|x| @ |q|) s) holds before the store.
 //   int8 -> bf16 in registers: a byte b is v = int8(b), and
 //   float(2^23 + (b ^ 0x80)) - (2^23 + 128) = v exactly (one byte
-//   permute and one subtraction), then two such floats are packed to
-//   bf16x2 (exact). Bound: as quant_matmul's, in bf16 operations (2 m n k
-//   at the H100 SXM data sheet's 989 TFLOP/s: 0.0098 ms at (8192, 768,
-//   768)) or, at m <= 64, the int8 weight's bytes. Design: quant_matmul's tiles, ring and k
-//   slices, on bf16 x: a (32 MT) x 128 tile, 3 stages of k-steps of 32
-//   (two k16 products), x rows pitched 96 bytes so a warp's 8-byte
-//   fragment loads are free of bank conflicts. In a k16 product, mma
-//   k-slots (2t, 2t + 1) stand for k = 4t, 4t + 1 and slots
-//   (2t + 8, 2t + 9) for 4t + 2, 4t + 3: one 8-byte load gives a thread
-//   both halves of its x fragment for a row, four 4-byte loads of q
-//   rows 4t .. 4t + 3 its four column tiles' B fragments (q's 144-byte
-//   pitch leaves them 2-way bank-conflicted: simple first). Column slots
-//   as in quant_matmul: a thread's outputs are 8 adjacent columns, one
-//   16-byte store of bf16. Any m, n, k >= 1; k % 8 != 0 or an unaligned
-//   x is loaded element by element.
+//   permute and one subtraction); two such floats are packed to bf16x2
+//   (exact). Bound: 2 m n k bf16 operations at the H100 SXM data sheet's
+//   989 TFLOP/s (0.0098 ms at (8192, 768, 768), 0.0391 at (8192, 3072,
+//   768)) or, at m <= 64, the int8 weight's bytes. Two routes, chosen by
+//   shape in ops/quant_matmul.py (bf16_route), never by failure:
+//   - wgmma (quant_matmul_bf16_wgmma), m > 64 where TMA describes both
+//     operands (n % 16 == 0, k % 8 == 0, x and qw 16-byte aligned): 27
+//     of the 29 launches of an int8 BERT-base forward under O2. It
+//     computes out^T = q^T x^T, so that the operand to widen is wgmma's
+//     A, the one that may come from registers: q stays [k, n] in device
+//     memory (no transposed copy: the weight's bytes at rest are a
+//     metric of the int8 slice). A persistent block (one an SM) of one
+//     producer warp and WG consumer warpgroups walks tiles of MT rows of
+//     m by 64 WG columns of n through a ring of ST stages, each the x box
+//     (MT rows of 64 k, TMA, 128-byte swizzle: the K-major B of the
+//     product, as K in the flash kernels' Q.K^T) and a 64 x 64 int8 box
+//     of q a warpgroup (TMA, 64-byte swizzle), filled by the producer
+//     through mbarriers across tiles. Each stage of q is widened once: a
+//     warp's ldmatrix.x4.trans of 16-bit pairs of q gives a lane the
+//     bytes of two adjacent columns at k = 2t, 2t + 1 (and + 8), exactly
+//     A's fragment for its rows g and g + 8 once those rows stand for
+//     the columns 2g and 2g + 1; a byte permute per value widens it, in
+//     registers, while the previous stage's products run (two register
+//     sets). Nothing widened goes back to shared memory. One product
+//     m64n192k16 per k16 (MT = 192), the accumulator 64 columns of n by
+//     MT rows of m; epilogue: times the column's scale in fp32, rounded
+//     to bf16 once, a lane's two adjacent columns stored as one bf16x2 (a
+//     quad of lanes writes 32 contiguous bytes of a row). MT = 192, WG =
+//     2, ST = 4: 258 tiles at m = 8192, n = 768, 1.95 waves on 132 SMs
+//     (128 rows would give 2.9 and 256 rows 1.45, and 256 rows spill).
+//     Measured (PERF.md, tools/torch_qmm_ab.py): the products alone run
+//     at 73% of the bound at (8192, 3072, 768), with the ldmatrix and
+//     the widening at 63%, with the loads at 59%: the widening's integer
+//     and float operations, in the warps that issue the products, are
+//     what stands between the kernel and bf16 torch.matmul (1.17-1.19x);
+//     widening into shared memory for SS products instead ran 1.2x
+//     slower. Rows, columns and k past the end arrive from TMA as zeros
+//     and are never stored.
+//   - mma.sync (quant_matmul_bf16), the rest (m <= 64, the NSP head's n =
+//     2, ragged pitches, an x off the 16-byte grid): quant_matmul's
+//     tiles, ring and k slices on bf16 x: a (32 MT) x 128 tile, 3 stages
+//     of k-steps of 32 (two k16 products), x rows pitched 96 bytes so a
+//     warp's 8-byte fragment loads are free of bank conflicts. In a k16
+//     product, mma k-slots (2t, 2t + 1) stand for k = 4t, 4t + 1 and
+//     slots (2t + 8, 2t + 9) for 4t + 2, 4t + 3: one 8-byte load gives a
+//     thread both halves of its x fragment for a row, four 4-byte loads
+//     of q rows 4t .. 4t + 3 its four column tiles' B fragments (q's
+//     144-byte pitch leaves them 2-way bank-conflicted). Column slots as
+//     in quant_matmul: a thread's outputs are 8 adjacent columns, one
+//     16-byte store of bf16. Any m, n, k >= 1; k % 8 != 0 or an
+//     unaligned x is loaded element by element.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -116,6 +152,7 @@
 
 #include <algorithm>
 
+#include "hopper.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -806,6 +843,250 @@ int qmm_h_dispatch(bool xv, bool qv, const __nv_bfloat16* x,
   return qmm_h_launch<MT, false, false>(x, qw, sc, out, ws, m, n, k, st);
 }
 
+// --------------------------------------------- bf16 activations on wgmma
+// The route for m > 64 (header). out^T = q^T x^T: a warpgroup's A is 64
+// columns of q (its n-slots) by 16 k, widened in registers; B is the x
+// tile (MT rows of m by 64 k, K-major, as K in Q.K^T of the flash
+// kernels); the accumulator holds 64 n-slots by MT rows of m.
+constexpr int kQmmWarpgroups = 2;   // consumers, 64 columns of n each
+constexpr int kQmmRows = 192;       // rows of m a tile: the products' N
+constexpr int kQmmStages = 4;       // k-steps of 64 in the ring
+constexpr int kK16 = 4;             // k16 products a k-step of 64
+
+
+template <int WG, int MT, int ST>
+struct QmmHopper {
+  static constexpr int kX = MT * 128;        // x box: MT rows of 64 bf16
+  static constexpr int kQ = 64 * 64;         // a warpgroup's q box
+  static constexpr int kStage = kX + WG * kQ;
+  static constexpr int kThreads = 128 * WG + 32;
+  static constexpr size_t bytes =
+      hopper::kSwizzleAlign + ST * kStage + 8 * 2 * ST;
+  static_assert(MT == 128 || MT == 192 || MT == 256,
+                "MT: 128, 192 or 256 rows (products of N = 128 or 192)");
+  static_assert(kStage % hopper::kSwizzleAlign == 0, "aligned boxes");
+};
+
+// The 4 int8 of v (bytes b0..b3) as two bf16x2: (b0, b2) in lo and (b1,
+// b3) in hi, the first of each pair in the low half. Each byte is exact
+// (header): 2^23 + (b ^ 0x80) as fp32 bits, minus 2^23 + 128, then the
+// upper half of the fp32, which drops only zero bits.
+__device__ __forceinline__ void widen_int8x4(uint32_t v, uint32_t& lo,
+                                             uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;
+  constexpr uint32_t kBase = 0x4B000000u;
+  constexpr float kBias = 8388736.0f;
+  const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, kBase, 0x7650)),
+                             kBias);
+  const float f1 = __fsub_rn(__uint_as_float(__byte_perm(u, kBase, 0x7651)),
+                             kBias);
+  const float f2 = __fsub_rn(__uint_as_float(__byte_perm(u, kBase, 0x7652)),
+                             kBias);
+  const float f3 = __fsub_rn(__uint_as_float(__byte_perm(u, kBase, 0x7653)),
+                             kBias);
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
+  hi = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) hopper::fence_regs(a[i]);
+}
+
+// Persistent: a block an SM walks the tiles blockIdx.x, + gridDim.x, ...
+// (n tile fastest, so the blocks in flight share rows of x). One producer
+// warp keeps the ring full across tiles, so the next tile's loads run
+// during this one's epilogue; consumer warpgroup wg owns columns
+// n0 + 64 wg .. + 63 of each tile.
+template <int WG, int MT, int ST>
+__global__ void __launch_bounds__(QmmHopper<WG, MT, ST>::kThreads, 1)
+qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tq,
+                 const float* __restrict__ scales,
+                 __nv_bfloat16* __restrict__ out, int m, int n, int k) {
+  using namespace hopper;
+  using T = QmmHopper<WG, MT, ST>;
+  constexpr int P = MT / 64;   // n64 accumulators: 64 rows of m each
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align_swizzle(smem_raw);   // [ST] stages: x, q
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ST * T::kStage);
+  uint64_t* empty = full + ST;
+  const int n_tiles = (n + 64 * WG - 1) / (64 * WG);
+  const int tiles = n_tiles * ((m + MT - 1) / MT);
+  const int nkt = (k + 63) / 64;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 128 * WG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == WG) {   // the producer warp: one thread issues every load
+    if (threadIdx.x == 128 * WG) {
+      tma_prefetch(&tx);
+      tma_prefetch(&tq);
+      int g = 0;   // this block's k-steps so far, over its tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int n0 = tile % n_tiles * 64 * WG, m0 = tile / n_tiles * MT;
+        for (int kt = 0; kt < nkt; ++kt, ++g) {
+          const int st = g % ST, use = g / ST;
+          if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+          unsigned char* s = ring + st * T::kStage;
+          mbar_expect_tx(&full[st], T::kStage);
+          tma_load_3d(s, &tx, 64 * kt, m0, 0, &full[st]);
+          for (int w = 0; w < WG; ++w)
+            tma_load_2d(s + T::kX + w * T::kQ, &tq, n0 + 64 * w, 64 * kt,
+                        &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: warp `warp` of warpgroup wg, lane 4 g + t. Its A rows
+  // (n-slots) 16 warp + g and + 8 stand for columns 16 warp + 2 g and
+  // + 1 of the warpgroup's 64, so that one 16-bit element of q (two
+  // adjacent columns) feeds both.
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[P][32];
+  uint32_t a0[kK16][4], a1[kK16][4];   // A of two k-steps in flight
+  int g0 = 0;   // the block's k-step index of this tile's first k-step
+
+  // A of k-step kt: ldmatrix.trans of q's rows k (lane's row 32 h + lane)
+  // at this warp's 16 columns, two k16 products a load
+  auto load_a = [&](int kt, uint32_t (&a)[kK16][4]) {
+    const uint32_t qs = smem_u32(ring + (g0 + kt) % ST * T::kStage + T::kX +
+                                 wg * T::kQ);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 32 * h + lane;
+      uint32_t v[4];
+      ldmatrix_x4_trans(v, qs + r * 64 + 16 * (warp ^ ((r >> 1) & 3)));
+      widen_int8x4(v[0], a[2 * h][0], a[2 * h][1]);
+      widen_int8x4(v[1], a[2 * h][2], a[2 * h][3]);
+      widen_int8x4(v[2], a[2 * h + 1][0], a[2 * h + 1][1]);
+      widen_int8x4(v[3], a[2 * h + 1][2], a[2 * h + 1][3]);
+    }
+  };
+  // the products of k-step kt; issued, not waited for
+  auto mma = [&](int kt, const uint32_t (&a)[kK16][4]) {
+    const uint32_t xs = smem_u32(ring + (g0 + kt) % ST * T::kStage);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kK16; ++ks) {
+      if constexpr (P == 3) {   // one product over the 192 rows of x
+        wgmma_rs_n192_k(acc[0], acc[1], acc[2], a[ks],
+                        desc_sw128(xs + 32 * ks));
+      } else {
+#pragma unroll
+        for (int p = 0; p < P; p += 2)   // 128 rows of x a product
+          wgmma_rs_n128_k(acc[p], acc[p + 1], a[ks],
+                          desc_sw128(xs + p * kBoxBytes + 32 * ks));
+      }
+    }
+    wgmma_commit();
+  };
+  auto full_wait = [&](int kt) {
+    mbar_wait(&full[(g0 + kt) % ST], (g0 + kt) / ST & 1);
+  };
+  auto release = [&](int kt) { mbar_arrive(&empty[(g0 + kt) % ST]); };
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, g0 += nkt) {
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+    // k-step kt + 1 is loaded and widened while the products of kt run; a
+    // stage is released once the products that read it are done
+    full_wait(0);
+    load_a(0, a0);
+    for (int kt = 0; kt < nkt; kt += 2) {
+      mma(kt, a0);
+      if (kt > 0) {
+        wgmma_wait<1>();
+        fence_frags(a1);
+        release(kt - 1);
+      }
+      if (kt + 1 >= nkt) break;
+      full_wait(kt + 1);
+      load_a(kt + 1, a1);
+      mma(kt + 1, a1);
+      wgmma_wait<1>();
+      fence_frags(a0);
+      release(kt);
+      if (kt + 2 < nkt) {
+        full_wait(kt + 2);
+        load_a(kt + 2, a0);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < P; ++p) fence_regs(acc[p]);
+    release(nkt - 1);
+
+    // out[row, col], out[row, col + 1] = bf16(acc * scale): 32 contiguous
+    // bytes of a row a quad of lanes
+    const int col = tile % n_tiles * 64 * WG + 64 * wg + 16 * warp + 2 * g;
+    const int m0 = tile / n_tiles * MT;
+    if (col < n) {   // n % 16 == 0: col + 1 < n as well
+      const float s0 = scales[col], s1 = scales[col + 1];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int row = m0 + 64 * p + 8 * j + 2 * t + e;
+            if (row >= m) continue;
+            *reinterpret_cast<__nv_bfloat162*>(
+                out + static_cast<size_t>(row) * n + col) =
+                __floats2bfloat162_rn(__fmul_rn(acc[p][4 * j + e], s0),
+                                      __fmul_rn(acc[p][4 * j + 2 + e], s1));
+          }
+    }
+  }
+}
+
+// The SM count of the current device, read once.
+inline int sm_count() {
+  static const int count = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return kSMs;
+    return sms;
+  }();
+  return count;
+}
+
+template <int WG, int MT, int ST>
+int qmm_wgmma_launch(const void* x, const void* qw, const float* sc,
+                     __nv_bfloat16* out, int m, int n, int k,
+                     cudaStream_t st) {
+  using T = QmmHopper<WG, MT, ST>;
+  CUtensorMap tx, tq;   // encoded per launch: the pointers move
+  if (!hopper::encode_rows_bf16(&tx, x, 1, m, k, MT) ||
+      !hopper::encode_rows_int8(&tq, qw, k, n))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = qmm_wgmma_kernel<WG, MT, ST>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(T::bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long tiles = static_cast<long>((n + 64 * WG - 1) / (64 * WG)) *
+                     ((m + MT - 1) / MT);
+  const int grid = static_cast<int>(std::min<long>(tiles, sm_count()));
+  kernel<<<grid, T::kThreads, T::bytes, st>>>(tx, tq, sc, out, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // w: fp32 [k, n] contiguous; q: int8 [k, n]; scales: fp32 [n].
@@ -890,4 +1171,25 @@ extern "C" int quant_matmul_bf16(const void* x, const void* qw,
     case 2: return qmm_h_dispatch<2>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
     default: return qmm_h_dispatch<1>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
   }
+}
+
+// The wgmma route of quant_matmul_bf16 (m > 64): the same operands, and
+// n % 16 == 0, k % 8 == 0, x and qw 16-byte aligned (the row pitches and
+// bases TMA takes), out 4-byte aligned; no workspace. Returns a
+// cudaError_t code.
+extern "C" int quant_matmul_bf16_wgmma(const void* x, const void* qw,
+                                       const void* scales, void* out, int m,
+                                       int n, int k, void* stream) {
+  constexpr int rows = kQmmRows;
+  if (m <= 0 || n <= 0 || k <= 0 || n % 16 != 0 || k % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(qw) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 4 != 0 ||
+      static_cast<long>((m + rows - 1) / rows) * ((n + 63) / 64) >
+          INT32_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return qmm_wgmma_launch<kQmmWarpgroups, kQmmRows, kQmmStages>(
+      x, qw, static_cast<const float*>(scales),
+      static_cast<__nv_bfloat16*>(out), m, n, k,
+      static_cast<cudaStream_t>(stream));
 }

@@ -27,7 +27,9 @@ fp32, split-K partial sums included. Under ``amp`` a model keeps the
 settings of its parameters' dtype: BERT's fp32 masters enter "float32",
 which runs the bf16 GEMMs that amp's casts make without the reduced-
 precision reduction and the fp32 ones it leaves (O1's MLM loss) in full
-fp32, as the reference computes each.
+fp32, as the reference computes each. GPT enters the settings of the
+dtype its operands have after amp's cast (``settings_for``): under O2
+its blocks and LM head are bf16 GEMMs and enter "bfloat16".
 
 The flags are read on the host when a GEMM is launched; they do nothing
 on the CPU.
@@ -38,11 +40,17 @@ import contextlib
 
 import torch
 
-__all__ = ["matmul_precision", "RestoreAtEnd", "enter_for_backward",
-           "backward_precision"]
+__all__ = ["matmul_precision", "settings_for", "RestoreAtEnd",
+           "enter_for_backward", "backward_precision"]
 
 # dtype -> torch.backends.cuda.matmul.allow_tf32
 _TF32 = {"float32": False, "bfloat16": True}
+
+
+def settings_for(dtype: torch.dtype) -> str:
+    """The settings' name for a model's operands of ``dtype``: its
+    parameters', or those amp's casts give them."""
+    return "bfloat16" if dtype == torch.bfloat16 else "float32"
 
 
 class matmul_precision(contextlib.ContextDecorator):

@@ -44,17 +44,13 @@ from __future__ import annotations
 import torch
 
 from ...amp import cast
-from ...framework.precision import enter_for_backward, matmul_precision
+from ...framework.precision import (enter_for_backward, matmul_precision,
+                                    settings_for)
 from ...ops.fused_ce import ce_chunk_bwd, ce_chunk_fwd
 
 __all__ = ["fused_linear_cross_entropy"]
 
 _REDUCTIONS = ("mean", "sum", "none")
-
-
-def _precision(weight: torch.Tensor) -> str:
-    """The GEMM settings of the weight's model dtype."""
-    return "bfloat16" if weight.dtype == torch.bfloat16 else "float32"
 
 
 def _w_chunk(weight, start: int, c: int, transposed: bool):
@@ -82,7 +78,7 @@ class _ChunkedLinearCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, labels, chunk: int, transposed: bool):
-        prec = _precision(weight)
+        prec = settings_for(weight.dtype)
         xf = x.to(torch.float32)
         n, dev = xf.shape[0], xf.device
         v = weight.shape[0 if transposed else 1]

@@ -32,23 +32,42 @@ Queue A "training options" and "parallelism"): dropout > 0 in training,
 ``recompute_policy``, ``mode="scan"`` and the pipeline, ring and Ulysses
 attention; a ``dtype`` other than "float32" and "bfloat16".
 
-Numerics, per ``dtype`` (``framework.precision.matmul_precision``).
-``GPTForCausalLM.forward`` enters the settings for the forward, and its
-logits carry an identity node (``framework.precision.backward_precision``)
-that enters them for the backward pass that starts there, restored when that pass ends.
-So the numerics are the same whoever runs the backward (``TrainStep`` or
-a bare ``loss.backward()``) and whatever the caller set process-wide:
+Mixed precision is the reference's ``paddle.amp``
+(``paddle_tpu_torch/amp``): each op of the forward is a cast point under
+the reference's op name ("gpt_embed", dropout's "clone", "gpt_block",
+the final norm's "layer_norm", "gpt_logits", "gpt_loss"; with
+``fused_loss_chunk`` the two "reshape"s and
+"fused_linear_cross_entropy"). Under ``auto_cast(level="O2")`` the
+embedding, every block and the logits run in bf16 on the fp32
+parameters (the final norm in fp32, on the black list); under O1 no GPT
+op is on the white list and nothing changes. A block casts outside its
+``recompute`` checkpoint, so the recompute in the backward runs on the
+same cast tensors.
 
-- "float32": fp32 throughout; TF32 off, so a float32 product on the
+Numerics, per the dtype of the operands after amp's cast
+(``framework.precision.matmul_precision``, ``settings_for``). Each
+block enters the settings of its parameters' dtype around its forward
+(and so around its recompute), the LM head those of the table's, and
+the logits carry an identity node
+(``framework.precision.backward_precision``) that enters the LM head's
+settings for the backward pass that starts there, restored when that
+pass ends. So the numerics are the same whoever runs the backward
+(``TrainStep`` or a bare ``loss.backward()``) and whatever the caller
+set process-wide:
+
+- fp32 operands: fp32 throughout; TF32 off, so a float32 product on the
   card is a float32 product.
-- "bfloat16", as the reference stores and computes it: the block
-  parameters and both embedding tables in bf16 (rounded to nearest even
-  from the fp32 draws), the final LayerNorm in fp32 (a generic layer).
+- bf16 operands (``dtype="bfloat16"``, or amp's O2 casts of an fp32
+  model), as the reference stores and computes them: under
+  ``dtype="bfloat16"`` the block parameters and both embedding tables in
+  bf16 (rounded to nearest even from the fp32 draws), the final
+  LayerNorm in fp32 (a generic layer).
   A block's LayerNorm takes its affine in fp32 and rounds once
   (``block_layer_norm``, the reference's ``_block_apply`` ``ln``); the
   final norm rounds before its fp32 affine and so returns fp32, and the
   LM head multiplies that by the bf16 table promoted to fp32, as jnp
-  promotes ``h @ wv.T``: an fp32 GEMM, fp32 logits. Two precision
+  promotes ``h @ wv.T`` (under O2 both are cast to bf16 first: a bf16
+  GEMM, bf16 logits). Two precision
   choices: (1) the LM head's fp32 GEMM runs in TF32 on the card. The
   reference's chip ran it at XLA's default precision, which on a TPU is
   one bf16 pass; TF32 keeps more operand bits than that, and full fp32
@@ -70,10 +89,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import tensor as T
+from ..amp import cast
 from ..framework.device import resolve_device
-from ..framework.precision import backward_precision, matmul_precision
+from ..framework.precision import (backward_precision, matmul_precision,
+                                   settings_for)
 from ..incubate.nn.functional import fused_linear_cross_entropy
-from ..nn.functional import layer_norm
+from ..nn.functional import dropout, layer_norm
 from ..ops.flash_attention import flash_attention_val
 
 __all__ = ["GPTConfig", "gpt_presets", "GPTEmbeddings", "GPTDecoderLayer",
@@ -257,11 +279,20 @@ class GPTEmbeddings(nn.Module):
              ).astype("float32"), device, dt)
 
     def forward(self, input_ids, position_ids=None):
+        """Word plus position rows (op "gpt_embed"), in the dtype amp
+        gives the tables: the rows are gathered from the tables as they
+        are and cast at the cast point, the same values as rows of the
+        cast tables, so the backward sums each row's gradients in the
+        tables' dtype."""
         if position_ids is None:
             pos = self.position_embeddings[:input_ids.shape[-1]]
+            ids = (input_ids,)
         else:
             pos = self.position_embeddings[position_ids]
-        return self.word_embeddings[input_ids] + pos
+            ids = (input_ids, position_ids)
+        word, pos, *_ = cast("gpt_embed", self.word_embeddings[input_ids],
+                             pos, *ids)
+        return word + pos
 
 
 def block_layer_norm(x, w, b, eps: float) -> torch.Tensor:
@@ -289,30 +320,34 @@ class GPTDecoderLayer(nn.Module):
                                        device, dt))
 
     def forward(self, x):
-        """One block (reference ``_block_apply``) on ``[b, s, h]``; with
-        ``recompute`` its activations are recomputed in the backward."""
+        """One block (reference ``_block_apply``, op "gpt_block") on
+        ``[b, s, h]``, its input and parameters in the dtype amp gives
+        them; with ``recompute`` its activations are recomputed in the
+        backward from the same cast tensors."""
+        x, *params = cast("gpt_block", x,
+                          *(getattr(self, n) for n in BLOCK_PARAMS))
         if self.cfg.recompute and torch.is_grad_enabled():
-            return checkpoint(self._recomputable, x, use_reentrant=False)
-        return self._block(x)
+            return checkpoint(self._block, x, *params, use_reentrant=False)
+        return self._block(x, *params)
 
-    def _recomputable(self, x):
-        """The block at its dtype's GEMM settings, which the recompute
-        inside the backward pass would otherwise take from that pass."""
-        with matmul_precision(self.cfg.dtype):
-            return self._block(x)
-
-    def _block(self, x):
+    def _block(self, x, *params):
+        """The block at the GEMM settings of its parameters' dtype, which
+        its recompute inside the backward pass would otherwise take from
+        that pass."""
         cfg = self.cfg
+        p = dict(zip(BLOCK_PARAMS, params))
         b, s, h = x.shape
         eps = cfg.layer_norm_epsilon
-        hn = block_layer_norm(x, self.ln1_w, self.ln1_b, eps)
-        qkv = hn @ self.qkv_w.reshape(h, 3 * h) + self.qkv_b.reshape(3 * h)
-        q, k, v = qkv.reshape(b, s, 3, cfg.num_heads, cfg.head_dim).unbind(2)
-        attn = attention(q, k, v, cfg).reshape(b, s, h)
-        x = x + (attn @ self.out_w + self.out_b)
-        hn = block_layer_norm(x, self.ln2_w, self.ln2_b, eps)
-        z = F.gelu(hn @ self.fc1_w + self.fc1_b, approximate="tanh")
-        return x + (z @ self.fc2_w + self.fc2_b)
+        with matmul_precision(settings_for(p["qkv_w"].dtype)):
+            hn = block_layer_norm(x, p["ln1_w"], p["ln1_b"], eps)
+            qkv = hn @ p["qkv_w"].reshape(h, 3 * h) + p["qkv_b"].reshape(3 * h)
+            q, k, v = qkv.reshape(b, s, 3, cfg.num_heads,
+                                  cfg.head_dim).unbind(2)
+            attn = attention(q, k, v, cfg).reshape(b, s, h)
+            x = x + (attn @ p["out_w"] + p["out_b"])
+            hn = block_layer_norm(x, p["ln2_w"], p["ln2_b"], eps)
+            z = F.gelu(hn @ p["fc1_w"] + p["fc1_b"], approximate="tanh")
+            return x + (z @ p["fc2_w"] + p["fc2_b"])
 
 
 class GPTModel(nn.Module):
@@ -334,6 +369,7 @@ class GPTModel(nn.Module):
         """Hidden states [b, s, h] after the final LayerNorm."""
         _check_trainable(self.config, self.training)
         x = self.embeddings(input_ids, position_ids)
+        x = dropout(x, self.config.dropout, training=self.training)
         for blk in self.decoder:
             x = blk(x)
         fn = self.final_norm
@@ -357,22 +393,24 @@ class GPTForCausalLM(nn.Module):
         chunked LM head instead (``labels`` is read only then, as in the
         reference)."""
         cfg = self.config
-        with matmul_precision(cfg.dtype):
-            x = self.gpt(input_ids, position_ids)
+        x = self.gpt(input_ids, position_ids)
         w = self.gpt.embeddings.word_embeddings
         if labels is not None and cfg.fused_loss_chunk > 0:
             # the function's own node enters the GEMM settings for the
             # backward (no logits node here)
             return fused_linear_cross_entropy(
-                x.reshape(-1, cfg.hidden_size), w, labels.reshape(-1),
-                vocab_chunk=cfg.fused_loss_chunk, transposed_weight=True)
-        with matmul_precision(cfg.dtype):
+                T.reshape(x, [-1, cfg.hidden_size]), w,
+                T.reshape(labels, [-1]), vocab_chunk=cfg.fused_loss_chunk,
+                transposed_weight=True)
+        x, w = cast("gpt_logits", x, w)
+        prec = settings_for(w.dtype)
+        with matmul_precision(prec):
             # jnp's promotion of ``h @ wv.T``: fp32 final-norm output times
             # the bf16 table is an fp32 GEMM; the gradient reaches the
             # table through the cast
             dt = torch.promote_types(x.dtype, w.dtype)
             logits = x.to(dt) @ w.to(dt).T
-        return backward_precision(cfg.dtype, logits)
+        return backward_precision(prec, logits)
 
 
 class GPTPretrainingCriterion(nn.Module):
@@ -380,11 +418,14 @@ class GPTPretrainingCriterion(nn.Module):
     over the positions (or over ``loss_mask``'s weight, at least 1)."""
 
     def forward(self, prediction_scores, masked_lm_labels, loss_mask=None):
-        lg = prediction_scores.to(torch.float32)
+        lg, labels, *mask = cast(
+            "gpt_loss", prediction_scores, masked_lm_labels,
+            *(() if loss_mask is None else (loss_mask,)))
+        lg = lg.to(torch.float32)
         lse = torch.logsumexp(lg, dim=-1)
-        picked = lg.gather(-1, masked_lm_labels.long()[..., None])[..., 0]
+        picked = lg.gather(-1, labels.long()[..., None])[..., 0]
         nll = lse - picked
-        if loss_mask is not None:
-            m = loss_mask.to(torch.float32)
+        if mask:
+            m = mask[0].to(torch.float32)
             return (nll * m).sum() / m.sum().clamp_min(1.0)
         return nll.mean()

@@ -18,7 +18,8 @@ kernel to the plain version. Each wrapper counts its kernel launches in
 ``quantize_int8``, ``(m, k, n)`` for ``quant_matmul``), incremented only
 where the kernel is launched; the bf16 form of ``quant_matmul`` in
 ``quant_matmul.launches_bf16`` and ``.shapes_bf16`` (the key
-``quant_matmul_bf16`` in both tables).
+``quant_matmul_bf16`` in both tables), and by route in
+``quant_matmul.routes_bf16`` (``route_counts()``).
 
 Numerics of ``quantize_int8`` are the reference's as XLA compiles it on
 the CPU: ``scale = max(amax * float32(1/127), 1e-12)`` (the constant
@@ -37,18 +38,26 @@ split TF32 (``x = x_big + x_small``, both TF32; int8 is exact in TF32, so
 two products ``x_big @ q + x_small @ q``), within the fp32 bound that
 ``tests/torch_checks.py`` ``qmm_limit`` holds it to;
 ``quant_matmul_split_tf32`` is the plain model of that arithmetic. The
-kernel takes any ``m, n, k >= 1`` with fixed 128 x 128 x 32 tiles (32 or
-64 rows at m <= 64, where k is split over slices added in a fixed order):
-``block_m``, ``block_n`` and ``block_k`` stand in the reference's
-signature and raise when given (the reference's tile choice and autotune
-cache, ``ops/pallas/autotune.py``, are ROADMAP Queue A, "the rest":
-kernel tuner).
+kernels take any ``m, n, k >= 1`` with fixed tiles (fp32 and the bf16
+``mma.sync`` route: 128 x 128 x 32, 32 or 64 rows at m <= 64, where k is
+split over slices added in a fixed order; the bf16 wgmma route: 192 rows
+by 128 columns, k-steps of 64): ``block_m``, ``block_n`` and ``block_k``
+stand in the reference's signature and raise when given (the
+reference's tile choice and autotune cache, ``ops/pallas/autotune.py``,
+are ROADMAP Queue A, "the rest": kernel tuner).
 On the card ``quantize_int8`` takes fp32 weights; ``quant_matmul`` takes
 fp32 ``x`` (the split-TF32 kernel, fp32 out) or bf16 ``x`` (amp's, the
 ``quant_matmul_bf16`` kernel: bf16 tensor cores, which hold int8 exactly
 and form every product exactly, fp32 accumulation, the scaled sum
 rounded to bf16 once), and refuses any other dtype or an ``out_dtype``
 other than ``x``'s; nothing is upcast to reach the fp32 kernel.
+The bf16 form has two routes, picked by shape (``bf16_route``), never by
+failure: ``"wgmma"`` for m > 64 where TMA describes both operands (n % 16
+== 0, k % 8 == 0, x and qw 16-byte aligned): a TMA + ``mbarrier`` +
+``wgmma`` kernel that widens each stage of q once, in registers; and
+``"mma_sync"`` for the rest (m <= 64, where the weight's bytes bound it,
+the NSP head's n = 2, ragged pitches, an x off the 16-byte grid): the
+``mma.sync`` kernel with its k slices. A route that fails raises.
 ``quantize_int8`` launches as thread-block clusters (8 blocks along k per
 32-column tile, their column maxima exchanged through distributed shared
 memory), so w is read from device memory once.
@@ -70,8 +79,8 @@ from .tf32 import split_tf32
 __all__ = ["KERNEL_SOURCE", "quantize_int8", "quantize_int8_plain",
            "quant_matmul", "quant_matmul_plain", "quant_matmul_split_tf32",
            "hash_uniform",
-           "stable_seed", "launch_counts", "shape_counts",
-           "reset_launch_counts"]
+           "stable_seed", "bf16_route", "launch_counts", "shape_counts",
+           "route_counts", "reset_launch_counts"]
 
 KERNEL_SOURCE = "paddle_tpu_torch/csrc/quant_matmul.cu"
 _U32 = 0xFFFFFFFF
@@ -150,9 +159,10 @@ def _lib(device_index: int) -> ctypes.CDLL:
     lib.quantize_int8.argtypes = [p, p, p, i, i, i, ctypes.c_uint, p]
     lib.quant_matmul.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.quant_matmul_bf16.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.quant_matmul_bf16_wgmma.argtypes = [p, p, p, p, i, i, i, p]
     lib.quant_matmul_splits.argtypes = [i, i, i]
     for fn in (lib.quantize_int8, lib.quant_matmul, lib.quant_matmul_bf16,
-               lib.quant_matmul_splits):
+               lib.quant_matmul_bf16_wgmma, lib.quant_matmul_splits):
         fn.restype = ctypes.c_int
     return lib
 
@@ -206,6 +216,17 @@ def quantize_int8(w: torch.Tensor, stochastic: bool = False, seed: int = 0
     return q, scales
 
 
+def bf16_route(x: torch.Tensor, qw: torch.Tensor) -> str:
+    """The kernel that takes bf16 ``x [m, k] @ qw [k, n]`` on the card:
+    "wgmma" for m > 64 where TMA describes both operands (row pitches and
+    bases on the 16-byte grid), else "mma_sync"."""
+    (m, k), n = x.shape, qw.shape[1]
+    if (m > 64 and n % 16 == 0 and k % 8 == 0 and x.data_ptr() % 16 == 0
+            and qw.data_ptr() % 16 == 0):
+        return "wgmma"
+    return "mma_sync"
+
+
 def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
                  block_m=None, block_n=None, block_k=None,
                  out_dtype=None) -> torch.Tensor:
@@ -213,10 +234,11 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
     ``out_dtype`` (default ``x.dtype``). The tiles are fixed: a block
     argument raises."""
     if (block_m, block_n, block_k) != (None, None, None):
-        raise ValueError("quant_matmul's tiles are fixed (128 x 128 x 32; "
-                         "32 or 64 rows at m <= 64); "
-                         "block_m/block_n/block_k are not ported (ROADMAP "
-                         "Queue A, 'the rest': kernel tuner)")
+        raise ValueError("quant_matmul's tiles are fixed (128 x 128 x 32, "
+                         "32 or 64 rows at m <= 64; bf16 x at m > 64: 192 "
+                         "x 128 x 64); block_m/block_n/block_k are not "
+                         "ported (ROADMAP Queue A, 'the rest': kernel "
+                         "tuner)")
     if x.dim() != 2 or qw.dim() != 2 or x.shape[1] != qw.shape[0]:
         raise ValueError(f"quant_matmul takes x [m, k] and qw [k, n], got "
                          f"{tuple(x.shape)} and {tuple(qw.shape)}")
@@ -244,20 +266,30 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"quant_matmul needs m, n, k >= 1, got {(m, n, k)}")
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     lib = _lib(dev.index)
-    splits = lib.quant_matmul_splits(m, n, k)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-          if splits > 1 else None)
-    with torch.cuda.device(dev):
-        rc = getattr(lib, "quant_matmul" + sfx)(
-            x.data_ptr(), qw.data_ptr(), scales.data_ptr(), out.data_ptr(),
-            ws.data_ptr() if ws is not None else None, m, n, k,
-            _stream(dev))
+    route = bf16_route(x, qw) if sfx else None
+    if route == "wgmma":
+        with torch.cuda.device(dev):
+            rc = lib.quant_matmul_bf16_wgmma(
+                x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), m, n, k, _stream(dev))
+    else:
+        splits = lib.quant_matmul_splits(m, n, k)
+        ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+              if splits > 1 else None)
+        with torch.cuda.device(dev):
+            rc = getattr(lib, "quant_matmul" + sfx)(
+                x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
+                out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                m, n, k, _stream(dev))
     if rc:
-        raise RuntimeError(f"quant_matmul{sfx} launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"quant_matmul{sfx} launch failed"
+                           f"{f' ({route} route)' if route else ''}: CUDA "
+                           f"error {rc}")
     setattr(quant_matmul, "launches" + sfx,
             getattr(quant_matmul, "launches" + sfx) + 1)
     getattr(quant_matmul, "shapes" + sfx)[(m, k, n)] += 1
+    if route:
+        quant_matmul.routes_bf16[route] += 1
     return out
 
 
@@ -278,10 +310,17 @@ def shape_counts() -> dict:
             for name, (f, sfx) in _COUNTERS.items()}
 
 
+def route_counts() -> collections.Counter:
+    """Launches of the bf16 form by route ("wgmma", "mma_sync") since the
+    last reset."""
+    return collections.Counter(quant_matmul.routes_bf16)
+
+
 def reset_launch_counts() -> None:
     for f, sfx in _COUNTERS.values():
         setattr(f, "launches" + sfx, 0)
         setattr(f, "shapes" + sfx, collections.Counter())
+    quant_matmul.routes_bf16 = collections.Counter()
 
 
 reset_launch_counts()

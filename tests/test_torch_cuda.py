@@ -71,9 +71,11 @@ relative; each dlogit element within 1e-6 of its magnitude, and of
 ``|g|`` at the label's column; rows with ``g = 0`` exactly 0) at the
 bench step's two chunk shapes ([8192, 8192], [8192, 1152]) with and
 without bias, with ignored rows and a label in the chunk's last column,
-and at shapes off the vector path or over one segment; their wrappers'
-refusals; ``fused_linear_cross_entropy`` on the card against the CPU
-(loss 1e-5 relative, gradients 1e-5 of their largest); one bf16
+and at shapes off the vector path or over one segment; the backward at
+widths that are not a multiple of 4 (BERT's 5946, c % 4 = 1, 2, 3) on a
+logit 0, 4, 8 and 12 bytes off the 16-byte grid, with and without a
+bias; their wrappers' refusals; ``fused_linear_cross_entropy`` on the
+card against the CPU (loss 1e-5 relative, gradients 1e-5 of their largest); one bf16
 gpt-test step in ``bench.py``'s fused form with ``recompute`` against
 the CPU's (``BF16_LOSS_RTOL``, ``bf16_step_parity``), its launches
 counted, its gradients bit-identical to the same step without
@@ -81,9 +83,12 @@ recompute.
 BERT under amp: ``quant_matmul`` on bf16 ``x`` (the
 ``quant_matmul_bf16`` kernel) within ``qmm_bf16_limit`` (the fp32 limit
 above plus one bf16 ulp of the plain element) at every row-tile size,
-ragged n and k and BERT-base's shapes, each launch counted under the
-bf16 form; the same check fails the kernel built with a fault planted
-(16 of the k products dropped, ``-s`` prints both readings); fp16
+ragged n and k and BERT-base's shapes, on both routes (wgmma at m > 64
+where TMA takes both operands: m, n and k off its tiles, k % 64 != 0;
+mma.sync for m <= 64, k % 8 != 0, n = 2 and an x 2 or 8 bytes off the
+16-byte grid), each launch counted under the bf16 form and its route;
+the same check fails the wgmma kernel built with a fault planted (16
+of the k products dropped, ``-s`` prints both readings); fp16
 refused by the flash kernels and ``quant_matmul``, naming "other
 dtypes"; an int8 bert-test forward under O2 (9 bf16 and 6 fp32
 launches, as the reference's, its logits within 1e-2 mean relative
@@ -880,21 +885,29 @@ def check_quant_wrappers_raise(dev):
         qm.quant_matmul(x.bfloat16(), q, s, out_dtype=torch.float32)
 
 
-def check_quant_matmul_bf16_within_bound(dev, m, k, n):
+def check_quant_matmul_bf16_within_bound(dev, m, k, n, offset=0):
     """The bf16 form: bf16 out within ``qmm_bf16_limit`` of its plain
-    version, one launch counted under the bf16 form and its shape."""
+    version, one launch counted under the bf16 form, its shape and its
+    route ("wgmma" for m > 64 where TMA takes both operands, else
+    "mma_sync"); ``x`` starts ``offset`` bf16 past a 16-byte boundary."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(m * k + n + 1)
-    x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+    buf = torch.randn(m * k + offset, device=dev, generator=gen).bfloat16()
+    x = buf[offset:].view(m, k)
     q, s = qm.quantize_int8_plain(torch.randn(k, n, device=dev,
                                               generator=gen))
+    route = ("wgmma" if m > 64 and n % 16 == 0 and k % 8 == 0
+             and offset % 8 == 0 else "mma_sync")
+    assert qm.bf16_route(x, q) == route
     before, shapes = qm.launch_counts(), qm.shape_counts()
+    routes = qm.route_counts()
     qmm_bf16_vs_plain(x, q, s)
     after = qm.launch_counts()
     assert {k_: after[k_] - before[k_] for k_ in after} == {
         "quantize_int8": 0, "quant_matmul": 0, "quant_matmul_bf16": 1}
     assert (qm.shape_counts()["quant_matmul_bf16"][(m, k, n)]
             == shapes["quant_matmul_bf16"][(m, k, n)] + 1)
+    assert qm.route_counts() - routes == {route: 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -915,9 +928,9 @@ def _faulty_qmm_library():
 
 def check_qmm_bf16_check_sees_a_planted_fault(dev, m, k, n):
     """``qmm_bf16_vs_plain`` passes the bf16 kernel and fails the same
-    kernel with 16 of the k products dropped (``plant_qmm_fault``), at a
-    shape of phase 27 and at one whose k is split over slices. Prints
-    both readings (largest diff / limit)."""
+    kernel with 16 of the k products dropped (``plant_qmm_fault``, in the
+    wgmma route's k loop), at phase 27's two shapes. Prints both
+    readings (largest diff / limit)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(m + k + n)
     x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
@@ -1073,6 +1086,20 @@ def check_fused_ce_kernels_match_plain(dev, n, c, start, vocab, bias,
     ce_bwd_vs_plain(logit, b, lse, labels, g, start)
     assert {k: v - before[k] for k, v in fce.launch_counts().items()} == {
         "ce_chunk_fwd": 1, "ce_chunk_bwd": 1}
+
+
+def check_ce_bwd_on_its_own_alignment(dev, c, bias, offset):
+    """``ce_chunk_bwd`` at a width that is not a multiple of 4 (rows
+    start at every alignment) on a logit ``offset`` floats past a
+    16-byte boundary: within ``ce_bwd_vs_plain``'s limit, with and
+    without a bias (BERT's 5946 columns among the widths)."""
+    gen = torch.Generator(device=dev).manual_seed(c + offset)
+    start = 24576
+    logit, b, labels, _, lse, g = ce_inputs(64, c, start, start + c, gen,
+                                            dev, bias, 3)
+    before = fce.launch_counts()["ce_chunk_bwd"]
+    ce_bwd_vs_plain(logit, b, lse, labels, g, start, offset)
+    assert fce.launch_counts()["ce_chunk_bwd"] == before + 1
 
 
 def check_fused_ce_wrappers_raise(dev):
@@ -1251,9 +1278,19 @@ def test_cuda_path_matches_plain(dev):
                            (100, 64, 30),     # n % 8 != 0
                            (100, 37, 64),     # k % 8 != 0
                            (100, 100, 64),    # k not a multiple of 32
-                           (8192, 768, 768), (8192, 3072, 768))]
+                           (8192, 768, 768), (8192, 3072, 768),
+                           # the wgmma route: m, n and k off its tiles
+                           # (m 192, n 128, k 64), k % 64 != 0
+                           (65, 8, 16), (200, 136, 48), (1000, 776, 208),
+                           (8193, 200, 784), (300, 3072, 80),
+                           (8192, 768, 3072),
+                           # k % 8 != 0 and n = 2 at m > 64: mma.sync
+                           (300, 100, 64), (8192, 768, 2))]
+        + [(check_quant_matmul_bf16_within_bound, (dev, m, k, n, off))
+           for m, k, n in ((300, 768, 768), (8192, 768, 768))
+           for off in (1, 4)]      # x 2 and 8 bytes off the 16-byte grid
         + [(check_qmm_bf16_check_sees_a_planted_fault, (dev, m, k, n))
-           for m, k, n in ((8192, 768, 768), (16, 768, 768))]
+           for m, k, n in ((8192, 768, 768), (8192, 3072, 768))]
         + [(check_quant_wrappers_raise, (dev,)),
            (check_bert_int8_on_card_matches_cpu, (dev,)),
            (check_bert_int8_amp_on_card, (dev,)),
@@ -1298,6 +1335,9 @@ def test_cuda_path_matches_plain(dev):
                (100, 1001, 3, 1004, True, 5),
                (64, 20000, 0, 20000, False, 3),
                (1, 1, 0, 1, True, 0))]
+        + [(check_ce_bwd_on_its_own_alignment, (dev, c, b, off))
+           for c in (5946, 1001, 1002, 1003, 3, 7) for b in (True, False)
+           for off in (0, 1, 2, 3)]
         + [(check_fused_ce_wrappers_raise, (dev,)),
            (check_fused_loss_on_card_matches_cpu, (dev, True)),
            (check_fused_loss_on_card_matches_cpu, (dev, False)),

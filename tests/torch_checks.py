@@ -59,8 +59,8 @@ the two hold the kernels to one set of criteria:
 - ``quant_matmul`` on bf16 ``x`` (:func:`qmm_bf16_vs_plain`): every
   element within the fp32 bound below plus one bf16 ulp of the plain
   element (both round an fp32 sum to bf16 once); a fault planted in the
-  kernel (:func:`plant_qmm_fault`, 16 of the k products dropped) is
-  over it;
+  wgmma kernel, the route of m > 64 (:func:`plant_qmm_fault`, 16 of the
+  k products dropped), is over it;
 - ``quant_matmul``: every element within the forward-error bound of two
   fp32 dot products of length k, ``2 k 2^-24 (|x| @ |q| s)`` (each side
   sums k products in its own order; the bound is computed in float64);
@@ -279,12 +279,16 @@ def ce_fwd_vs_plain(logit, bias, labels, start, vocab, state) -> dict:
     return out
 
 
-def ce_bwd_vs_plain(logit, bias, lse, labels, g, start) -> dict:
-    """``ce_chunk_bwd`` against its plain version on copies of ``logit``.
+def ce_bwd_vs_plain(logit, bias, lse, labels, g, start, offset=0) -> dict:
+    """``ce_chunk_bwd`` against its plain version on copies of ``logit``,
+    the kernel's starting ``offset`` floats past a 16-byte boundary.
     Returns the max abs difference and the largest diff / limit; raises
     when an element is over ``CE_RTOL (|plain| + |g| onehot)`` or a row
     with ``g = 0`` is not 0."""
-    got, want = logit.clone(), logit.clone()
+    buf = torch.empty(logit.numel() + offset, dtype=logit.dtype,
+                      device=logit.device)
+    got = buf[offset:].view_as(logit).copy_(logit)
+    want = logit.clone()
     fce.ce_chunk_bwd(got, bias, lse, labels, g, start)
     fce.ce_chunk_bwd_plain(want, bias, lse, labels, g, start)
     col = torch.arange(logit.shape[1], device=logit.device) + start
@@ -329,10 +333,11 @@ def qmm_limit(x, qw, scales) -> torch.Tensor:
 
 
 # the bf16 section of ``csrc/quant_matmul.cu`` and the fault that
-# :func:`plant_qmm_fault` plants there: the first k-step skips its first
-# k16 product (16 of the k terms of every output, in every k slice)
+# :func:`plant_qmm_fault` plants there, in the k loop of the wgmma kernel
+# (the route of m > 64): the first k-step skips its first k16 product
+# (16 of the k terms of every output)
 QMM_BF16_SECTION = "// ------------------------------------------------------- bf16 activations"
-QMM_BF16_FAULT = ("for (int s = 0; s < kBK / 16; ++s) {", "it == 0")
+QMM_BF16_FAULT = ("for (int ks = 0; ks < kK16; ++ks) {", "kt == 0")
 
 
 def plant_qmm_fault(src: str) -> str:
