@@ -341,6 +341,48 @@ when every phase passed):
               card's launches (each bf16 flash kernel once a layer, no
               fp32 one, one fused_update), the loss within
               BF16_LOSS_RTOL, the gradients' difference logged.
+ 29. resnet50 train O2
+              bench.py's resnet50 mode (measure_resnet50,
+              bench.py:643-695, BASELINE.md config 2), not cut:
+              resnet50(num_classes=1000) from seed 0, batch 256 of 3 x
+              224 x 224 and labels from RandomState(seed), Momentum(0.01,
+              0.9), TrainStep with F.cross_entropy under
+              auto_cast(level="O2", dtype="bfloat16"), NCHW, cuDNN's
+              benchmark mode as PyTorch leaves it (logged): 3 warm-up and
+              8 timed steps, launch counts reset just before them and
+              read just after (one fused_update a step, its table's rule
+              momentum over the plan's fp32 buckets, no other kernel of
+              the port), step ms, samples/s, peak memory, losses finite,
+              MFU by bench.py's formula (3 x 4.09 GFLOP x (img/224)^2 a
+              sample) against 989 TFLOP/s bf16 dense; a profiled step's
+              device time by kind (cuDNN convolutions, their backward,
+              amp's casts, the max pool, the update kernel, the batch
+              norms' and the other elementwise work); then the update
+              over ResNet-50's plan bit for bit against its plain walk
+              and timed as step() calls it, alone, as the plain walk and
+              as torch._fused_sgd_ (momentum 0.9, no dampening: the same
+              function), beside its bound (20 bytes an element);
+ 30. resnet50 parity
+              resnet50(num_classes=10) at 4 x 64 x 64, the card's
+              weights carried from the CPU model by
+              resnet_state_dict_from_numpy: two fp32 convolutions (the
+              stem's, a 3 x 3 of layer1) on the card and the CPU within
+              1e-5 of their fp64 value's largest, and the card's with
+              cuDNN's TF32 on at least 1e-4 off (TF32 shows if it is
+              on); every stage (stem, 16 blocks, head) in fp32 and under
+              O2, fed the CPU's previous output and one cotangent on both
+              devices (tests/torch_checks.py stage_run, stage_errors):
+              output, input gradient, parameter gradients and running
+              buffers within RESNET_STAGE_TOL; one TrainStep in fp32 and
+              one under O2 on each device: the loss within 1e-4 in fp32,
+              under O2 within twice the CPU's own move when its input
+              moves by half a bf16 ulp (three draws), one fused_update
+              launch, every weight on
+              the card moved by exactly fp32 lr times its gradient
+              (Momentum's first step). The whole step's gradients are
+              not compared: a ReLU network under batch-4 batch norms
+              moves them by more than their size at half a bf16 ulp of
+              input noise.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -3116,9 +3158,463 @@ def phase_dp_parity_bf16(cfg, seed, layers=2, b=2, s=128):
     return {"loss_rel": max(rel), "elements": card["elements"]}
 
 
+# ------------------------------------------------------------- ResNet-50
+# bench.py's resnet50 mode (measure_resnet50, bench.py:643-695) on an
+# accelerator: batch 256 of 3 x 224 x 224, Momentum(0.01, 0.9), O2 bf16
+RESNET_B, RESNET_IMG = 256, 224
+RESNET_WARMUP, RESNET_STEPS = 3, 8
+RESNET_LR, RESNET_MOM = 0.01, 0.9
+RESNET_FWD_FLOPS = 4.09e9           # bench.py's forward FLOPs a 224^2 sample
+# phase 30: card against CPU at resnet50(num_classes=10), 4 x 64 x 64
+RESNET_CHECK_B, RESNET_CHECK_IMG, RESNET_CHECK_CLASSES = 4, 64, 10
+# a stage's output (largest difference over the largest value), input
+# and parameter gradients (torch_checks.norm_rel) and buffers (absolute),
+# card against CPU. fp32 as the reference's CPU test holds the port
+# (tests/test_torch_resnet.py STAGE_TOL): read there 1.2e-6, 3.6e-3 in
+# the one stage a ReLU flip moved (1e-6 in the others), 3.9e-7; on an
+# NVIDIA H100 80GB HBM3 at 700 W 1.9e-6, 3.4e-3 (one stage), 1.3e-6.
+# Under O2 the card's bf16 convolutions round apart from the CPU's more
+# than the reference's do (5.4e-3, 4.3e-2 against 5.6e-3, 1.9e-2, on the
+# same card): the gradients are held within a tenth of their norm, under
+# what a batch norm that differentiated through its statistics would
+# read (0.13-0.92 a stage, on the CPU)
+RESNET_STAGE_TOL = {None: {"out": 1e-5, "dx": 3e-2, "grads": 3e-2,
+                           "buffers": 1e-5},
+                    "O2": {"out": 2.0 ** -7, "dx": 0.1, "grads": 0.1,
+                           "buffers": 5e-3}}
+RESNET_FP32_GRAD_CLEAN = 1e-4       # all fp32 stages but at most two
+# one fp32 step's loss, card against CPU (the port's CPU loss moves by
+# 6.4e-6 when every input moves one ulp; read 1.5e-5 on an NVIDIA H100
+# 80GB HBM3 at 700 W). Under O2 the limit is measured in the phase:
+# twice the largest move of the CPU's own loss when its input moves by
+# half a bf16 ulp (RESNET_NOISE_DRAWS draws of random sign; ~4% here)
+RESNET_FP32_LOSS_RTOL = 1e-4
+RESNET_NOISE_DRAWS = 3
+# an fp32 convolution against its fp64 value, of its largest: within
+# fp32 rounding on the card, and a TF32 one far from it
+CONV_FP32_RTOL, CONV_TF32_MIN = 1e-5, 1e-4
+
+
+def _resnet_setup(device, b, img, seed, num_classes=1000, weights=None):
+    """``measure_resnet50``'s step: resnet50 from seed 0 (or ``weights``,
+    a ``resnet_state_dict_from_numpy`` dict), Momentum(0.01, 0.9), a
+    TrainStep with ``F.cross_entropy``, and a batch from
+    ``RandomState(seed)``: ``randn`` images, labels ``randint(0,
+    num_classes)``, on ``device``."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(num_classes=num_classes, seed=0, device=device)
+    if weights is not None:
+        model.load_state_dict(weights)
+    step = TrainStep(model, lambda logits, y: F.cross_entropy(logits, y),
+                     Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOM,
+                              parameters=model.parameters()))
+    rs = np.random.RandomState(seed)
+    x = rs.randn(b, 3, img, img).astype(np.float32)
+    y = rs.randint(0, num_classes, (b,))
+    batch = (torch.as_tensor(x, device=device),
+             torch.as_tensor(y, dtype=torch.long, device=device))
+    return model, step, batch
+
+
+def resnet_step(step, batch, level="O2"):
+    """One step as ``measure_resnet50``'s ``one_step`` calls it on an
+    accelerator: under ``auto_cast(level="O2", dtype="bfloat16")``."""
+    from paddle_tpu_torch.amp import auto_cast
+
+    x, y = batch
+    with auto_cast(enable=level is not None, level=level or "O1",
+                   dtype="bfloat16"):
+        return step(inputs=(x,), labels=(y,))
+
+
+# the device time of one step by PyTorch op: (kind, op-name words)
+# (the backward first: "aten::convolution" is a prefix of its name)
+RESNET_KINDS = (
+    ("conv backward (cuDNN)", ("convolution_backward",)),
+    ("conv forward (cuDNN)", ("cudnn_convolution", "aten::convolution",
+                              "aten::_convolution", "aten::conv2d")),
+    ("amp casts and copies", ("aten::_to_copy", "aten::copy_")),
+    ("max pool", ("max_pool2d",)),
+    ("fused_update", ()),
+)
+
+
+def resnet_profile(one):
+    """torch.profiler over one step (``one()``): busy and idle share, the
+    kernels, and the device time by kind, each op's own launches: the
+    cuDNN convolutions, their backward, amp's casts (and the few other
+    copies), the max pool, the port's update kernel, and the rest: the
+    batch norms' and ReLUs' elementwise and reduction passes, the
+    residual adds, the average pool, the classifier and the loss."""
+    from torch.profiler import ProfilerActivity, profile
+
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    update = sum(e.self_device_time_total for e in kernels
+                 if "update_kernel" in e.key)
+    rest = "batch norm, ReLU and the other elementwise work"
+    kinds = dict.fromkeys([k for k, _ in RESNET_KINDS] + [rest], 0.0)
+    kinds["fused_update"] = update
+    for e in avgs:
+        if (e.device_type != torch.autograd.DeviceType.CPU
+                or not e.self_device_time_total):
+            continue
+        kind = next((k for k, words in RESNET_KINDS
+                     if any(w in e.key for w in words)), rest)
+        kinds[kind] += e.self_device_time_total
+    # the update kernel is launched from the wrapper, under no aten op
+    kinds[rest] = busy - sum(v for k, v in kinds.items() if k != rest)
+    log(f"resnet50 profile: one step, wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% busy, "
+        f"{100 * (1 - busy / wall_us):.1f}% idle), "
+        f"{sum(e.count for e in kernels)} kernels per step")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{100 * e.self_device_time_total / busy:5.1f}% "
+            f"{e.count:5d}x  {e.key[:90]}")
+    log("  by kind: " + ", ".join(f"{k} {t / 1e3:.3f} ms "
+                                  f"({100 * t / busy:.1f}%)"
+                                  for k, t in kinds.items()))
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "by_kind_ms": {k: t / 1e3 for k, t in kinds.items()}}
+
+
+def phase_resnet_train(dev, seed, warmup=RESNET_WARMUP, steps=RESNET_STEPS,
+                       b=RESNET_B, img=RESNET_IMG):
+    """Phase 29: ``measure_resnet50``'s step, not cut: ``warmup`` then
+    ``steps`` timed steps, launch counts reset just before them and read
+    just after (one fused_update a step, rule momentum, over the fp32
+    buckets; no other kernel of the port), peak memory, MFU by
+    ``bench.py``'s formula, then a profiled step. Returns the counts, the
+    step and its batch, and the summary."""
+    model, step, batch = _resnet_setup(dev, b, img, seed)
+    n_params = sum(bk.size for bk in step.buckets)
+    log(f"resnet50 train: {n_params} parameters in {len(step.buckets)} "
+        f"buckets, O2 bfloat16, batch {b} x 3 x {img} x {img}, Momentum lr "
+        f"{RESNET_LR} momentum {RESNET_MOM}, NCHW, "
+        f"torch.backends.cudnn.benchmark={torch.backends.cudnn.benchmark}")
+    losses = [float(resnet_step(step, batch)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launch_counts()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(resnet_step(step, batch)))   # waits for it
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = train_launch_counts()
+    med = statistics.median(step_ms)
+    table = step.updater._table
+    flops = 3 * RESNET_FWD_FLOPS * (img * img) / (224 * 224)
+    summary = {"losses": losses, "step_ms": step_ms, "step_ms_median": med,
+               "samples_per_s": b / (med / 1e3),
+               "mfu_bf16_dense": b / (med / 1e3) * flops / BF16_OPS_PER_S,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "parameters": n_params, "buckets": len(step.buckets),
+               "rule": table.kind,
+               "bucket_dtypes": sorted({str(e[0].dtype)
+                                        for e in table.entries}),
+               "launches": counts}
+    log("resnet50 train O2 " + json.dumps(summary))
+    log(f"resnet50 train O2: MFU {summary['mfu_bf16_dense']:.4f} (bench.py: "
+        f"3 x 4.09 GFLOP x (img/224)^2 a sample against "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 dense), "
+        f"{summary['samples_per_s']:.1f} samples/s, step {med:.2f} ms, "
+        f"peak {summary['peak_memory_gib']:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite ResNet-50 loss: {losses}")
+    want = {k: 0 for k in counts}
+    want["fused_update"] = steps
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    if table.kind != "momentum" or summary["bucket_dtypes"] != [
+            "torch.float32"] or len(table.entries) != len(step.buckets):
+        raise AssertionError(f"the update's table: rule {table.kind}, "
+                             f"{len(table.entries)} buckets of "
+                             f"{summary['bucket_dtypes']}")
+    summary["profile"] = resnet_profile(lambda: resnet_step(step, batch))
+    return counts, step, batch, summary
+
+
+def _momentum_timing(dev, gen, buckets, flush):
+    """ResNet-50's update (every bucket of its plan, Momentum(0.01, 0.9),
+    weights, gradients and velocities at unit, 1e-3 and 1e-3 scales): the
+    one launch held bit for bit against its plain walk over 3 steps;
+    then, in one call, the update as FusedFlatUpdater.step() calls it,
+    the kernel alone, the plain walk and ``torch._fused_sgd_`` (momentum
+    0.9, no dampening: Paddle's ``v = mu v + g; p -= lr v``) over the same
+    buckets, timed; the bound: p, g and v read, p and v written, 20 bytes
+    an element."""
+    from torch_checks import buckets_vs_plain
+
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.distributed import grad_comm
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    sizes = [b.size for b in buckets]
+    params = [torch.nn.Parameter(torch.randn(n, device=dev, generator=gen))
+              for n in sizes]
+    plan = []
+    for i, n in enumerate(sizes):
+        bk = grad_comm.GradBucket(i, torch.float32)
+        bk.add(i, (n,))
+        plan.append(bk)
+    opt = optim.Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOM,
+                         parameters=params)
+    upd = optim.FusedFlatUpdater(opt, params, buckets=plan)
+    upd.zero_grad()
+    for p in params:
+        p.grad.copy_(torch.randn(p.shape, device=dev, generator=gen) * 1e-3)
+    upd.step()
+    hyper = {"momentum": RESNET_MOM, "nesterov": False}
+    lr = torch.full((), RESNET_LR, device=dev)
+    ps = [upd._flat_p[i] for i in range(len(sizes))]
+    gs = [upd._flat_g[i] for i in range(len(sizes))]
+    vs = [upd._slots[i]["velocity"] for i in range(len(sizes))]
+    entries = [(p.clone(), g.clone(), [v.clone()], 0.0, 1.0)
+               for p, g, v in zip(ps, gs, vs)]
+    launches = buckets_vs_plain("momentum", hyper, entries, lr, steps=3,
+                                gen=gen)
+    del entries
+    if launches != 3:
+        raise AssertionError(f"fused_update_buckets: {launches} launches "
+                             f"for 3 momentum steps")
+    log(f"fused_update, momentum over ResNet-50's {len(sizes)} fp32 buckets "
+        f"({min(sizes)}..{max(sizes)} elements): bit-identical to its "
+        f"plain walk over 3 steps, in {launches} launches")
+    table = upd._table
+    if table.kind != "momentum":
+        raise AssertionError(f"the updater's rule is {table.kind}")
+
+    def kernel():
+        fu.fused_update_buckets(table, lr)
+
+    def plain():
+        fu.buckets_plain(table, lr)
+
+    bufs = [v.clone() for v in vs]
+
+    def library():
+        torch._fused_sgd_(ps, gs, bufs, weight_decay=0.0,
+                          momentum=RESNET_MOM, lr=RESNET_LR, dampening=0.0,
+                          nesterov=False, maximize=False,
+                          is_first_step=False)
+
+    n = sum(sizes)
+    # read p, g, v; write p, v (fp32); 3 operations an element
+    bound_ms, bound_by = work_bound(20 * n, 3 * n)
+    return {"shape": f"{len(sizes)} buckets, {n} elements (one step, "
+                     f"float32, momentum)",
+            "library_form": "torch._fused_sgd_, momentum 0.9, dampening "
+                            "0, fp32 momentum buffers",
+            "max_abs_err": 0.0, "step_ms": median_ms(upd.step, flush),
+            "ms": median_ms(kernel, flush),
+            "library_ms": median_ms(library, flush),
+            "step_span_ms": span_ms(upd.step, flush),
+            "span_ms": span_ms(kernel, flush),
+            "library_span_ms": span_ms(library, flush),
+            "plain_ms": median_ms(plain, flush), "bound_ms": bound_ms,
+            "bound_by": bound_by, "largest_bucket": max(sizes),
+            "smallest_bucket": min(sizes)}
+
+
+def phase_resnet_update(dev, gen, buckets):
+    """Row 6 at ResNet-50's plan (phase 29's buckets), timed three ways
+    beside ``torch._fused_sgd_`` and the bound."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    row = _momentum_timing(dev, gen, buckets, flush)
+    log(f"fused_update, ResNet-50's {row['shape']}, one launch, device "
+        f"time (from an idle card): as FusedFlatUpdater.step() calls it "
+        f"{row['step_ms']:.4f} ms ({row['step_span_ms']:.4f}), the kernel "
+        f"alone {row['ms']:.4f} ({row['span_ms']:.4f}), torch._fused_sgd_ "
+        f"{row['library_ms']:.4f} ({row['library_span_ms']:.4f}); plain "
+        f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} "
+        f"{row['bound_by']}, the kernel at "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
+    del flush
+    return row
+
+
+def _conv_precision(dev, gen):
+    """The stem's convolution and a 3 x 3 one of layer1 in fp32 on the
+    card and on the CPU through ``F.conv2d``, and on the card with cuDNN's
+    TF32 on, each against its fp64 value on the CPU: the card's fp32
+    within ``CONV_FP32_RTOL`` of the largest, as the CPU's, and the TF32
+    one at least ``CONV_TF32_MIN`` off, so TF32 shows if it is on."""
+    from paddle_tpu_torch.nn import functional as F
+
+    out = {}
+    for name, xs, ws, kw in (
+            ("stem 7x7/2", (4, 3, 64, 64), (64, 3, 7, 7),
+             dict(stride=2, padding=3)),
+            ("layer1 3x3", (4, 64, 16, 16), (64, 64, 3, 3),
+             dict(padding=1))):
+        x = torch.randn(xs, device=dev, generator=gen)
+        w = torch.randn(ws, device=dev, generator=gen) * 0.1
+        want = torch.nn.functional.conv2d(x.cpu().double(),
+                                          w.cpu().double(), **kw)
+        scale = float(want.abs().max())
+        card = F.conv2d(x, w, **kw).cpu().double()
+        cpu = F.conv2d(x.cpu(), w.cpu(), **kw).double()
+        dnn = torch.backends.cudnn
+        saved = dnn.allow_tf32
+        try:
+            dnn.allow_tf32 = True
+            tf32 = torch.nn.functional.conv2d(x, w, **kw).cpu().double()
+        finally:
+            dnn.allow_tf32 = saved
+        errs = {k: float((v - want).abs().max()) / scale
+                for k, v in (("card", card), ("cpu", cpu), ("tf32", tf32))}
+        log(f"fp32 conv {name} against fp64, of the largest: card "
+            f"{errs['card']:.2e}, CPU {errs['cpu']:.2e}, card with cuDNN "
+            f"TF32 on {errs['tf32']:.2e}")
+        if not (errs["card"] <= CONV_FP32_RTOL and errs["cpu"]
+                <= CONV_FP32_RTOL and errs["tf32"] >= CONV_TF32_MIN):
+            raise AssertionError(f"fp32 conv {name}: {errs}")
+        out[name] = errs
+    return out
+
+
+def _resnet_stage_parity(card_model, cpu_model, level):
+    """Every stage of resnet50 on the card and on the CPU, fed the CPU's
+    previous output and the same cotangent (torch_checks.stage_run)."""
+    from torch_checks import resnet_stages, stage_errors, stage_run
+
+    from paddle_tpu_torch import tensor as T
+
+    x = torch.from_numpy(np.random.RandomState(5).randn(
+        RESNET_CHECK_B, 3, RESNET_CHECK_IMG, RESNET_CHECK_IMG).astype(
+        np.float32))
+    tol = RESNET_STAGE_TOL[level]
+    worst, flipped = dict.fromkeys(tol, 0.0), []
+    for i, (cs, ps) in enumerate(zip(resnet_stages(card_model, T.flatten),
+                                     resnet_stages(cpu_model, T.flatten))):
+        want = stage_run(cpu_model, ps, x, i, level)
+        errs = stage_errors(stage_run(card_model, cs, x, i, level), want)
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+            if not v <= tol[k]:
+                raise AssertionError(f"resnet50 {level or 'fp32'} stage "
+                                     f"{cs[0]} {k}: {v:.2e} (limit "
+                                     f"{tol[k]:.0e})")
+        if max(errs["dx"], errs["grads"]) > RESNET_FP32_GRAD_CLEAN:
+            flipped.append(cs[0])
+        x = want["out"]
+    if level is None and len(flipped) > 2:
+        raise AssertionError(f"fp32 stages with gradients above "
+                             f"{RESNET_FP32_GRAD_CLEAN:.0e}: {flipped}")
+    log(f"resnet50 {level or 'fp32'} card vs CPU, stage by stage (stem, 16 "
+        f"blocks, head): worst output {worst['out']:.2e}, input gradient "
+        f"{worst['dx']:.2e}, parameter gradient {worst['grads']:.2e} "
+        f"(norm), buffers {worst['buffers']:.2e}; stages above "
+        f"{RESNET_FP32_GRAD_CLEAN:.0e}: {flipped}")
+    return worst
+
+
+def _resnet_one_step(device, weights, level, noise=None):
+    """One TrainStep of resnet50(num_classes=10) at 4 x 64 x 64 on
+    ``device`` from ``weights``, the input times ``1 + 2^-9 s`` with a
+    random sign ``s`` from ``RandomState(noise)`` when ``noise`` is given
+    (half a bf16 ulp): the loss and, per parameter, (before, after,
+    gradient) on the CPU."""
+    model, step, (x, y) = _resnet_setup(
+        device, RESNET_CHECK_B, RESNET_CHECK_IMG, 7,
+        num_classes=RESNET_CHECK_CLASSES, weights=weights)
+    if noise is not None:
+        s = np.random.RandomState(noise).choice([-1.0, 1.0], tuple(x.shape))
+        x = x * (1 + 2.0 ** -9 * torch.as_tensor(s, dtype=x.dtype,
+                                                 device=x.device))
+    batch = (x, y)
+    before = {n: p.detach().cpu().clone()
+              for n, p in model.named_parameters()}
+    loss = float(resnet_step(step, batch, level))
+    return loss, {n: (before[n], p.detach().cpu().clone(),
+                      p.grad.detach().cpu().clone())
+                  for n, p in model.named_parameters()}
+
+
+def phase_resnet_parity(dev, gen, seed):
+    """Phase 30: resnet50(num_classes=10) at 4 x 64 x 64 on the card and
+    on the CPU, the card's weights carried from the CPU model with
+    ``resnet_state_dict_from_numpy``. fp32 convolutions within fp32
+    rounding and a TF32 one far from it; every stage, in fp32 and under
+    O2, within ``RESNET_STAGE_TOL``; one TrainStep in fp32 and one under
+    O2: the loss within ``RESNET_FP32_LOSS_RTOL``, or under O2 within
+    twice the CPU's own move under half a bf16 ulp of input noise, and
+    on the card, the update Momentum's first step bit for bit (each
+    weight less fp32 lr times its gradient). A whole step's gradients are
+    not compared: at this size a ReLU network under batch-4 batch norms
+    moves them by more than their size when the input moves by half a
+    bf16 ulp."""
+    from paddle_tpu_torch.models import resnet_state_dict_from_numpy
+    from paddle_tpu_torch.vision.models import resnet50
+
+    convs = _conv_precision(dev, gen)
+    cpu_model = resnet50(num_classes=RESNET_CHECK_CLASSES, seed=seed,
+                         device="cpu")
+    state = {n: t.detach().numpy().copy() for n, t in
+             [*cpu_model.named_parameters(), *cpu_model.named_buffers()]}
+    weights = resnet_state_dict_from_numpy(state, cpu_model)
+    out = {"conv": convs}
+    for level in (None, "O2"):
+        card_model = resnet50(num_classes=RESNET_CHECK_CLASSES, seed=seed + 1,
+                              device=dev)
+        card_model.load_state_dict(weights)
+        cpu_model.load_state_dict(weights)
+        out[f"stages {level}"] = _resnet_stage_parity(card_model, cpu_model,
+                                                      level)
+        del card_model
+        reset_train_launch_counts()
+        card_loss, card = _resnet_one_step(dev, weights, level)
+        counts = train_launch_counts()
+        cpu_loss, _ = _resnet_one_step("cpu", weights, level)
+        rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        limit = RESNET_FP32_LOSS_RTOL
+        if level is not None:
+            moved = max(abs(_resnet_one_step("cpu", weights, level, k)[0]
+                            - cpu_loss) / abs(cpu_loss)
+                        for k in range(RESNET_NOISE_DRAWS))
+            limit = 2 * moved
+            log(f"resnet50 {level} TrainStep on the CPU, input moved by "
+                f"half a bf16 ulp ({RESNET_NOISE_DRAWS} draws): the loss "
+                f"moves by up to {moved:.2e}")
+        lr = torch.tensor(RESNET_LR, dtype=torch.float32)
+        not_momentum = [n for n, (b0, b1, g) in card.items()
+                        if not torch.equal(b1, b0 - lr * g)]
+        log(f"resnet50 {level or 'fp32'} TrainStep card vs CPU (4 x 64 x 64, "
+            f"10 classes): loss {card_loss:.7f} vs {cpu_loss:.7f} (rel "
+            f"{rel:.2e}, limit {limit:.2e}); card "
+            f"launches {counts}; weights off Momentum's first step: "
+            f"{len(not_momentum)}")
+        if not rel <= limit:
+            raise AssertionError(f"resnet50 {level}: card and CPU losses "
+                                 f"differ by {rel:.2e}")
+        if counts["fused_update"] != 1 or not_momentum:
+            raise AssertionError(f"resnet50 {level}: launches {counts}, "
+                                 f"off Momentum's step: {not_momentum[:5]}")
+        out[f"loss {level}"] = {"rel": rel, "limit": limit}
+    return out
+
+
 def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
-                 bf16_rows, bf16_counts, dp16, ce_rows, ce_counts, bert_run):
+                 bf16_rows, bf16_counts, dp16, ce_rows, ce_counts, bert_run,
+                 resnet_run):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -3153,7 +3649,9 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     over BERT-base's fp32 plan, the chunk kernels at 8192 and 5946
     columns; ``quant_matmul_bf16``, the bf16 form of ``_qmm_kernel``, is
     an entry of its own at the O2 int8 forward's most launched shape,
-    its launches phase 27's timed forwards'."""
+    its launches phase 27's timed forwards'. ResNet-50's update (phases
+    29 and its row) is an ``at_shapes`` entry of ``fused_update``: the
+    momentum rule over its fp32 plan, with phase 29's launches."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -3275,6 +3773,9 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     if counts_ce["ce_chunk_fwd"] != loss_chunks(run["cfg_ce"]) * steps:
         raise AssertionError("the fused BERT step's chunk launches are not "
                              "the timed steps'")
+    by_name["fused_update"]["at_shapes"].append(dict(
+        _numbers(resnet_run["row"]),
+        launches_at_shape=resnet_run["counts"]["fused_update"]))
     main, *rest = run["qmm_rows"]
     out.append(dict(name="quant_matmul_bf16", route="cuda",
                     source=qm.KERNEL_SOURCE,
@@ -3540,6 +4041,21 @@ def main(argv=None) -> int:
     bert = phase_bert(dev, gen, args.seed, infer32)
     torch.cuda.empty_cache()
     phase_gpt_o2_parity(dev, args.seed)
+    torch.cuda.empty_cache()
+
+    # bench.py's resnet50 mode (measure_resnet50), then card against CPU
+    t0 = time.perf_counter()
+    counts29, step, _, _ = phase_resnet_train(dev, args.seed)
+    plan_r = step.buckets
+    del step
+    torch.cuda.empty_cache()
+    before = clocks("before resnet update")
+    row_r = phase_resnet_update(dev, gen, plan_r)
+    stamp([row_r], before, clocks("after resnet update"))
+    log_ratios("resnet update", {"fused_update resnet50": row_r})
+    torch.cuda.empty_cache()
+    phase_resnet_parity(dev, gen, args.seed)
+    log(f"phases 29-30 (resnet50): {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
@@ -3548,7 +4064,8 @@ def main(argv=None) -> int:
                                   infer_rows, conversion, infer_counts,
                                   dp_row, carrier_rows, dp_rank, bf16_rows,
                                   bf16_counts, dp16, ce_rows, ce_counts,
-                                  bert)))
+                                  bert, {"counts": counts29,
+                                         "row": row_r})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

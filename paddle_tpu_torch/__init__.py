@@ -25,12 +25,16 @@ cross-entropy loss on two CUDA chunk kernels (``csrc/fused_ce.cu``),
 recompute, learning-rate schedulers and gradient clips; then
 ``bench.py``'s BERT pretraining under ``amp`` (the reference's cast
 points), and int8 BERT on bf16 activations through the bf16 form of the
-quantized matmul (``csrc/quant_matmul.cu``):
+quantized matmul (``csrc/quant_matmul.cu``); then ``bench.py``'s
+ResNet-50 training under O2 (convolutions on cuDNN, the reference's
+BatchNorm, pooling, ``vision.models.resnet``) on the fused Momentum
+update:
 
   amp/         auto_cast (the reference's O1/O2 lists and cast rules),
                the cast points' amp_cast_inputs, decorate, GradScaler
   tensor/      the tensor ops the reference dispatches as ops (add,
-               reshape, clone, getitem, where, ...), each a cast point
+               reshape, flatten, clone, getitem, where, ...), each a
+               cast point
   framework/   device resolution (cuda by default), flags, GEMM
                precision, per-request random streams
   models/      GPTConfig/presets, numpy-seeded GPTForCausalLM parameters
@@ -38,10 +42,15 @@ quantized matmul (``csrc/quant_matmul.cu``):
                BertConfig/presets, BertForPretraining (the MLM loss,
                fused or not) and BertPretrainingCriterion;
                weight conversion from the JAX models' numpy arrays
+               (GPT, BERT, ResNet)
   nn/          Linear ([in, out] weights), Embedding, Dropout, LayerNorm,
-               the transformer encoder; linear, embedding, dropout,
-               gelu, tanh, layer_norm, cross_entropy and scaled
-               dot-product attention functionals; ClipGradBy*
+               the transformer encoder, Conv1D/2D/3D, BatchNorm*,
+               MaxPool2D, AvgPool2D, AdaptiveAvgPool2D, ReLU,
+               Sequential, Flatten; linear, embedding, dropout, gelu,
+               relu, tanh, layer_norm, batch_norm, conv, pooling,
+               cross_entropy and scaled dot-product attention
+               functionals; ClipGradBy*
+  vision/      the ResNet family (resnet18..152, ResNeXt, wide ResNets)
   incubate/    fused_linear_cross_entropy (the chunked LM head + loss)
   quantization/ Int8Linear and convert_to_int8
   distributed/ the process group (env, spawn), collectives, the wire
@@ -59,6 +68,6 @@ quantized matmul (``csrc/quant_matmul.cu``):
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; a CUDA request without a card raises.
 """
-from . import nn, quantization
+from . import nn, quantization, vision
 
-__all__ = ["nn", "quantization"]
+__all__ = ["nn", "quantization", "vision"]

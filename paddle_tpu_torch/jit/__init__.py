@@ -73,6 +73,17 @@ sums the parameters' in its own order: the norm differs by fp32
 rounding, not more. The learning rate is the optimizer's ``get_lr()``
 at each call (a float or an ``LRScheduler``, which the caller steps).
 
+A model's floating buffers that its forward moves (a batch norm's
+running statistics, ``nn/functional/norm.py``) move in place once a
+forward, as the reference's step carries them: once a step, once a
+micro-batch with ``grad_accum_steps`` (its scan carries them from one
+micro-batch to the next), and averaged over the ranks on the data-
+parallel path. Their gradient never reaches the bucket plan: buffers are
+not parameters. Gradients are the eager ones, the reference's op by op;
+its compiled step differs from its own eager step where a
+``detach()`` is transparent to ``jax.grad`` (ROADMAP Queue C: the
+batch statistics).
+
 ``inputs`` and ``labels`` may hold ``None`` (``bench.py``'s fused-loss
 step passes ``inputs=(ids, None, labels)``, its bert step ``inputs=(ids,
 None, None, None, mlm)``); it reaches the model as ``None``.

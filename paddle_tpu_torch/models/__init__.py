@@ -1,8 +1,9 @@
-"""GPT and BERT models for the port (reference: ``paddle_tpu/models``)."""
+"""GPT and BERT models, and the ResNet converter, for the port (reference: ``paddle_tpu/models``)."""
 from .bert import (BertConfig, BertEmbeddings, BertForPretraining,
                    BertModel, BertPooler, BertPretrainingCriterion,
                    bert_presets)
-from .convert import bert_state_dict_from_numpy, state_dict_from_numpy
+from .convert import (bert_state_dict_from_numpy,
+                      resnet_state_dict_from_numpy, state_dict_from_numpy)
 from .gpt import (BLOCK_PARAMS, GPTConfig, GPTDecoderLayer, GPTEmbeddings,
                   GPTForCausalLM, GPTModel, GPTPretrainingCriterion,
                   gpt_presets)
@@ -13,4 +14,4 @@ __all__ = ["BLOCK_PARAMS", "BertConfig", "BertEmbeddings",
            "GPTEmbeddings", "GPTForCausalLM", "GPTModel",
            "GPTPretrainingCriterion", "bert_presets",
            "bert_state_dict_from_numpy", "gpt_presets",
-           "state_dict_from_numpy"]
+           "resnet_state_dict_from_numpy", "state_dict_from_numpy"]

@@ -2,12 +2,15 @@
 
 The caller extracts the JAX model's named parameters as numpy arrays
 (``{name: np.asarray(p._value)}``); this module turns them into the
-port's ``state_dict``, for ``GPTForCausalLM`` (``state_dict_from_numpy``)
-and ``BertForPretraining`` (``bert_state_dict_from_numpy``). The names
-are the same on both sides, so the mapping checks names, shapes and
-dtype and copies the bytes unchanged; BERT's expected names and shapes
-are read off the port's own model (``bert_layout``). The port itself
-never sees JAX.
+port's ``state_dict``, for ``GPTForCausalLM`` (``state_dict_from_numpy``),
+``BertForPretraining`` (``bert_state_dict_from_numpy``) and the ResNet
+family (``resnet_state_dict_from_numpy``: the parameters and the batch
+norms' ``_mean``/``_variance`` buffers, from the reference's
+``Layer.state_dict()``). The names are the same on both sides, so the
+mapping checks names, shapes and dtype and copies the bytes unchanged;
+BERT's and ResNet's expected names and shapes are read off the port's
+own model (``bert_layout``, the ResNet given). The port itself never
+sees JAX.
 
 A bf16 GPT's parameters arrive as ``ml_dtypes`` bfloat16 arrays (what
 ``np.asarray`` makes of a JAX bf16 array). They are recognised by
@@ -35,7 +38,8 @@ from .gpt import PORTED_DTYPES, GPTConfig, block_shapes
 
 __all__ = ["expected_shapes", "expected_dtypes", "state_dict_from_numpy",
            "bert_layout",
-           "bert_state_dict_from_numpy", "grad_comm_state_for_rank",
+           "bert_state_dict_from_numpy", "resnet_state_dict_from_numpy",
+           "grad_comm_state_for_rank",
            "grad_comm_state_to_reference"]
 
 
@@ -126,6 +130,24 @@ def bert_state_dict_from_numpy(params: Dict[str, np.ndarray],
         if key.endswith(".bias") and lin in linears:   # state_dict order
             name = None if names is None else names[lin + ".weight"]
             out[lin + "._extra_state"] = {"weight_name": name}
+    return out
+
+
+def resnet_state_dict_from_numpy(arrays: Dict[str, np.ndarray],
+                                 model: torch.nn.Module
+                                 ) -> Dict[str, object]:
+    """The reference ResNet's ``state_dict()`` as numpy arrays
+    (``{n: np.asarray(t._value)}``: parameters and the batch norms'
+    running buffers) -> the port's ``state_dict`` for ``model``, a
+    ResNet of the same layout (depth, width, groups, classes), each name
+    and shape checked against it. Its ``Linear`` keeps its own weight
+    name."""
+    want = {n: tuple(t.shape) for n, t in
+            [*model.named_parameters(), *model.named_buffers()]}
+    out: Dict[str, object] = dict(_copy_checked(arrays, want))
+    for name, m in model.named_modules():
+        if isinstance(m, Linear):
+            out[f"{name}._extra_state"] = {"weight_name": None}
     return out
 
 

@@ -1,12 +1,17 @@
 """Neural-network layers and functionals of the port (reference:
-``paddle_tpu/nn``): what BERT needs, and the gradient clips."""
+``paddle_tpu/nn``): what BERT and ResNet need, and the gradient clips."""
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layer import (Dropout, Embedding, LayerNorm, Linear,
-                    MultiHeadAttention, TransformerEncoder,
-                    TransformerEncoderLayer)
+from .layer import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm, BatchNorm1D,
+                    BatchNorm2D, BatchNorm3D, Conv1D, Conv2D, Conv3D,
+                    Dropout, Embedding, Flatten, LayerNorm, Linear,
+                    MaxPool2D, MultiHeadAttention, ReLU, Sequential,
+                    TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "Dropout", "Embedding", "LayerNorm", "Linear",
-           "MultiHeadAttention", "TransformerEncoder",
-           "TransformerEncoderLayer", "functional"]
+__all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm", "BatchNorm1D",
+           "BatchNorm2D", "BatchNorm3D", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "Conv1D", "Conv2D",
+           "Conv3D", "Dropout", "Embedding", "Flatten", "LayerNorm",
+           "Linear", "MaxPool2D", "MultiHeadAttention", "ReLU",
+           "Sequential", "TransformerEncoder", "TransformerEncoderLayer",
+           "functional"]

@@ -2,9 +2,14 @@
 from .activation import gelu, relu, tanh
 from .attention import flash_route, scaled_dot_product_attention
 from .common import dropout, embedding, linear
+from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
+                   conv3d, conv3d_transpose)
 from .loss import cross_entropy
-from .norm import layer_norm
+from .norm import batch_norm, layer_norm
+from .pooling import adaptive_avg_pool2d, avg_pool2d, max_pool2d
 
-__all__ = ["cross_entropy", "dropout", "embedding", "flash_route", "gelu",
-           "layer_norm", "linear", "relu", "scaled_dot_product_attention",
-           "tanh"]
+__all__ = ["adaptive_avg_pool2d", "avg_pool2d", "batch_norm", "conv1d",
+           "conv1d_transpose", "conv2d", "conv2d_transpose", "conv3d",
+           "conv3d_transpose", "cross_entropy", "dropout", "embedding",
+           "flash_route", "gelu", "layer_norm", "linear", "max_pool2d",
+           "relu", "scaled_dot_product_attention", "tanh"]

@@ -1,9 +1,15 @@
 """Layers of the port (reference: ``paddle_tpu/nn/layer``)."""
-from .common import Dropout, Embedding, Linear
-from .norm import LayerNorm
+from .activation import ReLU
+from .common import Dropout, Embedding, Flatten, Linear
+from .container import Sequential
+from .conv import Conv1D, Conv2D, Conv3D
+from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm
+from .pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear",
-           "MultiHeadAttention", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+__all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm", "BatchNorm1D",
+           "BatchNorm2D", "BatchNorm3D", "Conv1D", "Conv2D", "Conv3D",
+           "Dropout", "Embedding", "Flatten", "LayerNorm", "Linear",
+           "MaxPool2D", "MultiHeadAttention", "ReLU", "Sequential",
+           "TransformerEncoder", "TransformerEncoderLayer"]

@@ -1,5 +1,5 @@
 """Common layers (reference: ``paddle_tpu/nn/layer/common.py`` ``Linear``,
-``Embedding``, ``Dropout``).
+``Embedding``, ``Dropout``, ``Flatten``).
 
 ``Linear`` keeps Paddle's weight layout ``[in_features, out_features]``
 (``y = x @ W + b``), so the reference's weights copy over unchanged and a
@@ -27,11 +27,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import tensor as T
 from ...framework.device import resolve_device
 from .. import functional as F
 from ..functional.common import OPTIONS_ITEM, check_dropout_options
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = ["Linear", "Embedding", "Dropout", "Flatten"]
 
 _LINEAR_IDS = itertools.count()
 
@@ -112,3 +113,15 @@ class Dropout(nn.Module):
 
     def forward(self, x):
         return F.dropout(x, self.p, training=self.training)
+
+
+class Flatten(nn.Module):
+    """``paddle_tpu_torch.tensor.flatten`` (the cast point "flatten")."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, input):
+        return T.flatten(input, self.start_axis, self.stop_axis)

@@ -13,12 +13,22 @@
 
 The block parameters are stacked ``[L, ...]`` on the model's device once;
 a Python loop over layers takes the place of the reference's
-``lax.scan``. The block math is the reference's: fp32 LayerNorm,
-tanh-approximate gelu, plain matmul/softmax attention with the same
-masking (``finfo.min`` on masked logits); fp32 products with TF32 off,
-entered by each step (``framework.precision.matmul_precision``),
-whatever the caller set process-wide. Batch and context are rounded
-up to the reference's power-of-two buckets, so padded shapes match.
+``lax.scan``. The block math is the reference's: LayerNorm in fp32
+(its affine too) cast back to the input's dtype, tanh-approximate gelu,
+plain matmul attention with the same masking (``finfo.min`` of the
+logits' dtype on masked logits) and the softmax in fp32 cast to v's
+dtype; fp32 products with TF32 off, entered by each step
+(``framework.precision.matmul_precision``), whatever the caller set
+process-wide. Batch and context are rounded up to the reference's
+power-of-two buckets, so padded shapes match.
+
+A bf16 GPT runs in its parameters' dtype, as the reference's does:
+``prefill`` and ``forced_logits`` return bf16 logits and a bf16 KV
+payload (the final LayerNorm's fp32 parameters lift nothing past its
+cast back). ``decode`` and ``extend`` raise ``TypeError`` there, as the
+reference's do: its ``past`` enters as fp32, which promotes the
+attention and with it the scan's carry to fp32 against a bf16 input,
+and ``lax.scan`` refuses the step.
 
 A token's KV payload is laid out ``[L, 2 (k|v), heads, head_dim]``
 flattened to ``elems_per_token`` — the reference's layout, so pool bytes
@@ -36,8 +46,7 @@ import torch.nn.functional as F
 
 from ..framework.device import to_device
 from ..framework.precision import matmul_precision
-from ..models.gpt import BLOCK_PARAMS, GPTForCausalLM
-from ..nn.functional import layer_norm
+from ..models.gpt import BLOCK_PARAMS, PORTED_DTYPES, GPTForCausalLM
 
 __all__ = ["GPTDecodeModel", "bucket_pow2"]
 
@@ -58,12 +67,8 @@ class GPTDecodeModel:
 
     def __init__(self, model: GPTForCausalLM):
         cfg = model.config
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"serving a GPT of dtype={cfg.dtype!r} is not ported yet "
-                f"(ROADMAP Queue A, 'bf16 serving'); the decode model "
-                f"serves float32 weights")
         self.config = cfg
+        self.dtype = PORTED_DTYPES[cfg.dtype]
         self.device = model.device
         self.n_layers = cfg.num_layers
         self.n_heads = cfg.num_heads
@@ -97,7 +102,28 @@ class GPTDecodeModel:
         return to_device(x, self.device, dtype)
 
     def _ln(self, v, w, b):
-        return layer_norm(v, v.shape[-1], w, b, self._eps)
+        """The reference's ``_ln``: normalise and apply ``w``, ``b`` in
+        fp32, then cast to ``v.dtype``."""
+        v32 = v.to(torch.float32)
+        mean = v32.mean(-1, keepdim=True)
+        var = v32.var(-1, keepdim=True, unbiased=False)
+        out = (v32 - mean) * torch.rsqrt(var + self._eps)
+        return (out * w + b).to(v.dtype)
+
+    @staticmethod
+    def _softmax(al, v):
+        """Softmax over the last axis in fp32, cast to ``v.dtype``."""
+        return torch.softmax(al.to(torch.float32), dim=-1).to(v.dtype)
+
+    def _check_fp32_past(self, step: str) -> None:
+        if self.dtype != torch.float32:
+            raise TypeError(
+                f"{step} on a {self.config.dtype} GPT: the reference's "
+                f"past enters as float32, which promotes the attention and "
+                f"the scan carry to float32 against a {self.config.dtype} "
+                f"input, and its scan refuses the step (carry input and "
+                f"output types differ); only prefill and forced_logits "
+                f"run in {self.config.dtype}")
 
     def _qkv(self, x, l: int):
         """LayerNorm + packed projection -> q, k, v [..., heads, hd]."""
@@ -131,14 +157,14 @@ class GPTDecodeModel:
         p = self.params
         b, s = ids.shape
         x = p["word"][ids] + p["pos"][:s]
-        neg = torch.finfo(torch.float32).min
         causal = torch.ones(s, s, dtype=torch.bool,
                             device=self.device).tril()
         kvs = []
         for l in range(self.n_layers):
             q, k, v = self._qkv(x, l)                      # [b, s, n, d]
             al = torch.einsum("bqnd,bknd->bnqk", q, k) * self._scale
-            probs = torch.softmax(al.masked_fill(~causal, neg), dim=-1)
+            neg = torch.finfo(al.dtype).min
+            probs = self._softmax(al.masked_fill(~causal, neg), v)
             attn = torch.einsum("bnqk,bknd->bqnd", probs, v)
             x = self._finish_block(x, attn, l)
             kvs.append(torch.stack([k, v], dim=2))         # [b, s, 2, n, d]
@@ -184,7 +210,9 @@ class GPTDecodeModel:
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One decode step for a (bucketed) batch. ``past`` is [b, S, ept]
         fp32 (dequantized working copy), ``past_len`` the per-row valid
-        prefix. Returns (logits [b, V], new KV [b, ept])."""
+        prefix. Returns (logits [b, V], new KV [b, ept]). A bf16 model
+        raises ``TypeError``, as the reference's does."""
+        self._check_fp32_past("decode")
         p = self.params
         ids = self._t(ids, torch.long)
         pos = self._t(pos, torch.long)
@@ -219,7 +247,9 @@ class GPTDecodeModel:
         [b, s] tails, ``past`` [b, S, ept] fp32 with ``past_len`` valid
         rows, ``tail_len`` the per-row valid tail. Returns
         (logits [b, s, V], new KV [b, s, ept]); rows past ``tail_len``
-        are padding the caller must ignore."""
+        are padding the caller must ignore. A bf16 model raises
+        ``TypeError``, as the reference's does."""
+        self._check_fp32_past("extend")
         p = self.params
         ids = self._t(ids, torch.long)
         pos = self._t(pos, torch.long)

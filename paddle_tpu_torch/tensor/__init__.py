@@ -1,13 +1,14 @@
 """Tensor ops that the reference dispatches as ops of their own, with its
 op names, so that amp casts their inputs as the reference does
 (reference: ``paddle_tpu/tensor/math.py`` ``add``,
-``tensor/manipulation.py`` ``reshape``/``unsqueeze``,
+``tensor/manipulation.py`` ``reshape``/``flatten``/``unsqueeze``,
 ``tensor/creation.py`` ``zeros_like``, ``tensor/search.py`` ``where``,
 ``tensor/logic.py`` ``less_than``, and ``framework/tensor.py``
 ``Tensor.clone``/``__getitem__``).
 
-Only the ops on BERT's path are here: the residual and embedding adds,
-the head reshapes, dropout's identity clone, the pooler's first token,
+Only the ops on BERT's and ResNet's paths are here: the residual and
+embedding adds, the head reshapes, ResNet's ``x.flatten(1)`` before its
+classifier, dropout's identity clone, the pooler's first token,
 the MLM labels' ``where(lbl < 0, -1, lbl)``, the position ids'
 ``unsqueeze`` and the token types' ``zeros_like`` (which the reference
 dispatches without an op name: its cast point is named ""). With no amp
@@ -20,8 +21,8 @@ import torch
 
 from ..amp import amp_state, cast
 
-__all__ = ["add", "reshape", "clone", "getitem", "where", "less_than",
-           "unsqueeze", "zeros_like"]
+__all__ = ["add", "reshape", "flatten", "clone", "getitem", "where",
+           "less_than", "unsqueeze", "zeros_like"]
 
 
 def add(x, y):
@@ -32,6 +33,12 @@ def add(x, y):
 def reshape(x, shape):
     (x,) = cast("reshape", x)
     return x.reshape(shape)
+
+
+def flatten(x, start_axis: int = 0, stop_axis: int = -1):
+    """Axes ``start_axis``..``stop_axis`` (inclusive) merged into one."""
+    (x,) = cast("flatten", x)
+    return x.flatten(start_axis, stop_axis)
 
 
 def clone(x):

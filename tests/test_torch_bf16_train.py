@@ -77,7 +77,10 @@ than the reference's own bf16 flash tolerance, 2e-2,
   the logits' node entered bf16's settings) leaves the caller's flags
   as they were, from a bare ``loss.backward()`` and from ``TrainStep``.
 - What stays out raises ``NotImplementedError`` naming its ROADMAP
-  item: float16, bf16 serving (bf16 BERT, ported since, runs).
+  item: float16 (bf16 BERT, ported since, runs). A bf16 decode model is
+  built, as the reference's is, and its ``decode`` raises
+  ``TypeError`` as the reference's does (``tests/test_torch_serving.py``
+  holds it against the reference).
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -646,7 +649,9 @@ def check_gemm_settings_restored_after_a_failed_backward():
 
 def check_unported_paths_raise():
     """What stays out of this slice raises, naming its ROADMAP item: a
-    dtype other than fp32 and bf16, and bf16 serving. (bf16 buckets on
+    dtype other than fp32 and bf16. A bf16 GPT's decode model is built
+    and refuses ``decode`` with the reference's ``TypeError`` (its fp32
+    ``past`` promotes the scan carry). (bf16 buckets on
     the gradient wire are ported: tests/test_torch_bf16_dp.py holds them
     against the reference; so is bf16 BERT, a model with bf16 parameters
     running: tests/test_torch_bert_train.py holds it, decorated and
@@ -655,8 +660,10 @@ def check_unported_paths_raise():
         GPTForCausalLM(gpt_presets("gpt-test", dtype="float16"),
                        device="cpu")
     _, tm = _models()
-    with pytest.raises(NotImplementedError, match="bf16 serving"):
-        GPTDecodeModel(tm)
+    dm = GPTDecodeModel(tm)
+    z = np.zeros(1, np.int64)
+    with pytest.raises(TypeError, match="scan carry"):
+        dm.decode(z, z, np.zeros((1, 8, dm.elems_per_token), np.float32), z)
     bert = BertForPretraining(bert_presets("bert-test"), device="cpu")
     bert.to(torch.bfloat16)
     logits, _ = bert(torch.zeros(1, 8, dtype=torch.int64))

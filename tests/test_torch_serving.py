@@ -12,6 +12,13 @@ CPU, at ``gpt-test`` size, plus the port's package rules.
   give the same tokens (fp32 KV, as the reference pins it). Sampled
   tokens cannot match JAX's threefry bits, so the port pins placement
   invariance instead.
+- bf16 decode model: on ``gpt-test`` in bf16 (the reference's weights
+  carried with ``state_dict_from_numpy``), ``prefill``'s last-position
+  logits and per-token KV and ``forced_logits`` are bf16 on both sides
+  and within 2 bf16 ulps of each tensor's largest value (measured 1: the
+  reference's CPU tanh-gelu rounds after each op, the port's once);
+  ``decode`` and ``extend`` raise ``TypeError`` on both sides (the
+  reference's fp32 ``past`` promotes its scan carry).
 - Package rules: the port imports neither ``jax`` nor ``paddle_tpu``.
 
 The file collects one test that runs every case (``tests/torch_checks.py``
@@ -33,7 +40,8 @@ from paddle_tpu.serving import KVBlockPool as JaxPool
 from paddle_tpu.serving import RequestQueue as JaxQueue
 from paddle_tpu.serving import ServeRequest as JaxRequest
 from paddle_tpu.serving import ServingEngine as JaxEngine
-from paddle_tpu_torch.models import GPTForCausalLM, gpt_presets
+from paddle_tpu_torch.models import (GPTForCausalLM, gpt_presets,
+                                     state_dict_from_numpy)
 from paddle_tpu_torch.serving import (BatchSampler, GPTDecodeModel,
                                       KVBlockPool, KVCacheOOM, RequestQueue,
                                       SamplingParams, ServeRequest,
@@ -305,6 +313,59 @@ def check_queue_rejects_at_depth_and_engine_drain_frees_blocks(dms):
     assert pool.blocks_in_use == 0 and not eng.step()
 
 
+# ------------------------------------------------------ bf16 decode model
+BF16_ULPS = 2   # of each tensor's largest value
+
+
+def _bf16_dms():
+    """The reference's bf16 gpt-test decode model and the port's over
+    the same weights."""
+    jm = JaxGPT(jax_presets("gpt-test", dtype="bfloat16"), seed=0)
+    cfg = gpt_presets("gpt-test", dtype="bfloat16")
+    tm = GPTForCausalLM(cfg, seed=0, device="cpu")
+    tm.load_state_dict(state_dict_from_numpy(
+        {n: np.asarray(p._value) for n, p in jm.named_parameters()}, cfg))
+    return JaxDecodeModel(jm), GPTDecodeModel(tm)
+
+
+def _within_bf16_ulps(got, want, what):
+    assert got.dtype == torch.bfloat16, (what, got.dtype)
+    assert str(np.asarray(want).dtype) == "bfloat16", what
+    want = np.asarray(want).astype(np.float32)
+    err = float(np.abs(got.float().numpy() - want).max())
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert err <= BF16_ULPS * ulp, f"{what}: {err / ulp:.1f} bf16 ulps"
+
+
+def check_bf16_prefill_and_forced_logits_match_reference(bf16_dms):
+    jdm, tdm = bf16_dms
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 256, n) for n in (5, 13, 9)]
+    jl, jkv = jdm.prefill(prompts)
+    tl, tkv = tdm.prefill(prompts)
+    _within_bf16_ulps(tl, jl, "prefill logits")
+    for i, (a, b) in enumerate(zip(tkv, jkv)):
+        assert tuple(a.shape) == b.shape, (a.shape, b.shape)
+        _within_bf16_ulps(a, b, f"prefill kv {i}")
+    ids = rs.randint(0, 256, (2, 16))
+    _within_bf16_ulps(tdm.forced_logits(ids), jdm.forced_logits(ids),
+                      "forced_logits")
+
+
+def check_bf16_decode_and_extend_raise_on_both_sides(bf16_dms):
+    ept = bf16_dms[0].elems_per_token
+    z = np.zeros(2, np.int32)
+    past = np.zeros((2, 8, ept), np.float32)
+    for dm in bf16_dms:
+        with pytest.raises(TypeError):
+            dm.decode(z, z, past, z)
+        with pytest.raises(TypeError):
+            dm.extend(np.zeros((2, 4), np.int32), np.zeros((2, 4), np.int32),
+                      past, z, z + 4)
+    with pytest.raises(TypeError, match="scan carry"):
+        bf16_dms[1].decode(z, z, past, z)
+
+
 # ------------------------------------------------------------ package rules
 
 def _port_files():
@@ -367,6 +428,11 @@ def test_serving_port_matches_reference(fresh_mesh):
             (dms,)),
            (check_port_sources_import_no_jax_or_reference_package, ()),
            (check_importing_port_serving_loads_no_jax, ())])
+    bf16_dms = _bf16_dms()
+    checks += [(check_bf16_prefill_and_forced_logits_match_reference,
+                (bf16_dms,)),
+               (check_bf16_decode_and_extend_raise_on_both_sides,
+                (bf16_dms,))]
     if not torch.cuda.is_available():   # the raise path needs no card
         checks.append((check_default_device_pool_raises_without_cuda, ()))
     run_checks(checks)

@@ -45,6 +45,12 @@ the two hold the kernels to one set of criteria:
   encode's (:func:`encoded_inputs`, from fp32 or bf16 gradients);
 - one Adam(W) training step on two devices: :func:`adam_step_parity`,
   and for a bf16 model :func:`bf16_step_parity`;
+- a ResNet stage by stage (:func:`resnet_stages`, :func:`stage_run`,
+  :func:`stage_errors`): each stage fed the same input and cotangent on
+  both sides, so the model's own amplification of rounding (a ResNet-50
+  at initialisation under batch-4 batch norm moves its O2 gradients by
+  more than their size when its input moves by half a bf16 ulp) does not
+  reach the comparison;
 - ``ce_chunk_fwd`` (:func:`ce_fwd_vs_plain`): the running max and the
   picked logit bit-identical (a max and an fp32 add are exact the same
   way), the running sum within ``CE_SUM_RTOL`` relative (a sum of C
@@ -70,6 +76,7 @@ the two hold the kernels to one set of criteria:
   product of plain (1x) TF32 ``x`` does not (``tests/test_torch_split_tf32.py``
   shows both).
 """
+import contextlib
 import importlib
 
 import torch
@@ -829,3 +836,80 @@ def buckets_vs_plain(kind, hyper, entries, lr, *, steps=3, gen=None,
                 f"{run.__name__} {kind} step {step + 1}: {differ[:6]} "
                 f"differ from plain ({len(differ)} of {len(pairs)})")
     return launches
+
+
+# ------------------------------------------------------------- ResNet
+def resnet_stages(model, flatten):
+    """The stages of a ResNet (the port's or the reference's: the same
+    attribute names) in order: ``(name, fn, prefixes)``, ``fn`` the
+    stage's forward and ``prefixes`` the modules whose parameters and
+    buffers it holds. The stem (conv1, bn1, relu, maxpool), every block
+    of layer1-4, and the head (avgpool, ``flatten(x, 1)``, fc)."""
+    m = model
+    out = [("stem", lambda x: m.maxpool(m.relu(m.bn1(m.conv1(x)))),
+            ("conv1", "bn1"))]
+    for layer in ("layer1", "layer2", "layer3", "layer4"):
+        seq = getattr(m, layer)
+        for i in range(len(seq)):
+            out.append((f"{layer}.{i}", seq[i], (f"{layer}.{i}",)))
+    out.append(("head", lambda x: m.fc(flatten(m.avgpool(x), 1)), ("fc",)))
+    return out
+
+
+def _in_stage(name: str, prefixes) -> bool:
+    return any(name == p or name.startswith(p + ".") for p in prefixes)
+
+
+def stage_run(model, stage, x, seed, level=None) -> dict:
+    """One stage of a port ResNet on its parameters' device, in training
+    mode, under ``auto_cast(level=level, dtype="bfloat16")`` when
+    ``level`` is given: the forward of the CPU fp32 input ``x``, then the
+    backward of ``sum(out * ct)``, ``ct`` drawn on the CPU from ``seed``
+    in the output's shape. Returns CPU fp32 tensors: ``out``, ``ct``,
+    ``dx``, the stage's parameter gradients ``grads`` and its running
+    buffers ``buffers`` after the forward."""
+    from paddle_tpu_torch.amp import auto_cast
+
+    _, fn, prefixes = stage
+    dev = next(model.parameters()).device
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    xd = x.detach().clone().to(dev).requires_grad_()
+    with (auto_cast(level=level, dtype="bfloat16") if level
+          else contextlib.nullcontext()):
+        out = fn(xd)
+    ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        seed))
+    (out.float() * ct.to(dev)).sum().backward()
+    return {"out": out.detach().float().cpu(), "ct": ct,
+            "dx": xd.grad.float().cpu(),
+            "grads": {n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()
+                      if _in_stage(n, prefixes)},
+            "buffers": {n: b.float().cpu() for n, b in model.named_buffers()
+                        if _in_stage(n, prefixes)}}
+
+
+def norm_rel(a, b) -> float:
+    """``||a - b|| / ||b||`` (2-norms, fp64): a ReLU network's gradients
+    on two devices differ wholly at the few elements whose pre-activation
+    the rounding moved across zero, so a largest-element criterion reads
+    the flips, the norm the rest."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def stage_errors(got: dict, want: dict) -> dict:
+    """:func:`stage_run`'s results on two sides: ``out`` as its largest
+    difference over its largest magnitude, ``dx`` and the worst
+    parameter gradient by :func:`norm_rel`, the worst buffer as the
+    largest absolute difference."""
+    out = got["out"] - want["out"]
+    return {"out": float(out.abs().max()
+                         / want["out"].abs().max().clamp_min(1e-30)),
+            "dx": norm_rel(got["dx"], want["dx"]),
+            "grads": max(norm_rel(got["grads"][n], g)
+                         for n, g in want["grads"].items()),
+            "buffers": max([float((got["buffers"][n] - b).abs().max())
+                            for n, b in want["buffers"].items()] or [0.0])}
