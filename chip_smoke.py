@@ -365,7 +365,7 @@ when every phase passed):
  30. resnet50 parity
               resnet50(num_classes=10) at 4 x 64 x 64, the card's
               weights carried from the CPU model by
-              resnet_state_dict_from_numpy: two fp32 convolutions (the
+              dense_state_dict_from_numpy: two fp32 convolutions (the
               stem's, a 3 x 3 of layer1) on the card and the CPU within
               1e-5 of their fp64 value's largest, and the card's with
               cuDNN's TF32 on at least 1e-4 off (TF32 shows if it is
@@ -383,6 +383,50 @@ when every phase passed):
               not compared: a ReLU network under batch-4 batch norms
               moves them by more than their size at half a bf16 ulp of
               input noise.
+ 31. widedeep
+              bench.py's widedeep mode (measure_widedeep,
+              bench.py:767-862, BASELINE.md config 5) at its accelerator
+              sizes, not cut: models/wide_deep.py WideDeepBench.run(),
+              batch 512 x 16 slots, 60 steps in passes of 10 (a warm
+              pass of 2 first), vocab 10,000, the host Adagrad table
+              (dim 8, lr 0.1) behind LocalPs, TheOnePSRuntime and an
+              AsyncCommunicator, the DevicePassCache slab padded to
+              10,000 rows, CompiledPassStep (the device Adagrad at lr
+              0.1, the deep MLP Linear(128, 64), ReLU, Linear(64, 1) on
+              Adam(1e-3) through fused_update_buckets); launch counts
+              reset just before run() and read just after (one
+              fused_update a step, 62; no other kernel of the port);
+              examples/s, the held-out AUC over 4096 rows (above 0.5),
+              the last loss, the table's rows (10,000), peak memory;
+              torch.profiler over one more pass (busy and idle share,
+              device time by kernel); 6 more passes of 10 with the
+              cache's begin_pass and end_pass and each step wrapped in
+              host times and CUDA events (no step waits): the median
+              step ms and each pass split into begin_pass, the steps and
+              end_pass (host and device); 10 eager steps
+              (distributed_lookup_table, the MLP, backward() pushing
+              through the communicator, Adam.step()) and their
+              examples/s; then the update over Wide&Deep's plan (one
+              fp32 bucket of 8,321) bit for bit against its plain walk
+              over 3 steps and timed as step() calls it, alone, as the
+              plain walk and as torch._fused_adam_, beside its bound
+              (28 bytes an element);
+ 32. widedeep parity
+              WideDeepBench.run() at bench.py's CPU sizes (128 x 8,
+              30 steps, vocab 2000) on the card and on the CPU in this
+              process (one host table library), the same batches and
+              seeded weights: the first step's loss within 1e-6, its
+              dense gradients and slab gradient within 1e-6 of each
+              tensor's largest, but the output bias's (one float, a sum
+              of 128 near-cancelling terms) within 1e-6 of the sum of
+              its terms' sizes, Adam's step by adam_step_parity,
+              the card's Adagrad update equal bit for bit to the rule
+              applied in numpy's fp32 to its own slab gradient; every
+              loss, the table's rows and the AUC within the larger of 4
+              times the CPU's own move under one ulp of the deep arm's
+              weights (3 draws) and the CPU test's bounds; two card
+              runs bit-identical, or where they part printed; fresh
+              keys pulled bit-identical in every run.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -539,14 +583,18 @@ def phase_device():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"capability {torch.cuda.get_device_capability(0)}")
+    from paddle_tpu_torch import core
     from paddle_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    # one nvcc per source, all started together
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+    # one nvcc per source and g++ for the host table, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + 1) as ex:
+        host = ex.submit(core.compile_library)
         paths = list(ex.map(_build.compile_source, SOURCES))
+        paths.append(host.result())
     for name in SOURCES:
         _build.load_library(name)
+    core.load_library()
     log(f"built {', '.join(os.path.relpath(p) for p in paths)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -989,12 +1037,13 @@ def _fused_case(gen, kind, wd, n):
                           hyper=FUSED_HYPER[kind], wd=wd)
 
 
-def bucket_updater(sizes, gen, dtypes=None):
+def bucket_updater(sizes, gen, dtypes=None, make_opt=None):
     """A FusedFlatUpdater over one parameter a bucket of ``sizes`` (in
-    ``dtypes``, fp32 by default; AdamW, lr and wd of the train phase) on
-    ``gen``'s device, its gradients in place, stepped once, then moments
-    set to the train phase's scales: weights 0.02, gradients 1e-3,
-    moment1 1e-4, moment2 1e-6 (squared randn)."""
+    ``dtypes``, fp32 by default; ``make_opt(params)``'s Adam rule, by
+    default AdamW with the train phase's lr and wd) on ``gen``'s device,
+    its gradients in place, stepped once, then moments set to the train
+    phase's scales: weights 0.02, gradients 1e-3, moment1 1e-4, moment2
+    1e-6 (squared randn)."""
     from paddle_tpu_torch import optimizer as optim
     from paddle_tpu_torch.distributed import grad_comm
 
@@ -1008,7 +1057,8 @@ def bucket_updater(sizes, gen, dtypes=None):
         b = grad_comm.GradBucket(i, dt)
         b.add(i, (n,))
         buckets.append(b)
-    opt = optim.AdamW(learning_rate=LR, weight_decay=WD, parameters=params)
+    opt = (optim.AdamW(learning_rate=LR, weight_decay=WD, parameters=params)
+           if make_opt is None else make_opt(params))
     upd = optim.FusedFlatUpdater(opt, params, buckets=buckets)
     upd.zero_grad()
     for p in params:
@@ -2650,6 +2700,7 @@ def phase_dp_kernels_bf16(dev, gen, buckets):
         f"plan in one launch a step, bit-identical to the plain walk over "
         f"2 steps, residual off and on")
     row = _dequant_table_row(dev, gen, buckets, flush)
+    row["max_abs_err"] = 0.0    # bit for bit: _dequant_table_check
     del flush
     return enc_rows, dec_rows, row
 
@@ -3197,7 +3248,7 @@ CONV_FP32_RTOL, CONV_TF32_MIN = 1e-5, 1e-4
 
 def _resnet_setup(device, b, img, seed, num_classes=1000, weights=None):
     """``measure_resnet50``'s step: resnet50 from seed 0 (or ``weights``,
-    a ``resnet_state_dict_from_numpy`` dict), Momentum(0.01, 0.9), a
+    a ``dense_state_dict_from_numpy`` dict), Momentum(0.01, 0.9), a
     TrainStep with ``F.cross_entropy``, and a batch from
     ``RandomState(seed)``: ``randn`` images, labels ``randint(0,
     num_classes)``, on ``device``."""
@@ -3551,7 +3602,7 @@ def _resnet_one_step(device, weights, level, noise=None):
 def phase_resnet_parity(dev, gen, seed):
     """Phase 30: resnet50(num_classes=10) at 4 x 64 x 64 on the card and
     on the CPU, the card's weights carried from the CPU model with
-    ``resnet_state_dict_from_numpy``. fp32 convolutions within fp32
+    ``dense_state_dict_from_numpy``. fp32 convolutions within fp32
     rounding and a TF32 one far from it; every stage, in fp32 and under
     O2, within ``RESNET_STAGE_TOL``; one TrainStep in fp32 and one under
     O2: the loss within ``RESNET_FP32_LOSS_RTOL``, or under O2 within
@@ -3561,7 +3612,7 @@ def phase_resnet_parity(dev, gen, seed):
     not compared: at this size a ReLU network under batch-4 batch norms
     moves them by more than their size when the input moves by half a
     bf16 ulp."""
-    from paddle_tpu_torch.models import resnet_state_dict_from_numpy
+    from paddle_tpu_torch.models import dense_state_dict_from_numpy
     from paddle_tpu_torch.vision.models import resnet50
 
     convs = _conv_precision(dev, gen)
@@ -3569,7 +3620,7 @@ def phase_resnet_parity(dev, gen, seed):
                          device="cpu")
     state = {n: t.detach().numpy().copy() for n, t in
              [*cpu_model.named_parameters(), *cpu_model.named_buffers()]}
-    weights = resnet_state_dict_from_numpy(state, cpu_model)
+    weights = dense_state_dict_from_numpy(state, cpu_model)
     out = {"conv": convs}
     for level in (None, "O2"):
         card_model = resnet50(num_classes=RESNET_CHECK_CLASSES, seed=seed + 1,
@@ -3611,10 +3662,514 @@ def phase_resnet_parity(dev, gen, seed):
     return out
 
 
+
+# ------------------------------------------------------------ Wide&Deep
+# bench.py's widedeep mode (measure_widedeep, bench.py:767-862) at its
+# accelerator sizes (phase 31) and its CPU sizes (phase 32)
+WD_EAGER_STEPS = 10
+# phase 32: card against CPU within the larger of WD_NOISE_FACTOR times
+# the CPU's own move when the deep arm's weights move by one ulp (the
+# largest of WD_NOISE_DRAWS draws) and the bound the CPU test holds the
+# port to against the reference (tests/test_torch_widedeep.py: losses
+# 1e-6 relative, the table's rows 1e-5 of the largest, the AUC 1e-5)
+WD_NOISE_FACTOR = 4
+WD_NOISE_DRAWS = (("0.weight", 1), ("0.weight", -1), ("2.weight", 1))
+WD_FLOORS = {"losses": 1e-6, "rows": 1e-5, "auc": 1e-5}
+# the first step card vs CPU: the loss within WD_FIRST_RTOL relative;
+# each dense gradient and the slab's gradient within WD_FIRST_RTOL of its
+# tensor's largest; the output bias's gradient, one float that sums the
+# batch's 128 near-cancelling dL/dlogit (cuBLAS and the CPU add them in
+# other orders), within WD_FIRST_RTOL of the sum of their sizes
+WD_FIRST_RTOL = 1e-6
+WD_OUT_BIAS = "2.bias"
+
+
+def widedeep_profile(one, steps):
+    """torch.profiler over ``one()`` (a pass of ``steps`` steps): wall,
+    device busy and idle share, kernels, the top kernels by device time
+    and the update kernel's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    update = sum(e.self_device_time_total for e in kernels
+                 if "update_kernel" in e.key)
+    log(f"widedeep profile: one pass of {steps} steps, wall "
+        f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+        f"({100 * busy / wall_us:.1f}% busy, "
+        f"{100 * (1 - busy / wall_us):.1f}% idle), "
+        f"{sum(e.count for e in kernels)} kernels, update_kernel "
+        f"{update / 1e3:.3f} ms ({100 * update / max(busy, 1e-9):.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{100 * e.self_device_time_total / busy:5.1f}% "
+            f"{e.count:5d}x  {e.key[:90]}")
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    host_us = sum(e.self_cpu_time_total for e in host)
+    log(f"widedeep profile, the host: {host_us / 1e3:.3f} ms in PyTorch "
+        f"ops of the {wall_us / 1e3:.3f} ms wall; by op, self time:")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
+        log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:5d}x  "
+            f"{e.key[:90]}")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "update_ms": update / 1e3, "host_ops_ms": host_us / 1e3,
+            "kernels": sum(e.count for e in kernels)}
+
+
+def _wd_eager(bench, steps=WD_EAGER_STEPS):
+    """``steps`` eager steps on the same table: distributed_lookup_table
+    (through the runtime's async communicator), a fresh deep MLP, the
+    loss, ``backward()`` (its push through the communicator) and the
+    port's per-parameter ``Adam.step()``; examples/s with the pushes
+    flushed."""
+    from paddle_tpu_torch import tensor as T
+    from paddle_tpu_torch.distributed.ps import (TheOnePSRuntime,
+                                                 distributed_lookup_table)
+    from paddle_tpu_torch.models.wide_deep import deep_mlp
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Adam
+
+    batch, slots = bench.sizes.batch, bench.sizes.slots
+    model = deep_mlp(slots, device=bench.device, seed=1)
+    opt = Adam(learning_rate=1e-3, parameters=model.parameters())
+    data = [bench.make_batch(batch) for _ in range(steps)]
+    comm = TheOnePSRuntime.current().comm()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids, labels in data:
+        rows = distributed_lookup_table(ids, table_id=0, device=bench.device)
+        out = model(T.reshape(rows, [batch, -1]))
+        loss = F.binary_cross_entropy_with_logits(
+            T.getitem(out, (slice(None), 0)),
+            torch.as_tensor(labels, device=bench.device))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+    comm.flush()
+    last = float(loss.detach())
+    secs = time.perf_counter() - t0
+    return {"examples_per_s": batch * steps / secs, "seconds": secs,
+            "loss": last, "steps": steps}
+
+
+class _PassMarks:
+    """Host times and CUDA events around a ``WideDeepBench``'s passes:
+    its cache's ``begin_pass`` and ``end_pass`` and each ``pass_step``
+    call are wrapped on the instances, so the driver itself carries no
+    instrumentation."""
+
+    def __init__(self, bench):
+        self.host, self.events, self.passes = [], [], []
+        cache, step = bench.cache, bench.pass_step
+        begin, end = cache.begin_pass, cache.end_pass
+
+        def begin_pass(*args, **kwargs):
+            rec = {"begin": self.mark()}
+            begin(*args, **kwargs)
+            rec["steps"] = [self.mark()]
+            self.passes.append(rec)
+
+        def pass_step(*args, **kwargs):
+            loss = step(*args, **kwargs)
+            self.passes[-1]["steps"].append(self.mark())
+            return loss
+
+        def end_pass(*args, **kwargs):
+            end(*args, **kwargs)
+            self.passes[-1]["end"] = self.mark()
+
+        cache.begin_pass, cache.end_pass = begin_pass, end_pass
+        bench.pass_step = pass_step
+
+    def mark(self) -> int:
+        self.host.append(time.perf_counter())
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        return len(self.host) - 1
+
+    def split(self, rec: dict) -> dict:
+        """A pass's parts in ms, host and device, and its steps' device ms
+        (after a wait for the card)."""
+        host = lambda a, b: (self.host[b] - self.host[a]) * 1e3
+        dev = lambda a, b: self.events[a].elapsed_time(self.events[b])
+        steps = rec["steps"]
+        return {"host_begin_ms": host(rec["begin"], steps[0]),
+                "host_steps_ms": host(steps[0], steps[-1]),
+                "host_end_ms": host(steps[-1], rec["end"]),
+                "device_begin_ms": dev(rec["begin"], steps[0]),
+                "device_steps_ms": dev(steps[0], steps[-1]),
+                "device_end_ms": dev(steps[-1], rec["end"]),
+                "step_ms": [dev(a, b) for a, b in zip(steps, steps[1:])]}
+
+
+def phase_widedeep(dev, seed):
+    """Phase 31: ``measure_widedeep`` at bench.py's accelerator sizes,
+    launch counts reset just before ``WideDeepBench.run()`` and read just
+    after (one fused_update a step: the warm pass's 2 and the timed 60;
+    no other kernel of the port), then a profiled pass, as many passes
+    again with their parts marked (``_PassMarks``) and the eager path."""
+    from paddle_tpu_torch.models.wide_deep import (ACCELERATOR_SIZES,
+                                                   STEPS_PER_PASS,
+                                                   WideDeepBench)
+
+    sizes = ACCELERATOR_SIZES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with WideDeepBench(sizes, dev, seed=seed) as bench:
+        updater = bench.pass_step.updater
+        reset_train_launch_counts()
+        run = bench.run()
+        counts = train_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {k: 0 for k in counts}
+        want["fused_update"] = len(run["losses"])
+        if counts != want:
+            raise AssertionError(f"launch counts {counts}, expected {want}")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise AssertionError(f"non-finite Wide&Deep loss: "
+                                 f"{run['losses']}")
+        if not (0.5 < run["auc"] <= 1.0
+                and run["table_rows"] == sizes.vocab):
+            raise AssertionError(f"AUC {run['auc']}, table "
+                                 f"{run['table_rows']}")
+        if len(updater.buckets) != 1 or updater.buckets[0].size != 8321:
+            raise AssertionError(f"the dense plan: "
+                                 f"{[b.size for b in updater.buckets]}")
+        batches = [bench.make_batch(sizes.batch)
+                   for _ in range(sizes.steps)]
+        profile = widedeep_profile(
+            lambda: bench.run_pass(batches[:STEPS_PER_PASS]),
+            STEPS_PER_PASS)
+        marks = _PassMarks(bench)
+        for i in range(0, sizes.steps, STEPS_PER_PASS):
+            bench.run_pass(batches[i:i + STEPS_PER_PASS])
+        torch.cuda.synchronize()
+        passes = [marks.split(r) for r in marks.passes]
+        eager = _wd_eager(bench)
+    step_ms = [ms for p in passes for ms in p["step_ms"]]
+    split = {k: statistics.median(p[k] for p in passes)
+             for k in passes[0] if k != "step_ms"}
+    summary = {"sizes": dict(sizes._asdict()),
+               "examples_per_s": run["examples_per_s"],
+               "seconds": run["seconds"], "auc": run["auc"],
+               "loss": run["loss"], "table_rows": run["table_rows"],
+               "launches": counts,
+               "update_launches_per_step": counts["fused_update"]
+               / len(run["losses"]),
+               "buckets": [b.size for b in updater.buckets],
+               "peak_memory_gib": peak, "profile": profile,
+               "marked_step_ms_median": statistics.median(step_ms),
+               "marked_step_ms_min": min(step_ms),
+               "marked_step_ms_max": max(step_ms),
+               "marked_pass_split_median_ms": split, "eager": eager}
+    log("widedeep " + json.dumps(summary))
+    log(f"widedeep (bench.py's accelerator sizes: batch {sizes.batch} x "
+        f"{sizes.slots} slots, {sizes.steps} steps in passes of "
+        f"{STEPS_PER_PASS}, vocab {sizes.vocab}, dim 8): "
+        f"{run['examples_per_s']:.1f} examples/s, AUC {run['auc']:.6f} "
+        f"over 4096 held-out rows, last loss {run['loss']:.7f}, table "
+        f"{run['table_rows']} rows; fused_update "
+        f"{summary['update_launches_per_step']:.0f} a step; peak "
+        f"{peak:.4f} GiB. Marked passes: step "
+        f"{summary['marked_step_ms_median']:.4f} ms (device, median); a "
+        f"pass (median, host | device ms): begin_pass "
+        f"{split['host_begin_ms']:.3f} | {split['device_begin_ms']:.3f}, "
+        f"steps {split['host_steps_ms']:.3f} | "
+        f"{split['device_steps_ms']:.3f}, end_pass "
+        f"{split['host_end_ms']:.3f} | {split['device_end_ms']:.3f}")
+    log(f"widedeep eager ({eager['steps']} steps of distributed_lookup_table"
+        f", the MLP, backward() pushing through the async communicator, "
+        f"Adam.step()): {eager['examples_per_s']:.1f} examples/s against "
+        f"the pass step's {run['examples_per_s']:.1f} in this call")
+    if not math.isfinite(eager["loss"]):
+        raise AssertionError(f"eager loss {eager['loss']}")
+    return counts, updater.buckets, summary
+
+
+def _adam_timing(dev, gen, buckets, flush):
+    """Wide&Deep's dense update (its plan: one fp32 bucket of the MLP's
+    8,321 elements, Adam(1e-3); ``bucket_updater``'s scales): the one
+    launch held bit for bit against its plain walk over 3 steps; then, in
+    one call, the update as FusedFlatUpdater.step() calls it, the kernel
+    alone, the plain walk and ``torch._fused_adam_`` over the same
+    bucket, timed; the bound: p, g, m1 and m2 read, p, m1 and m2
+    written, 28 bytes an element."""
+    from torch_checks import FUSED_HYPER, buckets_vs_plain
+
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    sizes = [b.size for b in buckets]
+    upd = bucket_updater(sizes, gen, make_opt=lambda ps: optim.Adam(
+        learning_rate=1e-3, parameters=ps))
+    lr = torch.full((), 1e-3, device=dev)
+    ps = [upd._flat_p[i] for i in range(len(sizes))]
+    gs = [upd._flat_g[i] for i in range(len(sizes))]
+    m1 = [upd._slots[i]["moment1"] for i in range(len(sizes))]
+    m2 = [upd._slots[i]["moment2"] for i in range(len(sizes))]
+    entries = [(p.clone(), g.clone(), [a.clone(), c.clone()], 0.0, 1.0)
+               for p, g, a, c in zip(ps, gs, m1, m2)]
+    launches = buckets_vs_plain("adam", FUSED_HYPER["adam"], entries, lr,
+                                steps=3, gen=gen)
+    del entries
+    if launches != 3:
+        raise AssertionError(f"fused_update_buckets: {launches} launches "
+                             f"for 3 adam steps")
+    log(f"fused_update, adam over Wide&Deep's {len(sizes)} fp32 bucket(s) "
+        f"({sizes} elements): bit-identical to its plain walk over 3 "
+        f"steps, beta powers included, in {launches} launches")
+    table = upd._table
+    if table.kind != "adam":
+        raise AssertionError(f"the updater's rule is {table.kind}")
+
+    def kernel():   # the same powers each time
+        fu.fused_update_buckets(table, lr)
+        table.parity = 1 - table.parity
+
+    def plain():
+        fu.buckets_plain(table, lr)
+
+    a1, a2 = [a.clone() for a in m1], [c.clone() for c in m2]
+    steps = [torch.full((), 4.0, device=dev) for _ in sizes]
+
+    def library():
+        torch._fused_adam_(ps, gs, a1, a2, [], steps, lr=1e-3, beta1=0.9,
+                           beta2=0.999, weight_decay=0.0, eps=1e-8,
+                           amsgrad=False, maximize=False)
+
+    n = sum(sizes)
+    # read p, g, m1, m2; write p, m1, m2 (fp32); ~20 operations an element
+    bound_ms, bound_by = work_bound(28 * n, 20 * n)
+    return {"shape": f"{len(sizes)} bucket(s), {n} elements (one step, "
+                     f"float32, adam)",
+            "library_form": "torch._fused_adam_, fp32 moments",
+            "max_abs_err": 0.0, "step_ms": median_ms(upd.step, flush),
+            "ms": median_ms(kernel, flush),
+            "library_ms": median_ms(library, flush),
+            "step_span_ms": span_ms(upd.step, flush),
+            "span_ms": span_ms(kernel, flush),
+            "library_span_ms": span_ms(library, flush),
+            "plain_ms": median_ms(plain, flush), "bound_ms": bound_ms,
+            "bound_by": bound_by, "largest_bucket": max(sizes),
+            "smallest_bucket": min(sizes)}
+
+
+def phase_widedeep_update(dev, gen, buckets):
+    """Row 6 at Wide&Deep's plan (phase 31's buckets), timed three ways
+    beside ``torch._fused_adam_`` and the bound."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    row = _adam_timing(dev, gen, buckets, flush)
+    log(f"fused_update, Wide&Deep's {row['shape']}, one launch, device "
+        f"time (from an idle card): as FusedFlatUpdater.step() calls it "
+        f"{row['step_ms']:.4f} ms ({row['step_span_ms']:.4f}), the kernel "
+        f"alone {row['ms']:.4f} ({row['span_ms']:.4f}), torch._fused_adam_ "
+        f"{row['library_ms']:.4f} ({row['library_span_ms']:.4f}); plain "
+        f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.5f} "
+        f"{row['bound_by']}, the kernel at "
+        f"{100 * row['bound_ms'] / row['ms']:.2f}% of it")
+    del flush
+    return row
+
+
+def _wd_first_step(device, seed):
+    """One pass step at bench.py's CPU sizes on ``device`` (the bench's
+    set-up, its first batch and a second in the pass): the loss, the dense
+    parameters before and after and their gradients, the slab before and
+    after and the slab's gradient (caught in the table rule), all on the
+    CPU, and ``dz_abs_sum``: the sum of the sizes of the batch's
+    dL/dlogit, ``|sigmoid(z) - y| / batch``, which the output bias's
+    gradient adds up."""
+    from paddle_tpu_torch.models.wide_deep import CPU_SIZES, WideDeepBench
+
+    with WideDeepBench(CPU_SIZES, device, seed=seed) as bench:
+        b0, b1 = (bench.make_batch(CPU_SIZES.batch) for _ in range(2))
+        cache, step = bench.cache, bench.pass_step
+        cache.begin_pass(np.concatenate([b0[0].reshape(-1),
+                                         b1[0].reshape(-1)]),
+                         pad_to=CPU_SIZES.vocab)
+        caught = {}
+        rule = step._table_rule
+
+        def spy(cache_, rows, g):
+            caught["g_rows"] = g.detach().cpu().clone()
+            rule(cache_, rows, g)
+
+        step._table_rule = spy
+        named = dict(bench.deep.named_parameters())
+        before = {n: p.detach().cpu().clone() for n, p in named.items()}
+        rows0 = cache._rows.detach().cpu().clone()
+        with torch.no_grad():
+            flat = cache.lookup(b0[0]).reshape(CPU_SIZES.batch, -1)
+            z = bench.deep(flat)[:, 0].cpu()
+        dz = (torch.sigmoid(z) - torch.as_tensor(b0[1])) / CPU_SIZES.batch
+        loss = float(step(cache, b0))
+        out = {"loss": loss, "rows0": rows0,
+               "rows1": cache._rows.detach().cpu().clone(),
+               "gacc": cache._gacc.detach().cpu().clone(), **caught,
+               "dz_abs_sum": float(dz.abs().sum()),
+               "params": {n: (before[n], p.detach().cpu().clone(),
+                              p.grad.detach().cpu().clone())
+                          for n, p in named.items()}}
+        cache.end_pass(assign=True)
+    return out
+
+
+def _wd_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _wd_run(device, seed, weights=None):
+    """``WideDeepBench.run()`` at bench.py's CPU sizes: losses, AUC, the
+    table's rows and a pull of fresh keys (never seen in the run)."""
+    from paddle_tpu_torch.models.wide_deep import CPU_SIZES, WideDeepBench
+
+    with WideDeepBench(CPU_SIZES, device, weights=weights,
+                       seed=seed) as bench:
+        run = bench.run()
+        table = bench.ps.tables[0]
+        keys = np.sort(table.keys())
+        fresh = np.arange(10 ** 9, 10 ** 9 + 64, dtype=np.uint64)
+        run.update(rows=table.pull(keys, create_if_missing=False),
+                   keys=keys, fresh=table.pull(fresh))
+    return run
+
+
+def phase_widedeep_parity(dev, seed):
+    """Phase 32: ``WideDeepBench.run()`` at bench.py's CPU sizes (128 x
+    8, 30 steps, vocab 2000) on the card and on the CPU in this process
+    (one host table library), same batches, same seeded weights. The
+    first step: loss, dense gradients and the slab's gradient within
+    ``WD_FIRST_RTOL`` (of each tensor's largest; the output bias's of
+    the sum of its terms' sizes), Adam's step by ``adam_step_parity``,
+    and the card's
+    Adagrad update equal bit for bit to the rule applied in numpy's fp32
+    to the card's own slab gradient. The whole run: every loss, the
+    table's rows and the AUC within the larger of ``WD_NOISE_FACTOR``
+    times the CPU's own move under one ulp of the deep arm's weights and
+    ``WD_FLOORS``. Two card runs bit-identical, or where they first part
+    printed; fresh keys pulled bit-identical in every run."""
+    from torch_checks import adam_step_parity
+
+    from paddle_tpu_torch.models.convert import dense_state_dict_from_numpy
+    from paddle_tpu_torch.models.wide_deep import CPU_SIZES, deep_mlp
+
+    card, cpu = _wd_first_step(dev, seed), _wd_first_step("cpu", seed)
+    first = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+             "g_rows": _wd_rel(card["g_rows"], cpu["g_rows"]),
+             "grads": {n: _wd_rel(card["params"][n][2], cpu["params"][n][2])
+                       for n in cpu["params"]}}
+    bias = WD_OUT_BIAS
+    g_bias = cpu["params"][bias][2].abs().max()
+    bias_rtol = WD_FIRST_RTOL * cpu["dz_abs_sum"] / float(g_bias)
+    first["out_bias_of_terms"] = (first["grads"][bias] * float(g_bias)
+                                  / cpu["dz_abs_sum"])
+    log(f"widedeep first step card vs CPU, of each tensor's largest: "
+        f"{first}; the output bias's gradient {float(g_bias):.3e}, its "
+        f"terms' sizes sum to {cpu['dz_abs_sum']:.4f}")
+    rest = [n for n in cpu["params"] if n != bias]
+    adam = adam_step_parity({n: card["params"][n] for n in rest},
+                            {n: cpu["params"][n] for n in rest}, 1e-3,
+                            grad_rtol=WD_FIRST_RTOL)
+    adam_bias = adam_step_parity({bias: card["params"][bias]},
+                                 {bias: cpu["params"][bias]}, 1e-3,
+                                 grad_rtol=bias_rtol)
+    g, rows0 = card["g_rows"].numpy(), card["rows0"].numpy()
+    gacc = g * g
+    want = rows0 - np.float32(0.1) * g / np.sqrt(gacc + np.float32(1e-8))
+    rule_bits = (np.array_equal(card["gacc"].numpy(), gacc)
+                 and np.array_equal(card["rows1"].numpy().view(np.uint32),
+                                    want.view(np.uint32)))
+    log(f"widedeep first step card vs CPU: loss {card['loss']:.8f} vs "
+        f"{cpu['loss']:.8f} (rel {first['loss']:.2e}), dense gradients "
+        f"{adam['grad_rtol']:.2e} of the largest, the output bias's "
+        f"{first['out_bias_of_terms']:.2e} of its terms' sizes, slab "
+        f"gradient {first['g_rows']:.2e}, Adam's clear steps "
+        f"{max(adam['clear_step_diff_lr'], adam_bias['clear_step_diff_lr']):.2e}"
+        f" lr apart ({100 * adam['clear_share']:.1f}% clear, the output "
+        f"bias apart); the card's Adagrad "
+        f"update the rule on its own gradient bit for bit: {rule_bits}")
+    if not (first["loss"] <= WD_FIRST_RTOL
+            and first["g_rows"] <= WD_FIRST_RTOL and rule_bits):
+        raise AssertionError(f"widedeep first step: {first}, rule "
+                             f"{rule_bits}")
+    runs = {"card": _wd_run(dev, seed), "card again": _wd_run(dev, seed),
+            "cpu": _wd_run("cpu", seed)}
+    proto = deep_mlp(CPU_SIZES.slots, device="cpu", seed=seed)
+    arrays = {n: t.detach().numpy().copy()
+              for n, t in proto.named_parameters()}
+    noise = {"losses": 0.0, "rows": 0.0, "auc": 0.0}
+    base = runs["cpu"]
+    for name, way in WD_NOISE_DRAWS:
+        moved = dict(arrays)
+        moved[name] = np.nextafter(arrays[name],
+                                   np.float32(way * np.inf))
+        r = _wd_run("cpu", seed, dense_state_dict_from_numpy(moved, proto))
+        noise["losses"] = max(noise["losses"],
+                              _wd_rel(r["losses"], base["losses"]))
+        noise["rows"] = max(noise["rows"], _wd_rel(r["rows"], base["rows"]))
+        noise["auc"] = max(noise["auc"], abs(r["auc"] - base["auc"]))
+    a, b = runs["card"], runs["cpu"]
+    if not np.array_equal(a["keys"], b["keys"]):
+        raise AssertionError("the card's and the CPU's tables hold other "
+                             "keys")
+    errs = {"losses": _wd_rel(a["losses"], b["losses"]),
+            "rows": _wd_rel(a["rows"], b["rows"]),
+            "auc": abs(a["auc"] - b["auc"])}
+    limits = {k: max(WD_NOISE_FACTOR * noise[k], WD_FLOORS[k])
+              for k in errs}
+    log(f"widedeep at bench.py's CPU sizes, card vs CPU: {errs}; limits "
+        f"{limits} (the CPU's own move at one ulp of the deep weights, "
+        f"{len(WD_NOISE_DRAWS)} draws: {noise}); AUC card "
+        f"{a['auc']:.7f}, CPU {b['auc']:.7f}; examples/s card "
+        f"{a['examples_per_s']:.1f}, CPU {b['examples_per_s']:.1f}")
+    bad = [k for k in errs if not errs[k] <= limits[k]]
+    if bad:
+        raise AssertionError(f"widedeep card vs CPU: {bad} over the limit")
+    c2 = runs["card again"]
+    same = {"losses": a["losses"] == c2["losses"],
+            "rows": np.array_equal(a["rows"].view(np.uint32),
+                                   c2["rows"].view(np.uint32)),
+            "auc": a["auc"] == c2["auc"]}
+    if all(same.values()):
+        log("widedeep: two card runs bit-identical (losses, table rows, "
+            "AUC)")
+    else:
+        again = _wd_first_step(dev, seed)
+        part = next((i for i, (x, y) in enumerate(zip(a["losses"],
+                                                      c2["losses"]))
+                     if x != y), None)
+        slab = torch.equal(again["g_rows"], card["g_rows"])
+        dense = all(torch.equal(again["params"][n][2], card["params"][n][2])
+                    for n in card["params"])
+        log(f"widedeep: two card runs differ: {same}; the losses first at "
+            f"step {part}; a second first step's slab gradient equal: "
+            f"{slab} (the gather's backward), its dense gradients equal: "
+            f"{dense} (cuBLAS)")
+    fresh = [r["fresh"] for r in runs.values()]
+    if not all(np.array_equal(f.view(np.uint32), fresh[0].view(np.uint32))
+               for f in fresh):
+        raise AssertionError("fresh-key pulls differ between the runs")
+    log(f"widedeep: fresh-key pulls bit-identical in all {len(fresh)} runs "
+        f"(one host table library in this process)")
+    return {"first": {**first, **adam, "out_bias": adam_bias},
+            "errs": errs, "limits": limits,
+            "noise": noise, "card_runs_identical": same}
+
 def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
                  bf16_rows, bf16_counts, dp16, ce_rows, ce_counts, bert_run,
-                 resnet_run):
+                 resnet_run, widedeep_run):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -3651,7 +4206,9 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     an entry of its own at the O2 int8 forward's most launched shape,
     its launches phase 27's timed forwards'. ResNet-50's update (phases
     29 and its row) is an ``at_shapes`` entry of ``fused_update``: the
-    momentum rule over its fp32 plan, with phase 29's launches."""
+    momentum rule over its fp32 plan, with phase 29's launches; so is
+    Wide&Deep's (phase 31 and its row): the adam rule over its one fp32
+    bucket, with phase 31's launches."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -3773,9 +4330,10 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     if counts_ce["ce_chunk_fwd"] != loss_chunks(run["cfg_ce"]) * steps:
         raise AssertionError("the fused BERT step's chunk launches are not "
                              "the timed steps'")
-    by_name["fused_update"]["at_shapes"].append(dict(
-        _numbers(resnet_run["row"]),
-        launches_at_shape=resnet_run["counts"]["fused_update"]))
+    for extra in (resnet_run, widedeep_run):
+        by_name["fused_update"]["at_shapes"].append(dict(
+            _numbers(extra["row"]),
+            launches_at_shape=extra["counts"]["fused_update"]))
     main, *rest = run["qmm_rows"]
     out.append(dict(name="quant_matmul_bf16", route="cuda",
                     source=qm.KERNEL_SOURCE,
@@ -4056,6 +4614,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_resnet_parity(dev, gen, args.seed)
     log(f"phases 29-30 (resnet50): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # bench.py's widedeep mode (measure_widedeep), then card against CPU
+    t0 = time.perf_counter()
+    counts31, plan_wd, _ = phase_widedeep(dev, args.seed)
+    before = clocks("before widedeep update")
+    row_wd = phase_widedeep_update(dev, gen, plan_wd)
+    stamp([row_wd], before, clocks("after widedeep update"))
+    log_ratios("widedeep update", {"fused_update widedeep": row_wd})
+    phase_widedeep_parity(dev, args.seed)
+    log(f"phases 31-32 (widedeep): {time.perf_counter() - t0:.1f} s")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
@@ -4064,8 +4633,8 @@ def main(argv=None) -> int:
                                   infer_rows, conversion, infer_counts,
                                   dp_row, carrier_rows, dp_rank, bf16_rows,
                                   bf16_counts, dp16, ce_rows, ce_counts,
-                                  bert, {"counts": counts29,
-                                         "row": row_r})))
+                                  bert, {"counts": counts29, "row": row_r},
+                                  {"counts": counts31, "row": row_wd})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

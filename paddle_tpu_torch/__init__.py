@@ -28,7 +28,10 @@ points), and int8 BERT on bf16 activations through the bf16 form of the
 quantized matmul (``csrc/quant_matmul.cu``); then ``bench.py``'s
 ResNet-50 training under O2 (convolutions on cuDNN, the reference's
 BatchNorm, pooling, ``vision.models.resnet``) on the fused Momentum
-update:
+update; then ``bench.py``'s Wide&Deep on the parameter server: the host
+sparse table (native C++, built with ``g++``), the local PS, its
+communicators, the pass cache on the card, the pass step (the dense Adam
+on the fused update, the table's Adagrad over the slab) and the AUC:
 
   amp/         auto_cast (the reference's O1/O2 lists and cast rules),
                the cast points' amp_cast_inputs, decorate, GradScaler
@@ -37,24 +40,32 @@ update:
                cast point
   framework/   device resolution (cuda by default), flags, GEMM
                precision, per-request random streams
+  core/        the host sparse table (the reference's C++ source, built
+               with g++ at first use, ctypes)
+  metric/      Accuracy, Precision, Recall, Auc (host numpy)
   models/      GPTConfig/presets, numpy-seeded GPTForCausalLM parameters
                and training forward, GPTPretrainingCriterion;
                BertConfig/presets, BertForPretraining (the MLM loss,
-               fused or not) and BertPretrainingCriterion;
+               fused or not) and BertPretrainingCriterion; WideDeep and
+               bench.py's widedeep run (WideDeepBench.run);
                weight conversion from the JAX models' numpy arrays
                (GPT, BERT, ResNet)
   nn/          Linear ([in, out] weights), Embedding, Dropout, LayerNorm,
                the transformer encoder, Conv1D/2D/3D, BatchNorm*,
-               MaxPool2D, AvgPool2D, AdaptiveAvgPool2D, ReLU,
-               Sequential, Flatten; linear, embedding, dropout, gelu,
-               relu, tanh, layer_norm, batch_norm, conv, pooling,
-               cross_entropy and scaled dot-product attention
-               functionals; ClipGradBy*
+               MaxPool2D, AvgPool2D, AdaptiveAvgPool2D, ReLU, Sigmoid,
+               Sequential, Flatten, BCELoss, BCEWithLogitsLoss; linear,
+               embedding, dropout, gelu, relu, sigmoid, tanh,
+               layer_norm, batch_norm, conv, pooling, cross_entropy,
+               the binary cross-entropies and scaled dot-product
+               attention functionals; ClipGradBy*
   vision/      the ResNet family (resnet18..152, ResNeXt, wide ResNets)
   incubate/    fused_linear_cross_entropy (the chunked LM head + loss)
   quantization/ Int8Linear and convert_to_int8
   distributed/ the process group (env, spawn), collectives, the wire
-               codecs and bucket plan, GradCommunicator, DataParallel
+               codecs and bucket plan, GradCommunicator, DataParallel;
+               ps/: LocalPs, DenseTable, TheOnePSRuntime, the sync,
+               async and geo communicators, distributed_lookup_table,
+               DevicePassCache, heter_embedding, CompiledPassStep
   ops/         kernel wrappers (kernel on CUDA, plain on CPU) for the
                codec, flash attention, the fused update (plain and
                dequantizing), the int8 quantize/quantized matmul and the
@@ -68,6 +79,6 @@ update:
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; a CUDA request without a card raises.
 """
-from . import nn, quantization, vision
+from . import metric, nn, quantization, vision
 
-__all__ = ["nn", "quantization", "vision"]
+__all__ = ["metric", "nn", "quantization", "vision"]

@@ -6,7 +6,8 @@ One process per rank over ``torch.distributed``: ``spawn`` starts the
 ranks, ``init_parallel_env`` their process group, the collectives reduce
 tensors in place, ``GradCommunicator`` reduces gradient buckets through
 the wire codecs and ``DataParallel`` wraps a model for eager data
-parallelism.
+parallelism. ``distributed.ps`` is the parameter server (reference:
+``paddle_tpu/distributed/ps``), imported on its own.
 """
 from __future__ import annotations
 

@@ -3,13 +3,14 @@
 The caller extracts the JAX model's named parameters as numpy arrays
 (``{name: np.asarray(p._value)}``); this module turns them into the
 port's ``state_dict``, for ``GPTForCausalLM`` (``state_dict_from_numpy``),
-``BertForPretraining`` (``bert_state_dict_from_numpy``) and the ResNet
-family (``resnet_state_dict_from_numpy``: the parameters and the batch
+``BertForPretraining`` (``bert_state_dict_from_numpy``) and any layer
+whose names and shapes are read off the port's own model
+(``dense_state_dict_from_numpy``: the ResNet family, with the batch
 norms' ``_mean``/``_variance`` buffers, from the reference's
-``Layer.state_dict()``). The names are the same on both sides, so the
-mapping checks names, shapes and dtype and copies the bytes unchanged;
-BERT's and ResNet's expected names and shapes are read off the port's
-own model (``bert_layout``, the ResNet given). The port itself never
+``Layer.state_dict()``; Wide&Deep's dense arms). The names are the same
+on both sides, so the mapping checks names, shapes and dtype and copies
+the bytes unchanged; BERT's expected names and shapes are read off the
+port's own model too (``bert_layout``). The port itself never
 sees JAX.
 
 A bf16 GPT's parameters arrive as ``ml_dtypes`` bfloat16 arrays (what
@@ -38,7 +39,7 @@ from .gpt import PORTED_DTYPES, GPTConfig, block_shapes
 
 __all__ = ["expected_shapes", "expected_dtypes", "state_dict_from_numpy",
            "bert_layout",
-           "bert_state_dict_from_numpy", "resnet_state_dict_from_numpy",
+           "bert_state_dict_from_numpy", "dense_state_dict_from_numpy",
            "grad_comm_state_for_rank",
            "grad_comm_state_to_reference"]
 
@@ -133,15 +134,18 @@ def bert_state_dict_from_numpy(params: Dict[str, np.ndarray],
     return out
 
 
-def resnet_state_dict_from_numpy(arrays: Dict[str, np.ndarray],
-                                 model: torch.nn.Module
-                                 ) -> Dict[str, object]:
-    """The reference ResNet's ``state_dict()`` as numpy arrays
-    (``{n: np.asarray(t._value)}``: parameters and the batch norms'
-    running buffers) -> the port's ``state_dict`` for ``model``, a
-    ResNet of the same layout (depth, width, groups, classes), each name
-    and shape checked against it. Its ``Linear`` keeps its own weight
-    name."""
+def dense_state_dict_from_numpy(arrays: Dict[str, np.ndarray],
+                                model: torch.nn.Module
+                                ) -> Dict[str, object]:
+    """A reference layer's ``state_dict()`` as numpy arrays (``{n:
+    np.asarray(t._value)}``: parameters and buffers) -> the port's
+    ``state_dict`` for ``model``, a port layer of the same layout, each
+    name and shape checked against it: a ResNet of the same depth,
+    width, groups and classes (with the batch norms' running buffers),
+    ``WideDeep``, ``bench.py``'s deep ``Sequential`` MLP
+    (``models/wide_deep.py`` ``deep_mlp``).
+    A ``Linear`` weight stays ``[in, out]``; each ``Linear`` keeps its own
+    weight name."""
     want = {n: tuple(t.shape) for n, t in
             [*model.named_parameters(), *model.named_buffers()]}
     out: Dict[str, object] = dict(_copy_checked(arrays, want))

@@ -1,5 +1,5 @@
 """Activations (reference: ``paddle_tpu/nn/functional/activation.py``
-``gelu``, ``relu``, ``tanh``), each a cast point of ``amp`` under its op
+``gelu``, ``relu``, ``sigmoid``, ``tanh``), each a cast point of ``amp`` under its op
 name."""
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import torch.nn.functional as F
 
 from ...amp import cast
 
-__all__ = ["gelu", "relu", "tanh"]
+__all__ = ["gelu", "relu", "sigmoid", "tanh"]
 
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
@@ -21,6 +21,11 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
 def relu(x: torch.Tensor) -> torch.Tensor:
     (x,) = cast("relu", x)
     return torch.relu(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    (x,) = cast("sigmoid", x)
+    return torch.sigmoid(x)
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:

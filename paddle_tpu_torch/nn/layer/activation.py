@@ -1,12 +1,13 @@
 """Activation layers (reference: ``paddle_tpu/nn/layer/activation.py``
-``ReLU``, line 30; the others are not ported yet)."""
+``ReLU`` and ``Sigmoid``, lines 30 and 33; the others are not ported
+yet)."""
 from __future__ import annotations
 
 from torch import nn
 
 from .. import functional as F
 
-__all__ = ["ReLU"]
+__all__ = ["ReLU", "Sigmoid"]
 
 
 class ReLU(nn.Module):
@@ -17,3 +18,13 @@ class ReLU(nn.Module):
 
     def forward(self, x):
         return F.relu(x)
+
+
+class Sigmoid(nn.Module):
+    """``F.sigmoid`` (the cast point "sigmoid")."""
+
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.sigmoid(x)

@@ -2,8 +2,9 @@
 ``paddle_tpu/observability/metrics.py``).
 
 Only what the port's serving engine and queue, its fused optimizer
-update (``fused_bucket_updates_total``) and its gradient wire
-(``collectives_total``, the four ``grad_comm_*`` families) use:
+update (``fused_bucket_updates_total``), its gradient wire
+(``collectives_total``, the four ``grad_comm_*`` families) and its
+parameter-server communicator (``ps_rpcs_total`` by op) use:
 labelled families, cumulative bucket histograms with Prometheus-style
 quantile estimates, a JSON-safe snapshot and a reset. Exemplars, text exposition and JSONL export stay
 in the reference until a later slice needs them. Pure stdlib.

@@ -19,7 +19,7 @@ list), ReLU casts them back to bf16 and the loss runs in fp32.
 Parameters are drawn from ``np.random.RandomState(seed)`` in the
 layers' creation order (``nn/layer/conv.py``, ``nn/layer/common.py``):
 not the reference's draws, so weights are carried across with
-``models/convert.py`` ``resnet_state_dict_from_numpy``. ``pretrained``
+``models/convert.py`` ``dense_state_dict_from_numpy``. ``pretrained``
 raises, as in the reference: no weights are bundled.
 
 Numerics: each forward enters the GEMM settings of the parameters'
@@ -202,7 +202,7 @@ def _resnet(arch, Block, depth, pretrained, **kwargs):
         raise ValueError(
             "pretrained weights are not bundled with paddle_tpu_torch (no "
             "model hub in this environment); load a converted state_dict "
-            "(models/convert.py resnet_state_dict_from_numpy) instead")
+            "(models/convert.py dense_state_dict_from_numpy) instead")
     return ResNet(Block, depth, **kwargs)
 
 

@@ -1,12 +1,12 @@
 """Port ResNet training (``paddle_tpu_torch``: ``nn.functional`` conv,
 batch_norm and pooling, the ``Conv2D``/``BatchNorm*``/pooling/``ReLU``/
 ``Sequential``/``Flatten`` layers, ``tensor.flatten``,
-``vision.models.resnet``, ``resnet_state_dict_from_numpy``, ``TrainStep``
+``vision.models.resnet``, ``dense_state_dict_from_numpy``, ``TrainStep``
 with Momentum under ``auto_cast``) against the JAX reference on the CPU:
 ``ResNet`` at ``num_classes=10``, batch 4 x 3 x 64 x 64 from
 ``RandomState(0)`` as ``bench.py``'s ``measure_resnet50`` makes it,
 Momentum(0.01, 0.9), weights and running statistics carried from the
-reference with ``resnet_state_dict_from_numpy``. (At batch 2 and 32 x
+reference with ``dense_state_dict_from_numpy``. (At batch 2 and 32 x
 32 the reference's ResNet-50 diverges within two steps; at 4 x 64 x 64
 it trains.)
 
@@ -102,7 +102,7 @@ import paddle_tpu_torch.nn.functional as F
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import tensor as T
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.models import resnet_state_dict_from_numpy
+from paddle_tpu_torch.models import dense_state_dict_from_numpy
 from paddle_tpu_torch.optimizer import Momentum
 from paddle_tpu_torch.vision import models as tmodels
 from test_torch_bert_train import _ctx, _diff, _recording
@@ -175,7 +175,7 @@ def _carried(name, seed=0):
     paddle.seed(seed)
     jm = getattr(jmodels, name)(num_classes=CLASSES)
     tm = getattr(tmodels, name)(num_classes=CLASSES, device="cpu")
-    tm.load_state_dict(resnet_state_dict_from_numpy(_jstate(jm), tm))
+    tm.load_state_dict(dense_state_dict_from_numpy(_jstate(jm), tm))
     return jm, tm
 
 
