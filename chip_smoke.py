@@ -325,15 +325,20 @@ when every phase passed):
               the reference's int8 layers get bf16 x, and 46 fp32
               quant_matmul, where a layer_norm feeds them; 12
               flash_fwd_bf16), MLM logits bf16 and NSP logits fp32,
-              forward ms beside phase 10's, the profile; then
-              quant_matmul_bf16 at each shape it launched (and a ragged
-              one) against its plain version (tests/torch_checks.py
-              qmm_bf16_vs_plain: 2 k 2^-24 (|x| @ |q|) s plus one bf16
-              ulp), timed beside bf16 torch.matmul on the dequantized
-              bf16 weight, bounds from bytes at 3.35 TB/s and operations
-              at 989 TFLOP/s bf16; its launches by route (27 a forward
-              on the wgmma route at m = 16 x 512, 2 on mma.sync at m =
-              16: the pooler and the NSP head).
+              forward ms beside phase 10's, the profile; then the same
+              forward at batch 1 x 64 tokens (INFER_B1, 2 + 5 forwards),
+              where every bf16 launch has m <= 64: forward ms, launches
+              by route (29 a forward on the cluster route, 46 fp32), the
+              profile with the cluster route's and qmm_kernel's shares;
+              then quant_matmul_bf16 at each shape either forward
+              launched (and a ragged one a route) against its plain
+              version (tests/torch_checks.py qmm_bf16_vs_plain: 2 k 2^-24
+              (|x| @ |q|) s plus one bf16 ulp), timed beside bf16
+              torch.matmul on the dequantized bf16 weight, bounds from
+              bytes at 3.35 TB/s and operations at 989 TFLOP/s bf16; its
+              launches by route (at 16 x 512: 27 a forward on the wgmma
+              route at m = 8192, 2 on the cluster route at m = 16, the
+              pooler and the NSP head).
  28. gpt O2 parity
               one TrainStep of the fp32 GPT at GPT-125M width with 2
               layers, b2 s128, under auto_cast(level="O2") on the card
@@ -470,6 +475,8 @@ FLASH_BERT = (16, 12, 512, 64)      # [b, n, s, d] of every infer launch
 RAGGED_CODEC = 4 * EPT + 1001      # n % 1024 != 0 and n % 4 != 0
 RAGGED_QUANT = (1000, 37)
 RAGGED_QMM = (1000, 100, 37)
+RAGGED_QMM_SMALL = (33, 100, 37)    # the cluster route's element loads
+INFER_B1 = (1, 64)                  # phase 27's batch-1 forward
 INFER_TOL = 1e-4                    # card vs CPU logits, max abs
 BF16_KERNELS = ("fwd_bf16_kernel", "dq_bf16_kernel", "dkv_bf16_kernel",
                 "update_kernel")
@@ -2128,6 +2135,7 @@ def _qmm_bf16_case(dev, gen, mkn, launches, flush):
     with matmul_precision("float32"):
         library_ms = median_ms(lambda: torch.matmul(x, w), flush)
     r = {"shape": f"({m}, {k}, {n}) bf16", "launches_at_shape": launches,
+         "bf16_route": qm.bf16_route(x, q),
          "max_abs_err": err, "err_over_limit": ratio,
          "ms": median_ms(lambda: qm.quant_matmul(x, q, sc), flush),
          "plain_ms": median_ms(lambda: qm.quant_matmul_plain(x, q, sc),
@@ -2136,7 +2144,7 @@ def _qmm_bf16_case(dev, gen, mkn, launches, flush):
          "torch.matmul(x bf16, dequantized weight bf16)",
          "bound_ms": bound_ms, "bound_by": bound_by}
     log(f"quant_matmul_bf16 {r['shape']} ({launches} in the timed "
-        f"forwards): max abs diff {err:.3e}, at most {ratio:.4f} of the "
+        f"forwards, {r['bf16_route']} route): max abs diff {err:.3e}, at most {ratio:.4f} of the "
         f"limit | {r['ms']:.4f} ms ({2 * m * n * k / r['ms'] / 1e9:.2f} "
         f"TFLOP/s; plain {r['plain_ms']:.4f}, bf16 torch.matmul "
         f"{library_ms:.4f}, bound {bound_ms:.4f} {bound_by}, the kernel at "
@@ -2146,11 +2154,13 @@ def _qmm_bf16_case(dev, gen, mkn, launches, flush):
 
 def phase_infer_kernels_bf16(dev, gen, shapes):
     """Phase 27's kernel rows: ``quant_matmul_bf16`` at every shape the
-    O2 forward launched it at (``shapes``, most launched first) and at a
-    ragged one (k % 8 != 0: x loaded element by element)."""
+    O2 forwards launched it at (``shapes``, most launched first) and at a
+    ragged one a route (k % 8 != 0, n % 16 != 0: element loads; at m > 64
+    the mma.sync route)."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     rows = [_qmm_bf16_case(dev, gen, mkn, n, flush)
-            for mkn, n in [*shapes.most_common(), (RAGGED_QMM, 0)]]
+            for mkn, n in [*shapes.most_common(), (RAGGED_QMM, 0),
+                           (RAGGED_QMM_SMALL, 0)]]
     del flush
     return rows
 
@@ -2294,11 +2304,13 @@ def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
         want = {"quantize_int8": 0, "quant_matmul": len(linears) * iters,
                 "quant_matmul_bf16": 0, "flash_fwd": cfg.num_layers * iters,
                 "flash_fwd_bf16": 0}
-    # the bf16 form's routes: wgmma at m = b * s, mma.sync for the pooler
-    # and the NSP head at m = b
-    want_routes = (Counter({"wgmma": (n16 - 2) * iters,
-                            "mma_sync": 2 * iters}) if level == "O2"
-                   else Counter())
+    # the bf16 form's routes by m: the cluster route for the pooler and the
+    # NSP head at m = b, and at m = b * s where that is at most 64; else
+    # wgmma
+    want_routes = Counter()
+    if level == "O2":
+        want_routes["cluster" if b * s <= 64 else "wgmma"] += (n16 - 2) * iters
+        want_routes["cluster"] += 2 * iters
     got = {k: counts[k] for k in want}
     if got != want or per_forward != weights or \
             counts["routes"] != want_routes:
@@ -2317,7 +2329,10 @@ def _named(counts) -> dict:
                                  for name, c in counts["shapes"].items()}}
 
 
-def phase_infer_profile(model, batch, level=None):
+def phase_infer_profile(model, batch, level=None, tag=""):
+    """One forward profiled: device busy and idle shares, the top kernels
+    and the int8 and flash kernels' shares. Returns (busy us, {kernel
+    name: device us})."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.amp import auto_cast
@@ -2335,7 +2350,7 @@ def phase_infer_profile(model, batch, level=None):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    tag = f" {level}" if level else ""
+    tag = "".join(f" {t}" for t in (level, tag) if t)
     log(f"infer profile{tag}: one forward, wall {wall_us / 1e3:.3f} ms, device "
         f"busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}% busy, "
         f"{100 * (1 - busy_us / wall_us):.1f}% idle), "
@@ -2344,11 +2359,14 @@ def phase_infer_profile(model, batch, level=None):
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
             f"{100 * e.self_device_time_total / busy_us:5.1f}% "
             f"{e.count:5d}x  {e.key[:90]}")
+    split = {}
     for name in ("qmm_kernel", "qmm_wgmma_kernel", "qmm_bf16_kernel",
-                 "fwd_kernel", "fwd_bf16_kernel"):
+                 "qmm_cluster_kernel", "fwd_kernel", "fwd_bf16_kernel"):
         t = sum(e.self_device_time_total for e in kernels if name in e.key)
+        split[name] = t
         log(f"  share of the forward's device time, {name}: "
             f"{100 * t / busy_us:.1f}% ({t / 1e3:.3f} ms)")
+    return busy_us, split
 
 
 def _parity_run(cfg, device, ids, types):
@@ -4334,12 +4352,17 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
         by_name["fused_update"]["at_shapes"].append(dict(
             _numbers(extra["row"]),
             launches_at_shape=extra["counts"]["fused_update"]))
-    main, *rest = run["qmm_rows"]
-    out.append(dict(name="quant_matmul_bf16", route="cuda",
-                    source=qm.KERNEL_SOURCE,
-                    replaces="paddle_tpu/ops/quant_matmul.py:110",
-                    launches=run["infer_counts"]["quant_matmul_bf16"],
-                    **_numbers(main), at_shapes=[_numbers(r) for r in rest]))
+    routes = run["qmm_routes"]
+    for name, cluster in (("quant_matmul_bf16", False),
+                          ("quant_matmul_bf16_cluster", True)):
+        main, *rest = [r for r in run["qmm_rows"]
+                       if (r["bf16_route"] == "cluster") == cluster]
+        out.append(dict(name=name, route="cuda", source=qm.KERNEL_SOURCE,
+                        replaces="paddle_tpu/ops/quant_matmul.py:110",
+                        launches=sum(n for r, n in routes.items()
+                                     if (r == "cluster") == cluster),
+                        routes=dict(routes), **_numbers(main),
+                        at_shapes=[_numbers(r) for r in rest]))
     return {"kernels": out}
 
 
@@ -4394,20 +4417,51 @@ def phase_bert(dev, gen, seed, infer32):
         f"{infer32['samples_per_s']:.1f}, peak "
         f"{infer16['peak_memory_gib']:.2f} GiB against "
         f"{infer32['peak_memory_gib']:.2f}")
+    counts_b1 = phase_infer_b1(dev, seed)
     before = clocks("before int8-kernels bf16")
     qmm_rows = phase_infer_kernels_bf16(
-        dev, gen, infer_counts["shapes"]["quant_matmul_bf16"])
+        dev, gen, infer_counts["shapes"]["quant_matmul_bf16"]
+        + counts_b1["shapes"]["quant_matmul_bf16"])
     stamp(qmm_rows, before, clocks("after int8-kernels bf16"))
     log_ratios("int8-kernels bf16", {str(i): r
                                      for i, r in enumerate(qmm_rows)})
     return {"counts": counts, "counts_ce": counts_ce, "rows": rows,
             "ce_rows": ce_rows, "cfg_ce": cfg_ce, "qmm_rows": qmm_rows,
-            "infer_counts": infer_counts}
+            "qmm_routes": infer_counts["routes"] + counts_b1["routes"]}
+
+
+def phase_infer_b1(dev, seed, b=INFER_B1[0], s=INFER_B1[1]):
+    """Phase 27's second shape: the same int8 BERT-base forward under O2
+    at batch 1 x 64 tokens, where every bf16 launch has m <= 64 (the
+    cluster route) and the fp32 ones take ``qmm_kernel`` (row 9): forward
+    ms, launches by route, device time by kernel and the two routes'
+    shares of it. Returns its launch counts."""
+    _, counts, model, batch, summary = phase_infer(dev, seed, b=b, s=s,
+                                                   level="O2")
+    busy_us, split = phase_infer_profile(model, batch, level="O2",
+                                         tag=f"{b} x {s}")
+    del model, batch
+    torch.cuda.empty_cache()
+    iters = len(summary["forward_ms"])
+    a_forward = {r: n // iters for r, n in counts["routes"].items()}
+    log(f"infer O2 {b} x {s}: forward {summary['forward_ms_median']:.3f} "
+        f"ms (median of {iters}), device busy {busy_us / 1e3:.3f} ms a "
+        f"forward; quant_matmul_bf16 "
+        f"{counts['quant_matmul_bf16'] // iters} launches a forward, by "
+        f"route {a_forward}, the cluster route "
+        f"{split['qmm_cluster_kernel'] / 1e3:.4f} ms "
+        f"({100 * split['qmm_cluster_kernel'] / busy_us:.1f}% of the "
+        f"device time); quant_matmul on fp32 x (row 9) "
+        f"{counts['quant_matmul'] // iters} launches a forward, qmm_kernel "
+        f"{split['qmm_kernel'] / 1e3:.4f} ms "
+        f"({100 * split['qmm_kernel'] / busy_us:.1f}%)")
+    return counts
 
 
 def _numbers(r) -> dict:
     keys = ("shape", "max_abs_err", "ms", "bias_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_form", "launches_at_shape",
+            "bf16_route",
             "err_over_limit", "step_ms", "step_span_ms", "clocks")
     return {k: r[k] for k in keys if k in r}
 

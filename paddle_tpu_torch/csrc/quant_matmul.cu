@@ -96,12 +96,54 @@
 //   permute and one subtraction); two such floats are packed to bf16x2
 //   (exact). Bound: 2 m n k bf16 operations at the H100 SXM data sheet's
 //   989 TFLOP/s (0.0098 ms at (8192, 768, 768), 0.0391 at (8192, 3072,
-//   768)) or, at m <= 64, the int8 weight's bytes. Two routes, chosen by
-//   shape in ops/quant_matmul.py (bf16_route), never by failure:
+//   768)) or, at m <= 64, the int8 weight's bytes. Three routes, chosen
+//   by shape in ops/quant_matmul.py (bf16_route), never by failure:
+//   - cluster (quant_matmul_bf16_cluster), every m <= 64: all 29 launches
+//     of an int8 BERT-base forward under O2 at batch 1 x 64 tokens, the
+//     pooler and the NSP head at any batch. What bounds it: the int8
+//     weight's bytes (0.59 MB at (16, 768, 768), 0.18 us at 3.35 TB/s)
+//     and, under a cold L2, the ~0.6-0.8 us latency of a round trip to
+//     device memory, which at these sizes outweighs the bytes: the design
+//     pays that round trip once a block, in one launch with no workspace.
+//     The k reduction is split over a thread-block cluster: the grid is
+//     n tiles of bn columns (16 or 32 where that holds n, else 64: 12
+//     tiles at n = 768, 96 blocks, which ran faster than 192 blocks of 32
+//     columns) by 8 blocks along k, each cluster (1, 8) one tile
+//     (cudaLaunchKernelEx);
+//     block rank r takes k [r ks, (r + 1) ks), ks = k / 8 rounded up to
+//     16 (ranks past k hold zeros). A block issues every 16-byte cp.async
+//     of its q slice (ks x bn bytes, 3 KB at (16, 768, 768)) and of x's
+//     matching columns for all m rows before it waits for any, then
+//     computes out^T = q^T x^T on mma.sync m16n8k16 bf16: 16 columns of n
+//     fill the 16-row A side and m fills the 8-wide B side in NT = 1, 2, 4
+//     or 8 slots (m = 1 wastes 7/8 of a small product, not 31/32 of a
+//     large one). A comes from ldmatrix.x2.trans of q's 16-bit pairs and
+//     the wgmma route's byte-permute widening (row g stands for column
+//     2g, row g + 8 for 2g + 1); B from ldmatrix of x's rows. Warps split
+//     the tile's 16-column groups and, where fewer than 4, its k16 steps.
+//     Rank r owns columns [r bn / 8, (r + 1) bn / 8) of the tile. Each
+//     warp keeps fp32 sums in registers and stores them straight into
+//     the owner's shared memory through distributed shared memory
+//     (map_shared_rank: stores, which need no round trip, not loads;
+//     each block arrives on a cluster barrier as it starts and waits on
+//     it before its first store, since a peer's shared memory exists only
+//     once the peer runs); after the next cluster barrier the owner adds
+//     the 8 ranks' sums (and its warps' along k) in rank order 0 .. 7
+//     from its own shared memory, times the column's scale (prefetched
+//     with the loads), rounded to bf16 once: deterministic, no atomics,
+//     no second kernel.
+//     No block reads a peer's memory after the barrier, so none has to
+//     wait for its peers before it exits. The NSP head's q (2 bytes a row)
+//     is read as the contiguous bytes it is (element loads, 8 a thread in
+//     flight), not as a 128-column tile of which 126 are padding; k % 8
+//     != 0, an x off the 16-byte grid and n % 16 != 0 take element loads
+//     too. k past 4096 is taken 512 rows a chunk. The shared-memory limit
+//     and a cudaOccupancyMaxActiveClusters check are set once per kernel
+//     instance and device.
 //   - wgmma (quant_matmul_bf16_wgmma), m > 64 where TMA describes both
 //     operands (n % 16 == 0, k % 8 == 0, x and qw 16-byte aligned): 27
-//     of the 29 launches of an int8 BERT-base forward under O2. It
-//     computes out^T = q^T x^T, so that the operand to widen is wgmma's
+//     of the 29 launches of an int8 BERT-base forward under O2 at 16 x
+//     512. It computes out^T = q^T x^T, so that the operand to widen is wgmma's
 //     A, the one that may come from registers: q stays [k, n] in device
 //     memory (no transposed copy: the weight's bytes at rest are a
 //     metric of the int8 slice). A persistent block (one an SM) of one
@@ -131,9 +173,11 @@
 //     widening into shared memory for SS products instead ran 1.2x
 //     slower. Rows, columns and k past the end arrive from TMA as zeros
 //     and are never stored.
-//   - mma.sync (quant_matmul_bf16), the rest (m <= 64, the NSP head's n =
-//     2, ragged pitches, an x off the 16-byte grid): quant_matmul's
-//     tiles, ring and k slices on bf16 x: a (32 MT) x 128 tile, 3 stages
+//   - mma.sync (quant_matmul_bf16), the other m > 64 shapes (the NSP
+//     head's n = 2 at a large batch, ragged pitches, an x off the 16-byte
+//     grid); it was also the route of m <= 64 before the cluster route,
+//     and takes any m still: quant_matmul's tiles, ring and k slices (and
+//     their workspace and second kernel) on bf16 x: a (32 MT) x 128 tile, 3 stages
 //     of k-steps of 32 (two k16 products), x rows pitched 96 bytes so a
 //     warp's 8-byte fragment loads are free of bank conflicts. In a k16
 //     product, mma k-slots (2t, 2t + 1) stand for k = 4t, 4t + 1 and
@@ -1087,6 +1131,398 @@ int qmm_wgmma_launch(const void* x, const void* qw, const float* sc,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------- bf16 activations at m <= 64 on a cluster
+// The route for m <= 64 (header). out^T = q^T x^T on mma.sync m16n8k16: A
+// is 16 columns of q by 16 k, widened from ldmatrix.trans of 16-bit pairs
+// as on the wgmma route (row g stands for column 2g, row g + 8 for 2g +
+// 1); B is 8 rows of x by 16 k (ldmatrix of x's rows); a warp's
+// accumulator holds its 16 columns by NT slots of 8 rows of m.
+constexpr int kCluster = 8;       // blocks along k a column tile (portable)
+constexpr int kCWarps = 4;
+constexpr int kCThreads = 32 * kCWarps;
+constexpr int kCMaxChunk = 512;   // k rows of x and q a block holds at once
+constexpr int kMaxDevices = 64;
+
+// Bytes a row of the q tile and of the x chunk in shared memory: an odd
+// number of 16-byte units, so the 8 rows an ldmatrix reads fall in 8
+// distinct bank groups (bn and chunk are multiples of 16).
+__host__ __device__ constexpr int cluster_qpitch(int bn) {
+  return bn / 16 % 2 ? bn : bn + 16;
+}
+__host__ __device__ constexpr int cluster_xpitch(int chunk) {
+  return 2 * chunk + 16;
+}
+// Dynamic shared memory of a block: x [8 NT][xpitch] and q [chunk]
+// [qpitch], then the sums its peers push to it, [kCluster ranks][warps
+// along k][8 NT][bn / kCluster] fp32 (bn / 16 groups of kCWarps / (bn /
+// 16) warps: kCWarps 16 8 NT floats whatever bn).
+__host__ __device__ constexpr int cluster_loads(int nt, int bn, int chunk) {
+  return 8 * nt * cluster_xpitch(chunk) + chunk * cluster_qpitch(bn);
+}
+__host__ __device__ constexpr int cluster_smem(int nt, int bn, int chunk) {
+  return cluster_loads(nt, bn, chunk) + kCWarps * 16 * 8 * nt * 4;
+}
+__host__ __device__ constexpr int cluster_smem_max(int nt) {
+  return cluster_smem(nt, 64, kCMaxChunk);
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// dst(e, src(e)) for e in [0, count), kBatch loads of a thread in flight
+// before the first store; `between` runs once the first batch's loads are
+// issued, so that its work hides their latency.
+template <typename T, typename Src, typename Dst, typename Between>
+__device__ __forceinline__ void batched_copy(int count, Src src, Dst dst,
+                                             Between between) {
+  constexpr int kBatch = 8;
+  bool first = true;
+  for (int base = threadIdx.x; first || base < count;
+       base += kBatch * kCThreads) {
+    T v[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = base + i * kCThreads;
+      if (e < count) v[i] = src(e);
+    }
+    if (first) between();
+    first = false;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = base + i * kCThreads;
+      if (e < count) dst(e, v[i]);
+    }
+  }
+}
+
+// Row and unit of e = threadIdx.x + i kCThreads in rows of `per` units,
+// stepped without a division per copy.
+struct UnitWalk {
+  int r, c, dr, dc;
+  __device__ explicit UnitWalk(int per)
+      : r(threadIdx.x / per), c(threadIdx.x % per), dr(kCThreads / per),
+        dc(kCThreads % per) {}
+  __device__ void next(int per) {
+    r += dr;
+    c += dc;
+    if (c >= per) {
+      c -= per;
+      ++r;
+    }
+  }
+};
+
+// A chunk into shared memory: x's rows [0, 8 NT) at k [c0, c0 + 16 steps)
+// and q's rows there at columns [n0, n0 + bn); zeros past m, past n and
+// past the chunk's `rows` k rows that exist. Every copy is issued before
+// any is waited for: 16-byte cp.async where the pitches and bases allow
+// (XV: k % 8 == 0 and x on the 16-byte grid; QV: n % 16 == 0 and q on
+// it), else element loads, kBatch a thread in flight.
+template <int NT, bool XV, bool QV>
+__device__ __forceinline__ void cluster_load(
+    unsigned char* xs, unsigned char* qs, const __nv_bfloat16* __restrict__ x,
+    const int8_t* __restrict__ qw, int m, int n, int k, int n0, int c0,
+    int rows, int steps, int bn, int xp, int qp) {
+  const int tid = threadIdx.x, kk = 16 * steps;
+  if (QV) {
+    const int per = bn / 16;   // 16-byte units a row
+    UnitWalk u(per);
+    for (int e = tid; e < kk * per; e += kCThreads, u.next(per)) {
+      const int c = 16 * u.c;
+      const bool ok = u.r < rows && n0 + c < n;
+      cp_async16(qs + u.r * qp + c,
+                 ok ? qw + static_cast<size_t>(c0 + u.r) * n + n0 + c : qw,
+                 ok);
+    }
+  }
+  if (XV) {
+    const int per = 2 * steps;   // 16-byte units a row
+    UnitWalk u(per);
+    for (int e = tid; e < 8 * NT * per; e += kCThreads, u.next(per)) {
+      const int c = 8 * u.c;
+      const bool ok = u.r < m && c < rows;
+      cp_async16(xs + u.r * xp + 2 * c,
+                 ok ? x + static_cast<size_t>(u.r) * k + c0 + c : x, ok);
+    }
+  }
+  cp_async_commit();
+  if (!QV) {
+    const int wn = min(bn, n - n0);   // the tile's columns that exist
+    const int sh = __ffs(bn) - 1;     // bn is a power of two
+    // the tile's bytes along k x n: contiguous when wn == n (the NSP
+    // head); zeros where nothing exists, written while they travel
+    batched_copy<int8_t>(
+        rows * wn,
+        [&](int e) {
+          return qw[static_cast<size_t>(c0 + e / wn) * n + n0 + e % wn];
+        },
+        [&](int e, int8_t v) {
+          qs[e / wn * qp + e % wn] = static_cast<unsigned char>(v);
+        },
+        [&] {
+          for (int e = tid; e < kk * bn; e += kCThreads) {
+            const int r = e >> sh, c = e & (bn - 1);
+            if (r >= rows || c >= wn) qs[r * qp + c] = 0;
+          }
+        });
+  }
+  if (!XV) {
+    const uint16_t* xh = reinterpret_cast<const uint16_t*>(x);
+    uint16_t* xsh = reinterpret_cast<uint16_t*>(xs);
+    const int xph = xp / 2;
+    batched_copy<uint16_t>(
+        m * rows,
+        [&](int e) {
+          return xh[static_cast<size_t>(e / rows) * k + c0 + e % rows];
+        },
+        [&](int e, uint16_t v) { xsh[e / rows * xph + e % rows] = v; },
+        [&] {
+          UnitWalk u(kk);
+          for (int e = tid; e < 8 * NT * kk; e += kCThreads, u.next(kk))
+            if (u.r >= m || u.c >= rows) xsh[u.r * xph + u.c] = 0;
+        });
+  }
+}
+
+// Grid (column tiles of bn, kCluster), clusters of (1, kCluster): block
+// rank r of a tile sums k [r kslice, (r + 1) kslice) in chunks of at most
+// `chunk` rows (one chunk at BERT's shapes). Warp w owns the tile's
+// columns 16 (w % G) .. + 15, G = bn / 16, and the chunk's k16 steps w /
+// G, + kCWarps / G, ...; it pushes its fp32 sums of each column to the
+// rank that owns it (rank r: the tile's columns [r bn / 8, (r + 1) bn /
+// 8)), which adds them in rank order, then scales and rounds once.
+template <int NT, bool XV, bool QV>
+__global__ void __launch_bounds__(kCThreads)
+qmm_cluster_kernel(const __nv_bfloat16* __restrict__ x,
+                   const int8_t* __restrict__ qw,
+                   const float* __restrict__ scales,
+                   __nv_bfloat16* __restrict__ out, int m, int n, int k,
+                   int bn, int kslice, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float tile_scales[64];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int groups = bn / 16, kws = kCWarps / groups;   // along n, along k
+  const int cn = warp % groups, kw = warp / groups;
+  const int n0 = blockIdx.x * bn;
+  const int kb = rank * kslice, ke = min(k, kb + kslice);
+  const int xp = cluster_xpitch(chunk), qp = cluster_qpitch(bn);
+  unsigned char* xs = smem;
+  unsigned char* qs = smem + 8 * NT * xp;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
+  // a peer's shared memory may be written only once the peer runs: say
+  // that this block does, and wait for the peers before the first push
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // the tile's scales travel with the first chunk's copies, so that the
+  // epilogue does not wait on device memory
+  if (threadIdx.x < bn) {
+    const bool ok = n0 + static_cast<int>(threadIdx.x) < n;
+    cp_async4(tile_scales + threadIdx.x,
+              ok ? scales + n0 + threadIdx.x : scales, ok);
+  }
+
+  for (int c0 = kb; c0 < ke; c0 += chunk) {
+    const int rows = min(chunk, ke - c0), steps = (rows + 15) / 16;
+    if (c0 != kb) __syncthreads();   // the last chunk's reads are done
+    cluster_load<NT, XV, QV>(xs, qs, x, qw, m, n, k, n0, c0, rows, steps,
+                             bn, xp, qp);
+    cp_async_wait<0>();
+    __syncthreads();
+    const uint32_t xa = smem_addr(xs), qa = smem_addr(qs);
+#pragma unroll 2
+    for (int s = kw; s < steps; s += kws) {
+      uint32_t v[2], a[4];
+      ldmatrix_x2_trans(v, qa + (16 * s + (lane & 15)) * qp + 16 * cn);
+      widen_int8x4(v[0], a[0], a[1]);
+      widen_int8x4(v[1], a[2], a[3]);
+      // lane l gives the address of row l % 8 of matrix l / 8: x's rows
+      // 8 (j + l / 16) .., k 16 s + 8 ((l / 8) % 2) ..
+      const uint32_t xk = xa + 2 * (16 * s + 8 * ((lane >> 3) & 1));
+      if constexpr (NT == 1) {
+        uint32_t b[2];
+        ldmatrix_x2(b, xk + (lane & 7) * xp);
+        mma_bf16(acc[0], a[0], a[1], a[2], a[3], b[0], b[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, xk + (8 * (j + (lane >> 4)) + (lane & 7)) * xp);
+          mma_bf16(acc[j], a[0], a[1], a[2], a[3], b[0], b[1]);
+          mma_bf16(acc[j + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  cp_async_commit();   // the scales, where no chunk was loaded
+  cp_async_wait<0>();
+  // Push: rank o owns the tile's columns [o cols, (o + 1) cols); this
+  // warp's sums of its columns go straight into their owner's shared
+  // memory, to recv[rank][kw] there. d0, d1 (row g: column 2g; m 8j +
+  // 2t, + 1), d2, d3 (column 2g + 1): 2g and 2g + 1 have one owner.
+  const int cols = bn / kCluster, pairs = cols / 2;
+  float* recv = reinterpret_cast<float*>(smem + cluster_loads(NT, bn, chunk));
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  {
+    const int lc = 16 * cn + 2 * g;
+    float* dst = cluster.map_shared_rank(recv, lc / cols) +
+                 (rank * kws + kw) * 8 * NT * cols + lc % cols;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int row = 8 * j + 2 * t;
+      if (row < m)
+        *reinterpret_cast<float2*>(dst + row * cols) =
+            make_float2(acc[j][0], acc[j][2]);
+      if (row + 1 < m)
+        *reinterpret_cast<float2*>(dst + (row + 1) * cols) =
+            make_float2(acc[j][1], acc[j][3]);
+    }
+  }
+  // every push has landed; no block reads a peer's memory after this
+  cluster.sync();
+
+  const bool paired = (n & 1) == 0 &&
+                      (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+  for (int e = threadIdx.x; e < m * pairs; e += kCThreads) {
+    const int row = e / pairs, c = 2 * (e % pairs);
+    const float* mine = recv + row * cols + c;
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      for (int w = 0; w < kws; ++w) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            mine + (r * kws + w) * 8 * NT * cols);
+        s0 = __fadd_rn(s0, v.x);
+        s1 = __fadd_rn(s1, v.y);
+      }
+    }
+    const int lc = rank * cols + c, col = n0 + lc;
+    const float sc0 = tile_scales[lc], sc1 = tile_scales[lc + 1];
+    __nv_bfloat16* o = out + static_cast<size_t>(row) * n + col;
+    if (paired && col + 1 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(
+          __fmul_rn(s0, sc0), __fmul_rn(s1, sc1));
+    } else {
+      if (col < n) o[0] = __float2bfloat16_rn(__fmul_rn(s0, sc0));
+      if (col + 1 < n) o[1] = __float2bfloat16_rn(__fmul_rn(s1, sc1));
+    }
+  }
+}
+
+// A launch of `tiles` x kCluster blocks of kCThreads, clusters of (1,
+// kCluster); `attr` holds the cluster shape.
+inline cudaLaunchConfig_t cluster_config(int tiles, int smem,
+                                         cudaStream_t st,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = kCluster;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, kCluster, 1);
+  cfg.blockDim = dim3(kCThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Once per kernel instance and device: the dynamic shared-memory limit,
+// and whether a cluster of kCluster such blocks fits the card at all.
+template <typename Kernel>
+cudaError_t cluster_prepare(Kernel kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, smem, nullptr, &attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  return clusters > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// Columns a tile: the narrowest of 16, 32 and 64 that holds n, else 64
+// (n = 768: 12 tiles, 96 blocks; the NSP head's n = 2: 16). Wider tiles
+// read x fewer times and need no sum across warps; at n = 768 they ran
+// faster than 32-column tiles on 192 blocks (PERF.md, row 9b).
+inline int cluster_bn(int n) {
+  return n <= 16 ? 16 : n <= 32 ? 32 : 64;
+}
+
+template <int NT, bool XV, bool QV>
+int qmm_cluster_launch(const __nv_bfloat16* x, const int8_t* qw,
+                       const float* sc, __nv_bfloat16* out, int m, int n,
+                       int k, cudaStream_t st) {
+  auto kernel = qmm_cluster_kernel<NT, XV, QV>;
+  static int ready[kMaxDevices] = {};   // 0 not yet, 1 ready, -error
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (ready[dev] == 0) {
+    err = cluster_prepare(kernel, cluster_smem_max(NT));
+    ready[dev] = err == cudaSuccess ? 1 : -static_cast<int>(err);
+  }
+  if (ready[dev] != 1) return -ready[dev];
+  const int bn = cluster_bn(n);
+  const int kslice = ((k + kCluster - 1) / kCluster + 15) / 16 * 16;
+  const int chunk = std::min(kslice, kCMaxChunk);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      (n + bn - 1) / bn, cluster_smem(NT, bn, chunk), st, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, x, qw, sc, out, m, n, k, bn, kslice,
+                           chunk);
+  // a refused launch also sets the last error: take it
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+template <int NT>
+int qmm_cluster_dispatch(bool xv, bool qv, const __nv_bfloat16* x,
+                         const int8_t* qw, const float* sc,
+                         __nv_bfloat16* out, int m, int n, int k,
+                         cudaStream_t st) {
+  if (xv && qv)
+    return qmm_cluster_launch<NT, true, true>(x, qw, sc, out, m, n, k, st);
+  if (xv)
+    return qmm_cluster_launch<NT, true, false>(x, qw, sc, out, m, n, k, st);
+  if (qv)
+    return qmm_cluster_launch<NT, false, true>(x, qw, sc, out, m, n, k, st);
+  return qmm_cluster_launch<NT, false, false>(x, qw, sc, out, m, n, k, st);
+}
+
 }  // namespace
 
 // w: fp32 [k, n] contiguous; q: int8 [k, n]; scales: fp32 [n].
@@ -1192,4 +1628,28 @@ extern "C" int quant_matmul_bf16_wgmma(const void* x, const void* qw,
       x, qw, static_cast<const float*>(scales),
       static_cast<__nv_bfloat16*>(out), m, n, k,
       static_cast<cudaStream_t>(stream));
+}
+
+// The cluster route of quant_matmul_bf16 (m <= 64): the same operands as
+// quant_matmul_bf16 (x and out 2-byte aligned, qw 4-byte aligned), one
+// launch, no workspace. Returns a cudaError_t code.
+extern "C" int quant_matmul_bf16_cluster(const void* x, const void* qw,
+                                         const void* scales, void* out,
+                                         int m, int n, int k, void* stream) {
+  if (m <= 0 || m > 64 || n <= 0 || k <= 0 ||
+      reinterpret_cast<uintptr_t>(x) % 2 != 0 ||
+      reinterpret_cast<uintptr_t>(qw) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* qp = static_cast<const int8_t*>(qw);
+  auto* sp = static_cast<const float*>(scales);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  const bool xv = k % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool qv = n % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
+  if (m <= 8) return qmm_cluster_dispatch<1>(xv, qv, xp, qp, sp, op, m, n, k, st);
+  if (m <= 16) return qmm_cluster_dispatch<2>(xv, qv, xp, qp, sp, op, m, n, k, st);
+  if (m <= 32) return qmm_cluster_dispatch<4>(xv, qv, xp, qp, sp, op, m, n, k, st);
+  return qmm_cluster_dispatch<8>(xv, qv, xp, qp, sp, op, m, n, k, st);
 }

@@ -39,25 +39,46 @@ two products ``x_big @ q + x_small @ q``), within the fp32 bound that
 ``tests/torch_checks.py`` ``qmm_limit`` holds it to;
 ``quant_matmul_split_tf32`` is the plain model of that arithmetic. The
 kernels take any ``m, n, k >= 1`` with fixed tiles (fp32 and the bf16
-``mma.sync`` route: 128 x 128 x 32, 32 or 64 rows at m <= 64, where k is
-split over slices added in a fixed order; the bf16 wgmma route: 192 rows
-by 128 columns, k-steps of 64): ``block_m``, ``block_n`` and ``block_k``
-stand in the reference's signature and raise when given (the
-reference's tile choice and autotune cache, ``ops/pallas/autotune.py``,
-are ROADMAP Queue A, "the rest": kernel tuner).
+``mma.sync`` kernel: 128 x 128 x 32, 32 or 64 rows at m <= 64, where k is
+split over slices added in a fixed order by a second kernel; the bf16
+wgmma route: 192 rows by 128 columns, k-steps of 64; the bf16 cluster
+route: 16, 32 or 64 columns by all m <= 64 rows, k split eight ways):
+``block_m``, ``block_n`` and ``block_k`` stand in the reference's
+signature and raise when given (the reference's tile choice and autotune
+cache, ``ops/pallas/autotune.py``, are ROADMAP Queue A, "the rest":
+kernel tuner).
 On the card ``quantize_int8`` takes fp32 weights; ``quant_matmul`` takes
 fp32 ``x`` (the split-TF32 kernel, fp32 out) or bf16 ``x`` (amp's, the
-``quant_matmul_bf16`` kernel: bf16 tensor cores, which hold int8 exactly
+``quant_matmul_bf16`` kernels: bf16 tensor cores, which hold int8 exactly
 and form every product exactly, fp32 accumulation, the scaled sum
 rounded to bf16 once), and refuses any other dtype or an ``out_dtype``
 other than ``x``'s; nothing is upcast to reach the fp32 kernel.
-The bf16 form has two routes, picked by shape (``bf16_route``), never by
-failure: ``"wgmma"`` for m > 64 where TMA describes both operands (n % 16
-== 0, k % 8 == 0, x and qw 16-byte aligned): a TMA + ``mbarrier`` +
-``wgmma`` kernel that widens each stage of q once, in registers; and
-``"mma_sync"`` for the rest (m <= 64, where the weight's bytes bound it,
-the NSP head's n = 2, ragged pitches, an x off the 16-byte grid): the
-``mma.sync`` kernel with its k slices. A route that fails raises.
+The bf16 form has three routes, picked by shape (``bf16_route``), never
+by failure:
+
+- ``"cluster"`` for m <= 64 (the reference's ``_qmm_kernel``,
+  ``paddle_tpu/ops/quant_matmul.py:110``, on bf16 ``x``: every bf16
+  launch of an int8 BERT forward at batch 1 x 64 tokens, the pooler and
+  the NSP head at any batch), where the int8 weight's bytes and, under a cold L2, the latency of
+  device memory bound it: one launch, no workspace. The k reduction is
+  split over a thread-block cluster of 8 blocks along k for each tile of
+  16-64 columns; each block issues every copy of its k slice of q and x
+  at once (one round trip to device memory), multiplies q^T x^T on
+  ``mma.sync`` (n on the 16-row side, m on the 8-wide side, so m = 1
+  wastes 7/8 of a small product, not 31/32 of a large one), keeps its
+  fp32 partial sums in shared memory, and the cluster adds them in rank
+  order through distributed shared memory: deterministic, no atomics.
+  The NSP head's q (2 bytes a row) is read as the contiguous bytes it
+  is; k % 8 != 0, an x off the 16-byte grid and ragged n take element
+  loads.
+- ``"wgmma"`` for m > 64 where TMA describes both operands (n % 16 == 0,
+  k % 8 == 0, x and qw 16-byte aligned): a TMA + ``mbarrier`` + ``wgmma``
+  kernel that widens each stage of q once, in registers.
+- ``"mma_sync"`` for the other m > 64 shapes (the NSP head's n = 2 at a
+  large batch, ragged pitches, an x off the 16-byte grid): the
+  ``mma.sync`` kernel with its k slices and workspace.
+
+A route that fails raises.
 ``quantize_int8`` launches as thread-block clusters (8 blocks along k per
 32-column tile, their column maxima exchanged through distributed shared
 memory), so w is read from device memory once.
@@ -160,9 +181,11 @@ def _lib(device_index: int) -> ctypes.CDLL:
     lib.quant_matmul.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.quant_matmul_bf16.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.quant_matmul_bf16_wgmma.argtypes = [p, p, p, p, i, i, i, p]
+    lib.quant_matmul_bf16_cluster.argtypes = [p, p, p, p, i, i, i, p]
     lib.quant_matmul_splits.argtypes = [i, i, i]
     for fn in (lib.quantize_int8, lib.quant_matmul, lib.quant_matmul_bf16,
-               lib.quant_matmul_bf16_wgmma, lib.quant_matmul_splits):
+               lib.quant_matmul_bf16_wgmma, lib.quant_matmul_bf16_cluster,
+               lib.quant_matmul_splits):
         fn.restype = ctypes.c_int
     return lib
 
@@ -218,10 +241,13 @@ def quantize_int8(w: torch.Tensor, stochastic: bool = False, seed: int = 0
 
 def bf16_route(x: torch.Tensor, qw: torch.Tensor) -> str:
     """The kernel that takes bf16 ``x [m, k] @ qw [k, n]`` on the card:
-    "wgmma" for m > 64 where TMA describes both operands (row pitches and
-    bases on the 16-byte grid), else "mma_sync"."""
+    "cluster" for m <= 64; "wgmma" for m > 64 where TMA describes both
+    operands (row pitches and bases on the 16-byte grid), else
+    "mma_sync"."""
     (m, k), n = x.shape, qw.shape[1]
-    if (m > 64 and n % 16 == 0 and k % 8 == 0 and x.data_ptr() % 16 == 0
+    if m <= 64:
+        return "cluster"
+    if (n % 16 == 0 and k % 8 == 0 and x.data_ptr() % 16 == 0
             and qw.data_ptr() % 16 == 0):
         return "wgmma"
     return "mma_sync"
@@ -236,9 +262,9 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
     if (block_m, block_n, block_k) != (None, None, None):
         raise ValueError("quant_matmul's tiles are fixed (128 x 128 x 32, "
                          "32 or 64 rows at m <= 64; bf16 x at m > 64: 192 "
-                         "x 128 x 64); block_m/block_n/block_k are not "
-                         "ported (ROADMAP Queue A, 'the rest': kernel "
-                         "tuner)")
+                         "x 128 x 64, at m <= 64: k split over a cluster "
+                         "of 8); block_m/block_n/block_k are not ported "
+                         "(ROADMAP Queue A, 'the rest': kernel tuner)")
     if x.dim() != 2 or qw.dim() != 2 or x.shape[1] != qw.shape[0]:
         raise ValueError(f"quant_matmul takes x [m, k] and qw [k, n], got "
                          f"{tuple(x.shape)} and {tuple(qw.shape)}")
@@ -267,9 +293,9 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     lib = _lib(dev.index)
     route = bf16_route(x, qw) if sfx else None
-    if route == "wgmma":
+    if route in ("wgmma", "cluster"):
         with torch.cuda.device(dev):
-            rc = lib.quant_matmul_bf16_wgmma(
+            rc = getattr(lib, "quant_matmul_bf16_" + route)(
                 x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
                 out.data_ptr(), m, n, k, _stream(dev))
     else:
@@ -311,8 +337,8 @@ def shape_counts() -> dict:
 
 
 def route_counts() -> collections.Counter:
-    """Launches of the bf16 form by route ("wgmma", "mma_sync") since the
-    last reset."""
+    """Launches of the bf16 form by route ("cluster", "wgmma",
+    "mma_sync") since the last reset."""
     return collections.Counter(quant_matmul.routes_bf16)
 
 

@@ -118,7 +118,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import SGD, AdamW
 from paddle_tpu_torch.quantization import convert_to_int8
 from test_torch_bf16_train import _flags, _gemm_nodes, _set_flags
-from torch_checks import (QMM_BF16_FAULT, QMM_BF16_SECTION, bf16_step_parity,
+from torch_checks import (QMM_BF16_FAULTS, QMM_BF16_SECTION, bf16_step_parity,
                           bf16_ulp, plant_qmm_fault, run_checks)
 
 torch.set_num_threads(2)
@@ -611,9 +611,12 @@ def check_planted_qmm_fault_armed():
 
     src = (_build.CSRC / "quant_matmul.cu").read_text()
     head, sep, bf16 = src.partition(QMM_BF16_SECTION)
-    assert sep and bf16.count(QMM_BF16_FAULT[0]) == 1
-    assert QMM_BF16_FAULT[0] not in head
-    assert plant_qmm_fault(src) != src
+    planted = plant_qmm_fault(src)
+    for loop, start, fault in QMM_BF16_FAULTS.values():
+        assert sep and bf16.count(loop) == 1
+        assert loop not in head
+        assert loop not in planted
+        assert planted.count(loop.replace(start, fault)) == 1
 
 
 def check_unported_training_paths_raise():

@@ -83,16 +83,21 @@ recompute.
 BERT under amp: ``quant_matmul`` on bf16 ``x`` (the
 ``quant_matmul_bf16`` kernel) within ``qmm_bf16_limit`` (the fp32 limit
 above plus one bf16 ulp of the plain element) at every row-tile size,
-ragged n and k and BERT-base's shapes, on both routes (wgmma at m > 64
-where TMA takes both operands: m, n and k off its tiles, k % 64 != 0;
-mma.sync for m <= 64, k % 8 != 0, n = 2 and an x 2 or 8 bytes off the
-16-byte grid), each launch counted under the bf16 form and its route;
-the same check fails the wgmma kernel built with a fault planted (16
-of the k products dropped, ``-s`` prints both readings); fp16
-refused by the flash kernels and ``quant_matmul``, naming "other
-dtypes"; an int8 bert-test forward under O2 (9 bf16 and 6 fp32
-launches, as the reference's, its logits within 1e-2 mean relative
-error of the CPU's on the flash route); one bert-test O2 step on the
+ragged n and k and BERT-base's shapes, on all three routes (cluster for
+every m <= 64: m in 1, 2, 7, 8, 15, 16, 17, 32, 33, 63, 64 at BERT's
+(k, n), the NSP head's n = 2 and ragged (100, 37), (37, 100), an x 2 or
+8 bytes off the 16-byte grid, each bit-identical on a second run; wgmma
+at m > 64 where TMA takes both operands: m, n and k off its tiles, k %
+64 != 0; mma.sync for the other m > 64 shapes: k % 8 != 0, n = 2, x off
+the grid), each launch counted under the bf16 form and its route, the
+route switching at m = 64 / 65; the same check fails the kernels built
+with faults planted (the wgmma kernel dropping 16 of the k products,
+the cluster kernel leaving rank 0's partial sums out; ``-s`` prints
+both readings); fp16 refused by the flash kernels and ``quant_matmul``,
+naming "other dtypes"; an int8 bert-test forward under O2 at 2 x 32
+and 1 x 16 tokens (9 bf16 launches, all on the cluster route, and 6
+fp32, as the reference's, its logits within 1e-2 mean relative error
+of the CPU's on the flash route); one bert-test O2 step on the
 card against the CPU's (flash route): loss within ``BF16_LOSS_RTOL``,
 ``bf16_step_parity`` (the query and key projections at 5e-2, the key
 biases left out), the bf16 flash trio in full mode once a layer.
@@ -888,16 +893,18 @@ def check_quant_wrappers_raise(dev):
 def check_quant_matmul_bf16_within_bound(dev, m, k, n, offset=0):
     """The bf16 form: bf16 out within ``qmm_bf16_limit`` of its plain
     version, one launch counted under the bf16 form, its shape and its
-    route ("wgmma" for m > 64 where TMA takes both operands, else
-    "mma_sync"); ``x`` starts ``offset`` bf16 past a 16-byte boundary."""
+    route ("cluster" for m <= 64, "wgmma" for m > 64 where TMA takes both
+    operands, else "mma_sync"); ``x`` starts ``offset`` bf16 past a
+    16-byte boundary. Returns the operands."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(m * k + n + 1)
     buf = torch.randn(m * k + offset, device=dev, generator=gen).bfloat16()
     x = buf[offset:].view(m, k)
     q, s = qm.quantize_int8_plain(torch.randn(k, n, device=dev,
                                               generator=gen))
-    route = ("wgmma" if m > 64 and n % 16 == 0 and k % 8 == 0
-             and offset % 8 == 0 else "mma_sync")
+    route = ("cluster" if m <= 64 else
+             "wgmma" if n % 16 == 0 and k % 8 == 0 and offset % 8 == 0
+             else "mma_sync")
     assert qm.bf16_route(x, q) == route
     before, shapes = qm.launch_counts(), qm.shape_counts()
     routes = qm.route_counts()
@@ -908,12 +915,33 @@ def check_quant_matmul_bf16_within_bound(dev, m, k, n, offset=0):
     assert (qm.shape_counts()["quant_matmul_bf16"][(m, k, n)]
             == shapes["quant_matmul_bf16"][(m, k, n)] + 1)
     assert qm.route_counts() - routes == {route: 1}
+    return x, q, s
+
+
+def check_quant_matmul_bf16_cluster(dev, m, k, n, offset=0):
+    """The cluster route (m <= 64): the checks above, then a second run
+    bit-identical to the first (the rank-ordered reduction)."""
+    x, q, s = check_quant_matmul_bf16_within_bound(dev, m, k, n, offset)
+    a, b = qm.quant_matmul(x, q, s), qm.quant_matmul(x, q, s)
+    assert torch.equal(a, b), f"({m}, {k}, {n}): two runs differ"
+
+
+def check_bf16_route_switches_at_m_64(dev):
+    """``bf16_route`` on card tensors: the cluster route up to m = 64,
+    then wgmma where TMA takes both operands, else mma.sync."""
+    q = torch.zeros(768, 768, dtype=torch.int8, device=dev)
+    head = torch.zeros(768, 2, dtype=torch.int8, device=dev)
+    for m, w, want in ((64, q, "cluster"), (65, q, "wgmma"),
+                       (64, head, "cluster"), (65, head, "mma_sync"),
+                       (1, q, "cluster")):
+        x = torch.zeros(m, 768, dtype=torch.bfloat16, device=dev)
+        assert qm.bf16_route(x, w) == want, (m, w.shape, want)
 
 
 @functools.lru_cache(maxsize=None)
 def _faulty_qmm_library():
-    """The quant_matmul library built with ``torch_checks.QMM_BF16_FAULT``
-    planted in its bf16 kernel (a copy under the build directory)."""
+    """The quant_matmul library built with ``torch_checks.QMM_BF16_FAULTS``
+    planted in its bf16 kernels (a copy under the build directory)."""
     import ctypes
 
     from paddle_tpu_torch.ops import _build
@@ -927,10 +955,12 @@ def _faulty_qmm_library():
 
 
 def check_qmm_bf16_check_sees_a_planted_fault(dev, m, k, n):
-    """``qmm_bf16_vs_plain`` passes the bf16 kernel and fails the same
-    kernel with 16 of the k products dropped (``plant_qmm_fault``, in the
-    wgmma route's k loop), at phase 27's two shapes. Prints both
-    readings (largest diff / limit)."""
+    """``qmm_bf16_vs_plain`` passes the bf16 kernels and fails the same
+    kernels with their faults planted (``plant_qmm_fault``: at m > 64 the
+    wgmma route's k loop drops 16 of the k products, at m <= 64 the
+    cluster route's reduction leaves rank 0's partial sums out), at phase
+    27's shapes of each route. Prints both readings (largest diff /
+    limit)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(m + k + n)
     x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
@@ -1007,9 +1037,10 @@ def check_bert_amp_step_on_card_matches_cpu(dev):
         "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "fused_update": 1}
 
 
-def check_bert_int8_amp_on_card(dev):
-    """An int8 bert-test forward under O2 on the card: 9 launches of the
-    bf16 form and 6 of the fp32 one (the reference's pattern), 2 of
+def check_bert_int8_amp_on_card(dev, b=2, s=32):
+    """An int8 bert-test forward under O2 on the card at b x s tokens: 9
+    launches of the bf16 form, all on the cluster route (b s <= 64), and
+    6 of the fp32 one (the reference's pattern), 2 of
     ``flash_fwd_bf16``; MLM logits bf16 within 1e-2 mean relative error
     of the CPU's (flash route), NSP logits fp32; ``auto_cast`` in
     float16 reaches a kernel that refuses it, naming "other dtypes"."""
@@ -1017,15 +1048,17 @@ def check_bert_int8_amp_on_card(dev):
     from paddle_tpu_torch.nn.functional import flash_route
 
     rs = np.random.RandomState(1)
-    ids = rs.randint(0, 256, (2, 32))
+    ids = rs.randint(0, 256, (b, s))
     card, cpu = _bert(dev), _bert("cpu")
     convert_to_int8(card)
     convert_to_int8(cpu)
+    routes = qm.route_counts()
     before = {**qm.launch_counts(), **fa.launch_counts()}
     with torch.inference_mode(), auto_cast(level="O2"):
         logits, nsp = card(ids)
         torch.cuda.synchronize()
         after = {**qm.launch_counts(), **fa.launch_counts()}
+        card_routes = qm.route_counts() - routes
         with flash_route():
             want, want_nsp = cpu(ids)
         with auto_cast(level="O2", dtype="float16"), \
@@ -1036,6 +1069,7 @@ def check_bert_int8_amp_on_card(dev):
              "flash_fwd_bf16")} == {"quant_matmul": 6,
                                     "quant_matmul_bf16": 9, "flash_fwd": 0,
                                     "flash_fwd_bf16": 2}
+    assert card_routes == {"cluster": 9}, card_routes
     assert logits.dtype == torch.bfloat16 and nsp.dtype == torch.float32
     rel = float((logits.cpu().float() - want.float()).abs().mean()
                 / want.float().abs().mean())
@@ -1289,11 +1323,27 @@ def test_cuda_path_matches_plain(dev):
         + [(check_quant_matmul_bf16_within_bound, (dev, m, k, n, off))
            for m, k, n in ((300, 768, 768), (8192, 768, 768))
            for off in (1, 4)]      # x 2 and 8 bytes off the 16-byte grid
+        # the cluster route: every m <= 64 slot count at BERT's (k, n),
+        # the NSP head, ragged n and k; x off the 16-byte grid
+        + [(check_quant_matmul_bf16_cluster, (dev, m, k, n))
+           for m in (1, 2, 7, 8, 15, 16, 17, 32, 33, 63, 64)
+           for k, n in ((768, 768), (3072, 768), (768, 3072), (768, 2),
+                        (100, 37), (37, 100))]
+        + [(check_quant_matmul_bf16_cluster, (dev, m, k, n, off))
+           for m, k, n in ((1, 768, 768), (16, 768, 768), (64, 3072, 768),
+                           (33, 100, 37))
+           for off in (1, 4)]
+        # k past one 512-row chunk a block (k / 8 > 512)
+        + [(check_quant_matmul_bf16_cluster, (dev, m, k, n, off))
+           for m, k, n, off in ((64, 4104, 768, 0), (5, 9000, 20, 3))]
+        + [(check_bf16_route_switches_at_m_64, (dev,))]
         + [(check_qmm_bf16_check_sees_a_planted_fault, (dev, m, k, n))
-           for m, k, n in ((8192, 768, 768), (8192, 3072, 768))]
+           for m, k, n in ((8192, 768, 768), (8192, 3072, 768),
+                           (16, 768, 768), (64, 3072, 768))]
         + [(check_quant_wrappers_raise, (dev,)),
            (check_bert_int8_on_card_matches_cpu, (dev,)),
            (check_bert_int8_amp_on_card, (dev,)),
+           (check_bert_int8_amp_on_card, (dev, 1, 16)),
            (check_bert_amp_step_on_card_matches_cpu, (dev,))]
         + [(check_carrier_kernels_match_plain, (dev, c, n, bs))
            for c in CODECS for n, bs in CASES]

@@ -15,7 +15,14 @@ Pallas kernels in interpret mode (as ``tests/test_quant_matmul.py`` does).
   the port's bit-identity rests on it.
 - ``stable_seed``: equal for a few names.
 - The wrappers on CPU tensors: shape checks, ``out_dtype``, block
-  arguments raise (the kernel's tiles are fixed), no launch counted.
+  arguments raise (the kernel's tiles are fixed), no launch counted; on
+  bf16 ``x`` at m = 1, 16 and 64 (the cluster route's sizes on the card)
+  ``quant_matmul`` returns ``quant_matmul_plain``'s result bit for bit,
+  counting no launch and no route.
+- ``bf16_route`` at the m = 64 / 65 boundary, on CPU tensors (it reads
+  shapes and addresses only): "cluster" up to 64, then "wgmma" where
+  TMA takes both operands, else "mma_sync" (n = 2, k % 8 != 0, an x off
+  the 16-byte grid).
 - ``quant_matmul`` on the same int8 weights, at a shape the reference's
   tiles divide (256 x 512 @ 512 x 256, its Pallas kernel) and a ragged
   one (10 x 48 @ 48 x 24, its plain fallback, which scales before the
@@ -140,6 +147,37 @@ def check_wrappers_on_cpu():
     assert tqm.shape_counts() == shapes
 
 
+def check_bf16_wrapper_on_cpu_is_plain(m):
+    gen = torch.Generator().manual_seed(m)
+    x = torch.randn(m, 768, generator=gen).bfloat16()
+    q, s = tqm.quantize_int8_plain(torch.randn(768, 96, generator=gen))
+    before, routes = tqm.launch_counts(), tqm.route_counts()
+    out = tqm.quant_matmul(x, q, s)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, tqm.quant_matmul_plain(x, q, s))
+    assert tqm.launch_counts() == before
+    assert tqm.route_counts() == routes
+
+
+def check_bf16_route_at_m_64():
+    q = torch.zeros(768, 768, dtype=torch.int8)
+    head = torch.zeros(768, 2, dtype=torch.int8)
+    ragged = torch.zeros(100, 768, dtype=torch.int8)
+    for m, w, want in ((64, q, "cluster"), (65, q, "wgmma"),
+                       (1, q, "cluster"), (64, head, "cluster"),
+                       (65, head, "mma_sync"), (64, ragged, "cluster"),
+                       (65, ragged, "mma_sync")):
+        x = torch.zeros(m, w.shape[0], dtype=torch.bfloat16)
+        assert tqm.bf16_route(x, w) == want, (m, tuple(w.shape), want)
+    buf = torch.zeros(65 * 768 + 8, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0    # PyTorch's CPU allocator: 64 bytes
+    for off, want in ((0, "wgmma"), (1, "mma_sync"), (4, "mma_sync"),
+                      (8, "wgmma")):
+        x = buf[off:off + 65 * 768].view(65, 768)
+        assert tqm.bf16_route(x, q) == want, off
+        assert tqm.bf16_route(x[:64], q) == "cluster", off
+
+
 def _nets(seed):
     """The reference's Sequential(Linear(64,128), ReLU, Linear(128,32))
     and the port's, with the reference's weights and weight names."""
@@ -204,6 +242,8 @@ def test_torch_quant_matches_reference():
            (check_quant_matmul_matches_reference, (256, 512, 256)),
            (check_quant_matmul_matches_reference, (10, 48, 24)),
            (check_wrappers_on_cpu, ()),
-           (check_convert_sequential_matches_reference, (False,)),
+           (check_bf16_route_at_m_64, ())]
+        + [(check_bf16_wrapper_on_cpu_is_plain, (m,)) for m in (1, 16, 64)]
+        + [(check_convert_sequential_matches_reference, (False,)),
            (check_convert_sequential_matches_reference, (True,)),
            (check_int8_linear_takes_a_strided_input, ())])

@@ -64,9 +64,11 @@ the two hold the kernels to one set of criteria:
   stochastic;
 - ``quant_matmul`` on bf16 ``x`` (:func:`qmm_bf16_vs_plain`): every
   element within the fp32 bound below plus one bf16 ulp of the plain
-  element (both round an fp32 sum to bf16 once); a fault planted in the
-  wgmma kernel, the route of m > 64 (:func:`plant_qmm_fault`, 16 of the
-  k products dropped), is over it;
+  element (both round an fp32 sum to bf16 once); faults planted in the
+  wgmma kernel, the route of m > 64 (16 of the k products dropped), and
+  in the cluster kernel, the route of m <= 64 (cluster rank 0's partial
+  sums left out of the reduction: 1/8 of k) (:func:`plant_qmm_fault`),
+  are over it;
 - ``quant_matmul``: every element within the forward-error bound of two
   fp32 dot products of length k, ``2 k 2^-24 (|x| @ |q| s)`` (each side
   sums k products in its own order; the bound is computed in float64);
@@ -339,25 +341,32 @@ def qmm_limit(x, qw, scales) -> torch.Tensor:
     return 2.0 * k * 2.0 ** -24 * mag.reshape(x.shape[0], -1)
 
 
-# the bf16 section of ``csrc/quant_matmul.cu`` and the fault that
-# :func:`plant_qmm_fault` plants there, in the k loop of the wgmma kernel
-# (the route of m > 64): the first k-step skips its first k16 product
-# (16 of the k terms of every output)
+# the bf16 section of ``csrc/quant_matmul.cu`` and the faults that
+# :func:`plant_qmm_fault` plants there, by route: (the loop's text, its
+# start, the start planted). In the k loop of the wgmma kernel (m > 64)
+# the first k-step skips its first k16 product (16 of the k terms of every
+# output); in the reduction of the cluster kernel (m <= 64) rank 0's
+# partial sums are left out (the first eighth of k)
 QMM_BF16_SECTION = "// ------------------------------------------------------- bf16 activations"
-QMM_BF16_FAULT = ("for (int ks = 0; ks < kK16; ++ks) {", "kt == 0")
+QMM_BF16_FAULTS = {
+    "wgmma": ("for (int ks = 0; ks < kK16; ++ks) {", "ks = 0",
+              "ks = (kt == 0)"),
+    "cluster": ("for (int r = 0; r < kCluster; ++r) {", "r = 0", "r = (1)")}
 
 
 def plant_qmm_fault(src: str) -> str:
-    """``csrc/quant_matmul.cu``'s text ``src`` with ``QMM_BF16_FAULT``
-    planted in its bf16 kernel; raises unless the anchor occurs exactly
-    once in the bf16 section."""
+    """``csrc/quant_matmul.cu``'s text ``src`` with every fault of
+    ``QMM_BF16_FAULTS`` planted in its bf16 kernels (each route's launches
+    see their own); raises unless each anchor occurs exactly once in the
+    bf16 section."""
     head, sep, bf16 = src.partition(QMM_BF16_SECTION)
-    loop, first = QMM_BF16_FAULT
-    if not sep or bf16.count(loop) != 1:
-        raise AssertionError(f"{bf16.count(loop)} copies of the fault anchor "
-                             f"{loop!r} in quant_matmul.cu's bf16 section")
-    return head + sep + bf16.replace(loop, loop.replace("s = 0",
-                                                        f"s = ({first})"))
+    for route, (loop, start, fault) in QMM_BF16_FAULTS.items():
+        if not sep or bf16.count(loop) != 1:
+            raise AssertionError(f"{bf16.count(loop)} copies of the {route} "
+                                 f"fault anchor {loop!r} in quant_matmul.cu's "
+                                 f"bf16 section")
+        bf16 = bf16.replace(loop, loop.replace(start, fault))
+    return head + sep + bf16
 
 
 def qmm_bf16_limit(x, qw, scales, plain) -> torch.Tensor:

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Time variants of the bf16 ``quant_matmul`` kernels (paddle_tpu_torch/
 csrc/quant_matmul.cu) side by side on one card, at the shapes phase 27 of
-chip_smoke.py launches them at (int8 BERT-base under O2).
+chip_smoke.py launches them at (int8 BERT-base under O2, at 16 x 512 and
+at 1 x 64).
 
     python3 tools/torch_qmm_ab.py [--parent PATH] [--variant NAME=PATH]
                                   [--only NAME,...] [--out FILE]
 
 Builds, with ``ops/_build.py``'s nvcc flags, into build/qmm_ab/ (all of
 these, or ``--only`` the named ones; ptxas registers and spills printed
-for the bf16 kernels):
+for the bf16 kernels), and times each at its route's shapes: m > 64
+(``WGMMA_SHAPES``: the 16 x 512 forward's) or m <= 64 (``SMALL_SHAPES``:
+the pooler and the NSP head at 16 x 512, every bf16 launch at 1 x 64):
   new        csrc/quant_matmul.cu as it stands: its wgmma route
-             (``quant_matmul_bf16_wgmma``);
+             (``quant_matmul_bf16_wgmma``), m > 64;
   VARIANTS   the same source at other knobs (``KNOBS``, the constants'
              text patched): consumer warpgroups (64 columns of n each,
              ``kQmmWarpgroups``), rows of m a tile (``kQmmRows``), stages
@@ -18,8 +21,17 @@ for the bf16 kernels):
   ss         the source patched (``PATCHES``) so that the consumers widen
              each stage of q a k-step ahead into bf16 shared memory, read
              from there by SS products (A transposed), not in registers;
+  cluster    the new source's cluster route
+             (``quant_matmul_bf16_cluster``), m <= 64;
+  cluster_bn16, cluster_bn32, cluster_bn64
+             the cluster route with every tile 16, 32 or 64 columns wide
+             (``cluster_bn`` patched), m <= 64;
+  cluster_w8 the cluster route with 8 warps a block (``kCWarps``): the
+             tile's 16-column groups split k twice as finely;
+  cluster_u4 the cluster route's k16 loop unrolled 4 times, not 2;
   mma_sync   the new source's ``mma.sync`` route (``quant_matmul_bf16``,
-             the kernel of m <= 64 and of the shapes TMA cannot take);
+             with its k slices and workspace: the route of m <= 64 before
+             the cluster route), at both shape sets;
   diagnostics, timed only (their results are wrong by design):
   only_mma   the producer fills the ring once and the consumers run every
              k-step on the stages it holds: the products and the widening
@@ -28,21 +40,36 @@ for the bf16 kernels):
              reading it: the loads alone;
   pure_mma   only_mma with constant A fragments (no ldmatrix, no
              widening): the products alone;
-  parent     ``--parent``: an earlier quant_matmul.cu, its
-             ``quant_matmul_bf16`` (write it first: ``git show <commit>:
-             paddle_tpu_torch/csrc/quant_matmul.cu > build/parent_qmm.cu``);
-  NAME       ``--variant NAME=PATH``: another quant_matmul.cu, its wgmma
-             entry point where it has one.
+  c_only_load     the cluster route without its products (loads, the
+                  partial sums' stores, the barriers and the reduction);
+  c_no_load       the cluster route without its loads (the products on
+                  whatever shared memory holds, and the reduction);
+  c_local_reduce  the cluster route pushing its sums into its own
+                  shared memory instead of their owners' (no distributed
+                  shared memory stores; the barrier stays);
+  c_empty         the cluster route's launch with a kernel that returns
+                  at once: the floor of its grid and clusters;
+  c_no_barrier    the cluster route without the barrier that guards the
+                  first push;
+  parent     ``--parent``: an earlier quant_matmul.cu, its wgmma entry
+             point at m > 64 where it has one and its cluster entry point
+             at m <= 64 where it has one, else its ``quant_matmul_bf16``
+             (write it first: ``git show <commit>:paddle_tpu_torch/csrc/
+             quant_matmul.cu > build/parent_qmm.cu``);
+  NAME       ``--variant NAME=PATH``: another quant_matmul.cu, chosen like
+             ``parent``.
 Each variant is called through its C entry point with ``ctypes`` and held
 against the plain PyTorch version within tests/torch_checks.py's
-``qmm_bf16_limit`` at each shape before it is timed. Times are
-chip_smoke.py's ``median_ms`` (median of 30, L2 flushed, a spin kernel
-ahead), taken at each shape in the variants' order, then in the reverse
-order, beside bf16 ``torch.matmul`` on the weight dequantized to bf16 at
-the port's GEMM settings (no reduced-precision reduction); bounds from
-bytes at 3.35 TB/s and operations at 989 TFLOP/s bf16. Prints one line a
-shape and variant, then a JSON summary (to ``--out`` instead where
-given). Needs a CUDA card and nvcc.
+``qmm_bf16_limit`` at each shape before it is timed (the cluster forms
+also bit-identical on a second run). Times are chip_smoke.py's
+``median_ms`` (median of 30, L2 flushed, a spin kernel ahead), taken at
+each shape in the variants' order, then in the reverse order, beside the
+launch floor (a one-element ``torch.add`` timed the same way) and bf16
+``torch.matmul`` on the weight dequantized to bf16 at the port's GEMM
+settings (no reduced-precision reduction); bounds from bytes at 3.35 TB/s
+and operations at 989 TFLOP/s bf16. Prints one line a shape and variant,
+then a JSON summary (to ``--out`` instead where given). Needs a CUDA card
+and nvcc.
 """
 from __future__ import annotations
 
@@ -68,7 +95,10 @@ from torch_checks import qmm_bf16_limit  # noqa: E402
 
 qm = importlib.import_module("paddle_tpu_torch.ops.quant_matmul")
 
-SHAPES = ((8192, 768, 768), (8192, 3072, 768))   # (m, k, n)
+# (m, k, n): the wgmma route's, and m <= 64 (the cluster route's)
+WGMMA_SHAPES = ((8192, 768, 768), (8192, 3072, 768))
+SMALL_SHAPES = ((16, 768, 768), (16, 768, 2), (64, 768, 768),
+                (64, 3072, 768), (1, 768, 768), (1, 768, 2))
 # the source's knobs: consumer warpgroups, rows of m a tile, stages in
 # the ring (the constants' text, and its form at a variant's value)
 KNOBS = (("kQmmWarpgroups = 2;", "kQmmWarpgroups = {};"),
@@ -210,7 +240,35 @@ PURE = (("      ldmatrix_x4_trans(v, qs + r * 64 + 16 * (warp ^ ((r >> 1) & "
          "        a[2 * h + 1][i] = qs ^ (lane * 8 + 4 + i);\n"
          "      }\n"),)
 PATCHES["pure_mma"] = PATCHES["only_mma"] + PURE
-CHECKED = ("ss",)
+# text patches of the cluster kernel: the tile widths keep their results;
+# the "c_" diagnostics are timed only
+BN_ANCHOR = "  return n <= 16 ? 16 : n <= 32 ? 32 : 64;\n"
+PATCHES.update({
+    "cluster_bn16": ((BN_ANCHOR, "  return 16;\n" + BN_ANCHOR),),
+    "cluster_bn32": ((BN_ANCHOR, "  return 32;\n" + BN_ANCHOR),),
+    "cluster_bn64": ((BN_ANCHOR, "  return 64;\n" + BN_ANCHOR),),
+    "cluster_w8": (("constexpr int kCWarps = 4;", "constexpr int kCWarps = 8;"),),
+    "cluster_u4": (("#pragma unroll 2\n    for (int s = kw;",
+                    "#pragma unroll 4\n    for (int s = kw;"),),
+    "c_only_load": (("    for (int s = kw; s < steps; s += kws) {",
+                     "    for (int s = kw; s < steps && k < 0; s += kws) {"),),
+    "c_no_load": (("    cluster_load<NT, XV, QV>(xs, qs,",
+                   "    if (k < 0) cluster_load<NT, XV, QV>(xs, qs,"),),
+    "c_empty": (("  __shared__ float tile_scales[64];\n",
+                 "  __shared__ float tile_scales[64];\n  if (k > 0) return;\n"),),
+    "c_no_barrier": (
+        ('  asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n" ::: "memory");\n', ""),
+        ('  asm volatile("barrier.cluster.wait.aligned;\\n" ::: "memory");\n', "")),
+    "c_local_reduce": (
+        ("    float* dst = cluster.map_shared_rank(recv, lc / cols) +",
+         "    float* dst = recv + 0 * (lc / cols) +"),),
+})
+CHECKED = ("ss", "cluster_bn16", "cluster_bn32", "cluster_bn64",
+           "cluster_w8", "cluster_u4")
+# variants of the cluster route (entry point quant_matmul_bf16_cluster)
+CLUSTER = ("cluster_bn16", "cluster_bn32", "cluster_bn64", "cluster_w8",
+           "cluster_u4", "c_only_load", "c_no_load", "c_local_reduce",
+           "c_empty", "c_no_barrier")
 
 
 def patched(src: str, name: str) -> str:
@@ -242,7 +300,8 @@ def build(name: str, src: str) -> ctypes.CDLL:
             entry = line
         if "wgmma" in line and "erformance" in line:
             print(name, "ptxas:", line.strip(), flush=True)
-        if ("qmm_bf16" in entry or "qmm_wgmma" in entry) and (
+        if ("qmm_bf16" in entry or "qmm_wgmma" in entry
+                or "qmm_cluster" in entry) and (
                 "Used" in line or "spill" in line):
             print(name, entry.split("'")[1] if "'" in entry else entry,
                   line.strip(), flush=True)
@@ -250,13 +309,23 @@ def build(name: str, src: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.quant_matmul_bf16.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.quant_matmul_splits.argtypes = [i, i, i]
-    if hasattr(lib, "quant_matmul_bf16_wgmma"):
-        lib.quant_matmul_bf16_wgmma.argtypes = [p, p, p, p, i, i, i, p]
+    for entry in ("quant_matmul_bf16_wgmma", "quant_matmul_bf16_cluster"):
+        if hasattr(lib, entry):
+            getattr(lib, entry).argtypes = [p, p, p, p, i, i, i, p]
     return lib
 
 
+def _entries(lib) -> dict:
+    """shape set ("big": m > 64, "small": m <= 64) -> the entry point an
+    earlier or other source is timed through."""
+    def first(*names):
+        return next(n for n in names if hasattr(lib, n))
+    return {"big": first("quant_matmul_bf16_wgmma", "quant_matmul_bf16"),
+            "small": first("quant_matmul_bf16_cluster", "quant_matmul_bf16")}
+
+
 def libraries(parent: str | None, others=(), only=None) -> dict:
-    """name -> (library, its bf16 entry point's name)."""
+    """name -> (library, {shape set: its entry point's name})."""
     src = (_build.CSRC / "quant_matmul.cu").read_text()
     jobs = {"new": src}
     for name, knobs in VARIANTS.items():
@@ -274,17 +343,29 @@ def libraries(parent: str | None, others=(), only=None) -> dict:
         jobs[name] = Path(path).read_text()
     if parent:
         jobs["parent"] = Path(parent).read_text()
+    from_new = {"cluster", "mma_sync"}
     if only:
-        need = set(only) | ({"new"} if "mma_sync" in only else set())
+        need = set(only) | ({"new"} if from_new & set(only) else set())
         jobs = {n: j for n, j in jobs.items() if n in need}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         built = dict(zip(jobs, ex.map(build, jobs, jobs.values())))
-    out = {n: (lib, "quant_matmul_bf16_wgmma"
-                   if hasattr(lib, "quant_matmul_bf16_wgmma")
-                   else "quant_matmul_bf16")
-           for n, lib in built.items() if not only or n in only}
-    if "new" in built and (not only or "mma_sync" in only):
-        out["mma_sync"] = (built["new"], "quant_matmul_bf16")
+    wgmma = {"big": "quant_matmul_bf16_wgmma"}
+    out = {}
+    for n, lib in built.items():
+        if only and n not in only:
+            continue
+        if n in CLUSTER:
+            out[n] = (lib, {"small": "quant_matmul_bf16_cluster"})
+        elif n in ("parent", *(o.split("=", 1)[0] for o in others)):
+            out[n] = (lib, _entries(lib))
+        else:
+            out[n] = (lib, wgmma)
+    if "new" in built:
+        for n, entries in (("cluster", {"small": "quant_matmul_bf16_cluster"}),
+                           ("mma_sync", {"big": "quant_matmul_bf16",
+                                         "small": "quant_matmul_bf16"})):
+            if not only or n in only:
+                out[n] = (built["new"], entries)
     return out
 
 
@@ -293,10 +374,9 @@ def call(lib, entry: str, x, q, s):
     (m, k), n = x.shape, q.shape[1]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream().cuda_stream
-    if entry == "quant_matmul_bf16_wgmma":
-        rc = lib.quant_matmul_bf16_wgmma(x.data_ptr(), q.data_ptr(),
-                                         s.data_ptr(), out.data_ptr(), m, n,
-                                         k, stream)
+    if entry != "quant_matmul_bf16":
+        rc = getattr(lib, entry)(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                                 out.data_ptr(), m, n, k, stream)
     else:
         splits = lib.quant_matmul_splits(m, n, k)
         ws = (torch.empty((splits, m, n), dtype=torch.float32,
@@ -332,8 +412,18 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    rows = []
-    for m, k, n in SHAPES:
+    one = torch.zeros(1, device=dev)
+    floor = median_ms(lambda: torch.add(one, 1.0), flush)
+    print(f"launch floor (a one-element torch.add, timed the same way): "
+          f"{floor:.4f} ms", flush=True)
+    rows = [{"variant": "launch floor", "ms": [floor]}]
+    for m, k, n in (*WGMMA_SHAPES, *SMALL_SHAPES):
+        shape_set = "small" if m <= 64 else "big"
+        here = {name: (lib, entries[shape_set])
+                for name, (lib, entries) in libs.items()
+                if shape_set in entries}
+        if not here:
+            continue
         x = torch.randn(m, k, device=dev, generator=gen).bfloat16()
         q, s = qm.quantize_int8(torch.randn(k, n, device=dev, generator=gen)
                                 * 0.02)
@@ -341,7 +431,7 @@ def main(argv=None) -> int:
         limit = qmm_bf16_limit(x, q, s, ref)
         label = f"({m}, {k}, {n}) bf16"
         worst = {}
-        for name, (lib, entry) in libs.items():
+        for name, (lib, entry) in here.items():
             got = call(lib, entry, x, q, s)
             if name in PATCHES and name not in CHECKED:
                 continue
@@ -350,6 +440,9 @@ def main(argv=None) -> int:
             if not ratio <= 1.0:
                 raise AssertionError(f"{name} at {label}: largest diff / "
                                      f"limit {ratio:.3f}")
+            if entry.endswith("_cluster") and not torch.equal(
+                    got, call(lib, entry, x, q, s)):
+                raise AssertionError(f"{name} at {label}: two runs differ")
             worst[name] = ratio
         print(f"{label}: every variant within qmm_bf16_limit (largest diff "
               f"/ limit " + ", ".join(f"{n_} {r:.4f}"
@@ -357,8 +450,8 @@ def main(argv=None) -> int:
               flush=True)
         w = (q.float() * s).to(torch.bfloat16)
         ms = {}
-        for name in [*libs, *reversed(libs)]:
-            lib, entry = libs[name]
+        for name in [*here, *reversed(here)]:
+            lib, entry = here[name]
             ms.setdefault(name, []).append(median_ms(
                 lambda: call(lib, entry, x, q, s), flush))
         with matmul_precision("float32"):
@@ -371,7 +464,8 @@ def main(argv=None) -> int:
                   + f" ms ({100 * bound_ms / min(t):.1f}% of the bound "
                   f"{bound_ms:.4f} {bound_by}; {min(t) / min(lib_ms):.3f}x "
                   f"bf16 torch.matmul)", flush=True)
-            rows.append({"shape": label, "variant": name, "ms": t,
+            rows.append({"shape": label, "variant": name,
+                         "entry": here[name][1], "ms": t,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "err_over_limit": worst.get(name)})
         print(f"{label} {'torch.matmul':14s} "
