@@ -235,8 +235,9 @@ when every phase passed):
               (124,962,152), peak memory; then DataParallel on a fresh
               replica, 2 rounds on both ranks (bf16 buckets encoded from
               bf16 in the first round, every bucket decoded to its
-              dtype by codec_decode, the port's eager AdamW): launch
-              counts, losses finite, replicas identical;
+              dtype by codec_decode, the port's eager AdamW, one
+              fused_update launch a round): launch counts, losses
+              finite, replicas identical;
  20. dp-parity bf16
               the bf16 model at GPT-125M width with 2 layers, world 2,
               global batch 4 x 128, two steps; on the card each step
@@ -449,6 +450,41 @@ when every phase passed):
               ``w.grad`` within 1e-5 relative against the port on the
               CPU; torch.profiler over the grad loop (device busy and
               idle share).
+ 34. random   every random op of the reference's tensor/random.py and
+              shuffle_batch through ``import paddle_tpu_torch as
+              paddle`` on the card, at 2^20 elements (randperm and
+              shuffle_batch 65,536; multinomial [64, 1000] x 20 without
+              replacement): on the card, dtype and shape (the
+              reference's narrowed names), range, mean and variance
+              within 6 standard errors of the distribution's;
+              ``seed(17)`` -> the same bits twice;
+              ``get_cuda_rng_state`` -> draw -> ``set_cuda_rng_state``
+              -> the same draw; ``uniform(seed=9)`` the same whatever the
+              global stream did, and leaving it as it was; the CPU's
+              seeded draw other than the card's (pinned in ROADMAP.md
+              Queue C); no kernel of the port launched.
+ 35. lenet    LeNet trained as a Paddle user writes it:
+              ``vision.models.LeNet()`` after ``paddle.seed(0)``,
+              Paddle's MNIST quick-start size (batch 64 of 1 x 28 x 28,
+              10 classes, synthetic data from --seed),
+              ``Adam(learning_rate=1e-3, parameters=model.parameters())``,
+              ``F.cross_entropy``, 5 steps of ``loss.backward();
+              opt.step(); opt.clear_grad()`` on eager Tensors; the same
+              on the CPU from the card's weights: the first loss and
+              every gradient within 1e-5 relative (by norm), the 5
+              losses within LENET_LOSS_RTOL; launch counts reset just
+              before and read just after: one fused_update a step and
+              no other kernel, update_math never called on the card;
+              the second step's launch bit for bit against its plain
+              version (parameters, moments, beta powers); ms a step
+              (median of 30 after warm-up, host wall, synced) beside
+              the same LeNet in plain PyTorch (torch.nn,
+              torch.optim.Adam) from the same weights in this call;
+              torch.profiler over 10 steps (busy and idle share); row 6
+              at LeNet's table (10 entries, 61,610 fp32 elements) as
+              Optimizer.step() calls it, alone, as the plain walk and
+              as torch._fused_adam_ over the same tensors, beside its
+              bound (28 bytes an element).
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -2183,8 +2219,11 @@ def phase_infer_kernels_bf16(dev, gen, shapes):
 
 
 def _at_rest_bytes(model) -> int:
+    from paddle_tpu_torch.framework.modules import (torch_buffers,
+                                                    torch_parameters)
+
     return sum(t.numel() * t.element_size()
-               for t in (*model.parameters(), *model.buffers()))
+               for t in (*torch_parameters(model), *torch_buffers(model)))
 
 
 def infer_launch_counts() -> dict:
@@ -2252,7 +2291,7 @@ def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
     before = _at_rest_bytes(model)
     linears = [m for m in model.modules() if isinstance(m, Linear)]
     linear_bytes = sum(_at_rest_bytes(m) for m in linears)
-    weights = Counter(tuple(m.weight.shape) for m in linears)
+    weights = Counter(tuple(m._parameters["weight"].shape) for m in linears)
     torch.cuda.synchronize()
     reset_infer_launch_counts()
     t0 = time.perf_counter()
@@ -2804,8 +2843,8 @@ def _data_parallel_rounds(cfg, device, ids, labels, rank, b, rounds):
     ``cfg``: ``rounds`` forward and backward passes on this rank's rows,
     ``apply_collective_grads`` (a bf16 model's buckets encoded from bf16,
     then from the fp32 sum with the residual, and decoded to bf16) and
-    the port's eager AdamW; launch counts reset just before and read just
-    after. Returns the losses, the counts and the parameters' sha256."""
+    the port's eager AdamW (one fused_update launch a round); launch
+    counts reset just before and read just after. Returns the losses, the counts and the parameters' sha256."""
     from paddle_tpu_torch.distributed import DataParallel
     from paddle_tpu_torch.models import (GPTForCausalLM,
                                          GPTPretrainingCriterion)
@@ -3004,7 +3043,8 @@ def _check_data_parallel(runs, nb, n_bf16, n_layers, rounds, ran):
     want = {name + sfx: n_layers * rounds * (sfx == ran)
             for sfx in ("", "_bf16")
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
-    want.update(fused_update=0, codec_encode=nb * rounds,
+    # the eager AdamW's step: one fused_update launch a round
+    want.update(fused_update=rounds, codec_encode=nb * rounds,
                 codec_encode_bf16=n_bf16, codec_decode=nb * rounds,
                 codec_decode_bf16=n_bf16 * rounds, fused_dequant_update=0,
                 ce_chunk_fwd=0, ce_chunk_bwd=0)
@@ -3764,8 +3804,8 @@ def _wd_eager(bench, steps=WD_EAGER_STEPS):
     """``steps`` eager steps on the same table: distributed_lookup_table
     (through the runtime's async communicator), a fresh deep MLP, the
     loss, ``backward()`` (its push through the communicator) and the
-    port's per-parameter ``Adam.step()``; examples/s with the pushes
-    flushed."""
+    port's eager ``Adam.step()`` (one fused_update launch); examples/s
+    with the pushes flushed."""
     from paddle_tpu_torch import tensor as T
     from paddle_tpu_torch.distributed.ps import (TheOnePSRuntime,
                                                  distributed_lookup_table)
@@ -4024,6 +4064,7 @@ def _wd_first_step(device, seed):
     CPU, and ``dz_abs_sum``: the sum of the sizes of the batch's
     dL/dlogit, ``|sigmoid(z) - y| / batch``, which the output bias's
     gradient adds up."""
+    from paddle_tpu_torch.framework.modules import torch_named_parameters
     from paddle_tpu_torch.models.wide_deep import CPU_SIZES, WideDeepBench
 
     with WideDeepBench(CPU_SIZES, device, seed=seed) as bench:
@@ -4040,7 +4081,7 @@ def _wd_first_step(device, seed):
             rule(cache_, rows, g)
 
         step._table_rule = spy
-        named = dict(bench.deep.named_parameters())
+        named = dict(torch_named_parameters(bench.deep))
         before = {n: p.detach().cpu().clone() for n, p in named.items()}
         rows0 = cache._rows.detach().cpu().clone()
         with torch.no_grad():
@@ -4097,6 +4138,7 @@ def phase_widedeep_parity(dev, seed):
     from torch_checks import adam_step_parity
 
     from paddle_tpu_torch.models.convert import dense_state_dict_from_numpy
+    from paddle_tpu_torch.framework.modules import torch_named_parameters
     from paddle_tpu_torch.models.wide_deep import CPU_SIZES, deep_mlp
 
     card, cpu = _wd_first_step(dev, seed), _wd_first_step("cpu", seed)
@@ -4142,7 +4184,7 @@ def phase_widedeep_parity(dev, seed):
             "cpu": _wd_run("cpu", seed)}
     proto = deep_mlp(CPU_SIZES.slots, device="cpu", seed=seed)
     arrays = {n: t.detach().numpy().copy()
-              for n, t in proto.named_parameters()}
+              for n, t in torch_named_parameters(proto)}
     noise = {"losses": 0.0, "rows": 0.0, "auc": 0.0}
     base = runs["cpu"]
     for name, way in WD_NOISE_DRAWS:
@@ -4204,7 +4246,7 @@ def phase_widedeep_parity(dev, seed):
 def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
                  bf16_rows, bf16_counts, dp16, ce_rows, ce_counts, bert_run,
-                 resnet_run, widedeep_run):
+                 resnet_run, widedeep_run, lenet_run):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -4243,7 +4285,9 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     29 and its row) is an ``at_shapes`` entry of ``fused_update``: the
     momentum rule over its fp32 plan, with phase 29's launches; so is
     Wide&Deep's (phase 31 and its row): the adam rule over its one fp32
-    bucket, with phase 31's launches."""
+    bucket, with phase 31's launches, and LeNet's eager step (phase
+    35): Adam over its table of 10 parameters, with phase 35's
+    launches."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -4365,7 +4409,7 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     if counts_ce["ce_chunk_fwd"] != loss_chunks(run["cfg_ce"]) * steps:
         raise AssertionError("the fused BERT step's chunk launches are not "
                              "the timed steps'")
-    for extra in (resnet_run, widedeep_run):
+    for extra in (resnet_run, widedeep_run, lenet_run):
         by_name["fused_update"]["at_shapes"].append(dict(
             _numbers(extra["row"]),
             launches_at_shape=extra["counts"]["fused_update"]))
@@ -4634,6 +4678,485 @@ def phase_eager(dev):
             "idle": 1 - busy_us / wall_us}
 
 
+# ------------------------------------------------------------ random ops
+RANDOM_N = 1 << 20          # elements a draw (randperm: 1 << 16)
+RANDOM_SIGMAS = 6.0         # moments within this many standard errors
+
+
+def _random_draws(paddle, n):
+    """name -> (draw, dtype name, shape, (mean, variance) or None, check):
+    every name of the reference's tensor/random.py and shuffle_batch, on
+    the current place. ``check`` takes the draw as float64 numpy."""
+    base = paddle.zeros([n])
+    probs, rates = paddle.full([n], 0.3), paddle.full([n], 2.5)
+    w = paddle.to_tensor(np.random.RandomState(3).rand(64, 1000)
+                         .astype(np.float32))
+    rows = paddle.to_tensor(np.arange(1 << 16, dtype=np.float32)[:, None]
+                            * np.ones(16, np.float32))
+
+    def within(lo, hi):
+        def check(x):
+            if not (x.min() >= lo and x.max() < hi):
+                raise AssertionError(f"range [{x.min()}, {x.max()}] outside "
+                                     f"[{lo}, {hi})")
+        return check
+
+    def integral(lo, hi):
+        def check(x):
+            within(lo, hi)(x)
+            if not np.all(x == np.round(x)):
+                raise AssertionError("a draw that is not an integer")
+        return check
+
+    def perm(x):
+        if not np.array_equal(np.sort(x), np.arange(x.size)):
+            raise AssertionError("not a permutation")
+
+    def distinct(x):
+        within(0, 1000)(x)
+        if not all(len(set(r)) == r.size for r in x):
+            raise AssertionError("an index repeats in a row")
+
+    def shuffled():
+        out, order = paddle.shuffle_batch(rows)
+        if not np.array_equal(out.numpy()[:, 0], order.numpy()):
+            raise AssertionError("shuffle_batch's rows are not its order's")
+        return order
+
+    f32, i32 = "float32", "int32"
+    return {
+        "rand": (lambda: paddle.rand([n]), f32, [n], (0.5, 1 / 12),
+                 within(0, 1)),
+        "uniform": (lambda: paddle.uniform([n], min=-2.0, max=3.0), f32, [n],
+                    (0.5, 25 / 12), within(-2, 3)),
+        "randn": (lambda: paddle.randn([n]), f32, [n], (0.0, 1.0), None),
+        "standard_normal": (lambda: paddle.standard_normal([n]), f32, [n],
+                            (0.0, 1.0), None),
+        "normal": (lambda: paddle.normal(1.5, 2.0, [n]), f32, [n],
+                   (1.5, 4.0), None),
+        "randint": (lambda: paddle.randint(-3, 7, [n]), i32, [n],
+                    (1.5, 99 / 12), integral(-3, 7)),
+        "randperm": (lambda: paddle.randperm(1 << 16), i32, [1 << 16], None,
+                     perm),
+        "rand_like": (lambda: paddle.rand_like(base), f32, [n],
+                      (0.5, 1 / 12), within(0, 1)),
+        "randn_like": (lambda: paddle.randn_like(base), f32, [n], (0.0, 1.0),
+                       None),
+        "randint_like": (lambda: paddle.randint_like(base, 0, 4), f32, [n],
+                         (1.5, 15 / 12), integral(0, 4)),
+        "bernoulli": (lambda: paddle.bernoulli(probs), f32, [n],
+                      (0.3, 0.21), integral(0, 2)),
+        "poisson": (lambda: paddle.poisson(rates), f32, [n], (2.5, 2.5),
+                    integral(0, math.inf)),
+        "multinomial": (lambda: paddle.multinomial(w, 20), i32, [64, 20],
+                        None, distinct),
+        "uniform_": (lambda: paddle.zeros([n]).uniform_(-1.0, 2.0), f32,
+                     [n], (0.5, 0.75), within(-1, 2)),
+        "normal_": (lambda: paddle.zeros([n]).normal_(1.0, 0.5), f32, [n],
+                    (1.0, 0.25), None),
+        "exponential_": (lambda: paddle.zeros([n]).exponential_(2.0), f32,
+                         [n], (0.5, 0.25), within(0, math.inf)),
+        "shuffle_batch": (shuffled, i32, [1 << 16], None, perm),
+    }
+
+
+def _moments_ok(x, mean, var, what):
+    """The draw's mean and variance within ``RANDOM_SIGMAS`` standard
+    errors of the distribution's (the variance's from the sample's own
+    fourth moment). Returns the two distances in standard errors."""
+    n = x.size
+    m, v = float(x.mean()), float(x.var())
+    se_m = math.sqrt(var / n)
+    se_v = math.sqrt(max(float(np.mean((x - m) ** 4)) - v * v, 1e-30) / n)
+    zm, zv = abs(m - mean) / se_m, abs(v - var) / se_v
+    if not (zm <= RANDOM_SIGMAS and zv <= RANDOM_SIGMAS):
+        raise AssertionError(f"{what}: mean {m:.6g} ({zm:.2f} se from "
+                             f"{mean}), variance {v:.6g} ({zv:.2f} se from "
+                             f"{var}), limit {RANDOM_SIGMAS}")
+    return zm, zv
+
+
+def phase_random(dev):
+    """Phase 34: every random op on the card (the module docstring)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as port_device
+    from paddle_tpu_torch.framework.dtype import dtype_name
+
+    n = RANDOM_N
+    prev = list(port_device._CURRENT)
+    worst = {}
+    try:
+        paddle.set_device("gpu")
+        reset_port_launch_counts()
+        for name, (draw, dt, shape, mom, check) in _random_draws(
+                paddle, n).items():
+            paddle.seed(17)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = draw()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if not a._value.is_cuda:
+                raise AssertionError(f"{name}: drawn on {a.place}")
+            if (dtype_name(a.dtype), a.shape) != (dt, shape):
+                raise AssertionError(f"{name}: {dtype_name(a.dtype)} "
+                                     f"{a.shape}, expected {dt} {shape}")
+            x = a.numpy().astype(np.float64)
+            if check is not None:
+                check(x)
+            z = _moments_ok(x.ravel(), *mom, name) if mom else (0.0, 0.0)
+            paddle.seed(17)
+            if not np.array_equal(draw().numpy(), a.numpy()):
+                raise AssertionError(f"{name}: seed(17) drew other bits")
+            state = paddle.get_cuda_rng_state()
+            b = draw().numpy()
+            paddle.set_cuda_rng_state(state)
+            if not np.array_equal(draw().numpy(), b):
+                raise AssertionError(f"{name}: the restored card state drew "
+                                     f"other bits")
+            if np.array_equal(b, a.numpy()) and name != "randperm":
+                raise AssertionError(f"{name}: two draws in a row are equal")
+            worst[name] = (ms, *z)
+        paddle.seed(1)
+        u = paddle.uniform([n], seed=9).numpy()
+        paddle.seed(2)
+        paddle.rand([5])
+        if not np.array_equal(paddle.uniform([n], seed=9).numpy(), u):
+            raise AssertionError("uniform(seed=9) moved with the global "
+                                 "stream")
+        paddle.seed(4)
+        g1 = paddle.rand([64]).numpy()
+        paddle.seed(4)
+        paddle.uniform([n], seed=9)
+        if not np.array_equal(paddle.rand([64]).numpy(), g1):
+            raise AssertionError("uniform(seed=9) moved the global stream")
+        # the CPU and the card draw other bits from one seed (on purpose,
+        # ROADMAP.md Queue C); each repeats itself
+        paddle.seed(0)
+        card = paddle.rand([64]).numpy()
+        paddle.set_device("cpu")
+        paddle.seed(0)
+        host = paddle.rand([64]).numpy()
+        if np.array_equal(card, host):
+            raise AssertionError("the CPU's and the card's seeded draws now "
+                                 "agree: drop the pinned difference")
+        counts = port_launch_counts()
+        if any(counts.values()):
+            raise AssertionError(f"a kernel of the port ran: {counts}")
+    finally:
+        port_device._CURRENT[:] = prev
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    log(f"random ({smi.stdout.strip()}): {len(worst)} names at {n} "
+        f"elements (randperm, shuffle_batch 65536, multinomial [64, 1000] "
+        f"x 20): dtypes, shapes, ranges; moments within {RANDOM_SIGMAS} "
+        f"standard errors; seed -> the same bits twice; "
+        f"get_cuda_rng_state -> draw -> set_cuda_rng_state -> the same "
+        f"draw; uniform(seed=9) apart from the global stream; the CPU's "
+        f"seeded draw differs from the card's (pinned); no kernel of the "
+        f"port launched")
+    for name, (ms, zm, zv) in worst.items():
+        log(f"  {name:16s} first draw {ms:8.3f} ms (host wall, synced); "
+            f"mean {zm:.2f} se, variance {zv:.2f} se")
+    return worst
+
+
+# ------------------------------------------------------------------ LeNet
+LENET_B = 64                # Paddle's MNIST quick start: batch 64
+LENET_STEPS = 5
+LENET_WARMUP, LENET_TIMED = 5, 30
+LENET_GRAD_RTOL = 1e-5      # the first step, card against CPU
+# five Adam steps card against CPU: the fp32 convolutions and GEMMs sum
+# in other orders (~1e-6 of each output); Adam's normalised step carries
+# a gradient's relative error into the update, so a few steps move the
+# loss by a few 1e-6. 1e-4 holds that with room and still fails an
+# update that skipped a parameter or a step (1e-3 of the loss a step).
+LENET_LOSS_RTOL = 1e-4
+
+
+def _lenet_batches(paddle, seed, steps):
+    rs = np.random.RandomState(seed)
+    return [(paddle.to_tensor(rs.rand(LENET_B, 1, 28, 28)
+                              .astype(np.float32)),
+             paddle.to_tensor(rs.randint(0, 10, (LENET_B,)), dtype="int64"))
+            for _ in range(steps)]
+
+
+def _norm_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _plain_lenet(model, dev):
+    """The same LeNet in plain PyTorch (torch.nn), the port's weights
+    copied in (a Linear's [in, out] weight transposed)."""
+    from paddle_tpu_torch.framework.modules import torch_named_parameters
+
+    net = torch.nn.Sequential(
+        torch.nn.Conv2d(1, 6, 3, 1, 1), torch.nn.ReLU(),
+        torch.nn.MaxPool2d(2, 2), torch.nn.Conv2d(6, 16, 5, 1, 0),
+        torch.nn.ReLU(), torch.nn.MaxPool2d(2, 2), torch.nn.Flatten(1),
+        torch.nn.Linear(400, 120), torch.nn.Linear(120, 84),
+        torch.nn.Linear(84, 10)).to(dev)
+    src = [t.detach() for _, t in torch_named_parameters(model)]
+    with torch.no_grad():
+        for (name, p), s in zip(net.named_parameters(), src):
+            p.copy_(s.t() if name.endswith("weight") and p.dim() == 2
+                    else s)
+    return net
+
+
+def _lenet_update_row(opt, flush):
+    """Row 6 at LeNet's table (its 10 parameters, one entry each, Adam):
+    the kernel alone, as ``Optimizer.step()`` calls it, the plain walk and
+    ``torch._fused_adam_`` over the same tensors, timed in one call; the
+    bound: p, g, m1, m2 read, p, m1, m2 written, 28 bytes an element."""
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    table = opt._table
+    lr = opt._lr_tensor_kept(table.device)
+
+    def kernel():   # the same powers each time
+        fu.fused_update_buckets(table, lr)
+        table.parity = 1 - table.parity
+
+    def plain():
+        fu.buckets_plain(table, lr)
+
+    ps = [e[0].clone() for e in table.entries]
+    gs = [e[1].clone() for e in table.entries]
+    m1 = [e[2][0].clone() for e in table.entries]
+    m2 = [e[2][1].clone() for e in table.entries]
+    steps = [torch.full((), 4.0, device=table.device) for _ in ps]
+
+    def library():
+        torch._fused_adam_(ps, gs, m1, m2, [], steps, lr=1e-3, beta1=0.9,
+                           beta2=0.999, weight_decay=0.0, eps=1e-8,
+                           amsgrad=False, maximize=False)
+
+    n = sum(e[0].numel() for e in table.entries)
+    bound_ms, bound_by = work_bound(28 * n, 20 * n)
+    return {"shape": f"LeNet's table: {len(table.entries)} parameters, "
+                     f"{n} elements (one eager step, float32, adam)",
+            "library_form": "torch._fused_adam_, fp32 moments",
+            "max_abs_err": 0.0, "step_ms": median_ms(opt.step, flush),
+            "ms": median_ms(kernel, flush),
+            "library_ms": median_ms(library, flush),
+            "step_span_ms": span_ms(opt.step, flush),
+            "span_ms": span_ms(kernel, flush),
+            "library_span_ms": span_ms(library, flush),
+            "plain_ms": median_ms(plain, flush), "bound_ms": bound_ms,
+            "bound_by": bound_by, "elements": n}
+
+
+def _step_ms(step, runs):
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def phase_lenet(dev, seed):
+    """Phase 35: LeNet trained as a Paddle user writes it (the module
+    docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.framework import device as port_device
+    from paddle_tpu_torch.framework.precision import matmul_precision
+    from paddle_tpu_torch.ops import fused_update as fu
+    from torch_checks import same_bits
+
+    prev = list(port_device._CURRENT)
+    F = paddle.nn.functional
+    calls = {"update_math": 0}
+    real_math = popt.update_math
+
+    def counted_math(p, *a, **k):     # the plain update of a card tensor
+        calls["update_math"] += int(p.is_cuda)
+        return real_math(p, *a, **k)
+
+    try:
+        paddle.set_device("gpu")
+        paddle.seed(0)
+        model = paddle.vision.models.LeNet()
+        opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                    parameters=model.parameters())
+        batches = _lenet_batches(paddle, seed, LENET_STEPS)
+        paddle.set_device("cpu")
+        cpu_model = paddle.vision.models.LeNet()
+        cpu_model.set_state_dict(model.state_dict())
+        cpu_opt = paddle.optimizer.Adam(learning_rate=1e-3,
+                                        parameters=cpu_model.parameters())
+        cpu_batches = [(x.cpu(), y.cpu()) for x, y in batches]
+        paddle.set_device("gpu")
+        if not all(p._value.is_cuda for p in model.parameters()):
+            raise AssertionError("a LeNet parameter is off the card")
+
+        def one(m, o, x, y):
+            loss = F.cross_entropy(m(x), y)
+            loss.backward()
+            return loss
+
+        losses, cpu_losses, builds, tables = [], [], 0, set()
+        first = {}
+        popt.update_math = counted_math
+        reset_port_launch_counts()
+        for i, ((x, y), (xc, yc)) in enumerate(zip(batches, cpu_batches)):
+            loss, loss_c = one(model, opt, x, y), one(cpu_model, cpu_opt,
+                                                      xc, yc)
+            if i == 0:
+                first["loss"] = _norm_rel(float(loss), float(loss_c))
+                first["grads"] = max(
+                    _norm_rel(p.grad.numpy(), q.grad.numpy())
+                    for p, q in zip(model.parameters(),
+                                    cpu_model.parameters()))
+            if i == 1:   # the eager step's launch against its plain version
+                snap = [(p._value.detach().clone(), p._value.grad.clone())
+                        for p in model.parameters()]
+                slots = [{k: v.clone() for k, v in
+                          opt._slots[id(p._value)].items()}
+                         for p in model.parameters()]
+            opt.step()
+            if id(opt._table) not in tables:
+                tables.add(id(opt._table))
+                builds += 1
+            opt.clear_grad()
+            cpu_opt.step()
+            cpu_opt.clear_grad()
+            losses.append(float(loss))
+            cpu_losses.append(float(loss_c))
+            if i == 1:
+                calls_before = calls["update_math"]
+                ref = popt.Adam(learning_rate=1e-3, parameters=[
+                    s[0] for s in snap])
+                for (p0, g0), s in zip(snap, slots):
+                    ref._slots[id(p0)] = s
+                ref._step_plain([s[0] for s in snap], [s[1] for s in snap])
+                calls["update_math"] = calls_before   # the reference's
+                differ = [k for k, (p, (p0, _)) in enumerate(zip(
+                    model.parameters(), snap))
+                    if not same_bits(p._value.detach(), p0)]
+                for p, (p0, _) in zip(model.parameters(), snap):
+                    mine, plain = opt._slots[id(p._value)], ref._slots[id(p0)]
+                    differ += [nm for nm in ("moment1", "moment2",
+                                             "beta1_pow", "beta2_pow")
+                               if not same_bits(mine[nm], plain[nm])]
+                if differ:
+                    raise AssertionError(f"the eager step's kernel and its "
+                                         f"plain version differ: {differ}")
+        counts = port_launch_counts()
+        popt.update_math = real_math
+        if calls["update_math"]:
+            raise AssertionError(f"update_math ran {calls['update_math']} "
+                                 f"times on the card")
+        want = {k: LENET_STEPS if k == "fused_update" else 0 for k in counts}
+        if counts != want:
+            raise AssertionError(f"LeNet launch counts {counts}, expected "
+                                 f"{want}")
+        if not (first["loss"] <= LENET_GRAD_RTOL
+                and first["grads"] <= LENET_GRAD_RTOL):
+            raise AssertionError(f"LeNet's first step, card against CPU: "
+                                 f"{first}, limit {LENET_GRAD_RTOL}")
+        loss_rel = max(_norm_rel(a, b) for a, b in zip(losses, cpu_losses))
+        if not loss_rel <= LENET_LOSS_RTOL:
+            raise AssertionError(f"LeNet's losses, card against CPU: "
+                                 f"{loss_rel:.2e} (limit {LENET_LOSS_RTOL})")
+        param_rel = max(_norm_rel(p.numpy(), q.numpy()) for p, q in zip(
+            model.parameters(), cpu_model.parameters()))
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"LeNet's losses {losses}")
+
+        # ms a step: the port's loop against the same LeNet in plain
+        # PyTorch (torch.optim.Adam), from the same weights, in this call
+        x, y = batches[0]
+
+        def port_step():
+            one(model, opt, x, y)
+            opt.step()
+            opt.clear_grad()
+
+        net = _plain_lenet(model, dev)
+        topt = torch.optim.Adam(net.parameters(), lr=1e-3)
+        tx, ty = x._value, y._value.long()
+
+        def plain_step():
+            loss = torch.nn.functional.cross_entropy(net(tx), ty)
+            loss.backward()
+            topt.step()
+            topt.zero_grad()
+
+        for _ in range(LENET_WARMUP):
+            port_step()
+        port_ms = _step_ms(port_step, LENET_TIMED)
+        with matmul_precision("float32"):
+            for _ in range(LENET_WARMUP):
+                plain_step()
+            plain_ms = _step_ms(plain_step, LENET_TIMED)
+        port_ms_again = _step_ms(port_step, LENET_TIMED)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                port_step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        one(model, opt, x, y)      # gradients in place for the row's step()
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                            device=dev)
+        with torch.no_grad():      # the table's views of the leaves
+            row = _lenet_update_row(opt, flush)
+        del flush
+        opt.clear_grad()
+    finally:
+        popt.update_math = real_math
+        port_device._CURRENT[:] = prev
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    idle = 1 - busy_us / wall_us
+    log(f"lenet ({smi.stdout.strip()}): vision.models.LeNet after "
+        f"paddle.seed(0), batch {LENET_B} x 1 x 28 x 28, Adam(1e-3), "
+        f"F.cross_entropy, {LENET_STEPS} steps of loss.backward(); "
+        f"opt.step(); opt.clear_grad() on eager Tensors: losses "
+        f"{[round(v, 6) for v in losses]}; launch counts {counts} (one "
+        f"fused_update a step, update_math 0 calls); {builds} table(s) "
+        f"built; the eager step's kernel bit for bit against its plain "
+        f"version; card against CPU from the same weights: first loss "
+        f"{first['loss']:.2e}, gradients {first['grads']:.2e} (limit "
+        f"{LENET_GRAD_RTOL}), {LENET_STEPS} losses {loss_rel:.2e} (limit "
+        f"{LENET_LOSS_RTOL}), parameters after them {param_rel:.2e}")
+    log(f"lenet step (median of {LENET_TIMED}, host wall, synced): port "
+        f"{port_ms:.3f} ms, then {port_ms_again:.3f} ms; plain PyTorch "
+        f"(torch.nn, torch.optim.Adam) {plain_ms:.3f} ms "
+        f"({min(port_ms, port_ms_again) / plain_ms:.2f}x); the port's loop "
+        f"under the profiler: wall {wall_us / 1e3:.3f} ms for 10 steps, "
+        f"device busy {busy_us / 1e3:.3f} ms ({100 * idle:.1f}% idle), "
+        f"{sum(e.count for e in kernels)} kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
+            f"{e.key[:90]}")
+    log(f"fused_update, {row['shape']}, one launch, device time (from an "
+        f"idle card): as Optimizer.step() calls it {row['step_ms']:.4f} ms "
+        f"({row['step_span_ms']:.4f}), the kernel alone {row['ms']:.4f} "
+        f"({row['span_ms']:.4f}), torch._fused_adam_ {row['library_ms']:.4f}"
+        f" ({row['library_span_ms']:.4f}); plain {row['plain_ms']:.4f}; "
+        f"bound {row['bound_ms']:.5f} {row['bound_by']}, the kernel at "
+        f"{100 * row['bound_ms'] / row['ms']:.2f}% of it")
+    return {"counts": counts, "row": row, "port_ms": port_ms,
+            "plain_ms": plain_ms, "idle": idle}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4853,6 +5376,14 @@ def main(argv=None) -> int:
     phase_eager(dev)
     log(f"phase 33 (eager): {time.perf_counter() - t0:.1f} s")
 
+    # the eager training surface: the random ops, then LeNet
+    t0 = time.perf_counter()
+    phase_random(dev)
+    log(f"phase 34 (random): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lenet = phase_lenet(dev, args.seed)
+    log(f"phase 35 (lenet): {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
             "rank": dp16_rank}
@@ -4861,7 +5392,8 @@ def main(argv=None) -> int:
                                   dp_row, carrier_rows, dp_rank, bf16_rows,
                                   bf16_counts, dp16, ce_rows, ce_counts,
                                   bert, {"counts": counts29, "row": row_r},
-                                  {"counts": counts31, "row": row_wd})))
+                                  {"counts": counts31, "row": row_wd},
+                                  lenet)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

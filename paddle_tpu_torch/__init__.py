@@ -87,11 +87,19 @@ runs the reference's eager code on the card:
   serving/     decode model, KV block pool, sampler, queue, engine
   observability/ counters, gauges and histograms
 
+Then the eager training surface: the random ops over per-device
+generators (``framework/random.py``, ``tensor/random.py``: ``seed``,
+the RNG states), ``Parameter``, ``create_parameter`` and ``ParamAttr``,
+``nn.Layer`` (a ``torch.nn.Module`` whose Paddle accessors return eager
+views of its parameters, ``nn/layer/layers.py``), ``nn.initializer``,
+the functionals over eager ``Tensor``s, the optimizers' ``step()`` over
+eager parameters (one fused update launch on the card), and
+``vision.models.LeNet``.
+
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; a CUDA request without a card raises. New eager
-tensors go to the current place: the card until ``set_device("cpu")``.
-Left for later: ``tensor/random.py`` with ``seed`` and the RNG-state
-functions, and ``Parameter``/``create_parameter`` (ROADMAP Queue A).
+tensors and layers go to the current place: the card until
+``set_device("cpu")``.
 """
 from .framework.autograd import (  # noqa: F401
     enable_grad, grad, is_grad_enabled, no_grad, set_grad_enabled,
@@ -107,13 +115,21 @@ from .framework.dtype import (  # noqa: F401
 )
 from .framework.dtype import bool  # noqa: F401,A004
 from .framework.flags import get_flags, set_flags  # noqa: F401
-from .framework.tensor import Tensor, to_tensor  # noqa: F401
+from .framework.param_attr import ParamAttr  # noqa: F401
+from .framework.random import (  # noqa: F401
+    get_cuda_rng_state, get_rng_state, seed, set_cuda_rng_state,
+    set_rng_state,
+)
+from .framework.tensor import (  # noqa: F401
+    Parameter, Tensor, create_parameter, to_tensor,
+)
 
 # the op namespace (paddle.add, paddle.matmul, ...) and the Tensor methods
 from .tensor import *  # noqa: F401,F403
 from .tensor import is_tensor  # noqa: F401
 
-from . import metric, nn, quantization, vision  # noqa: E402,F401
+from . import (metric, nn, optimizer, quantization, regularizer,  # noqa: E402,F401
+               vision)
 
 
 def enable_static():

@@ -40,6 +40,7 @@ from typing import List
 import torch
 
 from ..framework.flags import flag
+from ..framework.modules import torch_parameters
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "amp_state", "auto_cast", "amp_guard",
            "amp_cast_inputs", "cast", "decorate", "GradScaler"]
@@ -146,7 +147,7 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
         dt = _dtype(dtype)
         with torch.no_grad():
             for m in model_list:
-                for p in m.parameters():
+                for p in torch_parameters(m):
                     if p.dtype == torch.float32:
                         p.data = p.data.to(dt)
     out = model_list[0] if single else model_list
@@ -195,6 +196,7 @@ class GradScaler:
         inv = 1.0 / self._scale
         found = False
         for p in optimizer._parameter_list:
+            p = getattr(p, "_value", p)     # an eager Parameter's payload
             if p.grad is not None:
                 g = p.grad.to(torch.float32) * inv
                 found = found or not bool(torch.isfinite(g).all())

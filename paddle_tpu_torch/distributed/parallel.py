@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..framework.modules import torch_named_parameters, torch_parameters
 from .env import get_world_size
 from .grad_comm import GradCommConfig, GradCommunicator
 
@@ -76,8 +77,9 @@ class DataParallel(torch.nn.Module):
         world = get_world_size()
         if world <= 1:
             return
-        params = [p for p in self._layers.parameters() if p.requires_grad]
-        missing = [(n, p) for n, p in self._layers.named_parameters()
+        params = [p for p in torch_parameters(self._layers)
+                  if p.requires_grad]
+        missing = [(n, p) for n, p in torch_named_parameters(self._layers)
                    if p.requires_grad and p.grad is None]
         if missing:
             if not self.find_unused_parameters:

@@ -29,14 +29,16 @@ its node, and ``backward()`` is ``torch.autograd.backward``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import enable_grad, is_grad_enabled, no_grad, set_grad_enabled
 
 from .. import amp as _amp
 from .dtype import NARROW
 
-__all__ = ["call_op", "wrap", "no_grad", "enable_grad", "set_grad_enabled",
-           "is_grad_enabled", "grad", "run_backward"]
+__all__ = ["call_op", "eager_fn", "wrap", "unwrap", "no_grad", "enable_grad",
+           "set_grad_enabled", "is_grad_enabled", "grad", "run_backward"]
 
 _Tensor = None      # framework.tensor.Tensor, bound when that module loads
 _new = object.__new__
@@ -119,8 +121,29 @@ def call_op(fn, *args, op_name: str = ""):
     return wrap_outputs(_linked(out, inputs), inputs)
 
 
-def _unwrap(x):
+def unwrap(x):
+    """An eager ``Tensor``'s payload; anything else as it is."""
     return x._value if isinstance(x, _Tensor) else x
+
+
+def eager_fn(fn):
+    """``fn``, a function of ``torch.Tensor``s that runs its own cast
+    points (the ``nn.functional`` ops), taking eager ``Tensor``s too:
+    given one anywhere in its arguments it gets their payloads and its
+    result is wrapped, as ``call_op``'s; given none it is ``fn``."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if not any(isinstance(a, _Tensor) for a in args) and not any(
+                isinstance(v, _Tensor) for v in kwargs.values()):
+            return fn(*args, **kwargs)
+        args = [unwrap(a) for a in args]
+        kwargs = {k: unwrap(v) for k, v in kwargs.items()}
+        out = fn(*args, **kwargs)
+        inputs = [a for a in (*args, *kwargs.values())
+                  if isinstance(a, torch.Tensor)]
+        return wrap_outputs(_linked(out, inputs), inputs)
+
+    return run
 
 
 def run_backward(tensors, grad_tensors=None, retain_graph=False):
@@ -130,7 +153,7 @@ def run_backward(tensors, grad_tensors=None, retain_graph=False):
     outs, grads = [], []
     for k, t in enumerate(tensors):
         v = t._value
-        g = None if grad_tensors is None else _unwrap(grad_tensors[k])
+        g = None if grad_tensors is None else unwrap(grad_tensors[k])
         if g is None and v.numel() != 1:
             raise RuntimeError(
                 "backward() on a non-scalar Tensor requires grad_tensors")
@@ -156,7 +179,7 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
     outs, gouts = [], []
     for k, t in enumerate(outputs):
         v = t._value
-        g = None if grad_outputs is None else _unwrap(grad_outputs[k])
+        g = None if grad_outputs is None else unwrap(grad_outputs[k])
         if g is None and v.numel() != 1:
             raise RuntimeError(
                 "grad() of a non-scalar output requires grad_outputs")

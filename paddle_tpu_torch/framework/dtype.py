@@ -24,7 +24,8 @@ import torch
 __all__ = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16",
            "bfloat16", "float32", "float64", "complex64", "complex128",
            "convert_dtype", "dtype_name", "is_floating_point", "is_integer",
-           "is_complex", "set_default_dtype", "get_default_dtype", "NARROW"]
+           "is_complex", "set_default_dtype", "get_default_dtype", "NARROW",
+           "cast_value"]
 
 bool = torch.bool  # noqa: A001 - mirrors paddle.bool
 uint8 = torch.uint8
@@ -127,3 +128,21 @@ def set_default_dtype(d) -> None:
 
 def get_default_dtype() -> torch.dtype:
     return _DEFAULT_DTYPE[0]
+
+
+def cast_value(v: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``v.to(dt)`` as the reference casts: a float cast to an integer
+    dtype saturates at the dtype's bounds and sends NaN to 0 (XLA's
+    convert), where PyTorch's conversion wraps or is undefined out of
+    range."""
+    if not v.is_floating_point() or dt.is_floating_point or dt.is_complex \
+            or dt == torch.bool:
+        return v.to(dt)
+    info = torch.iinfo(dt)
+    w = v.to(torch.float64)
+    w = torch.where(torch.isnan(w), torch.zeros_like(w), w)
+    out = w.clamp(info.min, info.max).to(dt)
+    if info.bits == 64:     # 2**63 - 1 is no float64: 2**63 would wrap
+        out = torch.where(w >= 2.0 ** 63, torch.full_like(out, info.max),
+                          out)
+    return out

@@ -31,6 +31,7 @@ The arithmetic dunders and the op methods are set on the class by
 from __future__ import annotations
 
 import builtins
+import weakref
 
 import numpy as np
 import torch
@@ -38,7 +39,8 @@ import torch
 from . import autograd, device as device_mod, dtype as dtype_mod
 from .autograd import call_op, run_backward, wrap
 
-__all__ = ["Tensor", "to_tensor"]
+__all__ = ["Tensor", "to_tensor", "Parameter", "param_view",
+           "buffer_view", "create_parameter"]
 
 
 class Tensor:
@@ -54,6 +56,14 @@ class Tensor:
                  stop_gradient=True):
         self._value = _payload(data, dtype, place)
         self.stop_gradient = stop_gradient
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        """A PyTorch function or method given eager ``Tensor``s (code that
+        mixes a layer's parameter views with ``torch.Tensor``s, such as
+        ``torch_tensor + layer.bias``) runs on their payloads and returns
+        what PyTorch returns: ``torch.Tensor``s."""
+        return func(*_payloads(args), **_payloads(kwargs or {}))
 
     # ------------------------------------------------------------ properties
     @property
@@ -179,7 +189,8 @@ class Tensor:
 
     def astype(self, dtype):
         dt = dtype_mod.convert_dtype(dtype)
-        return call_op(lambda v: v.to(dt), self, op_name="cast")
+        return call_op(lambda v: dtype_mod.cast_value(v, dt), self,
+                       op_name="cast")
 
     def cast(self, dtype):
         return self.astype(dtype)
@@ -324,6 +335,111 @@ class Tensor:
 autograd._Tensor = Tensor
 
 
+class _Bound(Tensor):
+    """An eager view of a tensor that something else owns (a layer's
+    parameter or buffer): writes go into the payload in place, so the
+    owner sees them, and the payload is never rebound."""
+
+    __slots__ = ()
+
+    def _write(self, val):
+        with torch.no_grad():
+            self._value.copy_(val.to(self._value.device, self._value.dtype))
+
+    def _replace_from(self, new):
+        self._write(new._value.detach())
+
+
+def _on_payload(attr, default):
+    """A ``Parameter`` attribute kept on its ``torch.Tensor`` payload, so
+    code that holds only the payload (``TrainStep``, the fused updater,
+    the optimizers' ``lr_mult``) reads what the view set."""
+    def get(self):
+        return getattr(self._value, attr, default)
+
+    def put(self, v):
+        setattr(self._value, attr, v)
+
+    return property(get, put)
+
+
+class Parameter(_Bound):
+    """A trainable ``Tensor`` (reference: ``framework/tensor.py:329-356``):
+    ``stop_gradient`` False unless ``trainable=False``, ``name``,
+    ``persistable`` True. Its payload is a ``torch.nn.Parameter``, which
+    a ``Layer`` registers as its own (``nn/layer/layers.py``), and which
+    carries the view's ``name``, ``optimize_attr``, ``regularizer``,
+    ``need_clip`` and ``trainable`` (``_on_payload``). An in-place op on
+    a parameter writes into that payload (``_Bound``)."""
+
+    __slots__ = ()
+
+    def __init__(self, data, dtype=None, name="", trainable=True):
+        v = _payload(data, dtype, None)
+        self._value = torch.nn.Parameter(
+            v, requires_grad=builtins.bool(trainable)
+            and (v.is_floating_point() or v.is_complex()))
+        self.name = name
+        self.persistable = True
+        self._value._paddle_view = weakref.ref(self)
+
+    name = _on_payload("_paddle_name", "")
+    persistable = _on_payload("persistable", True)
+    optimize_attr = _on_payload("optimize_attr", {"learning_rate": 1.0})
+    regularizer = _on_payload("regularizer", None)
+    need_clip = _on_payload("need_clip", True)
+    is_distributed = False
+
+    @property
+    def trainable(self):
+        return not self.stop_gradient
+
+    @trainable.setter
+    def trainable(self, v):
+        self.stop_gradient = not v
+
+    def __repr__(self):
+        return "Parameter containing:\n" + super().__repr__()
+
+    __str__ = __repr__
+
+
+def _view(v: torch.Tensor, cls):
+    """The one live eager view of ``v`` (kept by a weak reference on
+    ``v``, so a view nobody holds goes, and no cycle keeps ``v``)."""
+    ref = getattr(v, "_paddle_view", None)
+    t = None if ref is None else ref()
+    if t is None or type(t) is not cls or t._value is not v:
+        t = object.__new__(cls)
+        t._value = v
+        v._paddle_view = weakref.ref(t)
+    return t
+
+
+def param_view(v: torch.Tensor) -> Parameter:
+    """``v`` (a layer's ``torch.nn.Parameter``) as its eager
+    ``Parameter``; the same object while anyone holds it."""
+    return _view(v, Parameter)
+
+
+def buffer_view(v: torch.Tensor) -> Tensor:
+    """``v`` (a layer's buffer) as an eager ``Tensor`` that writes into
+    it."""
+    return _view(v, _Bound)
+
+
+def _payloads(x):
+    """``x`` with every eager ``Tensor`` in it (through tuples, lists and
+    dicts) replaced by its payload."""
+    if isinstance(x, Tensor):
+        return x._value
+    if isinstance(x, (tuple, list)):
+        return type(x)(_payloads(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _payloads(v) for k, v in x.items()}
+    return x
+
+
 def _sanitize_index(idx, device):
     def conv(i):
         if isinstance(i, Tensor):
@@ -374,3 +490,18 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
     t._value = _payload(data, dtype, place)
     t.stop_gradient = stop_gradient
     return t
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """``paddle.create_parameter`` (reference: ``framework/tensor.py:
+    367-382``): ``Layer.create_parameter`` of a new ``Layer``, so the
+    ``ParamAttr`` handling and the default initializers are the same."""
+    from ..framework.param_attr import ParamAttr
+    from ..nn import Layer
+
+    if name is not None and attr is None:
+        attr = ParamAttr(name=name)
+    return Layer().create_parameter(shape, attr=attr, dtype=dtype,
+                                    is_bias=is_bias,
+                                    default_initializer=default_initializer)

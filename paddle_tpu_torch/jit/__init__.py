@@ -113,6 +113,7 @@ from ..distributed.grad_comm import (BLOCK_CODECS, GradBucket,
                                      GradCommConfig, GradCommunicator,
                                      build_buckets)
 from ..framework.device import to_device
+from ..framework.modules import torch_buffers, torch_parameters
 from ..nn.clip import clip_grads
 from ..optimizer.fused import FusedFlatUpdater
 from ..optimizer.optimizer import lr_mult
@@ -167,7 +168,7 @@ class TrainStep:
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got "
                              f"{grad_accum_steps}")
-        params = [p for p in model.parameters() if p.requires_grad]
+        params = [p for p in torch_parameters(model) if p.requires_grad]
         self._gc_comm = None
         self.comm_stats = None
         buckets = uniform_buckets(params, optimizer)
@@ -324,7 +325,7 @@ class TrainStep:
             loss = loss.detach().clone()
             # the shard's mean loss -> the global mean (equal shards)
             _coll.all_reduce(loss, op=ReduceOp.AVG, group=comm.group)
-            for buf in self.model.buffers():
+            for buf in torch_buffers(self.model):
                 if buf.is_floating_point():
                     _coll.all_reduce(buf, op=ReduceOp.AVG, group=comm.group)
         # on the fused path the communicator's plan is the updater's, so

@@ -124,7 +124,7 @@ class BertEmbeddings(nn.Module):
         with torch.no_grad():
             for e in (self.word_embeddings, self.position_embeddings,
                       self.token_type_embeddings):
-                e.weight.mul_(cfg.initializer_range)
+                e._parameters["weight"].mul_(cfg.initializer_range)
         self.layer_norm = LayerNorm(cfg.hidden_size,
                                     epsilon=cfg.layer_norm_eps, device=device)
         self.dropout = Dropout(cfg.dropout)
@@ -235,7 +235,7 @@ class BertForPretraining(nn.Module):
         seq, pooled = self.bert(input_ids, token_type_ids, position_ids,
                                 attention_mask)
         x = self.transform_norm(F.gelu(self.transform(seq)))
-        w = self.bert.embeddings.word_embeddings.weight
+        w = self.bert.embeddings.word_embeddings._parameters["weight"]
         if masked_lm_labels is None:
             out = _mlm_logits(x, w, self.mlm_bias)
         else:

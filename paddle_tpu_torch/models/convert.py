@@ -7,7 +7,8 @@ port's ``state_dict``, for ``GPTForCausalLM`` (``state_dict_from_numpy``),
 whose names and shapes are read off the port's own model
 (``dense_state_dict_from_numpy``: the ResNet family, with the batch
 norms' ``_mean``/``_variance`` buffers, from the reference's
-``Layer.state_dict()``; Wide&Deep's dense arms). The names are the same
+``Layer.state_dict()``; Wide&Deep's dense arms), and any port
+``nn.Layer`` by its own ``set_state_dict`` (``load_layer_state``). The names are the same
 on both sides, so the mapping checks names, shapes and dtype and copies
 the bytes unchanged; BERT's expected names and shapes are read off the
 port's own model too (``bert_layout``). The port itself never
@@ -33,6 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..framework.modules import torch_buffers, torch_named_parameters
 from ..nn import Linear
 from .bert import BertConfig, BertForPretraining
 from .gpt import PORTED_DTYPES, GPTConfig, block_shapes
@@ -40,6 +42,7 @@ from .gpt import PORTED_DTYPES, GPTConfig, block_shapes
 __all__ = ["expected_shapes", "expected_dtypes", "state_dict_from_numpy",
            "bert_layout",
            "bert_state_dict_from_numpy", "dense_state_dict_from_numpy",
+           "load_layer_state",
            "grad_comm_state_for_rank",
            "grad_comm_state_to_reference"]
 
@@ -107,7 +110,7 @@ def bert_layout(cfg: BertConfig):
     (``Linear`` weights ``[in, out]``), and the module names of its
     ``Linear`` layers, read off a model built on the CPU."""
     model = BertForPretraining(cfg, device="cpu")
-    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    shapes = {n: tuple(p.shape) for n, p in torch_named_parameters(model)}
     linears = {n for n, m in model.named_modules() if isinstance(m, Linear)}
     return shapes, linears
 
@@ -147,12 +150,28 @@ def dense_state_dict_from_numpy(arrays: Dict[str, np.ndarray],
     A ``Linear`` weight stays ``[in, out]``; each ``Linear`` keeps its own
     weight name."""
     want = {n: tuple(t.shape) for n, t in
-            [*model.named_parameters(), *model.named_buffers()]}
+            [*torch_named_parameters(model),
+             *torch_buffers(model, named=True)]}
     out: Dict[str, object] = dict(_copy_checked(arrays, want))
     for name, m in model.named_modules():
         if isinstance(m, Linear):
             out[f"{name}._extra_state"] = {"weight_name": None}
     return out
+
+
+def load_layer_state(layer, arrays: Dict[str, np.ndarray]):
+    """A reference ``Layer``'s ``state_dict()`` as numpy arrays (``{n:
+    np.asarray(t._value)}``: parameters and persistable buffers) loaded
+    into ``layer``, a port ``nn.Layer`` of the same structure, by its
+    ``set_state_dict``: the same structured names both ways, each
+    shape and dtype checked, the bits copied. Returns ``layer``."""
+    own = layer.state_dict()
+    tensors = _copy_checked(arrays, {n: tuple(t.shape)
+                                     for n, t in own.items()},
+                            {n: t.dtype for n, t in own.items()})
+    missing, unexpected = layer.set_state_dict(tensors)
+    assert not missing and not unexpected, (missing, unexpected)
+    return layer
 
 
 def grad_comm_state_for_rank(state: dict, rank: int, world: int) -> dict:

@@ -14,6 +14,8 @@ work for both:
 - by value: each element clamped to ``[min, max]``.
 
 The scale is cast to the gradient's dtype before the multiply.
+``clip_grads`` takes ``torch.Tensor``s or eager ``Tensor``s (a
+``p.grad``), whose payloads it clips in place.
 """
 from __future__ import annotations
 
@@ -69,6 +71,7 @@ def clip_grads(grads: Sequence[torch.Tensor], cfg: Tuple,
     its own norm (the global norm and the value clip read the tensors
     whole)."""
     kind, val = cfg
+    grads = [getattr(g, "_value", g) for g in grads]
     if kind == "value":
         lo, hi = val
         for g in grads:

@@ -1,4 +1,5 @@
 """Layers of the port (reference: ``paddle_tpu/nn/layer``)."""
+from .layers import Layer
 from .activation import ReLU, Sigmoid
 from .common import Dropout, Embedding, Flatten, Linear
 from .container import Sequential
@@ -12,6 +13,6 @@ from .transformer import (MultiHeadAttention, TransformerEncoder,
 __all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BCELoss", "BCEWithLogitsLoss",
            "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "Conv1D", "Conv2D", "Conv3D", "Dropout", "Embedding", "Flatten",
-           "LayerNorm", "Linear", "MaxPool2D", "MultiHeadAttention", "ReLU",
+           "Layer", "LayerNorm", "Linear", "MaxPool2D", "MultiHeadAttention", "ReLU",
            "Sequential", "Sigmoid", "TransformerEncoder",
            "TransformerEncoderLayer"]

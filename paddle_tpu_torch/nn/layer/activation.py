@@ -3,14 +3,14 @@
 yet)."""
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["ReLU", "Sigmoid"]
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
     """``F.relu`` (the cast point "relu")."""
 
     def __init__(self, name=None):
@@ -20,7 +20,7 @@ class ReLU(nn.Module):
         return F.relu(x)
 
 
-class Sigmoid(nn.Module):
+class Sigmoid(Layer):
     """``F.sigmoid`` (the cast point "sigmoid")."""
 
     def __init__(self, name=None):

@@ -12,61 +12,90 @@ reference (``models/convert.py``) bring the reference's names along and
 ``stable_seed(weight_name)`` gives both sides the same stochastic
 rounding seed.
 
-Parameters are drawn from a numpy ``RandomState`` (``rs``; numpy's
-global generator when none is given), with the reference's
-initialisers: Xavier-uniform weights and zero biases for ``Linear``,
-standard-normal rows for ``Embedding``.
+Each is a ``Layer`` (``nn/layer/layers.py``). Its parameters take the
+reference's default initialisers (Xavier-uniform weights and zero
+biases for ``Linear``, standard-normal rows for ``Embedding``), or what
+``weight_attr``/``bias_attr`` (``ParamAttr``) say, drawn from the
+global stream (``paddle.seed``). With ``rs``, a numpy ``RandomState``,
+the values are drawn from it instead, as the port's models draw theirs
+(``_make_param``); an attr's name, learning rate, regularizer,
+trainable and need_clip apply either way. New parameters go to
+``device``, or to the current place.
 """
 from __future__ import annotations
 
 import itertools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from ... import tensor as T
-from ...framework.device import resolve_device
+from ...framework.param_attr import ParamAttr
+from ...framework.tensor import Parameter
 from .. import functional as F
+from .. import initializer as I
 from ..functional.common import OPTIONS_ITEM, check_dropout_options
+from .layers import Layer, param_device, unique_name
 
 __all__ = ["Linear", "Embedding", "Dropout", "Flatten"]
 
 _LINEAR_IDS = itertools.count()
 
 
-def _param(arr: np.ndarray, device: torch.device) -> nn.Parameter:
-    return nn.Parameter(torch.from_numpy(arr.astype(np.float32)).to(device))
+def _make_param(layer: Layer, shape, attr, device, *, is_bias=False,
+                default_initializer=None,
+                draw: Optional[Callable[[], np.ndarray]] = None):
+    """``layer.create_parameter``; with ``draw`` (the caller's numpy
+    ``RandomState`` draw, ``None`` without ``rs``) the parameter holds
+    the drawn fp32 values instead of the initializer's. None when
+    ``attr`` is False."""
+    if draw is None:
+        return layer.create_parameter(shape, attr, is_bias=is_bias,
+                                      default_initializer=default_initializer,
+                                      device=device)
+    attr = ParamAttr._to_attr(attr)
+    if attr is False:
+        return None
+    arr = np.asarray(draw(), dtype=np.float64).astype(np.float32)
+    p = Parameter(torch.from_numpy(arr).to(param_device(device)),
+                  name=attr.name or unique_name(
+                      f"{layer.full_name()}.{'b' if is_bias else 'w'}"),
+                  trainable=attr.trainable)
+    if attr.initializer is not None:
+        attr.initializer(p)
+    p.optimize_attr = {"learning_rate": attr.learning_rate}
+    p.regularizer = attr.regularizer
+    p.need_clip = attr.need_clip
+    return p
 
 
-def _check_attr(name: str, attr) -> None:
-    if attr is not None and attr is not False:
-        raise NotImplementedError(f"{name}={attr!r}: ParamAttr is not ported "
-                                  f"(None or False only)")
-
-
-class Linear(nn.Module):
+class Linear(Layer):
     """``y = x @ W + b`` with ``W`` as ``[in_features, out_features]``."""
 
     def __init__(self, in_features: int, out_features: int, weight_attr=None,
-                 bias_attr=None, *, device="cuda",
+                 bias_attr=None, name=None, *, device=None,
                  rs: Optional[np.random.RandomState] = None):
         super().__init__()
-        _check_attr("weight_attr", weight_attr)
-        _check_attr("bias_attr", bias_attr)
-        dev = resolve_device(device)
-        rs = np.random if rs is None else rs
+        k = next(_LINEAR_IDS)
+        self._full_name = f"linear_{k}"
+        self.weight_name = f"linear_{k}.w_0"
         limit = math.sqrt(6.0 / (in_features + out_features))
-        self.weight = _param(rs.uniform(-limit, limit,
-                                        (in_features, out_features)), dev)
-        self.bias = (None if bias_attr is False
-                     else _param(np.zeros(out_features), dev))
-        self.weight_name = f"linear_{next(_LINEAR_IDS)}.w_0"
+        if weight_attr is None:
+            weight_attr = ParamAttr(name=self.weight_name)
+        self.weight = _make_param(
+            self, [in_features, out_features], weight_attr, device,
+            default_initializer=I.XavierUniform(),
+            draw=None if rs is None else lambda: rs.uniform(
+                -limit, limit, (in_features, out_features)))
+        self.bias = _make_param(
+            self, [out_features], bias_attr, device, is_bias=True,
+            draw=None if rs is None else lambda: np.zeros(out_features))
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        p = self._parameters
+        return F.linear(x, p.get("weight"), p.get("bias"))
 
     def get_extra_state(self):
         return {"weight_name": self.weight_name}
@@ -81,29 +110,31 @@ class Linear(nn.Module):
                 f"out_features={self.weight.shape[1]}")
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Lookup table ``[num_embeddings, embedding_dim]``."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 padding_idx=None, sparse=False, weight_attr=None, *,
-                 device="cuda", rs: Optional[np.random.RandomState] = None):
+                 padding_idx=None, sparse=False, weight_attr=None,
+                 name=None, *, device=None,
+                 rs: Optional[np.random.RandomState] = None):
         super().__init__()
-        _check_attr("weight_attr", weight_attr)
         if padding_idx is not None or sparse:
             raise NotImplementedError(f"Embedding padding_idx/sparse is not "
                                       f"ported yet ({OPTIONS_ITEM})")
-        rs = np.random if rs is None else rs
-        self.weight = _param(rs.randn(num_embeddings, embedding_dim),
-                             resolve_device(device))
+        self.weight = _make_param(
+            self, [num_embeddings, embedding_dim], weight_attr, device,
+            default_initializer=I.Normal(0.0, 1.0),
+            draw=None if rs is None else lambda: rs.randn(num_embeddings,
+                                                          embedding_dim))
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self._parameters["weight"])
 
     def extra_repr(self) -> str:
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """Dropout at inference (see ``functional.dropout``)."""
 
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
@@ -115,7 +146,7 @@ class Dropout(nn.Module):
         return F.dropout(x, self.p, training=self.training)
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     """``paddle_tpu_torch.tensor.flatten`` (the cast point "flatten")."""
 
     def __init__(self, start_axis=1, stop_axis=-1):

@@ -9,12 +9,13 @@ from __future__ import annotations
 
 import collections
 
-from torch import nn
+from .layers import Layer
+
 
 __all__ = ["Sequential"]
 
 
-class Sequential(nn.Module):
+class Sequential(Layer):
     def __init__(self, *layers):
         super().__init__()
         if len(layers) == 1 and isinstance(layers[0],

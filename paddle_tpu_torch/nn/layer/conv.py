@@ -6,10 +6,11 @@ Weights ``[out, in / groups, *kernel]`` from ``KaimingUniform(fan_in)``
 bias ``[out]`` from ``Uniform(-1 / sqrt(fan_in), 1 / sqrt(fan_in))``,
 ``fan_in = in / groups * prod(kernel)``; ``bias_attr=False`` means no
 bias. Padding is zeros whatever ``padding_mode`` says, as in the
-reference. The values are drawn from a numpy ``RandomState`` (``rs``; numpy's
-global generator when none is given), as ``nn/layer/common.py`` draws
-``Linear``'s: not the reference's draws (it seeds from Paddle's
-generator), so weights are carried across with ``models/convert.py``.
+reference. The values are drawn from the global stream
+(``paddle.seed``), or with ``rs`` from that numpy ``RandomState``, as
+``nn/layer/common.py`` draws ``Linear``'s; ``weight_attr``/``bias_attr``
+are ``ParamAttr``s. Neither gives the reference's values (its threefry
+bits), so weights are carried across with ``models/convert.py``.
 The transposed layers are not ported (``nn/functional/conv.py``).
 """
 from __future__ import annotations
@@ -17,11 +18,11 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-from torch import nn
 
-from ...framework.device import resolve_device
 from .. import functional as F
-from .common import _check_attr, _param
+from .. import initializer as I
+from .common import _make_param
+from .layers import Layer
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D"]
 
@@ -32,16 +33,14 @@ def _ntuple(v, n):
     return (int(v),) * n
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     _fn = None
 
     def __init__(self, in_channels, out_channels, kernel_size, nd, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW", *,
-                 device="cuda", rs: Optional[np.random.RandomState] = None):
+                 device=None, rs: Optional[np.random.RandomState] = None):
         super().__init__()
-        _check_attr("weight_attr", weight_attr)
-        _check_attr("bias_attr", bias_attr)
         self._in_channels = in_channels
         self._out_channels = out_channels
         self._kernel_size = _ntuple(kernel_size, nd)
@@ -50,18 +49,24 @@ class _ConvNd(nn.Module):
         self._dilation = _ntuple(dilation, nd)
         self._groups = groups
         self._data_format = data_format
-        dev = resolve_device(device)
-        rs = np.random if rs is None else rs
         shape = (out_channels, in_channels // groups) + self._kernel_size
         fan_in = (in_channels // groups) * int(np.prod(self._kernel_size))
         limit = np.sqrt(6.0 / fan_in)
-        self.weight = _param(rs.uniform(-limit, limit, shape), dev)
+        self.weight = _make_param(
+            self, list(shape), weight_attr, device,
+            default_initializer=I.KaimingUniform(fan_in=fan_in),
+            draw=None if rs is None else lambda: rs.uniform(-limit, limit,
+                                                            shape))
         bound = 1.0 / np.sqrt(fan_in)
-        self.bias = (None if bias_attr is False else
-                     _param(rs.uniform(-bound, bound, out_channels), dev))
+        self.bias = _make_param(
+            self, [out_channels], bias_attr, device, is_bias=True,
+            default_initializer=I.Uniform(-bound, bound),
+            draw=None if rs is None else lambda: rs.uniform(-bound, bound,
+                                                            out_channels))
 
     def forward(self, x):
-        return self._fn(x, self.weight, self.bias, self._stride,
+        p = self._parameters
+        return self._fn(x, p.get("weight"), p.get("bias"), self._stride,
                         self._padding, self._dilation, self._groups,
                         self._data_format)
 

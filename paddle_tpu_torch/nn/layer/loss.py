@@ -2,14 +2,14 @@
 ``BCEWithLogitsLoss``, lines 55-74; the others are not ported yet)."""
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["BCELoss", "BCEWithLogitsLoss"]
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -20,7 +20,7 @@ class BCELoss(nn.Module):
                                       self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None,
                  name=None):
         super().__init__()

@@ -13,41 +13,45 @@ the same layer, as in the reference (the channel axis is 1 in every
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ...framework.device import resolve_device
 from .. import functional as F
-from .common import _check_attr
+from .. import initializer as I
+from .common import _make_param
+from .layers import Layer, param_device
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "LayerNorm"]
 
 
-class _BatchNormBase(nn.Module):
+def _ones_zeros(layer, shape, weight_attr, bias_attr, device):
+    """A norm's weight (ones) and bias (zeros), or what the attrs say."""
+    layer.weight = _make_param(layer, shape, weight_attr, device,
+                               default_initializer=I.Constant(1.0))
+    layer.bias = _make_param(layer, shape, bias_attr, device, is_bias=True,
+                             default_initializer=I.Constant(0.0))
+
+
+class _BatchNormBase(Layer):
     def __init__(self, num_features: int, momentum: float = 0.9,
                  epsilon: float = 1e-05, weight_attr=None, bias_attr=None,
                  data_format: str = "NCHW", use_global_stats=None,
-                 name=None, *, device="cuda"):
+                 name=None, *, device=None):
         super().__init__()
-        _check_attr("weight_attr", weight_attr)
-        _check_attr("bias_attr", bias_attr)
         self._num_features = num_features
         self._momentum = momentum
         self._epsilon = epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
-        dev = resolve_device(device)
-        self.weight = (None if weight_attr is False else nn.Parameter(
-            torch.ones(num_features, device=dev)))
-        self.bias = (None if bias_attr is False else nn.Parameter(
-            torch.zeros(num_features, device=dev)))
+        dev = param_device(device)
+        _ones_zeros(self, [num_features], weight_attr, bias_attr, device)
         self.register_buffer("_mean", torch.zeros(num_features, device=dev))
         self.register_buffer("_variance",
                              torch.ones(num_features, device=dev))
 
     def forward(self, x):
-        return F.batch_norm(x, self._mean, self._variance, self.weight,
-                            self.bias, training=self.training,
+        p, b = self._parameters, self._buffers
+        return F.batch_norm(x, b["_mean"], b["_variance"], p.get("weight"),
+                            p.get("bias"), training=self.training,
                             momentum=self._momentum, epsilon=self._epsilon,
                             data_format=self._data_format,
                             use_global_stats=self._use_global_stats)
@@ -73,27 +77,25 @@ class BatchNorm3D(_BatchNormBase):
     pass
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """Weight ones, bias zeros, ``epsilon`` 1e-5 unless given
     (``norm.py:80``)."""
 
     def __init__(self, normalized_shape, epsilon: float = 1e-05,
                  weight_attr=None, bias_attr=None, name=None, *,
-                 device="cuda"):
+                 device=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        dev = resolve_device(device)
-        self.weight = (None if weight_attr is False else nn.Parameter(
-            torch.ones(self._normalized_shape, device=dev)))
-        self.bias = (None if bias_attr is False else nn.Parameter(
-            torch.zeros(self._normalized_shape, device=dev)))
+        _ones_zeros(self, self._normalized_shape, weight_attr, bias_attr,
+                    device)
 
     def forward(self, x):
-        return F.layer_norm(x, self._normalized_shape, self.weight,
-                            self.bias, self._epsilon)
+        p = self._parameters
+        return F.layer_norm(x, self._normalized_shape, p.get("weight"),
+                            p.get("bias"), self._epsilon)
 
     def extra_repr(self) -> str:
         return (f"normalized_shape={self._normalized_shape}, "

@@ -7,14 +7,14 @@ stride, padding and data format only: ``return_mask``, ``ceil_mode``,
 """
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D"]
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     def __init__(self, fn, kernel_size, stride=None, padding=0, **kw):
         super().__init__()
         self._fn = fn
@@ -43,7 +43,7 @@ class AvgPool2D(_Pool):
                          data_format=data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self._output_size = output_size

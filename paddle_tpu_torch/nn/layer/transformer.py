@@ -32,6 +32,7 @@ from ... import tensor as T
 from .. import functional as F
 from ..functional.common import OPTIONS_ITEM
 from .common import Dropout, Linear
+from .layers import Layer
 from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
@@ -56,12 +57,12 @@ def _no_cache(cache) -> None:
         raise _not_ported("the incremental-decode cache")
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """q/k/v/out projections around scaled dot-product attention."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
                  kdim=None, vdim=None, need_weights: bool = False,
-                 weight_attr=None, bias_attr=None, *, device="cuda",
+                 weight_attr=None, bias_attr=None, *, device=None,
                  rs: Optional[np.random.RandomState] = None):
         super().__init__()
         if kdim not in (None, embed_dim) or vdim not in (None, embed_dim):
@@ -101,7 +102,7 @@ class MultiHeadAttention(nn.Module):
                                              self.embed_dim)))
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention and feed-forward blocks, each with a residual and a
     LayerNorm (post-norm unless ``normalize_before``)."""
 
@@ -109,7 +110,7 @@ class TransformerEncoderLayer(nn.Module):
                  dropout: float = 0.1, activation: str = "relu",
                  attn_dropout=None, act_dropout=None,
                  normalize_before: bool = False, weight_attr=None,
-                 bias_attr=None, *, device="cuda",
+                 bias_attr=None, *, device=None,
                  rs: Optional[np.random.RandomState] = None):
         super().__init__()
         if activation not in ("relu", "gelu"):
@@ -157,7 +158,7 @@ class TransformerEncoderLayer(nn.Module):
         return src
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``encoder_layer`` followed by ``num_layers - 1`` fresh layers of the
     same configuration, drawn from ``rs``."""
 

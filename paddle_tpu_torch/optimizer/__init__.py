@@ -18,7 +18,7 @@ import torch
 from ..ops.fused_update import rule_spec, scalar_prep, slot_names, update_math
 from . import lr
 from .fused import FusedFlatUpdater
-from .optimizer import Optimizer
+from .optimizer import Optimizer, param_name
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW",
            "FusedFlatUpdater", "lr"]
@@ -76,8 +76,8 @@ class Adam(_FusedRule):
 
 class AdamW(Adam):
     """Decoupled weight decay. ``apply_decay_param_fun(name)`` reads the
-    parameter's ``name`` attribute (set it on the tensor; unnamed
-    parameters pass ``""``)."""
+    parameter's Paddle name (``Parameter.name``; unnamed parameters pass
+    ``""``)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
@@ -88,6 +88,6 @@ class AdamW(Adam):
 
     def _param_wd(self, p):
         fn = self._apply_decay_param_fun
-        if fn is not None and not fn(getattr(p, "name", "")):
+        if fn is not None and not fn(param_name(p)):
             return 0.0
         return super()._param_wd(p)

@@ -64,6 +64,7 @@ from ..observability.metrics import get_registry as _get_registry
 from ..ops.fused_update import (FUSED_RULES, BucketTable, WirePayload,
                                 fused_dequant_update_buckets,
                                 fused_update_buckets, rule_spec, slot_names)
+from ..framework.autograd import unwrap
 from .optimizer import lr_mult
 
 __all__ = ["FusedFlatUpdater", "FUSABLE_OPTIMIZERS"]
@@ -90,7 +91,7 @@ class FusedFlatUpdater:
                 "fused flat updates do not implement grad_clip; clip the "
                 "gradients before sync or use the per-param step()")
         self.optimizer = optimizer
-        self.params = [p for p in params if p.requires_grad]
+        self.params = [t for t in map(unwrap, params) if t.requires_grad]
         self.buckets = (build_buckets(self.params) if buckets is None
                         else list(buckets))
         self._hypers = {b.index: self._uniform_hypers(b)

@@ -48,12 +48,13 @@ class Int8Linear(nn.Module):
         self.weight_name = layer.weight_name
         if seed is None:
             seed = stable_seed(self.weight_name)
-        q, s = quantize_int8(layer.weight.detach().to(torch.float32)
+        weight = layer._parameters["weight"]
+        q, s = quantize_int8(weight.detach().to(torch.float32)
                              .contiguous(), stochastic=stochastic, seed=seed)
         self.register_buffer("qweight", q)
         self.register_buffer("scales", s)
-        self.bias = layer.bias
-        self.out_features = int(layer.weight.shape[1])
+        self.bias = layer._parameters.get("bias")
+        self.out_features = int(weight.shape[1])
 
     def forward(self, x):
         with torch.no_grad():

@@ -11,10 +11,9 @@ way (``add``, ``reshape``, ``flatten``, ``getitem``, ``where``,
 under ``amp`` with the reference's op name, and with no amp active the
 plain PyTorch op.
 
-``tensor/random.py`` (and ``shuffle_batch``, which draws from it) is
-not ported yet: the port cannot reproduce JAX's threefry bits, and its
-random ops wait for a design over the port's explicit generators
-(``ROADMAP.md``).
+The random ops (``tensor/random.py``, with ``shuffle_batch``) draw
+from the port's explicit generators (``framework/random.py``), not
+JAX's threefry bits.
 """
 from __future__ import annotations
 
@@ -30,6 +29,11 @@ from .creation import (  # noqa: F401
     ones_like, real, to_tensor, tril, triu, zeros, zeros_like,
 )
 from .einsum import einsum  # noqa: F401
+from .random import (  # noqa: F401
+    bernoulli, exponential_, multinomial, normal, normal_, poisson, rand,
+    rand_like, randint, randint_like, randn, randn_like, randperm,
+    shuffle_batch, standard_normal, uniform, uniform_,
+)
 from .linalg import (  # noqa: F401
     bincount, bmm, cholesky, cholesky_solve, cond, corrcoef, cov, cross, det,
     dist, dot, eig, eigh, eigvals, eigvalsh, histogram, inv, lstsq, lu,
@@ -139,6 +143,9 @@ _METHODS = dict(
     # the rest of the reference's method surface (concat and stack take
     # lists, not methods, as there)
     diag=diag, t=t, tril=tril, triu=triu,
+    # random
+    bernoulli=bernoulli, exponential_=exponential_, multinomial=multinomial,
+    normal_=normal_, uniform_=uniform_,
 )
 
 

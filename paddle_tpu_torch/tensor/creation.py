@@ -93,7 +93,14 @@ def arange(start=0, end=None, step=1, dtype=None, name=None):
                                 for v in (start, end, step))
                  else dtype_mod.get_default_dtype())
     dt = convert_dtype(dtype)
-    return wrap(torch.arange(start, end, step, dtype=dt, device=_dev()))
+    if not dt.is_floating_point:
+        return wrap(torch.arange(start, end, step, dtype=dt, device=_dev()))
+    # the reference's values: start + i * step, each op rounded in the
+    # dtype (torch.arange computes them in double and rounds once)
+    n = max(0, int(np.ceil((float(end) - float(start)) / float(step))))
+    i = torch.arange(n, dtype=dt, device=_dev())
+    return wrap(i * torch.tensor(step, dtype=dt, device=_dev())
+                + torch.tensor(start, dtype=dt, device=_dev()))
 
 
 def linspace(start, stop, num, dtype=None, name=None):

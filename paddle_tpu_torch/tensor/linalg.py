@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ._helpers import INDEX, op, val, wrap
-from .math import _float, bmm, dot, matmul, mm, mv  # noqa: F401
+from .math import _float, abs_value, bmm, dot, matmul, mm, mv  # noqa: F401
 
 _INF = float("inf")
 
@@ -27,22 +27,22 @@ def norm(x, p="fro", axis=None, keepdim=False, name=None):
             if p in ("fro", 2):
                 return torch.sqrt(torch.sum(flat * flat))
             if p == 1:
-                return torch.sum(torch.abs(flat))
+                return torch.sum(abs_value(flat))
             if p == _INF:
-                return torch.amax(torch.abs(flat))
+                return torch.amax(abs_value(flat))
             if p == -_INF:
-                return torch.amin(torch.abs(flat))
-            return torch.sum(torch.abs(flat) ** p) ** (1.0 / p)
+                return torch.amin(abs_value(flat))
+            return torch.sum(abs_value(flat) ** p) ** (1.0 / p)
         ax = tuple(axis) if isinstance(axis, (list, tuple)) else axis
         if p == "fro":
             return torch.sqrt(torch.sum(v * v, ax, keepdim=keepdim))
         if p == _INF:
-            return torch.amax(torch.abs(v), ax, keepdim=keepdim)
+            return torch.amax(abs_value(v), ax, keepdim=keepdim)
         if p == -_INF:
-            return torch.amin(torch.abs(v), ax, keepdim=keepdim)
+            return torch.amin(abs_value(v), ax, keepdim=keepdim)
         if p == 0:
             return torch.sum((v != 0).to(v.dtype), ax, keepdim=keepdim)
-        return torch.sum(torch.abs(v) ** p, ax, keepdim=keepdim) ** (1.0 / p)
+        return torch.sum(abs_value(v) ** p, ax, keepdim=keepdim) ** (1.0 / p)
 
     return op(fn, x, op_name="norm")
 
@@ -53,10 +53,10 @@ def dist(x, y, p=2, name=None):
         if p == 0:
             return torch.sum((d != 0).to(a.dtype))
         if p == _INF:
-            return torch.amax(torch.abs(d))
+            return torch.amax(abs_value(d))
         if p == -_INF:
-            return torch.amin(torch.abs(d))
-        return torch.sum(torch.abs(d) ** p) ** (1.0 / p)
+            return torch.amin(abs_value(d))
+        return torch.sum(abs_value(d) ** p) ** (1.0 / p)
 
     return op(fn, x, y, op_name="dist")
 

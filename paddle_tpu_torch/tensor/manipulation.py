@@ -13,7 +13,8 @@ import builtins
 import torch
 
 from ..framework.autograd import link
-from ._helpers import Tensor, op, scalar_of, val, wrap
+from ..framework.dtype import cast_value
+from ._helpers import Tensor, convert_dtype, op, scalar_of, val, wrap
 
 builtins_slice = builtins.slice
 builtins_sum = builtins.sum
@@ -188,13 +189,21 @@ def rot90(x, k=1, axes=(0, 1), name=None):
     return op(lambda v: torch.rot90(v, k, list(axes)), x)
 
 
+def _wrapped(i, n):
+    """Indices with the negative ones counted from the end, as the
+    reference's take does. An index out of range raises here, where the
+    reference fills (``ROADMAP.md`` Queue C, on purpose)."""
+    return torch.where(i < 0, i + n, i)
+
+
 def gather(x, index, axis=0, name=None):
     ax = int(val(axis))
 
     def fn(v, i):
+        n = v.shape[ax]
         if i.ndim == 0:
-            return v.select(ax, int(i))
-        return torch.index_select(v, ax, i.reshape(-1))
+            return v.select(ax, int(i) + n if int(i) < 0 else int(i))
+        return torch.index_select(v, ax, _wrapped(i.reshape(-1), n))
 
     return op(fn, x, index, op_name="gather")
 
@@ -237,8 +246,9 @@ def scatter_nd(index, updates, shape, name=None):
 
 
 def index_select(x, index, axis=0, name=None):
-    return op(lambda v, i: torch.index_select(v, axis, i), x, index,
-              op_name="index_select")
+    return op(lambda v, i: torch.index_select(
+        v, axis, _wrapped(i, v.shape[axis])), x, index,
+        op_name="index_select")
 
 
 def index_sample(x, index, name=None):
@@ -391,13 +401,14 @@ def atleast_3d(*inputs, name=None):
 def view(x, shape_or_dtype, name=None):
     if isinstance(shape_or_dtype, (list, tuple)):
         return reshape(x, shape_or_dtype)
-    from ._helpers import convert_dtype
-
     dt = convert_dtype(shape_or_dtype)
     return op(lambda v: v.view(dt), x)
 
 
 def cast(x, dtype):
+    if isinstance(x, torch.Tensor):
+        return op(lambda v: cast_value(v, convert_dtype(dtype)), x,
+                  op_name="cast")
     return x.astype(dtype)
 
 

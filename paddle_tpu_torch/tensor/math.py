@@ -69,20 +69,65 @@ def divide(x, y, name=None):
     return binary(torch.true_divide, x, y, "divide")
 
 
+def _int_divisor(a, b):
+    """``b`` as a tensor of ``a``'s integer dtype, and where it is 0."""
+    b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    return b, b == 0
+
+
+def _floor_divide(a, b):
+    """JAX's integer floor division: ``x // 0`` is XLA's quotient -1,
+    less one where ``x`` is not 0 (``jnp.floor_divide``'s sign rule)."""
+    if a.is_floating_point() or a.is_complex():
+        return torch.floor_divide(a, b)
+    b, zero = _int_divisor(a, b)
+    if not bool(zero.any()):
+        return torch.floor_divide(a, b)
+    q = torch.floor_divide(a, torch.where(zero, torch.ones_like(b), b))
+    by_zero = torch.where(a != 0, -2, -1).to(a.dtype)
+    return torch.where(zero, by_zero, q)
+
+
+def _remainder(a, b):
+    """JAX's integer remainder: a divisor of 0 counts as 1
+    (``jnp.remainder``), so ``x % 0`` is 0."""
+    if a.is_floating_point() or a.is_complex():
+        return torch.remainder(a, b)
+    b, zero = _int_divisor(a, b)
+    return torch.remainder(a, torch.where(zero, torch.ones_like(b), b))
+
+
 def floor_divide(x, y, name=None):
-    return binary(torch.floor_divide, x, y, "floor_divide")
+    return binary(_floor_divide, x, y, "floor_divide")
 
 
 def remainder(x, y, name=None):
-    return binary(torch.remainder, x, y, "remainder")
+    return binary(_remainder, x, y, "remainder")
 
 
 mod = remainder
 floor_mod = remainder
 
 
+def _pow(a, b):
+    """``torch.pow``; an integer base to a negative integer power is the
+    reference's: ``jnp.power``'s binary exponentiation reads the
+    exponent's low 6 bits, so ``x ** e`` is ``x ** (e & 63)``, wrapping
+    (``2 ** -1`` is 0, ``(-1) ** -1`` is -1, ``3 ** -1`` is ``3 ** 63``
+    in int32), where PyTorch refuses a Python exponent."""
+    if a.is_floating_point() or a.is_complex() or (
+            isinstance(b, torch.Tensor) and (b.is_floating_point()
+                                             or b.is_complex())) \
+            or isinstance(b, float):
+        return torch.pow(a, b)
+    e = torch.as_tensor(b, device=a.device)
+    if not bool((e < 0).any()):
+        return torch.pow(a, b)
+    return torch.pow(a, torch.where(e < 0, torch.bitwise_and(e, 63), e))
+
+
 def pow(x, y, name=None):
-    return binary(torch.pow, x, y, "pow")
+    return binary(_pow, x, y, "pow")
 
 
 def maximum(x, y, name=None):
@@ -101,8 +146,33 @@ def fmin(x, y, name=None):
     return binary(torch.fmin, x, y, "fmin")
 
 
+class _Atan2(torch.autograd.Function):
+    """``atan2`` with the reference's gradients, ``y / (x^2 + y^2)`` and
+    ``-x / (x^2 + y^2)``: NaN at (0, 0), where PyTorch's is 0."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.atan2(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        den = a * a + b * b
+        ga = (g * (b / den)).sum_to_size(a.shape)
+        gb = (g * (-a / den)).sum_to_size(b.shape)
+        return ga, gb
+
+
+def _atan2(a, b):
+    if a.is_floating_point() and torch.is_grad_enabled() and (
+            a.requires_grad or b.requires_grad):
+        return _Atan2.apply(a, b)
+    return torch.atan2(a, b)
+
+
 def atan2(x, y, name=None):
-    return binary(torch.atan2, x, y, "atan2")
+    return binary(_atan2, x, y, "atan2")
 
 
 def heaviside(x, y, name=None):
@@ -133,8 +203,32 @@ def copysign(x, y, name=None):
 
 
 # ------------------------------------------------------------------- unary
+class _Abs(torch.autograd.Function):
+    """``torch.abs`` with the reference's gradient: ``g`` where ``x >=
+    0`` (so 1 at 0 and -0.0), ``-g`` elsewhere. PyTorch's is 0 at 0."""
+
+    @staticmethod
+    def forward(ctx, v):
+        ctx.save_for_backward(v)
+        return torch.abs(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        return torch.where(v >= 0, g, -g)
+
+
+def abs_value(v: torch.Tensor) -> torch.Tensor:
+    """``|v|`` of a payload, with ``_Abs``'s gradient for a real floating
+    ``v`` that records one (the ops built on the reference's
+    ``jnp.abs``: ``abs``, ``norm``, ``dist``, ``cdist``, ``renorm``)."""
+    if v.is_floating_point() and v.requires_grad and torch.is_grad_enabled():
+        return _Abs.apply(v)
+    return torch.abs(v)
+
+
 def abs(x, name=None):
-    return unary(torch.abs, x, "abs")
+    return unary(abs_value, x, "abs")
 
 
 def neg(x, name=None):
@@ -177,8 +271,17 @@ def square(x, name=None):
     return unary(torch.square, x, "square")
 
 
+def _sign(v):
+    """``jnp.sign``: -0.0 keeps its sign and NaN stays NaN (PyTorch's
+    ``sign`` gives 0.0 for both); the gradient is 0 everywhere."""
+    if not v.is_floating_point():
+        return torch.sign(v)
+    out = torch.copysign(torch.sign(v), v)
+    return torch.where(torch.isnan(v), v.detach(), out)
+
+
 def sign(x, name=None):
-    return unary(torch.sign, x, "sign")
+    return unary(_sign, x, "sign")
 
 
 def sin(x, name=None):
@@ -321,12 +424,21 @@ def clip(x, min=None, max=None, name=None):
     lo = val(min)
     hi = val(max)
 
+    def bound(b, v):
+        return torch.as_tensor(weak(b, v) if not isinstance(b, torch.Tensor)
+                               else b, dtype=v.dtype, device=v.device)
+
     def fn(v):
+        """``maximum`` then ``minimum``, as ``jnp.clip``: a value at a
+        bound takes half the gradient there (the tie's split)."""
         if not v.is_floating_point() and (isinstance(lo, float)
                                           or isinstance(hi, float)):
             v = v.float()
-        return torch.clamp(v, None if lo is None else weak(lo, v),
-                           None if hi is None else weak(hi, v))
+        if lo is not None:
+            v = torch.maximum(v, bound(lo, v))
+        if hi is not None:
+            v = torch.minimum(v, bound(hi, v))
+        return v
 
     return unary(fn, x, "clip")
 
@@ -463,9 +575,11 @@ def nanmean(x, axis=None, keepdim=False, name=None):
 
 
 def std(x, axis=None, unbiased=True, keepdim=False, name=None):
-    return _reduce(lambda v, d, k: torch.std(_float(v), d,
-                                             correction=int(unbiased),
-                                             keepdim=k),
+    """``sqrt(var)``, as the reference composes it: the gradient of a
+    constant input is NaN (``sqrt``'s at 0 times ``var``'s 0), where
+    ``torch.std``'s is 0."""
+    return _reduce(lambda v, d, k: torch.sqrt(torch.var(
+        _float(v), d, correction=int(unbiased), keepdim=k)),
                    x, axis, keepdim, "std")
 
 
@@ -655,7 +769,7 @@ def cdist(x, y, p=2.0, compute_mode="use_mm_for_euclid_dist_if_necessary",
             b2 = torch.sum(b * b, -1, keepdim=True)
             sq = a2 + b2.transpose(-1, -2) - 2 * _matmul(a, b.transpose(-1, -2))
             return torch.sqrt(torch.clamp(sq, min=0.0))
-        d = torch.abs(a[..., :, None, :] - b[..., None, :, :])
+        d = abs_value(a[..., :, None, :] - b[..., None, :, :])
         if p == 0:
             return torch.sum((d != 0).to(a.dtype), -1)
         if np.isinf(p):
@@ -697,7 +811,7 @@ def renorm(x, p, axis, max_norm, name=None):
     def fn(v):
         moved = torch.movedim(v, axis, 0)
         flat = moved.reshape(moved.shape[0], -1)
-        norms = torch.sum(torch.abs(flat) ** p, 1) ** (1.0 / p)
+        norms = torch.sum(abs_value(flat) ** p, 1) ** (1.0 / p)
         s = torch.where(norms > max_norm,
                         max_norm / torch.clamp(norms, min=1e-12),
                         torch.ones_like(norms))

@@ -185,7 +185,7 @@ class ResNet(nn.Module):
         return Sequential(*layers)
 
     def forward(self, x):
-        settings = settings_for(self.conv1.weight.dtype)
+        settings = settings_for(self.conv1._parameters["weight"].dtype)
         with matmul_precision(settings):
             x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
             x = self.layer4(self.layer3(self.layer2(self.layer1(x))))

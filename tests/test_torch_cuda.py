@@ -102,6 +102,16 @@ card against the CPU's (flash route): loss within ``BF16_LOSS_RTOL``,
 ``bf16_step_parity`` (the query and key projections at 5e-2, the key
 biases left out), the bf16 flash trio in full mode once a layer.
 
+The eager training surface: ``Optimizer.step()`` on card parameters
+(SGD, Momentum, Adam, AdamW over a table of mixed fp32 and bf16
+parameters, ragged, with a per-parameter lr_mult and regularizer): one
+``fused_update_buckets`` launch a step, ``update_math`` never called,
+parameters, moments and beta powers bit-identical to the plain
+per-parameter step, one table while no pointer moves; an fp16 parameter
+and a rule without a fused form refused, naming their ROADMAP items;
+LeNet at batch 8 on eager Tensors, one Adam step, card against CPU
+within 1e-5.
+
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
 """
@@ -1268,6 +1278,140 @@ def check_eager_api_on_card(dev):
         port_device._CURRENT[:] = prev
 
 
+def _eager_params(dev, sizes_dtypes, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ps = []
+    for n, dt in sizes_dtypes:
+        p = torch.nn.Parameter(torch.randn(n, device=dev, generator=gen)
+                               .to(dt))
+        p.grad = torch.randn(n, device=dev, generator=gen).to(dt)
+        ps.append(p)
+    return ps
+
+
+def check_eager_step_on_card(dev, kind):
+    """``Optimizer.step()`` over a table of mixed fp32 and bf16 parameters
+    (ragged sizes, a per-parameter lr_mult and regularizer): one
+    ``fused_update_buckets`` launch a step, no ``update_math``, and the
+    parameters, moments and beta powers bit-identical to the plain
+    per-parameter step on clones, over 3 steps with fresh gradients; the
+    table kept while no pointer moves."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import regularizer
+
+    layout = [(1, torch.float32), (4097, torch.bfloat16),
+              (100003, torch.float32), (5, torch.bfloat16),
+              (64, torch.float32), (3, torch.bfloat16)]
+    mine = _eager_params(dev, layout, 0)
+    ref = [torch.nn.Parameter(p.detach().clone()) for p in mine]
+    for ps in (mine, ref):
+        ps[2].optimize_attr = {"learning_rate": 0.5}
+        ps[4].regularizer = regularizer.L2Decay(0.02)
+    make = {"sgd": lambda ps: popt.SGD(learning_rate=0.1, parameters=ps,
+                                       weight_decay=0.01),
+            "momentum": lambda ps: popt.Momentum(
+                learning_rate=0.1, momentum=0.9, parameters=ps,
+                weight_decay=0.01, use_nesterov=True),
+            "adam": lambda ps: popt.Adam(learning_rate=1e-3, parameters=ps,
+                                         weight_decay=0.01),
+            "adamw": lambda ps: popt.AdamW(learning_rate=1e-3,
+                                           parameters=ps)}[kind]
+    opt, plain_opt = make(mine), make(ref)
+    calls = []
+    real = popt.update_math
+
+    def spy(p, *a, **k):
+        calls.append(p.device.type)
+        return real(p, *a, **k)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tables = set()
+    with mock.patch.object(popt, "update_math", spy):
+        for step in range(3):
+            if step:
+                for p, q in zip(mine, ref):
+                    g = torch.randn(p.numel(), device=dev, generator=gen)
+                    p.grad.copy_(g.to(p.dtype))
+                    q.grad.copy_(p.grad)
+            for q, p in zip(ref, mine):
+                q.grad = p.grad.clone()
+            before = fu.fused_update_buckets.launches
+            opt.step()
+            assert fu.fused_update_buckets.launches - before == 1
+            tables.add(id(opt._table))
+            assert not calls, f"update_math ran on the card: {calls}"
+            with torch.no_grad():
+                plain_opt._step_plain(list(ref), [q.grad for q in ref])
+            calls.clear()
+            for i, (p, q) in enumerate(zip(mine, ref)):
+                assert same_bits(p.detach(), q.detach()), (kind, step, i)
+                a, b = opt._slots[id(p)], plain_opt._slots[id(q)]
+                for nm in b:
+                    assert same_bits(a[nm].float(), b[nm].float()), (
+                        kind, step, i, nm)
+    assert len(tables) == 1, f"{len(tables)} tables for fixed pointers"
+
+
+def check_eager_step_refuses_on_card(dev):
+    from paddle_tpu_torch import optimizer as popt
+
+    (p,) = _eager_params(dev, [(8, torch.float16)], 2)
+    with pytest.raises(NotImplementedError, match="other dtypes"):
+        popt.Adam(parameters=[p]).step()
+
+    class Plain(popt.Optimizer):
+        def _update(self, p, g, s, lr, lm, wd):
+            return p - lr * g, s
+
+    (q,) = _eager_params(dev, [(8, torch.float32)], 3)
+    with pytest.raises(NotImplementedError, match="training options"):
+        Plain(parameters=[q]).step()
+
+
+def check_lenet_on_card_matches_cpu(dev):
+    """LeNet at batch 8 on eager Tensors, one Adam step, card against CPU
+    from the same weights: the loss and every gradient within 1e-5
+    relative (by norm), then the stepped parameters within 1e-5."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as port_device
+
+    prev = list(port_device._CURRENT)
+    rs = np.random.RandomState(0)
+    x = rs.rand(8, 1, 28, 28).astype(np.float32)
+    y = rs.randint(0, 10, (8,))
+    out = {}
+    try:
+        paddle.seed(0)
+        for place in ("gpu", "cpu"):
+            paddle.set_device(place)
+            model = paddle.vision.models.LeNet()
+            if place == "cpu":
+                model.set_state_dict(start)
+            else:
+                start = {n: t.numpy() for n, t in model.state_dict().items()}
+            opt = paddle.optimizer.Adam(parameters=model.parameters())
+            loss = paddle.nn.functional.cross_entropy(
+                model(paddle.to_tensor(x)),
+                paddle.to_tensor(y, dtype="int64"))
+            loss.backward()
+            grads = [p.grad.numpy() for p in model.parameters()]
+            opt.step()
+            opt.clear_grad()
+            out[place] = ({n: t.numpy() for n, t in
+                           model.state_dict().items()}, float(loss), grads)
+    finally:
+        port_device._CURRENT[:] = prev
+
+    def rel(a, b):
+        return float(np.linalg.norm(np.asarray(a, np.float64) - b)
+                     / max(np.linalg.norm(b), 1e-30))
+
+    (sg, lg, gg), (sc, lc, gc) = out["gpu"], out["cpu"]
+    assert rel(lg, lc) <= 1e-5, (lg, lc)
+    assert max(rel(a, b) for a, b in zip(gg, gc)) <= 1e-5
+    assert max(rel(sg[n], sc[n]) for n in sc) <= 1e-5
+
+
 @pytest.mark.requires_cuda
 def test_cuda_path_matches_plain(dev):
     run_checks(
@@ -1414,6 +1558,10 @@ def test_cuda_path_matches_plain(dev):
                               (4_725_505, 1024, 3), (777, 128, 2),
                               (1, 1024, 0), (1001, 100, 0))]
         + [(check_eager_api_on_card, (dev,))]
+        + [(check_eager_step_on_card, (dev, k))
+           for k in ("sgd", "momentum", "adam", "adamw")]
+        + [(check_eager_step_refuses_on_card, (dev,)),
+           (check_lenet_on_card_matches_cpu, (dev,))]
         + [(check_step_dequant_keeps_its_table, (dev,)),
            (check_dequant_wrapper_raises, (dev,))]
         + [(check_fused_ce_kernels_match_plain, (dev, n, c, st, v, b, ig))

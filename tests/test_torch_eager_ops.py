@@ -18,7 +18,10 @@ Tolerances, by the kind of output:
   elementwise ops (transcendentals, and formulas a compiled reference
   may contract into an FMA);
 - ``rtol=1e-5, atol=1e-6`` (``RED``) for reductions, products,
-  ``linalg`` and every other gradient.
+  ``linalg`` and every other gradient;
+- the dtype and shape only (``DRAW``) for the random ops, whose bits
+  cannot be the reference's (``tests/test_torch_random.py`` holds their
+  ranges, moments and determinism).
 
 Where the reference's outputs are defined only up to sign or order
 (``qr``, ``svd``, ``eig``, ``eigh``, ``eigvals``), a case compares what
@@ -51,7 +54,7 @@ from torch_checks import run_checks
 
 torch.set_num_threads(2)
 
-EXACT, ULP, RED = "exact", "ulp", "red"
+EXACT, ULP, RED, DRAW = "exact", "ulp", "red", "draw"
 ROADMAP = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                        "ROADMAP.md")
 
@@ -112,6 +115,11 @@ Bt2 = _n((2, 4, 5))
 NEG0 = np.array([0.0, -0.0, 1.5, -2.5, np.inf, -np.inf, np.nan],
                 np.float32)
 Z = _u(2.5, 5.0)            # away from lgamma's and digamma's zeros
+KINK = np.array([[0.0, -0.0, 1.5], [-2.5, 0.0, -0.5]], np.float32)
+CONST = np.array([[2.0, 2.0, 2.0], [1.0, 3.0, 2.0]], np.float32)
+WIDE = np.array([3e9, -3e9, np.nan, np.inf, -np.inf, 1e20, -7.9],
+                np.float32)
+I3 = np.array([1, -1, 0], np.int32)
 
 
 def case(name, *args, tol=RED, grad=True, gtol=RED, fn=None, pfn=None,
@@ -145,6 +153,8 @@ def _dtname(t):
 def close(r, p, tol, what):
     if r.shape != p.shape:
         raise AssertionError(f"{what}: shape {p.shape} != {r.shape}")
+    if tol == DRAW:
+        return
     if r.dtype == np.bool_ or np.issubdtype(r.dtype, np.integer):
         if not np.array_equal(r, p):
             raise AssertionError(f"{what}: {p} != {r}")
@@ -693,6 +703,68 @@ CASES = [
     # the Tensor surface the models use
     case("getitem", A(T3), (1, slice(None, None, 2)), tol=EXACT, gtol=EXACT,
          fn=_getitem_ref),
+    # the kinks, zeros, out-of-range values and negative indices where
+    # the port once differed (ROADMAP.md Queue C, closed)
+    case("clip", A(np.array([1.0, 2.0, 3.0], np.float32)), 1.0, 3.0,
+         tol=EXACT, gtol=EXACT),
+    case("clip", A(KINK), -0.5, 0.0, tol=EXACT, gtol=EXACT),
+    case("abs", A(KINK), tol=EXACT, gtol=EXACT),
+    case("norm", A(KINK), 1), case("norm", A(KINK), 1, 1),
+    case("dist", A(KINK), A(np.zeros_like(KINK)), 1),
+    case("std", A(CONST), 1), case("var", A(CONST), 1),
+    case("std", A(CONST[0])),
+    _ew("atan2", A(np.array([0.0, 1.0, 0.0], np.float32)),
+        A(np.array([0.0, 2.0, -1.0], np.float32))),
+    case("cast", A(np.array([-1.0, 300.0, np.nan], np.float32)), "uint8",
+         tol=EXACT, grad=False),
+    case("cast", A(np.array([200.0, -200.0, 5.7], np.float32)), "int8",
+         tol=EXACT, grad=False),
+    case("cast", A(WIDE), "int32", tol=EXACT, grad=False),
+    case("cast", A(WIDE), "int64", tol=EXACT, grad=False),
+    case("cast", A(np.array([np.nan, -5.0, 7e4], np.float32)), "int16",
+         tol=EXACT, grad=False),
+    case("cast", A(np.array([300.0, -1.0], np.float32)), "uint8",
+         fn=lambda x, d: x.astype("bfloat16").astype(d),
+         pfn=lambda x, d: x.astype("bfloat16").astype(d), tol=EXACT,
+         grad=False),
+    case("cast", A(WIDE), "int32", fn=lambda x, d: x.astype(d),
+         pfn=lambda x, d: x.astype(d), tol=EXACT, grad=False),
+    case("index_select", A(N), A(np.array([-1, 0, -4], np.int32)), 1,
+         tol=EXACT),
+    case("gather", A(N), A(np.array([-1, 0, -3], np.int32)), tol=EXACT),
+    case("gather", A(N), A(np.array([[-1], [2]], np.int32)), 1, tol=EXACT),
+    case("floor_divide", A(I3), A(np.zeros(3, np.int32)), tol=EXACT,
+         grad=False),
+    case("floor_divide", A(I3), 0, tol=EXACT, grad=False),
+    case("remainder", A(I3), A(np.array([0, 0, 2], np.int32)), tol=EXACT,
+         grad=False),
+    case("remainder", A(I3), 0, tol=EXACT, grad=False),
+    case("pow", A(np.array([1, 2, -1, 0, -3], np.int32)), -1, tol=EXACT,
+         grad=False),
+    case("pow", A(np.array([1, 2, -1, 0, -3], np.int32)), -2, tol=EXACT,
+         grad=False),
+    case("arange", 0.0, 2.0, 0.1, tol=EXACT, grad=False),
+    case("arange", 0, 1, 0.3, tol=EXACT, grad=False),
+    case("arange", 1.5, -2, -0.7, tol=EXACT, grad=False),
+    case("sign", A(NEG0), tol=EXACT),
+    # random
+    case("rand", [2, 3], tol=DRAW, grad=False),
+    case("randn", [4], tol=DRAW, grad=False),
+    case("standard_normal", [2, 2], "float32", tol=DRAW, grad=False),
+    case("normal", 1.0, 2.0, [3], tol=DRAW, grad=False),
+    case("uniform", [3, 2], "float32", -1.0, 2.0, tol=DRAW, grad=False),
+    case("uniform_", A(N, grad=False), -2.0, 2.0, tol=DRAW, grad=False),
+    case("normal_", A(N, grad=False), tol=DRAW, grad=False),
+    case("exponential_", A(P, grad=False), tol=DRAW, grad=False),
+    case("randint", 0, 5, [4], tol=DRAW, grad=False),
+    case("randint_like", A(I), 0, 4, tol=DRAW, grad=False),
+    case("randperm", 6, tol=DRAW, grad=False),
+    case("rand_like", A(N), tol=DRAW, grad=False),
+    case("randn_like", A(N), tol=DRAW, grad=False),
+    case("bernoulli", A(P), tol=DRAW, grad=False),
+    case("poisson", A(Q), tol=DRAW, grad=False),
+    case("multinomial", A(P), 2, tol=DRAW, grad=False),
+    case("shuffle_batch", A(N), tol=DRAW, grad=False),
 ]
 
 def differs_cdist_p():
@@ -722,9 +794,53 @@ def differs_clone_bool():
     assert np.array_equal(_np(p), b)
 
 
+def differs_index_out_of_range():
+    """An index past the end: the reference's ``take`` fills (NaN in a
+    float tensor); the port's ``gather`` and ``index_select`` raise, as
+    PyTorch's indexing does. A negative index wraps on both sides
+    (``CASES``)."""
+    rg = RP.gather(RP.to_tensor(D), RP.to_tensor(np.array([5, 0], np.int32)))
+    rs = RP.index_select(RP.to_tensor(D),
+                         RP.to_tensor(np.array([9], np.int32)), 1)
+    assert np.isnan(_np(rg)[0]).all() and np.array_equal(_np(rg)[1], D[0])
+    assert np.isnan(_np(rs)).all(), _np(rs)
+    for fn in (lambda: PT.gather(PT.to_tensor(D),
+                                 PT.to_tensor(np.array([5, 0], np.int32))),
+               lambda: PT.index_select(PT.to_tensor(D), PT.to_tensor(
+                   np.array([9], np.int32)), 1)):
+        try:
+            fn()
+        except (IndexError, RuntimeError):
+            continue
+        raise AssertionError("the port's index past the end now runs: "
+                             "hold it against the reference's fill")
+
+
+def differs_bce_logits_at_zero():
+    """``binary_cross_entropy_with_logits`` at a logit of exactly 0: the
+    reference's gradient is ``-y`` (its ``jnp.abs`` gives 1 there and
+    its ``jnp.maximum`` 0.5), 0.5 from the true ``sigmoid(0) - y``,
+    which the port gives. Elsewhere the two agree."""
+    z = np.array([0.0, 0.0, 1.0, -2.0], np.float32)
+    y = np.array([1.0, 0.0, 1.0, 0.0], np.float32)
+    grads = []
+    for S in (RP, PT):
+        t = S.to_tensor(z)
+        t.stop_gradient = False
+        S.nn.functional.binary_cross_entropy_with_logits(
+            t, S.to_tensor(y), reduction="sum").backward()
+        grads.append(_np(t.grad))
+    true = 1 / (1 + np.exp(-z.astype(np.float64))) - y
+    assert np.array_equal(grads[0][:2], -y[:2]), grads[0]
+    close(true[:2].astype(np.float32), grads[1][:2], RED, "port at 0")
+    close(grads[0][2:], grads[1][2:], RED, "away from 0")
+
+
 # ops whose result differs from the reference's on purpose: name ->
 # the check that shows the difference (ROADMAP.md Queue C)
-DIFFERS = {"cdist": differs_cdist_p, "clone": differs_clone_bool}
+DIFFERS = {"cdist": differs_cdist_p, "clone": differs_clone_bool,
+           "gather": differs_index_out_of_range,
+           "binary_cross_entropy_with_logits": differs_bce_logits_at_zero}
 
 
 def check_covers_every_export():
