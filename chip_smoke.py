@@ -484,7 +484,49 @@ when every phase passed):
               at LeNet's table (10 entries, 61,610 fp32 elements) as
               Optimizer.step() calls it, alone, as the plain walk and
               as torch._fused_adam_ over the same tensors, beside its
-              bound (28 bytes an element).
+              bound (28 bytes an element), its launch bit for bit
+              against the plain walk on clones of the table.
+ 36. nn       every case of tests/torch_nn_checks.py NN_CASES (each
+              functional of the feed-forward nn slice and every layer
+              that holds state, 4k to 4M elements) on card tensors
+              against the same call on the CPU: outputs and gradients
+              within 1e-5 relative, masks and one-hot rows bit for bit,
+              every output on the card; the dropout family's
+              properties on the card's generator (share within 6
+              standard errors, kept entries x / (1 - p) bit for bit,
+              gradient the mask's scale, whole channels, alpha
+              dropout's moments, repeats after paddle.seed,
+              gumbel_softmax rows); no kernel of the port launched.
+ 37. flash    F.flash_attention at GPT-125M's [8, 1024, 12, 64] causal
+     entry    and BERT-base's [16, 512, 12, 64] full, fp32 and bf16:
+              one forward and backward through the entry, launch counts
+              reset just before and read just after (one flash_fwd*,
+              flash_dq*, flash_dkv* of the dtype), out and the three
+              gradients against the kernels' plain versions
+              (flash_err's limits); dropout 0.1 launching none;
+              flash_attn_unpadded at equal lengths through the same
+              kernel, bit for bit; the entry's forward and backward,
+              each kernel alone, the plain versions and SDPA, timed.
+ 38. mobilenet MobileNetV2 trained as a Paddle user writes it, at
+              ImageNet width, not cut: vision.models.mobilenet_v2()
+              after paddle.seed(0) (scale 1.0, 1000 classes), batch 96
+              x 3 x 224 x 224 (Sandler et al. 2018, section 6.1) from
+              --seed, nn.CrossEntropyLoss(), Momentum(0.045, 0.9,
+              weight_decay=L2Decay(4e-5)) (the paper's lr and decay;
+              its RMSProp is not ported), Dropout(0.2) live, fp32
+              NCHW; 2 + 5 steps, ms a step, images/s, peak memory;
+              launch counts reset just before and read just after (one
+              fused_update a step, update_math never on the card),
+              tables built; torch.profiler over one step (idle share,
+              device time by kind); the same network in plain PyTorch
+              (torch.nn, torch.optim.SGD) from the same weights; row 6
+              at MobileNetV2's eager table as Optimizer.step() calls
+              it, alone, plain and as torch._fused_sgd_, beside its
+              bound (20 bytes an element), its launch bit for bit
+              against the plain walk on clones of the table; card
+              against CPU at batch 2, dropout 0: the loss, every stage's
+              output and gradients, the update; dropout live, two runs
+              of 2 steps after paddle.seed bit for bit.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -2520,6 +2562,40 @@ def _carrier_rows(dev, gen, sizes, flush):
     return rows
 
 
+def _table_err(table, lr, world=None) -> float:
+    """The error of a timed row 6 (row 7 with ``world``): one launch over
+    clones of ``table``'s entries, from the beta powers it would read,
+    against the plain walk over other clones; the largest absolute
+    difference of any parameter, slot or stepped power. Raises unless
+    they are bit for bit, as ``buckets_vs_plain`` holds the kernel. A
+    dequantizing table's payloads are read only, and shared."""
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    sides = []
+    for plain in (False, True):
+        t = fu.BucketTable(table.kind, table.hyper, [
+            (p.clone(), g if table.dequant else g.clone(),
+             [s.clone() for s in arrs], wd, lm)
+            for p, g, arrs, wd, lm in table.entries],
+            block_size=table.block_size)
+        if t.adam:
+            t.load_powers(table.powers())
+        if plain:
+            fu.buckets_plain(t, lr, world)
+        elif t.dequant:
+            fu.fused_dequant_update_buckets(t, lr, world)
+        else:
+            fu.fused_update_buckets(t, lr)
+        sides.append([x.float() for p, _, arrs, *_ in t.entries
+                      for x in (p, *arrs)] + ([t.pows] if t.adam else []))
+    err = max(float((a - b).abs().max()) for a, b in zip(*sides))
+    if err:
+        raise AssertionError(f"{table.kind} table of {len(table.entries)} "
+                             f"entries: the launch {err:.3e} off its plain "
+                             f"walk")
+    return err
+
+
 def _dequant_table_check(gen, buckets, residual: bool) -> int:
     """One step's ``fused_dequant_update_buckets`` over every bucket of a
     plan (AdamW, its dtypes), each bucket's payload two ranks' gradients
@@ -2618,6 +2694,7 @@ def _dequant_table_row(dev, gen, buckets, flush):
                     f"{'/'.join(kinds)})",
            "library_form": "decode by torch.mul, then torch._fused_adamw_ "
                            "per dtype, moments in the parameters' dtype",
+           "max_abs_err": _table_err(table, lr, DP_WORLD),
            "step_ms": median_ms(step, flush), "ms": median_ms(kernel, flush),
            "plain_ms": median_ms(plain, flush),
            "library_ms": median_ms(library, flush),
@@ -2774,7 +2851,6 @@ def phase_dp_kernels_bf16(dev, gen, buckets):
         f"plan in one launch a step, bit-identical to the plain walk over "
         f"2 steps, residual off and on")
     row = _dequant_table_row(dev, gen, buckets, flush)
-    row["max_abs_err"] = 0.0    # bit for bit: _dequant_table_check
     del flush
     return enc_rows, dec_rows, row
 
@@ -3375,48 +3451,10 @@ def resnet_profile(one):
     cuDNN convolutions, their backward, amp's casts (and the few other
     copies), the max pool, the port's update kernel, and the rest: the
     batch norms' and ReLUs' elementwise and reduction passes, the
-    residual adds, the average pool, the classifier and the loss."""
-    from torch.profiler import ProfilerActivity, profile
-
-    one()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    avgs = prof.key_averages()
-    kernels = [e for e in avgs
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels)
-    update = sum(e.self_device_time_total for e in kernels
-                 if "update_kernel" in e.key)
-    rest = "batch norm, ReLU and the other elementwise work"
-    kinds = dict.fromkeys([k for k, _ in RESNET_KINDS] + [rest], 0.0)
-    kinds["fused_update"] = update
-    for e in avgs:
-        if (e.device_type != torch.autograd.DeviceType.CPU
-                or not e.self_device_time_total):
-            continue
-        kind = next((k for k, words in RESNET_KINDS
-                     if any(w in e.key for w in words)), rest)
-        kinds[kind] += e.self_device_time_total
-    # the update kernel is launched from the wrapper, under no aten op
-    kinds[rest] = busy - sum(v for k, v in kinds.items() if k != rest)
-    log(f"resnet50 profile: one step, wall {wall_us / 1e3:.3f} ms, device "
-        f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% busy, "
-        f"{100 * (1 - busy / wall_us):.1f}% idle), "
-        f"{sum(e.count for e in kernels)} kernels per step")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{100 * e.self_device_time_total / busy:5.1f}% "
-            f"{e.count:5d}x  {e.key[:90]}")
-    log("  by kind: " + ", ".join(f"{k} {t / 1e3:.3f} ms "
-                                  f"({100 * t / busy:.1f}%)"
-                                  for k, t in kinds.items()))
-    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "by_kind_ms": {k: t / 1e3 for k, t in kinds.items()}}
+    residual adds, the average pool, the classifier and the loss
+    (``kind_profile``)."""
+    return kind_profile(one, RESNET_KINDS, "resnet50",
+                        "batch norm, ReLU and the other elementwise work")
 
 
 def phase_resnet_train(dev, seed, warmup=RESNET_WARMUP, steps=RESNET_STEPS,
@@ -3548,7 +3586,8 @@ def _momentum_timing(dev, gen, buckets, flush):
                      f"float32, momentum)",
             "library_form": "torch._fused_sgd_, momentum 0.9, dampening "
                             "0, fp32 momentum buffers",
-            "max_abs_err": 0.0, "step_ms": median_ms(upd.step, flush),
+            "max_abs_err": _table_err(table, lr),
+            "step_ms": median_ms(upd.step, flush),
             "ms": median_ms(kernel, flush),
             "library_ms": median_ms(library, flush),
             "step_span_ms": span_ms(upd.step, flush),
@@ -4028,7 +4067,8 @@ def _adam_timing(dev, gen, buckets, flush):
     return {"shape": f"{len(sizes)} bucket(s), {n} elements (one step, "
                      f"float32, adam)",
             "library_form": "torch._fused_adam_, fp32 moments",
-            "max_abs_err": 0.0, "step_ms": median_ms(upd.step, flush),
+            "max_abs_err": _table_err(table, lr),
+            "step_ms": median_ms(upd.step, flush),
             "ms": median_ms(kernel, flush),
             "library_ms": median_ms(library, flush),
             "step_span_ms": span_ms(upd.step, flush),
@@ -4246,7 +4286,8 @@ def phase_widedeep_parity(dev, seed):
 def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
                  bf16_rows, bf16_counts, dp16, ce_rows, ce_counts, bert_run,
-                 resnet_run, widedeep_run, lenet_run):
+                 resnet_run, widedeep_run, lenet_run, flash_entry,
+                 mobilenet_run):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -4285,9 +4326,13 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     29 and its row) is an ``at_shapes`` entry of ``fused_update``: the
     momentum rule over its fp32 plan, with phase 29's launches; so is
     Wide&Deep's (phase 31 and its row): the adam rule over its one fp32
-    bucket, with phase 31's launches, and LeNet's eager step (phase
+    bucket, with phase 31's launches, LeNet's eager step (phase
     35): Adam over its table of 10 parameters, with phase 35's
-    launches."""
+    launches, and MobileNetV2's (phase 38): Momentum with L2Decay over
+    its table of 158 parameters, with phase 38's launches. Phase 37's
+    launches through ``F.flash_attention`` are ``at_shapes`` of the flash
+    kernels of their dtype, at GPT-125M's and BERT-base's shapes, each
+    with its time through the entry (``entry_ms``)."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -4409,7 +4454,9 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     if counts_ce["ce_chunk_fwd"] != loss_chunks(run["cfg_ce"]) * steps:
         raise AssertionError("the fused BERT step's chunk launches are not "
                              "the timed steps'")
-    for extra in (resnet_run, widedeep_run, lenet_run):
+    for name, rows_ in flash_entry.items():
+        by_name[name].setdefault("at_shapes", []).extend(rows_)
+    for extra in (resnet_run, widedeep_run, lenet_run, mobilenet_run):
         by_name["fused_update"]["at_shapes"].append(dict(
             _numbers(extra["row"]),
             launches_at_shape=extra["counts"]["fused_update"]))
@@ -4907,47 +4954,40 @@ def _plain_lenet(model, dev):
     return net
 
 
-def _lenet_update_row(opt, flush):
-    """Row 6 at LeNet's table (its 10 parameters, one entry each, Adam):
-    the kernel alone, as ``Optimizer.step()`` calls it, the plain walk and
-    ``torch._fused_adam_`` over the same tensors, timed in one call; the
-    bound: p, g, m1, m2 read, p, m1, m2 written, 28 bytes an element."""
+def _eager_update_row(opt, flush, library, library_form, bytes_per_el,
+                      flops_per_el, label, kernel=None):
+    """Row 6 at an eager optimizer's table (one entry a parameter): its
+    error (``_table_err``); then, in one call, ``kernel(table, lr)`` (one
+    launch by default), the update as ``Optimizer.step()`` calls it, the
+    plain walk and ``library(ps, gs, *slots)`` over clones of the same
+    tensors, timed; the bound: ``bytes_per_el`` bytes and
+    ``flops_per_el`` operations an element."""
     from paddle_tpu_torch.ops import fused_update as fu
 
     table = opt._table
     lr = opt._lr_tensor_kept(table.device)
-
-    def kernel():   # the same powers each time
-        fu.fused_update_buckets(table, lr)
-        table.parity = 1 - table.parity
-
-    def plain():
-        fu.buckets_plain(table, lr)
-
+    kernel = kernel or fu.fused_update_buckets
     ps = [e[0].clone() for e in table.entries]
     gs = [e[1].clone() for e in table.entries]
-    m1 = [e[2][0].clone() for e in table.entries]
-    m2 = [e[2][1].clone() for e in table.entries]
-    steps = [torch.full((), 4.0, device=table.device) for _ in ps]
-
-    def library():
-        torch._fused_adam_(ps, gs, m1, m2, [], steps, lr=1e-3, beta1=0.9,
-                           beta2=0.999, weight_decay=0.0, eps=1e-8,
-                           amsgrad=False, maximize=False)
-
+    slots = [[e[2][k].clone() for e in table.entries]
+             for k in range(len(table.entries[0][2]))]
     n = sum(e[0].numel() for e in table.entries)
-    bound_ms, bound_by = work_bound(28 * n, 20 * n)
-    return {"shape": f"LeNet's table: {len(table.entries)} parameters, "
-                     f"{n} elements (one eager step, float32, adam)",
-            "library_form": "torch._fused_adam_, fp32 moments",
-            "max_abs_err": 0.0, "step_ms": median_ms(opt.step, flush),
-            "ms": median_ms(kernel, flush),
-            "library_ms": median_ms(library, flush),
+    bound_ms, bound_by = work_bound(bytes_per_el * n, flops_per_el * n)
+    return {"shape": f"{label}: {len(table.entries)} parameters, {n} "
+                     f"elements (one eager step, float32, {table.kind})",
+            "library_form": library_form,
+            "max_abs_err": _table_err(table, lr),
+            "step_ms": median_ms(opt.step, flush),
+            "ms": median_ms(lambda: kernel(table, lr), flush),
+            "library_ms": median_ms(lambda: library(ps, gs, *slots),
+                                    flush),
             "step_span_ms": span_ms(opt.step, flush),
-            "span_ms": span_ms(kernel, flush),
-            "library_span_ms": span_ms(library, flush),
-            "plain_ms": median_ms(plain, flush), "bound_ms": bound_ms,
-            "bound_by": bound_by, "elements": n}
+            "span_ms": span_ms(lambda: kernel(table, lr), flush),
+            "library_span_ms": span_ms(lambda: library(ps, gs, *slots),
+                                       flush),
+            "plain_ms": median_ms(lambda: fu.buckets_plain(table, lr),
+                                  flush),
+            "bound_ms": bound_ms, "bound_by": bound_by, "elements": n}
 
 
 def _step_ms(step, runs):
@@ -5114,8 +5154,22 @@ def phase_lenet(dev, seed):
         one(model, opt, x, y)      # gradients in place for the row's step()
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                             device=dev)
+        steps = [torch.full((), 4.0, device=dev) for _ in opt._table.entries]
+
+        def adam(ps, gs, m1, m2):
+            torch._fused_adam_(ps, gs, m1, m2, [], steps, lr=1e-3,
+                               beta1=0.9, beta2=0.999, weight_decay=0.0,
+                               eps=1e-8, amsgrad=False, maximize=False)
+
+        def kernel(table, lr):     # the same powers each time
+            fu.fused_update_buckets(table, lr)
+            table.parity = 1 - table.parity
+
+        # p, g, m1, m2 read, p, m1, m2 written; ~20 operations an element
         with torch.no_grad():      # the table's views of the leaves
-            row = _lenet_update_row(opt, flush)
+            row = _eager_update_row(opt, flush, adam,
+                                    "torch._fused_adam_, fp32 moments", 28,
+                                    20, "LeNet's table", kernel)
         del flush
         opt.clear_grad()
     finally:
@@ -5155,6 +5209,577 @@ def phase_lenet(dev, seed):
         f"{100 * row['bound_ms'] / row['ms']:.2f}% of it")
     return {"counts": counts, "row": row, "port_ms": port_ms,
             "plain_ms": plain_ms, "idle": idle}
+
+
+# ------------------------------------------------------ nn on the card
+def phase_nn(dev):
+    """Phase 36: every case of ``tests/torch_nn_checks.py`` ``NN_CASES``
+    (each new functional and every layer that holds state) on the card
+    against the CPU, then the dropout family's properties on the card's
+    generator; no kernel of the port launched."""
+    from torch_nn_checks import (NN_CASES, NN_RTOL, dropout_properties,
+                                 nn_case_label, nn_case_vs_cpu)
+
+    reset_port_launch_counts()
+    worst = {"out": (0.0, ""), "grad": (0.0, "")}
+    for case in NN_CASES:
+        errs = nn_case_vs_cpu(dev, case)
+        for k, v in errs.items():
+            if v > worst[k][0]:
+                worst[k] = (v, nn_case_label(case))
+    shares = dropout_properties(dev)
+    counts = port_launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"nn launched a port kernel: {counts}")
+    log(f"nn on the card: {len(NN_CASES)} cases against the CPU, worst "
+        f"output {worst['out'][0]:.2e} ({worst['out'][1]}), worst gradient "
+        f"{worst['grad'][0]:.2e} ({worst['grad'][1]}), limit {NN_RTOL}; "
+        f"masks and one-hot rows bit for bit; every output on the card")
+    log("dropout on the card (share dropped, 6 standard errors held; kept "
+        "entries x / (1 - p) bit for bit, gradient the mask's scale, whole "
+        "channels, alpha_dropout's moments, repeats after paddle.seed, "
+        "gumbel_softmax rows): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+    return {"cases": len(NN_CASES), "worst": worst, "shares": shares}
+
+
+# -------------------------------------------- the public flash entry
+# F.flash_attention at GPT-125M's train shape (causal) and BERT-base's
+# (full), [b, s, n, d] as the entry takes them
+FLASH_ENTRY = (((8, 1024, 12, 64), True), ((16, 512, 12, 64), False))
+
+
+def _flash_entry_case(dev, gen, shape, causal, dtype, flush):
+    """``F.flash_attention`` on card tensors of ``shape`` ([b, s, n, d]):
+    one forward and backward through the entry, its launches, out and
+    the gradients against the kernels' plain versions; dropout > 0
+    launching none; ``flash_attn_unpadded`` at equal lengths; then the
+    entry's forward and backward, the kernels alone, their plain
+    versions and SDPA, timed."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from torch_checks import flash_err
+
+    F = paddle.nn.functional
+    b, s, n, d = shape
+    bf16 = dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    q, k, v, do = (torch.randn(*shape, device=dev, generator=gen)
+                   .to(dtype) for _ in range(4))
+    qt, kt, vt = (x.detach().requires_grad_() for x in (q, k, v))
+    fa.reset_launch_counts()
+    out, _ = F.flash_attention(qt, kt, vt, causal=causal)
+    dq, dk, dv = torch.autograd.grad(out, (qt, kt, vt), do)
+    counts = fa.launch_counts()
+    want = {f"flash_fwd{sfx}": 1, f"flash_dq{sfx}": 1, f"flash_dkv{sfx}": 1}
+    if any(counts[k_] != want.get(k_, 0) for k_ in counts):
+        raise AssertionError(f"F.flash_attention {list(shape)} {dtype}: "
+                             f"launches {counts}, expected {want}")
+    # the plain versions on the kernels' own inputs: the forward on q, k,
+    # v; the backward also on the kernel's lse and delta, as the entry's
+    # backward feeds them (torch_checks.flash_vs_plain)
+    bn = [x.transpose(1, 2).contiguous() for x in (q, k, v, do)]
+    p_out, p_lse = fa.flash_fwd_plain(*bn[:3], causal)
+    k_out, lse = fa.flash_fwd(*bn[:3], causal)
+    kdelta = (bn[3].float() * k_out.float()).sum(-1, keepdim=True)
+    plain = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_plain(
+        *bn, lse, kdelta, causal)))
+    errs = {"out": flash_err("out", dtype, out.detach().transpose(1, 2),
+                             p_out)}
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        errs[name] = flash_err(name, dtype, got.transpose(1, 2),
+                               plain[name])
+    over = {k_: e for k_, e in errs.items() if not e[1] <= 1.0}
+    if over:
+        raise AssertionError(f"F.flash_attention {list(shape)} {dtype} "
+                             f"against the plain kernels: {over}")
+    fa.reset_launch_counts()
+    F.flash_attention(qt, kt, vt, dropout=0.1, causal=causal)[0].sum(
+        ).backward()
+    if any(fa.launch_counts().values()):
+        raise AssertionError(f"dropout 0.1 reached the flash kernels: "
+                             f"{fa.launch_counts()}")
+    cu = torch.arange(0, (b + 1) * s, s, dtype=torch.int32)
+    packed = [x.reshape(b * s, n, d) for x in (q, k, v)]
+    up, _ = F.flash_attn_unpadded(*packed, cu, cu, s, s, 0.5, causal=causal)
+    if fa.launch_counts()[f"flash_fwd{sfx}"] != 1 or not torch.equal(
+            up, out.detach().reshape(b * s, n, d)):
+        raise AssertionError("flash_attn_unpadded did not run the kernel "
+                             "of the padded entry")
+
+    ref = F.flash_attention(qt, kt, vt, causal=causal)[0]
+    sd = [x.detach().requires_grad_() for x in bn[:3]]
+    sref = torch.nn.functional.scaled_dot_product_attention(
+        *sd, is_causal=causal)
+    delta = (bn[3].float() * p_out.float()).sum(-1, keepdim=True)
+    times = {
+        "entry_fwd_ms": median_ms(lambda: F.flash_attention(
+            q, k, v, causal=causal), flush),
+        "entry_bwd_ms": median_ms(lambda: torch.autograd.grad(
+            ref, (qt, kt, vt), do, retain_graph=True), flush),
+        "fwd_ms": median_ms(lambda: fa.flash_fwd(*bn[:3], causal), flush),
+        "dq_ms": median_ms(lambda: fa.flash_dq(*bn, lse, kdelta, causal),
+                           flush),
+        "dkv_ms": median_ms(lambda: fa.flash_dkv(*bn, lse, kdelta, causal),
+                            flush),
+        "plain_fwd_ms": median_ms(lambda: fa.flash_fwd_plain(
+            *bn[:3], causal), flush),
+        "plain_dq_ms": median_ms(lambda: fa.flash_dq_plain(
+            *bn, p_lse, delta, causal), flush),
+        "plain_dkv_ms": median_ms(lambda: fa.flash_dkv_plain(
+            *bn, p_lse, delta, causal), flush),
+        "sdpa_fwd_ms": median_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                *bn[:3], is_causal=causal), flush),
+        "sdpa_bwd_ms": median_ms(lambda: torch.autograd.grad(
+            sref, sd, bn[3], retain_graph=True), flush)}
+    bounds = {}
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        work = flash_work((b, n, s, d), causal, name, q.element_size())
+        bounds[name] = (work_bound(*work, bf16=True) if bf16 else
+                        work_bound(*work, TF32_PASSES[name]))
+    label = (f"[{b}, {s}, {n}, {d}] {'causal' if causal else 'full'} "
+             f"{'bf16' if bf16 else 'fp32'} via F.flash_attention")
+    log(f"flash entry {label}: launches {counts}; max abs diff against "
+        f"plain " + ", ".join(f"{k_} {e:.2e} ({r:.3f} of its limit)"
+                              for k_, (e, r) in errs.items())
+        + f"; dropout 0.1 took SDPA (0 launches); flash_attn_unpadded "
+        f"bit for bit | entry forward {times['entry_fwd_ms']:.4f} ms "
+        f"(kernel {times['fwd_ms']:.4f}, plain {times['plain_fwd_ms']:.4f}"
+        f", bound {bounds['flash_fwd'][0]:.4f} {bounds['flash_fwd'][1]}, "
+        f"SDPA {times['sdpa_fwd_ms']:.4f}); entry backward "
+        f"{times['entry_bwd_ms']:.4f} ms (dq {times['dq_ms']:.4f} + dkv "
+        f"{times['dkv_ms']:.4f}, plain {times['plain_dq_ms']:.4f} + "
+        f"{times['plain_dkv_ms']:.4f}, bounds "
+        f"{bounds['flash_dq'][0]:.4f} + {bounds['flash_dkv'][0]:.4f}, SDPA "
+        f"backward {times['sdpa_bwd_ms']:.4f})")
+    rows = {}
+    for name, ms, plain_ms, lib, outs in (
+            ("flash_fwd", times["fwd_ms"], times["plain_fwd_ms"],
+             times["sdpa_fwd_ms"], ("out",)),
+            ("flash_dq", times["dq_ms"], times["plain_dq_ms"], None,
+             ("dq",)),
+            ("flash_dkv", times["dkv_ms"], times["plain_dkv_ms"],
+             times["sdpa_bwd_ms"], ("dk", "dv"))):
+        rows[name + sfx] = {
+            "shape": label, "launches_at_shape": counts[name + sfx],
+            "max_abs_err": max(errs[o][0] for o in outs), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1], "library_ms": lib,
+            "entry_ms": times["entry_fwd_ms"] if name == "flash_fwd"
+            else times["entry_bwd_ms"]}
+    return rows
+
+
+def phase_flash_entry(dev, gen):
+    """Phase 37: the public flash entry at full width (the module
+    docstring). Returns its rows for the kernels line."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rows = {}
+    for shape, causal in FLASH_ENTRY:
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, r in _flash_entry_case(dev, gen, shape, causal, dtype,
+                                             flush).items():
+                rows.setdefault(name, []).append(r)
+            torch.cuda.empty_cache()
+    del flush
+    return rows
+
+
+# ------------------------------------------------------- MobileNetV2
+# Sandler et al. 2018 (MobileNetV2), section 6.1: batch 96 a worker, lr
+# 0.045, weight decay 4e-5 (RMSProp there; Momentum 0.9 here, the port
+# has no RMSProp: ROADMAP Queue A 5), dropout 0.2 before the classifier
+MOBILENET_B, MOBILENET_IMG = 96, 224
+MOBILENET_LR, MOBILENET_MOM, MOBILENET_WD = 0.045, 0.9, 4e-5
+MOBILENET_WARMUP, MOBILENET_STEPS = 2, 5
+MOBILENET_CHECK_B = 2
+# card against CPU at batch 2 x 224 x 224, dropout 0, from the same
+# weights: the first loss, relative; the gradients stage by stage (the
+# 19 feature stages and the head, each fed the CPU's previous output and
+# the same cotangent: torch_checks.stage_run), within RESNET_STAGE_TOL's
+# fp32 limits, all but at most two stages within RESNET_FP32_GRAD_CLEAN
+# (the whole network's gradients cannot be held: its batch norms over two
+# images and its ReLU6 bounds amplify rounding); the
+# update from the same gradients (the card's copied to the CPU), each
+# parameter's step by norm_rel
+MOBILENET_LOSS_RTOL = 1e-5
+MOBILENET_UPDATE_RTOL = 1e-6
+MOBILENET_KINDS = (
+    ("conv backward (cuDNN, PyTorch's depthwise)",
+     ("convolution_backward",)),
+    ("conv forward (cuDNN, PyTorch's depthwise)",
+     ("cudnn_convolution", "aten::convolution", "aten::_convolution",
+      "aten::conv2d")),
+    ("ReLU6 (hardtanh)", ("hardtanh",)),
+    ("fused_update", ()),
+)
+
+
+class _PlainInvertedResidual(torch.nn.Module):
+    def __init__(self, body, res):
+        super().__init__()
+        self.conv, self.res = body, res
+
+    def forward(self, x):
+        return x + self.conv(x) if self.res else self.conv(x)
+
+
+def _plain_mobilenet(model, dev):
+    """The same MobileNetV2 in plain PyTorch (torch.nn, its batch norm,
+    ReLU6 and Dropout), the port's weights and running statistics copied
+    in (a Linear's [in, out] weight transposed)."""
+    from paddle_tpu_torch.framework.modules import (torch_buffers,
+                                                    torch_named_parameters)
+
+    tn = torch.nn
+
+    def plain(m):
+        kind = type(m).__name__
+        if kind in ("Sequential", "ConvBNReLU"):
+            return tn.Sequential(*[plain(c) for c in m.children()])
+        if kind == "InvertedResidual":
+            return _PlainInvertedResidual(plain(m.conv), m.use_res_connect)
+        if kind == "Conv2D":
+            w = m._parameters["weight"]
+            return tn.Conv2d(w.shape[1] * m._groups, w.shape[0],
+                             tuple(w.shape[2:]), m._stride, m._padding,
+                             groups=m._groups, bias=False)
+        if kind == "BatchNorm2D":
+            return tn.BatchNorm2d(m._num_features, eps=m._epsilon,
+                                  momentum=1 - m._momentum)
+        if kind == "ReLU6":
+            return tn.ReLU6()
+        if kind == "Dropout":
+            return tn.Dropout(m.p)
+        if kind == "Linear":
+            w = m._parameters["weight"]
+            return tn.Linear(w.shape[0], w.shape[1])
+        raise TypeError(kind)
+
+    net = tn.Sequential(plain(model.features), tn.AdaptiveAvgPool2d(1),
+                        tn.Flatten(1), plain(model.classifier)).to(dev)
+    src = [t.detach() for _, t in torch_named_parameters(model)]
+    bufs = [t.detach() for t in torch_buffers(model)]
+    with torch.no_grad():
+        for (name, p), s in zip(net.named_parameters(), src):
+            p.copy_(s.t() if p.dim() == 2 else s)
+        mine = [b for n, b in net.named_buffers()
+                if not n.endswith("num_batches_tracked")]
+        for b, s in zip(mine, bufs):
+            b.copy_(s)
+    return net
+
+
+def kind_profile(one, kinds, tag, rest):
+    """torch.profiler over one step (``one()``): busy and idle share, the
+    kernels, and the device time by ``kinds`` ((label, op-name words); a
+    kind with no words is the port's update kernel), the rest under
+    ``rest``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    one()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    by = dict.fromkeys([k for k, _ in kinds] + [rest], 0.0)
+    by["fused_update"] = sum(e.self_device_time_total for e in kernels
+                             if "update_kernel" in e.key)
+    for e in avgs:
+        if (e.device_type != torch.autograd.DeviceType.CPU
+                or not e.self_device_time_total):
+            continue
+        kind = next((k for k, words in kinds
+                     if words and any(w in e.key for w in words)), rest)
+        by[kind] += e.self_device_time_total
+    by[rest] = busy - sum(v for k, v in by.items() if k != rest)
+    log(f"{tag} profile: one step, wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}% busy, "
+        f"{100 * (1 - busy / wall_us):.1f}% idle), "
+        f"{sum(e.count for e in kernels)} kernels per step")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{100 * e.self_device_time_total / busy:5.1f}% "
+            f"{e.count:5d}x  {e.key[:90]}")
+    log("  by kind: " + ", ".join(f"{k} {t / 1e3:.3f} ms "
+                                  f"({100 * t / busy:.1f}%)"
+                                  for k, t in by.items()))
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle": 1 - busy / wall_us,
+            "by_kind_ms": {k: t / 1e3 for k, t in by.items()}}
+
+
+def _mobilenet_setup(paddle, batch, seed):
+    """``mobilenet_v2()`` after ``paddle.seed(0)`` on the current place,
+    Momentum with L2Decay, ``nn.CrossEntropyLoss()``, and a batch of
+    images and labels from ``RandomState(seed)``."""
+    paddle.seed(0)
+    model = paddle.vision.models.mobilenet_v2()
+    opt = paddle.optimizer.Momentum(
+        learning_rate=MOBILENET_LR, momentum=MOBILENET_MOM,
+        parameters=model.parameters(),
+        weight_decay=paddle.regularizer.L2Decay(MOBILENET_WD))
+    rs = np.random.RandomState(seed)
+    x = paddle.to_tensor(rs.rand(batch, 3, MOBILENET_IMG, MOBILENET_IMG)
+                         .astype(np.float32))
+    y = paddle.to_tensor(rs.randint(0, 1000, (batch,)), dtype="int64")
+    return model, opt, paddle.nn.CrossEntropyLoss(), x, y
+
+
+def _mobilenet_stage_parity(card_model, cpu_model):
+    """Every stage of MobileNetV2 on the card and on the CPU, fed the
+    CPU's previous output and the same cotangent."""
+    from torch_checks import mobilenet_stages, stage_errors, stage_run
+
+    x = torch.from_numpy(np.random.RandomState(5).rand(
+        MOBILENET_CHECK_B, 3, MOBILENET_IMG, MOBILENET_IMG).astype(
+        np.float32))
+    tol = RESNET_STAGE_TOL[None]
+    worst, flipped = dict.fromkeys(tol, 0.0), []
+    for i, (cs, ps) in enumerate(zip(mobilenet_stages(card_model),
+                                     mobilenet_stages(cpu_model))):
+        want = stage_run(cpu_model, ps, x, i)
+        errs = stage_errors(stage_run(card_model, cs, x, i), want)
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+            if not v <= tol[k]:
+                raise AssertionError(f"mobilenet_v2 stage {cs[0]} {k}: "
+                                     f"{v:.2e} (limit {tol[k]:.0e})")
+        if max(errs["dx"], errs["grads"]) > RESNET_FP32_GRAD_CLEAN:
+            flipped.append(cs[0])
+        x = want["out"]
+    if len(flipped) > 2:
+        raise AssertionError(f"mobilenet_v2 stages with gradients above "
+                             f"{RESNET_FP32_GRAD_CLEAN:.0e}: {flipped}")
+    return {**worst, "above_clean": flipped}
+
+
+def _mobilenet_parity(paddle, dev, seed):
+    """Card against CPU at batch 2, dropout 0, from the card's weights
+    (MOBILENET_LOSS_RTOL's comment): the first loss, every stage, the
+    update from the same gradients; then, dropout live, two runs of 2
+    steps after ``paddle.seed(seed)`` from the same weights, their losses
+    bit for bit (cuDNN held to its deterministic algorithms)."""
+    from paddle_tpu_torch.framework.modules import torch_named_parameters
+
+    first, models = {}, {}
+    for place in ("gpu", "cpu"):
+        paddle.set_device(place)
+        model, opt, loss_fn, x, y = _mobilenet_setup(
+            paddle, MOBILENET_CHECK_B, seed)
+        if place == "cpu":
+            model.set_state_dict(start)
+        else:
+            start = {n: t._value.detach().cpu().clone()
+                     for n, t in model.state_dict().items()}
+        model.train()
+        model.classifier[0].p = 0.0
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        first[place] = float(loss)
+        models[place] = (model, opt)
+    res = {"loss": abs(first["gpu"] - first["cpu"]) / abs(first["cpu"])}
+    # the update from the same gradients: the card's, on both sides
+    (gm, gopt), (cm, copt) = models["gpu"], models["cpu"]
+    before = {n: p.detach().cpu().clone()
+              for n, p in torch_named_parameters(gm)}
+    with torch.no_grad():
+        for (n, pg), (_, pc) in zip(torch_named_parameters(gm),
+                                    torch_named_parameters(cm)):
+            pc.grad.copy_(pg.grad.cpu())
+    gopt.step()
+    copt.step()
+    res["update"] = max(_norm_rel(
+        (pg.detach().cpu() - before[n]).numpy(),
+        (pc.detach() - before[n]).numpy())
+        for (n, pg), (_, pc) in zip(torch_named_parameters(gm),
+                                    torch_named_parameters(cm)))
+    for m, o in models.values():
+        o.clear_grad()
+    gm.set_state_dict(start)
+    cm.set_state_dict(start)
+    res["stages"] = _mobilenet_stage_parity(gm, cm)
+    del models, gm, cm
+    paddle.set_device("gpu")
+    runs = []
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            model, opt, loss_fn, x, y = _mobilenet_setup(
+                paddle, MOBILENET_CHECK_B, seed)
+            model.set_state_dict(start)
+            model.train()
+            paddle.seed(seed)
+            losses = []
+            for _ in range(2):
+                loss = loss_fn(model(x), y)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                losses.append(float(loss))
+            runs.append(losses)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    res["dropout_runs"] = runs
+    return res
+
+
+def phase_mobilenet(dev, seed):
+    """Phase 38: MobileNetV2 trained as a Paddle user writes it, at
+    ImageNet width (the module docstring)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.framework import device as port_device
+    from paddle_tpu_torch.framework.precision import matmul_precision
+
+    prev = list(port_device._CURRENT)
+    calls = {"update_math": 0}
+    real_math = popt.update_math
+
+    def counted_math(p, *a, **k):     # the plain update of a card tensor
+        calls["update_math"] += int(p.is_cuda)
+        return real_math(p, *a, **k)
+
+    try:
+        paddle.set_device("gpu")
+        model, opt, loss_fn, x, y = _mobilenet_setup(paddle, MOBILENET_B,
+                                                     seed)
+        n_params = sum(p._value.numel() for p in model.parameters())
+        if not all(p._value.is_cuda for p in model.parameters()):
+            raise AssertionError("a MobileNetV2 parameter is off the card")
+
+        def step():
+            loss = loss_fn(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        model.train()
+        losses = [float(step()) for _ in range(MOBILENET_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        popt.update_math = counted_math
+        reset_port_launch_counts()
+        tables, step_ms = set(), []
+        for _ in range(MOBILENET_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step()))       # waits for it
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            tables.add(id(opt._table))
+        counts = port_launch_counts()
+        popt.update_math = real_math
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if calls["update_math"]:
+            raise AssertionError(f"update_math ran {calls['update_math']} "
+                                 f"times on the card")
+        want = {k: MOBILENET_STEPS if k == "fused_update" else 0
+                for k in counts}
+        if counts != want:
+            raise AssertionError(f"MobileNetV2 launch counts {counts}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"MobileNetV2's losses {losses}")
+        med = statistics.median(step_ms)
+        prof = kind_profile(step, MOBILENET_KINDS, "mobilenet_v2",
+                            "batch norm and the other elementwise work")
+
+        # the same network in plain PyTorch, from the same weights
+        net = _plain_mobilenet(model, dev)
+        topt = torch.optim.SGD(net.parameters(), lr=MOBILENET_LR,
+                               momentum=MOBILENET_MOM,
+                               weight_decay=MOBILENET_WD)
+        tx, ty = x._value, y._value.long()
+
+        def plain_step():
+            loss = torch.nn.functional.cross_entropy(net(tx), ty)
+            loss.backward()
+            topt.step()
+            topt.zero_grad()
+
+        with matmul_precision("float32"):
+            for _ in range(MOBILENET_WARMUP):
+                plain_step()
+            plain_ms = _step_ms(plain_step, MOBILENET_STEPS)
+        port_again = _step_ms(step, MOBILENET_STEPS)
+        del net, topt
+        loss = loss_fn(model(x), y)     # gradients in place for the row
+        loss.backward()
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                            device=dev)
+        def sgd(ps, gs, vs):
+            torch._fused_sgd_(ps, gs, vs, weight_decay=MOBILENET_WD,
+                              momentum=MOBILENET_MOM, lr=MOBILENET_LR,
+                              dampening=0.0, nesterov=False, maximize=False,
+                              is_first_step=False)
+
+        # p, g, v read, p, v written; 4 operations an element
+        with torch.no_grad():
+            row = _eager_update_row(
+                opt, flush, sgd, "torch._fused_sgd_, momentum 0.9, "
+                "dampening 0, weight_decay 4e-5", 20, 4,
+                f"MobileNetV2's table (L2Decay {MOBILENET_WD})")
+        del flush
+        opt.clear_grad()
+        del model, opt, x, y
+        torch.cuda.empty_cache()
+        parity = _mobilenet_parity(paddle, dev, seed)
+    finally:
+        popt.update_math = real_math
+        port_device._CURRENT[:] = prev
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    ips = MOBILENET_B / (med / 1e3)
+    log(f"mobilenet_v2 ({smi.stdout.strip()}): vision.models.mobilenet_v2()"
+        f" after paddle.seed(0), {n_params} parameters, batch "
+        f"{MOBILENET_B} x 3 x {MOBILENET_IMG} x {MOBILENET_IMG} fp32 NCHW, "
+        f"nn.CrossEntropyLoss(), Momentum({MOBILENET_LR}, "
+        f"{MOBILENET_MOM}, L2Decay({MOBILENET_WD})), Dropout(0.2) live; "
+        f"{MOBILENET_WARMUP} + {MOBILENET_STEPS} steps: losses "
+        f"{[round(v, 5) for v in losses]}; step {med:.2f} ms (median, host "
+        f"wall), then {port_again:.2f}; {ips:.1f} images/s; peak "
+        f"{peak:.2f} GiB; launch counts {counts} (one fused_update a step, "
+        f"update_math 0 calls on the card), {len(tables)} table(s) built; "
+        f"plain PyTorch (torch.nn, torch.optim.SGD) {plain_ms:.2f} ms "
+        f"({min(med, port_again) / plain_ms:.2f}x)")
+    log(f"fused_update, {row['shape']}, one launch, device time: as "
+        f"Optimizer.step() calls it {row['step_ms']:.4f} ms "
+        f"({row['step_span_ms']:.4f} from an idle card), the kernel alone "
+        f"{row['ms']:.4f} ({row['span_ms']:.4f}), torch._fused_sgd_ "
+        f"{row['library_ms']:.4f} ({row['library_span_ms']:.4f}); plain "
+        f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.5f} "
+        f"{row['bound_by']}, the kernel at "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
+    runs = parity["dropout_runs"]
+    st = parity["stages"]
+    log(f"mobilenet_v2 card against CPU (batch {MOBILENET_CHECK_B} x 224, "
+        f"dropout 0, the card's weights): loss {parity['loss']:.2e} (limit "
+        f"{MOBILENET_LOSS_RTOL}); stage by stage (19 features, the "
+        f"head): worst output {st['out']:.2e}, input gradient "
+        f"{st['dx']:.2e}, parameter gradient {st['grads']:.2e}, buffers "
+        f"{st['buffers']:.2e}, stages above {RESNET_FP32_GRAD_CLEAN:.0e}: "
+        f"{st['above_clean']}; the update from the same gradients "
+        f"{parity['update']:.2e} (limit {MOBILENET_UPDATE_RTOL}); dropout "
+        f"live, two runs after paddle.seed({seed}): {runs}")
+    if not (parity["loss"] <= MOBILENET_LOSS_RTOL
+            and parity["update"] <= MOBILENET_UPDATE_RTOL):
+        raise AssertionError(f"MobileNetV2 card against CPU: {parity}")
+    if runs[0] != runs[1]:
+        raise AssertionError(f"dropout did not repeat after paddle.seed: "
+                             f"{runs}")
+    return {"counts": counts, "row": row, "step_ms": med,
+            "images_per_s": ips, "peak_gib": peak, "plain_ms": plain_ms,
+            "profile": prof, "parity": parity}
 
 
 def main(argv=None) -> int:
@@ -5384,6 +6009,20 @@ def main(argv=None) -> int:
     lenet = phase_lenet(dev, args.seed)
     log(f"phase 35 (lenet): {time.perf_counter() - t0:.1f} s")
 
+    # the feed-forward nn: every new functional and layer, the public
+    # flash entry, then MobileNetV2 trained at ImageNet width
+    t0 = time.perf_counter()
+    phase_nn(dev)
+    log(f"phase 36 (nn): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flash_entry = phase_flash_entry(dev, gen)
+    log(f"phase 37 (flash entry): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mobilenet = phase_mobilenet(dev, args.seed)
+    log(f"phase 38 (mobilenet_v2): {time.perf_counter() - t0:.1f} s")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
             "rank": dp16_rank}
@@ -5393,7 +6032,7 @@ def main(argv=None) -> int:
                                   bf16_counts, dp16, ce_rows, ce_counts,
                                   bert, {"counts": counts29, "row": row_r},
                                   {"counts": counts31, "row": row_wd},
-                                  lenet)))
+                                  lenet, flash_entry, mobilenet)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,9 +37,11 @@ starts at zero. The draws are not the reference's (which seeds from
 Paddle's generator): weights are carried across with
 ``models/convert.py`` ``bert_state_dict_from_numpy``.
 
-Not ported (each raises ``NotImplementedError``, ROADMAP Queue A "BERT
-training"): dropout > 0 in training, and the tensor-parallel
-``dist_spec`` marks.
+Dropout > 0 in training draws from the device's generator
+(``nn/functional/common.py``), in the embeddings, the attention
+probabilities and each encoder layer. Not ported: the tensor-parallel
+``dist_spec`` marks (``NotImplementedError``, ROADMAP Queue A
+"parallelism").
 
 Numerics: the GEMM settings of fp32 parameters
 (``framework.precision``: TF32 off, bf16 GEMMs without the reduced-
@@ -62,7 +64,6 @@ from ..framework.device import resolve_device, to_device
 from ..framework.precision import backward_precision, matmul_precision
 from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..nn import functional as F
-from ..nn.functional.common import TRAINING_ITEM
 from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import TransformerEncoder, TransformerEncoderLayer
@@ -106,8 +107,11 @@ def bert_presets(name: str, **overrides) -> BertConfig:
     return BertConfig(**cfg)
 
 
+PARALLEL_ITEM = "ROADMAP Queue A, 'parallelism'"
+
+
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet ({TRAINING_ITEM})")
+    return NotImplementedError(f"{what} is not ported yet ({PARALLEL_ITEM})")
 
 
 class BertEmbeddings(nn.Module):

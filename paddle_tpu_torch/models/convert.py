@@ -163,8 +163,19 @@ def load_layer_state(layer, arrays: Dict[str, np.ndarray]):
     """A reference ``Layer``'s ``state_dict()`` as numpy arrays (``{n:
     np.asarray(t._value)}``: parameters and persistable buffers) loaded
     into ``layer``, a port ``nn.Layer`` of the same structure, by its
-    ``set_state_dict``: the same structured names both ways, each
-    shape and dtype checked, the bits copied. Returns ``layer``."""
+    ``set_state_dict``: the same structured names both ways, each name,
+    shape and dtype checked (a missing, unexpected or misshapen entry
+    raises), the bits copied. Returns ``layer``. It carries every layer
+    of ``nn`` whose state the reference's ``state_dict()`` holds:
+    ``Linear``, the convolutions, the batch norms with their
+    ``_mean``/``_variance`` buffers (``SyncBatchNorm`` too),
+    ``LayerNorm``, ``GroupNorm``, the instance norms (``scale``,
+    ``bias``), ``PReLU``, ``Bilinear``, ``Embedding``,
+    ``AdaptiveLogSoftmaxWithLoss`` (``head_weight``, ``head_bias``,
+    ``tail_proj_i``, ``tail_out_i``), the containers' numbered names
+    (``LayerList``/``Sequential``'s ``0.weight``, ``ParameterList``'s
+    ``0``, ``LayerDict``'s keys), and whole models: LeNet,
+    ``MobileNetV2`` (262 entries at any scale), a user's ``Layer``."""
     own = layer.state_dict()
     tensors = _copy_checked(arrays, {n: tuple(t.shape)
                                      for n, t in own.items()},

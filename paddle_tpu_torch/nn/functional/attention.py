@@ -60,7 +60,8 @@ def _flash(query, key, value, attn_mask, dropout_p) -> bool:
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True) -> torch.Tensor:
+                                 training: bool = True,
+                                 name=None) -> torch.Tensor:
     """q/k/v ``[b, s, n, d]`` -> ``[b, s, n, d]``. ``attn_mask``
     broadcasts against ``[b, n, q_len, kv_len]``; a bool mask keeps True
     positions, a float mask is added to the logits."""

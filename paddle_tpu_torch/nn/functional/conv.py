@@ -121,13 +121,19 @@ def _transpose_not_ported(nd):
                               f"({REST_ITEM})")
 
 
-def conv1d_transpose(x, weight, *args, **kwargs):
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL", name=None):
     _transpose_not_ported(1)
 
 
-def conv2d_transpose(x, weight, *args, **kwargs):
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCHW", name=None):
     _transpose_not_ported(2)
 
 
-def conv3d_transpose(x, weight, *args, **kwargs):
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW", name=None):
     _transpose_not_ported(3)

@@ -1,6 +1,7 @@
-"""Layer and batch normalisation (reference:
-``paddle_tpu/nn/functional/norm.py`` ``layer_norm`` and ``batch_norm``,
-lines 16-98).
+"""Normalisation functionals (reference:
+``paddle_tpu/nn/functional/norm.py``: ``layer_norm`` and ``batch_norm``,
+lines 16-98; ``instance_norm``, ``group_norm`` and
+``local_response_norm``, lines 100-179).
 
 ``layer_norm`` is a cast point of ``amp`` under "layer_norm" (on the
 black list: bf16 inputs are cast to fp32).
@@ -33,11 +34,12 @@ import torch
 
 from ...amp import cast
 
-__all__ = ["layer_norm", "batch_norm"]
+__all__ = ["layer_norm", "batch_norm", "instance_norm", "group_norm",
+           "local_response_norm"]
 
 
 def layer_norm(x: torch.Tensor, normalized_shape, weight=None, bias=None,
-               epsilon: float = 1e-05) -> torch.Tensor:
+               epsilon: float = 1e-05, name=None) -> torch.Tensor:
     """Normalise over the trailing ``normalized_shape`` axes in fp32, in
     the reference's order: ``(x - mean) * rsqrt(var + eps)``, cast back
     to ``x.dtype``, then ``* weight + bias``."""
@@ -65,7 +67,7 @@ def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
                running_var: torch.Tensor, weight=None, bias=None,
                training: bool = False, momentum: float = 0.9,
                epsilon: float = 1e-05, data_format: str = "NCHW",
-               use_global_stats=None) -> torch.Tensor:
+               use_global_stats=None, name=None) -> torch.Tensor:
     """Batch normalisation over every axis but the channel's (axis 1 for
     "NC..." formats, else the last), with the reference's semantics
     (module docstring). ``running_mean`` and ``running_var`` are updated
@@ -96,3 +98,73 @@ def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
     if bias is not None:
         out = out + wb.pop(0).reshape(bshape)
     return out
+
+
+def _affine(out, wb, weight, bias, shape):
+    if weight is not None:
+        out = out * wb.pop(0).reshape(shape)
+    if bias is not None:
+        out = out + wb.pop(0).reshape(shape)
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-05,
+                  data_format="NCHW", name=None):
+    """Each sample's channels normalised over their spatial axes, in fp32
+    (biased variance, gradients through the statistics), then ``* w +
+    b``. As in the reference, the running statistics, ``momentum`` and
+    ``use_input_stats`` are taken and not used."""
+    channel = 1 if data_format.startswith("NC") else x.dim() - 1
+    axes = (tuple(range(2, x.dim())) if channel == 1
+            else tuple(range(1, x.dim() - 1)))
+    x, *wb = cast("instance_norm", x, *(t for t in (weight, bias)
+                                        if t is not None))
+    v = x.to(torch.float32)
+    mean = v.mean(axes, keepdim=True)
+    var = v.var(axes, keepdim=True, unbiased=False)
+    out = ((v - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    shape = [1] * x.dim()
+    shape[channel] = x.shape[channel]
+    return _affine(out, wb, weight, bias, shape)
+
+
+def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Channels in ``num_groups`` groups, each normalised over its channels
+    and the spatial axes in fp32, then ``* w + b`` a channel."""
+    channel = 1 if data_format.startswith("NC") else x.dim() - 1
+    x, *wb = cast("group_norm", x, *(t for t in (weight, bias)
+                                      if t is not None))
+    v = x.movedim(channel, 1) if channel != 1 else x
+    n, c = v.shape[:2]
+    g = v.reshape(n, num_groups, c // num_groups, *v.shape[2:])
+    axes = tuple(range(2, g.dim()))
+    gf = g.to(torch.float32)
+    mean = gf.mean(axes, keepdim=True)
+    var = gf.var(axes, keepdim=True, unbiased=False)
+    out = ((gf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    out = out.reshape(v.shape)
+    shape = [1] * out.dim()
+    shape[1] = c
+    out = _affine(out, wb, weight, bias, shape)
+    return out.movedim(1, channel) if channel != 1 else out
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """``x / (k + alpha / size * sum(x^2))^beta``, the sum over the
+    ``size`` channels around each (``size // 2`` before it)."""
+    (x,) = cast("local_response_norm", x)
+    channel = 1 if data_format.startswith("NC") else x.dim() - 1
+    sq = x * x
+    c = x.shape[channel]
+    half = size // 2
+    acc = torch.zeros_like(x)
+    for offset in range(-half, size - half):
+        lo, hi = max(0, -offset), min(c, c - offset)
+        if hi <= lo:
+            continue
+        acc.narrow(channel, lo + offset, hi - lo).add_(
+            sq.narrow(channel, lo, hi - lo))
+    return x / torch.pow(k + (alpha / size) * acc, beta)

@@ -1,18 +1,18 @@
 """Layers of the port (reference: ``paddle_tpu/nn/layer``)."""
-from .layers import Layer
-from .activation import ReLU, Sigmoid
-from .common import Dropout, Embedding, Flatten, Linear
-from .container import Sequential
-from .loss import BCELoss, BCEWithLogitsLoss
+from . import activation, common, container, loss, norm, pooling
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .container import *  # noqa: F401,F403
 from .conv import Conv1D, Conv2D, Conv3D
-from .norm import BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, LayerNorm
-from .pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D
+from .layers import Layer
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BCELoss", "BCEWithLogitsLoss",
-           "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "Conv1D", "Conv2D", "Conv3D", "Dropout", "Embedding", "Flatten",
-           "Layer", "LayerNorm", "Linear", "MaxPool2D", "MultiHeadAttention", "ReLU",
-           "Sequential", "Sigmoid", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+__all__ = sorted({"Conv1D", "Conv2D", "Conv3D", "Layer",
+                  "MultiHeadAttention", "TransformerEncoder",
+                  "TransformerEncoderLayer",
+                  *activation.__all__, *common.__all__, *container.__all__,
+                  *loss.__all__, *norm.__all__, *pooling.__all__})

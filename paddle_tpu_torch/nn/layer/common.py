@@ -1,5 +1,7 @@
-"""Common layers (reference: ``paddle_tpu/nn/layer/common.py`` ``Linear``,
-``Embedding``, ``Dropout``, ``Flatten``).
+"""Common layers (reference: ``paddle_tpu/nn/layer/common.py``): every
+layer of it but ``HSigmoidLoss`` (ROADMAP Queue A 4c-2). The dropout
+layers draw in training (``functional/common.py``); the others hold
+their options and call their functional, as the reference's do.
 
 ``Linear`` keeps Paddle's weight layout ``[in_features, out_features]``
 (``y = x @ W + b``), so the reference's weights copy over unchanged and a
@@ -36,10 +38,16 @@ from ...framework.param_attr import ParamAttr
 from ...framework.tensor import Parameter
 from .. import functional as F
 from .. import initializer as I
-from ..functional.common import OPTIONS_ITEM, check_dropout_options
+from ..functional.common import OPTIONS_ITEM
 from .layers import Layer, param_device, unique_name
 
-__all__ = ["Linear", "Embedding", "Dropout", "Flatten"]
+__all__ = ["Linear", "Embedding", "Identity", "Dropout", "Dropout2D",
+           "Dropout3D", "AlphaDropout", "Flatten", "Upsample",
+           "UpsamplingBilinear2D", "UpsamplingNearest2D", "Pad1D", "Pad2D",
+           "Pad3D", "ZeroPad2D", "CosineSimilarity", "Bilinear",
+           "PixelShuffle", "PixelUnshuffle", "ChannelShuffle", "Unfold",
+           "Fold", "PairwiseDistance", "MaxUnPool1D", "MaxUnPool2D",
+           "MaxUnPool3D"]
 
 _LINEAR_IDS = itertools.count()
 
@@ -134,16 +142,55 @@ class Embedding(Layer):
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"
 
 
-class Dropout(Layer):
-    """Dropout at inference (see ``functional.dropout``)."""
-
-    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
         super().__init__()
-        check_dropout_options(axis, mode)
-        self.p = p
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return x
+
+
+class Dropout(Layer):
+    """``F.dropout`` at ``self.p``, drawing in training."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, input):
+        return F.dropout(input, self.p, self.axis, self.training, self.mode)
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, input):
+        return F.dropout2d(input, self.p, self.training, self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, input):
+        return F.dropout3d(input, self.p, self.training, self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, input):
+        return F.alpha_dropout(input, self.p, self.training)
 
 
 class Flatten(Layer):
@@ -156,3 +203,195 @@ class Flatten(Layer):
 
     def forward(self, input):
         return T.flatten(input, self.start_axis, self.stop_axis)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0,
+                         data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0,
+                         data_format)
+
+
+class Pad1D(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__()
+        self._pad = padding
+        self._mode = mode
+        self._value = value
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self._pad, self._mode, self._value,
+                     self._data_format)
+
+
+class Pad2D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(Pad1D):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self._axis = axis
+        self._eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self._axis, self._eps)
+
+
+class Bilinear(Layer):
+    """``weight`` ``[out, in1, in2]`` (Xavier-uniform unless an attr
+    says), ``bias`` ``[out]`` (zeros)."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            shape=[out_features, in1_features, in2_features],
+            attr=weight_attr, device=device)
+        self.bias = self.create_parameter(shape=[out_features],
+                                          attr=bias_attr, is_bias=True,
+                                          device=device)
+
+    def forward(self, x1, x2):
+        p = self._parameters
+        return F.bilinear(x1, x2, p["weight"], p.get("bias"))
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self._factor = upscale_factor
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self._factor, self._data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self._factor = downscale_factor
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self._factor, self._data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self._groups = groups
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self._groups, self._data_format)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)
+
+
+class PairwiseDistance(Layer):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self._p, self._eps, self._keepdim = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self._p, self._eps, self._keepdim)
+
+
+class _MaxUnPool(Layer):
+    _fn = None
+
+    def __init__(self, kernel_size, stride=None, padding=0, data_format=None,
+                 output_size=None, name=None):
+        super().__init__()
+        self._args = (kernel_size, stride, padding, output_size, data_format)
+
+    def forward(self, x, indices):
+        return type(self)._fn(x, indices, *self._args)
+
+
+class MaxUnPool1D(_MaxUnPool):
+    _fn = F.max_unpool1d
+
+    def __init__(self, kernel_size, stride=None, padding=0, data_format="NCL",
+                 output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)
+
+
+class MaxUnPool2D(_MaxUnPool):
+    _fn = F.max_unpool2d
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)
+
+
+class MaxUnPool3D(_MaxUnPool):
+    _fn = F.max_unpool3d
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)

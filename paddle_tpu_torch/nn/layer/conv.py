@@ -81,10 +81,12 @@ class Conv1D(_ConvNd):
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
-                 weight_attr=None, bias_attr=None, data_format="NCL", **kw):
+                 weight_attr=None, bias_attr=None, data_format="NCL", *,
+                 device=None, rs=None):
         super().__init__(in_channels, out_channels, kernel_size, 1, stride,
                          padding, dilation, groups, padding_mode,
-                         weight_attr, bias_attr, data_format, **kw)
+                         weight_attr, bias_attr, data_format,
+                         device=device, rs=rs)
 
 
 class Conv2D(_ConvNd):
@@ -93,10 +95,11 @@ class Conv2D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 **kw):
+                 *, device=None, rs=None):
         super().__init__(in_channels, out_channels, kernel_size, 2, stride,
                          padding, dilation, groups, padding_mode,
-                         weight_attr, bias_attr, data_format, **kw)
+                         weight_attr, bias_attr, data_format,
+                         device=device, rs=rs)
 
 
 class Conv3D(_ConvNd):
@@ -105,7 +108,8 @@ class Conv3D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCDHW",
-                 **kw):
+                 *, device=None, rs=None):
         super().__init__(in_channels, out_channels, kernel_size, 3, stride,
                          padding, dilation, groups, padding_mode,
-                         weight_attr, bias_attr, data_format, **kw)
+                         weight_attr, bias_attr, data_format,
+                         device=device, rs=rs)

@@ -16,10 +16,10 @@ hidden 64, vocab 256), on weights carried from the reference with
   value, ``relu`` and ``normalize_before`` (pre- and post-norm), within
   1e-4 of the reference's on carried weights, with a bool padding mask.
 - The weight mapping rejects wrong names, shapes and dtypes; the
-  training paths not ported yet (tensor-parallel marks, dropout > 0 in
-  training) and the ``nn`` options not ported yet raise
-  ``NotImplementedError`` naming their ROADMAP item, and the ported ones
-  (the MLM loss, fused or not, ``BertPretrainingCriterion``) run; the port's presets
+  training path not ported yet (the tensor-parallel marks) and the
+  ``nn`` options not ported yet raise ``NotImplementedError`` naming
+  their ROADMAP item, and the ported ones (the MLM loss, fused or not,
+  ``BertPretrainingCriterion``, dropout > 0 in training) run; the port's presets
   equal the reference's; importing the port's BERT and quantization
   loads neither ``jax`` nor ``paddle_tpu``.
 
@@ -157,12 +157,12 @@ def check_weight_mapping_rejects_bad_input():
 
 
 def check_training_paths_raise():
-    """What BERT training still leaves out raises, naming "BERT
-    training": the tensor-parallel marks, dropout > 0 in training (at
-    inference it is the identity), the encoder's cache. The MLM loss,
-    the fused loss and ``BertPretrainingCriterion``, ported since, run
-    (``tests/test_torch_bert_train.py`` holds them against the
-    reference)."""
+    """What BERT training still leaves out raises, naming its ROADMAP
+    item: the tensor-parallel marks ("parallelism"), the encoder's cache.
+    The MLM loss, the fused loss, ``BertPretrainingCriterion`` and
+    dropout > 0 in training, ported since, run
+    (``tests/test_torch_bert_train.py`` and
+    ``tests/test_torch_nn_layers.py`` hold them)."""
     cfg = bert_presets("bert-test")
     tm = BertForPretraining(cfg, device="cpu")
     ids = np.zeros((1, 4), np.int64)
@@ -173,15 +173,14 @@ def check_training_paths_raise():
     assert bool(torch.isfinite(fused(ids, masked_lm_labels=ids)[0]))
     assert bool(torch.isfinite(BertPretrainingCriterion()(
         tm(ids)[0], nsp, ids, np.zeros(1, np.int64))))
-    with pytest.raises(NotImplementedError, match="BERT training"):
+    with pytest.raises(NotImplementedError, match="parallelism"):
         tm.bert.mark_tensor_parallel()
     drop = BertForPretraining(bert_presets("bert-test", dropout=0.1),
                               device="cpu")
     drop.eval()
     drop(ids)                                   # inference: identity
     drop.train()
-    with pytest.raises(NotImplementedError, match="BERT training"):
-        drop(ids)
+    assert bool(torch.isfinite(drop(ids, masked_lm_labels=ids)[0]))
     layer = tm.bert.encoder.layers[0]
     with pytest.raises(NotImplementedError, match="cache"):
         layer(torch.zeros(1, 4, 64), cache=[])
@@ -216,8 +215,6 @@ def check_unported_nn_options_raise():
     layer = tnn.TransformerEncoderLayer(64, 4, 128, device="cpu")
     for make in (lambda: tnn.Embedding(8, 4, padding_idx=0, device="cpu"),
                  lambda: tnn.Embedding(8, 4, sparse=True, device="cpu"),
-                 lambda: tnn.Dropout(0.1, axis=1),
-                 lambda: tnn.Dropout(0.1, mode="downscale_in_infer"),
                  lambda: tnn.MultiHeadAttention(64, 4, kdim=32, device="cpu"),
                  lambda: tnn.MultiHeadAttention(64, 4, need_weights=True,
                                                 device="cpu"),

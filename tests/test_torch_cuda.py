@@ -112,6 +112,17 @@ and a rule without a fused form refused, naming their ROADMAP items;
 LeNet at batch 8 on eager Tensors, one Adam step, card against CPU
 within 1e-5.
 
+The feed-forward ``nn``: every case of ``tests/torch_nn_checks.py``
+``NN_CASES`` (each new functional and every layer that holds state) on
+the card against the CPU, outputs and gradients within 1e-5 relative,
+masks and one-hot rows bit for bit, every output on the card; the
+dropout family's properties on the card's generator
+(``dropout_properties``); ``F.flash_attention`` on card tensors, fp32
+and bf16: one launch of each flash kernel through the entry, out and
+the three gradients against the kernels' plain versions
+(``flash_err``'s limits), none with dropout > 0, and
+``flash_attn_unpadded`` at equal lengths through the same kernel.
+
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
 """
@@ -150,6 +161,7 @@ from torch_checks import (BF16_LOSS_RTOL, FUSED_HYPER, adam_step_parity,
                           fused_vs_plain, plant_flash_fault, plant_qmm_fault,
                           qmm_bf16_limit, qmm_bf16_vs_plain, qmm_vs_plain,
                           quantize_vs_plain, run_checks, same_bits)
+from torch_nn_checks import NN_CASES, dropout_properties, nn_case_vs_cpu
 
 torch.set_num_threads(2)
 
@@ -1412,6 +1424,60 @@ def check_lenet_on_card_matches_cpu(dev):
     assert max(rel(sg[n], sc[n]) for n in sc) <= 1e-5
 
 
+def check_nn_on_card_matches_cpu(dev, k):
+    """One case of ``tests/torch_nn_checks.py`` ``NN_CASES`` on the card
+    against the CPU."""
+    nn_case_vs_cpu(dev, NN_CASES[k])
+
+
+def check_dropout_on_card(dev):
+    """The dropout family's properties on the card's generator."""
+    dropout_properties(dev)
+
+
+def check_flash_attention_entry_on_card(dev, dtype):
+    """``F.flash_attention`` on card tensors reaches the flash kernels
+    (one forward, one dq and one dkv launch), held against their plain
+    versions; with dropout > 0 it launches none; ``flash_attn_unpadded``
+    at equal lengths launches the forward."""
+    import paddle_tpu_torch as paddle
+
+    F = paddle.nn.functional
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, do = (torch.randn(2, 256, 4, 64, device=dev, generator=g)
+                   .to(dtype) for _ in range(4))
+    qt, kt, vt = (x.detach().requires_grad_() for x in (q, k, v))
+    fa.reset_launch_counts()
+    out, sm = F.flash_attention(qt, kt, vt, causal=True)
+    dq, dk, dv = torch.autograd.grad(out, (qt, kt, vt), do)
+    counts = fa.launch_counts()
+    assert sm is None
+    assert (counts[f"flash_fwd{sfx}"], counts[f"flash_dq{sfx}"],
+            counts[f"flash_dkv{sfx}"]) == (1, 1, 1), counts
+    b = [x.transpose(1, 2).contiguous() for x in (q, k, v, do)]
+    p_out, _ = fa.flash_fwd_plain(*b[:3], True)
+    k_out, lse = fa.flash_fwd(*b[:3], True)      # the backward's inputs
+    delta = (b[3].float() * k_out.float()).sum(-1, keepdim=True)
+    plain = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_plain(
+        *b, lse, delta, True)))
+    errs = {"out": flash_err("out", dtype, out.detach().transpose(1, 2),
+                             p_out)}
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        errs[name] = flash_err(name, dtype, got.transpose(1, 2), plain[name])
+    assert all(r <= 1.0 for _, r in errs.values()), errs
+    fa.reset_launch_counts()
+    F.flash_attention(qt, kt, vt, dropout=0.1, causal=True)[0].sum(
+        ).backward()
+    assert not any(fa.launch_counts().values()), fa.launch_counts()
+    cu = torch.tensor([0, 256, 512], dtype=torch.int32)
+    packed = [x.reshape(512, 4, 64) for x in (q, k, v)]
+    got, _ = F.flash_attn_unpadded(*packed, cu, cu, 256, 256, 0.5,
+                                   causal=True)
+    assert fa.launch_counts()[f"flash_fwd{sfx}"] == 1
+    assert torch.equal(got, out.detach().reshape(512, 4, 64))
+
+
 @pytest.mark.requires_cuda
 def test_cuda_path_matches_plain(dev):
     run_checks(
@@ -1562,6 +1628,11 @@ def test_cuda_path_matches_plain(dev):
            for k in ("sgd", "momentum", "adam", "adamw")]
         + [(check_eager_step_refuses_on_card, (dev,)),
            (check_lenet_on_card_matches_cpu, (dev,))]
+        + [(check_nn_on_card_matches_cpu, (dev, k))
+           for k in range(len(NN_CASES))]
+        + [(check_dropout_on_card, (dev,))]
+        + [(check_flash_attention_entry_on_card, (dev, dt))
+           for dt in (torch.float32, torch.bfloat16)]
         + [(check_step_dequant_keeps_its_table, (dev,)),
            (check_dequant_wrapper_raises, (dev,))]
         + [(check_fused_ce_kernels_match_plain, (dev, n, c, st, v, b, ig))

@@ -78,8 +78,8 @@ Cases and tolerances (the measured value beside each):
   cuDNN's TF32 off while the caller has set it on, and the caller's flag
   is back after the pass.
 - What is not ported raises, naming ROADMAP Queue A 14: the transposed
-  convolutions and ``max_pool2d(return_mask=True)``; ``pretrained=True``
-  raises as in the reference.
+  convolutions (``max_pool2d(return_mask=True)``, ported since, gives
+  its int32 mask); ``pretrained=True`` raises as in the reference.
 
 About 110 s on the CPU (two threads), nearly all of it the reference's
 eager ResNet steps and stages (its per-op compiles) and its compiled
@@ -653,8 +653,8 @@ def check_unported_paths_raise():
     for fn in (F.conv1d_transpose, F.conv2d_transpose, F.conv3d_transpose):
         with pytest.raises(NotImplementedError, match="Queue A 14"):
             fn(x, torch.zeros(2, 2, 3, 3))
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
-        F.max_pool2d(x, 2, return_mask=True)
+    out, mask = F.max_pool2d(x, 2, return_mask=True)     # ported since
+    assert out.shape == (1, 2, 2, 2) and mask.dtype == torch.int32
     with pytest.raises(ValueError, match="pretrained"):
         tmodels.resnet18(pretrained=True, device="cpu")
 

@@ -45,8 +45,9 @@ the two hold the kernels to one set of criteria:
   encode's (:func:`encoded_inputs`, from fp32 or bf16 gradients);
 - one Adam(W) training step on two devices: :func:`adam_step_parity`,
   and for a bf16 model :func:`bf16_step_parity`;
-- a ResNet stage by stage (:func:`resnet_stages`, :func:`stage_run`,
-  :func:`stage_errors`): each stage fed the same input and cotangent on
+- a ResNet or a MobileNetV2 stage by stage (:func:`resnet_stages`,
+  :func:`mobilenet_stages`, :func:`stage_run`, :func:`stage_errors`):
+  each stage fed the same input and cotangent on
   both sides, so the model's own amplification of rounding (a ResNet-50
   at initialisation under batch-4 batch norm moves its O2 gradients by
   more than their size when its input moves by half a bf16 ulp) does not
@@ -879,6 +880,20 @@ def resnet_stages(model, flatten):
     return out
 
 
+def mobilenet_stages(model):
+    """The stages of a MobileNetV2 (the port's or the reference's: the
+    same attribute names) in order, as :func:`resnet_stages` gives a
+    ResNet's: each of ``features`` (the stem, the 17 inverted residual
+    blocks, the last 1 x 1 convolution), then the head (the average
+    pool, ``flatten(1)``, the classifier)."""
+    m = model
+    out = [(f"features.{i}", m.features[i], (f"features.{i}",))
+           for i in range(len(m.features))]
+    out.append(("head", lambda x: m.classifier(m.pool2d_avg(x).flatten(1)),
+                ("classifier",)))
+    return out
+
+
 def _in_stage(name: str, prefixes) -> bool:
     return any(name == p or name.startswith(p + ".") for p in prefixes)
 
@@ -894,9 +909,11 @@ def stage_run(model, stage, x, seed, level=None) -> dict:
     from paddle_tpu_torch.amp import auto_cast
 
     _, fn, prefixes = stage
-    dev = next(model.parameters()).device
+    # PyTorch's accessors: a port ``Layer``'s own return eager views
+    params = dict(torch.nn.Module.named_parameters(model))
+    dev = next(iter(params.values())).device
     model.train()
-    for p in model.parameters():
+    for p in params.values():
         p.grad = None
     xd = x.detach().clone().to(dev).requires_grad_()
     with (auto_cast(level=level, dtype="bfloat16") if level
@@ -908,9 +925,10 @@ def stage_run(model, stage, x, seed, level=None) -> dict:
     return {"out": out.detach().float().cpu(), "ct": ct,
             "dx": xd.grad.float().cpu(),
             "grads": {n: p.grad.float().cpu()
-                      for n, p in model.named_parameters()
+                      for n, p in params.items()
                       if _in_stage(n, prefixes)},
-            "buffers": {n: b.float().cpu() for n, b in model.named_buffers()
+            "buffers": {n: b.float().cpu()
+                        for n, b in torch.nn.Module.named_buffers(model)
                         if _in_stage(n, prefixes)}}
 
 
