@@ -527,6 +527,69 @@ when every phase passed):
               against CPU at batch 2, dropout 0: the loss, every stage's
               output and gradients, the update; dropout live, two runs
               of 2 steps after paddle.seed bit for bit.
+ 39. rnn nn   every case of tests/torch_rnn_checks.py (each new name of
+              the recurrent slice: SimpleRNN tanh and relu, LSTM and GRU
+              forward, bidirectional and time_major, with
+              sequence_length holding a 0 and full lengths; the cells,
+              LSTMCell with proj_size; RNN/BiRNN over cells; the
+              sequence ops; the fluid-era functionals and gather_tree;
+              hsigmoid_loss, HSigmoidLoss, class_center_sample,
+              margin_cross_entropy, center_loss; nn.utils) on card
+              tensors against the same call on the CPU: outputs and
+              gradients within 1e-5 relative, integers bit for bit;
+              BeamSearchDecoder's ids on a small LSTMCell model (its
+              logits scaled to a standard deviation of 4) equal outside
+              near ties, the candidates' totals within 1e-4; no kernel
+              of the port launched.
+ 40. ptb lm   the PTB word-level LSTM language model, medium (Zaremba,
+              Sutskever & Vinyals 2014, as PaddleNLP's rnnlm trains it
+              with paddle.nn.LSTM), at full width and depth, as a
+              Paddle user writes it (tests/torch_rnn_checks.py ptb_lm):
+              Embedding(10000, 650), Dropout(0.5), LSTM(650, 650, 2
+              layers; its dropout stored, not applied), Dropout(0.5),
+              Linear(650, 10000), every parameter from Uniform(-0.05,
+              0.05) after paddle.seed(0); batch 20 x 35 ids from --seed,
+              fp32, the states carried and detached (truncated BPTT),
+              SGD(1.0, ClipGradByGlobalNorm(5.0)), CrossEntropyLoss;
+              3 + 10 steps, ms a step, words/s, peak memory; launch
+              counts reset just before and read just after (one
+              fused_update a step, update_math never on the card), the
+              SGD table built once; torch.profiler over one step (idle
+              share, device time by kind); the dropout masks repeating
+              after paddle.seed; the same network in plain PyTorch
+              (torch.nn.LSTM, torch.optim.SGD, clip_grad_norm_, TF32
+              off) from the same weights over the same batches, one
+              median each; the LSTM stack's forward and backward by the
+              port's whole-length route, by pack_padded_sequence and
+              unpacked (device time), the LSTM weights still in one
+              buffer with no cuDNN layout warning; jit.TrainStep over
+              a small LM of this network on the card against the CPU
+              (every parameter, the LSTM's too, changing as the CPU's,
+              within 1e-3); row 6 at the LM's table
+              (19,780,400 fp32 elements) as Optimizer.step() calls it,
+              alone, plain and as torch._fused_sgd_, beside its bound
+              (12 bytes an element), its launch bit for bit against the
+              plain walk on clones of the table; card against CPU, one
+              step from the same weights, dropout off: the loss within
+              1e-5 relative, every parameter's gradient within 1e-5
+              (norm_rel).
+ 41. ptb beam BeamSearchDecoder(beam_size=10) over a cell that runs the
+              trained model's two LSTM layers one step (batch-first
+              states, so the regather indexes the batch), its embedding
+              and output layer (the logits scaled to a standard
+              deviation of 4 at the contexts' ends, where near ties are
+              rare), from the final states of 20 contexts of 35 tokens,
+              dynamic_decode(max_step_num=35), on the card
+              and on the CPU: ms a decode step and its split into the
+              device's work, the logits' copy to the host and the host's
+              bookkeeping; card and CPU choose the same beams step by
+              step: until a row parts, each step's candidate totals
+              (float64, from each device's own logits and float32
+              running scores) within 1e-4 of max(1, |best|) over the
+              best beam + 1 of either; a row parting only at a near tie,
+              two of the CPU's best beam + 1 totals within the spread of
+              that step's measured differences (counted and printed); a
+              row that never parts finalizing the same ids.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -4287,7 +4350,7 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
                  bf16_rows, bf16_counts, dp16, ce_rows, ce_counts, bert_run,
                  resnet_run, widedeep_run, lenet_run, flash_entry,
-                 mobilenet_run):
+                 mobilenet_run, ptb_run):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -4328,8 +4391,10 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     Wide&Deep's (phase 31 and its row): the adam rule over its one fp32
     bucket, with phase 31's launches, LeNet's eager step (phase
     35): Adam over its table of 10 parameters, with phase 35's
-    launches, and MobileNetV2's (phase 38): Momentum with L2Decay over
-    its table of 158 parameters, with phase 38's launches. Phase 37's
+    launches, MobileNetV2's (phase 38): Momentum with L2Decay over
+    its table of 158 parameters, with phase 38's launches, and the PTB
+    LSTM language model's (phase 40): SGD over its table of 11
+    parameters (19,780,400 elements), with phase 40's launches. Phase 37's
     launches through ``F.flash_attention`` are ``at_shapes`` of the flash
     kernels of their dtype, at GPT-125M's and BERT-base's shapes, each
     with its time through the entry (``entry_ms``)."""
@@ -4456,7 +4521,8 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                              "the timed steps'")
     for name, rows_ in flash_entry.items():
         by_name[name].setdefault("at_shapes", []).extend(rows_)
-    for extra in (resnet_run, widedeep_run, lenet_run, mobilenet_run):
+    for extra in (resnet_run, widedeep_run, lenet_run, mobilenet_run,
+                  ptb_run):
         by_name["fused_update"]["at_shapes"].append(dict(
             _numbers(extra["row"]),
             launches_at_shape=extra["counts"]["fused_update"]))
@@ -5782,6 +5848,554 @@ def phase_mobilenet(dev, seed):
             "profile": prof, "parity": parity}
 
 
+# ------------------------------------------------------ the recurrent nn
+def phase_rnn_nn(dev):
+    """Phase 39: every case of ``tests/torch_rnn_checks.py`` (each new
+    name of the recurrent slice) on the card against the CPU; no kernel
+    of the port launched."""
+    from torch_nn_checks import NN_RTOL
+    from torch_rnn_checks import tail_vs_cpu
+
+    reset_port_launch_counts()
+    t0 = time.perf_counter()
+    res = tail_vs_cpu(dev)
+    counts = port_launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the recurrent nn launched a port kernel: "
+                             f"{counts}")
+    worst, more, beam = res["worst"], res["more"], res["beam"]
+    top = max(more.items(), key=lambda kv: kv[1])
+    log(f"rnn nn on the card: {res['cases']} cases against the CPU in "
+        f"{time.perf_counter() - t0:.1f} s, worst output "
+        f"{worst['out'][0]:.2e} ({worst['out'][1]}), worst gradient "
+        f"{worst['grad'][0]:.2e} ({worst['grad'][1]}); RNN/BiRNN over "
+        f"cells, nn.utils, sequence_concat, center_loss's centers: worst "
+        f"{top[1]:.2e} ({top[0]}); limit {NN_RTOL}; integers (masks, "
+        f"lengths, gather_tree, class_center_sample's draw after the same "
+        f"np.random.seed) bit for bit; beam search (LSTMCell 128, vocab "
+        f"1000, beam 4, 12 steps, 4 rows, the logits times "
+        f"{beam['scale']:.3f} to a standard deviation of 4 at the first "
+        f"step): {beam['rows_equal']} of {beam['rows']} rows' ids equal, "
+        f"{beam['rows_parted_at_ties']} parting at a near tie, "
+        f"{beam['tie_steps']} near ties in {beam['steps_held']} (row, step) "
+        f"pairs held, the candidates' totals {beam['score_err']:.2e} of "
+        f"their size apart")
+    return res
+
+
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS = 10000, 650, 2   # Zaremba et al. medium
+PTB_DROPOUT, PTB_INIT = 0.5, 0.05
+PTB_B, PTB_T = 20, 35                # batch 20 x 35 unrolled steps
+PTB_LR, PTB_CLIP = 1.0, 5.0
+PTB_WARMUP, PTB_STEPS = 3, 10
+PTB_ELEMENTS = 19_780_400            # the SGD table's fp32 elements
+PTB_LOSS_RTOL = 1e-5                 # the first loss, card against CPU
+# every parameter's gradient, card against CPU (norm_rel): cuDNN's
+# recurrence and the CPU's sum in other orders through 35 steps and two
+# layers, 0.2-1.0e-6 of each gradient (PR 23); a wrong gate or a step
+# left out moves a gradient by its own size
+PTB_GRAD_RTOL = 1e-5
+PTB_ROUTE_RUNS = 20                  # timed runs of each recurrence route
+# jit.TrainStep over a small LM on the card against the CPU: every
+# parameter's change over 3 steps (norm_rel). The LSTM's weights change
+# by ~1e-4 of their size, so the float32 rounding of the updated weights
+# is ~1e-4 of a change; a parameter the update misses changes by 0,
+# 1.0 from the CPU's
+PTB_TS_VOCAB, PTB_TS_HIDDEN, PTB_TS_STEPS = 200, 64, 3
+PTB_TS_RTOL = 1e-3
+PTB_BEAM, PTB_CONTEXTS, PTB_DECODE_STEPS = 10, 20, 35
+PTB_EOS = 0
+PTB_KINDS = (
+    ("recurrence (cuDNN)", ("cudnn_rnn", "_thnn_fused_lstm",
+                            "lstm_cell")),
+    ("GEMMs (output layer)", GEMM_OPS),
+    ("softmax cross entropy", ("log_softmax", "nll_loss",
+                               "_softmax_backward")),
+    ("embedding", ("embedding",)),
+    ("dropout", ("rand", "where", "div", "lt")),
+    ("fused_update", ()))
+
+
+def _ptb_model(paddle):
+    from torch_rnn_checks import ptb_lm
+
+    return ptb_lm(paddle, PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS, PTB_DROPOUT,
+                  PTB_INIT)
+
+
+class _PlainPTB(torch.nn.Module):
+    """The same network in plain PyTorch (``torch.nn.LSTM``), the port's
+    weights copied in (a Linear's [in, out] weight transposed)."""
+
+    def __init__(self, model, dev):
+        super().__init__()
+        self.embedding = torch.nn.Embedding(PTB_VOCAB, PTB_HIDDEN)
+        self.drop = torch.nn.Dropout(PTB_DROPOUT)
+        self.lstm = torch.nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, PTB_LAYERS,
+                                  batch_first=True)
+        self.fc = torch.nn.Linear(PTB_HIDDEN, PTB_VOCAB)
+        self.to(dev)
+        src = dict(model.state_dict())
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                v = src[name]._value
+                p.copy_(v.t() if name == "fc.weight" else v)
+
+    def forward(self, ids, states=None):
+        y, states = self.lstm(self.drop(self.embedding(ids)), states)
+        return self.fc(self.drop(y)), states
+
+
+def _ptb_batches(paddle, seed, n):
+    rs = np.random.RandomState(seed)
+    return paddle.to_tensor(rs.randint(0, PTB_VOCAB, (n, PTB_B, PTB_T + 1)))
+
+
+def _ptb_parity(paddle, model, ids, dev):
+    """One step's loss and gradients on the card and on the CPU from the
+    same weights, dropout off (the two generators draw other masks)."""
+    from paddle_tpu_torch.framework.modules import torch_named_parameters
+
+    cpu_state = {n: t._value.detach().cpu()
+                 for n, t in model.state_dict().items()}
+    paddle.set_device("cpu")
+    cpu = _ptb_model(paddle)
+    cpu.set_state_dict(cpu_state)
+    paddle.set_device("gpu")
+    got = {}
+    for m, x in ((model, ids), (cpu, ids.cpu())):
+        m.eval()
+        logits, _ = m(x[:, :-1])
+        loss = paddle.nn.functional.cross_entropy(
+            logits.reshape([-1, PTB_VOCAB]), x[:, 1:].reshape([-1]))
+        loss.backward()
+        got[m is cpu] = (float(loss), {n: p.grad.detach().cpu().clone()
+                                        for n, p in torch_named_parameters(m)})
+        for _, p in torch_named_parameters(m):
+            p.grad = None
+        m.train()
+    (lc, gc), (ld, gd) = got[True], got[False]
+    grads = {n: _norm_rel(gd[n].numpy(), gc[n].numpy()) for n in gc}
+    return {"loss": abs(ld - lc) / abs(lc), "grads": grads,
+            "loss_card": ld, "loss_cpu": lc, "cpu_model": cpu}
+
+
+def phase_ptb_lm(dev, seed):
+    """Phase 40: the PTB LSTM language model, medium, trained as a Paddle
+    user writes it at full width and depth (the module docstring)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.framework import device as port_device
+    from paddle_tpu_torch.framework.precision import matmul_precision
+
+    prev = list(port_device._CURRENT)
+    calls = {"update_math": 0}
+    real_math = popt.update_math
+
+    def counted_math(p, *a, **k):     # the plain update of a card tensor
+        calls["update_math"] += int(p.is_cuda)
+        return real_math(p, *a, **k)
+
+    try:
+        paddle.set_device("gpu")
+        paddle.seed(0)
+        model = _ptb_model(paddle)
+        n_params = sum(p._value.numel() for p in model.parameters())
+        if n_params != PTB_ELEMENTS or not all(
+                p._value.is_cuda for p in model.parameters()):
+            raise AssertionError(f"the PTB LM holds {n_params} elements, "
+                                 f"expected {PTB_ELEMENTS} on the card")
+        opt = paddle.optimizer.SGD(
+            learning_rate=PTB_LR, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(PTB_CLIP))
+        loss_fn = paddle.nn.CrossEntropyLoss()
+        ids = _ptb_batches(paddle, seed, PTB_WARMUP + PTB_STEPS)
+        parity = _ptb_parity(paddle, model, ids[0], dev)
+        carry = {"states": None, "i": 0}
+
+        def step():
+            x = ids[carry["i"] % ids.shape[0]]
+            carry["i"] += 1
+            logits, states = model(x[:, :-1], carry["states"])
+            loss = loss_fn(logits.reshape([-1, PTB_VOCAB]),
+                           x[:, 1:].reshape([-1]))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            carry["states"] = tuple(s.detach() for s in states)
+            return loss
+
+        model.train()
+        losses = [float(step()) for _ in range(PTB_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        popt.update_math = counted_math
+        reset_port_launch_counts()
+        tables, step_ms = set(), []
+        for _ in range(PTB_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step()))       # waits for it
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            tables.add(id(opt._table))
+        counts = port_launch_counts()
+        popt.update_math = real_math
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if calls["update_math"]:
+            raise AssertionError(f"update_math ran {calls['update_math']} "
+                                 f"times on the card")
+        want = {k: PTB_STEPS if k == "fused_update" else 0 for k in counts}
+        if counts != want:
+            raise AssertionError(f"PTB LM launch counts {counts}, expected "
+                                 f"{want}")
+        if len(tables) != 1:
+            raise AssertionError(f"the SGD table was built {len(tables)} "
+                                 f"times in {PTB_STEPS} steps")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"the PTB LM's losses {losses}")
+        med = statistics.median(step_ms)
+        prof = kind_profile(step, PTB_KINDS, "ptb_lm",
+                            "the rest (elementwise, the clip's norms)")
+
+        # the dropout masks repeat after paddle.seed, and differ after
+        # another seed
+        with paddle.no_grad():
+            draws = []
+            for s_ in (7, 7, 8):
+                paddle.seed(s_)
+                logits, _ = model(ids[0][:, :-1])
+                draws.append(float(logits.sum()))
+        if not (draws[0] == draws[1] != draws[2]):
+            raise AssertionError(f"dropout after paddle.seed: {draws}")
+
+        # the same network in plain PyTorch, from the same weights
+        net = _PlainPTB(model, dev)
+        topt = torch.optim.SGD(net.parameters(), lr=PTB_LR)
+        plain = {"states": None, "i": 0}
+        tx = ids._value.long()
+
+        def plain_step():       # the port's batches, in the port's order
+            x = tx[plain["i"] % tx.shape[0]]
+            plain["i"] += 1
+            logits, states = net(x[:, :-1], plain["states"])
+            loss = torch.nn.functional.cross_entropy(
+                logits.reshape(-1, PTB_VOCAB), x[:, 1:].reshape(-1))
+            loss.backward()
+            torch.nn.utils.clip_grad_norm_(net.parameters(), PTB_CLIP)
+            topt.step()
+            topt.zero_grad()
+            plain["states"] = tuple(s.detach() for s in states)
+
+        with matmul_precision("float32"):
+            for _ in range(PTB_WARMUP):
+                plain_step()
+            plain_ms = _step_ms(plain_step, PTB_STEPS)
+        carry["i"] = PTB_WARMUP           # the same batches again
+        port_again = _step_ms(step, PTB_STEPS)
+        del net, topt
+        routes = _ptb_routes(model, ids[0])
+        trainstep = _ptb_trainstep(paddle, seed)
+        x = ids[0]
+        logits, _ = model(x[:, :-1])      # gradients in place for the row
+        loss_fn(logits.reshape([-1, PTB_VOCAB]),
+                x[:, 1:].reshape([-1])).backward()
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                            device=dev)
+
+        def sgd(ps, gs):
+            torch._fused_sgd_(ps, gs, [], weight_decay=0.0, momentum=0.0,
+                              lr=PTB_LR, dampening=0.0, nesterov=False,
+                              maximize=False, is_first_step=False)
+
+        # p, g read, p written; 2 operations an element
+        with torch.no_grad():
+            row = _eager_update_row(opt, flush, sgd, "torch._fused_sgd_, "
+                                    "lr 1.0, no momentum", 12, 2,
+                                    "the PTB LM's table")
+        del flush
+        opt.clear_grad()
+        if row["elements"] != PTB_ELEMENTS:
+            raise AssertionError(f"row 6's table holds {row['elements']} "
+                                 f"elements")
+    finally:
+        popt.update_math = real_math
+        port_device._CURRENT[:] = prev
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    words = PTB_B * PTB_T / (med / 1e3)
+    worst_grad = max(parity["grads"].items(), key=lambda kv: kv[1])
+    log(f"ptb_lm ({smi.stdout.strip()}): Zaremba et al. medium, "
+        f"Embedding({PTB_VOCAB}, {PTB_HIDDEN}), Dropout({PTB_DROPOUT}), "
+        f"LSTM({PTB_HIDDEN}, {PTB_HIDDEN}, num_layers={PTB_LAYERS}), "
+        f"Dropout, Linear({PTB_HIDDEN}, {PTB_VOCAB}), {n_params} parameters"
+        f" drawn from Uniform(-{PTB_INIT}, {PTB_INIT}) after paddle.seed(0);"
+        f" batch {PTB_B} x {PTB_T} fp32, the states carried and detached; "
+        f"SGD({PTB_LR}, ClipGradByGlobalNorm({PTB_CLIP})), "
+        f"nn.CrossEntropyLoss(); {PTB_WARMUP} + {PTB_STEPS} steps: losses "
+        f"{[round(v, 5) for v in losses]}; step {med:.2f} ms (median, host "
+        f"wall), then {port_again:.2f}; {words:.0f} words/s; peak "
+        f"{peak:.2f} GiB; launch counts {counts} (one fused_update a step, "
+        f"update_math 0 calls on the card), {len(tables)} table(s) built; "
+        f"plain PyTorch (torch.nn.LSTM, torch.optim.SGD, clip_grad_norm_, "
+        f"TF32 off; batches {PTB_WARMUP}-{PTB_WARMUP + PTB_STEPS - 1} as "
+        f"the port's, {PTB_STEPS} steps, median) {plain_ms:.2f} ms: the "
+        f"port at {med / plain_ms:.2f}x, its second reading over the same "
+        f"batches at {port_again / plain_ms:.2f}x; dropout repeats after "
+        f"paddle.seed(7), differs after 8")
+    log(f"ptb_lm recurrence ({smi.stdout.strip()}): the LM's LSTM forward "
+        f"and backward at [{PTB_B}, {PTB_T}, {PTB_HIDDEN}] fp32, device "
+        f"time, median of {PTB_ROUTE_RUNS}: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in routes["ms"].items())
+        + f"; the whole-length route against pack_padded_sequence: "
+        f"outputs, states and gradients {routes['agree']:.2e} apart "
+        f"(norm_rel); the LSTM weights in {routes['buffers']} buffer "
+        f"after the steps above, cuDNN weight-layout warnings in the LM's "
+        f"forwards: {routes['layout_warnings']}")
+    log(f"ptb_lm under jit.TrainStep ({smi.stdout.strip()}): vocab "
+        f"{PTB_TS_VOCAB}, hidden {PTB_TS_HIDDEN}, {PTB_LAYERS} layers, "
+        f"{PTB_TS_STEPS} steps of SGD({PTB_LR}, ClipGradByGlobalNorm("
+        f"{PTB_CLIP})) on the card and on the CPU from the same weights: "
+        f"losses {trainstep['losses']}; every parameter's change, card "
+        f"against CPU (norm_rel), worst {trainstep['worst'][1]:.2e} "
+        f"({trainstep['worst'][0]}), limit {PTB_TS_RTOL}; the LSTM "
+        f"weights' smallest change {trainstep['least_move']:.2e} of their "
+        f"norm; cuDNN copied the re-laid-out weights "
+        f"({trainstep['layout_warnings']} layout warning(s))")
+    log(f"fused_update, {row['shape']}, one launch, device time: as "
+        f"Optimizer.step() calls it {row['step_ms']:.4f} ms "
+        f"({row['step_span_ms']:.4f} from an idle card), the kernel alone "
+        f"{row['ms']:.4f} ({row['span_ms']:.4f}), torch._fused_sgd_ "
+        f"{row['library_ms']:.4f} ({row['library_span_ms']:.4f}); plain "
+        f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.5f} "
+        f"{row['bound_by']}, the kernel at "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of it; max_abs_err "
+        f"{row['max_abs_err']}")
+    log(f"ptb_lm card against CPU (one step from the same weights, dropout "
+        f"off): loss {parity['loss_card']:.7f} against "
+        f"{parity['loss_cpu']:.7f} (rel {parity['loss']:.2e}, limit "
+        f"{PTB_LOSS_RTOL}); gradients by norm_rel, worst "
+        f"{worst_grad[1]:.2e} ({worst_grad[0]}), limit {PTB_GRAD_RTOL}: "
+        + ", ".join(f"{n} {v:.2e}" for n, v in parity["grads"].items()))
+    if not (parity["loss"] <= PTB_LOSS_RTOL
+            and worst_grad[1] <= PTB_GRAD_RTOL):
+        raise AssertionError(f"the PTB LM card against CPU: loss "
+                             f"{parity['loss']:.2e}, {worst_grad}")
+    return {"counts": counts, "row": row, "step_ms": med,
+            "port_again_ms": port_again, "routes": routes,
+            "trainstep": trainstep,
+            "words_per_s": words, "peak_gib": peak, "plain_ms": plain_ms,
+            "profile": prof, "model": model, "cpu_model":
+            parity["cpu_model"], "ids": ids}
+
+
+def _ptb_routes(model, ids):
+    """The LM's LSTM stack forward and backward at its training shape by
+    three routes of the fused recurrence, device time by CUDA events:
+    the port's (the whole length, ``batch_sizes`` all B), the packed
+    route that ``sequence_length`` takes (``pack_padded_sequence``, all
+    lengths T) and the unpacked one; the first two held together. Also
+    counts cuDNN's weight-layout warnings over two of the LM's forwards
+    (none while the weights keep the layout they were built with)."""
+    import warnings
+
+    from paddle_tpu_torch.framework.precision import (matmul_precision,
+                                                      settings_for)
+    from paddle_tpu_torch.nn.layer import rnn as rnn_mod
+
+    lstm = model.lstm
+    ws = lstm._weights()
+    with torch.no_grad():
+        x0 = model.embedding(ids[:, :-1])._value.detach()
+    b, t = x0.shape[:2]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    states = [torch.randn(PTB_LAYERS, b, PTB_HIDDEN, generator=gen).to(
+        x0.device) for _ in range(2)]
+    cots = [torch.randn(*shape, generator=gen).to(x0.device) for shape in
+            ((b, t, PTB_HIDDEN), (PTB_LAYERS, b, PTB_HIDDEN),
+             (PTB_LAYERS, b, PTB_HIDDEN))]
+    lens = torch.full((b,), t, dtype=torch.int64)
+    routes = {
+        "whole length (the port)": lambda x, hx: rnn_mod._full_call(
+            "LSTM", x, hx, ws, PTB_LAYERS, False, False, True),
+        "pack_padded_sequence": lambda x, hx: rnn_mod._packed_call(
+            "LSTM", x, hx, ws, lens, PTB_LAYERS, False, False, True),
+        "unpacked": lambda x, hx: torch._VF.lstm(
+            x, tuple(hx), ws, True, PTB_LAYERS, 0.0, True, False, True)}
+    ms, got = {}, {}
+    with matmul_precision(settings_for(torch.float32)):
+        for name, fn in routes.items():
+            def run():
+                x = x0.clone().requires_grad_()
+                hx = [s.clone().requires_grad_() for s in states]
+                outs = fn(x, hx)
+                return outs, torch.autograd.grad(outs, [x, *hx, *ws],
+                                                 cots)
+            for _ in range(3):
+                run()
+            times = []
+            for _ in range(PTB_ROUTE_RUNS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                res = run()
+                ev[1].record()
+                torch.cuda.synchronize()
+                times.append(ev[0].elapsed_time(ev[1]))
+            ms[name] = statistics.median(times)
+            got[name] = [v.detach().cpu().numpy() for v in (*res[0],
+                                                            *res[1])]
+    a, b_ = got["whole length (the port)"], got["pack_padded_sequence"]
+    agree = max(_norm_rel(u, v) for u, v in zip(a, b_))
+    if agree > PTB_GRAD_RTOL:
+        raise AssertionError(f"the whole-length route and the packed one "
+                             f"differ by {agree:.2e}")
+    with warnings.catch_warnings(record=True) as seen, torch.no_grad():
+        warnings.simplefilter("always")
+        for _ in range(2):
+            model(ids[:, :-1])
+    layout = sum("contiguous chunk" in str(w.message) for w in seen)
+    buffers = len({w.untyped_storage().data_ptr() for w in ws})
+    if layout or buffers != 1:
+        raise AssertionError(f"the LM's LSTM weights left cuDNN's layout: "
+                             f"{layout} warning(s), {buffers} buffers")
+    return {"ms": ms, "agree": agree, "layout_warnings": layout,
+            "buffers": buffers}
+
+
+def _ptb_trainstep(paddle, seed):
+    """A small LM of phase 40's network trained by ``jit.TrainStep`` on the
+    card and on the CPU from the same weights: ``FusedFlatUpdater``
+    re-lays the parameters out as views of its buckets, and every
+    parameter, the LSTM's too, must change as the CPU's does."""
+    import warnings
+
+    from paddle_tpu_torch.framework.modules import torch_named_parameters
+    from paddle_tpu_torch.jit import TrainStep
+    from torch_rnn_checks import ptb_lm
+
+    def build():
+        return ptb_lm(paddle, PTB_TS_VOCAB, PTB_TS_HIDDEN, PTB_LAYERS, 0.0,
+                      PTB_INIT)
+
+    def loss_fn(logits, states, labels):
+        return paddle.nn.functional.cross_entropy(
+            logits.reshape([-1, PTB_TS_VOCAB]), labels.reshape([-1]))
+
+    paddle.set_device("gpu")
+    paddle.seed(1)
+    card = build()
+    state = {n: t._value.detach().cpu().clone()
+             for n, t in card.state_dict().items()}
+    paddle.set_device("cpu")
+    cpu = build()
+    cpu.set_state_dict(state)
+    paddle.set_device("gpu")
+    ids = np.random.RandomState(seed).randint(
+        0, PTB_TS_VOCAB, (PTB_TS_STEPS, 4, 13))
+    moved, losses, layout = {}, {}, 0
+    for m in (card, cpu):
+        before = {n: p.detach().cpu().clone()
+                  for n, p in torch_named_parameters(m)}
+        opt = paddle.optimizer.SGD(
+            learning_rate=PTB_LR, parameters=m.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(PTB_CLIP))
+        step = TrainStep(m, loss_fn, opt)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            losses[m is cpu] = [round(float(step(x[:, :-1], x[:, 1:])), 6)
+                                for x in ids]
+        if m is card:
+            layout = sum("contiguous chunk" in str(w.message) for w in seen)
+        moved[m is cpu] = {n: (p.detach().cpu() - before[n]).numpy()
+                           for n, p in torch_named_parameters(m)}
+    rel = {n: _norm_rel(moved[False][n], v) for n, v in moved[True].items()}
+    after = dict(torch_named_parameters(card))
+    least = min(float(np.linalg.norm(v) / np.linalg.norm(
+        after[n].detach().cpu().numpy()))
+        for n, v in moved[False].items() if n.startswith("lstm."))
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    if worst[1] > PTB_TS_RTOL or not least > 0:
+        raise AssertionError(f"jit.TrainStep on the LM: the card's "
+                             f"parameters moved otherwise than the CPU's "
+                             f"({worst}), the LSTM's least change {least}")
+    return {"losses": [losses[False], losses[True]], "worst": worst,
+            "least_move": least, "layout_warnings": layout}
+
+
+def _ptb_cell(model):
+    """One step of the model's LSTM layers as a decoder's cell, its
+    states ``(h, c)`` batch-first ``[N, layers, hidden]``."""
+    import paddle_tpu_torch as paddle
+
+    def cell(emb, states):
+        h, c = (paddle.transpose(s, [1, 0, 2]) for s in states)
+        y, (h, c) = model.lstm(paddle.unsqueeze(emb, 1), (h, c))
+        return y[:, 0], tuple(paddle.transpose(s, [1, 0, 2])
+                              for s in (h, c))
+
+    return cell
+
+
+def phase_ptb_beam(dev, trained):
+    """Phase 41: beam search on phase 40's trained model, card against
+    CPU (the module docstring)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as port_device
+    from torch_rnn_checks import (LOGIT_STD, SCORE_RTOL, beam_vs_cpu,
+                                  logit_scale)
+
+    prev = list(port_device._CURRENT)
+    model, cpu = trained["model"], trained["cpu_model"]
+    ctx = trained["ids"]._value[0, :PTB_CONTEXTS, :PTB_T]
+    cpu.set_state_dict({n: t._value.detach().cpu()
+                        for n, t in model.state_dict().items()})
+
+    def init(d):
+        m = model if d.type == "cuda" else cpu
+        with paddle.no_grad():
+            _, (h, c) = m(paddle.to_tensor(ctx, place=d))
+        return tuple(paddle.transpose(s, [1, 0, 2]) for s in (h, c))
+
+    try:
+        paddle.set_device("gpu")
+        for m in (model, cpu):
+            m.eval()
+        with paddle.no_grad():
+            logits, _ = cpu(paddle.to_tensor(ctx, place=torch.device("cpu")))
+        scale = logit_scale(logits[:, -1], LOGIT_STD)
+        t0 = time.perf_counter()
+        res = beam_vs_cpu(dev, cpu, model, _ptb_cell, lambda m: m.embedding,
+                          lambda m: m.fc, init, PTB_BEAM, PTB_DECODE_STEPS,
+                          start_token=PTB_EOS, end_token=PTB_EOS, scale=scale)
+        secs = time.perf_counter() - t0
+    finally:
+        port_device._CURRENT[:] = prev
+    split = np.asarray(res["split_ms"])
+    total = split.sum(1)
+    med = float(np.median(total))
+    share = split.sum(0) / total.sum()
+    log(f"ptb beam search ({PTB_CONTEXTS} contexts of {PTB_T} tokens, "
+        f"BeamSearchDecoder(beam_size={PTB_BEAM}) over the model's "
+        f"{PTB_LAYERS} LSTM layers a step, dynamic_decode(max_step_num="
+        f"{PTB_DECODE_STEPS}), the logits times {scale:.3f} to a standard "
+        f"deviation of {LOGIT_STD} at the contexts' ends, card and CPU in "
+        f"{secs:.1f} s): "
+        f"{res['steps']} steps, {med:.3f} ms a decode step on the card "
+        f"(median, host wall; the device's work {100 * share[0]:.1f}%, "
+        f"the [{PTB_CONTEXTS * PTB_BEAM}, {PTB_VOCAB}] logits' copy to the "
+        f"host {100 * share[1]:.1f}%, the host's bookkeeping "
+        f"{100 * share[2]:.1f}%); finalized ids card against CPU: "
+        f"{res['rows_equal']} of {res['rows']} rows equal, "
+        f"{res['rows_parted_at_ties']} rows parting at a near tie (two of "
+        f"the CPU's best beam + 1 totals within the spread of the step's "
+        f"card-CPU differences; the exception), {res['tie_steps']} near "
+        f"ties in the {res['steps_held']} (row, step) pairs held of "
+        f"{res['rows'] * res['steps']}, lengths equal: "
+        f"{res['lengths_equal']}; the candidates' totals until each row "
+        f"parts, card against CPU, {res['score_err']:.2e} of max(1, |best|)"
+        f" (limit {SCORE_RTOL})")
+    return {**res, "decode_step_ms": med, "share": share.tolist()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6022,6 +6636,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mobilenet = phase_mobilenet(dev, args.seed)
     log(f"phase 38 (mobilenet_v2): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # the recurrent nn: every new name, then the PTB LSTM language model
+    # trained at full width and beam search on it
+    t0 = time.perf_counter()
+    phase_rnn_nn(dev)
+    log(f"phase 39 (rnn nn): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ptb = phase_ptb_lm(dev, args.seed)
+    log(f"phase 40 (ptb lm): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_ptb_beam(dev, ptb)
+    log(f"phase 41 (ptb beam search): {time.perf_counter() - t0:.1f} s")
+    ptb_run = {"counts": ptb["counts"], "row": ptb["row"]}
+    del ptb
+    torch.cuda.empty_cache()
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
@@ -6032,7 +6662,7 @@ def main(argv=None) -> int:
                                   bf16_counts, dp16, ce_rows, ce_counts,
                                   bert, {"counts": counts29, "row": row_r},
                                   {"counts": counts31, "row": row_wd},
-                                  lenet, flash_entry, mobilenet)))
+                                  lenet, flash_entry, mobilenet, ptb_run)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

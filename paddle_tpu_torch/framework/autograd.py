@@ -130,7 +130,11 @@ def eager_fn(fn):
     """``fn``, a function of ``torch.Tensor``s that runs its own cast
     points (the ``nn.functional`` ops), taking eager ``Tensor``s too:
     given one anywhere in its arguments it gets their payloads and its
-    result is wrapped, as ``call_op``'s; given none it is ``fn``."""
+    result is wrapped, as ``call_op``'s; given none it is ``fn``. A
+    function wrapped already is returned as it is."""
+    if getattr(fn, "_eager", False):
+        return fn
+
     @functools.wraps(fn)
     def run(*args, **kwargs):
         if not any(isinstance(a, _Tensor) for a in args) and not any(
@@ -143,6 +147,7 @@ def eager_fn(fn):
                   if isinstance(a, torch.Tensor)]
         return wrap_outputs(_linked(out, inputs), inputs)
 
+    run._eager = True
     return run
 
 

@@ -9,9 +9,9 @@ and not used, as there). The in-place forms (``relu_``, ``softmax_``,
 ``elu_``, ``tanh_``) rebind an eager ``Tensor`` to the result, as the
 reference's do, or write a ``torch.Tensor`` in place.
 
-Not ported yet: the RNN family's sequence ops, the fluid-era
-functionals and four losses (ROADMAP Queue A 4c-2), the transposed
-convolutions (Queue A 14, they raise).
+The sequence ops live in ``sequence.py`` (the ``sequence`` submodule,
+wrapped there), the fluid-era functionals in ``common.py``. Not ported
+yet: the transposed convolutions (ROADMAP Queue A 14, they raise).
 """
 from .activation import (celu, elu, gelu, glu, gumbel_softmax, hardshrink,
                          hardsigmoid, hardswish, hardtanh, leaky_relu,
@@ -20,20 +20,27 @@ from .activation import (celu, elu, gelu, glu, gumbel_softmax, hardshrink,
                          softshrink, softsign, swish, tanh, tanhshrink,
                          thresholded_relu)
 from .attention import flash_route, scaled_dot_product_attention
-from .common import (affine_grid, alpha_dropout, bilinear, channel_shuffle,
-                     cosine_similarity, diag_embed, dropout, dropout2d,
-                     dropout3d, embedding, fold, grid_sample, interpolate,
+from . import sequence
+from .common import (affine_channel, affine_grid, alpha_dropout, batch_fc,
+                     bilateral_slice, bilinear, channel_shuffle, conv_shift,
+                     correlation, cosine_similarity, cvm, diag_embed,
+                     dropout, dropout2d, dropout3d, embedding,
+                     filter_by_instag, fold, fsp_matrix, gather_tree,
+                     grid_sample, im2sequence, inplace_abn, interpolate,
                      label_smooth, linear, max_unpool1d, max_unpool2d,
                      max_unpool3d, normalize, one_hot, pad,
                      pairwise_distance, pixel_shuffle, pixel_unshuffle,
-                     unfold, upsample, zeropad2d)
+                     rank_attention, sparse_attention, temporal_shift,
+                     tree_conv, unfold, upsample, zeropad2d)
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
                    conv3d, conv3d_transpose)
 from .flash_attention import flash_attention, flash_attn_unpadded
 from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
-                   bpr_loss, cosine_embedding_loss, cross_entropy, ctc_loss,
-                   dice_loss, gaussian_nll_loss, hinge_embedding_loss, kl_div,
-                   l1_loss, log_loss, margin_ranking_loss, mse_loss,
+                   bpr_loss, center_loss, class_center_sample,
+                   cosine_embedding_loss, cross_entropy, ctc_loss,
+                   dice_loss, gaussian_nll_loss, hinge_embedding_loss,
+                   hsigmoid_loss, kl_div, l1_loss, log_loss,
+                   margin_cross_entropy, margin_ranking_loss, mse_loss,
                    multi_margin_loss, nll_loss, npair_loss, poisson_nll_loss,
                    rank_loss, sigmoid_focal_loss, smooth_l1_loss,
                    soft_margin_loss, softmax_with_cross_entropy,
@@ -45,6 +52,10 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
                       avg_pool2d, avg_pool3d, max_pool1d, max_pool2d,
                       max_pool3d)
+from .sequence import (sequence_concat, sequence_expand, sequence_first_step,
+                       sequence_last_step, sequence_mask, sequence_pad,
+                       sequence_pool, sequence_reverse, sequence_slice,
+                       sequence_softmax, sequence_unpad)
 
 _IN_PLACE = ["elu_", "relu_", "softmax_", "tanh_"]
 

@@ -48,10 +48,25 @@ computes), so any rank and width works.
 
 ``embedding``'s ``padding_idx`` and ``sparse`` are not ported
 (ROADMAP Queue A, "Transformer family and nn options").
+
+**The fluid-era tail** (``temporal_shift``, ``gather_tree``,
+``affine_channel``, ``cvm``, ``im2sequence``, ``conv_shift``,
+``fsp_matrix``, ``batch_fc``, ``correlation``, ``filter_by_instag``,
+``inplace_abn``, ``bilateral_slice``, ``tree_conv``, ``rank_attention``
+and ``sparse_attention``, the last from the reference's
+``nn/functional/__init__.py``) is written from the reference's formulas:
+``correlation``'s rolled maps and "SAME" window sums, ``bilateral_slice``'s
+edge-clamped trilinear taps in ``map_coordinates``' order,
+``sparse_attention``'s CSR gather and segment softmax (a scatter max
+and sum; not a flash kernel). ``filter_by_instag`` and ``tree_conv``
+decide sizes on the host (the kept rows; the patches' position weights,
+``[N, N, 3]`` a sample), as the reference does; ``gather_tree`` walks
+the steps on the device.
 """
 from __future__ import annotations
 
 import functools
+import itertools
 
 import numpy as np
 import torch
@@ -68,7 +83,11 @@ __all__ = ["linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "unfold", "fold", "bilinear", "pixel_shuffle", "pixel_unshuffle",
            "channel_shuffle", "affine_grid", "grid_sample", "max_unpool1d",
            "max_unpool2d", "max_unpool3d", "pairwise_distance",
-           "diag_embed", "OPTIONS_ITEM"]
+           "diag_embed", "temporal_shift", "gather_tree", "affine_channel",
+           "cvm", "im2sequence", "conv_shift", "fsp_matrix", "batch_fc",
+           "correlation", "filter_by_instag", "inplace_abn",
+           "bilateral_slice", "tree_conv", "rank_attention",
+           "sparse_attention", "OPTIONS_ITEM"]
 
 OPTIONS_ITEM = "ROADMAP Queue A, 'Transformer family and nn options'"
 
@@ -593,3 +612,394 @@ def diag_embed(input, offset=0, dim1=-2, dim2=-1, name=None):
     rest = iter(range(nd - 2))
     return out.permute([src[i] if i in src else next(rest)
                         for i in range(nd)])
+
+
+# ------------------------------------------------- the fluid-era tail
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW",
+                   name=None):
+    """TSM's shift of ``[N T, C, H, W]``: the first ``C * shift_ratio``
+    channels move one segment back in time, the next as many one forward,
+    zeros where nothing moves in (``data_format`` is taken and not
+    used)."""
+    (v,) = cast("temporal_shift", x)
+    nt, c, h, w = v.shape
+    v = v.reshape(nt // seg_num, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    back = torch.cat([v[:, 1:, :fold], torch.zeros_like(v[:, :1, :fold])],
+                     1)
+    fwd = torch.cat([torch.zeros_like(v[:, :1, fold:2 * fold]),
+                     v[:, :-1, fold:2 * fold]], 1)
+    return torch.cat([back, fwd, v[:, :, 2 * fold:]], 2).reshape(nt, c, h, w)
+
+
+def gather_tree(ids, parents, name=None):
+    """Whole beam-search sequences from each step's ids and parent beams
+    ``[T, B, W]``: walking ``T - 1`` down to 0 from the beams' own order,
+    step ``t`` takes the id of the beam it holds and moves to its
+    parent."""
+    ids, parents = cast("gather_tree", ids, parents)
+    T, B, W = ids.shape
+    rows = torch.arange(B, device=ids.device)[:, None]
+    beams = torch.arange(W, device=ids.device).expand(B, W)
+    outs = [None] * T
+    for t in range(T - 1, -1, -1):
+        outs[t] = ids[t][rows, beams]
+        beams = parents[t][rows, beams].to(torch.int64)
+    return torch.stack(outs)
+
+
+def affine_channel(x, scale=None, bias=None, data_layout="NCHW", name=None):
+    """``scale * x + bias`` a channel (axis 1 for "NCHW", else the
+    last): frozen batch norm in detection models."""
+    v, s, b = cast("affine_channel", x, scale, bias)
+    shape = [1] * v.dim()
+    c_axis = 1 if data_layout == "NCHW" else v.dim() - 1
+    shape[c_axis] = v.shape[c_axis]
+    return v * s.reshape(shape) + b.reshape(shape)
+
+
+def cvm(input, cvm_in, use_cvm=True, name=None):
+    """CTR features whose first two columns are (show, click): with
+    ``use_cvm`` replaced by ``log(show + 1)`` and ``log(click + 1) -
+    log(show + 1)`` of ``cvm_in``, else dropped."""
+    v, c = cast("cvm", input, cvm_in)
+    if not use_cvm:
+        return link(v[:, 2:], c)
+    show = torch.log(c[:, 0:1] + 1.0)
+    click = torch.log(c[:, 1:2] + 1.0) - torch.log(c[:, 0:1] + 1.0)
+    return torch.cat([show, click, v[:, 2:]], 1)
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, out_stride=1,
+                name=None):
+    """Image patches as sequence rows: ``[N, C, H, W]`` -> ``[N out_h
+    out_w, C kh kw]``, rows in ``(n, oh, ow)`` order, each patch in ``(c,
+    kh, kw)`` order; ``padding`` as (up, down, left, right), or two
+    values for both sides of each axis. ``out_stride`` other than 1
+    raises, as in the reference."""
+    if out_stride != 1:
+        raise ValueError(
+            "im2sequence: out_stride (real-image-size mode) is not "
+            "supported; pass pre-scaled inputs")
+    ks = _tuple(filter_size, 2)
+    st = _tuple(stride, 2)
+    if isinstance(padding, (list, tuple)) and len(padding) == 2:
+        padding = (padding[0], padding[0], padding[1], padding[1])
+    pd = _tuple(padding, 4)
+    (v,) = cast("im2sequence", input)
+    n, c = v.shape[:2]
+    vp = F.pad(v, [pd[2], pd[3], pd[0], pd[1]])
+    cols = F.unfold(vp, ks, stride=st)               # [N, C kh kw, L]
+    return cols.transpose(1, 2).reshape(-1, c * ks[0] * ks[1])
+
+
+def conv_shift(x, y, name=None):
+    """Circular correlation of ``x [B, N]`` with ``y [B, M]`` (M odd):
+    ``out[b, i] = sum_j x[b, (i + j - (M - 1) / 2) mod N] y[b, j]``."""
+    xv, yv = cast("conv_shift", x, y)
+    N, M = xv.shape[1], yv.shape[1]
+    idx = (torch.arange(N, device=xv.device)[:, None]
+           + torch.arange(M, device=xv.device)[None, :] - (M - 1) // 2) % N
+    return torch.einsum("bnm,bm->bn", xv[:, idx], yv)
+
+
+def fsp_matrix(x, y, name=None):
+    """The FSP matrix of distillation: ``[B, C1, H, W] x [B, C2, H, W]``
+    -> ``[B, C1, C2]``, the mean over ``H W`` of the outer products."""
+    a, b = cast("fsp_matrix", x, y)
+    return torch.einsum("bchw,bdhw->bcd", a, b) / (a.shape[2] * a.shape[3])
+
+
+def batch_fc(input, w, bias=None, name=None):
+    """A fully connected layer a slot: ``[S, B, IN] x [S, IN, OUT] (+
+    [S, OUT])`` -> ``[S, B, OUT]``."""
+    if bias is None:
+        v, wv = cast("batch_fc", input, w)
+        return torch.einsum("sbi,sio->sbo", v, wv)
+    v, wv, b = cast("batch_fc", input, w, bias)
+    return torch.einsum("sbi,sio->sbo", v, wv) + b[:, None, :]
+
+
+def _window_sum(v: torch.Tensor, k: int) -> torch.Tensor:
+    """The sum over a ``k x k`` window (odd ``k``) around each position of
+    the last two axes, zeros outside ("SAME")."""
+    r = k // 2
+    vp = F.pad(v, [r, r, r, r])
+    h, w = v.shape[-2:]
+    out = None
+    for dy in range(k):
+        for dx in range(k):
+            term = vp[..., dy:dy + h, dx:dx + w]
+            out = term if out is None else out + term
+    return out
+
+
+def correlation(x1, x2, pad_size, kernel_size, max_displacement, stride1,
+                stride2, corr_type_multiply=1, name=None):
+    """FlowNet's cost volume: for each displacement on the ``stride2``
+    grid within ``max_displacement``, the window sum over
+    ``kernel_size`` of ``x1`` times ``x2`` shifted (a roll of the padded
+    maps), averaged over channels and divided by ``kernel_size^2``, on
+    the ``stride1`` grid: ``[N, D^2, out_h, out_w]``, ``D = 2
+    (max_displacement // stride2) + 1``."""
+    if kernel_size % 2 != 1:
+        raise ValueError("correlation: kernel_size must be odd")
+    dr = max_displacement // stride2
+    a, b = cast("correlation", x1, x2)
+    h, w = a.shape[2:]
+    ap = F.pad(a, [pad_size] * 4)
+    bp = F.pad(b, [pad_size] * 4)
+    border = kernel_size // 2 + max_displacement
+    out_h = (h + 2 * pad_size - 2 * border + stride1 - 1) // stride1
+    out_w = (w + 2 * pad_size - 2 * border + stride1 - 1) // stride1
+    ys = border + stride1 * torch.arange(out_h, device=a.device)
+    xs = border + stride1 * torch.arange(out_w, device=a.device)
+    maps = []
+    for dy in range(-dr, dr + 1):
+        for dx in range(-dr, dr + 1):
+            prod = ap * torch.roll(bp, (-dy * stride2, -dx * stride2), (2, 3))
+            m = torch.mean(_window_sum(prod, kernel_size), 1)
+            maps.append(m[:, ys][:, :, xs])
+    return torch.stack(maps, 1) / (kernel_size * kernel_size)
+
+
+def _host(v) -> np.ndarray:
+    v = getattr(v, "_value", v)
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
+def filter_by_instag(ins, ins_tag, filter_tag, is_lod=True,
+                     out_val_if_empty=0, ins_lod=None, name=None):
+    """The rows of instances whose tags meet ``filter_tag``: ``(rows,
+    loss_weight, kept_row_index)``. Which rows is decided on the host
+    (``ins_lod``: rows an instance, when one spans several); the rows
+    are gathered on the device, so their gradient reaches ``ins``. With
+    none kept, one row of ``out_val_if_empty``, a zero weight and an
+    empty index."""
+    ins = ins if isinstance(ins, torch.Tensor) else torch.as_tensor(
+        np.asarray(ins))
+    n_rows = int(ins.shape[0])
+    tags = _host(ins_tag)
+    keep_tags = set(_host(filter_tag).reshape(-1).tolist())
+    if tags.ndim == 1:
+        tags = tags.reshape(-1, 1)
+    if ins_lod is not None:
+        lens = [int(n) for n in _host(ins_lod).reshape(-1)]
+        if sum(lens) != n_rows or len(lens) != tags.shape[0]:
+            raise ValueError(
+                f"ins_lod (sum {sum(lens)}, {len(lens)} instances) "
+                f"inconsistent with ins rows {n_rows} / "
+                f"{tags.shape[0]} tag rows")
+    else:
+        if tags.shape[0] != n_rows:
+            raise ValueError(
+                f"ins_tag has {tags.shape[0]} instances for {n_rows} rows; "
+                "pass ins_lod when instances span multiple rows")
+        lens = [1] * n_rows
+    kept, offset = [], 0
+    for inst, ln in enumerate(lens):
+        if keep_tags & set(tags[inst].reshape(-1).tolist()):
+            kept.extend(range(offset, offset + ln))
+        offset += ln
+    dev = ins.device
+    if not kept:
+        return (torch.full((1,) + tuple(ins.shape[1:]), out_val_if_empty,
+                           dtype=ins.dtype, device=dev),
+                torch.zeros((1, 1), device=dev),
+                torch.zeros((0,), dtype=torch.int64, device=dev))
+    idx = torch.tensor(kept, dtype=torch.int64, device=dev)
+    (v,) = cast("filter_by_instag", ins)
+    return (v.index_select(0, idx),
+            torch.ones((len(kept), 1), device=dev), idx)
+
+
+def inplace_abn(x, running_mean, running_var, weight=None, bias=None,
+                training=False, momentum=0.9, epsilon=1e-5,
+                activation="identity", alpha=0.01, data_format="NCHW",
+                name=None):
+    """Batch norm (``norm.py``'s) followed by identity, ``leaky_relu``
+    (slope ``alpha``) or ``elu``; the in-place memory saving is not the
+    semantics."""
+    from .activation import elu, leaky_relu
+    from .norm import batch_norm
+
+    out = batch_norm(x, running_mean, running_var, weight=weight, bias=bias,
+                     training=training, momentum=momentum, epsilon=epsilon,
+                     data_format=data_format)
+    if activation in ("identity", None):
+        return out
+    if activation == "leaky_relu":
+        return leaky_relu(out, negative_slope=alpha)
+    if activation == "elu":
+        return elu(out, alpha=alpha)
+    raise ValueError(f"inplace_abn: unsupported activation {activation!r}")
+
+
+def _linear_taps(coord: torch.Tensor, size: int):
+    """The two taps of linear interpolation at ``coord``, indices clamped
+    to the edge (``map_coordinates(order=1, mode="nearest")``)."""
+    lower = torch.floor(coord)
+    upper_weight = coord - lower
+    index = lower.to(torch.int64)
+    return [(index.clamp(0, size - 1), 1 - upper_weight),
+            ((index + 1).clamp(0, size - 1), upper_weight)]
+
+
+def bilateral_slice(x, guide, grid, has_offset=False, name=None):
+    """HDRNet's slicing: each pixel's affine coefficients sampled
+    trilinearly from the bilateral ``grid [N, coeff_ch, gd, gh, gw]`` at
+    the pixel's centre and the depth its ``guide`` value in [0, 1] picks
+    (edges clamped), applied to ``x [N, C, H, W]`` (plus an offset a
+    channel with ``has_offset``): ``[N, coeff_ch / stride, H, W]``."""
+    xv, gv, g = cast("bilateral_slice", x, guide, grid)
+    N, C, H, W = xv.shape
+    _, coeff_ch, gd, gh, gw = g.shape
+    stride = C + 1 if has_offset else C
+    if coeff_ch % stride != 0:
+        raise ValueError(
+            f"bilateral_slice: grid channels {coeff_ch} not a multiple "
+            f"of {'C+1' if has_offset else 'C'}={stride}")
+    f32 = dict(dtype=torch.float32, device=xv.device)
+    px = (torch.arange(W, **f32) + 0.5) * gw / W - 0.5
+    py = (torch.arange(H, **f32) + 0.5) * gh / H - 0.5
+    zz = gv * gd - 0.5                                  # [N, H, W]
+    yy = py[None, :, None].expand(N, H, W)
+    xx = px[None, None, :].expand(N, H, W)
+    flat = g.reshape(N, coeff_ch, gd * gh * gw)
+    coeffs = None
+    for (iz, wz), (iy, wy), (ix, wx) in itertools.product(
+            _linear_taps(zz, gd), _linear_taps(yy, gh), _linear_taps(xx, gw)):
+        at = ((iz * gh + iy) * gw + ix).reshape(N, 1, H * W)
+        tap = flat.gather(2, at.expand(N, coeff_ch, H * W)).reshape(
+            N, coeff_ch, H, W)
+        term = (wz * wy * wx)[:, None] * tap
+        coeffs = term if coeffs is None else coeffs + term
+    coeffs = coeffs.reshape(N, coeff_ch // stride, stride, H, W)
+    out = torch.einsum("nochw,nchw->nohw", coeffs[:, :, :C], xv)
+    if has_offset:
+        out = out + coeffs[:, :, C]
+    return out
+
+
+def _tree_eta(sample_edges, n_nodes: int, max_depth: int) -> np.ndarray:
+    """``[N, N, 3]``: ``eta[u - 1, v - 1] = (l, r, t)``, the continuous
+    position weights of node ``v`` in the patch of node ``u`` (the
+    reference's ``Tree2ColUtil::construct_patch``, a depth-first walk to
+    ``max_depth``; an edge with a 0 end is padding)."""
+    tr = {}
+    node_count = 0
+    for u, v in sample_edges:
+        if u == 0 or v == 0:
+            continue
+        tr.setdefault(int(u), []).append(int(v))
+        node_count += 1
+    node_count += 1
+    eta = np.zeros((n_nodes, n_nodes, 3), np.float32)
+    md = float(max_depth)
+    for root in range(1, node_count + 1):
+        patch = [(root, 1, 1, 0)]           # (node, index, pclen, depth)
+        stack = [(root, 0)]
+        visited = {root}
+        while stack:
+            node, depth = stack[-1]
+            progressed = False
+            for i, v in enumerate(tr.get(node, [])):
+                if v not in visited and depth + 1 < max_depth:
+                    visited.add(v)
+                    stack.append((v, depth + 1))
+                    patch.append((v, i + 1, len(tr[node]), depth + 1))
+                    progressed = True
+            if not progressed:
+                stack.pop()
+        for (v, idx, pclen, depth) in patch:
+            eta_t = (md - depth) / md
+            tmp = 0.5 if pclen == 1 else (idx - 1.0) / (pclen - 1.0)
+            eta_l = (1.0 - eta_t) * tmp
+            eta_r = (1.0 - eta_t) * (1.0 - eta_l)
+            eta[root - 1, v - 1, 0] += eta_l
+            eta[root - 1, v - 1, 1] += eta_r
+            eta[root - 1, v - 1, 2] += eta_t
+    return eta
+
+
+def tree_conv(nodes_vector, edge_set, filter, max_depth=2, name=None):
+    """TBCNN's tree convolution: each node's patch is its subtree to
+    ``max_depth``, each patch node weighted by its position weights
+    (``_tree_eta``, built on the host from ``edge_set [B, E, 2]``,
+    1-indexed parent/child), contracted against ``filter [F, 3,
+    out_size, num_filters]`` on the device: ``[B, N, out_size
+    num_filters]``."""
+    edges = _host(edge_set).astype(np.int64)
+    feat, w = cast("tree_conv", nodes_vector, filter)
+    B, N = feat.shape[:2]
+    M = torch.from_numpy(np.stack([_tree_eta(edges[b], N, max_depth)
+                                   for b in range(edges.shape[0])])).to(
+        device=feat.device, dtype=feat.dtype)
+    _, _, out_size, num_filters = w.shape
+    patch = torch.einsum("bpvk,bvf->bpfk", M, feat)
+    return torch.einsum("bpfk,fkon->bpon", patch, w).reshape(
+        B, N, out_size * num_filters)
+
+
+def rank_attention(input, rank_offset, rank_param, max_rank=3, name=None):
+    """CTR rank attention: for each of ``max_rank`` slots, a partner row
+    of ``input [N, d]`` (``rank_offset [N, 1 + 2 max_rank]``: the own
+    rank, then (rank, row) pairs, ranks 1-based and <= 0 invalid, rows
+    0-based) times the ``(own, partner)`` block of ``rank_param
+    [max_rank^2 d, out]``, summed in fp32: ``[N, out]`` in the input's
+    dtype."""
+    x, ro, p = cast("rank_attention", input, rank_offset, rank_param)
+    N, d = x.shape
+    P = p.reshape(max_rank, max_rank, d, p.shape[1])
+    own = ro[:, 0].to(torch.int64) - 1
+    acc = torch.zeros((N, p.shape[1]), dtype=torch.float32, device=x.device)
+    for k in range(max_rank):
+        rk = ro[:, 2 * k + 1].to(torch.int64) - 1
+        idx = ro[:, 2 * k + 2].to(torch.int64)
+        ok = ((own >= 0) & (rk >= 0)).to(torch.float32)
+        xk = x[idx.clamp(0, N - 1)]
+        Wk = P[own.clamp(0, max_rank - 1), rk.clamp(0, max_rank - 1)]
+        acc = acc + ok[:, None] * torch.einsum(
+            "nd,ndo->no", xk.to(torch.float32), Wk.to(torch.float32))
+    return acc.to(x.dtype)
+
+
+def sparse_attention(query, key, value, sparse_csr_offset,
+                     sparse_csr_columns, key_padding_mask=None,
+                     attn_mask=None, name=None):
+    """Attention over a CSR pattern (reference:
+    ``paddle_tpu/nn/functional/__init__.py``): query row ``i`` of each
+    ``[B, H]`` attends only to the keys its row of ``sparse_csr_columns``
+    lists (offsets ``[B, H, L + 1]``, columns ``[B, H, nnz]``): the
+    entries' scores gathered, a softmax per row by segment max and sum,
+    the values summed back into the rows. ``key_padding_mask`` and
+    ``attn_mask`` are taken and not used."""
+    q, k, v, offs, cols = cast("sparse_attention", query, key, value,
+                               sparse_csr_offset, sparse_csr_columns)
+    b, h, L, d = q.shape
+    nnz = cols.shape[-1]
+    pos = torch.arange(nnz, device=q.device)
+    row_of = (pos[None, None, None, :] >= offs[..., 1:, None]).sum(-2)
+    cols = cols.to(torch.int64)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d), device=q.device))
+
+    def rows(t, at):
+        return torch.gather(t, 2, at[..., None].expand(b, h, nnz, d))
+
+    # entries past a pattern's last offset (``nnz`` pads the shorter
+    # patterns) fall outside the rows: gathers clamp, scatters drop them
+    keep = row_of < L
+    row = row_of.clamp(max=L - 1)
+    qk = (rows(q, row) * rows(k, cols)).sum(-1) * scale
+    neg = torch.full((), -np.inf, device=q.device)
+    row_max = torch.full((b, h, L), -1e30, device=q.device).scatter_reduce(
+        2, row, torch.where(keep, qk, neg), "amax")
+    e = torch.exp(qk - row_max.gather(2, row))
+    zero = torch.zeros((), device=q.device)
+    denom = torch.zeros((b, h, L), device=q.device).scatter_add(
+        2, row, torch.where(keep, e, zero))
+    wts = e / torch.clamp(denom.gather(2, row), min=1e-30)
+    return torch.zeros_like(q).scatter_add(
+        2, row[..., None].expand(b, h, nnz, d),
+        torch.where(keep, wts, zero)[..., None] * rows(v, cols))

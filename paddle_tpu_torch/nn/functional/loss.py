@@ -1,9 +1,10 @@
 """Losses (reference: ``paddle_tpu/nn/functional/loss.py``): every loss
-of the reference's but ``hsigmoid_loss``, ``class_center_sample``,
-``margin_cross_entropy`` and ``center_loss`` (ROADMAP Queue A 4c-2).
-Each is a cast point of ``amp`` under the reference's op name (the
-hinge-embedding, cosine-embedding, triplet and log losses under the
-reference's empty name), and each follows the reference's formula:
+of the reference's, ``hsigmoid_loss``, ``class_center_sample``,
+``margin_cross_entropy`` and ``center_loss`` among them (their
+docstrings say what each keeps from the reference). Each is a cast
+point of ``amp`` under the reference's op name (the hinge-embedding,
+cosine-embedding, triplet and log losses under the reference's empty
+name), and each follows the reference's formula:
 
 - ``cross_entropy`` has every option of the reference's: class
   ``weight``, ``ignore_index``, ``reduction`` ("mean", "sum", "none"),
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ...amp import cast
@@ -55,7 +57,8 @@ __all__ = ["cross_entropy", "softmax_with_cross_entropy", "mse_loss",
            "square_error_cost", "ctc_loss", "sigmoid_focal_loss",
            "soft_margin_loss", "poisson_nll_loss", "gaussian_nll_loss",
            "multi_margin_loss", "dice_loss", "npair_loss", "rank_loss",
-           "bpr_loss"]
+           "bpr_loss", "hsigmoid_loss", "class_center_sample",
+           "margin_cross_entropy", "center_loss"]
 
 
 def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
@@ -428,3 +431,148 @@ def bpr_loss(input, label, name=None):
     diff = lg.gather(1, y) - lg
     mask = torch.ones_like(lg).scatter(1, y, 0.0)
     return (-(_log_sigmoid(diff) * mask).sum(-1) / (c - 1)).reshape(-1, 1)
+
+
+# ------------------------------------------------- the last four losses
+def _simple_code(lbl: torch.Tensor, num_classes: int, depth: int):
+    """The default tree's paths (the reference's SimpleCode): class ``c``
+    is the leaf ``c + C`` of a heap-indexed complete tree; at level ``i``
+    its node is ``(leaf >> (i + 1)) - 1`` and its branch bit ``(leaf >>
+    i) & 1``, -1 past the root."""
+    c = lbl.reshape(-1).to(torch.int64) + num_classes
+    tables, codes = [], []
+    minus = torch.full((), -1, dtype=torch.int64, device=c.device)
+    for i in range(depth):
+        parent = c >> (i + 1)
+        valid = parent >= 1
+        tables.append(torch.where(valid, parent - 1, minus))
+        codes.append(torch.where(valid, (c >> i) & 1, minus))
+    return torch.stack(tables, -1), torch.stack(codes, -1)
+
+
+def _host_path(v, device) -> torch.Tensor:
+    """A custom ``path_table``/``path_code`` (a tensor or host data) as
+    int64 on ``device``."""
+    v = getattr(v, "_value", v)
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.asarray(v))
+    return v.to(device=device, dtype=torch.int64)
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """Hierarchical sigmoid: each sample's loss is the sum of the binary
+    logistic losses along its class's path, ``[B, 1]``; ``weight``'s row
+    ``j`` is node ``j``'s. The default tree is the complete binary tree
+    of ``num_classes`` leaves; a custom one comes as ``path_table``
+    (node ids, -1 padding) and ``path_code`` (branch bits). ``is_sparse``
+    is taken and not used."""
+    C = int(num_classes)
+    depth = max(int(np.ceil(np.log2(max(C, 2)))) + 1, 1)
+    if bias is None:
+        x, lbl, w = cast("hsigmoid_loss", input, label, weight)
+    else:
+        x, lbl, w, bias = cast("hsigmoid_loss", input, label, weight, bias)
+    if path_table is not None:
+        pt = _host_path(path_table, x.device)
+        pc = _host_path(path_code, x.device)
+    else:
+        pt, pc = _simple_code(lbl, C, depth)
+    logit = torch.einsum("bd,bld->bl", x, w[pt])
+    if bias is not None:
+        logit = logit + bias.reshape(-1)[pt]
+    ll = _log_sigmoid(torch.where(pc == 1, logit, -logit))
+    per = -torch.sum(torch.where(pc >= 0, ll, _zero(ll)), -1)
+    return per.reshape(-1, 1)
+
+
+def class_center_sample(label, num_classes, num_samples, group=None):
+    """PartialFC's sampling: every class in ``label`` and, up to
+    ``num_samples`` classes in all, others drawn without replacement by
+    numpy's global generator (so ``np.random.seed`` repeats a draw), in
+    sorted order after the positives. Returns the labels remapped to
+    their index in the sample, and the sampled classes. ``group`` is
+    taken and not used (the model-parallel form: ROADMAP Queue A 10)."""
+    v = label._value if hasattr(label, "_value") else label
+    lbl = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+           else np.asarray(v))
+    flat = lbl.reshape(-1)
+    pos = np.unique(flat)
+    n_extra = max(int(num_samples) - pos.size, 0)
+    rest = np.setdiff1d(np.arange(int(num_classes)), pos)
+    if n_extra > 0 and rest.size:
+        extra = np.random.choice(rest, min(n_extra, rest.size),
+                                 replace=False)
+        sampled = np.concatenate([pos, np.sort(extra)])
+    else:
+        sampled = pos
+    remap = {int(c): i for i, c in enumerate(sampled)}
+    new_lbl = np.asarray([remap[int(c)] for c in flat], np.int64)
+    device = v.device if isinstance(v, torch.Tensor) else None
+    return (torch.from_numpy(new_lbl.reshape(lbl.shape)).to(device),
+            torch.from_numpy(sampled.astype(np.int64)).to(device))
+
+
+class _UnitClip(torch.autograd.Function):
+    """``jnp.clip(x, -1, 1)`` with JAX's gradient: the incoming gradient
+    multiplied by 1 inside, 1/2 at a bound and 0 outside, so that a NaN
+    from ``arccos`` at the bound stays NaN (PyTorch's ``minimum`` and
+    ``maximum`` select, and give 0 there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, -1.0, 1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo = torch.clamp(x, min=-1.0)
+        inner = torch.where(x > -1, 1.0, torch.where(x == -1, 0.5, 0.0))
+        outer = torch.where(lo < 1, 1.0, torch.where(lo == 1, 0.5, 0.0))
+        return g * outer.to(g.dtype) * inner.to(g.dtype)
+
+
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean"):
+    """The combined-margin softmax loss (ArcFace, CosFace, SphereFace):
+    the label's cosine ``cos(t)``, clipped to ``[-1, 1]`` (half the
+    gradient at a bound), becomes ``cos(m1 t + m2) - m3`` before the
+    scaled softmax cross entropy. ``arccos``'s gradient is infinite at
+    +-1: a logit there gives the reference's ``inf``/``nan`` gradient.
+    ``group`` is taken and not used (ROADMAP Queue A 10)."""
+    lg, lbl = cast("margin_cross_entropy", logits, label)
+    ids = lbl.reshape(-1).to(torch.int64)
+    cos = _UnitClip.apply(lg)
+    tgt = torch.cos(margin1 * torch.arccos(cos) + margin2) - margin3
+    oh = torch.nn.functional.one_hot(ids, lg.shape[-1]).to(lg.dtype)
+    logp = torch.log_softmax((cos * (1 - oh) + tgt * oh) * scale, -1)
+    nll = -logp.gather(-1, ids[:, None])[:, 0]
+    if reduction in ("mean", "sum"):
+        out = _reduce(nll, reduction)
+    else:
+        out = nll.reshape(-1, 1)
+    return (out, torch.exp(logp)) if return_softmax else out
+
+
+def center_loss(input, label, centers, alpha=0.1, update_center=True,
+                name=None):
+    """``0.5 |x - c_y|^2`` a sample, ``[B, 1]``. With ``update_center``
+    each class in ``label`` moves its center by ``alpha`` times the sum
+    of ``c - x`` over its samples divided by ``1 +`` their count, in
+    place on ``centers``' device, after the loss read the old centers."""
+    v, lbl, ctr = cast("center_loss", input, label, centers)
+    y = lbl.reshape(-1).to(torch.int64)
+    diff = v - ctr[y]
+    out = 0.5 * torch.sum(diff * diff, -1, keepdim=True)
+    if update_center:
+        with torch.no_grad():
+            old = centers.detach().to(torch.float32)
+            sums = torch.zeros_like(old).index_add_(
+                0, y, old[y] - v.detach().to(torch.float32))
+            count = torch.bincount(y, minlength=old.shape[0])
+            delta = sums / (1.0 + count.to(torch.float32))[:, None]
+            centers.copy_((old - alpha * delta).to(centers.dtype))
+    return out

@@ -1,5 +1,5 @@
 """Common layers (reference: ``paddle_tpu/nn/layer/common.py``): every
-layer of it but ``HSigmoidLoss`` (ROADMAP Queue A 4c-2). The dropout
+layer of it, ``HSigmoidLoss`` among them. The dropout
 layers draw in training (``functional/common.py``); the others hold
 their options and call their functional, as the reference's do.
 
@@ -47,7 +47,7 @@ __all__ = ["Linear", "Embedding", "Identity", "Dropout", "Dropout2D",
            "Pad3D", "ZeroPad2D", "CosineSimilarity", "Bilinear",
            "PixelShuffle", "PixelUnshuffle", "ChannelShuffle", "Unfold",
            "Fold", "PairwiseDistance", "MaxUnPool1D", "MaxUnPool2D",
-           "MaxUnPool3D"]
+           "MaxUnPool3D", "HSigmoidLoss"]
 
 _LINEAR_IDS = itertools.count()
 
@@ -395,3 +395,25 @@ class MaxUnPool3D(_MaxUnPool):
                  data_format="NCDHW", output_size=None, name=None):
         super().__init__(kernel_size, stride, padding, data_format,
                          output_size)
+
+
+class HSigmoidLoss(Layer):
+    """The hierarchical sigmoid loss over a layer's node weights
+    (``[num_classes - 1, feature_size]``, or ``num_classes`` rows with
+    ``is_custom``) and biases; ``is_sparse`` is taken and not used."""
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False, name=None):
+        super().__init__()
+        self._num_classes = num_classes
+        rows = num_classes if is_custom else max(num_classes - 1, 1)
+        self.weight = self.create_parameter([rows, feature_size],
+                                            attr=weight_attr)
+        self.bias = self.create_parameter([rows], attr=bias_attr,
+                                          is_bias=True)
+
+    def forward(self, input, label, path_table=None, path_code=None):
+        p = self._parameters
+        return F.hsigmoid_loss(input, label, self._num_classes,
+                               p["weight"], bias=p.get("bias"),
+                               path_table=path_table, path_code=path_code)

@@ -6,8 +6,8 @@ with ``head_bias=True``) and each cluster's projection pair
 (``tail_proj_i`` ``[in, in // div_value^(i+1)]``, ``tail_out_i``), and
 composes the full log-probabilities from them: the head's for the
 frequent classes, the head's cluster log-probability plus the tail's
-within it for the rest. ``HSigmoidLoss`` is not ported (ROADMAP Queue A
-4c-2)."""
+within it for the rest. ``HSigmoidLoss`` stands in ``common.py``, as in
+the reference."""
 from __future__ import annotations
 
 import torch

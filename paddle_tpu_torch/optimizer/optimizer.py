@@ -34,7 +34,8 @@ read by ``get_lr()`` at every step. ``grad_clip`` is one of
 ``nn.ClipGradByGlobalNorm``, ``ClipGradByNorm`` or ``ClipGradByValue``:
 ``step()`` clips copies of the gradients, cast to their parameters'
 dtypes, before the update (``nn/clip.py`` ``clip_grads``), as the
-reference's compiled step does; ``TrainStep`` clips its flat gradient
+reference's compiled step does; the copies go into buffers kept from
+step to step, so that a clipped step's table stays the same; ``TrainStep`` clips its flat gradient
 buckets the same way.
 """
 from __future__ import annotations
@@ -79,6 +80,7 @@ class Optimizer:
         self._slots: Dict[int, Dict[str, torch.Tensor]] = {}
         self._accumulated_steps = 0
         self._table = None          # the card's BucketTable of the last step
+        self._clip_bufs: Dict[int, torch.Tensor] = {}   # clipped gradients
         self._lr = None             # (value, device, 0-dim tensor)
 
     # ------------------------------------------------------------- lr
@@ -154,8 +156,7 @@ class Optimizer:
         clip = self._clip_cfg()
         if clip is not None:
             # clip copies, never the caller's .grad
-            grads = [g.clone() if g is t.grad else g
-                     for g, t in zip(grads, params)]
+            grads = [self._clip_copy(t, g) for g, t in zip(grads, params)]
             clipped = [g for g, t in zip(grads, params)
                        if getattr(t, "need_clip", True)]
             if clipped:
@@ -170,6 +171,16 @@ class Optimizer:
         else:
             self._step_plain(params, grads)
         self._accumulated_steps += 1
+
+    def _clip_copy(self, t, g: torch.Tensor) -> torch.Tensor:
+        """``g`` copied into the buffer kept for ``t``'s clipped gradient,
+        made at the first step: the card's table keeps its pointer from
+        step to step."""
+        buf = self._clip_bufs.get(id(t))
+        if buf is None or buf.shape != g.shape or buf.dtype != g.dtype \
+                or buf.device != g.device:
+            buf = self._clip_bufs[id(t)] = torch.empty_like(g)
+        return buf.copy_(g)
 
     def _lr_tensor_kept(self, device) -> torch.Tensor:
         """This step's learning rate on ``device``: the kept tensor while

@@ -18,15 +18,19 @@ JAX reference's (``paddle_tpu.nn``), eager, on the CPU.
 - **``SyncBatchNorm.convert_sync_batchnorm``**: every batch norm of a
   tree swapped, weights and statistics kept, the forward the
   reference's.
-- **Signatures**: every name that both packages export from ``nn`` and
-  ``nn.functional`` takes the reference's parameters, by the same names,
-  kinds and defaults and in the same order (through ``eager_fn``'s
+- **Signatures**: every name that both packages export from ``nn``,
+  ``nn.functional``, ``nn.utils``, ``nn.functional.sequence`` and
+  ``nn.decode``, and the public methods of the recurrent layers and
+  cells, beam search and ``HSigmoidLoss``, takes the reference's
+  parameters, by the same names, kinds and defaults and in the same
+  order (through ``eager_fn``'s
   ``__wrapped__``); the port may add only trailing keyword-only
   parameters of its own (``device``, ``rs``). ``name=`` is taken
   everywhere the reference takes it.
 - **The names still missing** from the port's ``nn`` and
   ``nn.functional`` equal the backticked names of ``ROADMAP.md``'s
-  paragraph "Names of nn and nn.functional not ported" (Queue A 4c-2).
+  paragraph "Names of nn and nn.functional not ported" (Queue A items
+  11 and 14).
 - **BERT with dropout**: ``bert-test`` from the reference's weights
   (``tests/test_torch_bert_train.py``'s ``_carried`` and batch, 2 x 64),
   AdamW, 3 ``TrainStep`` steps: at dropout 0 the losses within 1e-5
@@ -408,28 +412,57 @@ def _same_default(a, b) -> bool:
         return a is b
 
 
+# the recurrent classes whose methods are held too (not only __init__)
+METHOD_CLASSES = ("RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell",
+                  "SimpleRNN", "LSTM", "GRU", "RNN", "BiRNN", "Decoder",
+                  "BeamSearchDecoder", "HSigmoidLoss")
+
+
+def _signature_diff(what, r, p):
+    """None when ``p`` takes ``r``'s parameters (extras keyword-only),
+    else the two signatures."""
+    try:
+        rp, pp = _params(r), _params(p)
+    except (TypeError, ValueError):
+        return None
+    head, extra = pp[:len(rp)], pp[len(rp):]
+    same = all(a.name == b.name and a.kind == b.kind
+               and _same_default(a.default, b.default)
+               for a, b in zip(rp, head)) and len(head) == len(rp)
+    if same and all(e.kind is inspect.Parameter.KEYWORD_ONLY for e in extra):
+        return None
+    return (f"{what}: port {[str(x) for x in pp]}, reference "
+            f"{[str(x) for x in rp]}")
+
+
 def check_signatures_match_reference():
+    """Every callable of ``nn``, ``nn.functional``, ``nn.utils``,
+    ``nn.functional.sequence`` and ``nn.decode``, and the public methods
+    of the recurrent classes, beam search and ``HSigmoidLoss``."""
     bad = []
     for rmod, pmod in ((RP.nn, PT.nn),
-                       (RP.nn.functional, PT.nn.functional)):
-        for name in sorted(n for n in dir(pmod) if not n.startswith("_")):
+                       (RP.nn.functional, PT.nn.functional),
+                       (RP.nn.utils, PT.nn.utils),
+                       (RP.nn.functional.sequence,
+                        PT.nn.functional.sequence),
+                       (RP.nn.decode, PT.nn.decode)):
+        names = (dir(pmod) if rmod in (RP.nn, RP.nn.functional)
+                 else rmod.__all__)
+        for name in sorted(n for n in names if not n.startswith("_")):
             r, p = getattr(rmod, name, None), getattr(pmod, name)
             if r is None or not callable(p) or isinstance(
                     p, types.ModuleType):
                 continue
-            try:
-                rp, pp = _params(r), _params(p)
-            except (TypeError, ValueError):
+            bad.append(_signature_diff(f"{rmod.__name__}.{name}", r, p))
+    for cls in METHOD_CLASSES:
+        r, p = getattr(RP.nn, cls), getattr(PT.nn, cls)
+        for name, fn in vars(r).items():
+            if name.startswith("_") and name not in ("__init__",):
                 continue
-            head, extra = pp[:len(rp)], pp[len(rp):]
-            same = all(a.name == b.name and a.kind == b.kind
-                       and _same_default(a.default, b.default)
-                       for a, b in zip(rp, head)) and len(head) == len(rp)
-            if not same or any(e.kind is not inspect.Parameter.KEYWORD_ONLY
-                               for e in extra):
-                bad.append(f"{rmod.__name__}.{name}: port "
-                           f"{[str(x) for x in pp]}, reference "
-                           f"{[str(x) for x in rp]}")
+            if callable(fn) or isinstance(fn, staticmethod):
+                bad.append(_signature_diff(f"{cls}.{name}", getattr(r, name),
+                                           getattr(p, name)))
+    bad = [b for b in bad if b]
     assert not bad, "\n".join(bad)
 
 

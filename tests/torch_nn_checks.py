@@ -47,16 +47,21 @@ NN_RTOL = 1e-5
 SIGMAS = 6.0
 
 
+def _is_spec(spec) -> bool:
+    return (isinstance(spec, tuple) and len(spec) >= 2
+            and isinstance(spec[0], str) and spec[0] in "nutsidc"
+            and isinstance(spec[1], tuple))
+
+
 def _arg(spec, rs):
-    """A CPU tensor from ``(kind, shape[, high])``: "n" normal, "u"
-    uniform in (0.05, 0.95), "t" integer-valued floats (ties), "s" signs,
-    "i" int64 in [0, high), "d" rows of a Dirichlet; anything else
-    passes as it is."""
-    if not (isinstance(spec, tuple) and spec and spec[0] in "nutsid"
-            and len(spec) >= 2 and isinstance(spec[1], tuple)):
+    """A CPU tensor from ``(kind, shape[, high])``: "n" normal ("c" the
+    same without a gradient), "u" uniform in (0.05, 0.95), "t"
+    integer-valued floats (ties), "s" signs, "i" int64 in [0, high), "d"
+    rows of a Dirichlet; anything else passes as it is."""
+    if not _is_spec(spec):
         return spec
     kind, shape = spec[0], spec[1]
-    if kind == "n":
+    if kind in "nc":
         a = rs.normal(size=shape)
     elif kind == "u":
         a = rs.uniform(0.05, 0.95, shape)
@@ -200,6 +205,13 @@ NN_CASES += [
 ]
 
 
+def flat(out) -> list:
+    """An output's tensors, through nested tuples and lists."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in flat(o)]
+    return [out]
+
+
 def nn_case_label(case) -> str:
     kind, name, _, kw = case
     return name + (f" {kw}" if kw else "")
@@ -226,13 +238,15 @@ def _run(case, device, rs_seed, state=None):
           for v in vals]
     kwo = {k: v.to(device, copy=True) if isinstance(v, torch.Tensor) else v
            for k, v in kwv.items()}
-    live = [v for v in [*on, *kwo.values()]
-            if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    specs = [*args, *kw.values()] if kind == "F" else list(args[1])
+    live = [v for v, sp in zip([*on, *kwo.values()], specs)
+            if isinstance(v, torch.Tensor) and v.is_floating_point()
+            and not (_is_spec(sp) and sp[0] == "c")]
     for v in live:
         v.requires_grad_()
     params = [] if layer is None else torch_parameters(layer)
     out = fn(*on, **kwo)
-    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    outs = flat(out)
     grs = rs_seed + 1
     loss = None
     for o in outs:
