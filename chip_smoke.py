@@ -637,6 +637,41 @@ when every phase passed):
               Optimizer.step() calls it, alone, plain and as
               torch._fused_adam_, beside its bound (28 bytes an
               element), its launch bit for bit against the plain walk.
+ 44. fp16 kernels  the fp16 flash kernels at GPT's [8, 12, 1024, 64]
+              causal and BERT's [16, 12, 512, 64] full against their
+              plain versions (torch_checks.flash_fp16_limit), each timed
+              beside its plain version, its bound (989 TFLOP/s fp16
+              dense, 3.35 TB/s) and fp16 SDPA, the bf16 forms timed in
+              the same call beside them; the check shapes, and both
+              main shapes with dO at 2^-16 (the dS scaling); the update
+              over GPT-125M's fp16 plan bit for bit over 3 steps, timed
+              beside torch._fused_adamw_ over the same fp16 tensors;
+ 45. train fp16  GPT-125M, dtype float16, dropout 0.1, bench.py's batch
+              8 x 1024, AdamW: 2 + 5 steps, launch counts (12 / 12 / 12
+              fp16 flash and 1 update a step), losses finite and
+              falling, step ms, peak memory and idle share beside phase
+              17's bf16 step; one step card against CPU at 2 layers
+              (dropout 0, BF16_LOSS_RTOL and the 16-bit step parity); a
+              step at attn_dropout 0.1 makes no flash launch;
+ 46. gpt options  GPT-125M fp16, dropout 0: recompute_policy none,
+              remat, offload and a mixed vector, the loss and every
+              gradient of one step from the same weights equal to none's
+              bit for bit (or, if two none runs differ, within twice
+              their spread, the op named), then 1 + 3 steps each: peak
+              memory, step ms, bytes parked in pinned host memory a
+              step; Lamb, Lars and DGCMomentum under TrainStep, 3 steps
+              each, no fused_update launch, finite losses, and 2 steps
+              card against CPU at 2 layers in fp32 (the first loss within
+              1e-5, the second within OPT_LOSS_RTOL);
+ 47. bert fp16  BERT-base pretraining at measure_bert's 16 x 512 under
+              decorate and auto_cast(level="O2", dtype="float16"), the
+              eager step with a GradScaler (scale, backward, step,
+              update): warm-up until the scale settles, then 10 timed
+              steps, 12 fp16 flash launches of each kernel a step, one
+              fused_update a step not skipped, one host read of the
+              finite flag a step; a planted inf gradient skips its step,
+              leaves every parameter's bits and halves the scale; step ms
+              and idle share beside phase 25's bf16 O2 step.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -683,8 +718,13 @@ RAGGED_QMM = (1000, 100, 37)
 RAGGED_QMM_SMALL = (33, 100, 37)    # the cluster route's element loads
 INFER_B1 = (1, 64)                  # phase 27's batch-1 forward
 INFER_TOL = 1e-4                    # card vs CPU logits, max abs
-BF16_KERNELS = ("fwd_bf16_kernel", "dq_bf16_kernel", "dkv_bf16_kernel",
-                "update_kernel")
+# the 16-bit flash kernels are instances of one template a kernel
+# (csrc/flash_attention.cu); the profiler's names carry the element type
+BF16_KERNELS = ("fwd_wgmma_kernel<__nv_bfloat16",
+                "dq_wgmma_kernel<__nv_bfloat16",
+                "dkv_wgmma_kernel<__nv_bfloat16", "update_kernel")
+FP16_KERNELS = ("fwd_wgmma_kernel<__half", "dq_wgmma_kernel<__half",
+                "dkv_wgmma_kernel<__half", "update_kernel")
 CE_KERNELS = ("ce_fwd_kernel", "ce_bwd_kernel")
 
 
@@ -1140,7 +1180,8 @@ def work_bound(nbytes: float, ops: float, tf32_passes: int = 0,
     """Least time (ms) for the bytes at 3.35 TB/s and the operations at
     the fp32 SIMT peak, or, with ``tf32_passes``, that many TF32 passes
     over them at the tensor cores' peak (split-TF32 kernels), or with
-    ``bf16`` at the bf16 tensor cores' peak."""
+    ``bf16`` at the bf16 tensor cores' peak (fp16's is the same, 989
+    TFLOP/s dense)."""
     rate = (BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S if tf32_passes
             else FP32_OPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1166,25 +1207,28 @@ PAIR = "flash_dq + flash_dkv"   # the backward pair, against SDPA's backward
 
 
 def _flash_case(dev, gen, shape, causal, timed: bool, flush,
-                dtype=torch.float32):
-    """The three flash kernels on ``dtype`` inputs of ``shape`` against
-    their plain versions (``torch_checks.flash_vs_plain``) and, when
-    ``timed``, each timed beside its plain version, its bound and the
-    one-call yardstick in the same dtype."""
+                dtype=torch.float32, do_scale=1.0):
+    """The three flash kernels on ``dtype`` inputs of ``shape`` (dO times
+    ``do_scale``) against their plain versions
+    (``torch_checks.flash_vs_plain``) and, when ``timed``, each timed
+    beside its plain version, its bound and the one-call yardstick in the
+    same dtype."""
     from paddle_tpu_torch.ops import flash_attention as fa
     import torch.nn.functional as F
     from torch_checks import flash_vs_plain
 
     q, k, v, do = (torch.randn(*shape, device=dev, generator=gen).to(dtype)
                    for _ in range(4))
-    errs, lse, delta = flash_vs_plain(q, k, v, do, causal)
+    do = (do.float() * do_scale).to(dtype)
+    errs, lse, delta = flash_vs_plain(q, k, v, do, causal, do_scale)
     outputs = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
                "flash_dkv": ("dk", "dv")}
     kernel_err = {n: max(errs[o][0] for o in outs)
                   for n, outs in outputs.items()}
     kernel_ratio = {n: max(errs[o][1] for o in outs)
                     for n, outs in outputs.items()}
-    bf16 = dtype == torch.bfloat16
+    half = dtype in (torch.bfloat16, torch.float16)
+    tag = {torch.bfloat16: " bf16", torch.float16: " fp16"}.get(dtype, "")
     rows = {}
     if timed:
         # one-call yardsticks, timed here and used nowhere in the port:
@@ -1208,13 +1252,12 @@ def _flash_case(dev, gen, shape, causal, timed: bool, flush,
                                                causal),
                           lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
                                                      causal), None)}
-        label = (f"{list(shape)} {'causal' if causal else 'full'}"
-                 + (" bf16" if bf16 else ""))
+        label = f"{list(shape)} {'causal' if causal else 'full'}{tag}"
         for name, (kern, plain, lib) in calls.items():
             work = flash_work(shape, causal, name, q.element_size())
             bounds = (dict(zip(("bound_ms", "bound_by"),
                                work_bound(*work, bf16=True)))
-                      if bf16 else both_bounds(*work, TF32_PASSES[name]))
+                      if half else both_bounds(*work, TF32_PASSES[name]))
             rows[name] = {"shape": label, "max_abs_err": kernel_err[name],
                           "err_over_limit": kernel_ratio[name],
                           "ms": median_ms(kern, flush),
@@ -1224,12 +1267,13 @@ def _flash_case(dev, gen, shape, causal, timed: bool, flush,
                       + rows["flash_dkv"]["ms"], "library_ms": lib_bwd}
 
     def at(name, r):
-        if bf16:
-            return "bf16 tensor cores"
+        if half:
+            return f"{tag.strip()} tensor cores"
         return (f"{TF32_PASSES[name]} TF32 passes, fp32 SIMT bound "
                 f"{r['bound_simt_ms']:.4f}")
 
-    log(f"flash {list(shape)} {dtype} causal={causal}: max abs diff "
+    scaled = f" dO x {do_scale:g}" if do_scale != 1.0 else ""
+    log(f"flash {list(shape)} {dtype} causal={causal}{scaled}: max abs diff "
         + ", ".join(f"{n} {e:.2e} ({r:.3f} of its limit)"
                     for n, (e, r) in errs.items())
         + "".join(f" | {n} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -1531,9 +1575,10 @@ def phase_train(cfg, dev, seed, warmup=2, steps=5, b=TRAIN_B, s=TRAIN_S):
         raise AssertionError(f"non-finite training loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
-    ran = "_bf16" if cfg.dtype == "bfloat16" else ""
-    want = {name + sfx: cfg.num_layers * steps * (sfx == ran)
-            for sfx in ("", "_bf16")
+    ran = {"bfloat16": "_bf16", "float16": "_fp16"}.get(cfg.dtype, "")
+    flash = cfg.use_flash_attention and cfg.attn_dropout == 0.0
+    want = {name + sfx: cfg.num_layers * steps * (sfx == ran and flash)
+            for sfx in ("", "_bf16", "_fp16")
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
     if cfg.recompute:      # the backward runs each block's forward again
         want["flash_fwd" + ran] *= 2
@@ -1573,19 +1618,20 @@ def phase_train_parity(cfg, dev, seed):
     card_loss, card = _one_step(small, dev, 2, 128, seed + 2)
     cpu_loss, cpu = _one_step(small, "cpu", 2, 128, seed + 2)
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    tol = BF16_LOSS_RTOL if cfg.dtype == "bfloat16" else 1e-5
+    half = cfg.dtype in ("bfloat16", "float16")
+    tol = BF16_LOSS_RTOL if half else 1e-5
     log(f"train {cfg.dtype}{_variant(cfg)} card vs CPU (gpt-125m width, 2 "
         f"layers, b2 s128): loss {card_loss:.7f} vs {cpu_loss:.7f} (rel "
         f"{rel:.2e}, limit {tol:.0e})")
     if not rel <= tol:
         raise AssertionError(f"card and CPU losses differ beyond {tol:.0e}")
-    if cfg.dtype == "bfloat16":
+    if half:
         r = bf16_step_parity(card, cpu, LR)
-        log(f"train bf16 card vs CPU after one AdamW step: gradients "
+        log(f"train {cfg.dtype} card vs CPU after one AdamW step: gradients "
             f"within {r['grad_rtol']:.2e} of each tensor's largest (limit "
             f"2e-2); on the {100 * r['clear_share']:.1f}% of elements whose "
-            f"gradient is clear of the noise, every bf16 weight within one "
-            f"bf16 ulp of the CPU's, the fp32 ones within 1e-2 lr; "
+            f"gradient is clear of the noise, every 16-bit weight within one "
+            f"ulp of the CPU's, the fp32 ones within 1e-2 lr; "
             f"{100 * r['differ_share']:.3f}% of all elements differ, max "
             f"|param diff| {r['param_max_abs_diff']:.3e}")
         return
@@ -1614,7 +1660,7 @@ def phase_gpt_o2_parity(dev, seed, b=2, s=128):
     counts = train_launch_counts()
     cpu_loss, cpu = _one_step(cfg, "cpu", b, s, seed + 2, level="O2")
     want = {name + sfx: cfg.num_layers * (sfx == "_bf16")
-            for sfx in ("", "_bf16")
+            for sfx in ("", "_bf16", "_fp16")
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
     want.update(fused_update=1, ce_chunk_fwd=0, ce_chunk_bwd=0)
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
@@ -1687,6 +1733,8 @@ def phase_train_profile(one, names=("fwd_kernel", "dq_kernel", "dkv_kernel",
     log("  by kind: " + ", ".join(f"{k} {t / 1e3:.3f} ms "
                                   f"({100 * t / busy_us:.1f}%)"
                                   for k, t in kinds.items()))
+    shares = {"wall_ms": wall_us / 1e3, "busy_ms": busy_us / 1e3,
+              "idle_share": 1 - busy_us / wall_us}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         one()
@@ -1702,7 +1750,7 @@ def phase_train_profile(one, names=("fwd_kernel", "dq_kernel", "dkv_kernel",
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  "
             f"{e.key} {str(e.input_shapes)[:110]}")
-    return kinds
+    return {**kinds, **shares}
 
 
 def lm_head_gemms(dev, gen, cfg, tokens=TRAIN_B * TRAIN_S):
@@ -2569,7 +2617,8 @@ def phase_infer_profile(model, batch, level=None, tag=""):
             f"{e.count:5d}x  {e.key[:90]}")
     split = {}
     for name in ("qmm_kernel", "qmm_wgmma_kernel", "qmm_bf16_kernel",
-                 "qmm_cluster_kernel", "fwd_kernel", "fwd_bf16_kernel"):
+                 "qmm_cluster_kernel", "fwd_kernel",
+                 "fwd_wgmma_kernel<__nv_bfloat16"):
         t = sum(e.self_device_time_total for e in kernels if name in e.key)
         split[name] = t
         log(f"  share of the forward's device time, {name}: "
@@ -3180,7 +3229,7 @@ def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
     n_layers = layers or cfg.num_layers
     ran = "_bf16" if cfg.dtype == "bfloat16" else ""
     want = {name + sfx: n_layers * steps * (sfx == ran)
-            for sfx in ("", "_bf16")
+            for sfx in ("", "_bf16", "_fp16")
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
     want.update(fused_update=0, codec_encode=nb * steps,
                 codec_encode_bf16=0, codec_decode=0, codec_decode_bf16=0,
@@ -3227,7 +3276,7 @@ def _check_data_parallel(runs, nb, n_bf16, n_layers, rounds, ran):
     if len({r["checksum"] for r in runs}) != 1:
         raise AssertionError("the DataParallel replicas differ")
     want = {name + sfx: n_layers * rounds * (sfx == ran)
-            for sfx in ("", "_bf16")
+            for sfx in ("", "_bf16", "_fp16")
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
     # the eager AdamW's step: one fused_update launch a round
     want.update(fused_update=rounds, codec_encode=nb * rounds,
@@ -4397,7 +4446,7 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
                  bf16_rows, bf16_counts, dp16, ce_rows, ce_counts, bert_run,
                  resnet_run, widedeep_run, lenet_run, flash_entry,
-                 mobilenet_run, ptb_run, gcn_run):
+                 mobilenet_run, ptb_run, gcn_run, fp16_run):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -4447,7 +4496,14 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     launches. Phase 37's
     launches through ``F.flash_attention`` are ``at_shapes`` of the flash
     kernels of their dtype, at GPT-125M's and BERT-base's shapes, each
-    with its time through the entry (``entry_ms``)."""
+    with its time through the entry (``entry_ms``). The fp16 forms
+    (``fp16_run``, phases 44-47) are entries of their own:
+    ``flash_fwd_fp16`` etc. at the fp16 train step's shape, their
+    launches those of phase 45's timed steps, BERT-base's full-mode shape
+    in ``at_shapes`` with phase 47's launches, and ``fused_update_fp16``
+    over GPT-125M's fp16 plan (the same kernel), its launches phase 45's;
+    each row carries ``bf16_ms``, the bf16 form's time at the same shape
+    in the same call."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -4587,6 +4643,30 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                                      if (r == "cluster") == cluster),
                         routes=dict(routes), **_numbers(main),
                         at_shapes=[_numbers(r) for r in rest]))
+    k16 = fp16_run["kernels"]
+    counts45 = fp16_run["train"]["counts"]
+    counts47 = fp16_run["bert"]["counts"]
+    for name, replaces in (
+            ("flash_fwd", "paddle_tpu/ops/flash_attention.py:118"),
+            ("flash_dq", "paddle_tpu/ops/flash_attention.py:213"),
+            ("flash_dkv", "paddle_tpu/ops/flash_attention.py:251"),
+            ("fused_update", "paddle_tpu/ops/pallas/fused_update.py:122")):
+        update = name == "fused_update"
+        entry = dict(name=name + "_fp16", route="cuda",
+                     source=(fu if update else fa).KERNEL_SOURCE,
+                     replaces=replaces,
+                     launches=counts45[name if update else name + "_fp16"],
+                     **_numbers(k16["rows"][name]))
+        if not update:
+            entry["bf16_ms"] = k16["bf16"]["gpt"][name]["ms"]
+            entry["at_shapes"] = [dict(
+                _numbers(k16["bert"][name]),
+                bf16_ms=k16["bf16"]["bert"][name]["ms"],
+                launches_at_shape=counts47[name + "_fp16"])]
+        out.append(entry)
+    pair = k16["rows"][PAIR]
+    next(e for e in out if e["name"] == "flash_dkv_fp16").update(
+        pair_ms=pair["ms"], library_ms=pair["library_ms"])
     return {"kernels": out}
 
 
@@ -4602,8 +4682,8 @@ def phase_bert(dev, gen, seed, infer32):
     cfg_ce = dataclasses.replace(cfg, fused_loss_chunk=CE_CHUNK)
     counts, step, batch, unfused = phase_bert_train(cfg, dev, seed)
     plan = step.buckets
-    phase_train_profile(lambda: bert_step(step, batch), names=BF16_KERNELS,
-                        tag=" bert O2")
+    prof25 = phase_train_profile(lambda: bert_step(step, batch),
+                                 names=BF16_KERNELS, tag=" bert O2")
     del step, batch
     torch.cuda.empty_cache()
     counts_ce, step, batch, fused = phase_bert_train(cfg_ce, dev, seed)
@@ -4651,7 +4731,8 @@ def phase_bert(dev, gen, seed, infer32):
                                      for i, r in enumerate(qmm_rows)})
     return {"counts": counts, "counts_ce": counts_ce, "rows": rows,
             "ce_rows": ce_rows, "cfg_ce": cfg_ce, "qmm_rows": qmm_rows,
-            "qmm_routes": infer_counts["routes"] + counts_b1["routes"]}
+            "qmm_routes": infer_counts["routes"] + counts_b1["routes"],
+            "unfused": unfused, "profile": prof25}
 
 
 def phase_infer_b1(dev, seed, b=INFER_B1[0], s=INFER_B1[1]):
@@ -6939,6 +7020,337 @@ def phase_gcn(dev, seed):
             "plain_ms": plain_ms, "profile": prof, "bitwise": bitwise}
 
 
+# ------------------------------------------------------- fp16 (44-47)
+DS_SMALL = 2.0 ** -16               # dO of a GradScaler's unscaled step
+OPT_LOSS_RTOL = 1e-4                # phase 46: the loss after one update
+POLICIES = (("none",), ("remat",), ("offload",), ("none", "remat",
+                                                  "offload"))
+
+
+def fp16_config(**over):
+    """bench.py's GPT-125M training configuration in fp16."""
+    from paddle_tpu_torch.models import gpt_presets
+
+    return gpt_presets("gpt-125m", max_position_embeddings=1024,
+                       dtype="float16", **over)
+
+
+def phase_fp16_kernels(dev, gen, plan):
+    """Phase 44: the fp16 forms of the train step's kernels, checked and
+    timed as phase 16 times the bf16 ones (``plan``: the fp16 plan), the
+    bf16 forms timed again here beside them."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    fp16, bf16 = torch.float16, torch.bfloat16
+    rows = _flash_case(dev, gen, FLASH_MAIN, True, True, flush, fp16)
+    bert = _flash_case(dev, gen, FLASH_BERT, False, True, flush, fp16)
+    beside = {"gpt": _flash_case(dev, gen, FLASH_MAIN, True, True, flush,
+                                 bf16),
+              "bert": _flash_case(dev, gen, FLASH_BERT, False, True, flush,
+                                  bf16)}
+    for shape, causal in FLASH_CHECKS:
+        _flash_case(dev, gen, shape, causal, False, flush, fp16)
+    for shape, causal in ((FLASH_MAIN, True), (FLASH_BERT, False)):
+        _flash_case(dev, gen, shape, causal, False, flush, fp16, DS_SMALL)
+    for key, got in (("gpt", rows), ("bert", bert)):
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            r, b = got[name], beside[key][name]
+            log(f"fp16 against bf16, {name} {r['shape']}: {r['ms']:.4f} ms "
+                f"against {b['ms']:.4f} (bound {r['bound_ms']:.4f} "
+                f"{r['bound_by']}, both); fp16 at "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}% of it")
+    fused = _fused_timing(dev, gen, plan, flush)
+    rows["fused_update"] = fused
+    log(f"fused_update fp16 plan, one step's {fused['shape']}, one launch, "
+        f"device time (from an idle card): as FusedFlatUpdater.step() calls "
+        f"it {fused['step_ms']:.4f} ms ({fused['step_span_ms']:.4f}), the "
+        f"kernel alone {fused['ms']:.4f} ({fused['span_ms']:.4f}), "
+        f"torch._fused_adamw_ ({fused['library_form']}) "
+        f"{fused['library_ms']:.4f} ({fused['library_span_ms']:.4f}); plain "
+        f"{fused['plain_ms']:.4f}; bound {fused['bound_ms']:.4f} "
+        f"{fused['bound_by']}, the kernel at "
+        f"{100 * fused['bound_ms'] / fused['ms']:.1f}% of it")
+    del flush
+    return {"rows": rows, "bert": bert, "bf16": beside}
+
+
+def phase_fp16_train(dev, seed, plan, train16, prof17):
+    """Phase 45: GPT-125M in fp16 with dropout 0.1 at bench.py's shape
+    (``phase_train``: launch counts, losses), profiled, beside phase 17
+    (``train16``, ``prof17``); card against CPU at 2 layers; a step at
+    ``attn_dropout=0.1`` launches no flash kernel."""
+    import dataclasses
+
+    cfg = fp16_config(dropout=0.1)
+    counts, step, ids, labels, summary = phase_train(cfg, dev, seed)
+    if [(b.size, b.dtype) for b in step.buckets] != [(b.size, b.dtype)
+                                                    for b in plan]:
+        raise AssertionError("the fp16 train step's bucket plan is not the "
+                             "timed one")
+    prof = phase_train_profile(lambda: bench_step(step, cfg, ids, labels),
+                               names=FP16_KERNELS, tag=" fp16")
+    del step
+    torch.cuda.empty_cache()
+    log(f"train fp16 (dropout 0.1) against phase 17 (bf16) in this call: "
+        f"step {summary['step_ms_median']:.2f} ms against "
+        f"{train16['step_ms_median']:.2f}, {summary['tokens_per_s']:.0f} "
+        f"tokens/s against {train16['tokens_per_s']:.0f}, peak "
+        f"{summary['peak_memory_gib']:.2f} GiB against "
+        f"{train16['peak_memory_gib']:.2f}, idle "
+        f"{100 * prof['idle_share']:.1f}% against "
+        f"{100 * prof17['idle_share']:.1f}%")
+    phase_train_parity(dataclasses.replace(cfg, dropout=0.0), dev, seed)
+    torch.cuda.empty_cache()
+    ad = dataclasses.replace(cfg, attn_dropout=0.1, num_layers=2)
+    _, step_ad, ids, labels = _train_setup(ad, dev, 2, TRAIN_S, seed)
+    reset_train_launch_counts()
+    loss = float(bench_step(step_ad, ad, ids, labels))
+    got = train_launch_counts()
+    flash = {k: v for k, v in got.items() if k.startswith("flash")}
+    log(f"train fp16, attn_dropout 0.1, 2 layers, b2 s{TRAIN_S}: one step, "
+        f"loss {loss:.5f}, flash launches {flash}, fused_update "
+        f"{got['fused_update']}")
+    if any(flash.values()) or got["fused_update"] != 1 or \
+            not math.isfinite(loss):
+        raise AssertionError(f"attn_dropout > 0 launched {got}")
+    del step_ad
+    torch.cuda.empty_cache()
+    return {"counts": counts, "summary": summary, "profile": prof}
+
+
+def _policy_grads(model, ids, labels):
+    """The loss and every gradient of one forward and backward."""
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+
+    for p in model.parameters():
+        p.grad = None
+    loss = GPTPretrainingCriterion()(model(ids), labels)
+    loss.backward()
+    return loss.detach().clone(), {n: p.grad.clone() for n, p in
+                                   model.named_parameters()}
+
+
+def phase_gpt_options(dev, seed):
+    """Phase 46: recompute_policy at GPT-125M fp16 (dropout 0), then
+    Lamb, Lars and DGCMomentum under TrainStep."""
+    from paddle_tpu_torch.models import gpt as gpt_mod
+
+    cfg = fp16_config()
+    model, step, ids, labels = _train_setup(cfg, dev, TRAIN_B, TRAIN_S, seed)
+    idt = torch.as_tensor(ids, device=dev)
+    lbt = torch.as_tensor(labels, device=dev)
+
+    def set_policy(vec):
+        import dataclasses
+
+        pols = gpt_mod._resolve_policies(
+            dataclasses.replace(cfg, recompute_policy=vec), cfg.num_layers)
+        for blk, pol in zip(model.gpt.decoder, pols):
+            blk.policy = pol
+
+    set_policy(("none",))
+    base_loss, base = _policy_grads(model, idt, lbt)
+    again_loss, again = _policy_grads(model, idt, lbt)
+    noisy = [n for n in base if not torch.equal(base[n], again[n])]
+    spread = {n: float((base[n].float() - again[n].float()).abs().max())
+              for n in noisy}
+    if noisy or not torch.equal(base_loss, again_loss):
+        log(f"policies: two 'none' runs differ in {len(noisy)} gradients "
+            f"({noisy[:4]}...); policies held within twice that spread")
+    results = {}
+    for vec in POLICIES[1:]:
+        set_policy(vec)
+        loss, grads = _policy_grads(model, idt, lbt)
+        same = torch.equal(loss, base_loss) and all(
+            torch.equal(g, base[n]) for n, g in grads.items())
+        if not same:
+            over = [n for n, g in grads.items()
+                    if float((g.float() - base[n].float()).abs().max())
+                    > 2 * spread.get(n, 0.0)]
+            if over or not noisy:
+                raise AssertionError(f"recompute_policy {vec}: gradients "
+                                     f"differ from 'none' in {over[:6]}")
+        results[vec] = {"bitwise": same}
+    del base, again
+    log(f"recompute_policy at GPT-125M fp16 b{TRAIN_B} s{TRAIN_S}: loss and "
+        f"every gradient equal to 'none' bit for bit: "
+        + ", ".join(f"{'/'.join(v)} {r['bitwise']}"
+                    for v, r in results.items()))
+    for vec in POLICIES:
+        set_policy(vec)
+        float(bench_step(step, cfg, ids, labels))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gpt_mod.reset_offload_bytes()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            float(bench_step(step, cfg, ids, labels))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        r = results.setdefault(vec, {"bitwise": True})
+        r.update(step_ms=statistics.median(ms),
+                 peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 offload_bytes_a_step=gpt_mod.offload_bytes // 3)
+        log(f"recompute_policy {'/'.join(vec)}: step {r['step_ms']:.2f} ms, "
+            f"peak {r['peak_memory_gib']:.2f} GiB, parked in pinned host "
+            f"memory {r['offload_bytes_a_step'] / 2**20:.1f} MiB a step")
+    if results[("offload",)]["offload_bytes_a_step"] != \
+            cfg.num_layers * TRAIN_B * TRAIN_S * cfg.hidden_size * 2:
+        raise AssertionError("offload parked another size than the blocks' "
+                             "inputs")
+    del step, model
+    torch.cuda.empty_cache()
+    opts = phase_unfusable_optimizers(dev, seed)
+    return {"policies": {"/".join(v): r for v, r in results.items()},
+            "optimizers": opts}
+
+
+def _opt_run(cfg, device, name, b, s, seed, steps):
+    """``steps`` TrainStep steps of ``cfg`` under the optimizer ``name``
+    (lr 1e-4); returns the losses and the fused_update launches."""
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM, GPTPretrainingCriterion
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    model = GPTForCausalLM(cfg, seed=0, device=device)
+    kw = {"DGCMomentum": dict(rampup_begin_step=0, sparsity=(0.999,))}
+    opt = getattr(optim, name)(learning_rate=LR,
+                               parameters=model.parameters(),
+                               **kw.get(name, {}))
+    step = TrainStep(model, GPTPretrainingCriterion(), opt)
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg.vocab_size, (b, s))
+    labels = rs.randint(0, cfg.vocab_size, (b, s))
+    before = fu.fused_update_buckets.launches
+    losses = [float(step(inputs=(ids,), labels=(labels,)))
+              for _ in range(steps)]
+    return losses, fu.fused_update_buckets.launches - before
+
+
+def phase_unfusable_optimizers(dev, seed):
+    """Phase 46's second half: Lamb, Lars, DGCMomentum under TrainStep
+    at GPT-125M fp16, then card against CPU at 2 layers in fp32."""
+    import dataclasses
+
+    out = {}
+    for name in ("Lamb", "Lars", "DGCMomentum"):
+        t0 = time.perf_counter()
+        losses, launches = _opt_run(fp16_config(), dev, name, TRAIN_B,
+                                    TRAIN_S, seed, 3)
+        torch.cuda.synchronize()
+        small = dataclasses.replace(fp16_config(), dtype="float32",
+                                    num_layers=2)
+        card, _ = _opt_run(small, dev, name, 2, 128, seed + 2, 2)
+        cpu, _ = _opt_run(small, "cpu", name, 2, 128, seed + 2, 2)
+        rel = [abs(a - c) / abs(c) for a, c in zip(card, cpu)]
+        log(f"TrainStep {name} at GPT-125M fp16 b{TRAIN_B} s{TRAIN_S}: "
+            f"losses {losses}, fused_update launches {launches}, "
+            f"{time.perf_counter() - t0:.1f} s with the 2-layer check; card "
+            f"vs CPU (fp32, 2 layers, b2 s128): losses {card} vs {cpu} (rel "
+            f"{rel[0]:.2e} limit 1e-5, {rel[1]:.2e} limit "
+            f"{OPT_LOSS_RTOL:.0e})")
+        if launches or not all(math.isfinite(x) for x in losses) or \
+                not (rel[0] <= 1e-5 and rel[1] <= OPT_LOSS_RTOL):
+            raise AssertionError(f"TrainStep {name}: {losses}, {launches} "
+                                 f"launches, card vs CPU {rel}")
+        out[name] = {"losses": losses, "card_vs_cpu_rel": rel}
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_bert_fp16(dev, seed, bert25, warmup_max=8, steps=BERT_STEPS,
+                    b=BERT_B, s=BERT_S):
+    """Phase 47: BERT-base under decorate and auto_cast(O2, float16) with
+    a GradScaler in the eager step, beside phase 25 (``bert25``)."""
+    from paddle_tpu_torch import tensor as T
+    from paddle_tpu_torch.amp import GradScaler, auto_cast, decorate
+    from paddle_tpu_torch.models import BertForPretraining, bert_presets
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = bert_presets("bert-base")
+    model = decorate(BertForPretraining(cfg, seed=0, device=dev),
+                     level="O2", dtype="float16")
+    opt = AdamW(learning_rate=BERT_LR, parameters=model.parameters())
+    scaler = GradScaler()
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg.vocab_size, (b, s))
+    mlm = np.where(rs.rand(b, s) < 0.15, ids, -1)
+    nsp = rs.randint(0, 2, (b,))
+    ids, mlm, nsp = (torch.as_tensor(a, dtype=torch.long, device=dev)
+                     for a in (ids, mlm, nsp))
+
+    def one(plant=False):
+        with auto_cast(level="O2", dtype="float16"):
+            a, n = model(ids, None, None, None, mlm)
+            loss = T.add(a, F.cross_entropy(n, nsp))
+        scaler.scale(loss).backward()
+        if plant:
+            next(model.parameters()).grad.view(-1)[0] = float("inf")
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return float(loss.detach())
+
+    scales, losses, good = [], [], 0
+    for _ in range(warmup_max):    # until two steps in a row update
+        losses.append(one())
+        scales.append(scaler.state_dict()["scale"])
+        good = 0 if scaler.last_step_skipped else good + 1
+        if good >= 2:
+            break
+    log(f"bert fp16 O2 warm-up: scale {scales}, losses {losses}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launch_counts()
+    reads, ms, skipped = scaler.host_reads, [], 0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(one())              # float() waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+        skipped += scaler.last_step_skipped
+    counts = train_launch_counts()
+    reads = scaler.host_reads - reads
+    med = statistics.median(ms)
+    summary = {"losses": losses, "step_ms": ms, "step_ms_median": med,
+               "samples_per_s": b / (med / 1e3),
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "skipped": skipped, "scale": scaler.state_dict()["scale"],
+               "host_reads": reads, "launches": counts}
+    log("bert train O2 fp16 eager + GradScaler " + json.dumps(summary))
+    want = {k: 0 for k in counts}
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        want[name + "_fp16"] = cfg.num_layers * steps
+    want["fused_update"] = steps - skipped
+    if counts != want or reads != steps or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bert fp16: launch counts {counts}, expected "
+                             f"{want}; {reads} host reads for {steps} "
+                             f"steps; losses {losses}")
+    prof = phase_train_profile(one, names=FP16_KERNELS, tag=" bert O2 fp16")
+    u25, p25 = bert25["unfused"], bert25["profile"]
+    log(f"bert fp16 O2 eager step against phase 25 (bf16 O2, TrainStep) in "
+        f"this call: {med:.2f} ms against {u25['step_ms_median']:.2f}, "
+        f"{summary['samples_per_s']:.1f} samples/s against "
+        f"{u25['samples_per_s']:.1f}, idle {100 * prof['idle_share']:.1f}% "
+        f"against {100 * p25['idle_share']:.1f}%, peak "
+        f"{summary['peak_memory_gib']:.2f} GiB against "
+        f"{u25['peak_memory_gib']:.2f}")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    scale = scaler.state_dict()["scale"]
+    one(plant=True)
+    still = all(torch.equal(p.detach().view(torch.int16),
+                            before[n].view(torch.int16))
+                for n, p in model.named_parameters())
+    halved = scaler.state_dict()["scale"] == scale / 2
+    log(f"bert fp16 planted inf: step skipped {scaler.last_step_skipped}, "
+        f"every parameter's bits kept {still}, scale {scale} -> "
+        f"{scaler.state_dict()['scale']}")
+    if not (scaler.last_step_skipped and still and halved):
+        raise AssertionError("the planted inf step was not skipped cleanly")
+    return {"counts": counts, "summary": summary, "profile": prof}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7042,8 +7454,9 @@ def main(argv=None) -> int:
                                                     for b in plan16]:
         raise AssertionError("the bf16 train step's bucket plan is not the "
                              "timed one")
-    phase_train_profile(lambda: bench_step(step, cfg16, ids, labels),
-                        names=BF16_KERNELS)
+    prof17 = phase_train_profile(lambda: bench_step(step, cfg16, ids,
+                                                    labels),
+                                 names=BF16_KERNELS)
     del step
     torch.cuda.empty_cache()
     lm_head_gemms(dev, gen, cfg16)
@@ -7206,6 +7619,31 @@ def main(argv=None) -> int:
     log(f"phase 43 (gcn): {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    # fp16: the kernels' fp16 forms, GPT-125M trained in fp16, GPT's
+    # remaining training options, BERT-base under fp16 amp
+    plan_h = bucket_plan(fp16_config())
+    t0 = time.perf_counter()
+    before = clocks("before fp16 kernels")
+    fp16_k = phase_fp16_kernels(dev, gen, plan_h)
+    stamp([*fp16_k["rows"].values(), *fp16_k["bert"].values()], before,
+          clocks("after fp16 kernels"))
+    log_ratios("fp16 kernels", {**fp16_k["rows"],
+                                **{f"bert {n}": r
+                                   for n, r in fp16_k["bert"].items()}})
+    log(f"phase 44 (fp16 kernels): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fp16_t = phase_fp16_train(dev, args.seed, plan_h, train16, prof17)
+    log(f"phase 45 (train fp16): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    options = phase_gpt_options(dev, args.seed)
+    log(f"phase 46 (gpt options): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bert_h = phase_bert_fp16(dev, args.seed, bert)
+    log(f"phase 47 (bert fp16): {time.perf_counter() - t0:.1f} s")
+    del options
+    torch.cuda.empty_cache()
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
             "rank": dp16_rank}
@@ -7216,7 +7654,8 @@ def main(argv=None) -> int:
                                   bert, {"counts": counts29, "row": row_r},
                                   {"counts": counts31, "row": row_wd},
                                   lenet, flash_entry, mobilenet, ptb_run,
-                                  gcn)))
+                                  gcn, {"kernels": fp16_k, "train": fp16_t,
+                                        "bert": bert_h})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

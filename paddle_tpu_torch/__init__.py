@@ -18,8 +18,10 @@ Slice 4: data-parallel training on the quantized gradient wire, one
 process per rank over ``torch.distributed``, each bucket's summed
 payload decoded inside the optimizer update by a CUDA kernel
 (``csrc/fused_update.cu``, one launch a step over every bucket). Later
-slices: bf16 GPT training on bf16 forms of the flash and update kernels,
-bf16 buckets on the gradient wire (the codecs read and write bf16), and
+slices: bf16 GPT training on bf16 forms of the flash and update kernels
+(and fp16 training on their fp16 forms, with ``GradScaler`` under fp16
+amp and GPT's dropout, ``recompute_policy`` and the per-parameter
+optimizers in ``jit.TrainStep``), bf16 buckets on the gradient wire (the codecs read and write bf16), and
 the training options of ``bench.py``: the chunked linear +
 cross-entropy loss on two CUDA chunk kernels (``csrc/fused_ce.cu``),
 recompute, learning-rate schedulers and gradient clips; then

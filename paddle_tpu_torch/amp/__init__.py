@@ -28,8 +28,10 @@ fp32 parameter in fp32. The state is thread-local, as in the reference.
 dtype in place; the optimizers keep fp32 moments (the port's update
 rules compute in fp32). ``GradScaler`` is the reference's dynamic loss
 scaling: inert for bf16 in practice (the scale never overflows), the
-full protocol when asked for (check finite, skip and shrink, or grow
-after ``incr_every_n_steps`` good steps).
+full protocol when asked for, as fp16 needs it (check finite, skip and
+shrink, or grow after ``incr_every_n_steps`` good steps). Its finite
+check is one flag on the device over every gradient, read once a step
+(``GradScaler.host_reads`` counts the reads).
 """
 from __future__ import annotations
 
@@ -182,6 +184,8 @@ class GradScaler:
         self._unscaled = False
         # True while the last step() skipped its update for an inf/nan
         self.last_step_skipped = False
+        # reads of the device's finite flag by the host, one a step
+        self.host_reads = 0
 
     def scale(self, loss):
         if not self._enable:
@@ -190,18 +194,23 @@ class GradScaler:
 
     @torch.no_grad()
     def unscale_(self, optimizer):
-        """Divide every gradient by the scale, once per step."""
+        """Divide every gradient by the scale, once per step: each in
+        fp32 and written back in place in its dtype. Whether one is not
+        finite is gathered on the device, over the unscaled fp32 values,
+        and read by the host once (the reference reads it a parameter)."""
         if not self._enable or self._unscaled:
             return
         inv = 1.0 / self._scale
-        found = False
+        finite = []
         for p in optimizer._parameter_list:
             p = getattr(p, "_value", p)     # an eager Parameter's payload
             if p.grad is not None:
                 g = p.grad.to(torch.float32) * inv
-                found = found or not bool(torch.isfinite(g).all())
-                p.grad = g.to(p.grad.dtype)
-        self._found_inf = found
+                finite.append(torch.isfinite(g).all())
+                p.grad.copy_(g)
+        self._found_inf = bool(finite) and not bool(
+            torch.stack(finite).all())
+        self.host_reads += bool(finite)
         self._unscaled = True
 
     def step(self, optimizer):

@@ -113,6 +113,17 @@
 // bf16 dense: 0.013 ms forward, 0.020 dq, 0.026 dkv of operations
 // against 0.0151 / 0.019 / 0.023 ms of bytes (PERF.md).
 //
+// fp16 forms (flash_fwd_fp16, flash_dq_fp16, flash_dkv_fp16): the bf16
+// kernels below are templates over the element type E, and the fp16
+// instances differ in three places only: the tensor maps' data type, the
+// wgmma operand type (.f16 for .bf16: the same fragments and
+// descriptors) and the rounding of p and ds to fp16 (__floats2half2_rn).
+// fp16 keeps 3 more mantissa bits than bf16 but 5 fewer exponent bits,
+// and dS underflows: the backward scales each dS row by a power of two
+// before it rounds it (ds_scale_rows, below; tests/test_torch_fp16_train.py
+// models the alternatives). The bounds are bf16's: the same bytes and the
+// same dense rate.
+//
 // The three bf16 kernels, flash_fwd_bf16 (replaces _fwd_kernel,
 // flash_attention.py:118), flash_dq_bf16 (_dq_kernel, :213) and
 // flash_dkv_bf16 (_dkv_kernel, :251), are Hopper's own design
@@ -177,6 +188,7 @@
 // d <= 64 (three blocks an SM), 158-160 above; no spills.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -815,21 +827,40 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------ bf16 forms
 using bf16 = __nv_bfloat16;
+using fp16 = __half;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x low
+// Two floats rounded to nearest even as one register of two 16-bit
+// values of type E (bf16 or fp16), lo in the low half; and the pair type.
+template <typename E> struct Pair16;
+template <> struct Pair16<bf16> {
+  using type = __nv_bfloat162;
+  __device__ static type round(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);   // .x low
+  }
+};
+template <> struct Pair16<fp16> {
+  using type = __half2;
+  __device__ static type round(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);       // .x low
+  }
+};
+
+template <typename E>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  const typename Pair16<E>::type v = Pair16<E>::round(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // The A fragment of key (or query) chunk c from the 8-register chunk 8c
 // of a wgmma score accumulator (x0 = its n-tile 2c, x1 = 2c + 1),
-// rounded to bf16.
+// rounded to E.
+template <typename E>
 __device__ __forceinline__ void score_frag(uint32_t* a, const float* x0,
                                            const float* x1) {
-  a[0] = pack_bf16(x0[0], x0[1]);
-  a[1] = pack_bf16(x0[2], x0[3]);
-  a[2] = pack_bf16(x1[0], x1[1]);
-  a[3] = pack_bf16(x1[2], x1[3]);
+  a[0] = pack16<E>(x0[0], x0[1]);
+  a[1] = pack16<E>(x0[2], x0[3]);
+  a[2] = pack16<E>(x1[0], x1[1]);
+  a[3] = pack16<E>(x1[2], x1[3]);
 }
 
 // ------------------------------------------- bf16 kernels: wgmma + TMA
@@ -863,21 +894,90 @@ constexpr int kDqMinBlocks = 2;    // blocks an SM asked of ptxas at d <= 64
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Store rows r and r + 8 (h = 0, 1) of a warp's wgmma accumulators over
-// `NB` 64-column boxes, times `mul`, as bf16: the columns below D.
-template <int D, int NB>
-__device__ __forceinline__ void store_boxes(bf16* dst,
+// `NB` 64-column boxes, times `mul`, as E: the columns below D.
+template <typename E, int D, int NB>
+__device__ __forceinline__ void store_boxes(E* dst,
                                             const float (&acc)[NB][32],
                                             int row, int h, int t,
                                             float mul) {
-  bf16* o = dst + static_cast<size_t>(row) * D + 2 * t;
+  E* o = dst + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
   for (int b = 0; b < NB; ++b)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       if (64 * b + 8 * j < D)
-        *reinterpret_cast<__nv_bfloat162*>(o + 64 * b + 8 * j) =
-            __floats2bfloat162_rn(acc[b][4 * j + 2 * h] * mul,
-                                  acc[b][4 * j + 2 * h + 1] * mul);
+        *reinterpret_cast<typename Pair16<E>::type*>(o + 64 * b + 8 * j) =
+            Pair16<E>::round(acc[b][4 * j + 2 * h] * mul,
+                             acc[b][4 * j + 2 * h + 1] * mul);
+}
+
+// The fp16 backward's remedy for dS's range. fp16's smallest normal is
+// 6.1e-5 and it holds nothing under 6e-8, while dS = p (dP - delta) at a
+// training shape lies near or below both (the loss's gradient is ~1/(b s)
+// an element, and p ~1/s), so dS rounded to fp16 as it is would lose most
+// of its bits or all of them (tests/test_torch_fp16_train.py models it).
+// Each accumulator row r (a query row of dQ, a key row of dK) keeps a
+// power-of-two exponent k_r, at first kDsShiftMax: a tile's dS row is
+// multiplied by 2^k_r before it is rounded to fp16, where k_r falls to
+// 14 - e, e the exponent of the row's largest |dS| in the tile, whenever
+// that is lower, so the largest lands in [2^14, 2^15); when k_r falls the
+// row's fp32 accumulator is multiplied by 2^(new - old) first (exact),
+// and the epilogue multiplies by 2^-k_r. A row's rounding is then relative
+// to its running largest |dS|, as bf16's exponent would give it. bf16 has
+// fp32's exponent and keeps the plain rounding.
+constexpr int kDsShiftMax = 100;
+
+__device__ __forceinline__ int ds_shift(float amax) {
+  const int e = static_cast<int>((__float_as_uint(amax) >> 23) & 0xff) - 127;
+  return max(-kDsShiftMax, min(kDsShiftMax, 14 - e));
+}
+
+// 2^k as a float from its exponent bits (k in [-126, 127]), 0 below: a
+// shift's factor without scalbnf's special cases
+__device__ __forceinline__ float exp2i(int k) {
+  return k < -126 ? 0.0f : __int_as_float((127 + k) << 23);
+}
+
+// The epilogue's multiplier of a dS product's row: scale, and for fp16
+// 2^-k of the row's shift.
+template <typename E>
+__device__ __forceinline__ float ds_unscale(float scale, int k) {
+  if constexpr (std::is_same<E, fp16>::value)
+    return scale * exp2i(-k);
+  else
+    return scale;
+}
+
+// Row h of a thread's dS in x (its N-wide accumulator layout, N = 8 NJ
+// columns) scaled by 2^ks[h] after ks[h] falls to this tile's shift; the
+// row of the NB-box accumulator acc rescaled when it does.
+template <int NJ, int NB>
+__device__ __forceinline__ void ds_scale_rows(float* x, float (&acc)[NB][32],
+                                              int (&ks)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) mx = fmaxf(mx, fabsf(x[4 * j + 2 * h + e]));
+    const int k = min(ks[h], ds_shift(quad_max(mx)));
+    if (k != ks[h]) {
+      const float f = exp2i(k - ks[h]);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) acc[b][4 * j + 2 * h + e] *= f;
+      ks[h] = k;
+    }
+    const float up = exp2i(k);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) x[4 * j + 2 * h + e] *= up;
+  }
 }
 
 template <int D, int WG, int ST>
@@ -891,14 +991,14 @@ struct FwdHopper {
       hopper::kSwizzleAlign + kQ + ST * kStage + 8 * (1 + 2 * ST);
 };
 
-template <int D, int WG, int ST>
+template <typename E, int D, int WG, int ST>
 __global__ void __launch_bounds__(FwdHopper<D, WG, ST>::kThreads,
                                   FwdHopper<D, WG, ST>::kMinBlocks)
-fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-                const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv,
-                bf16* __restrict__ out, float* __restrict__ lse, int s,
-                int causal, float scale) {
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 E* __restrict__ out, float* __restrict__ lse, int s,
+                 int causal, float scale) {
   using namespace hopper;
   using T = FwdHopper<D, WG, ST>;
   constexpr int NB = T::NB, KS = D / 16;
@@ -969,7 +1069,7 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 32; ++i) o[b][i] = 0.0f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, alpha[2];
   float sc[32];          // the scores, then p, of the newest tile
-  uint32_t pa[4][4];     // p of the tile whose P.V is next, bf16
+  uint32_t pa[4][4];     // p of the tile whose P.V is next, as E
   const uint32_t qa = smem_u32(Qs + wg * NB * kBoxBytes);
   auto stage = [&](int kt) { return smem_u32(KV + (kt % ST) * T::kStage); };
 
@@ -981,7 +1081,8 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int k = 0; k < KS; ++k) {
       const uint32_t off = (k / 4) * kBoxBytes + (k % 4) * 32;
-      wgmma_ss_n64(sc, desc_sw128(qa + off), desc_sw128(ka + off), k > 0);
+      wgmma_ss_n64<E>(sc, desc_sw128(qa + off), desc_sw128(ka + off),
+                      k > 0);
     }
     wgmma_commit();
   };
@@ -994,8 +1095,8 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int c = 0; c < 4; ++c) {
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        wgmma_rs_n64_mn(o[b], pa[c],
-                        desc_sw128(va + b * kBoxBytes + c * 2048));
+        wgmma_rs_n64_mn<E>(o[b], pa[c],
+                           desc_sw128(va + b * kBoxBytes + c * 2048));
     }
     wgmma_commit();
   };
@@ -1053,7 +1154,8 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
           o[b][4 * j + 2 * h + 1] *= alpha[h];
         }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) score_frag(pa[c], sc + 8 * c, sc + 8 * c + 4);
+    for (int c = 0; c < 4; ++c)
+      score_frag<E>(pa[c], sc + 8 * c, sc + 8 * c + 4);
   };
   auto drain = [&]() {   // every product of this warpgroup done
     wgmma_wait<0>();
@@ -1102,8 +1204,8 @@ fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = r0 + 8 * h;
     const float li = fmaxf(quad_sum(l[h]), 1e-30f);
     if (row >= s) continue;
-    store_boxes<D, NB>(out + static_cast<size_t>(bh) * s * D, o, row, h, t,
-                       1.0f / li);
+    store_boxes<E, D, NB>(out + static_cast<size_t>(bh) * s * D, o, row, h,
+                          t, 1.0f / li);
     if (t == 0)
       lse[static_cast<size_t>(bh) * s + row] = m[h] * scale + logf(li);
   }
@@ -1126,24 +1228,24 @@ struct DkvHopper {
 };
 
 // One k-step of d = A.B (+ d), N = 64 or 32 (the accumulator's size)
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate) {
   if constexpr (N == 64)
-    hopper::wgmma_ss_n64(d, a, b, accumulate);
+    hopper::wgmma_ss_n64<E>(d, a, b, accumulate);
   else
-    hopper::wgmma_ss_n32(d, a, b, accumulate);
+    hopper::wgmma_ss_n32<E>(d, a, b, accumulate);
 }
 
-template <int D, int WG, int ST>
+template <typename E, int D, int WG, int ST>
 __global__ void __launch_bounds__(DkvHopper<D, WG, ST>::kThreads)
-dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-                const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv,
-                const __grid_constant__ CUtensorMap tdo,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dk,
-                bf16* __restrict__ dv, int s, int causal, float scale) {
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, E* __restrict__ dk,
+                 E* __restrict__ dv, int s, int causal, float scale) {
   using namespace hopper;
   using T = DkvHopper<D, WG, ST>;
   constexpr int NB = T::NB, BQ = T::BQ, KS = D / 16;
@@ -1229,6 +1331,7 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 32; ++i) dka[b][i] = dva[b][i] = 0.0f;
   const uint32_t ka = smem_u32(Own + 2 * wg * NB * kBoxBytes);
   const uint32_t va = ka + NB * kBoxBytes;
+  int ks[2] = {kDsShiftMax, kDsShiftMax};   // fp16: each key row's 2^k
   mbar_wait(own_full, 0);
 
   for (int qt = qt_begin, i = 0; qt < n_qt; ++qt, ++i) {
@@ -1252,8 +1355,10 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       for (int k = 0; k < KS; ++k) {
         const uint32_t oa_k = (k / 4) * kBoxBytes + (k % 4) * 32;
         const uint32_t ob_k = (k / 4) * T::kQBox + (k % 4) * 32;
-        wgmma_ss<BQ>(sT, desc_sw128(ka + oa_k), desc_sw128(qa + ob_k), k > 0);
-        wgmma_ss<BQ>(dpT, desc_sw128(va + oa_k), desc_sw128(oa + ob_k), k > 0);
+        wgmma_ss<E, BQ>(sT, desc_sw128(ka + oa_k), desc_sw128(qa + ob_k),
+                        k > 0);
+        wgmma_ss<E, BQ>(dpT, desc_sw128(va + oa_k), desc_sw128(oa + ob_k),
+                        k > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1287,12 +1392,14 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         p_ds(std::true_type());
       else
         p_ds(std::false_type());
+      if constexpr (std::is_same<E, fp16>::value)
+        ds_scale_rows<BQ / 8, NB>(dpT, dka, ks);
 
       uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
       for (int c = 0; c < BQ / 16; ++c) {
-        score_frag(pa[c], sT + 8 * c, sT + 8 * c + 4);
-        score_frag(da[c], dpT + 8 * c, dpT + 8 * c + 4);
+        score_frag<E>(pa[c], sT + 8 * c, sT + 8 * c + 4);
+        score_frag<E>(da[c], dpT + 8 * c, dpT + 8 * c + 4);
       }
       wgmma_fence();
       // dV += P^T dO and dK += dS^T Q, dO and Q MN-major: the tile's
@@ -1301,10 +1408,10 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       for (int c = 0; c < BQ / 16; ++c) {
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
-          wgmma_rs_n64_mn(dva[b], pa[c],
-                          desc_sw128(oa + b * T::kQBox + c * 2048));
-          wgmma_rs_n64_mn(dka[b], da[c],
-                          desc_sw128(qa + b * T::kQBox + c * 2048));
+          wgmma_rs_n64_mn<E>(dva[b], pa[c],
+                             desc_sw128(oa + b * T::kQBox + c * 2048));
+          wgmma_rs_n64_mn<E>(dka[b], da[c],
+                             desc_sw128(qa + b * T::kQBox + c * 2048));
         }
       }
       wgmma_commit();
@@ -1327,10 +1434,10 @@ dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + 8 * h;
     if (key >= s) continue;
-    store_boxes<D, NB>(dk + static_cast<size_t>(bh) * s * D, dka, key, h, t,
-                       scale);
-    store_boxes<D, NB>(dv + static_cast<size_t>(bh) * s * D, dva, key, h, t,
-                       1.0f);
+    store_boxes<E, D, NB>(dk + static_cast<size_t>(bh) * s * D, dka, key, h,
+                          t, ds_unscale<E>(scale, ks[h]));
+    store_boxes<E, D, NB>(dv + static_cast<size_t>(bh) * s * D, dva, key, h,
+                          t, 1.0f);
   }
 }
 
@@ -1345,15 +1452,16 @@ struct DqHopper {
       hopper::kSwizzleAlign + kOwn + ST * kStage + 8 * (1 + 2 * ST);
 };
 
-template <int D, int ST>
+template <typename E, int D, int ST>
 __global__ void __launch_bounds__(DqHopper<D, ST>::kThreads,
                                   DqHopper<D, ST>::kMinBlocks)
-dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-               const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv,
-               const __grid_constant__ CUtensorMap tdo,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dq, int s, int causal, float scale) {
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, E* __restrict__ dq, int s,
+                int causal, float scale) {
   using namespace hopper;
   using T = DqHopper<D, ST>;
   constexpr int NB = T::NB, KS = D / 16;
@@ -1427,7 +1535,8 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[b][i] = 0.0f;
   float sc[32], dp[32];   // S, then p, then dS; dP
-  uint32_t da[4][4];      // dS, bf16: the A operand of dQ += dS K
+  uint32_t da[4][4];      // dS as E: the A operand of dQ += dS K
+  int ks[2] = {kDsShiftMax, kDsShiftMax};   // fp16: each row's 2^k
   const uint32_t qa = smem_u32(Own);
   const uint32_t oa = qa + NB * kBoxBytes;
   auto stage = [&](int kt) { return smem_u32(KV + (kt % ST) * T::kStage); };
@@ -1442,13 +1551,15 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int k = 0; k < KS; ++k) {
       const uint32_t off = (k / 4) * kBoxBytes + (k % 4) * 32;
-      wgmma_ss_n64(sc, desc_sw128(qa + off), desc_sw128(ka + off), k > 0);
+      wgmma_ss_n64<E>(sc, desc_sw128(qa + off), desc_sw128(ka + off),
+                      k > 0);
     }
     wgmma_commit();
 #pragma unroll
     for (int k = 0; k < KS; ++k) {
       const uint32_t off = (k / 4) * kBoxBytes + (k % 4) * 32;
-      wgmma_ss_n64(dp, desc_sw128(oa + off), desc_sw128(va + off), k > 0);
+      wgmma_ss_n64<E>(dp, desc_sw128(oa + off), desc_sw128(va + off),
+                      k > 0);
     }
     wgmma_commit();
   };
@@ -1475,8 +1586,8 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         }
     }
   };
-  // ds = p (dp - delta), rounded to bf16 into the A fragments of the
-  // tile's 4 key chunks
+  // ds = p (dp - delta), rounded to E (fp16: scaled first) into the A
+  // fragments of the tile's 4 key chunks
   auto ds_pack = [&]() {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -1487,8 +1598,11 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
           const int x = 4 * j + 2 * h + e;
           sc[x] *= dp[x] - dr[h];
         }
+    if constexpr (std::is_same<E, fp16>::value)
+      ds_scale_rows<8, NB>(sc, acc, ks);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) score_frag(da[c], sc + 8 * c, sc + 8 * c + 4);
+    for (int c = 0; c < 4; ++c)
+      score_frag<E>(da[c], sc + 8 * c, sc + 8 * c + 4);
   };
 
   mbar_wait(own_full, 0);
@@ -1510,8 +1624,8 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int c = 0; c < 4; ++c) {
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        wgmma_rs_n64_mn(acc[b], da[c],
-                        desc_sw128(stage(kt) + b * kBoxBytes + c * 2048));
+        wgmma_rs_n64_mn<E>(acc[b], da[c],
+                           desc_sw128(stage(kt) + b * kBoxBytes + c * 2048));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1526,8 +1640,8 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
     if (row < s)
-      store_boxes<D, NB>(dq + static_cast<size_t>(bh) * s * D, acc, row, h, t,
-                         scale);
+      store_boxes<E, D, NB>(dq + static_cast<size_t>(bh) * s * D, acc, row,
+                            h, t, ds_unscale<E>(scale, ks[h]));
   }
 }
 
@@ -1624,52 +1738,54 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
 #undef PTT_CALL
 }
 
-// The bf16 forms: q, k, v, out (dout, dq, dk, dv): bf16 [bh, s, d]
-// contiguous, 16-byte aligned; lse, delta: fp32 [bh, s].
-extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
-                              void* out, void* lse, int bh, int s, int d,
-                              int causal, float scale, void* stream) {
+// The 16-bit forms (E bf16 or fp16), one template each; the extern "C"
+// entry points below instance them.
+namespace {
+
+template <typename E>
+int fwd16(const void* q, const void* k, const void* v, void* out, void* lse,
+          int bh, int s, int d, int causal, float scale, void* stream) {
   if (bh <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   CUtensorMap tq, tk, tv;   // encoded per launch: the pointers move
-  if (!hopper::encode_rows_bf16(&tq, q, bh, s, d, hopper::kBox) ||
-      !hopper::encode_rows_bf16(&tk, k, bh, s, d, hopper::kBox) ||
-      !hopper::encode_rows_bf16(&tv, v, bh, s, d, hopper::kBox))
+  if (!hopper::encode_rows<E>(&tq, q, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows<E>(&tk, k, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows<E>(&tv, v, bh, s, d, hopper::kBox))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* op = static_cast<bf16*>(out);
+  auto* op = static_cast<E*>(out);
   auto* lp = static_cast<float*>(lse);
   constexpr int rows = 64 * kFwdWarpgroups;   // query rows a block
 #define PTT_CALL(DD)                                                       \
   {                                                                        \
     using T = FwdHopper<DD, kFwdWarpgroups, kFwdStages>;                   \
-    return launch_threads(fwd_bf16_kernel<DD, kFwdWarpgroups, kFwdStages>, \
-                          T::bytes, dim3(bh, (s + rows - 1) / rows),       \
-                          T::kThreads, st, tq, tk, tv, op, lp, s, causal,  \
-                          scale);                                          \
+    return launch_threads(                                                 \
+        fwd_wgmma_kernel<E, DD, kFwdWarpgroups, kFwdStages>, T::bytes,     \
+        dim3(bh, (s + rows - 1) / rows), T::kThreads, st, tq, tk, tv, op,  \
+        lp, s, causal, scale);                                             \
   }
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
 }
 
-extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
-                             const void* delta, void* dq, int bh, int s,
-                             int d, int causal, float scale, void* stream) {
+template <typename E>
+int dq16(const void* q, const void* k, const void* v, const void* dout,
+         const void* lse, const void* delta, void* dq, int bh, int s, int d,
+         int causal, float scale, void* stream) {
   if (bh <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   CUtensorMap tq, tk, tv, tdo;
-  if (!hopper::encode_rows_bf16(&tq, q, bh, s, d, hopper::kBox) ||
-      !hopper::encode_rows_bf16(&tk, k, bh, s, d, hopper::kBox) ||
-      !hopper::encode_rows_bf16(&tv, v, bh, s, d, hopper::kBox) ||
-      !hopper::encode_rows_bf16(&tdo, dout, bh, s, d, hopper::kBox))
+  if (!hopper::encode_rows<E>(&tq, q, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows<E>(&tk, k, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows<E>(&tv, v, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows<E>(&tdo, dout, bh, s, d, hopper::kBox))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* lp = static_cast<const float*>(lse);
   auto* dp = static_cast<const float*>(delta);
-  auto* dqp = static_cast<bf16*>(dq);
+  auto* dqp = static_cast<E*>(dq);
 #define PTT_CALL(DD)                                                       \
   {                                                                        \
     using T = DqHopper<DD, kDqStages>;                                     \
-    return launch_threads(dq_bf16_kernel<DD, kDqStages>, T::bytes,         \
+    return launch_threads(dq_wgmma_kernel<E, DD, kDqStages>, T::bytes,     \
                           dim3(bh, n_tiles(s)), T::kThreads, st, tq, tk,   \
                           tv, tdo, lp, dp, dqp, s, causal, scale);         \
   }
@@ -1677,35 +1793,89 @@ extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
 #undef PTT_CALL
 }
 
-extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
-                              const void* dout, const void* lse,
-                              const void* delta, void* dk, void* dv, int bh,
-                              int s, int d, int causal, float scale,
-                              void* stream) {
+template <typename E>
+int dkv16(const void* q, const void* k, const void* v, const void* dout,
+          const void* lse, const void* delta, void* dk, void* dv, int bh,
+          int s, int d, int causal, float scale, void* stream) {
   if (bh <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the streamed Q and dO boxes are the kernel's BQ rows (DkvHopper)
   const int bq = d > 64 ? 32 : 64;
   CUtensorMap tq, tk, tv, tdo;
-  if (!hopper::encode_rows_bf16(&tq, q, bh, s, d, bq) ||
-      !hopper::encode_rows_bf16(&tk, k, bh, s, d, hopper::kBox) ||
-      !hopper::encode_rows_bf16(&tv, v, bh, s, d, hopper::kBox) ||
-      !hopper::encode_rows_bf16(&tdo, dout, bh, s, d, bq))
+  if (!hopper::encode_rows<E>(&tq, q, bh, s, d, bq) ||
+      !hopper::encode_rows<E>(&tk, k, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows<E>(&tv, v, bh, s, d, hopper::kBox) ||
+      !hopper::encode_rows<E>(&tdo, dout, bh, s, d, bq))
     return static_cast<int>(cudaErrorInvalidValue);
   auto* lp = static_cast<const float*>(lse);
   auto* dp = static_cast<const float*>(delta);
-  auto* dkp = static_cast<bf16*>(dk);
-  auto* dvp = static_cast<bf16*>(dv);
+  auto* dkp = static_cast<E*>(dk);
+  auto* dvp = static_cast<E*>(dv);
   constexpr int keys = 64 * kDkvWarpgroups;   // keys a block
 #define PTT_CALL(DD)                                                       \
   {                                                                        \
     using T = DkvHopper<DD, kDkvWarpgroups, kDkvStages>;                   \
     static_assert(T::BQ == (DD > 64 ? 32 : 64), "bq above");               \
-    return launch_threads(dkv_bf16_kernel<DD, kDkvWarpgroups, kDkvStages>, \
-                          T::bytes, dim3(bh, (s + keys - 1) / keys),       \
-                          T::kThreads, st, tq, tk, tv, tdo, lp, dp, dkp,   \
-                          dvp, s, causal, scale);                          \
+    return launch_threads(                                                 \
+        dkv_wgmma_kernel<E, DD, kDkvWarpgroups, kDkvStages>, T::bytes,     \
+        dim3(bh, (s + keys - 1) / keys), T::kThreads, st, tq, tk, tv, tdo, \
+        lp, dp, dkp, dvp, s, causal, scale);                               \
   }
   PTT_FLASH_DISPATCH(d, PTT_CALL)
 #undef PTT_CALL
+}
+
+}  // namespace
+
+// The bf16 forms: q, k, v, out (dout, dq, dk, dv): bf16 [bh, s, d]
+// contiguous, 16-byte aligned; lse, delta: fp32 [bh, s].
+extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
+                              void* out, void* lse, int bh, int s, int d,
+                              int causal, float scale, void* stream) {
+  return fwd16<bf16>(q, k, v, out, lse, bh, s, d, causal, scale, stream);
+}
+
+extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dq, int bh, int s,
+                             int d, int causal, float scale, void* stream) {
+  return dq16<bf16>(q, k, v, dout, lse, delta, dq, bh, s, d, causal, scale,
+                    stream);
+}
+
+extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dk, void* dv, int bh,
+                              int s, int d, int causal, float scale,
+                              void* stream) {
+  return dkv16<bf16>(q, k, v, dout, lse, delta, dk, dv, bh, s, d, causal,
+                     scale, stream);
+}
+
+// The fp16 forms (flash_fwd_fp16 <- _fwd_kernel, flash_dq_fp16 <-
+// _dq_kernel, flash_dkv_fp16 <- _dkv_kernel): the same kernels on fp16
+// q, k, v, out (dout, dq, dk, dv), with fp16 tensor maps and wgmma
+// operands, P rounded to fp16 (to nearest even, __floats2half2_rn) and
+// dS scaled before it is (ds_scale_rows); lse, delta fp32.
+extern "C" int flash_fwd_fp16(const void* q, const void* k, const void* v,
+                              void* out, void* lse, int bh, int s, int d,
+                              int causal, float scale, void* stream) {
+  return fwd16<fp16>(q, k, v, out, lse, bh, s, d, causal, scale, stream);
+}
+
+extern "C" int flash_dq_fp16(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dq, int bh, int s,
+                             int d, int causal, float scale, void* stream) {
+  return dq16<fp16>(q, k, v, dout, lse, delta, dq, bh, s, d, causal, scale,
+                    stream);
+}
+
+extern "C" int flash_dkv_fp16(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dk, void* dv, int bh,
+                              int s, int d, int causal, float scale,
+                              void* stream) {
+  return dkv16<fp16>(q, k, v, dout, lse, delta, dk, dv, bh, s, d, causal,
+                     scale, stream);
 }

@@ -29,9 +29,14 @@
 // lifted to fp32, the parameter lifted to fp32, the same fp32 ops, and
 // the new parameter rounded to bf16 to nearest even
 // (__float2bfloat16_rn, as PyTorch's .to(bfloat16)); the moments stay
-// fp32. So the bf16 update is bit-identical to its plain version too.
-// Buckets of both dtypes ride in one launch: the table's dtype word
-// picks the thread's chunk width.
+// fp32. So the bf16 update is bit-identical to its plain version too. An
+// fp16 bucket is the same chain with __half: read as __half2float, the
+// new parameter stored by __float2half_rn (to nearest even, as PyTorch's
+// .to(float16) and the reference's new_p.astype(out dtype),
+// fused_update.py:129), 8 elements a chunk as bf16's. Buckets of all
+// three dtypes ride in one launch: the table's dtype word picks the
+// thread's chunk width and element type. The dequantizing update takes
+// fp32 and bf16 buckets only (ops/fused_update.py refuses fp16 there).
 //
 // fused_update_buckets runs one step of an updater over all of its
 // buckets in one launch. It walks a table in device memory, one Bucket
@@ -82,6 +87,7 @@
 // element, so every block_size is taken.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -148,7 +154,8 @@ struct Bucket {
   float lm;               // lr_mult
   int64_t dtype;          // 0: fp32 p and g, 4 elements a chunk; 1: bf16,
                           // 8; 2: fp32 p whose dequantized gradient is
-                          // rounded to bf16 (a bf16 bucket), 4
+                          // rounded to bf16 (a bf16 bucket), 4; 3: fp16,
+                          // 8 (plain update only)
   const void* q;          // dequant: the summed carrier, [>= n]
   const float* scales;    // dequant: fp32 [ceil(n / bs)]
   const float* res;       // dequant: fp32 residual [n], or null
@@ -172,6 +179,11 @@ template <> struct Elem<__nv_bfloat16> {
   __device__ static __nv_bfloat16 store(float x) {
     return __float2bfloat16_rn(x);
   }
+};
+template <> struct Elem<__half> {
+  static constexpr int kChunk = 8;
+  __device__ static float load(__half x) { return __half2float(x); }
+  __device__ static __half store(float x) { return __float2half_rn(x); }
 };
 
 // The gradient of a plain update: g in the parameters' dtype, lifted to
@@ -336,6 +348,8 @@ __device__ __forceinline__ void walk_table(const Bucket* __restrict__ table,
   if (e.dtype == 1)
     update_chunk<KIND, __nv_bfloat16>(e, (c - e.start) * 8, h, lr, c1, c2,
                                       grad);
+  else if (e.dtype == 3)
+    update_chunk<KIND, __half>(e, (c - e.start) * 8, h, lr, c1, c2, grad);
   else
     update_chunk<KIND, float>(e, (c - e.start) * 4, h, lr, c1, c2, grad);
 }
@@ -378,8 +392,8 @@ inline unsigned int grid_for(int nb, int64_t total_chunks) {
 }  // namespace
 
 // One update of every bucket in `table` (device memory, nb Bucket
-// entries whose chunks, 4 elements in an fp32 bucket and 8 in a bf16
-// one, start at 0 and run back to back, total_chunks in all), in place.
+// entries whose chunks, 4 elements in an fp32 bucket and 8 in a bf16 or
+// fp16 one, start at 0 and run back to back, total_chunks in all), in place.
 // lr: fp32 [1] on the device, the step's learning rate.
 // kind: 0 sgd, 1 momentum, 2 adam, 3 adamw; h0, h1: (mu, -) or (beta1,
 // beta2); om0, om1: 1 - h0, 1 - h1 rounded on the host. Adam's stepped

@@ -1,6 +1,10 @@
 // Hopper (sm_90a) building blocks: TMA tensor maps, mbarrier rings and
-// wgmma on 128-byte swizzled tiles. Used by the bf16 flash kernels
-// (flash_attention.cu), meant for every kernel redesigned for the card.
+// wgmma on 128-byte swizzled tiles. Used by the bf16 and fp16 flash
+// kernels (flash_attention.cu), meant for every kernel redesigned for the
+// card. The 16-bit forms take the element type E, __nv_bfloat16 or
+// __half: the same tile format, fragments and descriptors, only the
+// tensor map's data type and the wgmma's operand type (.bf16 or .f16)
+// differ.
 //
 // The tile format. A TMA box is 64 rows of 64 bf16 (128 bytes a row,
 // the 128-byte swizzle's width), 8 KB, written into shared memory at a
@@ -34,9 +38,10 @@
 // wgmma fragments (warp w of the warpgroup, lane = 4 g + t):
 //   accumulator m64nN fp32: d[4j + 2h + e] = (row 16w + g + 8h,
 //     column 8j + 2t + e);
-//   A from registers, m64k16 bf16: a[0] (row 16w + g, k 2t, 2t + 1),
-//     a[1] (row + 8, the same k), a[2] (row, k + 8), a[3] (row + 8,
-//     k + 8); two bf16 a register, the lower k in the low half.
+//   A from registers, m64k16 bf16 (or fp16): a[0] (row 16w + g, k 2t,
+//     2t + 1), a[1] (row + 8, the same k), a[2] (row, k + 8), a[3]
+//     (row + 8, k + 8); two 16-bit values a register, the lower k in the
+//     low half.
 //
 // cuTensorMapEncodeTiled belongs to libcuda, not to the runtime: its
 // address is taken once through the runtime's cudaGetDriverEntryPoint,
@@ -45,8 +50,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -80,11 +88,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map over a contiguous bf16 [n, rows, cols] tensor whose box is
+// The tensor map data type of a 16-bit element type.
+template <typename E> struct MapType;
+template <> struct MapType<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <> struct MapType<__half> {
+  static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// A map over a contiguous 16-bit (E) [n, rows, cols] tensor whose box is
 // `box_rows` rows by 64 columns, 128-byte swizzled. False if the encode
 // is refused.
-inline bool encode_rows_bf16(CUtensorMap* map, const void* base, int n,
-                             int rows, int cols, int box_rows) {
+template <typename E>
+inline bool encode_rows(CUtensorMap* map, const void* base, int n, int rows,
+                        int cols, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
@@ -94,10 +112,15 @@ inline bool encode_rows_bf16(CUtensorMap* map, const void* base, int n,
                                  static_cast<cuuint64_t>(rows) * cols * 2};
   const cuuint32_t box[3] = {kBox, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t step[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  return fn(map, MapType<E>::value, 3, const_cast<void*>(base), dims, strides,
+            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool encode_rows_bf16(CUtensorMap* map, const void* base, int n,
+                             int rows, int cols, int box_rows) {
+  return encode_rows<__nv_bfloat16>(map, base, n, rows, cols, box_rows);
 }
 
 // A map over a contiguous int8 [rows, cols] matrix whose box is 64 rows
@@ -263,53 +286,76 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
       "+f"(d[b + 12]), "+f"(d[b + 13]), "+f"(d[b + 14]), "+f"(d[b + 15])
 
 // d (64 x 64) = A.B (+ d when accumulate), A and B K-major in shared
-// memory: A 64 x 16, B 16 x 64 (stored as 64 rows of k).
+// memory: A 64 x 16, B 16 x 64 (stored as 64 rows of k); E the operands'
+// type. Each form's asm is a macro of the operand type's name (TY), so
+// the bf16 and fp16 instructions are one text.
+#define PTT_WGMMA_SS_N64(TY)                                                \
+  asm volatile(                                                             \
+      "{\n"                                                                 \
+      ".reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %34, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"                     \
+      "}\n"                                                                 \
+      : PTT_OUT16(d, 0), PTT_OUT16(d, 16)                                   \
+      : "l"(a), "l"(b), "r"(accumulate))
+
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : PTT_OUT16(d, 0), PTT_OUT16(d, 16)
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (std::is_same<E, __half>::value)
+    PTT_WGMMA_SS_N64("f16");
+  else
+    PTT_WGMMA_SS_N64("bf16");
 }
 
 // The same with N = 32.
+#define PTT_WGMMA_SS_N32(TY)                                                \
+  asm volatile(                                                             \
+      "{\n"                                                                 \
+      ".reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %18, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"                                    \
+      "}\n"                                                                 \
+      : PTT_OUT16(d, 0)                                                     \
+      : "l"(a), "l"(b), "r"(accumulate))
+
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : PTT_OUT16(d, 0)
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (std::is_same<E, __half>::value)
+    PTT_WGMMA_SS_N32("f16");
+  else
+    PTT_WGMMA_SS_N32("bf16");
 }
 
 // d (64 x 64) += A.B, A 64 x 16 from registers, B 16 x 64 MN-major in
 // shared memory (16 rows of k, 64 columns of n; the transpose bit).
+#define PTT_WGMMA_RS_N64_MN(TY)                                             \
+  asm volatile(                                                             \
+      "{\n"                                                                 \
+      ".reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %37, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"       \
+      "}\n"                                                                 \
+      : PTT_OUT16(d, 0), PTT_OUT16(d, 16)                                   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : PTT_OUT16(d, 0), PTT_OUT16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same<E, __half>::value)
+    PTT_WGMMA_RS_N64_MN("f16");
+  else
+    PTT_WGMMA_RS_N64_MN("bf16");
 }
 
 // d (64 x 128) += A.B, A 64 x 16 from registers, B 16 x 128 K-major in
@@ -363,6 +409,9 @@ __device__ __forceinline__ void wgmma_rs_n192_k(float (&d0)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#undef PTT_WGMMA_SS_N64
+#undef PTT_WGMMA_SS_N32
+#undef PTT_WGMMA_RS_N64_MN
 #undef PTT_OUT16
 
 }  // namespace hopper

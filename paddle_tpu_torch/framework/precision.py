@@ -19,17 +19,21 @@ undoes both:
 - "float32": TF32 off for matmuls, so an fp32 product on the card is
   an fp32 product, as the reference computes it;
 - "bfloat16": TF32 on for fp32 matmuls (the bf16 GPT's one fp32 GEMM,
-  the LM head; ``models/gpt.py`` says why).
+  the LM head; ``models/gpt.py`` says why);
+- "float16": the same for the fp16 GPT, whose LM head is the same fp32
+  GEMM of the final norm's output and the fp16 table promoted.
 
-Both turn cuDNN's TF32 off, and cuBLAS's reduced-precision reduction
-for bf16 GEMMs (on by PyTorch's default): XLA sums bf16 products in
-fp32, split-K partial sums included. Under ``amp`` a model keeps the
+All three turn cuDNN's TF32 off, and cuBLAS's reduced-precision
+reductions for bf16 and fp16 GEMMs (both on by PyTorch's default, and
+with the fp16 one on cuBLAS may sum fp16 products in fp16): XLA sums
+bf16 and fp16 products in fp32, split-K partial sums included. Under ``amp`` a model keeps the
 settings of its parameters' dtype: BERT's fp32 masters enter "float32",
-which runs the bf16 GEMMs that amp's casts make without the reduced-
-precision reduction and the fp32 ones it leaves (O1's MLM loss) in full
+which runs the bf16 (or fp16) GEMMs that amp's casts make without the
+reduced-precision reduction and the fp32 ones it leaves (O1's MLM loss) in full
 fp32, as the reference computes each. GPT enters the settings of the
 dtype its operands have after amp's cast (``settings_for``): under O2
-its blocks and LM head are bf16 GEMMs and enter "bfloat16".
+its blocks and LM head are bf16 GEMMs and enter "bfloat16" (fp16
+ones, under ``dtype="float16"``, "float16").
 
 The flags are read on the host when a GEMM is launched; they do nothing
 on the CPU.
@@ -44,13 +48,14 @@ __all__ = ["matmul_precision", "settings_for", "RestoreAtEnd",
            "enter_for_backward", "backward_precision"]
 
 # dtype -> torch.backends.cuda.matmul.allow_tf32
-_TF32 = {"float32": False, "bfloat16": True}
+_TF32 = {"float32": False, "bfloat16": True, "float16": True}
+_SETTINGS = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
 
 
 def settings_for(dtype: torch.dtype) -> str:
     """The settings' name for a model's operands of ``dtype``: its
     parameters', or those amp's casts give them."""
-    return "bfloat16" if dtype == torch.bfloat16 else "float32"
+    return _SETTINGS.get(dtype, "float32")
 
 
 class matmul_precision(contextlib.ContextDecorator):
@@ -67,15 +72,18 @@ class matmul_precision(contextlib.ContextDecorator):
         mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
         self._saved.append((mm.allow_tf32,
                             mm.allow_bf16_reduced_precision_reduction,
+                            mm.allow_fp16_reduced_precision_reduction,
                             dnn.allow_tf32))
         mm.allow_tf32 = _TF32[self.dtype]
         mm.allow_bf16_reduced_precision_reduction = False
+        mm.allow_fp16_reduced_precision_reduction = False
         dnn.allow_tf32 = False
         return self
 
     def __exit__(self, *exc):
         mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
         (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+         mm.allow_fp16_reduced_precision_reduction,
          dnn.allow_tf32) = self._saved.pop()
         return False
 

@@ -14,7 +14,13 @@ optimizer update. The reference compiles all of it into one XLA program
 with a per-parameter update; the port runs eagerly and sends the update
 through the fused kernel, one launch per step over every flat bucket
 (``optimizer.FusedFlatUpdater``), instead of ~12 launches per
-parameter. The parameters are grouped by
+parameter. Lamb, Lars and DGCMomentum, whose norms and top-k need a
+parameter whole, take ``optimizer.PerParameterUpdater`` instead: their
+``_update`` parameter by parameter, as the reference's step runs every
+rule (``opt._update``, ``paddle_tpu/jit/__init__.py:903``). DGCMomentum
+reads its step count at every step and ramps its sparsity, where the
+reference's step reads it once, when it is traced (ROADMAP Queue C).
+The parameters are grouped by
 (lr_mult, weight decay) before bucketing, so every bucket is uniform and
 per-parameter hyperparameters work as in the reference; with one group
 the bucket plan is the reference's. The result equals the reference's
@@ -116,7 +122,8 @@ from ..framework.device import to_device
 from ..framework.modules import torch_buffers, torch_parameters
 from ..nn.clip import clip_grads
 from ..ops.fused_update import rule_spec
-from ..optimizer.fused import FusedFlatUpdater
+from ..optimizer.fused import (UNFUSABLE_OPTIMIZERS, FusedFlatUpdater,
+                               PerParameterUpdater)
 from ..optimizer.optimizer import lr_mult
 
 __all__ = ["TrainStep", "uniform_buckets"]
@@ -198,8 +205,12 @@ class TrainStep:
                 self._gc_fused = (grad_comm.codec in BLOCK_CODECS
                                   and optimizer._clip_cfg() is None
                                   and rule_spec(optimizer) is not None)
-        self.updater = FusedFlatUpdater(optimizer, params, buckets=buckets,
-                                        caller_clips=True)
+        if type(optimizer).__name__ in UNFUSABLE_OPTIMIZERS:
+            self.updater = PerParameterUpdater(optimizer, params)
+        else:
+            self.updater = FusedFlatUpdater(optimizer, params,
+                                            buckets=buckets,
+                                            caller_clips=True)
         self.device = params[0].device
         self._accum_div = None
 

@@ -21,7 +21,9 @@ A bf16 GPT's parameters arrive as ``ml_dtypes`` bfloat16 arrays (what
 ``dtype.name == "bfloat16"``, without importing ``ml_dtypes``, and their
 bits cross through an ``int16`` view: no rounding. fp32 arrays (the
 final LayerNorm of a bf16 model, every parameter of an fp32 one) stay
-fp32. Each array must have its parameter's dtype (``expected_dtypes``).
+fp32. An fp16 GPT's arrive as numpy float16 arrays and copy as they
+are, bits kept (blocks and tables fp16, the final LayerNorm fp32). Each
+array must have its parameter's dtype (``expected_dtypes``).
 
 The gradient wire's resume state carries across too
 (``grad_comm_state_for_rank``, ``grad_comm_state_to_reference``): the
@@ -103,7 +105,7 @@ def _copy_checked(params: Dict[str, np.ndarray], want: Dict[str, tuple],
 def state_dict_from_numpy(params: Dict[str, np.ndarray],
                           cfg: GPTConfig) -> Dict[str, torch.Tensor]:
     """JAX named parameters (numpy) -> the port's ``state_dict`` (CPU
-    tensors of the arrays' dtypes, fp32 or bf16; ``load_state_dict``
+    tensors of the arrays' dtypes, fp32, bf16 or fp16; ``load_state_dict``
     moves them to the model's device)."""
     return _copy_checked(params, expected_shapes(cfg), expected_dtypes(cfg))
 

@@ -26,11 +26,25 @@ table): the ``[b*s, V]`` logits never exist whole. ``recompute`` runs
 each block under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint``): its activations are recomputed in the backward,
 at the forward's GEMM settings, so the gradients are the same bits.
+``recompute_policy`` gives each block its own policy (the reference's
+``_resolve_policies`` and ``_policy_step``, which its scan mode lowers;
+here on the loop's blocks): "none" keeps the activations, "remat" is
+``recompute``'s checkpoint, and "offload" is that checkpoint with the
+saved block input parked in pinned host memory on the card and fetched
+back for the recompute (on the CPU there is no other memory, and it is
+"remat", as the reference's ``host_offload_supported()`` is False
+there). Every policy gives the same bits.
+
+Dropout is the reference's: ``dropout`` acts on the embeddings' output
+only (no block applies residual dropout, ``paddle_tpu/models/gpt.py``
+``_block_apply``), drawing from the device's generator; ``attn_dropout
+> 0`` takes the attention off flash onto the einsum path, which drops
+nothing (the reference's ``_attention_val``).
 
 Not in this slice (each raises ``NotImplementedError``, see ROADMAP
-Queue A "training options" and "parallelism"): dropout > 0 in training,
-``recompute_policy``, ``mode="scan"`` and the pipeline, ring and Ulysses
-attention; a ``dtype`` other than "float32" and "bfloat16".
+Queue A "parallelism" and "other dtypes"): ``mode="scan"`` and the
+pipeline, ring and Ulysses attention; a ``dtype`` other than "float32",
+"bfloat16" and "float16".
 
 Mixed precision is the reference's ``paddle.amp``
 (``paddle_tpu_torch/amp``): each op of the forward is a cast point under
@@ -57,6 +71,10 @@ set process-wide:
 
 - fp32 operands: fp32 throughout; TF32 off, so a float32 product on the
   card is a float32 product.
+- fp16 operands (``dtype="float16"``, or amp's fp16 casts) as bf16's
+  below, in fp16: fp16 blocks and tables, the fp32 final norm, the LM
+  head's fp32 GEMM in TF32, and cuBLAS's fp16 reduced-precision
+  reduction off.
 - bf16 operands (``dtype="bfloat16"``, or amp's O2 casts of an fp32
   model), as the reference stores and computes them: under
   ``dtype="bfloat16"`` the block parameters and both embedding tables in
@@ -205,7 +223,8 @@ def _block_init(name: str, shape, cfg: GPTConfig,
 
 
 # GPTConfig.dtype -> the parameters' torch dtype
-PORTED_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+PORTED_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
 
 
 def _param(arr: np.ndarray, device: torch.device,
@@ -215,7 +234,6 @@ def _param(arr: np.ndarray, device: torch.device,
     return nn.Parameter(torch.from_numpy(arr).to(device=device, dtype=dtype))
 
 
-_OPTIONS = "ROADMAP Queue A, 'training options'"
 _PARALLEL = "ROADMAP Queue A, 'parallelism'"
 _DTYPES = "ROADMAP Queue A, 'other dtypes'"
 
@@ -226,15 +244,12 @@ def _check_supported(cfg: GPTConfig) -> None:
     if cfg.dtype not in PORTED_DTYPES:
         raise NotImplementedError(f"GPT dtype={cfg.dtype!r} is not ported "
                                   f"yet ({_DTYPES})")
-    if cfg.recompute_policy is not None:
-        raise NotImplementedError(f"recompute_policy is not ported yet "
-                                  f"({_OPTIONS})")
     if cfg.sequence_parallel or cfg.pp_microbatches:
         raise NotImplementedError(f"sequence_parallel and pp_microbatches "
                                   f"are not ported yet ({_PARALLEL})")
 
 
-def _check_trainable(cfg: GPTConfig, training: bool) -> None:
+def _check_trainable(cfg: GPTConfig) -> None:
     """Raise on the configurations this slice's forward does not run."""
     if cfg.mode != "loop":
         raise NotImplementedError(f"GPT mode={cfg.mode!r} (scan/pipeline) is "
@@ -242,16 +257,102 @@ def _check_trainable(cfg: GPTConfig, training: bool) -> None:
     if cfg.use_ring_attention or cfg.use_ulysses_attention:
         raise NotImplementedError(f"ring/Ulysses attention is not ported "
                                   f"yet ({_PARALLEL})")
-    if training and (cfg.dropout > 0 or cfg.attn_dropout > 0):
-        raise NotImplementedError(f"dropout > 0 in training is not ported "
-                                  f"yet ({_OPTIONS})")
+
+
+def _resolve_policies(cfg: GPTConfig, n_layers: int):
+    """Per-layer activation policies for a stack of ``n_layers`` blocks
+    (reference ``_resolve_policies``, with its tiling rules and
+    messages). A full-model-length vector collapses onto a stage slice
+    only when it tiles uniformly."""
+    pol = cfg.recompute_policy
+    if pol is None:
+        return ("remat" if cfg.recompute else "none",) * n_layers
+    if len(pol) == n_layers:
+        return tuple(pol)
+    if len(pol) % n_layers == 0:
+        for s in range(0, len(pol), n_layers):
+            if tuple(pol[s:s + n_layers]) != tuple(pol[:n_layers]):
+                raise ValueError(
+                    f"recompute_policy {pol} varies across pipeline "
+                    f"stages of {n_layers} layers; the SPMD schedule "
+                    f"runs one stage program — use a uniform per-stage "
+                    f"vector")
+        return tuple(pol[:n_layers])
+    if n_layers % len(pol) == 0:
+        return tuple(pol) * (n_layers // len(pol))
+    raise ValueError(
+        f"recompute_policy length {len(pol)} does not tile {n_layers} "
+        f"layers")
+
+
+def host_offload_supported() -> bool:
+    """True when a host memory distinct from the device's exists to park
+    activations in: the card's pinned host memory. On the CPU the
+    activations already lie in host memory (the reference's
+    ``host_offload_supported()`` is False there too)."""
+    return torch.cuda.is_available()
+
+
+def _offload_kind() -> str:
+    """The memory the offload tier parks in (the reference's names):
+    "pinned_host" on the card, else "unpinned_host", where parking is the
+    identity."""
+    return "pinned_host" if host_offload_supported() else "unpinned_host"
+
+
+# bytes the "offload" policy has parked in pinned host memory (read by
+# ``chip_smoke.py``; ``reset_offload_bytes`` zeroes it)
+offload_bytes = 0
+
+
+def reset_offload_bytes() -> None:
+    global offload_bytes
+    offload_bytes = 0
+
+
+def _parked(x: torch.Tensor):
+    """Saved-tensor hooks that park ``x`` (the block input the checkpoint
+    saves for its recompute) in pinned host memory, copied without a
+    wait on the current stream, and fetch it back to its device when the
+    recompute reads it; every other saved tensor passes as it is."""
+    dev = x.device
+
+    def pack(t):
+        global offload_bytes
+        if t.data_ptr() != x.data_ptr() or t.shape != x.shape:
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        offload_bytes += host.numel() * host.element_size()
+        return host
+
+    def unpack(t):
+        return t.to(dev, non_blocking=True) if t.device != dev else t
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
+
+
+def _policy_step(block, policy: str, x, *params):
+    """One block's forward under its activation policy (reference
+    ``_policy_step``): "none" as it is, "remat" the checkpoint, "offload"
+    the checkpoint with its saved input parked in pinned host memory (on
+    the card; elsewhere "remat")."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return block(x, *params)
+    if policy == "offload" and x.is_cuda and \
+            _offload_kind() == "pinned_host":
+        with _parked(x):
+            return checkpoint(block, x, *params, use_reentrant=False)
+    return checkpoint(block, x, *params, use_reentrant=False)
 
 
 def attention(q, k, v, cfg: GPTConfig):
     """Causal attention on ``[b, s, n, d]`` (reference ``_attention_val``):
-    the flash kernel, or with ``use_flash_attention=False`` the einsum /
-    softmax path with ``finfo.min`` on masked logits."""
-    if cfg.use_flash_attention:
+    the flash kernel, or with ``use_flash_attention=False`` or
+    ``attn_dropout > 0`` the einsum / softmax path with ``finfo.min`` on
+    masked logits. The reference applies no attention dropout: a positive
+    ``attn_dropout`` only takes it off flash, and so here."""
+    if cfg.use_flash_attention and cfg.attn_dropout == 0.0:
         return flash_attention_val(q, k, v, causal=True)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
@@ -308,12 +409,14 @@ def block_layer_norm(x, w, b, eps: float) -> torch.Tensor:
 
 
 class GPTDecoderLayer(nn.Module):
-    """One block's individually named parameters (``BLOCK_PARAMS``)."""
+    """One block's individually named parameters (``BLOCK_PARAMS``) and
+    its activation ``policy``."""
 
     def __init__(self, cfg: GPTConfig, rs: np.random.RandomState,
-                 device: torch.device):
+                 device: torch.device, policy: str = "none"):
         super().__init__()
         self.cfg = cfg
+        self.policy = policy
         dt = PORTED_DTYPES[cfg.dtype]
         for name, shape in block_shapes(cfg).items():
             setattr(self, name, _param(_block_init(name, shape, cfg, rs),
@@ -322,13 +425,11 @@ class GPTDecoderLayer(nn.Module):
     def forward(self, x):
         """One block (reference ``_block_apply``, op "gpt_block") on
         ``[b, s, h]``, its input and parameters in the dtype amp gives
-        them; with ``recompute`` its activations are recomputed in the
-        backward from the same cast tensors."""
+        them; under "remat" or "offload" its activations are recomputed
+        in the backward from the same cast tensors."""
         x, *params = cast("gpt_block", x,
                           *(getattr(self, n) for n in BLOCK_PARAMS))
-        if self.cfg.recompute and torch.is_grad_enabled():
-            return checkpoint(self._block, x, *params, use_reentrant=False)
-        return self._block(x, *params)
+        return _policy_step(self._block, self.policy, x, *params)
 
     def _block(self, x, *params):
         """The block at the GEMM settings of its parameters' dtype, which
@@ -359,15 +460,15 @@ class GPTModel(nn.Module):
         self.config = config
         rs = np.random.RandomState(seed)
         self.embeddings = GPTEmbeddings(config, rs, device)
+        policies = _resolve_policies(config, config.num_layers)
         self.decoder = nn.ModuleList(
-            [GPTDecoderLayer(config, rs, device)
-             for _ in range(config.num_layers)])
+            [GPTDecoderLayer(config, rs, device, pol) for pol in policies])
         self.final_norm = nn.LayerNorm(
             config.hidden_size, eps=config.layer_norm_epsilon, device=device)
 
     def forward(self, input_ids, position_ids=None):
         """Hidden states [b, s, h] after the final LayerNorm."""
-        _check_trainable(self.config, self.training)
+        _check_trainable(self.config)
         x = self.embeddings(input_ids, position_ids)
         x = dropout(x, self.config.dropout, training=self.training)
         for blk in self.decoder:

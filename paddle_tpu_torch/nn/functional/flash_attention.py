@@ -9,8 +9,7 @@ The route is the reference's ``_use_kernel`` (``:23-28``): with
 (``ops/flash_attention.py`` ``flash_attention_supported``, equal q, k
 and v shapes), a CUDA tensor goes to ``flash_attention_val``, the
 ported flash kernels (``flash_fwd``/``flash_dq``/``flash_dkv`` and their
-bf16 forms), as the op "flash_attention". fp16 reaches the kernels'
-refusal, naming ROADMAP Queue A "other dtypes". Everything else goes to
+bf16 and fp16 forms), as the op "flash_attention". Everything else goes to
 ``scaled_dot_product_attention``, whose dropout draws from the device's
 generator (``common.py``). A CPU tensor takes that route too, as the
 reference's off-TPU route does; under ``flash_route()`` it takes the

@@ -14,9 +14,10 @@ Dispatch is by where the tensors lie, and nothing else: a CPU tensor
 takes the plain version, a CUDA tensor the hand-written kernel
 (``csrc/flash_attention.cu``) or an error. There is no fallback from the
 kernel to the plain version. On the card the dtype picks the kernel:
-fp32 or bf16 (``<name>_bf16`` in the source), each its own entry point.
-Each wrapper counts its kernel launches in ``<wrapper>.launches`` (fp32)
-and ``<wrapper>.launches_bf16`` (``launch_counts()``), incremented only
+fp32, bf16 or fp16 (``<name>_bf16``, ``<name>_fp16`` in the source),
+each its own entry point. Each wrapper counts its kernel launches in
+``<wrapper>.launches`` (fp32), ``<wrapper>.launches_bf16`` and
+``<wrapper>.launches_fp16`` (``launch_counts()``), incremented only
 where the kernel is launched.
 
 Numerics are the reference's: ``q`` pre-scaled by ``1/sqrt(d)``, masked
@@ -39,7 +40,14 @@ operand (the source says why that holds the tolerance). The three bf16
 kernels load their tiles by TMA and multiply on ``wgmma``
 (``csrc/hopper.cuh``); the wrappers are the same for all.
 
-The kernels take fp32 or bf16 (q, k, v and dO of one dtype), any
+fp16 inputs give fp16 outputs the same way: the fp16 kernels are the bf16
+ones instanced on fp16 operands, except that the backward multiplies each
+row of ``ds`` by a power of two before it rounds it to fp16, and divides
+it out of the fp32 result (fp16's range would flush most of ``ds`` to
+zero or to subnormals; the source says how). ``flash_bwd_fp16_model`` is
+the plain model of that rounding, for the tests.
+
+The kernels take fp32, bf16 or fp16 (q, k, v and dO of one dtype), any
 ``s >= 1`` and ``d <= 128`` with ``d % 16 == 0`` (every GPT preset: 16,
 64, 96, 128), and 16-byte aligned q, k, v and dO (as ``torch.empty``
 gives them); anything else on the card raises. The reference's block
@@ -62,6 +70,7 @@ from .tf32 import split_tf32, split_tf32_trunc, tf32_rna
 __all__ = ["NEG_INF", "KERNEL_SOURCE", "flash_fwd", "flash_dq", "flash_dkv",
            "flash_fwd_plain", "flash_fwd_split_tf32", "flash_dq_plain",
            "flash_dkv_plain", "flash_bwd_plain", "flash_bwd_split_tf32",
+           "flash_bwd_fp16_model",
            "flash_attention_val", "flash_attention_supported",
            "kernel_supported", "launch_counts", "reset_launch_counts"]
 
@@ -178,13 +187,74 @@ def flash_bwd_split_tf32(q, k, v, do, lse, delta, causal: bool,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+FP16_DS_TOP = 14          # a dS row's largest lands in [2^14, 2^15)
+FP16_DS_SHIFT_MAX = 100   # a row's shift before its first nonzero dS
+
+
+def _fp16_ds_shifts(ds: torch.Tensor, tile: int) -> torch.Tensor:
+    """The fp16 kernels' power-of-two shift of each element of ``ds``
+    ``[..., rows, cols]`` (csrc/flash_attention.cu ``ds_scale_rows``): a
+    row's running minimum, over its ``tile``-wide column tiles in order,
+    of ``14 - e``, ``e`` the exponent of the tile's largest ``|ds|``."""
+    *lead, rows, cols = ds.shape
+    nt = -(-cols // tile)
+    pad = torch.zeros(*lead, rows, nt * tile, dtype=ds.dtype,
+                      device=ds.device)
+    pad[..., :cols] = ds.abs()
+    amax = pad.reshape(*lead, rows, nt, tile).amax(-1)
+    bits = amax.view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127
+    k = (FP16_DS_TOP - e).clamp(-FP16_DS_SHIFT_MAX, FP16_DS_SHIFT_MAX)
+    k = torch.cummin(k, dim=-1).values
+    return k.repeat_interleave(tile, dim=-1)[..., :cols]
+
+
+def flash_bwd_fp16_model(q, k, v, do, lse, delta, causal: bool,
+                         ds_rounding: str = "scaled"):
+    """(dq, dk, dv) as the fp16 backward kernels round their operands,
+    computed in fp32 on the CPU: p as the kernels compute it (``exp2``
+    of the raw scores times ``scale * log2(e)`` less ``lse * log2(e)``)
+    rounded to fp16 for ``P^T.dO``, and ``ds`` rounded for ``dS.K`` and
+    ``dS^T.Q`` by ``ds_rounding``: "scaled" (the kernels: each row shifted
+    by its running power of two over 64-wide tiles, dq's rows over keys,
+    dk's over queries), "plain" (rounded as it is) or "split" (``hi + lo``,
+    both fp16, two products). It models the operands' rounding, not the
+    tensor cores' order of accumulation."""
+    if ds_rounding not in ("scaled", "plain", "split"):
+        raise ValueError(f"ds_rounding is scaled, plain or split, got "
+                         f"{ds_rounding!r}")
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    l2e = 1.4426950408889634
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = _masked(qf @ kf.transpose(-1, -2), causal)
+    p = torch.exp2(s * (scale * l2e) - lse * l2e)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    h = torch.float16
+
+    def rounded(x, tile):
+        if ds_rounding == "plain":
+            return x.to(h).float()
+        if ds_rounding == "split":
+            hi = x.to(h).float()
+            return hi + (x - hi).to(h).float()
+        up = torch.exp2(_fp16_ds_shifts(x, tile).float())
+        return (x * up).to(h).float() / up
+
+    dq = rounded(ds, 64) @ kf * scale
+    dsT = ds.transpose(-1, -2)
+    dk = rounded(dsT, 64 if d <= 64 else 32) @ qf * scale
+    dv = p.to(h).float().transpose(-1, -2) @ dof
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ------------------------------------------------------------------ kernels
 @functools.lru_cache(maxsize=None)
 def _lib(device_index: int) -> ctypes.CDLL:
     require_sm90(torch.device("cuda", device_index))
     lib = load_library("flash_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for sfx in ("", "_bf16"):
+    for sfx in _SUFFIX.values():
         getattr(lib, "flash_fwd" + sfx).argtypes = [p, p, p, p, p, i, i, i,
                                                     i, f, p]
         getattr(lib, "flash_dq" + sfx).argtypes = [p, p, p, p, p, p, p, i, i,
@@ -197,7 +267,8 @@ def _lib(device_index: int) -> ctypes.CDLL:
 
 
 # kernel input dtype -> the C entry points' suffix
-_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16",
+           torch.float16: "_fp16"}
 
 
 def kernel_supported(shape) -> bool:
@@ -218,9 +289,8 @@ def _check(names, tensors, shape, n_fp32=0):
                          f"s >= 1 and d <= {_MAX_D}, d % 16 == 0; got "
                          f"{tuple(shape)}")
     if dt not in _SUFFIX:
-        raise TypeError(f"flash attention kernels take float32 or "
-                        f"bfloat16, {names[0]} is {dt} (other dtypes are not "
-                        f"ported yet: ROADMAP Queue A, 'other dtypes')")
+        raise TypeError(f"flash attention kernels take float32, bfloat16 "
+                        f"or float16, {names[0]} is {dt}")
     for i, (name, t) in enumerate(zip(names, tensors)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
@@ -337,7 +407,8 @@ def _count(wrapper, sfx: str) -> None:
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset: ``flash_fwd`` etc. for the
-    fp32 kernels, ``flash_fwd_bf16`` etc. for the bf16 ones."""
+    fp32 kernels, ``flash_fwd_bf16`` and ``flash_fwd_fp16`` etc. for the
+    16-bit ones."""
     return {w.__name__ + sfx: getattr(w, "launches" + sfx)
             for sfx in _SUFFIX.values() for w in _WRAPPERS}
 

@@ -6,8 +6,8 @@
 
 ``fused_update_buckets`` is the kernel wrapper the optimizer runs
 (``csrc/fused_update.cu``): SGD, Momentum, Adam or AdamW over every flat
-bucket of a :class:`BucketTable`, fp32 and bf16 buckets alike, in one
-launch, **in place** on the parameters and moment slots (the reference
+bucket of a :class:`BucketTable`, fp32, bf16 and fp16 buckets alike, in
+one launch, **in place** on the parameters and moment slots (the reference
 is functional and makes one call per bucket; the port updates in place
 so a step allocates nothing). ``fused_update_flat``, the reference's
 one-bucket signature, runs it on a table of one. Dispatch is by where
@@ -29,8 +29,10 @@ reference's cast chain (``paddle_tpu/ops/pallas/fused_update.py:12-28``,
 ``optimizer/fused.py`` ``_bucket_fn``): the gradient is cast to the
 parameters' dtype and lifted to fp32, the parameter lifted to fp32, the
 rule runs in fp32, and the new parameter is rounded to bf16 to nearest
-even. ``reference_update_flat`` is that chain for any dtype, and the
-kernel equals it bit for bit.
+even. An fp16 bucket is the same chain in fp16 (the reference's
+``new_p.astype(out_refs[0].dtype)``,
+``paddle_tpu/ops/pallas/fused_update.py:129``). ``reference_update_flat``
+is that chain for any dtype, and the kernel equals it bit for bit.
 
 Scalars stay on the device. ``fused_update_buckets`` computes each
 bucket's ``lr*lm``, ``beta_pow*beta`` and ``1 - beta_pow*beta`` in the
@@ -49,6 +51,8 @@ reference's cast chain (rounded to the bucket's dtype, then to the
 parameters', and lifted to fp32), so the decoded gradient never reaches
 device memory. It runs once a step over every bucket, fp32 and bf16
 alike, with the scalar prep on the card as in ``fused_update_buckets``.
+An fp16 bucket there is not ported yet (ROADMAP Queue A 6.4, "other
+dtypes"): the table refuses one.
 Its plain version, ``reference_dequant_update_flat`` bucket by bucket,
 follows the reference's ``_dequant_kernel`` op for op;
 ``fused_dequant_update_flat`` (the reference's one-bucket signature) is
@@ -222,7 +226,10 @@ def _hyper_args(hyper):
 TABLE_WORDS = 14
 # a bucket's parameter dtype -> (the table's dtype word, elements a
 # chunk: one 16-byte vector of parameters a thread)
-BUCKET_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}
+BUCKET_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8),
+                 torch.float16: (3, 8)}
+# the dtypes of a dequantizing table's parameters and buckets
+DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
 # the dtype word of fp32 parameters whose dequantized gradient is rounded
 # to bf16 first (a bf16 bucket over fp32 parameters)
 _BF16_GRAD_F32_P = 2
@@ -296,6 +303,11 @@ class BucketTable:
         for b, (p, g, arrs, wd, lm) in enumerate(entries):
             _check_rule(kind, arrs)
             n = p.numel()
+            if self.dequant and p.dtype not in DEQUANT_DTYPES:
+                raise NotImplementedError(
+                    f"bucket {b}: the dequantizing update takes fp32 and "
+                    f"bf16 parameters, got {p.dtype} (ROADMAP Queue A 6.4, "
+                    f"'other dtypes')")
             _check_flat(f"bucket {b} p", p, n, self.device,
                         tuple(BUCKET_DTYPES), aligned=on_card)
             if self.dequant:
@@ -339,7 +351,7 @@ class BucketTable:
         if g.q.dtype not in CARRIERS:
             raise TypeError(f"bucket {b}: the carrier must be int32 or "
                             f"fp32, q is {g.q.dtype}")
-        if g.dtype not in (None, *BUCKET_DTYPES):
+        if g.dtype not in (None, *DEQUANT_DTYPES):
             raise TypeError(f"bucket {b}: a bucket dtype of fp32 or bf16, "
                             f"got {g.dtype}")
         nb = n_scale_blocks(n, self.block_size)
@@ -361,6 +373,8 @@ class BucketTable:
                      for p, g, arrs, *_ in entries)
 
     def _dtype_word(self, p, g) -> int:
+        # an fp16 gradient over fp32 parameters exists only on the wire
+        # (a dequantizing table), which refuses fp16 above
         word = BUCKET_DTYPES[p.dtype][0]
         if self.dequant and p.dtype == torch.float32 \
                 and g.dtype == torch.bfloat16:

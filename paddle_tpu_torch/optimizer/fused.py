@@ -63,6 +63,14 @@ As in the reference, an optimizer with a ``grad_clip`` is refused: the
 fused update does not clip. ``TrainStep`` clips the flat gradients
 itself before it calls ``step()`` and says so (``caller_clips=True``).
 
+``PerParameterUpdater`` is the same surface for the three rules that
+cannot run over a bucket (Lamb, Lars, DGCMomentum): each parameter its
+own one-parameter "bucket", its ``.grad`` read in place, and ``step()``
+the optimizer's ``_update`` parameter by parameter, as the reference's
+compiled ``TrainStep`` updates every parameter (``opt._update``,
+``paddle_tpu/jit/__init__.py:903``). ``jit.TrainStep`` takes it for
+those three and ``FusedFlatUpdater`` for the rest.
+
 ``step_sharded`` (ZeRO) is not ported yet (ROADMAP Queue A 2, the ZeRO
 remainder).
 """
@@ -73,7 +81,7 @@ from typing import Dict, List
 
 import torch
 
-from ..distributed.grad_comm import build_buckets
+from ..distributed.grad_comm import GradBucket, build_buckets
 from ..observability.metrics import get_registry as _get_registry
 from ..ops.fused_update import (BucketTable, WirePayload,
                                 fused_dequant_update_buckets,
@@ -81,14 +89,15 @@ from ..ops.fused_update import (BucketTable, WirePayload,
 from ..framework.autograd import unwrap
 from .optimizer import lr_mult
 
-__all__ = ["FusedFlatUpdater", "FUSABLE_OPTIMIZERS"]
+__all__ = ["FusedFlatUpdater", "PerParameterUpdater", "FUSABLE_OPTIMIZERS",
+           "UNFUSABLE_OPTIMIZERS"]
 
 # elementwise update rules: over a flat bucket they are the per-parameter
 # update (the fused rules run the kernel, the others their PyTorch rule)
 FUSABLE_OPTIMIZERS = ("SGD", "Momentum", "Adagrad", "Adadelta", "Adam",
                       "AdamW", "Adamax", "RMSProp")
 # per-parameter norm / top-k rules: over a bucket they would change
-_UNFUSABLE = ("Lamb", "Lars", "DGCMomentum")
+UNFUSABLE_OPTIMIZERS = ("Lamb", "Lars", "DGCMomentum")
 
 _m_fused = _get_registry().counter(
     "fused_bucket_updates_total",
@@ -101,7 +110,7 @@ class FusedFlatUpdater:
     def __init__(self, optimizer, params, buckets=None, *,
                  caller_clips=False):
         kind = type(optimizer).__name__
-        if kind in _UNFUSABLE or kind not in FUSABLE_OPTIMIZERS:
+        if kind in UNFUSABLE_OPTIMIZERS or kind not in FUSABLE_OPTIMIZERS:
             raise ValueError(
                 f"{kind} cannot be fused over flat buckets (its update "
                 f"uses per-parameter norms/top-k); fusable: "
@@ -335,3 +344,43 @@ class FusedFlatUpdater:
     def __repr__(self):
         return (f"FusedFlatUpdater({type(self.optimizer).__name__}, "
                 f"buckets={len(self.buckets)})")
+
+
+class PerParameterUpdater:
+    """``FusedFlatUpdater``'s surface for ``TrainStep`` over a rule that
+    needs its parameters whole (module docstring): ``buckets`` one a
+    parameter, ``flat_grads()`` flat views of the ``.grad`` tensors (a
+    clip or an accumulation writes them in place), ``step()`` the rule
+    parameter by parameter through ``Optimizer._step_plain``, on the CPU
+    and on the card alike."""
+
+    def __init__(self, optimizer, params):
+        self.optimizer = optimizer
+        self.params = [t for t in map(unwrap, params) if t.requires_grad]
+        self.buckets = []
+        for i, p in enumerate(self.params):
+            b = GradBucket(i, p.dtype)
+            b.add(i, tuple(p.shape))
+            self.buckets.append(b)
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def flat_grads(self) -> List[torch.Tensor]:
+        for i, p in enumerate(self.params):
+            if p.grad is None:
+                raise RuntimeError(f"parameter {i} has no gradient")
+        return [p.grad.view(-1) for p in self.params]
+
+    @torch.no_grad()
+    def step(self):
+        opt = self.optimizer
+        opt._step_plain(self.params, [p.grad.to(p.dtype)
+                                      for p in self.params])
+        opt._accumulated_steps += 1
+        opt._slot_writer = "eager"
+
+    def __repr__(self):
+        return (f"PerParameterUpdater({type(self.optimizer).__name__}, "
+                f"params={len(self.params)})")

@@ -24,8 +24,8 @@ the parameter and of its (clipped) gradient, its moments, its own
 kernel steps; ``_slots`` holds views of the current ones). The table is
 kept while no pointer in it moves (``BucketTable.key``). A parameter
 the kernel cannot take raises, naming its ``ROADMAP.md`` item (a dtype
-other than fp32 and bf16: "other dtypes"; a rule without a fused form:
-"training options"); there is no other path on the card for the four
+other than fp32, bf16 and fp16: "other dtypes"; a rule without a fused
+form: "training options"); there is no other path on the card for the four
 fused rules (SGD, Momentum, Adam, AdamW). The reference has no kernel
 for its other rules (Adagrad, Adadelta, Adamax, RMSProp, Lamb, Lars,
 DGCMomentum, ``_per_parameter``): its eager step runs them as jnp, and
@@ -262,7 +262,7 @@ class Optimizer:
         for t, g in zip(params, grads):
             if t.dtype not in BUCKET_DTYPES:
                 raise NotImplementedError(
-                    f"step() on the card takes fp32 and bf16 parameters, "
+                    f"step() on the card takes fp32, bf16 and fp16 parameters, "
                     f"got {t.dtype} ({OTHER_DTYPES})")
             s = self._slots_of(t)
             entries.append((t.view(-1), g.reshape(-1),

@@ -22,12 +22,12 @@ dtype; fp32 products with TF32 off, entered by each step
 process-wide. Batch and context are rounded up to the reference's
 power-of-two buckets, so padded shapes match.
 
-A bf16 GPT runs in its parameters' dtype, as the reference's does:
-``prefill`` and ``forced_logits`` return bf16 logits and a bf16 KV
-payload (the final LayerNorm's fp32 parameters lift nothing past its
+A bf16 or fp16 GPT runs in its parameters' dtype, as the reference's
+does: ``prefill`` and ``forced_logits`` return bf16 (fp16) logits and a
+bf16 (fp16) KV payload (the final LayerNorm's fp32 parameters lift nothing past its
 cast back). ``decode`` and ``extend`` raise ``TypeError`` there, as the
 reference's do: its ``past`` enters as fp32, which promotes the
-attention and with it the scan's carry to fp32 against a bf16 input,
+attention and with it the scan's carry to fp32 against a 16-bit input,
 and ``lax.scan`` refuses the step.
 
 A token's KV payload is laid out ``[L, 2 (k|v), heads, head_dim]``

@@ -565,7 +565,7 @@ def check_gemm_settings_of_the_amp_backward(chunk):
     node raises (a hook on the word-embedding gradient, after both
     entries)."""
     saved = _flags()
-    caller = (True, True, True)
+    caller = (True, True, True, True)
     try:
         jm, tm = _carried(chunk)
         ids, mlm, nsp = (torch.from_numpy(x) for x in _batch())
@@ -579,9 +579,10 @@ def check_gemm_settings_of_the_amp_backward(chunk):
             node.register_prehook(lambda g: seen.append(_flags()))
         loss.backward()
         assert nodes and _flags() == caller, _flags()
-        want = {(False, False, False)} | ({(True, False, False)} if chunk
-                                          else set())
-        assert set(seen) <= want and (False, False, False) in seen, seen
+        want = {(False, False, False, False)} | (
+            {(True, False, False, False)} if chunk else set())
+        assert set(seen) <= want and (False, False, False, False) in seen, \
+            seen
 
         def fail(grad):
             raise _PlantedError("planted")

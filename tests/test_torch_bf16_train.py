@@ -77,7 +77,7 @@ than the reference's own bf16 flash tolerance, 2e-2,
   the logits' node entered bf16's settings) leaves the caller's flags
   as they were, from a bare ``loss.backward()`` and from ``TrainStep``.
 - What stays out raises ``NotImplementedError`` naming its ROADMAP
-  item: float16 (bf16 BERT, ported since, runs). A bf16 decode model is
+  item: float64 (float16 and bf16 BERT, ported since, run). A bf16 decode model is
   built, as the reference's is, and its ``decode`` raises
   ``TypeError`` as the reference's does (``tests/test_torch_serving.py``
   holds it against the reference).
@@ -294,7 +294,7 @@ def check_planted_flash_fault_armed():
     for loop, _ in FLASH_FAULTS:
         assert bf16.count(loop) == 1, loop
         before = bf16[:bf16.index(loop)]
-        kernels.append(before[:before.rindex("_bf16_kernel(")]
+        kernels.append(before[:before.rindex("_wgmma_kernel(")]
                        .split()[-1])
     assert sorted(kernels) == ["dkv", "dq", "fwd"], kernels
     mutant = plant_flash_fault(src)
@@ -515,12 +515,14 @@ def check_accumulation_is_fp32():
 def _flags():
     mm = torch.backends.cuda.matmul
     return (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+            mm.allow_fp16_reduced_precision_reduction,
             torch.backends.cudnn.allow_tf32)
 
 
 def _set_flags(flags):
     mm = torch.backends.cuda.matmul
     (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+     mm.allow_fp16_reduced_precision_reduction,
      torch.backends.cudnn.allow_tf32) = flags
 
 
@@ -541,7 +543,8 @@ def _gemm_nodes(root):
 
 def check_gemm_settings_are_the_models(dtype):
     """Every GEMM of a GPT forward and of a bare ``loss.backward()`` (no
-    ``TrainStep``) runs at its dtype's settings (``framework/precision.py``)
+    ``TrainStep``) runs at its dtype's settings (``framework/precision.py``;
+    fp32, bf16 or fp16, ``tests/test_torch_fp16_train.py`` runs fp16)
     while the caller has set the opposite process-wide, and the caller's
     flags are back after the forward and after each backward pass, a
     partial one (``torch.autograd.grad`` of one weight) too; the fp32
@@ -557,8 +560,8 @@ def check_gemm_settings_are_the_models(dtype):
 
 
 def _gemm_settings_case(dtype):
-    caller = (dtype == "float32", True, True)
-    want = (dtype == "bfloat16", False, False)
+    caller = (dtype == "float32", True, True, True)
+    want = (dtype != "float32", False, False, False)
     cfg = gpt_presets("gpt-test", dtype=dtype, use_flash_attention=False)
     model = GPTForCausalLM(cfg, seed=0, device="cpu")
     ids, labels = _batch(6)
@@ -594,7 +597,7 @@ def _gemm_settings_case(dtype):
     assert _flags() == caller
     if dtype != "float32":
         return
-    fp32_off = (False, False, False)
+    fp32_off = (False, False, False, False)
     decode = GPTDecodeModel(model)
     bert = BertForPretraining(bert_presets("bert-test"), device="cpu")
     inside = []
@@ -613,13 +616,13 @@ class _PlantedError(RuntimeError):
 
 
 def check_gemm_settings_restored_after_a_failed_backward():
-    """A bf16 backward that raises leaves the caller's three GEMM flags as
+    """A bf16 backward that raises leaves the caller's four GEMM flags as
     it found them, from a bare ``loss.backward()`` and from ``TrainStep``:
     the caller sets the opposite of bf16's settings, and a hook on the
     word-embedding gradient, a node that runs after the logits' identity
     node has entered bf16's, raises."""
     saved = _flags()
-    caller = (False, True, True)    # bf16's: (True, False, False)
+    caller = (False, True, True, True)   # bf16's: (True, False, False, False)
     try:
         cfg = gpt_presets("gpt-test", **BF16)
         model = GPTForCausalLM(cfg, seed=0, device="cpu")
@@ -642,14 +645,15 @@ def check_gemm_settings_restored_after_a_failed_backward():
         with pytest.raises(_PlantedError):
             step(inputs=(ids,), labels=(labels,))
         assert _flags() == caller, _flags()
-        assert seen == [(True, False, False)] * 2, seen
+        assert seen == [(True, False, False, False)] * 2, seen
     finally:
         _set_flags(saved)
 
 
 def check_unported_paths_raise():
     """What stays out of this slice raises, naming its ROADMAP item: a
-    dtype other than fp32 and bf16. A bf16 GPT's decode model is built
+    dtype other than fp32, bf16 and fp16 (fp16 is ported since:
+    ``tests/test_torch_fp16_train.py``). A bf16 GPT's decode model is built
     and refuses ``decode`` with the reference's ``TypeError`` (its fp32
     ``past`` promotes the scan carry). (bf16 buckets on
     the gradient wire are ported: tests/test_torch_bf16_dp.py holds them
@@ -657,7 +661,7 @@ def check_unported_paths_raise():
     running: tests/test_torch_bert_train.py holds it, decorated and
     under amp, against the reference.)"""
     with pytest.raises(NotImplementedError, match="other dtypes"):
-        GPTForCausalLM(gpt_presets("gpt-test", dtype="float16"),
+        GPTForCausalLM(gpt_presets("gpt-test", dtype="float64"),
                        device="cpu")
     _, tm = _models()
     dm = GPTDecodeModel(tm)

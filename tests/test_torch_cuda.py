@@ -29,7 +29,14 @@ dtype; the same check fails the kernels built with a fault planted (one
 16-wide chunk skipped in each kernel's second product) on every output
 and on every long row of out and dq; ``fused_update_buckets`` over bf16 buckets
 (bf16 parameters and gradients, fp32 moments) and fp32 ones in one
-table, bit-identical to its plain walk. One gpt-test ``TrainStep`` on the card
+table, bit-identical to its plain walk. The fp16 forms: the flash
+kernels on fp16 inputs at the bf16 shapes within ``flash_fp16_limit``
+(2.5e-3 of the plain value's magnitude plus 1.95e-3 of its row's RMS
+plus max(1e-5 s, 2^-23), s dO's scale), and at dO 2^-16 (the backward's
+dS scaling), deterministic, each launch counted under ``*_fp16``, the
+planted fault over the limit as for bf16; ``fused_update_buckets`` over
+GPT-125M's fp16 plan and over fp16, fp32 and bf16 buckets in one table,
+bit-identical to its plain walk; ``F.flash_attention`` on fp16. One gpt-test ``TrainStep`` on the card
 against one on the CPU: loss within 1e-5 relative, then
 ``adam_step_parity`` (gradients within 1e-4 of each tensor's largest;
 the step on every element whose
@@ -93,8 +100,8 @@ the grid), each launch counted under the bf16 form and its route, the
 route switching at m = 64 / 65; the same check fails the kernels built
 with faults planted (the wgmma kernel dropping 16 of the k products,
 the cluster kernel leaving rank 0's partial sums out; ``-s`` prints
-both readings); fp16 refused by the flash kernels and ``quant_matmul``,
-naming "other dtypes"; an int8 bert-test forward under O2 at 2 x 32
+both readings); fp16 refused by ``quant_matmul``, naming "other
+dtypes"; an int8 bert-test forward under O2 at 2 x 32
 and 1 x 16 tokens (9 bf16 launches, all on the cluster route, and 6
 fp32, as the reference's, its logits within 1e-2 mean relative error
 of the CPU's on the flash route); one bert-test O2 step on the
@@ -107,7 +114,7 @@ The eager training surface: ``Optimizer.step()`` on card parameters
 parameters, ragged, with a per-parameter lr_mult and regularizer): one
 ``fused_update_buckets`` launch a step, ``update_math`` never called,
 parameters, moments and beta powers bit-identical to the plain
-per-parameter step, one table while no pointer moves; an fp16 parameter
+per-parameter step, one table while no pointer moves; an fp64 parameter
 and a rule without a fused form refused, naming their ROADMAP items;
 LeNet at batch 8 on eager Tensors, one Adam step, card against CPU
 within 1e-5.
@@ -157,7 +164,8 @@ from torch_checks import (BF16_LOSS_RTOL, FUSED_HYPER, adam_step_parity,
                           bf16_step_parity, bucket_entries, buckets_vs_plain,
                           ce_bwd_vs_plain, ce_fwd_vs_plain, ce_inputs,
                           dequant_inputs, dequant_vs_plain, flash_bf16_limit,
-                          flash_err, flash_vs_plain, fused_inputs,
+                          flash_err, flash_fp16_limit, flash_vs_plain,
+                          fused_inputs,
                           fused_vs_plain, plant_flash_fault, plant_qmm_fault,
                           qmm_bf16_limit, qmm_bf16_vs_plain, qmm_vs_plain,
                           quantize_vs_plain, run_checks, same_bits)
@@ -525,14 +533,22 @@ def check_engine_on_card_token_identical_to_cpu(dev):
     assert after["codec_decode"] - before["codec_decode"] > encodes
 
 
-def check_flash_kernels_match_plain(dev, s, d, causal, dtype=torch.float32):
+_SFX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_fp16"}
+
+
+def check_flash_kernels_match_plain(dev, s, d, causal, dtype=torch.float32,
+                                    do_scale=1.0):
+    """The three kernels against their plain versions, each launched
+    once under its dtype's count; ``do_scale`` scales dO (fp16: a
+    ``GradScaler``'s unscaled gradients at 2^-16)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(s * d + causal)
     q, k, v, do = (torch.randn(2, 3, s, d, device=dev, generator=gen)
                    .to(dtype) for _ in range(4))
+    do = (do.float() * do_scale).to(dtype)
     before = fa.launch_counts()
-    flash_vs_plain(q, k, v, do, causal)
-    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    flash_vs_plain(q, k, v, do, causal, do_scale)
+    sfx = _SFX[dtype]
     ran = {n + sfx for n in ("flash_fwd", "flash_dq", "flash_dkv")}
     assert fa.launch_counts() == {n: c + (n in ran)
                                   for n, c in before.items()}
@@ -573,10 +589,22 @@ def check_bf16_flash_check_sees_a_planted_fault(dev, causal):
     n4 s1024 d64; each faulty kernel, on the sound run's lse and delta,
     is over the limit on every output, and out and dq on every long row
     (queries 512 and on). Prints both readings (largest diff / limit)."""
+    _flash_fault_case(dev, causal, torch.bfloat16)
+
+
+def check_fp16_flash_check_sees_a_planted_fault(dev, causal):
+    """The same for the fp16 kernels (the faults sit in the templates
+    both dtypes instance) against ``flash_fp16_limit``."""
+    _flash_fault_case(dev, causal, torch.float16)
+
+
+def _flash_fault_case(dev, causal, dtype):
+    limit = (flash_bf16_limit if dtype == torch.bfloat16
+             else flash_fp16_limit)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1024 + causal)
     q, k, v, do = (torch.randn(1, 4, 1024, 64, device=dev, generator=gen)
-                   .bfloat16() for _ in range(4))
+                   .to(dtype) for _ in range(4))
     sound, lse, delta = flash_vs_plain(q, k, v, do, causal)
     plain = dict(zip(("dq", "dk", "dv"), fa.flash_bwd_plain(
         q, k, v, do, lse, delta, causal)),
@@ -588,14 +616,13 @@ def check_bf16_flash_check_sees_a_planted_fault(dev, causal):
                                                   causal)),
                    out=fa.flash_fwd(q, k, v, causal)[0],
                    dq=fa.flash_dq(q, k, v, do, lse, delta, causal))
-    fault = {n: flash_err(n, torch.bfloat16, got[n], plain[n])
-             for n in plain}
+    fault = {n: flash_err(n, dtype, got[n], plain[n]) for n in plain}
     assert all(r > 1.0 for _, r in fault.values()), fault
     for name in ("out", "dq"):
         flagged = ((got[name].float() - plain[name].float()).abs()
-                   > flash_bf16_limit(plain[name])).any(-1)[..., 512:]
+                   > limit(plain[name])).any(-1)[..., 512:]
         assert bool(flagged.all()), (name, float(flagged.float().mean()))
-    print(f"bf16 flash causal={causal}, largest diff / limit: sound "
+    print(f"{dtype} flash causal={causal}, largest diff / limit: sound "
           + ", ".join(f"{n} {r:.3f}" for n, (_, r) in sound.items())
           + "; planted fault "
           + ", ".join(f"{n} {r:.1f}" for n, (_, r) in fault.items()))
@@ -709,8 +736,8 @@ def check_bucket_wrappers_raise(dev):
         fu.fused_update_buckets(table, torch.ones(()))
 
 
-def _gpt125m_bf16_plan():
-    cfg = gpt_presets("gpt-125m", dtype="bfloat16")
+def _gpt125m_bf16_plan(dtype="bfloat16"):
+    cfg = gpt_presets("gpt-125m", dtype=dtype)
     dtypes = expected_dtypes(cfg)
     plan = build_buckets([torch.empty(sh, device="meta", dtype=dtypes[n])
                           for n, sh in expected_shapes(cfg).items()])
@@ -742,7 +769,8 @@ def check_train_step_on_card_matches_cpu(dev):
     # 2 layers: 2 launches of each flash kernel; gpt-test is one bucket
     assert {k: after[k] - before[k] for k in after} == {
         "flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2, "flash_fwd_bf16": 0,
-        "flash_dq_bf16": 0, "flash_dkv_bf16": 0, "fused_update": 1}
+        "flash_dq_bf16": 0, "flash_dkv_bf16": 0, "flash_fwd_fp16": 0,
+        "flash_dq_fp16": 0, "flash_dkv_fp16": 0, "fused_update": 1}
 
 
 def check_bf16_train_step_on_card_matches_cpu(dev):
@@ -764,7 +792,8 @@ def check_bf16_train_step_on_card_matches_cpu(dev):
     # the bf16 kernels only; one launch for the fp32 and bf16 buckets
     assert {k: after[k] - before[k] for k in after} == {
         "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_bf16": 2,
-        "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "fused_update": 1}
+        "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "flash_fwd_fp16": 0,
+        "flash_dq_fp16": 0, "flash_dkv_fp16": 0, "fused_update": 1}
 
 
 class _PlantedError(RuntimeError):
@@ -814,8 +843,8 @@ def check_new_wrappers_raise(dev):
             fa.flash_fwd(bad, bad, bad, True)
     with pytest.raises(TypeError):
         fa.flash_fwd(q.double(), q.double(), q.double(), True)
-    with pytest.raises(TypeError, match="other dtypes"):
-        fa.flash_fwd(q.half(), q.half(), q.half(), False)
+    with pytest.raises(TypeError, match="k in torch.float16"):
+        fa.flash_fwd(q.half(), q.bfloat16(), q.half(), False)
     qb = q.bfloat16()
     with pytest.raises(TypeError, match="k in torch.bfloat16"):
         fa.flash_fwd(qb, q, qb, True)
@@ -1056,7 +1085,8 @@ def check_bert_amp_step_on_card_matches_cpu(dev):
           f"the query and key projections' {r_qk['grad_rtol']:.3e}")
     assert {k: after[k] - before[k] for k in after} == {
         "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_bf16": 2,
-        "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "fused_update": 1}
+        "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "flash_fwd_fp16": 0,
+        "flash_dq_fp16": 0, "flash_dkv_fp16": 0, "fused_update": 1}
 
 
 def check_bert_int8_amp_on_card(dev, b=2, s=32):
@@ -1238,7 +1268,8 @@ def check_fused_recompute_step_on_card_matches_cpu(dev):
              **fce.launch_counts()}
     assert {k: after[k] - counts[k] for k in after} == {
         "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_bf16": 4,
-        "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "fused_update": 1,
+        "flash_dq_bf16": 2, "flash_dkv_bf16": 2, "flash_fwd_fp16": 0,
+        "flash_dq_fp16": 0, "flash_dkv_fp16": 0, "fused_update": 1,
         "ce_chunk_fwd": 4, "ce_chunk_bwd": 4}
     cpu_loss, cpu = _options_step("cpu", fused_loss_chunk=64, recompute=True)
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
@@ -1367,7 +1398,7 @@ def check_eager_step_on_card(dev, kind):
 def check_eager_step_refuses_on_card(dev):
     from paddle_tpu_torch import optimizer as popt
 
-    (p,) = _eager_params(dev, [(8, torch.float16)], 2)
+    (p,) = _eager_params(dev, [(8, torch.float64)], 2)
     with pytest.raises(NotImplementedError, match="other dtypes"):
         popt.Adam(parameters=[p]).step()
 
@@ -1443,7 +1474,7 @@ def check_flash_attention_entry_on_card(dev, dtype):
     import paddle_tpu_torch as paddle
 
     F = paddle.nn.functional
-    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    sfx = _SFX[dtype]
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v, do = (torch.randn(2, 256, 4, 64, device=dev, generator=g)
                    .to(dtype) for _ in range(4))
@@ -1512,9 +1543,23 @@ def test_cuda_path_matches_plain(dev):
            for c in (True, False)]
         + [(check_bf16_flash_check_sees_a_planted_fault, (dev, c))
            for c in (True, False)]
+        # the fp16 forms: the bf16 shapes, and dO at 2^-16
+        + [(check_flash_kernels_match_plain, (dev, s, d, c, torch.float16))
+           for s, d in ((1, 16), (37, 16), (64, 64), (130, 64), (77, 96),
+                        (100, 48), (50, 32), (77, 112), (1000, 112),
+                        (200, 80),
+                        *((s, d) for s in (1, 63, 1000, 1024)
+                          for d in (16, 64, 128)))
+           for c in (True, False)]
+        + [(check_flash_kernels_match_plain,
+            (dev, s, d, c, torch.float16, 2.0 ** -16))
+           for s, d in ((1024, 64), (1000, 128), (512, 64))
+           for c in (True, False)]
+        + [(check_fp16_flash_check_sees_a_planted_fault, (dev, c))
+           for c in (True, False)]
         + [(check_flash_backward_deterministic, (dev, s, d, c, dt))
            for s, d in ((1000, 64), (1024, 128)) for c in (True, False)
-           for dt in (torch.float32, torch.bfloat16)]
+           for dt in (torch.float32, torch.bfloat16, torch.float16)]
         + [(check_fused_update_bit_identical, (dev, k, wd, n))
            for k in ("sgd", "momentum", "adam", "adamw")
            for wd in (0.0, 0.01) for n in (1, 4097, 100003)]
@@ -1535,6 +1580,13 @@ def test_cuda_path_matches_plain(dev):
                 _gpt125m_bf16_plan()[1]),
                ((1, 4097, 100003, 5, 64, 3, 9, 17), (0.01, 0.0),
                 (1.0, 0.5), (torch.bfloat16, torch.float32,
+                             torch.bfloat16)),
+               # fp16 buckets: GPT-125M's fp16 plan, and all three dtypes
+               # in one table
+               (_gpt125m_bf16_plan("float16")[0], (0.01,), (1.0,),
+                _gpt125m_bf16_plan("float16")[1]),
+               ((1, 4097, 100003, 5, 64, 3, 9, 17, 8), (0.01, 0.0),
+                (1.0, 0.5), (torch.float16, torch.float32,
                              torch.bfloat16)))]
         + [(check_updater_table_rebuilt_after_cat_fallback, (dev,)),
            (check_bucket_wrappers_raise, (dev,))]
@@ -1632,7 +1684,7 @@ def test_cuda_path_matches_plain(dev):
            for k in range(len(NN_CASES))]
         + [(check_dropout_on_card, (dev,))]
         + [(check_flash_attention_entry_on_card, (dev, dt))
-           for dt in (torch.float32, torch.bfloat16)]
+           for dt in (torch.float32, torch.bfloat16, torch.float16)]
         + [(check_step_dequant_keeps_its_table, (dev,)),
            (check_dequant_wrapper_raises, (dev,))]
         + [(check_fused_ce_kernels_match_plain, (dev, n, c, st, v, b, ig))

@@ -290,8 +290,8 @@ def check_decorate_matches_reference():
 
 
 def check_gemm_settings_follow_the_cast(level):
-    want = (level == "O2", False, False)
-    caller = (not want[0], True, True)
+    want = (level == "O2", False, False, False)
+    caller = (not want[0], True, True, True)
     saved = _flags()
     cfg = gpt_presets("gpt-test", use_flash_attention=False)
     model = GPTForCausalLM(cfg, seed=0, device="cpu")

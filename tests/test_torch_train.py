@@ -33,7 +33,9 @@ JAX reference on the CPU, at ``gpt-test`` size (2 layers, hidden 64,
 - The options still left out raise ``NotImplementedError`` naming their
   ROADMAP item (``grad_comm``, ported since, takes only a config or a
   codec name; ``recompute``, ``fused_loss_chunk`` and ``grad_clip``,
-  ported since, are held in ``tests/test_torch_train_options.py``).
+  ported since, are held in ``tests/test_torch_train_options.py``;
+  dropout, ``attn_dropout`` and ``recompute_policy``, ported since, run,
+  and ``tests/test_torch_gpt_options.py`` holds them).
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -224,18 +226,18 @@ def check_training_forward_matches_serving_and_einsum_path():
 
 def check_left_out_options_raise():
     ids, _ = _batch()
-    for over in ({"dropout": 0.1}, {"attn_dropout": 0.1}, {"mode": "scan"},
-                 {"use_ring_attention": True},
+    for over in ({"mode": "scan"}, {"use_ring_attention": True},
                  {"use_ulysses_attention": True}):
         tm = GPTForCausalLM(gpt_presets("gpt-test", **over), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm(torch.from_numpy(ids))
-    with pytest.raises(NotImplementedError, match="training options"):
-        GPTForCausalLM(gpt_presets("gpt-test",
-                                   recompute_policy=("remat", "none")),
-                       device="cpu")
     # recompute, fused_loss_chunk and grad_clip are ported
-    # (tests/test_torch_train_options.py)
+    # (tests/test_torch_train_options.py); dropout, attn_dropout and
+    # recompute_policy too (tests/test_torch_gpt_options.py): they run
+    for over in ({"dropout": 0.1}, {"attn_dropout": 0.1},
+                 {"recompute_policy": ("remat", "none")}):
+        tm = GPTForCausalLM(gpt_presets("gpt-test", **over), device="cpu")
+        assert torch.isfinite(tm(torch.from_numpy(ids))).all(), over
     tm = GPTForCausalLM(gpt_presets("gpt-test"), device="cpu")
     o = AdamW(parameters=tm.parameters())
     for kw in ("batch_spec", "grad_fn"):

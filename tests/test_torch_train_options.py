@@ -372,8 +372,8 @@ def check_fused_loss_gemm_settings(dtype):
     forward and after the backward (``tests/test_torch_bf16_train.py``
     holds the unfused path the same way)."""
     saved = _flags()
-    caller = (dtype == "float32", True, True)
-    want = (dtype == "bfloat16", False, False)
+    caller = (dtype == "float32", True, True, True)
+    want = (dtype == "bfloat16", False, False, False)
     cfg = gpt_presets("gpt-test", dtype=dtype, fused_loss_chunk=64,
                       use_flash_attention=False)
     model = GPTForCausalLM(cfg, seed=0, device="cpu")

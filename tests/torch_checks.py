@@ -31,9 +31,20 @@ the two hold the kernels to one set of criteria:
   same model with one 16-key chunk dropped from a product, a fault that
   moves a long causal row by a few 1e-3, needs more than 1.6e-2 in
   over 90% of the long rows. lse within 1e-4 max abs (bf16 operands
-  multiply exactly, so the scores are fp32 sums as in the fp32 kernel);
-- ``fused_update``: bit-identical parameters and slots, fp32 or bf16
-  parameters (:func:`same_bits`);
+  multiply exactly, so the scores are fp32 sums as in the fp32 kernel).
+  The fp16 kernels (:func:`flash_fp16_limit`), derived the same way:
+  ``2.5e-3 |plain| + 1.95e-3 rms(plain's row) + max(1e-5 s, 2^-23)``,
+  bf16's rtol scaled by the ulps' ratio (2^-11 against 2^-8), four fp16
+  ulps of the row's RMS, and bf16's floor scaled with the gradients'
+  scale ``s`` (1 for unit-scale inputs; a backward at ``dO 2^-16`` has
+  ``s = 2^-16``), but never under two subnormal fp16 steps (2^-24 each:
+  a gradient that small is a subnormal, and the kernel and the plain
+  version each round it once); each term no looser than bf16's.
+  The CPU model of the fp16 kernels' rounding
+  (``tests/test_torch_fp16_train.py``) stays within it at unit-scale and
+  at 2^-16-scaled dO; lse as bf16's;
+- ``fused_update``: bit-identical parameters and slots, fp32, bf16 or
+  fp16 parameters (:func:`same_bits`);
 - ``fused_update_buckets``: bit-identical parameters, slots and stepped
   beta powers over consecutive steps, against its plain walk of the same
   kind of table (:func:`buckets_vs_plain`);
@@ -105,6 +116,10 @@ FLASH_BF16_RTOL = 2e-2     # of the plain element's magnitude
 FLASH_BF16_ROW = 1.6e-2    # of the RMS of the plain element's row
 FLASH_BF16_FLOOR = 1e-5    # absolute, for unit-scale inputs
 FLASH_BF16_LSE = 1e-4      # max abs
+# the fp16 flash outputs, element by element (:func:`flash_fp16_limit`)
+FLASH_FP16_RTOL = 2.5e-3   # FLASH_BF16_RTOL * 2^-11 / 2^-8
+FLASH_FP16_ROW = 1.95e-3   # four fp16 ulps (2^-11 each) of the row's RMS
+FLASH_FP16_SUBNORMAL = 2.0 ** -23   # two of fp16's steps below 2^-14
 # a bf16 GPT step's loss, card against CPU, relative: read 2.46e-5 at
 # GPT-125M width, 2 layers, b2 s128 (``chip_smoke.py`` phase 18) and
 # 2.4e-6 at gpt-test, b2 s37, where the kernels with a planted fault
@@ -149,7 +164,8 @@ def _max_abs(a, b) -> float:
 
 def same_bits(a, b) -> bool:
     """True if the two tensors hold the same bits (fp32 or bf16)."""
-    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}
     return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]),
                                               b.view(ints[b.dtype]))
 
@@ -172,12 +188,29 @@ def flash_bf16_limit(plain: torch.Tensor) -> torch.Tensor:
             + FLASH_BF16_FLOOR)
 
 
-def flash_err(name, dtype, got, plain):
+def flash_fp16_limit(plain: torch.Tensor, scale: float = 1.0
+                     ) -> torch.Tensor:
+    """The limit of each element of an fp16 flash output against its
+    plain version ``plain``: ``FLASH_FP16_RTOL |plain| + FLASH_FP16_ROW
+    rms(row) + max(FLASH_BF16_FLOOR scale, 2^-23)``, ``scale`` the
+    gradients' scale (module docstring)."""
+    b = plain.float()
+    rms = b.pow(2).mean(-1, keepdim=True).sqrt()
+    floor = max(FLASH_BF16_FLOOR * scale, FLASH_FP16_SUBNORMAL)
+    return FLASH_FP16_RTOL * b.abs() + FLASH_FP16_ROW * rms + floor
+
+
+def flash_err(name, dtype, got, plain, scale: float = 1.0):
     """``(max abs diff, largest diff / limit)`` of one flash output
-    against its plain version; ``dtype`` is the inputs' (the module
-    docstring gives the limits)."""
+    against its plain version; ``dtype`` is the inputs', ``scale`` the
+    gradients' (fp16; the module docstring gives the limits)."""
     diff = (got.float() - plain.float()).abs()
     err = float(diff.max())
+    if dtype == torch.float16:
+        if name == "lse":
+            return err, err / FLASH_BF16_LSE
+        lim = flash_fp16_limit(plain, scale if name != "out" else 1.0)
+        return err, float((diff / lim).max())
     if dtype == torch.bfloat16:
         if name == "lse":
             return err, err / FLASH_BF16_LSE
@@ -223,7 +256,7 @@ def plant_flash_fault(src: str) -> str:
 
 
 def flash_fwd_vs_plain(q, k, v, causal: bool):
-    """``flash_fwd`` against its plain version (fp32 or bf16 inputs).
+    """``flash_fwd`` against its plain version (fp32, bf16 or fp16 inputs).
     Returns ``(errs, out, lse)``: ``errs`` maps out and lse to (max abs
     diff, largest diff / limit); raises when one is over its limit."""
     out, lse = fa.flash_fwd(q, k, v, causal)
@@ -238,11 +271,12 @@ def flash_fwd_vs_plain(q, k, v, causal: bool):
     return errs, out, lse
 
 
-def flash_vs_plain(q, k, v, do, causal: bool):
+def flash_vs_plain(q, k, v, do, causal: bool, scale: float = 1.0):
     """The three flash kernels and their plain versions on the same
-    inputs (fp32 or bf16). Returns ``(errs, lse, delta)``: ``errs`` maps
-    out, lse, dq, dk and dv to (max abs diff, largest diff / limit);
-    raises when one is over its limit."""
+    inputs (fp32, bf16 or fp16; ``scale``: dO's, for the fp16 limit).
+    Returns ``(errs, lse, delta)``: ``errs`` maps out, lse, dq, dk and dv
+    to (max abs diff, largest diff / limit); raises when one is over its
+    limit."""
     errs, out, lse = flash_fwd_vs_plain(q, k, v, causal)
     delta = (do.float() * out.float()).sum(-1, keepdim=True)
     dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
@@ -252,7 +286,7 @@ def flash_vs_plain(q, k, v, do, causal: bool):
         if a.dtype != q.dtype:
             raise AssertionError(f"flash {name} is {a.dtype} for {q.dtype} "
                                  f"inputs")
-        errs[name] = flash_err(name, q.dtype, a, b)
+        errs[name] = flash_err(name, q.dtype, a, b, scale)
     _over_limit(f"flash {list(q.shape)} {q.dtype} causal={causal}", errs)
     return errs, lse, delta
 
@@ -633,10 +667,19 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
                        e - 8).clamp_min(2.0 ** -133)
 
 
+def fp16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One fp16 ulp at each element of ``x`` (as fp32): ``2^(e - 11)``,
+    at least fp16's subnormal step 2^-24."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       e - 11).clamp_min(2.0 ** -24)
+
+
 def bf16_step_parity(card, cpu, lr, grad_rtol=2e-2, update_rtol=1e-2,
                      eps=1e-8):
     """Hold one Adam(W) first step of a bf16 model on the card against one
-    on the CPU; ``card`` and ``cpu`` as for :func:`adam_step_parity`.
+    on the CPU; ``card`` and ``cpu`` as for :func:`adam_step_parity`. An
+    fp16 model is held the same way, its ulps fp16's (:func:`fp16_ulp`).
 
     The two devices round bf16 products in other places (the card's
     flash kernels round p and ds to bf16, its GEMMs sum on the tensor
@@ -687,12 +730,13 @@ def bf16_step_parity(card, cpu, lr, grad_rtol=2e-2, update_rtol=1e-2,
         if not bool(clear.any()):
             continue
         a_card, a_cpu = c1.float()[clear], b1.float()[clear]
-        if b1.dtype == torch.bfloat16:
-            lim = bf16_ulp(torch.maximum(a_card.abs(), a_cpu.abs()))
+        if b1.dtype in (torch.bfloat16, torch.float16):
+            ulp = bf16_ulp if b1.dtype == torch.bfloat16 else fp16_ulp
+            lim = ulp(torch.maximum(a_card.abs(), a_cpu.abs()))
             over = int(((a_card - a_cpu).abs() > lim).sum())
             if over:
                 bad.append(f"{name}: {over} clear elements more than one "
-                           f"bf16 ulp from the CPU's")
+                           f"{b1.dtype} ulp from the CPU's")
         else:
             derr = _max_abs(a_card, a_cpu) / lr
             if derr > update_rtol:

@@ -97,9 +97,9 @@ def build(name: str, src: str) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr[-4000:]}")
     # registers and spills of the bf16 kernels the variant changes (all
     # of them for new, parent and --variant sources)
-    kern = name.split("_")[0] + "_bf16"
-    if kern not in ("fwd_bf16", "dkv_bf16", "dq_bf16"):
-        kern = "bf16"
+    kern = name.split("_")[0] + "_wgmma"
+    if kern not in ("fwd_wgmma", "dkv_wgmma", "dq_wgmma"):
+        kern = "wgmma"
     entry = ""
     for line in proc.stderr.splitlines():
         if "Compiling entry" in line:
