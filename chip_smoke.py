@@ -671,7 +671,35 @@ when every phase passed):
               fused_update a step not skipped, one host read of the
               finite flag a step; a planted inf gradient skips its step,
               leaves every parameter's bits and halves the scale; step ms
-              and idle share beside phase 25's bf16 O2 step.
+              and idle share beside phase 25's bf16 O2 step; every
+              backward's gradients fp16, every unscaled one fp32 (the
+              reference's unscale_), the eager table built once.
+ 48. fp16 wire kernels  phase 13's 16-bit rows at GPT-125M's fp16 plan
+              (9 fp16 buckets, the fp32 final norm): two ranks' fp16
+              gradients (fp16 subnormals among them) encoded by
+              codec_encode, int8_block and fp8_block, bit for bit against
+              the plain encode; the summed carriers decoded into fp16 by
+              codec_decode, bit for bit; the plan's one
+              fused_dequant_update_buckets launch over 2 steps, residual
+              off and on, bit for bit; each timed beside its plain version,
+              its bound and torch.quantize_per_channel / torch.mul /
+              decode + torch._fused_adamw_ with fp16 moments;
+ 49. dp train fp16  phase 19 on GPT-125M in fp16 (fp16_config()): 2 ranks,
+              b4 s1024 a rank, 2 + 5 steps, one fp16 dequant launch a step
+              a rank, the first step's 9 encodes from fp16, 2 DataParallel
+              rounds (9 encodes from fp16, 18 decodes into fp16 a rank),
+              the ranks bit-identical, rank 0's idle share over one more
+              step, beside phase 45's fp16 step and phase 19's bf16 dp
+              step; then phase 20's 2-layer check on the fp16 model;
+ 50. int8 fp16  BERT-base decorated at O2 in fp16, converted to int8, run
+              under auto_cast(level="O2", dtype="float16") at 16 x 512 and
+              1 x 64: 29 fp16 quant_matmul launches a forward (27 wgmma
+              and 2 cluster at 16 x 512, all cluster at 1 x 64), 46 fp32,
+              12 fp16 flash; beside phase 27's bf16 forwards; the fp16
+              form at every launched shape, a ragged one a route and fp32
+              out on each route against quant_matmul_plain
+              (torch_checks.qmm16_vs_plain); the logits card against CPU
+              at 2 layers.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -680,6 +708,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import math
 import os
@@ -2364,54 +2393,64 @@ def phase_infer_kernels(dev, gen, shapes):
     return rows
 
 
-def _qmm_bf16_case(dev, gen, mkn, launches, flush):
-    """``quant_matmul`` on bf16 ``x`` (the ``quant_matmul_bf16`` kernel)
-    at ``mkn`` against its plain version, timed beside it, its bound
-    (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16) and a like
-    yardstick: ``torch.matmul`` on the bf16 ``x`` and the weight
-    dequantized to bf16, at the port's GEMM settings (no reduced-precision
-    reduction)."""
-    from torch_checks import qmm_bf16_vs_plain
+def _qmm_bf16_case(dev, gen, mkn, launches, flush, dtype=torch.bfloat16,
+                   out_dtype=None):
+    """``quant_matmul`` on bf16 ``x`` (or ``dtype``'s: fp16; the
+    ``quant_matmul_16`` kernels) at ``mkn`` against its plain version
+    (``torch_checks.qmm16_vs_plain``; out in x's dtype, or ``out_dtype``
+    fp32), timed beside it, its bound (bytes at 3.35 TB/s, operations at
+    989 TFLOP/s bf16 and fp16) and a like yardstick: ``torch.matmul`` on
+    ``x`` and the weight dequantized to x's dtype, at the port's GEMM
+    settings (no reduced-precision reduction)."""
+    from torch_checks import qmm16_vs_plain
 
     from paddle_tpu_torch.framework.precision import matmul_precision
 
     qm = _quant_module()
     m, k, n = mkn
-    x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+    name = str(dtype).split(".")[-1]
+    x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
     q, sc = qm.quantize_int8(torch.randn(k, n, device=dev, generator=gen)
                              * 0.02)
-    err, ratio = qmm_bf16_vs_plain(x, q, sc)
-    w = (q.float() * sc).to(torch.bfloat16)
-    # read x (bf16), q and the scales once, write the bf16 output; 2 m n k
-    bound_ms, bound_by = work_bound(2 * m * k + k * n + 4 * n + 2 * m * n,
-                                    2 * m * n * k, bf16=True)
+    err, ratio = qmm16_vs_plain(x, q, sc, out_dtype)
+    w = (q.float() * sc).to(dtype)
+    # read x (16-bit), q and the scales once, write the output; 2 m n k
+    out_b = 4 if out_dtype == torch.float32 else 2
+    bound_ms, bound_by = work_bound(2 * m * k + k * n + 4 * n
+                                    + out_b * m * n, 2 * m * n * k,
+                                    bf16=True)
     with matmul_precision("float32"):
         library_ms = median_ms(lambda: torch.matmul(x, w), flush)
-    r = {"shape": f"({m}, {k}, {n}) bf16", "launches_at_shape": launches,
-         "bf16_route": qm.bf16_route(x, q),
+    out_tag = " -> fp32" if out_dtype == torch.float32 else ""
+    r = {"shape": f"({m}, {k}, {n}) {name}{out_tag}",
+         "launches_at_shape": launches, "bf16_route": qm.route16(x, q),
          "max_abs_err": err, "err_over_limit": ratio,
-         "ms": median_ms(lambda: qm.quant_matmul(x, q, sc), flush),
-         "plain_ms": median_ms(lambda: qm.quant_matmul_plain(x, q, sc),
-                               flush),
+         "ms": median_ms(lambda: qm.quant_matmul(x, q, sc,
+                                                 out_dtype=out_dtype),
+                         flush),
+         "plain_ms": median_ms(lambda: qm.quant_matmul_plain(
+             x, q, sc, out_dtype), flush),
          "library_ms": library_ms, "library_form":
-         "torch.matmul(x bf16, dequantized weight bf16)",
+         f"torch.matmul(x {name}, dequantized weight {name})",
          "bound_ms": bound_ms, "bound_by": bound_by}
-    log(f"quant_matmul_bf16 {r['shape']} ({launches} in the timed "
-        f"forwards, {r['bf16_route']} route): max abs diff {err:.3e}, at most {ratio:.4f} of the "
-        f"limit | {r['ms']:.4f} ms ({2 * m * n * k / r['ms'] / 1e9:.2f} "
-        f"TFLOP/s; plain {r['plain_ms']:.4f}, bf16 torch.matmul "
-        f"{library_ms:.4f}, bound {bound_ms:.4f} {bound_by}, the kernel at "
+    log(f"quant_matmul {r['shape']} ({launches} in the "
+        f"timed forwards, {r['bf16_route']} route): max abs diff "
+        f"{err:.3e}, at most {ratio:.4f} of the limit | {r['ms']:.4f} ms "
+        f"({2 * m * n * k / r['ms'] / 1e9:.2f} TFLOP/s; plain "
+        f"{r['plain_ms']:.4f}, {name} torch.matmul {library_ms:.4f}, bound "
+        f"{bound_ms:.4f} {bound_by}, the kernel at "
         f"{100 * bound_ms / r['ms']:.1f}% of it)")
     return r
 
 
-def phase_infer_kernels_bf16(dev, gen, shapes):
-    """Phase 27's kernel rows: ``quant_matmul_bf16`` at every shape the
-    O2 forwards launched it at (``shapes``, most launched first) and at a
-    ragged one a route (k % 8 != 0, n % 16 != 0: element loads; at m > 64
-    the mma.sync route)."""
+def phase_infer_kernels_bf16(dev, gen, shapes, dtype=torch.bfloat16):
+    """Phase 27's kernel rows (phase 50's on fp16 ``x``):
+    ``quant_matmul`` on 16-bit ``x`` at every shape the O2 forwards
+    launched it at (``shapes``, most launched first) and at a ragged one
+    a route (k % 8 != 0, n % 16 != 0: element loads; at m > 64 the
+    mma.sync route)."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    rows = [_qmm_bf16_case(dev, gen, mkn, n, flush)
+    rows = [_qmm_bf16_case(dev, gen, mkn, n, flush, dtype)
             for mkn, n in [*shapes.most_common(), (RAGGED_QMM, 0),
                            (RAGGED_QMM_SMALL, 0)]]
     del flush
@@ -2435,7 +2474,9 @@ def infer_launch_counts() -> dict:
     flash = fa.launch_counts()
     return {**qm.launch_counts(), "flash_fwd": flash["flash_fwd"],
             "flash_fwd_bf16": flash["flash_fwd_bf16"],
-            "shapes": qm.shape_counts(), "routes": qm.route_counts()}
+            "flash_fwd_fp16": flash["flash_fwd_fp16"],
+            "shapes": qm.shape_counts(), "routes": qm.route_counts(),
+            "routes_fp16": qm.route_counts(torch.float16)}
 
 
 def reset_infer_launch_counts() -> None:
@@ -2476,10 +2517,12 @@ def amp_int8_split(num_layers: int):
 
 
 def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
-                cfg=None, level=None):
-    """Phase 10 (``level`` None) and phase 27 (``level="O2"``: the
-    forwards under ``auto_cast(level="O2")``)."""
-    from paddle_tpu_torch.amp import auto_cast
+                cfg=None, level=None, dtype="bfloat16", decorated=False):
+    """Phase 10 (``level`` None), phase 27 (``level="O2"``: the forwards
+    under ``auto_cast(level="O2")``) and phase 50 (``dtype="float16"``,
+    ``decorated``: the model decorated at O2 in that dtype before the
+    conversion)."""
+    from paddle_tpu_torch.amp import auto_cast, decorate
     from paddle_tpu_torch.models import BertForPretraining, bert_presets
     from paddle_tpu_torch.nn import Linear
     from paddle_tpu_torch.quantization import convert_to_int8
@@ -2487,6 +2530,8 @@ def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
     cfg = cfg or bert_presets("bert-base")
     t0 = time.perf_counter()
     model = BertForPretraining(cfg, seed=0, device=dev).eval()
+    if decorated:
+        model = decorate(model, level="O2", dtype=dtype)
     build_s = time.perf_counter() - t0
     before = _at_rest_bytes(model)
     linears = [m for m in model.modules() if isinstance(m, Linear)]
@@ -2509,7 +2554,8 @@ def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
     ids = torch.as_tensor(ids, device=dev)
     types = torch.as_tensor(types, device=dev)
     with torch.inference_mode(), auto_cast(enable=level is not None,
-                                           level=level or "O1"):
+                                           level=level or "O1",
+                                           dtype=dtype):
         for _ in range(warmup):
             model(ids, types)
         torch.cuda.synchronize()
@@ -2526,7 +2572,8 @@ def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
     med = statistics.median(fwd_ms)
     per_forward = Counter()            # (k, n) -> launches per forward
     for (m, k, n), c in (counts["shapes"]["quant_matmul"]
-                         + counts["shapes"]["quant_matmul_bf16"]).items():
+                         + counts["shapes"]["quant_matmul_bf16"]
+                         + counts["shapes"]["quant_matmul_fp16"]).items():
         per_forward[(k, n)] += c / iters
         if m not in (b * s, b):
             per_forward["m not b * s or b"] += c
@@ -2539,41 +2586,44 @@ def phase_infer(dev, seed, warmup=2, iters=5, b=INFER_B, s=INFER_S,
                "linear_weight_bytes_fp32": linear_bytes,
                "conversion_launches": _named(conversion),
                "launches": _named(counts)}
-    tag = f" {level}" if level else ""
+    tag = (f" {level}" if level else "") + (
+        f" {dtype}" if dtype != "bfloat16" else "")
     log(f"infer{tag} " + json.dumps(summary))
-    # under O2 the MLM logits are bf16 ("mlm_logits" casts) and the NSP
-    # head's fp32 (the int8 layer adds its fp32 bias by promotion)
-    want_dt = torch.bfloat16 if level == "O2" else torch.float32
+    # under O2 the MLM logits are in amp's dtype ("mlm_logits" casts) and
+    # the NSP head's fp32 (the int8 layer adds its fp32 bias by promotion;
+    # decorated, the bias is in amp's dtype too)
+    amp_dt = getattr(torch, dtype)
+    want_dt = amp_dt if level == "O2" else torch.float32
+    nsp_dt = amp_dt if decorated else torch.float32
     if tuple(logits.shape) != (b, s, cfg.vocab_size) or \
             tuple(nsp.shape) != (b, 2) or logits.dtype != want_dt or \
-            nsp.dtype != torch.float32:
+            nsp.dtype != nsp_dt:
         raise AssertionError(f"logits {tuple(logits.shape)} {logits.dtype}, "
                              f"nsp {tuple(nsp.shape)} {nsp.dtype}")
     if not (torch.isfinite(logits).all() and torch.isfinite(nsp).all()):
         raise AssertionError("non-finite logits")
-    if level == "O2":
-        n16, n32 = amp_int8_split(cfg.num_layers)
-        want = {"quantize_int8": 0, "quant_matmul": n32 * iters,
-                "quant_matmul_bf16": n16 * iters, "flash_fwd": 0,
-                "flash_fwd_bf16": cfg.num_layers * iters}
-    else:
-        want = {"quantize_int8": 0, "quant_matmul": len(linears) * iters,
-                "quant_matmul_bf16": 0, "flash_fwd": cfg.num_layers * iters,
-                "flash_fwd_bf16": 0}
-    # the bf16 form's routes by m: the cluster route for the pooler and the
-    # NSP head at m = b, and at m = b * s where that is at most 64; else
-    # wgmma
+    sfx = SFX16[dtype] if level == "O2" else ""
+    n16, n32 = (amp_int8_split(cfg.num_layers) if level == "O2"
+                else (0, len(linears)))
+    want = {"quantize_int8": 0, "quant_matmul": n32 * iters}
+    for f in ("_bf16", "_fp16"):
+        want["quant_matmul" + f] = n16 * iters * (f == sfx)
+    for f in ("", "_bf16", "_fp16"):
+        want["flash_fwd" + f] = cfg.num_layers * iters * (f == sfx)
+    # the 16-bit form's routes by m: the cluster route for the pooler and
+    # the NSP head at m = b, and at m = b * s where that is at most 64;
+    # else wgmma
     want_routes = Counter()
     if level == "O2":
         want_routes["cluster" if b * s <= 64 else "wgmma"] += (n16 - 2) * iters
         want_routes["cluster"] += 2 * iters
+    routes = counts["routes_fp16" if sfx == "_fp16" else "routes"]
     got = {k: counts[k] for k in want}
-    if got != want or per_forward != weights or \
-            counts["routes"] != want_routes:
+    if got != want or per_forward != weights or routes != want_routes:
         raise AssertionError(f"launch counts {got}, expected {want}; per "
                              f"forward by weight {dict(per_forward)}, "
                              f"expected {dict(weights)}; routes "
-                             f"{dict(counts['routes'])}, expected "
+                             f"{dict(routes)}, expected "
                              f"{dict(want_routes)}")
     del logits, nsp
     return conversion, counts, model, (ids, types), summary
@@ -2585,7 +2635,7 @@ def _named(counts) -> dict:
                                  for name, c in counts["shapes"].items()}}
 
 
-def phase_infer_profile(model, batch, level=None, tag=""):
+def phase_infer_profile(model, batch, level=None, tag="", dtype="bfloat16"):
     """One forward profiled: device busy and idle shares, the top kernels
     and the int8 and flash kernels' shares. Returns (busy us, {kernel
     name: device us})."""
@@ -2594,7 +2644,8 @@ def phase_infer_profile(model, batch, level=None, tag=""):
     from paddle_tpu_torch.amp import auto_cast
 
     with torch.inference_mode(), auto_cast(enable=level is not None,
-                                           level=level or "O1"):
+                                           level=level or "O1",
+                                           dtype=dtype):
         model(*batch)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2618,7 +2669,7 @@ def phase_infer_profile(model, batch, level=None, tag=""):
     split = {}
     for name in ("qmm_kernel", "qmm_wgmma_kernel", "qmm_bf16_kernel",
                  "qmm_cluster_kernel", "fwd_kernel",
-                 "fwd_wgmma_kernel<__nv_bfloat16"):
+                 "fwd_wgmma_kernel<__nv_bfloat16", "fwd_wgmma_kernel<__half"):
         t = sum(e.self_device_time_total for e in kernels if name in e.key)
         split[name] = t
         log(f"  share of the forward's device time, {name}: "
@@ -2675,7 +2726,8 @@ DP_B, DP_S = 4, 1024                # per rank: global 8 x 1024 at world 2
 DP_WORLD = 2
 DP_RANK_TIMEOUT = 480               # seconds for a spawned phase's ranks
 DP_BLOCK = 1024                     # GradCommConfig's default block_size
-DP16_STEPS = 5                      # timed steps of the dp-train bf16 phase
+DP16_STEPS = 5                      # timed steps of the 16-bit dp phases
+SFX16 = {"bfloat16": "_bf16", "float16": "_fp16"}   # counters' suffixes
 
 
 def _dequant_case(gen, q, scales, kind, n, residual: bool):
@@ -2926,15 +2978,16 @@ def phase_dp_kernels(dev, gen, buckets):
 
 
 def phase_dp_kernels_bf16(dev, gen, buckets):
-    """Phase 13's bf16 forms at every bucket of the bf16 plan (9 bf16
-    buckets and the fp32 final norm): two ranks' gradients encoded from
-    their own dtype by codec_encode, int8_block and fp8_block, bit for
-    bit against the plain encode; their summed carriers decoded to the
-    bucket's dtype by codec_decode, bit for bit; the plan's one
+    """Phase 13's 16-bit forms at every bucket of a 16-bit plan (9 bf16
+    buckets and the fp32 final norm, or phase 48's 9 fp16 ones and the
+    fp32 final norm): two ranks' gradients encoded from their own dtype
+    by codec_encode, int8_block and fp8_block, bit for bit against the
+    plain encode; their summed carriers decoded to the bucket's dtype by
+    codec_decode, bit for bit; the plan's one
     fused_dequant_update_buckets launch, bit for bit against the plain
     walk over two steps, residual off and on. Timed: at each bucket the
     carrier encode (against torch.quantize_per_channel on the bucket
-    lifted to fp32, which takes no bf16) and the decode (against
+    lifted to fp32, which takes no 16-bit input) and the decode (against
     torch.mul into the bucket's dtype); the table as phase 13 times it.
     Returns (encode rows, decode rows, the table row), the rows by block
     count."""
@@ -2944,7 +2997,10 @@ def phase_dp_kernels_bf16(dev, gen, buckets):
     from paddle_tpu_torch.ops import codec
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    plan = next(str(b.dtype).split(".")[-1] for b in buckets
+                if b.dtype != torch.float32)
     enc_rows, dec_rows = {}, {}
+    subnormals = 0      # fp16 subnormals among the decoded values
     for b in buckets:
         n, dt = b.size, b.dtype
         nb = -(-n // DP_BLOCK)
@@ -2957,6 +3013,8 @@ def phase_dp_kernels_bf16(dev, gen, buckets):
             if d.dtype != dt or not same_bits(d, d_plain):
                 raise AssertionError(f"codec_decode {codec_name} to {dt} "
                                      f"at {n}: differs from plain")
+            if dt == torch.float16:
+                subnormals += int(((d != 0) & (d.abs() < 2.0 ** -14)).sum())
             if codec_name != "int8_block" or nb in enc_rows:
                 continue
             x = (torch.randn(n, device=dev, generator=gen) * 1e-3).to(dt)
@@ -2978,7 +3036,7 @@ def phase_dp_kernels_bf16(dev, gen, buckets):
                 "library_ms": median_ms(lambda: torch.quantize_per_channel(
                     xb, s, zp, 0, torch.qint8), flush),
                 "library_form": "torch.quantize_per_channel on the bucket "
-                                "lifted to fp32 (it takes no bf16)",
+                                f"lifted to fp32 (it takes no {plan})",
                 "bound_ms": enc_bound[0], "bound_by": enc_bound[1]}
             dec_rows[nb] = {
                 "shape": shape, "max_abs_err": float(
@@ -2993,7 +3051,7 @@ def phase_dp_kernels_bf16(dev, gen, buckets):
                                 f"into {dt} (no divide by the world)",
                 "bound_ms": dec_bound[0], "bound_by": dec_bound[1]}
             er, dr = enc_rows[nb], dec_rows[nb]
-            log(f"bf16 plan bucket {n} ({dt}): codec_encode carrier "
+            log(f"{plan} plan bucket {n} ({dt}): codec_encode carrier "
                 f"{er['ms']:.4f} ms (plain {er['plain_ms']:.4f}, "
                 f"quantize_per_channel on fp32 {er['library_ms']:.4f}, "
                 f"bound {er['bound_ms']:.4f} {er['bound_by']}) | "
@@ -3004,27 +3062,38 @@ def phase_dp_kernels_bf16(dev, gen, buckets):
         del q, scales, d, d_plain
     for residual in (False, True):
         _dequant_table_check(gen, buckets, residual)
-    log(f"bf16 plan: codec_encode from each bucket's dtype and codec_decode "
+    log(f"{plan} plan: codec_encode from each bucket's dtype and codec_decode "
         f"to it bit-identical to plain at all {len(buckets)} buckets, "
         f"int8_block and fp8_block; fused_dequant_update_buckets over the "
         f"plan in one launch a step, bit-identical to the plain walk over "
-        f"2 steps, residual off and on")
+        f"2 steps, residual off and on"
+        + (f"; {subnormals} fp16 subnormals among the decoded values, each "
+           f"the plain decode's" if plan == "float16" else ""))
+    if plan == "float16" and not subnormals:
+        raise AssertionError("no fp16 subnormal decoded: the case does not "
+                             "reach them")
     row = _dequant_table_row(dev, gen, buckets, flush)
     del flush
     return enc_rows, dec_rows, row
 
 
 def dp_launch_counts() -> dict:
-    """The train phase's counts, the codecs' (the bf16 forms apart: a
+    """The train phase's counts, the codecs' (the 16-bit forms apart: a
     launch from or to bf16 counts under ``codec_encode`` and again under
-    ``codec_encode_bf16``) and the dequantizing update's."""
+    ``codec_encode_bf16``, fp16 under ``codec_encode_fp16``) and the
+    dequantizing update's, with its fp16 buckets' launches apart
+    (``fused_dequant_update_fp16``: launches whose table held one)."""
     from paddle_tpu_torch.ops import codec
     from paddle_tpu_torch.ops import fused_update as fu
 
-    return {**train_launch_counts(), **codec.launch_counts(),
-            "codec_encode_bf16": codec.block_encode.dtypes[torch.bfloat16],
-            "codec_decode_bf16": codec.block_decode.dtypes[torch.bfloat16],
-            "fused_dequant_update": fu.fused_dequant_update_buckets.launches}
+    out = {**train_launch_counts(), **codec.launch_counts(),
+           "fused_dequant_update": fu.fused_dequant_update_buckets.launches,
+           "fused_dequant_update_fp16":
+               fu.fused_dequant_update_buckets.dtypes[torch.float16]}
+    for sfx, dt in (("_bf16", torch.bfloat16), ("_fp16", torch.float16)):
+        out["codec_encode" + sfx] = codec.block_encode.dtypes[dt]
+        out["codec_decode" + sfx] = codec.block_decode.dtypes[dt]
+    return out
 
 
 def reset_dp_launch_counts() -> None:
@@ -3106,9 +3175,11 @@ def _data_parallel_rounds(cfg, device, ids, labels, rank, b, rounds):
 
 
 def dp_train_rank(cfg, seed, warmup, steps, wire_steps, b, s, device="cuda",
-                  layers=None, dp_rounds=0):
+                  layers=None, dp_rounds=0, profile=False):
     """One rank of a "dp train" phase (run by ``spawn``); with
-    ``dp_rounds``, ``_data_parallel_rounds`` after it."""
+    ``dp_rounds``, ``_data_parallel_rounds`` after it; with ``profile``,
+    one more step, rank 0's under torch.profiler (wall, device busy and
+    idle share)."""
     from paddle_tpu_torch.distributed import collective as coll
     from paddle_tpu_torch.ops import codec
     from paddle_tpu_torch.ops import fused_update as fu
@@ -3135,6 +3206,24 @@ def dp_train_rank(cfg, seed, warmup, steps, wire_steps, b, s, device="cuda",
     sizes = dict(fu.fused_dequant_update_buckets.sizes)
     encode_shapes = dict(codec.block_encode.shapes)
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    shares = None
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as profiled
+
+        sync()
+        with (profiled(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+              if rank == 0 else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            losses.append(float(step(inputs=(ids,), labels=(labels,))))
+            sync()
+            wall = time.perf_counter() - t0
+        if rank == 0:
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+            shares = {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3,
+                      "idle_share": 1 - busy / 1e6 / wall}
     # the wire alone: every all-reduce (the step and the communicator
     # call it through the module) timed between two waits for the card
     wire = {"calls": 0, "seconds": 0.0}
@@ -3163,7 +3252,7 @@ def dp_train_rank(cfg, seed, warmup, steps, wire_steps, b, s, device="cuda",
            "allreduces_per_step": wire["calls"] / wire_steps,
            "buckets": [b.size for b in step.buckets],
            "bucket_dtypes": [str(b.dtype) for b in step.buckets],
-           "table_builds": step.updater.table_builds,
+           "table_builds": step.updater.table_builds, "profile": shares,
            "checksum": _param_checksum(model)}
     if dp_rounds:
         del step, model
@@ -3173,17 +3262,19 @@ def dp_train_rank(cfg, seed, warmup, steps, wire_steps, b, s, device="cuda",
 
 
 def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
-                   s=DP_S, device="cuda", layers=None, dp_rounds=0):
-    """GPT-125M (``cfg``: fp32, or bf16 at bench.py's configuration) data
-    parallel on the int8_block wire: two ranks on the one card (gloo,
-    host-staged), each on its half of the global batch; with
-    ``dp_rounds``, DataParallel after it (``_data_parallel_rounds``)."""
+                   s=DP_S, device="cuda", layers=None, dp_rounds=0,
+                   profile=False):
+    """GPT-125M (``cfg``: fp32, or bf16 or fp16 at bench.py's
+    configuration) data parallel on the int8_block wire: two ranks on the
+    one card (gloo, host-staged), each on its half of the global batch;
+    with ``dp_rounds``, DataParallel after it (``_data_parallel_rounds``);
+    with ``profile``, rank 0's idle share over one more step."""
     from paddle_tpu_torch.distributed import spawn
 
     t0 = time.perf_counter()
     ranks = spawn(dp_train_rank,
                   args=(cfg, seed, warmup, steps, wire_steps, b, s, device,
-                        layers, dp_rounds),
+                        layers, dp_rounds, profile),
                   nprocs=DP_WORLD, timeout=DP_RANK_TIMEOUT)
     r0 = ranks[0]
     nb = len(r0["buckets"])
@@ -3203,6 +3294,7 @@ def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
         "launches_per_rank": [r["counts"] for r in ranks],
         "first_step_launches": r0["first_step_counts"],
         "table_builds": [r["table_builds"] for r in ranks],
+        "profile": r0["profile"],
         "checksums": [r["checksum"][:16] for r in ranks],
         "seconds": time.perf_counter() - t0}
     if dp_rounds:
@@ -3227,17 +3319,22 @@ def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
         raise AssertionError(f"{r0['comm_stats']['comm_bytes']} wire bytes "
                              f"a step, the plan gives {wire_bytes}")
     n_layers = layers or cfg.num_layers
-    ran = "_bf16" if cfg.dtype == "bfloat16" else ""
+    ran = SFX16.get(cfg.dtype, "")
     want = {name + sfx: n_layers * steps * (sfx == ran)
             for sfx in ("", "_bf16", "_fp16")
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
     want.update(fused_update=0, codec_encode=nb * steps,
                 codec_encode_bf16=0, codec_decode=0, codec_decode_bf16=0,
-                fused_dequant_update=steps, ce_chunk_fwd=0, ce_chunk_bwd=0)
-    # the first step has no residual: each bf16 bucket encoded from bf16
-    n_bf16 = r0["bucket_dtypes"].count("torch.bfloat16")
-    want_first = {**{k: v // steps for k, v in want.items()},
-                  "codec_encode_bf16": n_bf16}
+                codec_encode_fp16=0, codec_decode_fp16=0,
+                fused_dequant_update=steps,
+                fused_dequant_update_fp16=steps * (ran == "_fp16"),
+                ce_chunk_fwd=0, ce_chunk_bwd=0)
+    # the first step has no residual: each 16-bit bucket encoded from its
+    # dtype
+    n_16 = r0["bucket_dtypes"].count(f"torch.{cfg.dtype}") if ran else 0
+    want_first = {**{k: v // steps for k, v in want.items()}}
+    if ran:
+        want_first["codec_encode" + ran] = n_16
     want_shapes = Counter()
     for n in r0["buckets"]:
         key = (-(-n // DP_BLOCK), DP_BLOCK, "int8_block", True)
@@ -3261,15 +3358,16 @@ def phase_dp_train(cfg, seed, warmup=2, steps=5, wire_steps=2, b=DP_B,
         raise AssertionError(f"{r0['allreduces_per_step']} all-reduces a "
                              f"step, expected {2 * nb + 1}")
     if dp_rounds:
-        _check_data_parallel([r["data_parallel"] for r in ranks], nb, n_bf16,
+        _check_data_parallel([r["data_parallel"] for r in ranks], nb, n_16,
                              n_layers, dp_rounds, ran)
     return r0
 
 
-def _check_data_parallel(runs, nb, n_bf16, n_layers, rounds, ran):
+def _check_data_parallel(runs, nb, n_16, n_layers, rounds, ran):
     """DataParallel's rounds on both ranks: losses finite, the replicas
-    identical, every bucket encoded once a round (the bf16 ones from bf16
-    in the first round) and decoded once a round to its dtype."""
+    identical, every bucket encoded once a round (the 16-bit ones from
+    their dtype in the first round) and decoded once a round to its
+    dtype."""
     if not all(math.isfinite(x) for r in runs for x in r["losses"]):
         raise AssertionError(f"non-finite DataParallel loss: "
                              f"{[r['losses'] for r in runs]}")
@@ -3280,9 +3378,11 @@ def _check_data_parallel(runs, nb, n_bf16, n_layers, rounds, ran):
             for name in ("flash_fwd", "flash_dq", "flash_dkv")}
     # the eager AdamW's step: one fused_update launch a round
     want.update(fused_update=rounds, codec_encode=nb * rounds,
-                codec_encode_bf16=n_bf16, codec_decode=nb * rounds,
-                codec_decode_bf16=n_bf16 * rounds, fused_dequant_update=0,
-                ce_chunk_fwd=0, ce_chunk_bwd=0)
+                codec_decode=nb * rounds, fused_dequant_update=0,
+                fused_dequant_update_fp16=0, ce_chunk_fwd=0, ce_chunk_bwd=0)
+    for sfx in ("_bf16", "_fp16"):
+        want["codec_encode" + sfx] = n_16 * (sfx == ran)
+        want["codec_decode" + sfx] = n_16 * rounds * (sfx == ran)
     for rank, r in enumerate(runs):
         if r["counts"] != want:
             raise AssertionError(f"rank {rank} DataParallel launch counts "
@@ -3499,23 +3599,24 @@ def phase_dp_parity_bf16(cfg, seed, layers=2, b=2, s=128):
     bad = [(r, k, d) for r, rank in enumerate(runs["cuda"])
            for k, rep in enumerate(rank["replays"]) for d in rep.items()
            if d[1]]
-    log(f"dp bf16 wire, card vs its CPU replay ({cfg.dtype}, {layers} "
+    log(f"dp {cfg.dtype} wire, card vs its CPU replay ({cfg.dtype}, {layers} "
         f"layers, world 2, global b{DP_WORLD * b} s{s}, "
         f"{card['elements']} elements): "
         + ("parameters, moments, beta powers, residuals, payloads, scales "
-           "and the bf16 decode bit-identical on both ranks in both steps"
+           f"and the {cfg.dtype} decode bit-identical on both ranks in both "
+           "steps"
            if not bad else f"differ: {bad}"))
     if bad:
         raise AssertionError(f"the card's dp step differs from its CPU "
                              f"replay: {bad}")
     rel = [abs(a - c) / abs(c) for a, c in zip(card["losses"],
                                                 cpu["losses"])]
-    log(f"dp bf16 card vs CPU end to end: losses {card['losses']} vs "
+    log(f"dp {cfg.dtype} card vs CPU end to end: losses {card['losses']} vs "
         f"{cpu['losses']} (rel {max(rel):.2e}, limit {BF16_LOSS_RTOL}); "
         f"the phase {time.perf_counter() - t0:.1f} s")
     if not max(rel) <= BF16_LOSS_RTOL:
-        raise AssertionError("card and CPU bf16 dp losses differ beyond "
-                             f"{BF16_LOSS_RTOL}")
+        raise AssertionError(f"card and CPU {cfg.dtype} dp losses differ "
+                             f"beyond {BF16_LOSS_RTOL}")
     return {"loss_rel": max(rel), "elements": card["elements"]}
 
 
@@ -4446,7 +4547,7 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
                  bf16_rows, bf16_counts, dp16, ce_rows, ce_counts, bert_run,
                  resnet_run, widedeep_run, lenet_run, flash_entry,
-                 mobilenet_run, ptb_run, gcn_run, fp16_run):
+                 mobilenet_run, ptb_run, gcn_run, fp16_run, wire16_run):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -4503,7 +4604,16 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     in ``at_shapes`` with phase 47's launches, and ``fused_update_fp16``
     over GPT-125M's fp16 plan (the same kernel), its launches phase 45's;
     each row carries ``bf16_ms``, the bf16 form's time at the same shape
-    in the same call."""
+    in the same call. So are the fp16 forms of phases 48-50
+    (``wire16_run``): ``codec_encode_fp16`` and ``codec_decode_fp16`` at
+    the largest fp16 bucket of GPT-125M's fp16 plan (the others in
+    ``at_shapes``), their launches those of phase 49's first TrainStep
+    step and DataParallel rounds on rank 0;
+    ``fused_dequant_update_fp16``, the one launch over the fp16 plan, its
+    launches phase 49's timed steps'; ``quant_matmul_fp16`` (the wgmma
+    and mma.sync routes) and ``quant_matmul_fp16_cluster`` at phase 50's
+    most launched shapes, the fp32-out rows in ``at_shapes``, their
+    launches phase 50's timed forwards'."""
     from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
 
     def numbers(r, p):
@@ -4667,7 +4777,48 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     pair = k16["rows"][PAIR]
     next(e for e in out if e["name"] == "flash_dkv_fp16").update(
         pair_ms=pair["ms"], library_ms=pair["library_ms"])
-    return {"kernels": out}
+    return {"kernels": out + wire16_entries(wire16_run)}
+
+
+def wire16_entries(wire16_run) -> list:
+    """The kernels line's entries of phases 48-50 (``kernels_line``)."""
+    from paddle_tpu_torch.ops.codec import KERNEL_SOURCE
+    from paddle_tpu_torch.ops import fused_update as fu
+
+    qm = _quant_module()
+    out = []
+    w16 = wire16_run["rank"]
+    dp_counts = w16["data_parallel"]["counts"]
+    for name, rows, launches, line in (
+            ("codec_encode_fp16", wire16_run["encode"],
+             w16["first_step_counts"]["codec_encode_fp16"]
+             + dp_counts["codec_encode_fp16"], 93),
+            ("codec_decode_fp16", wire16_run["decode"],
+             dp_counts["codec_decode_fp16"], 138)):
+        h = {nb: r for nb, r in rows.items() if "float16" in r["shape"]}
+        main = max(h)
+        out.append(dict(name=name, route="cuda", source=KERNEL_SOURCE,
+                        replaces=f"paddle_tpu/ops/pallas/codec.py:{line}",
+                        launches=launches, **_numbers(h.pop(main)),
+                        at_shapes=[_numbers(r) for r in h.values()]))
+    out.append(dict(name="fused_dequant_update_fp16", route="cuda",
+                    source=fu.KERNEL_SOURCE,
+                    replaces="paddle_tpu/ops/pallas/fused_update.py:134",
+                    launches=w16["counts"]["fused_dequant_update_fp16"],
+                    buckets_a_launch=len(w16["buckets"]),
+                    **_numbers(wire16_run["table"])))
+    routes = wire16_run["qmm_routes"]
+    for name, cluster in (("quant_matmul_fp16", False),
+                          ("quant_matmul_fp16_cluster", True)):
+        main, *rest = [r for r in wire16_run["qmm_rows"]
+                       if (r["bf16_route"] == "cluster") == cluster]
+        out.append(dict(name=name, route="cuda", source=qm.KERNEL_SOURCE,
+                        replaces="paddle_tpu/ops/quant_matmul.py:110",
+                        launches=sum(n for r, n in routes.items()
+                                     if (r == "cluster") == cluster),
+                        routes=dict(routes), **_numbers(main),
+                        at_shapes=[_numbers(r) for r in rest]))
+    return out
 
 
 def phase_bert(dev, gen, seed, infer32):
@@ -4721,7 +4872,7 @@ def phase_bert(dev, gen, seed, infer32):
         f"{infer32['samples_per_s']:.1f}, peak "
         f"{infer16['peak_memory_gib']:.2f} GiB against "
         f"{infer32['peak_memory_gib']:.2f}")
-    counts_b1 = phase_infer_b1(dev, seed)
+    counts_b1, infer_b1 = phase_infer_b1(dev, seed)
     before = clocks("before int8-kernels bf16")
     qmm_rows = phase_infer_kernels_bf16(
         dev, gen, infer_counts["shapes"]["quant_matmul_bf16"]
@@ -4732,27 +4883,33 @@ def phase_bert(dev, gen, seed, infer32):
     return {"counts": counts, "counts_ce": counts_ce, "rows": rows,
             "ce_rows": ce_rows, "cfg_ce": cfg_ce, "qmm_rows": qmm_rows,
             "qmm_routes": infer_counts["routes"] + counts_b1["routes"],
-            "unfused": unfused, "profile": prof25}
+            "unfused": unfused, "profile": prof25, "infer16": infer16,
+            "infer_b1": infer_b1}
 
 
-def phase_infer_b1(dev, seed, b=INFER_B1[0], s=INFER_B1[1]):
-    """Phase 27's second shape: the same int8 BERT-base forward under O2
-    at batch 1 x 64 tokens, where every bf16 launch has m <= 64 (the
-    cluster route) and the fp32 ones take ``qmm_kernel`` (row 9): forward
-    ms, launches by route, device time by kernel and the two routes'
-    shares of it. Returns its launch counts."""
-    _, counts, model, batch, summary = phase_infer(dev, seed, b=b, s=s,
-                                                   level="O2")
+def phase_infer_b1(dev, seed, b=INFER_B1[0], s=INFER_B1[1],
+                   dtype="bfloat16", decorated=False):
+    """Phase 27's second shape (phase 50's in fp16): the same int8
+    BERT-base forward under O2 at batch 1 x 64 tokens, where every 16-bit
+    launch has m <= 64 (the cluster route) and the fp32 ones take
+    ``qmm_kernel`` (row 9): forward ms, launches by route, device time by
+    kernel and the two routes' shares of it. Returns its launch counts
+    and summary."""
+    _, counts, model, batch, summary = phase_infer(
+        dev, seed, b=b, s=s, level="O2", dtype=dtype, decorated=decorated)
+    sfx = SFX16[dtype]
     busy_us, split = phase_infer_profile(model, batch, level="O2",
-                                         tag=f"{b} x {s}")
+                                         tag=f"{b} x {s} {dtype}",
+                                         dtype=dtype)
     del model, batch
     torch.cuda.empty_cache()
     iters = len(summary["forward_ms"])
-    a_forward = {r: n // iters for r, n in counts["routes"].items()}
-    log(f"infer O2 {b} x {s}: forward {summary['forward_ms_median']:.3f} "
-        f"ms (median of {iters}), device busy {busy_us / 1e3:.3f} ms a "
-        f"forward; quant_matmul_bf16 "
-        f"{counts['quant_matmul_bf16'] // iters} launches a forward, by "
+    routes = counts["routes_fp16" if sfx == "_fp16" else "routes"]
+    a_forward = {r: n // iters for r, n in routes.items()}
+    log(f"infer O2 {dtype} {b} x {s}: forward "
+        f"{summary['forward_ms_median']:.3f} ms (median of {iters}), device "
+        f"busy {busy_us / 1e3:.3f} ms a forward; quant_matmul{sfx} "
+        f"{counts['quant_matmul' + sfx] // iters} launches a forward, by "
         f"route {a_forward}, the cluster route "
         f"{split['qmm_cluster_kernel'] / 1e3:.4f} ms "
         f"({100 * split['qmm_cluster_kernel'] / busy_us:.1f}% of the "
@@ -4760,7 +4917,7 @@ def phase_infer_b1(dev, seed, b=INFER_B1[0], s=INFER_B1[1]):
         f"{counts['quant_matmul'] // iters} launches a forward, qmm_kernel "
         f"{split['qmm_kernel'] / 1e3:.4f} ms "
         f"({100 * split['qmm_kernel'] / busy_us:.1f}%)")
-    return counts
+    return counts, summary
 
 
 def _numbers(r) -> dict:
@@ -7261,9 +7418,12 @@ def phase_unfusable_optimizers(dev, seed):
 def phase_bert_fp16(dev, seed, bert25, warmup_max=8, steps=BERT_STEPS,
                     b=BERT_B, s=BERT_S):
     """Phase 47: BERT-base under decorate and auto_cast(O2, float16) with
-    a GradScaler in the eager step, beside phase 25 (``bert25``)."""
+    a GradScaler in the eager step, beside phase 25 (``bert25``). Each
+    backward's gradients fp16, each unscaled one fp32 (the reference's
+    ``unscale_``), the eager table built once over the timed steps."""
     from paddle_tpu_torch import tensor as T
     from paddle_tpu_torch.amp import GradScaler, auto_cast, decorate
+    from paddle_tpu_torch.framework.modules import torch_parameters
     from paddle_tpu_torch.models import BertForPretraining, bert_presets
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.optimizer import AdamW
@@ -7280,14 +7440,20 @@ def phase_bert_fp16(dev, seed, bert25, warmup_max=8, steps=BERT_STEPS,
     ids, mlm, nsp = (torch.as_tensor(a, dtype=torch.long, device=dev)
                      for a in (ids, mlm, nsp))
 
+    params = torch_parameters(model)
+    seen = {"backward": set(), "unscaled": set(), "tables": set()}
+
     def one(plant=False):
         with auto_cast(level="O2", dtype="float16"):
             a, n = model(ids, None, None, None, mlm)
             loss = T.add(a, F.cross_entropy(n, nsp))
         scaler.scale(loss).backward()
+        seen["backward"] |= {p.grad.dtype for p in params}
         if plant:
             next(model.parameters()).grad.view(-1)[0] = float("inf")
         scaler.step(opt)
+        seen["unscaled"] |= {p.grad.dtype for p in params}
+        seen["tables"].add(id(opt._table))
         scaler.update()
         opt.clear_grad()
         return float(loss.detach())
@@ -7304,6 +7470,7 @@ def phase_bert_fp16(dev, seed, bert25, warmup_max=8, steps=BERT_STEPS,
     torch.cuda.reset_peak_memory_stats()
     reset_train_launch_counts()
     reads, ms, skipped = scaler.host_reads, [], 0
+    seen["tables"].clear()
     for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(one())              # float() waits for the step
@@ -7316,7 +7483,10 @@ def phase_bert_fp16(dev, seed, bert25, warmup_max=8, steps=BERT_STEPS,
                "samples_per_s": b / (med / 1e3),
                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
                "skipped": skipped, "scale": scaler.state_dict()["scale"],
-               "host_reads": reads, "launches": counts}
+               "host_reads": reads, "launches": counts,
+               "grad_dtypes": {k: sorted(map(str, seen[k]))
+                               for k in ("backward", "unscaled")},
+               "tables": len(seen["tables"] - {id(None)})}
     log("bert train O2 fp16 eager + GradScaler " + json.dumps(summary))
     want = {k: 0 for k in counts}
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
@@ -7327,6 +7497,11 @@ def phase_bert_fp16(dev, seed, bert25, warmup_max=8, steps=BERT_STEPS,
         raise AssertionError(f"bert fp16: launch counts {counts}, expected "
                              f"{want}; {reads} host reads for {steps} "
                              f"steps; losses {losses}")
+    if seen["backward"] != {torch.float16} or \
+            seen["unscaled"] != {torch.float32} or summary["tables"] != 1:
+        raise AssertionError(f"bert fp16: gradient dtypes {seen}, "
+                             f"{summary['tables']} tables for {steps} steps "
+                             f"(one expected)")
     prof = phase_train_profile(one, names=FP16_KERNELS, tag=" bert O2 fp16")
     u25, p25 = bert25["unfused"], bert25["profile"]
     log(f"bert fp16 O2 eager step against phase 25 (bf16 O2, TrainStep) in "
@@ -7349,6 +7524,121 @@ def phase_bert_fp16(dev, seed, bert25, warmup_max=8, steps=BERT_STEPS,
     if not (scaler.last_step_skipped and still and halved):
         raise AssertionError("the planted inf step was not skipped cleanly")
     return {"counts": counts, "summary": summary, "profile": prof}
+
+
+# ---------------------------------------- fp16 wire and int8 fp16 (48-50)
+INT8_FP16_LOGIT_RTOL = 1e-2         # phase 50: mean relative, card vs CPU
+
+
+def phase_dp_train_fp16(seed, train_h, dp16_rank):
+    """Phase 49: GPT-125M fp16 (``fp16_config()``, phase 45's dtype)
+    data parallel on the int8_block wire at phase 19's shape, DataParallel
+    rounds after it, rank 0's idle share over one more step; beside phase
+    45's fp16 step (``train_h``) and phase 19's bf16 dp step
+    (``dp16_rank``) in this call; then the 2-layer card-vs-CPU run (phase
+    20's check on the fp16 model). Returns rank 0's results."""
+    cfg = fp16_config()
+    rank = phase_dp_train(cfg, seed, steps=DP16_STEPS, dp_rounds=2,
+                          profile=True)
+    if [(n, dt) for n, dt in zip(rank["buckets"], rank["bucket_dtypes"])] \
+            != [(b.size, str(b.dtype)) for b in bucket_plan(cfg)]:
+        raise AssertionError("the fp16 dp train step's bucket plan is not "
+                             "the timed one")
+    med = statistics.median(rank["step_ms"])
+    log(f"dp train fp16 against phase 19 (bf16 dp) and phase 45 (fp16, one "
+        f"card) in this call: step {med:.2f} ms against "
+        f"{statistics.median(dp16_rank['step_ms']):.2f} and "
+        f"{train_h['summary']['step_ms_median']:.2f}; rank 0 idle "
+        f"{100 * rank['profile']['idle_share']:.1f}% (wall "
+        f"{rank['profile']['wall_ms']:.2f} ms, device "
+        f"{rank['profile']['busy_ms']:.2f}) against phase 45's "
+        f"{100 * train_h['profile']['idle_share']:.1f}%; all-reduces "
+        f"{rank['allreduce_ms_per_step']:.2f} ms a step (rank 0)")
+    torch.cuda.empty_cache()
+    phase_dp_parity_bf16(cfg, seed)
+    torch.cuda.empty_cache()
+    return rank
+
+
+def _int8_fp16_parity(dev, seed, layers=2, b=2, s=128):
+    """BERT-base's widths at ``layers`` layers, decorated at O2 in fp16 and
+    converted to int8, one forward under auto_cast(O2, float16) on the
+    card and on the CPU (``flash_route``: the flash kernels' plain
+    versions): MLM and NSP logits fp16, finite, within
+    INT8_FP16_LOGIT_RTOL mean relative error."""
+    import dataclasses
+
+    from paddle_tpu_torch.amp import auto_cast, decorate
+    from paddle_tpu_torch.models import BertForPretraining, bert_presets
+    from paddle_tpu_torch.nn.functional import flash_route
+    from paddle_tpu_torch.quantization import convert_to_int8
+
+    cfg = dataclasses.replace(bert_presets("bert-base"), num_layers=layers)
+    ids, types = _bert_batch(cfg, b, s, seed)
+    out = {}
+    for device in (dev, "cpu"):
+        model = decorate(BertForPretraining(cfg, seed=0, device=device)
+                         .eval(), level="O2", dtype="float16")
+        convert_to_int8(model)
+        batch = [torch.as_tensor(a, device=device) for a in (ids, types)]
+        with torch.inference_mode(), auto_cast(level="O2", dtype="float16"), \
+                (flash_route() if device == "cpu"
+                 else contextlib.nullcontext()):
+            out[str(device)] = [t.cpu() for t in model(*batch)]
+    rel = {}
+    for name, a, c in zip(("mlm", "nsp"), out[str(dev)], out["cpu"]):
+        if a.dtype != torch.float16 or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"int8 fp16 {name} logits {a.dtype}")
+        rel[name] = float((a.float() - c.float()).abs().mean()
+                          / c.float().abs().mean())
+    log(f"int8 O2 fp16 card vs CPU ({layers} layers, b{b} s{s}): mean "
+        f"relative error {rel} (limit {INT8_FP16_LOGIT_RTOL})")
+    if not max(rel.values()) <= INT8_FP16_LOGIT_RTOL:
+        raise AssertionError(f"int8 fp16 logits card vs CPU {rel}")
+    return rel
+
+
+def phase_int8_fp16(dev, gen, seed, bert):
+    """Phase 50: int8 BERT-base decorated at O2 in fp16 and run under
+    auto_cast(O2, float16) at 16 x 512 (the wgmma route) and 1 x 64 (the
+    cluster route), beside phase 27's bf16 forwards (``bert``); the
+    fp16 form at every shape they launched plus a ragged one a route
+    against ``quant_matmul_plain``, and fp32 out from fp16 x on each
+    route; the logits card against CPU at 2 layers."""
+    _, counts, model, batch, summary = phase_infer(
+        dev, seed, level="O2", dtype="float16", decorated=True)
+    busy_us, split = phase_infer_profile(model, batch, level="O2",
+                                         dtype="float16", tag="float16")
+    del model, batch
+    torch.cuda.empty_cache()
+    counts_b1, summary_b1 = phase_infer_b1(dev, seed, dtype="float16",
+                                           decorated=True)
+    log(f"infer O2 fp16 against phase 27 (bf16) in this call: forward "
+        f"{summary['forward_ms_median']:.2f} ms against "
+        f"{bert['infer16']['forward_ms_median']:.2f} at {INFER_B} x "
+        f"{INFER_S}, {summary_b1['forward_ms_median']:.3f} against "
+        f"{bert['infer_b1']['forward_ms_median']:.3f} at {INFER_B1[0]} x "
+        f"{INFER_B1[1]}; peak {summary['peak_memory_gib']:.2f} GiB against "
+        f"{bert['infer16']['peak_memory_gib']:.2f}; device busy "
+        f"{busy_us / 1e3:.3f} ms a forward, the wgmma route "
+        f"{split['qmm_wgmma_kernel'] / 1e3:.3f} ms")
+    before = clocks("before int8-kernels fp16")
+    rows = phase_infer_kernels_bf16(
+        dev, gen, counts["shapes"]["quant_matmul_fp16"]
+        + counts_b1["shapes"]["quant_matmul_fp16"], torch.float16)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rows += [_qmm_bf16_case(dev, gen, mkn, 0, flush, torch.float16,
+                            torch.float32)
+             for mkn in ((INFER_B * INFER_S, 768, 768),
+                         (INFER_B1[1], 768, 768), RAGGED_QMM)]
+    del flush
+    stamp(rows, before, clocks("after int8-kernels fp16"))
+    log_ratios("int8-kernels fp16", {str(i): r for i, r in enumerate(rows)})
+    rel = _int8_fp16_parity(dev, seed)
+    torch.cuda.empty_cache()
+    return {"counts": counts, "counts_b1": counts_b1, "summary": summary,
+            "summary_b1": summary_b1, "qmm_rows": rows, "parity": rel,
+            "qmm_routes": counts["routes_fp16"] + counts_b1["routes_fp16"]}
 
 
 def main(argv=None) -> int:
@@ -7644,6 +7934,26 @@ def main(argv=None) -> int:
     del options
     torch.cuda.empty_cache()
 
+    # fp16 on the gradient wire (GPT-125M's fp16 plan, then phase 19 in
+    # fp16) and int8 BERT-base on fp16 activations
+    t0 = time.perf_counter()
+    before = clocks("before fp16 wire kernels")
+    enc_h, dec_h, table_h = phase_dp_kernels_bf16(dev, gen, plan_h)
+    timed = {"fused_dequant_update fp16 plan": table_h,
+             **{f"carrier from fp16 plan {nb}": r for nb, r in enc_h.items()},
+             **{f"decode to fp16 plan {nb}": r for nb, r in dec_h.items()}}
+    stamp(timed.values(), before, clocks("after fp16 wire kernels"))
+    log_ratios("fp16 wire kernels", timed)
+    log(f"phase 48 (fp16 wire kernels): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wire_h = phase_dp_train_fp16(args.seed, fp16_t, dp16_rank)
+    log(f"phase 49 (dp train fp16): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    int8_h = phase_int8_fp16(dev, gen, args.seed, bert)
+    log(f"phase 50 (int8 fp16): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
             "rank": dp16_rank}
@@ -7655,7 +7965,11 @@ def main(argv=None) -> int:
                                   {"counts": counts31, "row": row_wd},
                                   lenet, flash_entry, mobilenet, ptb_run,
                                   gcn, {"kernels": fp16_k, "train": fp16_t,
-                                        "bert": bert_h})))
+                                        "bert": bert_h},
+                                  {"encode": enc_h, "decode": dec_h,
+                                   "table": table_h, "rank": wire_h,
+                                   "qmm_rows": int8_h["qmm_rows"],
+                                   "qmm_routes": int8_h["qmm_routes"]})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

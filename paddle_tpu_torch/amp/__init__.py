@@ -42,6 +42,7 @@ from typing import List
 import torch
 
 from ..framework.flags import flag
+from ..framework.grads import hold_grad, restore_grad_dtype
 from ..framework.modules import torch_parameters
 
 __all__ = ["WHITE_LIST", "BLACK_LIST", "amp_state", "auto_cast", "amp_guard",
@@ -162,7 +163,9 @@ class GradScaler:
     """``paddle.amp.GradScaler`` (dynamic loss scaling).
 
     ``scale(loss)`` multiplies the loss; ``step(opt)`` unscales the
-    gradients (in fp32, written back in each gradient's dtype) and skips
+    gradients (each replaced by its fp32 product, as the reference's
+    ``unscale_`` leaves it; the optimizer casts it to the parameter's
+    dtype for the update) and skips
     the update when one of them is not finite, shrinking the scale by
     ``decr_ratio`` after ``decr_every_n_nan_or_inf`` such steps (never
     below ``FLAGS_min_loss_scaling``), or updates and grows the scale by
@@ -186,18 +189,29 @@ class GradScaler:
         self.last_step_skipped = False
         # reads of the device's finite flag by the host, one a step
         self.host_reads = 0
+        # tensors whose gradient unscale_ widened to fp32 (framework/grads.py)
+        self._widened = []
+
+    def _restore_grad_dtypes(self):
+        """A widened tensor whose gradient other code cleared (``p.grad =
+        None``) makes its own dtype again at the next backward, as the
+        reference's does."""
+        self._widened = [t for t in self._widened if restore_grad_dtype(t)]
 
     def scale(self, loss):
+        self._restore_grad_dtypes()
         if not self._enable:
             return loss
         return loss * self._scale
 
     @torch.no_grad()
     def unscale_(self, optimizer):
-        """Divide every gradient by the scale, once per step: each in
-        fp32 and written back in place in its dtype. Whether one is not
-        finite is gathered on the device, over the unscaled fp32 values,
-        and read by the host once (the reference reads it a parameter)."""
+        """Divide every gradient by the scale, once per step: each
+        replaced by the fp32 product ``g * (1 / scale)``, as the
+        reference's (an fp32 gradient in place; an fp16 or bf16 one
+        widened, ``framework/grads.py``). Whether one is not finite is
+        gathered on the device, over the unscaled fp32 values, and read by
+        the host once (the reference reads it a parameter)."""
         if not self._enable or self._unscaled:
             return
         inv = 1.0 / self._scale
@@ -207,7 +221,9 @@ class GradScaler:
             if p.grad is not None:
                 g = p.grad.to(torch.float32) * inv
                 finite.append(torch.isfinite(g).all())
-                p.grad.copy_(g)
+                if p.grad.dtype != torch.float32:
+                    self._widened.append(p)
+                hold_grad(p, g)
         self._found_inf = bool(finite) and not bool(
             torch.stack(finite).all())
         self.host_reads += bool(finite)
@@ -234,7 +250,9 @@ class GradScaler:
         self.update()
 
     def update(self):
-        pass   # the state moves in step()
+        # the state moves in step(); a gradient cleared since gets its
+        # parameter's dtype back
+        self._restore_grad_dtypes()
 
     def _on_good_step(self):
         if not self._dynamic:

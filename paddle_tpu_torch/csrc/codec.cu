@@ -8,7 +8,7 @@
 //
 // What they compute, over a row-major [nb, bs] layout with one fp32 scale
 // per row (block):
-//   encode: x fp32 or bf16, lifted to fp32 (exact; the reference's
+//   encode: x fp32, bf16 or fp16, lifted to fp32 (exact; the reference's
 //           _as_blocks makes the same fp32 values), then
 //           q = x / s[row] with an IEEE divide (__fdiv_rn; the build uses
 //           no --use_fast_math), then
@@ -23,9 +23,12 @@
 //           as fp32 (grad_comm.py block_encode(carrier=True)).
 //   decode: out[i] = (float(q[i]) * s[row]) / world for i < numel, from
 //           the 1-byte wire dtype or from a (summed) carrier, stored
-//           fp32 or rounded once to bf16 (__float2bfloat16_rn, nearest
-//           even, as the reference's .astype(bfloat16) and PyTorch's
-//           .to(bfloat16) round); when world is a power of two the
+//           fp32 or rounded once to bf16 (__float2bfloat16_rn) or to
+//           fp16 (__float2half_rn), to nearest even, as the reference's
+//           .astype(...) and PyTorch's .to(...) round: an fp16 result
+//           below 2^-14 is kept as a subnormal and one past 65,504
+//           rounds to inf (the build sets no flush-to-zero, no
+//           --use_fast_math); when world is a power of two the
 //           divide is a multiply by its exact inverse (the same
 //           correctly rounded result).
 // Bits equal the plain versions' (and the JAX reference's): the same
@@ -39,8 +42,8 @@
 //   encode, 1024 tokens: read 75.5 MB fp32, write 18.9 MB int8   ~ 28 us
 //   decode, 1024 tokens: read 18.9 MB, write 75.5 MB             ~ 28 us
 //   a gradient bucket of 4615 blocks, int32 carrier: 37.8 MB     ~ 11 us
-//   a bf16 bucket reads 2 bytes an element instead of 4 (6 bytes an
-//   element with the int32 carrier), and a decode to bf16 writes 2
+//   a bf16 or fp16 bucket reads 2 bytes an element instead of 4 (6 bytes
+//   an element with the int32 carrier), and a decode to either writes 2
 //   one decode step, batch 8: ~0.7 MB, 0.2 us of bytes against a launch
 //   of several us; no design of the kernel moves that.
 //
@@ -72,9 +75,11 @@
 //    read or written element by element; every other quad is one
 //    access.
 //  - A bf16 quad is one 8-byte access, lifted to fp32 by a shift of its
-//    bits (exact); a bf16 output quad is one 8-byte store. So the bf16
-//    forms keep the fp32 forms' layout, rows and interleaved quads, and
-//    move fewer bytes.
+//    bits (exact); an fp16 quad is the same access, each half lifted by
+//    __half2float (exact: every fp16 value, subnormals included, is an
+//    fp32 value), not a shift; a 16-bit output quad is one 8-byte store.
+//    So the 16-bit forms keep the fp32 forms' layout, rows and
+//    interleaved quads, and move fewer bytes.
 //  - The vector accesses need pointers aligned to a quad's bytes (16 for
 //    fp32 and int32, 8 for bf16, 16 for the 1-byte wire as the caller
 //    allocates it; every caller of the port: the buffers are their own
@@ -82,6 +87,7 @@
 //    everywhere: right, and slower.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,6 +105,7 @@ constexpr int kInt8 = 0;
 constexpr int kFp8 = 1;
 constexpr int kF32 = 0;   // element types of the encode's input and the
 constexpr int kBf16 = 1;  // decode's output
+constexpr int kF16 = 2;
 
 // four elements of each type, moved in one access
 template <typename T> struct Quad;
@@ -130,14 +137,32 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-// x rounded to bf16, nearest even, as its 16 bits
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+// fp16 bits in the low or high half of a 32-bit word, as fp32 (exact)
+__device__ __forceinline__ float f16_lo(uint32_t w) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(w)));
+}
+__device__ __forceinline__ float f16_hi(uint32_t w) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(w >> 16)));
 }
 
-// p[0..3] lifted to fp32: fp32 as load_quad reads it; bf16 in one 8-byte
-// streaming access when VEC and all four lie below the end, else element
-// by element, the ones at or past the end reading as 0
+// the 16-bit element types: their value as fp32 (exact), and an fp32
+// rounded to them, nearest even, as 16 bits
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ uint32_t bits16(float x) {
+  if constexpr (std::is_same_v<T, __half>)
+    return __half_as_ushort(__float2half_rn(x));
+  else
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// p[0..3] lifted to fp32: fp32 as load_quad reads it; bf16 or fp16 in
+// one 8-byte streaming access when VEC and all four lie below the end,
+// else element by element, the ones at or past the end reading as 0
 template <typename InT, bool VEC>
 __device__ __forceinline__ float4 load_in(const InT* p, int64_t left) {
   if constexpr (std::is_same_v<InT, float>) {
@@ -145,13 +170,17 @@ __device__ __forceinline__ float4 load_in(const InT* p, int64_t left) {
   } else {
     if (VEC && left >= 4) {
       const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
-      return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
-                         bf16_hi(u.y));
+      if constexpr (std::is_same_v<InT, __half>)
+        return make_float4(f16_lo(u.x), f16_hi(u.x), f16_lo(u.y),
+                           f16_hi(u.y));
+      else
+        return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
+                           bf16_hi(u.y));
     }
-    return make_float4(left > 0 ? __bfloat162float(p[0]) : 0.0f,
-                       left > 1 ? __bfloat162float(p[1]) : 0.0f,
-                       left > 2 ? __bfloat162float(p[2]) : 0.0f,
-                       left > 3 ? __bfloat162float(p[3]) : 0.0f);
+    return make_float4(left > 0 ? to_f32(p[0]) : 0.0f,
+                       left > 1 ? to_f32(p[1]) : 0.0f,
+                       left > 2 ? to_f32(p[2]) : 0.0f,
+                       left > 3 ? to_f32(p[3]) : 0.0f);
   }
 }
 
@@ -226,25 +255,26 @@ __device__ __forceinline__ float decode_one(InT v, float s, float w) {
   return POW2 ? __fmul_rn(y, w) : __fdiv_rn(y, w);
 }
 
-// decoded values stored: fp32 as store_quad writes them; bf16 each
-// rounded to nearest even, in one 8-byte access when VEC and all four
-// lie below the end, else only the elements below it
+// decoded values stored: fp32 as store_quad writes them; bf16 or fp16
+// each rounded to nearest even, in one 8-byte access when VEC and all
+// four lie below the end, else only the elements below it
 template <typename OutT, bool VEC>
 __device__ __forceinline__ void store_out(OutT* p, const float4& v,
                                           int64_t left) {
   if constexpr (std::is_same_v<OutT, float>) {
     store_quad<float, VEC>(p, v, left);
   } else {
-    const uint32_t b0 = bf16_bits(v.x), b1 = bf16_bits(v.y),
-                   b2 = bf16_bits(v.z), b3 = bf16_bits(v.w);
+    const uint32_t b0 = bits16<OutT>(v.x), b1 = bits16<OutT>(v.y),
+                   b2 = bits16<OutT>(v.z), b3 = bits16<OutT>(v.w);
     if (VEC && left >= 4) {
       *reinterpret_cast<uint2*>(p) = make_uint2(b0 | b1 << 16, b2 | b3 << 16);
       return;
     }
-    if (left > 0) p[0] = __ushort_as_bfloat16(b0);
-    if (left > 1) p[1] = __ushort_as_bfloat16(b1);
-    if (left > 2) p[2] = __ushort_as_bfloat16(b2);
-    if (left > 3) p[3] = __ushort_as_bfloat16(b3);
+    unsigned short* h = reinterpret_cast<unsigned short*>(p);
+    if (left > 0) h[0] = static_cast<unsigned short>(b0);
+    if (left > 1) h[1] = static_cast<unsigned short>(b1);
+    if (left > 2) h[2] = static_cast<unsigned short>(b2);
+    if (left > 3) h[3] = static_cast<unsigned short>(b3);
   }
 }
 
@@ -362,7 +392,7 @@ inline bool aligned16(const void* p) {
 }
 
 // a quad of T starts on its own size: 16 bytes for fp32 and int32, 8 for
-// bf16 (the 1-byte wire is held to 16 as well)
+// bf16 and fp16 (the 1-byte wire is held to 16 as well)
 template <typename T>
 inline bool quad_aligned(const void* p) {
   return sizeof(T) == 2 ? reinterpret_cast<uintptr_t>(p) % 8 == 0
@@ -389,6 +419,8 @@ void launch_encode(const void* x, const void* scales, void* out, int64_t n,
                    int64_t nb, int64_t bs, int in_type, cudaStream_t st) {
   if (in_type == kBf16)
     launch_encode<CODEC, __nv_bfloat16, OutT>(x, scales, out, n, nb, bs, st);
+  else if (in_type == kF16)
+    launch_encode<CODEC, __half, OutT>(x, scales, out, n, nb, bs, st);
   else
     launch_encode<CODEC, float, OutT>(x, scales, out, n, nb, bs, st);
 }
@@ -429,6 +461,9 @@ void launch_decode(const void* q, const void* scales, void* out,
   if (out_type == kBf16)
     launch_decode<CODEC, InT, __nv_bfloat16>(q, scales, out, numel, nb, bs,
                                              world, st);
+  else if (out_type == kF16)
+    launch_decode<CODEC, InT, __half>(q, scales, out, numel, nb, bs, world,
+                                      st);
   else
     launch_decode<CODEC, InT, float>(q, scales, out, numel, nb, bs, world,
                                      st);
@@ -436,7 +471,7 @@ void launch_decode(const void* q, const void* scales, void* out,
 
 }  // namespace
 
-// x: [n] of in_type (0 fp32, 1 bf16), n <= nb * bs, read in place (any
+// x: [n] of in_type (0 fp32, 1 bf16, 2 fp16), n <= nb * bs, read in place (any
 // start aligned to its element); bs % 4 == 0; scales: fp32 [nb]; out:
 // [nb * bs] of the 1-byte wire dtype (carrier 0) or of the carrier
 // (carrier 1: int32 for int8_block, fp32 for fp8_block), the elements
@@ -446,8 +481,8 @@ extern "C" int codec_encode(const void* x, const void* scales, void* out,
                             int64_t n, int64_t nb, int64_t bs, int codec,
                             int carrier, int in_type, void* stream) {
   if (nb == 0) return static_cast<int>(cudaSuccess);
-  if (bs <= 0 || bs % 4 || n > nb * bs || (in_type != kF32 &&
-                                           in_type != kBf16))
+  if (bs <= 0 || bs % 4 || n > nb * bs || in_type < kF32 ||
+      in_type > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (codec == kInt8 && !carrier) {
@@ -466,14 +501,15 @@ extern "C" int codec_encode(const void* x, const void* scales, void* out,
 
 // q: [nb * bs] of the payload type `wire`: 0 int8, 1 fp8 e4m3 (1 byte
 // each), 2 int32 carrier, 3 fp32 carrier; scales: fp32 [nb]; out:
-// [numel] of out_type (0 fp32, 1 bf16), numel <= nb * bs; bs % 4 == 0.
+// [numel] of out_type (0 fp32, 1 bf16, 2 fp16), numel <= nb * bs;
+// bs % 4 == 0.
 // Returns cudaGetLastError().
 extern "C" int codec_decode(const void* q, const void* scales, void* out,
                             int64_t nb, int64_t bs, int64_t numel, int wire,
                             float world, int out_type, void* stream) {
   if (numel == 0) return static_cast<int>(cudaSuccess);
-  if (bs <= 0 || bs % 4 || numel > nb * bs || (out_type != kF32 &&
-                                               out_type != kBf16))
+  if (bs <= 0 || bs % 4 || numel > nb * bs || out_type < kF32 ||
+      out_type > kF16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (wire) {

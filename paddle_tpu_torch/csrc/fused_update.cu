@@ -36,7 +36,7 @@
 // fused_update.py:129), 8 elements a chunk as bf16's. Buckets of all
 // three dtypes ride in one launch: the table's dtype word picks the
 // thread's chunk width and element type. The dequantizing update takes
-// fp32 and bf16 buckets only (ops/fused_update.py refuses fp16 there).
+// the three as well.
 //
 // fused_update_buckets runs one step of an updater over all of its
 // buckets in one launch. It walks a table in device memory, one Bucket
@@ -59,18 +59,20 @@
 // reference's cast chain (_dequant_kernel, fused_update.py:148): rounded
 // to the bucket's dtype, then to the parameters' dtype, and lifted to
 // fp32, which for a bucket of bf16 parameters, or a bf16 bucket over
-// fp32 ones, is one __float2bfloat16_rn and back; the update follows in
-// registers. The decoded gradient never reaches device memory. It runs
-// once a step over every bucket, fp32 and bf16 alike.
+// fp32 ones, is one __float2bfloat16_rn and back, and for fp16 one
+// __float2half_rn and back (subnormals kept, inf past 65,504: the build
+// has no flush-to-zero); the update follows in registers. The decoded
+// gradient never reaches device memory. It runs once a step over every
+// bucket, fp32, bf16 and fp16 alike.
 //
 // What bounds them: device-memory bytes. AdamW reads p, g (or the 4-byte
 // carrier), m1, m2 and writes p, m1, m2: 28 bytes per element for ~20
 // operations (32 with a residual, plus the scale vector). All of GPT-125M
 // (124.5 M parameters) moves 3.49 GB per step, 1.04 ms at 3.35 TB/s; the
 // int32 carrier is as wide as the fp32 gradient, so the two kernels share
-// the bound. A bf16 bucket moves 22 bytes an element (p 2 + 2, g 2,
-// moments 8 + 8): GPT-125M in bf16, 2.74 GB, 0.82 ms; from the carrier
-// 24 bytes (q 4), 2.99 GB, 0.89 ms (times on the card: PERF.md).
+// the bound. A bf16 or fp16 bucket moves 22 bytes an element (p 2 + 2,
+// g 2, moments 8 + 8): GPT-125M in bf16, 2.74 GB, 0.82 ms; from the
+// carrier 24 bytes (q 4), 2.99 GB, 0.89 ms (times on the card: PERF.md).
 //
 // Design: one thread per chunk of consecutive elements, 4 in an fp32
 // bucket and 8 in a bf16 one, so the parameters and the gradient are one
@@ -155,7 +157,8 @@ struct Bucket {
   int64_t dtype;          // 0: fp32 p and g, 4 elements a chunk; 1: bf16,
                           // 8; 2: fp32 p whose dequantized gradient is
                           // rounded to bf16 (a bf16 bucket), 4; 3: fp16,
-                          // 8 (plain update only)
+                          // 8; 4: fp32 p whose dequantized gradient is
+                          // rounded to fp16 (an fp16 bucket), 4
   const void* q;          // dequant: the summed carrier, [>= n]
   const float* scales;    // dequant: fp32 [ceil(n / bs)]
   const float* res;       // dequant: fp32 residual [n], or null
@@ -216,12 +219,16 @@ struct DequantGrad {
   float world;
 
   // (q * scale) / world (+ residual), rounded to bf16 and back where the
-  // bucket or the parameters are bf16
+  // bucket or the parameters are bf16, to fp16 and back where they are
+  // fp16
   __device__ __forceinline__ float decode(const Bucket& e, Q q, float s,
                                           float r) const {
     float g = __fdiv_rn(__fmul_rn(static_cast<float>(q), s), world);
     if (e.res != nullptr) g = __fadd_rn(g, r);
-    return e.dtype ? __bfloat162float(__float2bfloat16_rn(g)) : g;
+    if (e.dtype == 1 || e.dtype == 2)
+      return __bfloat162float(__float2bfloat16_rn(g));
+    if (e.dtype >= 3) return __half2float(__float2half_rn(g));
+    return g;
   }
 
   template <typename P, int C>
@@ -350,7 +357,7 @@ __device__ __forceinline__ void walk_table(const Bucket* __restrict__ table,
                                       grad);
   else if (e.dtype == 3)
     update_chunk<KIND, __half>(e, (c - e.start) * 8, h, lr, c1, c2, grad);
-  else
+  else   // 0, and the fp32 parameters of 16-bit buckets, 2 and 4
     update_chunk<KIND, float>(e, (c - e.start) * 4, h, lr, c1, c2, grad);
 }
 

@@ -362,56 +362,72 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
 // shared memory (128 rows of k; no transpose): d0 holds columns 0-63 of
 // the accumulator, d1 columns 64-127 (each in the layout of an N = 64
 // accumulator).
+#define PTT_WGMMA_RS_N128_K(TY)                                             \
+  asm volatile(                                                             \
+      "{\n"                                                                 \
+      ".reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %69, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "   \
+      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "   \
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "   \
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "            \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"                            \
+      "}\n"                                                                 \
+      : PTT_OUT16(d0, 0), PTT_OUT16(d0, 16), PTT_OUT16(d1, 0),              \
+        PTT_OUT16(d1, 16)                                                   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n128_k(float (&d0)[32],
                                                 float (&d1)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : PTT_OUT16(d0, 0), PTT_OUT16(d0, 16), PTT_OUT16(d1, 0),
-        PTT_OUT16(d1, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same<E, __half>::value)
+    PTT_WGMMA_RS_N128_K("f16");
+  else
+    PTT_WGMMA_RS_N128_K("bf16");
 }
 
 // The same with N = 192: d0, d1, d2 hold columns 0-63, 64-127, 128-191.
+#define PTT_WGMMA_RS_N192_K(TY)                                             \
+  asm volatile(                                                             \
+      "{\n"                                                                 \
+      ".reg .pred p;\n"                                                     \
+      "setp.ne.b32 p, %101, 0;\n"                                           \
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "        \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "        \
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "        \
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "        \
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "        \
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "        \
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "        \
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"                    \
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n"                        \
+      "}\n"                                                                 \
+      : PTT_OUT16(d0, 0), PTT_OUT16(d0, 16), PTT_OUT16(d1, 0),              \
+        PTT_OUT16(d1, 16), PTT_OUT16(d2, 0), PTT_OUT16(d2, 16)              \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n192_k(float (&d0)[32],
                                                 float (&d1)[32],
                                                 float (&d2)[32],
                                                 const uint32_t (&a)[4],
                                                 uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
-      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n"
-      "}\n"
-      : PTT_OUT16(d0, 0), PTT_OUT16(d0, 16), PTT_OUT16(d1, 0),
-        PTT_OUT16(d1, 16), PTT_OUT16(d2, 0), PTT_OUT16(d2, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (std::is_same<E, __half>::value)
+    PTT_WGMMA_RS_N192_K("f16");
+  else
+    PTT_WGMMA_RS_N192_K("bf16");
 }
 
 #undef PTT_WGMMA_SS_N64
 #undef PTT_WGMMA_SS_N32
 #undef PTT_WGMMA_RS_N64_MN
+#undef PTT_WGMMA_RS_N128_K
+#undef PTT_WGMMA_RS_N192_K
 #undef PTT_OUT16
 
 }  // namespace hopper

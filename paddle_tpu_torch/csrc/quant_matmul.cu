@@ -5,8 +5,9 @@
 //                    quantize_int8 :84)
 //   quant_matmul  <- _qmm_kernel (quant_matmul.py:110, launched by
 //                    quant_matmul :173), fp32 activations
-//   quant_matmul_bf16 <- the same kernel on bf16 activations (amp's bf16
-//                    x, the output in x's dtype, :117-124)
+//   quant_matmul_16 <- the same kernel on 16-bit activations (amp's bf16
+//                    or fp16 x, the output in x's dtype or fp32, :117-124;
+//                    quant_matmul_bf16 is its bf16 form)
 // Plain PyTorch versions and wrappers: paddle_tpu_torch/ops/quant_matmul.py
 // (quantize_int8_plain, quant_matmul_plain; quantize_int8, quant_matmul,
 // which takes both forms by x's dtype).
@@ -82,22 +83,28 @@
 //   atomics. Any m, n, k >= 1: rows, columns and k past the end are
 //   zero-filled and never stored.
 //
-// quant_matmul_bf16: x bf16 [m, k] @ (q int8 [k, n] * scales [n]) -> bf16.
-//   fp32 accumulator over k, times the column's fp32 scale at the end,
-//   rounded to bf16 once, as _qmm_kernel computes it for a bf16 x
-//   (x.astype(f32) @ q.astype(f32), acc * s, astype(bf16)).
-//   Arithmetic: bf16 tensor-core products with fp32 accumulators. Every
-//   int8 value is exact in bf16 (8 significant bits), and the tensor
-//   cores form each bf16 x bf16 product exactly, so the sums are the
-//   reference's products added in fp32 in another order: the fp32 limit
-//   of quant_matmul (2 k 2^-24 (|x| @ |q|) s) holds before the store.
-//   int8 -> bf16 in registers: a byte b is v = int8(b), and
+// quant_matmul_16: x bf16 or fp16 [m, k] @ (q int8 [k, n] * scales [n])
+//   -> x's dtype, or fp32 (out_dtype=float32). fp32 accumulator over k,
+//   times the column's fp32 scale at the end, rounded to the out type
+//   once, as _qmm_kernel computes it for a 16-bit x (x.astype(f32) @
+//   q.astype(f32), acc * s, astype(out dtype)); the fp32 out stores the
+//   same product unrounded. The bf16 and fp16 forms are one template over
+//   the element type E (and the out type O): only the widening of int8,
+//   the instruction's type name and the TMA map's element type differ.
+//   Arithmetic: 16-bit tensor-core products with fp32 accumulators. Every
+//   int8 value is exact in bf16 (8 significant bits) and in fp16 (11),
+//   and the tensor cores form each 16-bit product exactly, so the sums
+//   are the reference's products added in fp32 in another order: the
+//   fp32 limit of quant_matmul (2 k 2^-24 (|x| @ |q|) s) holds before
+//   the store. int8 -> bf16 in registers: a byte b is v = int8(b), and
 //   float(2^23 + (b ^ 0x80)) - (2^23 + 128) = v exactly (one byte
 //   permute and one subtraction); two such floats are packed to bf16x2
-//   (exact). Bound: 2 m n k bf16 operations at the H100 SXM data sheet's
+//   (exact). int8 -> fp16: the fp16 bits 0x64 above b ^ 0x80 are 1024 +
+//   (b ^ 0x80), and one fp16x2 subtraction of 1152 leaves v (two values
+//   a byte permute and a subtraction). Bound: 2 m n k bf16 operations at the H100 SXM data sheet's
 //   989 TFLOP/s (0.0098 ms at (8192, 768, 768), 0.0391 at (8192, 3072,
 //   768)) or, at m <= 64, the int8 weight's bytes. Three routes, chosen
-//   by shape in ops/quant_matmul.py (bf16_route), never by failure:
+//   by shape in ops/quant_matmul.py (route16), never by failure:
 //   - cluster (quant_matmul_bf16_cluster), every m <= 64: all 29 launches
 //     of an int8 BERT-base forward under O2 at batch 1 x 64 tokens, the
 //     pooler and the NSP head at any batch. What bounds it: the int8
@@ -191,10 +198,12 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "mma_tf32.cuh"
@@ -651,20 +660,47 @@ __device__ __forceinline__ float int8_byte_as_float(uint32_t flipped,
   return __fsub_rn(__uint_as_float(bits), 8388736.0f);
 }
 
-// bf16x2 of two exact small integers (lo in the low half).
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// Two fp32 values rounded to a pair of the 16-bit type E (bf16 or
+// fp16), nearest even, lo in the low half: exact for small integers.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<E, __half>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
-template <int MT, bool XV, bool QV>
+// The out types O of the 16-bit kernels: x's type E, or fp32 from the
+// same accumulator (out_dtype=float32). p[0], p[1] = a, b as one store
+// (p aligned to the pair), and p[0] = a.
+template <typename O>
+__device__ __forceinline__ void store_pair(O* p, float a, float b) {
+  if constexpr (std::is_same_v<O, float>)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else
+    *reinterpret_cast<uint32_t*>(p) = pack2<O>(a, b);
+}
+
+template <typename O>
+__device__ __forceinline__ void store_one(O* p, float a) {
+  if constexpr (std::is_same_v<O, float>)
+    *p = a;
+  else if constexpr (std::is_same_v<O, __half>)
+    *p = __float2half_rn(a);
+  else
+    *p = __float2bfloat16_rn(a);
+}
+
+template <typename E, int MT, bool XV, bool QV>
 __device__ __forceinline__ void qmm_h_load(
-    unsigned char* smem, int st, const __nv_bfloat16* __restrict__ x,
+    unsigned char* smem, int st, const E* __restrict__ x,
     const int8_t* __restrict__ qw, int m, int n, int k, int kend, int row0,
     int col0, int kt0) {
   constexpr int BM = 32 * MT;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
-      smem + st * stage_bytes_h<MT>());
+  E* xs = reinterpret_cast<E*>(smem + st * stage_bytes_h<MT>());
   int8_t* qs = reinterpret_cast<int8_t*>(smem + st * stage_bytes_h<MT>() +
                                          BM * kXPitchH * 2);
   const int tid = threadIdx.x;
@@ -676,13 +712,15 @@ __device__ __forceinline__ void qmm_h_load(
       cp_async16(xs + r * kXPitchH + c,
                  ok ? x + static_cast<size_t>(gr) * k + gk : x, ok);
     }
-  } else {
+  } else {   // the 16 bits as they are, zeros past the ends
+    const uint16_t* xg = reinterpret_cast<const uint16_t*>(x);
+    uint16_t* xh = reinterpret_cast<uint16_t*>(xs);
     for (int e = tid; e < BM * kBK; e += kThreads) {
       const int r = e >> 5, c = e & 31;
       const int gr = row0 + r, gk = kt0 + c;
-      xs[r * kXPitchH + c] = (gr < m && gk < kend)
-                                 ? x[static_cast<size_t>(gr) * k + gk]
-                                 : __float2bfloat16(0.0f);
+      xh[r * kXPitchH + c] = (gr < m && gk < kend)
+                                 ? xg[static_cast<size_t>(gr) * k + gk]
+                                 : uint16_t{0};
     }
   }
   if (QV) {
@@ -703,25 +741,33 @@ __device__ __forceinline__ void qmm_h_load(
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float* d, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+// d += A.B on mma.sync m16n8k16 with operands of the 16-bit type E; the
+// bf16 and fp16 instructions are one text of the type's name (TY).
+#define PTT_MMA16(TY)                                                       \
+  asm volatile(                                                             \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "            \
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"             \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                      \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1))
 
-// Grid (n tiles, m tiles, k slices). One slice: out = bf16(acc * scales);
+template <typename E>
+__device__ __forceinline__ void mma16(float* d, uint32_t a0, uint32_t a1,
+                                      uint32_t a2, uint32_t a3, uint32_t b0,
+                                      uint32_t b1) {
+  if constexpr (std::is_same_v<E, __half>)
+    PTT_MMA16("f16");
+  else
+    PTT_MMA16("bf16");
+}
+#undef PTT_MMA16
+
+// Grid (n tiles, m tiles, k slices). One slice: out = O(acc * scales);
 // more: ws[slice] = acc, reduced by qmm_reduce_h.
-template <int MT, bool XV, bool QV>
+template <typename E, typename O, int MT, bool XV, bool QV>
 __global__ void __launch_bounds__(kThreads, 2)
-qmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                const int8_t* __restrict__ qw,
-                const float* __restrict__ scales,
-                __nv_bfloat16* __restrict__ out, float* __restrict__ ws,
-                int m, int n, int k, int kchunk) {
+qmm_bf16_kernel(const E* __restrict__ x, const int8_t* __restrict__ qw,
+                const float* __restrict__ scales, O* __restrict__ out,
+                float* __restrict__ ws, int m, int n, int k, int kchunk) {
   constexpr int BM = 32 * MT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -743,8 +789,8 @@ qmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nkt)
-      qmm_h_load<MT, XV, QV>(smem, s, x, qw, m, n, k, kend, row0, col0,
-                             kbeg + s * kBK);
+      qmm_h_load<E, MT, XV, QV>(smem, s, x, qw, m, n, k, kend, row0, col0,
+                                kbeg + s * kBK);
     cp_async_commit();
   }
 
@@ -753,14 +799,14 @@ qmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();   // stage `it` landed; stage it - 1 is free again
     const int nx = it + kStages - 1;
     if (nx < nkt)
-      qmm_h_load<MT, XV, QV>(smem, nx % kStages, x, qw, m, n, k, kend, row0,
-                             col0, kbeg + nx * kBK);
+      qmm_h_load<E, MT, XV, QV>(smem, nx % kStages, x, qw, m, n, k, kend,
+                                row0, col0, kbeg + nx * kBK);
     cp_async_commit();
 
     const int st = it % kStages;
-    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(
-                                  smem + st * stage_bytes_h<MT>()) +
-                              (wm * MT * 16 + g) * kXPitchH + 4 * t;
+    const E* xs = reinterpret_cast<const E*>(
+                      smem + st * stage_bytes_h<MT>()) +
+                  (wm * MT * 16 + g) * kXPitchH + 4 * t;
     const unsigned char* qs = smem + st * stage_bytes_h<MT>() +
                               BM * kXPitchH * 2 + 4 * t * kQPitch +
                               wn * 32 + 4 * g;
@@ -774,10 +820,10 @@ qmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       uint32_t b0[4], b1[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        b0[j] = pack_bf16x2(int8_byte_as_float(w[0], j),
-                            int8_byte_as_float(w[1], j));
-        b1[j] = pack_bf16x2(int8_byte_as_float(w[2], j),
-                            int8_byte_as_float(w[3], j));
+        b0[j] = pack2<E>(int8_byte_as_float(w[0], j),
+                         int8_byte_as_float(w[1], j));
+        b1[j] = pack2<E>(int8_byte_as_float(w[2], j),
+                         int8_byte_as_float(w[3], j));
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
@@ -787,7 +833,7 @@ qmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
             xs + (i * 16 + 8) * kXPitchH + 16 * s);
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          mma_bf16(acc[i][j], lo.x, hi.x, lo.y, hi.y, b0[j], b1[j]);
+          mma16<E>(acc[i][j], lo.x, hi.x, lo.y, hi.y, b0[j], b1[j]);
       }
     }
   }
@@ -822,45 +868,51 @@ qmm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         }
         continue;
       }
-      __nv_bfloat16* p = out + static_cast<size_t>(row) * n + col;
-      if ((n & 7) == 0 && col + 8 <= n) {
-        uint4 packed;
-        packed.x = pack_bf16x2(__fmul_rn(v[0], sc[0]), __fmul_rn(v[1], sc[1]));
-        packed.y = pack_bf16x2(__fmul_rn(v[2], sc[2]), __fmul_rn(v[3], sc[3]));
-        packed.z = pack_bf16x2(__fmul_rn(v[4], sc[4]), __fmul_rn(v[5], sc[5]));
-        packed.w = pack_bf16x2(__fmul_rn(v[6], sc[6]), __fmul_rn(v[7], sc[7]));
-        *reinterpret_cast<uint4*>(p) = packed;
+      O* p = out + static_cast<size_t>(row) * n + col;
+#pragma unroll
+      for (int o = 0; o < 8; ++o) v[o] = __fmul_rn(v[o], sc[o]);
+      // 8 columns: one 16-byte store of a 16-bit O, two of fp32
+      constexpr int kVec = std::is_same_v<O, float> ? 4 : 8;
+      if (n % kVec == 0 && col + 8 <= n) {
+        if constexpr (std::is_same_v<O, float>) {
+          *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(p + 4) =
+              make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+          *reinterpret_cast<uint4*>(p) =
+              make_uint4(pack2<O>(v[0], v[1]), pack2<O>(v[2], v[3]),
+                         pack2<O>(v[4], v[5]), pack2<O>(v[6], v[7]));
+        }
       } else {
 #pragma unroll
         for (int o = 0; o < 8; ++o)
-          if (col + o < n) p[o] = __float2bfloat16_rn(__fmul_rn(v[o], sc[o]));
+          if (col + o < n) store_one<O>(p + o, v[o]);
       }
     }
 }
 
-// out = bf16((sum of the slices' partial sums, in slice order) * scales).
+// out = O((sum of the slices' partial sums, in slice order) * scales).
+template <typename O>
 __global__ void qmm_reduce_h(const float* __restrict__ ws,
                              const float* __restrict__ scales,
-                             __nv_bfloat16* __restrict__ out, int m, int n,
-                             int splits) {
+                             O* __restrict__ out, int m, int n, int splits) {
   const size_t total = static_cast<size_t>(m) * n;
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float s = ws[i];
     for (int z = 1; z < splits; ++z) s = __fadd_rn(s, ws[z * total + i]);
-    out[i] = __float2bfloat16_rn(__fmul_rn(s, scales[i % n]));
+    store_one<O>(out + i, __fmul_rn(s, scales[i % n]));
   }
 }
 
-template <int MT, bool XV, bool QV>
-int qmm_h_launch(const __nv_bfloat16* x, const int8_t* qw, const float* sc,
-                 __nv_bfloat16* out, float* ws, int m, int n, int k,
-                 cudaStream_t st) {
+template <typename E, typename O, int MT, bool XV, bool QV>
+int qmm_h_launch(const E* x, const int8_t* qw, const float* sc, O* out,
+                 float* ws, int m, int n, int k, cudaStream_t st) {
   int kchunk = 0;
   const int splits = qmm_splits(m, n, k, &kchunk);
   if (splits > 1 && ws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = qmm_bf16_kernel<MT, XV, QV>;
+  auto kernel = qmm_bf16_kernel<E, O, MT, XV, QV>;
   const int smem = kStages * stage_bytes_h<MT>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -872,19 +924,24 @@ int qmm_h_launch(const __nv_bfloat16* x, const int8_t* qw, const float* sc,
   const size_t total = static_cast<size_t>(m) * n;
   const int blocks = static_cast<int>(
       std::min<size_t>((total + 255) / 256, static_cast<size_t>(4 * kSMs)));
-  qmm_reduce_h<<<blocks, 256, 0, st>>>(ws, sc, out, m, n, splits);
+  qmm_reduce_h<O><<<blocks, 256, 0, st>>>(ws, sc, out, m, n, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MT>
-int qmm_h_dispatch(bool xv, bool qv, const __nv_bfloat16* x,
-                   const int8_t* qw, const float* sc, __nv_bfloat16* out,
-                   float* ws, int m, int n, int k, cudaStream_t st) {
+template <typename E, typename O, int MT>
+int qmm_h_dispatch(bool xv, bool qv, const E* x, const int8_t* qw,
+                   const float* sc, O* out, float* ws, int m, int n, int k,
+                   cudaStream_t st) {
   if (xv && qv)
-    return qmm_h_launch<MT, true, true>(x, qw, sc, out, ws, m, n, k, st);
-  if (xv) return qmm_h_launch<MT, true, false>(x, qw, sc, out, ws, m, n, k, st);
-  if (qv) return qmm_h_launch<MT, false, true>(x, qw, sc, out, ws, m, n, k, st);
-  return qmm_h_launch<MT, false, false>(x, qw, sc, out, ws, m, n, k, st);
+    return qmm_h_launch<E, O, MT, true, true>(x, qw, sc, out, ws, m, n, k, st);
+  if (xv)
+    return qmm_h_launch<E, O, MT, true, false>(x, qw, sc, out, ws, m, n, k,
+                                               st);
+  if (qv)
+    return qmm_h_launch<E, O, MT, false, true>(x, qw, sc, out, ws, m, n, k,
+                                               st);
+  return qmm_h_launch<E, O, MT, false, false>(x, qw, sc, out, ws, m, n, k,
+                                              st);
 }
 
 // --------------------------------------------- bf16 activations on wgmma
@@ -911,13 +968,29 @@ struct QmmHopper {
   static_assert(kStage % hopper::kSwizzleAlign == 0, "aligned boxes");
 };
 
-// The 4 int8 of v (bytes b0..b3) as two bf16x2: (b0, b2) in lo and (b1,
-// b3) in hi, the first of each pair in the low half. Each byte is exact
-// (header): 2^23 + (b ^ 0x80) as fp32 bits, minus 2^23 + 128, then the
-// upper half of the fp32, which drops only zero bits.
+// The 4 int8 of v (bytes b0..b3) as two pairs of E: (b0, b2) in lo and
+// (b1, b3) in hi, the first of each pair in the low half. Each byte is
+// exact. bf16 (header): 2^23 + (b ^ 0x80) as fp32 bits, minus 2^23 +
+// 128, then the upper half of the fp32, which drops only zero bits.
+// fp16: 0x64 above the byte b ^ 0x80 is the fp16 1024 + (b ^ 0x80) (an
+// ulp of 1 in [1024, 2048)), and one fp16x2 subtraction of 1152 (0x6480)
+// from both halves leaves int8(b), exactly.
+template <typename E>
 __device__ __forceinline__ void widen_int8x4(uint32_t v, uint32_t& lo,
                                              uint32_t& hi) {
   const uint32_t u = v ^ 0x80808080u;
+  if constexpr (std::is_same_v<E, __half>) {
+    const uint32_t kBias = 0x64806480u;
+    uint32_t l = __byte_perm(u, 0x6464u, 0x4240);
+    uint32_t h = __byte_perm(u, 0x6464u, 0x4341);
+    const __half2 lv = __hsub2(*reinterpret_cast<const __half2*>(&l),
+                               *reinterpret_cast<const __half2*>(&kBias));
+    const __half2 hv = __hsub2(*reinterpret_cast<const __half2*>(&h),
+                               *reinterpret_cast<const __half2*>(&kBias));
+    lo = *reinterpret_cast<const uint32_t*>(&lv);
+    hi = *reinterpret_cast<const uint32_t*>(&hv);
+    return;
+  }
   constexpr uint32_t kBase = 0x4B000000u;
   constexpr float kBias = 8388736.0f;
   const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, kBase, 0x7650)),
@@ -943,12 +1016,12 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
 // warp keeps the ring full across tiles, so the next tile's loads run
 // during this one's epilogue; consumer warpgroup wg owns columns
 // n0 + 64 wg .. + 63 of each tile.
-template <int WG, int MT, int ST>
+template <typename E, typename O, int WG, int MT, int ST>
 __global__ void __launch_bounds__(QmmHopper<WG, MT, ST>::kThreads, 1)
 qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                  const __grid_constant__ CUtensorMap tq,
-                 const float* __restrict__ scales,
-                 __nv_bfloat16* __restrict__ out, int m, int n, int k) {
+                 const float* __restrict__ scales, O* __restrict__ out, int m,
+                 int n, int k) {
   using namespace hopper;
   using T = QmmHopper<WG, MT, ST>;
   constexpr int P = MT / 64;   // n64 accumulators: 64 rows of m each
@@ -1012,10 +1085,10 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       const int r = 32 * h + lane;
       uint32_t v[4];
       ldmatrix_x4_trans(v, qs + r * 64 + 16 * (warp ^ ((r >> 1) & 3)));
-      widen_int8x4(v[0], a[2 * h][0], a[2 * h][1]);
-      widen_int8x4(v[1], a[2 * h][2], a[2 * h][3]);
-      widen_int8x4(v[2], a[2 * h + 1][0], a[2 * h + 1][1]);
-      widen_int8x4(v[3], a[2 * h + 1][2], a[2 * h + 1][3]);
+      widen_int8x4<E>(v[0], a[2 * h][0], a[2 * h][1]);
+      widen_int8x4<E>(v[1], a[2 * h][2], a[2 * h][3]);
+      widen_int8x4<E>(v[2], a[2 * h + 1][0], a[2 * h + 1][1]);
+      widen_int8x4<E>(v[3], a[2 * h + 1][2], a[2 * h + 1][3]);
     }
   };
   // the products of k-step kt; issued, not waited for
@@ -1025,13 +1098,13 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
     for (int ks = 0; ks < kK16; ++ks) {
       if constexpr (P == 3) {   // one product over the 192 rows of x
-        wgmma_rs_n192_k(acc[0], acc[1], acc[2], a[ks],
-                        desc_sw128(xs + 32 * ks));
+        wgmma_rs_n192_k<E>(acc[0], acc[1], acc[2], a[ks],
+                           desc_sw128(xs + 32 * ks));
       } else {
 #pragma unroll
         for (int p = 0; p < P; p += 2)   // 128 rows of x a product
-          wgmma_rs_n128_k(acc[p], acc[p + 1], a[ks],
-                          desc_sw128(xs + p * kBoxBytes + 32 * ks));
+          wgmma_rs_n128_k<E>(acc[p], acc[p + 1], a[ks],
+                             desc_sw128(xs + p * kBoxBytes + 32 * ks));
       }
     }
     wgmma_commit();
@@ -1074,8 +1147,8 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
     for (int p = 0; p < P; ++p) fence_regs(acc[p]);
     release(nkt - 1);
 
-    // out[row, col], out[row, col + 1] = bf16(acc * scale): 32 contiguous
-    // bytes of a row a quad of lanes
+    // out[row, col], out[row, col + 1] = O(acc * scale): 32 contiguous
+    // bytes of a row a quad of lanes (64 of fp32)
     const int col = tile % n_tiles * 64 * WG + 64 * wg + 16 * warp + 2 * g;
     const int m0 = tile / n_tiles * MT;
     if (col < n) {   // n % 16 == 0: col + 1 < n as well
@@ -1088,10 +1161,9 @@ qmm_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
           for (int e = 0; e < 2; ++e) {
             const int row = m0 + 64 * p + 8 * j + 2 * t + e;
             if (row >= m) continue;
-            *reinterpret_cast<__nv_bfloat162*>(
-                out + static_cast<size_t>(row) * n + col) =
-                __floats2bfloat162_rn(__fmul_rn(acc[p][4 * j + e], s0),
-                                      __fmul_rn(acc[p][4 * j + 2 + e], s1));
+            store_pair<O>(out + static_cast<size_t>(row) * n + col,
+                          __fmul_rn(acc[p][4 * j + e], s0),
+                          __fmul_rn(acc[p][4 * j + 2 + e], s1));
           }
     }
   }
@@ -1110,16 +1182,15 @@ inline int sm_count() {
   return count;
 }
 
-template <int WG, int MT, int ST>
-int qmm_wgmma_launch(const void* x, const void* qw, const float* sc,
-                     __nv_bfloat16* out, int m, int n, int k,
-                     cudaStream_t st) {
+template <typename E, typename O, int WG, int MT, int ST>
+int qmm_wgmma_launch(const void* x, const void* qw, const float* sc, O* out,
+                     int m, int n, int k, cudaStream_t st) {
   using T = QmmHopper<WG, MT, ST>;
   CUtensorMap tx, tq;   // encoded per launch: the pointers move
-  if (!hopper::encode_rows_bf16(&tx, x, 1, m, k, MT) ||
+  if (!hopper::encode_rows<E>(&tx, x, 1, m, k, MT) ||
       !hopper::encode_rows_int8(&tq, qw, k, n))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = qmm_wgmma_kernel<WG, MT, ST>;
+  auto kernel = qmm_wgmma_kernel<E, O, WG, MT, ST>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::bytes));
@@ -1241,9 +1312,9 @@ struct UnitWalk {
 // any is waited for: 16-byte cp.async where the pitches and bases allow
 // (XV: k % 8 == 0 and x on the 16-byte grid; QV: n % 16 == 0 and q on
 // it), else element loads, kBatch a thread in flight.
-template <int NT, bool XV, bool QV>
+template <typename E, int NT, bool XV, bool QV>
 __device__ __forceinline__ void cluster_load(
-    unsigned char* xs, unsigned char* qs, const __nv_bfloat16* __restrict__ x,
+    unsigned char* xs, unsigned char* qs, const E* __restrict__ x,
     const int8_t* __restrict__ qw, int m, int n, int k, int n0, int c0,
     int rows, int steps, int bn, int xp, int qp) {
   const int tid = threadIdx.x, kk = 16 * steps;
@@ -1314,13 +1385,11 @@ __device__ __forceinline__ void cluster_load(
 // G, + kCWarps / G, ...; it pushes its fp32 sums of each column to the
 // rank that owns it (rank r: the tile's columns [r bn / 8, (r + 1) bn /
 // 8)), which adds them in rank order, then scales and rounds once.
-template <int NT, bool XV, bool QV>
+template <typename E, typename O, int NT, bool XV, bool QV>
 __global__ void __launch_bounds__(kCThreads)
-qmm_cluster_kernel(const __nv_bfloat16* __restrict__ x,
-                   const int8_t* __restrict__ qw,
-                   const float* __restrict__ scales,
-                   __nv_bfloat16* __restrict__ out, int m, int n, int k,
-                   int bn, int kslice, int chunk) {
+qmm_cluster_kernel(const E* __restrict__ x, const int8_t* __restrict__ qw,
+                   const float* __restrict__ scales, O* __restrict__ out,
+                   int m, int n, int k, int bn, int kslice, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float tile_scales[64];
   cg::cluster_group cluster = cg::this_cluster();
@@ -1354,8 +1423,8 @@ qmm_cluster_kernel(const __nv_bfloat16* __restrict__ x,
   for (int c0 = kb; c0 < ke; c0 += chunk) {
     const int rows = min(chunk, ke - c0), steps = (rows + 15) / 16;
     if (c0 != kb) __syncthreads();   // the last chunk's reads are done
-    cluster_load<NT, XV, QV>(xs, qs, x, qw, m, n, k, n0, c0, rows, steps,
-                             bn, xp, qp);
+    cluster_load<E, NT, XV, QV>(xs, qs, x, qw, m, n, k, n0, c0, rows, steps,
+                                bn, xp, qp);
     cp_async_wait<0>();
     __syncthreads();
     const uint32_t xa = smem_addr(xs), qa = smem_addr(qs);
@@ -1363,22 +1432,22 @@ qmm_cluster_kernel(const __nv_bfloat16* __restrict__ x,
     for (int s = kw; s < steps; s += kws) {
       uint32_t v[2], a[4];
       ldmatrix_x2_trans(v, qa + (16 * s + (lane & 15)) * qp + 16 * cn);
-      widen_int8x4(v[0], a[0], a[1]);
-      widen_int8x4(v[1], a[2], a[3]);
+      widen_int8x4<E>(v[0], a[0], a[1]);
+      widen_int8x4<E>(v[1], a[2], a[3]);
       // lane l gives the address of row l % 8 of matrix l / 8: x's rows
       // 8 (j + l / 16) .., k 16 s + 8 ((l / 8) % 2) ..
       const uint32_t xk = xa + 2 * (16 * s + 8 * ((lane >> 3) & 1));
       if constexpr (NT == 1) {
         uint32_t b[2];
         ldmatrix_x2(b, xk + (lane & 7) * xp);
-        mma_bf16(acc[0], a[0], a[1], a[2], a[3], b[0], b[1]);
+        mma16<E>(acc[0], a[0], a[1], a[2], a[3], b[0], b[1]);
       } else {
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
           uint32_t b[4];
           ldmatrix_x4(b, xk + (8 * (j + (lane >> 4)) + (lane & 7)) * xp);
-          mma_bf16(acc[j], a[0], a[1], a[2], a[3], b[0], b[1]);
-          mma_bf16(acc[j + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
+          mma16<E>(acc[j], a[0], a[1], a[2], a[3], b[0], b[1]);
+          mma16<E>(acc[j + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
         }
       }
     }
@@ -1412,7 +1481,7 @@ qmm_cluster_kernel(const __nv_bfloat16* __restrict__ x,
   cluster.sync();
 
   const bool paired = (n & 1) == 0 &&
-                      (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+                      reinterpret_cast<uintptr_t>(out) % (2 * sizeof(O)) == 0;
   for (int e = threadIdx.x; e < m * pairs; e += kCThreads) {
     const int row = e / pairs, c = 2 * (e % pairs);
     const float* mine = recv + row * cols + c;
@@ -1428,13 +1497,12 @@ qmm_cluster_kernel(const __nv_bfloat16* __restrict__ x,
     }
     const int lc = rank * cols + c, col = n0 + lc;
     const float sc0 = tile_scales[lc], sc1 = tile_scales[lc + 1];
-    __nv_bfloat16* o = out + static_cast<size_t>(row) * n + col;
+    O* o = out + static_cast<size_t>(row) * n + col;
     if (paired && col + 1 < n) {
-      *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(
-          __fmul_rn(s0, sc0), __fmul_rn(s1, sc1));
+      store_pair<O>(o, __fmul_rn(s0, sc0), __fmul_rn(s1, sc1));
     } else {
-      if (col < n) o[0] = __float2bfloat16_rn(__fmul_rn(s0, sc0));
-      if (col + 1 < n) o[1] = __float2bfloat16_rn(__fmul_rn(s1, sc1));
+      if (col < n) store_one<O>(o, __fmul_rn(s0, sc0));
+      if (col + 1 < n) store_one<O>(o + 1, __fmul_rn(s1, sc1));
     }
   }
 }
@@ -1481,11 +1549,10 @@ inline int cluster_bn(int n) {
   return n <= 16 ? 16 : n <= 32 ? 32 : 64;
 }
 
-template <int NT, bool XV, bool QV>
-int qmm_cluster_launch(const __nv_bfloat16* x, const int8_t* qw,
-                       const float* sc, __nv_bfloat16* out, int m, int n,
-                       int k, cudaStream_t st) {
-  auto kernel = qmm_cluster_kernel<NT, XV, QV>;
+template <typename E, typename O, int NT, bool XV, bool QV>
+int qmm_cluster_launch(const E* x, const int8_t* qw, const float* sc, O* out,
+                       int m, int n, int k, cudaStream_t st) {
+  auto kernel = qmm_cluster_kernel<E, O, NT, XV, QV>;
   static int ready[kMaxDevices] = {};   // 0 not yet, 1 ready, -error
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1509,18 +1576,41 @@ int qmm_cluster_launch(const __nv_bfloat16* x, const int8_t* qw,
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-template <int NT>
-int qmm_cluster_dispatch(bool xv, bool qv, const __nv_bfloat16* x,
-                         const int8_t* qw, const float* sc,
-                         __nv_bfloat16* out, int m, int n, int k,
+template <typename E, typename O, int NT>
+int qmm_cluster_dispatch(bool xv, bool qv, const E* x, const int8_t* qw,
+                         const float* sc, O* out, int m, int n, int k,
                          cudaStream_t st) {
   if (xv && qv)
-    return qmm_cluster_launch<NT, true, true>(x, qw, sc, out, m, n, k, st);
+    return qmm_cluster_launch<E, O, NT, true, true>(x, qw, sc, out, m, n, k,
+                                                    st);
   if (xv)
-    return qmm_cluster_launch<NT, true, false>(x, qw, sc, out, m, n, k, st);
+    return qmm_cluster_launch<E, O, NT, true, false>(x, qw, sc, out, m, n, k,
+                                                     st);
   if (qv)
-    return qmm_cluster_launch<NT, false, true>(x, qw, sc, out, m, n, k, st);
-  return qmm_cluster_launch<NT, false, false>(x, qw, sc, out, m, n, k, st);
+    return qmm_cluster_launch<E, O, NT, false, true>(x, qw, sc, out, m, n, k,
+                                                     st);
+  return qmm_cluster_launch<E, O, NT, false, false>(x, qw, sc, out, m, n, k,
+                                                    st);
+}
+
+// The 16-bit forms' (x type, out type) pairs: x_type 0 bf16, 1 fp16;
+// out_f32 0 writes x's type, 1 fp32 from the same accumulator. Calls
+// launch(Types<E, O>{}) and returns its code.
+template <typename E_, typename O_>
+struct Types {
+  using E = E_;
+  using O = O_;
+};
+
+template <typename F>
+int with_types(int x_type, int out_f32, F&& launch) {
+  if (x_type == 0)
+    return out_f32 ? launch(Types<__nv_bfloat16, float>{})
+                   : launch(Types<__nv_bfloat16, __nv_bfloat16>{});
+  if (x_type == 1)
+    return out_f32 ? launch(Types<__half, float>{})
+                   : launch(Types<__half, __half>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1585,71 +1675,112 @@ extern "C" int quant_matmul(const void* x, const void* qw, const void* scales,
   }
 }
 
-// x: bf16 [m, k]; qw: int8 [k, n]; scales: fp32 [n]; out: bf16 [m, n]; all
-// contiguous, x and out 2-byte aligned, qw 4-byte aligned; ws as for
-// quant_matmul (the same k slices). Returns a cudaError_t code.
-extern "C" int quant_matmul_bf16(const void* x, const void* qw,
-                                 const void* scales, void* out, void* ws,
-                                 int m, int n, int k, void* stream) {
+// x: bf16 (x_type 0) or fp16 (1) [m, k]; qw: int8 [k, n]; scales: fp32
+// [n]; out: [m, n] of x's type (out_f32 0) or fp32 (1); all contiguous,
+// x 2-byte aligned, out aligned to its element, qw 4-byte aligned; ws as
+// for quant_matmul (the same k slices). Returns a cudaError_t code.
+extern "C" int quant_matmul_16(const void* x, const void* qw,
+                               const void* scales, void* out, void* ws, int m,
+                               int n, int k, int x_type, int out_f32,
+                               void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 ||
       (m + 32 * qmm_mt(m) - 1) / (32 * qmm_mt(m)) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* qp = static_cast<const int8_t*>(qw);
   auto* sp = static_cast<const float*>(scales);
-  auto* op = static_cast<__nv_bfloat16*>(out);
   auto* wp = static_cast<float*>(ws);
   const bool xv = k % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool qv = n % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
-  switch (qmm_mt(m)) {
-    case 4: return qmm_h_dispatch<4>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
-    case 2: return qmm_h_dispatch<2>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
-    default: return qmm_h_dispatch<1>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
-  }
+  return with_types(x_type, out_f32, [&](auto t) {
+    using E = typename decltype(t)::E;
+    using O = typename decltype(t)::O;
+    auto* xp = static_cast<const E*>(x);
+    auto* op = static_cast<O*>(out);
+    switch (qmm_mt(m)) {
+      case 4:
+        return qmm_h_dispatch<E, O, 4>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
+      case 2:
+        return qmm_h_dispatch<E, O, 2>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
+      default:
+        return qmm_h_dispatch<E, O, 1>(xv, qv, xp, qp, sp, op, wp, m, n, k, st);
+    }
+  });
 }
 
-// The wgmma route of quant_matmul_bf16 (m > 64): the same operands, and
+// The wgmma route of quant_matmul_16 (m > 64): the same operands, and
 // n % 16 == 0, k % 8 == 0, x and qw 16-byte aligned (the row pitches and
-// bases TMA takes), out 4-byte aligned; no workspace. Returns a
-// cudaError_t code.
-extern "C" int quant_matmul_bf16_wgmma(const void* x, const void* qw,
-                                       const void* scales, void* out, int m,
-                                       int n, int k, void* stream) {
+// bases TMA takes), out aligned to two of its elements; no workspace.
+// Returns a cudaError_t code.
+extern "C" int quant_matmul_16_wgmma(const void* x, const void* qw,
+                                     const void* scales, void* out, int m,
+                                     int n, int k, int x_type, int out_f32,
+                                     void* stream) {
   constexpr int rows = kQmmRows;
   if (m <= 0 || n <= 0 || k <= 0 || n % 16 != 0 || k % 8 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(qw) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % (out_f32 ? 8 : 4) != 0 ||
       static_cast<long>((m + rows - 1) / rows) * ((n + 63) / 64) >
           INT32_MAX / 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  return qmm_wgmma_launch<kQmmWarpgroups, kQmmRows, kQmmStages>(
-      x, qw, static_cast<const float*>(scales),
-      static_cast<__nv_bfloat16*>(out), m, n, k,
-      static_cast<cudaStream_t>(stream));
+  return with_types(x_type, out_f32, [&](auto t) {
+    using E = typename decltype(t)::E;
+    using O = typename decltype(t)::O;
+    return qmm_wgmma_launch<E, O, kQmmWarpgroups, kQmmRows, kQmmStages>(
+        x, qw, static_cast<const float*>(scales), static_cast<O*>(out), m,
+        n, k, static_cast<cudaStream_t>(stream));
+  });
 }
 
-// The cluster route of quant_matmul_bf16 (m <= 64): the same operands as
-// quant_matmul_bf16 (x and out 2-byte aligned, qw 4-byte aligned), one
-// launch, no workspace. Returns a cudaError_t code.
-extern "C" int quant_matmul_bf16_cluster(const void* x, const void* qw,
-                                         const void* scales, void* out,
-                                         int m, int n, int k, void* stream) {
+// The cluster route of quant_matmul_16 (m <= 64): the same operands as
+// quant_matmul_16 (x 2-byte aligned, out aligned to its element, qw
+// 4-byte aligned), one launch, no workspace. Returns a cudaError_t code.
+extern "C" int quant_matmul_16_cluster(const void* x, const void* qw,
+                                       const void* scales, void* out, int m,
+                                       int n, int k, int x_type, int out_f32,
+                                       void* stream) {
   if (m <= 0 || m > 64 || n <= 0 || k <= 0 ||
       reinterpret_cast<uintptr_t>(x) % 2 != 0 ||
       reinterpret_cast<uintptr_t>(qw) % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(out) % 2 != 0)
+      reinterpret_cast<uintptr_t>(out) % (out_f32 ? 4 : 2) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* qp = static_cast<const int8_t*>(qw);
   auto* sp = static_cast<const float*>(scales);
-  auto* op = static_cast<__nv_bfloat16*>(out);
   const bool xv = k % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool qv = n % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
-  if (m <= 8) return qmm_cluster_dispatch<1>(xv, qv, xp, qp, sp, op, m, n, k, st);
-  if (m <= 16) return qmm_cluster_dispatch<2>(xv, qv, xp, qp, sp, op, m, n, k, st);
-  if (m <= 32) return qmm_cluster_dispatch<4>(xv, qv, xp, qp, sp, op, m, n, k, st);
-  return qmm_cluster_dispatch<8>(xv, qv, xp, qp, sp, op, m, n, k, st);
+  return with_types(x_type, out_f32, [&](auto t) {
+    using E = typename decltype(t)::E;
+    using O = typename decltype(t)::O;
+    auto* xp = static_cast<const E*>(x);
+    auto* op = static_cast<O*>(out);
+    if (m <= 8)
+      return qmm_cluster_dispatch<E, O, 1>(xv, qv, xp, qp, sp, op, m, n, k, st);
+    if (m <= 16)
+      return qmm_cluster_dispatch<E, O, 2>(xv, qv, xp, qp, sp, op, m, n, k, st);
+    if (m <= 32)
+      return qmm_cluster_dispatch<E, O, 4>(xv, qv, xp, qp, sp, op, m, n, k, st);
+    return qmm_cluster_dispatch<E, O, 8>(xv, qv, xp, qp, sp, op, m, n, k, st);
+  });
+}
+
+// The bf16 forms with bf16 out (quant_matmul_16 at x_type 0, out_f32 0),
+// under the names tools/torch_qmm_ab.py calls.
+extern "C" int quant_matmul_bf16(const void* x, const void* qw,
+                                 const void* scales, void* out, void* ws,
+                                 int m, int n, int k, void* stream) {
+  return quant_matmul_16(x, qw, scales, out, ws, m, n, k, 0, 0, stream);
+}
+
+extern "C" int quant_matmul_bf16_wgmma(const void* x, const void* qw,
+                                       const void* scales, void* out, int m,
+                                       int n, int k, void* stream) {
+  return quant_matmul_16_wgmma(x, qw, scales, out, m, n, k, 0, 0, stream);
+}
+
+extern "C" int quant_matmul_bf16_cluster(const void* x, const void* qw,
+                                         const void* scales, void* out,
+                                         int m, int n, int k, void* stream) {
+  return quant_matmul_16_cluster(x, qw, scales, out, m, n, k, 0, 0, stream);
 }

@@ -31,12 +31,12 @@ kernel (``ops/fused_update.py``) consumes without decoding it to memory;
 the payload and its scales live in buffers the communicator keeps per
 bucket (``_wire``), so a consumer's pointers hold from step to step.
 
-bf16 buckets ride the blockwise codecs as the reference's do: a bf16
-flat is encoded where it lies (the kernel lifts it to fp32, exactly, as
-the reference's ``_as_blocks`` does), unless error feedback adds the
-fp32 residual first, which makes the sum fp32; the residual is fp32;
-the decode rounds the fp32 ``q * scale / world`` once to the bucket's
-dtype.
+bf16 and fp16 buckets ride the blockwise codecs as the reference's do:
+a 16-bit flat is encoded where it lies (the kernel lifts it to fp32,
+exactly, as the reference's ``_as_blocks`` does), unless error feedback
+adds the fp32 residual first, which makes the sum fp32; the residual is
+fp32; the decode rounds the fp32 ``q * scale / world`` once to the
+bucket's dtype (fp16 subnormals kept, overflow to inf).
 
 fp8 range: ``scales = absmax / 448`` keeps ``|x / s| <= 448 * (1 + ulp)``,
 which rounds to 448, so the cast never sees an out-of-range value

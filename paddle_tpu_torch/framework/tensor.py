@@ -38,6 +38,7 @@ import torch
 
 from . import autograd, device as device_mod, dtype as dtype_mod
 from .autograd import call_op, run_backward, wrap
+from .grads import clear_grad
 from .io import to_torch
 
 __all__ = ["Tensor", "to_tensor", "Parameter", "param_view",
@@ -153,7 +154,9 @@ class Tensor:
                      retain_graph=retain_graph)
 
     def clear_grad(self):
-        self.grad = None
+        h = self._grad_holder()
+        if h is not None:
+            clear_grad(h)
 
     clear_gradient = clear_grad
 

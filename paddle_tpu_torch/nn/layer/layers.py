@@ -48,6 +48,7 @@ import torch
 
 from ...framework import device as device_mod, dtype as dtype_mod
 from ...framework.autograd import unwrap
+from ...framework.grads import clear_grad
 from ...framework.io import to_torch
 from ...framework.modules import torch_parameters
 from ...framework.param_attr import ParamAttr
@@ -275,4 +276,4 @@ class Layer(torch.nn.Module):
 
     def clear_gradients(self, set_to_zero=True):
         for p in torch_parameters(self):
-            p.grad = None
+            clear_grad(p)

@@ -15,10 +15,11 @@ block_size, codec, carrier)`` and ``block_encode.dtypes`` by the input's
 dtype. The wrappers check device, dtype, shape and contiguity, allocate
 outputs with ``torch.empty`` (or write the caller's ``out=``) and never
 synchronize; the kernel runs on PyTorch's current stream. The encode
-reads an fp32 or bf16 input, a ragged one (``numel`` not a multiple of
-the block) included, in place: no padded or fp32 copy is made. The
-decode writes fp32 or, with ``dtype=torch.bfloat16``, bf16 rounded once
-to nearest even.
+reads an fp32, bf16 or fp16 input, a ragged one (``numel`` not a
+multiple of the block) included, in place: no padded or fp32 copy is
+made. The decode writes fp32 or, with ``dtype=torch.bfloat16`` or
+``torch.float16``, that dtype rounded once to nearest even (fp16
+subnormals kept, overflow to inf, as the plain ``.to(dtype)`` rounds).
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ _CODEC_ID = {"int8_block": 0, "fp8_block": 1}
 _WIRE_ID = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.int32: 2,
             torch.float32: 3}
 # element types of the encode's input and the decode's output
-_ELEM_ID = {torch.float32: 0, torch.bfloat16: 1}
+_ELEM_ID = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,7 +76,7 @@ def _check_block_size(block_size: int):
 def block_encode(flat: torch.Tensor, scales: torch.Tensor, block_size: int,
                  codec: str, carrier: bool = False,
                  out: torch.Tensor | None = None) -> torch.Tensor:
-    """Quantize ``flat`` (fp32 or bf16) blockwise with ``scales`` ->
+    """Quantize ``flat`` (fp32, bf16 or fp16) blockwise with ``scales`` ->
     [n_blocks, block_size] in the wire dtype (int8 or float8_e4m3fn) or,
     with ``carrier=True``, in the gradient wire's carrier (int32 or
     fp32); into ``out`` when given (that shape and dtype, contiguous)."""
@@ -88,8 +89,8 @@ def block_encode(flat: torch.Tensor, scales: torch.Tensor, block_size: int,
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
     if flat.dtype not in _ELEM_ID or scales.dtype != torch.float32:
-        raise TypeError(f"block_encode wants fp32 or bf16 input and fp32 "
-                        f"scales, got {flat.dtype} and {scales.dtype}")
+        raise TypeError(f"block_encode wants fp32, bf16 or fp16 input and "
+                        f"fp32 scales, got {flat.dtype} and {scales.dtype}")
     _check_block_size(block_size)
     flat = flat.reshape(-1)
     nb = _plain.n_scale_blocks(flat.numel(), block_size)
@@ -127,8 +128,8 @@ def block_encode(flat: torch.Tensor, scales: torch.Tensor, block_size: int,
 def block_decode(q: torch.Tensor, scales: torch.Tensor, world: int,
                  numel: int, dtype: torch.dtype = torch.float32
                  ) -> torch.Tensor:
-    """Dequantize a [n_blocks, bs] payload -> [numel] of ``dtype`` (fp32
-    or bf16): the first ``numel`` values of ``q * scale / world``,
+    """Dequantize a [n_blocks, bs] payload -> [numel] of ``dtype`` (fp32,
+    bf16 or fp16): the first ``numel`` values of ``q * scale / world``,
     computed in fp32 and rounded once to ``dtype``. ``q`` is the wire
     dtype or a carrier."""
     if q.device.type == "cpu":
@@ -136,7 +137,8 @@ def block_decode(q: torch.Tensor, scales: torch.Tensor, world: int,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if dtype not in _ELEM_ID:
-        raise TypeError(f"block_decode writes fp32 or bf16, not {dtype}")
+        raise TypeError(f"block_decode writes fp32, bf16 or fp16, not "
+                        f"{dtype}")
     if q.dtype not in _WIRE_ID:
         raise TypeError(f"block_decode wants an int8 or float8_e4m3fn "
                         f"payload or an int32/fp32 carrier, got {q.dtype}")

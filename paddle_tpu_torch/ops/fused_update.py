@@ -49,10 +49,12 @@ gradient wire's summed payload (a :class:`WirePayload`: ``grad_comm``
 kernel as ``q * scale / world (+ residual)`` and then put through the
 reference's cast chain (rounded to the bucket's dtype, then to the
 parameters', and lifted to fp32), so the decoded gradient never reaches
-device memory. It runs once a step over every bucket, fp32 and bf16
-alike, with the scalar prep on the card as in ``fused_update_buckets``.
-An fp16 bucket there is not ported yet (ROADMAP Queue A 6.4, "other
-dtypes"): the table refuses one.
+device memory. It runs once a step over every bucket, fp32, bf16 and
+fp16 alike, with the scalar prep on the card as in
+``fused_update_buckets``. A bucket's dtype is the parameters', or a
+16-bit one over fp32 parameters (the reference's eager sync buckets by
+the gradient's dtype); the table refuses a 16-bit bucket over 16-bit
+parameters of the other type, whose two roundings no caller makes.
 Its plain version, ``reference_dequant_update_flat`` bucket by bucket,
 follows the reference's ``_dequant_kernel`` op for op;
 ``fused_dequant_update_flat`` (the reference's one-bucket signature) is
@@ -61,8 +63,9 @@ fold the bucket into 128-lane rows: the kernel reads
 ``scale[i // block_size]`` itself, so every ``block_size`` runs it (the
 reference falls back to a decode and the plain update when
 ``block_size % 128``). Launches are counted in total
-(``fused_dequant_update_buckets.launches``) and the buckets they
-updated by size and dtype (``fused_dequant_update_buckets.sizes``).
+(``fused_dequant_update_buckets.launches``), by the bucket dtypes their
+table held (``.dtypes``: a launch counts once under each), and the
+buckets they updated by size and dtype (``.sizes``).
 """
 from __future__ import annotations
 
@@ -228,11 +231,9 @@ TABLE_WORDS = 14
 # chunk: one 16-byte vector of parameters a thread)
 BUCKET_DTYPES = {torch.float32: (0, 4), torch.bfloat16: (1, 8),
                  torch.float16: (3, 8)}
-# the dtypes of a dequantizing table's parameters and buckets
-DEQUANT_DTYPES = (torch.float32, torch.bfloat16)
 # the dtype word of fp32 parameters whose dequantized gradient is rounded
-# to bf16 first (a bf16 bucket over fp32 parameters)
-_BF16_GRAD_F32_P = 2
+# to a 16-bit bucket dtype first (such a bucket over fp32 parameters)
+_GRAD16_F32_P = {torch.bfloat16: 2, torch.float16: 4}
 CARRIERS = (torch.int32, torch.float32)
 
 
@@ -266,7 +267,7 @@ def _f32_pair(a: float, b: float) -> int:
 class BucketTable:
     """What ``fused_update_buckets`` walks: one entry per flat bucket
     ``(p, g, slot tensors in slot_names(kind) order, wd, lm)``, ``p`` and
-    ``g`` fp32 or bf16 (of one dtype a bucket; buckets may differ), the
+    ``g`` fp32, bf16 or fp16 (of one dtype a bucket; buckets may differ), the
     slots fp32, the rule ``kind`` and ``hyper`` shared by all of them,
     and for Adam(W) the buckets' beta powers in two ``[B, 2]`` fp32
     buffers used in turn: a launch reads ``pows[parity]`` and writes
@@ -303,15 +304,10 @@ class BucketTable:
         for b, (p, g, arrs, wd, lm) in enumerate(entries):
             _check_rule(kind, arrs)
             n = p.numel()
-            if self.dequant and p.dtype not in DEQUANT_DTYPES:
-                raise NotImplementedError(
-                    f"bucket {b}: the dequantizing update takes fp32 and "
-                    f"bf16 parameters, got {p.dtype} (ROADMAP Queue A 6.4, "
-                    f"'other dtypes')")
             _check_flat(f"bucket {b} p", p, n, self.device,
                         tuple(BUCKET_DTYPES), aligned=on_card)
             if self.dequant:
-                g = self._check_payload(b, g, n, on_card)
+                g = self._check_payload(b, g, p.dtype, n, on_card)
             else:
                 _check_flat(f"bucket {b} g", g, n, self.device, (p.dtype,),
                             aligned=on_card)
@@ -343,7 +339,7 @@ class BucketTable:
             if on_card else self.words)
         self.key = self.pointers(self.entries)
 
-    def _check_payload(self, b, g, n, on_card) -> WirePayload:
+    def _check_payload(self, b, g, p_dtype, n, on_card) -> WirePayload:
         """A dequantizing entry's payload, checked, its carrier flat."""
         if not isinstance(g, WirePayload):
             raise TypeError(f"bucket {b}: a dequantizing table takes a "
@@ -351,9 +347,11 @@ class BucketTable:
         if g.q.dtype not in CARRIERS:
             raise TypeError(f"bucket {b}: the carrier must be int32 or "
                             f"fp32, q is {g.q.dtype}")
-        if g.dtype not in (None, *DEQUANT_DTYPES):
-            raise TypeError(f"bucket {b}: a bucket dtype of fp32 or bf16, "
-                            f"got {g.dtype}")
+        if g.dtype not in (None, torch.float32, p_dtype) and not (
+                p_dtype == torch.float32 and g.dtype in _GRAD16_F32_P):
+            raise TypeError(f"bucket {b}: a bucket dtype of fp32, the "
+                            f"parameters' {p_dtype}, or bf16 or fp16 over "
+                            f"fp32 parameters, got {g.dtype}")
         nb = n_scale_blocks(n, self.block_size)
         q = g.q.reshape(-1)
         _check_flat(f"bucket {b} q", q, nb * self.block_size, self.device,
@@ -373,13 +371,12 @@ class BucketTable:
                      for p, g, arrs, *_ in entries)
 
     def _dtype_word(self, p, g) -> int:
-        # an fp16 gradient over fp32 parameters exists only on the wire
-        # (a dequantizing table), which refuses fp16 above
-        word = BUCKET_DTYPES[p.dtype][0]
+        # a 16-bit gradient over fp32 parameters exists only on the wire
+        # (a dequantizing table's bucket dtype)
         if self.dequant and p.dtype == torch.float32 \
-                and g.dtype == torch.bfloat16:
-            return _BF16_GRAD_F32_P
-        return word
+                and g.dtype in _GRAD16_F32_P:
+            return _GRAD16_F32_P[g.dtype]
+        return BUCKET_DTYPES[p.dtype][0]
 
     def _pack(self, parity: int) -> torch.Tensor:
         rows = []
@@ -449,6 +446,7 @@ def reset_launch_counts() -> None:
     fused_update_buckets.launches = 0
     fused_dequant_update_buckets.launches = 0
     fused_dequant_update_buckets.sizes.clear()
+    fused_dequant_update_buckets.dtypes.clear()
 
 
 def _check_lr(lr, dev):
@@ -514,10 +512,13 @@ def fused_dequant_update_buckets(table: BucketTable, lr, world: int) -> None:
     for p, *_ in table.entries:
         fused_dequant_update_buckets.sizes[
             (p.numel(), str(p.dtype).replace("torch.", ""))] += 1
+    for dt in {g.dtype or p.dtype for p, g, *_ in table.entries}:
+        fused_dequant_update_buckets.dtypes[dt] += 1
 
 
 fused_dequant_update_buckets.launches = 0
 fused_dequant_update_buckets.sizes = Counter()
+fused_dequant_update_buckets.dtypes = Counter()
 
 
 def fused_update_flat(flat_p, flat_g, slots: Dict, lr, *, kind: str,
@@ -586,8 +587,9 @@ def fused_dequant_update_flat(flat_p, q, scales, world: int, slots: Dict, lr,
                               wd: float = 0.0, residual=None):
     """Fused ``block_decode`` + update over a flat bucket (the reference's
     signature): ``fused_dequant_update_buckets`` on a table of one.
-    ``flat_p`` is fp32 or bf16 and ``bucket_dtype`` (None: the
-    parameters') fp32 or bf16. Updates ``flat_p`` and the moment slots
+    ``flat_p`` is fp32, bf16 or fp16 and ``bucket_dtype`` (None: the
+    parameters') fp32, the parameters' dtype, or a 16-bit one over fp32
+    parameters. Updates ``flat_p`` and the moment slots
     in place and returns ``(flat_p, new_slots)`` (moment slots the same
     tensors, beta powers stepped)."""
     arrs = [slots[nm] for nm in slot_names(kind)]

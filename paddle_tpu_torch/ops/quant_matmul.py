@@ -7,7 +7,8 @@ version beside it:
 
   quantize_int8(w, stochastic, seed) -> (q int8 [k, n], scales fp32 [1, n])
   quant_matmul(x, qw, scales)        -> x @ (qw * scales), fp32 accumulator,
-                                        in x's dtype: fp32 or bf16
+                                        in x's dtype (fp32, bf16 or fp16)
+                                        or, for 16-bit x, fp32
 
 Dispatch is by where the tensors lie, and nothing else: a CPU tensor takes
 the plain version, a CUDA tensor the hand-written kernel
@@ -16,10 +17,11 @@ kernel to the plain version. Each wrapper counts its kernel launches in
 ``<wrapper>.launches`` (``launch_counts()``) and, by shape, in
 ``<wrapper>.shapes`` (``shape_counts()``: ``(k, n)`` for
 ``quantize_int8``, ``(m, k, n)`` for ``quant_matmul``), incremented only
-where the kernel is launched; the bf16 form of ``quant_matmul`` in
-``quant_matmul.launches_bf16`` and ``.shapes_bf16`` (the key
-``quant_matmul_bf16`` in both tables), and by route in
-``quant_matmul.routes_bf16`` (``route_counts()``).
+where the kernel is launched; the 16-bit forms of ``quant_matmul`` by
+x's dtype in ``quant_matmul.launches_bf16`` and ``.shapes_bf16`` (the key
+``quant_matmul_bf16`` in both tables) and ``launches_fp16``,
+``.shapes_fp16`` (``quant_matmul_fp16``), and by route in
+``quant_matmul.routes_bf16``, ``.routes_fp16`` (``route_counts(dtype)``).
 
 Numerics of ``quantize_int8`` are the reference's as XLA compiles it on
 the CPU: ``scale = max(amax * float32(1/127), 1e-12)`` (the constant
@@ -48,16 +50,19 @@ signature and raise when given (the reference's tile choice and autotune
 cache, ``ops/pallas/autotune.py``, are ROADMAP Queue A, "the rest":
 kernel tuner).
 On the card ``quantize_int8`` takes fp32 weights; ``quant_matmul`` takes
-fp32 ``x`` (the split-TF32 kernel, fp32 out) or bf16 ``x`` (amp's, the
-``quant_matmul_bf16`` kernels: bf16 tensor cores, which hold int8 exactly
-and form every product exactly, fp32 accumulation, the scaled sum
-rounded to bf16 once), and refuses any other dtype or an ``out_dtype``
-other than ``x``'s; nothing is upcast to reach the fp32 kernel.
-The bf16 form has three routes, picked by shape (``bf16_route``), never
+fp32 ``x`` (the split-TF32 kernel, fp32 out) or bf16 or fp16 ``x``
+(amp's, the ``quant_matmul_16`` kernels: 16-bit tensor cores, which hold
+int8 exactly and form every product exactly, fp32 accumulation, the
+scaled sum rounded to x's dtype once, or stored as fp32 for
+``out_dtype=torch.float32`` from the same accumulator, as the
+reference's ``(acc * s).astype(out_dtype)``). It refuses float64 ``x``
+and any other ``out_dtype`` (fp32 ``x`` writes fp32 only; a 16-bit ``x``
+its own dtype or fp32); nothing is upcast to reach the fp32 kernel.
+The 16-bit forms have three routes, picked by shape (``route16``), never
 by failure:
 
 - ``"cluster"`` for m <= 64 (the reference's ``_qmm_kernel``,
-  ``paddle_tpu/ops/quant_matmul.py:110``, on bf16 ``x``: every bf16
+  ``paddle_tpu/ops/quant_matmul.py:110``, on 16-bit ``x``: every 16-bit
   launch of an int8 BERT forward at batch 1 x 64 tokens, the pooler and
   the NSP head at any batch), where the int8 weight's bytes and, under a cold L2, the latency of
   device memory bound it: one launch, no workspace. The k reduction is
@@ -100,14 +105,15 @@ from .tf32 import split_tf32
 __all__ = ["KERNEL_SOURCE", "quantize_int8", "quantize_int8_plain",
            "quant_matmul", "quant_matmul_plain", "quant_matmul_split_tf32",
            "hash_uniform",
-           "stable_seed", "bf16_route", "launch_counts", "shape_counts",
+           "stable_seed", "route16", "launch_counts", "shape_counts",
            "route_counts", "reset_launch_counts"]
 
 KERNEL_SOURCE = "paddle_tpu_torch/csrc/quant_matmul.cu"
 _U32 = 0xFFFFFFFF
-# x's dtype -> the C entry point's suffix
-_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
-_DTYPES = "ROADMAP Queue A, 'other dtypes'"
+# x's dtype -> the suffix of its launch counters
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_fp16"}
+# a 16-bit x's dtype -> the type word of the quant_matmul_16 entry points
+_X16 = {torch.bfloat16: 0, torch.float16: 1}
 
 
 def stable_seed(name: str, base: int = 0) -> int:
@@ -179,12 +185,12 @@ def _lib(device_index: int) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.quantize_int8.argtypes = [p, p, p, i, i, i, ctypes.c_uint, p]
     lib.quant_matmul.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.quant_matmul_bf16.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.quant_matmul_bf16_wgmma.argtypes = [p, p, p, p, i, i, i, p]
-    lib.quant_matmul_bf16_cluster.argtypes = [p, p, p, p, i, i, i, p]
+    lib.quant_matmul_16.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.quant_matmul_16_wgmma.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.quant_matmul_16_cluster.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.quant_matmul_splits.argtypes = [i, i, i]
-    for fn in (lib.quantize_int8, lib.quant_matmul, lib.quant_matmul_bf16,
-               lib.quant_matmul_bf16_wgmma, lib.quant_matmul_bf16_cluster,
+    for fn in (lib.quantize_int8, lib.quant_matmul, lib.quant_matmul_16,
+               lib.quant_matmul_16_wgmma, lib.quant_matmul_16_cluster,
                lib.quant_matmul_splits):
         fn.restype = ctypes.c_int
     return lib
@@ -239,8 +245,8 @@ def quantize_int8(w: torch.Tensor, stochastic: bool = False, seed: int = 0
     return q, scales
 
 
-def bf16_route(x: torch.Tensor, qw: torch.Tensor) -> str:
-    """The kernel that takes bf16 ``x [m, k] @ qw [k, n]`` on the card:
+def route16(x: torch.Tensor, qw: torch.Tensor) -> str:
+    """The kernel that takes 16-bit ``x [m, k] @ qw [k, n]`` on the card:
     "cluster" for m <= 64; "wgmma" for m > 64 where TMA describes both
     operands (row pitches and bases on the 16-byte grid), else
     "mma_sync"."""
@@ -257,14 +263,16 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
                  block_m=None, block_n=None, block_k=None,
                  out_dtype=None) -> torch.Tensor:
     """``x [m, k] @ (qw [k, n] int8 * scales [1, n])`` -> ``[m, n]`` in
-    ``out_dtype`` (default ``x.dtype``). The tiles are fixed: a block
+    ``out_dtype`` (default ``x.dtype``; fp32 ``x`` writes fp32 on the
+    card, 16-bit ``x`` its dtype or fp32). The tiles are fixed: a block
     argument raises."""
     if (block_m, block_n, block_k) != (None, None, None):
         raise ValueError("quant_matmul's tiles are fixed (128 x 128 x 32, "
-                         "32 or 64 rows at m <= 64; bf16 x at m > 64: 192 "
-                         "x 128 x 64, at m <= 64: k split over a cluster "
-                         "of 8); block_m/block_n/block_k are not ported "
-                         "(ROADMAP Queue A, 'the rest': kernel tuner)")
+                         "32 or 64 rows at m <= 64; 16-bit x at m > 64: "
+                         "192 x 128 x 64, at m <= 64: k split over a "
+                         "cluster of 8); block_m/block_n/block_k are not "
+                         "ported (ROADMAP Queue A, 'the rest': kernel "
+                         "tuner)")
     if x.dim() != 2 or qw.dim() != 2 or x.shape[1] != qw.shape[0]:
         raise ValueError(f"quant_matmul takes x [m, k] and qw [k, n], got "
                          f"{tuple(x.shape)} and {tuple(qw.shape)}")
@@ -276,37 +284,39 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
     dev = x.device
     sfx = _SUFFIX.get(x.dtype)
     if sfx is None:
-        raise TypeError(f"the quant_matmul kernels take float32 or bfloat16 "
-                        f"x, got {x.dtype} (other dtypes are not ported yet: "
-                        f"{_DTYPES})")
+        raise TypeError(f"the quant_matmul kernels take float32, bfloat16 "
+                        f"or float16 x, got {x.dtype}")
+    out_dtype = out_dtype or x.dtype
+    out_f32 = bool(sfx) and out_dtype == torch.float32
+    if out_dtype != x.dtype and not out_f32:
+        raise TypeError(f"the kernel writes {x.dtype} x's product in "
+                        f"{x.dtype}{' or float32' if sfx else ''}, not "
+                        f"{out_dtype}")
     _operand("x", x, dev, x.dtype)
     _operand("qw", qw, dev, torch.int8)
     _operand("scales", scales, dev, torch.float32)
-    if out_dtype not in (None, x.dtype):
-        raise TypeError(f"the kernel writes x's dtype {x.dtype}, not "
-                        f"{out_dtype}")
     if qw.data_ptr() % 4:
         raise ValueError("qw must be 4-byte aligned")
     (m, k), n = x.shape, qw.shape[1]
     if not (m and n and k):
         raise ValueError(f"quant_matmul needs m, n, k >= 1, got {(m, n, k)}")
-    out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
     lib = _lib(dev.index)
-    route = bf16_route(x, qw) if sfx else None
-    if route in ("wgmma", "cluster"):
-        with torch.cuda.device(dev):
-            rc = getattr(lib, "quant_matmul_bf16_" + route)(
+    route = route16(x, qw) if sfx else None
+    words = (_X16[x.dtype], int(out_f32)) if sfx else ()
+    with torch.cuda.device(dev):
+        if route in ("wgmma", "cluster"):
+            rc = getattr(lib, "quant_matmul_16_" + route)(
                 x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
-                out.data_ptr(), m, n, k, _stream(dev))
-    else:
-        splits = lib.quant_matmul_splits(m, n, k)
-        ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-              if splits > 1 else None)
-        with torch.cuda.device(dev):
-            rc = getattr(lib, "quant_matmul" + sfx)(
+                out.data_ptr(), m, n, k, *words, _stream(dev))
+        else:
+            splits = lib.quant_matmul_splits(m, n, k)
+            ws = (torch.empty((splits, m, n), dtype=torch.float32,
+                              device=dev) if splits > 1 else None)
+            rc = getattr(lib, "quant_matmul_16" if sfx else "quant_matmul")(
                 x.data_ptr(), qw.data_ptr(), scales.data_ptr(),
                 out.data_ptr(), ws.data_ptr() if ws is not None else None,
-                m, n, k, _stream(dev))
+                m, n, k, *words, _stream(dev))
     if rc:
         raise RuntimeError(f"quant_matmul{sfx} launch failed"
                            f"{f' ({route} route)' if route else ''}: CUDA "
@@ -315,14 +325,15 @@ def quant_matmul(x: torch.Tensor, qw: torch.Tensor, scales: torch.Tensor,
             getattr(quant_matmul, "launches" + sfx) + 1)
     getattr(quant_matmul, "shapes" + sfx)[(m, k, n)] += 1
     if route:
-        quant_matmul.routes_bf16[route] += 1
+        getattr(quant_matmul, "routes" + sfx)[route] += 1
     return out
 
 
 # name in the count tables -> (wrapper, suffix of its counters)
 _COUNTERS = {"quantize_int8": (quantize_int8, ""),
              "quant_matmul": (quant_matmul, ""),
-             "quant_matmul_bf16": (quant_matmul, "_bf16")}
+             "quant_matmul_bf16": (quant_matmul, "_bf16"),
+             "quant_matmul_fp16": (quant_matmul, "_fp16")}
 
 
 def launch_counts() -> dict:
@@ -336,10 +347,11 @@ def shape_counts() -> dict:
             for name, (f, sfx) in _COUNTERS.items()}
 
 
-def route_counts() -> collections.Counter:
-    """Launches of the bf16 form by route ("cluster", "wgmma",
-    "mma_sync") since the last reset."""
-    return collections.Counter(quant_matmul.routes_bf16)
+def route_counts(dtype=torch.bfloat16) -> collections.Counter:
+    """Launches of the 16-bit form on ``dtype`` x by route ("cluster",
+    "wgmma", "mma_sync") since the last reset."""
+    return collections.Counter(getattr(quant_matmul,
+                                       "routes" + _SUFFIX[dtype]))
 
 
 def reset_launch_counts() -> None:
@@ -347,6 +359,7 @@ def reset_launch_counts() -> None:
         setattr(f, "launches" + sfx, 0)
         setattr(f, "shapes" + sfx, collections.Counter())
     quant_matmul.routes_bf16 = collections.Counter()
+    quant_matmul.routes_fp16 = collections.Counter()
 
 
 reset_launch_counts()

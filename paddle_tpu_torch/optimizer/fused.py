@@ -87,6 +87,7 @@ from ..ops.fused_update import (BucketTable, WirePayload,
                                 fused_dequant_update_buckets,
                                 fused_update_buckets, rule_spec, slot_names)
 from ..framework.autograd import unwrap
+from ..framework.grads import clear_grad
 from .optimizer import lr_mult
 
 __all__ = ["FusedFlatUpdater", "PerParameterUpdater", "FUSABLE_OPTIMIZERS",
@@ -365,7 +366,7 @@ class PerParameterUpdater:
 
     def zero_grad(self):
         for p in self.params:
-            p.grad = None
+            clear_grad(p)
 
     def flat_grads(self) -> List[torch.Tensor]:
         for i, p in enumerate(self.params):

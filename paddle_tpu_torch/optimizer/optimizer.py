@@ -23,9 +23,10 @@ the parameter and of its (clipped) gradient, its moments, its own
 ``wd`` and ``lr_mult``, its own beta powers (the table's, which the
 kernel steps; ``_slots`` holds views of the current ones). The table is
 kept while no pointer in it moves (``BucketTable.key``). A parameter
-the kernel cannot take raises, naming its ``ROADMAP.md`` item (a dtype
-other than fp32, bf16 and fp16: "other dtypes"; a rule without a fused
-form: "training options"); there is no other path on the card for the four
+the kernel cannot take raises (a dtype other than fp32, bf16 and fp16,
+which has no form of the kernel; a rule without a fused form, naming its
+``ROADMAP.md`` item, "training options"); there is no other path on the
+card for the four
 fused rules (SGD, Momentum, Adam, AdamW). The reference has no kernel
 for its other rules (Adagrad, Adadelta, Adamax, RMSProp, Lamb, Lars,
 DGCMomentum, ``_per_parameter``): its eager step runs them as jnp, and
@@ -66,6 +67,7 @@ from typing import Dict, List
 import torch
 
 from ..framework.autograd import unwrap
+from ..framework.grads import clear_grad
 from ..framework.io import to_numpy, to_torch
 from ..nn.clip import clip_grads
 from ..ops.fused_update import (BUCKET_DTYPES, BucketTable,
@@ -74,7 +76,6 @@ from .lr import LRScheduler
 
 __all__ = ["Optimizer", "lr_mult", "param_name"]
 
-OTHER_DTYPES = "ROADMAP Queue A 6, 'other dtypes'"
 TRAINING_OPTIONS = "ROADMAP Queue A 5, 'training options'"
 
 
@@ -112,7 +113,8 @@ class Optimizer:
         self._slots: Dict[int, Dict[str, torch.Tensor]] = {}
         self._accumulated_steps = 0
         self._table = None          # the card's BucketTable of the last step
-        self._clip_bufs: Dict[int, torch.Tensor] = {}   # clipped gradients
+        # gradients clipped, or cast to their parameters' dtypes
+        self._grad_bufs: Dict[int, torch.Tensor] = {}
         self._lr = None             # (value, device, 0-dim tensor)
         # who wrote the slots last: "eager" (step, set_state_dict) or a
         # weak reference to a FusedFlatUpdater
@@ -187,11 +189,14 @@ class Optimizer:
                   if t.grad is not None and t.requires_grad]
         if not params:
             return
-        grads = [t.grad.to(t.dtype) for t in params]
         clip = self._clip_cfg()
+        # each gradient in its parameter's dtype, as the reference's step
+        # casts it (GradScaler.unscale_ leaves fp32 gradients on 16-bit
+        # parameters); cast and clipped ones are copies, never the
+        # caller's .grad
+        grads = [self._grad_copy(t) if clip is not None
+                 or t.grad.dtype != t.dtype else t.grad for t in params]
         if clip is not None:
-            # clip copies, never the caller's .grad
-            grads = [self._clip_copy(t, g) for g, t in zip(grads, params)]
             clipped = [g for g, t in zip(grads, params)
                        if getattr(t, "need_clip", True)]
             if clipped:
@@ -208,14 +213,15 @@ class Optimizer:
         self._accumulated_steps += 1
         self._slot_writer = "eager"
 
-    def _clip_copy(self, t, g: torch.Tensor) -> torch.Tensor:
-        """``g`` copied into the buffer kept for ``t``'s clipped gradient,
-        made at the first step: the card's table keeps its pointer from
-        step to step."""
-        buf = self._clip_bufs.get(id(t))
-        if buf is None or buf.shape != g.shape or buf.dtype != g.dtype \
+    def _grad_copy(self, t) -> torch.Tensor:
+        """``t.grad`` copied, in ``t``'s dtype (rounded to nearest even,
+        as ``.to``), into the buffer kept for ``t``, made at the first
+        step: the card's table keeps its pointer from step to step."""
+        g = t.grad
+        buf = self._grad_bufs.get(id(t))
+        if buf is None or buf.shape != g.shape or buf.dtype != t.dtype \
                 or buf.device != g.device:
-            buf = self._clip_bufs[id(t)] = torch.empty_like(g)
+            buf = self._grad_bufs[id(t)] = torch.empty_like(g, dtype=t.dtype)
         return buf.copy_(g)
 
     def _lr_tensor_kept(self, device) -> torch.Tensor:
@@ -262,8 +268,9 @@ class Optimizer:
         for t, g in zip(params, grads):
             if t.dtype not in BUCKET_DTYPES:
                 raise NotImplementedError(
-                    f"step() on the card takes fp32, bf16 and fp16 parameters, "
-                    f"got {t.dtype} ({OTHER_DTYPES})")
+                    f"step() on the card takes fp32, bf16 and fp16 "
+                    f"parameters; {t.dtype} has no form of the update "
+                    f"kernel")
             s = self._slots_of(t)
             entries.append((t.view(-1), g.reshape(-1),
                             [s[nm].view(-1) for nm in names],
@@ -391,7 +398,7 @@ class Optimizer:
 
     def clear_grad(self, set_to_zero=True):
         for p in self._parameter_list:
-            unwrap(p).grad = None
+            clear_grad(unwrap(p))
 
     clear_gradients = clear_grad
 

@@ -18,9 +18,17 @@ BERT and GPT against the JAX reference on the CPU, at ``bert-test`` and
   halved; with ``incr_every_n_steps=2`` two good steps double it, on
   both sides.
 - ``GradScaler.unscale_`` reads the device's finite flag once a step
-  (``host_reads``) and writes the unscaled gradients bit for bit as the
-  per-parameter form did (each gradient lifted to fp32, times 1/scale,
-  rounded back to its dtype), and finds a planted NaN.
+  (``host_reads``) and leaves each gradient as the reference does, its
+  fp32 product (lifted to fp32, times 1/scale, not rounded back), bit
+  for bit, and finds a planted NaN.
+- The same on a ``Linear(4, 4)`` decorated at O2 fp16, an input times
+  2^-15, a loss times 2^-13 and a scale of 2^15, against the reference: the unscaled
+  gradients' dtype and values (below fp16's smallest subnormal), the
+  norm ``clip_grad_norm_`` returns after ``unscale_``, the gradients'
+  dtype after a backward that accumulates onto them and after
+  ``clear_grad()`` and a backward, and the step's parameters; after a
+  gradient cleared by ``p.grad = None``, the next backward's dtype is the
+  parameter's again (the scaler puts it back).
 - GPT (``gpt-test``, batch 2 x 32) under ``auto_cast(level="O1",
   dtype="float16")``: the eager step's casts op for op and its loss
   within 3e-4 relative of the reference's.
@@ -214,12 +222,15 @@ def check_unscale_one_read_and_same_bits():
     opt = AdamW(learning_rate=LR, parameters=params)
     for poison in (None, float("nan")):
         scaler = tamp.GradScaler(init_loss_scaling=2.0 ** 13)
+        opt.clear_grad()
         for p, g in zip(params, grads):
             p.grad = g.clone()
         if poison is not None:
             params[1].grad[3] = poison
-        want = [(p.grad.to(torch.float32) * (1.0 / 2.0 ** 13)
-                 ).to(p.grad.dtype) for p in params]
+        # the reference's unscale_ leaves each gradient as its fp32
+        # product (paddle_tpu/amp/__init__.py:161)
+        want = [p.grad.to(torch.float32) * (1.0 / 2.0 ** 13)
+                for p in params]
         scaler.unscale_(opt)
         scaler.unscale_(opt)            # once a step: a no-op
         assert scaler.host_reads == 1, scaler.host_reads
@@ -231,6 +242,100 @@ def check_unscale_one_read_and_same_bits():
                                w.view(torch.int16 if w.element_size() == 2
                                       else torch.int32)) or \
                 (poison is not None and p is params[1])
+
+
+def check_unscaled_grads_fp32_as_reference():
+    """Queue C 1: after ``unscale_`` every gradient is the reference's
+    fp32 product; what reads it between ``unscale_`` and ``step`` sees
+    the reference's values; the gradient dtype of the next backward is
+    the reference's, accumulated or after ``clear_grad()``; the step's
+    update is the same."""
+    import paddle_tpu_torch as PT
+    from paddle_tpu.nn.utils import clip_grad_norm_ as jclip
+    from paddle_tpu_torch.framework import device as port_device
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.utils import clip_grad_norm_ as tclip
+
+    rs = np.random.RandomState(11)
+    w = rs.randn(4, 4).astype(np.float32)
+    b = rs.randn(4).astype(np.float32)
+    # a tiny input, a loss times 2^-13 (a normal fp16 value: a scalar
+    # below fp16's range rounds to 0 in the reference's fp16 product) and
+    # a scale of 2^15: the weight's unscaled gradient lies below fp16's
+    # smallest subnormal
+    x = (rs.randn(3, 4) * 2.0 ** -15).astype(np.float32)
+    small = 2.0 ** -13
+    jl = paddle.nn.Linear(4, 4)
+    jl.weight.set_value(w)
+    jl.bias.set_value(b)
+    prev = list(port_device._CURRENT)
+    PT.set_device("cpu")
+    try:
+        tl = Linear(4, 4)
+    finally:
+        port_device._CURRENT[:] = prev
+    with torch.no_grad():
+        tl.weight.copy_(torch.from_numpy(w))
+        tl.bias.copy_(torch.from_numpy(b))
+    jl = jamp.decorate(jl, level="O2", dtype=FP16)
+    tl = tamp.decorate(tl, level="O2", dtype=FP16)
+    jo = jopt.AdamW(learning_rate=LR, parameters=jl.parameters())
+    to = AdamW(learning_rate=LR, parameters=tl.parameters())
+    js, ts = (amp.GradScaler(init_loss_scaling=2.0 ** 15)
+              for amp in (jamp, tamp))
+
+    def backward(amp, layer, scaler, xin):
+        with amp.auto_cast(level="O2", dtype=FP16):
+            loss = layer(xin).sum() * small
+        scaler.scale(loss).backward()
+
+    def grads(layer, torch_side):
+        out = []
+        for p in layer.parameters():
+            g = p.grad
+            out.append(np.asarray(g.numpy() if torch_side
+                                  else g._value).astype(np.float64))
+        return out, [str(p.grad.dtype).split(".")[-1].replace(
+            "paddle_tpu_", "") for p in layer.parameters()]
+
+    backward(jamp, jl, js, paddle.to_tensor(x))
+    backward(tamp, tl, ts, torch.from_numpy(x))
+    js.unscale_(jo)
+    ts.unscale_(to)
+    (jg, jd), (tg, td) = grads(jl, False), grads(tl, True)
+    assert td == ["float32", "float32"], td
+    assert jd == td, (jd, td)
+    for a, c in zip(jg, tg):
+        assert np.array_equal(a, c), (a, c)
+    assert 0 < np.abs(tg[0]).max() < 2.0 ** -24, "not below fp16's range"
+    jn = float(jclip(list(jl.parameters()), 1.0))
+    tn = float(tclip(list(tl.parameters()), 1.0))
+    assert tn > 0 and abs(tn - jn) <= 1e-6 * jn, (jn, tn)
+    # a backward that accumulates onto the unscaled gradients
+    backward(jamp, jl, js, paddle.to_tensor(x))
+    backward(tamp, tl, ts, torch.from_numpy(x))
+    (_, jd), (_, td) = grads(jl, False), grads(tl, True)
+    assert jd == td, ("accumulated", jd, td)
+    js.step(jo)
+    ts.step(to)
+    js.update()
+    ts.update()
+    for p, q in zip(jl.parameters(), tl.parameters()):
+        assert np.array_equal(np.asarray(p._value).view(np.int16),
+                              q.detach().numpy().view(np.int16))
+    jo.clear_grad()
+    to.clear_grad()
+    backward(jamp, jl, js, paddle.to_tensor(x))
+    backward(tamp, tl, ts, torch.from_numpy(x))
+    (_, jd), (_, td) = grads(jl, False), grads(tl, True)
+    assert td == ["float16", "float16"] and jd == td, ("cleared", jd, td)
+    # widened again, then cleared by PyTorch's own idiom (``p.grad =
+    # None``): the scaler puts the gradient dtype back at the next scale()
+    ts.unscale_(to)
+    for p in tl.parameters():
+        p._value.grad = None
+    backward(tamp, tl, ts, torch.from_numpy(x))
+    assert grads(tl, True)[1] == ["float16", "float16"], "set to None"
 
 
 def check_gpt_o1_fp16_step_matches_reference():
@@ -254,5 +359,6 @@ def test_amp_fp16_port_matches_reference(fresh_mesh):
         (check_bert_o2_fp16_steps_match_reference, ()),
         (check_planted_inf_skips_and_halves_on_both_sides, ()),
         (check_unscale_one_read_and_same_bits, ()),
+        (check_unscaled_grads_fp32_as_reference, ()),
         (check_gpt_o1_fp16_step_matches_reference, ()),
     ])

@@ -134,6 +134,7 @@ The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
 """
 import contextlib
+from collections import Counter
 import functools
 import importlib
 from unittest import mock
@@ -167,7 +168,8 @@ from torch_checks import (BF16_LOSS_RTOL, FUSED_HYPER, adam_step_parity,
                           flash_err, flash_fp16_limit, flash_vs_plain,
                           fused_inputs,
                           fused_vs_plain, plant_flash_fault, plant_qmm_fault,
-                          qmm_bf16_limit, qmm_bf16_vs_plain, qmm_vs_plain,
+                          qmm16_vs_plain, qmm_bf16_limit, qmm_bf16_vs_plain,
+                          qmm_vs_plain,
                           quantize_vs_plain, run_checks, same_bits)
 from torch_nn_checks import NN_CASES, dropout_properties, nn_case_vs_cpu
 
@@ -396,7 +398,9 @@ def check_dequant_wrapper_raises(dev):
     with pytest.raises(ValueError, match="is on"):
         table(p, q.cpu())
     with pytest.raises(TypeError, match="bucket dtype"):
-        table(p, q, dtype=torch.float16)
+        table(p, q, dtype=torch.float64)
+    with pytest.raises(TypeError, match="bucket dtype"):
+        table(p.bfloat16(), q, dtype=torch.float16)
     with pytest.raises(ValueError, match="residual.*aligned"):
         table(p[:63], q, res=torch.zeros(64, device=dev)[1:])
     with pytest.raises(TypeError, match="one carrier dtype"):
@@ -414,23 +418,32 @@ def check_dequant_wrapper_raises(dev):
         fu.fused_dequant_update_buckets(table(p, q), lr, 0)
 
 
-def check_bf16_codec_kernels_match_plain(dev, codec_name, n, bs, offset):
-    """A bf16 input read in place, ``offset`` elements into a larger
-    buffer (off the 8-byte grid when offset % 4 != 0): the wire payload
-    and the carrier bit for bit the plain encode's (which lifts to fp32
-    and zero-pads); two ranks' summed carriers decoded to bf16 at world 2
-    and 3, also into an output off the grid, bit for bit the plain
-    decode's; each launch counted under its dtype."""
+def check_bf16_codec_kernels_match_plain(dev, codec_name, n, bs, offset,
+                                         dtype=torch.bfloat16):
+    """A bf16 (or ``dtype``: fp16) input read in place, ``offset``
+    elements into a larger buffer (off the 8-byte grid when offset % 4 !=
+    0): the wire payload and the carrier bit for bit the plain encode's
+    (which lifts to fp32 and zero-pads); two ranks' summed carriers
+    decoded to ``dtype`` at world 2 and 3, also into an output off the
+    grid, bit for bit the plain decode's; each launch counted under its
+    dtype. An fp16 input holds subnormals (a block of 1e-7 .. 6e-5) and
+    values near 65,504, whose decode keeps the subnormals and may round
+    to inf."""
     rs = np.random.RandomState(n + offset)
-    base = torch.from_numpy(rs.randn(n + offset).astype(np.float32) * 4)
-    base = base.to(torch.bfloat16)
+    vals = rs.randn(n + offset) * 4
+    if dtype == torch.float16:
+        k = min(bs, n + offset)
+        vals[:k] = rs.choice([-1, 1], k) * np.exp(
+            rs.uniform(np.log(1e-7), np.log(6e-5), k))
+        vals[k:k + 4] = [65504.0, -65504.0, 65488.0, 6e4][:len(vals[k:k + 4])]
+    base = torch.from_numpy(vals.astype(np.float32)).to(dtype)
     x, xd = base[offset:], base.to(dev)[offset:]
-    y = (x.float() * 0.5).to(torch.bfloat16)
+    y = (x.float() * 0.5).to(dtype)
     s = plain.block_scales(plain.block_absmax(x, bs)
                            + plain.block_absmax(y, bs), codec_name)
     before = codec.launch_counts()
-    enc_b = codec.block_encode.dtypes[torch.bfloat16]
-    dec_b = codec.block_decode.dtypes[torch.bfloat16]
+    enc_b = codec.block_encode.dtypes[dtype]
+    dec_b = codec.block_decode.dtypes[dtype]
     sd = s.to(dev)
     for carrier in (False, True):
         q = codec.block_encode(xd, sd, bs, codec_name, carrier=carrier)
@@ -445,23 +458,21 @@ def check_bf16_codec_kernels_match_plain(dev, codec_name, n, bs, offset):
     assert torch.equal(total.cpu().view(torch.int32),
                        total_ref.view(torch.int32))
     for world in (2, 3):
-        d = codec.block_decode(total, sd, world, n, dtype=torch.bfloat16)
-        d_ref = plain.block_decode(total_ref, s, world, n,
-                                   dtype=torch.bfloat16)
-        assert d.dtype == torch.bfloat16 and d.shape == (n,)
+        d = codec.block_decode(total, sd, world, n, dtype=dtype)
+        d_ref = plain.block_decode(total_ref, s, world, n, dtype=dtype)
+        assert d.dtype == dtype and d.shape == (n,)
         assert torch.equal(d.cpu().view(torch.int16),
                            d_ref.view(torch.int16))
-    out = torch.empty(n + 1, dtype=torch.bfloat16, device=dev)
-    out[1:] = codec.block_decode(total, sd, 2, n, dtype=torch.bfloat16)
+    out = torch.empty(n + 1, dtype=dtype, device=dev)
+    out[1:] = codec.block_decode(total, sd, 2, n, dtype=dtype)
     assert torch.equal(out[1:].cpu().view(torch.int16),
-                       plain.block_decode(total_ref, s, 2, n,
-                                          dtype=torch.bfloat16)
+                       plain.block_decode(total_ref, s, 2, n, dtype=dtype)
                        .view(torch.int16))
     assert codec.launch_counts() == {
         "codec_encode": before["codec_encode"] + 3,
         "codec_decode": before["codec_decode"] + 3}
-    assert codec.block_encode.dtypes[torch.bfloat16] == enc_b + 3
-    assert codec.block_decode.dtypes[torch.bfloat16] == dec_b + 3
+    assert codec.block_encode.dtypes[dtype] == enc_b + 3
+    assert codec.block_decode.dtypes[dtype] == dec_b + 3
 
 
 def check_pool_on_card_matches_pool_on_cpu(dev, codec_name):
@@ -935,50 +946,58 @@ def check_quant_wrappers_raise(dev):
         qm.quant_matmul(x, q.cpu(), s)
     with pytest.raises(TypeError):
         qm.quant_matmul(x, q, s, out_dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="other dtypes"):
-        qm.quant_matmul(x.half(), q, s)
-    with pytest.raises(TypeError):
-        qm.quant_matmul(x.bfloat16(), q, s, out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="float16"):
+        qm.quant_matmul(x.half(), q, s, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        qm.quant_matmul(x.double(), q, s)
 
 
-def check_quant_matmul_bf16_within_bound(dev, m, k, n, offset=0):
-    """The bf16 form: bf16 out within ``qmm_bf16_limit`` of its plain
-    version, one launch counted under the bf16 form, its shape and its
-    route ("cluster" for m <= 64, "wgmma" for m > 64 where TMA takes both
-    operands, else "mma_sync"); ``x`` starts ``offset`` bf16 past a
-    16-byte boundary. Returns the operands."""
+def check_quant_matmul_bf16_within_bound(dev, m, k, n, offset=0,
+                                         dtype=torch.bfloat16,
+                                         out_dtype=None):
+    """The bf16 form (or ``dtype``'s: fp16), x's dtype out (or
+    ``out_dtype``: fp32 from the same accumulator) within
+    ``torch_checks.qmm16_vs_plain``'s limit of its plain version, one
+    launch counted under the form, its shape and its route ("cluster" for
+    m <= 64, "wgmma" for m > 64 where TMA takes both operands, else
+    "mma_sync"); ``x`` starts ``offset`` elements past a 16-byte
+    boundary. Returns the operands."""
+    sfx = {torch.bfloat16: "_bf16", torch.float16: "_fp16"}[dtype]
     gen = torch.Generator(device=dev)
     gen.manual_seed(m * k + n + 1)
-    buf = torch.randn(m * k + offset, device=dev, generator=gen).bfloat16()
+    buf = torch.randn(m * k + offset, device=dev, generator=gen).to(dtype)
     x = buf[offset:].view(m, k)
     q, s = qm.quantize_int8_plain(torch.randn(k, n, device=dev,
                                               generator=gen))
     route = ("cluster" if m <= 64 else
              "wgmma" if n % 16 == 0 and k % 8 == 0 and offset % 8 == 0
              else "mma_sync")
-    assert qm.bf16_route(x, q) == route
+    assert qm.route16(x, q) == route
     before, shapes = qm.launch_counts(), qm.shape_counts()
-    routes = qm.route_counts()
-    qmm_bf16_vs_plain(x, q, s)
+    routes = qm.route_counts(dtype)
+    qmm16_vs_plain(x, q, s, out_dtype)
     after = qm.launch_counts()
     assert {k_: after[k_] - before[k_] for k_ in after} == {
-        "quantize_int8": 0, "quant_matmul": 0, "quant_matmul_bf16": 1}
-    assert (qm.shape_counts()["quant_matmul_bf16"][(m, k, n)]
-            == shapes["quant_matmul_bf16"][(m, k, n)] + 1)
-    assert qm.route_counts() - routes == {route: 1}
+        "quantize_int8": 0, "quant_matmul": 0, "quant_matmul_bf16": 0,
+        "quant_matmul_fp16": 0, "quant_matmul" + sfx: 1}
+    assert (qm.shape_counts()["quant_matmul" + sfx][(m, k, n)]
+            == shapes["quant_matmul" + sfx][(m, k, n)] + 1)
+    assert qm.route_counts(dtype) - routes == {route: 1}
     return x, q, s
 
 
-def check_quant_matmul_bf16_cluster(dev, m, k, n, offset=0):
+def check_quant_matmul_bf16_cluster(dev, m, k, n, offset=0,
+                                    dtype=torch.bfloat16):
     """The cluster route (m <= 64): the checks above, then a second run
     bit-identical to the first (the rank-ordered reduction)."""
-    x, q, s = check_quant_matmul_bf16_within_bound(dev, m, k, n, offset)
+    x, q, s = check_quant_matmul_bf16_within_bound(dev, m, k, n, offset,
+                                                   dtype)
     a, b = qm.quant_matmul(x, q, s), qm.quant_matmul(x, q, s)
     assert torch.equal(a, b), f"({m}, {k}, {n}): two runs differ"
 
 
 def check_bf16_route_switches_at_m_64(dev):
-    """``bf16_route`` on card tensors: the cluster route up to m = 64,
+    """``route16`` on card tensors: the cluster route up to m = 64,
     then wgmma where TMA takes both operands, else mma.sync."""
     q = torch.zeros(768, 768, dtype=torch.int8, device=dev)
     head = torch.zeros(768, 2, dtype=torch.int8, device=dev)
@@ -986,7 +1005,7 @@ def check_bf16_route_switches_at_m_64(dev):
                        (64, head, "cluster"), (65, head, "mma_sync"),
                        (1, q, "cluster")):
         x = torch.zeros(m, 768, dtype=torch.bfloat16, device=dev)
-        assert qm.bf16_route(x, w) == want, (m, w.shape, want)
+        assert qm.route16(x, w) == want, (m, w.shape, want)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1094,8 +1113,7 @@ def check_bert_int8_amp_on_card(dev, b=2, s=32):
     launches of the bf16 form, all on the cluster route (b s <= 64), and
     6 of the fp32 one (the reference's pattern), 2 of
     ``flash_fwd_bf16``; MLM logits bf16 within 1e-2 mean relative error
-    of the CPU's (flash route), NSP logits fp32; ``auto_cast`` in
-    float16 reaches a kernel that refuses it, naming "other dtypes"."""
+    of the CPU's (flash route), NSP logits fp32."""
     from paddle_tpu_torch.amp import auto_cast
     from paddle_tpu_torch.nn.functional import flash_route
 
@@ -1113,9 +1131,6 @@ def check_bert_int8_amp_on_card(dev, b=2, s=32):
         card_routes = qm.route_counts() - routes
         with flash_route():
             want, want_nsp = cpu(ids)
-        with auto_cast(level="O2", dtype="float16"), \
-                pytest.raises(TypeError, match="other dtypes"):
-            card(ids)
     assert {k: after[k] - before[k] for k in
             ("quant_matmul", "quant_matmul_bf16", "flash_fwd",
              "flash_fwd_bf16")} == {"quant_matmul": 6,
@@ -1127,6 +1142,46 @@ def check_bert_int8_amp_on_card(dev, b=2, s=32):
                 / want.float().abs().mean())
     assert rel <= 1e-2, rel
     assert float((nsp.cpu() - want_nsp).abs().max()) <= 5e-2
+
+
+def check_bert_int8_amp_fp16_on_card(dev, b=2, s=32):
+    """An int8 bert-test forward decorated and run under O2 in float16 on
+    the card at b x s tokens: 9 launches of the fp16 form (on the cluster
+    route at b s <= 64, else wgmma, the pooler and the NSP head on the
+    cluster route), 6 of the fp32 one, 2 of ``flash_fwd_fp16``; MLM and
+    NSP logits fp16 within 1e-2 mean relative error of the CPU's (flash
+    route)."""
+    from paddle_tpu_torch.amp import auto_cast, decorate
+    from paddle_tpu_torch.nn.functional import flash_route
+
+    rs = np.random.RandomState(2)
+    ids = rs.randint(0, 256, (b, s))
+    card, cpu = (decorate(_bert(d), level="O2", dtype="float16")
+                 for d in (dev, "cpu"))
+    convert_to_int8(card)
+    convert_to_int8(cpu)
+    routes = qm.route_counts(torch.float16)
+    before = {**qm.launch_counts(), **fa.launch_counts()}
+    with torch.inference_mode(), auto_cast(level="O2", dtype="float16"):
+        logits, nsp = card(ids)
+        torch.cuda.synchronize()
+        after = {**qm.launch_counts(), **fa.launch_counts()}
+        card_routes = qm.route_counts(torch.float16) - routes
+        with flash_route():
+            want, want_nsp = cpu(ids)
+    assert {k: after[k] - before[k] for k in
+            ("quant_matmul", "quant_matmul_bf16", "quant_matmul_fp16",
+             "flash_fwd_bf16", "flash_fwd_fp16")} == {
+        "quant_matmul": 6, "quant_matmul_bf16": 0, "quant_matmul_fp16": 9,
+        "flash_fwd_bf16": 0, "flash_fwd_fp16": 2}
+    big = "cluster" if b * s <= 64 else "wgmma"
+    assert card_routes == Counter({big: 7}) + Counter({"cluster": 2}), \
+        card_routes
+    assert logits.dtype == nsp.dtype == torch.float16
+    for got, ref in ((logits, want), (nsp, want_nsp)):
+        rel = float((got.cpu().float() - ref.float()).abs().mean()
+                    / ref.float().abs().mean())
+        assert rel <= 1e-2, rel
 
 
 def _bert(device):
@@ -1399,7 +1454,7 @@ def check_eager_step_refuses_on_card(dev):
     from paddle_tpu_torch import optimizer as popt
 
     (p,) = _eager_params(dev, [(8, torch.float64)], 2)
-    with pytest.raises(NotImplementedError, match="other dtypes"):
+    with pytest.raises(NotImplementedError, match="no form of the update"):
         popt.Adam(parameters=[p]).step()
 
     class Plain(popt.Optimizer):
@@ -1640,6 +1695,29 @@ def test_cuda_path_matches_plain(dev):
         + [(check_quant_matmul_bf16_cluster, (dev, m, k, n, off))
            for m, k, n, off in ((64, 4104, 768, 0), (5, 9000, 20, 3))]
         + [(check_bf16_route_switches_at_m_64, (dev,))]
+        # fp16 x: the three routes at BERT's shapes and off their tiles,
+        # x off the 16-byte grid, the cluster route's slot counts; and
+        # fp32 out from 16-bit x on each route
+        + [(check_quant_matmul_bf16_within_bound,
+            (dev, m, k, n, 0, torch.float16))
+           for m, k, n in ((1, 1, 1), (16, 768, 2), (257, 300, 130),
+                           (8192, 768, 768), (8192, 3072, 768),
+                           (8192, 768, 3072), (65, 8, 16), (1000, 776, 208),
+                           (300, 100, 64), (8192, 768, 2), (100, 37, 64))]
+        + [(check_quant_matmul_bf16_within_bound,
+            (dev, m, k, n, off, torch.float16))
+           for m, k, n in ((300, 768, 768), (8192, 768, 768))
+           for off in (1, 4)]
+        + [(check_quant_matmul_bf16_cluster, (dev, m, k, n, off,
+                                              torch.float16))
+           for m in (1, 8, 9, 16, 17, 33, 64)
+           for k, n, off in ((768, 768, 0), (3072, 768, 0), (768, 2, 0),
+                             (100, 37, 1))]
+        + [(check_quant_matmul_bf16_within_bound,
+            (dev, m, k, n, 0, dt, torch.float32))
+           for dt in (torch.bfloat16, torch.float16)
+           for m, k, n in ((16, 768, 768), (8192, 768, 768),
+                           (300, 100, 64), (33, 100, 37))]
         + [(check_qmm_bf16_check_sees_a_planted_fault, (dev, m, k, n))
            for m, k, n in ((8192, 768, 768), (8192, 3072, 768),
                            (16, 768, 768), (64, 3072, 768))]
@@ -1647,6 +1725,8 @@ def test_cuda_path_matches_plain(dev):
            (check_bert_int8_on_card_matches_cpu, (dev,)),
            (check_bert_int8_amp_on_card, (dev,)),
            (check_bert_int8_amp_on_card, (dev, 1, 16)),
+           (check_bert_int8_amp_fp16_on_card, (dev,)),
+           (check_bert_int8_amp_fp16_on_card, (dev, 4, 32)),
            (check_bert_amp_step_on_card_matches_cpu, (dev,))]
         + [(check_carrier_kernels_match_plain, (dev, c, n, bs))
            for c in CODECS for n, bs in CASES]
@@ -1656,6 +1736,10 @@ def test_cuda_path_matches_plain(dev):
            for r in (False, True)]
         + [(check_dequant_update_bit_identical,
             (dev, c, k, n, bs, r, torch.bfloat16))
+           for c in CODECS for k in ("sgd", "momentum", "adamw")
+           for n, bs in ((4999, 96), (100003, 1024)) for r in (False, True)]
+        + [(check_dequant_update_bit_identical,
+            (dev, c, k, n, bs, r, torch.float16))
            for c in CODECS for k in ("sgd", "momentum", "adamw")
            for n, bs in ((4999, 96), (100003, 1024)) for r in (False, True)]
         + [(check_dequant_buckets_bit_identical,
@@ -1668,13 +1752,25 @@ def test_cuda_path_matches_plain(dev):
                ((1, 4097, 100003, 5, 64, 3, 9, 17),
                 ((torch.bfloat16, torch.bfloat16),
                  (torch.float32, torch.float32),
+                 (torch.float32, torch.bfloat16)), 96),
+               # fp16: GPT-125M's fp16 plan; fp16 buckets over fp16 and
+               # fp32 parameters beside the other dtypes in one table
+               (_gpt125m_bf16_plan("float16")[0],
+                list(zip(_gpt125m_bf16_plan("float16")[1],
+                         _gpt125m_bf16_plan("float16")[1])), 1024),
+               ((1, 4097, 100003, 5, 64, 3, 9, 17, 8, 33),
+                ((torch.float16, torch.float16),
+                 (torch.float32, torch.float16),
+                 (torch.bfloat16, torch.bfloat16),
+                 (torch.float32, torch.float32),
                  (torch.float32, torch.bfloat16)), 96))
            for r in (False, True)]
-        + [(check_bf16_codec_kernels_match_plain, (dev, c, n, bs, off))
+        + [(check_bf16_codec_kernels_match_plain, (dev, c, n, bs, off, dt))
            for c in CODECS
            for n, bs, off in ((5000, 1024, 0), (1_000_003, 1024, 1),
                               (4_725_505, 1024, 3), (777, 128, 2),
-                              (1, 1024, 0), (1001, 100, 0))]
+                              (1, 1024, 0), (1001, 100, 0))
+           for dt in (torch.bfloat16, torch.float16)]
         + [(check_eager_api_on_card, (dev,))]
         + [(check_eager_step_on_card, (dev, k))
            for k in ("sgd", "momentum", "adam", "adamw")]

@@ -265,7 +265,7 @@ def check_wrapper_checks():
     with pytest.raises(TypeError, match="bucket dtype"):
         tfu.fused_dequant_update_flat(p, q, scales, 2, {}, torch.tensor(1.0),
                                       kind="sgd", hyper={}, block_size=4,
-                                      bucket_dtype=torch.float16)
+                                      bucket_dtype=torch.float64)
     before = tfu.dequant_launch_counts()
     tfu.fused_dequant_update_flat(p, q, scales, 2, {}, torch.tensor(1.0),
                                   kind="sgd", hyper={}, block_size=4)

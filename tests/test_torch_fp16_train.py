@@ -353,15 +353,21 @@ def check_fused_update_matches_reference(kind, wd, zero_moments):
             assert err <= bound, f"{what}: {k} vs Pallas interpret {err}"
 
 
-def check_fp16_refused_on_the_wire():
-    """The dequantizing update over fp16 buckets is Queue A 6.4: its
-    table refuses fp16 parameters, naming the item."""
+def check_fp16_on_the_wire():
+    """The dequantizing update takes fp16 buckets (Queue A 6.4, ported
+    since; ``tests/test_torch_fp16_wire.py`` holds them against the
+    reference): a table of fp16 parameters is built with the fp16 dtype
+    word, and a bucket dtype of the other 16-bit type is refused."""
     p = torch.zeros(8, dtype=torch.float16)
     q = torch.zeros(8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="6.4"):
+    t = tfu.BucketTable("sgd", {}, [
+        (p, tfu.WirePayload(q, torch.ones(2)), [], 0.0, 1.0)],
+        block_size=4)
+    assert int(t.words[0, 0, 9]) == tfu.BUCKET_DTYPES[torch.float16][0]
+    with pytest.raises(TypeError, match="bucket dtype"):
         tfu.BucketTable("sgd", {}, [
-            (p, tfu.WirePayload(q, torch.ones(2)), [], 0.0, 1.0)],
-            block_size=4)
+            (p, tfu.WirePayload(q, torch.ones(2), None, torch.bfloat16), [],
+             0.0, 1.0)], block_size=4)
 
 
 # ------------------------------------------------------------------ forward
@@ -453,7 +459,7 @@ def test_fp16_train_port_matches_reference(fresh_mesh):
         *((check_fused_update_matches_reference, (kind, wd, zero))
           for kind in ("sgd", "momentum", "adam", "adamw")
           for wd in (0.0, 0.01) for zero in (True, False)),
-        (check_fp16_refused_on_the_wire, ()),
+        (check_fp16_on_the_wire, ()),
         (check_forward_and_loss_match_jax, ()),
         (check_train_steps_match_jax, ()),
         (check_gemm_settings_are_the_models, ("float16",)),

@@ -19,7 +19,7 @@ Pallas kernels in interpret mode (as ``tests/test_quant_matmul.py`` does).
   bf16 ``x`` at m = 1, 16 and 64 (the cluster route's sizes on the card)
   ``quant_matmul`` returns ``quant_matmul_plain``'s result bit for bit,
   counting no launch and no route.
-- ``bf16_route`` at the m = 64 / 65 boundary, on CPU tensors (it reads
+- ``route16`` at the m = 64 / 65 boundary, on CPU tensors (it reads
   shapes and addresses only): "cluster" up to 64, then "wgmma" where
   TMA takes both operands, else "mma_sync" (n = 2, k % 8 != 0, an x off
   the 16-byte grid).
@@ -168,14 +168,14 @@ def check_bf16_route_at_m_64():
                        (65, head, "mma_sync"), (64, ragged, "cluster"),
                        (65, ragged, "mma_sync")):
         x = torch.zeros(m, w.shape[0], dtype=torch.bfloat16)
-        assert tqm.bf16_route(x, w) == want, (m, tuple(w.shape), want)
+        assert tqm.route16(x, w) == want, (m, tuple(w.shape), want)
     buf = torch.zeros(65 * 768 + 8, dtype=torch.bfloat16)
     assert buf.data_ptr() % 16 == 0    # PyTorch's CPU allocator: 64 bytes
     for off, want in ((0, "wgmma"), (1, "mma_sync"), (4, "mma_sync"),
                       (8, "wgmma")):
         x = buf[off:off + 65 * 768].view(65, 768)
-        assert tqm.bf16_route(x, q) == want, off
-        assert tqm.bf16_route(x[:64], q) == "cluster", off
+        assert tqm.route16(x, q) == want, off
+        assert tqm.route16(x[:64], q) == "cluster", off
 
 
 def _nets(seed):

@@ -427,6 +427,46 @@ def qmm_bf16_limit(x, qw, scales, plain) -> torch.Tensor:
     return qmm_limit(x, qw, scales) + bf16_ulp(plain).double()
 
 
+def qmm_fp16_limit(x, qw, scales, plain) -> torch.Tensor:
+    """Elementwise limit for ``quant_matmul`` on fp16 ``x`` against its
+    plain version ``plain`` (fp16): :func:`qmm_limit` plus one fp16 ulp
+    of the plain element, in float64."""
+    return qmm_limit(x, qw, scales) + fp16_ulp(plain).double()
+
+
+def qmm16_vs_plain(x, qw, scales, out_dtype=None):
+    """``quant_matmul`` on 16-bit ``x`` (the ``quant_matmul_16`` kernels)
+    against its plain version on the same operands, the output in
+    ``out_dtype`` (None: x's dtype; fp32 from the same accumulator).
+    Returns ``(max abs diff, largest diff / limit)``; raises when the
+    output's dtype or shape is not the plain one's or an element is over
+    its limit: :func:`qmm_bf16_limit` or :func:`qmm_fp16_limit` for a
+    16-bit output, :func:`qmm_limit` for fp32. An element that both
+    round to the same infinity (fp16 past 65,504) counts as equal."""
+    out = qm.quant_matmul(x, qw, scales, out_dtype=out_dtype)
+    ref = qm.quant_matmul_plain(x, qw, scales, out_dtype=out_dtype)
+    if out.dtype != ref.dtype or out.shape != ref.shape:
+        raise AssertionError(f"quant_matmul on {x.dtype} x gave "
+                             f"{tuple(out.shape)} {out.dtype}, plain "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+    same = out == ref
+    diff = torch.where(same, 0.0, (out.double() - ref.double()).abs())
+    if ref.dtype == torch.float32:
+        limit = qmm_limit(x, qw, scales)
+    elif ref.dtype == torch.float16:
+        limit = qmm_fp16_limit(x, qw, scales, ref)
+    else:
+        limit = qmm_bf16_limit(x, qw, scales, ref)
+    limit = limit.clamp_min(1e-300)
+    ratio = float((diff / limit).max())
+    if not bool((diff <= limit).all()):
+        raise AssertionError(
+            f"quant_matmul {x.dtype} {list(x.shape)} @ {list(qw.shape)} -> "
+            f"{ref.dtype}: {int((diff > limit).sum())} elements over the "
+            f"limit (max diff / limit {ratio:.3f})")
+    return float(diff.max()), ratio
+
+
 def qmm_bf16_vs_plain(x, qw, scales):
     """``quant_matmul`` on bf16 ``x`` (the ``quant_matmul_bf16`` kernel)
     against its plain version on the same operands. Returns ``(max abs

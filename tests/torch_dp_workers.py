@@ -1,6 +1,7 @@
 """Rank workers for the port's data-parallel tests on the CPU
 (``tests/test_torch_grad_comm.py``, ``tests/test_torch_dp_train.py``,
-``tests/test_torch_bf16_dp.py``, ``tests/test_torch_train_options.py``).
+``tests/test_torch_bf16_dp.py``, ``tests/test_torch_fp16_wire.py``,
+``tests/test_torch_train_options.py``).
 
 ``paddle_tpu_torch.distributed.spawn`` starts each rank in a fresh
 process that imports the worker's module, so the workers live here, in a
@@ -25,10 +26,10 @@ from paddle_tpu_torch.optimizer import AdamW
 
 
 def _np(t):
-    """A tensor as numpy, a bf16 one as its fp32 values (exact: numpy has
-    no bf16)."""
+    """A tensor as numpy, a 16-bit one as its fp32 values (exact: numpy
+    has no bf16)."""
     t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
+    if t.dtype in (torch.bfloat16, torch.float16):
         t = t.to(torch.float32)
     return t.numpy().copy()
 
@@ -90,11 +91,11 @@ def gpt_test(params):
     return m
 
 
-def gpt_test_bf16(bits):
-    """``gpt-test`` in bf16 on the reference's weights, given as their
-    bits (int16 for a bf16 array, fp32 values for the final norm): the
-    workers import no bf16 numpy type."""
-    m = GPTForCausalLM(gpt_presets("gpt-test", dtype="bfloat16"), seed=0,
+def gpt_test_bf16(bits, dtype="bfloat16"):
+    """``gpt-test`` in bf16 (or ``dtype``, fp16) on the reference's
+    weights, given as their bits (int16 for a 16-bit array, fp32 values
+    for the final norm): the workers import no bf16 numpy type."""
+    m = GPTForCausalLM(gpt_presets("gpt-test", dtype=dtype), seed=0,
                        device="cpu")
     with torch.no_grad():
         for name, p in m.named_parameters():
@@ -202,6 +203,18 @@ def bf16_dp_cases(gpt_bits, ids, labels, mlp_w, X, Y):
     out["dp"] = data_parallel_grads(mlp_w, X, Y, MLP_BLOCK, 2,
                                     torch.bfloat16)
     return out
+
+
+def fp16_dp_cases(gpt_bits, ids, labels):
+    """Every world-2 run of ``test_torch_fp16_wire.py`` on this rank: fp16
+    ``gpt-test`` on the int8_block wire for two steps, with error
+    feedback and without."""
+    _join()
+    return {name: _train(gpt_test_bf16(gpt_bits, "float16"),
+                         GPTPretrainingCriterion(), 1e-3,
+                         GradCommConfig("int8_block", error_feedback=ef),
+                         (ids,), (labels,), 2)
+            for name, ef in (("ef", True), ("no_ef", False))}
 
 
 def clip_dp_case(gpt_params, ids, labels):

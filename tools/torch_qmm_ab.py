@@ -153,10 +153,10 @@ SS_LOOP = r"""    unsigned char* abase = ring + ST * T::kStage;
         const uint4 v = *reinterpret_cast<const uint4*>(
             qb + kr * 64 + 16 * (c ^ ((kr >> 1) & 3)));
         uint4 ev, od;
-        widen_int8x4(v.x, ev.x, od.x);
-        widen_int8x4(v.y, ev.y, od.y);
-        widen_int8x4(v.z, ev.z, od.z);
-        widen_int8x4(v.w, ev.w, od.w);
+        widen_int8x4<E>(v.x, ev.x, od.x);
+        widen_int8x4<E>(v.y, ev.y, od.y);
+        widen_int8x4<E>(v.z, ev.z, od.z);
+        widen_int8x4<E>(v.w, ev.w, od.w);
         unsigned char* row = ab + kr * 128;
         *reinterpret_cast<uint4*>(row + 16 * ((2 * c) ^ (kr & 7))) = ev;
         *reinterpret_cast<uint4*>(row + 16 * ((2 * c + 1) ^ (kr & 7))) = od;
@@ -222,19 +222,19 @@ PATCHES = {
     "only_load": (
         ("      ldmatrix_x4_trans(v,",
          "      if (kt < 0) ldmatrix_x4_trans(v,"),
-        ("        wgmma_rs_n192_k(acc[0]",
+        ("        wgmma_rs_n192_k<E>(acc[0]",
          "        if (kt < 0) wgmma_rs_n192_k(acc[0]"),
-        ("          wgmma_rs_n128_k(acc[p]",
+        ("          wgmma_rs_n128_k<E>(acc[p]",
          "          if (kt < 0) wgmma_rs_n128_k(acc[p]")),
 }
 # the products alone: only_mma with constant A fragments (no ldmatrix,
 # no widening)
 PURE = (("      ldmatrix_x4_trans(v, qs + r * 64 + 16 * (warp ^ ((r >> 1) & "
          "3)));\n"
-         "      widen_int8x4(v[0], a[2 * h][0], a[2 * h][1]);\n"
-         "      widen_int8x4(v[1], a[2 * h][2], a[2 * h][3]);\n"
-         "      widen_int8x4(v[2], a[2 * h + 1][0], a[2 * h + 1][1]);\n"
-         "      widen_int8x4(v[3], a[2 * h + 1][2], a[2 * h + 1][3]);\n",
+         "      widen_int8x4<E>(v[0], a[2 * h][0], a[2 * h][1]);\n"
+         "      widen_int8x4<E>(v[1], a[2 * h][2], a[2 * h][3]);\n"
+         "      widen_int8x4<E>(v[2], a[2 * h + 1][0], a[2 * h + 1][1]);\n"
+         "      widen_int8x4<E>(v[3], a[2 * h + 1][2], a[2 * h + 1][3]);\n",
          "      for (int i = 0; i < 4; ++i) {\n"
          "        a[2 * h][i] = qs ^ (lane * 8 + i);\n"
          "        a[2 * h + 1][i] = qs ^ (lane * 8 + 4 + i);\n"
@@ -252,8 +252,8 @@ PATCHES.update({
                     "#pragma unroll 4\n    for (int s = kw;"),),
     "c_only_load": (("    for (int s = kw; s < steps; s += kws) {",
                      "    for (int s = kw; s < steps && k < 0; s += kws) {"),),
-    "c_no_load": (("    cluster_load<NT, XV, QV>(xs, qs,",
-                   "    if (k < 0) cluster_load<NT, XV, QV>(xs, qs,"),),
+    "c_no_load": (("    cluster_load<E, NT, XV, QV>(xs, qs,",
+                   "    if (k < 0) cluster_load<E, NT, XV, QV>(xs, qs,"),),
     "c_empty": (("  __shared__ float tile_scales[64];\n",
                  "  __shared__ float tile_scales[64];\n  if (k > 0) return;\n"),),
     "c_no_barrier": (
