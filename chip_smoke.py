@@ -174,7 +174,7 @@ when every phase passed):
               across the ranks; the ranks' parameters identical at the
               end; the wire bytes the plan's;
  15. dp-parity
-              the same at GPT-125M width with 2 layers, global batch
+              the same at GPT-125M width with 1 layer, global batch
               4 x 128, two steps, world 2 on the card against world 2 on
               the CPU: losses within 1e-4 relative; the parameters by
               tests/torch_checks.py dp_step_parity (local gradients within
@@ -239,7 +239,7 @@ when every phase passed):
               fused_update launch a round): launch counts, losses
               finite, replicas identical;
  20. dp-parity bf16
-              the bf16 model at GPT-125M width with 2 layers, world 2,
+              the bf16 model at GPT-125M width with 1 layer, world 2,
               global batch 4 x 128, two steps; on the card each step
               replayed on the CPU from the card's own local gradients,
               parameters, moments, beta powers and residuals, through the
@@ -690,7 +690,7 @@ when every phase passed):
               rounds (9 encodes from fp16, 18 decodes into fp16 a rank),
               the ranks bit-identical, rank 0's idle share over one more
               step, beside phase 45's fp16 step and phase 19's bf16 dp
-              step; then phase 20's 2-layer check on the fp16 model;
+              step; then phase 20's 1-layer check on the fp16 model;
  50. int8 fp16  BERT-base decorated at O2 in fp16, converted to int8, run
               under auto_cast(level="O2", dtype="float16") at 16 x 512 and
               1 x 64: 29 fp16 quant_matmul launches a forward (27 wgmma
@@ -700,6 +700,36 @@ when every phase passed):
               out on each route against quant_matmul_plain
               (torch_checks.qmm16_vs_plain); the logits card against CPU
               at 2 layers.
+ 51. zero-2     GPT-125M fp32 through
+              sharding.group_sharded_parallel("os_g", overlap_comm=True,
+              fuse_update=True): 2 ranks of 4 x 1024 on the card (gloo),
+              each step forward, backward (the overlapped communicator's
+              hooks launch each bucket's reduce_scatter -> all_gather),
+              the flush, step_sharded. int8_block: 1 + 3 steps, then one
+              step with every all_reduce / reduce_scatter / all_gather
+              timed and one whose shard-table launch is held bit for bit
+              against its plain walk on clones; launches a step a rank
+              (18 encodes, 18 decodes, one fused_update_buckets over the
+              shard table, 18 all_gathers in the update, no dequantizing
+              update), comm_stats against comm_plan, the ranks' parameters
+              bit-identical, peak and at-rest memory, the shard slots'
+              bytes beside phase 14's replicated run and its AdamW slots;
+              the fp32 wire 2 steps; the shard table timed beside its
+              bound at the shard's bytes and torch._fused_adamw_;
+ 52. zero-3     phase 51 at "p_g_os": the parameters sharded at rest
+              (the tied word table declared for the LM head), gathered a
+              bucket ahead on the store's lane: the losses of both wires
+              bit-identical to phase 51's, no all_gather in the update,
+              at-rest parameter bytes half of phase 51's, gathers by mode
+              and the exposed gather seconds;
+ 53. zero wire  traced_reduce_scatter_quantized at the word table's
+              bucket (38,633,472 elements) and a ragged one, 2 ranks:
+              full, shard and residual bit for bit against the same
+              function on the plain codecs on the card, each timed
+              after a warm run of both forms; the overlapped
+              reduce_scatter sync bit-identical to the serial
+              one over 2 backward passes of GPT-125M at 2 layers
+              (int8_block, the residual carried), its overlap efficiency.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -2727,6 +2757,7 @@ DP_WORLD = 2
 DP_RANK_TIMEOUT = 480               # seconds for a spawned phase's ranks
 DP_BLOCK = 1024                     # GradCommConfig's default block_size
 DP16_STEPS = 5                      # timed steps of the 16-bit dp phases
+DP_REPLAY_LAYERS = 1                # depth of the card-vs-CPU dp replays
 SFX16 = {"bfloat16": "_bf16", "float16": "_fp16"}   # counters' suffixes
 
 
@@ -3435,7 +3466,7 @@ def dp_parity_rank(seed, b, s, layers, device):
     return result
 
 
-def phase_dp_parity(seed, layers=2, b=2, s=128):
+def phase_dp_parity(seed, layers=DP_REPLAY_LAYERS, b=2, s=128):
     """World 2 on the card against world 2 on the CPU, GPT-125M width
     with ``layers`` layers, global batch 2b x s, two int8_block steps:
     losses within 1e-4 relative, parameters by ``dp_step_parity``."""
@@ -3574,7 +3605,8 @@ def dp_parity_bf16_rank(cfg, seed, b, s, layers, device):
             "elements": sum(bk.size for bk in step.buckets)}
 
 
-def phase_dp_parity_bf16(cfg, seed, layers=2, b=2, s=128):
+def phase_dp_parity_bf16(cfg, seed, layers=DP_REPLAY_LAYERS, b=2,
+                         s=128):
     """The bf16 model (``cfg``) at ``layers`` layers, world 2, global
     batch 2b x s, two int8_block steps: on the card each step replayed on
     the CPU from the card's own local gradients and state, parameters,
@@ -4547,7 +4579,8 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
                  conversion, infer_counts, dp_row, carrier_rows, dp_rank,
                  bf16_rows, bf16_counts, dp16, ce_rows, ce_counts, bert_run,
                  resnet_run, widedeep_run, lenet_run, flash_entry,
-                 mobilenet_run, ptb_run, gcn_run, fp16_run, wire16_run):
+                 mobilenet_run, ptb_run, gcn_run, fp16_run, wire16_run,
+                 zero_run):
     """One entry per kernel at the shape behind most of its launches on
     its path: the codecs at the int8 decode-step append (8 x EPT, with
     the serve phase's launches), the flash kernels and fused_update at
@@ -4777,7 +4810,23 @@ def kernels_line(rows, counts, train_rows, train_counts, infer_rows,
     pair = k16["rows"][PAIR]
     next(e for e in out if e["name"] == "flash_dkv_fp16").update(
         pair_ms=pair["ms"], library_ms=pair["library_ms"])
+    zero_entries(by_name, zero_run)
     return {"kernels": out + wire16_entries(wire16_run)}
+
+
+def zero_entries(by_name, zero_run) -> None:
+    """Phases 51-53 on the kernels line: the codecs' and the shard
+    table's launches there (``launches_zero``, by phase, rank 0's), and
+    the shard table, one ``fused_update_buckets`` launch over the owned
+    halves of GPT-125M's buckets, an ``at_shapes`` row of
+    ``fused_update`` with its launches in phases 51 and 52."""
+    for name in ("codec_encode", "codec_decode", "fused_update"):
+        by_name[name]["launches_zero"] = {
+            ph: zero_run[ph]["launches"][name] for ph in ("51", "52", "53")}
+    by_name["fused_update"]["at_shapes"].append(dict(
+        _numbers(zero_run["row"]),
+        launches_at_shape=sum(zero_run[ph]["launches"]["fused_update"]
+                              for ph in ("51", "52"))))
 
 
 def wire16_entries(wire16_run) -> list:
@@ -7535,7 +7584,7 @@ def phase_dp_train_fp16(seed, train_h, dp16_rank):
     data parallel on the int8_block wire at phase 19's shape, DataParallel
     rounds after it, rank 0's idle share over one more step; beside phase
     45's fp16 step (``train_h``) and phase 19's bf16 dp step
-    (``dp16_rank``) in this call; then the 2-layer card-vs-CPU run (phase
+    (``dp16_rank``) in this call; then the 1-layer card-vs-CPU run (phase
     20's check on the fp16 model). Returns rank 0's results."""
     cfg = fp16_config()
     rank = phase_dp_train(cfg, seed, steps=DP16_STEPS, dp_rounds=2,
@@ -7639,6 +7688,479 @@ def phase_int8_fp16(dev, gen, seed, bert):
     return {"counts": counts, "counts_b1": counts_b1, "summary": summary,
             "summary_b1": summary_b1, "qmm_rows": rows, "parity": rel,
             "qmm_routes": counts["routes_fp16"] + counts_b1["routes_fp16"]}
+
+
+# ------------------------------------------------------------ ZeRO
+ZERO_WARMUP, ZERO_STEPS = 1, 3      # int8_block steps of phases 51-52
+ZERO_FP32_STEPS = 2                 # the fp32 wire's steps
+ZERO_RAGGED = 5_000_001             # phase 53's ragged bucket
+ZERO_OVERLAP_LAYERS = 2             # phase 53's overlap check: depth cut
+ZERO_WIRE_BLOCK = 1024
+
+
+def _timed_collectives(coll, sync, acc):
+    """Wrap ``coll``'s all_reduce, reduce_scatter and all_gather so each
+    call is timed between two waits for the card into ``acc``; returns
+    the originals."""
+    saved = {n: getattr(coll, n) for n in ("all_reduce", "reduce_scatter",
+                                           "all_gather")}
+
+    def wrap(name, fn):
+        def timed(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            acc[name + "_calls"] = acc.get(name + "_calls", 0) + 1
+            return out
+        return timed
+
+    for name, fn in saved.items():
+        setattr(coll, name, wrap(name, fn))
+    return saved
+
+
+def _zero_run(cfg, level, codec, x, y, rank, world, warmup, steps, device,
+              full):
+    """One wire of a ZeRO phase on this rank (``zero_rank``)."""
+    from torch_checks import table_step_vs_plain
+
+    from paddle_tpu_torch.distributed import GradCommConfig
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.distributed.grad_comm import comm_plan
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    model = GPTForCausalLM(cfg, seed=0, device=device)
+    opt = AdamW(learning_rate=LR, weight_decay=WD,
+                parameters=model.parameters())
+    model, opt, _ = group_sharded_parallel(
+        model, opt, level, overlap_comm=True, fuse_update=True,
+        grad_comm=GradCommConfig(codec))
+    store = getattr(model, "_zero3", None)
+    if store is not None:
+        store.register_external_use(model,
+                                    model.gpt.embeddings.word_embeddings)
+    fused, comm = model._fused_update, model._grad_comm
+    params = fused.params
+    crit = GPTPretrainingCriterion()
+    update_gathers = []
+    check = {}
+
+    def one(table_check=False):
+        fused.zero_grad()
+        comm.prepare(params, world=world, use_reduce_scatter=True)
+        loss = crit(model(x), y)
+        loss.backward()
+        comm.sync(params, world=world, use_reduce_scatter=True)
+        ag, n = coll.all_gather, [0]
+
+        def counted(*a, **k):
+            n[0] += 1
+            return ag(*a, **k)
+
+        coll.all_gather = counted
+        try:
+            if table_check:
+                check["err"] = table_step_vs_plain(
+                    fused._shard_table, fused._lr_tensor(x.device),
+                    lambda: fused.step_sharded(rank, world,
+                                               param_store=store))
+            else:
+                fused.step_sharded(rank, world, param_store=store)
+        finally:
+            coll.all_gather = ag
+        update_gathers.append(n[0])
+        return float(loss.detach())
+
+    losses = [one() for _ in range(warmup)]
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    if store is not None:
+        store.reset_exposed()
+        store.gathers.clear()
+    reset_dp_launch_counts()
+    step_ms, effs, exposed = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(one())
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        effs.append(comm.stats["overlap_efficiency"])
+        exposed.append(comm.stats["exposed_comm_s"] * 1e3)
+    counts = dp_launch_counts()
+    out = {"losses": losses, "step_ms": step_ms, "counts": counts,
+           "overlap_efficiency": effs, "exposed_comm_ms": exposed,
+           "buckets": [b.size for b in fused.buckets],
+           "comm_stats": {k: v for k, v in comm.stats.items()
+                          if k in ("codec", "n_buckets", "collectives",
+                                   "comm_bytes")},
+           "plan": comm_plan(params, comm.config, world=world)}
+    if on_card:
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["at_rest_gib"] = torch.cuda.memory_allocated() / 2**30
+    out["slot_bytes"] = sum(v.numel() * v.element_size()
+                            for s in fused._shard_slots.values()
+                            for v in s.values() if v.dim())
+    out["param_bytes"] = (store.param_bytes_per_rank() if store is not None
+                          else sum(t.numel() * t.element_size()
+                                   for t in fused._flat_p.values()))
+    if store is not None:
+        out.update(gathers=dict(store.gathers),
+                   exposed_gather_s=store.exposed_gather_s,
+                   resident=store.resident_buckets())
+    if full:
+        wire = {}
+        saved = _timed_collectives(coll, sync, wire)
+        try:
+            losses.append(one())
+        finally:
+            for name, fn in saved.items():
+                setattr(coll, name, fn)
+        out["wire_ms"] = wire
+        losses.append(one(table_check=True))
+        out["table_err"] = check["err"]
+    out["update_gathers"] = update_gathers[warmup:]
+    ctx = (store.materialize() if store is not None
+           else contextlib.nullcontext())
+    with ctx:
+        out["checksum"] = _param_checksum(model)
+    del model, opt, fused, comm, store
+    return out
+
+
+def zero_rank(cfg, seed, level, warmup, steps, fp32_steps, b, s,
+              device="cuda", layers=None):
+    """One rank of phase 51 (``level="os_g"``) or 52 (``"p_g_os"``), run
+    by ``spawn``: the int8_block wire (``_zero_run``, all its checks),
+    then the fp32 wire's ``fp32_steps``."""
+    import dataclasses
+
+    from paddle_tpu_torch.distributed import get_rank, init_parallel_env
+
+    env = init_parallel_env()
+    rank, world = get_rank(), env.world_size
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cfg.vocab_size, (b * world, s))
+    labels = rs.randint(0, cfg.vocab_size, (b * world, s))
+    x = torch.as_tensor(ids[rank * b:(rank + 1) * b], device=device)
+    y = torch.as_tensor(labels[rank * b:(rank + 1) * b], device=device)
+    out = {"rank": rank, "backend": env.backend}
+    out["int8_block"] = _zero_run(cfg, level, "int8_block", x, y, rank,
+                                  world, warmup, steps, device, True)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out["fp32"] = _zero_run(cfg, level, "fp32", x, y, rank, world, 0,
+                            fp32_steps, device, False)
+    return out
+
+
+def _zero_want(n_layers, nb, steps):
+    """Launches of ``steps`` ZeRO steps a rank: each layer's flash trio,
+    one encode and one decode a bucket, one update."""
+    want = {name + sfx: n_layers * steps * (sfx == "")
+            for sfx in ("", "_bf16", "_fp16")
+            for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    want.update(fused_update=steps, codec_encode=nb * steps,
+                codec_decode=nb * steps, codec_encode_bf16=0,
+                codec_decode_bf16=0, codec_encode_fp16=0,
+                codec_decode_fp16=0, fused_dequant_update=0,
+                fused_dequant_update_fp16=0, ce_chunk_fwd=0, ce_chunk_bwd=0)
+    return want
+
+
+def phase_zero(cfg, seed, level, dp_rank, zero2=None, warmup=ZERO_WARMUP,
+               steps=ZERO_STEPS, fp32_steps=ZERO_FP32_STEPS, b=DP_B,
+               s=DP_S, device="cuda", layers=None):
+    """Phase 51 (``level="os_g"``) or 52 (``"p_g_os"``, with phase 51's
+    summary as ``zero2``): ``zero_rank`` on two ranks, its numbers beside
+    phase 14's replicated run (``dp_rank``), and its checks."""
+    from paddle_tpu_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(zero_rank, args=(cfg, seed, level, warmup, steps,
+                                   fp32_steps, b, s, device, layers),
+                  nprocs=DP_WORLD, timeout=DP_RANK_TIMEOUT)
+    r0 = ranks[0]
+    run = r0["int8_block"]
+    nb = len(run["buckets"])
+    n_layers = layers or cfg.num_layers
+    stage = 2 if level == "os_g" else 3
+    replicated_slots = 2 * 4 * sum(run["buckets"])
+    summary = {
+        "stage": stage, "level": level, "backend": r0["backend"],
+        "world": DP_WORLD, "batch_per_rank": [b, s], "buckets": nb,
+        "losses": run["losses"],
+        "rank_losses": {w: [r[w]["losses"] for r in ranks]
+                        for w in ("int8_block", "fp32")},
+        "step_ms": [r["int8_block"]["step_ms"] for r in ranks],
+        "step_ms_median": statistics.median(run["step_ms"]),
+        "fp32_step_ms": [r["fp32"]["step_ms"] for r in ranks],
+        "wire_ms_per_step": [r["int8_block"]["wire_ms"] for r in ranks],
+        "overlap_efficiency": [r["int8_block"]["overlap_efficiency"]
+                               for r in ranks],
+        "exposed_comm_ms": [r["int8_block"]["exposed_comm_ms"]
+                            for r in ranks],
+        "peak_memory_gib": [r["int8_block"].get("peak_memory_gib")
+                            for r in ranks],
+        "at_rest_gib": [r["int8_block"].get("at_rest_gib") for r in ranks],
+        "param_bytes": [r["int8_block"]["param_bytes"] for r in ranks],
+        "slot_bytes": [r["int8_block"]["slot_bytes"] for r in ranks],
+        "replicated_slot_bytes": replicated_slots,
+        "launches_per_rank": [r["int8_block"]["counts"] for r in ranks],
+        "update_gathers": run["update_gathers"],
+        "comm_stats": run["comm_stats"],
+        "comm_plan": {k: run["plan"][k] for k in (
+            "n_buckets", "collectives_per_step", "comm_bytes_per_step",
+            "total_grad_numel")},
+        "table_err": [r["int8_block"]["table_err"] for r in ranks],
+        "checksums": [r["int8_block"]["checksum"][:16] for r in ranks],
+        "phase14": {"step_ms_median": dp_rank and statistics.median(
+                        dp_rank["step_ms"]),
+                    "peak_memory_gib": dp_rank and dp_rank[
+                        "peak_memory_gib"]},
+        "seconds": time.perf_counter() - t0}
+    if stage == 3:
+        summary.update(
+            gathers=[r["int8_block"]["gathers"] for r in ranks],
+            exposed_gather_s=[r["int8_block"]["exposed_gather_s"]
+                              for r in ranks])
+    log(f"zero-{stage} " + json.dumps(summary))
+    log(f"zero-{stage} beside phase 14 in this call: step "
+        f"{summary['step_ms_median']:.2f} ms against "
+        f"{summary['phase14']['step_ms_median']}; peak "
+        f"{summary['peak_memory_gib']} GiB against "
+        f"{summary['phase14']['peak_memory_gib']}; AdamW slots "
+        f"{run['slot_bytes'] / 2**30:.4f} GiB a rank against "
+        f"{replicated_slots / 2**30:.4f} replicated; parameters at rest "
+        f"{run['param_bytes'] / 2**30:.4f} GiB a rank")
+    for wire, losses in summary["rank_losses"].items():
+        # each rank's loss is that of its own half of the batch
+        if not all(math.isfinite(v) for v in sum(losses, [])):
+            raise AssertionError(f"non-finite zero-{stage} {wire} loss: "
+                                 f"{losses}")
+        if len({r[wire]["checksum"] for r in ranks}) != 1:
+            raise AssertionError(f"zero-{stage} {wire}: the ranks' "
+                                 f"parameters differ")
+        if zero2 is not None and losses != zero2["rank_losses"][wire]:
+            raise AssertionError(
+                f"zero-3 {wire} losses {losses} are not zero-2's "
+                f"{zero2['rank_losses'][wire]} bit for bit")
+    if not all(r["int8_block"]["losses"][-1] < r["int8_block"]["losses"][0]
+               for r in ranks):
+        raise AssertionError(f"zero-{stage} loss did not fall: "
+                             f"{run['losses']}")
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError("expected gloo (one card, two ranks)")
+    want = _zero_want(n_layers, nb, steps)
+    for r in ranks:
+        got = r["int8_block"]
+        if got["counts"] != want:
+            raise AssertionError(f"rank {r['rank']} launch counts "
+                                 f"{got['counts']}, expected {want}")
+        if got["update_gathers"] != [nb if stage == 2 else 0] * (steps + 2):
+            raise AssertionError(f"rank {r['rank']} all_gathers in the "
+                                 f"update {got['update_gathers']}")
+        if got["table_err"] != 0.0:
+            raise AssertionError(f"the shard table's launch differs from "
+                                 f"its plain walk: {got['table_err']}")
+        chunks = sum(-(-n // DP_WORLD) for n in got["buckets"])
+        if got["slot_bytes"] != 2 * 4 * chunks:
+            raise AssertionError(f"{got['slot_bytes']} slot bytes, the "
+                                 f"shards hold {2 * 4 * chunks}")
+        if stage == 3:
+            if got["resident"] or got["gathers"].get("fallback"):
+                raise AssertionError(f"zero-3 at rest: {got['resident']} "
+                                     f"gathered, gathers {got['gathers']}")
+            if got["param_bytes"] != 4 * chunks:
+                raise AssertionError(f"zero-3 holds {got['param_bytes']} "
+                                     f"parameter bytes, its shards "
+                                     f"{4 * chunks}")
+    plan, stats = run["plan"], run["comm_stats"]
+    if (stats["collectives"], stats["comm_bytes"]) != (
+            plan["collectives_per_step"] + plan["n_buckets"],
+            plan["comm_bytes_per_step"] + plan["total_grad_numel"]):
+        raise AssertionError(f"comm_stats {stats} against comm_plan {plan} "
+                             f"with use_reduce_scatter")
+    if zero2 is not None:
+        half = zero2["param_bytes"][0] / 2
+        if not abs(summary["param_bytes"][0] - half) <= 0.01 * half:
+            raise AssertionError(
+                f"zero-3 parameters at rest {summary['param_bytes'][0]} "
+                f"bytes, zero-2's half {half}")
+    summary["launches"] = run["counts"]
+    return summary
+
+
+def phase_zero_kernels(dev, gen, plan):
+    """The shard table at GPT-125M's plan: the owned half of each bucket
+    (``ceil(size / 2)`` elements) in one ``fused_update_buckets`` launch,
+    held against its plain walk and timed beside its bound at the shard's
+    bytes and torch._fused_adamw_ (``_fused_timing``)."""
+    from paddle_tpu_torch.distributed.grad_comm import GradBucket
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    shards = []
+    for b in plan:
+        sb = GradBucket(b.index, b.dtype)
+        sb.add(b.index, (-(-b.size // DP_WORLD),))
+        shards.append(sb)
+    row = _fused_timing(dev, gen, shards, flush)
+    row["shape"] = f"shard table: rank 0's half of {row['shape']}"
+    log(f"zero shard table, {row['shape']}, one launch: as step() calls "
+        f"it {row['step_ms']:.4f} ms, the kernel alone {row['ms']:.4f}, "
+        f"torch._fused_adamw_ {row['library_ms']:.4f}; plain "
+        f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} "
+        f"{row['bound_by']}, the kernel at "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of it")
+    return row
+
+
+def _plain_block_ops():
+    from paddle_tpu_torch.distributed import grad_comm as gc
+
+    return gc.block_encode, gc.block_decode
+
+
+def zero_wire_rank(cfg, seed, device="cuda", layers=ZERO_OVERLAP_LAYERS,
+                   b=DP_B, s=DP_S):
+    """One rank of phase 53 (``spawn``): ``traced_reduce_scatter_quantized``
+    at the word table's size and a ragged one on the codec kernels and on
+    the plain codecs, and the overlapped reduce_scatter sync against the
+    serial one over two backward passes of ``cfg`` cut to ``layers``."""
+    import dataclasses
+
+    from paddle_tpu_torch.distributed import (GradCommConfig, get_rank,
+                                              init_parallel_env)
+    from paddle_tpu_torch.distributed import grad_comm as gc
+    from paddle_tpu_torch.distributed.overlap import communicator_for
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.ops import codec
+
+    env = init_parallel_env()
+    rank, world = get_rank(), env.world_size
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed * 100 + rank)
+    cfg_w = GradCommConfig("int8_block", block_size=ZERO_WIRE_BLOCK)
+    out = {"rank": rank, "traced": {}}
+    reset_dp_launch_counts()
+    for n in (cfg.vocab_size * cfg.hidden_size, ZERO_RAGGED):
+        flat = torch.randn(n, device=device, generator=gen) * 1e-3
+        res = torch.randn(n, device=device, generator=gen) * 1e-6
+
+        def call():
+            sync()
+            t0 = time.perf_counter()
+            out_ = gc.traced_reduce_scatter_quantized(flat, None, world,
+                                                      cfg_w, residual=res)
+            sync()
+            return out_, (time.perf_counter() - t0) * 1e3
+
+        kernel_ops = gc._block_kernel_ops
+        gc._block_kernel_ops = _plain_block_ops
+        try:
+            call()                      # a warm run of each form first
+            want, plain_ms = call()
+        finally:
+            gc._block_kernel_ops = kernel_ops
+        call()
+        before = codec.launch_counts()
+        got, ms = call()
+        after = codec.launch_counts()
+        same = [name for name, a, c in zip(("full", "shard", "residual"),
+                                           got[:3], want[:3])
+                if not torch.equal(a.view(torch.int32), c.view(torch.int32))]
+        out["traced"][n] = {
+            "ms": ms, "plain_ms": plain_ms, "differ": same,
+            "wire_bytes": got[3], "collectives": got[4],
+            "launches": {k: after[k] - before[k] for k in after},
+            "shard": got[1].numel(),
+            "max_abs_err": max(float((a - c).abs().max())
+                               for a, c in zip(got[:3], want[:3]))}
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    model = GPTForCausalLM(cut, seed=0, device=device)
+    params = [p for p in model.parameters() if p.requires_grad]
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, cut.vocab_size, (b * world, s))
+    x = torch.as_tensor(ids[rank * b:(rank + 1) * b], device=device)
+    crit = GPTPretrainingCriterion()
+    runs = {}
+    for overlap in (False, True):
+        comm = communicator_for(GradCommConfig("int8_block",
+                                               overlap=overlap))
+        rounds, effs = [], []
+        for k in range(2):
+            for p in params:
+                p.grad = None
+            if overlap:
+                comm.prepare(params, world=world, use_reduce_scatter=True)
+            crit(model(x), x.roll(k + 1, -1)).backward()
+            comm.sync(params, world=world, use_reduce_scatter=True)
+            rounds.append([p.grad.clone() for p in params])
+            if overlap:
+                effs.append(comm.stats["overlap_efficiency"])
+        runs[overlap] = (rounds, comm, effs)
+    (ser, scomm, _), (ovl, ocomm, effs) = runs[False], runs[True]
+    out["overlap"] = {
+        "differ": sum(not torch.equal(a, c) for ra, rc in zip(ser, ovl)
+                      for a, c in zip(ra, rc)),
+        "residuals_differ": sum(
+            not torch.equal(scomm._residuals[i], ocomm._residuals[i])
+            for i in scomm._residuals),
+        "n_residuals": len(scomm._residuals),
+        "efficiency": effs,
+        "launched_early": ocomm.stats["buckets_launched_early"],
+        "n_buckets": ocomm.stats["n_buckets"],
+        "stats_equal": {k: scomm.stats[k] for k in ("collectives",
+                                                    "comm_bytes")}
+        == {k: ocomm.stats[k] for k in ("collectives", "comm_bytes")}}
+    out["launches"] = dp_launch_counts()
+    sync()
+    return out
+
+
+def phase_zero_wire(cfg, seed, device="cuda", layers=ZERO_OVERLAP_LAYERS,
+                    b=DP_B, s=DP_S):
+    """Phase 53: ``zero_wire_rank`` on two ranks, and its checks."""
+    from paddle_tpu_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(zero_wire_rank, args=(cfg, seed, device, layers, b, s),
+                  nprocs=DP_WORLD, timeout=DP_RANK_TIMEOUT)
+    summary = {"traced": [r["traced"] for r in ranks],
+               "overlap": [r["overlap"] for r in ranks],
+               "seconds": time.perf_counter() - t0}
+    log("zero wire " + json.dumps(summary, default=str))
+    for r in ranks:
+        for n, t in r["traced"].items():
+            if t["differ"] or t["launches"] != {"codec_encode": 2,
+                                                "codec_decode": 2}:
+                raise AssertionError(
+                    f"traced_reduce_scatter_quantized at {n}: {t['differ']} "
+                    f"differ from the plain codecs, launches "
+                    f"{t['launches']}")
+        ov = r["overlap"]
+        if ov["differ"] or ov["residuals_differ"] or not ov["stats_equal"] \
+                or not ov["n_residuals"]:
+            raise AssertionError(f"the overlapped sync is not the serial "
+                                 f"one: {ov}")
+        if ov["launched_early"] != ov["n_buckets"]:
+            raise AssertionError(f"{ov['launched_early']} of "
+                                 f"{ov['n_buckets']} buckets launched "
+                                 f"before the flush")
+    summary["launches"] = ranks[0]["launches"]
+    return summary
 
 
 def main(argv=None) -> int:
@@ -7954,6 +8476,23 @@ def main(argv=None) -> int:
     log(f"phase 50 (int8 fp16): {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    # ZeRO: stages 2 and 3 through group_sharded_parallel on the
+    # overlapped reduce_scatter wire, then the quantized reduce_scatter
+    t0 = time.perf_counter()
+    zero2 = phase_zero(cfg, args.seed, "os_g", dp_rank)
+    log(f"phase 51 (zero-2): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    zero3 = phase_zero(cfg, args.seed, "p_g_os", dp_rank, zero2)
+    log(f"phase 52 (zero-3): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    before = clocks("before zero kernels")
+    zero_row = phase_zero_kernels(dev, gen, plan)
+    stamp([zero_row], before, clocks("after zero kernels"))
+    zero_wire = phase_zero_wire(cfg, args.seed)
+    log(f"phase 53 (zero wire): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
             "rank": dp16_rank}
@@ -7969,7 +8508,9 @@ def main(argv=None) -> int:
                                   {"encode": enc_h, "decode": dec_h,
                                    "table": table_h, "rank": wire_h,
                                    "qmm_rows": int8_h["qmm_rows"],
-                                   "qmm_routes": int8_h["qmm_routes"]})))
+                                   "qmm_routes": int8_h["qmm_routes"]},
+                                  {"51": zero2, "52": zero3,
+                                   "53": zero_wire, "row": zero_row})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,15 @@
 """Distributed pieces of the port (reference: ``paddle_tpu/distributed``:
-``env.py``, ``collective.py``, ``parallel.py``, ``grad_comm.py`` and
+``env.py``, ``collective.py``, ``parallel.py``, ``grad_comm.py``,
+``overlap.py``, ``sharding/``, ``fleet``'s ``DistributedStrategy`` and
 ``spawn`` in ``__init__.py``).
 
 One process per rank over ``torch.distributed``: ``spawn`` starts the
 ranks, ``init_parallel_env`` their process group, the collectives reduce
-tensors in place, ``GradCommunicator`` reduces gradient buckets through
-the wire codecs and ``DataParallel`` wraps a model for eager data
-parallelism. ``distributed.ps`` is the parameter server (reference:
+tensors, ``GradCommunicator`` reduces gradient buckets through the wire
+codecs (``OverlappedGradCommunicator`` as backward completes them),
+``DataParallel`` wraps a model for eager data parallelism and
+``sharding.group_sharded_parallel`` for ZeRO stages 1-3.
+``distributed.ps`` is the parameter server (reference:
 ``paddle_tpu/distributed/ps``), imported on its own.
 """
 from __future__ import annotations
@@ -23,12 +26,17 @@ from .collective import (ReduceOp, all_gather, all_reduce,  # noqa: F401
                          recv, reduce_scatter, send, split, wait)
 from . import grad_comm  # noqa: F401
 from .grad_comm import GradCommConfig, GradCommunicator  # noqa: F401
+from . import overlap  # noqa: F401
+from .overlap import OverlappedGradCommunicator  # noqa: F401
 from .parallel import DataParallel  # noqa: F401
+from . import fleet  # noqa: F401
+from . import sharding  # noqa: F401
 
 __all__ = ["ParallelEnv", "get_rank", "get_world_size", "init_parallel_env",
-           "is_initialized", "ReduceOp", "all_reduce", "broadcast",
-           "barrier", "wait", "get_group", "new_group", "GradCommConfig",
-           "GradCommunicator", "DataParallel", "spawn"]
+           "is_initialized", "ReduceOp", "all_reduce", "all_gather",
+           "reduce_scatter", "broadcast", "barrier", "wait", "get_group",
+           "new_group", "GradCommConfig", "GradCommunicator",
+           "OverlappedGradCommunicator", "DataParallel", "spawn"]
 
 
 def _run_rank(rank, func, args, nprocs, tmp):

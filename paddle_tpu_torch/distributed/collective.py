@@ -1,8 +1,8 @@
 """Collective communication (reference:
-``paddle_tpu/distributed/collective.py`` lines 58-262 and 384-470:
+``paddle_tpu/distributed/collective.py`` lines 58-340 and 384-470:
 ``ReduceOp``, ``Group``, ``new_group``, ``get_group``, ``all_reduce``,
-``broadcast``, ``barrier``, ``wait`` and the ``collectives_total``
-counter).
+``all_gather``, ``reduce_scatter``, ``broadcast``, ``barrier``, ``wait``
+and the ``collectives_total`` counter).
 
 The reference lowers collectives to XLA over the mesh; the port runs one
 process per rank and calls ``torch.distributed`` (``env.py`` starts the
@@ -14,11 +14,20 @@ holds the world size: a division by a Python number is a multiply by its
 reciprocal on the card, which rounds differently
 (``framework/numeric.py`` ``div_rn``).
 
+``reduce_scatter`` keeps this rank's ``1/nranks`` chunk of dim 0 of the
+sum over the ranks (``dist.reduce_scatter_tensor``; SUM and AVG only, as
+in the reference); ``all_gather`` stacks every rank's tensor on a new
+leading axis (``dist.all_gather_into_tensor``), so
+``all_gather(None, reduce_scatter(x)).reshape(-1)`` is the all-reduce of
+a flat ``x``. Both return new tensors. With one rank (no process group)
+they degrade as the reference's eager forms do: ``reduce_scatter``
+returns its input (the list form the sum of its list) and ``all_gather``
+a copy.
+
 Every call is synchronous: ``sync_op=False`` (a task handle to wait on)
-is not ported yet and raises. Not ported yet either:
-``reduce_scatter``, ``all_gather``, ``alltoall``, ``send``/``recv``,
-``split`` and the in-trace helpers raise ``NotImplementedError``
-(ROADMAP Queue A 5, parallelism).
+is not ported yet and raises. Not ported yet either: ``alltoall``,
+``send``/``recv``, ``split`` and the in-trace helpers raise
+``NotImplementedError`` (ROADMAP Queue A 5, parallelism).
 """
 from __future__ import annotations
 
@@ -167,6 +176,73 @@ def wait(tensor):
     return tensor
 
 
+def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
+                   sync_op=True):
+    """Tensor form: a new tensor, this rank's ``1/nranks`` chunk of dim 0
+    of ``tensor`` reduced over the ranks (dim 0 divisible by the rank
+    count). List form (``tensor_list`` one tensor a rank): rank r's
+    result is the reduction over the ranks of ``tensor_list[r]``, written
+    into ``tensor`` when it is given. AVG divides the sum by the rank
+    count with ``div_rn``, as ``all_reduce`` does."""
+    _synchronous("reduce_scatter", sync_op)
+    _m_collectives.labels(op="reduce_scatter").inc()
+    if op not in (ReduceOp.SUM, ReduceOp.AVG):
+        raise ValueError("reduce_scatter supports SUM/AVG only")
+    n = _nranks(group)
+    if tensor_list is not None:
+        if n <= 1:
+            out = tensor_list[0].clone()
+            for t in tensor_list[1:]:
+                out = out + t
+        else:
+            if len(tensor_list) != n:
+                raise ValueError(f"reduce_scatter: {len(tensor_list)} "
+                                 f"tensors for {n} ranks")
+            out = _reduce_scatter(torch.stack(list(tensor_list)), n, op,
+                                  group)[0]
+        if tensor is not None:
+            tensor.copy_(out)
+            return tensor
+        return out
+    if n <= 1:
+        return tensor
+    if tensor.dim() == 0 or tensor.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim 0 of {tuple(tensor.shape)} "
+                         f"does not split over {n} ranks")
+    return _reduce_scatter(tensor, n, op, group)
+
+
+def _reduce_scatter(tensor, n, op, group):
+    out = tensor.new_empty((tensor.shape[0] // n, *tensor.shape[1:]))
+    dist.reduce_scatter_tensor(out.view(-1), tensor.contiguous().view(-1),
+                               op=dist.ReduceOp.SUM, group=_pg(group))
+    if op == ReduceOp.AVG:
+        out.copy_(div_rn(out, n))
+    return out
+
+
+def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
+    """Every rank's ``tensor``: appended to ``tensor_list`` in rank order
+    when it is given (and returned), else stacked on a new leading axis,
+    ``[nranks, *tensor.shape]``. One rank: a copy of ``tensor``."""
+    _synchronous("all_gather", sync_op)
+    _m_collectives.labels(op="all_gather").inc()
+    n = _nranks(group)
+    if n <= 1:
+        out = tensor.clone()
+        if tensor_list is not None:
+            tensor_list.append(out)
+            return tensor_list
+        return out
+    out = tensor.new_empty((n, *tensor.shape))
+    dist.all_gather_into_tensor(out.view(-1), tensor.contiguous().view(-1),
+                                group=_pg(group))
+    if tensor_list is not None:
+        tensor_list.extend(out.unbind(0))
+        return tensor_list
+    return out
+
+
 def _later(name: str):
     def f(*args, **kwargs):
         raise NotImplementedError(
@@ -177,8 +253,6 @@ def _later(name: str):
     return f
 
 
-reduce_scatter = _later("reduce_scatter")
-all_gather = _later("all_gather")
 alltoall = _later("alltoall")
 send = _later("send")
 recv = _later("recv")

@@ -1,9 +1,6 @@
 """Gradient wire codecs, the bucket plan and the bucketed communicator
-(reference: ``paddle_tpu/distributed/grad_comm.py`` ``CODECS``,
-``EF_CODECS``, ``_WIRE_ITEMSIZE``, ``_QMAX``, ``GradCommConfig``,
-``GradBucket``, ``build_buckets``, the bf16/int8/blockwise codecs,
-``scale_bytes``, ``_block_kernel_ops``, ``record_sync_metrics`` and
-``GradCommunicator``, lines 86-178, 260-357 and 447-800).
+(reference: ``paddle_tpu/distributed/grad_comm.py``: the whole module,
+``CODECS`` to ``comm_plan``).
 
 Blockwise codecs: one fp32 abs-max scale per ``block_size`` elements;
 ``int8_block`` rounds half-to-even and clips to +-127, ``fp8_block``
@@ -42,9 +39,18 @@ fp8 range: ``scales = absmax / 448`` keeps ``|x / s| <= 448 * (1 + ulp)``,
 which rounds to 448, so the cast never sees an out-of-range value
 (where torch saturates and ml_dtypes gives NaN, the two would differ).
 
-Not ported yet (ROADMAP Queue A 2, the ZeRO remainder):
-``use_reduce_scatter=True``, ``traced_reduce_scatter_quantized``,
-``config_from_strategy``, ``comm_plan`` and the overlapped communicator.
+``use_reduce_scatter=True`` (the ZeRO stage-2 gradient path) sends
+each bucket's wire value through ``_reduce``'s reduce_scatter then
+all_gather (padded to a multiple of the world), so each rank reduces
+only its own shard; the blockwise payload rides the wire flat. Its
+accounting is the reference's: the payload bytes twice and one more
+collective a bucket. ``traced_reduce_scatter_quantized`` is the
+reference's in-trace EQuARX decomposition (a shared-scale quantized
+reduce_scatter, then an all_gather of the shard requantized with local
+scales) as an eager function over the process group, its encodes and
+decodes through ``ops/codec.py``. ``config_from_strategy`` reads a
+``DistributedStrategy``; ``comm_plan`` is the host-side traffic plan.
+The overlapped communicator is ``distributed/overlap.py``.
 """
 from __future__ import annotations
 
@@ -64,7 +70,9 @@ from ..observability.metrics import get_registry as _get_registry
 
 __all__ = ["CODECS", "BLOCK_CODECS", "EF_CODECS", "QMAX", "WIRE_DTYPE",
            "GradCommConfig", "GradBucket", "GradCommunicator",
-           "build_buckets", "record_sync_metrics", "n_scale_blocks",
+           "build_buckets", "comm_plan", "config_from_strategy",
+           "traced_reduce_scatter_quantized", "record_sync_metrics",
+           "n_scale_blocks",
            "scale_bytes", "as_blocks", "block_absmax", "block_scales",
            "block_encode", "block_decode", "block_residual", "encode_bf16",
            "decode_bf16", "int8_scale", "int8_encode", "int8_decode",
@@ -109,10 +117,11 @@ class GradCommConfig:
     """Gradient-communication knobs: ``codec`` (one of ``CODECS``),
     ``comm_buffer_size`` and ``last_comm_buffer_size`` (bucket caps in
     MB), ``error_feedback`` (carry the quantization residual across
-    steps; int8 and the blockwise codecs), ``overlap`` (the overlapped
-    communicator: not ported yet, so only False) and ``block_size``
-    (elements per abs-max scale of the blockwise codecs). Validation and
-    messages are the reference's."""
+    steps; int8 and the blockwise codecs), ``overlap`` (launch each
+    bucket's collective as backward completes it:
+    ``overlap.communicator_for`` builds an ``OverlappedGradCommunicator``)
+    and ``block_size`` (elements per abs-max scale of the blockwise
+    codecs). Validation and messages are the reference's."""
 
     def __init__(self, codec: str = "bf16", comm_buffer_size: float = 25,
                  last_comm_buffer_size: float = 1, error_feedback: bool = True,
@@ -132,10 +141,6 @@ class GradCommConfig:
         if not isinstance(block_size, (int, np.integer)) or block_size <= 0:
             raise ValueError(
                 f"block_size must be a positive int, got {block_size!r}")
-        if overlap:
-            raise NotImplementedError(
-                "GradCommConfig(overlap=True): the overlapped communicator "
-                "is not ported yet (ROADMAP Queue A 2)")
         self.codec = codec
         self.comm_buffer_size = float(comm_buffer_size)
         self.last_comm_buffer_size = float(last_comm_buffer_size)
@@ -337,9 +342,77 @@ def record_sync_metrics(codec: str, collectives: int, comm_bytes: int,
     _m_bytes.labels(codec=codec, path=path).inc(comm_bytes)
 
 
-_RS_LATER = ("use_reduce_scatter (the ZeRO stage-2 reduce_scatter -> "
-             "all_gather decomposition) is not ported yet (ROADMAP Queue A "
-             "2, the ZeRO remainder)")
+def traced_reduce_scatter_quantized(flat, axis, world: int,
+                                    config: GradCommConfig, residual=None):
+    """EQuARX's reduce_scatter on the blockwise wire (reference: the
+    in-trace function of the same name), eager over the process group
+    ``axis`` (a ``collective.Group``, or None for the world): both halves
+    of the ring decomposition ship the 1-byte format with their fp32
+    block scales beside it.
+
+    RS half: the buffer (plus ``residual``) is padded so every rank's
+    shard is a whole number of blocks, encoded with the shared scales
+    (the per-block abs-max summed over the ranks) into the summable
+    carrier, reduce-scattered, and this rank's shard decoded with its
+    slice of the scales. AG half: the fp32 shard is requantized with
+    local scales, the 1-byte payload and the scales are all-gathered and
+    every shard decoded with its sender's scales. Every encode runs
+    ``codec_encode`` and every decode ``codec_decode`` on the card.
+
+    Returns ``(full, shard, new_residual, wire_bytes, collectives)``:
+    the re-assembled reduced buffer (AVG) and this rank's shard in the
+    input's dtype, the RS half's error-feedback residual (None without
+    error feedback; the AG half's requantization error is not fed back),
+    the wire bytes of both halves and the collective count (4)."""
+    codec = config.codec
+    if codec not in BLOCK_CODECS:
+        raise ValueError(
+            f"traced_reduce_scatter_quantized needs a blockwise codec, "
+            f"got {codec!r}")
+    from .env import get_rank
+
+    if _coll._nranks(axis) != world:
+        raise ValueError(f"traced_reduce_scatter_quantized over "
+                         f"{_coll._nranks(axis)} ranks with world={world}")
+    bs = config.block_size
+    flat = flat.reshape(-1)
+    n = flat.numel()
+    in_dtype = flat.dtype
+    chunk_blocks = n_scale_blocks(n_scale_blocks(n, world), bs)
+    chunk = chunk_blocks * bs
+    padded = world * chunk
+    x = flat.to(torch.float32)
+    if residual is not None:
+        x = x + residual
+    if padded > n:
+        x = torch.cat([x, x.new_zeros(padded - n)])
+    enc, dec = _block_kernel_ops()
+    # ---- RS half: shared blockwise scales, integer payload
+    absmax = block_absmax(x, bs)
+    _coll.all_reduce(absmax, op=ReduceOp.SUM, group=axis)
+    scales = block_scales(absmax, codec)
+    q = enc(x, scales, bs, codec, carrier=True)
+    new_res = (block_residual(x[:n], q, scales, n) if config.error_feedback
+               else None)
+    q_shard = _coll.reduce_scatter(q.reshape(-1), op=ReduceOp.SUM,
+                                   group=axis)
+    rank = get_rank() if world > 1 else 0
+    if axis is not None and axis.ranks:
+        rank = axis.get_group_rank(rank)
+    lo = rank * chunk_blocks
+    shard = dec(q_shard.reshape(-1, bs), scales[lo:lo + chunk_blocks],
+                world, chunk)
+    # ---- AG half: the shard requantized with local scales; the 1-byte
+    # payload (as bytes) and the scales gathered
+    s2 = block_scales(block_absmax(shard, bs), codec)
+    q2 = enc(shard, s2, bs, codec)
+    gq = _coll.all_gather(None, q2.view(torch.uint8), group=axis)
+    gs = _coll.all_gather(None, s2, group=axis)
+    full = dec(gq.reshape(-1, bs).view(q2.dtype), gs.reshape(-1), 1, n,
+               dtype=in_dtype)
+    wire_bytes = 2 * (padded * _WIRE_ITEMSIZE[codec]
+                      + scale_bytes(padded, bs))
+    return full, shard.to(in_dtype), new_res, wire_bytes, 4
 
 
 class GradCommunicator:
@@ -347,7 +420,9 @@ class GradCommunicator:
 
     ``sync(params)`` reduces every parameter's ``.grad`` bucket by bucket
     (AVG over the ranks) and writes the result back into the ``.grad``
-    tensors in place. ``.stats`` holds the last sync's accounting:
+    tensors in place; with ``use_reduce_scatter`` each bucket's wire
+    value goes through reduce_scatter then all_gather (``_reduce``).
+    ``.stats`` holds the last sync's accounting:
     ``{"codec", "path", "n_params" (eager) or "world" (traced),
     "n_buckets", "collectives", "comm_bytes"}``, with ``comm_bytes`` the
     actual wire format's bytes.
@@ -443,9 +518,12 @@ class GradCommunicator:
         scales)`` are returned for ``FusedFlatUpdater.step_dequant``.
         ``path="traced"`` is the reference's label for the in-step sync;
         its ``stats`` carry the world size, as the reference's step
-        records them, where the eager sync's carry the parameter count."""
-        if use_reduce_scatter:
-            raise NotImplementedError(_RS_LATER)
+        records them, where the eager sync's carry the parameter count.
+        ``use_reduce_scatter`` (not with ``payload_only``) sends every
+        bucket through reduce_scatter then all_gather."""
+        if use_reduce_scatter and payload_only:
+            raise ValueError("payload_only stops at the all-reduced "
+                             "payload; use_reduce_scatter decodes")
         params = [p for p in params if p.grad is not None]
         if world is None:
             from .env import get_world_size
@@ -461,28 +539,43 @@ class GradCommunicator:
             return [] if payload_only else None
         buckets = self.buckets_for(params, [p.grad.dtype for p in params])
         self.stats["n_buckets"] = len(buckets)
-        ef = self.config.error_feedback and self.config.codec in EF_CODECS
         payloads = []
         with torch.no_grad(), torch.profiler.record_function("comm"):
             for b in buckets:
                 flat = (self._flatten_bucket(b, params) if flats is None
                         else flats[b.index])
-                residual = self.residual(b, flat.device) if ef else None
                 if payload_only:
-                    q_sum, scales, new_res, wire_bytes, n_coll = \
-                        self.reduce_bucket_payload(b, flat, world,
-                                                   residual=residual)
-                    payloads.append((q_sum, scales))
+                    payloads.append(self._sync_bucket(b, flat, world,
+                                                      payload=True))
                 else:
-                    reduced, new_res, wire_bytes, n_coll = \
-                        self.reduce_bucket(b, flat, world, residual=residual)
-                    self._scatter_bucket(b, params, reduced)
-                if new_res is not None:
-                    self._residuals[b.index] = new_res
-                self.stats["collectives"] += n_coll
-                self.stats["comm_bytes"] += wire_bytes
+                    self._scatter_bucket(b, params, self._sync_bucket(
+                        b, flat, world, use_reduce_scatter))
         self._record_metrics(buckets, path)
         return payloads if payload_only else None
+
+    def _sync_bucket(self, bucket: GradBucket, flat, world: int,
+                     use_reduce_scatter: bool = False, payload=False):
+        """``reduce_bucket`` (or, with ``payload``,
+        ``reduce_bucket_payload``, returning ``(q_sum, scales)``) with the
+        residual taken from and kept in ``_residuals`` and the accounting
+        added to ``stats``: one bucket of the eager sync, the overlapped
+        lane's unit of work."""
+        ef = self.config.error_feedback and self.config.codec in EF_CODECS
+        residual = self.residual(bucket, flat.device) if ef else None
+        if payload:
+            q_sum, scales, new_res, wire_bytes, n_coll = \
+                self.reduce_bucket_payload(bucket, flat, world,
+                                           residual=residual)
+            reduced = (q_sum, scales)
+        else:
+            reduced, new_res, wire_bytes, n_coll = self.reduce_bucket(
+                bucket, flat, world, use_reduce_scatter=use_reduce_scatter,
+                residual=residual)
+        if new_res is not None:
+            self._residuals[bucket.index] = new_res
+        self.stats["collectives"] += n_coll
+        self.stats["comm_bytes"] += wire_bytes
+        return reduced
 
     @staticmethod
     def _flatten_bucket(bucket: GradBucket, params) -> torch.Tensor:
@@ -498,7 +591,7 @@ class GradCommunicator:
                                      bucket.numels, bucket.shapes):
             params[pi].grad.copy_(reduced[off:off + n].view(shape))
 
-    def _record_metrics(self, buckets, path: str):
+    def _record_metrics(self, buckets, path: str = "eager"):
         record_sync_metrics(self.config.codec, self.stats["collectives"],
                             self.stats["comm_bytes"], path)
         for b in buckets:
@@ -560,9 +653,10 @@ class GradCommunicator:
         is the incoming error-feedback residual (or None); returns
         ``(reduced, new_residual, wire_bytes, collectives)``, with
         ``reduced`` a new tensor in the bucket's dtype and
-        ``new_residual`` None for codecs without error feedback."""
-        if use_reduce_scatter:
-            raise NotImplementedError(_RS_LATER)
+        ``new_residual`` None for codecs without error feedback. With
+        ``use_reduce_scatter`` the wire value goes through ``_reduce``'s
+        reduce_scatter then all_gather: the payload's bytes count twice
+        and the pair one collective more."""
         codec = self.config.codec
         ef = self.config.error_feedback and codec in EF_CODECS
         new_res = None
@@ -575,9 +669,28 @@ class GradCommunicator:
             q = int8_encode(flat, scale)
             if ef:
                 new_res = int8_residual(flat, q, scale)
-            _coll.all_reduce(q, op=ReduceOp.SUM, group=self.group)
+            q = self._reduce(q, ReduceOp.SUM, use_reduce_scatter, world)
             reduced = int8_decode(q, scale, world, bucket.dtype)
             wire_bytes = bucket.size * _WIRE_ITEMSIZE["int8"] + 4
+            n_coll = 2
+        elif codec in BLOCK_CODECS and use_reduce_scatter:
+            bs = self.config.block_size
+            if ef and residual is not None:
+                flat = flat.to(torch.float32) + residual
+            enc, dec = _block_kernel_ops()
+            absmax = block_absmax(flat, bs)
+            _coll.all_reduce(absmax, op=ReduceOp.SUM, group=self.group)
+            scales = block_scales(absmax, codec)
+            q = enc(flat, scales, bs, codec, carrier=True)
+            if ef:
+                new_res = block_residual(flat, q, scales, bucket.size)
+            # the (n_blocks, block_size) payload rides the wire flat
+            q_sum = self._reduce(q.reshape(-1), ReduceOp.SUM, True,
+                                 world).reshape(q.shape)
+            reduced = dec(q_sum, scales, world, bucket.size,
+                          dtype=bucket.dtype)
+            wire_bytes = (bucket.size * _WIRE_ITEMSIZE[codec]
+                          + scale_bytes(bucket.size, bs))
             n_coll = 2
         elif codec in BLOCK_CODECS:
             q, scales, new_res, wire_bytes, n_coll = \
@@ -586,17 +699,42 @@ class GradCommunicator:
             _enc, dec = _block_kernel_ops()
             reduced = dec(q, scales, world, bucket.size, dtype=bucket.dtype)
         elif codec == "bf16" and bucket.dtype.itemsize > 2:
-            wire = encode_bf16(flat)
-            _coll.all_reduce(wire, op=ReduceOp.AVG, group=self.group)
-            reduced = decode_bf16(wire, bucket.dtype)
+            reduced = decode_bf16(
+                self._reduce(encode_bf16(flat), ReduceOp.AVG,
+                             use_reduce_scatter, world), bucket.dtype)
             wire_bytes = bucket.size * _WIRE_ITEMSIZE["bf16"]
             n_coll = 1
         else:
-            reduced = flat.clone()
-            _coll.all_reduce(reduced, op=ReduceOp.AVG, group=self.group)
+            reduced = self._reduce(flat, ReduceOp.AVG, use_reduce_scatter,
+                                   world)
             wire_bytes = bucket.size * flat.dtype.itemsize
             n_coll = 1
+        if use_reduce_scatter:
+            # the payload crosses the wire twice (reduce_scatter half +
+            # all_gather half) and counts as two collectives
+            payload = wire_bytes - (4 if codec == "int8" else 0) \
+                - (scale_bytes(bucket.size, self.config.block_size)
+                   if codec in BLOCK_CODECS else 0)
+            wire_bytes += payload
+            n_coll += 1
         return reduced, new_res, wire_bytes, n_coll
+
+    def _reduce(self, wire_val, op, use_reduce_scatter: bool, world: int):
+        """One flat wire value reduced over the ranks, as a new tensor:
+        all-reduced, or with ``use_reduce_scatter`` padded to a multiple
+        of ``world``, reduce-scattered (each rank reduces its own shard)
+        and all-gathered back."""
+        if use_reduce_scatter:
+            n = wire_val.numel()
+            pad = (-n) % world
+            if pad:
+                wire_val = torch.cat([wire_val, wire_val.new_zeros(pad)])
+            shard = _coll.reduce_scatter(wire_val, op=op, group=self.group)
+            full = _coll.all_gather(None, shard, group=self.group)
+            return full.reshape(-1)[:n]
+        out = wire_val.clone()
+        _coll.all_reduce(out, op=op, group=self.group)
+        return out
 
     def describe(self) -> list:
         """One row per bucket of the current plan."""
@@ -613,3 +751,69 @@ class GradCommunicator:
     def __repr__(self):
         return (f"GradCommunicator({self.config!r}, "
                 f"buckets={len(self._buckets or [])})")
+
+
+def config_from_strategy(strategy, comm_buffer_size: float = 25,
+                         last_comm_buffer_size: float = 1,
+                         default_codec: str = "fp32") -> GradCommConfig:
+    """The wire config of a ``DistributedStrategy``: its
+    ``grad_comm_configs`` when the ``grad_comm`` toggle is on; else bf16
+    under ``fp16_allreduce``; else ``default_codec`` with the caller's
+    bucket caps."""
+    if strategy is not None and getattr(strategy, "grad_comm", False):
+        gc = strategy.grad_comm_configs
+        return GradCommConfig(
+            codec=gc["codec"],
+            comm_buffer_size=gc["comm_buffer_size_MB"],
+            last_comm_buffer_size=gc["last_comm_buffer_size_MB"],
+            error_feedback=gc["error_feedback"],
+            overlap=gc.get("overlap", False),
+            block_size=gc.get("block_size", 1024))
+    codec = ("bf16" if strategy is not None
+             and getattr(strategy, "fp16_allreduce", False)
+             else default_codec)
+    return GradCommConfig(codec=codec, comm_buffer_size=comm_buffer_size,
+                          last_comm_buffer_size=last_comm_buffer_size)
+
+
+def comm_plan(params, config: Optional[GradCommConfig] = None,
+              world: int = 2) -> dict:
+    """Host-side wire plan of one gradient sync of ``params`` (those with
+    ``requires_grad``) under ``config``: buckets, collectives and wire
+    bytes a step beside the per-parameter baseline. No collective runs."""
+    config = config or GradCommConfig()
+    params = [p for p in params if p.requires_grad]
+    buckets = build_buckets(params, config.comm_buffer_size,
+                            config.last_comm_buffer_size)
+    total_numel = sum(b.size for b in buckets)
+    grad_bytes = sum(b.nbytes for b in buckets)
+    per_elem = _WIRE_ITEMSIZE[config.codec]
+    if config.codec == "bf16":
+        # bf16 halves only wider-than-16-bit gradients
+        comm_bytes = sum(b.size * min(per_elem, b.dtype.itemsize)
+                         for b in buckets)
+    else:
+        comm_bytes = total_numel * per_elem
+    collectives = len(buckets)
+    if config.codec == "int8":
+        collectives *= 2
+        comm_bytes += 4 * len(buckets)
+    elif config.codec in BLOCK_CODECS:
+        collectives *= 2
+        comm_bytes += sum(scale_bytes(b.size, config.block_size)
+                          for b in buckets)
+    return {
+        "codec": config.codec,
+        "world": int(world),
+        "n_params": len(params),
+        "n_buckets": len(buckets),
+        "total_grad_numel": int(total_numel),
+        "grad_bytes": int(grad_bytes),
+        "collectives_per_step": int(collectives),
+        "comm_bytes_per_step": int(comm_bytes),
+        "per_param_collectives": len(params),
+        "per_param_comm_bytes": int(grad_bytes),
+        "bucket_bound": int(math.ceil(grad_bytes / _MB /
+                                      config.comm_buffer_size)
+                            + len({b.dtype for b in buckets}) + 1),
+    }

@@ -21,7 +21,11 @@ sizes and over ragged ones (n % 4 != 0, n = 1, mixed weight decay and
 lr_mult), every rule, three steps, parameters, slots and stepped beta
 powers bit-identical to its plain walk, one launch a step; the
 updater's table kept while its pointers stay and rebuilt after the
-``torch.cat`` gradient fallback. The bf16 forms: the flash kernels on
+``torch.cat`` gradient fallback. ZeRO's shard table (every rank's
+``[r * chunk, (r + 1) * chunk)`` of padded flat buffers, views) bit for
+bit against its plain walk over three steps, ``step_sharded`` on the card
+bit for bit against the CPU, and the codecs on shard views whose length
+is off the block. The bf16 forms: the flash kernels on
 bf16 inputs element by element within ``flash_bf16_limit`` (2e-2 of the
 plain value's magnitude plus 1.6e-2 of its row's RMS plus 1e-5; lse
 1e-4), their backward deterministic, each launch counted under its
@@ -682,6 +686,71 @@ def check_buckets_bit_identical(dev, kind, sizes, wds, lms,
     # one launch a step, whatever the number of buckets
     assert buckets_vs_plain(kind, FUSED_HYPER[kind], entries, lr, steps=3,
                             gen=gen) == 3
+
+
+def check_shard_table_matches_plain(dev, sizes, world):
+    """ZeRO's shard table: each bucket's flat buffers padded to ``world *
+    chunk``, every rank's ``[r * chunk, (r + 1) * chunk)`` an entry (a
+    view), AdamW, three steps against the plain walk on clones; then
+    ``FusedFlatUpdater.step_sharded`` at stage 2 in one process (the
+    table holds every rank's shard) bit for bit against the same on the
+    CPU, one launch a step."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(sum(sizes) + world)
+    entries = []
+    for n in sizes:
+        chunk = -(-n // world)
+        flats = [torch.zeros(world * chunk, device=dev) for _ in range(4)]
+        for f in flats:
+            f[:n] = torch.randn(n, device=dev, generator=gen)
+        flats[2].abs_().mul_(1e-2)
+        flats[3].abs_().mul_(1e-2)
+        entries += [(flats[0][r * chunk:(r + 1) * chunk],
+                     flats[1][r * chunk:(r + 1) * chunk],
+                     [f[r * chunk:(r + 1) * chunk] for f in flats[2:]],
+                     0.01, 1.0) for r in range(world)]
+    lr = torch.full((), 1e-3, device=dev)
+    assert buckets_vs_plain("adamw", FUSED_HYPER["adamw"], entries, lr,
+                            steps=3, gen=gen) == 3
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        rs = np.random.RandomState(len(sizes))
+        params = [torch.nn.Parameter(torch.from_numpy(
+            rs.randn(n).astype(np.float32)).to(device)) for n in sizes]
+        opt = AdamW(learning_rate=1e-3, parameters=params)
+        upd = FusedFlatUpdater(opt, params, world=world)
+        before = fu.fused_update_buckets.launches
+        for k in range(2):
+            upd.zero_grad()
+            for p in params:
+                p.grad.copy_(torch.from_numpy(
+                    rs.randn(p.numel()).astype(np.float32)))
+            upd.step_sharded(0, world)
+        runs.append(([p.detach().cpu() for p in params],
+                     fu.fused_update_buckets.launches - before))
+    (card, launches), (cpu, _) = runs
+    assert launches == 2
+    for a, b in zip(card, cpu):
+        assert torch.equal(a, b)
+
+
+def check_codec_on_shard_lengths(dev, codec_name, n, bs, world):
+    """The codecs on a rank's shard of a bucket padded to ``world *
+    chunk``: a view at the shard's offset, its length not a multiple of
+    the block, read in place; payload and decode bit for bit."""
+    chunk = -(-n // world)
+    x = _x(world * chunk, bs, seed=n + world)
+    for r in range(world):
+        view = x.to(dev)[r * chunk:(r + 1) * chunk]
+        ref = x[r * chunk:(r + 1) * chunk]
+        s = plain.block_scales(plain.block_absmax(ref, bs), codec_name)
+        q_ref = plain.block_encode(ref, s, bs, codec_name, carrier=True)
+        q = codec.block_encode(view, s.to(dev), bs, codec_name,
+                               carrier=True)
+        assert torch.equal(q.cpu(), q_ref)
+        d = codec.block_decode(q, s.to(dev), world, chunk)
+        assert torch.equal(d.cpu(), plain.block_decode(q_ref, s, world,
+                                                       chunk))
 
 
 def check_updater_table_rebuilt_after_cat_fallback(dev):
@@ -1645,6 +1714,17 @@ def test_cuda_path_matches_plain(dev):
                              torch.bfloat16)))]
         + [(check_updater_table_rebuilt_after_cat_fallback, (dev,)),
            (check_bucket_wrappers_raise, (dev,))]
+        # ZeRO: the shard table (GPT-125M's plan halved, and ragged
+        # buckets whose shards start 16-byte aligned), and the codecs on
+        # shard lengths off the block
+        + [(check_shard_table_matches_plain, (dev, sizes, world))
+           for sizes, world in ((_gpt125m_bucket_sizes(), 2),
+                                ((8, 4104, 100008, 24), 2),
+                                ((16, 4096, 96), 4))]
+        + [(check_codec_on_shard_lengths, (dev, c, n, bs, w))
+           for c in CODECS for n, bs, w in ((10_002, 1024, 2),
+                                            (38_633_472, 1024, 2),
+                                            (777, 128, 3))]
         + [(check_quantize_kernel_bit_identical, (dev, shape, st, seed))
            for shape in ((1, 1), (7, 2), (768, 2), (100, 37), (1000, 37),
                          (64, 128), (769, 770), (768, 768), (3072, 768),

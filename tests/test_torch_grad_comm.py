@@ -24,8 +24,10 @@ communicator state) against the JAX reference
   ``(world, bucket_size)`` residuals into the port's two ranks and back
   unchanged.
 - The not-ported options raise ``NotImplementedError`` naming their
-  ROADMAP item (``sync_op=False`` among them); ``DataParallel`` refuses
-  bucket caps given beside a ``GradCommConfig``.
+  ROADMAP item (``sync_op=False`` among them), while ``use_reduce_scatter``
+  and ``overlap=True`` run (``tests/test_torch_zero.py`` and
+  ``tests/test_torch_overlap.py`` hold them against the reference);
+  ``DataParallel`` refuses bucket caps given beside a ``GradCommConfig``.
 
 The file collects one test that runs every case (``tests/torch_checks.py``
 says why).
@@ -280,12 +282,13 @@ def check_not_ported_options_raise():
     comm = tgc.GradCommunicator(tgc.GradCommConfig("int8_block"))
     b = tgc.GradBucket(0, torch.float32)
     b.add(0, (8,))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 2"):
-        comm.reduce_bucket(b, torch.zeros(8), 2, use_reduce_scatter=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 2"):
-        tgc.GradCommConfig("int8_block", overlap=True)
-    for name in ("reduce_scatter", "all_gather", "alltoall", "send", "recv",
-                 "split", "in_trace_psum"):
+    # ported since: one process, so the reduce_scatter -> all_gather pair
+    # leaves the payload as it is
+    reduced, _, wire, ncoll = comm.reduce_bucket(b, torch.ones(8), 2,
+                                                 use_reduce_scatter=True)
+    assert ncoll == 3 and wire == 2 * 8 + 4
+    assert tgc.GradCommConfig("int8_block", overlap=True).overlap
+    for name in ("alltoall", "send", "recv", "split", "in_trace_psum"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5"):
             getattr(tcoll, name)(torch.zeros(2))
     for name in ("all_reduce", "broadcast"):

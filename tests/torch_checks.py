@@ -946,6 +946,42 @@ def buckets_vs_plain(kind, hyper, entries, lr, *, steps=3, gen=None,
     return launches
 
 
+def table_step_vs_plain(table, lr, run) -> float:
+    """``run()``, which launches ``fused_update_buckets`` on ``table``
+    (a ZeRO shard table: views of the flat buffers), against
+    ``buckets_plain`` on a table of clones of its entries and powers
+    taken before it. Returns the max abs difference; raises unless
+    parameters, slots and stepped powers are bit-identical."""
+    clones = [(p.clone(), g.clone(), [s.clone() for s in arrs], wd, lm)
+              for p, g, arrs, wd, lm in table.entries]
+    ptab = fu.BucketTable(table.kind, table.hyper, clones)
+    if table.adam:
+        ptab.load_powers([(a.clone(), b.clone())
+                          for a, b in table.powers()])
+    before = fu.fused_update_buckets.launches
+    run()
+    if fu.fused_update_buckets.launches != before + 1:
+        raise AssertionError("the step made "
+                             f"{fu.fused_update_buckets.launches - before} "
+                             f"fused_update_buckets launches, not 1")
+    fu.buckets_plain(ptab, lr)
+    pairs = []
+    for b, (ke, pe) in enumerate(zip(table.entries, clones)):
+        pairs.append((f"shard {b} p", ke[0], pe[0]))
+        pairs += [(f"shard {b} {nm}", a, c) for nm, a, c in
+                  zip(fu.slot_names(table.kind), ke[2], pe[2])]
+    if table.adam:
+        pairs += [(f"shard {b} beta{j + 1}_pow", a, c)
+                  for b, (kp, pp) in enumerate(zip(table.powers(),
+                                                   ptab.powers()))
+                  for j, (a, c) in enumerate(zip(kp, pp))]
+    differ = [n for n, a, c in pairs if not same_bits(a, c)]
+    if differ:
+        raise AssertionError(f"shard table: {differ[:6]} differ from plain "
+                             f"({len(differ)} of {len(pairs)})")
+    return max(_max_abs(a, c) for _, a, c in pairs)
+
+
 # ------------------------------------------------------------- ResNet
 def resnet_stages(model, flatten):
     """The stages of a ResNet (the port's or the reference's: the same

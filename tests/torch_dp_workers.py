@@ -234,3 +234,211 @@ def clip_dp_case(gpt_params, ids, labels):
               for _ in range(2)]
     return {"losses": losses, "fused": step._gc_fused,
             "params": [_np(p) for p in model.parameters()]}
+
+
+# ------------------------------------------------------------------ ZeRO
+ZERO_MLP_BLOCK = 16        # block size of the MLP's blockwise wire
+MLP_SHAPES = [(8, 16), (16,), (16, 1), (1,)]
+_rng = np.random.RandomState(0)
+ZERO_X = _rng.standard_normal((16, 8)).astype(np.float32)
+ZERO_Y = _rng.standard_normal((16, 1)).astype(np.float32)
+_ids_rs = np.random.RandomState(0)
+ZERO_IDS = _ids_rs.randint(0, 256, (4, 16)).astype(np.int64)
+ZERO_LABELS = _ids_rs.randint(0, 256, (4, 16)).astype(np.int64)
+
+
+def mlp_rounds(seed):
+    """Two rounds of MLP-shaped gradients of one rank."""
+    rs = np.random.RandomState(seed)
+    return [[(rs.standard_normal(s) * 0.1).astype(np.float32)
+             for s in MLP_SHAPES] for _ in range(2)]
+
+
+ZERO_ROUNDS = [mlp_rounds(11), mlp_rounds(12)]
+
+
+def seeded_mlp(seed=3):
+    """The MLP on weights drawn from ``seed``."""
+    rs = np.random.RandomState(seed)
+    return mlp([rs.standard_normal(s).astype(np.float32)
+                for s in MLP_SHAPES])
+
+
+def _zero_config(codec, **caps):
+    caps = caps or dict(comm_buffer_size=0.0002, last_comm_buffer_size=0.0001)
+    return GradCommConfig(codec, block_size=ZERO_MLP_BLOCK, **caps)
+
+
+def _collective_cases(x):
+    """``reduce_scatter`` (tensor form SUM and AVG, list form) and
+    ``all_gather`` (stacked and into a list) of this rank's ``x``."""
+    from paddle_tpu_torch.distributed import collective as coll
+
+    t = torch.from_numpy(x)
+    half = t.shape[0] // 2
+    out = {"rs_sum": coll.reduce_scatter(t.clone()),
+           "rs_avg": coll.reduce_scatter(t.clone(), op=coll.ReduceOp.AVG),
+           "rs_list": coll.reduce_scatter(torch.empty_like(t[:half]),
+                                          [t[:half], t[half:]]),
+           "ag": coll.all_gather(None, t),
+           "ag_list": torch.stack(coll.all_gather([], t))}
+    return {k: _np(v) for k, v in out.items()}
+
+
+def rs_sync_rounds(codec, rounds_grads, world=2, overlap=False):
+    """``GradCommunicator.sync(use_reduce_scatter=True)`` (or, with
+    ``overlap``, the overlapped communicator's flush after the grad-ready
+    hooks fire) over this rank's gradient lists, one sync a round, the
+    error-feedback residual carried: the reduced gradients of each
+    round, the last stats and the residuals."""
+    from paddle_tpu_torch.distributed.overlap import communicator_for
+
+    cfg = _zero_config(codec)
+    if overlap:
+        cfg = GradCommConfig(cfg.codec, cfg.comm_buffer_size,
+                             cfg.last_comm_buffer_size, overlap=True,
+                             block_size=cfg.block_size)
+    comm = communicator_for(cfg)
+    reduced = []
+    for grads in rounds_grads:
+        params = [torch.zeros(g.shape, requires_grad=True) for g in grads]
+        if overlap:
+            comm.prepare(params, world=world, use_reduce_scatter=True)
+        for p, g in zip(reversed(params), reversed(grads)):
+            p.grad = torch.from_numpy(g.copy())
+            if overlap:
+                comm._on_grad_ready(p)
+        comm.sync(params, world=world, use_reduce_scatter=True)
+        reduced.append([_np(p.grad) for p in params])
+    return {"reduced": reduced, "stats": dict(comm.stats),
+            "residuals": {i: _np(r) for i, r in comm._residuals.items()}}
+
+
+def _traced_cases(cases, rank):
+    """``traced_reduce_scatter_quantized`` on this rank's row of each
+    case's flats (and residuals)."""
+    out = {}
+    for name, (flats, residuals, codec, bs) in cases.items():
+        r = None if residuals is None else torch.from_numpy(residuals[rank])
+        full, shard, res, wire, ncoll = tgc.traced_reduce_scatter_quantized(
+            torch.from_numpy(flats[rank]), None, 2,
+            GradCommConfig(codec, block_size=bs), residual=r)
+        out[name] = {"full": _np(full), "shard": _np(shard),
+                     "residual": None if res is None else _np(res),
+                     "wire": wire, "ncoll": ncoll}
+    return out
+
+
+def zero_gpt(gpt_params, ids, labels, level, codec, steps=3,
+             overlap=False):
+    """``gpt-test`` through ``group_sharded_parallel(level,
+    fuse_update=True)`` on ``codec`` (test-size caps: several buckets),
+    this rank's half of the batch, AdamW: each step forward, backward,
+    the reduce_scatter sync and ``step_sharded``. Returns the losses, the
+    full parameters, this rank's shard slots, the residuals and the
+    stage-3 store's gather counts and at-rest bytes."""
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+
+    rank = get_rank()
+    model = gpt_test(gpt_params)
+    opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                parameters=model.parameters())
+    cfg = GradCommConfig(codec, comm_buffer_size=0.05,
+                         last_comm_buffer_size=0.01, block_size=64)
+    model, opt, _ = group_sharded_parallel(model, opt, level,
+                                           overlap_comm=overlap,
+                                           fuse_update=True, grad_comm=cfg)
+    store = getattr(model, "_zero3", None)
+    if store is not None:
+        store.register_external_use(model,
+                                    model.gpt.embeddings.word_embeddings)
+    fused, comm = model._fused_update, model._grad_comm
+    params = fused.params
+    b = ids.shape[0] // 2
+    x = torch.from_numpy(ids[rank * b:(rank + 1) * b])
+    y = torch.from_numpy(labels[rank * b:(rank + 1) * b])
+    crit = GPTPretrainingCriterion()
+    losses = []
+    for _ in range(steps):
+        fused.zero_grad()
+        if overlap:
+            comm.prepare(params, world=2, use_reduce_scatter=True)
+        loss = crit(model(x), y)
+        loss.backward()
+        comm.sync(params, world=2, use_reduce_scatter=True)
+        fused.step_sharded(rank, 2, param_store=store)
+        losses.append(float(loss.detach()))
+    out = {"losses": losses,
+           "slots": {i: {k: _np(v) for k, v in s.items()}
+                     for i, s in fused._shard_slots.items()},
+           "residuals": {i: _np(r) for i, r in comm._residuals.items()},
+           "table_builds": fused.table_builds}
+    if store is not None:
+        out.update(gathers=dict(store.gathers),
+                   at_rest=store.param_bytes_per_rank(),
+                   resident=store.resident_buckets())
+        with store.materialize():
+            out["params"] = [_np(p) for p in model.parameters()]
+    else:
+        out["params"] = [_np(p) for p in model.parameters()]
+    return out
+
+
+def zero_cases(coll_x, mlp_rounds, traced, gpt_params, ids, labels):
+    """Every world-2 run of ``test_torch_zero.py`` on this rank."""
+    rank = _join()
+    out = {"collectives": _collective_cases(coll_x[rank]),
+           "rs_sync": {c: rs_sync_rounds(c, mlp_rounds[rank])
+                       for c in ("fp32", "bf16", "int8", "int8_block")},
+           "traced": _traced_cases(traced, rank)}
+    for level in ("os_g", "p_g_os"):
+        for codec in ("int8_block", "fp32"):
+            out[(level, codec)] = zero_gpt(gpt_params, ids, labels, level,
+                                           codec)
+    return out
+
+
+def overlap_cases(mlp_rounds, gpt_params, ids, labels):
+    """Every world-2 run of ``test_torch_overlap.py`` on this rank: the
+    MLP's gradient rounds through the serial and the overlapped
+    reduce_scatter sync and all-reduce sync, and ``gpt-test`` through
+    ``DataParallel`` on a strategy's wire with overlap on and off."""
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+
+    rank = _join()
+    out = {}
+    for codec in ("fp32", "int8_block"):
+        for ov in (False, True):
+            out[("rs", codec, ov)] = rs_sync_rounds(codec, mlp_rounds[rank],
+                                                    overlap=ov)
+    b = ids.shape[0] // 2
+    x = torch.from_numpy(ids[rank * b:(rank + 1) * b])
+    y = torch.from_numpy(labels[rank * b:(rank + 1) * b])
+    for codec in ("fp32", "int8_block"):
+        for ov in (False, True):
+            st = DistributedStrategy()
+            st.grad_comm = True
+            st.grad_comm_configs = {"codec": codec, "overlap": ov,
+                                    "comm_buffer_size_MB": 0.05,
+                                    "last_comm_buffer_size_MB": 0.01,
+                                    "block_size": 64}
+            model = DataParallel(gpt_test(gpt_params), strategy=st)
+            rounds = []
+            for k in range(2):
+                for p in model.parameters():
+                    p.grad = None
+                loss = GPTPretrainingCriterion()(model(x), y)
+                loss.backward()
+                model.apply_collective_grads()
+                rounds.append([_np(p.grad) for p in model.parameters()])
+            comm = model.grad_communicator
+            out[("dp", codec, ov)] = {
+                "rounds": rounds, "type": type(comm).__name__,
+                "stats": {k: v for k, v in comm.stats.items()
+                          if not k.endswith("_s") and k not in (
+                              "overlapped", "overlap_efficiency",
+                              "buckets_launched_early")},
+                "early": comm.stats.get("buckets_launched_early"),
+                "residuals": {i: _np(r)
+                              for i, r in comm._residuals.items()}}
+    return out
