@@ -12,7 +12,9 @@ when every phase passed):
               the card, at the rows x 18,432 shapes the serve phase
               launches (see ``serve_shapes``): the decode step's batched
               append (8 rows), the prefix gather (128), the longest
-              uncached prompt, and (labelled as launched by no path here)
+              uncached prompt, the speculative step's batched append of
+              k+1 rows a sequence (40, phases 54-55), and (labelled as
+              launched by no path here)
               the 512-token prompt cap and the 1024-token context cap,
               for int8_block and fp8_block — payload and
               decode bit-identical; median ms over 30 launches (L2
@@ -700,7 +702,8 @@ when every phase passed):
               out on each route against quant_matmul_plain
               (torch_checks.qmm16_vs_plain); the logits card against CPU
               at 2 layers.
- 51. zero-2     GPT-125M fp32 through
+ 51. zero-2     GPT-125M fp32 at 2 layers (ZERO_LAYERS, a depth cut for
+              the script's time; full width) through
               sharding.group_sharded_parallel("os_g", overlap_comm=True,
               fuse_update=True): 2 ranks of 4 x 1024 on the card (gloo),
               each step forward, backward (the overlapped communicator's
@@ -709,13 +712,15 @@ when every phase passed):
               step with every all_reduce / reduce_scatter / all_gather
               timed and one whose shard-table launch is held bit for bit
               against its plain walk on clones; launches a step a rank
-              (18 encodes, 18 decodes, one fused_update_buckets over the
-              shard table, 18 all_gathers in the update, no dequantizing
-              update), comm_stats against comm_plan, the ranks' parameters
+              (one encode and one decode a bucket, 5 buckets at 2 layers,
+              one fused_update_buckets over the shard table, one
+              all_gather a bucket in the update, no dequantizing update),
+              comm_stats against comm_plan, the ranks' parameters
               bit-identical, peak and at-rest memory, the shard slots'
-              bytes beside phase 14's replicated run and its AdamW slots;
-              the fp32 wire 2 steps; the shard table timed beside its
-              bound at the shard's bytes and torch._fused_adamw_;
+              bytes, beside phase 14's replicated run (full depth) and
+              its AdamW slots; the fp32 wire 2 steps; the shard table of
+              the full depth's 18 buckets timed beside its bound at the
+              shard's bytes and torch._fused_adamw_;
  52. zero-3     phase 51 at "p_g_os": the parameters sharded at rest
               (the tied word table declared for the LM head), gathered a
               bucket ahead on the store's lane: the losses of both wires
@@ -730,6 +735,50 @@ when every phase passed):
               reduce_scatter sync bit-identical to the serial
               one over 2 backward passes of GPT-125M at 2 layers
               (int8_block, the residual carried), its overlap efficiency.
+ 54. spec     phase 3's traffic and pool geometry on one ServingEngine
+              with draft_model=dm.truncated(1), spec_k=4 (GPT-125M fp32,
+              the same weights as phase 3's: its guard digest is
+              checked): every request completes, tokens against phase
+              3's under the near-tie rule (equal, or where a request
+              differs a decision margin below 1e-3 at its first
+              differing position, read from a plain run of it alone;
+              torch_serving_checks.spec_rule), no block leaked, one
+              codec_encode a prompt and one a plain or speculative tick,
+              each launch one of the pool's calls, the prefix gathers;
+              tokens/s, sequence steps, tokens a step and the
+              speculative step's ms beside phase 3's; a peaked sampled
+              pair (temperature 0.8, top_k 20; at least half its plain
+              decisions at a margin of 1e-3 or more) against the plain
+              engine under the same rule; then a self-draft
+              (draft_model = the target) on an fp32 pool, which must
+              accept more than 4 tokens a step.
+ 55. replicas ReplicaSet(dm, n_replicas=2, codec="int8_block",
+              draft_model=dm.truncated(1), spec_k=4) on two worker
+              threads sharing the card, each replica warmed over phase
+              54's buckets, the watchdog at 10x phase 54's slowest tick
+              plus two guard digests (at least 3 s): phase 3's traffic,
+              every request completed, tokens against phase 54's under
+              the near-tie rule; chaos on its first 8 requests, each case
+              losing none and leaving no live pool holding a block: a hang
+              (a pre_step hook, after a decode step) evicted by the
+              watchdog, a crash, replica 1 serving from a weight with one
+              bit flipped on the card, caught by the ReplicaGuard every
+              16 ticks; scale_down re-admitting what it drained, then
+              replace()'s warm handoff (replica_boot_warm_ms, buckets
+              warmed, the TTFT of the requests re-admitted after it). In
+              every case the codec launches of the two threads, summed,
+              equal the pools' calls; where no request was re-admitted,
+              one encode a prompt and one a tick of either replica.
+ 56. telemetry
+              inside phase 55's hang case, a TelemetryServer on
+              127.0.0.1, port 0: /metrics through parse_prometheus_text,
+              /serving showing the eviction, /traces/<id> of an evicted
+              request reached from the latency histogram's exemplar,
+              naming queue_wait, prefill, the decode hop, drain,
+              eviction, requeue_front, queue_wait again and retire on
+              the survivor; /events, /healthz; the flight recorder's dump
+              from the hang escalation, written to a temporary directory,
+              parsed.
 
 Output: a JSON line of per-kernel numbers, then the device summary as the
 last line. Exits non-zero without output when no CUDA device is present.
@@ -759,6 +808,7 @@ CLOCK_QUERY = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 EPT = 12 * 2 * 768          # GPT-125M KV elements per token
 QB = 1024                   # KV quant block
 MAIN_SHAPE = "decode_step_8"  # the shape behind most serve-phase launches
+SPEC_K = 4                  # draft tokens a speculative step (phases 54-55)
 SOURCES = ("codec", "flash_attention", "fused_update", "quant_matmul",
            "fused_ce")
 TRAIN_B, TRAIN_S = 8, 1024          # the train phase's batch
@@ -917,12 +967,16 @@ def serve_shapes(reqs) -> dict:
     at a full batch; 1-7 while the batch fills and drains); a
     prefix-cache admission gathers its 128 shared tokens (read-back
     only); a prompt without a cache hit appends all its rows at once
-    (the longest such prompt of the traffic)."""
+    (the longest such prompt of the traffic); a speculative step
+    (phases 54-55) appends every sequence's k+1 rows in one batched
+    append (40 rows at a full batch)."""
     prompt = max(r.n_prompt for r in reqs[4:])   # no shared prefix
     both = ("codec_encode", "codec_decode")
+    spec = 8 * (SPEC_K + 1)
     return {"decode_step_8": (8, both),
             "prefix_gather_128": (128, ("codec_decode",)),
-            f"prefill_{prompt}": (prompt, both)}
+            f"prefill_{prompt}": (prompt, both),
+            f"spec_step_{spec}": (spec, both)}
 
 
 # the largest a 512-token prompt's append and a full 1024-token context's
@@ -1126,7 +1180,7 @@ def phase_serve(dm, seed: int):
         "launches": counts,
     }
     log("serve " + json.dumps(summary))
-    return counts
+    return counts, reqs, summary
 
 
 def phase_parity(cuda_dm, cpu_dm):
@@ -7693,6 +7747,7 @@ def phase_int8_fp16(dev, gen, seed, bert):
 # ------------------------------------------------------------ ZeRO
 ZERO_WARMUP, ZERO_STEPS = 1, 3      # int8_block steps of phases 51-52
 ZERO_FP32_STEPS = 2                 # the fp32 wire's steps
+ZERO_LAYERS = 2                     # phases 51-52: depth cut
 ZERO_RAGGED = 5_000_001             # phase 53's ragged bucket
 ZERO_OVERLAP_LAYERS = 2             # phase 53's overlap check: depth cut
 ZERO_WIRE_BLOCK = 1024
@@ -7879,10 +7934,11 @@ def _zero_want(n_layers, nb, steps):
 
 def phase_zero(cfg, seed, level, dp_rank, zero2=None, warmup=ZERO_WARMUP,
                steps=ZERO_STEPS, fp32_steps=ZERO_FP32_STEPS, b=DP_B,
-               s=DP_S, device="cuda", layers=None):
+               s=DP_S, device="cuda", layers=ZERO_LAYERS):
     """Phase 51 (``level="os_g"``) or 52 (``"p_g_os"``, with phase 51's
-    summary as ``zero2``): ``zero_rank`` on two ranks, its numbers beside
-    phase 14's replicated run (``dp_rank``), and its checks."""
+    summary as ``zero2``): ``zero_rank`` on two ranks at ``layers``
+    layers (None: full depth), its numbers beside phase 14's replicated
+    run at full depth (``dp_rank``), and its checks."""
     from paddle_tpu_torch.distributed import spawn
 
     t0 = time.perf_counter()
@@ -7897,7 +7953,8 @@ def phase_zero(cfg, seed, level, dp_rank, zero2=None, warmup=ZERO_WARMUP,
     replicated_slots = 2 * 4 * sum(run["buckets"])
     summary = {
         "stage": stage, "level": level, "backend": r0["backend"],
-        "world": DP_WORLD, "batch_per_rank": [b, s], "buckets": nb,
+        "layers": n_layers, "world": DP_WORLD, "batch_per_rank": [b, s],
+        "buckets": nb,
         "losses": run["losses"],
         "rank_losses": {w: [r[w]["losses"] for r in ranks]
                         for w in ("int8_block", "fp32")},
@@ -7934,7 +7991,8 @@ def phase_zero(cfg, seed, level, dp_rank, zero2=None, warmup=ZERO_WARMUP,
             exposed_gather_s=[r["int8_block"]["exposed_gather_s"]
                               for r in ranks])
     log(f"zero-{stage} " + json.dumps(summary))
-    log(f"zero-{stage} beside phase 14 in this call: step "
+    log(f"zero-{stage} at {n_layers} layers beside phase 14 (full depth) "
+        f"in this call: step "
         f"{summary['step_ms_median']:.2f} ms against "
         f"{summary['phase14']['step_ms_median']}; peak "
         f"{summary['peak_memory_gib']} GiB against "
@@ -8163,6 +8221,474 @@ def phase_zero_wire(cfg, seed, device="cuda", layers=ZERO_OVERLAP_LAYERS,
     return summary
 
 
+# ------------------------------------------- speculative serving, replicas
+SERVE_POOL = (512, 16)              # phase 3's pool: blocks x tokens
+SELF_DRAFT = (4, 32)                # phase 54's self-draft: requests, tokens
+GUARD_EVERY = 16                    # phase 55's guard: ticks a digest
+CHAOS_REQS = 8                      # phase 55's chaos cases: requests
+WATCHDOG_FLOOR_S = 3.0              # phase 55's watchdog, at the least
+
+
+def _serve_ticks(snap) -> int:
+    """Engine ticks that appended KV: plain decode and speculative steps."""
+    return (snap["serve_decode_step_ms"]["count"]
+            + snap["serve_spec_step_ms"]["count"])
+
+
+def _near_tie_pool(dm) -> dict:
+    """The pool of ``spec_rule``'s plain runs of one request alone."""
+    return dict(n_blocks=64, block_tokens=SERVE_POOL[1],
+                elems_per_token=dm.elems_per_token, codec="int8_block",
+                device=dm.device)
+
+
+def phase_spec_serve(dm, seed, serve3, plain_reqs):
+    """Phase 54: phase 3's traffic on one speculative engine
+    (``draft_model=dm.truncated(1)``, ``spec_k=4``) over phase 3's pool
+    geometry, its tokens against phase 3's plain run under the near-tie
+    rule (``torch_serving_checks.spec_rule``), no block leaked, one
+    encode a prompt and one a plain or speculative tick; a peaked
+    sampled pair (top_k=20) against the plain engine under the same
+    rule; then a self-draft on an fp32 pool, which must accept more
+    than k tokens a step. Returns the run's requests, counts, seen
+    buckets and the slowest tick."""
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.ops import codec
+    from paddle_tpu_torch.serving import (KVBlockPool, RequestQueue,
+                                          SamplingParams, ServeRequest,
+                                          ServingEngine)
+    from torch_serving_checks import (SPEC_TIE, GapSampler, drive, fresh,
+                                      spec_rule)
+
+    pool = KVBlockPool(*SERVE_POOL, dm.elems_per_token, codec="int8_block",
+                       device=dm.device)
+    queue = RequestQueue()
+    engine = ServingEngine(dm, pool, queue, max_batch=8,
+                           draft_model=dm.truncated(1), spec_k=SPEC_K)
+    queue.submit(ServeRequest(prompt_ids=np.arange(32), max_new_tokens=4))
+    while engine.step():               # warm-up off the books, as phase 3
+        pass
+    reqs = _traffic(seed, dm.vocab_size)
+    get_registry().reset()
+    codec.reset_launch_counts()
+    s0, e0 = engine.spec_steps, engine.spec_emitted
+    p0 = dict(pool.codec_calls)
+    tick_ms = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        if not queue.submit(r):
+            raise AssertionError("queue rejected a request")
+    while True:
+        t1 = time.perf_counter()
+        if not engine.step():
+            break
+        tick_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = codec.launch_counts()
+    snap = get_registry().snapshot()
+    bad = [r.request_id for r in reqs
+           if r.outcome != "completed" or len(r.generated) != 64]
+    if bad:
+        raise AssertionError(f"requests not completed: {bad}")
+    if pool.blocks_in_use:
+        raise AssertionError(f"{pool.blocks_in_use} KV blocks leaked")
+    differ = spec_rule(dm, plain_reqs, reqs, _near_tie_pool(dm))
+    ticks = _serve_ticks(snap)
+    gathers = counts["codec_decode"] - counts["codec_encode"]
+    log(f"spec launches {counts}: {len(reqs)} prompt appends + {ticks} "
+        f"ticks ({snap['serve_spec_step_ms']['count']} speculative, "
+        f"{snap['serve_decode_step_ms']['count']} plain), {gathers} prefix "
+        f"gathers")
+    calls = {k: pool.codec_calls[k] - p0[k] for k in p0}
+    if (counts["codec_encode"] != len(reqs) + ticks
+            or counts["codec_encode"] != calls["encode"]
+            or counts["codec_decode"] != calls["decode"] or gathers < 1):
+        raise AssertionError(f"launch counts {counts} disagree with the KV "
+                             f"appends or the pool's calls {calls}")
+    steps, emitted = engine.spec_steps - s0, engine.spec_emitted - e0
+    gen = sum(len(r.generated) for r in reqs)
+    spec = snap["serve_spec_step_ms"]
+    summary = {
+        "tokens_per_s": gen / wall, "wall_s": wall, "ticks": ticks,
+        "spec_steps": steps, "accepted_per_step": emitted / steps,
+        "spec_step_ms_mean": spec["mean"], "spec_step_ms_max": spec["max"],
+        "slowest_tick_ms": max(tick_ms),
+        "ttft_ms_p50": float(np.percentile([r.ttft_ms for r in reqs], 50)),
+        "near_tie_requests": len(differ), "launches": counts}
+    log("spec serve " + json.dumps(summary))
+    log(f"spec against phase 3 (plain) in this call: {gen / wall:.1f} "
+        f"tokens/s against {serve3['tokens_per_s']:.1f}; {steps} sequence "
+        f"steps committing {emitted / steps:.3f} tokens a step; a "
+        f"speculative step {spec['mean']:.2f} ms (max {spec['max']:.2f}) "
+        f"against a decode step's {serve3['decode_step_ms_mean']:.2f}; "
+        f"{len(differ)} of {len(reqs)} requests differ from phase 3, each at "
+        f"a decision margin below 1e-3: {differ}")
+    # the traffic's top_p requests decide over a near-uniform vocabulary
+    # at margins near 1e-6, where the near-tie rule lets any token flip;
+    # a peaked pair (top_k=20) decides mostly above the rule's limit, so
+    # a wrong verification stream or position fails it
+    peaked = SamplingParams(temperature=0.8, top_k=20)
+    pair = [ServeRequest(prompt_ids=reqs[i].prompt_ids, max_new_tokens=64,
+                         request_id=f"peaked-{i}", sampling=peaked)
+            for i in (5, 11)]
+    gaps = GapSampler()
+    pq = RequestQueue()
+    drive(ServingEngine(dm, KVBlockPool(*SERVE_POOL, dm.elems_per_token,
+                                        codec="int8_block",
+                                        device=dm.device),
+                        pq, max_batch=8, sampler=gaps), pq, pair)
+    spec_pair = fresh(pair)
+    drive(engine, queue, spec_pair)
+    peaked_differ = spec_rule(dm, pair, spec_pair, _near_tie_pool(dm))
+    far = sum(g >= SPEC_TIE for g in gaps.gaps.values())
+    log(f"peaked pair (temperature 0.8, top_k 20): {far} of "
+        f"{len(gaps.gaps)} plain decisions at a margin of {SPEC_TIE} or "
+        f"more (smallest {min(gaps.gaps.values()):.3g}); "
+        f"{len(peaked_differ)} of 2 differ from plain: {peaked_differ}")
+    if 2 * far < len(gaps.gaps):
+        raise AssertionError("the peaked pair decides mostly at near-ties: "
+                             "its check would hold nothing")
+    summary["peaked"] = {"decisions": len(gaps.gaps), "far": far,
+                         "near_tie_requests": len(peaked_differ)}
+    # the self-draft on an fp32 pool accepts (nearly) every proposal
+    n, new = SELF_DRAFT
+    fpool = KVBlockPool(128, SERVE_POOL[1], dm.elems_per_token, codec="fp32",
+                        device=dm.device)
+    fq = RequestQueue()
+    self_eng = ServingEngine(dm, fpool, fq, max_batch=8, draft_model=dm,
+                             spec_k=SPEC_K)
+    t0 = time.perf_counter()
+    drive(self_eng, fq, [ServeRequest(prompt_ids=r.prompt_ids[:128],
+                                      max_new_tokens=new,
+                                      request_id=f"self-{i}")
+                         for i, r in enumerate(_traffic(seed + 1,
+                                                        dm.vocab_size)[:n])])
+    aps = self_eng.spec_emitted / self_eng.spec_steps
+    log(f"self-draft (draft_model = the target) on an fp32 pool: "
+        f"{self_eng.spec_steps} sequence steps, {aps:.3f} tokens a step, "
+        f"{time.perf_counter() - t0:.2f} s for {n} x {new} tokens")
+    if not aps > SPEC_K:
+        raise AssertionError(f"the self-draft accepted {aps:.3f} tokens a "
+                             f"step, not more than {SPEC_K}")
+    return {"reqs": reqs, "counts": counts, "summary": summary,
+            "buckets": engine.seen_buckets(),
+            "slowest_tick_ms": max(tick_ms), "self_draft_aps": aps}
+
+
+def _replica_run(dm, seed, spec54, watchdog_s, n=None, during=None,
+                 after=None, **kw):
+    """One ``ReplicaSet`` of two replicas on worker threads over phase
+    3's traffic (its first ``n`` requests), each replica warmed over
+    phase 54's buckets first. ``during(rset)`` runs after the submits,
+    ``after(rset, res)`` once every request is done, both while the set
+    runs. Holds: every request completed, its tokens against phase 54's
+    under the near-tie rule, no live pool leaking, the codec launches of
+    the two threads summed equal to the pools' calls and, where no
+    request was re-admitted, to one encode a prompt and one a tick of
+    either replica. Returns the set, its results and a summary."""
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.ops import codec
+    from paddle_tpu_torch.serving import ReplicaSet
+    from torch_serving_checks import spec_rule
+
+    rset = ReplicaSet(dm, n_replicas=2, n_blocks=SERVE_POOL[0],
+                      block_tokens=SERVE_POOL[1], codec="int8_block",
+                      max_batch=8, draft_model=dm.truncated(1),
+                      spec_k=SPEC_K, watchdog_timeout=watchdog_s, **kw)
+    for e in rset.engines:
+        e.warm(spec54["buckets"])
+    reqs = _traffic(seed, dm.vocab_size)[:n]
+    ids = [r.request_id for r in reqs]
+    codec.reset_launch_counts()
+    ticks0 = _serve_ticks(get_registry().snapshot())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with rset:
+        for r in reqs:
+            if not rset.submit(r):
+                raise AssertionError("the set rejected a request")
+        if during is not None:
+            during(rset)
+        res = rset.wait(ids, timeout=600)
+        ages = rset.heartbeat_ages()
+        extra = after(rset, res) if after is not None else None
+    wall = time.perf_counter() - t0
+    counts = codec.launch_counts()
+    # read before spec_rule's plain runs add ticks of their own
+    ticks = _serve_ticks(get_registry().snapshot()) - ticks0
+    lost = sorted(set(ids) - set(res))
+    if lost:
+        raise AssertionError(f"requests lost: {lost}")
+    bad = [i for i, r in res.items()
+           if r.outcome != "completed" or len(r.generated) != 64]
+    if bad:
+        raise AssertionError(f"requests not completed: {bad}")
+    for e in rset.engines:
+        if e.alive and e.pool.blocks_in_use:
+            raise AssertionError(f"{e.name} leaked "
+                                 f"{e.pool.blocks_in_use} KV blocks")
+    want = {r.request_id: r for r in spec54["reqs"]}
+    differ = spec_rule(dm, [want[i] for i in ids], [res[i] for i in ids],
+                       _near_tie_pool(dm))
+    enc, dec = counts["codec_encode"], counts["codec_decode"]
+    pools = {e.name: dict(e.pool.codec_calls) for e in rset.engines}
+    attempts = sum(r.attempts for r in res.values())
+    if (enc != sum(c["encode"] for c in pools.values())
+            or dec != sum(c["decode"] for c in pools.values())
+            or (attempts == 0 and enc != len(ids) + ticks)):
+        raise AssertionError(f"codec launches {enc}/{dec} disagree with the "
+                             f"replicas' calls {pools} ({len(ids)} prompts, "
+                             f"{ticks} ticks, {attempts} re-admissions)")
+    summary = {
+        "requests": len(ids), "wall_s": wall,
+        "tokens_per_s": sum(len(r.generated) for r in res.values()) / wall,
+        "evictions": [(e["replica"], e["reason"], e["drained"])
+                      for e in rset.evictions],
+        "completed": {e.name: e.completed for e in rset.engines},
+        "alive": {e.name: e.alive for e in rset.engines},
+        "launches": {"codec_encode": enc, "codec_decode": dec},
+        "pool_calls": pools, "heartbeat_ages_s": ages,
+        "ticks": ticks, "attempts": attempts,
+        "near_tie_requests": len(differ)}
+    return rset, res, summary, extra
+
+
+def _hang_hook(gate, hung):
+    """A ``pre_step`` hook that hangs its replica once a running sequence
+    has been through a decode step (so its trace has a decode hop)."""
+    def hook(eng):
+        if not gate.is_set() and any(len(s.req.generated) > 1
+                                     for s in eng.running):
+            hung.set()
+            gate.wait(120)
+    return hook
+
+
+def _telemetry_checks(srv, rec, rset, res):
+    """Phase 56 inside the hang case, while the set runs: /metrics
+    through the strict parser, /serving showing the eviction, the trace
+    of an evicted request reached from the latency histogram's exemplar
+    naming every hop, /events, /healthz, and the flight recorder's dump
+    from the hang escalation parsed."""
+    import urllib.request
+
+    from paddle_tpu_torch.observability import parse_prometheus_text
+
+    def get(path):
+        with urllib.request.urlopen(srv.url + path, timeout=10) as resp:
+            return resp.read().decode()
+
+    t0 = time.perf_counter()
+    fams = parse_prometheus_text(get("/metrics"))
+    lat = fams["serve_request_latency_ms"]
+    serving = json.loads(get("/serving"))
+    if [e["reason"] for e in serving["evictions"]] != ["hang"]:
+        raise AssertionError(f"/serving evictions {serving['evictions']}")
+    hops = None
+    tried = []
+    for _, _, ex_labels, _ in lat["exemplars"]:
+        tid = ex_labels["trace_id"]
+        doc = json.loads(get("/traces/" + tid))
+        names = [s["name"] for s in doc["spans"]]
+        tried.append((tid, len(names)))
+        if "eviction" in names:
+            hops = (tid, doc)
+            break
+    if hops is None:
+        raise AssertionError(f"no latency exemplar names an evicted "
+                             f"request's trace: {tried}")
+    tid, doc = hops
+    names = [s["name"] for s in doc["spans"]]
+    decode = [n for n in names if n in ("decode_step", "spec_decode_step")]
+    order = ["queue_wait", "prefill", decode[0] if decode else "decode_step",
+             "drain", "eviction", "requeue_front", "queue_wait", "retire"]
+    pos, at = [], 0
+    for hop in order:
+        if hop not in names[at:]:
+            raise AssertionError(f"trace {tid} lacks {hop!r} after "
+                                 f"{names[:at]}: {names}")
+        at = names.index(hop, at) + 1
+        pos.append(at - 1)
+    ev = [s for s in doc["spans"] if s["name"] == "eviction"][0]
+    retire = doc["spans"][pos[-1]]
+    if (ev["fields"]["reason"] != "hang"
+            or ev["fields"]["replica"] != "replica-0"
+            or retire["fields"]["outcome"] != "completed"
+            or retire["fields"]["replica"] == "replica-0"):
+        raise AssertionError(f"trace {tid}: {ev['fields']} "
+                             f"{retire['fields']}")
+    events = json.loads(get("/events?n=200"))["events"]
+    if not any(e.get("message") == "replica evicted" for e in events):
+        raise AssertionError("/events lacks the eviction")
+    if get("/healthz") != "ok\n":
+        raise AssertionError("/healthz")
+    dumps = [d for d in rec.dumps if d["reason"] == "hang:heartbeat_stale"]
+    if not dumps:
+        raise AssertionError(f"no flight-recorder dump from the hang: "
+                             f"{rec.dumps}")
+    dump = json.load(open(dumps[0]["path"]))
+    kinds = Counter(e["kind"] for e in dump["entries"])
+    if (dump["reason"] != "hang:heartbeat_stale"
+            or not any(e["kind"] == "event" and e["name"] == "watchdog"
+                       for e in dump["entries"])):
+        raise AssertionError(f"the hang dump: {dump['reason']} {kinds}")
+    log(f"telemetry on {srv.url}: /metrics {len(fams)} families "
+        f"({len(lat['exemplars'])} latency exemplars), /serving "
+        f"{serving['alive_replicas']} alive, evictions "
+        f"{[(e['replica'], e['reason'], e['drained']) for e in serving['evictions']]}; "
+        f"trace {tid} (request {doc['request_id']}): "
+        f"{' -> '.join(names)}; the hang's dump "
+        f"{os.path.basename(dumps[0]['path'])}: {dump['n_entries']} entries "
+        f"{dict(kinds)}; scraped in {time.perf_counter() - t0:.3f} s")
+    return {"trace_hops": names, "exemplars": len(lat["exemplars"]),
+            "dump_entries": dump["n_entries"]}
+
+
+def phase_replicas(dm, seed, spec54):
+    """Phases 55-56: the replica set of two worker threads on the card,
+    its chaos cases, scaling and warm handoff, and (inside the hang case)
+    the telemetry server."""
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch.observability import (TelemetryServer,
+                                                configure_flight_recorder)
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.robustness import params_digest
+
+    t0 = time.perf_counter()
+    params_digest(dm.param_list())
+    digest_s = time.perf_counter() - t0
+    watchdog_s = max(WATCHDOG_FLOOR_S,
+                     10 * spec54["slowest_tick_ms"] / 1e3 + 2 * digest_s)
+    log(f"replicas: a guard digest of GPT-125M's {len(dm.param_list())} "
+        f"tensors {digest_s * 1e3:.1f} ms; watchdog {watchdog_s:.2f} s (10x "
+        f"phase 54's slowest tick, {spec54['slowest_tick_ms']:.1f} ms, + 2 "
+        f"digests); {len(spec54['buckets'])} buckets warmed a replica")
+    out = {"digest_ms": digest_s * 1e3, "watchdog_s": watchdog_s}
+
+    t1 = time.perf_counter()
+    rset, res, s, _ = _replica_run(dm, seed, spec54, watchdog_s)
+    log(f"replicas, clean ({time.perf_counter() - t1:.1f} s): "
+        + json.dumps(s))
+    if s["evictions"] or min(s["completed"].values()) < 1:
+        raise AssertionError("both replicas must serve, none evicted")
+    out["clean"] = s
+
+    # the hang, evicted by the watchdog, with phase 56's telemetry server
+    t1 = time.perf_counter()
+    gate, hung = threading.Event(), threading.Event()
+    get_registry().reset()
+    with tempfile.TemporaryDirectory() as d:
+        rec = configure_flight_recorder(capacity=8192, dump_dir=d)
+        try:
+            with TelemetryServer(port=0) as srv:
+                def during(rset):
+                    if not hung.wait(120):
+                        raise AssertionError("replica 0 never hung")
+
+                def after(rset, res):
+                    deadline = time.monotonic() + 30
+                    while not rset.evictions and time.monotonic() < deadline:
+                        time.sleep(0.05)
+                    tele = _telemetry_checks(srv, rec, rset, res)
+                    gate.set()             # the zombie wakes fenced
+                    return tele
+
+                rset, res, s, tele = _replica_run(
+                    dm, seed, spec54, watchdog_s, n=CHAOS_REQS,
+                    during=during, after=after,
+                    pre_step_hooks={0: _hang_hook(gate, hung)})
+        finally:
+            gate.set()
+            configure_flight_recorder()
+    if [e[1] for e in s["evictions"]] != ["hang"] or s["attempts"] < 1:
+        raise AssertionError(f"hang case: {s['evictions']}")
+    log(f"replicas, hang ({time.perf_counter() - t1:.1f} s): "
+        + json.dumps(s))
+    out["hang"], out["telemetry"] = s, tele
+
+    # a crash
+    t1 = time.perf_counter()
+    armed = {"on": True}
+
+    def crash(eng):
+        if eng.running and armed["on"]:
+            armed["on"] = False
+            raise RuntimeError("injected replica crash")
+
+    rset, res, s, _ = _replica_run(dm, seed, spec54, watchdog_s,
+                                   n=CHAOS_REQS, pre_step_hooks={0: crash})
+    if [e[1] for e in s["evictions"]] != ["error"]:
+        raise AssertionError(f"crash case: {s['evictions']}")
+    log(f"replicas, crash ({time.perf_counter() - t1:.1f} s): "
+        + json.dumps(s))
+    out["crash"] = s
+
+    # a corrupt replica: replica 1's own decode model, one bit flipped on
+    # the card, caught by the guard against the boot-time digest
+    t1 = time.perf_counter()
+    bad = type(dm).__new__(type(dm))
+    bad.__dict__.update(dm.__dict__)
+    bad.params = dict(dm.params)
+    w = dm.params["fc1_w"].clone()
+    w.view(torch.int32).view(-1)[12345] ^= 1 << 20
+    bad.params["fc1_w"] = w
+    rset, res, s, _ = _replica_run(dm, seed, spec54, watchdog_s,
+                                   n=CHAOS_REQS, guard_every=GUARD_EVERY,
+                                   models=[dm, bad])
+    if [e[:2] for e in s["evictions"]] != [("replica-1", "corrupt")]:
+        raise AssertionError(f"corrupt case: {s['evictions']}")
+    log(f"replicas, corrupt, guard every {GUARD_EVERY} ticks "
+        f"({time.perf_counter() - t1:.1f} s): " + json.dumps(s))
+    out["corrupt"] = s
+
+    # scale_down re-admits what it drained, then replace()'s warm handoff
+    t1 = time.perf_counter()
+    scaled = {}
+
+    def during(rset):
+        deadline = time.monotonic() + 120
+        while not rset.engines[1].running and time.monotonic() < deadline:
+            time.sleep(0.01)
+        scaled["down"] = rset.scale_down(1)
+        while len(rset.results) < 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        scaled["buckets"] = len(rset.warm_buckets())
+        scaled["t_replace"] = time.monotonic()
+        scaled["swap"] = rset.replace(0)
+
+    rset, res, s, _ = _replica_run(dm, seed, spec54, watchdog_s,
+                                   during=during)
+    down, swap = scaled["down"], scaled["swap"]
+    boot = rset.boots[-1]
+    if (down is None or down["drained"] < 1 or swap is None
+            or boot["mode"] != "warm" or boot["outcome"] != "ok"):
+        raise AssertionError(f"scaling: {down} {swap} {rset.boots}")
+    moved = [r for r in res.values()
+             if r.attempts > 0 and r.t_enqueue >= scaled["t_replace"]]
+    after_ms = [(r.t_first_token - r.t_enqueue) * 1e3 for r in moved]
+    log(f"replicas, scale_down then replace ({time.perf_counter() - t1:.1f} "
+        f"s): scale_down drained {down['drained']} (re-admitted, all "
+        f"completed); replace: replica_boot_warm_ms {boot['ms']:.1f} over "
+        f"{scaled['buckets']} buckets, {swap['drained']} requests handed to "
+        f"{swap['standby']}, their TTFT after re-admission "
+        f"{[round(x, 1) for x in after_ms]} ms (from first submit "
+        f"{[round(r.ttft_ms, 1) for r in moved]}); " + json.dumps(s))
+    out["scale"] = {**s, "scale_down_drained": down["drained"],
+                    "replica_boot_warm_ms": boot["ms"],
+                    "buckets_warmed": scaled["buckets"],
+                    "handed_over": swap["drained"],
+                    "ttft_after_readmission_ms": after_ms}
+    out["launches"] = {k: sum(out[c]["launches"][k]
+                              for c in ("clean", "hang", "crash", "corrupt",
+                                        "scale"))
+                       for k in ("codec_encode", "codec_decode")}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8193,7 +8719,10 @@ def main(argv=None) -> int:
     log(f"gpt-125m weights (seed 0) on cpu and {dev} in "
         f"{time.perf_counter() - t0:.1f} s")
     cuda_dm = GPTDecodeModel(cuda_model)
-    counts = phase_serve(cuda_dm, args.seed)
+    from paddle_tpu_torch.robustness import params_digest
+
+    digest3 = params_digest(cuda_dm.param_list())
+    counts, serve_reqs, serve3 = phase_serve(cuda_dm, args.seed)
     phase_parity(cuda_dm, GPTDecodeModel(cpu_model))
     phase_profile(cuda_dm, args.seed)
     del cuda_dm, cuda_model, cpu_model
@@ -8493,24 +9022,45 @@ def main(argv=None) -> int:
     log(f"phase 53 (zero wire): {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    # speculative serving, the replica set and its telemetry, on phase
+    # 3's model (the same weights: its guard digest is phase 3's)
+    from paddle_tpu_torch.robustness import params_digest
+
+    t0 = time.perf_counter()
+    spec_dm = GPTDecodeModel(GPTForCausalLM(cfg, seed=0, device=dev))
+    if not np.array_equal(params_digest(spec_dm.param_list()), digest3):
+        raise AssertionError("phase 54's GPT-125M is not phase 3's")
+    spec54 = phase_spec_serve(spec_dm, args.seed, serve3, serve_reqs)
+    log(f"phase 54 (speculative serving): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    replicas = phase_replicas(spec_dm, args.seed, spec54)
+    log(f"phases 55-56 (replica set, telemetry): "
+        f"{time.perf_counter() - t0:.1f} s")
+    del spec_dm
+    torch.cuda.empty_cache()
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     dp16 = {"encode": enc16, "decode": dec16, "table": table16,
             "rank": dp16_rank}
-    print(json.dumps(kernels_line(rows, counts, train_rows, train_counts,
-                                  infer_rows, conversion, infer_counts,
-                                  dp_row, carrier_rows, dp_rank, bf16_rows,
-                                  bf16_counts, dp16, ce_rows, ce_counts,
-                                  bert, {"counts": counts29, "row": row_r},
-                                  {"counts": counts31, "row": row_wd},
-                                  lenet, flash_entry, mobilenet, ptb_run,
-                                  gcn, {"kernels": fp16_k, "train": fp16_t,
-                                        "bert": bert_h},
-                                  {"encode": enc_h, "decode": dec_h,
-                                   "table": table_h, "rank": wire_h,
-                                   "qmm_rows": int8_h["qmm_rows"],
-                                   "qmm_routes": int8_h["qmm_routes"]},
-                                  {"51": zero2, "52": zero3,
-                                   "53": zero_wire, "row": zero_row})))
+    line = kernels_line(rows, counts, train_rows, train_counts, infer_rows,
+                        conversion, infer_counts, dp_row, carrier_rows,
+                        dp_rank, bf16_rows, bf16_counts, dp16, ce_rows,
+                        ce_counts, bert, {"counts": counts29, "row": row_r},
+                        {"counts": counts31, "row": row_wd}, lenet,
+                        flash_entry, mobilenet, ptb_run, gcn,
+                        {"kernels": fp16_k, "train": fp16_t,
+                         "bert": bert_h},
+                        {"encode": enc_h, "decode": dec_h, "table": table_h,
+                         "rank": wire_h, "qmm_rows": int8_h["qmm_rows"],
+                         "qmm_routes": int8_h["qmm_routes"]},
+                        {"51": zero2, "52": zero3, "53": zero_wire,
+                         "row": zero_row})
+    for entry in line["kernels"][:2]:       # codec_encode, codec_decode
+        entry["launches_by_phase"] = {
+            "3": counts[entry["name"]],
+            "54": spec54["counts"][entry["name"]],
+            "55": replicas["launches"][entry["name"]]}
+    print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

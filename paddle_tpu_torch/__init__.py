@@ -87,7 +87,11 @@ runs the reference's eager code on the card:
                (lr) and the fused flat updater
   jit/         TrainStep (data parallel with grad_comm)
   serving/     decode model, KV block pool, sampler, queue, engine
-  observability/ counters, gauges and histograms
+               (speculative decoding), the replica set
+  observability/ metrics, event log, request tracing, flight recorder,
+               the telemetry HTTP server
+  robustness/  the watchdog (NanGuard, HangDetector) and the replica
+               integrity guard
 
 Then the eager training surface: the random ops over per-device
 generators (``framework/random.py``, ``tensor/random.py``: ``seed``,
@@ -162,7 +166,7 @@ from . import (metric, nn, optimizer, quantization, regularizer,  # noqa: E402,F
                vision)
 from . import (amp, autograd, device, distributed, distribution,  # noqa: E402,F401
                fft, geometric, incubate, jit, linalg, observability,
-               signal, sparse, sysconfig, version)
+               robustness, signal, sparse, sysconfig, version)
 from .distributed.parallel import DataParallel  # noqa: E402,F401
 from .framework.device import XPUPlace  # noqa: E402,F401
 from .framework.io import load, save  # noqa: E402,F401

@@ -32,8 +32,11 @@ that ran before the flush began, into the ``grad_comm_overlap_efficiency``
 gauge and the ``grad_comm_overlapped_syncs_total`` and
 ``grad_comm_buckets_launched_early_total`` counters. ``abandon`` disarms
 a prepared step without syncing (the raw micro-batches of gradient
-accumulation). The reference's spans and flight-recorder entries are
-ROADMAP Queue A item 9 (tracing).
+accumulation). Each bucket writes the reference's flight-recorder lane
+entries (launch, then start, end or error, with the bucket and group),
+so a hang's postmortem names the bucket that never completed. The
+reference's ``RecordEvent`` spans wait for the port of ``profiler``
+(ROADMAP Queue A 14).
 
 ``sync_async`` is the reference's per-bucket futures; eager, as here,
 they are resolved at once (``FusedFlatUpdater.step(futures=...)`` takes
@@ -51,6 +54,7 @@ import numpy as np
 import torch
 
 from ..framework.autograd import unwrap
+from ..observability.flight_recorder import get_flight_recorder
 from ..observability.metrics import get_registry as _get_registry
 from .grad_comm import (EF_CODECS, GradBucket, GradCommConfig,
                         GradCommunicator)
@@ -278,9 +282,17 @@ class OverlappedGradCommunicator(GradCommunicator):
         fut.ready = _record_event(params[bucket.param_indices[0]].grad.device)
         st["futures"][bucket.index] = fut
         use_rs = st["use_reduce_scatter"]
+        # flight-recorder lane entries: a hang postmortem must name the
+        # bucket and group that launched and never completed
+        flightrec = get_flight_recorder()
+        group = repr(self.group) if self.group is not None else "world"
+        flightrec.lane(f"comm_launch:bucket{bucket.index}",
+                       bucket=bucket.index, group=group, phase="launch")
 
         def job():
             fut.start_ns = time.perf_counter_ns()
+            flightrec.lane(f"comm:bucket{bucket.index}", bucket=bucket.index,
+                           group=group, phase="start")
             try:
                 _wait_event(fut.ready)
                 with torch.no_grad():
@@ -293,8 +305,13 @@ class OverlappedGradCommunicator(GradCommunicator):
                     fut.event.synchronize()
             except BaseException as e:  # raised by flush()
                 fut._fail(e)
+                flightrec.lane(f"comm:bucket{bucket.index}",
+                               bucket=bucket.index, group=group,
+                               phase="error", error=repr(e))
             else:
                 fut._resolve(reduced)
+                flightrec.lane(f"comm:bucket{bucket.index}",
+                               bucket=bucket.index, group=group, phase="end")
             fut.end_ns = time.perf_counter_ns()
 
         self._lane.submit(job)

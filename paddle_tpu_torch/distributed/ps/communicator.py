@@ -20,10 +20,9 @@
 
 All of it is host numpy; the gradients a caller pushes come off the card
 once per push. Every push and pull counts in ``ps_rpcs_total`` (by op)
-of the port's metrics registry. The reference also writes an event-log
-record per RPC under ``FLAGS_enable_rpc_profiler``; the port has no
-event log, so with that flag on a push or pull raises
-``NotImplementedError`` (ROADMAP Queue A, "replicas and tracing").
+of the port's metrics registry; under ``FLAGS_enable_rpc_profiler``
+each also writes the reference's debug record ("ps_rpc": op, table id,
+key count, gradient bytes) into the global event log.
 
 One difference, no result changes: the reference's ``flush`` can return
 early. Its push clears the drained event and then enqueues, and the send
@@ -41,6 +40,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ...framework.flags import flag
+from ...observability import get_event_log, rpc_profiler_enabled
 from ...observability.metrics import get_registry
 
 __all__ = ["Communicator", "AsyncCommunicator", "GeoCommunicator",
@@ -49,16 +49,15 @@ __all__ = ["Communicator", "AsyncCommunicator", "GeoCommunicator",
 _m_rpcs = get_registry().counter("ps_rpcs_total",
                                  help="PS push/pull RPCs issued",
                                  labels=("op",))
-TRACING_ITEM = "ROADMAP Queue A, 'replicas and tracing'"
 
 
-def _record_rpc(op: str) -> None:
-    """Count one RPC; the reference's event-log record is not ported."""
-    if flag("FLAGS_enable_rpc_profiler"):
-        raise NotImplementedError(
-            f"FLAGS_enable_rpc_profiler: the per-RPC event log is not "
-            f"ported ({TRACING_ITEM})")
+def _record_rpc(op: str, table_id, keys, grads=None) -> None:
+    """Count one RPC; under FLAGS_enable_rpc_profiler also log it."""
     _m_rpcs.labels(op=op).inc()
+    if rpc_profiler_enabled():
+        get_event_log().debug(
+            "ps_rpc", op=op, table_id=int(table_id), n_keys=int(keys.size),
+            bytes=int(grads.nbytes) if grads is not None else None)
 
 
 def merge_sparse(keys: np.ndarray, grads: np.ndarray):
@@ -111,11 +110,11 @@ class Communicator:
     def push_sparse(self, table_id, keys, grads, lr=-1.0):
         keys, grads = merge_sparse(np.asarray(keys, np.uint64).reshape(-1),
                                    np.asarray(grads, np.float32))
-        _record_rpc("push_sparse")
+        _record_rpc("push_sparse", table_id, keys, grads)
         self.client.push(table_id, keys, grads, lr=lr)
 
     def pull_sparse(self, table_id, keys):
-        _record_rpc("pull_sparse")
+        _record_rpc("pull_sparse", table_id, np.asarray(keys))
         return self.client.pull(table_id, keys)
 
     def flush(self):
@@ -212,7 +211,7 @@ class AsyncCommunicator(Communicator):
                 keys = np.concatenate([b[1] for b in batch])
                 grads = np.concatenate([b[2] for b in batch])
                 keys, grads = merge_sparse(keys, grads)
-                _record_rpc("push_sparse_merged")
+                _record_rpc("push_sparse_merged", item[0], keys, grads)
                 self.client.push(item[0], keys, grads, lr=item[3])
             except Exception as e:      # raised again by flush/stop
                 self._err.append(e)

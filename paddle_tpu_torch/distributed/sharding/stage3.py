@@ -71,7 +71,10 @@ overlapped gradient lane's collectives on the shared process group.
 With no process group of ``world`` ranks (one process emulating them,
 as the reference's tests do) the store keeps the other ranks' shards
 too (``peer_shard``; on the shard's device) and assembles the full
-buffer from them.
+buffer from them. Each prefetched gather writes the reference's
+flight-recorder lane entries (launch, then start, end or error); its
+``RecordEvent`` spans wait for the port of ``profiler`` (ROADMAP Queue A
+14).
 """
 from __future__ import annotations
 
@@ -89,6 +92,7 @@ from ..grad_comm import GradCommConfig, GradCommunicator
 from ..overlap import CollectiveLane, GatherFuture, _record_event, \
     _wait_event
 from ...framework.autograd import unwrap
+from ...observability.flight_recorder import get_flight_recorder
 from ...observability.metrics import get_registry as _get_registry
 
 __all__ = ["Stage3ParamShards", "zero3_gather_report"]
@@ -241,10 +245,16 @@ class Stage3ParamShards:
             fut.ready = _record_event(self._shards[index].device)
             self._futures[index] = fut
             self._state[index] = INFLIGHT
+        flightrec = get_flight_recorder()
+        group = repr(self.group) if self.group is not None else "world"
+        flightrec.lane(f"gather_launch:bucket{index}", bucket=index,
+                       group=group, phase="launch")
         bucket = self.buckets[index]
 
         def job():
             fut.start_ns = time.perf_counter_ns()
+            flightrec.lane(f"gather:bucket{index}", bucket=index,
+                           group=group, phase="start")
             try:
                 _wait_event(fut.ready)
                 full = self._gather_full(bucket)
@@ -253,8 +263,12 @@ class Stage3ParamShards:
                     fut.event.synchronize()
             except BaseException as e:   # raised at the wait
                 fut._fail(e)
+                flightrec.lane(f"gather:bucket{index}", bucket=index,
+                               group=group, phase="error", error=repr(e))
             else:
                 fut._resolve(full)
+                flightrec.lane(f"gather:bucket{index}", bucket=index,
+                               group=group, phase="end")
             fut.end_ns = time.perf_counter_ns()
 
         self._lane.submit(job)

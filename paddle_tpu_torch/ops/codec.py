@@ -12,7 +12,9 @@ counts its kernel launches in a plain integer attribute
 where the kernel is launched, so a run can show its path went through
 the kernel; ``block_encode.shapes`` counts its launches by ``(n_blocks,
 block_size, codec, carrier)`` and ``block_encode.dtypes`` by the input's
-dtype. The wrappers check device, dtype, shape and contiguity, allocate
+dtype. The counts are updated under one lock: the serving replicas
+launch from several threads, and an unlocked read-modify-write can lose
+a count. The wrappers check device, dtype, shape and contiguity, allocate
 outputs with ``torch.empty`` (or write the caller's ``out=``) and never
 synchronize; the kernel runs on PyTorch's current stream. The encode
 reads an fp32, bf16 or fp16 input, a ragged one (``numel`` not a
@@ -26,6 +28,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -44,6 +47,7 @@ _WIRE_ID = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.int32: 2,
             torch.float32: 3}
 # element types of the encode's input and the decode's output
 _ELEM_ID = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_count_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,9 +123,7 @@ def block_encode(flat: torch.Tensor, scales: torch.Tensor, block_size: int,
                               torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"codec_encode launch failed: CUDA error {rc}")
-    block_encode.launches += 1
-    block_encode.shapes[(nb, block_size, codec, bool(carrier))] += 1
-    block_encode.dtypes[flat.dtype] += 1
+    _count_encode((nb, block_size, codec, bool(carrier)), flat.dtype)
     return out
 
 
@@ -168,8 +170,7 @@ def block_decode(q: torch.Tensor, scales: torch.Tensor, world: int,
                               torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"codec_decode launch failed: CUDA error {rc}")
-    block_decode.launches += 1
-    block_decode.dtypes[dtype] += 1
+    _count_decode(dtype)
     return out
 
 
@@ -180,14 +181,31 @@ block_decode.launches = 0
 block_decode.dtypes = collections.Counter()
 
 
+def _count_encode(shape, dtype) -> None:
+    """One ``codec_encode`` launch at ``shape`` from a ``dtype`` input."""
+    with _count_lock:
+        block_encode.launches += 1
+        block_encode.shapes[shape] += 1
+        block_encode.dtypes[dtype] += 1
+
+
+def _count_decode(dtype) -> None:
+    """One ``codec_decode`` launch into ``dtype``."""
+    with _count_lock:
+        block_decode.launches += 1
+        block_decode.dtypes[dtype] += 1
+
+
 def launch_counts() -> dict:
-    return {"codec_encode": block_encode.launches,
-            "codec_decode": block_decode.launches}
+    with _count_lock:
+        return {"codec_encode": block_encode.launches,
+                "codec_decode": block_decode.launches}
 
 
 def reset_launch_counts() -> None:
-    block_encode.launches = 0
-    block_encode.shapes.clear()
-    block_encode.dtypes.clear()
-    block_decode.launches = 0
-    block_decode.dtypes.clear()
+    with _count_lock:
+        block_encode.launches = 0
+        block_encode.shapes.clear()
+        block_encode.dtypes.clear()
+        block_decode.launches = 0
+        block_decode.dtypes.clear()

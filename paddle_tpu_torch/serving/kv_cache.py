@@ -131,6 +131,9 @@ class KVBlockPool:
         self._block_keys: List[List[bytes]] = [[] for _ in range(self.n_blocks)]
         self._lru: "OrderedDict[int, None]" = OrderedDict()
         self.prefix_evictions = 0
+        # this pool's codec calls (kernel launches on the card): one
+        # encode and one read-back decode an append, one decode a gather
+        self.codec_calls = {"encode": 0, "decode": 0}
 
     # ------------------------------------------------------------ allocator
     @property
@@ -319,6 +322,8 @@ class KVBlockPool:
         scales = _gc.block_scales(_gc.block_absmax(flat, qb), self.codec)
         q = _codec.block_encode(flat, scales, qb, self.codec)
         deq = _codec.block_decode(q, scales, 1, flat.numel())
+        self.codec_calls["encode"] += 1
+        self.codec_calls["decode"] += 1
         return (q.reshape(t, self.elems_per_token),
                 scales.reshape(t, self._scales_per_token),
                 deq.reshape(t, self.elems_per_token))
@@ -416,6 +421,7 @@ class KVBlockPool:
             return payload
         spt = self._scales_per_token
         scales = self._scales[blocks].reshape(-1)[:n * spt]
+        self.codec_calls["decode"] += 1
         return _codec.block_decode(payload.reshape(n * spt, self.quant_block), scales, 1,
                                    n * ept).reshape(n, ept)
 

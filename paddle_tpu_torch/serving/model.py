@@ -9,7 +9,13 @@
                                     new token's KV row
   extend(ids, pos, past, past_len, tail_len)
                                     a ragged multi-token tail against the
-                                    cached KV (prefix-cache tail prefill)
+                                    cached KV (prefix-cache tail prefill,
+                                    the speculative step's verification)
+
+``truncated(n)`` is a draft model for speculative decoding: the first
+``n`` blocks under the same embeddings and final norm, its parameters
+views of this model's stacked ones (no copy). ``param_list()`` is the
+flat parameter list, sorted by name, that the replica guard digests.
 
 The block parameters are stacked ``[L, ...]`` on the model's device once;
 a Python loop over layers takes the place of the reference's
@@ -81,6 +87,30 @@ class GPTDecodeModel:
         self._eps = cfg.layer_norm_epsilon
         self._scale = 1.0 / math.sqrt(self.head_dim)
         self.params = self._extract(model)
+
+    def truncated(self, n_layers: int) -> "GPTDecodeModel":
+        """A draft model from this model's own weights: the first
+        ``n_layers`` blocks under the same embeddings and final norm.
+        Its block parameters are views ``p[name][:n]`` of the stacked
+        ones, so nothing is copied; its KV payload is proportionally
+        smaller (``elems_per_token = n_layers * 2 * hidden``) and is not
+        paged: the engine keeps a dense draft cache a sequence."""
+        if not (0 < int(n_layers) <= self.n_layers):
+            raise ValueError(
+                f"truncated wants 1..{self.n_layers} layers, got {n_layers}")
+        new = object.__new__(GPTDecodeModel)
+        new.__dict__.update(self.__dict__)
+        new.n_layers = int(n_layers)
+        new.elems_per_token = new.n_layers * 2 * new.hidden
+        new.params = dict(self.params)
+        for name in BLOCK_PARAMS:
+            new.params[name] = self.params[name][:new.n_layers]
+        return new
+
+    def param_list(self) -> list:
+        """Flat deterministic parameter list (the replica guard's digest
+        input): the reference's order, sorted by name."""
+        return [self.params[k] for k in sorted(self.params)]
 
     def _extract(self, model: GPTForCausalLM) -> dict:
         gpt = model.gpt

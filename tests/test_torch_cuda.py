@@ -9,7 +9,16 @@ there with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 Tolerances: codec payloads and decoded values bit-identical; pool bytes
 identical; greedy engine tokens identical to the CPU engine's, with every
 step's top-2 logit gap asserted above 1e-3 (card and CPU fp32 logits
-differ by ~1e-5 at this size). Flash kernels and ``fused_update``
+differ by ~1e-5 at this size). A speculative engine on the card
+(``draft_model=dm.truncated(1)``, ``spec_k=4``) against the plain engine
+on the card, greedy and top_p, under ``tests/torch_serving_checks.py``
+``spec_rule`` (equal tokens, or a decision margin below 1e-3 at a
+request's first differing position: the k+1-row ``extend`` and the
+one-row ``decode`` reach cuBLAS with different ``m``), no block leaked,
+one encode a prompt and one a plain or speculative tick; a two-thread
+``ReplicaSet`` on the card completing every request, the codec launches
+of its two threads summed exactly equal to the pools' codec calls and
+the engines' appends. Flash kernels and ``fused_update``
 against their plain versions on the card by ``tests/torch_checks.py``'s
 criteria, which ``chip_smoke.py`` shares: out and lse within 2e-5 max
 abs, dq/dk/dv within 1e-4 of the larger of 1 and the largest gradient
@@ -176,6 +185,7 @@ from torch_checks import (BF16_LOSS_RTOL, FUSED_HYPER, adam_step_parity,
                           qmm_vs_plain,
                           quantize_vs_plain, run_checks, same_bits)
 from torch_nn_checks import NN_CASES, dropout_properties, nn_case_vs_cpu
+from torch_serving_checks import drive, spec_rule
 
 torch.set_num_threads(2)
 
@@ -546,6 +556,80 @@ def check_engine_on_card_token_identical_to_cpu(dev):
     encodes = after["codec_encode"] - before["codec_encode"]
     assert encodes == len(prompts) + decode_steps
     assert after["codec_decode"] - before["codec_decode"] > encodes
+
+
+def _spec_prompts():
+    rs = np.random.RandomState(1)
+    shared = rs.randint(0, 256, 20)
+    return [np.concatenate([shared, rs.randint(0, 256, 3 + 4 * i)])
+            if i % 2 else rs.randint(0, 256, 9 + 5 * i) for i in range(6)]
+
+
+def check_spec_engine_on_card_against_plain(dev, sampling):
+    from paddle_tpu_torch.serving import ReplicaSet, SamplingParams
+
+    dm = GPTDecodeModel(GPTForCausalLM(gpt_presets("gpt-test"), seed=0,
+                                       device=dev))
+    pool_kw = dict(n_blocks=64, block_tokens=8,
+                   elems_per_token=dm.elems_per_token, codec="int8_block",
+                   device=dev)
+    sp = (SamplingParams(temperature=0.8, top_p=0.95) if sampling
+          else SamplingParams())
+    runs = {}
+    reg = get_registry()
+    for name, ekw in (("plain", {}),
+                      ("spec", dict(draft_model=dm.truncated(1), spec_k=4))):
+        q = RequestQueue()
+        eng = ServingEngine(dm, KVBlockPool(**pool_kw), q, max_batch=4,
+                            **ekw)
+        reqs = [ServeRequest(prompt_ids=p, max_new_tokens=24,
+                             request_id=f"c{i}", sampling=sp)
+                for i, p in enumerate(_spec_prompts())]
+        ticks0 = (reg.get("serve_decode_step_ms").get()["count"]
+                  + reg.get("serve_spec_step_ms").get()["count"])
+        before = codec.launch_counts()
+        drive(eng, q, reqs)
+        after = codec.launch_counts()
+        ticks = (reg.get("serve_decode_step_ms").get()["count"]
+                 + reg.get("serve_spec_step_ms").get()["count"] - ticks0)
+        enc = after["codec_encode"] - before["codec_encode"]
+        assert enc == len(reqs) + ticks
+        assert enc == eng.pool.codec_calls["encode"]
+        assert (after["codec_decode"] - before["codec_decode"]
+                == eng.pool.codec_calls["decode"])
+        runs[name] = (eng, reqs)
+    eng, spec = runs["spec"]
+    assert eng.spec_steps > 0
+    differ = spec_rule(dm, runs["plain"][1], spec, pool_kw)
+    print(f"speculative on the card: {len(differ)} of {len(spec)} requests "
+          f"differ from plain, each at a near-tie: {differ}")
+    # two replica threads on one card: every count kept
+    rset = ReplicaSet(dm, n_replicas=2, n_blocks=64, block_tokens=8,
+                      codec="int8_block", max_batch=2,
+                      draft_model=dm.truncated(1), spec_k=4)
+    ticks0 = (reg.get("serve_decode_step_ms").get()["count"]
+              + reg.get("serve_spec_step_ms").get()["count"])
+    before = codec.launch_counts()
+    with rset:
+        ids = []
+        for i, p in enumerate(_spec_prompts() * 2):
+            r = ServeRequest(prompt_ids=p, max_new_tokens=24,
+                             request_id=f"t{i}", sampling=sp)
+            assert rset.submit(r)
+            ids.append(r.request_id)
+        res = rset.wait(ids, timeout=120)
+    after = codec.launch_counts()
+    ticks = (reg.get("serve_decode_step_ms").get()["count"]
+             + reg.get("serve_spec_step_ms").get()["count"] - ticks0)
+    assert len(res) == len(ids)
+    assert all(r.outcome == "completed" for r in res.values())
+    assert all(e.completed > 0 for e in rset.engines)
+    assert (after["codec_encode"] - before["codec_encode"]
+            == sum(e.pool.codec_calls["encode"] for e in rset.engines)
+            == len(ids) + ticks)
+    assert (after["codec_decode"] - before["codec_decode"]
+            == sum(e.pool.codec_calls["decode"] for e in rset.engines))
+    assert all(e.pool.blocks_in_use == 0 for e in rset.engines)
 
 
 _SFX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_fp16"}
@@ -1650,6 +1734,8 @@ def test_cuda_path_matches_plain(dev):
         + [(check_wrappers_raise_on_what_the_kernel_does_not_take, (dev,))]
         + [(check_pool_on_card_matches_pool_on_cpu, (dev, c)) for c in CODECS]
         + [(check_engine_on_card_token_identical_to_cpu, (dev,))]
+        + [(check_spec_engine_on_card_against_plain, (dev, sampled))
+           for sampled in (False, True)]
         + [(check_flash_kernels_match_plain, (dev, s, d, c))
            for s, d in ((1, 16), (37, 16), (64, 64), (130, 64), (100, 128),
                         (256, 128), (77, 96),

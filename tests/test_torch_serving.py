@@ -296,7 +296,7 @@ def check_sampler_greedy_topk_and_determinism():
         temperature=1.0, top_p=1e-6)] * 5, list("abcde"), [0] * 5), argmax)
 
 
-def check_queue_rejects_at_depth_and_engine_drain_frees_blocks(dms):
+def check_queue_rejects_at_depth_and_engine_drain_abandons_pool(dms):
     _, tdm = dms
     q = RequestQueue(max_depth=2)
     reqs = [ServeRequest(prompt_ids=np.arange(n)) for n in (5, 6, 7)]
@@ -307,10 +307,14 @@ def check_queue_rejects_at_depth_and_engine_drain_frees_blocks(dms):
     eng = ServingEngine(tdm, pool, q, max_batch=4)
     eng.step()
     assert len(eng.running) == 2 and pool.blocks_in_use > 0
+    held = pool.blocks_in_use
     back = eng.drain()
     assert [r.request_id for r in back] == [r.request_id for r in reqs[:2]]
-    assert all(not r.generated and r.t_submit for r in back)
-    assert pool.blocks_in_use == 0 and not eng.step()
+    assert all(not r.generated and r.t_submit and r.attempts == 1
+               for r in back)
+    assert [r.trace for r in back] == [r.trace for r in reqs[:2]]
+    # the pool is abandoned with the engine, never handed back
+    assert pool.blocks_in_use == held and not eng.step()
 
 
 # ------------------------------------------------------ bf16 decode model
@@ -424,7 +428,7 @@ def test_serving_port_matches_reference(fresh_mesh):
            (check_prefix_cache_on_off_same_tokens, (dms,)),
            (check_sampled_request_placement_invariant, (dms,)),
            (check_sampler_greedy_topk_and_determinism, ()),
-           (check_queue_rejects_at_depth_and_engine_drain_frees_blocks,
+           (check_queue_rejects_at_depth_and_engine_drain_abandons_pool,
             (dms,)),
            (check_port_sources_import_no_jax_or_reference_package, ()),
            (check_importing_port_serving_loads_no_jax, ())])

@@ -21,7 +21,8 @@ Cases and tolerances (the measured value beside each):
   enqueued while its send loop saw an empty queue has reached the table
   (confirmed here with the enqueue held until the loop has looked); the
   port's does not. ``ps_rpcs_total`` counts; ``FLAGS_enable_rpc_profiler``
-  raises; the TCP wire and graph tables raise, naming their item.
+  writes the reference's "ps_rpc" event; the TCP wire and graph tables
+  raise, naming their item.
 - The lookup: ``distributed_lookup_table``'s rows, and the table after
   its backward pushed through the communicator and through a client.
 - The pass cache: ``slots``, the ``KeyError`` for an id outside the
@@ -380,13 +381,22 @@ def check_counters_flags_and_what_raises():
     c.pull_sparse(0, np.arange(3, dtype=np.uint64))
     assert fam.labels(op="push_sparse").get() == n0 + 1
     assert fam.labels(op="pull_sparse").get() == p0 + 1
+    # FLAGS_enable_rpc_profiler: the reference's per-RPC event record
+    from paddle_tpu_torch.observability import EventLog, set_event_log
+
     saved = flag("FLAGS_enable_rpc_profiler")
+    prev = set_event_log(EventLog())
     try:
         set_flags({"FLAGS_enable_rpc_profiler": True})
-        with pytest.raises(NotImplementedError, match="replicas and tracing"):
-            c.pull_sparse(0, np.arange(3, dtype=np.uint64))
+        c.pull_sparse(0, np.arange(3, dtype=np.uint64))
+        from paddle_tpu_torch.observability import get_event_log
+        ev = get_event_log().events(kind="ps_rpc")
+        assert [(e["op"], e["table_id"], e["n_keys"], e["bytes"],
+                 e["severity"]) for e in ev] == [
+            ("pull_sparse", 0, 3, None, "debug")]
     finally:
         set_flags({"FLAGS_enable_rpc_profiler": saved})
+        set_event_log(prev)
     rt = tps.TheOnePSRuntime()
     for call in (rt.init_server, rt.run_server,
                  lambda: rt.init_worker(["127.0.0.1:1"]),
